@@ -6,7 +6,8 @@
 Phases, in order (any failure propagates and exits non-zero):
   1. build   — define the Triton kernels from the repository's sources;
                Triton compiles each specialisation at its first launch into
-               ``build/triton_cache`` (listed in .gitignore).
+               ``build/triton_cache``; compile the CUDA C++ kernels with
+               ``nvcc`` into ``build/kernels`` (both listed in .gitignore).
   2. kernel  — the fused InstanceNorm kernel against its plain PyTorch
                version at the main path's largest and smallest norm shapes,
                bf16 and f32, ReLU on and off; the autograd backward against
@@ -23,6 +24,24 @@ Phases, in order (any failure propagates and exits non-zero):
                plain norm in f32: entropy, norm-param deltas, predictions.
   6. timing  — the kernel at every norm shape of one forward, against the
                plain version, F.instance_norm+relu and the byte bound.
+  7. min-plus — the CUDA min-plus kernel against its plain version at the
+               evaluation path's two shapes and at small and ragged cases:
+               bitwise equal, +inf kept, no NaN.
+  8. EDT     — the squared distance transform through the kernel on a full
+               [48,144,144] mask against scipy's on the host; an empty mask
+               gives +inf everywhere.
+  9. eval    — evaluation under adaptation: the flagship UNet3D through
+               ``TTAEngine.evaluate`` (Dice/IoU, loss, HD95/ASD/NSD) over 3
+               batches of 2 volumes with two domains, for no adaptation,
+               episodic Tent and continual Tent: the whole key schema, finite
+               values in range, 12 min-plus launches per batch, Dice equal to
+               a numpy recomputation on the host, the model restored after
+               every run; an all-empty prediction gets the diagonal penalty.
+ 10. timing  — the min-plus kernel per shape against the plain version and
+               its bound, and one evaluated batch split into forward,
+               Dice/IoU, loss and surface metrics (and within those the
+               min-plus launches, the axis copies, the sorts, the surface
+               extraction).
 
 The line before the last is the kernel summary ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``. Weights and data are random,
@@ -41,7 +60,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM published peaks (NVIDIA data sheet; at a 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12  # non-tensor-core f32
+FP32_FLOPS = 67e12  # non-tensor-core f32, counted as fused multiply-adds
+# an add and a min per (r, i, j) cannot fuse into one FMA: half the f32 figure
+FP32_ADDMIN_OPS = FP32_FLOPS / 2
 # tolerances of kernel vs plain: f32 — same arithmetic, other summation
 # order over up to 1M elements; bf16 — one bf16 rounding step of the output
 TOL_F32 = dict(atol=5e-5, rtol=0.0)
@@ -60,6 +81,27 @@ DEVICE_TRANSFORM = {"normalize": True, "intensity_policy": HECKTOR_POLICY, "chan
 SHAPE = (48, 144, 144, 2)
 BATCH = 2
 THRESHOLD = 0.3
+SPACING = (3.0, 1.0, 1.0)  # HECKTOR21, mm
+NSD_TOL = 2.0
+DOMAINS = (["CHUM", "CHGJ"], ["CHGJ", "CHGJ"], ["CHUM", "CHUM"])
+EDT_REL_TOL = 1e-5  # squared EDT vs scipy: f32 sums of squares against f64
+DICE_ABS_TOL = 1e-5  # device f32 Dice vs numpy f64 on the same masks
+
+
+def eval_config(method: str, episodic: bool, threshold: float = THRESHOLD) -> dict:
+    return {
+        "task": {"seed": 0, "eval_strategy": "seg_eval"},
+        "dataset": {"modality_order": ["ct", "pt"]},
+        "training": {"criterion": {"sigmoid": True},
+                     "data": {"transforms": {"on_device": True, "normalize": True,
+                                             "intensity_policy": HECKTOR_POLICY}}},
+        "evaluation": {"seg": {"region_order": ["gtvt"], "threshold": threshold,
+                               "spacing": list(SPACING)},
+                       "surface": {"enable": True, "nsd_tol": NSD_TOL},
+                       "loss": {"report_loss": True}},
+        "tta": {"method": method, "steps": 1, "lr": 1e-3, "optimizer": "sgd", "momentum": 0.9,
+                "update": "norm", "episodic": episodic},
+    }
 
 
 def log(msg: str) -> None:
@@ -77,7 +119,15 @@ def main() -> int:
     os.environ.setdefault("TRITON_HOME", os.path.join(REPO, "build", "triton_home"))
     sys.path.insert(0, REPO)
 
-    from multimodal_tta_tpu_torch.kernels import fused_instance_norm_triton
+    import numpy as np
+    from scipy import ndimage
+
+    from multimodal_tta_tpu_torch.evaluation.seg_eval import (
+        SegmentationEvaluationStrategy,
+        diag_mm_from_shape,
+    )
+    from multimodal_tta_tpu_torch.kernels import _build, fused_instance_norm_triton
+    from multimodal_tta_tpu_torch.kernels.edt_minplus import minplus, minplus_plain
     from multimodal_tta_tpu_torch.kernels.fused_instance_norm import (
         fused_instance_norm,
         instance_norm_plain,
@@ -85,6 +135,13 @@ def main() -> int:
     from multimodal_tta_tpu_torch.models.layers import InstanceNorm, set_plain_norm
     from multimodal_tta_tpu_torch.models.unet3d import UNet3D
     from multimodal_tta_tpu_torch.ops.intensity import make_intensity_normalizer
+    from multimodal_tta_tpu_torch.ops.seg_metrics import binary_dice_iou
+    from multimodal_tta_tpu_torch.ops.surface import (
+        batched_surface_metrics,
+        extract_surface,
+        squared_edt,
+    )
+    from multimodal_tta_tpu_torch.tta.engine import TTAEngine
     from multimodal_tta_tpu_torch.tta.tent import TentAdapter, norm_param_mask
     from multimodal_tta_tpu_torch.conf import ConfigNode
 
@@ -128,6 +185,12 @@ def main() -> int:
     k = fused_instance_norm_triton.build()
     log(f"[build] triton {k.version}: kernels stats/finish/norm defined in "
         f"{time.perf_counter() - t0:.2f}s; cache {os.environ['TRITON_CACHE_DIR']}")
+    built = _build.load("edt_minplus")
+    log(f"[build] nvcc: {_build.nvcc_release()}; csrc/edt_minplus.cu -> "
+        f"{os.path.relpath(built.path, REPO)} in {built.seconds:.2f}s")
+    for line in built.log.splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"[build]   {line.strip()}")
 
     # ---- 2. kernel vs plain ---------------------------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -334,6 +397,226 @@ def main() -> int:
         totals["library_ms"] += n * lib_ms
         totals["bytes"] += n * nbytes
         totals["flops"] += n * flops
+    # ---- 7. min-plus kernel vs plain --------------------------------------
+    def cost_matrix(n: int, spacing: float):
+        i = torch.arange(n, dtype=torch.float32, device=dev)
+        return ((i[None, :] - i[:, None]) * spacing) ** 2
+
+    def sparse_lines(rows: int, n: int, keep: float = 0.85):
+        """Lines of 0 / +inf as the EDT's first pass sees them."""
+        return torch.where(torch.rand(rows, n, generator=gen, device=dev) > keep, 0.0,
+                           float("inf")).to(torch.float32)
+
+    d_, h_, w_ = SHAPE[:3]
+    # (rows, n, spacing) -> calls per evaluated batch of BATCH volumes, 1 region:
+    # one pass per axis, two transforms per (sample, region) pair
+    path_shapes = {}
+    for rows, n, sp in ((h_ * w_, d_, SPACING[0]), (d_ * w_, h_, SPACING[1]), (d_ * h_, w_, SPACING[2])):
+        path_shapes[(rows, n, sp)] = path_shapes.get((rows, n, sp), 0) + 2 * BATCH
+    cases = [(r, n, sp, sparse_lines(r, n)) for (r, n, sp) in path_shapes]
+    cases += [(r, n, 1.5, sparse_lines(r, n)) for r, n in ((10, 48), (300, 144), (256, 128), (1, 7))]
+    cases.append((4, 16, 1.0, torch.full((4, 16), float("inf"), device=dev)))
+    cases.append((20, 32, 3.0, torch.rand(20, 32, generator=gen, device=dev) * 50))
+    minplus_err = 0.0
+    for rows, n, sp, f in cases:
+        c = cost_matrix(n, sp)
+        got = minplus(f, c)
+        sync()
+        ref = minplus_plain(f, c)
+        equal = torch.equal(got, ref)
+        nan = bool(torch.isnan(got).any())
+        finite = torch.isfinite(ref)
+        err = float((got[finite] - ref[finite]).abs().max()) if bool(finite.any()) else 0.0
+        minplus_err = max(minplus_err, err)
+        log(f"[min-plus] f [{rows},{n}] spacing {sp}: bitwise equal to plain={equal}, "
+            f"inf out {int(torch.isinf(got).sum())} (plain {int(torch.isinf(ref).sum())}), nan={nan}, "
+            f"max abs err {err:.3g} (tolerance 0: same adds, min is exact in any order)")
+        if not equal or nan:
+            raise AssertionError(f"min-plus kernel disagrees with plain at [{rows},{n}]")
+    if not bool(torch.isinf(minplus(cases[-2][3], cost_matrix(16, 1.0))).all()):
+        raise AssertionError("min-plus: an all-inf input must stay all inf")
+
+    # ---- 8. squared EDT through the kernel vs scipy -----------------------
+    rng = np.random.RandomState(7)
+    zz, yy, xx = np.meshgrid(np.arange(d_), np.arange(h_), np.arange(w_), indexing="ij")
+
+    def ellipsoid(center, radii):
+        return (((zz - center[0]) / radii[0]) ** 2 + ((yy - center[1]) / radii[1]) ** 2
+                + ((xx - center[2]) / radii[2]) ** 2) <= 1.0
+
+    body = ellipsoid((24, 70, 80), (9, 30, 22))
+    points_np = (body & ~ndimage.binary_erosion(body)) | (rng.rand(d_, h_, w_) > 0.9999)
+    t1 = time.perf_counter()
+    edt_ref = ndimage.distance_transform_edt(~points_np, sampling=SPACING) ** 2
+    scipy_s = time.perf_counter() - t1
+    points = torch.from_numpy(points_np).to(dev)
+    before = minplus.launches
+    edt = squared_edt(points, SPACING)
+    sync()
+    edt_launches = minplus.launches - before
+    rel = float(np.max(np.abs(edt.cpu().numpy() - edt_ref) / np.maximum(edt_ref, 1.0)))
+    empty = squared_edt(torch.zeros_like(points), SPACING)
+    log(f"[EDT] squared_edt {list(points.shape)} spacing {SPACING}, {int(points_np.sum())} points: "
+        f"{edt_launches} kernel launches, max rel err vs scipy {rel:.3g} (limit {EDT_REL_TOL}); "
+        f"empty mask all inf={bool(torch.isinf(empty).all())}; scipy on the host {scipy_s * 1e3:.1f} ms")
+    if edt_launches != 3 or not rel <= EDT_REL_TOL or not bool(torch.isinf(empty).all()):
+        raise AssertionError("squared EDT through the kernel disagrees with scipy")
+    if not edt.is_contiguous() or edt.shape != points.shape:
+        raise AssertionError("squared EDT must return a contiguous [D,H,W] tensor")
+
+    # ---- 9. evaluation under adaptation ------------------------------------
+    model = UNet3D(in_channels=2, num_classes=1, channels=(32, 64, 128, 256, 512),
+                   strides=(2, 2, 2, 2), num_res_units=2, dtype=torch.bfloat16,
+                   device=dev, seed=0)
+    source_sd = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    loader = []
+    for doms in DOMAINS:
+        label = np.stack([
+            ellipsoid(rng.uniform((16, 50, 50), (32, 94, 94)), rng.uniform((4, 10, 10), (10, 30, 30)))
+            for _ in range(BATCH)])[..., None].astype(np.float32)
+        loader.append({"image": (rng.randn(BATCH, *SHAPE) * 100).astype(np.float32),
+                       "label": label, "domain": doms})
+    diag = diag_mm_from_shape(d_, h_, w_, SPACING)
+    per_dom = ("gtvt_dc", "avg_dc", "miou", "gtvt_hd95", "avg_hd95", "gtvt_asd", "avg_asd",
+               "gtvt_nsd", "avg_nsd")
+    schema = set(per_dom) | {"jc", "loss"} | {f"dom/{d}/{k}" for d in ("CHUM", "CHGJ") for k in per_dom}
+
+    def check_metrics(tag: str, m: dict) -> None:
+        if set(m) != schema:
+            raise AssertionError(f"{tag}: keys differ from the schema: {sorted(set(m) ^ schema)}")
+        for k, v in m.items():
+            base = k.rsplit("/", 1)[-1]
+            hi = diag if base.endswith(("_hd95", "_asd")) else (float("inf") if base == "loss" else 1.0)
+            if not (v == v and 0.0 <= v <= hi * (1 + 1e-6)):
+                raise AssertionError(f"{tag}: {k}={v} outside [0, {hi}]")
+
+    def unchanged(tag: str) -> None:
+        for k, v in model.state_dict().items():
+            if not torch.equal(v, source_sd[k]):
+                raise AssertionError(f"{tag}: evaluate left {k} changed")
+
+    def max_diff(a: dict, b: dict) -> float:
+        return max(abs(a[k] - b[k]) for k in a)
+
+    def make_engine(method: str, episodic: bool, threshold: float = THRESHOLD) -> TTAEngine:
+        return TTAEngine(ConfigNode(eval_config(method, episodic, threshold)),
+                         device_transform=DEVICE_TRANSFORM, device=dev)
+
+    eval_modes = (("eval_none", "none", True), ("eval_tent_episodic", "tent", True),
+                  ("eval_tent_continual", "tent", False))
+    eval_runs, eval_launches, norm_eval_launches, eval_ms = {}, {}, {}, {}
+    for tag, method, episodic in eval_modes:
+        engine = make_engine(method, episodic)
+        sync()
+        minplus.launches = 0
+        fused_instance_norm.launches = 0
+        t1 = time.perf_counter()
+        m = engine.evaluate(model, loader)
+        sync()
+        eval_ms[tag] = (time.perf_counter() - t1) * 1e3 / len(loader)
+        eval_launches[tag] = minplus.launches
+        norm_eval_launches[tag] = fused_instance_norm.launches
+        eval_runs[tag] = m
+        check_metrics(tag, m)
+        unchanged(tag)
+        log(f"[eval] {tag}: {len(loader)} batches of {BATCH}, {eval_ms[tag]:.1f} ms/batch (host clock, "
+            f"H2D and first-call warm-up included); gtvt_dc {m['gtvt_dc']:.6f} miou {m['miou']:.6f} "
+            f"loss {m['loss']:.5f} hd95 {m['gtvt_hd95']:.4f} asd {m['gtvt_asd']:.4f} nsd {m['gtvt_nsd']:.6f}; "
+            f"dom/CHUM dc {m['dom/CHUM/gtvt_dc']:.6f} dom/CHGJ dc {m['dom/CHGJ/gtvt_dc']:.6f}; "
+            f"min-plus launches {eval_launches[tag]} ({eval_launches[tag] // len(loader)}/batch), "
+            f"norm launches {norm_eval_launches[tag]}; card {smi}")
+        if eval_launches[tag] != BATCH * 1 * 2 * 3 * len(loader):
+            raise AssertionError(f"{tag}: {eval_launches[tag]} min-plus launches, expected "
+                                 f"{BATCH * 6 * len(loader)}")
+        per_batch_norm = 18 if method == "none" else 36
+        if norm_eval_launches[tag] != per_batch_norm * len(loader):
+            raise AssertionError(f"{tag}: {norm_eval_launches[tag]} norm launches")
+
+    # checks beside the main path (their launches are not reported)
+    strategy = SegmentationEvaluationStrategy(ConfigNode(eval_config("none", True)))
+    dice_host = []
+    with torch.no_grad():
+        for b in loader:
+            _, prob = strategy._probs_fn(model)(torch.from_numpy(b["image"]).to(dev))
+            p = (prob >= THRESHOLD).cpu().numpy().astype(np.float64).reshape(BATCH, -1)
+            g = (b["label"] > 0.5).astype(np.float64).reshape(BATCH, -1)
+            dice_host += list((2 * (p * g).sum(1) + 1e-7) / (p.sum(1) + g.sum(1) + 1e-7))
+    dice_diff = abs(float(np.mean(dice_host)) - eval_runs["eval_none"]["gtvt_dc"])
+    again = make_engine("tent", True).evaluate(model, loader)
+    unchanged("second episodic evaluate")
+    none_again = make_engine("none", True).evaluate(model, loader)
+    d_again = max_diff(again, eval_runs["eval_tent_episodic"])
+    d_none = max_diff(none_again, eval_runs["eval_none"])
+    log(f"[eval] Dice of the none run vs numpy on the host from the same predictions: diff {dice_diff:.3g} "
+        f"(limit {DICE_ABS_TOL}); a second episodic evaluate: max diff {d_again:.3g}; a none run after the "
+        f"Tent runs vs the first: max diff {d_none:.3g} (limit 1e-6 each; the model's tensors are bitwise "
+        f"the source's after every run)")
+    if not (dice_diff <= DICE_ABS_TOL and d_again <= 1e-6 and d_none <= 1e-6):
+        raise AssertionError("evaluation is not repeatable or disagrees with the host recomputation")
+    zero = make_engine("none", True, threshold=1.5).evaluate(model, loader[:1])
+    log(f"[eval] all-empty prediction (threshold 1.5): hd95 {zero['gtvt_hd95']:.4f} asd {zero['gtvt_asd']:.4f} "
+        f"(volume diagonal {diag:.4f}), nsd {zero['gtvt_nsd']}, dc {zero['gtvt_dc']:.3g}")
+    if not (abs(zero["gtvt_hd95"] - diag) <= 1e-4 and abs(zero["gtvt_asd"] - diag) <= 1e-4
+            and zero["gtvt_nsd"] == 0.0 and zero["gtvt_dc"] < 1e-6):
+        raise AssertionError("an empty prediction must get the diagonal penalty and NSD 0")
+
+    # ---- 10. timing: the min-plus kernel and one evaluated batch ----------
+    mp = {"ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0, "calls": 0}
+    for (rows, n, sp), calls in path_shapes.items():
+        f = sparse_lines(rows, n, keep=0.99)
+        c = cost_matrix(n, sp)
+        ms = cuda_ms(lambda: minplus(f, c))
+        plain_ms = cuda_ms(lambda: minplus_plain(f, c), iters=5)
+        t_b = 4 * (2 * rows * n + n * n) / HBM_BYTES_PER_S * 1e3
+        t_o = 2 * rows * n * n / FP32_ADDMIN_OPS * 1e3
+        log(f"[timing] min-plus f [{rows},{n}] x{calls}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {max(t_b, t_o):.5f} ms ({'bytes' if t_b >= t_o else 'operations'}: bytes {t_b:.5f}, "
+            f"operations {t_o:.5f}); no single PyTorch call computes a (min,+) product: library null")
+        mp["ms"] += calls * ms
+        mp["plain_ms"] += calls * plain_ms
+        mp["bytes_ms"] += calls * t_b
+        mp["ops_ms"] += calls * t_o
+        mp["calls"] += calls
+
+    image = torch.from_numpy(loader[0]["image"]).to(dev)
+    label = torch.from_numpy(loader[0]["label"]).to(dev)
+    with torch.no_grad():
+        logits, prob = strategy._probs_fn(model)(image)
+        pred = (prob >= THRESHOLD).to(torch.float32)
+        gt = (label > 0.5).to(torch.float32)
+        surf = extract_surface(pred[0, ..., 0])
+        dist = torch.sqrt(squared_edt(surf, SPACING)).reshape(-1)
+        masked = torch.where(surf.reshape(-1), dist, float("inf"))
+        lines = torch.where(surf, 0.0, float("inf")).to(torch.float32)
+        split = {
+            "forward": cuda_ms(lambda: strategy._probs_fn(model)(image), iters=5),
+            "dice_iou": cuda_ms(lambda: binary_dice_iou(pred, gt), iters=5),
+            "loss": cuda_ms(lambda: [strategy.loss_fn(logits[i:i + 1], label[i:i + 1])
+                                     for i in range(BATCH)], iters=5),
+            "surface": cuda_ms(lambda: batched_surface_metrics(
+                pred, gt, spacing=SPACING, nsd_tol=NSD_TOL), iters=5),
+            "eval_step": cuda_ms(lambda: strategy._eval_step(model, image, label), iters=5),
+            "surface/minplus_12_launches": mp["ms"],
+            "surface/axis_copies_12": 2 * BATCH * sum(
+                cuda_ms(lambda ax=ax: lines.movedim(ax, -1).contiguous()) for ax in range(3)),
+            "surface/sorts_4": 2 * BATCH * cuda_ms(lambda: torch.sort(masked)),
+            "surface/extract_surface_4": 2 * BATCH * cuda_ms(lambda: extract_surface(pred[0, ..., 0])),
+            "surface/squared_edt_4": 2 * BATCH * cuda_ms(lambda: squared_edt(surf, SPACING)),
+        }
+    log(f"[timing] one evaluated batch of {BATCH} volumes, 1 region (ms, CUDA events around each part "
+        f"run alone): " + ", ".join(f"{k} {v:.3f}" for k, v in split.items()) + f"; card {smi}")
+    eval_warm_ms = {}
+    for tag, method, episodic in eval_modes:  # the same runs again, warm: host clock, H2D included
+        engine = make_engine(method, episodic)
+        sync()
+        t1 = time.perf_counter()
+        engine.evaluate(model, loader)
+        sync()
+        eval_warm_ms[tag] = (time.perf_counter() - t1) * 1e3 / len(loader)
+    log("[timing] evaluate() repeated warm, ms per batch of 2 (host clock, pinned H2D included): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in eval_warm_ms.items()) + f"; card {smi}")
+    del model
+
     t_bytes = totals["bytes"] / HBM_BYTES_PER_S * 1e3
     t_ops = totals["flops"] / FP32_FLOPS * 1e3
     summary = {
@@ -341,8 +624,8 @@ def main() -> int:
         "route": "triton",
         "source": "multimodal_tta_tpu_torch/kernels/fused_instance_norm_triton.py",
         "replaces": "multimodal_tta_tpu/pallas/fused_instance_norm.py:87",
-        "launches": launches["forward"] + launches["online"] + launches["strict"],
-        "launches_by_path": launches,
+        "launches": sum(launches.values()) + sum(norm_eval_launches.values()),
+        "launches_by_path": {**launches, **norm_eval_launches},
         "max_abs_err": max_abs_err,
         "ms": totals["ms"],
         "plain_ms": totals["plain_ms"],
@@ -353,8 +636,27 @@ def main() -> int:
         "two_pass_bound_ms": 1.5 * t_bytes,
         "card": smi,
     }
-    log(json.dumps({"serving": serving, "forward_ms": fwd_ms, "forward_plain_norm_ms": fwd_plain_ms}))
-    log(json.dumps({"kernels": [summary]}))
+    minplus_summary = {
+        "name": "minplus",
+        "route": "cuda",
+        "source": "multimodal_tta_tpu_torch/csrc/edt_minplus.cu",
+        "replaces": "multimodal_tta_tpu/pallas/edt_minplus.py:52",
+        "launches": sum(eval_launches.values()),
+        "launches_by_path": eval_launches,
+        "max_abs_err": minplus_err,
+        "ms": mp["ms"],
+        "plain_ms": mp["plain_ms"],
+        "bound_ms": max(mp["bytes_ms"], mp["ops_ms"]),
+        "bound_by": "bytes" if mp["bytes_ms"] >= mp["ops_ms"] else "operations",
+        "library_ms": None,
+        "per": f"one evaluated batch of {BATCH} volumes, 1 region: {mp['calls']} calls",
+        "card": smi,
+    }
+    log(json.dumps({"serving": serving, "forward_ms": fwd_ms, "forward_plain_norm_ms": fwd_plain_ms,
+                    "eval_ms_per_batch": eval_ms, "eval_warm_ms_per_batch": eval_warm_ms,
+                    "eval_batch_split_ms": split,
+                    "eval_metrics": eval_runs}))
+    log(json.dumps({"kernels": [summary, minplus_summary]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                             "count": torch.cuda.device_count()}}))
     return 0

@@ -8,8 +8,9 @@ package's so both can be imported in one process (the parity tests do):
     @register_model("unet")
     class UNet3D(nn.Module): ...
 
-It holds the two kinds the port fills so far, models and TTA methods; the
-reference's other kinds join with the slices that register into them.
+It holds the kinds the port fills so far — models, TTA methods and evaluation
+strategies; the reference's other kinds join with the slices that register
+into them.
 """
 
 from __future__ import annotations
@@ -61,6 +62,9 @@ class Registry:
 
 MODELS = Registry("models", auto_import="multimodal_tta_tpu_torch.models")
 TTA_METHODS = Registry("tta_methods", auto_import="multimodal_tta_tpu_torch.tta")
+EVALUATION_STRATEGIES = Registry(
+    "evaluation_strategies", auto_import="multimodal_tta_tpu_torch.evaluation"
+)
 
 
 def register_model(name: str) -> Callable:
@@ -77,3 +81,11 @@ def register_tta_method(name: str) -> Callable:
 
 def get_tta_method(name: str) -> Type:
     return TTA_METHODS.get(name)
+
+
+def register_evaluation_strategy(name: str) -> Callable:
+    return EVALUATION_STRATEGIES.register(name)
+
+
+def get_evaluation_strategy(name: str) -> Type:
+    return EVALUATION_STRATEGIES.get(name)

@@ -1,0 +1,81 @@
+"""TTA evaluation engine (the port of ``multimodal_tta_tpu/tta/engine.py``).
+
+Uniform runner for the adaptation modes:
+  - "none":     plain inference (source model, no adaptation)
+  - "tent":     episodic Tent — adapt from source weights on every batch
+  - continual:  tent with episodic=false — the adapted state streams across
+                batches/domains
+
+The engine wraps an evaluation strategy: adaptation plugs into the
+strategy's per-batch hook, so metric schema and per-domain aggregation are
+identical with and without TTA.
+
+The reference's ``evaluate`` is functional: the caller's state is what it
+was afterwards. The port's adapters change the model in place, so
+``evaluate`` restores the adapted parameters to their source values before
+it returns, also when the loop raises — a second ``evaluate``, or a
+following no-adaptation run, scores the source model as the reference does.
+
+``classifier_logits_apply`` (the bridge for the 2D classification
+backbones) comes with those backbones.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+from torch import nn
+
+from .. import DeviceLike, resolve_device
+from ..conf.node import ConfigNode
+from ..registry import get_evaluation_strategy, get_tta_method
+from ..utils.config import get_config
+from ..utils.logger import get_logger
+
+
+class TTAEngine:
+    def __init__(self, config, device_transform=None, strategy=None, *, device: DeviceLike = "cuda"):
+        self.config = config
+        self.device = resolve_device(device)
+        self.logger = get_logger()
+
+        self.tta_cfg = get_config(config, "tta", ConfigNode())
+        self.method = str(get_config(self.tta_cfg, "method", "none")).lower()
+
+        if strategy is None:
+            name = get_config(config, "task.eval_strategy", "seg_eval")
+            strategy = get_evaluation_strategy(name)(config)
+        self.strategy = strategy
+        self.device_transform = device_transform
+
+        self.adapter = None
+        if self.method not in ("none", ""):
+            adapter_cls = get_tta_method(self.method)
+            self.adapter = adapter_cls(
+                self.tta_cfg,
+                config=config,
+                device_transform=device_transform,
+                device=self.device,
+            )
+
+    @property
+    def episodic(self) -> bool:
+        return self.adapter.episodic if self.adapter is not None else True
+
+    def evaluate(self, state: nn.Module, data_loader) -> Dict[str, float]:
+        """Run (adapt +) evaluate over the loader; returns the seg_eval
+        metric dict. The model's parameters are left as they were."""
+        if self.adapter is None:
+            return self.strategy.evaluate_epoch(state, data_loader, device=self.device)
+
+        adapt_fn = self.adapter.make_adapt_fn(state)
+        try:
+            return self.strategy.evaluate_epoch(
+                state,
+                data_loader,
+                adapt_fn=adapt_fn,
+                carry_state=not self.adapter.episodic,
+                device=self.device,
+            )
+        finally:
+            self.adapter.restore()

@@ -18,7 +18,7 @@ Where the reference threads a functional ``TrainState``, the port adapts the
 model in place: ``make_*`` take the model, freeze every parameter outside
 the adapted set (``requires_grad=False``), keep a copy of the adapted
 params' source values, and the returned functions take and return that same
-model as the ``state``.
+model as the ``state``. ``restore()`` puts the source values back.
 
 Not ported in this slice (they raise ``NotImplementedError`` when enabled;
 ROADMAP.md lists them): modality dropout, windowed adaptation, the
@@ -252,6 +252,21 @@ class TentAdapter:
             return self._predict(logits.detach(), threshold)
         with torch.no_grad():
             return self._predict(model(image), threshold)
+
+    def restore(self) -> None:
+        """Write the source values back into the bound model's adapted
+        params, drop their gradients and start a fresh optimizer — the model
+        is again what it was when it was bound. The reference's adapt
+        functions are pure and leave the caller's state alone; the port
+        adapts in place, so whoever borrowed a model (``TTAEngine.evaluate``)
+        calls this when done. The ``requires_grad`` flags stay as bound."""
+        if self._model is None:
+            return
+        with torch.no_grad():
+            for p, s in zip(self._trainable, self._source):
+                p.copy_(s)
+                p.grad = None
+        self._opt = self._build_opt()
 
     def make_adapt_fn(self, source_model: nn.Module) -> Callable:
         """``adapt_fn(state, image, n_valid) -> state``: adapts the model in

@@ -1,15 +1,19 @@
 #!/usr/bin/env python3
-"""Where the time of the port's Tent serving step goes, on one CUDA card.
+"""Where the time of the port's Tent serving step, or of one evaluated batch,
+goes on one CUDA card.
 
-    python3 scripts/torch_serving_profile.py [--protocol online|strict] [--batch 2] [--steps 3]
+    python3 scripts/torch_serving_profile.py [--protocol online|strict|eval] [--batch 2] [--steps 3]
 
 Builds the flagship UNet3D (channels 32..512, bf16, random weights from a
-seed) and the Tent adapter as chip_smoke.py does, warms the step up, then
-runs ``--steps`` steps under ``torch.profiler`` and prints: the wall time
-per step, the device time by kernel (top 15), the device time by kind
-(fused-InstanceNorm Triton kernels, convolutions, the rest), and the device
-busy share (summed kernel time over the profiled wall time). The last line
-is one JSON object with the same numbers. Needs a CUDA card.
+seed) as chip_smoke.py does. ``online`` and ``strict`` profile the Tent
+adapt+segment serving step; ``eval`` profiles the evaluation step of one
+batch (forward, Dice/IoU, loss, HD95/ASD/NSD) on synthetic volumes with
+ellipsoid labels. The step is warmed up, then ``--steps`` steps run under
+``torch.profiler``. Prints: the wall time per step, the device time by
+kernel (top 15), the device time by kind (fused-InstanceNorm Triton kernels,
+convolutions, the min-plus CUDA kernel, sorts, copies, the rest), and the
+device busy share (summed kernel time over the profiled wall time). The last
+line is one JSON object with the same numbers. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -27,18 +31,52 @@ NORM_KERNELS = ("stats_kernel", "finish_kernel", "norm_kernel")
 CONV_MARKS = ("conv", "cudnn", "xmma", "implicit", "dgrad", "wgrad", "fprop", "nhwc")
 
 
+SORT_MARKS = ("sort", "radix")
+COPY_MARKS = ("memcpy", "copy_kernel", "direct_copy", "memset")
+
+
 def kind(name: str) -> str:
     low = name.lower()
     if any(k in low for k in NORM_KERNELS):
         return "instance_norm_triton"
+    if "minplus_kernel" in low:
+        return "minplus_cuda"
+    if any(k in low for k in SORT_MARKS):
+        return "sort"
+    if any(k in low for k in COPY_MARKS):
+        return "copy"
     if any(k in low for k in CONV_MARKS):
         return "convolution"
     return "other"
 
 
+def eval_step_fn(torch, dev, model, batch: int):
+    """The evaluation step on one synthetic batch, as chip_smoke.py
+    configures it: ``step(model, x, batch)``-shaped like the serving step."""
+    import numpy as np
+
+    from chip_smoke import SHAPE, eval_config
+    from multimodal_tta_tpu_torch.conf import ConfigNode
+    from multimodal_tta_tpu_torch.evaluation.seg_eval import SegmentationEvaluationStrategy
+
+    strategy = SegmentationEvaluationStrategy(ConfigNode(eval_config("none", True)))
+    rng = np.random.RandomState(7)
+    zz, yy, xx = np.meshgrid(*(np.arange(n) for n in SHAPE[:3]), indexing="ij")
+    label = np.stack([
+        ((zz - c[0]) / r[0]) ** 2 + ((yy - c[1]) / r[1]) ** 2 + ((xx - c[2]) / r[2]) ** 2 <= 1.0
+        for c, r in ((rng.uniform((16, 50, 50), (32, 94, 94)), rng.uniform((4, 10, 10), (10, 30, 30)))
+                     for _ in range(batch))])[..., None]
+    label = torch.from_numpy(label.astype(np.uint8)).to(dev)
+
+    def step(model, x, n_valid):
+        return strategy._to_host(strategy._eval_step(model, x, label))
+
+    return step
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--protocol", choices=("online", "strict"), default="online")
+    ap.add_argument("--protocol", choices=("online", "strict", "eval"), default="online")
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--steps", type=int, default=3)
     args = ap.parse_args()
@@ -65,9 +103,12 @@ def main() -> int:
     model = UNet3D(channels=(32, 64, 128, 256, 512), dtype=torch.bfloat16, device=dev, seed=0)
     cfg = ConfigNode({"training": {"criterion": {"sigmoid": True}},
                       "tta": {"steps": 1, "lr": 1e-3, "momentum": 0.9, "episodic": not online}})
-    adapter = TentAdapter(cfg.tta, config=cfg, device_transform=DEVICE_TRANSFORM, device=dev)
-    step = adapter.make_adapt_predict_fn(model, threshold=THRESHOLD,
-                                         predict_mode="inline" if online else "post")
+    if args.protocol == "eval":
+        step = eval_step_fn(torch, dev, model, args.batch)
+    else:
+        adapter = TentAdapter(cfg.tta, config=cfg, device_transform=DEVICE_TRANSFORM, device=dev)
+        step = adapter.make_adapt_predict_fn(model, threshold=THRESHOLD,
+                                             predict_mode="inline" if online else "post")
     gen = torch.Generator(device=dev).manual_seed(1)
     x = torch.randn((args.batch,) + SHAPE, generator=gen, device=dev) * 100
     for _ in range(3):

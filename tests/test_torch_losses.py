@@ -1,6 +1,8 @@
-"""Parity of the port's Tent objective (multimodal_tta_tpu_torch/ops/
-losses.py:entropy_loss) with the JAX one: value, per-sample value (the JAX
-Tent step's vmap) and gradient, in both focus modes."""
+"""Parity of the port's losses (multimodal_tta_tpu_torch/ops/losses.py) with
+the JAX ones. ``entropy_loss``, the Tent objective: value, per-sample value
+(the JAX Tent step's vmap) and gradient, in both focus modes.
+``dice_ce_loss`` and the criterion factories: forward value, 1e-5 relative
+(f32 means over a few hundred voxels in another order)."""
 
 import jax
 import jax.numpy as jnp
@@ -8,7 +10,11 @@ import numpy as np
 import pytest
 import torch
 
+from multimodal_tta_tpu.conf import ConfigNode as JaxConfigNode
+from multimodal_tta_tpu.ops import losses as jlosses
 from multimodal_tta_tpu.ops.losses import entropy_loss as jax_entropy_loss
+from multimodal_tta_tpu_torch.conf import ConfigNode
+from multimodal_tta_tpu_torch.ops import losses as tlosses
 from multimodal_tta_tpu_torch.ops.losses import entropy_loss
 
 torch.set_num_threads(1)
@@ -45,3 +51,91 @@ def test_per_sample(sigmoid, focus):
 def test_unknown_focus_raises():
     with pytest.raises(ValueError):
         entropy_loss(torch.zeros(1, 2, 2, 2, 1), focus="most")
+
+
+def _seg_inputs(channels, seed=2):
+    rng = np.random.RandomState(seed)
+    logits = (rng.randn(2, 4, 5, 6, channels) * 2).astype(np.float32)
+    onehot = (rng.rand(2, 4, 5, 6, channels) > 0.6).astype(np.float32)
+    idx = rng.randint(0, channels, size=(2, 4, 5, 6)).astype(np.int32)
+    return logits, onehot, idx
+
+
+DICE_CE_CASES = {
+    "sigmoid": dict(sigmoid=True),
+    "sigmoid_weighted": dict(sigmoid=True, ce_weight=[0.5, 2.0, 1.0], lambda_dice=0.7, lambda_ce=1.3),
+    "sigmoid_sq_jaccard_nobg": dict(sigmoid=True, squared_pred=True, jaccard=True, include_background=False),
+    "softmax_index": dict(sigmoid=False, softmax=True, to_onehot_y=True),
+    "softmax_index_weighted": dict(sigmoid=False, softmax=True, to_onehot_y=True,
+                                   ce_weight=[0.2, 1.0, 3.0], include_background=False),
+    "softmax_onehot": dict(sigmoid=False, softmax=True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DICE_CE_CASES))
+def test_dice_ce_loss(case):
+    kw = DICE_CE_CASES[case]
+    logits, onehot, idx = _seg_inputs(3)
+    if case.startswith("softmax_index"):
+        target = idx
+    elif case == "softmax_onehot":
+        target = np.eye(3, dtype=np.float32)[idx]
+    else:
+        target = onehot
+    want = jlosses.dice_ce_loss(jnp.asarray(logits), jnp.asarray(target), **kw)
+    got = tlosses.dice_ce_loss(torch.from_numpy(logits), torch.from_numpy(target), **kw)
+    assert got.dim() == 0 and got.dtype == torch.float32
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+
+
+def test_loss_terms():
+    logits, onehot, idx = _seg_inputs(3, seed=3)
+    lt, ot, it = torch.from_numpy(logits), torch.from_numpy(onehot), torch.from_numpy(idx).long()
+    w = [0.5, 2.0, 1.0]
+    pairs = [
+        (tlosses.soft_dice_loss(torch.sigmoid(lt), ot),
+         jlosses.soft_dice_loss(jnp.asarray(1 / (1 + np.exp(-logits))), jnp.asarray(onehot))),
+        (tlosses.binary_cross_entropy_with_logits(lt, ot, pos_weight=torch.tensor(w)),
+         jlosses.binary_cross_entropy_with_logits(jnp.asarray(logits), jnp.asarray(onehot), jnp.asarray(w))),
+        (tlosses.softmax_cross_entropy(lt, it, class_weight=torch.tensor(w)),
+         jlosses.softmax_cross_entropy(jnp.asarray(logits), jnp.asarray(idx), jnp.asarray(w))),
+        (tlosses.softmax_cross_entropy(lt, it), jlosses.softmax_cross_entropy(jnp.asarray(logits), jnp.asarray(idx))),
+    ]
+    for got, want in pairs:
+        np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+    # the written-out BCE is torch's own
+    np.testing.assert_allclose(
+        float(tlosses.binary_cross_entropy_with_logits(lt, ot, pos_weight=torch.tensor(w))),
+        float(torch.nn.BCEWithLogitsLoss(pos_weight=torch.tensor(w))(lt, ot)), rtol=1e-6)
+
+
+@pytest.mark.parametrize("crit", [
+    {}, {"sigmoid": True, "weight": [2.0], "lambda_dice": 0.5, "jaccard": True},
+    {"name": "dice_ce", "softmax": True, "ce_weight": [1.0, 2.0, 0.5]},
+])
+def test_make_criterion(crit):
+    softmax = bool(crit.get("softmax"))
+    logits, onehot, idx = _seg_inputs(3 if softmax else 1, seed=4)
+    target = idx if softmax else onehot
+    want = jlosses.make_criterion(JaxConfigNode(crit))(jnp.asarray(logits), jnp.asarray(target))
+    for cfg in (ConfigNode(crit), crit):
+        got = tlosses.make_criterion(cfg)(torch.from_numpy(logits), torch.from_numpy(target))
+        np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+
+
+def test_criterion_errors():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tlosses.make_criterion(ConfigNode({"name": "gwdl"}))
+    with pytest.raises(ValueError, match="unknown criterion"):
+        tlosses.make_criterion(ConfigNode({"name": "focal"}))
+    with pytest.raises(ValueError):
+        tlosses.make_dice_ce_loss(ConfigNode({"softmax": True, "sigmoid": True}))
+    with pytest.raises(ValueError):
+        tlosses.make_dice_ce_loss(ConfigNode({"softmax": False, "sigmoid": False}))
+    x = torch.zeros(1, 2, 2, 2, 2)
+    with pytest.raises(ValueError):
+        tlosses.dice_ce_loss(x, x, sigmoid=True, softmax=True)
+    with pytest.raises(ValueError):
+        tlosses.dice_ce_loss(x, x, sigmoid=False, softmax=False)
+    with pytest.raises(ValueError, match="ndim"):
+        tlosses.dice_ce_loss(x, torch.zeros(1, 2), sigmoid=False, softmax=True)

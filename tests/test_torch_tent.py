@@ -183,6 +183,27 @@ def test_episodic_resets_per_batch_and_make_adapt_fn():
     assert len(ad._last_ents) == 2 and np.isfinite(ad.last_entropy)
 
 
+def test_restore_puts_the_source_back_and_starts_a_fresh_optimizer():
+    """The reference's adapt functions leave the caller's state alone; the
+    port adapts in place and ``restore()`` undoes it: source values, no
+    gradients, no momentum carried into the next use."""
+    model = UNet3D(**DRYRUN, device="cpu", seed=4)
+    cfg = ConfigNode(_cfg(episodic=False, lr=1e-2))
+    ad = TentAdapter(cfg.tta, config=cfg, device_transform=DEVICE_TRANSFORM, device="cpu")
+    ad.restore()  # nothing bound yet: a no-op
+    adapt = ad.make_adapt_fn(model)
+    source = {n: p.detach().clone() for n, p in model.named_parameters()}
+    x = torch.from_numpy(_batches(1, seed=9)[0])
+    adapt(model, x, 2)
+    first = {n: p.detach().clone() for n, p in model.named_parameters()}
+    assert any(not torch.equal(first[n], source[n]) for n in source)
+    ad.restore()
+    assert all(torch.equal(p, source[n]) and p.grad is None for n, p in model.named_parameters())
+    assert not ad._opt.state  # momentum buffers gone
+    adapt(model, x, 2)  # continual mode, yet the same first step again
+    assert all(torch.equal(p, first[n]) for n, p in model.named_parameters())
+
+
 def test_inline_steps1_episodic_predicts_the_source_forward():
     model = UNet3D(**DRYRUN, device="cpu", seed=2)
     x = torch.from_numpy(_batches(1, seed=7)[0])
