@@ -4,26 +4,32 @@
     python3 chip_smoke.py            # from the repository root; needs one CUDA card
 
 Phases, in order (any failure propagates and exits non-zero):
-  1. build   — define the Triton kernels from the repository's sources;
-               Triton compiles each specialisation at its first launch into
-               ``build/triton_cache``; compile the CUDA C++ kernels with
-               ``nvcc`` into ``build/kernels`` (both listed in .gitignore).
-  2. kernel  — the fused InstanceNorm kernel against its plain PyTorch
-               version at the main path's largest and smallest norm shapes,
-               bf16 and f32, ReLU on and off; the autograd backward against
-               autograd of the plain version.
+  1. build   — compile the CUDA C++ kernels (``csrc/*.cu``) with ``nvcc``
+               into ``build/kernels``, one compiler per source, all started
+               together; define the earlier Triton norm kernel, which only
+               phase 6 times (Triton compiles at first launch into
+               ``build/triton_cache``; both directories are in .gitignore).
+  2. kernel  — the fused InstanceNorm CUDA kernels against their plain
+               PyTorch versions: the forward at all nine norm shapes of the
+               main path plus C=48 and an odd C, bf16 and f32, ReLU on and
+               off, with the regime each shape took; the backward (dx,
+               dgamma, dbeta, and without dx) against autograd of the plain
+               version at one shape of each regime; one shape twice, bitwise.
   3. forward — the flagship UNet3D at full width (channels 32..512, two
                residual subunits, bf16) on a HECKTOR21 batch [2,48,144,144,2]
                through the kernel; launch count per forward; logits against
                the same weights run through the plain norm.
-  4. serving — Tent adapt+segment: 3 batches online (continual, inline
-               predictions) and 2 strict (episodic, post-update predictions):
+  4. serving — Tent adapt+segment: 8 steps online (continual, inline
+               predictions) and 6 strict (episodic, post-update predictions):
                finite entropy, a gradient in all 36 norm tensors, uint8 predictions
-               of the right shape, ms per step and volumes/s.
+               of the right shape, ms per step and volumes/s; 18 backward
+               kernel launches per step and no call of the plain backward.
   5. parity  — one Tent step at full width on a small input, kernel against
                plain norm in f32: entropy, norm-param deltas, predictions.
-  6. timing  — the kernel at every norm shape of one forward, against the
-               plain version, F.instance_norm+relu and the byte bound.
+  6. timing  — the forward and the backward kernel at every norm shape of
+               one forward, against the earlier Triton forward, the plain
+               versions, F.instance_norm+relu (and its autograd) and the
+               byte bounds.
   7. min-plus — the CUDA min-plus kernel against its plain version at the
                evaluation path's two shapes and at small and ragged cases:
                bitwise equal, +inf kept, no NaN.
@@ -53,6 +59,7 @@ from __future__ import annotations
 import json
 import os
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 import sys
 import time
 
@@ -68,6 +75,11 @@ FP32_ADDMIN_OPS = FP32_FLOPS / 2
 TOL_F32 = dict(atol=5e-5, rtol=0.0)
 TOL_BF16 = dict(atol=5e-2, rtol=2.0 ** -7)
 LOGITS_REL_L2 = 1e-2  # full-width bf16 forward, kernel vs plain norm
+# backward kernel vs autograd of the plain version. f32 sums (dgamma, dbeta)
+# and f32 dx: other summation order. bf16 dx: one bf16 rounding of dx.
+GRAD_F32_REL, GRAD_F32_ABS = 1e-4, 1e-5  # limit = REL * max|ref| + ABS
+DX_BF16_REL = 2.0 ** -7  # limit = REL * (max|ref| + |ref|)
+KINK_MARGIN = 1e-4  # the checks' inputs keep |pre-activation| above this
 
 HECKTOR_POLICY = {
     "enabled": True,
@@ -130,7 +142,11 @@ def main() -> int:
     from multimodal_tta_tpu_torch.kernels.edt_minplus import minplus, minplus_plain
     from multimodal_tta_tpu_torch.kernels.fused_instance_norm import (
         fused_instance_norm,
+        instance_norm_backward,
+        instance_norm_backward_plain,
+        instance_norm_forward,
         instance_norm_plain,
+        plan_for,
     )
     from multimodal_tta_tpu_torch.models.layers import InstanceNorm, set_plain_norm
     from multimodal_tta_tpu_torch.models.unet3d import UNet3D
@@ -182,55 +198,136 @@ def main() -> int:
 
     # ---- 1. build --------------------------------------------------------
     t0 = time.perf_counter()
+    sources = ("fused_instance_norm", "edt_minplus")
+    with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, side by side
+        builds = dict(zip(sources, pool.map(_build.load, sources)))
+    log(f"[build] nvcc: {_build.nvcc_release()}; {len(sources)} sources in "
+        f"{time.perf_counter() - t0:.2f}s")
+    for src, built in builds.items():
+        log(f"[build] csrc/{src}.cu -> {os.path.relpath(built.path, REPO)} in {built.seconds:.2f}s")
+        for line in built.log.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build]   {line.strip()}")
+    t0 = time.perf_counter()
     k = fused_instance_norm_triton.build()
-    log(f"[build] triton {k.version}: kernels stats/finish/norm defined in "
-        f"{time.perf_counter() - t0:.2f}s; cache {os.environ['TRITON_CACHE_DIR']}")
-    built = _build.load("edt_minplus")
-    log(f"[build] nvcc: {_build.nvcc_release()}; csrc/edt_minplus.cu -> "
-        f"{os.path.relpath(built.path, REPO)} in {built.seconds:.2f}s")
-    for line in built.log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build]   {line.strip()}")
+    log(f"[build] triton {k.version}: the earlier norm kernels stats/finish/norm (timed in phase 6 "
+        f"only) defined in {time.perf_counter() - t0:.2f}s; cache {os.environ['TRITON_CACHE_DIR']}")
 
-    # ---- 2. kernel vs plain ---------------------------------------------
+    # ---- 2. kernels vs plain ---------------------------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
+
+    def norm_inputs(shape, dtype, scale=3.0, shift=1.0):
+        c = shape[-1]
+        x = (torch.randn(shape, generator=gen, device=dev) * scale + shift).to(dtype)
+        g = torch.rand(c, generator=gen, device=dev) + 0.5
+        b = torch.randn(c, generator=gen, device=dev) * 0.1
+        return x, g, b
+
+    def off_kink(x, g, b):
+        """Move the few elements whose pre-activation is within 1e-3 of the
+        ReLU's kink: there the mask depends on the summation order of the
+        statistics, so kernel and plain version may rightly differ."""
+        for _ in range(20):  # a moved element shifts its channel's statistics: repeat
+            pre = instance_norm_plain(x.float(), g, b, act=None).abs()
+            if float(pre.min()) > KINK_MARGIN:
+                return x
+            x = torch.where(pre < 1e-3, x.float() + 0.25, x.float()).to(x.dtype)
+        raise AssertionError("could not move the check's input off the ReLU kink")
+
+    def plan_text(p) -> str:
+        if p.regime == "resident":
+            return f"resident CG={p.cg} cluster={p.cluster} grid={p.grid} smem={p.smem_bytes}"
+        return (f"streaming vec={p.vec} chunks/sample={p.chunks} rows/chunk={p.rows} grid={p.grid} "
+                f"second read from {'L2' if p.hbm_reads == 1 else 'HBM'}")
+
     max_abs_err = 0.0
-    largest = (BATCH, SHAPE[0], SHAPE[1], SHAPE[2], 32)
-    smallest = (BATCH, SHAPE[0] // 16, SHAPE[1] // 16, SHAPE[2] // 16, 512)
-    for shape in (largest, smallest):
+    d0, h0, w0 = SHAPE[:3]
+    path_norm_shapes = [(BATCH, d0 >> lv, h0 >> lv, w0 >> lv, c)
+                        for lv, cs in enumerate(((32,), (32, 64), (64, 128), (128, 256), (256, 512)))
+                        for c in cs]
+    regimes = {}
+    for shape in path_norm_shapes + [(1, 3, 5, 7, 48), (2, 3, 5, 7, 7)]:
         for dtype, tol in ((torch.bfloat16, TOL_BF16), (torch.float32, TOL_F32)):
             for act in ("relu", None):
-                c = shape[-1]
-                x = (torch.randn(shape, generator=gen, device=dev) * 3 + 1).to(dtype)
-                g = torch.rand(c, generator=gen, device=dev) + 0.5
-                b = torch.randn(c, generator=gen, device=dev) * 0.1
+                x, g, b = norm_inputs(shape, dtype)
                 t1 = time.perf_counter()
                 y = fused_instance_norm(x, g, b, act=act)
                 sync()
                 first = time.perf_counter() - t1
                 err, ok = within(y, instance_norm_plain(x, g, b, act=act), tol)
-                log(f"[kernel] {list(shape)} {str(dtype)[6:]} act={act}: max|kernel-plain|={err:.3g} "
-                    f"tol atol={tol['atol']} rtol={tol['rtol']:.3g} first call {first:.2f}s "
-                    f"{'ok' if ok else 'FAIL'}")
+                p = plan_for(x)
+                regimes[(shape, dtype)] = p
+                log(f"[kernel] {list(shape)} {str(dtype)[6:]} act={act}: {plan_text(p)}; "
+                    f"max|kernel-plain|={err:.3g} tol atol={tol['atol']} rtol={tol['rtol']:.3g} "
+                    f"first call {first:.3f}s {'ok' if ok else 'FAIL'}")
                 if not (ok and y.dtype == dtype and y.shape == x.shape):
                     raise AssertionError(f"kernel disagrees with plain at {shape} {dtype} act={act}")
                 max_abs_err = max(max_abs_err, err)
-    # backward: autograd through the kernel's Function vs autograd of plain
-    shape = (BATCH, 12, 36, 36, 64)
-    x = torch.randn(shape, generator=gen, device=dev).requires_grad_()
-    g = (torch.rand(64, generator=gen, device=dev) + 0.5).requires_grad_()
-    b = (torch.randn(64, generator=gen, device=dev) * 0.1).requires_grad_()
-    gy = torch.randn(shape, generator=gen, device=dev)
-    got = torch.autograd.grad(fused_instance_norm(x, g, b), (x, g, b), gy)
-    ref = torch.autograd.grad(instance_norm_plain(x, g, b), (x, g, b), gy)
-    for nm, u, v in zip(("dx", "dgamma", "dbeta"), got, ref):
-        err = float((u - v).abs().max())
-        lim = 1e-4 * float(v.abs().max()) + 1e-5
-        log(f"[kernel] backward {list(shape)} f32 {nm}: max err {err:.3g} (limit {lim:.3g})")
-        if not err <= lim:
-            raise AssertionError(f"backward {nm} disagrees")
+                del x, y
+    if {regimes[(s_, torch.bfloat16)].regime for s_ in path_norm_shapes} != {"resident", "streaming"}:
+        raise AssertionError("the path's shapes must exercise both regimes")
+
+    # backward: the kernel (through autograd of the wrapper) vs autograd of plain
+    backward_err = 0.0
+    grad_cases = [(BATCH, 3, 9, 9, 512), (BATCH, 12, 36, 36, 64), (BATCH, 24, 72, 72, 32),
+                  (2, 3, 5, 7, 7)]
+    for shape in grad_cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            for act in ("relu", None):
+                x, g, b = norm_inputs(shape, dtype, scale=1.0, shift=0.0)
+                x = off_kink(x, g, b).requires_grad_()
+                g.requires_grad_()
+                b.requires_grad_()
+                gy = torch.randn(shape, generator=gen, device=dev).to(dtype)
+                plain_before = instance_norm_backward_plain.cuda_calls
+                got = torch.autograd.grad(fused_instance_norm(x, g, b, act=act), (x, g, b), gy)
+                no_dx = torch.autograd.grad(fused_instance_norm(x.detach(), g, b, act=act), (g, b), gy)
+                sync()
+                if instance_norm_backward_plain.cuda_calls != plain_before:
+                    raise AssertionError("the wrapper's backward took the plain version on the card")
+                ref = torch.autograd.grad(instance_norm_plain(x, g, b, act=act), (x, g, b), gy)
+                p = plan_for(x.detach(), backward=True)
+                report = []
+                for nm, u, v in zip(("dx", "dgamma", "dbeta", "dgamma(no dx)", "dbeta(no dx)"),
+                                    got + no_dx, ref + ref[1:]):
+                    diff = (u.float() - v.float()).abs()
+                    vmax = float(v.float().abs().max())
+                    if nm == "dx" and dtype == torch.bfloat16:
+                        ok = bool((diff <= DX_BF16_REL * (vmax + v.float().abs())).all())
+                        lim = 2 * DX_BF16_REL * vmax
+                    else:
+                        lim = GRAD_F32_REL * vmax + GRAD_F32_ABS
+                        ok = float(diff.max()) <= lim
+                    report.append(f"{nm} {float(diff.max()):.3g} (limit {lim:.3g})")
+                    if not ok or u.dtype != v.dtype or u.shape != v.shape:
+                        raise AssertionError(f"backward {nm} disagrees at {shape} {dtype} act={act}")
+                    if nm == "dx":
+                        backward_err = max(backward_err, float(diff.max()))
+                log(f"[kernel] backward {list(shape)} {str(dtype)[6:]} act={act}: {plan_text(p)}; "
+                    f"max err " + ", ".join(report))
+                del x, gy, got, ref
+
+    # run to run: the same input twice, outputs and gradients bitwise equal
+    for shape in ((BATCH, d0, h0, w0, 32), (BATCH, 12, 36, 36, 128)):
+        x, g, b = norm_inputs(shape, torch.bfloat16)
+        x.requires_grad_()
+        g.requires_grad_()
+        b.requires_grad_()
+        gy = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        runs = []
+        for _ in range(2):
+            y = fused_instance_norm(x, g, b)
+            runs.append((y.detach(),) + torch.autograd.grad(y, (x, g, b), gy))
+        sync()
+        same = all(torch.equal(u, v) for u, v in zip(*runs))
+        log(f"[kernel] {list(shape)} bf16 run twice: y, dx, dgamma, dbeta bitwise equal={same}")
+        if not same:
+            raise AssertionError(f"the norm kernels are not deterministic at {shape}")
+        del x, gy, y, runs
 
     # ---- 3. full-width forward ------------------------------------------
+    instance_norm_backward_plain.cuda_calls = 0  # phases 3-5 must leave it at 0
+    backward_launches = {}
     t1 = time.perf_counter()
     model = UNet3D(in_channels=2, num_classes=1, channels=(32, 64, 128, 256, 512),
                    strides=(2, 2, 2, 2), num_res_units=2, dtype=torch.bfloat16,
@@ -285,7 +382,7 @@ def main() -> int:
     source = {n: p.detach().clone() for n, p in model.named_parameters() if n in names}
     serving = {}
     for proto, predict, episodic, n_batches in (
-        ("online", "inline", False, 3), ("strict", "post", True, 2),
+        ("online", "inline", False, 8), ("strict", "post", True, 6),
     ):
         cfg = ConfigNode({
             "task": {"seed": 0},
@@ -302,13 +399,15 @@ def main() -> int:
         times, ents = [], []
         sync()
         fused_instance_norm.launches = 0
+        fused_instance_norm.backward_launches = 0
         for i in range(n_batches):
             t1 = time.perf_counter()
-            state, pred = step(model, batches[i], BATCH)
+            state, pred = step(model, batches[i % len(batches)], BATCH)
             sync()
             times.append((time.perf_counter() - t1) * 1e3)
             ents.append(adapter.last_entropy)
         launches[proto] = fused_instance_norm.launches
+        backward_launches[proto] = fused_instance_norm.backward_launches
         params = dict(model.named_parameters())
         moved = [n for n in names if bool((params[n] - source[n]).abs().max() > 0)]
         # every norm tensor must get a gradient; a scale at 1.0 stays put when
@@ -316,17 +415,19 @@ def main() -> int:
         reached = [n for n in names if params[n].grad is not None
                    and bool(params[n].grad.abs().max() > 0) and bool(torch.isfinite(params[n].grad).all())]
         still = {n: float(params[n].grad.abs().max()) * 1e-3 for n in names if n not in moved}
-        steady = times[1:]
+        steady = times[len(times) // 2:]  # the first steps still warm the allocator up
         ms = sum(steady) / len(steady)
         serving[proto] = {"ms_per_step": times, "steady_ms": ms, "volumes_per_s": BATCH * 1e3 / ms,
-                          "entropy": ents, "launches": launches[proto], "grad_reached": len(reached),
+                          "entropy": ents, "launches": launches[proto],
+                          "backward_launches": backward_launches[proto], "grad_reached": len(reached),
                           "moved": len(moved)}
         log(f"[serving] {proto} ({'episodic' if episodic else 'continual'}, predict={predict}) "
-            f"batch {BATCH}: ms/step {[round(t, 2) for t in times]} -> steady {ms:.2f} ms, "
+            f"batch {BATCH}: ms/step {[round(t, 2) for t in times]} -> steady (mean of the later half) {ms:.2f} ms, "
             f"{BATCH * 1e3 / ms:.2f} volumes/s; entropy {ents}; nonzero gradient in "
             f"{len(reached)}/{len(names)} norm tensors, {len(moved)} moved; pred {list(pred.shape)} "
-            f"{pred.dtype}; {launches[proto]} kernel launches ({launches[proto] // n_batches}/step); "
-            f"card {smi}")
+            f"{pred.dtype}; {launches[proto]} forward kernel launches ({launches[proto] // n_batches}/step), "
+            f"{backward_launches[proto]} backward kernel launches "
+            f"({backward_launches[proto] // n_batches}/step); card {smi}")
         if still:
             log(f"[serving] {proto}: not moved (max lr*|grad| of the last step, f32 half-ulp at 1.0 "
                 f"is 5.96e-08): {still}")
@@ -341,6 +442,9 @@ def main() -> int:
         per_step = 18 if predict == "inline" else 36
         if launches[proto] != per_step * n_batches:
             raise AssertionError(f"{proto}: {launches[proto]} launches, expected {per_step * n_batches}")
+        if backward_launches[proto] != 18 * n_batches:
+            raise AssertionError(f"{proto}: {backward_launches[proto]} backward launches, expected "
+                                 f"{18 * n_batches} (one per norm per Tent step)")
     del model, state, pred, batches
 
     # ---- 5. small-input parity: kernel vs plain norm through one Tent step -
@@ -365,6 +469,9 @@ def main() -> int:
         f"(limit 0.999)")
     if not (ent_rel <= 1e-4 and d_rel <= 1e-3 and agree >= 0.999):
         raise AssertionError("Tent step through the kernel disagrees with the plain norm")
+    if instance_norm_backward_plain.cuda_calls != 0:
+        raise AssertionError(f"phases 3-5 called the plain norm backward on the card "
+                             f"{instance_norm_backward_plain.cuda_calls} times")
 
     # ---- 6. kernel timing at every norm shape of one forward --------------
     import torch.nn.functional as F
@@ -372,31 +479,79 @@ def main() -> int:
     counts = {}
     for s in shapes:
         counts[s] = counts.get(s, 0) + 1
-    totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0, "flops": 0}
+    keys = ("ms", "triton_ms", "plain_ms", "library_ms", "bytes", "flops")
+    totals, btotals = dict.fromkeys(keys, 0.0), dict.fromkeys(keys, 0.0)
     for (shape, relu), n in counts.items():
         c = shape[-1]
-        x = (torch.randn(shape, generator=gen, device=dev) * 3 + 1).to(torch.bfloat16)
-        g = torch.rand(c, generator=gen, device=dev) + 0.5
-        b = torch.randn(c, generator=gen, device=dev) * 0.1
         act = "relu" if relu else None
-        err, ok = within(fused_instance_norm(x, g, b, act=act), instance_norm_plain(x, g, b, act=act), TOL_BF16)
-        if not ok:
+        x, g, b = norm_inputs(shape, torch.bfloat16)
+        x = off_kink(x, g, b) if relu else x
+        ref = instance_norm_plain(x, g, b, act=act)
+        err, ok = within(fused_instance_norm(x, g, b, act=act), ref, TOL_BF16)
+        err_t, ok_t = within(fused_instance_norm_triton._forward(x, g, b, 1e-5, relu), ref, TOL_BF16)
+        if not (ok and ok_t):
             raise AssertionError(f"kernel disagrees with plain at {shape}")
         max_abs_err = max(max_abs_err, err)
-        ms = cuda_ms(lambda: fused_instance_norm(x, g, b, act=act))
+        del ref
+        # new, earlier, earlier, new: the two versions only compare within one run
+        ms_a = cuda_ms(lambda: fused_instance_norm(x, g, b, act=act))
+        tr_a = cuda_ms(lambda: fused_instance_norm_triton._forward(x, g, b, 1e-5, relu))
+        tr_b = cuda_ms(lambda: fused_instance_norm_triton._forward(x, g, b, 1e-5, relu))
+        ms_b = cuda_ms(lambda: fused_instance_norm(x, g, b, act=act))
+        ms, triton_ms = min(ms_a, ms_b), min(tr_a, tr_b)
         plain_ms = cuda_ms(lambda: instance_norm_plain(x, g, b, act=act))
         x_ncdhw = x.permute(0, 4, 1, 2, 3)
-        lib_ms = cuda_ms(lambda: F.relu(F.instance_norm(x_ncdhw, weight=g, bias=b, eps=1e-5)))
+
+        def library(xx=x_ncdhw, gg=g, bb=b):
+            out = F.instance_norm(xx, weight=gg, bias=bb, eps=1e-5)
+            return F.relu(out) if relu else out
+
+        lib_ms = cuda_ms(library)
         nbytes = 2 * x.numel() * x.element_size() + 2 * c * 4  # read x, write y, gamma, beta
         flops = 8 * x.numel()  # stats: add, mul, add; normalize, affine, relu: 5
-        log(f"[timing] {list(shape)} bf16 x{n}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"F.instance_norm+relu {lib_ms:.4f} ms, bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms, "
-            f"max err {err:.3g}")
-        totals["ms"] += n * ms
-        totals["plain_ms"] += n * plain_ms
-        totals["library_ms"] += n * lib_ms
-        totals["bytes"] += n * nbytes
-        totals["flops"] += n * flops
+        log(f"[timing] forward {list(shape)} bf16 relu={relu} x{n} ({regimes[(shape, torch.bfloat16)].regime}): "
+            f"kernel {ms:.4f} ms ({ms_a:.4f}, {ms_b:.4f}), earlier Triton kernel {triton_ms:.4f} ms "
+            f"({tr_a:.4f}, {tr_b:.4f}), plain {plain_ms:.4f} ms, F.instance_norm(+relu) {lib_ms:.4f} ms, "
+            f"bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms, max err {err:.3g}")
+        for key, v in zip(keys, (ms, triton_ms, plain_ms, lib_ms, nbytes, flops)):
+            totals[key] += n * v
+
+        # backward of the same call: the kernel's wrapper, the plain backward,
+        # autograd of the library call (its time includes the autograd engine)
+        gy = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        gr, br = g.detach().requires_grad_(), b.detach().requires_grad_()
+        stats = instance_norm_forward(x, g, b, relu=relu)[1]
+        got = instance_norm_backward(gy, x, g, b, stats, relu=relu)
+        ref = instance_norm_backward_plain(gy, x, g, b, stats[0], stats[1], relu)
+        for nm, u, v in zip(("dx", "dgamma", "dbeta"), got, ref):
+            diff = (u.float() - v.float()).abs()
+            vmax = float(v.float().abs().max())
+            ok = (bool((diff <= DX_BF16_REL * (vmax + v.float().abs())).all()) if nm == "dx"
+                  else float(diff.max()) <= GRAD_F32_REL * vmax + GRAD_F32_ABS)
+            if not ok:
+                raise AssertionError(f"backward {nm} disagrees with the plain backward at {shape}")
+        backward_err = max(backward_err, float((got[0].float() - ref[0].float()).abs().max()))
+        del got, ref
+        bms = min(cuda_ms(lambda: instance_norm_backward(gy, x, g, b, stats, relu=relu)) for _ in range(2))
+        bplain_ms = cuda_ms(lambda: instance_norm_backward_plain(gy, x, g, b, stats[0], stats[1], relu),
+                            iters=5)
+        xl = x_ncdhw.detach().requires_grad_()
+        yl = library(xl, gr, br)
+        gyl = gy.permute(0, 4, 1, 2, 3)
+        blib_ms = cuda_ms(lambda: torch.autograd.grad(yl, (xl, gr, br), gyl, retain_graph=True), iters=5)
+        bbytes = 3 * x.numel() * x.element_size() + 2 * c * 4 * (2 + 2 * shape[0])  # gy, x, dx; params, stats, sums
+        bflops = 14 * x.numel()
+        log(f"[timing] backward {list(shape)} bf16 relu={relu} x{n} "
+            f"({plan_for(x, backward=True).regime}): kernel {bms:.4f} ms, plain {bplain_ms:.4f} ms, "
+            f"autograd of F.instance_norm(+relu) {blib_ms:.4f} ms, bound {bbytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
+        for key, v in zip(keys, (bms, 0.0, bplain_ms, blib_ms, bbytes, bflops)):
+            btotals[key] += n * v
+        del x, gy, stats, xl, yl, gyl, x_ncdhw
+    log(f"[timing] one forward's {len(shapes)} norm calls, bf16 batch {BATCH}: forward kernel {totals['ms']:.4f} ms, "
+        f"earlier Triton kernel {totals['triton_ms']:.4f} ms, plain {totals['plain_ms']:.4f} ms, library "
+        f"{totals['library_ms']:.4f} ms, bound {totals['bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms; backward kernel "
+        f"{btotals['ms']:.4f} ms, plain {btotals['plain_ms']:.4f} ms, library {btotals['library_ms']:.4f} ms, "
+        f"bound {btotals['bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms; card {smi}")
     # ---- 7. min-plus kernel vs plain --------------------------------------
     def cost_matrix(n: int, spacing: float):
         i = torch.arange(n, dtype=torch.float32, device=dev)
@@ -505,17 +660,20 @@ def main() -> int:
     eval_modes = (("eval_none", "none", True), ("eval_tent_episodic", "tent", True),
                   ("eval_tent_continual", "tent", False))
     eval_runs, eval_launches, norm_eval_launches, eval_ms = {}, {}, {}, {}
+    instance_norm_backward_plain.cuda_calls = 0  # the evaluation runs must leave it at 0
     for tag, method, episodic in eval_modes:
         engine = make_engine(method, episodic)
         sync()
         minplus.launches = 0
         fused_instance_norm.launches = 0
+        fused_instance_norm.backward_launches = 0
         t1 = time.perf_counter()
         m = engine.evaluate(model, loader)
         sync()
         eval_ms[tag] = (time.perf_counter() - t1) * 1e3 / len(loader)
         eval_launches[tag] = minplus.launches
         norm_eval_launches[tag] = fused_instance_norm.launches
+        backward_launches[tag] = fused_instance_norm.backward_launches
         eval_runs[tag] = m
         check_metrics(tag, m)
         unchanged(tag)
@@ -524,13 +682,18 @@ def main() -> int:
             f"loss {m['loss']:.5f} hd95 {m['gtvt_hd95']:.4f} asd {m['gtvt_asd']:.4f} nsd {m['gtvt_nsd']:.6f}; "
             f"dom/CHUM dc {m['dom/CHUM/gtvt_dc']:.6f} dom/CHGJ dc {m['dom/CHGJ/gtvt_dc']:.6f}; "
             f"min-plus launches {eval_launches[tag]} ({eval_launches[tag] // len(loader)}/batch), "
-            f"norm launches {norm_eval_launches[tag]}; card {smi}")
+            f"norm launches {norm_eval_launches[tag]} forward, {backward_launches[tag]} backward; card {smi}")
         if eval_launches[tag] != BATCH * 1 * 2 * 3 * len(loader):
             raise AssertionError(f"{tag}: {eval_launches[tag]} min-plus launches, expected "
                                  f"{BATCH * 6 * len(loader)}")
         per_batch_norm = 18 if method == "none" else 36
         if norm_eval_launches[tag] != per_batch_norm * len(loader):
             raise AssertionError(f"{tag}: {norm_eval_launches[tag]} norm launches")
+        if backward_launches[tag] != (0 if method == "none" else 18 * len(loader)):
+            raise AssertionError(f"{tag}: {backward_launches[tag]} norm backward launches")
+    if instance_norm_backward_plain.cuda_calls != 0:
+        raise AssertionError(f"the evaluation runs called the plain norm backward on the card "
+                             f"{instance_norm_backward_plain.cuda_calls} times")
 
     # checks beside the main path (their launches are not reported)
     strategy = SegmentationEvaluationStrategy(ConfigNode(eval_config("none", True)))
@@ -617,25 +780,32 @@ def main() -> int:
         + ", ".join(f"{k} {v:.2f}" for k, v in eval_warm_ms.items()) + f"; card {smi}")
     del model
 
-    t_bytes = totals["bytes"] / HBM_BYTES_PER_S * 1e3
-    t_ops = totals["flops"] / FP32_FLOPS * 1e3
-    summary = {
-        "name": "fused_instance_norm",
-        "route": "triton",
-        "source": "multimodal_tta_tpu_torch/kernels/fused_instance_norm_triton.py",
-        "replaces": "multimodal_tta_tpu/pallas/fused_instance_norm.py:87",
-        "launches": sum(launches.values()) + sum(norm_eval_launches.values()),
-        "launches_by_path": {**launches, **norm_eval_launches},
-        "max_abs_err": max_abs_err,
-        "ms": totals["ms"],
-        "plain_ms": totals["plain_ms"],
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": totals["library_ms"],
-        "per": f"one bf16 forward at batch {BATCH}: {len(shapes)} calls",
-        "two_pass_bound_ms": 1.5 * t_bytes,
-        "card": smi,
-    }
+    def norm_summary(name: str, tot: dict, n_launches: dict, err: float, extra: dict) -> dict:
+        t_bytes = tot["bytes"] / HBM_BYTES_PER_S * 1e3
+        t_ops = tot["flops"] / FP32_FLOPS * 1e3
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": "multimodal_tta_tpu_torch/csrc/fused_instance_norm.cu",
+            "replaces": "multimodal_tta_tpu/pallas/fused_instance_norm.py:87",
+            "launches": sum(n_launches.values()),
+            "launches_by_path": n_launches,
+            "max_abs_err": err,
+            "ms": tot["ms"],
+            "plain_ms": tot["plain_ms"],
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": tot["library_ms"],
+            "per": f"one bf16 forward's {len(shapes)} norm calls at batch {BATCH}",
+            "card": smi,
+            **extra,
+        }
+
+    summary = norm_summary("fused_instance_norm", totals, {**launches, **norm_eval_launches},
+                           max_abs_err, {"earlier_triton_ms": totals["triton_ms"]})
+    backward_summary = norm_summary(
+        "fused_instance_norm_backward", btotals, backward_launches, backward_err,
+        {"note": "the gradient of the TPU kernel's function; dx computed in all 18 timed calls"})
     minplus_summary = {
         "name": "minplus",
         "route": "cuda",
@@ -656,7 +826,7 @@ def main() -> int:
                     "eval_ms_per_batch": eval_ms, "eval_warm_ms_per_batch": eval_warm_ms,
                     "eval_batch_split_ms": split,
                     "eval_metrics": eval_runs}))
-    log(json.dumps({"kernels": [summary, minplus_summary]}))
+    log(json.dumps({"kernels": [summary, backward_summary, minplus_summary]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                             "count": torch.cuda.device_count()}}))
     return 0

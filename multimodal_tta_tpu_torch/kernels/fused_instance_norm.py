@@ -2,41 +2,62 @@
 
 The port of ``multimodal_tta_tpu/pallas/fused_instance_norm.py``. On the
 port it is the norm of every ``ConvBlock`` (``models/layers.py``), so it
-carries the main path's forward.
+carries the main path's forward and, under Tent, its backward.
 
-* ``fused_instance_norm`` — the wrapper. A CUDA tensor launches the Triton
-  kernel (``fused_instance_norm_triton.py``) or raises; a CPU tensor takes
-  the plain version. No other route exists: there is no fallback from a
-  failed launch. ``fused_instance_norm.launches`` counts kernel launches.
-* ``instance_norm_plain`` — the plain PyTorch version of the same function:
-  what the CPU tests run, and what the kernel is held against on the card.
+* ``fused_instance_norm`` — the wrapper, an ``autograd.Function``. For a
+  CUDA tensor both the forward and the backward launch a hand-written kernel
+  of ``csrc/fused_instance_norm.cu`` (built by ``nvcc`` at first use,
+  ``_build.py``) with one host call each, or raise; a CPU tensor takes the
+  plain versions. No other route exists: there is no fallback from a failed
+  build or launch. ``fused_instance_norm.launches`` counts forward launches,
+  ``fused_instance_norm.backward_launches`` backward launches.
+  ``instance_norm_forward`` and ``instance_norm_backward`` are the two
+  halves without autograd, with the same routing.
+* ``plan`` — picks the kernel's regime and launch geometry from the shape
+  and the card's properties: a pure function of integers.
+* ``instance_norm_plain`` / ``instance_norm_backward_plain`` — the plain
+  PyTorch versions of the same two functions: what the CPU tests run, and
+  what the kernels are held against on the card.
+  ``instance_norm_backward_plain.cuda_calls`` counts its calls on CUDA
+  tensors, which the main path must never make.
 
-The gradient is a ``torch.autograd.Function``: the forward is the kernel (or
-the plain version on the CPU) and saves ``x``, the output and the f32
-mean/rstd; the backward is plain PyTorch for dx, dgamma and dbeta through
-the ReLU mask. The JAX package has no backward kernel either (XLA
-differentiates the jnp norm); a hand-written one is a ROADMAP item.
+The forward saves x, gamma, beta and the f32 ``[2, B, C]`` mean/rstd, not y:
+the backward recomputes the ReLU mask ``xhat * gamma + beta > 0`` from x with
+the forward's exact arithmetic, which costs no read of y.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+from dataclasses import dataclass
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 
 _REDUCE = (1, 2, 3)  # D, H, W of NDHWC
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-# pass-1 tile of 4096 f32 accumulators (x2), pass-2 tile of 8192 elements
-_STATS_TILE = 4096
-_NORM_TILE = 8192
-# pass-1 programs to aim for: several waves on 132 SMs
-_STATS_PROGRAMS = 1024
+
+THREADS = 256  # threads per CTA of every kernel in the source
+ROW_BYTES = 32  # a resident slice row: one memory sector, two 16-byte vectors
+CLUSTER_SIZES = (1, 2, 4, 8)  # 8 is the portable limit of a cluster
+# bytes of a resident slice a CTA takes before the slice is spread over a
+# larger cluster: the call is latency-bound, so more CTAs with less each
+RESIDENT_TARGET_BYTES = 16 * 1024
+# static shared memory of the resident kernels (warp and CTA partials), rounded up
+RESIDENT_STATIC_BYTES = 2048
+# streaming: CTAs per SM to ask for at most (1024 threads with 16-byte loads
+# in flight saturate the memory system; more CTAs only mean more partials)
+STREAM_CTAS_PER_SM = 4
+_MIN_ROWS_PER_THREAD = 4
 
 
 def _check_act(act: Optional[str]) -> bool:
     if act not in (None, "relu"):
         raise ValueError(f"fused_instance_norm: act must be None or 'relu', got {act!r}")
     return act == "relu"
+
+
+# ---- plain versions ---------------------------------------------------------
 
 
 def _plain_forward(x, gamma, beta, eps: float, relu: bool):
@@ -68,8 +89,224 @@ def instance_norm_plain(
     return _plain_forward(x, gamma, beta, eps, _check_act(act))[0]
 
 
-def _launch_kernel(x, gamma, beta, eps: float, relu: bool):
-    """Run the Triton kernel on CUDA tensors; returns (y, mean, rstd)."""
+def instance_norm_backward_plain(gy, x, gamma, beta, mean, rstd, relu: bool, need_dx: bool = True):
+    """Plain PyTorch version of the backward kernel, on any device. ``mean``
+    and ``rstd`` are the forward's f32 ``[B, C]`` statistics. Returns
+    ``(dx or None, dgamma, dbeta)``; dx in x's dtype, the others f32 ``[C]``."""
+    if gy.is_cuda:
+        instance_norm_backward_plain.cuda_calls += 1
+    shp = (x.shape[0], 1, 1, 1, x.shape[-1])
+    mean, rstd = mean.view(shp), rstd.view(shp)
+    xhat = (x.float() - mean) * rstd
+    g = gy.float()
+    if relu:
+        g = g * (xhat * gamma + beta > 0)
+    dgamma = (g * xhat).sum(dim=(0,) + _REDUCE)
+    dbeta = g.sum(dim=(0,) + _REDUCE)
+    dx = None
+    if need_dx:
+        # d/dx of (x - mean) * rsqrt(var + eps) with var = E[x^2] - E[x]^2;
+        # the clamp at 0 only binds for constant channels, where xhat = 0
+        dxhat = g * gamma
+        dx = rstd * (
+            dxhat
+            - dxhat.mean(dim=_REDUCE, keepdim=True)
+            - xhat * (dxhat * xhat).mean(dim=_REDUCE, keepdim=True)
+        )
+        dx = dx.to(x.dtype)
+    return dx, dgamma, dbeta
+
+
+instance_norm_backward_plain.cuda_calls = 0
+
+
+# ---- the launch plan --------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class Plan:
+    """How one call runs on the card (see the note in the CUDA source)."""
+
+    regime: str  # "resident" or "streaming"
+    vec: int  # elements per load: 16 bytes' worth, or 1 on the scalar path
+    cg: int  # resident: channels per group (32 bytes); streaming: 0
+    cluster: int  # resident: CTAs per cluster, sharing one slice; streaming: 1
+    rows: int  # rows per CTA (resident) or per chunk (streaming)
+    chunks: int  # row chunks per sample: the cluster size, or P
+    grid: Tuple[int, ...]  # (cluster, C // cg, B) or (CTAs,)
+    smem_bytes: int  # dynamic shared memory per CTA
+    ws_floats: int  # f32 workspace for the partials [B, P, 2, C]; resident: 0
+    hbm_reads: int  # times the inputs come from HBM: 2 only when they exceed the L2
+
+    @property
+    def ctas(self) -> int:
+        n = 1
+        for g in self.grid:
+            n *= g
+        return n
+
+
+def plan(B: int, S: int, C: int, itemsize: int, smem_optin: int, sms: int, l2_bytes: int, *,
+         arrays: int = 1, ctas_per_sm: int = STREAM_CTAS_PER_SM, aligned: bool = True) -> Plan:
+    """Pick regime and geometry for x ``[B, S, C]`` of ``itemsize`` bytes.
+
+    ``smem_optin``: shared memory one block may opt in to; ``sms``: SM count;
+    ``l2_bytes``: L2 size; ``arrays``: tensors a CTA must hold per slice (1
+    forward: x; 2 backward: gy and x); ``ctas_per_sm``: co-resident CTAs of
+    the streaming kernel per SM; ``aligned``: every pointer is 16-byte
+    aligned. Raises ``ValueError`` for a shape no regime can launch."""
+    if min(B, S, C) <= 0:
+        raise ValueError(f"fused_instance_norm: empty input B={B} S={S} C={C}")
+    if itemsize not in (2, 4) or arrays not in (1, 2) or ctas_per_sm < 1 or sms < 1:
+        raise ValueError("fused_instance_norm: plan() got an unsupported itemsize/arrays/occupancy")
+    full = 16 // itemsize
+    vec = full if aligned and C % full == 0 else 1
+    cg = ROW_BYTES // itemsize
+    hbm_reads = 1 if arrays * B * S * C * itemsize <= l2_bytes else 2
+
+    if vec == full and C % cg == 0 and B <= 65535 and C // cg <= 65535:
+        limit = smem_optin - RESIDENT_STATIC_BYTES
+        fits = [(k, -(-S // k)) for k in CLUSTER_SIZES if -(-S // k) * ROW_BYTES * arrays <= limit]
+        if fits:
+            small = [kr for kr in fits if kr[1] * ROW_BYTES * arrays <= RESIDENT_TARGET_BYTES]
+            cluster, rows = small[0] if small else fits[-1]
+            return Plan("resident", vec, cg, cluster, rows, cluster, (cluster, C // cg, B),
+                        rows * ROW_BYTES * arrays, 0, 1)
+
+    smem = (THREADS * 2 * vec + 2 * C) * 4
+    if smem > smem_optin:
+        raise ValueError(f"fused_instance_norm: C={C} needs {smem} bytes of shared memory, "
+                         f"the card allows {smem_optin}")
+    coresident = ctas_per_sm * sms
+    rows_per_iter = THREADS // min(C // vec, THREADS)
+    chunks = max(1, min(coresident // B, -(-S // (_MIN_ROWS_PER_THREAD * rows_per_iter))))
+    rows = -(-S // chunks)
+    chunks = -(-S // rows)
+    return Plan("streaming", vec, 0, 1, rows, chunks, (min(coresident, B * chunks),),
+                smem, B * chunks * 2 * C, hbm_reads)
+
+
+def plan_chunks(p: Plan, B: int, S: int, C: int) -> Iterator[Tuple[int, int, int, int, int]]:
+    """Every piece of work of a plan as ``(b, c_start, c_stop, row_start,
+    row_stop)``: one per CTA (resident) or per chunk (streaming). Together
+    they cover each (b, c, row) exactly once."""
+    for b in range(B):
+        for c0 in (range(0, C, p.cg) if p.regime == "resident" else (0,)):
+            c1 = c0 + p.cg if p.regime == "resident" else C
+            for k in range(p.chunks):
+                r0 = k * p.rows
+                if r0 < S:
+                    yield b, c0, c1, r0, min(S, r0 + p.rows)
+
+
+# ---- the kernels' binding ---------------------------------------------------
+
+_REGIME_CODE = {"resident": 0, "streaming": 1}
+
+
+class _Cached:
+    """A plan as the launcher takes it, kept per (device, shape, dtype,
+    direction, alignment) so that a call costs one dictionary lookup."""
+
+    __slots__ = ("plan", "tail", "validated")
+
+    def __init__(self, p: Plan):
+        self.plan = p
+        # the launcher's arguments from `regime` to `smem`
+        self.tail = (_REGIME_CODE[p.regime], p.vec, p.cluster, p.rows, p.grid[0], p.chunks,
+                     p.smem_bytes)
+        self.validated = False  # the launcher's occupancy checks have passed once
+
+
+_plans: Dict[tuple, _Cached] = {}
+# One f32 workspace per (device, stream) for the streaming regime's partials.
+# Reuse across calls is safe because launches on one stream run in order: the
+# next kernel that writes the workspace starts only after the one before it
+# has read its partials.
+_workspaces: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+_lib = None
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        from . import _build
+
+        lib = _build.load("fused_instance_norm").lib
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.mtta_instance_norm_forward.argtypes = (
+            [p] * 6 + [i] * 5 + [ctypes.c_float] + [i] * 6 + [ll, i, p])
+        lib.mtta_instance_norm_forward.restype = i
+        lib.mtta_instance_norm_backward.argtypes = [p] * 8 + [i] * 12 + [ll, i, p]
+        lib.mtta_instance_norm_backward.restype = i
+        lib.mtta_instance_norm_stream_ctas_per_sm.argtypes = [i, i, i, ll]
+        lib.mtta_instance_norm_stream_ctas_per_sm.restype = i
+        lib.mtta_cuda_error_string.argtypes = [i]
+        lib.mtta_cuda_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def _cached_plan(x: torch.Tensor, others, backward: bool) -> _Cached:
+    B, C = x.shape[0], x.shape[-1]
+    aligned = x.data_ptr() % 16 == 0 and all(t.data_ptr() % 16 == 0 for t in others)
+    key = (x.device.index, B, x.numel(), C, x.dtype, backward, aligned)
+    got = _plans.get(key)
+    if got is not None:
+        return got
+    S = x.numel() // (B * C)
+    props = torch.cuda.get_device_properties(x.device)
+    smem_optin = props.shared_memory_per_block_optin
+    full = 16 // x.element_size()
+    vec = full if aligned and C % full == 0 else 1
+    with torch.cuda.device(x.device):
+        per_sm = _library().mtta_instance_norm_stream_ctas_per_sm(
+            int(backward), int(x.dtype == torch.bfloat16), vec,
+            min((THREADS * 2 * vec + 2 * C) * 4, smem_optin))
+    if per_sm < 1:
+        raise RuntimeError(f"fused_instance_norm: the streaming kernel does not fit an SM for "
+                           f"x {tuple(x.shape)} (occupancy query returned {per_sm})")
+    got = _Cached(plan(B, S, C, x.element_size(), smem_optin, props.multi_processor_count,
+                       props.L2_cache_size, arrays=2 if backward else 1,
+                       ctas_per_sm=min(per_sm, STREAM_CTAS_PER_SM), aligned=aligned))
+    _plans[key] = got
+    return got
+
+
+def plan_for(x: torch.Tensor, *others: torch.Tensor, backward: bool = False) -> Plan:
+    """The plan the wrapper uses for CUDA tensor ``x`` (and the other tensors
+    of its shape that the kernel reads or writes) on x's device."""
+    return _cached_plan(x, others, backward).plan
+
+
+def _launch(fn, what: str, x: torch.Tensor, entry: _Cached, pointers: tuple, sizes: tuple) -> None:
+    """Call launcher ``fn`` with the tensors' pointers, the workspace, the
+    sizes and flags and the plan's arguments, on x's device and the current
+    stream; raise if the launch is refused."""
+    if x.device.index != torch.cuda.current_device():
+        with torch.cuda.device(x.device):
+            return _launch(fn, what, x, entry, pointers, sizes)
+    p = entry.plan
+    # the current stream's handle as an int, without building a Stream object
+    stream = torch._C._cuda_getCurrentRawStream(x.device.index)
+    ws = None
+    if p.ws_floats:
+        ws = _workspaces.get((x.device.index, stream))
+        if ws is None or ws.numel() < p.ws_floats:
+            ws = torch.empty(p.ws_floats, device=x.device, dtype=torch.float32)
+            _workspaces[(x.device.index, stream)] = ws
+        ws = ws.data_ptr()
+    code = fn(*pointers, ws, *sizes, *entry.tail, int(not entry.validated), stream)
+    if code != 0:
+        text = _library().mtta_cuda_error_string(code).decode()
+        raise RuntimeError(f"fused_instance_norm: {what} launch refused for x {tuple(x.shape)} "
+                           f"with {p}: CUDA error {code} ({text})")
+    entry.validated = True
+
+
+def _check_inputs(x, gamma, beta) -> Tuple[int, int, int]:
     if x.dim() != 5:
         raise ValueError(f"fused_instance_norm: x must be [B,D,H,W,C], got {tuple(x.shape)}")
     if x.dtype not in _KERNEL_DTYPES:
@@ -88,78 +325,88 @@ def _launch_kernel(x, gamma, beta, eps: float, relu: bool):
         raise ValueError(f"fused_instance_norm: empty input {tuple(x.shape)}")
     if S * C >= 2**31:
         raise ValueError("fused_instance_norm: one sample must hold fewer than 2**31 elements")
+    return B, S, C
 
-    from . import fused_instance_norm_triton
 
-    k = fused_instance_norm_triton.build()
-    block_c = min(1 << (C - 1).bit_length(), 128)
-    n_cblk = -(-C // block_c)
-
-    stats_s = _STATS_TILE // block_c
-    nblk = max(1, min(-(-S // stats_s), -(-_STATS_PROGRAMS // (B * n_cblk))))
-    rows = -(-S // nblk)
-    rows_per_prog = -(-rows // stats_s) * stats_s  # a whole number of tiles
-    nblk = -(-S // rows_per_prog)
-
-    psum = torch.empty((B, nblk, C), device=x.device, dtype=torch.float32)
-    psq = torch.empty_like(psum)
-    mean = torch.empty((B, C), device=x.device, dtype=torch.float32)
-    rstd = torch.empty_like(mean)
+def _launch_forward(x, gamma, beta, eps: float, relu: bool):
+    """Run the forward kernel on CUDA tensors; returns (y, stats [2, B, C])
+    with stats[0] = mean and stats[1] = rstd."""
+    B, S, C = _check_inputs(x, gamma, beta)
     y = torch.empty_like(x)
-
-    k.stats[(nblk, B, n_cblk)](
-        x, psum, psq, S, rows_per_prog,
-        C=C, BLOCK_S=stats_s, BLOCK_C=block_c, num_warps=8,
-    )
-    k.finish[(B, n_cblk)](
-        psum, psq, mean, rstd, nblk, float(S), float(eps),
-        C=C, BLOCK_C=block_c, num_warps=4,
-    )
-    norm_s = _NORM_TILE // block_c
-    k.norm[(-(-S // norm_s), B, n_cblk)](
-        x, y, mean, rstd, gamma, beta, S,
-        C=C, BLOCK_S=norm_s, BLOCK_C=block_c, RELU=relu, num_warps=8,
-    )
+    stats = torch.empty((2, B, C), device=x.device, dtype=torch.float32)
+    _launch(_library().mtta_instance_norm_forward, "forward", x, _cached_plan(x, (y,), False),
+            (x.data_ptr(), y.data_ptr(), gamma.data_ptr(), beta.data_ptr(), stats.data_ptr()),
+            (B, S, C, int(x.dtype == torch.bfloat16), int(relu), eps))
     fused_instance_norm.launches += 1
-    return y, mean, rstd
+    return y, stats
+
+
+def _launch_backward(gy, x, gamma, beta, stats, relu: bool, need_dx: bool):
+    """Run the backward kernel; returns (dx or None, sums [2, B, C]) with
+    sums[0] = sum g and sums[1] = sum g * xhat per sample."""
+    B, S, C = _check_inputs(x, gamma, beta)
+    if gy.shape != x.shape or gy.dtype != x.dtype or gy.device != x.device:
+        raise ValueError(f"fused_instance_norm: the output's gradient must be {x.dtype} "
+                         f"{tuple(x.shape)} on {x.device}, got {gy.dtype} {tuple(gy.shape)} on {gy.device}")
+    if (stats.shape != (2, B, C) or stats.dtype != torch.float32 or stats.device != x.device
+            or not stats.is_contiguous()):
+        raise ValueError(f"fused_instance_norm: stats must be a contiguous f32 [2, {B}, {C}] tensor "
+                         f"on {x.device}, got {stats.dtype} {tuple(stats.shape)} on {stats.device}")
+    if not gy.is_contiguous():
+        gy = gy.contiguous()
+    dx = torch.empty_like(x) if need_dx else None
+    sums = torch.empty((2, B, C), device=x.device, dtype=torch.float32)
+    entry = _cached_plan(x, (gy, dx) if need_dx else (gy,), True)
+    _launch(_library().mtta_instance_norm_backward, "backward", x, entry,
+            (gy.data_ptr(), x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), stats.data_ptr(),
+             dx.data_ptr() if need_dx else None, sums.data_ptr()),
+            (B, S, C, int(x.dtype == torch.bfloat16), int(relu), int(need_dx)))
+    fused_instance_norm.backward_launches += 1
+    return dx, sums
 
 
 class _FusedInstanceNormFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, gamma, beta, eps: float, relu: bool):
-        if x.device.type == "cuda":
-            y, mean, rstd = _launch_kernel(x, gamma, beta, eps, relu)
-        elif x.device.type == "cpu":
-            y, mean, rstd = _plain_forward(x, gamma, beta, eps, relu)
-        else:
-            raise ValueError(f"fused_instance_norm: no kernel for device {x.device}")
+        y, stats = instance_norm_forward(x, gamma, beta, eps=eps, relu=relu)
         ctx.relu = relu
-        ctx.save_for_backward(x, gamma, mean, rstd, y if relu else None)
+        ctx.save_for_backward(x, gamma, beta, stats)
         return y
 
     @staticmethod
     def backward(ctx, gy):
-        x, gamma, mean, rstd, y = ctx.saved_tensors
-        shp = (x.shape[0], 1, 1, 1, x.shape[-1])
-        mean, rstd = mean.view(shp), rstd.view(shp)
-        xhat = (x.float() - mean) * rstd
-        g = gy.float()
-        if ctx.relu:
-            g = g * (y > 0)
-        dgamma = (g * xhat).sum(dim=(0,) + _REDUCE) if ctx.needs_input_grad[1] else None
-        dbeta = g.sum(dim=(0,) + _REDUCE) if ctx.needs_input_grad[2] else None
-        dx = None
-        if ctx.needs_input_grad[0]:
-            # d/dx of (x - mean) * rsqrt(var + eps) with var = E[x^2] - E[x]^2;
-            # the clamp at 0 only binds for constant channels, where xhat = 0
-            dxhat = g * gamma
-            dx = rstd * (
-                dxhat
-                - dxhat.mean(dim=_REDUCE, keepdim=True)
-                - xhat * (dxhat * xhat).mean(dim=_REDUCE, keepdim=True)
-            )
-            dx = dx.to(x.dtype)
-        return dx, dgamma, dbeta, None, None
+        x, gamma, beta, stats = ctx.saved_tensors
+        dx, dgamma, dbeta = instance_norm_backward(gy, x, gamma, beta, stats, relu=ctx.relu,
+                                                   need_dx=ctx.needs_input_grad[0])
+        return (dx, dgamma if ctx.needs_input_grad[1] else None,
+                dbeta if ctx.needs_input_grad[2] else None, None, None)
+
+
+def instance_norm_forward(x, gamma, beta, *, eps: float = 1e-5, relu: bool = True):
+    """The forward without autograd: ``(y, stats)`` with the f32 statistics
+    ``stats`` ``[2, B, C]`` (mean, rstd) that ``instance_norm_backward`` takes.
+    A CUDA tensor launches the forward kernel or raises; a CPU tensor takes
+    the plain version."""
+    if x.device.type == "cuda":
+        return _launch_forward(x, gamma, beta, eps, relu)
+    if x.device.type == "cpu":
+        y, mean, rstd = _plain_forward(x, gamma, beta, eps, relu)
+        return y, torch.stack((mean, rstd))
+    raise ValueError(f"fused_instance_norm: no kernel for device {x.device}")
+
+
+def instance_norm_backward(gy, x, gamma, beta, stats, *, relu: bool, need_dx: bool = True):
+    """The gradient of ``fused_instance_norm`` at output gradient ``gy``, from
+    the forward's input and its f32 ``stats`` ``[2, B, C]`` (mean, rstd):
+    ``(dx or None, dgamma, dbeta)``. A CUDA tensor launches the backward
+    kernel or raises; a CPU tensor takes the plain version."""
+    if x.device.type == "cuda":
+        dx, sums = _launch_backward(gy, x, gamma, beta, stats, relu, need_dx)
+        dbeta, dgamma = sums.sum(dim=1).unbind(0)  # over the samples: [2, C]
+        return dx, dgamma, dbeta
+    if x.device.type == "cpu":
+        return instance_norm_backward_plain(gy, x, gamma, beta, stats[0], stats[1], relu, need_dx)
+    raise ValueError(f"fused_instance_norm: no kernel for device {x.device}")
 
 
 def fused_instance_norm(
@@ -173,9 +420,10 @@ def fused_instance_norm(
     """InstanceNorm over the spatial dims of NDHWC ``x`` ([B, D, H, W, C]),
     with the affine transform and optional ReLU fused: returns
     ``act((x - mean) * rsqrt(var + eps) * gamma + beta)`` in x's dtype, with
-    mean/var per (B, C) taken in f32. Differentiable in x, gamma and beta."""
+    mean/var per (B, C) taken in f32. Differentiable in x, gamma and beta.
+    Launches on the current stream and does not synchronise."""
     return _FusedInstanceNormFn.apply(x, gamma, beta, float(eps), _check_act(act))
 
 
 fused_instance_norm.launches = 0
-
+fused_instance_norm.backward_launches = 0

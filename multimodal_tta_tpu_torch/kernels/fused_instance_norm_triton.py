@@ -1,4 +1,9 @@
-"""Triton source of the fused InstanceNorm forward for Hopper (sm_90).
+"""The earlier, three-launch Triton forward of the fused InstanceNorm.
+
+No longer on any path of the port: ``kernels/fused_instance_norm.py`` launches
+the CUDA C++ kernels of ``csrc/fused_instance_norm.cu``. This file stays only
+so that ``chip_smoke.py`` can time the earlier kernel beside the new one in
+one run (``_forward`` below); nothing in ``models/`` or ``tta/`` imports it.
 
 Replaces the TPU kernel
 ``multimodal_tta_tpu/pallas/fused_instance_norm.py::fused_instance_norm``
@@ -38,6 +43,12 @@ from __future__ import annotations
 
 import functools
 from types import SimpleNamespace
+
+# pass-1 tile of 4096 f32 accumulators (x2), pass-2 tile of 8192 elements
+_STATS_TILE = 4096
+_NORM_TILE = 8192
+# pass-1 programs to aim for: several waves on 132 SMs
+_STATS_PROGRAMS = 1024
 
 
 @functools.cache
@@ -117,3 +128,42 @@ def build() -> SimpleNamespace:
         stats=stats_kernel, finish=finish_kernel, norm=norm_kernel,
         version=triton.__version__,
     )
+
+
+def _forward(x, gamma, beta, eps: float, relu: bool):
+    """Run the three Triton kernels on contiguous NDHWC CUDA tensors (f32 or
+    bf16 x, f32 gamma and beta); returns y. For timing comparisons only."""
+    import torch
+
+    B, D, H, W, C = x.shape
+    S = D * H * W
+    k = build()
+    block_c = min(1 << (C - 1).bit_length(), 128)
+    n_cblk = -(-C // block_c)
+
+    stats_s = _STATS_TILE // block_c
+    nblk = max(1, min(-(-S // stats_s), -(-_STATS_PROGRAMS // (B * n_cblk))))
+    rows = -(-S // nblk)
+    rows_per_prog = -(-rows // stats_s) * stats_s  # a whole number of tiles
+    nblk = -(-S // rows_per_prog)
+
+    psum = torch.empty((B, nblk, C), device=x.device, dtype=torch.float32)
+    psq = torch.empty_like(psum)
+    mean = torch.empty((B, C), device=x.device, dtype=torch.float32)
+    rstd = torch.empty_like(mean)
+    y = torch.empty_like(x)
+
+    k.stats[(nblk, B, n_cblk)](
+        x, psum, psq, S, rows_per_prog,
+        C=C, BLOCK_S=stats_s, BLOCK_C=block_c, num_warps=8,
+    )
+    k.finish[(B, n_cblk)](
+        psum, psq, mean, rstd, nblk, float(S), float(eps),
+        C=C, BLOCK_C=block_c, num_warps=4,
+    )
+    norm_s = _NORM_TILE // block_c
+    k.norm[(-(-S // norm_s), B, n_cblk)](
+        x, y, mean, rstd, gamma, beta, S,
+        C=C, BLOCK_S=norm_s, BLOCK_C=block_c, RELU=relu, num_warps=8,
+    )
+    return y

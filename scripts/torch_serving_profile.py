@@ -8,12 +8,16 @@ Builds the flagship UNet3D (channels 32..512, bf16, random weights from a
 seed) as chip_smoke.py does. ``online`` and ``strict`` profile the Tent
 adapt+segment serving step; ``eval`` profiles the evaluation step of one
 batch (forward, Dice/IoU, loss, HD95/ASD/NSD) on synthetic volumes with
-ellipsoid labels. The step is warmed up, then ``--steps`` steps run under
-``torch.profiler``. Prints: the wall time per step, the device time by
-kernel (top 15), the device time by kind (fused-InstanceNorm Triton kernels,
-convolutions, the min-plus CUDA kernel, sorts, copies, the rest), and the
-device busy share (summed kernel time over the profiled wall time). The last
-line is one JSON object with the same numbers. Needs a CUDA card.
+ellipsoid labels. The step is warmed up, timed over ten steps without the
+profiler (and once more without a synchronise, for the host's share), then
+``--steps`` steps run under ``torch.profiler``. Prints: the wall time per step, the device time by
+kernel (top 15), the device time by kind (the fused-InstanceNorm CUDA
+kernels, forward and backward apart, convolutions, the min-plus CUDA kernel,
+sorts, copies, the rest), the kernels launched per step in all and per
+kind (``direct_copy`` kernels on a line of their own, with the calls that
+launch them), and the device busy share (summed kernel time over the
+profiled wall time). The last line is one JSON object with the same
+numbers. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -27,7 +31,8 @@ import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-NORM_KERNELS = ("stats_kernel", "finish_kernel", "norm_kernel")
+NORM_FORWARD_KERNELS = ("in_fwd_resident", "in_fwd_stream")
+NORM_BACKWARD_KERNELS = ("in_bwd_resident", "in_bwd_stream")
 CONV_MARKS = ("conv", "cudnn", "xmma", "implicit", "dgrad", "wgrad", "fprop", "nhwc")
 
 
@@ -37,8 +42,10 @@ COPY_MARKS = ("memcpy", "copy_kernel", "direct_copy", "memset")
 
 def kind(name: str) -> str:
     low = name.lower()
-    if any(k in low for k in NORM_KERNELS):
-        return "instance_norm_triton"
+    if any(k in low for k in NORM_FORWARD_KERNELS):
+        return "norm_forward"
+    if any(k in low for k in NORM_BACKWARD_KERNELS):
+        return "norm_backward"
     if "minplus_kernel" in low:
         return "minplus_cuda"
     if any(k in low for k in SORT_MARKS):
@@ -86,8 +93,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_serving_profile: needs a CUDA card", file=sys.stderr)
         return 2
-    os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(REPO, "build", "triton_cache"))
-    os.environ.setdefault("TRITON_HOME", os.path.join(REPO, "build", "triton_home"))
     sys.path.insert(0, REPO)
     from chip_smoke import DEVICE_TRANSFORM, SHAPE, THRESHOLD
     from multimodal_tta_tpu_torch.conf import ConfigNode
@@ -114,6 +119,19 @@ def main() -> int:
     for _ in range(3):
         step(model, x, args.batch)
     torch.cuda.synchronize()
+    # ten more warm steps without the profiler: the step's own time, and how
+    # long the host alone needs to enqueue it (no synchronise inside the loop)
+    warm_ms = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        step(model, x, args.batch)
+        torch.cuda.synchronize()
+        warm_ms.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    for _ in range(10):
+        step(model, x, args.batch)
+    host_ms = (time.perf_counter() - t0) * 1e3 / 10
+    torch.cuda.synchronize()
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -133,21 +151,43 @@ def main() -> int:
             rows.append((ev.key, dev_us / 1e3, ev.count))
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
-    by_kind = {}
-    for name, ms, _ in rows:
+    by_kind, n_by_kind = {}, {}
+    for name, ms, count in rows:
         by_kind[kind(name)] = by_kind.get(kind(name), 0.0) + ms
+        n_by_kind[kind(name)] = n_by_kind.get(kind(name), 0) + count
     per_step = {k: v / args.steps for k, v in by_kind.items()}
+    launches_per_step = {k: v / args.steps for k, v in n_by_kind.items()}
+    direct_copies = sum(c for name, _, c in rows if "direct_copy" in name) / args.steps
+    # which host calls launch the direct_copy kernels: the operator events
+    # named like a copy, by their call count
+    copy_ops = {ev.key: ev.count / args.steps for ev in prof.key_averages()
+                if ev.key in ("aten::copy_", "aten::contiguous", "aten::clone", "aten::to",
+                              "aten::_to_copy", "aten::cat", "aten::pad", "aten::constant_pad_nd")}
 
     print(f"card: {card}")
+    print(f"{args.protocol} step without the profiler, 10 warm steps: median "
+          f"{sorted(warm_ms)[5]:.3f} ms/step (min {min(warm_ms):.3f}, max {max(warm_ms):.3f}); "
+          f"host alone, no synchronise: {host_ms:.3f} ms/step")
     print(f"{args.protocol} step, batch {args.batch}, {args.steps} steps: wall {wall_ms / args.steps:.3f} ms/step, "
           f"device {device_ms / args.steps:.3f} ms/step, busy share {device_ms / wall_ms:.3f}")
     for name, ms, count in rows[:15]:
         print(f"  {ms / args.steps:9.3f} ms/step  x{count // args.steps:<4d} {name[:110]}")
     print("by kind (ms/step): " + ", ".join(f"{k} {v:.3f}" for k, v in sorted(per_step.items())))
+    print("kernels per step by kind: " + ", ".join(f"{k} {v:.1f}" for k, v in sorted(launches_per_step.items()))
+          + f"; in all {sum(launches_per_step.values()):.1f}")
+    print(f"direct_copy kernels per step: {direct_copies:.1f}; copy-like operator calls per step: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in sorted(copy_ops.items())))
+    host = sorted(((ev.key, ev.self_cpu_time_total / 1e3 / args.steps, ev.count / args.steps)
+                   for ev in prof.key_averages()), key=lambda r: -r[1])[:12]
+    print("host time by operator, self ms/step (calls/step): "
+          + ", ".join(f"{k} {ms:.2f} ({n:.0f})" for k, ms, n in host))
     print(json.dumps({
         "protocol": args.protocol, "batch": args.batch, "steps": args.steps, "card": card,
+        "warm_ms_per_step_no_profiler": warm_ms, "host_enqueue_ms_per_step": host_ms,
         "wall_ms_per_step": wall_ms / args.steps, "device_ms_per_step": device_ms / args.steps,
         "busy_share": device_ms / wall_ms, "device_ms_per_step_by_kind": per_step,
+        "kernels_per_step_by_kind": launches_per_step, "direct_copy_kernels_per_step": direct_copies,
+        "copy_like_operator_calls_per_step": copy_ops,
     }))
     return 0
 

@@ -1,6 +1,6 @@
 """The port's hand-written kernels against their plain PyTorch versions on
 the card. Every test here is marked ``cuda`` and skips without a GPU (the
-Triton and CUDA kernels have no CPU or interpret mode). The card's machine has no
+CUDA kernels have no CPU or interpret mode). The card's machine has no
 JAX, so this file imports none; run it there without the JAX test setup:
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -m cuda
@@ -12,7 +12,11 @@ import torch
 from multimodal_tta_tpu_torch.kernels.edt_minplus import minplus, minplus_plain
 from multimodal_tta_tpu_torch.kernels.fused_instance_norm import (
     fused_instance_norm,
+    instance_norm_backward,
+    instance_norm_backward_plain,
+    instance_norm_forward,
     instance_norm_plain,
+    plan_for,
 )
 
 # f32: other summation order; bf16: one rounding step of the output
@@ -26,7 +30,9 @@ def _need_card():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 6, 18, 18, 128), (1, 3, 5, 7, 48), (2, 3, 9, 9, 512)])
+@pytest.mark.parametrize("shape", [(2, 6, 18, 18, 128), (1, 3, 5, 7, 48), (2, 3, 9, 9, 512),
+                                   (2, 12, 36, 36, 64), (2, 24, 72, 72, 32), (2, 3, 5, 7, 7),
+                                   (3, 4, 5, 6, 8)])
 @pytest.mark.parametrize("act", ["relu", None])
 def test_fused_instance_norm_matches_plain(dtype, shape, act):
     _need_card()
@@ -57,6 +63,109 @@ def test_fused_instance_norm_rejects_what_the_kernel_does_not_take():
         fused_instance_norm(x, gamma.double(), gamma)
     with pytest.raises(TypeError):
         fused_instance_norm(x.double(), gamma, gamma)
+
+
+# (shape, regime and cluster the plan must take in bf16): every regime of the kernels
+NORM_CASES = [((2, 3, 9, 9, 512), ("resident", 1)), ((2, 6, 18, 18, 128), ("resident", 8)),
+              ((2, 12, 36, 36, 64), ("resident", 8)), ((2, 24, 72, 72, 32), ("streaming", 1)),
+              ((2, 3, 5, 7, 7), ("streaming", 1))]
+
+
+def _norm_case(shape, dtype, seed=0):
+    """x, gamma, beta, gy on the card, with x kept off the ReLU's kink: there
+    the mask depends on the summation order of the statistics."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    c = shape[-1]
+    x = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    gamma = torch.rand(c, generator=g, device="cuda") + 0.5
+    beta = torch.randn(c, generator=g, device="cuda") * 0.1
+    gy = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    for _ in range(20):
+        pre = instance_norm_plain(x.float(), gamma, beta, act=None).abs()
+        if float(pre.min()) > 1e-4:
+            return x, gamma, beta, gy
+        x = torch.where(pre < 1e-3, x.float() + 0.25, x.float()).to(dtype)
+    raise AssertionError("could not move the input off the ReLU kink")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,want", NORM_CASES)
+@pytest.mark.parametrize("act", ["relu", None])
+@pytest.mark.parametrize("need_dx", [True, False])
+def test_fused_instance_norm_backward_matches_autograd_of_plain(dtype, shape, want, act, need_dx):
+    """f32 sums and f32 dx: 1e-4 * max|ref| + 1e-5 (other summation order);
+    bf16 dx: one bf16 rounding, 2^-7 * (max|ref| + |ref|)."""
+    _need_card()
+    x, gamma, beta, gy = _norm_case(shape, dtype)
+    if dtype == torch.bfloat16:
+        p = plan_for(x, backward=True)
+        assert (p.regime, p.cluster) == want
+    x.requires_grad_(need_dx)
+    gamma.requires_grad_()
+    beta.requires_grad_()
+    inputs = ((x,) if need_dx else ()) + (gamma, beta)
+    before = (fused_instance_norm.backward_launches, instance_norm_backward_plain.cuda_calls)
+    got = torch.autograd.grad(fused_instance_norm(x, gamma, beta, act=act), inputs, gy)
+    torch.cuda.synchronize()
+    assert fused_instance_norm.backward_launches == before[0] + 1
+    assert instance_norm_backward_plain.cuda_calls == before[1]  # never the plain one on the card
+    ref = torch.autograd.grad(instance_norm_plain(x, gamma, beta, act=act), inputs, gy)
+    for u, v in zip(got, ref):
+        assert u.dtype == v.dtype and u.shape == v.shape
+        diff = (u.float() - v.float()).abs()
+        vmax = float(v.float().abs().max())
+        if u.dtype == torch.bfloat16:
+            assert bool((diff <= 2.0 ** -7 * (vmax + v.float().abs())).all()), float(diff.max())
+        else:
+            assert float(diff.max()) <= 1e-4 * vmax + 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,want", NORM_CASES)
+def test_fused_instance_norm_is_bitwise_repeatable(shape, want):
+    _need_card()
+    x, gamma, beta, gy = _norm_case(shape, torch.bfloat16, seed=3)
+    runs = []
+    for _ in range(3):
+        y, stats = instance_norm_forward(x, gamma, beta)
+        runs.append((y, stats) + instance_norm_backward(gy, x, gamma, beta, stats, relu=True))
+    torch.cuda.synchronize()
+    for other in runs[1:]:
+        assert all(torch.equal(u, v) for u, v in zip(runs[0], other))
+
+
+@pytest.mark.cuda
+def test_fused_instance_norm_runs_on_the_current_stream():
+    _need_card()
+    x, gamma, beta, gy = _norm_case((2, 24, 72, 72, 32), torch.bfloat16, seed=5)
+    want = instance_norm_plain(x, gamma, beta)
+    xr = x.detach().requires_grad_()
+    want_dx = torch.autograd.grad(instance_norm_plain(xr, gamma, beta), xr, gy)[0]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        y = fused_instance_norm(xr, gamma, beta)
+        dx = torch.autograd.grad(y, xr, gy)[0]
+    side.synchronize()
+    assert bool(((y.float() - want.float()).abs() <= 5e-2 + 2.0 ** -7 * want.float().abs()).all())
+    lim = 2.0 ** -7 * (want_dx.float().abs().max() + want_dx.float().abs())
+    assert bool(((dx.float() - want_dx.float()).abs() <= lim).all())
+
+
+@pytest.mark.cuda
+def test_fused_instance_norm_backward_rejects_a_wrong_gradient():
+    _need_card()
+    x, gamma, beta, gy = _norm_case((1, 2, 4, 4, 16), torch.float32)
+    stats = torch.zeros(2, 1, 16, device="cuda")
+    with pytest.raises(ValueError, match="gradient"):
+        instance_norm_backward(gy.bfloat16(), x, gamma, beta, stats, relu=True)
+    with pytest.raises(ValueError, match="gradient"):
+        instance_norm_backward(gy[:, :1], x, gamma, beta, stats, relu=True)
+    with pytest.raises(ValueError, match="beta"):
+        instance_norm_backward(gy, x, gamma, beta.double(), stats, relu=True)
+    with pytest.raises(ValueError, match="stats"):
+        instance_norm_backward(gy, x, gamma, beta, stats[0], relu=True)
 
 
 def _cost(n, spacing):
