@@ -5,10 +5,8 @@
 
 Phases, in order (any failure propagates and exits non-zero):
   1. build   — compile the CUDA C++ kernels (``csrc/*.cu``) with ``nvcc``
-               into ``build/kernels``, one compiler per source, all started
-               together; define the earlier Triton norm kernel, which only
-               phase 6 times (Triton compiles at first launch into
-               ``build/triton_cache``; both directories are in .gitignore).
+               into ``build/kernels`` (listed in .gitignore), one compiler per
+               source, all started together.
   2. kernel  — the fused InstanceNorm CUDA kernels against their plain
                PyTorch versions: the forward at all nine norm shapes of the
                main path plus C=48 and an odd C, bf16 and f32, ReLU on and
@@ -27,27 +25,32 @@ Phases, in order (any failure propagates and exits non-zero):
   5. parity  — one Tent step at full width on a small input, kernel against
                plain norm in f32: entropy, norm-param deltas, predictions.
   6. timing  — the forward and the backward kernel at every norm shape of
-               one forward, against the earlier Triton forward, the plain
-               versions, F.instance_norm+relu (and its autograd) and the
-               byte bounds.
-  7. min-plus — the CUDA min-plus kernel against its plain version at the
-               evaluation path's two shapes and at small and ragged cases:
-               bitwise equal, +inf kept, no NaN.
+               one forward, against the plain versions, F.instance_norm+relu
+               (and its autograd) and the byte bounds.
+  7. min-plus — the CUDA min-plus kernels against their plain versions,
+               bitwise, +inf kept, no NaN: ``minplus(f, cost)`` at the
+               evaluation path's line shapes and at small and ragged cases;
+               ``squared_edt_volumes`` (all volumes and all three axes in one
+               launch) for 1 and 4 volumes of [48,144,144], ragged volumes,
+               all-empty and all-set masks, two spacings, with and without
+               the root, one case twice.
   8. EDT     — the squared distance transform through the kernel on a full
-               [48,144,144] mask against scipy's on the host; an empty mask
-               gives +inf everywhere.
+               [48,144,144] mask against scipy's on the host, in one launch;
+               an empty mask gives +inf everywhere.
   9. eval    — evaluation under adaptation: the flagship UNet3D through
                ``TTAEngine.evaluate`` (Dice/IoU, loss, HD95/ASD/NSD) over 3
                batches of 2 volumes with two domains, for no adaptation,
                episodic Tent and continual Tent: the whole key schema, finite
-               values in range, 12 min-plus launches per batch, Dice equal to
+               values in range, one min-plus launch per batch, Dice equal to
                a numpy recomputation on the host, the model restored after
                every run; an all-empty prediction gets the diagonal penalty.
- 10. timing  — the min-plus kernel per shape against the plain version and
-               its bound, and one evaluated batch split into forward,
-               Dice/IoU, loss and surface metrics (and within those the
-               min-plus launches, the axis copies, the sorts, the surface
-               extraction).
+ 10. timing  — the distance transform of one evaluated batch (4 surfaces,
+               one launch) against its plain version and its bound, the
+               general ``minplus`` at the path's two line shapes, a
+               register-only probe of the card's add/min rate, and one
+               evaluated batch split into forward, Dice/IoU, loss and surface
+               metrics (and within those the transform, the sort, the
+               surface extraction).
 
 The line before the last is the kernel summary ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``. Weights and data are random,
@@ -98,6 +101,10 @@ NSD_TOL = 2.0
 DOMAINS = (["CHUM", "CHGJ"], ["CHGJ", "CHGJ"], ["CHUM", "CHUM"])
 EDT_REL_TOL = 1e-5  # squared EDT vs scipy: f32 sums of squares against f64
 DICE_ABS_TOL = 1e-5  # device f32 Dice vs numpy f64 on the same masks
+# the first min-plus kernel (64 x 64 tiles, j in slabs) took this for the same
+# work on the same card model: 12 launches per evaluated batch, without the
+# 12 axis copies and 12 cost-matrix builds around them (PERF.md)
+EARLIER_MINPLUS_MS = 0.403
 
 
 def eval_config(method: str, episodic: bool, threshold: float = THRESHOLD) -> dict:
@@ -127,8 +134,6 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a CUDA card",
               file=sys.stderr)
         return 2
-    os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(REPO, "build", "triton_cache"))
-    os.environ.setdefault("TRITON_HOME", os.path.join(REPO, "build", "triton_home"))
     sys.path.insert(0, REPO)
 
     import numpy as np
@@ -138,8 +143,16 @@ def main() -> int:
         SegmentationEvaluationStrategy,
         diag_mm_from_shape,
     )
-    from multimodal_tta_tpu_torch.kernels import _build, fused_instance_norm_triton
-    from multimodal_tta_tpu_torch.kernels.edt_minplus import minplus, minplus_plain
+    from multimodal_tta_tpu_torch.kernels import _build
+    from multimodal_tta_tpu_torch.kernels.edt_minplus import (
+        addmin_probe,
+        edt_cost_matrix,
+        minplus,
+        minplus_plain,
+        squared_edt_volumes,
+        squared_edt_volumes_plain,
+        volume_plan_for,
+    )
     from multimodal_tta_tpu_torch.kernels.fused_instance_norm import (
         fused_instance_norm,
         instance_norm_backward,
@@ -208,10 +221,6 @@ def main() -> int:
         for line in built.log.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build]   {line.strip()}")
-    t0 = time.perf_counter()
-    k = fused_instance_norm_triton.build()
-    log(f"[build] triton {k.version}: the earlier norm kernels stats/finish/norm (timed in phase 6 "
-        f"only) defined in {time.perf_counter() - t0:.2f}s; cache {os.environ['TRITON_CACHE_DIR']}")
 
     # ---- 2. kernels vs plain ---------------------------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -479,7 +488,7 @@ def main() -> int:
     counts = {}
     for s in shapes:
         counts[s] = counts.get(s, 0) + 1
-    keys = ("ms", "triton_ms", "plain_ms", "library_ms", "bytes", "flops")
+    keys = ("ms", "plain_ms", "library_ms", "bytes", "flops")
     totals, btotals = dict.fromkeys(keys, 0.0), dict.fromkeys(keys, 0.0)
     for (shape, relu), n in counts.items():
         c = shape[-1]
@@ -488,17 +497,13 @@ def main() -> int:
         x = off_kink(x, g, b) if relu else x
         ref = instance_norm_plain(x, g, b, act=act)
         err, ok = within(fused_instance_norm(x, g, b, act=act), ref, TOL_BF16)
-        err_t, ok_t = within(fused_instance_norm_triton._forward(x, g, b, 1e-5, relu), ref, TOL_BF16)
-        if not (ok and ok_t):
+        if not ok:
             raise AssertionError(f"kernel disagrees with plain at {shape}")
         max_abs_err = max(max_abs_err, err)
         del ref
-        # new, earlier, earlier, new: the two versions only compare within one run
         ms_a = cuda_ms(lambda: fused_instance_norm(x, g, b, act=act))
-        tr_a = cuda_ms(lambda: fused_instance_norm_triton._forward(x, g, b, 1e-5, relu))
-        tr_b = cuda_ms(lambda: fused_instance_norm_triton._forward(x, g, b, 1e-5, relu))
         ms_b = cuda_ms(lambda: fused_instance_norm(x, g, b, act=act))
-        ms, triton_ms = min(ms_a, ms_b), min(tr_a, tr_b)
+        ms = min(ms_a, ms_b)
         plain_ms = cuda_ms(lambda: instance_norm_plain(x, g, b, act=act))
         x_ncdhw = x.permute(0, 4, 1, 2, 3)
 
@@ -510,10 +515,10 @@ def main() -> int:
         nbytes = 2 * x.numel() * x.element_size() + 2 * c * 4  # read x, write y, gamma, beta
         flops = 8 * x.numel()  # stats: add, mul, add; normalize, affine, relu: 5
         log(f"[timing] forward {list(shape)} bf16 relu={relu} x{n} ({regimes[(shape, torch.bfloat16)].regime}): "
-            f"kernel {ms:.4f} ms ({ms_a:.4f}, {ms_b:.4f}), earlier Triton kernel {triton_ms:.4f} ms "
-            f"({tr_a:.4f}, {tr_b:.4f}), plain {plain_ms:.4f} ms, F.instance_norm(+relu) {lib_ms:.4f} ms, "
+            f"kernel {ms:.4f} ms ({ms_a:.4f}, {ms_b:.4f}), plain {plain_ms:.4f} ms, "
+            f"F.instance_norm(+relu) {lib_ms:.4f} ms, "
             f"bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms, max err {err:.3g}")
-        for key, v in zip(keys, (ms, triton_ms, plain_ms, lib_ms, nbytes, flops)):
+        for key, v in zip(keys, (ms, plain_ms, lib_ms, nbytes, flops)):
             totals[key] += n * v
 
         # backward of the same call: the kernel's wrapper, the plain backward,
@@ -544,18 +549,17 @@ def main() -> int:
         log(f"[timing] backward {list(shape)} bf16 relu={relu} x{n} "
             f"({plan_for(x, backward=True).regime}): kernel {bms:.4f} ms, plain {bplain_ms:.4f} ms, "
             f"autograd of F.instance_norm(+relu) {blib_ms:.4f} ms, bound {bbytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
-        for key, v in zip(keys, (bms, 0.0, bplain_ms, blib_ms, bbytes, bflops)):
+        for key, v in zip(keys, (bms, bplain_ms, blib_ms, bbytes, bflops)):
             btotals[key] += n * v
         del x, gy, stats, xl, yl, gyl, x_ncdhw
     log(f"[timing] one forward's {len(shapes)} norm calls, bf16 batch {BATCH}: forward kernel {totals['ms']:.4f} ms, "
-        f"earlier Triton kernel {totals['triton_ms']:.4f} ms, plain {totals['plain_ms']:.4f} ms, library "
+        f"plain {totals['plain_ms']:.4f} ms, library "
         f"{totals['library_ms']:.4f} ms, bound {totals['bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms; backward kernel "
         f"{btotals['ms']:.4f} ms, plain {btotals['plain_ms']:.4f} ms, library {btotals['library_ms']:.4f} ms, "
         f"bound {btotals['bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms; card {smi}")
     # ---- 7. min-plus kernel vs plain --------------------------------------
     def cost_matrix(n: int, spacing: float):
-        i = torch.arange(n, dtype=torch.float32, device=dev)
-        return ((i[None, :] - i[:, None]) * spacing) ** 2
+        return edt_cost_matrix(n, spacing, device=dev)
 
     def sparse_lines(rows: int, n: int, keep: float = 0.85):
         """Lines of 0 / +inf as the EDT's first pass sees them."""
@@ -563,11 +567,8 @@ def main() -> int:
                            float("inf")).to(torch.float32)
 
     d_, h_, w_ = SHAPE[:3]
-    # (rows, n, spacing) -> calls per evaluated batch of BATCH volumes, 1 region:
-    # one pass per axis, two transforms per (sample, region) pair
-    path_shapes = {}
-    for rows, n, sp in ((h_ * w_, d_, SPACING[0]), (d_ * w_, h_, SPACING[1]), (d_ * h_, w_, SPACING[2])):
-        path_shapes[(rows, n, sp)] = path_shapes.get((rows, n, sp), 0) + 2 * BATCH
+    # the line shapes of one volume's three passes: (rows, n, spacing)
+    path_shapes = sorted({(h_ * w_, d_, SPACING[0]), (d_ * w_, h_, SPACING[1]), (d_ * h_, w_, SPACING[2])})
     cases = [(r, n, sp, sparse_lines(r, n)) for (r, n, sp) in path_shapes]
     cases += [(r, n, 1.5, sparse_lines(r, n)) for r, n in ((10, 48), (300, 144), (256, 128), (1, 7))]
     cases.append((4, 16, 1.0, torch.full((4, 16), float("inf"), device=dev)))
@@ -590,6 +591,40 @@ def main() -> int:
             raise AssertionError(f"min-plus kernel disagrees with plain at [{rows},{n}]")
     if not bool(torch.isinf(minplus(cases[-2][3], cost_matrix(16, 1.0))).all()):
         raise AssertionError("min-plus: an all-inf input must stay all inf")
+
+    def sparse_points(shape, keep: float):
+        return torch.rand(shape, generator=gen, device=dev) > keep
+
+    pts4 = sparse_points((2 * BATCH, d_, h_, w_), 0.999)
+    pts4[1] = False  # one volume without points among the four
+    volume_cases = [("1 volume", pts4[:1].contiguous()), ("4 volumes, one empty", pts4),
+                    ("ragged [5,7,13]", sparse_points((3, 5, 7, 13), 0.9)),
+                    ("ragged [20,31,155]", sparse_points((2, 20, 31, 155), 0.99)),
+                    ("all empty", torch.zeros((2, 6, 10, 12), dtype=torch.bool, device=dev)),
+                    ("all set", torch.ones((2, 6, 10, 12), dtype=torch.bool, device=dev))]
+    for label_, pts in volume_cases:
+        for sp in (SPACING, (0.5, 2.0, 1.25)):
+            for root in (False, True):
+                before = minplus.launches
+                got = squared_edt_volumes(pts, sp, sqrt=root)
+                sync()
+                n_launch = minplus.launches - before
+                ref = squared_edt_volumes_plain(pts, sp, sqrt=root)
+                again = squared_edt_volumes(pts, sp, sqrt=root)
+                equal, same = torch.equal(got, ref), torch.equal(got, again)
+                nan = bool(torch.isnan(got).any())
+                finite = torch.isfinite(ref)
+                err = float((got[finite] - ref[finite]).abs().max()) if bool(finite.any()) else 0.0
+                minplus_err = max(minplus_err, err)
+                log(f"[min-plus] squared_edt_volumes {list(pts.shape)} ({label_}) spacing {sp} sqrt={root}: "
+                    f"{n_launch} launch, bitwise equal to plain={equal}, run twice equal={same}, inf out "
+                    f"{int(torch.isinf(got).sum())} (plain {int(torch.isinf(ref).sum())}), nan={nan}")
+                if not (equal and same) or nan or n_launch != 1:
+                    raise AssertionError(f"squared_edt_volumes disagrees with plain at {label_} {sp} sqrt={root}")
+    vp = volume_plan_for(pts4)
+    log(f"[min-plus] plan of {list(pts4.shape)}: {vp.threads} threads, {vp.smem_bytes} bytes of shared memory; "
+        + "; ".join(f"n={q.n} {q.kind} lanes_r={q.lanes_r} rows/tile={q.rows} tiles={q.tiles}" for q in vp.passes))
+    del pts4, volume_cases
 
     # ---- 8. squared EDT through the kernel vs scipy -----------------------
     rng = np.random.RandomState(7)
@@ -614,7 +649,7 @@ def main() -> int:
     log(f"[EDT] squared_edt {list(points.shape)} spacing {SPACING}, {int(points_np.sum())} points: "
         f"{edt_launches} kernel launches, max rel err vs scipy {rel:.3g} (limit {EDT_REL_TOL}); "
         f"empty mask all inf={bool(torch.isinf(empty).all())}; scipy on the host {scipy_s * 1e3:.1f} ms")
-    if edt_launches != 3 or not rel <= EDT_REL_TOL or not bool(torch.isinf(empty).all()):
+    if edt_launches != 1 or not rel <= EDT_REL_TOL or not bool(torch.isinf(empty).all()):
         raise AssertionError("squared EDT through the kernel disagrees with scipy")
     if not edt.is_contiguous() or edt.shape != points.shape:
         raise AssertionError("squared EDT must return a contiguous [D,H,W] tensor")
@@ -683,9 +718,8 @@ def main() -> int:
             f"dom/CHUM dc {m['dom/CHUM/gtvt_dc']:.6f} dom/CHGJ dc {m['dom/CHGJ/gtvt_dc']:.6f}; "
             f"min-plus launches {eval_launches[tag]} ({eval_launches[tag] // len(loader)}/batch), "
             f"norm launches {norm_eval_launches[tag]} forward, {backward_launches[tag]} backward; card {smi}")
-        if eval_launches[tag] != BATCH * 1 * 2 * 3 * len(loader):
-            raise AssertionError(f"{tag}: {eval_launches[tag]} min-plus launches, expected "
-                                 f"{BATCH * 6 * len(loader)}")
+        if eval_launches[tag] != len(loader):  # all surfaces and axes of a batch in one launch
+            raise AssertionError(f"{tag}: {eval_launches[tag]} min-plus launches, expected {len(loader)}")
         per_batch_norm = 18 if method == "none" else 36
         if norm_eval_launches[tag] != per_batch_norm * len(loader):
             raise AssertionError(f"{tag}: {norm_eval_launches[tag]} norm launches")
@@ -723,34 +757,51 @@ def main() -> int:
             and zero["gtvt_nsd"] == 0.0 and zero["gtvt_dc"] < 1e-6):
         raise AssertionError("an empty prediction must get the diagonal penalty and NSD 0")
 
-    # ---- 10. timing: the min-plus kernel and one evaluated batch ----------
-    mp = {"ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0, "calls": 0}
-    for (rows, n, sp), calls in path_shapes.items():
-        f = sparse_lines(rows, n, keep=0.99)
-        c = cost_matrix(n, sp)
-        ms = cuda_ms(lambda: minplus(f, c))
-        plain_ms = cuda_ms(lambda: minplus_plain(f, c), iters=5)
-        t_b = 4 * (2 * rows * n + n * n) / HBM_BYTES_PER_S * 1e3
-        t_o = 2 * rows * n * n / FP32_ADDMIN_OPS * 1e3
-        log(f"[timing] min-plus f [{rows},{n}] x{calls}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {max(t_b, t_o):.5f} ms ({'bytes' if t_b >= t_o else 'operations'}: bytes {t_b:.5f}, "
-            f"operations {t_o:.5f}); no single PyTorch call computes a (min,+) product: library null")
-        mp["ms"] += calls * ms
-        mp["plain_ms"] += calls * plain_ms
-        mp["bytes_ms"] += calls * t_b
-        mp["ops_ms"] += calls * t_o
-        mp["calls"] += calls
-
+    # ---- 10. timing: the distance transform and one evaluated batch --------
     image = torch.from_numpy(loader[0]["image"]).to(dev)
     label = torch.from_numpy(loader[0]["label"]).to(dev)
     with torch.no_grad():
         logits, prob = strategy._probs_fn(model)(image)
-        pred = (prob >= THRESHOLD).to(torch.float32)
-        gt = (label > 0.5).to(torch.float32)
-        surf = extract_surface(pred[0, ..., 0])
-        dist = torch.sqrt(squared_edt(surf, SPACING)).reshape(-1)
-        masked = torch.where(surf.reshape(-1), dist, float("inf"))
-        lines = torch.where(surf, 0.0, float("inf")).to(torch.float32)
+    pred = (prob >= THRESHOLD).to(torch.float32)
+    gt = (label > 0.5).to(torch.float32)
+    # the 2 * BATCH surfaces whose transform one evaluated batch launches
+    surfaces = extract_surface(torch.cat([gt[..., 0], pred[..., 0]]) > 0.5)
+    n_vol = surfaces.shape[0]
+    edt_ms = min(cuda_ms(lambda: squared_edt_volumes(surfaces, SPACING, sqrt=True)) for _ in range(3))
+    edt_plain_ms = cuda_ms(lambda: squared_edt_volumes_plain(surfaces, SPACING, sqrt=True), iters=3, warmup=1)
+    edt_ops = 2 * surfaces.numel() * (d_ + h_ + w_)  # an add and a min per (voxel, j), three passes
+    edt_bytes = surfaces.numel() * (1 + 4)  # the byte mask read once, the f32 field written once
+    t_o, t_b = edt_ops / FP32_ADDMIN_OPS * 1e3, edt_bytes / HBM_BYTES_PER_S * 1e3
+    probe = {}
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for mode in (0, 1):
+        ops = addmin_probe(dev, 8 * n_sm, 4096, mode)
+        probe[mode] = ops / min(cuda_ms(lambda: addmin_probe(dev, 8 * n_sm, 4096, mode), iters=5)
+                                for _ in range(3)) / 1e9
+    log(f"[timing] squared_edt_volumes of one evaluated batch ({n_vol} surfaces {[d_, h_, w_]}, root written, one "
+        f"launch): kernel {edt_ms:.4f} ms, plain {edt_plain_ms:.3f} ms, bound {max(t_o, t_b):.5f} ms "
+        f"({'operations' if t_o >= t_b else 'bytes'}: operations {t_o:.5f} at the data sheet's "
+        f"{FP32_ADDMIN_OPS / 1e12:.1f} T add-or-min/s, bytes {t_b:.5f}); the register-only probe reaches "
+        f"{probe[1]:.2f} T add-or-min/s with two f32 adds + one three-input integer min per link, this kernel's "
+        f"inner loop (bound at that rate {edt_ops / probe[1] / 1e9:.5f} ms), and {probe[0]:.2f} T/s with one f32 "
+        f"add + one f32 min, the general entry's; no single PyTorch call computes a (min,+) product: library "
+        f"null; card {smi}")
+    general = {}
+    for rows, n, sp in path_shapes:
+        f = sparse_lines(rows, n, keep=0.99)
+        c = cost_matrix(n, sp)
+        general[f"[{rows},{n}]"] = {
+            "ms": min(cuda_ms(lambda: minplus(f, c)) for _ in range(2)),
+            "plain_ms": cuda_ms(lambda: minplus_plain(f, c), iters=5),
+            "bound_ms": max(2 * rows * n * n / FP32_ADDMIN_OPS, 4 * (2 * rows * n + n * n) / HBM_BYTES_PER_S) * 1e3}
+    log("[timing] minplus(f, cost), the general entry (off the evaluation path), per call: "
+        + "; ".join(f"f {k}: kernel {v['ms']:.4f} ms, plain {v['plain_ms']:.4f} ms, bound {v['bound_ms']:.5f} ms"
+                    for k, v in general.items()) + f"; card {smi}")
+
+    with torch.no_grad():
+        stacked = torch.cat([gt[..., 0], pred[..., 0]]) > 0.5
+        dist = squared_edt_volumes(surfaces, SPACING, sqrt=True).reshape(n_vol, -1)
+        masked = torch.where(surfaces.reshape(n_vol, -1), dist, float("inf"))
         split = {
             "forward": cuda_ms(lambda: strategy._probs_fn(model)(image), iters=5),
             "dice_iou": cuda_ms(lambda: binary_dice_iou(pred, gt), iters=5),
@@ -759,12 +810,9 @@ def main() -> int:
             "surface": cuda_ms(lambda: batched_surface_metrics(
                 pred, gt, spacing=SPACING, nsd_tol=NSD_TOL), iters=5),
             "eval_step": cuda_ms(lambda: strategy._eval_step(model, image, label), iters=5),
-            "surface/minplus_12_launches": mp["ms"],
-            "surface/axis_copies_12": 2 * BATCH * sum(
-                cuda_ms(lambda ax=ax: lines.movedim(ax, -1).contiguous()) for ax in range(3)),
-            "surface/sorts_4": 2 * BATCH * cuda_ms(lambda: torch.sort(masked)),
-            "surface/extract_surface_4": 2 * BATCH * cuda_ms(lambda: extract_surface(pred[0, ..., 0])),
-            "surface/squared_edt_4": 2 * BATCH * cuda_ms(lambda: squared_edt(surf, SPACING)),
+            "surface/edt_1_launch": edt_ms,
+            "surface/sort_1": cuda_ms(lambda: torch.sort(masked, dim=-1)),
+            "surface/extract_surface_1": cuda_ms(lambda: extract_surface(stacked)),
         }
     log(f"[timing] one evaluated batch of {BATCH} volumes, 1 region (ms, CUDA events around each part "
         f"run alone): " + ", ".join(f"{k} {v:.3f}" for k, v in split.items()) + f"; card {smi}")
@@ -802,7 +850,7 @@ def main() -> int:
         }
 
     summary = norm_summary("fused_instance_norm", totals, {**launches, **norm_eval_launches},
-                           max_abs_err, {"earlier_triton_ms": totals["triton_ms"]})
+                           max_abs_err, {})
     backward_summary = norm_summary(
         "fused_instance_norm_backward", btotals, backward_launches, backward_err,
         {"note": "the gradient of the TPU kernel's function; dx computed in all 18 timed calls"})
@@ -814,12 +862,18 @@ def main() -> int:
         "launches": sum(eval_launches.values()),
         "launches_by_path": eval_launches,
         "max_abs_err": minplus_err,
-        "ms": mp["ms"],
-        "plain_ms": mp["plain_ms"],
-        "bound_ms": max(mp["bytes_ms"], mp["ops_ms"]),
-        "bound_by": "bytes" if mp["bytes_ms"] >= mp["ops_ms"] else "operations",
+        "ms": edt_ms,
+        "plain_ms": edt_plain_ms,
+        "bound_ms": max(t_o, t_b),
+        "bound_by": "operations" if t_o >= t_b else "bytes",
         "library_ms": None,
-        "per": f"one evaluated batch of {BATCH} volumes, 1 region: {mp['calls']} calls",
+        "per": f"one evaluated batch of {BATCH} volumes, 1 region: the squared EDT of {n_vol} surfaces "
+               f"with the root, one launch",
+        "earlier_ms": EARLIER_MINPLUS_MS,
+        "probe_add_min_tera_per_s": probe[0],
+        "probe_add_min3_tera_per_s": probe[1],
+        "bound_at_probe_rate_ms": edt_ops / probe[1] / 1e9,
+        "general_minplus_per_call": general,
         "card": smi,
     }
     log(json.dumps({"serving": serving, "forward_ms": fwd_ms, "forward_plain_norm_ms": fwd_plain_ms,

@@ -1,7 +1,8 @@
 """Hand-written Hopper kernels of the port, one module per TPU kernel of the
 JAX package, each with its plain PyTorch version beside it."""
 
-from .edt_minplus import minplus, minplus_plain
+from .edt_minplus import minplus, minplus_plain, squared_edt_volumes, squared_edt_volumes_plain
 from .fused_instance_norm import fused_instance_norm, instance_norm_plain
 
-__all__ = ["fused_instance_norm", "instance_norm_plain", "minplus", "minplus_plain"]
+__all__ = ["fused_instance_norm", "instance_norm_plain", "minplus", "minplus_plain",
+           "squared_edt_volumes", "squared_edt_volumes_plain"]

@@ -46,7 +46,7 @@ def kind(name: str) -> str:
         return "norm_forward"
     if any(k in low for k in NORM_BACKWARD_KERNELS):
         return "norm_backward"
-    if "minplus_kernel" in low:
+    if "minplus_edt_kernel" in low or "minplus_matrix_kernel" in low:
         return "minplus_cuda"
     if any(k in low for k in SORT_MARKS):
         return "sort"

@@ -10,9 +10,10 @@ builds the flagship UNet3D (bf16, random weights from a seed) and times, on
 the host's clock with a synchronise after each step: the online and the
 strict Tent adapt+segment step (batch 2; ``--steps`` steps after 5 warm-up
 steps), and ``TTAEngine.evaluate`` over 3 batches of 2 labelled volumes with
-no adaptation, episodic Tent and continual Tent (the second of two runs, per
-batch). Prints the medians and, as the last line, one JSON object. Needs a
-CUDA card; run the trees to compare in turns (a, b, b, a).
+no adaptation, episodic Tent and continual Tent (the second and third of three
+runs, per batch), with the metrics of the last run so that two trees can be
+compared value by value. Prints the medians and, as the last line, one JSON
+object. Needs a CUDA card; run the trees to compare in turns (a, b, b, a).
 """
 
 from __future__ import annotations
@@ -38,8 +39,6 @@ def main() -> int:
         print("torch_step_times: needs a CUDA card", file=sys.stderr)
         return 2
     repo = os.path.abspath(args.repo)
-    os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(repo, "build", "triton_cache"))
-    os.environ.setdefault("TRITON_HOME", os.path.join(repo, "build", "triton_home"))
     sys.path.insert(0, repo)
     import numpy as np
 
@@ -96,14 +95,15 @@ def main() -> int:
                                device_transform=DEVICE_TRANSFORM, device=dev)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            engine.evaluate(model, loader)
+            metrics = engine.evaluate(model, loader)
             torch.cuda.synchronize()
             runs.append((time.perf_counter() - t0) * 1e3 / len(loader))
         out[f"evaluate_{tag}_ms_per_batch"] = {"first": runs[0], "warm": runs[1:]}
+        out[f"evaluate_{tag}_metrics"] = {k: float(v) for k, v in sorted(metrics.items())}
 
     print(f"card: {card}; tree: {repo}")
     for k, v in out.items():
-        if isinstance(v, dict):
+        if isinstance(v, dict) and not k.endswith("_metrics"):
             print(f"  {k}: " + ", ".join(f"{a} {b:.2f}" if isinstance(b, float) else f"{a} {[round(t, 2) for t in b]}"
                                          for a, b in v.items()))
     print(json.dumps(out))

@@ -9,7 +9,12 @@ JAX, so this file imports none; run it there without the JAX test setup:
 import pytest
 import torch
 
-from multimodal_tta_tpu_torch.kernels.edt_minplus import minplus, minplus_plain
+from multimodal_tta_tpu_torch.kernels.edt_minplus import (
+    minplus,
+    minplus_plain,
+    squared_edt_volumes,
+    squared_edt_volumes_plain,
+)
 from multimodal_tta_tpu_torch.kernels.fused_instance_norm import (
     fused_instance_norm,
     instance_norm_backward,
@@ -225,3 +230,67 @@ def test_minplus_rejects_what_the_kernel_does_not_take():
         minplus(f, cost.cpu())
     with pytest.raises(ValueError, match="cost"):
         minplus(f, torch.zeros(8, 7, device="cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 48, 144, 144), (4, 48, 144, 144), (3, 5, 7, 13), (2, 20, 31, 155),
+                                   (1, 33, 260, 36), (2, 12, 36, 60), (1, 1, 1, 1)])
+@pytest.mark.parametrize("spacing", [(3.0, 1.0, 1.0), (0.5, 2.0, 1.25)])
+@pytest.mark.parametrize("sqrt", [False, True])
+def test_squared_edt_volumes_is_bitwise_the_plain_version(shape, spacing, sqrt):
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(sum(shape))
+    pts = torch.rand(shape, generator=g, device="cuda") > 0.98
+    if shape[0] > 1:
+        pts[0] = False  # a volume without points stays +inf
+    before = minplus.launches
+    got = squared_edt_volumes(pts, spacing, sqrt=sqrt)
+    torch.cuda.synchronize()
+    assert minplus.launches == before + 1  # all volumes and all three axes in one launch
+    assert got.dtype == torch.float32 and got.shape == pts.shape and got.is_contiguous()
+    assert not torch.isnan(got).any()
+    assert torch.equal(got, squared_edt_volumes_plain(pts, spacing, sqrt=sqrt))
+    assert torch.equal(got, squared_edt_volumes(pts, spacing, sqrt=sqrt))  # run to run
+    if shape[0] > 1:
+        assert torch.isinf(got[0]).all()
+    assert torch.equal(got, squared_edt_volumes(pts.to(torch.float32), spacing, sqrt=sqrt))
+    odd = torch.zeros(pts.numel() + 1, dtype=torch.bool, device="cuda")[1:].view(shape)
+    odd.copy_(pts)  # a mask that is not 16-byte aligned takes the scalar loads
+    assert torch.equal(got, squared_edt_volumes(odd, spacing, sqrt=sqrt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fill", [0, 1])
+def test_squared_edt_volumes_of_constant_masks(fill):
+    _need_card()
+    pts = torch.full((2, 6, 10, 12), bool(fill), device="cuda")
+    got = squared_edt_volumes(pts, (1.0, 2.0, 3.0))
+    assert bool((got == 0).all()) if fill else bool(torch.isinf(got).all())
+
+
+@pytest.mark.cuda
+def test_squared_edt_volumes_runs_on_the_current_stream():
+    _need_card()
+    pts = torch.rand(2, 16, 40, 24, device="cuda") > 0.97
+    want = squared_edt_volumes_plain(pts, (3.0, 1.0, 1.0))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        first = squared_edt_volumes(pts, (3.0, 1.0, 1.0))
+        second = squared_edt_volumes(pts, (3.0, 1.0, 1.0))  # shares the stream's tile counters
+    side.synchronize()
+    assert torch.equal(first, want) and torch.equal(second, want)
+
+
+@pytest.mark.cuda
+def test_squared_edt_volumes_rejects_what_the_kernel_does_not_take():
+    _need_card()
+    pts = torch.zeros(2, 4, 6, 8, dtype=torch.bool, device="cuda")
+    with pytest.raises(ValueError, match="V, D, H, W"):
+        squared_edt_volumes(pts[0], (1.0, 1.0, 1.0))
+    with pytest.raises(ValueError, match="contiguous"):
+        squared_edt_volumes(pts.transpose(1, 2), (1.0, 1.0, 1.0))
+    with pytest.raises(ValueError, match="spacing"):
+        squared_edt_volumes(pts, (1.0, -1.0, 1.0))
+    with pytest.raises(ValueError, match="shared memory"):
+        squared_edt_volumes(torch.zeros(1, 2, 2, 4000, dtype=torch.bool, device="cuda"), (1.0, 1.0, 1.0))

@@ -129,3 +129,83 @@ def test_batched_surface_metrics(nsd_tol, symmetric):
     for g, w in zip(got, want):
         assert tuple(g.shape) == (2, 2)
         _close(g.numpy(), w)
+
+
+@pytest.mark.parametrize("lead", [(3,), (2, 2)])
+def test_extract_surface_takes_leading_dimensions(lead):
+    m = np.random.RandomState(3).rand(*lead, 7, 9, 6) > 0.5
+    got = tsurf.extract_surface(torch.from_numpy(m)).numpy()
+    flat = m.reshape((-1,) + m.shape[-3:])
+    for k, vol in enumerate(flat):
+        np.testing.assert_array_equal(got.reshape(flat.shape)[k], np.asarray(jsurf.extract_surface(jnp.asarray(vol))))
+
+
+def test_squared_edt_takes_a_stack_of_volumes():
+    pts = np.random.RandomState(5).rand(3, 6, 9, 7) > 0.95
+    spacing = (0.5, 2.0, 1.25)
+    got = tsurf.squared_edt(torch.from_numpy(pts), spacing)
+    assert tuple(got.shape) == pts.shape and got.is_contiguous()
+    for k in range(3):
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(jsurf.squared_edt(jnp.asarray(pts[k]), spacing)))
+        np.testing.assert_array_equal(got[k].numpy(), tsurf.squared_edt(torch.from_numpy(pts[k]), spacing).numpy())
+    swapped = torch.from_numpy(pts).transpose(2, 3)  # not contiguous: copied, not refused
+    np.testing.assert_array_equal(tsurf.squared_edt(swapped, spacing).numpy(),
+                                  tsurf.squared_edt(swapped.contiguous(), spacing).numpy())
+
+
+def _batch_of_pairs():
+    """B = 2, R = 2: a shifted pair, an equal pair, an empty prediction, an
+    empty ground truth."""
+    shape = (10, 12, 8)
+    pred = np.zeros((2,) + shape + (2,), np.float32)
+    gt = np.zeros_like(pred)
+    pred[0, ..., 0], gt[0, ..., 0] = ball(shape, (5, 6, 4), 3), ball(shape, (4, 6, 4), 3)
+    pred[0, ..., 1] = gt[0, ..., 1] = ball(shape, (5, 5, 4), 2)
+    gt[1, ..., 0] = ball(shape, (5, 6, 4), 2)
+    pred[1, ..., 1] = ball(shape, (3, 3, 3), 2)
+    return pred, gt
+
+
+@pytest.mark.parametrize("nsd_tol", [None, [1.0, 3.0]], ids=["none", "per_region"])
+@pytest.mark.parametrize("symmetric", [False, True])
+@pytest.mark.parametrize("group_bytes", [None, 1], ids=["one_group", "a_group_per_pair"])
+def test_batched_pairs_match_reference_and_single(nsd_tol, symmetric, group_bytes, monkeypatch):
+    """All pairs at once against the JAX function (tolerance: ATOL, as above)
+    and against the one-pair function pair by pair; with the byte budget cut
+    to one pair per group the results do not change."""
+    pred, gt = _batch_of_pairs()
+    spacing = (2.0, 1.0, 1.5)
+    kw = dict(spacing=spacing, symmetric_asd=symmetric, nsd_tol=nsd_tol)
+    whole = tsurf.batched_surface_metrics(torch.from_numpy(pred), torch.from_numpy(gt), **kw)
+    if group_bytes is not None:
+        monkeypatch.setattr(tsurf, "_GROUP_BYTES", group_bytes)
+    got = tsurf.batched_surface_metrics(torch.from_numpy(pred), torch.from_numpy(gt), **kw)
+    want = jsurf.batched_surface_metrics(jnp.asarray(pred), jnp.asarray(gt), **kw)
+    assert len(got) == len(want) == (2 if nsd_tol is None else 3)
+    for g, w, u in zip(got, want, whole):
+        assert tuple(g.shape) == (2, 2) and g.dtype == torch.float32
+        _close(g.numpy(), w)
+        np.testing.assert_array_equal(g.numpy(), u.numpy())
+    for i in range(2):
+        for c in range(2):
+            one = tsurf.surface_metrics_single(
+                torch.from_numpy(pred[i, ..., c]), torch.from_numpy(gt[i, ..., c]), spacing,
+                symmetric_asd=symmetric, nsd_tol=None if nsd_tol is None else nsd_tol[c])
+            for g, o in zip(got, one):
+                _close(g[i, c].numpy(), o.numpy())
+    assert np.isinf(got[0][1].numpy()).all()  # one-sided empty pairs: HD95 +inf
+    assert float(got[0][0, 1]) == 0.0 and float(got[1][0, 1]) == 0.0  # the equal pair
+    if nsd_tol is not None:
+        assert float(got[2][0, 1]) == 1.0 and float(got[2][1, 0]) == 0.0 and float(got[2][1, 1]) == 0.0
+
+
+def test_both_empty_pair_in_a_batch():
+    pred, gt = _batch_of_pairs()
+    pred[1, ..., 0] = 0
+    gt[1, ..., 0] = 0
+    got = tsurf.batched_surface_metrics(torch.from_numpy(pred), torch.from_numpy(gt),
+                                        spacing=(1.0, 1.0, 1.0), nsd_tol=1.0)
+    want = jsurf.batched_surface_metrics(jnp.asarray(pred), jnp.asarray(gt), spacing=(1.0, 1.0, 1.0), nsd_tol=1.0)
+    for g, w in zip(got, want):
+        _close(g.numpy(), w)
+    assert all(np.isinf(float(g[1, 0])) for g in got)
