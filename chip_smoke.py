@@ -43,7 +43,9 @@ Phases, in order (any failure propagates and exits non-zero):
                episodic Tent and continual Tent: the whole key schema, finite
                values in range, one min-plus launch per batch, Dice equal to
                a numpy recomputation on the host, the model restored after
-               every run; an all-empty prediction gets the diagonal penalty.
+               every run; an all-empty prediction gets the diagonal penalty;
+               the batched surface metrics against the one-pair function,
+               pair by pair.
  10. timing  — the distance transform of one evaluated batch (4 surfaces,
                one launch) against its plain version and its bound, the
                general ``minplus`` at the path's two line shapes, a
@@ -101,10 +103,10 @@ NSD_TOL = 2.0
 DOMAINS = (["CHUM", "CHGJ"], ["CHGJ", "CHGJ"], ["CHUM", "CHUM"])
 EDT_REL_TOL = 1e-5  # squared EDT vs scipy: f32 sums of squares against f64
 DICE_ABS_TOL = 1e-5  # device f32 Dice vs numpy f64 on the same masks
-# the first min-plus kernel (64 x 64 tiles, j in slabs) took this for the same
-# work on the same card model: 12 launches per evaluated batch, without the
-# 12 axis copies and 12 cost-matrix builds around them (PERF.md)
-EARLIER_MINPLUS_MS = 0.403
+# batched surface metrics vs the one-pair function on the card: HD95 and NSD
+# equal; ASD within this relative step (f64 sums reduced over another shape,
+# rounded once to f32)
+ASD_REL_TOL = 2.0 ** -23
 
 
 def eval_config(method: str, episodic: bool, threshold: float = THRESHOLD) -> dict:
@@ -169,6 +171,7 @@ def main() -> int:
         batched_surface_metrics,
         extract_surface,
         squared_edt,
+        surface_metrics_single,
     )
     from multimodal_tta_tpu_torch.tta.engine import TTAEngine
     from multimodal_tta_tpu_torch.tta.tent import TentAdapter, norm_param_mask
@@ -623,7 +626,7 @@ def main() -> int:
                     raise AssertionError(f"squared_edt_volumes disagrees with plain at {label_} {sp} sqrt={root}")
     vp = volume_plan_for(pts4)
     log(f"[min-plus] plan of {list(pts4.shape)}: {vp.threads} threads, {vp.smem_bytes} bytes of shared memory; "
-        + "; ".join(f"n={q.n} {q.kind} lanes_r={q.lanes_r} rows/tile={q.rows} tiles={q.tiles}" for q in vp.passes))
+        + "; ".join(f"n={q.n} {q.kind} rows/tile={q.rows} tiles={q.tiles}" for q in vp.passes))
     del pts4, volume_cases
 
     # ---- 8. squared EDT through the kernel vs scipy -----------------------
@@ -756,6 +759,33 @@ def main() -> int:
     if not (abs(zero["gtvt_hd95"] - diag) <= 1e-4 and abs(zero["gtvt_asd"] - diag) <= 1e-4
             and zero["gtvt_nsd"] == 0.0 and zero["gtvt_dc"] < 1e-6):
         raise AssertionError("an empty prediction must get the diagonal penalty and NSD 0")
+    # all pairs at once against the one-pair function: a predicted and a label
+    # surface per sample, plus an empty prediction and an empty label
+    with torch.no_grad():
+        b0 = loader[0]
+        _, prob = strategy._probs_fn(model)(torch.from_numpy(b0["image"]).to(dev))
+    pair_pred = torch.cat([(prob >= THRESHOLD).float(), torch.zeros_like(prob[:1]), (prob[:1] >= THRESHOLD).float()])
+    lab = torch.from_numpy(b0["label"]).to(dev)
+    pair_gt = torch.cat([lab, lab[:1], torch.zeros_like(lab[:1])])
+    for symmetric in (False, True):
+        whole = batched_surface_metrics(pair_pred, pair_gt, spacing=SPACING, symmetric_asd=symmetric,
+                                        nsd_tol=NSD_TOL)
+        worst = 0.0
+        for i in range(pair_pred.shape[0]):
+            one = surface_metrics_single(pair_pred[i, ..., 0], pair_gt[i, ..., 0], SPACING,
+                                         symmetric_asd=symmetric, nsd_tol=NSD_TOL)
+            hd, asd, nsd = (float(x[i, 0]) for x in whole)
+            hd1, asd1, nsd1 = (float(x) for x in one)
+            if asd1 != float("inf"):
+                worst = max(worst, abs(asd - asd1) / max(asd1, 1e-30))
+            if not (hd == hd1 and nsd == nsd1 and (asd == asd1 or abs(asd - asd1) <= ASD_REL_TOL * asd1)):
+                raise AssertionError(f"batched surface metrics differ from the one-pair function at pair {i}: "
+                                     f"{(hd, asd, nsd)} vs {(hd1, asd1, nsd1)}")
+        log(f"[eval] batched_surface_metrics vs surface_metrics_single, {pair_pred.shape[0]} pairs (two of them "
+            f"one-sided empty), symmetric_asd={symmetric}: HD95 and NSD equal, ASD max rel diff {worst:.3g} "
+            f"(limit {ASD_REL_TOL:.3g}); hd95 {[round(float(v), 4) for v in whole[0][:, 0]]} "
+            f"asd {[round(float(v), 4) for v in whole[1][:, 0]]}")
+    del pair_pred, pair_gt, lab, prob
 
     # ---- 10. timing: the distance transform and one evaluated batch --------
     image = torch.from_numpy(loader[0]["image"]).to(dev)
@@ -786,6 +816,10 @@ def main() -> int:
         f"inner loop (bound at that rate {edt_ops / probe[1] / 1e9:.5f} ms), and {probe[0]:.2f} T/s with one f32 "
         f"add + one f32 min, the general entry's; no single PyTorch call computes a (min,+) product: library "
         f"null; card {smi}")
+    clocks = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
+                            capture_output=True, text=True, timeout=60).stdout.strip()
+    log(f"[timing] SM clock right after the probe, and its maximum: {clocks}; the first min-plus kernel "
+        f"(12 launches per evaluated batch) took 0.403 ms for this work: from PERF.md, not measured here")
     general = {}
     for rows, n, sp in path_shapes:
         f = sparse_lines(rows, n, keep=0.99)
@@ -869,7 +903,6 @@ def main() -> int:
         "library_ms": None,
         "per": f"one evaluated batch of {BATCH} volumes, 1 region: the squared EDT of {n_vol} surfaces "
                f"with the root, one launch",
-        "earlier_ms": EARLIER_MINPLUS_MS,
         "probe_add_min_tera_per_s": probe[0],
         "probe_add_min3_tera_per_s": probe[1],
         "bound_at_probe_rate_ms": edt_ops / probe[1] / 1e9,

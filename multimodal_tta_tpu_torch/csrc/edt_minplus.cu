@@ -31,14 +31,13 @@
 //     independent min chains. Per 4 values of j it reads 8 float4 of f and 5
 //     float2 of the cost table (a window of 9 entries that slides by one per
 //     j) for 192 adds and 192 candidates to take the min of: 3 to 4 shared
-//     loads per 100 arithmetic instructions. A warp is LR lanes along r and 32 / LR lanes along i. At
-//     LR = 4 it covers 32 rows x 48 columns: n = 48 is one column group and
-//     n = 144 three, so no column and no j is wasted there, a tile of 32
-//     lines is small enough to spread evenly over the SMs, and five blocks of
-//     three warps share an SM, one's loads under another's arithmetic. Any
-//     other n is padded to the next multiple inside shared memory (+inf in
-//     f, never stored); LR = 8 and 16 (24 and 12 columns a warp) pad less
-//     for some n.
+//     loads per 100 arithmetic instructions. A warp is 4 lanes along r and
+//     8 lanes along i: it covers 32 rows x 48 columns. n = 48 is one column
+//     group and n = 144 three, so no column and no j is wasted there, a tile
+//     of 32 lines is small enough to spread evenly over the SMs, and five
+//     blocks of three warps share an SM, one's loads under another's
+//     arithmetic. Any other n is padded to the next multiple of 48 inside
+//     shared memory (+inf in f, never stored).
 //   * Lines are addressed where they lie. For axis D and H the R rows of a
 //     tile are neighbouring voxels along W (contiguous: 16-byte loads and
 //     stores along r), and j strides by H*W or W. For axis W a line is
@@ -74,6 +73,10 @@ namespace {
 
 constexpr int COLS = 6;          // output columns per thread
 constexpr int ROWS = 8;          // output rows per thread, as two quads
+constexpr int LR = 4;            // lanes of a warp along r
+constexpr int LI = 32 / LR;      // lanes of a warp along i
+constexpr int WROWS = LR * ROWS; // rows one warp covers: 32
+constexpr int WCOLS = LI * COLS; // columns one warp covers: 48
 constexpr int TILE_PAD = 4;      // tile row stride = R + TILE_PAD floats
 constexpr int MAX_THREADS = 512; // 128 registers a thread: the 48 accumulators fit unspilled
 constexpr int MAX_PASSES = 3;
@@ -94,8 +97,7 @@ struct Pass {
     long long jstride;  // elements between consecutive samples of a line
     long long tiles;    // ceil(lines / R)
     int n;              // samples per line
-    int lanes_r;        // LR: lanes of a warp along r (16, 8 or 4)
-    int row_groups;     // RG: R = RG * LR * 8 rows per tile
+    int row_groups;     // RG: R = RG * 32 rows per tile
     int kind;           // LINES_*
     int cost_mode;      // COST_*
     int src_is_mask;    // the source is bytes: != 0 -> 0.0f, 0 -> +inf
@@ -117,9 +119,9 @@ __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m *
 
 // Shared memory of one pass: row bases, the cost area, the tile.
 __host__ __device__ inline long long pass_smem_bytes(const Pass& p) {
-    const int rows = p.row_groups * p.lanes_r * ROWS;
+    const int rows = p.row_groups * WROWS;
     const int nj = round_up(p.n, 4);
-    const int np = round_up(p.n, (32 / p.lanes_r) * COLS);
+    const int np = round_up(p.n, WCOLS);
     const long long cost_floats = p.cost_mode == COST_TABLE ? nj + np : 0;
     return 8LL * rows + 4 * cost_floats + 4LL * nj * (rows + TILE_PAD);
 }
@@ -132,12 +134,9 @@ __device__ __forceinline__ float mask_value(unsigned char m) { return m ? 0.0f :
 
 // ---- one pass: the block walks tiles handed out by `counter` ---------------
 
-template <int LR, int COST>
+template <int COST>
 __device__ void run_pass(const Pass& p, const void* src, float* dst, const float* cost,
                          unsigned* counter, unsigned char* smem) {
-    constexpr int LI = 32 / LR;         // lanes along i
-    constexpr int WCOLS = LI * COLS;    // columns one warp covers
-    constexpr int WROWS = LR * ROWS;    // rows one warp covers
     __shared__ unsigned s_tile;
 
     const int tid = threadIdx.x;
@@ -406,15 +405,6 @@ __device__ void run_pass(const Pass& p, const void* src, float* dst, const float
     }
 }
 
-template <int COST>
-__device__ __forceinline__ void dispatch_pass(const Pass& p, const void* src, float* dst,
-                                              const float* cost, unsigned* counter,
-                                              unsigned char* smem) {
-    if (p.lanes_r == 16) run_pass<16, COST>(p, src, dst, cost, counter, smem);
-    else if (p.lanes_r == 8) run_pass<8, COST>(p, src, dst, cost, counter, smem);
-    else run_pass<4, COST>(p, src, dst, cost, counter, smem);
-}
-
 // The last block to finish puts the counters back to zero for the next launch
 // on this workspace (launches that share one run in stream order).
 __device__ __forceinline__ void release_counters(unsigned* counters) {
@@ -436,8 +426,8 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) minplus_edt_kernel(const Param
     cg::grid_group grid = cg::this_grid();
     for (int k = 0; k < prm.npass; ++k) {
         if (k > 0) grid.sync();  // pass k reads what every block wrote in pass k - 1
-        dispatch_pass<COST_TABLE>(prm.pass[k], k == 0 ? prm.src : prm.dst, prm.dst, nullptr,
-                                  &prm.counters[k], smem);
+        run_pass<COST_TABLE>(prm.pass[k], k == 0 ? prm.src : prm.dst, prm.dst, nullptr,
+                             &prm.counters[k], smem);
     }
     release_counters(prm.counters);
 }
@@ -445,7 +435,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) minplus_edt_kernel(const Param
 // One pass against a cost matrix: the TPU kernel's function.
 __global__ void __launch_bounds__(MAX_THREADS, 1) minplus_matrix_kernel(const Params prm) {
     extern __shared__ __align__(16) unsigned char smem[];
-    dispatch_pass<COST_MATRIX>(prm.pass[0], prm.src, prm.dst, prm.cost, &prm.counters[0], smem);
+    run_pass<COST_MATRIX>(prm.pass[0], prm.src, prm.dst, prm.cost, &prm.counters[0], smem);
     release_counters(prm.counters);
 }
 
@@ -518,12 +508,12 @@ int blocks_per_sm(int matrix, int threads, size_t smem, int* out) {
 
 bool bad_pass(const Pass& p, int threads, long long smem) {
     if (p.lines <= 0 || p.n <= 0 || p.tiles <= 0 || p.tiles > 0x7fffffffLL || p.row_groups < 1 ||
-        (p.lanes_r != 16 && p.lanes_r != 8 && p.lanes_r != 4) || p.pitch <= 0 || p.jstride <= 0)
+        p.pitch <= 0 || p.jstride <= 0)
         return true;
     if (p.kind == LINES_STRIDED ? p.inner <= 0 : (p.kind != LINES_CONTIGUOUS || p.jstride != 1))
         return true;
     if (p.cost_mode != COST_TABLE && p.cost_mode != COST_MATRIX) return true;
-    const long long rows = static_cast<long long>(p.row_groups) * p.lanes_r * ROWS;
+    const long long rows = static_cast<long long>(p.row_groups) * WROWS;
     if (p.tiles != (p.lines + rows - 1) / rows) return true;
     if (threads < 32 || threads > MAX_THREADS || threads % 32 != 0) return true;
     return pass_smem_bytes(p) > smem;

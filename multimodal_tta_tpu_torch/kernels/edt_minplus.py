@@ -23,9 +23,9 @@ not co-resident. ``minplus.launches`` counts the kernel launches of both
 entries. The kernels are held against the plain versions bitwise: each
 candidate is one f32 add and a min is exact in any order.
 
-``plan`` picks, for one pass, the warp shape (``lanes_r`` lanes along the
-rows, ``32 / lanes_r`` along the columns), the rows of a tile, the shared
-memory and the tile count; it is pure Python so that CPU tests can pin it.
+``plan`` picks, for one pass, the rows of a tile (a warp covers 32 rows x 48
+columns), the block's warps, the shared memory and the tile count; it is pure
+Python so that CPU tests can pin it.
 On the card the function is bound by the f32 instruction rate
 (``2 * rows * n^2`` adds and mins against ``8 * rows * n`` bytes); see the
 note in the source for what the design does about that.
@@ -46,9 +46,9 @@ _INF = float("inf")
 THREAD_ROWS = 8  # output rows per thread
 THREAD_COLS = 6  # output columns per thread
 TILE_PAD = 4  # a tile row is R + 4 floats: transposed stores hit 32 banks
+WARP_ROWS = 4 * THREAD_ROWS  # a warp is 4 lanes along the rows: a tile is a multiple of 32 rows
+WARP_COLS = 8 * THREAD_COLS  # and 8 lanes along the columns: 48 at once
 MAX_WARPS = 16  # 512 threads: 128 registers a thread
-LANES_R = (16, 8, 4)  # warp shapes: 12, 24 or 48 columns; a tile is a multiple of 128, 64 or 32 rows
-PAD_SLACK = 1.1  # the narrowest warp shape whose column padding is within 10% of the least wins
 MAX_SMEM_OPTIN = 227 * 1024  # what one block may opt in to on an H100
 _COST_CODE = {"table": 0, "matrix": 1}
 _KIND_CODE = {"strided": 0, "contiguous": 1}
@@ -145,7 +145,6 @@ class PassPlan:
     pitch: int  # strided: elements between runs; contiguous: between lines
     jstride: int  # elements between consecutive samples of a line
     cost: str  # "table": the EDT's, built in shared memory; "matrix": read from device memory
-    lanes_r: int  # the instantiation: lanes of a warp along the rows
     row_groups: int  # warps along the rows of a tile
     rows: int  # R: lines per tile
     tiles: int
@@ -162,12 +161,12 @@ class PassPlan:
         return rho * self.pitch
 
 
-def pass_smem_bytes(n: int, lanes_r: int, row_groups: int, cost: str) -> int:
+def pass_smem_bytes(n: int, row_groups: int, cost: str) -> int:
     """Dynamic shared memory of one pass: 8 bytes per row for its base
     offset, the cost area, and the ``[nj][R + 4]`` tile."""
-    rows = row_groups * lanes_r * THREAD_ROWS
+    rows = row_groups * WARP_ROWS
     nj = _round_up(n, 4)
-    np_ = _round_up(n, (32 // lanes_r) * THREAD_COLS)
+    np_ = _round_up(n, WARP_COLS)
     cost_floats = nj + np_ if cost == "table" else 0
     return 8 * rows + 4 * cost_floats + 4 * nj * (rows + TILE_PAD)
 
@@ -182,47 +181,35 @@ def plan(rows: int, n: int, axis_stride: int, smem_optin: int, sms: int, *,
     ``smem_optin``: shared memory one block may opt in to; ``sms``: SM count;
     ``cost``: "table" for the EDT, "matrix" for a cost matrix; ``warps``:
     the block's warps when another pass fixes them; ``aligned``: every
-    pointer is 16-byte aligned. Of the warp shapes that fit, the one with the
-    fewest lanes along the rows wins (the smallest tiles: they spread evenly
-    over the SMs and several blocks share one), unless it pads the columns
-    over 10% more than another; raises ``ValueError`` for a line too long
-    for any."""
+    pointer is 16-byte aligned. A tile is 32 rows (small tiles spread evenly
+    over the SMs and several blocks share one) unless ``warps`` leaves some
+    spare; raises ``ValueError`` for a line too long for shared memory."""
     if min(rows, n, axis_stride, sms) <= 0:
         raise ValueError(f"minplus: plan() needs positive sizes, got rows={rows} n={n} "
                          f"axis_stride={axis_stride} sms={sms}")
     if cost not in ("table", "matrix"):
         raise ValueError(f"minplus: plan() cost must be 'table' or 'matrix', got {cost!r}")
-    fits = [lr for lr in LANES_R if pass_smem_bytes(n, lr, 1, cost) <= smem_optin]
-    if not fits:
-        raise ValueError(f"minplus: a line of {n} samples needs "
-                         f"{pass_smem_bytes(n, LANES_R[-1], 1, cost)} bytes of shared memory, "
-                         f"the card allows {smem_optin}")
-
-    def padded(lr: int) -> int:
-        return _round_up(n, (32 // lr) * THREAD_COLS)
-
-    least = min(padded(lr) for lr in fits)
-    lanes_r = [lr for lr in fits if padded(lr) <= PAD_SLACK * least][-1]
-
-    warp_rows = lanes_r * THREAD_ROWS
-    np_ = _round_up(n, (32 // lanes_r) * THREAD_COLS)
-    col_groups = np_ // ((32 // lanes_r) * THREAD_COLS)
+    if pass_smem_bytes(n, 1, cost) > smem_optin:
+        raise ValueError(f"minplus: a line of {n} samples needs {pass_smem_bytes(n, 1, cost)} bytes "
+                         f"of shared memory, the card allows {smem_optin}")
+    np_ = _round_up(n, WARP_COLS)
+    col_groups = np_ // WARP_COLS
     # warps to cover the column groups in equal rounds: 20 groups -> 10 warps x 2
     own = -(-col_groups // -(-col_groups // MAX_WARPS))
     groups = 1 if warps is None else max(1, warps // col_groups)
-    while groups > 1 and (pass_smem_bytes(n, lanes_r, groups, cost) > smem_optin
-                          or -(-rows // (groups * warp_rows)) < sms
-                          or (groups - 1) * warp_rows >= rows):
+    while groups > 1 and (pass_smem_bytes(n, groups, cost) > smem_optin
+                          or -(-rows // (groups * WARP_ROWS)) < sms
+                          or (groups - 1) * WARP_ROWS >= rows):
         groups -= 1
-    r = groups * warp_rows
+    r = groups * WARP_ROWS
     contiguous = axis_stride == 1
     vec = aligned and (n % 4 == 0 if contiguous else axis_stride % 4 == 0)
     return PassPlan(
         lines=rows, n=n, kind="contiguous" if contiguous else "strided",
         inner=axis_stride, pitch=n if contiguous else n * axis_stride, jstride=axis_stride,
-        cost=cost, lanes_r=lanes_r, row_groups=groups, rows=r, tiles=-(-rows // r),
+        cost=cost, row_groups=groups, rows=r, tiles=-(-rows // r),
         warps=own, nj=_round_up(n, 4), np_=np_, vec=vec,
-        smem_bytes=pass_smem_bytes(n, lanes_r, groups, cost))
+        smem_bytes=pass_smem_bytes(n, groups, cost))
 
 
 def plan_tiles(p: PassPlan) -> Iterator[Tuple[int, int]]:
@@ -266,7 +253,7 @@ class _PassStruct(ctypes.Structure):
 
     _fields_ = [("lines", ctypes.c_longlong), ("inner", ctypes.c_longlong),
                 ("pitch", ctypes.c_longlong), ("jstride", ctypes.c_longlong),
-                ("tiles", ctypes.c_longlong), ("n", ctypes.c_int), ("lanes_r", ctypes.c_int),
+                ("tiles", ctypes.c_longlong), ("n", ctypes.c_int),
                 ("row_groups", ctypes.c_int), ("kind", ctypes.c_int), ("cost_mode", ctypes.c_int),
                 ("src_is_mask", ctypes.c_int), ("vec", ctypes.c_int), ("sqrt_out", ctypes.c_int),
                 ("spacing", ctypes.c_float)]
@@ -274,8 +261,7 @@ class _PassStruct(ctypes.Structure):
 
 def _pass_struct(p: PassPlan, *, spacing: float = 0.0, mask: bool = False,
                  sqrt: bool = False) -> _PassStruct:
-    return _PassStruct(p.lines, p.inner, p.pitch, p.jstride, p.tiles, p.n, p.lanes_r,
-                       p.row_groups, _KIND_CODE[p.kind], _COST_CODE[p.cost], int(mask),
+    return _PassStruct(p.lines, p.inner, p.pitch, p.jstride, p.tiles, p.n, p.row_groups, _KIND_CODE[p.kind], _COST_CODE[p.cost], int(mask),
                        int(p.vec), int(sqrt), spacing)
 
 

@@ -120,12 +120,12 @@ SMEM_OPTIN, SMS = 232448, 132  # an H100: 227 KB a block may opt in to, 132 SMs
 
 
 def _check_pass(p, lines, n, stride):
-    cols = (32 // p.lanes_r) * K.THREAD_COLS
-    assert p.lanes_r in K.LANES_R and p.row_groups >= 1
-    assert p.rows == p.row_groups * p.lanes_r * K.THREAD_ROWS
+    cols = K.WARP_COLS
+    assert (K.WARP_ROWS, K.WARP_COLS) == (32, 48) and p.row_groups >= 1
+    assert p.rows == p.row_groups * K.WARP_ROWS
     assert p.np_ % cols == 0 and n <= p.np_ < n + cols
     assert p.nj % 4 == 0 and n <= p.nj < n + 4
-    assert p.smem_bytes == K.pass_smem_bytes(n, p.lanes_r, p.row_groups, p.cost) <= K.MAX_SMEM_OPTIN
+    assert p.smem_bytes == K.pass_smem_bytes(n, p.row_groups, p.cost) <= K.MAX_SMEM_OPTIN
     assert (p.lines, p.n, p.jstride) == (lines, n, stride)
     assert p.kind == ("contiguous" if stride == 1 else "strided")
     assert p.vec == ((n if stride == 1 else stride) % 4 == 0)
@@ -165,7 +165,7 @@ def test_plan_of_the_evaluation_path():
     vp = plan_volumes(4, 48, 144, 144, SMEM_OPTIN, SMS)
     assert vp.threads == 96 and vp.tiles == 864
     for p in vp.passes:
-        assert p.lanes_r == 4 and p.np_ == p.n and p.nj == p.n and p.vec
+        assert p.np_ == p.n and p.nj == p.n and p.vec
         assert p.tiles == 864
     assert [p.rows for p in vp.passes] == [96, 32, 32]
     one = plan(6912, 144, 1, SMEM_OPTIN, SMS, cost="matrix")
@@ -197,14 +197,12 @@ def test_cost_table_is_the_reference_cost_matrix(n, spacing):
     idx = np.abs(np.arange(n)[None, :] - np.arange(n)[:, None])
     np.testing.assert_array_equal(d2[idx], want)
     np.testing.assert_array_equal(K.edt_cost_matrix(n, spacing).numpy(), want)
-    for lanes_r in K.LANES_R:
-        cols = (32 // lanes_r) * K.THREAD_COLS
-        nj, np_ = -(-n // 4) * 4, -(-n // cols) * cols
-        off = nj - 1  # table[off + i - j]
-        for i0 in range(0, np_, K.THREAD_COLS):
-            for j0 in range(0, nj, 4):
-                start = off + i0 - j0 - 3  # the window of K.THREAD_COLS + 4 floats the loop reads
-                assert start % 2 == 0 and 0 <= start and start + K.THREAD_COLS + 4 <= nj + np_
+    nj, np_ = -(-n // 4) * 4, -(-n // K.WARP_COLS) * K.WARP_COLS
+    off = nj - 1  # table[off + i - j]
+    for i0 in range(0, np_, K.THREAD_COLS):
+        for j0 in range(0, nj, 4):
+            start = off + i0 - j0 - 3  # the window of K.THREAD_COLS + 4 floats the loop reads
+            assert start % 2 == 0 and 0 <= start and start + K.THREAD_COLS + 4 <= nj + np_
 
 
 # ---- squared_edt_volumes on the CPU -----------------------------------------

@@ -5,7 +5,8 @@ take the kernel's plain version.
 Tolerances: surfaces and the squared EDT (sums of exactly representable
 squares at these sizes) must be equal; HD95/ASD/NSD agree within 1e-5
 absolute (f32 sums and the percentile's interpolation in another order);
-the EDT agrees with scipy within 1e-5 relative.
+the EDT agrees with scipy within 1e-5 relative. The port takes ASD's distance
+sums in f64 (the reference in f32): ASD_RTOL below.
 """
 
 import jax.numpy as jnp
@@ -209,3 +210,28 @@ def test_both_empty_pair_in_a_batch():
     for g, w in zip(got, want):
         _close(g.numpy(), w)
     assert all(np.isinf(float(g[1, 0])) for g in got)
+
+
+ASD_RTOL = 1e-6  # f64 distance sums rounded once, against the reference's f32 sums (a few f32 ulps)
+
+
+@pytest.mark.parametrize("symmetric", [False, True])
+def test_asd_sums_in_f64_against_reference(symmetric):
+    """The distance sums behind ASD are taken in f64 and the mean rounded once
+    to f32: within one f32 ulp of the mean computed by numpy in f64 from the
+    same distance fields, and within ASD_RTOL (relative) of the reference,
+    which sums in f32, at distances of tens of mm."""
+    shape = (16, 40, 36)
+    pred, gt = ball(shape, (5, 9, 9), 4), ball(shape, (10, 30, 26), 5)
+    spacing = (3.0, 1.0, 1.0)
+    got = tsurf.surface_metrics_single(torch.from_numpy(pred), torch.from_numpy(gt), spacing,
+                                       symmetric_asd=symmetric)[1]
+    want = jsurf.surface_metrics_single(jnp.asarray(pred), jnp.asarray(gt), spacing, symmetric_asd=symmetric)[1]
+    sp = tsurf.extract_surface(torch.from_numpy(pred)).numpy()
+    sg = tsurf.extract_surface(torch.from_numpy(gt)).numpy()
+    d_gt = np.sqrt(tsurf.squared_edt(torch.from_numpy(sg), spacing).numpy()).astype(np.float64)
+    d_pred = np.sqrt(tsurf.squared_edt(torch.from_numpy(sp), spacing).numpy()).astype(np.float64)
+    exact = (d_gt[sp].sum() + d_pred[sg].sum()) / (sp.sum() + sg.sum()) if symmetric else d_gt[sp].mean()
+    assert got.dtype == torch.float32 and float(got) > 20.0
+    assert abs(float(got) - exact) <= np.spacing(np.float32(exact))
+    np.testing.assert_allclose(float(got), float(want), rtol=ASD_RTOL, atol=0)
