@@ -25,13 +25,15 @@ Phases, in order (any failure propagates and exits non-zero):
   5. parity  — one Tent step at full width on a small input, kernel against
                plain norm in f32: entropy, norm-param deltas, predictions.
   6. timing  — the forward and the backward kernel at every norm shape of
-               one forward, against the plain versions, F.instance_norm+relu
-               (and its autograd) and the byte bounds.
+               one forward, at batch 2 and at the training batch 8, against
+               the plain versions, F.instance_norm+relu (and its autograd)
+               and the byte bounds.
   7. min-plus — the CUDA min-plus kernels against their plain versions,
                bitwise, +inf kept, no NaN: ``minplus(f, cost)`` at the
                evaluation path's line shapes and at small and ragged cases;
                ``squared_edt_volumes`` (all volumes and all three axes in one
-               launch) for 1 and 4 volumes of [48,144,144], ragged volumes,
+               launch) for 1, 4 and 8 volumes of [48,144,144] (8: the
+               training validation batch's surfaces), ragged volumes,
                all-empty and all-set masks, two spacings, with and without
                the root, one case twice.
   8. EDT     — the squared distance transform through the kernel on a full
@@ -53,6 +55,27 @@ Phases, in order (any failure propagates and exits non-zero):
                evaluated batch split into forward, Dice/IoU, loss and surface
                metrics (and within those the transform, the sort, the
                surface extraction).
+ 11. train   — supervised training of the flagship through
+               ``ExperimentManager`` with the HECKTOR21 recipe
+               (``train_recipe``) at batch 8: 2 epochs over 16 synthetic
+               volumes with validation (4 volumes, surface metrics on) each
+               epoch: every step's loss finite, all 82 param tensors moved, 18
+               norm forward and 18 backward kernel launches per step and no
+               plain backward, each validation batch's min-plus launch
+               bitwise its plain version on the same surfaces, the
+               checkpoints and sidecar written; a second
+               manager resumes through ``training.resume`` with params,
+               optimizer state, step, scheduler state and best metrics
+               restored bitwise at the right epoch; one step after the
+               restart against the same step without it (strict mode).
+ 12. train-parity — one f32 training step at full width on a small input,
+               kernel against plain norm: loss and parameter deltas.
+ 13. train-timing — median ms per warm training step at batch 8,
+               volumes/s, ms per validation batch, peak allocated memory.
+
+Phase 2 also holds the norm kernels against their plain versions at the nine
+norm shapes of the batch-8 training step (the largest, [8,48,144,144,32], in
+bf16 and f32).
 
 The line before the last is the kernel summary ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``. Weights and data are random,
@@ -97,6 +120,7 @@ HECKTOR_POLICY = {
 DEVICE_TRANSFORM = {"normalize": True, "intensity_policy": HECKTOR_POLICY, "channel_names": ["ct", "pt"]}
 SHAPE = (48, 144, 144, 2)
 BATCH = 2
+TRAIN_BATCH = 8  # the training recipe's batch (configs/training/default.yaml)
 THRESHOLD = 0.3
 SPACING = (3.0, 1.0, 1.0)  # HECKTOR21, mm
 NSD_TOL = 2.0
@@ -107,6 +131,12 @@ DICE_ABS_TOL = 1e-5  # device f32 Dice vs numpy f64 on the same masks
 # equal; ASD within this relative step (f64 sums reduced over another shape,
 # rounded once to f32)
 ASD_REL_TOL = 2.0 ** -23
+# training: one step after a restart vs without it, in strict mode (the same
+# state and deterministic algorithms: bitwise expected), relative to max|p|
+RESUME_STEP_REL = 1e-6
+# a full-width f32 training step, kernel vs plain norm (phase 5's limits):
+# loss relative; parameter deltas relative L2 (18 norms' sums in another order)
+TRAIN_LOSS_REL, TRAIN_DELTA_REL = 1e-4, 1e-3
 
 
 def eval_config(method: str, episodic: bool, threshold: float = THRESHOLD) -> dict:
@@ -125,11 +155,50 @@ def eval_config(method: str, episodic: bool, threshold: float = THRESHOLD) -> di
     }
 
 
+def train_recipe(save_dir: str) -> dict:
+    """The HECKTOR21 training recipe written out: configs/training/default.yaml
+    with configs/_global_patches/hecktor21.yaml (adam lr 1e-5, weight decay
+    5e-4 outside the no-decay groups, betas (0.9, 0.9999); DiceCE with
+    lambda_dice 5, ce_weight [50], sigmoid; bf16 compute, f16 transfer, the
+    intensity policy on the device), with scheduler poly over 2 epochs,
+    validation (surface metrics on) every epoch and a checkpoint every epoch."""
+    return {
+        "task": {"name": "hecktor21", "seed": 0, "eval_strategy": "seg_eval", "deterministic": "practical",
+                 "save_dir": save_dir},
+        "dataset": {"modality_order": ["ct", "pt"]},
+        "model": {"name": "unet", "in_channels": 2, "num_classes": 1, "spatial_dims": 3,
+                  "channels": [32, 64, 128, 256, 512], "strides": [2, 2, 2, 2], "num_res_units": 2,
+                  "norm": "INSTANCE", "act": "RELU", "dropout": 0.0},
+        "training": {
+            "epochs": 2, "batch_size": TRAIN_BATCH, "eval_batch_size": 8, "compute_dtype": "bfloat16",
+            "transfer_dtype": "float16", "grad_accum": 1, "checkpoint_format": "torch",
+            "model_save_start": 0, "model_save_freq": 1,
+            "ema": {"enabled": False, "decay": 0.999, "eval": True},
+            "optimizer": "adam",
+            "optimizers": {"adam": {"lr": 1.0e-5, "weight_decay": 5e-4, "betas": [0.9, 0.9999], "eps": 1.0e-8}},
+            "param_groups": {"no_decay_keys": ["bias", "bn", "norm", "scale"], "treat_1d_as_no_decay": True},
+            "scheduler": {"name": "poly", "args": {"power": 0.9}},
+            "eval_test": {"do_val": True, "do_test": False, "start_epoch": 0, "every_n_epochs": 1,
+                          "run_last": True},
+            "data": {"transforms": {"normalize": True, "on_device": True, "image_size": list(SHAPE[:3]),
+                                    "intensity_policy": HECKTOR_POLICY, "mean": [0.0, 0.0], "std": [1.0, 1.0],
+                                    "geom_aug": False, "intensity_aug": False}},
+            "criterion": {"lambda_dice": 5.0, "lambda_ce": 1.0, "include_background": False,
+                          "squared_pred": False, "jaccard": False, "sigmoid": True, "ce_weight": [50.0]},
+        },
+        "evaluation": {"seg": {"region_order": ["gtvt"], "threshold": THRESHOLD, "spacing": list(SPACING)},
+                       "surface": {"enable": True, "nsd_tol": NSD_TOL}, "loss": {"report_loss": True}},
+    }
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
 def main() -> int:
+    # cuBLAS reads its workspace size once, at its first call: fixed here,
+    # before any cuBLAS work, so that phase 11's strict step is deterministic
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -337,6 +406,42 @@ def main() -> int:
             raise AssertionError(f"the norm kernels are not deterministic at {shape}")
         del x, gy, y, runs
 
+    # the nine norm shapes of the training step at the recipe's batch 8
+    # (ReLU on, as in the model): forward and backward kernels against the
+    # plain versions on the same statistics; every shape in bf16, the largest
+    # (1.02 GB) and the smallest also in f32
+    train_norm_shapes = [(TRAIN_BATCH,) + s[1:] for s in path_norm_shapes]
+    for shape, dtype in ([(s, torch.bfloat16) for s in train_norm_shapes]
+                         + [(train_norm_shapes[0], torch.float32), (train_norm_shapes[-1], torch.float32)]):
+        tol = TOL_BF16 if dtype == torch.bfloat16 else TOL_F32
+        x, g, b = norm_inputs(shape, dtype, scale=1.0, shift=0.0)
+        x = off_kink(x, g, b)
+        gy = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        y, stats = instance_norm_forward(x, g, b, relu=True)
+        err, ok = within(y, instance_norm_plain(x, g, b), tol)
+        got = instance_norm_backward(gy, x, g, b, stats, relu=True)
+        ref = instance_norm_backward_plain(gy, x, g, b, stats[0], stats[1], True)
+        sync()
+        report = []
+        for nm, u, v in zip(("dx", "dgamma", "dbeta"), got, ref):
+            diff = (u.float() - v.float()).abs()
+            vmax = float(v.float().abs().max())
+            if nm == "dx" and dtype == torch.bfloat16:
+                good = bool((diff <= DX_BF16_REL * (vmax + v.float().abs())).all())
+            else:
+                good = float(diff.max()) <= GRAD_F32_REL * vmax + GRAD_F32_ABS
+            report.append(f"{nm} {float(diff.max()):.3g}")
+            ok = ok and good and u.dtype == v.dtype and u.shape == v.shape
+        pf, pb = plan_for(x), plan_for(x, backward=True)
+        log(f"[kernel] training shape {list(shape)} {str(dtype)[6:]} relu ({x.numel() * x.element_size() / 1e6:.1f} MB): "
+            f"forward {plan_text(pf)}; backward {plan_text(pb)}; max|kernel-plain| y {err:.3g}, "
+            + ", ".join(report) + f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"the norm kernels disagree with plain at the training shape {shape} {dtype}")
+        max_abs_err = max(max_abs_err, err)
+        backward_err = max(backward_err, float((got[0].float() - ref[0].float()).abs().max()))
+        del x, gy, y, stats, got, ref
+
     # ---- 3. full-width forward ------------------------------------------
     instance_norm_backward_plain.cuda_calls = 0  # phases 3-5 must leave it at 0
     backward_launches = {}
@@ -492,74 +597,84 @@ def main() -> int:
     for s in shapes:
         counts[s] = counts.get(s, 0) + 1
     keys = ("ms", "plain_ms", "library_ms", "bytes", "flops")
-    totals, btotals = dict.fromkeys(keys, 0.0), dict.fromkeys(keys, 0.0)
-    for (shape, relu), n in counts.items():
-        c = shape[-1]
-        act = "relu" if relu else None
-        x, g, b = norm_inputs(shape, torch.bfloat16)
-        x = off_kink(x, g, b) if relu else x
-        ref = instance_norm_plain(x, g, b, act=act)
-        err, ok = within(fused_instance_norm(x, g, b, act=act), ref, TOL_BF16)
-        if not ok:
-            raise AssertionError(f"kernel disagrees with plain at {shape}")
-        max_abs_err = max(max_abs_err, err)
-        del ref
-        ms_a = cuda_ms(lambda: fused_instance_norm(x, g, b, act=act))
-        ms_b = cuda_ms(lambda: fused_instance_norm(x, g, b, act=act))
-        ms = min(ms_a, ms_b)
-        plain_ms = cuda_ms(lambda: instance_norm_plain(x, g, b, act=act))
-        x_ncdhw = x.permute(0, 4, 1, 2, 3)
-
-        def library(xx=x_ncdhw, gg=g, bb=b):
-            out = F.instance_norm(xx, weight=gg, bias=bb, eps=1e-5)
-            return F.relu(out) if relu else out
-
-        lib_ms = cuda_ms(library)
-        nbytes = 2 * x.numel() * x.element_size() + 2 * c * 4  # read x, write y, gamma, beta
-        flops = 8 * x.numel()  # stats: add, mul, add; normalize, affine, relu: 5
-        log(f"[timing] forward {list(shape)} bf16 relu={relu} x{n} ({regimes[(shape, torch.bfloat16)].regime}): "
-            f"kernel {ms:.4f} ms ({ms_a:.4f}, {ms_b:.4f}), plain {plain_ms:.4f} ms, "
-            f"F.instance_norm(+relu) {lib_ms:.4f} ms, "
-            f"bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms, max err {err:.3g}")
-        for key, v in zip(keys, (ms, plain_ms, lib_ms, nbytes, flops)):
-            totals[key] += n * v
-
-        # backward of the same call: the kernel's wrapper, the plain backward,
-        # autograd of the library call (its time includes the autograd engine)
-        gy = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
-        gr, br = g.detach().requires_grad_(), b.detach().requires_grad_()
-        stats = instance_norm_forward(x, g, b, relu=relu)[1]
-        got = instance_norm_backward(gy, x, g, b, stats, relu=relu)
-        ref = instance_norm_backward_plain(gy, x, g, b, stats[0], stats[1], relu)
-        for nm, u, v in zip(("dx", "dgamma", "dbeta"), got, ref):
-            diff = (u.float() - v.float()).abs()
-            vmax = float(v.float().abs().max())
-            ok = (bool((diff <= DX_BF16_REL * (vmax + v.float().abs())).all()) if nm == "dx"
-                  else float(diff.max()) <= GRAD_F32_REL * vmax + GRAD_F32_ABS)
+    # one forward's norm calls at the serving batch, then at the training
+    # recipe's batch (one training step's 18 forward and 18 backward calls)
+    norm_totals = {}
+    for batch in (BATCH, TRAIN_BATCH):
+        totals, btotals = dict.fromkeys(keys, 0.0), dict.fromkeys(keys, 0.0)
+        for (shape, relu), n in counts.items():
+            shape = (batch,) + shape[1:]
+            c = shape[-1]
+            act = "relu" if relu else None
+            x, g, b = norm_inputs(shape, torch.bfloat16)
+            x = off_kink(x, g, b) if relu else x
+            ref = instance_norm_plain(x, g, b, act=act)
+            err, ok = within(fused_instance_norm(x, g, b, act=act), ref, TOL_BF16)
             if not ok:
-                raise AssertionError(f"backward {nm} disagrees with the plain backward at {shape}")
-        backward_err = max(backward_err, float((got[0].float() - ref[0].float()).abs().max()))
-        del got, ref
-        bms = min(cuda_ms(lambda: instance_norm_backward(gy, x, g, b, stats, relu=relu)) for _ in range(2))
-        bplain_ms = cuda_ms(lambda: instance_norm_backward_plain(gy, x, g, b, stats[0], stats[1], relu),
-                            iters=5)
-        xl = x_ncdhw.detach().requires_grad_()
-        yl = library(xl, gr, br)
-        gyl = gy.permute(0, 4, 1, 2, 3)
-        blib_ms = cuda_ms(lambda: torch.autograd.grad(yl, (xl, gr, br), gyl, retain_graph=True), iters=5)
-        bbytes = 3 * x.numel() * x.element_size() + 2 * c * 4 * (2 + 2 * shape[0])  # gy, x, dx; params, stats, sums
-        bflops = 14 * x.numel()
-        log(f"[timing] backward {list(shape)} bf16 relu={relu} x{n} "
-            f"({plan_for(x, backward=True).regime}): kernel {bms:.4f} ms, plain {bplain_ms:.4f} ms, "
-            f"autograd of F.instance_norm(+relu) {blib_ms:.4f} ms, bound {bbytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
-        for key, v in zip(keys, (bms, bplain_ms, blib_ms, bbytes, bflops)):
-            btotals[key] += n * v
-        del x, gy, stats, xl, yl, gyl, x_ncdhw
-    log(f"[timing] one forward's {len(shapes)} norm calls, bf16 batch {BATCH}: forward kernel {totals['ms']:.4f} ms, "
-        f"plain {totals['plain_ms']:.4f} ms, library "
-        f"{totals['library_ms']:.4f} ms, bound {totals['bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms; backward kernel "
-        f"{btotals['ms']:.4f} ms, plain {btotals['plain_ms']:.4f} ms, library {btotals['library_ms']:.4f} ms, "
-        f"bound {btotals['bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms; card {smi}")
+                raise AssertionError(f"kernel disagrees with plain at {shape}")
+            max_abs_err = max(max_abs_err, err)
+            del ref
+            ms_a = cuda_ms(lambda: fused_instance_norm(x, g, b, act=act))
+            ms_b = cuda_ms(lambda: fused_instance_norm(x, g, b, act=act))
+            ms = min(ms_a, ms_b)
+            plain_ms = cuda_ms(lambda: instance_norm_plain(x, g, b, act=act))
+            x_ncdhw = x.permute(0, 4, 1, 2, 3)
+
+            def library(xx=x_ncdhw, gg=g, bb=b):
+                out = F.instance_norm(xx, weight=gg, bias=bb, eps=1e-5)
+                return F.relu(out) if relu else out
+
+            lib_ms = cuda_ms(library)
+            nbytes = 2 * x.numel() * x.element_size() + 2 * c * 4  # read x, write y, gamma, beta
+            flops = 8 * x.numel()  # stats: add, mul, add; normalize, affine, relu: 5
+            log(f"[timing] forward {list(shape)} bf16 relu={relu} x{n} ({plan_for(x).regime}): "
+                f"kernel {ms:.4f} ms ({ms_a:.4f}, {ms_b:.4f}), plain {plain_ms:.4f} ms, "
+                f"F.instance_norm(+relu) {lib_ms:.4f} ms, "
+                f"bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms, max err {err:.3g}")
+            for key, v in zip(keys, (ms, plain_ms, lib_ms, nbytes, flops)):
+                totals[key] += n * v
+
+            # backward of the same call: the kernel's wrapper, the plain backward,
+            # autograd of the library call (its time includes the autograd engine)
+            gy = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+            gr, br = g.detach().requires_grad_(), b.detach().requires_grad_()
+            stats = instance_norm_forward(x, g, b, relu=relu)[1]
+            got = instance_norm_backward(gy, x, g, b, stats, relu=relu)
+            ref = instance_norm_backward_plain(gy, x, g, b, stats[0], stats[1], relu)
+            for nm, u, v in zip(("dx", "dgamma", "dbeta"), got, ref):
+                diff = (u.float() - v.float()).abs()
+                vmax = float(v.float().abs().max())
+                ok = (bool((diff <= DX_BF16_REL * (vmax + v.float().abs())).all()) if nm == "dx"
+                      else float(diff.max()) <= GRAD_F32_REL * vmax + GRAD_F32_ABS)
+                if not ok:
+                    raise AssertionError(f"backward {nm} disagrees with the plain backward at {shape}")
+            backward_err = max(backward_err, float((got[0].float() - ref[0].float()).abs().max()))
+            del got, ref
+            bms = min(cuda_ms(lambda: instance_norm_backward(gy, x, g, b, stats, relu=relu)) for _ in range(2))
+            bplain_ms = cuda_ms(lambda: instance_norm_backward_plain(gy, x, g, b, stats[0], stats[1], relu),
+                                iters=5)
+            xl = x_ncdhw.detach().requires_grad_()
+            yl = library(xl, gr, br)
+            gyl = gy.permute(0, 4, 1, 2, 3)
+            blib_ms = cuda_ms(lambda: torch.autograd.grad(yl, (xl, gr, br), gyl, retain_graph=True), iters=5)
+            bbytes = 3 * x.numel() * x.element_size() + 2 * c * 4 * (2 + 2 * shape[0])  # gy, x, dx; params, stats, sums
+            bflops = 14 * x.numel()
+            log(f"[timing] backward {list(shape)} bf16 relu={relu} x{n} "
+                f"({plan_for(x, backward=True).regime}): kernel {bms:.4f} ms, plain {bplain_ms:.4f} ms, "
+                f"autograd of F.instance_norm(+relu) {blib_ms:.4f} ms, bound {bbytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
+            for key, v in zip(keys, (bms, bplain_ms, blib_ms, bbytes, bflops)):
+                btotals[key] += n * v
+            del x, gy, stats, xl, yl, gyl, x_ncdhw, library  # library's defaults hold x
+        for tot in (totals, btotals):
+            t_bytes, t_ops = tot["bytes"] / HBM_BYTES_PER_S * 1e3, tot["flops"] / FP32_FLOPS * 1e3
+            tot["bound_ms"], tot["bound_by"] = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+        norm_totals[batch] = (totals, btotals)
+        log(f"[timing] one forward's {len(shapes)} norm calls, bf16 batch {batch}: forward kernel "
+            f"{totals['ms']:.4f} ms, plain {totals['plain_ms']:.4f} ms, library {totals['library_ms']:.4f} ms, "
+            f"bound {totals['bound_ms']:.4f} ms; backward kernel {btotals['ms']:.4f} ms, plain "
+            f"{btotals['plain_ms']:.4f} ms, library {btotals['library_ms']:.4f} ms, bound "
+            f"{btotals['bound_ms']:.4f} ms; card {smi}")
+    totals, btotals = norm_totals[BATCH]
     # ---- 7. min-plus kernel vs plain --------------------------------------
     def cost_matrix(n: int, spacing: float):
         return edt_cost_matrix(n, spacing, device=dev)
@@ -600,7 +715,10 @@ def main() -> int:
 
     pts4 = sparse_points((2 * BATCH, d_, h_, w_), 0.999)
     pts4[1] = False  # one volume without points among the four
+    pts8 = sparse_points((2 * 4, d_, h_, w_), 0.999)  # a training validation batch: 4 volumes, 1 region
+    pts8[5] = False
     volume_cases = [("1 volume", pts4[:1].contiguous()), ("4 volumes, one empty", pts4),
+                    ("8 volumes, one empty", pts8),
                     ("ragged [5,7,13]", sparse_points((3, 5, 7, 13), 0.9)),
                     ("ragged [20,31,155]", sparse_points((2, 20, 31, 155), 0.99)),
                     ("all empty", torch.zeros((2, 6, 10, 12), dtype=torch.bool, device=dev)),
@@ -627,7 +745,7 @@ def main() -> int:
     vp = volume_plan_for(pts4)
     log(f"[min-plus] plan of {list(pts4.shape)}: {vp.threads} threads, {vp.smem_bytes} bytes of shared memory; "
         + "; ".join(f"n={q.n} {q.kind} rows/tile={q.rows} tiles={q.tiles}" for q in vp.passes))
-    del pts4, volume_cases
+    del pts4, pts8, volume_cases
 
     # ---- 8. squared EDT through the kernel vs scipy -----------------------
     rng = np.random.RandomState(7)
@@ -862,9 +980,310 @@ def main() -> int:
         + ", ".join(f"{k} {v:.2f}" for k, v in eval_warm_ms.items()) + f"; card {smi}")
     del model
 
-    def norm_summary(name: str, tot: dict, n_launches: dict, err: float, extra: dict) -> dict:
-        t_bytes = tot["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = tot["flops"] / FP32_FLOPS * 1e3
+    # ---- 11. training: the flagship through ExperimentManager --------------
+    import shutil
+
+    from multimodal_tta_tpu_torch.core.experiment_manager import ExperimentManager
+    from multimodal_tta_tpu_torch.core.optim import build_optimizer
+    from multimodal_tta_tpu_torch.core.train_state import TrainState
+    from multimodal_tta_tpu_torch.core.trainer_base import HookBase
+    from multimodal_tta_tpu_torch.core.trainers.seg_trainer import SegTrainer
+    from multimodal_tta_tpu_torch.data import HostLoader, get_seg_transforms
+    from multimodal_tta_tpu_torch.utils.metrics import set_random_seed
+
+    t_train_phase = time.perf_counter()
+    run_root = os.path.join(REPO, "build", "chip_smoke_train")  # build/ is in .gitignore
+    shutil.rmtree(run_root, ignore_errors=True)
+
+    def hecktor_volumes(n: int, seed: int) -> list:
+        """CT/PET-like volumes [48,144,144,2] with an ellipsoid lesion each."""
+        r = np.random.RandomState(seed)
+        out = []
+        for i in range(n):
+            lesion = ellipsoid(r.uniform((14, 40, 40), (34, 104, 104)), r.uniform((3, 8, 8), (8, 24, 24)))
+            ct = r.randn(d_, h_, w_).astype(np.float32) * 150.0 - 50.0 + 250.0 * lesion
+            ct[r.rand(d_, h_, w_) < 0.3] = -1000.0  # air
+            pt = np.abs(r.randn(d_, h_, w_)).astype(np.float32) * 1.5 + 8.0 * lesion
+            out.append({"image": np.stack([ct, pt], axis=-1).astype(np.float32),
+                        "label": lesion[..., None].astype(np.float32), "domain": ("CHUM", "CHGJ")[i % 2]})
+        return out
+
+    t1 = time.perf_counter()
+    train_set, val_set = hecktor_volumes(16, 21), hecktor_volumes(4, 22)
+    data_s = time.perf_counter() - t1
+    spec = get_seg_transforms(ndim=3, split="train", normalize=True, geom_aug=False, intensity_aug=False,
+                              image_size=SHAPE[:3], intensity_policy=HECKTOR_POLICY,
+                              channel_names=["ct", "pt"], on_device=True).device_spec()
+
+    def make_manager(save_dir: str, **training) -> ExperimentManager:
+        cfg = train_recipe(save_dir)
+        cfg["training"].update(training)
+        m = ExperimentManager(ConfigNode(cfg), device=dev)
+        m.setup_model()
+        m.setup_optimizer()
+        m.setup_scheduler()
+        m.train_loader = HostLoader(train_set, batch_size=TRAIN_BATCH, shuffle=True, drop_last=True,
+                                    num_workers=4, seed=0)
+        m.val_loader = HostLoader(val_set, batch_size=8, num_workers=2)
+        m.device_transform = spec
+        m.setup_trainer()
+        return m
+
+    def opt_tensors(optimizer) -> list:
+        return [v for st in optimizer.state_dict()["state"].values() for v in st.values() if torch.is_tensor(v)]
+
+    def snapshot(trainer) -> dict:
+        st = trainer.state
+        return {"model": {k: v.detach().clone() for k, v in st.model.state_dict().items()},
+                "opt": [t.clone() for t in opt_tensors(st.optimizer)], "step": st.step,
+                "lr": [g["lr"] for g in st.optimizer.param_groups],
+                "scheduler": trainer.scheduler.state_dict(), "best_metrics": dict(trainer.best_metrics)}
+
+    def restored(trainer, snap: dict) -> dict:
+        """Which parts of ``trainer``'s state equal ``snap`` bitwise."""
+        st = trainer.state
+        sd, ot = st.model.state_dict(), opt_tensors(st.optimizer)
+        return {"params": sd.keys() == snap["model"].keys() and all(torch.equal(sd[k], v)
+                                                                     for k, v in snap["model"].items()),
+                "optimizer": len(ot) == len(snap["opt"]) > 0
+                and all(a.device == b.device and torch.equal(a, b) for a, b in zip(ot, snap["opt"]))
+                and [g["lr"] for g in st.optimizer.param_groups] == snap["lr"],
+                "step": st.step == snap["step"],
+                "scheduler": trainer.scheduler.state_dict() == snap["scheduler"],
+                "best_metrics": trainer.best_metrics == snap["best_metrics"]}
+
+    class StepRecorder(HookBase):
+        """Kernel launches of each training step, and its loss (the device
+        tensor the trainer reads one step late)."""
+
+        def __init__(self):
+            self.launches, self.losses = [], []
+
+        def _counts(self):
+            return (fused_instance_norm.launches, fused_instance_norm.backward_launches,
+                    instance_norm_backward_plain.cuda_calls)
+
+        def before_train_step(self):
+            self._at = self._counts()
+
+        def after_train_step(self):
+            self.launches.append(tuple(b - a for a, b in zip(self._at, self._counts())))
+            self.losses.append(self.trainer._pending_loss)
+
+    t1 = time.perf_counter()
+    run_a = make_manager(os.path.join(run_root, "a"))
+    setup_s = time.perf_counter() - t1
+    model = run_a.model
+    n_params = len(list(model.parameters()))
+    recorder = StepRecorder()
+    run_a.trainer.register_hooks([recorder])
+    snaps = {}
+    save = run_a.checkpoint_hook.save
+
+    def save_and_snapshot(epoch: int, is_best: bool):  # what each checkpoint was written from
+        save(epoch, is_best)
+        snaps["best_model" if is_best else f"checkpoint_epoch_{epoch}"] = dict(snapshot(run_a.trainer), epoch=epoch)
+
+    run_a.checkpoint_hook.save = save_and_snapshot
+    params0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    fused_instance_norm.launches = 0
+    fused_instance_norm.backward_launches = 0
+    minplus.launches = 0
+    instance_norm_backward_plain.cuda_calls = 0
+    # what each validation batch's min-plus launch is given and gives back,
+    # held against the plain version after the run
+    import multimodal_tta_tpu_torch.ops.surface as surface_module
+
+    val_edt = []
+
+    def recording_edt(pts, spacing, *, sqrt=False):
+        out = squared_edt_volumes(pts, spacing, sqrt=sqrt)
+        val_edt.append((pts.clone(), spacing, sqrt, out.clone()))
+        return out
+
+    surface_module.squared_edt_volumes = recording_edt
+    t1 = time.perf_counter()
+    try:
+        history = run_a.train(2)
+        sync()
+    finally:
+        surface_module.squared_edt_volumes = squared_edt_volumes
+    train_wall_s = time.perf_counter() - t1
+    train_launches = {"forward": fused_instance_norm.launches, "backward": fused_instance_norm.backward_launches,
+                      "minplus": minplus.launches, "plain_backward": instance_norm_backward_plain.cuda_calls}
+    train_peak = torch.cuda.max_memory_allocated()
+    losses = [float(v) for v in recorder.losses]
+    moved = [n for n, p in model.named_parameters() if not torch.equal(p, params0[n])]
+    n_steps = len(losses)
+    n_val = 2 * len(range(0, len(val_set), 8))
+    log(f"[train] UNet3D 32..512 bf16, {n_params} param tensors, adam lr 1e-5 poly, batch {TRAIN_BATCH}, "
+        f"2 epochs of {len(train_set)} volumes + validation of {len(val_set)} (surface metrics on): "
+        f"wall {train_wall_s:.2f} s (setup {setup_s:.2f} s, data made in {data_s:.2f} s); losses per step "
+        f"{[round(v, 5) for v in losses]}; lr per epoch {[h['lr'] for h in history['train_history']]}; "
+        f"{len(moved)}/{n_params} param tensors moved; launches per step (forward, backward, plain backward) "
+        f"{recorder.launches}; over the run: {train_launches}; peak allocated {train_peak / 2**30:.2f} GiB; "
+        f"card {smi}")
+    for epoch, ev in enumerate(history["eval_history"]):
+        log(f"[train] epoch {epoch} validation: " + ", ".join(f"{k} {v:.5g}" for k, v in ev.items()
+                                                              if "/" not in k))
+    if n_steps != 2 * len(train_set) // TRAIN_BATCH or not all(np.isfinite(losses)):
+        raise AssertionError(f"training: {n_steps} steps, losses {losses}")
+    if n_params != 82 or len(moved) != 82:
+        raise AssertionError(f"training moved {len(moved)} of {n_params} param tensors (82 expected)")
+    if any(s != (18, 18, 0) for s in recorder.launches):
+        raise AssertionError(f"each step must launch 18 norm forward and 18 backward kernels and never the "
+                             f"plain backward: {recorder.launches}")
+    if train_launches != {"forward": 18 * (n_steps + n_val), "backward": 18 * n_steps, "minplus": n_val,
+                          "plain_backward": 0}:
+        raise AssertionError(f"training run launches {train_launches}")
+    for pts, spacing, root, out in val_edt:
+        ref = squared_edt_volumes_plain(pts, spacing, sqrt=root)
+        equal = torch.equal(out, ref)
+        log(f"[train] validation squared_edt_volumes {list(pts.shape)} spacing {tuple(spacing)} sqrt={root}, "
+            f"{int(pts.flatten(1).any(1).sum())} of {pts.shape[0]} surfaces with points: bitwise equal to plain="
+            f"{equal}, inf out {int(torch.isinf(out).sum())} (plain {int(torch.isinf(ref).sum())})")
+        if not equal or pts.shape[0] != 2 * len(val_set):
+            raise AssertionError(f"the validation batch's min-plus launch disagrees with plain at {list(pts.shape)}")
+    if len(val_edt) != n_val:
+        raise AssertionError(f"{len(val_edt)} squared EDT calls in validation, expected {n_val}")
+    del val_edt, pts, out, ref
+    for ev in history["eval_history"]:
+        if not all(v == v and abs(v) != float("inf") for v in ev.values()) or "gtvt_hd95" not in ev:
+            raise AssertionError(f"validation metrics not finite or incomplete: {ev}")
+    ckpt_dir = os.path.join(run_root, "a", "checkpoints")
+    written = sorted(os.listdir(ckpt_dir))
+    want_files = sorted(f"{n}.{e}" for n in ("best_model", "checkpoint_epoch_0", "checkpoint_epoch_1")
+                        for e in ("json", "pt"))
+    with open(os.path.join(ckpt_dir, "best_model.json")) as f:
+        sidecar = json.load(f)
+    log(f"[train] checkpoints written: {written}; best_model.json {sidecar}")
+    if written != want_files or sidecar.get("_format") != "torch" or "best_metrics" not in sidecar:
+        raise AssertionError(f"checkpoint files {written}, sidecar {sidecar}")
+
+    # a second manager resumes from best_model through training.resume, then
+    # loads checkpoint_epoch_1 (written from the state the run ended with)
+    run_b = make_manager(os.path.join(run_root, "b"), resume=os.path.join(ckpt_dir, "best_model"))
+    got = restored(run_b.trainer, snaps["best_model"])
+    resume_epoch = run_b.trainer.start_epoch
+    start_1 = run_b.checkpoint_hook.load(os.path.join(ckpt_dir, "checkpoint_epoch_1"))
+    got_1 = restored(run_b.trainer, snaps["checkpoint_epoch_1"])
+    live = {k: v for k, v in restored(run_a.trainer, snaps["checkpoint_epoch_1"]).items()
+            if k in ("params", "optimizer", "step")}
+    log(f"[train] resume from best_model (written at epoch {snaps['best_model']['epoch']}): restored bitwise "
+        f"{got}, resumes at epoch {resume_epoch}; from checkpoint_epoch_1: {got_1}, resumes at epoch {start_1}; "
+        f"the uninterrupted run's live state equals checkpoint_epoch_1: {live}")
+    if not all(got.values()) or resume_epoch != snaps["best_model"]["epoch"] + 1:
+        raise AssertionError("best_model did not restore bitwise or resumes at the wrong epoch")
+    if not all(got_1.values()) or start_1 != 2 or not all(live.values()):
+        raise AssertionError("checkpoint_epoch_1 did not restore bitwise")
+
+    # one more step on the same batch, without and after the restart, in
+    # strict mode (deterministic cuDNN algorithms, use_deterministic_algorithms)
+    step_batch = {"image": np.stack([s["image"] for s in train_set[:TRAIN_BATCH]]),
+                  "label": np.stack([s["label"] for s in train_set[:TRAIN_BATCH]])}
+    set_random_seed(0, "strict")
+    try:
+        step_loss = {}
+        for tag, run in (("uninterrupted", run_a), ("resumed", run_b)):
+            run.trainer.run_step(step_batch)
+            step_loss[tag] = run.trainer.flush_step_metrics()["loss"]
+        sync()
+    finally:
+        set_random_seed(0, "practical")
+    pa, pb = dict(run_a.model.named_parameters()), dict(run_b.model.named_parameters())
+    bitwise = all(torch.equal(pa[n], pb[n]) for n in pa)
+    step_rel = max(float((pa[n] - pb[n]).abs().max()) / max(float(pa[n].abs().max()), 1e-30) for n in pa)
+    loss_rel = abs(step_loss["resumed"] - step_loss["uninterrupted"]) / abs(step_loss["uninterrupted"])
+    log(f"[train] one step after the restart vs without it (strict mode): loss {step_loss}, rel diff "
+        f"{loss_rel:.3g} (limit {RESUME_STEP_REL}); params max rel diff {step_rel:.3g} (limit {RESUME_STEP_REL}); "
+        f"bitwise equal={bitwise}")
+    if not (loss_rel <= RESUME_STEP_REL and step_rel <= RESUME_STEP_REL):
+        raise AssertionError("the step after the restart differs from the step without it")
+    del run_b, pb
+
+    # ---- 12. training parity: kernel against plain norm, f32, full width ----
+    r = np.random.RandomState(23)
+    small_batch = {"image": np.stack([np.stack([r.randn(16, 32, 32) * 200.0 - 100.0,
+                                                np.abs(r.randn(16, 32, 32)) * 3.0], axis=-1)
+                                      for _ in range(2)]).astype(np.float32),
+                   "label": (r.rand(2, 16, 32, 32, 1) > 0.9).astype(np.float32)}
+    parity = {}
+    for plain in (False, True):
+        m = UNet3D(channels=(32, 64, 128, 256, 512), dtype=torch.float32, device=dev, seed=5)
+        set_plain_norm(m, plain)
+        cfg = ConfigNode({"task": {"seed": 0}, "training": {
+            "optimizer": "sgd", "optimizers": {"sgd": {"lr": 1e-2, "momentum": 0.9}},
+            "criterion": train_recipe("")["training"]["criterion"]}})
+        trainer = SegTrainer(cfg, device_transform=spec, device=dev)
+        trainer.setup(TrainState(model=m, optimizer=build_optimizer(cfg.training, m)[0]))
+        src = {n: p.detach().clone() for n, p in m.named_parameters()}
+        at = (fused_instance_norm.launches, fused_instance_norm.backward_launches)
+        trainer.run_step(small_batch)
+        loss = trainer.flush_step_metrics()["loss"]
+        sync()
+        ran = (fused_instance_norm.launches - at[0], fused_instance_norm.backward_launches - at[1])
+        parity[plain] = (loss, torch.cat([(p.detach() - src[n]).flatten() for n, p in m.named_parameters()]), ran)
+        del m, trainer
+    (l_k, d_k, ran_k), (l_p, d_p, ran_p) = parity[False], parity[True]
+    p_loss_rel = abs(l_k - l_p) / abs(l_p)
+    p_delta_rel = float((d_k - d_p).norm() / d_p.norm())
+    log(f"[train-parity] f32 training step [2,16,32,32,2] at full width, sgd, kernel vs plain norm: loss "
+        f"{l_k:.6f} / {l_p:.6f} rel {p_loss_rel:.3g} (limit {TRAIN_LOSS_REL}); param deltas rel L2 "
+        f"{p_delta_rel:.3g} (limit {TRAIN_DELTA_REL}); launches (forward, backward) kernel run {ran_k}, "
+        f"plain run {ran_p}")
+    if not (p_loss_rel <= TRAIN_LOSS_REL and p_delta_rel <= TRAIN_DELTA_REL):
+        raise AssertionError("the training step through the kernel disagrees with the plain norm")
+    if ran_k != (18, 18) or ran_p != (0, 0):
+        raise AssertionError(f"parity runs launched {ran_k} / {ran_p}")
+
+    # ---- 13. training timing ----------------------------------------------
+    trainer = run_a.trainer
+    dev_batches = [{"image": torch.from_numpy(np.stack([s["image"] for s in train_set[k:k + TRAIN_BATCH]])).to(
+                        dev, torch.float16),
+                    "label": torch.from_numpy(np.stack([s["label"] for s in train_set[k:k + TRAIN_BATCH]])).to(
+                        dev, torch.uint8),
+                    "_n_valid": TRAIN_BATCH} for k in (0, TRAIN_BATCH)]
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for i in range(10):
+        sync()
+        t1 = time.perf_counter()
+        trainer.run_step(dev_batches[i % 2])
+        sync()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    trainer.flush_step_metrics()
+    step_peak = torch.cuda.max_memory_allocated()
+    warm = sorted(step_ms[2:])
+    step_median = warm[len(warm) // 2] if len(warm) % 2 else 0.5 * (warm[len(warm) // 2 - 1] + warm[len(warm) // 2])
+    val_ms = []
+    for _ in range(3):
+        sync()
+        t1 = time.perf_counter()
+        trainer.evaluation_strategy.evaluate_epoch(trainer.eval_state(), run_a.val_loader, device=dev)
+        sync()
+        val_ms.append((time.perf_counter() - t1) * 1e3)
+    val_median = sorted(val_ms)[1]
+    training = {"ms_per_step": step_ms, "median_warm_ms": step_median,
+                "volumes_per_s": TRAIN_BATCH * 1e3 / step_median, "val_batch_ms": val_ms,
+                "val_batch_median_ms": val_median, "val_batch_volumes": len(val_set),
+                "peak_allocated_gib_2_epoch_run": train_peak / 2**30, "peak_allocated_gib_steps": step_peak / 2**30,
+                "losses": losses, "launches": train_launches, "resume_step_bitwise": bitwise,
+                "norm_calls_per_step_batch8": {"forward": norm_totals[TRAIN_BATCH][0],
+                                               "backward": norm_totals[TRAIN_BATCH][1]}, "card": smi}
+    log(f"[train-timing] batch {TRAIN_BATCH} [48,144,144,2], bf16, adam, device-resident batches: ms per step "
+        f"{[round(t, 2) for t in step_ms]} -> median of the warm 8 {step_median:.2f} ms, "
+        f"{TRAIN_BATCH * 1e3 / step_median:.2f} volumes/s; validation batch of {len(val_set)} volumes (surface "
+        f"metrics on, H2D included) {[round(t, 2) for t in val_ms]} -> median {val_median:.2f} ms; peak "
+        f"allocated {step_peak / 2**30:.2f} GiB in the timed steps, {train_peak / 2**30:.2f} GiB in the 2-epoch "
+        f"run; card {smi}")
+    log(f"[train] phases 11-13 took {time.perf_counter() - t_train_phase:.1f} s")
+    del run_a, trainer, model, dev_batches
+    shutil.rmtree(run_root, ignore_errors=True)
+
+    def norm_summary(name: str, tot: dict, train_tot: dict, n_launches: dict, err: float, extra: dict) -> dict:
         return {
             "name": name,
             "route": "cuda",
@@ -875,26 +1294,28 @@ def main() -> int:
             "max_abs_err": err,
             "ms": tot["ms"],
             "plain_ms": tot["plain_ms"],
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_ms": tot["bound_ms"],
+            "bound_by": tot["bound_by"],
             "library_ms": tot["library_ms"],
             "per": f"one bf16 forward's {len(shapes)} norm calls at batch {BATCH}",
+            "train_step_batch8": {k: train_tot[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
             "card": smi,
             **extra,
         }
 
-    summary = norm_summary("fused_instance_norm", totals, {**launches, **norm_eval_launches},
-                           max_abs_err, {})
+    summary = norm_summary("fused_instance_norm", totals, norm_totals[TRAIN_BATCH][0],
+                           {**launches, **norm_eval_launches, "train": train_launches["forward"]}, max_abs_err, {})
     backward_summary = norm_summary(
-        "fused_instance_norm_backward", btotals, backward_launches, backward_err,
+        "fused_instance_norm_backward", btotals, norm_totals[TRAIN_BATCH][1],
+        {**backward_launches, "train": train_launches["backward"]}, backward_err,
         {"note": "the gradient of the TPU kernel's function; dx computed in all 18 timed calls"})
     minplus_summary = {
         "name": "minplus",
         "route": "cuda",
         "source": "multimodal_tta_tpu_torch/csrc/edt_minplus.cu",
         "replaces": "multimodal_tta_tpu/pallas/edt_minplus.py:52",
-        "launches": sum(eval_launches.values()),
-        "launches_by_path": eval_launches,
+        "launches": sum(eval_launches.values()) + train_launches["minplus"],
+        "launches_by_path": {**eval_launches, "train": train_launches["minplus"]},
         "max_abs_err": minplus_err,
         "ms": edt_ms,
         "plain_ms": edt_plain_ms,
@@ -912,7 +1333,7 @@ def main() -> int:
     log(json.dumps({"serving": serving, "forward_ms": fwd_ms, "forward_plain_norm_ms": fwd_plain_ms,
                     "eval_ms_per_batch": eval_ms, "eval_warm_ms_per_batch": eval_warm_ms,
                     "eval_batch_split_ms": split,
-                    "eval_metrics": eval_runs}))
+                    "eval_metrics": eval_runs, "training": training}))
     log(json.dumps({"kernels": [summary, backward_summary, minplus_summary]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                             "count": torch.cuda.device_count()}}))

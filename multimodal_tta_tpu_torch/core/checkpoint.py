@@ -1,0 +1,123 @@
+"""Checkpoint serialization (the port of ``multimodal_tta_tpu/core/checkpoint.py``).
+
+One format: an extension-less ``path`` is written as ``path.pt``
+(``torch.save`` of the model's and the optimizer's state dicts, the step
+and, when the run tracks it, the EMA shadow) plus the reference's JSON
+sidecar ``path.json`` (epoch, best metrics, scheduler state; ``_format:
+"torch"``). Both are written to a ``.tmp`` file first and renamed with
+``os.replace``, so an interrupted save never leaves a torn checkpoint.
+
+The reference's msgpack and orbax formats are not ported (they need flax,
+msgpack and orbax; ROADMAP.md): loading such a checkpoint raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+
+from ..utils.logger import get_logger
+from .train_state import TrainState, shadow_module
+
+
+def _state_payload(state: TrainState) -> Dict[str, Any]:
+    payload = {
+        "step": int(state.step),
+        "model": state.model.state_dict(),
+        "optimizer": state.optimizer.state_dict(),
+    }
+    # the EMA shadow rides along only when the run tracks it
+    if state.ema_params is not None:
+        payload["ema_params"] = dict(state.ema_params)
+    return payload
+
+
+def save_checkpoint(path: str, state: TrainState, extra: Dict[str, Any] = None) -> None:
+    """path is extension-less; writes path.pt + path.json atomically."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)) or ".", exist_ok=True)
+    tmp = path + ".pt.tmp"
+    torch.save(_state_payload(state), tmp)
+    os.replace(tmp, path + ".pt")
+    _write_sidecar(path, dict(extra or {}, _format="torch"))
+
+
+def _json_default(o):
+    if isinstance(o, (np.floating, np.integer)):
+        return o.item()
+    if isinstance(o, (np.ndarray, torch.Tensor)):
+        return o.tolist()
+    return str(o)
+
+
+def load_checkpoint(path: str, template_state: TrainState) -> Tuple[TrainState, Dict[str, Any]]:
+    """Restore ``path`` into ``template_state``'s model and optimizer (in
+    place, on their device); returns ``(state, extra_metadata)`` with the
+    restored step and EMA shadow. EMA presence may differ between the
+    checkpoint and the resuming run (``training.ema`` toggled between runs):
+    a shadow in the checkpoint is restored either way; resuming with EMA
+    from a checkpoint without one starts the shadow at the restored
+    params."""
+    if not os.path.exists(path + ".pt"):
+        for other in (".msgpack", ".orbax"):
+            if os.path.exists(path + other):
+                raise NotImplementedError(
+                    f"[checkpoint] {path}{other} is in the reference's {other[1:]} format, which "
+                    "the port does not read (ROADMAP.md, training slice left-overs)")
+        raise FileNotFoundError(f"[checkpoint] no checkpoint at {path}.pt")
+    model = template_state.model
+    device = next(model.parameters()).device
+    # read to the host: the state dicts' loaders put each tensor where the
+    # live one lives (Adam's step counts stay on the host, as in a fresh run)
+    raw = torch.load(path + ".pt", map_location="cpu", weights_only=True)
+    model.load_state_dict(raw["model"])
+    template_state.optimizer.load_state_dict(raw["optimizer"])
+    if "ema_params" in raw:
+        ema = {k: v.to(device) for k, v in raw["ema_params"].items()}
+    elif template_state.ema_params is not None:
+        get_logger().info(
+            "[checkpoint] no ema_params in checkpoint; warm-starting the EMA "
+            "shadow from the restored params"
+        )
+        ema = {n: p.detach().clone() for n, p in model.named_parameters()}
+    else:
+        ema = None
+    state = dataclasses.replace(template_state, step=int(raw["step"]), ema_params=ema)
+    return state, _read_sidecar(path)
+
+
+def resolve_serving_params(state: TrainState, use_ema: bool) -> TrainState:
+    """Swap the EMA shadow in as the serving/adaptation params
+    (``training.use_ema_params``): a state whose model is a copy carrying the
+    shadow; ``state`` is left as it is. Hard-fails when requested on a
+    checkpoint without a shadow — silently serving the raw params when EMA
+    metrics selected the checkpoint would be the silent config-ignore
+    failure mode."""
+    if not use_ema:
+        return state
+    if state.ema_params is None:
+        raise ValueError(
+            "[checkpoint] training.use_ema_params=true but the checkpoint "
+            "carries no ema_params — train with training.ema.enabled=true"
+        )
+    return dataclasses.replace(state, model=shadow_module(state.model, state.ema_params))
+
+
+def _read_sidecar(path: str) -> Dict[str, Any]:
+    meta_path = path + ".json"
+    if os.path.exists(meta_path):
+        with open(meta_path, "r", encoding="utf-8") as f:
+            return json.load(f)
+    return {}
+
+
+def _write_sidecar(path: str, extra: Dict[str, Any]) -> None:
+    meta = dict(extra or {})
+    tmp = path + ".json.tmp"
+    with open(tmp, "w", encoding="utf-8") as f:
+        json.dump(meta, f, default=_json_default)
+    os.replace(tmp, path + ".json")

@@ -1,0 +1,239 @@
+"""Supervised segmentation trainer (the port of
+``multimodal_tta_tpu/core/trainers/seg_trainer.py``).
+
+The DiceCE (or GWDL) loss is built from ``training.criterion`` (softmax XOR
+sigmoid, with the same validation) and labels are shape-checked per mode.
+One step, on the trainer's device:
+
+  - upcast the compact transfer dtype; modality dropout, then the per-sample
+    intensity normalizer, then the intensity augmentation (as the
+    ``SegTransform.device_spec()`` handed in asks)
+  - forward in the model's compute dtype (bf16 with an f32 head for the
+    flagship), the loss per sample averaged over the batch's valid samples,
+    backward, the optimizer step (``TrainState.apply_gradients``)
+  - the EMA shadow (``training.ema``), ticked only on applied steps under
+    ``training.grad_accum``
+
+Metrics contract: the loss is read on the host one step late, so
+``run_step`` returns the *previous* step's ``{"loss": float}`` (an empty
+dict on the first step) and ``flush_step_metrics()`` drains the last one;
+the host never waits on the step it has just launched.
+
+Distillation, the MoE aux loss, deep supervision and ``training.remat``
+raise ``NotImplementedError`` (ROADMAP.md); there is no mesh (one device).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from ... import DeviceLike
+from ...conf.node import ConfigNode
+from ...data.prefetch import TRANSFER_DTYPES, prefetch_to_device
+from ...ops.augment import modality_dropout, rand_intensity_scale_shift
+from ...ops.intensity import make_intensity_normalizer
+from ...ops.losses import make_criterion
+from ...utils.config import get_config
+from ..train_state import shadow_module
+from ..trainer_base import TrainerBase
+
+_UNPORTED = "ROADMAP.md, training slice left-overs"
+
+
+class SegTrainer(TrainerBase):
+    def __init__(self, config, evaluation_strategy=None, device_transform=None,
+                 device: DeviceLike = "cuda"):
+        super().__init__(config, device)
+        self.evaluation_strategy = evaluation_strategy
+
+        crit_cfg = get_config(config, "training.criterion", ConfigNode())
+        self.softmax = bool(get_config(crit_cfg, "softmax", False))
+        self.sigmoid = bool(get_config(crit_cfg, "sigmoid", not self.softmax))
+        if self.softmax and self.sigmoid:
+            raise ValueError("[SegTrainer] softmax=True and sigmoid=True cannot both be True.")
+        if not self.softmax and not self.sigmoid:
+            raise ValueError("[SegTrainer] both softmax and sigmoid are False. Set one True.")
+        self.loss_fn = make_criterion(crit_cfg)
+
+        for flag, what in (
+            (get_config(config, "model.deep_supervision", 0), "deep supervision (model.deep_supervision)"),
+            (get_config(config, "model.moe_experts", 0), "the MoE aux loss (model.moe_experts)"),
+            (get_config(config, "training.distill.enabled", False), "distillation (training.distill)"),
+            (get_config(config, "training.remat", False), "rematerialization (training.remat)"),
+        ):
+            if flag:
+                raise NotImplementedError(f"[SegTrainer] {what} is not ported yet ({_UNPORTED})")
+
+        # device-side transform spec (from SegTransform.device_spec())
+        self.device_transform = device_transform or {}
+        self._norm_fn = None
+        if self.device_transform.get("normalize"):
+            self._norm_fn = make_intensity_normalizer(
+                normalize=True,
+                intensity_policy=self.device_transform.get("intensity_policy"),
+                channel_names=self.device_transform.get("channel_names"),
+                mean=self.device_transform.get("mean"),
+                std=self.device_transform.get("std"),
+            )
+
+        # compact H2D dtype for images (upcast to f32 on the device)
+        td = str(get_config(config, "training.transfer_dtype", "float32")).lower()
+        self._transfer_dtype = TRANSFER_DTYPES[td]
+
+        ema_cfg = get_config(config, "training.ema", ConfigNode())
+        self.ema_enabled = bool(get_config(ema_cfg, "enabled", False))
+        self.ema_decay = float(get_config(ema_cfg, "decay", 0.999))
+        self.ema_eval = bool(get_config(ema_cfg, "eval", True))
+        if self.ema_enabled and not (0.0 < self.ema_decay < 1.0):
+            raise ValueError(f"[SegTrainer] training.ema.decay must be in (0,1), got {self.ema_decay}")
+        self._ema_module: Optional[nn.Module] = None
+
+        self._gen = torch.Generator(device=self.device).manual_seed(int(get_config(config, "task.seed", 0)))
+        self._pending_loss: Optional[torch.Tensor] = None
+
+    # ------------------------------------------------------------------
+    def _step(self, image: torch.Tensor, label: torch.Tensor, n_valid: int) -> torch.Tensor:
+        """One training step on device tensors; returns the loss (0-d, on the
+        device, detached)."""
+        dt = self.device_transform
+        state = self.state
+        image = image.to(torch.float32)  # upcast compact transfer dtypes
+        if dt.get("modality_dropout"):
+            # before normalization, so training sees what deployment gives
+            # for an absent modality: raw zeros through the normalizer
+            image = modality_dropout(image, self._gen, prob=float(dt.get("modality_dropout_prob", 0.25)))
+        if self._norm_fn is not None:
+            image = self._norm_fn(image)
+        if dt.get("intensity_aug"):
+            image = rand_intensity_scale_shift(
+                image, self._gen, scale=float(dt.get("int_scale", 0.1)),
+                shift=float(dt.get("int_shift", 0.1)), prob=float(dt.get("int_prob", 0.5)))
+
+        b = image.shape[0]
+        lbl = label.to(torch.float32) if self.sigmoid else label.to(torch.int64)
+        state.optimizer.zero_grad(set_to_none=True)
+        logits = state.model(image)
+        per_sample = torch.stack([self.loss_fn(logits[i:i + 1], lbl[i:i + 1]) for i in range(b)])
+        # samples past n_valid (a padded batch tail) are masked out
+        mask = (torch.arange(b, device=per_sample.device) < n_valid).to(torch.float32)
+        loss = (per_sample * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        loss.backward()
+        applied = state.apply_gradients()
+        # under training.grad_accum the params move on every k-th step only,
+        # and the shadow ticks with them, not per microstep
+        if self.ema_enabled and applied:
+            self._update_ema()
+        return loss.detach()
+
+    @torch.no_grad()
+    def _update_ema(self) -> None:
+        d = self.ema_decay
+        names = list(self.state.ema_params)
+        params = dict(self.state.model.named_parameters())
+        shadow = [self.state.ema_params[n] for n in names]
+        torch._foreach_mul_(shadow, d)
+        torch._foreach_add_(shadow, [params[n].detach() for n in names], alpha=1.0 - d)
+
+    # ------------------------------------------------------------------
+    def eval_state(self) -> nn.Module:
+        """The module evaluation runs on: the live model, or with
+        ``training.ema.eval`` a copy carrying the EMA shadow (kept between
+        calls; the live params and the optimizer's references to them are
+        not touched)."""
+        model = self.state.model
+        if self.ema_enabled and self.ema_eval and self.state.ema_params is not None:
+            self._ema_module = shadow_module(model, self.state.ema_params, into=self._ema_module)
+            return self._ema_module
+        return model
+
+    # ------------------------------------------------------------------
+    def _check_shapes(self, image, label) -> None:
+        if self.softmax:
+            if label.ndim != image.ndim - 1:
+                raise ValueError(
+                    f"[SegTrainer/softmax] Expect y as [B,spatial...] with ndim={image.ndim - 1}, "
+                    f"got y={tuple(label.shape)}, image={tuple(image.shape)}."
+                )
+            if tuple(label.shape[1:]) != tuple(image.shape[1:-1]):
+                raise ValueError(
+                    f"[SegTrainer/softmax] Spatial mismatch: y={tuple(label.shape)} vs "
+                    f"image={tuple(image.shape)}."
+                )
+        else:
+            if label.ndim != image.ndim:
+                raise ValueError(
+                    f"[SegTrainer/sigmoid] Expect y as [B,spatial...,C] with ndim={image.ndim}, "
+                    f"got y={tuple(label.shape)}. Dataset must output channel-last masks "
+                    f"(binary => [B,...,1])."
+                )
+            if tuple(label.shape[:-1]) != tuple(image.shape[:-1]):
+                raise ValueError(
+                    f"[SegTrainer/sigmoid] Spatial mismatch: y={tuple(label.shape)} vs "
+                    f"image={tuple(image.shape)}."
+                )
+
+    def _wrap_loader(self, loader):
+        if getattr(loader, "device_resident", False):
+            return loader  # batches already live on the device
+        return prefetch_to_device(
+            loader,
+            self.device,
+            image_transfer_dtype=self._transfer_dtype,
+            label_transfer_dtype=torch.uint8 if self.sigmoid else None,
+        )
+
+    def run_step(self, batch: Dict[str, Any]) -> Dict[str, float]:
+        image, label = batch["image"], batch["label"]
+        self._check_shapes_meta(image, label)
+
+        if "_n_valid" in batch:
+            # already on the device (prefetch_to_device)
+            n_valid = int(batch["_n_valid"])
+        else:
+            image = torch.as_tensor(np.asarray(image, dtype=np.float32)).to(self.device)
+            label = torch.as_tensor(np.asarray(label)).to(self.device)
+            n_valid = image.shape[0]
+
+        if self.ema_enabled and self.state.ema_params is None:
+            # standard EMA init: the shadow starts at a copy of the params
+            self.state.ema_params = {n: p.detach().clone() for n, p in self.state.model.named_parameters()}
+
+        loss = self._step(image, label, n_valid)
+        # read the previous step's loss: the host does not wait for this one
+        prev = self._pending_loss
+        self._pending_loss = loss
+        return {"loss": float(prev)} if prev is not None else {}
+
+    def flush_step_metrics(self):
+        if self._pending_loss is None:
+            return {}
+        loss = float(self._pending_loss)
+        self._pending_loss = None
+        return {"loss": loss}
+
+    def _check_shapes_meta(self, image, label) -> None:
+        """Shape-contract checks on array metadata (no host transfer)."""
+
+        class _V:
+            def __init__(self, shape):
+                self.shape = tuple(shape)
+                self.ndim = len(shape)
+
+        self._check_shapes(_V(image.shape), _V(label.shape))
+
+    # ------------------------------------------------------------------
+    def _is_best_model(self, eval_stats: Dict[str, float]) -> bool:
+        """Delegate to the strategy's is_best_model, else min val loss
+        (reference: seg_trainer.py:85-95)."""
+        if hasattr(self.evaluation_strategy, "is_best_model"):
+            return self.evaluation_strategy.is_best_model(eval_stats, self.best_metrics)
+        if eval_stats:
+            current = eval_stats.get("loss", 0.0)
+            best = self.best_metrics.get("loss", float("inf"))
+            self.logger.info(f"Current loss: {current:.4f}, Best loss: {best:.4f}")
+            return current < best
+        return False

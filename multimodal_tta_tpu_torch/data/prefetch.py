@@ -17,6 +17,10 @@ import torch
 
 from .. import DeviceLike, resolve_device
 
+# ``training.transfer_dtype`` -> the dtype images cross to the device in
+# (None: as they come, f32)
+TRANSFER_DTYPES = {"float32": None, "float16": torch.float16, "bfloat16": torch.bfloat16}
+
 
 def prefetch_to_device(
     iterable: Iterable[Dict[str, Any]],

@@ -30,7 +30,7 @@ from torch import nn
 
 from .. import DeviceLike, resolve_device
 from ..conf.node import ConfigNode
-from ..data.prefetch import prefetch_to_device
+from ..data.prefetch import TRANSFER_DTYPES, prefetch_to_device
 from ..ops.losses import make_criterion
 from ..ops.seg_metrics import binary_dice_iou
 from ..registry import register_evaluation_strategy
@@ -84,9 +84,6 @@ class _Accum:
         means = self.means()
         valid_idx = [i for i in range(self.r) if self.cnt[i] > 0]
         return float(sum(means[i] for i in valid_idx) / max(1, len(valid_idx)))
-
-
-_TRANSFER_DTYPES = {"float32": None, "float16": torch.float16, "bfloat16": torch.bfloat16}
 
 
 @register_evaluation_strategy("seg_eval")
@@ -180,7 +177,7 @@ class SegmentationEvaluationStrategy:
         self.loss_fn = make_criterion(eval_crit)
 
         td = str(get_config(self.config, "training.transfer_dtype", "float32")).lower()
-        self._transfer_dtype = _TRANSFER_DTYPES[td]
+        self._transfer_dtype = TRANSFER_DTYPES[td]
 
         # Optional best-model criterion (a trainer delegates to the
         # strategy's is_best_model). Unset -> min validation loss.

@@ -11,6 +11,9 @@ a ``state_dict`` for ``UNet3D.load_state_dict``. It imports no JAX.
     scatters it, so the kernel is flipped spatially and laid out as
     ``[in, out, kd, kh, kw]``
   * ``bias`` as is; norm ``scale``/``bias`` by name
+
+``flax_path(name)`` goes the other way for a name: the reference's
+'/'-joined param path of a torch parameter.
 """
 
 from __future__ import annotations
@@ -29,6 +32,16 @@ def _leaves(tree: Mapping[str, Any], prefix=()):
             yield from _leaves(v, prefix + (str(k),))
         else:
             yield prefix + (str(k),), v
+
+
+def flax_path(name: str) -> str:
+    """The reference's '/'-joined param path of a torch parameter name
+    (``enc0.unit0.conv.weight`` -> ``enc0/unit0/conv/kernel``), which
+    ``update_path_regex`` and the no-decay rules are matched against."""
+    parts = name.split(".")
+    if parts[-1] == "weight":
+        parts[-1] = "kernel"
+    return "/".join(parts)
 
 
 def unet3d_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:

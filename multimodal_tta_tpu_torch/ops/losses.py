@@ -10,19 +10,35 @@ and ``dice_ce_loss`` with MONAI's DiceCELoss semantics —
     for CE (softmax mode)
   - smooth_nr / smooth_dr = 1e-5 (MONAI defaults), mean reduction
 
-The generalized Wasserstein Dice criterion (``gwdl``) comes with the
-training slice. Shapes are channels-last ``[B, *spatial, C]``.
+and the generalized Wasserstein Dice criterion (``gwdl``, optionally with
+class-weighted CE). Shapes are channels-last ``[B, *spatial, C]``.
 """
 
 from __future__ import annotations
 
 from functools import partial
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
 
 from ..utils.config import get_config
+
+
+class _Constant:
+    """A small constant table (class weights, a distance matrix) built once
+    per device and dtype, so that a loss called once per sample copies it to
+    the card once and not on every call."""
+
+    def __init__(self, values):
+        self.values = values
+        self._tensors = {}
+
+    def on(self, like: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        key = (like.device, like.dtype if dtype is None else dtype)
+        if key not in self._tensors:
+            self._tensors[key] = torch.tensor(self.values, dtype=key[1], device=key[0])
+        return self._tensors[key]
 
 
 def _flatten_spatial(x: torch.Tensor) -> torch.Tensor:
@@ -116,7 +132,7 @@ def dice_ce_loss(
     jaccard: bool = False,
     lambda_dice: float = 1.0,
     lambda_ce: float = 1.0,
-    ce_weight: Optional[Sequence[float]] = None,
+    ce_weight: Union[Sequence[float], torch.Tensor, None] = None,
     smooth_nr: float = 1e-5,
     smooth_dr: float = 1e-5,
 ) -> torch.Tensor:
@@ -134,7 +150,7 @@ def dice_ce_loss(
 
     w = None
     if ce_weight is not None:
-        w = torch.tensor(list(ce_weight), dtype=logits.dtype, device=logits.device)
+        w = torch.as_tensor(ce_weight, dtype=logits.dtype, device=logits.device)
     dice_kw = dict(include_background=include_background, squared_pred=squared_pred,
                    jaccard=jaccard, smooth_nr=smooth_nr, smooth_dr=smooth_dr)
 
@@ -159,8 +175,9 @@ def dice_ce_loss(
     return lambda_dice * l_dice + lambda_ce * l_ce
 
 
-def make_dice_ce_loss(crit_cfg) -> "partial":
-    """Build a dice_ce_loss closure from a training.criterion config node."""
+def make_dice_ce_loss(crit_cfg) -> Callable:
+    """Build a dice_ce_loss closure from a training.criterion config node.
+    Its ``ce_weight`` tensor is built once per device and dtype."""
     softmax = bool(get_config(crit_cfg, "softmax", False))
     sigmoid = bool(get_config(crit_cfg, "sigmoid", not softmax))
     if softmax and sigmoid:
@@ -170,7 +187,7 @@ def make_dice_ce_loss(crit_cfg) -> "partial":
     ce_weight = get_config(crit_cfg, "ce_weight", None)
     if ce_weight is None:
         ce_weight = get_config(crit_cfg, "weight", None)
-    return partial(
+    loss = partial(
         dice_ce_loss,
         sigmoid=sigmoid,
         softmax=softmax,
@@ -180,21 +197,118 @@ def make_dice_ce_loss(crit_cfg) -> "partial":
         jaccard=bool(get_config(crit_cfg, "jaccard", False)),
         lambda_dice=float(get_config(crit_cfg, "lambda_dice", 1.0)),
         lambda_ce=float(get_config(crit_cfg, "lambda_ce", 1.0)),
-        ce_weight=None if ce_weight is None else [float(x) for x in list(ce_weight)],
     )
+    if ce_weight is None:
+        return loss
+    weight = _Constant([float(x) for x in list(ce_weight)])
+    return lambda logits, target: loss(logits, target, ce_weight=weight.on(logits))
 
 
-def make_criterion(crit_cfg) -> "partial":
+def generalized_wasserstein_dice_loss(
+    logits: torch.Tensor,
+    label: torch.Tensor,
+    distance_matrix,
+    *,
+    background_index: int = 0,
+    smooth: float = 1e-5,
+) -> torch.Tensor:
+    """Generalized Wasserstein Dice Loss (Fidon et al., BrainLes 2017),
+    softmax label-map formulation. With the class-distance matrix ``M``
+    ([C, C], M[l, l] = 0), per voxel ``delta_i = sum_c M[y_i, c] * p_i(c)``,
+    the generalized true positives ``TP = sum_i M[y_i, b] * (M[y_i, b] -
+    delta_i)`` and the loss ``1 - (2 TP + s) / (2 TP + sum_i delta_i + s)``,
+    averaged over the batch. With ``M = 1 - I`` it is foreground soft Dice.
+
+    logits: [B, *spatial, C]; label: [B, *spatial] int class map."""
+    M = torch.as_tensor(distance_matrix, dtype=torch.float32, device=logits.device)
+    if M.dim() != 2 or M.shape[0] != M.shape[1]:
+        raise ValueError(f"distance_matrix must be square, got {tuple(M.shape)}")
+    if logits.shape[-1] != M.shape[0]:
+        raise ValueError(
+            f"distance_matrix is {M.shape[0]}x{M.shape[0]} but logits have "
+            f"{logits.shape[-1]} classes"
+        )
+    p = torch.softmax(logits.float(), dim=-1)
+    y = label.to(torch.int64)
+    delta = (M[y] * p).sum(dim=-1)  # [B, *spatial]
+    gamma = M[y, background_index]  # [B, *spatial]
+    b = logits.shape[0]
+    tp = (gamma * (gamma - delta)).reshape(b, -1).sum(dim=-1)
+    all_error = delta.reshape(b, -1).sum(dim=-1)
+    wasserstein_dice = (2.0 * tp + smooth) / (2.0 * tp + all_error + smooth)
+    return (1.0 - wasserstein_dice).mean()
+
+
+def gwdl_ce_loss(
+    logits: torch.Tensor,
+    label: torch.Tensor,
+    *,
+    distance_matrix,
+    background_index: int = 0,
+    smooth: float = 1e-5,
+    lambda_ce: float = 0.0,
+    ce_weight: Union[Sequence[float], torch.Tensor, None] = None,
+) -> torch.Tensor:
+    """GWDL optionally combined with voxel CE: ``gwdl + lambda_ce * CE``
+    (class-weighted with ``ce_weight``, which keeps a rare class from being
+    abandoned when its transport cost to a neighbour is cheap)."""
+    loss = generalized_wasserstein_dice_loss(
+        logits, label, distance_matrix, background_index=background_index, smooth=smooth)
+    if lambda_ce:
+        w = None if ce_weight is None else torch.as_tensor(ce_weight, dtype=torch.float32,
+                                                           device=logits.device)
+        loss = loss + lambda_ce * softmax_cross_entropy(
+            logits.float(), label.to(torch.int64), class_weight=w)
+    return loss
+
+
+def make_gwdl_loss(crit_cfg) -> Callable:
+    """Build a GWDL closure from ``training.criterion`` with ``name: gwdl``:
+    softmax mode (label maps) and an explicit square ``distance_matrix``
+    with a zero diagonal are required; ``lambda_ce`` (default 0) blends in
+    voxel CE. The matrix and ``ce_weight`` are built once per device."""
+    if bool(get_config(crit_cfg, "sigmoid", False)):
+        raise ValueError(
+            "[criterion/gwdl] GWDL is a softmax label-map loss; set "
+            "criterion.softmax=true (multi-label sigmoid masks have no "
+            "single true class to transport from)"
+        )
+    m = get_config(crit_cfg, "distance_matrix", None)
+    if m is None:
+        raise ValueError(
+            "[criterion/gwdl] training.criterion.distance_matrix is required "
+            "(C x C list, M[l][l]=0) — e.g. uniform 1-I, or a label-tree "
+            "metric grading semantically close classes cheaper"
+        )
+    matrix = [[float(v) for v in row] for row in m]
+    n = len(matrix)
+    if any(len(r) != n for r in matrix) or any(matrix[i][i] != 0.0 for i in range(n)):
+        raise ValueError("[criterion/gwdl] distance_matrix must be square with a zero diagonal")
+    ce_weight = get_config(crit_cfg, "ce_weight", None)
+    loss = partial(
+        gwdl_ce_loss,
+        background_index=int(get_config(crit_cfg, "background_index", 0)),
+        smooth=float(get_config(crit_cfg, "smooth", 1e-5)),
+        lambda_ce=float(get_config(crit_cfg, "lambda_ce", 0.0)),
+    )
+    tables = (_Constant(matrix), None if ce_weight is None else _Constant([float(x) for x in list(ce_weight)]))
+
+    def gwdl(logits, label):
+        m, w = (None if t is None else t.on(logits, torch.float32) for t in tables)
+        return loss(logits, label, distance_matrix=m, ce_weight=w)
+
+    return gwdl
+
+
+def make_criterion(crit_cfg) -> Callable:
     """Dispatch a ``training.criterion`` node to its loss family by
-    ``name`` (default ``dice_ce``). Returns a ``loss(logits, label)``
-    closure. ``gwdl`` (generalized Wasserstein Dice) is not ported yet."""
+    ``name`` (default ``dice_ce``; ``gwdl`` = generalized Wasserstein
+    Dice). Both return a ``loss(logits, label)`` closure."""
     name = str(get_config(crit_cfg, "name", "dice_ce")).lower()
     if name == "dice_ce":
         return make_dice_ce_loss(crit_cfg)
     if name == "gwdl":
-        raise NotImplementedError(
-            "[criterion] gwdl is not ported yet (ROADMAP.md, training slice)"
-        )
+        return make_gwdl_loss(crit_cfg)
     raise ValueError(f"[criterion] unknown criterion name: {name!r} (dice_ce | gwdl)")
 
 

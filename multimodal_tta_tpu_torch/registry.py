@@ -8,9 +8,10 @@ package's so both can be imported in one process (the parity tests do):
     @register_model("unet")
     class UNet3D(nn.Module): ...
 
-It holds the kinds the port fills so far — models, TTA methods and evaluation
-strategies; the reference's other kinds join with the slices that register
-into them.
+It holds the kinds the port has so far — models, TTA methods, evaluation
+strategies and dataset builders (none registered yet: the builders come with
+the data-plumbing slice); the reference's other kinds join with the slices
+that register into them.
 """
 
 from __future__ import annotations
@@ -65,6 +66,7 @@ TTA_METHODS = Registry("tta_methods", auto_import="multimodal_tta_tpu_torch.tta"
 EVALUATION_STRATEGIES = Registry(
     "evaluation_strategies", auto_import="multimodal_tta_tpu_torch.evaluation"
 )
+DATASET_BUILDERS = Registry("dataset_builders", auto_import="multimodal_tta_tpu_torch.data")
 
 
 def register_model(name: str) -> Callable:
@@ -89,3 +91,11 @@ def register_evaluation_strategy(name: str) -> Callable:
 
 def get_evaluation_strategy(name: str) -> Type:
     return EVALUATION_STRATEGIES.get(name)
+
+
+def register_dataset_builder(name: str) -> Callable:
+    return DATASET_BUILDERS.register(name)
+
+
+def get_dataset_builder(name: str) -> Type:
+    return DATASET_BUILDERS.get(name)

@@ -36,6 +36,7 @@ from torch import nn
 
 from .. import DeviceLike, resolve_device
 from ..conf.node import ConfigNode
+from ..models.convert import flax_path
 from ..ops.intensity import make_intensity_normalizer
 from ..ops.losses import entropy_loss
 from ..registry import register_tta_method
@@ -44,16 +45,6 @@ from ..utils.logger import get_logger
 
 _AFFINE = {"scale", "bias"}
 _UNPORTED_EXTRAS = ("modality_dropout", "window", "early_stop", "restore", "reliability", "fisher")
-
-
-def flax_path(name: str) -> str:
-    """The reference's '/'-joined param path of a torch parameter name
-    (``enc0.unit0.conv.weight`` -> ``enc0/unit0/conv/kernel``), which
-    ``update_path_regex`` is matched against."""
-    parts = name.split(".")
-    if parts[-1] == "weight":
-        parts[-1] = "kernel"
-    return "/".join(parts)
 
 
 def norm_param_mask(model: nn.Module) -> Dict[str, bool]:

@@ -22,6 +22,26 @@ def _select(cfg: Any, path: str, default: Any = _MISSING) -> Any:
     return node
 
 
+def require_config(cfg: Any, path: str, type_: Optional[Type] = None) -> Any:
+    value = _select(cfg, path, _MISSING)
+    if value is _MISSING or value is None:
+        raise KeyError(f"Required config '{path}' is missing")
+    if type_ is not None and type_ is not Any:
+        if type_ is ConfigNode and isinstance(value, dict):
+            value = ConfigNode(value)
+        elif type_ in (dict,) and isinstance(value, ConfigNode):
+            value = value.to_container()
+        elif not isinstance(value, type_):
+            # allow int->float promotion
+            if type_ is float and isinstance(value, int):
+                value = float(value)
+            else:
+                raise TypeError(
+                    f"Config '{path}' must be {type_.__name__}, got {type(value).__name__}"
+                )
+    return value
+
+
 def get_config(cfg: Any, path: str, default: Any = None, type_: Optional[Type] = None) -> Any:
     value = _select(cfg, path, _MISSING)
     if value is _MISSING or value is None:

@@ -1,22 +1,26 @@
 #!/usr/bin/env python3
-"""Where the time of the port's Tent serving step, or of one evaluated batch,
-goes on one CUDA card.
+"""Where the time of the port's Tent serving step, of one evaluated batch, or
+of one training step goes on one CUDA card.
 
-    python3 scripts/torch_serving_profile.py [--protocol online|strict|eval] [--batch 2] [--steps 3]
+    python3 scripts/torch_serving_profile.py [--protocol online|strict|eval|train] [--batch 2] [--steps 3]
 
 Builds the flagship UNet3D (channels 32..512, bf16, random weights from a
 seed) as chip_smoke.py does. ``online`` and ``strict`` profile the Tent
 adapt+segment serving step; ``eval`` profiles the evaluation step of one
 batch (forward, Dice/IoU, loss, HD95/ASD/NSD) on synthetic volumes with
-ellipsoid labels. The step is warmed up, timed over ten steps without the
-profiler (and once more without a synchronise, for the host's share), then
-``--steps`` steps run under ``torch.profiler``. Prints: the wall time per step, the device time by
-kernel (top 15), the device time by kind (the fused-InstanceNorm CUDA
-kernels, forward and backward apart, convolutions, the min-plus CUDA kernel,
-sorts, copies, the rest), the kernels launched per step in all and per
-kind (``direct_copy`` kernels on a line of their own, with the calls that
-launch them), and the device busy share (summed kernel time over the
-profiled wall time). The last line is one JSON object with the same
+ellipsoid labels; ``train`` profiles ``SegTrainer.run_step`` with the
+HECKTOR21 training recipe of chip_smoke.py (``train_recipe``: adam, DiceCE,
+bf16) on a device-resident batch with ellipsoid labels (run it with
+``--batch 8``, the recipe's batch). The step is warmed up, timed over ten
+steps without the profiler (and once more without a synchronise, for the
+host's share), then ``--steps`` steps run under ``torch.profiler``. Prints:
+the wall time per step, the device time by kernel (top 15), the device time
+by kind (the fused-InstanceNorm CUDA kernels, forward and backward apart,
+convolutions, the min-plus CUDA kernel, the optimizer's foreach kernels,
+sorts, copies, the rest), the kernels launched per step in all and per kind
+(``direct_copy`` kernels on a line of their own, with the calls that launch
+them), and the device busy share (summed kernel time over the profiled wall
+time). The last line is one JSON object with the same
 numbers. Needs a CUDA card.
 """
 
@@ -37,6 +41,7 @@ CONV_MARKS = ("conv", "cudnn", "xmma", "implicit", "dgrad", "wgrad", "fprop", "n
 
 
 SORT_MARKS = ("sort", "radix")
+OPTIMIZER_MARKS = ("multi_tensor_apply", "adam")  # torch.optim's foreach kernels
 COPY_MARKS = ("memcpy", "copy_kernel", "direct_copy", "memset")
 
 
@@ -48,6 +53,8 @@ def kind(name: str) -> str:
         return "norm_backward"
     if "minplus_edt_kernel" in low or "minplus_matrix_kernel" in low:
         return "minplus_cuda"
+    if any(k in low for k in OPTIMIZER_MARKS):
+        return "optimizer"
     if any(k in low for k in SORT_MARKS):
         return "sort"
     if any(k in low for k in COPY_MARKS):
@@ -57,23 +64,30 @@ def kind(name: str) -> str:
     return "other"
 
 
-def eval_step_fn(torch, dev, model, batch: int):
-    """The evaluation step on one synthetic batch, as chip_smoke.py
-    configures it: ``step(model, x, batch)``-shaped like the serving step."""
+def ellipsoid_labels(torch, dev, batch: int):
+    """uint8 labels [batch, 48, 144, 144, 1] with one ellipsoid each, on the card."""
     import numpy as np
 
-    from chip_smoke import SHAPE, eval_config
-    from multimodal_tta_tpu_torch.conf import ConfigNode
-    from multimodal_tta_tpu_torch.evaluation.seg_eval import SegmentationEvaluationStrategy
+    from chip_smoke import SHAPE
 
-    strategy = SegmentationEvaluationStrategy(ConfigNode(eval_config("none", True)))
     rng = np.random.RandomState(7)
     zz, yy, xx = np.meshgrid(*(np.arange(n) for n in SHAPE[:3]), indexing="ij")
     label = np.stack([
         ((zz - c[0]) / r[0]) ** 2 + ((yy - c[1]) / r[1]) ** 2 + ((xx - c[2]) / r[2]) ** 2 <= 1.0
         for c, r in ((rng.uniform((16, 50, 50), (32, 94, 94)), rng.uniform((4, 10, 10), (10, 30, 30)))
                      for _ in range(batch))])[..., None]
-    label = torch.from_numpy(label.astype(np.uint8)).to(dev)
+    return torch.from_numpy(label.astype(np.uint8)).to(dev)
+
+
+def eval_step_fn(torch, dev, model, batch: int):
+    """The evaluation step on one synthetic batch, as chip_smoke.py
+    configures it: ``step(model, x, batch)``-shaped like the serving step."""
+    from chip_smoke import eval_config
+    from multimodal_tta_tpu_torch.conf import ConfigNode
+    from multimodal_tta_tpu_torch.evaluation.seg_eval import SegmentationEvaluationStrategy
+
+    strategy = SegmentationEvaluationStrategy(ConfigNode(eval_config("none", True)))
+    label = ellipsoid_labels(torch, dev, batch)
 
     def step(model, x, n_valid):
         return strategy._to_host(strategy._eval_step(model, x, label))
@@ -81,9 +95,29 @@ def eval_step_fn(torch, dev, model, batch: int):
     return step
 
 
+def train_step_fn(torch, dev, model, batch: int):
+    """``SegTrainer.run_step`` with chip_smoke.py's training recipe on one
+    device-resident batch (the loss read one step late, as in training)."""
+    from chip_smoke import DEVICE_TRANSFORM, train_recipe
+    from multimodal_tta_tpu_torch.conf import ConfigNode
+    from multimodal_tta_tpu_torch.core.optim import build_optimizer
+    from multimodal_tta_tpu_torch.core.train_state import TrainState
+    from multimodal_tta_tpu_torch.core.trainers.seg_trainer import SegTrainer
+
+    cfg = ConfigNode(train_recipe(""))
+    trainer = SegTrainer(cfg, device_transform=DEVICE_TRANSFORM, device=dev)
+    trainer.setup(TrainState(model=model, optimizer=build_optimizer(cfg.training, model)[0]))
+    label = ellipsoid_labels(torch, dev, batch)
+
+    def step(model, x, n_valid):
+        return trainer.run_step({"image": x, "label": label, "_n_valid": n_valid})
+
+    return step
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--protocol", choices=("online", "strict", "eval"), default="online")
+    ap.add_argument("--protocol", choices=("online", "strict", "eval", "train"), default="online")
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--steps", type=int, default=3)
     args = ap.parse_args()
@@ -110,6 +144,8 @@ def main() -> int:
                       "tta": {"steps": 1, "lr": 1e-3, "momentum": 0.9, "episodic": not online}})
     if args.protocol == "eval":
         step = eval_step_fn(torch, dev, model, args.batch)
+    elif args.protocol == "train":
+        step = train_step_fn(torch, dev, model, args.batch)
     else:
         adapter = TentAdapter(cfg.tta, config=cfg, device_transform=DEVICE_TRANSFORM, device=dev)
         step = adapter.make_adapt_predict_fn(model, threshold=THRESHOLD,

@@ -52,3 +52,37 @@ def to_ncdhw(x: np.ndarray) -> torch.Tensor:
 
 def to_ndhwc(t: torch.Tensor) -> np.ndarray:
     return t.detach().permute(0, 2, 3, 4, 1).float().numpy()
+
+
+# the small UNet3D of the training parity tests: two levels, f32, on
+# [B, 8, 16, 16, 2] volumes
+SMALL = dict(in_channels=2, num_classes=1, channels=(4, 8, 16), strides=(2, 2), num_res_units=2)
+SMALL_SHAPE = (8, 16, 16, 2)
+
+
+def random_flax_params(module, x_shape, seed: int = 0):
+    """Params of a flax module built from its shapes alone (``jax.eval_shape``
+    of ``init``, nothing compiled), filled from a numpy seed: lecun-scaled
+    kernels, norm scales near 1, small nonzero biases."""
+    shapes = jax.eval_shape(
+        lambda: module.init(jax.random.PRNGKey(0), jnp.zeros(x_shape), train=True))["params"]
+    rng = np.random.RandomState(seed)
+
+    def fill(path, leaf):
+        name = str(getattr(path[-1], "key", path[-1]))
+        shape = tuple(leaf.shape)
+        if name == "kernel":
+            a = rng.randn(*shape) / np.sqrt(np.prod(shape[:-1]))
+        elif name == "scale":
+            a = 1.0 + 0.1 * rng.randn(*shape)
+        else:
+            a = 0.1 * rng.randn(*shape)
+        return a.astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+def flat_flax(tree) -> dict:
+    """A flax params-like tree as ``{'/'-joined path: leaf}``."""
+    leaves = jax.tree_util.tree_flatten_with_path(tree)[0]
+    return {"/".join(str(getattr(p, "key", p)) for p in path): leaf for path, leaf in leaves}

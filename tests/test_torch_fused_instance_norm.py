@@ -211,6 +211,42 @@ def test_plan_of_the_path_shapes(shape, arrays):
     _check_plan(pf, 2, S, c, 4, arrays)
 
 
+# the same nine shapes in the training step at the recipe's batch 8: (regime,
+# cluster, chunks per sample) forward and backward, bf16 and f32 alike
+TRAIN_PLANS = {
+    (48, 144, 144, 32): (("streaming", 1, 66), ("streaming", 1, 66)),
+    (24, 72, 72, 32): (("streaming", 1, 66), ("streaming", 1, 66)),
+    (24, 72, 72, 64): (("streaming", 1, 66), ("streaming", 1, 66)),
+    (12, 36, 36, 64): (("resident", 8, 8), ("resident", 8, 8)),
+    (12, 36, 36, 128): (("resident", 8, 8), ("resident", 8, 8)),
+    (6, 18, 18, 128): (("resident", 4, 4), ("resident", 8, 8)),
+    (6, 18, 18, 256): (("resident", 4, 4), ("resident", 8, 8)),
+    (3, 9, 9, 256): (("resident", 1, 1), ("resident", 1, 1)),
+    (3, 9, 9, 512): (("resident", 1, 1), ("resident", 1, 1)),
+}
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("arrays", [1, 2])
+@pytest.mark.parametrize("shape", sorted(TRAIN_PLANS))
+def test_plan_of_the_batch8_training_shapes(shape, arrays, itemsize):
+    """Batch 8: the largest call is [8,48,144,144,32], 509 MB in bf16 and
+    1.02 GB in f32. The streaming grid stays co-resident (528 CTAs, 66 chunks
+    a sample), the resident grid's B axis is 8, and every element offset of
+    the call, across the batch, fits the kernels' 64-bit offsets as well as
+    a 32-bit index (254.8M elements)."""
+    d, h, w, c = shape
+    S, B = d * h * w, 8
+    p = plan(B, S, c, itemsize, arrays=arrays, **CARD)
+    assert (p.regime, p.cluster, p.chunks) == TRAIN_PLANS[shape][arrays - 1]
+    if p.regime == "streaming":  # every streaming call here exceeds the L2: its second walk re-reads HBM
+        assert p.grid == (4 * CARD["sms"],) and p.ws_floats == B * 66 * 2 * c and p.hbm_reads == 2
+    else:  # a resident slice is read once
+        assert p.grid[2] == B and p.hbm_reads == 1
+    assert B * S * c < 2 ** 31 and S * c < 2 ** 31
+    _check_plan(p, B, S, c, itemsize, arrays)
+
+
 @pytest.mark.parametrize("case,kw,want", [
     ("C=48 f32 is a multiple of the 8-channel group", dict(B=1, S=105, C=48, itemsize=4), ("resident", 4, 8)),
     ("C=48 bf16 too", dict(B=2, S=243, C=48, itemsize=2), ("resident", 8, 16)),

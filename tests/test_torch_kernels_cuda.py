@@ -16,6 +16,7 @@ from multimodal_tta_tpu_torch.kernels.edt_minplus import (
     squared_edt_volumes_plain,
 )
 from multimodal_tta_tpu_torch.kernels.fused_instance_norm import (
+    _plain_forward,
     fused_instance_norm,
     instance_norm_backward,
     instance_norm_backward_plain,
@@ -158,6 +159,45 @@ def test_fused_instance_norm_runs_on_the_current_stream():
     assert bool(((dx.float() - want_dx.float()).abs() <= lim).all())
 
 
+# the nine norm shapes of the training step at the recipe's batch 8, with the
+# regime each takes (forward, backward); the first is 509 MB in bf16
+TRAIN_CASES = [((8, 48, 144, 144, 32), "streaming", "streaming"), ((8, 24, 72, 72, 32), "streaming", "streaming"),
+               ((8, 24, 72, 72, 64), "streaming", "streaming"), ((8, 12, 36, 36, 64), "resident", "resident"),
+               ((8, 12, 36, 36, 128), "resident", "resident"), ((8, 6, 18, 18, 128), "resident", "resident"),
+               ((8, 6, 18, 18, 256), "resident", "resident"), ((8, 3, 9, 9, 256), "resident", "resident"),
+               ((8, 3, 9, 9, 512), "resident", "resident")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,fwd,bwd,dtype", [c + (torch.bfloat16,) for c in TRAIN_CASES]
+                         + [TRAIN_CASES[0] + (torch.float32,), TRAIN_CASES[-1] + (torch.float32,)])
+def test_fused_instance_norm_at_the_batch8_training_shapes(shape, fwd, bwd, dtype):
+    """Forward and backward kernels against their plain versions on the same
+    statistics, ReLU on as in the model, every shape in bf16 and the largest
+    (1.02 GB) and the smallest also in f32; the tolerances of the other tests
+    (f32 sums: 1e-4 * max|ref| + 1e-5)."""
+    _need_card()
+    x, gamma, beta, gy = _norm_case(shape, dtype, seed=7)
+    assert plan_for(x).regime == fwd and plan_for(x, backward=True).regime == bwd
+    y, stats = instance_norm_forward(x, gamma, beta, relu=True)
+    want_y, mean, rstd = _plain_forward(x, gamma, beta, 1e-5, True)
+    atol, rtol = TOLS[dtype]
+    assert bool(((y.float() - want_y.float()).abs() <= atol + rtol * want_y.float().abs()).all())
+    del want_y
+    got = instance_norm_backward(gy, x, gamma, beta, stats, relu=True)
+    ref = instance_norm_backward_plain(gy, x, gamma, beta, stats[0], stats[1], True)
+    torch.cuda.synchronize()
+    for name, u, v in zip(("dx", "dgamma", "dbeta"), got, ref):
+        diff = (u.float() - v.float()).abs()
+        vmax = float(v.float().abs().max())
+        if name == "dx" and dtype == torch.bfloat16:
+            assert bool((diff <= 2.0 ** -7 * (vmax + v.float().abs())).all()), name
+        else:
+            assert float(diff.max()) <= 1e-4 * vmax + 1e-5, name
+    assert torch.allclose(stats[0], mean, atol=1e-5, rtol=1e-5)
+    assert torch.allclose(stats[1], rstd, atol=1e-5, rtol=1e-4)
+
+
 @pytest.mark.cuda
 def test_fused_instance_norm_backward_rejects_a_wrong_gradient():
     _need_card()
@@ -233,8 +273,8 @@ def test_minplus_rejects_what_the_kernel_does_not_take():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(1, 48, 144, 144), (4, 48, 144, 144), (3, 5, 7, 13), (2, 20, 31, 155),
-                                   (1, 33, 260, 36), (2, 12, 36, 60), (1, 1, 1, 1)])
+@pytest.mark.parametrize("shape", [(1, 48, 144, 144), (4, 48, 144, 144), (8, 48, 144, 144), (3, 5, 7, 13),
+                                   (2, 20, 31, 155), (1, 33, 260, 36), (2, 12, 36, 60), (1, 1, 1, 1)])
 @pytest.mark.parametrize("spacing", [(3.0, 1.0, 1.0), (0.5, 2.0, 1.25)])
 @pytest.mark.parametrize("sqrt", [False, True])
 def test_squared_edt_volumes_is_bitwise_the_plain_version(shape, spacing, sqrt):
@@ -294,3 +334,78 @@ def test_squared_edt_volumes_rejects_what_the_kernel_does_not_take():
         squared_edt_volumes(pts, (1.0, -1.0, 1.0))
     with pytest.raises(ValueError, match="shared memory"):
         squared_edt_volumes(torch.zeros(1, 2, 2, 4000, dtype=torch.bool, device="cuda"), (1.0, 1.0, 1.0))
+
+
+@pytest.mark.cuda
+def test_seg_trainer_step_runs_the_norm_kernels():
+    """One training step of a small bf16 UNet3D on the card: every norm layer
+    launches its forward and its backward kernel once, the plain backward
+    never runs, the loss is finite and every parameter moves."""
+    _need_card()
+    import numpy as np
+
+    from multimodal_tta_tpu_torch.conf import ConfigNode
+    from multimodal_tta_tpu_torch.core.optim import build_optimizer
+    from multimodal_tta_tpu_torch.core.train_state import TrainState
+    from multimodal_tta_tpu_torch.core.trainers.seg_trainer import SegTrainer
+    from multimodal_tta_tpu_torch.models.layers import InstanceNorm
+    from multimodal_tta_tpu_torch.models.unet3d import UNet3D
+
+    cfg = ConfigNode({"task": {"seed": 0}, "training": {
+        "optimizer": "adam", "optimizers": {"adam": {"lr": 1e-3, "weight_decay": 5e-4}},
+        "criterion": {"sigmoid": True, "lambda_dice": 5.0, "ce_weight": [50.0]}}})
+    model = UNet3D(channels=(16, 32, 64), strides=(2, 2), dtype=torch.bfloat16, device="cuda", seed=0)
+    n_norm = sum(isinstance(m, InstanceNorm) for m in model.modules())
+    trainer = SegTrainer(cfg, device_transform={"normalize": True})
+    trainer.setup(TrainState(model=model, optimizer=build_optimizer(cfg.training, model)[0]))
+    rng = np.random.RandomState(0)
+    batch = {"image": (rng.randn(2, 16, 32, 32, 2) * 100).astype(np.float32),
+             "label": (rng.rand(2, 16, 32, 32, 1) > 0.9).astype(np.float32)}
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    counts = (fused_instance_norm.launches, fused_instance_norm.backward_launches,
+              instance_norm_backward_plain.cuda_calls)
+    trainer.run_step(batch)
+    loss = trainer.flush_step_metrics()["loss"]
+    torch.cuda.synchronize()
+    assert (fused_instance_norm.launches - counts[0], fused_instance_norm.backward_launches - counts[1],
+            instance_norm_backward_plain.cuda_calls - counts[2]) == (n_norm, n_norm, 0)
+    assert np.isfinite(loss)
+    assert all(not torch.equal(p, before[n]) for n, p in model.named_parameters())
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_on_the_card(tmp_path):
+    """A checkpoint of a model and its Adam state on the card restores
+    bitwise into another, each tensor where the live one lives (Adam's step
+    counts on the host), and the restored optimizer steps."""
+    _need_card()
+    from multimodal_tta_tpu_torch.conf import ConfigNode
+    from multimodal_tta_tpu_torch.core.checkpoint import load_checkpoint, save_checkpoint
+    from multimodal_tta_tpu_torch.core.optim import build_optimizer
+    from multimodal_tta_tpu_torch.core.train_state import TrainState
+    from multimodal_tta_tpu_torch.models.unet3d import UNet3D
+
+    training = ConfigNode({"optimizer": "adam", "optimizers": {"adam": {"lr": 1e-3, "weight_decay": 5e-4}}})
+
+    def state(seed):
+        model = UNet3D(channels=(8, 16, 32), strides=(2, 2), device="cuda", seed=seed)
+        return TrainState(model=model, optimizer=build_optimizer(training, model)[0])
+
+    src = state(0)
+    for _ in range(2):
+        for p in src.model.parameters():
+            p.grad = torch.randn_like(p)
+        src.apply_gradients()
+    src.ema_params = {n: p.detach() * 0.5 for n, p in src.model.named_parameters()}
+    save_checkpoint(str(tmp_path / "c"), src, {"epoch": 3})
+    got, meta = load_checkpoint(str(tmp_path / "c"), state(1))
+    assert meta == {"epoch": 3, "_format": "torch"} and got.step == 2
+    for (n, p), q in zip(got.model.named_parameters(), src.model.parameters()):
+        assert p.is_cuda and torch.equal(p, q) and torch.equal(got.ema_params[n], src.ema_params[n])
+    live = [v for st in src.optimizer.state.values() for v in st.values()]
+    back = [v for st in got.optimizer.state.values() for v in st.values()]
+    assert all(u.device == v.device and torch.equal(u, v) for u, v in zip(live, back))
+    for p in got.model.parameters():
+        p.grad = torch.ones_like(p)
+    got.apply_gradients()
+    torch.cuda.synchronize()

@@ -1,8 +1,10 @@
 """Parity of the port's losses (multimodal_tta_tpu_torch/ops/losses.py) with
 the JAX ones. ``entropy_loss``, the Tent objective: value, per-sample value
 (the JAX Tent step's vmap) and gradient, in both focus modes.
-``dice_ce_loss`` and the criterion factories: forward value, 1e-5 relative
-(f32 means over a few hundred voxels in another order)."""
+``dice_ce_loss``, ``generalized_wasserstein_dice_loss`` / ``gwdl_ce_loss``
+and the criterion factories: forward value, 1e-5 relative (f32 means over a
+few hundred voxels in another order), and the gradient against
+``jax.grad``, 1e-4 relative + 1e-9 absolute (the backward of those means)."""
 
 import jax
 import jax.numpy as jnp
@@ -124,8 +126,13 @@ def test_make_criterion(crit):
 
 
 def test_criterion_errors():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlosses.make_criterion(ConfigNode({"name": "gwdl"}))
+    with pytest.raises(ValueError, match="distance_matrix is required"):
+        tlosses.make_criterion(ConfigNode({"name": "gwdl", "softmax": True}))
+    with pytest.raises(ValueError, match="softmax label-map"):
+        tlosses.make_criterion(ConfigNode({"name": "gwdl", "sigmoid": True}))
+    with pytest.raises(ValueError, match="zero diagonal"):
+        tlosses.make_criterion(ConfigNode({"name": "gwdl", "softmax": True,
+                                           "distance_matrix": [[0.0, 1.0], [1.0, 0.5]]}))
     with pytest.raises(ValueError, match="unknown criterion"):
         tlosses.make_criterion(ConfigNode({"name": "focal"}))
     with pytest.raises(ValueError):
@@ -139,3 +146,81 @@ def test_criterion_errors():
         tlosses.dice_ce_loss(x, x, sigmoid=False, softmax=False)
     with pytest.raises(ValueError, match="ndim"):
         tlosses.dice_ce_loss(x, torch.zeros(1, 2), sigmoid=False, softmax=True)
+    with pytest.raises(ValueError, match="3x3 but logits have 2"):
+        tlosses.generalized_wasserstein_dice_loss(x, torch.zeros(1, 2, 2, 2), np.ones((3, 3)) - np.eye(3))
+
+
+def _grad_pair(jax_fn, torch_fn, logits, target):
+    want, want_g = jax.value_and_grad(lambda l: jax_fn(l, jnp.asarray(target)))(jnp.asarray(logits))
+    xt = torch.from_numpy(logits).requires_grad_()
+    got = torch_fn(xt, torch.from_numpy(target))
+    (got_g,) = torch.autograd.grad(got, xt)
+    np.testing.assert_allclose(float(got.detach()), float(want), rtol=1e-5)
+    np.testing.assert_allclose(got_g.numpy(), np.asarray(want_g), rtol=1e-4, atol=1e-9)
+
+
+@pytest.mark.parametrize("case", sorted(DICE_CE_CASES))
+def test_dice_ce_loss_gradient(case):
+    """The training objective's gradient, sigmoid multilabel with ``ce_weight``
+    and softmax, against ``jax.grad``."""
+    kw = DICE_CE_CASES[case]
+    logits, onehot, idx = _seg_inputs(3, seed=5)
+    target = idx if case.startswith("softmax_index") else (
+        np.eye(3, dtype=np.float32)[idx] if case == "softmax_onehot" else onehot)
+    _grad_pair(lambda l, t: jlosses.dice_ce_loss(l, t, **kw),
+               lambda l, t: tlosses.dice_ce_loss(l, t, **kw), logits, target)
+
+
+def test_hecktor21_criterion_gradient():
+    """The recipe's criterion: sigmoid, lambda_dice 5, ce_weight [50], one channel."""
+    crit = {"sigmoid": True, "lambda_dice": 5.0, "lambda_ce": 1.0, "ce_weight": [50.0],
+            "include_background": False}
+    logits, onehot, _ = _seg_inputs(1, seed=6)
+    _grad_pair(jlosses.make_criterion(JaxConfigNode(crit)), tlosses.make_criterion(ConfigNode(crit)),
+               logits, onehot)
+
+
+GWDL_CASES = {
+    "uniform": {"distance_matrix": (np.ones((3, 3)) - np.eye(3)).tolist()},
+    "tree_ce": {"distance_matrix": [[0.0, 1.0, 1.0], [1.0, 0.0, 0.5], [1.0, 0.5, 0.0]], "lambda_ce": 1.0,
+                "ce_weight": [1.0, 2.0, 4.0]},
+    "background_1": {"distance_matrix": [[0.0, 0.7, 1.0], [0.7, 0.0, 0.3], [1.0, 0.3, 0.0]],
+                     "background_index": 1, "lambda_ce": 0.5},
+}
+
+
+@pytest.mark.parametrize("case", sorted(GWDL_CASES))
+def test_gwdl_value_and_gradient(case):
+    crit = dict(GWDL_CASES[case], name="gwdl", softmax=True)
+    logits, _, idx = _seg_inputs(3, seed=7)
+    _grad_pair(jlosses.make_criterion(JaxConfigNode(crit)), tlosses.make_criterion(ConfigNode(crit)),
+               logits, idx)
+
+
+def test_criterion_builds_its_constants_once_per_device(monkeypatch):
+    """A loss called once per sample reuses one ``ce_weight`` / distance-matrix
+    tensor per device and dtype instead of copying it in every call."""
+    table = tlosses._Constant([50.0])
+    x = torch.zeros(1, 2, 2, 2, 1)
+    assert table.on(x) is table.on(x)
+    assert table.on(x, torch.float64) is not table.on(x)
+    assert table.on(x, torch.float64).dtype == torch.float64
+    built = []
+    real = torch.tensor
+
+    def counting_tensor(*args, **kwargs):
+        built.append(args)
+        return real(*args, **kwargs)
+
+    crits = [{"sigmoid": True, "ce_weight": [50.0]},
+             dict(GWDL_CASES["tree_ce"], name="gwdl", softmax=True)]
+    for crit in crits:
+        fn = tlosses.make_criterion(ConfigNode(crit))
+        logits, onehot, idx = _seg_inputs(1 if crit.get("sigmoid") else 3, seed=8)
+        target = torch.from_numpy(onehot if crit.get("sigmoid") else idx)
+        built.clear()
+        monkeypatch.setattr(torch, "tensor", counting_tensor)
+        first = [float(fn(torch.from_numpy(logits), target)) for _ in range(3)]
+        monkeypatch.undo()
+        assert len(built) == (1 if crit.get("sigmoid") else 2), built  # at the first call only
+        assert first[0] == first[1] == first[2]
