@@ -56,8 +56,8 @@ Phases, in order (any failure propagates and exits non-zero):
                metrics (and within those the transform, the sort, the
                surface extraction).
  11. train   — supervised training of the flagship through
-               ``ExperimentManager`` with the HECKTOR21 recipe
-               (``train_recipe``) at batch 8: 2 epochs over 16 synthetic
+               ``ExperimentManager`` with the HECKTOR21 recipe composed from
+               configs/ (``train_recipe``) at batch 8: 2 epochs over 16 synthetic
                volumes with validation (4 volumes, surface metrics on) each
                epoch: every step's loss finite, all 82 param tensors moved, 18
                norm forward and 18 backward kernel launches per step and no
@@ -72,6 +72,18 @@ Phases, in order (any failure propagates and exits non-zero):
                kernel against plain norm: loss and parameter deltas.
  13. train-timing — median ms per warm training step at batch 8,
                volumes/s, ms per validation batch, peak allocated memory.
+ 14. cli     — the command-line entry points as a user runs them
+               (``cli_phase``): a HECKTOR21 fixture of 56 NIfTI cases at
+               (144,144,48) written by the port; ``cli.train`` of the
+               full-width recipe, 2 epochs of 6 steps (enough to spend the
+               input path's 2-batch lead), host loader, then again with
+               ``training.device_cache=true`` (its batches bitwise the host
+               loader's); ``cli.adapt`` (Tent, no-adapt report, surface
+               metrics) from the best checkpoint; ``cli.predict`` (continual
+               Tent, probabilities) writing the 4 test cases: 18 + 18 norm
+               launches per training step, one min-plus launch per evaluated
+               batch, the launches of each call counted exactly, native NIfTI
+               decodes only, masks in their source grid.
 
 Phase 2 also holds the norm kernels against their plain versions at the nine
 norm shapes of the batch-8 training step (the largest, [8,48,144,144,32], in
@@ -155,40 +167,280 @@ def eval_config(method: str, episodic: bool, threshold: float = THRESHOLD) -> di
     }
 
 
+def train_overrides(save_dir: str) -> list:
+    """Phase 11's command-line overrides of the HECKTOR21 recipe: 2 epochs,
+    scheduler poly, validation (surface metrics on) and a checkpoint every
+    epoch, seed 0; the run directory given, so that nothing reads the clock."""
+    return ["task=hecktor21", "dataset=hecktor21", "model=unet", "task.seed=0", f"task.save_dir={save_dir}",
+            f"hydra.run.dir={save_dir}", "training.epochs=2", "training.scheduler.name=poly",
+            "training.model_save_start=0", "training.model_save_freq=1", "training.eval_test.every_n_epochs=1",
+            "evaluation.surface.enable=true", f"evaluation.surface.nsd_tol={NSD_TOL}"]
+
+
 def train_recipe(save_dir: str) -> dict:
-    """The HECKTOR21 training recipe written out: configs/training/default.yaml
-    with configs/_global_patches/hecktor21.yaml (adam lr 1e-5, weight decay
-    5e-4 outside the no-decay groups, betas (0.9, 0.9999); DiceCE with
-    lambda_dice 5, ce_weight [50], sigmoid; bf16 compute, f16 transfer, the
-    intensity policy on the device), with scheduler poly over 2 epochs,
-    validation (surface metrics on) every epoch and a checkpoint every epoch."""
-    return {
-        "task": {"name": "hecktor21", "seed": 0, "eval_strategy": "seg_eval", "deterministic": "practical",
-                 "save_dir": save_dir},
-        "dataset": {"modality_order": ["ct", "pt"]},
-        "model": {"name": "unet", "in_channels": 2, "num_classes": 1, "spatial_dims": 3,
-                  "channels": [32, 64, 128, 256, 512], "strides": [2, 2, 2, 2], "num_res_units": 2,
-                  "norm": "INSTANCE", "act": "RELU", "dropout": 0.0},
-        "training": {
-            "epochs": 2, "batch_size": TRAIN_BATCH, "eval_batch_size": 8, "compute_dtype": "bfloat16",
-            "transfer_dtype": "float16", "grad_accum": 1, "checkpoint_format": "torch",
-            "model_save_start": 0, "model_save_freq": 1,
-            "ema": {"enabled": False, "decay": 0.999, "eval": True},
-            "optimizer": "adam",
-            "optimizers": {"adam": {"lr": 1.0e-5, "weight_decay": 5e-4, "betas": [0.9, 0.9999], "eps": 1.0e-8}},
-            "param_groups": {"no_decay_keys": ["bias", "bn", "norm", "scale"], "treat_1d_as_no_decay": True},
-            "scheduler": {"name": "poly", "args": {"power": 0.9}},
-            "eval_test": {"do_val": True, "do_test": False, "start_epoch": 0, "every_n_epochs": 1,
-                          "run_last": True},
-            "data": {"transforms": {"normalize": True, "on_device": True, "image_size": list(SHAPE[:3]),
-                                    "intensity_policy": HECKTOR_POLICY, "mean": [0.0, 0.0], "std": [1.0, 1.0],
-                                    "geom_aug": False, "intensity_aug": False}},
-            "criterion": {"lambda_dice": 5.0, "lambda_ce": 1.0, "include_background": False,
-                          "squared_pred": False, "jaccard": False, "sigmoid": True, "ce_weight": [50.0]},
-        },
-        "evaluation": {"seg": {"region_order": ["gtvt"], "threshold": THRESHOLD, "spacing": list(SPACING)},
-                       "surface": {"enable": True, "nsd_tol": NSD_TOL}, "loss": {"report_loss": True}},
-    }
+    """The HECKTOR21 training recipe as the port composes it from configs/
+    (configs/training/default.yaml with configs/_global_patches/hecktor21.yaml:
+    adam lr 1e-5, weight decay 5e-4 outside the no-decay groups, betas (0.9,
+    0.9999); DiceCE with lambda_dice 5, ce_weight [50], sigmoid; batch 8, bf16
+    compute, f16 transfer, the intensity policy on the device) with
+    ``train_overrides``."""
+    from multimodal_tta_tpu_torch.conf import compose
+
+    return compose(os.path.join(REPO, "configs"), "config", train_overrides(save_dir)).to_container()
+
+
+# phase 14: a HECKTOR21 fixture at the recipe's shape, (X,Y,Z) on disk; 48
+# training volumes (six steps of batch 8 an epoch: the host loader's steady
+# rate shows once its 2-batch lead is spent), 4 validation, 4 test
+CLI_SHAPE = (144, 144, 48)
+CLI_CENTERS = {"CHUS": 4, "CHUM": 26, "CHGJ": 26}
+CLI_STEPS_PER_EPOCH = 6
+
+
+def cli_overrides(manifest: str, run_dir: str, *extra: str) -> list:
+    """The overrides of every phase-14 CLI call: the full-width recipe of
+    configs/ on the fixture, target centre CHUS, 2 validation volumes per
+    source centre, 2 epochs with validation (surface metrics on) and a
+    checkpoint each epoch."""
+    return ["task=hecktor21", "dataset=hecktor21", "model=unet", f"dataset.manifest_csv={manifest}",
+            "dataset.target_center=CHUS", "dataset.val_per_center=2", "training.epochs=2",
+            "training.model_save_start=0", "training.model_save_freq=1", "training.eval_test.every_n_epochs=1",
+            "evaluation.surface.enable=true", f"task.save_dir={os.path.dirname(run_dir)}",
+            f"hydra.run.dir={run_dir}", *extra]
+
+
+def cli_phase(device, root: str, *, shape=CLI_SHAPE, centers=CLI_CENTERS, extra=(),
+              reset_counts=lambda: None, read_counts=lambda: {}) -> dict:
+    """Phase 14: the port's command-line entry points end to end, as a user
+    runs them: write a HECKTOR21 fixture, train (``cli.train``) with the host
+    loader and again with ``training.device_cache=true``, adapt with Tent from
+    the best checkpoint (``cli.adapt``), export masks (``cli.predict``).
+
+    Checks what holds on any device: the run directories, logs and ``.pt``
+    checkpoints; finite losses; the device cache's batches bitwise the host
+    loader's (order and f16 / uint8 values); the ``tta_metrics.json`` schema
+    and ranges; the model restored after adapt and predict; every case
+    exported with its source's grid and mask == prob >= threshold; every
+    NIfTI decode on the native path. ``read_counts`` (kernel launch counts,
+    zeroed by ``reset_counts`` just before each CLI call) is read per training
+    step and after each call; the caller holds them against what the path
+    must launch. ``extra`` is appended to every CLI call's overrides."""
+    import csv
+    import shutil
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from multimodal_tta_tpu_torch.cli import adapt, predict, train
+    from multimodal_tta_tpu_torch.core.experiment_manager import ExperimentManager
+    from multimodal_tta_tpu_torch.core.trainer_base import HookBase
+    from multimodal_tta_tpu_torch.data import _native, nifti
+    from multimodal_tta_tpu_torch.data.device_cache import DeviceCachedLoader
+    from multimodal_tta_tpu_torch.data.synthetic import make_hecktor_fixture
+
+    dev = torch.device(device)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    shutil.rmtree(root, ignore_errors=True)
+    out: dict = {"device": str(dev)}
+    t0 = time.perf_counter()
+    manifest = make_hecktor_fixture(os.path.join(root, "data"), shape=tuple(shape), centers=dict(centers), seed=7)
+    out["fixture_s"] = time.perf_counter() - t0
+    out["fixture_bytes"] = sum(os.path.getsize(os.path.join(d, n)) for d, _, ns in os.walk(os.path.join(root, "data"))
+                               for n in ns)
+    with open(manifest, newline="", encoding="utf-8") as f:
+        cases = {r["patient_id"]: r for r in csv.DictReader(f)}
+    ct0 = next(iter(cases.values()))["ct_proc"]
+    t0 = time.perf_counter()
+    if not _native.available():  # builds csrc/nifti_native.cpp with g++ into build/native/
+        raise AssertionError(f"the native NIfTI decoder did not build: {_native.build_log()}")
+    out["native_build_s"] = time.perf_counter() - t0
+    decode_ms = {}
+    for path_name, fn in (("native", nifti.load_canonical_dhw),
+                          ("python", lambda p: np.ascontiguousarray(nifti.load_canonical(p).transpose(2, 1, 0)))):
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn(ct0)
+            times.append((time.perf_counter() - t0) * 1e3)
+        decode_ms[path_name] = statistics.median(times)
+    out["decode_ms_per_volume"] = decode_ms
+    nifti.decode_counts.reset()
+
+    managers, recorders = [], []
+
+    class StepRecorder(HookBase):
+        """Per training step: kernel launches, the loss (read one step late by
+        the trainer), the wall since the previous step ended (the first step
+        of an epoch from the epoch's start: the input path's first batch
+        included), and the batch it was given."""
+
+        def __init__(self):
+            self.launches, self.losses, self.ms, self.first, self.batches, self.epoch_s = [], [], [], [], [], []
+
+        def before_train_epoch(self):
+            sync()
+            self._t = self._epoch_t = time.perf_counter()
+            self._first = True
+
+        def on_epoch_end(self, *args):  # registered last: after validation and the checkpoint writes
+            sync()
+            self.epoch_s.append(time.perf_counter() - self._epoch_t)
+
+        def before_train_step(self):
+            self._at = read_counts()
+
+        def after_train_step(self):
+            sync()
+            now = time.perf_counter()
+            self.ms.append((now - self._t) * 1e3)
+            self.first.append(self._first)
+            self._t, self._first = now, False
+            got = read_counts()
+            self.launches.append({k: got[k] - self._at[k] for k in got})
+            self.losses.append(self.trainer._pending_loss)
+
+    orig_setup_optimizer, orig_setup_trainer = ExperimentManager.setup_optimizer, ExperimentManager.setup_trainer
+
+    def setup_optimizer(self):  # every CLI calls it once: the manager it built
+        managers.append(self)
+        return orig_setup_optimizer(self)
+
+    def setup_trainer(self, *args, **kwargs):
+        orig_setup_trainer(self, *args, **kwargs)
+        rec = StepRecorder()
+        self.trainer.register_hooks([rec])
+        run_step = self.trainer.run_step
+
+        def recording_step(batch):
+            rec.batches.append((batch["image"].clone(), batch["label"].clone()))
+            return run_step(batch)
+
+        self.trainer.run_step = recording_step
+        recorders.append(rec)
+
+    def run(cli, name: str, *args: str):
+        """One CLI call from the repository root, its launches counted from 0."""
+        run_dir = os.path.join(root, "runs", name)
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            result = cli.main(cli_overrides(manifest, run_dir, *args, *extra), device=dev)
+            sync()
+        finally:
+            os.chdir(REPO)  # the run moved into its run directory
+        return result, run_dir, time.perf_counter() - t0, read_counts()
+
+    ExperimentManager.setup_optimizer, ExperimentManager.setup_trainer = setup_optimizer, setup_trainer
+    try:
+        runs = {}
+        for name, args in (("train", ()), ("train_device_cache", ("training.device_cache=true",))):
+            history, run_dir, wall, counts = run(train, name, *args)
+            m, rec = managers[-1], recorders[-1]
+            written = sorted(os.listdir(os.path.join(run_dir, "checkpoints")))
+            want = sorted(f"{n}.{e}" for n in ("best_model", "checkpoint_epoch_0", "checkpoint_epoch_1")
+                          for e in ("json", "pt"))
+            if written != want or not os.path.isfile(os.path.join(run_dir, "train.log")):
+                raise AssertionError(f"{name}: checkpoints {written}, run dir {sorted(os.listdir(run_dir))}")
+            losses = [float(v) for v in rec.losses]
+            if not losses or not all(np.isfinite(losses)) or not all(
+                    np.isfinite(h["loss"]) for h in history["train_history"]):
+                raise AssertionError(f"{name}: losses {losses}")
+            n_train = len(m.train_loader.dataset)
+            input_ms = []  # the input path alone, as the trainer consumes it: ms per batch, one epoch
+            for _ in range(2):
+                sync()
+                t0, n = time.perf_counter(), 0
+                for batch in m.trainer._wrap_loader(m.train_loader):
+                    n += 1
+                sync()
+                input_ms.append((time.perf_counter() - t0) * 1e3 / n)
+            del batch
+            starts = [i for i, f in enumerate(rec.first) if f] + [len(rec.ms)]
+            runs[name] = {"wall_s": wall, "steps": len(losses), "steps_per_epoch": len(m.train_loader),
+                          "losses": losses, "step_launches": rec.launches, "launches": counts, "step_ms": rec.ms,
+                          # an epoch's first step also waits for the loader's first batches
+                          "median_step_ms": statistics.median([t for t, f in zip(rec.ms, rec.first) if not f]),
+                          "first_step_ms": [t for t, f in zip(rec.ms, rec.first) if f],
+                          # what an epoch costs a step, its first included: the input path's steady rate
+                          "epoch_ms_per_step": [statistics.fmean(rec.ms[a:b]) for a, b in zip(starts, starts[1:])],
+                          "epoch_s": rec.epoch_s, "input_alone_ms_per_batch": input_ms,
+                          "val_batches": 2 * len(m.val_loader), "train_volumes": n_train,
+                          "val_metrics": [{k: v for k, v in ev.items() if "/" not in k}
+                                          for ev in history["eval_history"]]}
+            if isinstance(m.train_loader, DeviceCachedLoader):
+                runs[name].update(store_bytes=m.train_loader.store_bytes,
+                                  stage_s=m.train_loader.stage_seconds)
+        host, cached = recorders[0].batches, recorders[1].batches
+        same = len(host) == len(cached) > 0 and all(
+            a[0].dtype == b[0].dtype == torch.float16 and torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+            for a, b in zip(host, cached))
+        if not same or not isinstance(managers[1].train_loader, DeviceCachedLoader):
+            raise AssertionError("the device cache's batches are not the host loader's")
+        runs["train_device_cache"]["batches_bitwise_host_loader"] = same
+        del host, cached, recorders[:]
+        out.update(runs)
+        best = os.path.join(root, "runs", "train", "checkpoints", "best_model")
+        source = torch.load(best + ".pt", map_location="cpu", weights_only=True)["model"]
+
+        def restored(m) -> bool:
+            return all(torch.equal(v.cpu(), source[k]) for k, v in m.state.model.state_dict().items())
+
+        results, run_dir, wall, counts = run(adapt, "adapt", "tta=tent", "tta.steps=1", "tta.report_no_adapt=true",
+                                             f"training.resume={best}")
+        with open(os.path.join(run_dir, "tta_metrics.json"), encoding="utf-8") as f:
+            written = json.load(f)
+        if written != json.loads(json.dumps(results)) or set(written) != {"no_adapt", "adapted"}:
+            raise AssertionError(f"tta_metrics.json: {sorted(written)}")
+        for mode, metrics in written.items():
+            if "gtvt_dc" not in metrics or "dom/CHUS/avg_dc" not in metrics or "gtvt_hd95" not in metrics:
+                raise AssertionError(f"{mode}: keys {sorted(metrics)}")
+            for k, v in metrics.items():
+                bounded = k.endswith(("_dc", "_iou", "_nsd")) or k.split("/")[-1] in ("avg_dc", "avg_iou")
+                if not np.isfinite(v) or v < 0 or (bounded and v > 1):
+                    raise AssertionError(f"{mode}: {k} = {v}")
+        test_batches = len(managers[-1].test_loader)
+        out["adapt"] = {"wall_s": wall, "launches": counts, "test_batches": test_batches,
+                        "model_restored": restored(managers[-1]),
+                        "metrics": {mode: {k: v for k, v in m.items() if "/" not in k or k.endswith("avg_dc")}
+                                    for mode, m in written.items()}}
+        if not out["adapt"]["model_restored"]:
+            raise AssertionError("the adapt CLI left the model adapted")
+
+        rows, run_dir, wall, counts = run(predict, "predict", "tta=tent", "tta.episodic=false",
+                                          "predict.save_prob=true", f"training.resume={best}")
+        pred_dir = os.path.join(run_dir, "predictions")
+        with open(os.path.join(pred_dir, "predictions.csv"), newline="", encoding="utf-8") as f:
+            written = list(csv.DictReader(f))
+        threshold = managers[-1].config.evaluation.seg.threshold
+        checked = []
+        for row in written:
+            mask = nifti.load(os.path.join(pred_dir, row["files"]))
+            prob = nifti.load(os.path.join(pred_dir, row["prob_file"]))
+            affine, shape_xyz = nifti.peek_canonical_geometry(cases[row["case_id"]]["ct_proc"])
+            a, p = np.asarray(mask.dataobj), np.asarray(prob.dataobj)
+            checked.append(row["status"] == "ok" and a.dtype == np.uint8 and a.shape == tuple(shape_xyz)
+                           and np.array_equal(mask.affine, affine) and np.array_equal(a, (p >= threshold))
+                           and int(a.sum()) == int(row["voxels_gtvt"]))
+        if len(written) != centers["CHUS"] or len(rows) != len(written) or not all(checked):
+            raise AssertionError(f"predict: {len(written)} rows, checks {checked}")
+        out["predict"] = {"wall_s": wall, "launches": counts, "cases": len(written),
+                          "test_batches": len(managers[-1].test_loader), "model_restored": restored(managers[-1]),
+                          "voxels": [int(r["voxels_gtvt"]) for r in written]}
+        if not out["predict"]["model_restored"]:
+            raise AssertionError("the predict CLI left the model adapted")
+    finally:
+        ExperimentManager.setup_optimizer, ExperimentManager.setup_trainer = orig_setup_optimizer, orig_setup_trainer
+        managers.clear()
+    out["decodes"] = nifti.decode_counts.snapshot()
+    if out["decodes"]["python"] != 0 or out["decodes"]["native"] == 0:
+        raise AssertionError(f"NIfTI decodes by path: {out['decodes']} (the native path only expected)")
+    shutil.rmtree(root, ignore_errors=True)
+    return out
 
 
 def log(msg: str) -> None:
@@ -249,7 +501,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    name = torch.cuda.get_device_name(0)
+    device_name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -1283,6 +1535,62 @@ def main() -> int:
     del run_a, trainer, model, dev_batches
     shutil.rmtree(run_root, ignore_errors=True)
 
+    # ---- 14. the command-line entry points --------------------------------
+    def reset_counts():
+        fused_instance_norm.launches = 0
+        fused_instance_norm.backward_launches = 0
+        minplus.launches = 0
+        instance_norm_backward_plain.cuda_calls = 0
+
+    def read_counts() -> dict:
+        return {"forward": fused_instance_norm.launches, "backward": fused_instance_norm.backward_launches,
+                "minplus": minplus.launches, "plain_backward": instance_norm_backward_plain.cuda_calls}
+
+    t1 = time.perf_counter()
+    torch.cuda.empty_cache()
+    cli = cli_phase(dev, os.path.join(REPO, "build", "chip_smoke_cli"),  # build/ is in .gitignore
+                    reset_counts=reset_counts, read_counts=read_counts)
+    cli_s = time.perf_counter() - t1
+    log(f"[cli] fixture: {sum(CLI_CENTERS.values())} HECKTOR21 cases {CLI_SHAPE} (X,Y,Z) over {CLI_CENTERS}, "
+        f"{cli['fixture_bytes'] / 2**20:.1f} MiB written in {cli['fixture_s']:.2f} s; g++ build of the native "
+        f"decoder {cli['native_build_s']:.2f} s; decode of one CT volume "
+        f"{cli['decode_ms_per_volume']['native']:.2f} ms native, {cli['decode_ms_per_volume']['python']:.2f} ms "
+        f"Python; decodes by path over the phase {cli['decodes']}")
+    for run_name in ("train", "train_device_cache"):
+        r = cli[run_name]
+        log(f"[cli] {run_name}: {r['train_volumes']} volumes, {r['steps']} steps in {r['wall_s']:.2f} s; ms per step "
+            f"(input path included) {[round(t, 2) for t in r['step_ms']]} -> median of the steps after an "
+            f"epoch's first {r['median_step_ms']:.2f}, mean over each epoch's steps "
+            f"{[round(t, 2) for t in r['epoch_ms_per_step']]}; wall per epoch (validation and checkpoints included) "
+            f"{[round(t, 2) for t in r['epoch_s']]} s; the input path alone "
+            f"{[round(t, 2) for t in r['input_alone_ms_per_batch']]} ms per batch; "
+            f"losses {[round(v, 5) for v in r['losses']]}; launches per step {r['step_launches']}; over the "
+            f"run {r['launches']} ({r['val_batches']} validation batches); validation {r['val_metrics']}"
+            + (f"; store {r['store_bytes'] / 2**30:.3f} GiB staged in {r['stage_s']:.2f} s, batches bitwise "
+               f"the host loader's: {r['batches_bitwise_host_loader']}" if "store_bytes" in r else ""))
+        if any(s != {"forward": 18, "backward": 18, "minplus": 0, "plain_backward": 0} for s in r["step_launches"]):
+            raise AssertionError(f"{run_name}: each step must launch 18 norm forward and 18 backward kernels")
+        want = {"forward": 18 * (r["steps"] + r["val_batches"]), "backward": 18 * r["steps"],
+                "minplus": r["val_batches"], "plain_backward": 0}
+        steps = (r["steps_per_epoch"], r["steps"])
+        if r["launches"] != want or steps != (CLI_STEPS_PER_EPOCH, 2 * CLI_STEPS_PER_EPOCH):
+            raise AssertionError(f"{run_name}: launches {r['launches']}, {r['steps']} steps")
+    for run_name, fwd_per_batch, bwd_per_batch, minplus_per_batch in (("adapt", 3, 1, 2), ("predict", 2, 1, 0)):
+        r = cli[run_name]
+        log(f"[cli] {run_name}: {r['wall_s']:.2f} s, {r['test_batches']} test batches, launches {r['launches']}, "
+            f"model restored {r['model_restored']}; " + (
+                f"metrics {r['metrics']}" if run_name == "adapt"
+                else f"{r['cases']} cases written, foreground voxels {r['voxels']}"))
+        b = r["test_batches"]
+        if r["launches"] != {"forward": 18 * fwd_per_batch * b, "backward": 18 * bwd_per_batch * b,
+                             "minplus": minplus_per_batch * b, "plain_backward": 0}:
+            raise AssertionError(f"{run_name}: launches {r['launches']}")
+    cli_launches = {k: sum(cli[n]["launches"][k] for n in ("train", "train_device_cache", "adapt", "predict"))
+                    for k in ("forward", "backward", "minplus")}
+    cli["launches"] = cli_launches
+    cli["card"] = smi
+    log(f"[cli] phase 14 took {cli_s:.1f} s; launches over the CLI runs {cli_launches}; card {smi}")
+
     def norm_summary(name: str, tot: dict, train_tot: dict, n_launches: dict, err: float, extra: dict) -> dict:
         return {
             "name": name,
@@ -1304,18 +1612,19 @@ def main() -> int:
         }
 
     summary = norm_summary("fused_instance_norm", totals, norm_totals[TRAIN_BATCH][0],
-                           {**launches, **norm_eval_launches, "train": train_launches["forward"]}, max_abs_err, {})
+                           {**launches, **norm_eval_launches, "train": train_launches["forward"],
+                            "cli": cli_launches["forward"]}, max_abs_err, {})
     backward_summary = norm_summary(
         "fused_instance_norm_backward", btotals, norm_totals[TRAIN_BATCH][1],
-        {**backward_launches, "train": train_launches["backward"]}, backward_err,
+        {**backward_launches, "train": train_launches["backward"], "cli": cli_launches["backward"]}, backward_err,
         {"note": "the gradient of the TPU kernel's function; dx computed in all 18 timed calls"})
     minplus_summary = {
         "name": "minplus",
         "route": "cuda",
         "source": "multimodal_tta_tpu_torch/csrc/edt_minplus.cu",
         "replaces": "multimodal_tta_tpu/pallas/edt_minplus.py:52",
-        "launches": sum(eval_launches.values()) + train_launches["minplus"],
-        "launches_by_path": {**eval_launches, "train": train_launches["minplus"]},
+        "launches": sum(eval_launches.values()) + train_launches["minplus"] + cli_launches["minplus"],
+        "launches_by_path": {**eval_launches, "train": train_launches["minplus"], "cli": cli_launches["minplus"]},
         "max_abs_err": minplus_err,
         "ms": edt_ms,
         "plain_ms": edt_plain_ms,
@@ -1333,9 +1642,9 @@ def main() -> int:
     log(json.dumps({"serving": serving, "forward_ms": fwd_ms, "forward_plain_norm_ms": fwd_plain_ms,
                     "eval_ms_per_batch": eval_ms, "eval_warm_ms_per_batch": eval_warm_ms,
                     "eval_batch_split_ms": split,
-                    "eval_metrics": eval_runs, "training": training}))
+                    "eval_metrics": eval_runs, "training": training, "cli": cli}))
     log(json.dumps({"kernels": [summary, backward_summary, minplus_summary]}))
-    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                             "count": torch.cuda.device_count()}}))
     return 0
 

@@ -8,11 +8,13 @@ device; the optimizer is ``torch.optim`` with the reference's no-decay
 param groups; seeding returns a ``torch.Generator``. There is no mesh and no
 distributed launch yet (ROADMAP.md, parallel slice).
 
-Data: ``setup_data`` goes through the dataset-builder registry, where no
-builder is registered yet (ROADMAP.md item 9). Until then a caller hands in
-loaders by setting ``train_loader`` / ``val_loader`` / ``test_loader``, and
-the train step's on-device transform by setting ``device_transform`` (a
-``SegTransform.device_spec()``), before ``setup_trainer``.
+Data: ``setup_data`` goes through the dataset-builder registry (the
+HECKTOR21 and BraTS builders of ``data/``), with ``training.device_cache``
+staging the training set on the device (``data/device_cache.py``). A caller
+may instead hand in loaders by setting ``train_loader`` / ``val_loader`` /
+``test_loader``, and the train step's on-device transform by setting
+``device_transform`` (a ``SegTransform.device_spec()``), before
+``setup_trainer``.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import torch
 
 from .. import DeviceLike, resolve_device
 from ..conf.node import ConfigNode
-from ..registry import get_dataset_builder, get_evaluation_strategy, get_model
+from ..registry import get_dataset_builder, get_evaluation_strategy, get_model, list_dataset_builders
 from ..utils.config import get_config, require_config
 from ..utils.logger import get_logger
 from ..utils.metrics import set_random_seed
@@ -106,21 +108,39 @@ class ExperimentManager:
                 builder_cls = get_dataset_builder("default")
             except KeyError:
                 raise KeyError(
-                    f"no dataset builder is registered for task '{self.task_name}' (the port has "
-                    "none yet: ROADMAP.md item 9); hand in loaders by setting "
-                    "train_loader/val_loader/test_loader") from None
+                    f"no dataset builder is registered for task '{self.task_name}' (and no 'default' "
+                    f"builder); registered: {list_dataset_builders()}") from None
         return builder_cls(self.config)
+
+    def build_clean_dataset(self, split: str = "train"):
+        return self.get_dataset_builder_for_task().get_dataset(split)
 
     def setup_train_data(self):
         builder = self.get_dataset_builder_for_task()
-        if bool(get_config(self.config, "training.device_cache", False)):
-            raise NotImplementedError(
-                "training.device_cache is not ported yet (ROADMAP.md item 9)")
 
         train_ds = builder.get_dataset("train")
         val_ds = builder.get_dataset("val")
         test_ds = builder.get_dataset("test")
-        self.train_loader = builder.get_loader("train", dataset=train_ds)
+
+        if bool(get_config(self.config, "training.device_cache", False)):
+            # decode once, stage the whole training set on the device, gather
+            # batches there — removes per-step decode + H2D entirely
+            from ..data.device_cache import DeviceCachedLoader
+
+            args = builder.default_loader_args("train")
+            self.train_loader = DeviceCachedLoader(
+                train_ds,
+                batch_size=args["batch_size"],
+                shuffle=args["shuffle"],
+                drop_last=args["drop_last"],
+                seed=args["seed"],
+                device=self.device,
+                num_workers=args["num_workers"],
+                shard_store=bool(get_config(self.config, "training.device_cache_sharded", False)),
+                logger=self.logger,
+            )
+        else:
+            self.train_loader = builder.get_loader("train", dataset=train_ds)
         if val_ds is None or len(val_ds) == 0:
             self.val_loader = None
             self.logger.warning("val dataset is empty; skip validation.")

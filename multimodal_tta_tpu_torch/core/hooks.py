@@ -14,6 +14,7 @@ from typing import Dict, Optional
 
 import torch
 
+from ..utils.logger import get_logger
 from .checkpoint import load_checkpoint, save_checkpoint
 from .trainer_base import HookBase
 
@@ -38,15 +39,23 @@ class CheckpointHook(HookBase):
     """Periodic + best-on-val checkpointing.
 
     State saved: epoch, TrainState (model, optimizer, step, EMA shadow),
-    scheduler state, best_metrics. ``fmt`` is ``"torch"``; the reference's
-    msgpack and orbax formats are not ported (ROADMAP.md)."""
+    scheduler state, best_metrics. ``fmt`` is ``"torch"``. ``"msgpack"``,
+    the reference's single-file format and the stock configs' choice
+    (``configs/training/default.yaml``), writes the port's single-file
+    ``.pt`` format instead, and says so once; the sharded orbax format is
+    not ported (ROADMAP.md)."""
 
     def __init__(self, save_dir: str, save_freq: int = 1, save_start: int = 10, fmt: str = "torch"):
         self.save_dir = save_dir
         self.save_freq = int(save_freq)
         self.save_start = int(save_start)
         fmt = str(fmt).lower()
-        if fmt in ("msgpack", "orbax", "sharded"):
+        if fmt == "msgpack":
+            get_logger().info(
+                "[CheckpointHook] training.checkpoint_format=msgpack: the port writes its "
+                "single-file .pt format (path.pt + path.json) in its place")
+            fmt = "torch"
+        if fmt in ("orbax", "sharded"):
             raise NotImplementedError(
                 f"[CheckpointHook] the {fmt} checkpoint format is not ported "
                 "(ROADMAP.md, training slice left-overs); use training.checkpoint_format=torch")

@@ -202,20 +202,30 @@ def test_manager_defaults_to_cuda_and_raises_what_is_not_ported(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             ExperimentManager(ConfigNode(cfg))
-    m = ExperimentManager(ConfigNode(cfg), device="cpu")
-    with pytest.raises(KeyError, match="ROADMAP.md item 9"):
+    unregistered = dict(cfg, task=dict(cfg["task"], name="seg_unregistered"))
+    m = ExperimentManager(ConfigNode(unregistered), device="cpu")
+    with pytest.raises(KeyError, match="no dataset builder is registered for task 'seg_unregistered'"):
         m.setup_data("train")
     with pytest.raises(ValueError, match="Model must be setup"):
         m.setup_optimizer()
     for patch in ({"model": dict(cfg["model"], pretrained=True)},
                   {"training": dict(cfg["training"], profile={"enabled": True})},
-                  {"training": dict(cfg["training"], checkpoint_format="msgpack")},
+                  {"training": dict(cfg["training"], checkpoint_format="orbax")},
                   {"training": dict(cfg["training"], debug_nans=True)}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             m = ExperimentManager(ConfigNode(dict(cfg, **patch)), device="cpu")
             m.setup_model()
             m.setup_optimizer()
             m.setup_trainer()
+    # the stock configs' msgpack (the reference's single-file format) writes
+    # the port's single-file .pt format
+    m = ExperimentManager(ConfigNode(dict(cfg, training=dict(cfg["training"], checkpoint_format="msgpack"))),
+                          device="cpu")
+    m.setup_model()
+    m.setup_optimizer()
+    m.setup_trainer()
+    m.checkpoint_hook.save(0, is_best=False)
+    assert sorted(os.listdir(m.checkpoint_hook.save_dir)) == ["checkpoint_epoch_0.json", "checkpoint_epoch_0.pt"]
 
 
 def test_foreign_and_missing_checkpoints(tmp_path):

@@ -324,14 +324,16 @@ def test_registry_and_cuda_default(monkeypatch):
 
 
 def test_port_imports_nothing_of_jax():
-    """No module of the port and not chip_smoke.py imports jax, flax, optax,
-    tqdm, pandas or the JAX package."""
+    """No module of the port (its CLIs included) and not chip_smoke.py imports
+    jax, flax, optax, yaml, tqdm, pandas or the JAX package."""
     banned = re.compile(
-        r"^\s*(?:import|from)\s+(jax|flax|optax|tqdm|pandas|multimodal_tta_tpu)(?![\w])", re.M)
+        r"^\s*(?:import|from)\s+(jax|flax|optax|yaml|tqdm|pandas|multimodal_tta_tpu)(?![\w])", re.M)
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(os.path.join(REPO, "multimodal_tta_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
+    assert {"train.py", "adapt.py", "predict.py"} <= {
+        os.path.basename(f) for f in files if os.path.basename(os.path.dirname(f)) == "cli"}
     for path in files:
         with open(path) as fh:
             hits = banned.findall(fh.read())
