@@ -84,10 +84,32 @@ Phases, in order (any failure propagates and exits non-zero):
                launches per training step, one min-plus launch per evaluated
                batch, the launches of each call counted exactly, native NIfTI
                decodes only, masks in their source grid.
+ 15. tta     — every TTA method on phase 11's trained flagship (bf16, full
+               width), each stock configs/tta/*.yaml composed into the
+               HECKTOR21 recipe (``tta_phase``): tent, continual, pl, eata,
+               eata_gate, sar, cotta, cotta_restore, memo and norm, plus SAR
+               and EATA with their entropy gates open, SAR with a recovery
+               floor that resets it (each reset against the one the traces
+               derive), Tent with 4 windows of [32,96,96] and Tent with the
+               consistency objective, modality dropout and an early-stop
+               floor of 0.999 (a batch frozen at its second step) and Tent
+               frozen at every batch's first step (a no-grad tail), each through
+               ``TTAEngine.evaluate`` over 4 batches of [2,48,144,144,2]
+               (surface metrics on): finite metrics, the model bitwise its
+               source afterwards, the norm launches exactly as the step
+               structure derives them (``expected_tta_launches``) and one
+               min-plus launch per batch, ms per batch; the peak memory of a
+               MEMO step (4 views) against a Tent step (at most 1.5x); f32 SAR
+               and MEMO steps at full width, kernel vs plain norm; the stream
+               through ``cli.adapt`` on phase 14's fixture and checkpoint
+               (``stream_phase``): Tent over two centres with
+               reset_on_domain_change and the guard, then eata_gate with the
+               entropy gate at a probed ``gate.threshold`` (escalates and drops
+               back), launches counted exactly.
 
 Phase 2 also holds the norm kernels against their plain versions at the nine
 norm shapes of the batch-8 training step (the largest, [8,48,144,144,32], in
-bf16 and f32).
+bf16 and f32) and at the nine shapes of windowed Tent's 4 windows.
 
 The line before the last is the kernel summary ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``. Weights and data are random,
@@ -97,6 +119,7 @@ made from fixed seeds. The script imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
@@ -135,6 +158,8 @@ BATCH = 2
 TRAIN_BATCH = 8  # the training recipe's batch (configs/training/default.yaml)
 THRESHOLD = 0.3
 SPACING = (3.0, 1.0, 1.0)  # HECKTOR21, mm
+WINDOWS, WINDOW_ROI = 4, (32, 96, 96)  # configs/tta/tent.yaml window: windows_per_step, roi_size
+TTA_BATCHES = 4  # phase 15: batches per run (EATA's Fisher window is 4)
 NSD_TOL = 2.0
 DOMAINS = (["CHUM", "CHGJ"], ["CHGJ", "CHGJ"], ["CHUM", "CHUM"])
 EDT_REL_TOL = 1e-5  # squared EDT vs scipy: f32 sums of squares against f64
@@ -224,7 +249,10 @@ def cli_phase(device, root: str, *, shape=CLI_SHAPE, centers=CLI_CENTERS, extra=
     NIfTI decode on the native path. ``read_counts`` (kernel launch counts,
     zeroed by ``reset_counts`` just before each CLI call) is read per training
     step and after each call; the caller holds them against what the path
-    must launch. ``extra`` is appended to every CLI call's overrides."""
+    must launch. ``extra`` is appended to every CLI call's overrides. The
+    fixture and the runs stay under ``root`` (``out["manifest"]``,
+    ``out["best"]``: phase 15's stream runs on them); the caller removes
+    it."""
     import csv
     import shutil
     import statistics
@@ -385,6 +413,7 @@ def cli_phase(device, root: str, *, shape=CLI_SHAPE, centers=CLI_CENTERS, extra=
         del host, cached, recorders[:]
         out.update(runs)
         best = os.path.join(root, "runs", "train", "checkpoints", "best_model")
+        out.update(manifest=manifest, best=best)
         source = torch.load(best + ".pt", map_location="cpu", weights_only=True)["model"]
 
         def restored(m) -> bool:
@@ -439,7 +468,294 @@ def cli_phase(device, root: str, *, shape=CLI_SHAPE, centers=CLI_CENTERS, extra=
     out["decodes"] = nifti.decode_counts.snapshot()
     if out["decodes"]["python"] != 0 or out["decodes"]["native"] == 0:
         raise AssertionError(f"NIfTI decodes by path: {out['decodes']} (the native path only expected)")
-    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+# phase 15: every stock TTA config (configs/tta/*.yaml, "none" apart), SAR
+# and EATA with their entropy gates open, and the Tent variants of the
+# extras, each through TTAEngine.evaluate
+TTA_RUNS = [(name, [f"tta={name}"]) for name in
+            ("tent", "continual", "pl", "eata", "eata_gate", "sar", "cotta", "cotta_restore", "memo", "norm")] + [
+    # phase 11's weights are so uncertain that the stock 0.4 ln 2 entropy
+    # gates of SAR and EATA pass no sample: these two let every sample in
+    ("sar_all_reliable", ["tta=sar", "tta.margin_ratio=1.0"]),
+    ("eata_all_reliable", ["tta=eata", "tta.reliability.margin_ratio=1.0"]),
+    # SAR's recovery floor above these weights' entropy (0.91 H_max): em
+    # falls below it at every step, so each step snaps back to source
+    ("sar_recovery_reset", ["tta=sar", "tta.margin_ratio=1.0", "tta.reset_floor_ratio=0.95"]),
+    ("tent_window", ["tta=tent", "tta.window.enabled=true"]),
+    # the stock floor (0.3 of the first step's entropy) is out of reach of
+    # two steps here; 0.999 freezes a batch whose second step lowers it
+    ("tent_consistency_early_stop_dropout", ["tta=tent", "tta.steps=2", "tta.loss=entropy+consistency",
+                                             "tta.early_stop.enabled=true", "tta.early_stop.entropy_floor_ratio=0.999",
+                                             "tta.modality_dropout.enabled=true"]),
+    # a floor above the first step's entropy freezes every batch at its
+    # first step: the second is the frozen tail's no-grad forward
+    ("tent_early_stop_frozen_tail", ["tta=tent", "tta.steps=2", "tta.early_stop.enabled=true",
+                                     "tta.early_stop.entropy_floor_ratio=1.5"]),
+]
+
+
+def tta_overrides(*extra: str) -> list:
+    """The HECKTOR21 recipe of configs/ with surface metrics on, then ``extra``."""
+    return ["task=hecktor21", "dataset=hecktor21", "model=unet", "evaluation.surface.enable=true",
+            f"evaluation.surface.nsd_tol={NSD_TOL}", *extra]
+
+
+def active_steps(adapter, trace) -> int:
+    """How many of a batch's steps updated the params: all, unless Tent's
+    early stop froze the batch at the first step below its floor (relative to
+    the first step's entropy in ``TTAEngine.evaluate``, which passes none)."""
+    if not getattr(adapter, "early_stop", False):
+        return len(trace)
+    floor = adapter.early_stop_ratio * trace[0]
+    for i, e in enumerate(trace):
+        if not e >= floor:
+            return i
+    return len(trace)
+
+
+def sar_resets(adapter, traces, n_classes: int = 2) -> list:
+    """SAR's recovery resets per batch, derived from the step monitors in
+    ``traces``: the EMA ``em`` (NaN-started, carried across batches unless
+    episodic) snaps back to source, and to NaN, when it falls below
+    ``reset_floor_ratio * H_max``."""
+    h_max = math.log(2.0 if adapter.sigmoid_mode else n_classes)
+    em, out = float("nan"), []
+    for trace in traces:
+        if adapter.episodic:
+            em = float("nan")
+        n = 0
+        for mon in trace:
+            em = mon if em != em else adapter.reset_alpha * em + (1.0 - adapter.reset_alpha) * mon
+            if em < adapter.reset_floor_ratio * h_max:
+                em, n = float("nan"), n + 1
+        out.append(n)
+    return out
+
+
+def expected_tta_launches(adapter, n_batches: int, traces, per_forward: int = 18) -> tuple:
+    """(forward, backward) norm kernel launches of ``TTAEngine.evaluate``
+    over ``n_batches`` batches whose entropy traces are ``traces``, derived from the
+    reference's step structure: each batch's evaluation forward, plus per
+    adaptation step
+      - Tent engine (tent, pl, eata): one forward and one backward, two of
+        each with ``+consistency`` (a frozen early-stop step forwards without
+        a backward); the Fisher estimate one of each on its first batches;
+      - sar: two forwards and two backwards (the SAM ascent and descent);
+      - cotta: ``n_views`` teacher forwards and the student's forward and
+        backward;
+      - memo: ``n_views`` forwards for the marginal, then one forward and one
+        backward per view;
+      - norm (no batch statistics): nothing."""
+    f = per_forward
+    fwd = bwd = 0
+    for i in range(n_batches):
+        trace = traces[i] if i < len(traces) else []
+        fwd += f
+        method = getattr(adapter, "method", "none")
+        if method in ("none", "norm"):
+            continue
+        k = adapter.steps
+        if method == "sar":
+            fwd, bwd = fwd + 2 * f * k, bwd + 2 * f * k
+        elif method == "cotta":
+            fwd, bwd = fwd + (adapter.n_views + 1) * f * k, bwd + f * k
+        elif method == "memo":
+            fwd, bwd = fwd + 2 * adapter.n_views * f * k, bwd + adapter.n_views * f * k
+        else:
+            per = 2 if adapter.loss_mode.endswith("+consistency") else 1
+            fwd, bwd = fwd + per * f * k, bwd + per * f * active_steps(adapter, trace)
+            if adapter.fisher_enabled and i < adapter.fisher_batches:
+                fwd, bwd = fwd + f, bwd + f
+    return fwd, bwd
+
+
+# phase 15's streams through cli.adapt on phase 14's fixture: the test cases
+# of two centres in order; the forwards and backwards of one adapted batch
+# of each stock config as it serves there (tent.yaml: one step and a
+# post-update forward; eata_gate.yaml: four steps, inline predictions)
+STREAM_ORDER = ("CHUS", "CHGJ")
+STREAM_RUNS = {
+    "stream_tent": (["tta=tent", "tta.episodic=false", "tta.stream.policy=reset_on_domain_change",
+                     "tta.stream.guard=true"], (2, 1)),
+    "stream_eata_gate": (["tta=eata_gate", "tta.stream.policy=continual", "tta.stream.guard=true",
+                          "tta.stream.gate.enabled=true", "tta.stream.periodic_reanchor_every=1"], (4, 4)),
+}
+
+
+def gate_probe(device, manifest: str, best: str, root: str, args, extra=()) -> list:
+    """The plain (gate) entropy of each stream batch at the source model, as
+    the gate's forward path computes it; not a CLI call, not counted."""
+    import torch
+
+    from multimodal_tta_tpu_torch.cli import CONFIG_DIR
+    from multimodal_tta_tpu_torch.cli.adapt import load_serving_state
+    from multimodal_tta_tpu_torch.conf import compose
+    from multimodal_tta_tpu_torch.core.experiment_manager import ExperimentManager
+    from multimodal_tta_tpu_torch.tta.engine import TTAEngine
+    from multimodal_tta_tpu_torch.utils.logger import get_logger
+
+    cfg = compose(CONFIG_DIR, "config", cli_overrides(manifest, os.path.join(root, "probe"), *args,
+                                                      f"training.resume={best}", *extra))
+    m = ExperimentManager(cfg, device=torch.device(device))
+    m.setup_model()
+    m.setup_test_data()
+    m.setup_optimizer()
+    load_serving_state(m, cfg, get_logger(), "probing")
+    builder = m._builder
+    engine = TTAEngine(cfg, device_transform=builder.build_transform("test").device_spec(), device=torch.device(device))
+    fp = engine.adapter.make_forward_predict_fn(m.state.model, float(cfg.evaluation.seg.threshold))
+    return [fp(m.state.model, torch.as_tensor(b["image"]), int(b.get("_n_valid", len(b["image"]))))[2]
+            for dom in STREAM_ORDER for b in builder.get_loader("test", target_center=dom)]
+
+
+def stream_phase(device, manifest: str, best: str, root: str, *, extra=(), reset_counts=lambda: None,
+                 read_counts=lambda: {}, per_forward: int = 18) -> dict:
+    """Phase 15's streams: ``cli.adapt`` with ``tta.stream.enabled=true`` over
+    the test cases of ``STREAM_ORDER`` (``tta.stream.domain_order``), from
+    ``best``: Tent continual with ``reset_on_domain_change`` and the guard
+    (a re-anchor at the centre change at least), then ``eata_gate`` with the
+    entropy gate on. The gate takes an absolute ``gate.threshold``, the
+    midpoint of the stream's lowest and highest gate entropy at the source
+    (``gate_probe``), so that the first batch above it escalates; the
+    re-anchor after every adapted batch drops back to forward mode.
+
+    Checks what holds on any device: the ``tta_metrics.json`` schema, a
+    re-anchor, the gate's escalation and drop back, the model restored.
+    Per run: the metrics, the launch counts, the wall time, and the launches
+    the run must make (``STREAM_RUNS`` per adapted batch and one forward per
+    forward-mode probe, ``per_forward`` norm calls each)."""
+    import torch
+
+    from multimodal_tta_tpu_torch.cli import adapt
+
+    dev = torch.device(device)
+    order = "[" + ",".join(STREAM_ORDER) + "]"
+    out = {}
+    for name, (args, per_adapt) in STREAM_RUNS.items():
+        args = list(args) + ["tta.stream.enabled=true", f"tta.stream.domain_order={order}"]
+        if "tta.stream.gate.enabled=true" in args:
+            gates = gate_probe(device, manifest, best, root, args, extra)
+            args.append(f"tta.stream.gate.threshold={0.5 * (min(gates) + max(gates))!r}")
+        run_dir = os.path.join(root, "runs", name)
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            results = adapt.main(cli_overrides(manifest, run_dir, *args, f"training.resume={best}", *extra),
+                                 device=dev)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        finally:
+            os.chdir(REPO)  # the run moved into its run directory
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        with open(os.path.join(run_dir, "tta_metrics.json"), encoding="utf-8") as f:
+            written = json.load(f)
+        m = written["adapted"]
+        if written != json.loads(json.dumps(results)) or set(written) != {"adapted"}:
+            raise AssertionError(f"{name}: tta_metrics.json {sorted(written)}")
+        doms = [p["domain"] for p in m["positions"]]
+        if sorted(set(doms)) != sorted(STREAM_ORDER) or doms != sorted(doms, key=list(STREAM_ORDER).index):
+            raise AssertionError(f"{name}: stream order {doms}")
+        n = len(m["positions"])
+        if "gate/forward_batches" in m:
+            probes = m["gate/forward_batches"] + len(m["gate/escalations"])
+            adapted = m["gate/adapt_batches"]
+            if not m["gate/escalations"] or m["reanchors"] < 1:
+                # each re-anchor drops the gate back to forward mode
+                raise AssertionError(f"{name}: the gate must escalate and drop back: {m['gate/escalations']}, "
+                                     f"{m['reanchors']} re-anchors")
+            out[name] = {"gate_threshold": float(args[-1].split("=")[1]), "gate_probe": gates}
+        else:
+            probes, adapted = 0, n
+            if m["reanchors"] < 1:
+                raise AssertionError(f"{name}: no re-anchor at the centre change")
+        want = {"forward": per_forward * (probes + per_adapt[0] * adapted),
+                "backward": per_forward * per_adapt[1] * adapted}
+        out.setdefault(name, {}).update(metrics=m, launches=counts, want=want, wall_s=wall, batches=n)
+    return out
+
+
+def tta_phase(device, model, batches, *, runs=TTA_RUNS, extra=(), reset_counts=lambda: None,
+              read_counts=lambda: {}) -> dict:
+    """Phase 15: every TTA method of the port through ``TTAEngine.evaluate``
+    on ``model`` over ``batches`` (dicts of image, label, domain), with the
+    stock configs of configs/tta/ composed into the HECKTOR21 recipe.
+
+    Checks what holds on any device: every metric finite, the model bitwise
+    its source after each run, what each method carries reset. Per run it
+    returns the metrics, the kernel launch counts (``read_counts`` after
+    ``reset_counts`` just before the run), the adapter, each batch's entropy
+    trace, its writes of the source values into the adapted params inside
+    the adaptation (``source_copies``: SAR's recovery resets, plus the
+    episodic reset) and wall time (a synchronise after each evaluated
+    batch)."""
+    import numpy as np
+    import torch
+
+    from multimodal_tta_tpu_torch.conf import compose
+    from multimodal_tta_tpu_torch.tta.engine import TTAEngine
+
+    dev = torch.device(device)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    source = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    out = {}
+    for tag, overrides in runs:
+        cfg = compose(os.path.join(REPO, "configs"), "config", tta_overrides(*overrides, *extra))
+        engine = TTAEngine(cfg, device_transform=DEVICE_TRANSFORM, device=dev)
+        adapter, strategy = engine.adapter, engine.strategy
+        traces, marks, copies = [], [], []
+        if hasattr(adapter, "_adapt"):
+            adapt, copy_source, n_copies = adapter._adapt, adapter._copy_source, [0]
+
+            def counting(_copy=copy_source, _n=n_copies):
+                _n[0] += 1
+                _copy()
+
+            def recording(*args, _adapt=adapt, _ad=adapter, _n=n_copies, **kwargs):
+                before = _n[0]
+                result = _adapt(*args, **kwargs)
+                traces.append(_ad._last_ents.tolist())
+                copies.append(_n[0] - before)
+                return result
+
+            adapter._copy_source, adapter._adapt = counting, recording
+        eval_step = strategy._eval_step
+
+        def timed(*args, _step=eval_step, **kwargs):
+            result = _step(*args, **kwargs)
+            sync()
+            marks.append(time.perf_counter())
+            return result
+
+        strategy._eval_step = timed
+        sync()
+        reset_counts()
+        t0 = time.perf_counter()
+        metrics = engine.evaluate(model, batches)
+        sync()
+        counts = read_counts()
+        wall = time.perf_counter() - t0
+        ms = [(b - a) * 1e3 for a, b in zip([t0] + marks[:-1], marks)]
+        bad = {k: v for k, v in metrics.items() if not np.isfinite(v)}
+        if bad or "gtvt_hd95" not in metrics:
+            raise AssertionError(f"{tag}: metrics not finite or incomplete: {bad or sorted(metrics)}")
+        changed = [k for k, v in model.state_dict().items() if not torch.equal(v, source[k])]
+        if changed:
+            raise AssertionError(f"{tag}: evaluate left {changed[:3]} changed")
+        if getattr(adapter, "method", "") == "sar" and not bool(torch.isnan(adapter._em)):
+            raise AssertionError(f"{tag}: SAR's entropy EMA was not reset")
+        if getattr(adapter, "method", "") == "cotta" and not all(
+                torch.equal(a, b) for a, b in zip(adapter._teacher, adapter._source)):
+            raise AssertionError(f"{tag}: CoTTA's teacher was not reset")
+        out[tag] = {"metrics": metrics, "launches": counts, "traces": traces, "source_copies": copies,
+                    "ms_per_batch": ms, "wall_s": wall,
+                    "adapter": adapter, "batches": len(batches), "config": cfg.tta.to_container()}
     return out
 
 
@@ -575,9 +891,11 @@ def main() -> int:
 
     max_abs_err = 0.0
     d0, h0, w0 = SHAPE[:3]
+    level_channels = ((32,), (32, 64), (64, 128), (128, 256), (256, 512))
     path_norm_shapes = [(BATCH, d0 >> lv, h0 >> lv, w0 >> lv, c)
-                        for lv, cs in enumerate(((32,), (32, 64), (64, 128), (128, 256), (256, 512)))
-                        for c in cs]
+                        for lv, cs in enumerate(level_channels) for c in cs]
+    window_norm_shapes = [(WINDOWS, WINDOW_ROI[0] >> lv, WINDOW_ROI[1] >> lv, WINDOW_ROI[2] >> lv, c)
+                          for lv, cs in enumerate(level_channels) for c in cs]
     regimes = {}
     for shape in path_norm_shapes + [(1, 3, 5, 7, 48), (2, 3, 5, 7, 7)]:
         for dtype, tol in ((torch.bfloat16, TOL_BF16), (torch.float32, TOL_F32)):
@@ -662,9 +980,9 @@ def main() -> int:
     # (ReLU on, as in the model): forward and backward kernels against the
     # plain versions on the same statistics; every shape in bf16, the largest
     # (1.02 GB) and the smallest also in f32
-    train_norm_shapes = [(TRAIN_BATCH,) + s[1:] for s in path_norm_shapes]
-    for shape, dtype in ([(s, torch.bfloat16) for s in train_norm_shapes]
-                         + [(train_norm_shapes[0], torch.float32), (train_norm_shapes[-1], torch.float32)]):
+    def check_norm_shape(shape, dtype, what: str) -> tuple:
+        """Forward and backward kernels (ReLU on) against the plain versions
+        on the same statistics at ``shape``: (max |y error|, max |dx error|)."""
         tol = TOL_BF16 if dtype == torch.bfloat16 else TOL_F32
         x, g, b = norm_inputs(shape, dtype, scale=1.0, shift=0.0)
         x = off_kink(x, g, b)
@@ -685,14 +1003,23 @@ def main() -> int:
             report.append(f"{nm} {float(diff.max()):.3g}")
             ok = ok and good and u.dtype == v.dtype and u.shape == v.shape
         pf, pb = plan_for(x), plan_for(x, backward=True)
-        log(f"[kernel] training shape {list(shape)} {str(dtype)[6:]} relu ({x.numel() * x.element_size() / 1e6:.1f} MB): "
+        log(f"[kernel] {what} shape {list(shape)} {str(dtype)[6:]} relu ({x.numel() * x.element_size() / 1e6:.1f} MB): "
             f"forward {plan_text(pf)}; backward {plan_text(pb)}; max|kernel-plain| y {err:.3g}, "
             + ", ".join(report) + f" {'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError(f"the norm kernels disagree with plain at the training shape {shape} {dtype}")
-        max_abs_err = max(max_abs_err, err)
-        backward_err = max(backward_err, float((got[0].float() - ref[0].float()).abs().max()))
-        del x, gy, y, stats, got, ref
+            raise AssertionError(f"the norm kernels disagree with plain at the {what} shape {shape} {dtype}")
+        return err, float((got[0].float() - ref[0].float()).abs().max())
+
+    train_norm_shapes = [(TRAIN_BATCH,) + s[1:] for s in path_norm_shapes]
+    for shape, dtype in ([(s, torch.bfloat16) for s in train_norm_shapes]
+                         + [(train_norm_shapes[0], torch.float32), (train_norm_shapes[-1], torch.float32)]):
+        err, dx_err = check_norm_shape(shape, dtype, "training")
+        max_abs_err, backward_err = max(max_abs_err, err), max(backward_err, dx_err)
+    # the norm shapes of windowed Tent (phase 15): the stock 4 windows of
+    # [32,96,96] down the levels, bf16
+    for shape in window_norm_shapes:
+        err, dx_err = check_norm_shape(shape, torch.bfloat16, "window")
+        max_abs_err, backward_err = max(max_abs_err, err), max(backward_err, dx_err)
 
     # ---- 3. full-width forward ------------------------------------------
     instance_norm_backward_plain.cuda_calls = 0  # phases 3-5 must leave it at 0
@@ -1532,6 +1859,7 @@ def main() -> int:
         f"allocated {step_peak / 2**30:.2f} GiB in the timed steps, {train_peak / 2**30:.2f} GiB in the 2-epoch "
         f"run; card {smi}")
     log(f"[train] phases 11-13 took {time.perf_counter() - t_train_phase:.1f} s")
+    trained_sd = {k: v.detach().clone() for k, v in model.state_dict().items()}  # phase 15 adapts these
     del run_a, trainer, model, dev_batches
     shutil.rmtree(run_root, ignore_errors=True)
 
@@ -1548,8 +1876,8 @@ def main() -> int:
 
     t1 = time.perf_counter()
     torch.cuda.empty_cache()
-    cli = cli_phase(dev, os.path.join(REPO, "build", "chip_smoke_cli"),  # build/ is in .gitignore
-                    reset_counts=reset_counts, read_counts=read_counts)
+    cli_root = os.path.join(REPO, "build", "chip_smoke_cli")  # build/ is in .gitignore
+    cli = cli_phase(dev, cli_root, reset_counts=reset_counts, read_counts=read_counts)
     cli_s = time.perf_counter() - t1
     log(f"[cli] fixture: {sum(CLI_CENTERS.values())} HECKTOR21 cases {CLI_SHAPE} (X,Y,Z) over {CLI_CENTERS}, "
         f"{cli['fixture_bytes'] / 2**20:.1f} MiB written in {cli['fixture_s']:.2f} s; g++ build of the native "
@@ -1591,6 +1919,148 @@ def main() -> int:
     cli["card"] = smi
     log(f"[cli] phase 14 took {cli_s:.1f} s; launches over the CLI runs {cli_launches}; card {smi}")
 
+    # ---- 15. the TTA methods ---------------------------------------------
+    from multimodal_tta_tpu_torch.conf import compose
+    from multimodal_tta_tpu_torch.tta import MemoAdapter, SarAdapter
+
+    t_tta = time.perf_counter()
+    torch.cuda.empty_cache()
+    tta_model = UNet3D(in_channels=2, num_classes=1, channels=(32, 64, 128, 256, 512), strides=(2, 2, 2, 2),
+                       num_res_units=2, dtype=torch.bfloat16, device=dev, seed=0)
+    tta_model.load_state_dict(trained_sd)  # phase 11's trained weights
+    vols = hecktor_volumes(BATCH * TTA_BATCHES, 31)
+    tta_batches = [{"image": np.stack([v["image"] for v in vols[k:k + BATCH]]),
+                    "label": np.stack([v["label"] for v in vols[k:k + BATCH]]),
+                    "domain": [v["domain"] for v in vols[k:k + BATCH]]} for k in range(0, len(vols), BATCH)]
+    tta = tta_phase(dev, tta_model, tta_batches, reset_counts=reset_counts, read_counts=read_counts)
+    tta_launches = {"forward": 0, "backward": 0, "minplus": 0}
+    tta_log = {}
+    for tag, r in tta.items():
+        want_f, want_b = expected_tta_launches(r["adapter"], r["batches"], r["traces"])
+        want = {"forward": want_f, "backward": want_b, "minplus": r["batches"], "plain_backward": 0}
+        ms = r["ms_per_batch"]
+        med = float(np.median(ms[1:]))
+        m = r["metrics"]
+        log(f"[tta] {tag}: {r['batches']} batches of {BATCH}, ms per batch {[round(t, 2) for t in ms]} -> median "
+            f"after the first {med:.2f}; launches {r['launches']} (derived {want}); avg_dc {m['avg_dc']:.6f} "
+            f"hd95 {m['gtvt_hd95']:.4f} loss {m['loss']:.5f}; entropy traces "
+            f"{[[round(e, 6) for e in t] for t in r['traces']]}; card {smi}")
+        if r["launches"] != want:
+            raise AssertionError(f"{tag}: launches {r['launches']}, derived from the step structure {want}")
+        for k in tta_launches:
+            tta_launches[k] += r["launches"][k]
+        tta_log[tag] = {"ms_per_batch": ms, "median_ms_after_first": med, "launches": r["launches"],
+                        "traces": r["traces"], "metrics": {k: v for k, v in m.items() if "/" not in k}}
+        if getattr(r["adapter"], "method", "") == "sar":
+            resets = sar_resets(r["adapter"], r["traces"])
+            episodic = int(r["adapter"].episodic)
+            log(f"[tta] {tag}: recovery resets per batch {resets} (derived from the traces), source copies in "
+                f"the adaptation {r['source_copies']}")
+            if r["source_copies"] != [n + episodic for n in resets]:
+                raise AssertionError(f"{tag}: source copies {r['source_copies']}, resets derived {resets}")
+    if not sum(sar_resets(tta["sar_recovery_reset"]["adapter"], tta["sar_recovery_reset"]["traces"])):
+        raise AssertionError("sar_recovery_reset: no recovery reset")
+    frozen = {tag: [len(t) - active_steps(tta[tag]["adapter"], t) for t in tta[tag]["traces"]]
+              for tag in ("tent_consistency_early_stop_dropout", "tent_early_stop_frozen_tail")}
+    log(f"[tta] early stop: frozen steps per batch {frozen}")
+    if not any(frozen["tent_consistency_early_stop_dropout"]) or frozen["tent_early_stop_frozen_tail"] != [2] * TTA_BATCHES:
+        raise AssertionError(f"early stop: frozen steps {frozen}")
+    del tta
+
+    # peak memory of one adaptation of a batch: MEMO (n_views 4, the views'
+    # gradients accumulated one view at a time) against Tent
+    x_peak = torch.from_numpy(tta_batches[0]["image"]).to(dev)
+    peaks = {}
+    for name, cls in (("tent", None), ("memo", MemoAdapter)):
+        cfg = compose(os.path.join(REPO, "configs"), "config", tta_overrides(f"tta={name}", "tta.steps=1"))
+        ad = (cls or TentAdapter)(cfg.tta, config=cfg, device_transform=DEVICE_TRANSFORM, device=dev)
+        fn = ad.make_adapt_fn(tta_model)
+        fn(tta_model, x_peak, BATCH)  # first call: cuDNN set-up and the allocator's pools
+        ad.restore()
+        sync()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fn(tta_model, x_peak, BATCH)
+        sync()
+        peaks[name] = {"base_gib": base / 2**30, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                       "n_views": getattr(ad, "n_views", 1)}
+        peaks[name]["step_gib"] = peaks[name]["peak_gib"] - peaks[name]["base_gib"]
+        ad.restore()
+    peak_ratio = peaks["memo"]["step_gib"] / peaks["tent"]["step_gib"]
+    log(f"[tta] peak allocated memory of one step at batch {BATCH} [48,144,144,2] bf16: Tent "
+        f"{peaks['tent']['peak_gib']:.3f} GiB ({peaks['tent']['step_gib']:.3f} above the {peaks['tent']['base_gib']:.3f} "
+        f"held before it), MEMO n_views {peaks['memo']['n_views']} {peaks['memo']['peak_gib']:.3f} GiB "
+        f"({peaks['memo']['step_gib']:.3f} above); MEMO/Tent above the base {peak_ratio:.3f} (limit 1.5); card {smi}")
+    if not (peaks["memo"]["n_views"] == 4 and peak_ratio <= 1.5):
+        raise AssertionError("a MEMO step holds more than one view's activations")
+    del x_peak
+
+    # f32 SAR and MEMO steps at full width on a small input, kernel vs plain
+    # norm (phase 12's limits: entropy relative, norm-param deltas rel L2)
+    small = torch.randn((1, 16, 32, 32, 2), generator=data, device=dev) * 100
+    step_parity = {}
+    for name, cls, tta_cfg, per_step in (
+        ("sar", SarAdapter, {"steps": 1, "lr": 1e-2, "episodic": True, "entropy_focus": "uncertain",
+                             "margin_ratio": 1.0, "reset_floor_ratio": 0.0}, (36, 36)),
+        ("memo", MemoAdapter, {"steps": 1, "lr": 1e-2, "episodic": True, "entropy_focus": "uncertain",
+                               "n_views": 4}, (144, 72)),
+    ):
+        res = {}
+        for plain in (False, True):
+            m = UNet3D(channels=(32, 64, 128, 256, 512), dtype=torch.float32, device=dev, seed=7)
+            set_plain_norm(m, plain)
+            cfg = ConfigNode({"task": {"seed": 0}, "training": {"criterion": {"sigmoid": True}},
+                              "tta": dict(tta_cfg, method=name)})
+            ad = cls(cfg.tta, config=cfg, device_transform=DEVICE_TRANSFORM, device=dev)
+            fn = ad.make_adapt_fn(m)
+            src = [p.detach().clone() for p in ad._trainable]
+            at = (fused_instance_norm.launches, fused_instance_norm.backward_launches)
+            fn(m, small, 1)
+            sync()
+            ran = (fused_instance_norm.launches - at[0], fused_instance_norm.backward_launches - at[1])
+            res[plain] = (ad.last_entropy, torch.cat([(p.detach() - s_).flatten() for p, s_ in zip(ad._trainable, src)]),
+                          ran)
+            del m, ad, fn
+        (e_k, d_k, ran_k), (e_p, d_p, ran_p) = res[False], res[True]
+        e_rel, d_rel = abs(e_k - e_p) / abs(e_p), float((d_k - d_p).norm() / d_p.norm())
+        step_parity[name] = {"entropy_rel": e_rel, "delta_rel": d_rel, "launches_kernel": ran_k,
+                             "launches_plain": ran_p}
+        log(f"[tta-parity] f32 {name} step [1,16,32,32,2] at full width, kernel vs plain norm: entropy "
+            f"{e_k:.6f} / {e_p:.6f} rel {e_rel:.3g} (limit {TRAIN_LOSS_REL}); norm-param deltas rel L2 {d_rel:.3g} "
+            f"(limit {TRAIN_DELTA_REL}); launches (forward, backward) kernel run {ran_k}, plain run {ran_p}")
+        if not (e_rel <= TRAIN_LOSS_REL and d_rel <= TRAIN_DELTA_REL):
+            raise AssertionError(f"the {name} step through the kernel disagrees with the plain norm")
+        if ran_k != per_step or ran_p != (0, 0):
+            raise AssertionError(f"{name} parity runs launched {ran_k} / {ran_p}")
+
+    # the streams through cli.adapt on phase 14's fixture and checkpoint
+    t1 = time.perf_counter()
+    stream = stream_phase(dev, cli["manifest"], cli["best"], cli_root, reset_counts=reset_counts,
+                          read_counts=read_counts)
+    stream_s = time.perf_counter() - t1
+    shutil.rmtree(cli_root, ignore_errors=True)
+    for name, r in stream.items():
+        m = r["metrics"]
+        log(f"[tta-stream] {name}: {r['batches']} batches over {list(STREAM_ORDER)} in {r['wall_s']:.2f} s; "
+            f"avg_dc {m['avg_dc']} reanchors {m['reanchors']} policy {m['policy']}; "
+            + (f"gate threshold {r['gate_threshold']:.6g} (the probe's gate entropies "
+               f"{[round(g, 6) for g in r['gate_probe']]}), forward batches {m['gate/forward_batches']}, adapt "
+               f"batches {m['gate/adapt_batches']}, escalations {m['gate/escalations']}; " if "gate_probe" in r else "")
+            + f"positions {[(p['domain'], p['mode'], p['reanchored']) for p in m['positions']]}; launches "
+            f"{r['launches']} (derived {r['want']}); card {smi}")
+        if r["launches"] != {**r["want"], "minplus": 0, "plain_backward": 0}:
+            raise AssertionError(f"{name}: launches {r['launches']}, derived {r['want']}")
+        for k in ("forward", "backward"):
+            tta_launches[k] += r["launches"][k]
+        tta_log[name] = {k: v for k, v in r.items() if k != "metrics"}
+        tta_log[name]["metrics"] = {k: v for k, v in m.items() if k != "positions"}
+    tta_s = time.perf_counter() - t_tta
+    tta_log.update(peak_memory=peaks, memo_over_tent_step_memory=peak_ratio, step_parity=step_parity,
+                   stream_s=stream_s, launches=tta_launches, card=smi)
+    log(f"[tta] phase 15 took {tta_s:.1f} s (streams {stream_s:.1f} s); launches {tta_launches}; card {smi}")
+    del tta_model, tta_batches
+
     def norm_summary(name: str, tot: dict, train_tot: dict, n_launches: dict, err: float, extra: dict) -> dict:
         return {
             "name": name,
@@ -1613,18 +2083,21 @@ def main() -> int:
 
     summary = norm_summary("fused_instance_norm", totals, norm_totals[TRAIN_BATCH][0],
                            {**launches, **norm_eval_launches, "train": train_launches["forward"],
-                            "cli": cli_launches["forward"]}, max_abs_err, {})
+                            "cli": cli_launches["forward"], "tta": tta_launches["forward"]}, max_abs_err, {})
     backward_summary = norm_summary(
         "fused_instance_norm_backward", btotals, norm_totals[TRAIN_BATCH][1],
-        {**backward_launches, "train": train_launches["backward"], "cli": cli_launches["backward"]}, backward_err,
+        {**backward_launches, "train": train_launches["backward"], "cli": cli_launches["backward"],
+         "tta": tta_launches["backward"]}, backward_err,
         {"note": "the gradient of the TPU kernel's function; dx computed in all 18 timed calls"})
     minplus_summary = {
         "name": "minplus",
         "route": "cuda",
         "source": "multimodal_tta_tpu_torch/csrc/edt_minplus.cu",
         "replaces": "multimodal_tta_tpu/pallas/edt_minplus.py:52",
-        "launches": sum(eval_launches.values()) + train_launches["minplus"] + cli_launches["minplus"],
-        "launches_by_path": {**eval_launches, "train": train_launches["minplus"], "cli": cli_launches["minplus"]},
+        "launches": sum(eval_launches.values()) + train_launches["minplus"] + cli_launches["minplus"]
+        + tta_launches["minplus"],
+        "launches_by_path": {**eval_launches, "train": train_launches["minplus"], "cli": cli_launches["minplus"],
+                             "tta": tta_launches["minplus"]},
         "max_abs_err": minplus_err,
         "ms": edt_ms,
         "plain_ms": edt_plain_ms,
@@ -1642,7 +2115,7 @@ def main() -> int:
     log(json.dumps({"serving": serving, "forward_ms": fwd_ms, "forward_plain_norm_ms": fwd_plain_ms,
                     "eval_ms_per_batch": eval_ms, "eval_warm_ms_per_batch": eval_warm_ms,
                     "eval_batch_split_ms": split,
-                    "eval_metrics": eval_runs, "training": training, "cli": cli}))
+                    "eval_metrics": eval_runs, "training": training, "cli": cli, "tta": tta_log}))
     log(json.dumps({"kernels": [summary, backward_summary, minplus_summary]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                             "count": torch.cuda.device_count()}}))

@@ -8,9 +8,12 @@ Loads a (trained) checkpoint, streams the test split, runs the configured
 TTA method per batch (episodic or continual) through ``TTAEngine.evaluate``,
 and writes the seg_eval metric dict overall and per domain to
 ``<run_dir>/tta_metrics.json`` — with and without adaptation when
-``tta.report_no_adapt=true``. The model is left as the checkpoint gave it.
-The streaming protocol (``tta.stream.enabled``) needs ``tta/stream.py``,
-which is not ported yet.
+``tta.report_no_adapt=true``. With ``tta.stream.enabled=true`` the batches go
+through the streaming protocol instead (``tta/stream.py``: reset policy,
+entropy watchdog, gated serving), one test pass per centre of
+``tta.stream.domain_order`` or the test split's own order, and
+``evaluate_stream``'s Dice report is written under ``adapted``. The model
+is left as the checkpoint gave it.
 """
 
 from __future__ import annotations
@@ -46,16 +49,44 @@ def load_serving_state(manager, cfg, logger, what: str):
         logger.info(f"{what.capitalize()} the EMA shadow weights")
 
 
+def run_stream(engine, model, builder, test_loader, cfg, logger) -> Dict[str, Any]:
+    """The streaming protocol over the test data: one loader per centre of
+    ``tta.stream.domain_order`` (``builder.get_loader("test",
+    target_center=...)``), else the test split in its order with each
+    batch's first domain label. The model is restored afterwards."""
+    from ..tta.stream import StreamTTAController, evaluate_stream
+
+    if engine.adapter is None:
+        raise ValueError("tta.stream.enabled requires a TTA method (tta=tent)")
+    thr = float(get_config(cfg, "evaluation.seg.threshold", 0.5))
+    ctrl = StreamTTAController.from_config(engine.adapter, model, cfg, threshold=thr)
+    order = get_config(cfg, "tta.stream.domain_order", None)
+    if order:
+        stream = ((dom, batch) for dom in order
+                  for batch in builder.get_loader("test", target_center=str(dom)))
+    else:
+        stream = ((batch.get("domain", ["?"])[0], batch) for batch in test_loader)
+    logger.info(
+        f"Streaming TTA: policy={ctrl.policy} guard={ctrl.guard} "
+        f"order={list(order) if order else 'test-split order'}"
+    )
+    try:
+        adapted = evaluate_stream(ctrl, stream)
+    finally:
+        engine.adapter.restore()
+    logger.info(
+        f"[stream] avg_dc={adapted['avg_dc']} reanchors={adapted['reanchors']} "
+        + " ".join(f"{k}={v}" for k, v in adapted.items() if k.startswith("dom/"))
+    )
+    return adapted
+
+
 def main(argv: Optional[Sequence[str]] = None, device: DeviceLike = "cuda") -> Dict[str, Any]:
     """Adapt + evaluate; returns ``{"no_adapt"?, "adapted"}`` metric dicts."""
     dev = resolve_device(device)
     retain_host_memory()  # reuse faulted pages on lazily-backed VM hosts
     argv = list(sys.argv[1:] if argv is None else argv)
     cfg = compose(CONFIG_DIR, "config", argv)
-    if bool(get_config(cfg, "tta.stream.enabled", False)):
-        raise NotImplementedError(
-            "tta.stream.enabled: the streaming protocol (tta/stream.py, StreamTTAController) is "
-            "not ported yet (ROADMAP.md item 8)")
 
     run_dir = setup_run_dir(cfg)
     logger = setup_logger(log_file=os.path.join(run_dir, "adapt.log"))
@@ -86,9 +117,12 @@ def main(argv: Optional[Sequence[str]] = None, device: DeviceLike = "cuda") -> D
         results["no_adapt"] = no_adapt
         logger.info(f"[no-adapt] {no_adapt}")
 
-    logger.info(f"Evaluating with TTA method '{engine.method}'...")
-    adapted = engine.evaluate(model, test_loader)
-    logger.info(f"[adapted] {adapted}")
+    if bool(get_config(cfg, "tta.stream.enabled", False)):
+        adapted = run_stream(engine, model, builder, test_loader, cfg, logger)
+    else:
+        logger.info(f"Evaluating with TTA method '{engine.method}'...")
+        adapted = engine.evaluate(model, test_loader)
+        logger.info(f"[adapted] {adapted}")
     results["adapted"] = adapted
 
     out_path = os.path.join(run_dir, "tta_metrics.json")

@@ -1,6 +1,6 @@
 """Segmentation losses and adaptation objectives (the port of
 ``multimodal_tta_tpu/ops/losses.py``): ``entropy_loss``, the Tent objective,
-and ``dice_ce_loss`` with MONAI's DiceCELoss semantics —
+``pseudo_label_loss``, the hard pseudo-label objective, and ``dice_ce_loss`` with MONAI's DiceCELoss semantics —
 
   - sigmoid (multi-label) XOR softmax (multi-class) activation
   - include_background: drop channel 0 from the dice term when False
@@ -346,3 +346,39 @@ def entropy_loss(
     if focus != "all":
         raise ValueError(f"Unknown entropy focus: {focus}")
     return h.mean(dim=dims)
+
+
+def pseudo_label_loss(
+    logits: torch.Tensor,
+    *,
+    sigmoid: bool = True,
+    conf_threshold: float = 0.9,
+    per_sample: bool = False,
+) -> torch.Tensor:
+    """Hard pseudo-label self-training objective for test-time adaptation:
+    cross-entropy of the outputs against their OWN hard predictions,
+    restricted to voxels whose confidence clears ``conf_threshold``. The
+    pseudo-labels and the confidence gate carry no gradient.
+
+    sigmoid mode: per-voxel per-channel Bernoulli CE with hard labels
+    ``p >= 0.5``, confidence ``max(p, 1-p)``. softmax mode: categorical CE
+    against the argmax channel, confidence the max probability. Normalized
+    by the confident-voxel count, so a batch with no confident voxel gives
+    loss 0 and zero gradient.
+
+    Returns a scalar over the whole batch, or with ``per_sample=True`` one
+    value per sample ``[B]`` (each normalized by its own count).
+    """
+    if sigmoid:
+        p = torch.sigmoid(logits).detach()
+        hard = (p >= 0.5).to(logits.dtype)
+        w = (torch.maximum(p, 1.0 - p) >= conf_threshold).to(logits.dtype)
+        ce = -(hard * F.logsigmoid(logits) + (1.0 - hard) * F.logsigmoid(-logits))
+    else:
+        logp = F.log_softmax(logits, dim=-1)
+        p = logp.exp().detach()
+        hard = torch.argmax(p, dim=-1, keepdim=True)
+        w = (p.amax(dim=-1) >= conf_threshold).to(logits.dtype)
+        ce = -torch.gather(logp, -1, hard)[..., 0]
+    dims = tuple(range(1 if per_sample else 0, ce.dim()))
+    return (ce * w).sum(dim=dims) / torch.clamp(w.sum(dim=dims), min=1.0)

@@ -2,9 +2,10 @@
 
 Uniform runner for the adaptation modes:
   - "none":     plain inference (source model, no adaptation)
-  - "tent":     episodic Tent — adapt from source weights on every batch
-  - continual:  tent with episodic=false — the adapted state streams across
-                batches/domains
+  - a method:   any registered one (tent, pl, eata, norm, sar, cotta, memo),
+                episodic (adapt from source weights on every batch) or
+                continual (episodic=false: the adapted state streams across
+                batches/domains)
 
 The engine wraps an evaluation strategy: adaptation plugs into the
 strategy's per-batch hook, so metric schema and per-domain aggregation are
@@ -12,8 +13,9 @@ identical with and without TTA.
 
 The reference's ``evaluate`` is functional: the caller's state is what it
 was afterwards. The port's adapters change the model in place, so
-``evaluate`` restores the adapted parameters to their source values before
-it returns, also when the loop raises — a second ``evaluate``, or a
+``evaluate`` restores the adapted parameters to their source values, and
+resets what the method carries (momentum, SAR's entropy EMA, CoTTA's
+teacher), before it returns, also when the loop raises — a second ``evaluate``, or a
 following no-adaptation run, scores the source model as the reference does.
 
 ``classifier_logits_apply`` (the bridge for the 2D classification

@@ -1,0 +1,194 @@
+"""MEMO: marginal-entropy minimization over augmented views (method "memo";
+the port of ``multimodal_tta_tpu/tta/memo.py``).
+
+Zhang, Levine & Finn, "MEMO: Test Time Robustness via Adaptation and
+Augmentation" (NeurIPS 2022 — public method): minimize the entropy of the
+MARGINAL prediction ``p_bar = (1/V) sum_v p(y | aug_v(x))`` over V views,
+with gradients through every view. The view family is CoTTA's
+(``tta/cotta.py``): view 0 clean, each other view intensity scale/shift,
+Gaussian noise and a mirror flip inverted in probability space. Per-voxel
+entropies are reduced with Tent's ``entropy_focus``.
+
+The gradient is linearized and accumulated view by view:
+
+    dH(p_bar)/dtheta = sum_v < g_hat / V , d p_v / d theta >,
+    g_hat = dH/dp at p_bar (analytic, elementwise, no gradient)
+
+so each step runs (1) one no-grad pass over the views that forms ``p_bar``
+and ``g_hat`` (the clip gate at ``_EPS`` zeroes ``g_hat`` where autograd
+through the clamp would), then (2) one forward+backward of
+``sum(p_v * g_hat / V)`` per view, accumulating into ``.grad``. Peak memory
+holds one view's activations, whatever V is. The accumulated gradient is
+autograd's of the marginal objective, to float rounding.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops.augment import apply_modality_dropout, modality_dropout_draws
+from ..registry import register_tta_method
+from ..utils.config import get_config
+from .cotta import apply_view, flipped_probs, view_combos, view_draws
+from .tent import TentAdapter, apply_restore, restore_draws
+
+_EPS = 1e-6
+
+
+def marginal_entropy(p_marg: torch.Tensor, w: torch.Tensor, denom: torch.Tensor, *, sigmoid: bool,
+                     focus: str):
+    """The objective at the marginal and its analytic cotangent
+    ``dLoss/dp`` (no gradient through either)."""
+    b = p_marg.shape[0]
+    pc = torch.clamp(p_marg, _EPS, 1.0 - _EPS)
+    inside = ((p_marg > _EPS) & (p_marg < 1.0 - _EPS)).to(torch.float32)
+    if sigmoid:
+        h = -(pc * torch.log(pc) + (1.0 - pc) * torch.log1p(-pc))
+        dhdp = (torch.log1p(-pc) - torch.log(pc)) * inside
+    else:
+        h = -(pc * torch.log(pc)).sum(dim=-1)
+        dhdp = -(torch.log(pc) + 1.0) * inside
+    ax = tuple(range(1, h.dim()))
+    bshape = (b,) + (1,) * (h.dim() - 1)
+    if focus == "uncertain":
+        wsum = torch.clamp(h.sum(dim=ax), min=1e-12)
+        per_sample = (h * h).sum(dim=ax) / wsum
+        g_h = h * (w / denom / wsum).reshape(bshape)
+    else:
+        per_sample = h.mean(dim=ax)
+        g_h = ((w / denom) / float(h[0].numel())).reshape(bshape).expand(h.shape)
+    g = g_h * dhdp if sigmoid else g_h[..., None] * dhdp
+    return (per_sample * w).sum() / denom, g
+
+
+@register_tta_method("memo")
+class MemoAdapter(TentAdapter):
+    """Marginal-entropy adapter; the same surface as :class:`TentAdapter`."""
+
+    method = "memo"
+    inline_caveats = False
+
+    def __init__(self, tta_cfg, config=None, device_transform=None, *, device="cuda"):
+        super().__init__(tta_cfg, config=config, device_transform=device_transform, device=device)
+
+        self.n_views = int(get_config(self.cfg, "n_views", 4))
+        self.aug_scale = float(get_config(self.cfg, "aug_scale", 0.1))
+        self.aug_shift = float(get_config(self.cfg, "aug_shift", 0.1))
+        self.aug_noise = float(get_config(self.cfg, "aug_noise", 0.05))
+        self.aug_flip = bool(get_config(self.cfg, "aug_flip", True))
+        self.serve = str(get_config(self.cfg, "serve", "clean")).lower()
+        if self.serve not in ("clean", "marginal"):
+            raise ValueError(f"[memo] unknown serve mode: {self.serve}")
+        if self.n_views < 1:
+            raise ValueError("[memo] n_views must be >= 1")
+        if self.n_views == 1:
+            self.logger.warning(
+                "[memo] n_views=1: the marginal is the clean prediction and "
+                "the objective degenerates to plain Tent entropy — use "
+                "n_views >= 2 (or method=tent, which is cheaper)"
+            )
+        if self.window_enabled:
+            raise ValueError(
+                "[memo] the marginal couples whole-volume views; it is "
+                "incompatible with tta.window (use method=tent for windowed "
+                "adaptation)"
+            )
+        if self.early_stop:
+            raise ValueError(
+                "[memo] tta.early_stop is a Tent-objective brake; for memo "
+                "use the streaming watchdog (tta.stream.guard) — the entropy "
+                "trace it needs is reported"
+            )
+        if self.rel_enabled:
+            raise ValueError(
+                "[memo] tta.reliability gates the per-view Tent objective; "
+                "it does not compose with the marginal (use method=tent or "
+                "method=eata)"
+            )
+        if self.fisher_enabled:
+            raise ValueError(
+                "[memo] tta.fisher anchors the Tent objective; with memo use "
+                "tta.restore (composes) for anti-forgetting"
+            )
+        if self.loss_mode != "entropy":
+            raise ValueError(
+                "[memo] tta.loss does not apply — the marginal entropy is "
+                "itself a confidence+consistency objective"
+            )
+        self.logger.info(
+            f"[memo] marginal-entropy adaptation (views={self.n_views}, "
+            f"serve={self.serve}, focus={self.entropy_focus}, "
+            f"linearized per-view gradient accumulation)"
+        )
+
+    def post_draws(self, shape):
+        """The augmented views of a marginal (also of a post-update one)."""
+        return view_draws(shape, self.n_views - 1, self.generator, scale=self.aug_scale,
+                          shift=self.aug_shift, noise=self.aug_noise)
+
+    def step_draws(self, shape, n_valid) -> dict:
+        g = self.generator
+        d = {"restore": None, "drop": None}
+        if self.restore_enabled:
+            d["restore"] = restore_draws([p.shape for p in self._trainable], self.restore_prob, g)
+        if self.md_enabled:
+            d["drop"] = modality_dropout_draws(shape[0], shape[-1], g, prob=self.md_prob)
+        d["views"] = self.post_draws(shape)
+        return d
+
+    def _view_probs(self, x: torch.Tensor, views, i: int, combos) -> torch.Tensor:
+        xv = apply_view(x, views[i], self.aug_noise)
+        return flipped_probs(lambda v: self._probs(self._model(v)), xv, combos[i % len(combos)] if combos else ())
+
+    @torch.no_grad()
+    def _marginal(self, x: torch.Tensor, views):
+        """Marginal probabilities over the views (view 0 clean) and the clean
+        logits; the views run one after another."""
+        logits0 = self._model(x)
+        p = self._probs(logits0)
+        combos = view_combos(x.dim(), self.aug_flip)
+        for i in range(len(views)):
+            p = p + self._view_probs(x, views, i, combos)
+        return (p / float(self.n_views) if views else p), logits0
+
+    def accumulate_grads(self, x: torch.Tensor, views, g_hat: torch.Tensor) -> None:
+        """``.grad`` of the adapted params += d<g_hat/V, p_v>/dtheta, view by
+        view (each a Tent-sized forward+backward)."""
+        gv = g_hat / float(self.n_views)
+        combos = view_combos(x.dim(), self.aug_flip)
+        (self._probs(self._model(x)) * gv).sum().backward()
+        for i in range(len(views)):
+            (self._view_probs(x, views, i, combos) * gv).sum().backward()
+
+    def _adapt(self, state, image, n_valid, threshold, predict_mode, ent_floor=None):
+        del ent_floor  # no early-stop brake; the stream watchdog guards memo
+        image, w, denom = self._begin(state, image, n_valid)
+        inline = threshold is not None and predict_mode == "inline"
+        post_marginal = threshold is not None and not inline and self.serve == "marginal"
+        draws = self.batch_draws(tuple(image.shape), int(n_valid), post=post_marginal)
+        opt = self._opt
+        ents, p_marg, logits0 = [], None, None
+        for i, d in enumerate(draws["steps"]):
+            x = image
+            if self.md_enabled and not (inline and i == self.steps - 1):
+                x = apply_modality_dropout(x, d["drop"])
+            p_marg, logits0 = self._marginal(x, d["views"])
+            ent, g_hat = marginal_entropy(p_marg, w, denom, sigmoid=self.sigmoid_mode,
+                                          focus=self.entropy_focus)
+            opt.zero_grad(set_to_none=True)
+            self.accumulate_grads(x, d["views"], g_hat)
+            opt.step()
+            if d["restore"] is not None:
+                apply_restore(self._trainable, self._source, d["restore"])
+            ents.append(ent)
+        self._last_ents = torch.stack(ents)
+        if threshold is None:
+            return None
+        if inline:
+            p = p_marg if self.serve == "marginal" else self._probs(logits0)
+        elif self.serve == "marginal":
+            p, _ = self._marginal(image, draws["post"])
+        else:
+            with torch.no_grad():
+                p = self._probs(self._model(image))
+        return self._predict_probs(p, threshold)

@@ -3,8 +3,8 @@
 Entropy minimization (Wang et al., "Tent", ICLR 2021) over sigmoid or
 softmax outputs, with gradients reaching only the selected parameters
 (by default the norm affines). Each batch: on-device intensity
-normalization, K steps of forward + entropy + backward + optimizer update,
-and optionally the thresholded segmentation:
+normalization, K steps of forward + objective + backward + optimizer
+update, and optionally the thresholded segmentation:
 
   * ``predict="post"``   — an extra forward with the updated params (strict
                            adapt-then-predict, what evaluation uses);
@@ -14,22 +14,41 @@ and optionally the thresholded segmentation:
 Episodic mode resets the adapted params to their source values and starts
 a fresh optimizer for every batch; continual mode carries both.
 
+The extras, each off by default and composable:
+  * objectives: ``loss`` = entropy | pl (hard pseudo-labels), either with
+    ``+consistency`` (an invariance term against an intensity-jittered view);
+  * ``modality_dropout`` on every step but an inline prediction's last;
+  * ``window``: the objective on random ROIs instead of whole volumes;
+  * ``early_stop``: freeze the batch's adaptation once the step entropy falls
+    below a floor (relative to the batch's first step, or the absolute
+    ``ent_floor`` the stream controller passes);
+  * ``restore``: after each update every adapted element snaps back to its
+    source value with probability ``prob`` (the restore half of CoTTA);
+  * ``reliability``: EATA's per-sample entropy gate and weighting;
+  * ``fisher``: EATA's diagonal-Fisher anchor, applied as a proximal step
+    after each update, estimated on the first ``fisher.batches`` batches.
+
 Where the reference threads a functional ``TrainState``, the port adapts the
 model in place: ``make_*`` take the model, freeze every parameter outside
 the adapted set (``requires_grad=False``), keep a copy of the adapted
 params' source values, and the returned functions take and return that same
 model as the ``state``. ``restore()`` puts the source values back.
 
-Not ported in this slice (they raise ``NotImplementedError`` when enabled;
-ROADMAP.md lists them): modality dropout, windowed adaptation, the
-consistency and pseudo-label objectives, early stop, stochastic restore,
-reliability gating and the Fisher anchor; the mesh (multi-GPU) path.
+Randomness: the adapter owns one ``torch.Generator`` on its device, seeded
+with ``task.seed + 777`` (the reference's ``PRNGKey``), kept across
+``make_*`` calls and ``restore()``. Each batch takes its random numbers
+from ``batch_draws`` (one dict per step: dropout mask, window offsets,
+consistency factor and offset, restore masks) before it runs, and every
+stochastic op is applied from those draws alone, so a test can hand both
+packages the same numbers. The mesh (multi-GPU) path is not ported.
 """
 
 from __future__ import annotations
 
+import math
 import re
-from typing import Callable, Dict, List, Optional
+from contextlib import contextmanager
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -37,14 +56,19 @@ from torch import nn
 from .. import DeviceLike, resolve_device
 from ..conf.node import ConfigNode
 from ..models.convert import flax_path
+from ..ops.augment import (
+    apply_intensity_scale_shift,
+    apply_modality_dropout,
+    intensity_scale_shift_draws,
+    modality_dropout_draws,
+)
 from ..ops.intensity import make_intensity_normalizer
-from ..ops.losses import entropy_loss
+from ..ops.losses import entropy_loss, pseudo_label_loss
 from ..registry import register_tta_method
 from ..utils.config import get_config
 from ..utils.logger import get_logger
 
 _AFFINE = {"scale", "bias"}
-_UNPORTED_EXTRAS = ("modality_dropout", "window", "early_stop", "restore", "reliability", "fisher")
 
 
 def norm_param_mask(model: nn.Module) -> Dict[str, bool]:
@@ -73,10 +97,68 @@ def norm_param_mask(model: nn.Module) -> Dict[str, bool]:
     }
 
 
+def reliability_weights(logits: torch.Tensor, *, sigmoid: bool, margin_ratio: float) -> torch.Tensor:
+    """EATA-style per-sample reliability weights, [B] in [0, e^margin]: a
+    sample whose SELF-NORMALIZED entropy exceeds ``margin_ratio * H_max``
+    gets 0, the rest ``exp(margin - e)``. H_max = ln 2 per Bernoulli channel
+    (sigmoid) or ln C (softmax). No gradient flows through the weights."""
+    e = entropy_loss(logits.detach(), sigmoid=sigmoid, focus="uncertain", per_sample=True)
+    h_max = math.log(2.0) if sigmoid else math.log(float(logits.shape[-1]))
+    margin = margin_ratio * h_max
+    return torch.where(e < margin, torch.exp(margin - e), torch.zeros_like(e))
+
+
+def window_draws(
+    n_windows: int,
+    n_valid: int,
+    spatial: Sequence[int],
+    roi: Sequence[int],
+    generator: torch.Generator,
+) -> torch.Tensor:
+    """``[n_windows, 4]`` int64 rows ``(sample, d0, h0, w0)``: a valid sample
+    index and the ROI's corner, uniform over the positions that fit."""
+    dev = generator.device
+    n = max(int(n_valid), 1)
+    cols = [torch.randint(0, n, (n_windows,), generator=generator, device=dev)]
+    for size, r in zip(spatial, roi):
+        cols.append(torch.randint(0, max(int(size) - int(r), 0) + 1, (n_windows,),
+                                  generator=generator, device=dev))
+    return torch.stack(cols, dim=1)
+
+
+def apply_crop_windows(x: torch.Tensor, corners: torch.Tensor, roi: Sequence[int]) -> torch.Tensor:
+    """``[W, *roi, C]`` windows of ``x`` [B, D, H, W, C] at ``corners``
+    (``window_draws``)."""
+    rd, rh, rw = (int(r) for r in roi)
+    rows = corners.tolist()
+    return torch.stack([x[s, d:d + rd, h:h + rh, w:w + rw] for s, d, h, w in rows])
+
+
+def restore_draws(shapes: Sequence[torch.Size], prob: float, generator: torch.Generator) -> List[torch.Tensor]:
+    """One bool mask per adapted tensor: True where the element snaps back
+    to its source value (Bernoulli ``prob`` each)."""
+    return [torch.rand(s, generator=generator, device=generator.device) < prob for s in shapes]
+
+
+@torch.no_grad()
+def apply_restore(params: Sequence[torch.Tensor], sources: Sequence[torch.Tensor],
+                  masks: Sequence[torch.Tensor]) -> None:
+    """Write the source value into each element of ``params`` where its mask
+    is set (in place)."""
+    for p, s, m in zip(params, sources, masks):
+        p.copy_(torch.where(m, s, p))
+
+
 @register_tta_method("tent")
 class TentAdapter:
-    """Builds ``adapt_fn(state, image, n_valid)`` and
-    ``adapt_predict_fn(state, image, n_valid)`` closures over one model."""
+    """Builds ``adapt_fn(state, image, n_valid)``,
+    ``adapt_predict_fn(state, image, n_valid)`` and
+    ``forward_predict_fn(state, image, n_valid)`` closures over one model."""
+
+    method = "tent"
+    # Tent's own step loop carries the inline caveats of _check_predict_mode;
+    # a method with its own loop (sar, cotta, memo) sets this False
+    inline_caveats = True
 
     def __init__(self, tta_cfg, config=None, device_transform=None, *, device: DeviceLike = "cuda"):
         self.cfg = tta_cfg or ConfigNode()
@@ -96,29 +178,73 @@ class TentAdapter:
         softmax = bool(get_config(crit, "softmax", False))
         self.sigmoid_mode = bool(get_config(crit, "sigmoid", not softmax))
 
+        md = get_config(self.cfg, "modality_dropout", ConfigNode())
+        self.md_enabled = bool(get_config(md, "enabled", False))
+        self.md_prob = float(get_config(md, "prob", 0.25))
+
+        wnd = get_config(self.cfg, "window", ConfigNode())
+        self.window_enabled = bool(get_config(wnd, "enabled", False))
+        self.window_roi = tuple(int(x) for x in get_config(wnd, "roi_size", [32, 96, 96]))
+        self.windows_per_step = int(get_config(wnd, "windows_per_step", 4))
+
         self.predict_mode = str(get_config(self.cfg, "predict", "post")).lower()
         if self.predict_mode not in ("post", "inline"):
             raise ValueError(f"[tent] unknown predict mode: {self.predict_mode}")
+
+        es = get_config(self.cfg, "early_stop", ConfigNode())
+        self.early_stop = bool(get_config(es, "enabled", False))
+        self.early_stop_ratio = float(get_config(es, "entropy_floor_ratio", 0.3))
+
+        rst = get_config(self.cfg, "restore", ConfigNode())
+        self.restore_enabled = bool(get_config(rst, "enabled", False))
+        self.restore_prob = float(get_config(rst, "prob", 0.01))
+        if self.restore_enabled:
+            self.logger.info(
+                f"[tent] stochastic restore to source enabled "
+                f"(prob={self.restore_prob} per element per step)"
+            )
+
+        rel = get_config(self.cfg, "reliability", ConfigNode())
+        self.rel_enabled = bool(get_config(rel, "enabled", False))
+        self.rel_margin_ratio = float(get_config(rel, "margin_ratio", 0.4))
+        if self.rel_enabled:
+            self.logger.info(
+                f"[tent] reliability gating enabled "
+                f"(margin = {self.rel_margin_ratio} * H_max, EATA-style)"
+            )
+
+        fsh = get_config(self.cfg, "fisher", ConfigNode())
+        self.fisher_enabled = bool(get_config(fsh, "enabled", False))
+        self.fisher_lambda = float(get_config(fsh, "lambda", 100.0))
+        self.fisher_batches = int(get_config(fsh, "batches", 4))
+        if self.fisher_enabled:
+            if self.fisher_batches < 1:
+                raise ValueError("[tent] tta.fisher.batches must be >= 1")
+            self.logger.info(
+                f"[tent] Fisher anti-forgetting enabled (lambda="
+                f"{self.fisher_lambda}, estimated on first "
+                f"{self.fisher_batches} batches, EATA-style)"
+            )
+
         self.entropy_focus = str(get_config(self.cfg, "entropy_focus", "all")).lower()
         if self.entropy_focus not in ("all", "uncertain"):
             raise ValueError(f"[tent] unknown entropy_focus: {self.entropy_focus}")
 
-        loss_mode = str(get_config(self.cfg, "loss", "entropy")).lower()
-        if loss_mode not in ("entropy", "entropy+consistency", "pl", "pl+consistency"):
-            raise ValueError(f"[tent] unknown loss mode: {loss_mode}")
-        if loss_mode != "entropy":
-            raise NotImplementedError(
-                f"[tent] loss={loss_mode!r} is not ported yet (ROADMAP.md, Tent extras)"
-            )
-        for extra in _UNPORTED_EXTRAS:
-            if bool(get_config(self.cfg, f"{extra}.enabled", False)):
-                raise NotImplementedError(
-                    f"[tent] tta.{extra} is not ported yet (ROADMAP.md, Tent extras)"
-                )
+        self.loss_mode = str(get_config(self.cfg, "loss", "entropy")).lower()
+        if self.loss_mode not in ("entropy", "entropy+consistency", "pl", "pl+consistency"):
+            raise ValueError(f"[tent] unknown loss mode: {self.loss_mode}")
+        plc = get_config(self.cfg, "pl", ConfigNode())
+        self.pl_conf_threshold = float(get_config(plc, "conf_threshold", 0.9))
+        cons = get_config(self.cfg, "consistency", ConfigNode())
+        self.cons_weight = float(get_config(cons, "weight", 1.0))
+        self.cons_scale = float(get_config(cons, "scale", 0.1))
+        self.cons_shift = float(get_config(cons, "shift", 0.1))
+
         if not bool(get_config(self.cfg, "sync_over_mesh", True)):
             raise ValueError(
-                "[tent] sync_over_mesh=false is not supported: the adapt step "
-                "always pools over the batch"
+                f"[{get_config(self.cfg, 'method', 'tent')}] sync_over_mesh="
+                f"false is not supported: the adapt step always pools over "
+                f"the batch"
             )
 
         self.device_transform = device_transform or {}
@@ -133,10 +259,16 @@ class TentAdapter:
             )
 
         self._model: Optional[nn.Module] = None
+        self._names: List[str] = []
         self._trainable: List[nn.Parameter] = []
         self._source: List[torch.Tensor] = []
         self._opt: Optional[torch.optim.Optimizer] = None
         self._last_ents: Optional[torch.Tensor] = None
+        self._fisher_sum: Optional[List[torch.Tensor]] = None
+        self._fisher_n = 0
+        self._fisher_cached: Optional[List[torch.Tensor]] = None
+        seed = int(get_config(self.config, "task.seed", 0)) + 777
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
     @property
     def last_entropy(self) -> Optional[float]:
@@ -146,6 +278,18 @@ class TentAdapter:
             return None
         return float(self._last_ents[-1])
 
+    def reset_optimizer(self) -> None:
+        """Drop the accumulated optimizer state (momentum) and whatever else
+        the method carries from batch to batch — the state half of a
+        streaming re-anchor; ``restore()`` is the param half."""
+        if self._model is not None:
+            self._opt = self._build_opt()
+        self._reset_carry()
+
+    def _reset_carry(self) -> None:
+        """Per-method carried state back to its source value (Tent: none)."""
+
+    # ------------------------------------------------------------------
     def _param_mask(self, model: nn.Module) -> Dict[str, bool]:
         """True = adapted. update=norm -> norm affine params; update=all ->
         all. ``update_path_regex`` further restricts either set to params
@@ -165,8 +309,12 @@ class TentAdapter:
                 f"[tent] no adapted parameters selected (update={self.update}, "
                 f"update_path_regex={self.update_regex!r})"
             )
-        obj_desc = ("self-normalized entropy (focus=uncertain)" if self.entropy_focus == "uncertain"
-                    else "plain Tent entropy (focus=all)")
+        if self.loss_mode.split("+")[0] == "pl":
+            obj_desc = f"hard pseudo-label CE (conf_threshold={self.pl_conf_threshold})"
+        elif self.entropy_focus == "uncertain":
+            obj_desc = "self-normalized entropy (focus=uncertain)"
+        else:
+            obj_desc = "plain Tent entropy (focus=all)"
         self.logger.info(
             f"[tent] adapting {n} param tensors (of {len(mask)}), objective={obj_desc}"
             + (f" under path filter {self.update_regex!r}" if self.update_regex else "")
@@ -184,20 +332,22 @@ class TentAdapter:
         raise ValueError(f"[tent] unsupported optimizer: {self.opt_name}")
 
     def _bind(self, model: nn.Module) -> None:
-        """Select and unfreeze the adapted params, freeze the rest, and keep
-        the adapted params' source values for episodic resets."""
+        """Select and unfreeze the adapted params, freeze the rest, keep the
+        adapted params' source values, and start the carried state afresh."""
         for p in model.parameters():
             if p.device != self.device:
-                raise ValueError(f"[tent] model is on {p.device}, adapter on {self.device}")
+                raise ValueError(f"[{self.method}] model is on {p.device}, adapter on {self.device}")
         mask = self._param_mask(model)
         self._model = model
-        self._trainable = []
+        self._names, self._trainable = [], []
         for name, p in model.named_parameters():
             p.requires_grad_(mask[name])
             if mask[name]:
+                self._names.append(name)
                 self._trainable.append(p)
         self._source = [p.detach().clone() for p in self._trainable]
         self._opt = self._build_opt()
+        self._reset_carry()
         self._last_ents = None
 
     def _predict(self, logits: torch.Tensor, threshold: float) -> torch.Tensor:
@@ -207,89 +357,287 @@ class TentAdapter:
             return (torch.sigmoid(logits) >= threshold).to(torch.uint8)
         return torch.argmax(logits, dim=-1, keepdim=True).to(torch.uint8)
 
-    def _adapt(self, state: nn.Module, image: torch.Tensor, n_valid,
-               threshold: Optional[float], predict_mode: str) -> Optional[torch.Tensor]:
-        model = self._model
-        if state is not model:
-            raise ValueError("[tent] the state must be the model this function was built with")
-        if self.episodic:
-            with torch.no_grad():
-                for p, s in zip(self._trainable, self._source):
-                    p.copy_(s)
-            self._opt = self._build_opt()
-        opt = self._opt
-        image = image.to(self.device, torch.float32)
+    def _probs(self, logits: torch.Tensor) -> torch.Tensor:
+        return torch.sigmoid(logits) if self.sigmoid_mode else torch.softmax(logits, dim=-1)
+
+    def _predict_probs(self, p: torch.Tensor, threshold: float) -> torch.Tensor:
+        if self.sigmoid_mode:
+            return (p >= threshold).to(torch.uint8)
+        return torch.argmax(p, dim=-1, keepdim=True).to(torch.uint8)
+
+    @torch.no_grad()
+    def _copy_source(self) -> None:
+        for p, s in zip(self._trainable, self._source):
+            p.copy_(s)
+
+    def _prepare(self, image, n_valid):
+        """The normalized f32 image on the device, the valid-sample weights
+        and their count (at least 1)."""
+        image = torch.as_tensor(image).to(self.device, torch.float32)
         if self._norm_fn is not None:
             image = self._norm_fn(image)
-        b = image.shape[0]
-        w = (torch.arange(b, device=image.device) < n_valid).to(torch.float32)
-        denom = torch.clamp(w.sum(), min=1.0)
+        w = (torch.arange(image.shape[0], device=image.device) < n_valid).to(torch.float32)
+        return image, w, torch.clamp(w.sum(), min=1.0)
 
-        ents = []
-        logits = None
-        for _ in range(self.steps):
-            logits = model(image)
-            per_sample = entropy_loss(logits, sigmoid=self.sigmoid_mode,
-                                      focus=self.entropy_focus, per_sample=True)
-            loss = (per_sample * w).sum() / denom
+    def _begin(self, state: nn.Module, image: torch.Tensor, n_valid):
+        """Common head of a batch: the state check, the episodic reset, and
+        ``_prepare``."""
+        if state is not self._model:
+            raise ValueError(f"[{self.method}] the state must be the model this function was built with")
+        if self.episodic:
+            self._copy_source()
+            self._opt = self._build_opt()
+        return self._prepare(image, n_valid)
+
+    # ------------------------------------------------------------------
+    def step_draws(self, shape: Tuple[int, ...], n_valid: int) -> dict:
+        """One adaptation step's random numbers, from ``self.generator``."""
+        g = self.generator
+        d = {"restore": None, "drop": None, "windows": None, "cons": None}
+        if self.restore_enabled:
+            d["restore"] = restore_draws([p.shape for p in self._trainable], self.restore_prob, g)
+        if self.md_enabled:
+            d["drop"] = modality_dropout_draws(shape[0], shape[-1], g, prob=self.md_prob)
+        if self.window_enabled:
+            d["windows"] = window_draws(self.windows_per_step, n_valid, shape[1:4], self.window_roi, g)
+        if self.loss_mode.endswith("+consistency"):
+            nb = self.windows_per_step if self.window_enabled else shape[0]
+            d["cons"] = intensity_scale_shift_draws(nb, g, scale=self.cons_scale, shift=self.cons_shift,
+                                                    prob=1.0)
+        return d
+
+    def post_draws(self, shape: Tuple[int, ...]):
+        """What a post-update ensemble prediction draws (Tent: nothing)."""
+        return None
+
+    def batch_draws(self, shape: Tuple[int, ...], n_valid: int, post: bool = False) -> dict:
+        """A batch's draws: ``{"steps": [one dict per step], "post":
+        post_draws or None}``, taken before the batch runs."""
+        steps = [self.step_draws(shape, n_valid) for _ in range(self.steps)]
+        return {"steps": steps, "post": self.post_draws(shape) if post else None}
+
+    def _per_sample_objective(self, logits: torch.Tensor) -> torch.Tensor:
+        if self.loss_mode.startswith("pl"):
+            return pseudo_label_loss(logits, sigmoid=self.sigmoid_mode,
+                                     conf_threshold=self.pl_conf_threshold, per_sample=True)
+        return entropy_loss(logits, sigmoid=self.sigmoid_mode, focus=self.entropy_focus, per_sample=True)
+
+    def _batch_objective(self, logits: torch.Tensor) -> torch.Tensor:
+        if self.loss_mode.startswith("pl"):
+            return pseudo_label_loss(logits, sigmoid=self.sigmoid_mode, conf_threshold=self.pl_conf_threshold)
+        return entropy_loss(logits, sigmoid=self.sigmoid_mode, focus=self.entropy_focus)
+
+    def _objective(self, x: torch.Tensor, d: dict, w: torch.Tensor, denom: torch.Tensor):
+        """The step's loss and the logits of its (first) forward."""
+        model = self._model
+        if self.window_enabled:
+            x = apply_crop_windows(x, d["windows"], self.window_roi)
+            logits = model(x)
+            if self.rel_enabled:
+                ww = reliability_weights(logits, sigmoid=self.sigmoid_mode, margin_ratio=self.rel_margin_ratio)
+                loss = (self._per_sample_objective(logits) * ww).sum() / logits.shape[0]
+            else:
+                loss = self._batch_objective(logits)
+            if d["cons"] is not None:
+                p2 = self._probs(model(apply_intensity_scale_shift(x, *d["cons"])))
+                loss = loss + self.cons_weight * ((self._probs(logits) - p2) ** 2).mean()
+            return loss, logits
+        logits = model(x)
+        sw = w
+        if self.rel_enabled:
+            sw = w * reliability_weights(logits, sigmoid=self.sigmoid_mode, margin_ratio=self.rel_margin_ratio)
+        loss = (self._per_sample_objective(logits) * sw).sum() / denom
+        if d["cons"] is not None:
+            p2 = self._probs(model(apply_intensity_scale_shift(x, *d["cons"])))
+            per_cons = ((self._probs(logits) - p2) ** 2).mean(dim=tuple(range(1, logits.dim())))
+            loss = loss + self.cons_weight * (per_cons * w).sum() / denom
+        return loss, logits
+
+    @torch.no_grad()
+    def _after_update(self, d: dict, fisher: Optional[List[torch.Tensor]]) -> None:
+        """The Fisher proximal step, then the stochastic restore."""
+        if fisher is not None:
+            c = self.lr * self.fisher_lambda
+            for p, s, f in zip(self._trainable, self._source, fisher):
+                p.copy_(s + (p - s) / (1.0 + c * f))
+        if d["restore"] is not None:
+            apply_restore(self._trainable, self._source, d["restore"])
+
+    def _adapt(self, state: nn.Module, image: torch.Tensor, n_valid,
+               threshold: Optional[float], predict_mode: str,
+               ent_floor: Optional[float] = None) -> Optional[torch.Tensor]:
+        image, w, denom = self._begin(state, image, n_valid)
+        fisher = None
+        if self.fisher_enabled:
+            self._maybe_accumulate_fisher(image, w, denom)
+            fisher = self._fisher_arg()
+        inline = threshold is not None and predict_mode == "inline"
+        draws = self.batch_draws(tuple(image.shape), int(n_valid))["steps"]
+        opt = self._opt
+        ents, logits = [], None
+        active, e0 = True, float("nan")
+        for i, d in enumerate(draws):
+            x = image
+            if self.md_enabled and not (inline and i == self.steps - 1):
+                x = apply_modality_dropout(x, d["drop"])
+            with torch.set_grad_enabled(active):
+                loss, logits = self._objective(x, d, w, denom)
+            ents.append(loss.detach())
+            if self.early_stop:
+                # freeze once the step entropy falls below the floor: the
+                # reference discards the step's update and keeps the state
+                # for the rest of the batch (its trace then reports the
+                # frozen params' entropy, as the forwards here do)
+                ent = float(loss.detach())
+                if e0 != e0:
+                    e0 = ent
+                floor = self.early_stop_ratio * e0 if ent_floor is None or ent_floor != ent_floor else ent_floor
+                active = active and ent >= floor
+                if not active:
+                    continue
             opt.zero_grad(set_to_none=True)
             loss.backward()
             opt.step()
-            ents.append(loss.detach())
+            self._after_update(d, fisher)
         self._last_ents = torch.stack(ents)
         if threshold is None:
             return None
-        if predict_mode == "inline":
+        if inline:
             return self._predict(logits.detach(), threshold)
         with torch.no_grad():
-            return self._predict(model(image), threshold)
+            return self._predict(self._model(image), threshold)
 
+    # ------------------------------------------------------------------
+    @contextmanager
+    def _at_source(self):
+        """The adapted params at their source values for the block, then
+        back to what they were."""
+        with torch.no_grad():
+            held = [p.detach().clone() for p in self._trainable]
+            self._copy_source()
+        try:
+            yield
+        finally:
+            with torch.no_grad():
+                for p, h in zip(self._trainable, held):
+                    p.copy_(h)
+
+    def _maybe_accumulate_fisher(self, image: torch.Tensor, w: torch.Tensor, denom: torch.Tensor) -> None:
+        """Squared entropy gradients of the SOURCE model on this batch, summed
+        over the first ``fisher.batches`` batches (kept across ``make_*``)."""
+        if self._fisher_n >= self.fisher_batches:
+            return
+        with self._at_source():
+            logits = self._model(image)
+            per = entropy_loss(logits, sigmoid=self.sigmoid_mode, focus=self.entropy_focus, per_sample=True)
+            grads = torch.autograd.grad((per * w).sum() / denom, self._trainable)
+        sq = [g * g for g in grads]
+        self._fisher_sum = sq if self._fisher_sum is None else [a + b for a, b in zip(self._fisher_sum, sq)]
+        self._fisher_n += 1
+
+    def _fisher_arg(self) -> List[torch.Tensor]:
+        """Batch-mean Fisher normalized to mean 1 over all elements; cached
+        once the estimation window is full."""
+        if self._fisher_cached is not None:
+            return self._fisher_cached
+        f = [s / float(max(self._fisher_n, 1)) for s in self._fisher_sum]
+        mean = torch.stack([t.sum() for t in f]).sum() / float(sum(t.numel() for t in f))
+        out = [t / torch.clamp(mean, min=1e-30) for t in f]
+        if self._fisher_n >= self.fisher_batches:
+            self._fisher_cached = out
+        return out
+
+    # ------------------------------------------------------------------
     def restore(self) -> None:
         """Write the source values back into the bound model's adapted
-        params, drop their gradients and start a fresh optimizer — the model
-        is again what it was when it was bound. The reference's adapt
-        functions are pure and leave the caller's state alone; the port
-        adapts in place, so whoever borrowed a model (``TTAEngine.evaluate``)
-        calls this when done. The ``requires_grad`` flags stay as bound."""
+        params, drop their gradients, start a fresh optimizer and reset the
+        method's carried state — the model is again what it was when it was
+        bound. The reference's adapt functions are pure and leave the
+        caller's state alone; the port adapts in place, so whoever borrowed a
+        model (``TTAEngine.evaluate``) calls this when done. The
+        ``requires_grad`` flags stay as bound; the generator and the Fisher
+        estimate carry on, as the reference's do."""
         if self._model is None:
             return
-        with torch.no_grad():
-            for p, s in zip(self._trainable, self._source):
-                p.copy_(s)
-                p.grad = None
-        self._opt = self._build_opt()
+        self._copy_source()
+        for p in self._trainable:
+            p.grad = None
+        self.reset_optimizer()
 
     def make_adapt_fn(self, source_model: nn.Module) -> Callable:
-        """``adapt_fn(state, image, n_valid) -> state``: adapts the model in
-        place (from its source values in episodic mode) and returns it."""
+        """``adapt_fn(state, image, n_valid, ent_floor=None) -> state``:
+        adapts the model in place (from its source values in episodic mode)
+        and returns it."""
         self._bind(source_model)
 
-        def adapt_fn(state, image, n_valid):
-            self._adapt(state, image, n_valid, None, "post")
+        def adapt_fn(state, image, n_valid, ent_floor=None):
+            self._adapt(state, image, n_valid, None, "post", ent_floor)
             return state
 
         return adapt_fn
 
-    def make_adapt_predict_fn(self, source_model: nn.Module, threshold: float,
-                              predict_mode: Optional[str] = None) -> Callable:
-        """``adapt_predict_fn(state, image, n_valid) -> (state, pred uint8)``:
-        adaptation and segmentation in one call (the serving step).
-        ``predict_mode`` defaults to ``tta.predict``."""
-        mode = (predict_mode or self.predict_mode).lower()
+    def _check_predict_mode(self, mode: str) -> None:
+        """The mode's validity, and Tent's inline caveats where the class
+        keeps them (``inline_caveats``)."""
         if mode not in ("post", "inline"):
-            raise ValueError(f"[tent] unknown predict mode: {mode}")
-        if mode == "inline" and self.episodic and self.steps == 1:
+            raise ValueError(f"[{self.method}] unknown predict mode: {mode}")
+        if mode != "inline" or not self.inline_caveats:
+            return
+        if self.window_enabled:
+            raise ValueError(
+                "[tent] predict=inline needs the adaptation forward to be "
+                "whole-volume; it is incompatible with tta.window"
+            )
+        if self.episodic and self.steps == 1:
             self.logger.warning(
                 "[tent] predict=inline with episodic=true, steps=1: "
                 "predictions come from the pre-update forward and the "
                 "state resets per batch, so adaptation cannot affect any "
                 "prediction — use episodic=false (continual) or steps>1"
             )
+        if self.md_enabled and self.steps == 1:
+            self.logger.warning(
+                "[tent] predict=inline runs the final (here: only) step "
+                "on the CLEAN batch so served predictions are never "
+                "dropout-corrupted — with steps=1 modality_dropout "
+                "therefore never applies; use steps>1"
+            )
+
+    def make_adapt_predict_fn(self, source_model: nn.Module, threshold: float,
+                              predict_mode: Optional[str] = None) -> Callable:
+        """``adapt_predict_fn(state, image, n_valid, ent_floor=None) ->
+        (state, pred uint8)``: adaptation and segmentation in one call (the
+        serving step). ``predict_mode`` defaults to ``tta.predict``."""
+        mode = (predict_mode or self.predict_mode).lower()
+        self._check_predict_mode(mode)
         self._bind(source_model)
         thr = float(threshold)
 
-        def adapt_predict_fn(state, image, n_valid):
-            pred = self._adapt(state, image, n_valid, thr, mode)
+        def adapt_predict_fn(state, image, n_valid, ent_floor=None):
+            pred = self._adapt(state, image, n_valid, thr, mode, ent_floor)
             return state, pred
 
         return adapt_predict_fn
+
+    def make_forward_predict_fn(self, source_model: nn.Module, threshold: float) -> Callable:
+        """``forward_predict_fn(state, image, n_valid) -> (pred uint8,
+        entropy_objective, entropy_gate)``: the gated-serving fast path — one
+        plain forward of the state's current params, no backward and no
+        state change. ``entropy_objective`` is the adapt step's entropy
+        (mode and ``entropy_focus``), ``entropy_gate`` the plain volume-mean
+        entropy (focus "all"), the drift detector; both reach the host in
+        one copy."""
+        thr = float(threshold)
+        focus = self.entropy_focus
+
+        @torch.no_grad()
+        def forward_predict_fn(state, image, n_valid):
+            image, w, denom = self._prepare(image, n_valid)
+            logits = state(image)
+            obj = entropy_loss(logits, sigmoid=self.sigmoid_mode, focus=focus, per_sample=True)
+            gate = obj if focus == "all" else entropy_loss(logits, sigmoid=self.sigmoid_mode, focus="all",
+                                                           per_sample=True)
+            e = torch.stack([(obj * w).sum() / denom, (gate * w).sum() / denom]).tolist()
+            return self._predict(logits, thr), e[0], e[1]
+
+        return forward_predict_fn

@@ -9,7 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
-from multimodal_tta_tpu_torch.models.convert import unet3d_from_flax
+from multimodal_tta_tpu_torch.models.convert import flax_path, unet3d_from_flax
 
 # HECKTOR21 on-device transform (mirror of bench.py's DEVICE_TRANSFORM)
 HECKTOR_POLICY = {
@@ -86,3 +86,234 @@ def flat_flax(tree) -> dict:
     """A flax params-like tree as ``{'/'-joined path: leaf}``."""
     leaves = jax.tree_util.tree_flatten_with_path(tree)[0]
     return {"/".join(str(getattr(p, "key", p)) for p in path): leaf for path, leaf in leaves}
+
+
+# ---------------------------------------------------------------------------
+# TTA parity: the same weights, batches and random draws through a JAX
+# adapter and its port (tests/test_torch_tta_*.py, tests/test_torch_stream.py)
+
+TTA_SEED = 0
+
+
+def tta_config(method: str = "tent", *, softmax: bool = False, **tta) -> dict:
+    """A config dict: the criterion mode, ``task.seed`` and a ``tta`` node
+    with the Tent defaults of the parity tests, updated by ``tta``."""
+    base = {"method": method, "steps": 1, "lr": 1e-3, "optimizer": "sgd", "momentum": 0.9,
+            "update": "norm", "episodic": True}
+    base.update(tta)
+    crit = {"softmax": True, "sigmoid": False} if softmax else {"sigmoid": True}
+    return {"task": {"seed": TTA_SEED}, "training": {"criterion": crit}, "tta": base}
+
+
+def dryrun_params(seed: int = 0, num_classes: int = 1):
+    """Randomized params of the dryrun UNet3D (16^3 volumes)."""
+    from multimodal_tta_tpu.models.unet3d import UNet3D as JaxUNet3D
+
+    x0 = np.zeros((1, 16, 16, 16, 2), np.float32)
+    return randomize(np_params(JaxUNet3D(**dict(DRYRUN, num_classes=num_classes)), x0, train=False), seed)
+
+
+def volumes(n: int, seed: int = 0, shape=(2, 16, 16, 16, 2)):
+    rng = np.random.RandomState(seed)
+    return [(rng.randn(*shape) * 100).astype(np.float32) for _ in range(n)]
+
+
+def jax_trainable_paths(params) -> list:
+    """'/'-joined paths of the JAX Tent adapter's norm-affine leaves, in the
+    order its tree functions flatten them (the order of its restore keys)."""
+    from multimodal_tta_tpu.tta.tent import norm_param_mask as jax_norm_param_mask
+
+    mask = jax_norm_param_mask(params)
+    trainable = jax.tree_util.tree_map(lambda p, m: p if m else None, params, mask)
+    return ["/".join(str(getattr(k, "key", k)) for k in path)
+            for path, _ in jax.tree_util.tree_flatten_with_path(trainable)[0]]
+
+
+def _t(a, dtype=None) -> torch.Tensor:
+    t = torch.from_numpy(np.array(a))
+    return t if dtype is None else t.to(dtype)
+
+
+def _jax_dropout(key, b: int, m: int, prob: float) -> torch.Tensor:
+    k1, k2 = jax.random.split(key)
+    drop = jax.random.uniform(k1, (b, m)) < prob
+    keep = jax.random.randint(k2, (b,), 0, m)
+    return _t(jnp.where(jax.nn.one_hot(keep, m, dtype=bool), False, drop))
+
+
+def _jax_scale_shift(key, nb: int, scale: float, shift: float):
+    """``rand_intensity_scale_shift`` with prob 1: (factor, offset)."""
+    _, k2, _, k4 = jax.random.split(key, 4)
+    factor = 1.0 + jax.random.uniform(k2, (nb,), minval=-scale, maxval=scale)
+    offset = jax.random.uniform(k4, (nb,), minval=-shift, maxval=shift)
+    return _t(factor.astype(jnp.float32)), _t(offset.astype(jnp.float32))
+
+
+def _jax_restore(key, adapter, paths, prob):
+    """The reference's restore masks, in the port adapter's param order."""
+    shapes = {flax_path(n): tuple(p.shape) for n, p in zip(adapter._names, adapter._trainable)}
+    masks = {path: _t(jax.random.bernoulli(k, prob, shapes[path]))
+             for k, path in zip(jax.random.split(key, len(paths)), paths)}
+    return [masks[flax_path(n)] for n in adapter._names]
+
+
+def _jax_views(key, n: int, shape, scale: float, shift: float, noise: float):
+    out = []
+    for k in (jax.random.split(key, n) if n > 0 else []):
+        k_int, k_noise = jax.random.split(k)
+        factor, offset = _jax_scale_shift(k_int, shape[0], scale, shift)
+        z = _t(jax.random.normal(k_noise, tuple(shape), jnp.float32)) if noise > 0.0 else None
+        out.append((factor, offset, z))
+    return out
+
+
+class JaxDraws:
+    """Stands in for a port adapter's ``batch_draws``: the draws the JAX
+    adapter of the same config takes from its ``PRNGKey(task.seed + 777)``,
+    rebuilt from the reference's key-split order (tent.py grad_step: the
+    restore key first, then ``k_md, k_obj``; sar.py: the step key is the
+    dropout key; cotta.py: the restore key, then ``k_views, k_md``; memo.py:
+    the restore key, then ``k_md, k_views``; a post-update ensemble from
+    ``fold_in(batch key, steps)``)."""
+
+    def __init__(self, adapter, params):
+        self.ad = adapter
+        self.paths = jax_trainable_paths(params)
+        self.rng = jax.random.PRNGKey(TTA_SEED + 777)
+
+    def __call__(self, shape, n_valid, post=False):
+        self.rng, key = jax.random.split(self.rng)
+        steps = [self.step(k, shape, n_valid) for k in jax.random.split(key, self.ad.steps)]
+        post_d = None
+        if post:
+            post_d = self.views(jax.random.fold_in(key, self.ad.steps), shape)
+        return {"steps": steps, "post": post_d}
+
+    def views(self, key, shape):
+        ad = self.ad
+        return _jax_views(key, ad.n_views - 1, shape, ad.aug_scale, ad.aug_shift, ad.aug_noise)
+
+    def step(self, key, shape, n_valid):
+        ad, b, m = self.ad, shape[0], shape[-1]
+        method = ad.method
+        d = {"restore": None, "drop": None, "windows": None, "cons": None}
+        if method == "sar":
+            if ad.md_enabled:
+                d["drop"] = _jax_dropout(key, b, m, ad.md_prob)
+            return d
+        if method == "cotta":
+            key, k_rst = jax.random.split(key)
+            k_views, k_md = jax.random.split(key)
+        else:
+            if ad.restore_enabled:
+                key, k_rst = jax.random.split(key)
+            if method == "memo":
+                k_md, k_views = jax.random.split(key)
+            else:
+                k_md, k_obj = jax.random.split(key)
+        if ad.restore_enabled:
+            d["restore"] = _jax_restore(k_rst, ad, self.paths, ad.restore_prob)
+        if ad.md_enabled:
+            d["drop"] = _jax_dropout(k_md, b, m, ad.md_prob)
+        if method in ("cotta", "memo"):
+            d["views"] = self.views(k_views, shape)
+            return d
+        k_cons, nb = k_obj, b
+        if ad.window_enabled:
+            k_crop, k_cons = jax.random.split(k_obj)
+            ks, kd, kh, kw = jax.random.split(k_crop, 4)
+            w = ad.windows_per_step
+            cols = [jax.random.randint(ks, (w,), 0, max(n_valid, 1))]
+            for kk, size, r in zip((kd, kh, kw), shape[1:4], ad.window_roi):
+                cols.append(jax.random.randint(kk, (w,), 0, max(size - r, 0) + 1))
+            d["windows"] = _t(jnp.stack(cols, axis=1), torch.int64)
+            nb = w
+        if ad.loss_mode.endswith("+consistency"):
+            d["cons"] = _jax_scale_shift(k_cons, nb, ad.cons_scale, ad.cons_shift)
+        return d
+
+
+def jax_state(params, num_classes: int = 1):
+    import optax
+
+    from multimodal_tta_tpu.core.train_state import TrainState
+    from multimodal_tta_tpu.models.unet3d import UNet3D as JaxUNet3D
+
+    jm = JaxUNet3D(**dict(DRYRUN, num_classes=num_classes))
+    return TrainState.create(apply_fn=jm.apply, params=jax.tree_util.tree_map(jnp.asarray, params),
+                             tx=optax.identity())
+
+
+def run_jax_adapter(cls, params, cfg_dict, batches, n_valid, mode, threshold=0.3, floors=None,
+                    num_classes=1):
+    """A JAX adapter over ``batches``: ``mode`` None = ``make_adapt_fn``,
+    else ``make_adapt_predict_fn`` in that mode. Returns the adapted params
+    as a port state dict, the entropy trace per batch, the predictions and
+    the adapter."""
+    from multimodal_tta_tpu.conf import ConfigNode as JaxConfigNode
+
+    cfg = JaxConfigNode(cfg_dict)
+    state = jax_state(params, num_classes)
+    adapter = cls(cfg.tta, config=cfg, mesh=None, device_transform=DEVICE_TRANSFORM)
+    if mode is None:
+        fn = adapter.make_adapt_fn(state)
+    else:
+        fn = adapter.make_adapt_predict_fn(state, threshold=threshold, predict_mode=mode)
+    cur, ents, preds = state, [], []
+    for i, x in enumerate(batches):
+        floor = None if floors is None else floors[i]
+        out = fn(cur, jnp.asarray(x), n_valid, ent_floor=floor)
+        if mode is None:
+            cur = out
+        else:
+            cur, pred = out
+            preds.append(np.asarray(pred))
+        ents.append(np.asarray(adapter._last_ents))
+    adapted = unet3d_from_flax(jax.tree_util.tree_map(np.asarray, cur.params))
+    return adapted, ents, preds, adapter
+
+
+def run_torch_adapter(cls, params, cfg_dict, batches, n_valid, mode, threshold=0.3, floors=None,
+                      num_classes=1, model=None):
+    """The port's adapter the same way, its draws from ``JaxDraws``."""
+    from multimodal_tta_tpu_torch.conf import ConfigNode
+    from multimodal_tta_tpu_torch.models.unet3d import UNet3D
+
+    cfg = ConfigNode(cfg_dict)
+    if model is None:
+        model = load_flax(UNet3D(**dict(DRYRUN, num_classes=num_classes), device="cpu"), params)
+    adapter = cls(cfg.tta, config=cfg, device_transform=DEVICE_TRANSFORM, device="cpu")
+    adapter.batch_draws = JaxDraws(adapter, params)
+    if mode is None:
+        fn = adapter.make_adapt_fn(model)
+    else:
+        fn = adapter.make_adapt_predict_fn(model, threshold=threshold, predict_mode=mode)
+    ents, preds = [], []
+    for i, x in enumerate(batches):
+        floor = None if floors is None else floors[i]
+        out = fn(model, torch.from_numpy(x), n_valid, ent_floor=floor)
+        if mode is not None:
+            assert out[0] is model and out[1].dtype == torch.uint8
+            preds.append(out[1].numpy())
+        ents.append(adapter._last_ents.numpy())
+    adapted = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    return adapted, ents, preds, adapter
+
+
+def assert_adapted_close(t_adapted, j_adapted, source, names, rel=1e-3):
+    """Adapted-minus-source deltas of ``names`` within ``rel`` relative L2;
+    every other tensor at its source value."""
+    dj = torch.cat([(j_adapted[n] - source[n]).flatten() for n in names])
+    dt = torch.cat([(t_adapted[n] - source[n]).flatten() for n in names])
+    assert float(dj.norm()) > 0
+    assert float((dt - dj).norm() / dj.norm()) < rel, float((dt - dj).norm() / dj.norm())
+    for n in t_adapted:
+        if n not in names:
+            assert torch.equal(t_adapted[n], source[n]), n
+
+
+def assert_preds_close(t_preds, j_preds, agree=0.999):
+    assert len(t_preds) == len(j_preds)
+    for a, b in zip(t_preds, j_preds):
+        assert a.shape == b.shape
+        assert (a == b).mean() >= agree

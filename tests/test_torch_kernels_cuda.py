@@ -179,6 +179,26 @@ def test_fused_instance_norm_at_the_batch8_training_shapes(shape, fwd, bwd, dtyp
     _need_card()
     x, gamma, beta, gy = _norm_case(shape, dtype, seed=7)
     assert plan_for(x).regime == fwd and plan_for(x, backward=True).regime == bwd
+    _forward_and_backward_match_plain(x, gamma, beta, gy, dtype)
+
+
+# the norm shapes of windowed Tent: the stock 4 windows of [32,96,96]
+# (configs/tta/tent.yaml) down the flagship's levels
+WINDOW_CASES = [(4, 32 >> lv, 96 >> lv, 96 >> lv, c)
+                for lv, cs in enumerate(((32,), (32, 64), (64, 128), (128, 256), (256, 512))) for c in cs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", WINDOW_CASES)
+def test_fused_instance_norm_at_the_window_shapes(shape):
+    """Windowed Tent's shapes, bf16, forward and backward against the plain
+    versions with the tolerances of the batch-8 test."""
+    _need_card()
+    x, gamma, beta, gy = _norm_case(shape, torch.bfloat16, seed=8)
+    _forward_and_backward_match_plain(x, gamma, beta, gy, torch.bfloat16)
+
+
+def _forward_and_backward_match_plain(x, gamma, beta, gy, dtype):
     y, stats = instance_norm_forward(x, gamma, beta, relu=True)
     want_y, mean, rstd = _plain_forward(x, gamma, beta, 1e-5, True)
     atol, rtol = TOLS[dtype]
@@ -409,3 +429,51 @@ def test_checkpoint_round_trip_on_the_card(tmp_path):
         p.grad = torch.ones_like(p)
     got.apply_gradients()
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_sar_step_kernel_matches_plain_norm_in_f32():
+    """One f32 SAR step (two forwards and two backwards: the SAM ascent and
+    descent) through the norm kernels against the same step through the
+    plain norm: entropy within 1e-4 relative, norm-param deltas within 1e-3
+    relative L2 (the limits of chip_smoke.py's training parity), with
+    TF32 off as in chip_smoke.py (with the default TF32 convolutions the
+    check failed on the card)."""
+    _need_card()
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        _sar_step_kernel_vs_plain()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def _sar_step_kernel_vs_plain():
+    from multimodal_tta_tpu_torch.conf import ConfigNode
+    from multimodal_tta_tpu_torch.models.layers import InstanceNorm, set_plain_norm
+    from multimodal_tta_tpu_torch.models.unet3d import UNet3D
+    from multimodal_tta_tpu_torch.tta.sar import SarAdapter
+
+    x = torch.randn((2, 16, 32, 32, 2), generator=torch.Generator("cuda").manual_seed(3), device="cuda")
+    cfg = ConfigNode({"task": {"seed": 0}, "tta": {"method": "sar", "steps": 1, "lr": 1e-2,
+                                                    "entropy_focus": "uncertain", "margin_ratio": 1.0,
+                                                    "reset_floor_ratio": 0.0}})
+    out = {}
+    for plain in (False, True):
+        model = UNet3D(channels=(16, 32, 64), strides=(2, 2), device="cuda", seed=4)
+        n_norm = sum(isinstance(m, InstanceNorm) for m in model.modules())
+        set_plain_norm(model, plain)
+        ad = SarAdapter(cfg.tta, config=cfg, device="cuda")
+        fn = ad.make_adapt_fn(model)
+        src = [p.detach().clone() for p in ad._trainable]
+        at = (fused_instance_norm.launches, fused_instance_norm.backward_launches)
+        fn(model, x, 2)
+        torch.cuda.synchronize()
+        ran = (fused_instance_norm.launches - at[0], fused_instance_norm.backward_launches - at[1])
+        out[plain] = (ad.last_entropy, torch.cat([(p.detach() - q).flatten() for p, q in zip(ad._trainable, src)]),
+                      ran)
+    (e_k, d_k, ran_k), (e_p, d_p, ran_p) = out[False], out[True]
+    assert ran_k == (2 * n_norm, 2 * n_norm) and ran_p == (0, 0), (ran_k, ran_p, n_norm)
+    assert abs(e_k - e_p) <= 1e-4 * abs(e_p), (e_k, e_p)
+    rel = float((d_k - d_p).norm() / d_p.norm())
+    assert float(d_p.norm()) > 0 and rel <= 1e-3, (float(d_p.norm()), rel)

@@ -1,6 +1,8 @@
 """Parity of the port's losses (multimodal_tta_tpu_torch/ops/losses.py) with
 the JAX ones. ``entropy_loss``, the Tent objective: value, per-sample value
 (the JAX Tent step's vmap) and gradient, in both focus modes.
+``pseudo_label_loss``, the PL objective: the same, in both modes, and zero
+loss and gradient where no voxel is confident.
 ``dice_ce_loss``, ``generalized_wasserstein_dice_loss`` / ``gwdl_ce_loss``
 and the criterion factories: forward value, 1e-5 relative (f32 means over a
 few hundred voxels in another order), and the gradient against
@@ -48,6 +50,30 @@ def test_per_sample(sigmoid, focus):
     got = entropy_loss(torch.from_numpy(x), sigmoid=sigmoid, focus=focus, per_sample=True)
     assert tuple(got.shape) == (x.shape[0],)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5)
+
+
+@pytest.mark.parametrize("sigmoid", [True, False], ids=["sigmoid", "softmax"])
+@pytest.mark.parametrize("conf", [0.6, 0.9])
+def test_pseudo_label_loss_value_per_sample_and_grad(sigmoid, conf):
+    x = _logits(sigmoid, seed=2)
+    jfn = lambda l: jlosses.pseudo_label_loss(l, sigmoid=sigmoid, conf_threshold=conf)  # noqa: E731
+    want, want_g = jax.value_and_grad(jfn)(jnp.asarray(x))
+    xt = torch.from_numpy(x).requires_grad_()
+    got = tlosses.pseudo_label_loss(xt, sigmoid=sigmoid, conf_threshold=conf)
+    (got_g,) = torch.autograd.grad(got, xt)
+    np.testing.assert_allclose(float(got.detach()), float(want), rtol=1e-5)
+    np.testing.assert_allclose(got_g.numpy(), np.asarray(want_g), rtol=1e-4, atol=1e-9)
+    want_ps = jax.vmap(lambda l: jfn(l[None]))(jnp.asarray(x))
+    got_ps = tlosses.pseudo_label_loss(torch.from_numpy(x), sigmoid=sigmoid, conf_threshold=conf, per_sample=True)
+    assert tuple(got_ps.shape) == (x.shape[0],)
+    np.testing.assert_allclose(got_ps.numpy(), np.asarray(want_ps), rtol=1e-5)
+
+
+def test_pseudo_label_loss_abstains_without_confident_voxels():
+    xt = torch.zeros(2, 3, 3, 3, 1, requires_grad=True)  # p = 0.5 everywhere
+    loss = tlosses.pseudo_label_loss(xt, conf_threshold=0.9)
+    (g,) = torch.autograd.grad(loss, xt)
+    assert float(loss.detach()) == 0.0 and not bool(g.any())
 
 
 def test_unknown_focus_raises():

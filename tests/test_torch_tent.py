@@ -225,14 +225,20 @@ def test_state_must_be_the_bound_model():
 
 
 @pytest.mark.parametrize("tta", [
-    {"modality_dropout": {"enabled": True}}, {"window": {"enabled": True}},
+    {"modality_dropout": {"enabled": True}}, {"window": {"enabled": True, "roi_size": [16, 16, 16]}},
     {"early_stop": {"enabled": True}}, {"restore": {"enabled": True}},
     {"reliability": {"enabled": True}}, {"fisher": {"enabled": True}},
     {"loss": "entropy+consistency"}, {"loss": "pl"},
 ])
 def test_unported_extras_raise(tta):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TentAdapter(ConfigNode(_cfg(**tta)["tta"]), device="cpu")
+    """Each Tent extra, which raised before it was ported, now constructs
+    and runs one step on the CPU (their parity with the reference:
+    tests/test_torch_tta_extras.py)."""
+    cfg = ConfigNode(_cfg(steps=1, lr=1e-2, **tta))
+    ad = TentAdapter(cfg.tta, config=cfg, device_transform=DEVICE_TRANSFORM, device="cpu")
+    model = UNet3D(**DRYRUN, device="cpu", seed=3)
+    _, pred = ad.make_adapt_predict_fn(model, THRESHOLD, "post")(model, torch.from_numpy(_batches(1, seed=12)[0]), 2)
+    assert pred.shape == (2, 16, 16, 16, 1) and len(ad._last_ents) == 1 and np.isfinite(ad.last_entropy)
 
 
 @pytest.mark.parametrize("tta", [{"loss": "mystery"}, {"predict": "nope"},
