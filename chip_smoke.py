@@ -107,6 +107,31 @@ Phases, in order (any failure propagates and exits non-zero):
                entropy gate at a probed ``gate.threshold`` (escalates and drops
                back), launches counted exactly.
 
+ 16. brats   — the BraTS recipe of train_brats.sh on the mid-fusion UNet at full
+               width (channels 32..512, bf16, 4 modalities, 3 regions, remat):
+               one forward on [2,160,192,160,4] (52 norm launches, logits
+               against the plain norm, domain logits [8,4]); both norm kernels
+               against their plain versions at each of its 9 norm shapes, bf16
+               and f32, with the regime each took, and timed; training through
+               ``ExperimentManager`` (``brats_train_and_serve``: the recipe
+               composed from configs/ with modality dropout, 2 epochs of 4
+               synthetic volumes, validation with surface metrics: finite
+               losses, every tensor moved but the domain head's two, 104 + 52
+               launches a step, each validation EDT bitwise its plain
+               version, ms a step, volumes/s, peak memory); the trained
+               weights through ``TTAEngine.evaluate`` (none, episodic Tent,
+               continual Tent, Tent with modality dropout; two domains; the
+               launches as ``expected_tta_launches`` derives them with remat),
+               one Tent step (all 98 norm tensors get a gradient, its peak
+               memory) and the Tent serving step (post, inline); the EDT of an
+               evaluated batch's 12 surfaces, one launch, bitwise and timed;
+               f32 training steps on [1,64,96,64,4] with and without remat and
+               kernel vs plain norm; late fusion, UNet3D-WS and SegResNet at full width
+               (``brats_other_models``: 72, 16 and 0 norm launches a forward,
+               logits vs plain, a Tent step); ``cli.train`` and ``cli.adapt``
+               on a BraTS NIfTI fixture at (96,96,64) (``brats_cli``), each
+               call's launches counted exactly.
+
 Phase 2 also holds the norm kernels against their plain versions at the nine
 norm shapes of the batch-8 training step (the largest, [8,48,144,144,32], in
 bf16 and f32) and at the nine shapes of windowed Tent's 4 windows.
@@ -534,11 +559,12 @@ def sar_resets(adapter, traces, n_classes: int = 2) -> list:
     return out
 
 
-def expected_tta_launches(adapter, n_batches: int, traces, per_forward: int = 18) -> tuple:
+def expected_tta_launches(adapter, n_batches: int, traces, per_forward: int = 18, recompute: int = 0) -> tuple:
     """(forward, backward) norm kernel launches of ``TTAEngine.evaluate``
     over ``n_batches`` batches whose entropy traces are ``traces``, derived from the
     reference's step structure: each batch's evaluation forward, plus per
-    adaptation step
+    adaptation step (each backward of a Tent-engine step also runs the
+    forward of the ``recompute`` rematerialized norms again)
       - Tent engine (tent, pl, eata): one forward and one backward, two of
         each with ``+consistency`` (a frozen early-stop step forwards without
         a backward); the Fisher estimate one of each on its first batches;
@@ -565,9 +591,10 @@ def expected_tta_launches(adapter, n_batches: int, traces, per_forward: int = 18
             fwd, bwd = fwd + 2 * adapter.n_views * f * k, bwd + adapter.n_views * f * k
         else:
             per = 2 if adapter.loss_mode.endswith("+consistency") else 1
-            fwd, bwd = fwd + per * f * k, bwd + per * f * active_steps(adapter, trace)
+            active = active_steps(adapter, trace)
+            fwd, bwd = fwd + per * (f * k + recompute * active), bwd + per * f * active
             if adapter.fisher_enabled and i < adapter.fisher_batches:
-                fwd, bwd = fwd + f, bwd + f
+                fwd, bwd = fwd + f + recompute, bwd + f
     return fwd, bwd
 
 
@@ -678,10 +705,12 @@ def stream_phase(device, manifest: str, best: str, root: str, *, extra=(), reset
 
 
 def tta_phase(device, model, batches, *, runs=TTA_RUNS, extra=(), reset_counts=lambda: None,
-              read_counts=lambda: {}) -> dict:
+              read_counts=lambda: {}, base=tta_overrides, device_transform=None, region: str = "gtvt") -> dict:
     """Phase 15: every TTA method of the port through ``TTAEngine.evaluate``
     on ``model`` over ``batches`` (dicts of image, label, domain), with the
-    stock configs of configs/tta/ composed into the HECKTOR21 recipe.
+    stock configs of configs/tta/ composed into the HECKTOR21 recipe
+    (phase 16: ``base`` composes the BraTS recipe, ``device_transform`` is
+    its transform, ``region`` a region of its report).
 
     Checks what holds on any device: every metric finite, the model bitwise
     its source after each run, what each method carries reset. Per run it
@@ -706,8 +735,8 @@ def tta_phase(device, model, batches, *, runs=TTA_RUNS, extra=(), reset_counts=l
     source = {k: v.detach().clone() for k, v in model.state_dict().items()}
     out = {}
     for tag, overrides in runs:
-        cfg = compose(os.path.join(REPO, "configs"), "config", tta_overrides(*overrides, *extra))
-        engine = TTAEngine(cfg, device_transform=DEVICE_TRANSFORM, device=dev)
+        cfg = compose(os.path.join(REPO, "configs"), "config", base(*overrides, *extra))
+        engine = TTAEngine(cfg, device_transform=device_transform or DEVICE_TRANSFORM, device=dev)
         adapter, strategy = engine.adapter, engine.strategy
         traces, marks, copies = [], [], []
         if hasattr(adapter, "_adapt"):
@@ -743,7 +772,7 @@ def tta_phase(device, model, batches, *, runs=TTA_RUNS, extra=(), reset_counts=l
         wall = time.perf_counter() - t0
         ms = [(b - a) * 1e3 for a, b in zip([t0] + marks[:-1], marks)]
         bad = {k: v for k, v in metrics.items() if not np.isfinite(v)}
-        if bad or "gtvt_hd95" not in metrics:
+        if bad or f"{region}_hd95" not in metrics:
             raise AssertionError(f"{tag}: metrics not finite or incomplete: {bad or sorted(metrics)}")
         changed = [k for k, v in model.state_dict().items() if not torch.equal(v, source[k])]
         if changed:
@@ -755,7 +784,467 @@ def tta_phase(device, model, batches, *, runs=TTA_RUNS, extra=(), reset_counts=l
             raise AssertionError(f"{tag}: CoTTA's teacher was not reset")
         out[tag] = {"metrics": metrics, "launches": counts, "traces": traces, "source_copies": copies,
                     "ms_per_batch": ms, "wall_s": wall,
-                    "adapter": adapter, "batches": len(batches), "config": cfg.tta.to_container()}
+                    "adapter": adapter, "batches": len(batches), "config": cfg.tta.to_container(),
+                    "model_unchanged": not changed}
+    return out
+
+
+# ---- phase 16: the BraTS recipe of train_brats.sh ---------------------------
+BRATS_SHAPE = (160, 192, 160)  # [D,H,W]: configs/dataset/brats.yaml's expected_shape, as the builder yields it
+BRATS_BATCH = 2  # train_brats.sh: BS and EVAL_BS
+BRATS_NORMS = 52  # norm calls of one mid-fusion forward: 40 in the encoders, 4 in the fusion, 8 in the decoder
+BRATS_PARAMS = (208, 98)  # the mid-fusion model's parameter tensors and norm affines
+BRATS_TRAIN_VOLUMES, BRATS_VAL_VOLUMES, BRATS_TTA_BATCHES, BRATS_SERVING_STEPS = 4, 2, 2, 3
+BRATS_THRESHOLD = 0.5  # configs/_global_patches/brats.yaml evaluation.seg.threshold
+BRATS_DOMAINS = ("brats24_ssa", "brats24_ped")  # configs/dataset/brats.yaml's two test sources
+# the runs of TTAEngine.evaluate: no adaptation, Tent episodic (post-update
+# predictions) and continual (inline), and BASELINE.json config #3: Tent
+# with missing-modality dropout
+BRATS_TTA_RUNS = [
+    ("none", ["tta=none"]),
+    ("tent_episodic_post", ["tta=tent", "tta.episodic=true", "tta.predict=post"]),
+    ("tent_continual_inline", ["tta=tent", "tta.episodic=false", "tta.predict=inline"]),
+    ("tent_modality_dropout", ["tta=tent", "tta.modality_dropout.enabled=true"]),
+]
+# the CLIs' BraTS NIfTI fixture, (X,Y,Z) on disk: scripts/validate_tta_brats.py's shape
+BRATS_CLI_SHAPE = (96, 96, 64)
+BRATS_CLI_SOURCES = {"glipre": {"profile": "gli", "cases": {"train": 4, "test": 2}},
+                     "ssa": {"profile": "ssa", "cases": {"test": 2}},
+                     "ped": {"profile": "ped", "cases": {"test": 2}}}
+
+
+def brats_overrides(*extra: str) -> list:
+    """train_brats.sh's recipe (task, dataset and model, training=default,
+    batch 2, eval batch 2, adam at lr 1e-4, remat) with training-time
+    modality dropout on the device (configs/_global_patches/brats.yaml's
+    switch), surface metrics on, seed 0, then ``extra``."""
+    return ["task=brats", "dataset=brats", "model=unet_multimodal_midfusion", "training=default",
+            f"training.batch_size={BRATS_BATCH}", f"training.eval_batch_size={BRATS_BATCH}",
+            "training.optimizer=adam", "training.optimizers.adam.lr=1e-4", "training.remat=true",
+            "training.data.transforms.on_device=true", "training.data.transforms.modality_dropout.enabled=true",
+            "evaluation.surface.enable=true", "task.seed=0", *extra]
+
+
+def check_brats_metrics(tag: str, metrics: dict) -> None:
+    """Every value finite and non-negative; Dice, IoU and NSD at most 1."""
+    for k, v in metrics.items():
+        base = k.rsplit("/", 1)[-1]
+        bounded = base.endswith(("_dc", "_iou", "_nsd")) or base in ("avg_dc", "avg_iou", "miou", "jc")
+        if not (math.isfinite(float(v)) and v >= 0 and (not bounded or v <= 1 + 1e-6)):
+            raise AssertionError(f"{tag}: {k} = {v}")
+    if "et_hd95" not in metrics:
+        raise AssertionError(f"{tag}: keys {sorted(metrics)}")
+
+
+def _counted(counts: dict, want: dict) -> bool:
+    """``counts`` equal ``want`` on every key the counter has (on the card:
+    norm forward and backward, min-plus, plain backward; a missing want is
+    0), and the counter has the norm keys."""
+    return {"forward", "backward"} <= set(counts) and all(counts[k] == want.get(k, 0) for k in counts)
+
+
+def brats_train_and_serve(device, root: str, *, shape=BRATS_SHAPE, extra=(), reset_counts=lambda: None,
+                          read_counts=lambda: {}, per_forward: int = BRATS_NORMS) -> dict:
+    """Phase 16, training and serving: the train_brats.sh recipe through
+    ``ExperimentManager`` (2 epochs over ``BRATS_TRAIN_VOLUMES`` synthetic
+    volumes of ``shape`` from ``data/synthetic.py`` handed in as arrays,
+    validation with surface metrics each epoch), then its trained weights
+    through ``TTAEngine.evaluate`` (``BRATS_TTA_RUNS`` over two domains), one
+    Tent step alone (its gradients and peak memory) and the Tent serving
+    step (``make_adapt_predict_fn``), post and inline.
+
+    Checks what holds on any device: finite losses; every tensor moved but
+    the domain head's two (no loss reaches it, as in the reference); the
+    launches of every step, validation batch and run exactly as remat and the
+    step structure derive them (``read_counts`` after ``reset_counts``;
+    with remat on, each backward runs the forward of all ``per_forward``
+    norms again); each validation batch's EDT bitwise its plain version;
+    finite metrics in range; every norm tensor reached by Tent's gradient;
+    the model bitwise its trained weights after each run. The model,
+    its trained state and the numbers come back for the caller."""
+    import shutil
+    import statistics
+
+    import numpy as np
+    import torch
+
+    import multimodal_tta_tpu_torch.ops.surface as surface_module
+    from multimodal_tta_tpu_torch.conf import compose
+    from multimodal_tta_tpu_torch.core.experiment_manager import ExperimentManager
+    from multimodal_tta_tpu_torch.core.trainer_base import HookBase
+    from multimodal_tta_tpu_torch.data import HostLoader
+    from multimodal_tta_tpu_torch.data.synthetic import brats_volumes
+    from multimodal_tta_tpu_torch.kernels.edt_minplus import squared_edt_volumes, squared_edt_volumes_plain
+    from multimodal_tta_tpu_torch.registry import get_dataset_builder
+    from multimodal_tta_tpu_torch.tta.tent import TentAdapter, norm_param_mask
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def base(*o):
+        return brats_overrides(*o, *extra)
+
+    shutil.rmtree(root, ignore_errors=True)
+    configs = os.path.join(REPO, "configs")
+    out: dict = {}
+    t0 = time.perf_counter()
+    train_set = brats_volumes(BRATS_TRAIN_VOLUMES, shape, seed=41)
+    val_set = brats_volumes(BRATS_VAL_VOLUMES, shape, seed=42)
+    vols = brats_volumes(BRATS_BATCH * BRATS_TTA_BATCHES, shape, seed=43, domains=BRATS_DOMAINS)
+    out["data_s"] = time.perf_counter() - t0
+
+    run_dir = os.path.join(root, "train")
+    cfg = compose(configs, "config", base("training.epochs=2", "training.model_save_start=0",
+                                          "training.model_save_freq=1", "training.eval_test.every_n_epochs=1",
+                                          f"task.save_dir={run_dir}", f"hydra.run.dir={run_dir}"))
+    builder = get_dataset_builder("brats")(cfg)
+    m = ExperimentManager(cfg, device=dev)
+    model = m.setup_model()
+    m.setup_optimizer()
+    m.setup_scheduler()
+    m.train_loader = HostLoader(train_set, batch_size=BRATS_BATCH, shuffle=True, drop_last=True, num_workers=2,
+                                seed=0)
+    m.val_loader = HostLoader(val_set, batch_size=BRATS_BATCH, num_workers=2)
+    m.device_transform = builder.build_transform("train").device_spec()
+    m.setup_trainer()
+    recompute = per_forward if model.remat else 0
+
+    class StepRecorder(HookBase):
+        def __init__(self):
+            self.launches, self.losses, self.ms = [], [], []
+
+        def before_train_step(self):
+            sync()
+            self._at, self._t = read_counts(), time.perf_counter()
+
+        def after_train_step(self):
+            sync()
+            self.ms.append((time.perf_counter() - self._t) * 1e3)
+            got = read_counts()
+            self.launches.append({k: got[k] - self._at[k] for k in got})
+            self.losses.append(self.trainer._pending_loss)
+
+    rec = StepRecorder()
+    m.trainer.register_hooks([rec])
+    params0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    val_edt = []
+
+    def recording_edt(pts, spacing, *, sqrt=False):
+        got = squared_edt_volumes(pts, spacing, sqrt=sqrt)
+        val_edt.append((pts.clone(), spacing, sqrt, got.clone()))
+        return got
+
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    surface_module.squared_edt_volumes = recording_edt
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        history = m.train(2)
+        sync()
+    finally:
+        surface_module.squared_edt_volumes = squared_edt_volumes
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+    losses = [float(v) for v in rec.losses]
+    frozen = sorted(n for n, p in model.named_parameters() if torch.equal(p, params0[n]))
+    n_steps, n_val = len(losses), 2 * len(m.val_loader)
+    step_want = {"forward": per_forward + recompute, "backward": per_forward}
+    run_want = {"forward": n_steps * (per_forward + recompute) + n_val * per_forward,
+                "backward": n_steps * per_forward, "minplus": n_val}
+    edt = []
+    for pts, spacing, root_, got in val_edt:
+        edt.append({"shape": list(pts.shape), "bitwise_plain": torch.equal(got, squared_edt_volumes_plain(
+            pts, spacing, sqrt=root_)), "with_points": int(pts.flatten(1).any(1).sum())})
+    del val_edt
+    out["train"] = {"wall_s": wall, "losses": losses, "step_ms": rec.ms, "step_launches": rec.launches,
+                    "launches": counts, "want": run_want, "step_want": step_want, "frozen": frozen,
+                    "params": (len(params0), sum(norm_param_mask(model).values())), "peak_gib": peak / 2**30,
+                    "val": [{k: v for k, v in ev.items() if "/" not in k} for ev in history["eval_history"]],
+                    "edt": edt, "steps": n_steps, "val_batches": n_val}
+    if n_steps != 2 * (BRATS_TRAIN_VOLUMES // BRATS_BATCH) or not all(np.isfinite(losses)):
+        raise AssertionError(f"brats training: {n_steps} steps, losses {losses}")
+    if frozen != ["domain_classifier.bias", "domain_classifier.weight"]:
+        raise AssertionError(f"brats training left {frozen} unmoved (the domain head's two expected)")
+    if not all(_counted(s, step_want) for s in rec.launches) or not _counted(counts, run_want):
+        raise AssertionError(f"brats training launches {rec.launches} / {counts}, derived {step_want} / {run_want}")
+    if len(edt) != n_val or not all(e["bitwise_plain"] and e["shape"][0] == 2 * 3 * BRATS_BATCH for e in edt):
+        raise AssertionError(f"brats validation EDT: {edt}")
+    for ev in history["eval_history"]:
+        check_brats_metrics("brats validation", ev)
+
+    # warm steps on device-resident batches: ms a step, volumes/s, peak memory
+    trainer = m.trainer
+    dev_batches = [{"image": torch.from_numpy(np.stack([s["image"] for s in train_set[k:k + BRATS_BATCH]])).to(dev),
+                    "label": torch.from_numpy(np.stack([s["label"] for s in train_set[k:k + BRATS_BATCH]])).to(dev),
+                    "_n_valid": BRATS_BATCH} for k in (0, BRATS_BATCH)]
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    warm = []
+    for i in range(4):
+        sync()
+        t0 = time.perf_counter()
+        trainer.run_step(dev_batches[i % 2])
+        sync()
+        warm.append((time.perf_counter() - t0) * 1e3)
+    trainer.flush_step_metrics()
+    med = statistics.median(warm[1:])
+    out["train"].update(warm_step_ms=warm, median_step_ms=med, volumes_per_s=BRATS_BATCH * 1e3 / med,
+                        warm_peak_gib=(torch.cuda.max_memory_allocated(dev) if cuda else 0) / 2**30)
+    del dev_batches, trainer
+    m.trainer.state.optimizer.zero_grad(set_to_none=True)
+    trained = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    shutil.rmtree(run_dir, ignore_errors=True)
+
+    # ---- serving: TTAEngine.evaluate on the trained weights ----------------
+    batches = [{"image": np.stack([v["image"] for v in vols[k:k + BRATS_BATCH]]),
+                "label": np.stack([v["label"] for v in vols[k:k + BRATS_BATCH]]),
+                "domain": [v["domain"] for v in vols[k:k + BRATS_BATCH]]} for k in range(0, len(vols), BRATS_BATCH)]
+    spec = builder.build_transform("test").device_spec()
+    tta = tta_phase(dev, model, batches, runs=BRATS_TTA_RUNS, base=base, device_transform=spec, region="et",
+                    reset_counts=reset_counts, read_counts=read_counts)
+    out["tta"] = {}
+    for tag, r in tta.items():
+        f, b = expected_tta_launches(r["adapter"], r["batches"], r["traces"], per_forward, recompute)
+        want = {"forward": f, "backward": b, "minplus": r["batches"]}
+        check_brats_metrics(tag, r["metrics"])
+        for dom in BRATS_DOMAINS:
+            if f"dom/{dom}/avg_dc" not in r["metrics"]:
+                raise AssertionError(f"{tag}: no report of {dom}")
+        if not _counted(r["launches"], want) or not r["model_unchanged"]:
+            raise AssertionError(f"{tag}: launches {r['launches']}, derived {want}")
+        out["tta"][tag] = {"ms_per_batch": r["ms_per_batch"], "launches": r["launches"], "want": want,
+                           "traces": r["traces"], "metrics": {k: v for k, v in r["metrics"].items() if "/" not in k}}
+    del tta
+
+    # one Tent step alone: every norm tensor's gradient, the step's peak memory
+    x0 = torch.from_numpy(batches[0]["image"]).to(dev)
+    cfg_t = compose(configs, "config", base("tta=tent"))
+    ad = TentAdapter(cfg_t.tta, config=cfg_t, device_transform=spec, device=dev)
+    fn = ad.make_adapt_fn(model)
+    fn(model, x0, BRATS_BATCH)  # first call: cuDNN set-up and the allocator's pools
+    ad.restore()
+    sync()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev) if cuda else 0
+    reset_counts()
+    t0 = time.perf_counter()
+    fn(model, x0, BRATS_BATCH)
+    sync()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+    names = [n for n, v in norm_param_mask(model).items() if v]
+    params = dict(model.named_parameters())
+    reached = [n for n in names if params[n].grad is not None and bool(params[n].grad.abs().max() > 0)
+               and bool(torch.isfinite(params[n].grad).all())]
+    ad.restore()
+    want = {"forward": per_forward + recompute, "backward": per_forward}
+    out["tent_step"] = {"ms": step_ms, "launches": counts, "want": want, "grad_reached": len(reached),
+                        "norm_tensors": len(names), "held_gib": held / 2**30, "peak_gib": peak / 2**30}
+    if len(reached) != len(names) or not _counted(counts, want):
+        raise AssertionError(f"brats Tent step: gradient in {len(reached)} of {len(names)} norm tensors, "
+                             f"launches {counts}, derived {want}")
+
+    # the Tent serving step: inline (continual) and post (episodic) predictions
+    out["serving"] = {}
+    for proto, predict, episodic in (("online", "inline", False), ("strict", "post", True)):
+        cfg_s = compose(configs, "config", base("tta=tent", f"tta.episodic={str(episodic).lower()}",
+                                                f"tta.predict={predict}"))
+        ad = TentAdapter(cfg_s.tta, config=cfg_s, device_transform=spec, device=dev)
+        step = ad.make_adapt_predict_fn(model, threshold=BRATS_THRESHOLD, predict_mode=predict)
+        times = []
+        reset_counts()
+        for i in range(BRATS_SERVING_STEPS):
+            sync()
+            t0 = time.perf_counter()
+            _, pred = step(model, torch.from_numpy(batches[i % len(batches)]["image"]).to(dev), BRATS_BATCH)
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        counts = read_counts()
+        ad.restore()
+        per_step = per_forward * (2 if predict == "post" else 1) + recompute
+        want = {"forward": BRATS_SERVING_STEPS * per_step, "backward": BRATS_SERVING_STEPS * per_forward}
+        out["serving"][proto] = {"ms_per_step": times, "launches": counts, "want": want,
+                                 "volumes_per_s": BRATS_BATCH * 1e3 / statistics.median(times[1:])}
+        if pred.dtype != torch.uint8 or tuple(pred.shape) != (BRATS_BATCH,) + tuple(shape) + (3,):
+            raise AssertionError(f"brats serving {proto}: predictions {pred.dtype} {tuple(pred.shape)}")
+        if not _counted(counts, want):
+            raise AssertionError(f"brats serving {proto}: launches {counts}, derived {want}")
+    changed = [k for k, v in model.state_dict().items() if not torch.equal(v, trained[k])]
+    if changed:
+        raise AssertionError(f"brats serving left {changed[:3]} changed")
+    out["model"], out["trained"], out["batches"] = model, trained, batches
+    return out
+
+
+def brats_cli(device, root: str, *, shape=BRATS_CLI_SHAPE, sources=None, extra=(), reset_counts=lambda: None,
+              read_counts=lambda: {}, per_forward: int = BRATS_NORMS) -> dict:
+    """Phase 16, the CLIs: ``cli.train`` and then ``cli.adapt`` (Tent,
+    surface metrics, the no-adapt report) of the train_brats.sh recipe at
+    full width on a BraTS NIfTI fixture written by ``make_brats_fixture``
+    (glipre train/test, ssa test, ped test at ``shape`` (X,Y,Z)). Checks the
+    run directory, finite losses, the report's schema, ranges and per-domain
+    keys (the two test sources), and each call's launches exactly as remat
+    and the step structure derive them."""
+    import shutil
+
+    import numpy as np
+
+    from multimodal_tta_tpu_torch.cli import adapt, train
+    from multimodal_tta_tpu_torch.core.experiment_manager import ExperimentManager
+    from multimodal_tta_tpu_torch.data.synthetic import make_brats_fixture
+
+    shutil.rmtree(root, ignore_errors=True)
+    out: dict = {}
+    t0 = time.perf_counter()
+    csvs = make_brats_fixture(os.path.join(root, "data"), sources=sources or BRATS_CLI_SOURCES, shape=tuple(shape),
+                              seed=5, n_lesions=(1, 2))
+    out["fixture_s"] = time.perf_counter() - t0
+    x, y, z = shape
+    args = [f"dataset.sources.{i}.csv_path={csvs[s]}" for i, s in enumerate(("glipre", "ssa", "ped"))] + [
+        f"dataset.expected_shape=[{x},{y},{z}]", f"training.data.transforms.image_size=[{z},{y},{x}]",
+        "training.epochs=1", "training.model_save_start=0", "training.model_save_freq=1",
+        "training.eval_test.every_n_epochs=1", *extra]
+    managers = []
+    orig = ExperimentManager.setup_optimizer
+
+    def setup_optimizer(self):  # each CLI calls it once: the manager it built
+        managers.append(self)
+        return orig(self)
+
+    def run(cli, name: str, *more: str):
+        run_dir = os.path.join(root, "runs", name)
+        reset_counts()
+        t1 = time.perf_counter()
+        try:
+            result = cli.main(brats_overrides(*args, *more, f"task.save_dir={os.path.dirname(run_dir)}",
+                                              f"hydra.run.dir={run_dir}"), device=device)
+        finally:
+            os.chdir(REPO)  # the run moved into its run directory
+        return result, run_dir, time.perf_counter() - t1, read_counts()
+
+    ExperimentManager.setup_optimizer = setup_optimizer
+    try:
+        history, run_dir, wall, counts = run(train, "train")
+        mt = managers[-1]
+        recompute = per_forward if mt.model.remat else 0
+        epochs = len(history["train_history"])
+        # each epoch validates, and tests too (configs/_global_patches/brats.yaml: do_test)
+        val = epochs * (len(mt.val_loader) + len(mt.test_loader))
+        steps = epochs * len(mt.train_loader)
+        want = {"forward": steps * (per_forward + recompute) + val * per_forward, "backward": steps * per_forward,
+                "minplus": val}
+        losses = [h["loss"] for h in history["train_history"]]
+        out["train"] = {"wall_s": wall, "launches": counts, "want": want, "steps": steps, "val_batches": val,
+                        "losses": losses, "val": [{k: v for k, v in ev.items() if "/" not in k}
+                                                  for ev in history["eval_history"]]}
+        best = os.path.join(run_dir, "checkpoints", "best_model")
+        if not os.path.isfile(best + ".pt") or not all(np.isfinite(losses)) or not _counted(counts, want):
+            raise AssertionError(f"brats cli.train: {out['train']}, checkpoints "
+                                 f"{sorted(os.listdir(os.path.dirname(best)))}")
+
+        results, run_dir, wall, counts = run(adapt, "adapt", "tta=tent", "tta.report_no_adapt=true",
+                                             f"training.resume={best}")
+        with open(os.path.join(run_dir, "tta_metrics.json"), encoding="utf-8") as f:
+            written = json.load(f)
+        b = len(managers[-1].test_loader)
+        want = {"forward": b * (3 * per_forward + recompute), "backward": b * per_forward, "minplus": 2 * b}
+        out["adapt"] = {"wall_s": wall, "launches": counts, "want": want, "test_batches": b,
+                        "metrics": {mode: {k: v for k, v in r.items() if "/" not in k or k.endswith("avg_dc")}
+                                    for mode, r in written.items()}}
+        if written != json.loads(json.dumps(results)) or set(written) != {"no_adapt", "adapted"}:
+            raise AssertionError(f"brats tta_metrics.json: {sorted(written)}")
+        for mode, r in written.items():
+            check_brats_metrics(f"brats cli.adapt {mode}", r)
+            doms = sorted({k.split("/")[1] for k in r if k.startswith("dom/")})
+            if doms != sorted(BRATS_DOMAINS):
+                raise AssertionError(f"brats cli.adapt {mode}: domains {doms}")
+        if not _counted(counts, want):
+            raise AssertionError(f"brats cli.adapt: launches {counts}, derived {want}")
+    finally:
+        ExperimentManager.setup_optimizer = orig
+        managers.clear()
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def brats_other_models(device, shape=BRATS_SHAPE, *, channels=(32, 64, 128, 256, 512), init_filters: int = 16,
+                       reset_counts=lambda: None, read_counts=lambda: {}) -> dict:
+    """Phase 16, the other models of the slice at full width, bf16, on one
+    volume [1, *shape, 4] (4 modalities, 3 regions): late fusion, UNet3D-WS
+    and SegResNet. Each: one forward through the norm kernel and again
+    through the plain norm (logits relative L2), its norm calls counted,
+    and one Tent step (every norm tensor's gradient, its launches). The
+    caller holds the numbers against their limits."""
+    import numpy as np
+    import torch
+
+    from multimodal_tta_tpu_torch.conf import ConfigNode
+    from multimodal_tta_tpu_torch.data.synthetic import brats_volumes
+    from multimodal_tta_tpu_torch.models import MultimodalUNetLateFusion, SegResNet, UNet3DWS
+    from multimodal_tta_tpu_torch.models.layers import set_plain_norm
+    from multimodal_tta_tpu_torch.tta.tent import TentAdapter, norm_param_mask
+
+    dev = torch.device(device)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    x = torch.from_numpy(brats_volumes(1, tuple(shape), seed=44)[0]["image"][None]).to(dev)
+    cfg = ConfigNode({"task": {"seed": 0}, "training": {"criterion": {"sigmoid": True}},
+                      "tta": {"method": "tent", "steps": 1, "lr": 1e-3, "optimizer": "sgd", "momentum": 0.9,
+                              "update": "norm", "episodic": True}})
+    unet = dict(num_classes=3, channels=tuple(channels), dtype=torch.bfloat16, device=dev, seed=0)
+    builders = {"unet_multimodal_late": lambda: MultimodalUNetLateFusion(num_modalities=4, **unet),
+                "unet_ws": lambda: UNet3DWS(in_channels=4, **unet),
+                "segresnet": lambda: SegResNet(in_channels=4, num_classes=3, init_filters=init_filters,
+                                               dtype=torch.bfloat16, device=dev, seed=0)}
+    out = {}
+    for name, build in builders.items():
+        model = build()
+        with torch.no_grad():
+            sync()
+            reset_counts()
+            t0 = time.perf_counter()
+            logits = model(x)
+            sync()
+            fwd_ms = (time.perf_counter() - t0) * 1e3
+            per_forward = read_counts()
+            set_plain_norm(model, True)
+            plain = model(x)
+            set_plain_norm(model, False)
+        rel = float((logits - plain).norm() / plain.norm())
+        finite = bool(torch.isfinite(logits).all())
+        ad = TentAdapter(cfg.tta, config=cfg, device_transform={"normalize": False}, device=dev)
+        fn = ad.make_adapt_fn(model)
+        reset_counts()
+        t0 = time.perf_counter()
+        fn(model, x, 1)
+        sync()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        step = read_counts()
+        names = [n for n, v in norm_param_mask(model).items() if v]
+        params = dict(model.named_parameters())
+        reached = [n for n in names if params[n].grad is not None and bool(params[n].grad.abs().max() > 0)
+                   and bool(torch.isfinite(params[n].grad).all())]
+        ad.restore()
+        out[name] = {"params": len(params), "norm_tensors": len(names), "grad_reached": len(reached),
+                     "launches_per_forward": per_forward, "tent_step_launches": step, "logits_rel_l2_plain": rel,
+                     "logits": list(logits.shape), "finite": finite, "forward_ms_first": fwd_ms,
+                     "tent_step_ms_first": step_ms, "entropy": ad.last_entropy}
+        del model, logits, plain, ad, fn
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
     return out
 
 
@@ -1008,17 +1497,17 @@ def main() -> int:
             + ", ".join(report) + f" {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"the norm kernels disagree with plain at the {what} shape {shape} {dtype}")
-        return err, float((got[0].float() - ref[0].float()).abs().max())
+        return err, float((got[0].float() - ref[0].float()).abs().max()), pf, pb
 
     train_norm_shapes = [(TRAIN_BATCH,) + s[1:] for s in path_norm_shapes]
     for shape, dtype in ([(s, torch.bfloat16) for s in train_norm_shapes]
                          + [(train_norm_shapes[0], torch.float32), (train_norm_shapes[-1], torch.float32)]):
-        err, dx_err = check_norm_shape(shape, dtype, "training")
+        err, dx_err, *_ = check_norm_shape(shape, dtype, "training")
         max_abs_err, backward_err = max(max_abs_err, err), max(backward_err, dx_err)
     # the norm shapes of windowed Tent (phase 15): the stock 4 windows of
     # [32,96,96] down the levels, bf16
     for shape in window_norm_shapes:
-        err, dx_err = check_norm_shape(shape, torch.bfloat16, "window")
+        err, dx_err, *_ = check_norm_shape(shape, torch.bfloat16, "window")
         max_abs_err, backward_err = max(max_abs_err, err), max(backward_err, dx_err)
 
     # ---- 3. full-width forward ------------------------------------------
@@ -1176,13 +1665,15 @@ def main() -> int:
     for s in shapes:
         counts[s] = counts.get(s, 0) + 1
     keys = ("ms", "plain_ms", "library_ms", "bytes", "flops")
-    # one forward's norm calls at the serving batch, then at the training
-    # recipe's batch (one training step's 18 forward and 18 backward calls)
-    norm_totals = {}
-    for batch in (BATCH, TRAIN_BATCH):
+
+    def time_norm_calls(calls: dict) -> tuple:
+        """The forward and the backward kernel at each ``(shape, relu)`` of
+        ``calls`` (bf16) against the plain versions, the library call and
+        the byte bound, times the number of calls: (forward, backward)
+        totals, each with its bound."""
+        nonlocal max_abs_err, backward_err
         totals, btotals = dict.fromkeys(keys, 0.0), dict.fromkeys(keys, 0.0)
-        for (shape, relu), n in counts.items():
-            shape = (batch,) + shape[1:]
+        for (shape, relu), n in calls.items():
             c = shape[-1]
             act = "relu" if relu else None
             x, g, b = norm_inputs(shape, torch.bfloat16)
@@ -1247,6 +1738,13 @@ def main() -> int:
         for tot in (totals, btotals):
             t_bytes, t_ops = tot["bytes"] / HBM_BYTES_PER_S * 1e3, tot["flops"] / FP32_FLOPS * 1e3
             tot["bound_ms"], tot["bound_by"] = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+        return totals, btotals
+
+    # one forward's norm calls at the serving batch, then at the training
+    # recipe's batch (one training step's 18 forward and 18 backward calls)
+    norm_totals = {}
+    for batch in (BATCH, TRAIN_BATCH):
+        totals, btotals = time_norm_calls({((batch,) + shape[1:], relu): n for (shape, relu), n in counts.items()})
         norm_totals[batch] = (totals, btotals)
         log(f"[timing] one forward's {len(shapes)} norm calls, bf16 batch {batch}: forward kernel "
             f"{totals['ms']:.4f} ms, plain {totals['plain_ms']:.4f} ms, library {totals['library_ms']:.4f} ms, "
@@ -2061,7 +2559,241 @@ def main() -> int:
     log(f"[tta] phase 15 took {tta_s:.1f} s (streams {stream_s:.1f} s); launches {tta_launches}; card {smi}")
     del tta_model, tta_batches
 
-    def norm_summary(name: str, tot: dict, train_tot: dict, n_launches: dict, err: float, extra: dict) -> dict:
+    # ---- 16. the BraTS recipe of train_brats.sh ------------------------------
+    from collections import Counter
+
+    from multimodal_tta_tpu_torch.data.synthetic import brats_volumes
+    from multimodal_tta_tpu_torch.models import MultimodalUNetMidFusion
+
+    t_brats = time.perf_counter()
+    torch.cuda.empty_cache()
+    brats = {"card": smi}
+    brats_launches = {"forward": 0, "backward": 0, "minplus": 0}
+
+    def add_launches(counts: dict) -> None:
+        for k in brats_launches:
+            brats_launches[k] += counts.get(k, 0)
+
+    # 16.1: one forward of the mid-fusion model at full width on a BraTS batch
+    mid = MultimodalUNetMidFusion(num_modalities=4, num_classes=3, dtype=torch.bfloat16, remat=True, device=dev,
+                                  seed=0)
+    n_params, n_norm = len(list(mid.parameters())), sum(norm_param_mask(mid).values())
+    xb = torch.from_numpy(np.stack([v["image"] for v in brats_volumes(BRATS_BATCH, BRATS_SHAPE, seed=40)])).to(dev)
+    shapes16 = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args, kw: shapes16.append((tuple(args[0].permute(0, 2, 3, 4, 1).shape), kw["relu"])),
+        with_kwargs=True) for m in mid.modules() if isinstance(m, InstanceNorm)]
+    with torch.no_grad():
+        sync()
+        reset_counts()
+        logits, dom = mid(xb, return_domain_logits=True)
+        sync()
+        fwd16 = read_counts()
+        for h in hooks:
+            h.remove()
+        set_plain_norm(mid, True)
+        logits_plain = mid(xb)
+        fwd16_plain_ms = cuda_ms(lambda: mid(xb), iters=3, warmup=1)
+        set_plain_norm(mid, False)
+        fwd16_ms = cuda_ms(lambda: mid(xb), iters=3, warmup=1)
+    add_launches(fwd16)
+    rel16 = float((logits - logits_plain).norm() / logits_plain.norm())
+    # the same weights in f32: kernel vs plain norm there, and how far bf16
+    # arithmetic itself (the plain norm's bf16 logits) is from f32
+    mid32 = MultimodalUNetMidFusion(num_modalities=4, num_classes=3, dtype=torch.float32, device=dev, seed=None)
+    mid32.load_state_dict(mid.state_dict())
+    with torch.no_grad():
+        logits32 = mid32(xb)
+        set_plain_norm(mid32, True)
+        logits32_plain = mid32(xb)
+    rel16_f32 = float((logits32 - logits32_plain).norm() / logits32_plain.norm())
+    rel16_bf16 = float((logits_plain - logits32_plain).norm() / logits32_plain.norm())
+    del mid32, logits32, logits32_plain
+    brats["forward"] = {"params": [n_params, n_norm], "launches": fwd16, "logits_rel_l2_plain": rel16,
+                        "f32_logits_rel_l2_plain": rel16_f32, "bf16_plain_rel_l2_f32": rel16_bf16,
+                        "domain_logits": list(dom.shape), "ms": fwd16_ms, "plain_norm_ms": fwd16_plain_ms}
+    log(f"[brats] mid-fusion 32..512 bf16, {n_params} param tensors ({n_norm} norm), forward on "
+        f"{list(xb.shape)}: logits {list(logits.shape)} finite={bool(torch.isfinite(logits).all())}, domain logits "
+        f"{list(dom.shape)}; launches {fwd16} ({len(shapes16)} norm calls); kernel vs plain norm rel L2 {rel16:.3g} "
+        f"in bf16 (limit: the plain norm's bf16 logits vs f32, {rel16_bf16:.3g}), {rel16_f32:.3g} in f32 (limit "
+        f"{LOGITS_REL_L2}); forward {fwd16_ms:.2f} ms (plain norm {fwd16_plain_ms:.2f} ms); card {smi}")
+    if (n_params, n_norm) != BRATS_PARAMS:
+        raise AssertionError(f"mid-fusion: {n_params} tensors, {n_norm} norm ({BRATS_PARAMS} expected)")
+    if tuple(logits.shape) != (BRATS_BATCH,) + BRATS_SHAPE + (3,) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError("mid-fusion logits have the wrong shape or are not finite")
+    if tuple(dom.shape) != (4 * BRATS_BATCH, 4) or fwd16["forward"] != BRATS_NORMS or len(shapes16) != BRATS_NORMS:
+        raise AssertionError(f"mid-fusion: domain logits {list(dom.shape)}, launches {fwd16}")
+    # bf16: a 1-ulp rounding flip in a few 1e-5 of a norm's outputs (the
+    # kernel's statistics are as close to f64 as the plain norm's) grows
+    # through the 19 norms in series of a random-weight network; the
+    # kernel must move the bf16 logits less than bf16 arithmetic itself does
+    if not (rel16_f32 <= LOGITS_REL_L2 and rel16 <= rel16_bf16):
+        raise AssertionError("the mid-fusion forward through the kernel disagrees with the plain norm")
+    del logits, logits_plain, dom, mid
+
+    # 16.2: both norm kernels at every distinct norm shape of that forward,
+    # bf16 and f32, against the plain versions; their times per forward
+    brats_regimes = {}
+    for shape, _ in sorted(set(shapes16)):
+        for dtype in (torch.bfloat16, torch.float32):
+            err, dx_err, pf, pb = check_norm_shape(shape, dtype, "brats")
+            max_abs_err, backward_err = max(max_abs_err, err), max(backward_err, dx_err)
+            brats_regimes[f"{list(shape)} {str(dtype)[6:]}"] = {"forward": pf.regime, "backward": pb.regime}
+    brats_norm = time_norm_calls(Counter(shapes16))
+    log(f"[brats] one mid-fusion forward's {len(shapes16)} norm calls, bf16 batch {BRATS_BATCH}: forward kernel "
+        f"{brats_norm[0]['ms']:.4f} ms, plain {brats_norm[0]['plain_ms']:.4f} ms, library "
+        f"{brats_norm[0]['library_ms']:.4f} ms, bound {brats_norm[0]['bound_ms']:.4f} ms; backward kernel "
+        f"{brats_norm[1]['ms']:.4f} ms, plain {brats_norm[1]['plain_ms']:.4f} ms, library "
+        f"{brats_norm[1]['library_ms']:.4f} ms, bound {brats_norm[1]['bound_ms']:.4f} ms; regimes {brats_regimes}; "
+        f"card {smi}")
+    brats["regimes"] = brats_regimes
+
+    # 16.3 and 16.5: the recipe trained through ExperimentManager, then served
+    brats_root = os.path.join(REPO, "build", "chip_smoke_brats")  # build/ is in .gitignore
+    served = brats_train_and_serve(dev, os.path.join(brats_root, "serve"), reset_counts=reset_counts,
+                                   read_counts=read_counts)
+    tr = served["train"]
+    add_launches(tr["launches"])
+    log(f"[brats] training (train_brats.sh: adam 1e-4, remat, batch {BRATS_BATCH}, modality dropout) 2 epochs of "
+        f"{BRATS_TRAIN_VOLUMES} volumes {list(BRATS_SHAPE)} + validation of {BRATS_VAL_VOLUMES} (surface metrics): "
+        f"wall {tr['wall_s']:.2f} s; losses {[round(v, 5) for v in tr['losses']]}; step ms {[round(t, 1) for t in tr['step_ms']]}; "
+        f"launches per step {tr['step_launches']} (derived {tr['step_want']}); over the run {tr['launches']} "
+        f"(derived {tr['want']}); unmoved {tr['frozen']}; validation EDT {tr['edt']}; peak allocated "
+        f"{tr['peak_gib']:.2f} GiB; validation {tr['val']}; card {smi}")
+    log(f"[brats] warm training steps on device batches: {[round(t, 1) for t in tr['warm_step_ms']]} ms -> median "
+        f"{tr['median_step_ms']:.2f} ms, {tr['volumes_per_s']:.3f} volumes/s, peak allocated "
+        f"{tr['warm_peak_gib']:.2f} GiB; card {smi}")
+    for tag, r in served["tta"].items():
+        add_launches(r["launches"])
+        m_ = r["metrics"]
+        log(f"[brats] evaluate {tag}: ms per batch {[round(t, 1) for t in r['ms_per_batch']]}; launches "
+            f"{r['launches']} (derived {r['want']}); avg_dc {m_['avg_dc']:.5f} et/tc/wt dc {m_['et_dc']:.5f} "
+            f"{m_['tc_dc']:.5f} {m_['wt_dc']:.5f} hd95 {m_['avg_hd95']:.3f} loss {m_['loss']:.5f}; entropy "
+            f"{r['traces']}; card {smi}")
+    ts = served["tent_step"]
+    add_launches(ts["launches"])
+    log(f"[brats] one Tent step at batch {BRATS_BATCH}: {ts['ms']:.1f} ms, gradient in {ts['grad_reached']}/"
+        f"{ts['norm_tensors']} norm tensors, launches {ts['launches']} (derived {ts['want']}); peak allocated "
+        f"{ts['peak_gib']:.3f} GiB ({ts['peak_gib'] - ts['held_gib']:.3f} above the {ts['held_gib']:.3f} held); "
+        f"card {smi}")
+    for proto, r in served["serving"].items():
+        add_launches(r["launches"])
+        log(f"[brats] serving {proto}: ms per step {[round(t, 1) for t in r['ms_per_step']]}, "
+            f"{r['volumes_per_s']:.3f} volumes/s; launches {r['launches']} (derived {r['want']}); card {smi}")
+    brats.update(train={k: v for k, v in tr.items()}, tta=served["tta"], tent_step=ts, serving=served["serving"])
+
+    # the EDT of one evaluated batch at the BraTS shape: 12 surfaces (2
+    # samples x 3 regions, prediction and label), one launch, vs plain
+    model16 = served["model"]
+    b0 = served["batches"][0]
+    with torch.no_grad():
+        prob16 = torch.sigmoid(model16(torch.from_numpy(b0["image"]).to(dev)))
+    pred16 = (prob16 >= BRATS_THRESHOLD).permute(0, 4, 1, 2, 3).reshape(-1, *BRATS_SHAPE)
+    gt16 = (torch.from_numpy(b0["label"]).to(dev) > 0.5).permute(0, 4, 1, 2, 3).reshape(-1, *BRATS_SHAPE)
+    surf16 = extract_surface(torch.cat([gt16, pred16]))
+    before = minplus.launches
+    edt16 = squared_edt_volumes(surf16, (1.0, 1.0, 1.0), sqrt=True)
+    sync()
+    edt16_launches = minplus.launches - before
+    edt16_equal = torch.equal(edt16, squared_edt_volumes_plain(surf16, (1.0, 1.0, 1.0), sqrt=True))
+    edt16_ms = min(cuda_ms(lambda: squared_edt_volumes(surf16, (1.0, 1.0, 1.0), sqrt=True)) for _ in range(3))
+    edt16_plain_ms = cuda_ms(lambda: squared_edt_volumes_plain(surf16, (1.0, 1.0, 1.0), sqrt=True), iters=1,
+                             warmup=0)
+    edt16_ops = 2 * surf16.numel() * sum(BRATS_SHAPE)
+    t16_o, t16_b = edt16_ops / FP32_ADDMIN_OPS * 1e3, surf16.numel() * 5 / HBM_BYTES_PER_S * 1e3
+    vp16 = volume_plan_for(surf16)
+    brats["edt"] = {"surfaces": list(surf16.shape), "with_points": int(surf16.flatten(1).any(1).sum()),
+                    "bitwise_plain": edt16_equal, "launches": edt16_launches, "ms": edt16_ms,
+                    "plain_ms": edt16_plain_ms, "bound_ms": max(t16_o, t16_b),
+                    "bound_by": "operations" if t16_o >= t16_b else "bytes",
+                    "bound_at_probe_rate_ms": edt16_ops / probe[1] / 1e9,
+                    "plan": {"threads": vp16.threads, "smem_bytes": vp16.smem_bytes,
+                             "passes": [[q.n, q.kind, q.rows, q.tiles] for q in vp16.passes]}}
+    log(f"[brats] squared_edt_volumes of one evaluated batch ({list(surf16.shape)}, spacing 1 mm, root written): "
+        f"{edt16_launches} launch, bitwise equal to plain={edt16_equal}; kernel {edt16_ms:.4f} ms, plain "
+        f"{edt16_plain_ms:.1f} ms, bound {max(t16_o, t16_b):.4f} ms (operations at {FP32_ADDMIN_OPS / 1e12:.1f} T "
+        f"add-or-min/s; {edt16_ops / probe[1] / 1e9:.4f} ms at the probe's rate); plan {brats['edt']['plan']}; "
+        f"card {smi}")
+    if not edt16_equal or edt16_launches != 1:
+        raise AssertionError("the min-plus kernel disagrees with plain at the BraTS shape")
+    del prob16, pred16, gt16, surf16, edt16, model16, served
+
+    # 16.4: remat changes no numbers; the kernel against the plain norm, f32
+    # [64,96,64]: its deepest norms span 4x6x4 voxels (over a few voxels the
+    # variance is small and the two norms' f32 sums differ visibly)
+    vol16 = brats_volumes(1, (64, 96, 64), seed=45)[0]
+    small16 = {"image": vol16["image"][None], "label": vol16["label"][None]}
+    cfg16 = ConfigNode({"task": {"seed": 0}, "training": {
+        "optimizer": "sgd", "optimizers": {"sgd": {"lr": 1e-2, "momentum": 0.9}},
+        "criterion": compose(os.path.join(REPO, "configs"), "config", brats_overrides()).training.criterion
+        .to_container()}})
+    parity16 = {}
+    for tag, remat, plain in (("no_remat", False, False), ("remat", True, False), ("remat_plain", True, True)):
+        m16 = MultimodalUNetMidFusion(num_modalities=4, num_classes=3, dtype=torch.float32, remat=remat, device=dev,
+                                      seed=5)
+        set_plain_norm(m16, plain)
+        trainer = SegTrainer(cfg16, device_transform={"normalize": False}, device=dev)
+        trainer.setup(TrainState(model=m16, optimizer=build_optimizer(cfg16.training, m16)[0]))
+        src = {n: p.detach().clone() for n, p in m16.named_parameters()}
+        reset_counts()
+        trainer.run_step(small16)
+        loss = trainer.flush_step_metrics()["loss"]
+        sync()
+        parity16[tag] = (loss, torch.cat([(p.detach() - src[n]).flatten() for n, p in m16.named_parameters()]),
+                         read_counts())
+        del m16, trainer
+    for a, b_, what in (("remat", "no_remat", "remat vs none"), ("remat", "remat_plain", "kernel vs plain norm")):
+        (la, da, ca), (lb, db, cb) = parity16[a], parity16[b_]
+        l_rel, d_rel = abs(la - lb) / abs(lb), float((da - db).norm() / db.norm())
+        brats[f"parity_{a}_vs_{b_}"] = {"loss_rel": l_rel, "delta_rel": d_rel, "bitwise": torch.equal(da, db),
+                                        "launches": [ca, cb]}
+        log(f"[brats-parity] f32 training step [1,64,96,64,4] at full width, sgd, {what}: loss {la:.6f} / {lb:.6f} "
+            f"rel {l_rel:.3g} (limit {TRAIN_LOSS_REL}); param deltas rel L2 {d_rel:.3g} (limit {TRAIN_DELTA_REL}), "
+            f"bitwise {torch.equal(da, db)}; launches {ca} / {cb}")
+        if not (l_rel <= TRAIN_LOSS_REL and d_rel <= TRAIN_DELTA_REL):
+            raise AssertionError(f"brats training step: {what} disagree")
+    want16 = {"no_remat": (BRATS_NORMS, BRATS_NORMS), "remat": (2 * BRATS_NORMS, BRATS_NORMS), "remat_plain": (0, 0)}
+    got16 = {k: (v[2]["forward"], v[2]["backward"]) for k, v in parity16.items()}
+    if got16 != want16 or any(v[2]["plain_backward"] for k, v in parity16.items() if k != "remat_plain"):
+        raise AssertionError(f"brats parity launches {got16}, expected {want16}")
+    del parity16
+
+    # 16.6: the other models at full width
+    others = brats_other_models(dev, BRATS_SHAPE, reset_counts=reset_counts, read_counts=read_counts)
+    for name, r in others.items():
+        add_launches(r["launches_per_forward"])
+        add_launches(r["tent_step_launches"])
+        log(f"[brats] {name} 32..512 bf16 on [1,{','.join(map(str, BRATS_SHAPE))},4]: {r['params']} param tensors "
+            f"({r['norm_tensors']} norm), logits {r['logits']} finite={r['finite']}, kernel vs plain norm rel L2 "
+            f"{r['logits_rel_l2_plain']:.3g}; launches per forward {r['launches_per_forward']}, Tent step "
+            f"{r['tent_step_launches']}, gradient in {r['grad_reached']}/{r['norm_tensors']} norm tensors; first "
+            f"forward {r['forward_ms_first']:.1f} ms, first Tent step {r['tent_step_ms_first']:.1f} ms; card {smi}")
+    per_fwd = {"unet_multimodal_late": 72, "unet_ws": 16, "segresnet": 0}
+    for name, r in others.items():
+        f = per_fwd[name]
+        if (r["launches_per_forward"]["forward"] != f or r["tent_step_launches"]["forward"] != f
+                or r["tent_step_launches"]["backward"] != f or r["grad_reached"] != r["norm_tensors"]
+                or not r["finite"] or (f and not r["logits_rel_l2_plain"] <= LOGITS_REL_L2)):
+            raise AssertionError(f"{name}: {r}")
+    brats["other_models"] = others
+
+    # 16.7: the CLIs on a BraTS NIfTI fixture
+    bcli = brats_cli(dev, os.path.join(brats_root, "cli"), reset_counts=reset_counts, read_counts=read_counts)
+    for call in ("train", "adapt"):
+        add_launches(bcli[call]["launches"])
+        log(f"[brats] cli.{call}: {bcli[call]['wall_s']:.2f} s, launches {bcli[call]['launches']} (derived "
+            f"{bcli[call]['want']}); " + (f"losses {bcli['train']['losses']}, validation {bcli['train']['val']}"
+                                        if call == "train" else f"metrics {bcli['adapt']['metrics']}") + f"; card {smi}")
+    brats["cli"] = bcli
+    shutil.rmtree(brats_root, ignore_errors=True)
+    brats["launches"] = brats_launches
+    brats_s = time.perf_counter() - t_brats
+    brats["phase_s"] = brats_s
+    log(f"[brats] phase 16 took {brats_s:.1f} s; launches {brats_launches}; card {smi}")
+
+
+    def norm_summary(name: str, tot: dict, train_tot: dict, brats_tot: dict, n_launches: dict, err: float,
+                     extra: dict) -> dict:
         return {
             "name": name,
             "route": "cuda",
@@ -2077,17 +2809,19 @@ def main() -> int:
             "library_ms": tot["library_ms"],
             "per": f"one bf16 forward's {len(shapes)} norm calls at batch {BATCH}",
             "train_step_batch8": {k: train_tot[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+            "brats_forward_batch2": {k: brats_tot[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
             "card": smi,
             **extra,
         }
 
-    summary = norm_summary("fused_instance_norm", totals, norm_totals[TRAIN_BATCH][0],
+    summary = norm_summary("fused_instance_norm", totals, norm_totals[TRAIN_BATCH][0], brats_norm[0],
                            {**launches, **norm_eval_launches, "train": train_launches["forward"],
-                            "cli": cli_launches["forward"], "tta": tta_launches["forward"]}, max_abs_err, {})
+                            "cli": cli_launches["forward"], "tta": tta_launches["forward"],
+                            "brats": brats_launches["forward"]}, max_abs_err, {})
     backward_summary = norm_summary(
-        "fused_instance_norm_backward", btotals, norm_totals[TRAIN_BATCH][1],
+        "fused_instance_norm_backward", btotals, norm_totals[TRAIN_BATCH][1], brats_norm[1],
         {**backward_launches, "train": train_launches["backward"], "cli": cli_launches["backward"],
-         "tta": tta_launches["backward"]}, backward_err,
+         "tta": tta_launches["backward"], "brats": brats_launches["backward"]}, backward_err,
         {"note": "the gradient of the TPU kernel's function; dx computed in all 18 timed calls"})
     minplus_summary = {
         "name": "minplus",
@@ -2095,9 +2829,9 @@ def main() -> int:
         "source": "multimodal_tta_tpu_torch/csrc/edt_minplus.cu",
         "replaces": "multimodal_tta_tpu/pallas/edt_minplus.py:52",
         "launches": sum(eval_launches.values()) + train_launches["minplus"] + cli_launches["minplus"]
-        + tta_launches["minplus"],
+        + tta_launches["minplus"] + brats_launches["minplus"],
         "launches_by_path": {**eval_launches, "train": train_launches["minplus"], "cli": cli_launches["minplus"],
-                             "tta": tta_launches["minplus"]},
+                             "tta": tta_launches["minplus"], "brats": brats_launches["minplus"]},
         "max_abs_err": minplus_err,
         "ms": edt_ms,
         "plain_ms": edt_plain_ms,
@@ -2110,12 +2844,14 @@ def main() -> int:
         "probe_add_min3_tera_per_s": probe[1],
         "bound_at_probe_rate_ms": edt_ops / probe[1] / 1e9,
         "general_minplus_per_call": general,
+        "brats_batch2": {k: brats["edt"][k] for k in ("surfaces", "ms", "plain_ms", "bound_ms", "bound_by",
+                                                      "bound_at_probe_rate_ms")},
         "card": smi,
     }
     log(json.dumps({"serving": serving, "forward_ms": fwd_ms, "forward_plain_norm_ms": fwd_plain_ms,
                     "eval_ms_per_batch": eval_ms, "eval_warm_ms_per_batch": eval_warm_ms,
                     "eval_batch_split_ms": split,
-                    "eval_metrics": eval_runs, "training": training, "cli": cli, "tta": tta_log}))
+                    "eval_metrics": eval_runs, "training": training, "cli": cli, "tta": tta_log, "brats": brats}))
     log(json.dumps({"kernels": [summary, backward_summary, minplus_summary]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                             "count": torch.cuda.device_count()}}))

@@ -83,9 +83,11 @@ class ExperimentManager:
         if compute_dtype not in _DTYPES:
             raise ValueError(f"training.compute_dtype must be one of {sorted(_DTYPES)}, got {compute_dtype}")
         remat = get_config(self.config, "training.remat", False)
+        if not isinstance(remat, (bool, int)):
+            remat = bool(remat)
         if bool(get_config(model_cfg, "pretrained", False)):
-            raise NotImplementedError(
-                "model.pretrained is not ported yet (ROADMAP.md, remaining models)")
+            raise NotImplementedError("model.pretrained is not ported yet (ROADMAP.md, item 11: "
+                                      "models/pretrained.py with the BatchNorm backbones)")
 
         # the init seed is the root generator's first draw (the reference
         # splits its root key for the init)

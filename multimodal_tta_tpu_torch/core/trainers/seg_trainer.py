@@ -19,8 +19,11 @@ Metrics contract: the loss is read on the host one step late, so
 dict on the first step) and ``flush_step_metrics()`` drains the last one;
 the host never waits on the step it has just launched.
 
-Distillation, the MoE aux loss, deep supervision and ``training.remat``
-raise ``NotImplementedError`` (ROADMAP.md); there is no mesh (one device).
+The model runs its step in training mode (the reference's ``train=True``)
+and is put back in the mode it had. ``training.remat`` is the model's
+(``ExperimentManager`` builds it with it). Distillation, the MoE aux loss
+and deep supervision raise ``NotImplementedError`` (ROADMAP.md); there is no
+mesh (one device).
 """
 
 from __future__ import annotations
@@ -41,7 +44,7 @@ from ...utils.config import get_config
 from ..train_state import shadow_module
 from ..trainer_base import TrainerBase
 
-_UNPORTED = "ROADMAP.md, training slice left-overs"
+_UNPORTED = "ROADMAP.md, item 10, the training left-overs"
 
 
 class SegTrainer(TrainerBase):
@@ -63,7 +66,6 @@ class SegTrainer(TrainerBase):
             (get_config(config, "model.deep_supervision", 0), "deep supervision (model.deep_supervision)"),
             (get_config(config, "model.moe_experts", 0), "the MoE aux loss (model.moe_experts)"),
             (get_config(config, "training.distill.enabled", False), "distillation (training.distill)"),
-            (get_config(config, "training.remat", False), "rematerialization (training.remat)"),
         ):
             if flag:
                 raise NotImplementedError(f"[SegTrainer] {what} is not ported yet ({_UNPORTED})")
@@ -116,12 +118,17 @@ class SegTrainer(TrainerBase):
         b = image.shape[0]
         lbl = label.to(torch.float32) if self.sigmoid else label.to(torch.int64)
         state.optimizer.zero_grad(set_to_none=True)
-        logits = state.model(image)
-        per_sample = torch.stack([self.loss_fn(logits[i:i + 1], lbl[i:i + 1]) for i in range(b)])
-        # samples past n_valid (a padded batch tail) are masked out
-        mask = (torch.arange(b, device=per_sample.device) < n_valid).to(torch.float32)
-        loss = (per_sample * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-        loss.backward()
+        was_training = state.model.training
+        state.model.train()
+        try:
+            logits = state.model(image)
+            per_sample = torch.stack([self.loss_fn(logits[i:i + 1], lbl[i:i + 1]) for i in range(b)])
+            # samples past n_valid (a padded batch tail) are masked out
+            mask = (torch.arange(b, device=per_sample.device) < n_valid).to(torch.float32)
+            loss = (per_sample * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+            loss.backward()  # a rematerialized segment runs its forward again here
+        finally:
+            state.model.train(was_training)
         applied = state.apply_gradients()
         # under training.grad_accum the params move on every k-th step only,
         # and the shadow ticks with them, not per microstep

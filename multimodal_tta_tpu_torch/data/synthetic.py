@@ -230,3 +230,40 @@ def make_brats_fixture(
         _write_rows(csv_path, rows)
         out[sname] = csv_path
     return out
+
+
+# the structured fixture's per-modality intensity bump of each raw label id
+# (gli/ssa ids: 1 necrosis, 2 edema, 3 enhancing tumour), and the gli
+# profile's regions (data/brats.py DEFAULT_REGION_MAPS) in ET, TC, WT order
+_BRATS_CONTRAST = {"t1n": {1: 1.5, 2: 0.5, 3: 1.0}, "t1c": {1: 0.5, 2: 0.5, 3: 3.0},
+                   "t2w": {1: 1.0, 2: 2.0, 3: 0.5}, "t2f": {1: 0.5, 2: 3.0, 3: 0.5}}
+_GLI_REGIONS = ((3,), (1, 3), (1, 2, 3))
+
+
+def brats_volumes(n: int, shape: Tuple[int, int, int] = (160, 192, 160), seed: int = 0,
+                  domains: Tuple[str, ...] = ("brats24_glipre",)) -> List[Dict]:
+    """``n`` in-memory BraTS samples as the BraTS builder yields them:
+    ``image`` [D,H,W,4] f32 (t1n, t1c, t2w, t2f), ``label`` [D,H,W,3] f32
+    region masks (ET, TC, WT) and ``domain`` (cycling through ``domains``).
+
+    Each holds one tumour of nested ellipsoid shells (enhancing core,
+    necrosis, edema) with the structured fixture's modality contrast over
+    N(0, 1) noise, so the regions are learnable."""
+    rng = np.random.default_rng(seed)
+    grids = np.ogrid[tuple(slice(0, s) for s in shape)]
+    out = []
+    for i in range(n):
+        centre = [rng.uniform(0.3 * s, 0.7 * s) for s in shape]
+        radii = [rng.uniform(0.08 * s, 0.16 * s) for s in shape]
+        d2 = sum(((g - c) / r) ** 2 for g, c, r in zip(grids, centre, radii))
+        raw = np.zeros(shape, np.uint8)
+        for sid, frac in ((2, 1.0), (1, 0.7), (3, 0.45)):  # edema, necrosis, enhancing core
+            raw[d2 < frac ** 2] = sid
+        image = np.empty(shape + (4,), np.float32)
+        for m, bumps in enumerate(_BRATS_CONTRAST.values()):
+            image[..., m] = rng.standard_normal(shape, dtype=np.float32)
+            for sid, amp in bumps.items():
+                image[..., m] += np.float32(amp) * (raw == sid)
+        label = np.stack([np.isin(raw, ids) for ids in _GLI_REGIONS], axis=-1).astype(np.float32)
+        out.append({"image": image, "label": label, "domain": domains[i % len(domains)]})
+    return out

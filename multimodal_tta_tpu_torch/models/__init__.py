@@ -1,5 +1,11 @@
-"""Models of the port; importing the package registers them."""
+"""Models of the port; importing the package registers them under the
+reference's names (``get_model(name).from_config(cfg, dtype=, remat=,
+device=, seed=)``)."""
 
+from .segresnet import SegResNet
 from .unet3d import UNet3D
+from .unet3d_ws import UNet3DWS
+from .unet_multimodal_latefusion import MultimodalUNetLateFusion
+from .unet_multimodal_midfusion import MultimodalUNetMidFusion
 
-__all__ = ["UNet3D"]
+__all__ = ["UNet3D", "MultimodalUNetMidFusion", "MultimodalUNetLateFusion", "UNet3DWS", "SegResNet"]

@@ -1,10 +1,13 @@
-"""Carry flax UNet3D weights across to the port's ``UNet3D``.
+"""Carry flax model weights across to the port's models.
 
-``unet3d_from_flax(params)`` takes the flax ``params`` tree as a nested dict
-of numpy arrays (``jax.tree_util.tree_map(np.asarray, params)``) and returns
-a ``state_dict`` for ``UNet3D.load_state_dict``. It imports no JAX.
+``from_flax(params)`` takes the flax ``params`` tree as a nested dict of
+numpy arrays (``jax.tree_util.tree_map(np.asarray, params)``) and returns a
+``state_dict`` for the port model's ``load_state_dict``: every model of
+``models/`` keeps flax's module names. ``unet3d_from_flax`` is the same
+function. It imports no JAX.
 
   * conv ``kernel`` ``[kd, kh, kw, in, out]`` -> ``weight`` ``[out, in, kd, kh, kw]``
+  * dense ``kernel`` ``[in, out]`` -> ``weight`` ``[out, in]`` (``nn.Linear``)
   * transposed conv (the ``up`` module of ``TransposedConvUp``): flax's
     ``nn.ConvTranspose`` with ``transpose_kernel=False`` correlates the
     dilated input with the kernel as stored, while ``conv_transpose3d``
@@ -44,14 +47,17 @@ def flax_path(name: str) -> str:
     return "/".join(parts)
 
 
-def unet3d_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+def from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     sd: Dict[str, torch.Tensor] = {}
     for path, leaf in _leaves(params):
         a = np.asarray(leaf, dtype=np.float32)
         mod, name = path[:-1], path[-1]
         if name == "kernel":
+            if a.ndim == 2:
+                sd[".".join(mod + ("weight",))] = torch.from_numpy(a.T.copy())
+                continue
             if a.ndim != 5:
-                raise ValueError(f"{'/'.join(path)}: expected a 3D conv kernel, got {a.shape}")
+                raise ValueError(f"{'/'.join(path)}: expected a 3D conv or a dense kernel, got {a.shape}")
             if mod[-1] == _TRANSPOSED:
                 a = a[::-1, ::-1, ::-1].transpose(3, 4, 0, 1, 2)
             else:
@@ -59,3 +65,6 @@ def unet3d_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             name = "weight"
         sd[".".join(mod + (name,))] = torch.from_numpy(a.copy())  # C-contiguous, writable
     return sd
+
+
+unet3d_from_flax = from_flax

@@ -14,21 +14,30 @@ Numerics follow flax, which the parity tests check:
     in ``models/convert.py``, so a module here holds torch's layout.
   * ``dtype=`` casts inputs and kernels to the compute dtype; params stay
     f32. The norm takes f32 statistics and casts its output back.
+
+Models are built in inference mode, the reference's ``train=False``:
+dropout is the identity there. ``SegTrainer`` runs its step in training
+mode, where dropout raises, as the reference cannot train with it.
+``remat_call`` is the reference's ``nn.remat`` (``torch.utils.checkpoint``).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.fused_instance_norm import fused_instance_norm, instance_norm_plain
 
 IntOr3 = Union[int, Sequence[int]]
 
-_UNPORTED = "ROADMAP.md, 'Remaining models'"
+# flax lecun_normal: truncated normal at +-2 sd, rescaled so the kept part
+# has variance 1 / fan_in (jax.nn.initializers.variance_scaling)
+_TRUNC_SD = 0.87962566103423978
 
 
 def get_act(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -96,26 +105,71 @@ class InstanceNorm(nn.Module):
         return y.permute(0, 4, 1, 2, 3)
 
 
+class GroupNorm(nn.Module):
+    """flax ``nn.GroupNorm`` (``math.gcd(8, C)`` groups, eps 1e-5) or, with
+    ``groups=None``, ``nn.LayerNorm`` over the channels: statistics and
+    affine in f32, the output cast back to the input's dtype, as flax does
+    for a bf16 input. 1-D ``scale`` and ``bias``, the reference's names."""
+
+    def __init__(self, features: int, groups=None, epsilon: float = 1e-5):
+        super().__init__()
+        self.groups = groups
+        self.epsilon = epsilon
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor, relu: bool = False) -> torch.Tensor:
+        xf = x.float()
+        if self.groups is None:
+            y = F.layer_norm(xf.movedim(1, -1), (xf.shape[1],), self.scale, self.bias,
+                             self.epsilon).movedim(-1, 1)
+        else:
+            y = F.group_norm(xf, self.groups, self.scale, self.bias, self.epsilon)
+        return (F.relu(y) if relu else y).to(x.dtype)
+
+
 class Norm(nn.Module):
-    """Config-string-selected normalization over the channel axis. This
-    slice ports INSTANCE, the flagship's norm."""
+    """Config-string-selected normalization over the channel axis (the
+    reference's ``Norm``): INSTANCE (the fused kernel), GROUP, LAYER or
+    NONE. The child is named ``norm``, as in flax."""
 
     def __init__(self, kind: str, features: int):
         super().__init__()
         kind = str(kind).upper()
-        if kind != "INSTANCE":
+        if kind == "INSTANCE":
+            self.norm = InstanceNorm(features, epsilon=1e-5)
+        elif kind == "GROUP":
+            self.norm = GroupNorm(features, groups=math.gcd(8, features))
+        elif kind == "LAYER":
+            self.norm = GroupNorm(features, groups=None)
+        elif kind in ("NONE", ""):
+            self.norm = None
+        elif kind == "BATCH":
             raise NotImplementedError(
-                f"norm '{kind}' is not ported yet ({_UNPORTED}); INSTANCE is"
-            )
-        self.norm = InstanceNorm(features, epsilon=1e-5)
+                "norm 'BATCH' is not ported yet (ROADMAP.md, item 11: the BatchNorm backbones)")
+        else:
+            raise ValueError(f"Unknown norm '{kind}'")
 
     def forward(self, x: torch.Tensor, relu: bool = False) -> torch.Tensor:
+        if self.norm is None:
+            return F.relu(x) if relu else x
         return self.norm(x, relu=relu)
 
 
+def check_dropout(module: nn.Module, rate: float) -> None:
+    """The reference's ``nn.Dropout(deterministic=not train)``: the identity
+    outside training. A training forward with dropout raises: the reference
+    cannot train with it either, since its ``SegTrainer`` passes no dropout
+    RNG to ``apply_fn(..., train=True)``."""
+    if rate > 0.0 and module.training:
+        raise NotImplementedError(
+            f"dropout {rate} in a training forward: the reference cannot train with dropout "
+            "either (its SegTrainer gives apply_fn(train=True) no dropout RNG); set dropout 0")
+
+
 class ConvBlock(nn.Module):
-    """Conv3D -> Norm -> Act. With norm INSTANCE and act RELU the ReLU runs
-    inside the norm kernel."""
+    """Conv3D -> Norm -> Act -> Dropout (the identity outside training). With
+    act RELU the ReLU runs inside the norm (the kernel, for INSTANCE)."""
 
     def __init__(
         self,
@@ -131,11 +185,8 @@ class ConvBlock(nn.Module):
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
-        if dropout > 0.0:
-            raise NotImplementedError(
-                "ConvBlock dropout is a training-time op; it comes with the training slice"
-            )
         self.dtype = dtype
+        self.dropout = float(dropout)
         self.conv = nn.Conv3d(in_features, features, _triple(kernel_size),
                               stride=_triple(strides), bias=not use_norm)
         self.n = Norm(norm, features) if use_norm else None
@@ -148,6 +199,7 @@ class ConvBlock(nn.Module):
             x = self.n(x, relu=self.fuse_relu)
         if self.act is not None and not self.fuse_relu:
             x = self.act(x)
+        check_dropout(self, self.dropout)
         return x
 
 
@@ -202,6 +254,73 @@ class TransposedConvUp(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.conv_transpose3d(x.to(self.dtype), self.up.weight.to(self.dtype),
                                   self.up.bias.to(self.dtype), stride=self.up.stride)
+
+
+class UpSample(nn.Module):
+    """Nearest-neighbour upsampling by an integer scale, then a 1x1x1
+    projection with bias when the channel count changes (the reference's
+    ``UpSample``: repeat, then project)."""
+
+    def __init__(self, in_features: int, features: int, scale: IntOr3 = 2,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.scale = _triple(scale)
+        self.proj = nn.Conv3d(in_features, features, 1, bias=True) if in_features != features else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = repeat_nearest(x, self.scale)
+        return x if self.proj is None else conv3d_same(x, self.proj, self.dtype)
+
+
+def repeat_nearest(x: torch.Tensor, scale: Tuple[int, int, int]) -> torch.Tensor:
+    """``jnp.repeat`` along D, H and W by integer factors: nearest
+    interpolation, whose source index ``floor(i / s)`` is exact here."""
+    if tuple(scale) == (1, 1, 1):
+        return x
+    return F.interpolate(x, scale_factor=tuple(float(s) for s in scale), mode="nearest")
+
+
+def remat_call(module: nn.Module, *args: torch.Tensor, enabled: bool) -> torch.Tensor:
+    """``module(*args)``; with ``enabled`` (the reference's ``nn.remat``) its
+    activations are dropped after the forward and recomputed in the
+    backward, so every norm inside launches its forward kernel twice a
+    training step. Nothing inside draws random numbers (dropout raises in
+    training), so no RNG state is kept. Without autograd it is a plain call."""
+    if enabled and torch.is_grad_enabled():
+        return checkpoint(module, *args, use_reentrant=False, preserve_rng_state=False)
+    return module(*args)
+
+
+@torch.no_grad()
+def init_flax_defaults(model: nn.Module, seed: int) -> None:
+    """flax's default initialisers from an explicit generator:
+    lecun-normal kernels (fan_in = kernel volume x input features for a
+    conv, input features for a dense layer), zero biases, ones and zeros in
+    the norms (as built). The numbers differ from JAX's PRNG; the parity
+    tests carry JAX's weights across with ``models/convert.py``."""
+    gen = torch.Generator().manual_seed(int(seed))
+    for m in model.modules():
+        if isinstance(m, (nn.Conv3d, nn.ConvTranspose3d, nn.Linear)):
+            if isinstance(m, nn.Linear):
+                fan_in = m.in_features
+            else:
+                in_axis = 1 if isinstance(m, nn.Conv3d) else 0
+                fan_in = m.weight.shape[in_axis] * math.prod(m.kernel_size)
+            sd = math.sqrt(1.0 / fan_in) / _TRUNC_SD
+            nn.init.trunc_normal_(m.weight, mean=0.0, std=sd, a=-2.0 * sd, b=2.0 * sd, generator=gen)
+            if m.bias is not None:
+                m.bias.zero_()
+
+
+def head_linear(h: torch.Tensor, conv: nn.Conv3d) -> torch.Tensor:
+    """An f32 1x1x1 conv head as a matmul over the channels of the NDHWC
+    view of ``h`` [B, C, D, H, W]; returns NDHWC. XLA lowers the reference's
+    1x1x1 conv the same way, and cuDNN takes the weight gradient of a
+    one-output 1x1x1 conv in a direct kernel that cost 148 of 227 ms of a
+    batch-8 training step on an H100 (PERF.md)."""
+    w = conv.weight.reshape(conv.out_channels, -1)
+    return F.linear(h.permute(0, 2, 3, 4, 1).float(), w, conv.bias)
 
 
 def set_plain_norm(module: nn.Module, plain: bool) -> None:

@@ -5,31 +5,42 @@ The module tree carries flax's names (``enc0.unit0.conv``,
 ``enc0.unit0.n.norm.scale``, ``enc0.residual_proj``, ``up0.up``, ``dec0``,
 ``bottleneck``, ``head``), so the flagship has the reference's 82 parameter
 tensors, 36 of them norm affines, and ``models/convert.py`` maps flax
-params onto it by name. ``forward`` takes and returns NDHWC.
+params onto it by name. ``forward`` takes and returns NDHWC. ``remat``:
+``True`` rematerializes every level's blocks (the bottleneck's too), an
+int n the blocks of the n highest-resolution levels, the reference's rule.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from .. import DeviceLike, resolve_device
 from ..registry import register_model
 from ..utils.config import get_config
-from .layers import ConvBlock, ResidualUnit, TransposedConvUp
-
-# flax lecun_normal: truncated normal at +-2 sd, rescaled so the kept part
-# has variance 1 / fan_in (jax.nn.initializers.variance_scaling)
-_TRUNC_SD = 0.87962566103423978
+from .layers import ConvBlock, ResidualUnit, TransposedConvUp, head_linear, init_flax_defaults, remat_call
 
 
-def _lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
-    sd = math.sqrt(1.0 / fan_in) / _TRUNC_SD
-    nn.init.trunc_normal_(w, mean=0.0, std=sd, a=-2.0 * sd, b=2.0 * sd, generator=gen)
+def remat_levels(remat, n_levels: int) -> int:
+    """How many resolution levels are rematerialized: ``True`` all of them
+    (the bottleneck, at level ``n_levels``, too), an int n the n highest,
+    where the activation memory is (the reference's rule)."""
+    return n_levels + 1 if remat is True else int(remat or 0)
+
+
+def finish_model(model: nn.Module, seed: Optional[int], device: DeviceLike) -> None:
+    """The last step of every model's constructor: flax's initialisers from
+    ``seed`` (``None`` leaves the params for an enclosing model to set),
+    inference mode (the reference's ``train=False``; ``SegTrainer`` switches
+    to training for its step), and the params on ``device`` with conv
+    kernels in ``channels_last_3d``, the memory order of the activations."""
+    if seed is not None:
+        init_flax_defaults(model, seed)
+    model.eval()
+    model.to(device=resolve_device(device), memory_format=torch.channels_last_3d)
 
 
 @register_model("unet")
@@ -51,7 +62,7 @@ class UNet3D(nn.Module):
         moe_experts: int = 0,
         *,
         device: DeviceLike = "cuda",
-        seed: int = 0,
+        seed: Optional[int] = 0,
     ):
         super().__init__()
         if spatial_dims != 3:
@@ -60,14 +71,12 @@ class UNet3D(nn.Module):
             raise ValueError(
                 f"len(strides)={len(strides)} must equal len(channels)-1={len(channels) - 1}"
             )
-        for flag, what in ((remat, "remat"), (deep_supervision, "deep_supervision"),
-                           (moe_experts, "moe_experts")):
+        for flag, what, item in ((deep_supervision, "deep_supervision", "item 10, the training left-overs"),
+                                 (moe_experts, "moe_experts", "item 11, moe")):
             if flag:
-                raise NotImplementedError(
-                    f"UNet3D {what} is not ported yet (ROADMAP.md: training slice / "
-                    f"remaining models)"
-                )
-        device = resolve_device(device)
+                raise NotImplementedError(f"UNet3D {what} is not ported yet (ROADMAP.md, {item})")
+        resolve_device(device)
+        self.remat = remat
         self.in_channels = int(in_channels)
         self.num_classes = int(num_classes)
         self.channels = tuple(int(c) for c in channels)
@@ -91,25 +100,7 @@ class UNet3D(nn.Module):
             skip = chs[i - 1] if i > 0 else self.in_channels
             self.add_module(f"dec{i}", block(chs[i] + skip, chs[i], 1))
         self.head = nn.Conv3d(chs[0], self.num_classes, 1, bias=True)
-
-        self._init_params(seed)
-        # conv kernels in channels_last_3d, the memory order of the activations
-        self.to(device=device, memory_format=torch.channels_last_3d)
-
-    @torch.no_grad()
-    def _init_params(self, seed: int) -> None:
-        """flax's defaults from an explicit generator: lecun-normal kernels
-        (fan_in = kernel volume x input features), zero biases, ones and
-        zeros in the norms. The numbers differ from JAX's PRNG; the parity
-        tests carry JAX's weights across with ``models/convert.py``."""
-        gen = torch.Generator().manual_seed(int(seed))
-        for m in self.modules():
-            if isinstance(m, (nn.Conv3d, nn.ConvTranspose3d)):
-                in_axis = 1 if isinstance(m, nn.Conv3d) else 0
-                fan_in = m.weight.shape[in_axis] * math.prod(m.kernel_size)
-                _lecun_normal_(m.weight, fan_in, gen)
-                if m.bias is not None:
-                    m.bias.zero_()
+        finish_model(self, seed, device)
 
     @classmethod
     def from_config(cls, cfg, **overrides) -> "UNet3D":
@@ -146,20 +137,16 @@ class UNet3D(nn.Module):
                     f"downsampling factor {total_stride} (strides={list(self.strides)})"
                 )
         n = len(self.strides)
+        levels = remat_levels(self.remat, n)
         x = x.to(self.dtype).permute(0, 4, 1, 2, 3)  # NCDHW view of NDHWC memory
         skips = []
         h = x
         for i in range(n):
-            h = getattr(self, f"enc{i}")(h)
+            h = remat_call(getattr(self, f"enc{i}"), h, enabled=i < levels)
             skips.append(h)
-        h = self.bottleneck(h)
+        h = remat_call(self.bottleneck, h, enabled=n < levels)
         for i in reversed(range(n)):
             h = getattr(self, f"up{i}")(h)
             skip = skips[i - 1] if i > 0 else x
-            h = getattr(self, f"dec{i}")(torch.cat([h, skip], dim=1))
-        # the f32 1x1x1 head as a matmul over the channels of the NDHWC view,
-        # as XLA lowers the reference's 1x1x1 conv: cuDNN takes the weight
-        # gradient of a one-output 1x1x1 conv in a direct kernel that cost
-        # 148 of 227 ms in a batch-8 training step on an H100 (PERF.md)
-        w = self.head.weight.reshape(self.num_classes, -1)
-        return F.linear(h.permute(0, 2, 3, 4, 1).float(), w, self.head.bias)
+            h = remat_call(getattr(self, f"dec{i}"), torch.cat([h, skip], dim=1), enabled=i < levels)
+        return head_linear(h, self.head)

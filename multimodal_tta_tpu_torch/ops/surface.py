@@ -38,7 +38,9 @@ _INF = float("inf")
 # Pairs go through in groups whose temporaries stay under this budget. Per
 # voxel and pair: two distance fields (8 bytes), their masked copy (8), the
 # sorted values (8) and the sort's int64 indices (16), masks and surfaces (8).
-_GROUP_BYTES = 1 << 30
+# 2 GiB holds the 6 (sample, region) pairs of a BraTS batch of 2 at
+# [160,192,160] (1.42 GB): one group, so one EDT launch a batch.
+_GROUP_BYTES = 2 << 30
 _PAIR_BYTES_PER_VOXEL = 48
 
 

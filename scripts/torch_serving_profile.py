@@ -3,9 +3,14 @@
 of one training step goes on one CUDA card.
 
     python3 scripts/torch_serving_profile.py [--protocol online|strict|eval|train] [--batch 2] [--steps 3]
+        [--model unet|midfusion]
 
 Builds the flagship UNet3D (channels 32..512, bf16, random weights from a
-seed) as chip_smoke.py does. ``online`` and ``strict`` profile the Tent
+seed) as chip_smoke.py does, on HECKTOR21 batches; with ``--model
+midfusion`` the BraTS mid-fusion UNet (channels 32..512, bf16, remat) on
+synthetic BraTS batches [B,160,192,160,4] with the recipe of train_brats.sh
+(chip_smoke.py's ``brats_overrides``: adam 1e-4, multi-label DiceCE,
+modality dropout in training, threshold 0.5). ``online`` and ``strict`` profile the Tent
 adapt+segment serving step; ``eval`` profiles the evaluation step of one
 batch (forward, Dice/IoU, loss, HD95/ASD/NSD) on synthetic volumes with
 ellipsoid labels; ``train`` profiles ``SegTrainer.run_step`` with the
@@ -14,7 +19,7 @@ bf16) on a device-resident batch with ellipsoid labels (run it with
 ``--batch 8``, the recipe's batch). The step is warmed up, timed over ten
 steps without the profiler (and once more without a synchronise, for the
 host's share), then ``--steps`` steps run under ``torch.profiler``. Prints:
-the wall time per step, the device time by kernel (top 15), the device time
+the wall time per step, the device time by kernel (top 20), the device time
 by kind (the fused-InstanceNorm CUDA kernels, forward and backward apart,
 convolutions, the min-plus CUDA kernel, the optimizer's foreach kernels,
 sorts, copies, the rest), the kernels launched per step in all and per kind
@@ -79,15 +84,25 @@ def ellipsoid_labels(torch, dev, batch: int):
     return torch.from_numpy(label.astype(np.uint8)).to(dev)
 
 
-def eval_step_fn(torch, dev, model, batch: int):
+def brats_config():
+    from chip_smoke import REPO, brats_overrides
+    from multimodal_tta_tpu_torch.conf import compose
+
+    return compose(os.path.join(REPO, "configs"), "config", brats_overrides())
+
+
+def eval_step_fn(torch, dev, model, batch: int, label=None):
     """The evaluation step on one synthetic batch, as chip_smoke.py
     configures it: ``step(model, x, batch)``-shaped like the serving step."""
     from chip_smoke import eval_config
     from multimodal_tta_tpu_torch.conf import ConfigNode
     from multimodal_tta_tpu_torch.evaluation.seg_eval import SegmentationEvaluationStrategy
 
-    strategy = SegmentationEvaluationStrategy(ConfigNode(eval_config("none", True)))
-    label = ellipsoid_labels(torch, dev, batch)
+    if label is None:
+        strategy = SegmentationEvaluationStrategy(ConfigNode(eval_config("none", True)))
+        label = ellipsoid_labels(torch, dev, batch)
+    else:
+        strategy = SegmentationEvaluationStrategy(brats_config())
 
     def step(model, x, n_valid):
         return strategy._to_host(strategy._eval_step(model, x, label))
@@ -95,7 +110,7 @@ def eval_step_fn(torch, dev, model, batch: int):
     return step
 
 
-def train_step_fn(torch, dev, model, batch: int):
+def train_step_fn(torch, dev, model, batch: int, label=None):
     """``SegTrainer.run_step`` with chip_smoke.py's training recipe on one
     device-resident batch (the loss read one step late, as in training)."""
     from chip_smoke import DEVICE_TRANSFORM, train_recipe
@@ -103,11 +118,16 @@ def train_step_fn(torch, dev, model, batch: int):
     from multimodal_tta_tpu_torch.core.optim import build_optimizer
     from multimodal_tta_tpu_torch.core.train_state import TrainState
     from multimodal_tta_tpu_torch.core.trainers.seg_trainer import SegTrainer
+    from multimodal_tta_tpu_torch.registry import get_dataset_builder
 
-    cfg = ConfigNode(train_recipe(""))
-    trainer = SegTrainer(cfg, device_transform=DEVICE_TRANSFORM, device=dev)
+    if label is None:
+        cfg, spec = ConfigNode(train_recipe("")), DEVICE_TRANSFORM
+        label = ellipsoid_labels(torch, dev, batch)
+    else:
+        cfg = brats_config()
+        spec = get_dataset_builder("brats")(cfg).build_transform("train").device_spec()
+    trainer = SegTrainer(cfg, device_transform=spec, device=dev)
     trainer.setup(TrainState(model=model, optimizer=build_optimizer(cfg.training, model)[0]))
-    label = ellipsoid_labels(torch, dev, batch)
 
     def step(model, x, n_valid):
         return trainer.run_step({"image": x, "label": label, "_n_valid": n_valid})
@@ -120,6 +140,7 @@ def main() -> int:
     ap.add_argument("--protocol", choices=("online", "strict", "eval", "train"), default="online")
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--model", choices=("unet", "midfusion"), default="unet")
     args = ap.parse_args()
 
     import torch
@@ -139,19 +160,33 @@ def main() -> int:
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     dev = torch.device("cuda")
     online = args.protocol == "online"
-    model = UNet3D(channels=(32, 64, 128, 256, 512), dtype=torch.bfloat16, device=dev, seed=0)
     cfg = ConfigNode({"training": {"criterion": {"sigmoid": True}},
                       "tta": {"steps": 1, "lr": 1e-3, "momentum": 0.9, "episodic": not online}})
-    if args.protocol == "eval":
-        step = eval_step_fn(torch, dev, model, args.batch)
-    elif args.protocol == "train":
-        step = train_step_fn(torch, dev, model, args.batch)
+    if args.model == "midfusion":
+        import numpy as np
+
+        from chip_smoke import BRATS_SHAPE, BRATS_THRESHOLD
+        from multimodal_tta_tpu_torch.data.synthetic import brats_volumes
+        from multimodal_tta_tpu_torch.models import MultimodalUNetMidFusion
+
+        model = MultimodalUNetMidFusion(dtype=torch.bfloat16, remat=True, device=dev, seed=0)
+        vols = brats_volumes(args.batch, BRATS_SHAPE, seed=40)
+        x = torch.from_numpy(np.stack([v["image"] for v in vols])).to(dev)
+        label = torch.from_numpy(np.stack([v["label"] for v in vols])).to(dev, torch.uint8)
+        transform, threshold = {"normalize": False}, BRATS_THRESHOLD
     else:
-        adapter = TentAdapter(cfg.tta, config=cfg, device_transform=DEVICE_TRANSFORM, device=dev)
-        step = adapter.make_adapt_predict_fn(model, threshold=THRESHOLD,
+        model = UNet3D(channels=(32, 64, 128, 256, 512), dtype=torch.bfloat16, device=dev, seed=0)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        x = torch.randn((args.batch,) + SHAPE, generator=gen, device=dev) * 100
+        label, transform, threshold = None, DEVICE_TRANSFORM, THRESHOLD
+    if args.protocol == "eval":
+        step = eval_step_fn(torch, dev, model, args.batch, label)
+    elif args.protocol == "train":
+        step = train_step_fn(torch, dev, model, args.batch, label)
+    else:
+        adapter = TentAdapter(cfg.tta, config=cfg, device_transform=transform, device=dev)
+        step = adapter.make_adapt_predict_fn(model, threshold=threshold,
                                              predict_mode="inline" if online else "post")
-    gen = torch.Generator(device=dev).manual_seed(1)
-    x = torch.randn((args.batch,) + SHAPE, generator=gen, device=dev) * 100
     for _ in range(3):
         step(model, x, args.batch)
     torch.cuda.synchronize()
@@ -206,7 +241,7 @@ def main() -> int:
           f"host alone, no synchronise: {host_ms:.3f} ms/step")
     print(f"{args.protocol} step, batch {args.batch}, {args.steps} steps: wall {wall_ms / args.steps:.3f} ms/step, "
           f"device {device_ms / args.steps:.3f} ms/step, busy share {device_ms / wall_ms:.3f}")
-    for name, ms, count in rows[:15]:
+    for name, ms, count in rows[:20]:
         print(f"  {ms / args.steps:9.3f} ms/step  x{count // args.steps:<4d} {name[:110]}")
     print("by kind (ms/step): " + ", ".join(f"{k} {v:.3f}" for k, v in sorted(per_step.items())))
     print("kernels per step by kind: " + ", ".join(f"{k} {v:.1f}" for k, v in sorted(launches_per_step.items()))
@@ -218,7 +253,7 @@ def main() -> int:
     print("host time by operator, self ms/step (calls/step): "
           + ", ".join(f"{k} {ms:.2f} ({n:.0f})" for k, ms, n in host))
     print(json.dumps({
-        "protocol": args.protocol, "batch": args.batch, "steps": args.steps, "card": card,
+        "protocol": args.protocol, "model": args.model, "batch": args.batch, "steps": args.steps, "card": card,
         "warm_ms_per_step_no_profiler": warm_ms, "host_enqueue_ms_per_step": host_ms,
         "wall_ms_per_step": wall_ms / args.steps, "device_ms_per_step": device_ms / args.steps,
         "busy_share": device_ms / wall_ms, "device_ms_per_step_by_kind": per_step,

@@ -233,28 +233,30 @@ class JaxDraws:
         return d
 
 
-def jax_state(params, num_classes: int = 1):
+def jax_state(params, num_classes: int = 1, module=None):
+    """A JAX ``TrainState`` of ``module`` (default: the dryrun UNet3D)."""
     import optax
 
     from multimodal_tta_tpu.core.train_state import TrainState
     from multimodal_tta_tpu.models.unet3d import UNet3D as JaxUNet3D
 
-    jm = JaxUNet3D(**dict(DRYRUN, num_classes=num_classes))
+    jm = module if module is not None else JaxUNet3D(**dict(DRYRUN, num_classes=num_classes))
     return TrainState.create(apply_fn=jm.apply, params=jax.tree_util.tree_map(jnp.asarray, params),
                              tx=optax.identity())
 
 
 def run_jax_adapter(cls, params, cfg_dict, batches, n_valid, mode, threshold=0.3, floors=None,
-                    num_classes=1):
+                    num_classes=1, module=None, device_transform=DEVICE_TRANSFORM):
     """A JAX adapter over ``batches``: ``mode`` None = ``make_adapt_fn``,
-    else ``make_adapt_predict_fn`` in that mode. Returns the adapted params
-    as a port state dict, the entropy trace per batch, the predictions and
-    the adapter."""
+    else ``make_adapt_predict_fn`` in that mode. ``module`` is the flax
+    model (default: the dryrun UNet3D). Returns the adapted params as a port
+    state dict, the entropy trace per batch, the predictions and the
+    adapter."""
     from multimodal_tta_tpu.conf import ConfigNode as JaxConfigNode
 
     cfg = JaxConfigNode(cfg_dict)
-    state = jax_state(params, num_classes)
-    adapter = cls(cfg.tta, config=cfg, mesh=None, device_transform=DEVICE_TRANSFORM)
+    state = jax_state(params, num_classes, module)
+    adapter = cls(cfg.tta, config=cfg, mesh=None, device_transform=device_transform)
     if mode is None:
         fn = adapter.make_adapt_fn(state)
     else:
@@ -274,15 +276,17 @@ def run_jax_adapter(cls, params, cfg_dict, batches, n_valid, mode, threshold=0.3
 
 
 def run_torch_adapter(cls, params, cfg_dict, batches, n_valid, mode, threshold=0.3, floors=None,
-                      num_classes=1, model=None):
-    """The port's adapter the same way, its draws from ``JaxDraws``."""
+                      num_classes=1, model=None, device_transform=DEVICE_TRANSFORM):
+    """The port's adapter the same way, its draws from ``JaxDraws``;
+    ``model`` is the port model holding ``params`` (default: the dryrun
+    UNet3D)."""
     from multimodal_tta_tpu_torch.conf import ConfigNode
     from multimodal_tta_tpu_torch.models.unet3d import UNet3D
 
     cfg = ConfigNode(cfg_dict)
     if model is None:
         model = load_flax(UNet3D(**dict(DRYRUN, num_classes=num_classes), device="cpu"), params)
-    adapter = cls(cfg.tta, config=cfg, device_transform=DEVICE_TRANSFORM, device="cpu")
+    adapter = cls(cfg.tta, config=cfg, device_transform=device_transform, device="cpu")
     adapter.batch_draws = JaxDraws(adapter, params)
     if mode is None:
         fn = adapter.make_adapt_fn(model)
@@ -317,3 +321,41 @@ def assert_preds_close(t_preds, j_preds, agree=0.999):
     for a, b in zip(t_preds, j_preds):
         assert a.shape == b.shape
         assert (a == b).mean() >= agree
+
+
+class NormCalls:
+    """Counts InstanceNorm forwards and backwards (on the card, each is one
+    kernel launch) through global module hooks, for the whole process. A
+    forward counts when it starts: under remat, the recomputation stops
+    (torch.utils.checkpoint's early stop) inside the last norm of a segment
+    once that norm has saved its tensors, after its kernel ran, so the
+    module never returns there."""
+
+    def __init__(self):
+        from multimodal_tta_tpu_torch.models.layers import InstanceNorm
+
+        self.fwd = self.bwd = 0
+
+        def pre_hook(module, args):
+            if isinstance(module, InstanceNorm):
+                self.fwd += 1
+
+        def hook(module, args, output):
+            if isinstance(module, InstanceNorm) and output.requires_grad:
+                output.register_hook(self._backward)
+
+        self.handles = [torch.nn.modules.module.register_module_forward_pre_hook(pre_hook),
+                        torch.nn.modules.module.register_module_forward_hook(hook)]
+
+    def _backward(self, grad):
+        self.bwd += 1
+
+    def reset(self):
+        self.fwd = self.bwd = 0
+
+    def read(self):
+        return {"forward": self.fwd, "backward": self.bwd}
+
+    def remove(self):
+        for h in self.handles:
+            h.remove()

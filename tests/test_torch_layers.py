@@ -82,9 +82,12 @@ def test_get_act(name):
 
 
 def test_unported_norms_raise():
-    for kind in ("BATCH", "GROUP", "LAYER"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tl.Norm(kind, 4)
+    """BATCH waits for the BatchNorm backbones; GROUP, LAYER and NONE are
+    ported (tests/test_torch_seg_models.py::test_norm_kinds)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, item 11"):
+        tl.Norm("BATCH", 4)
+    with pytest.raises(ValueError, match="Unknown norm"):
+        tl.Norm("SPECTRAL", 4)
 
 
 def test_bf16_block_casts_like_flax():

@@ -444,8 +444,7 @@ def test_epoch_stepped_lr_and_loader_epoch(params1):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("model.deep_supervision", 2), ("model.moe_experts", 4), ("training.distill.enabled", True),
-    ("training.remat", True)])
+    ("model.deep_supervision", 2), ("model.moe_experts", 4), ("training.distill.enabled", True)])
 def test_unported_options_raise(key, value):
     cfg = config(STEP_CASES["sgd"])
     section, name = key.split(".", 1)

@@ -36,7 +36,8 @@ from multimodal_tta_tpu_torch.conf import ConfigNode
 from multimodal_tta_tpu_torch.models.unet3d import UNet3D
 from multimodal_tta_tpu_torch.tta import TentAdapter
 from multimodal_tta_tpu_torch.tta.stream import StreamTTAController, binary_dice_per_case, evaluate_stream
-from tests._torch_port import DEVICE_TRANSFORM, DRYRUN, dryrun_params, jax_state, load_flax, tta_config, volumes
+from tests._torch_port import (DEVICE_TRANSFORM, DRYRUN, NormCalls, dryrun_params, jax_state, load_flax, tta_config,
+                               volumes)
 from tests.test_torch_cli import common, env, jax_weights  # noqa: F401 (module fixtures)
 
 torch.set_num_threads(2)
@@ -246,33 +247,6 @@ def test_every_stock_tta_config_runs_through_cli_adapt(env, jax_weights, name): 
 
 
 # ---- chip_smoke.py's phase 15 at fixture size -------------------------------
-class NormCalls:
-    """Counts InstanceNorm forwards and backwards (on the card, each is one
-    kernel launch) through a global module hook, for the whole process."""
-
-    def __init__(self):
-        from multimodal_tta_tpu_torch.models.layers import InstanceNorm
-
-        self.fwd = self.bwd = 0
-
-        def hook(module, args, output):
-            if isinstance(module, InstanceNorm):
-                self.fwd += 1
-                if output.requires_grad:
-                    output.register_hook(self._backward)
-
-        self.handle = torch.nn.modules.module.register_module_forward_hook(hook)
-
-    def _backward(self, grad):
-        self.bwd += 1
-
-    def reset(self):
-        self.fwd = self.bwd = 0
-
-    def read(self):
-        return {"forward": self.fwd, "backward": self.bwd}
-
-
 def test_chip_smoke_tta_phase_runs_on_the_cpu():
     """Phase 15's method runs on the CPU at fixture size: their checks, and
     the norm calls of each run against ``expected_tta_launches`` (18 norm
@@ -288,7 +262,7 @@ def test_chip_smoke_tta_phase_runs_on_the_cpu():
         out = chip_smoke.tta_phase("cpu", model, batches, extra=["tta.window.roi_size=[16,16,16]"],
                                    reset_counts=calls.reset, read_counts=calls.read)
     finally:
-        calls.handle.remove()
+        calls.remove()
     assert list(out) == [tag for tag, _ in chip_smoke.TTA_RUNS] and len(out) == 16
     for tag, r in out.items():
         assert r["launches"] == dict(zip(("forward", "backward"), chip_smoke.expected_tta_launches(
@@ -329,7 +303,7 @@ def test_chip_smoke_stream_phase_runs_on_the_cpu(env, jax_weights, tmp_path):  #
         out = chip_smoke.stream_phase("cpu", env["manifest"], jax_weights["checkpoint"], str(tmp_path), extra=small,
                                       reset_counts=calls.reset, read_counts=calls.read, per_forward=n_norms)
     finally:
-        calls.handle.remove()
+        calls.remove()
     assert set(out) == set(chip_smoke.STREAM_RUNS)
     for name, r in out.items():
         assert r["launches"] == r["want"], name

@@ -87,11 +87,16 @@ def test_from_config_and_registry():
     assert isinstance(m, UNet3D) and m.channels == (4, 8, 16, 32, 64)
 
 
-@pytest.mark.parametrize("kw", [{"remat": True}, {"deep_supervision": 1}, {"moe_experts": 2},
+@pytest.mark.parametrize("kw", [{"norm": "BATCH"}, {"deep_supervision": 1}, {"moe_experts": 2},
                                 {"dropout": 0.1}])
 def test_unported_options_raise(kw):
+    """Each raises at construction, except dropout: the identity outside
+    training, it raises in a training forward (the reference cannot train
+    with it either). remat is ported (tests/test_torch_seg_models.py)."""
     with pytest.raises(NotImplementedError):
-        UNet3D(**{**DRYRUN, **kw}, device="cpu")
+        m = UNet3D(**{**DRYRUN, **kw}, device="cpu")
+        m.train()
+        m(torch.zeros(1, 16, 16, 16, 2))
 
 
 def test_entry_point_needs_cuda_unless_cpu_is_asked(monkeypatch):
