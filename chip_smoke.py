@@ -131,6 +131,27 @@ Phases, in order (any failure propagates and exits non-zero):
                logits vs plain, a Tent step); ``cli.train`` and ``cli.adapt``
                on a BraTS NIfTI fixture at (96,96,64) (``brats_cli``), each
                call's launches counted exactly.
+ 17. transformers — UNETR and SwinUNETR at their paper widths
+               (configs/model/{unetr,swin_unetr}.yaml in the HECKTOR21 recipe,
+               bf16): one forward on [2,48,144,144,2] (16 and 22 norm launches,
+               267 / 238 param tensors of which Tent adapts 82 / 94; logits
+               against the plain norm, and in f32); both norm kernels against
+               their plain versions at every norm shape of that forward, bf16
+               and f32, with the regime each took, and timed; training through
+               ``ExperimentManager`` with the recipe at batch 8 and remat
+               (``transformer_train_and_serve``: 2 epochs of 16 synthetic
+               volumes, validation with surface metrics: finite losses, every
+               tensor moved, the launches of every step as remat derives them
+               (``remat_norms``: UNETR's skip branches are never recomputed),
+               each validation EDT bitwise its plain version, ms a step,
+               volumes/s, peak memory); ``TTAEngine.evaluate`` with none,
+               episodic Tent and continual Tent (launches as
+               ``expected_tta_launches`` derives them, the model restored);
+               the Tent serving step online and strict; an f32 Tent step on a
+               small full-width input, kernel vs plain norm; ``cli.train``,
+               ``cli.adapt`` and ``cli.predict`` with ``model=<name>`` on
+               phase 14's fixture (``transformer_cli``), each call's launches
+               counted exactly.
 
 Phase 2 also holds the norm kernels against their plain versions at the nine
 norm shapes of the batch-8 training step (the largest, [8,48,144,144,32], in
@@ -247,12 +268,37 @@ CLI_CENTERS = {"CHUS": 4, "CHUM": 26, "CHGJ": 26}
 CLI_STEPS_PER_EPOCH = 6
 
 
-def cli_overrides(manifest: str, run_dir: str, *extra: str) -> list:
+def hecktor_volumes(n: int, seed: int, shape=SHAPE[:3]) -> list:
+    """CT/PET-like volumes [*shape, 2] with an ellipsoid lesion each (its
+    centre and radii scale with ``shape``)."""
+    import numpy as np
+
+    d, h, w = shape
+    zz, yy, xx = np.meshgrid(np.arange(d), np.arange(h), np.arange(w), indexing="ij")
+
+    def scaled(v):
+        return tuple(a * n_ / full for a, n_, full in zip(v, shape, SHAPE[:3]))
+
+    r = np.random.RandomState(seed)
+    out = []
+    for i in range(n):
+        c, rad = r.uniform(scaled((14, 40, 40)), scaled((34, 104, 104))), r.uniform(scaled((3, 8, 8)),
+                                                                                     scaled((8, 24, 24)))
+        lesion = (((zz - c[0]) / rad[0]) ** 2 + ((yy - c[1]) / rad[1]) ** 2 + ((xx - c[2]) / rad[2]) ** 2) <= 1.0
+        ct = r.randn(d, h, w).astype(np.float32) * 150.0 - 50.0 + 250.0 * lesion
+        ct[r.rand(d, h, w) < 0.3] = -1000.0  # air
+        pt = np.abs(r.randn(d, h, w)).astype(np.float32) * 1.5 + 8.0 * lesion
+        out.append({"image": np.stack([ct, pt], axis=-1).astype(np.float32),
+                    "label": lesion[..., None].astype(np.float32), "domain": ("CHUM", "CHGJ")[i % 2]})
+    return out
+
+
+def cli_overrides(manifest: str, run_dir: str, *extra: str, model: str = "unet") -> list:
     """The overrides of every phase-14 CLI call: the full-width recipe of
-    configs/ on the fixture, target centre CHUS, 2 validation volumes per
-    source centre, 2 epochs with validation (surface metrics on) and a
-    checkpoint each epoch."""
-    return ["task=hecktor21", "dataset=hecktor21", "model=unet", f"dataset.manifest_csv={manifest}",
+    configs/ on the fixture (``model`` of configs/model/), target centre CHUS,
+    2 validation volumes per source centre, 2 epochs with validation (surface
+    metrics on) and a checkpoint each epoch."""
+    return ["task=hecktor21", "dataset=hecktor21", f"model={model}", f"dataset.manifest_csv={manifest}",
             "dataset.target_center=CHUS", "dataset.val_per_center=2", "training.epochs=2",
             "training.model_save_start=0", "training.model_save_freq=1", "training.eval_test.every_n_epochs=1",
             "evaluation.surface.enable=true", f"task.save_dir={os.path.dirname(run_dir)}",
@@ -1248,6 +1294,374 @@ def brats_other_models(device, shape=BRATS_SHAPE, *, channels=(32, 64, 128, 256,
     return out
 
 
+# ---- phase 17: the transformer segmenters ----------------------------------
+# configs/model/{unetr,swin_unetr}.yaml at their paper widths in the HECKTOR21
+# recipe: (norm calls of one forward, (param tensors, norm affines Tent adapts))
+TRANSFORMERS = {"unetr": (16, (267, 82)), "swin_unetr": (22, (238, 94))}
+TRANSFORMER_TRAIN_VOLUMES, TRANSFORMER_VAL_VOLUMES = 16, 4  # phase 11's: 2 steps of batch 8 an epoch
+TRANSFORMER_TTA_BATCHES, TRANSFORMER_SERVING_STEPS = 2, 4
+TRANSFORMER_TTA_RUNS = BRATS_TTA_RUNS[:3]  # none, Tent episodic (post), Tent continual (inline)
+# the f32 Tent step, kernel vs plain norm: a small input the patch grids divide
+TRANSFORMER_SMALL = {"unetr": (32, 64, 64), "swin_unetr": (16, 32, 32)}
+
+
+def transformer_overrides(name: str, *extra: str) -> list:
+    """The HECKTOR21 recipe of configs/ with ``model=name`` and remat on
+    (every rematerialized norm launches its forward again in the backward),
+    surface metrics on, seed 0, then ``extra``."""
+    return ["task=hecktor21", "dataset=hecktor21", f"model={name}", "training.remat=true", "task.seed=0",
+            "evaluation.surface.enable=true", f"evaluation.surface.nsd_tol={NSD_TOL}", *extra]
+
+
+def remat_norms(model) -> int:
+    """InstanceNorm calls a backward runs again under the model's remat, by
+    the reference's rule (``unetr.py:154-160``, ``swin_unetr.py:288-292``):
+    a level n is rematerialized when n < the remat level count (all levels,
+    the encoder's too, under ``True``). UNETR: the stem pair at level 0, the
+    ``dec{k}`` pair at level k, the skip branches never (they are outside
+    ``run``). SwinUNETR: the bottleneck pair at level ``stages + 1``, the
+    ``enc{j}_`` and ``dec{j}_`` pairs at level j; its encoder has no
+    InstanceNorm."""
+    if type(model).__name__ == "UNETR":
+        levels = model.levels
+        rl = levels + 1 if model.remat is True else int(model.remat or 0)
+        return 2 * (0 < rl) + sum(2 for k in range(levels) if k < rl)
+    stages = model.stages
+    rl = stages + 2 if model.remat is True else int(model.remat or 0)
+    return 2 * (stages + 1 < rl) + sum(4 for j in range(stages + 1) if j < rl)
+
+
+def transformer_train_and_serve(device, name: str, root: str, *, shape=SHAPE[:3], small=None, extra=(),
+                                reset_counts=lambda: None, read_counts=lambda: {}, per_forward: int = 16) -> dict:
+    """Phase 17 for one transformer (``name``): training through
+    ``ExperimentManager`` with the HECKTOR21 recipe (``transformer_overrides``:
+    batch 8, adam, remat) for 2 epochs over ``TRANSFORMER_TRAIN_VOLUMES``
+    synthetic volumes of ``shape`` with validation (surface metrics) each
+    epoch; its trained weights through ``TTAEngine.evaluate``
+    (``TRANSFORMER_TTA_RUNS``); the Tent serving step, online (continual,
+    inline) and strict (episodic, post); one f32 Tent step on a ``small``
+    input (default ``TRANSFORMER_SMALL``) through the kernel and through the
+    plain norm.
+
+    Checks what holds on any device: finite losses, every tensor moved; the
+    launches of every step, validation batch, run and serving step exactly
+    as ``per_forward`` norm calls a forward, ``remat_norms`` of them again
+    in a backward, and the step structure derive them; each validation
+    EDT bitwise its plain version; finite metrics in range; the model bitwise
+    its trained weights after each run; the f32 step's entropy, norm deltas
+    and predictions (phase 5's limits). The caller holds the numbers."""
+    import shutil
+    import statistics
+
+    import numpy as np
+    import torch
+
+    import multimodal_tta_tpu_torch.ops.surface as surface_module
+    from multimodal_tta_tpu_torch.conf import ConfigNode, compose
+    from multimodal_tta_tpu_torch.core.experiment_manager import ExperimentManager
+    from multimodal_tta_tpu_torch.core.trainer_base import HookBase
+    from multimodal_tta_tpu_torch.data import HostLoader, get_seg_transforms
+    from multimodal_tta_tpu_torch.kernels.edt_minplus import squared_edt_volumes, squared_edt_volumes_plain
+    from multimodal_tta_tpu_torch.models.layers import set_plain_norm
+    from multimodal_tta_tpu_torch.registry import get_model
+    from multimodal_tta_tpu_torch.tta.tent import TentAdapter, norm_param_mask
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def base(*o):
+        return transformer_overrides(name, *o, *extra)
+
+    shutil.rmtree(root, ignore_errors=True)
+    configs = os.path.join(REPO, "configs")
+    out: dict = {}
+    size = "training.data.transforms.image_size=[" + ",".join(map(str, shape)) + "]"
+    train_set = hecktor_volumes(TRANSFORMER_TRAIN_VOLUMES, 51, shape)
+    val_set = hecktor_volumes(TRANSFORMER_VAL_VOLUMES, 52, shape)
+    vols = hecktor_volumes(BATCH * TRANSFORMER_TTA_BATCHES, 53, shape)
+    spec = get_seg_transforms(ndim=3, split="train", normalize=True, geom_aug=False, intensity_aug=False,
+                              image_size=list(shape), intensity_policy=HECKTOR_POLICY,
+                              channel_names=["ct", "pt"], on_device=True).device_spec()
+
+    run_dir = os.path.join(root, "train")
+    cfg = compose(configs, "config", base(size, "training.epochs=2", "training.scheduler.name=poly",
+                                          "training.eval_test.every_n_epochs=1", f"task.save_dir={run_dir}",
+                                          f"hydra.run.dir={run_dir}"))
+    batch = int(cfg.training.batch_size)
+    m = ExperimentManager(cfg, device=dev)
+    model = m.setup_model()
+    m.setup_optimizer()
+    m.setup_scheduler()
+    m.train_loader = HostLoader(train_set, batch_size=batch, shuffle=True, drop_last=True, num_workers=2, seed=0)
+    m.val_loader = HostLoader(val_set, batch_size=int(cfg.training.eval_batch_size), num_workers=2)
+    m.device_transform = spec
+    m.setup_trainer()
+    recompute = remat_norms(model)
+
+    class StepRecorder(HookBase):
+        def __init__(self):
+            self.launches, self.losses, self.ms = [], [], []
+
+        def before_train_step(self):
+            sync()
+            self._at, self._t = read_counts(), time.perf_counter()
+
+        def after_train_step(self):
+            sync()
+            self.ms.append((time.perf_counter() - self._t) * 1e3)
+            got = read_counts()
+            self.launches.append({k: got[k] - self._at[k] for k in got})
+            self.losses.append(self.trainer._pending_loss)
+
+    rec = StepRecorder()
+    m.trainer.register_hooks([rec])
+    params0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    val_edt = []
+
+    def recording_edt(pts, spacing, *, sqrt=False):
+        got = squared_edt_volumes(pts, spacing, sqrt=sqrt)
+        val_edt.append((pts.clone(), spacing, sqrt, got.clone()))
+        return got
+
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    surface_module.squared_edt_volumes = recording_edt
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        history = m.train(2)
+        sync()
+    finally:
+        surface_module.squared_edt_volumes = squared_edt_volumes
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+    losses = [float(v) for v in rec.losses]
+    unmoved = sorted(n for n, p in model.named_parameters() if torch.equal(p, params0[n]))
+    n_steps, n_val = len(losses), 2 * len(m.val_loader)
+    step_want = {"forward": per_forward + recompute, "backward": per_forward}
+    run_want = {"forward": n_steps * (per_forward + recompute) + n_val * per_forward,
+                "backward": n_steps * per_forward, "minplus": n_val}
+    edt = [{"shape": list(pts.shape), "with_points": int(pts.flatten(1).any(1).sum()),
+            "bitwise_plain": torch.equal(got, squared_edt_volumes_plain(pts, spacing, sqrt=root_))}
+           for pts, spacing, root_, got in val_edt]
+    del val_edt
+    out["train"] = {"wall_s": wall, "losses": losses, "step_ms": rec.ms, "step_launches": rec.launches,
+                    "launches": counts, "want": run_want, "step_want": step_want, "unmoved": unmoved,
+                    "recompute": recompute, "batch": batch,
+                    "params": (len(params0), sum(norm_param_mask(model).values())), "peak_gib": peak / 2**30,
+                    "val": [{k: v for k, v in ev.items() if "/" not in k} for ev in history["eval_history"]],
+                    "edt": edt, "steps": n_steps, "val_batches": n_val}
+    if n_steps != 2 * (TRANSFORMER_TRAIN_VOLUMES // batch) or not all(np.isfinite(losses)):
+        raise AssertionError(f"{name} training: {n_steps} steps, losses {losses}")
+    if unmoved:
+        raise AssertionError(f"{name} training left {unmoved} unmoved")
+    if not all(_counted(s, step_want) for s in rec.launches) or not _counted(counts, run_want):
+        raise AssertionError(f"{name} training launches {rec.launches} / {counts}, derived {step_want} / {run_want}")
+    if len(edt) != n_val or not all(e["bitwise_plain"] for e in edt):
+        raise AssertionError(f"{name} validation EDT: {edt}")
+    for ev in history["eval_history"]:
+        bad = {k: v for k, v in ev.items() if not math.isfinite(float(v))}
+        if bad or "gtvt_hd95" not in ev:
+            raise AssertionError(f"{name} validation: {bad or sorted(ev)}")
+
+    # warm steps on device-resident batches: ms a step, volumes/s, peak memory
+    trainer = m.trainer
+    dev_batches = [{"image": torch.from_numpy(np.stack([v["image"] for v in train_set[k:k + batch]])).to(dev),
+                    "label": torch.from_numpy(np.stack([v["label"] for v in train_set[k:k + batch]])).to(dev),
+                    "_n_valid": batch} for k in (0, batch)]
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    warm = []
+    for i in range(4):
+        sync()
+        t0 = time.perf_counter()
+        trainer.run_step(dev_batches[i % 2])
+        sync()
+        warm.append((time.perf_counter() - t0) * 1e3)
+    trainer.flush_step_metrics()
+    med = statistics.median(warm[1:])
+    out["train"].update(warm_step_ms=warm, median_step_ms=med, volumes_per_s=batch * 1e3 / med,
+                        warm_peak_gib=(torch.cuda.max_memory_allocated(dev) if cuda else 0) / 2**30)
+    del dev_batches, trainer
+    m.trainer.state.optimizer.zero_grad(set_to_none=True)
+    trained = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    shutil.rmtree(run_dir, ignore_errors=True)
+
+    # ---- TTAEngine.evaluate on the trained weights -------------------------
+    batches = [{"image": np.stack([v["image"] for v in vols[k:k + BATCH]]),
+                "label": np.stack([v["label"] for v in vols[k:k + BATCH]]),
+                "domain": [v["domain"] for v in vols[k:k + BATCH]]} for k in range(0, len(vols), BATCH)]
+    tta = tta_phase(dev, model, batches, runs=TRANSFORMER_TTA_RUNS, base=lambda *o: base(size, *o),
+                    device_transform=spec, reset_counts=reset_counts, read_counts=read_counts)
+    out["tta"] = {}
+    for tag, r in tta.items():
+        f, b = expected_tta_launches(r["adapter"], r["batches"], r["traces"], per_forward, recompute)
+        want = {"forward": f, "backward": b, "minplus": r["batches"]}
+        if not _counted(r["launches"], want) or not r["model_unchanged"]:
+            raise AssertionError(f"{name} {tag}: launches {r['launches']}, derived {want}")
+        out["tta"][tag] = {"ms_per_batch": r["ms_per_batch"], "launches": r["launches"], "want": want,
+                           "traces": r["traces"], "metrics": {k: v for k, v in r["metrics"].items() if "/" not in k}}
+    del tta
+
+    # the Tent serving step: inline (continual) and post (episodic) predictions
+    out["serving"] = {}
+    for proto, predict, episodic in (("online", "inline", False), ("strict", "post", True)):
+        cfg_s = compose(configs, "config", base(size, "tta=tent", f"tta.episodic={str(episodic).lower()}",
+                                                f"tta.predict={predict}"))
+        ad = TentAdapter(cfg_s.tta, config=cfg_s, device_transform=DEVICE_TRANSFORM, device=dev)
+        step = ad.make_adapt_predict_fn(model, threshold=THRESHOLD, predict_mode=predict)
+        times, ents = [], []
+        reset_counts()
+        for i in range(TRANSFORMER_SERVING_STEPS):
+            sync()
+            t0 = time.perf_counter()
+            _, pred = step(model, torch.from_numpy(batches[i % len(batches)]["image"]).to(dev), BATCH)
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+            ents.append(ad.last_entropy)
+        counts = read_counts()
+        params = dict(model.named_parameters())
+        names = [n for n, v in norm_param_mask(model).items() if v]
+        reached = [n for n in names if params[n].grad is not None and bool(params[n].grad.abs().max() > 0)
+                   and bool(torch.isfinite(params[n].grad).all())]
+        ad.restore()
+        per_step = per_forward * (2 if predict == "post" else 1) + recompute
+        want = {"forward": TRANSFORMER_SERVING_STEPS * per_step, "backward": TRANSFORMER_SERVING_STEPS * per_forward}
+        out["serving"][proto] = {"ms_per_step": times, "launches": counts, "want": want, "entropy": ents,
+                                 "grad_reached": len(reached), "norm_tensors": len(names),
+                                 "volumes_per_s": BATCH * 1e3 / statistics.median(times[1:])}
+        if pred.dtype != torch.uint8 or tuple(pred.shape) != (BATCH,) + tuple(shape) + (1,):
+            raise AssertionError(f"{name} serving {proto}: predictions {pred.dtype} {tuple(pred.shape)}")
+        if not _counted(counts, want) or len(reached) != len(names) or not all(map(math.isfinite, ents)):
+            raise AssertionError(f"{name} serving {proto}: launches {counts}, derived {want}; gradient in "
+                                 f"{len(reached)} of {len(names)} norm tensors; entropy {ents}")
+    changed = [k for k, v in model.state_dict().items() if not torch.equal(v, trained[k])]
+    if changed:
+        raise AssertionError(f"{name} serving left {changed[:3]} changed")
+    del model, m, trained
+
+    # one f32 Tent step on a small input, kernel against plain norm
+    small = tuple(small or TRANSFORMER_SMALL[name])
+    small_cfg = compose(configs, "config", base())
+    x = torch.from_numpy(np.stack([v["image"] for v in hecktor_volumes(1, 54, small)])).to(dev)
+    m32 = get_model(name).from_config(small_cfg.model, dtype=torch.float32, remat=False, image_size=small,
+                                      device=dev, seed=3)
+    src = {k: v.detach().clone() for k, v in m32.state_dict().items()}
+    got = {}
+    for plain in (False, True):
+        m32.load_state_dict(src)
+        set_plain_norm(m32, plain)
+        cfg_p = ConfigNode({"tta": {"steps": 1, "lr": 1e-3, "momentum": 0.9, "episodic": True}})
+        ad = TentAdapter(cfg_p.tta, config=cfg_p, device_transform=DEVICE_TRANSFORM, device=dev)
+        _, pred = ad.make_adapt_predict_fn(m32, threshold=THRESHOLD, predict_mode="post")(m32, x, 1)
+        delta = torch.cat([(p.detach() - src[n]).flatten() for n, p in m32.named_parameters() if p.requires_grad])
+        got[plain] = (ad.last_entropy, delta, pred)
+    (e_k, d_k, p_k), (e_p, d_p, p_p) = got[False], got[True]
+    out["f32_step"] = {"input": [1, *small, 2], "entropy_rel": abs(e_k - e_p) / abs(e_p),
+                       "delta_rel": float((d_k - d_p).norm() / d_p.norm()),
+                       "predictions_agree": float((p_k == p_p).float().mean())}
+    f32 = out["f32_step"]
+    if not (f32["entropy_rel"] <= 1e-4 and f32["delta_rel"] <= 1e-3 and f32["predictions_agree"] >= 0.999):
+        raise AssertionError(f"{name}: the f32 Tent step through the kernel disagrees with the plain norm: {f32}")
+    del m32
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def transformer_cli(device, name: str, manifest: str, root: str, *, extra=(), reset_counts=lambda: None,
+                    read_counts=lambda: {}, per_forward: int = 16) -> dict:
+    """Phase 17, the CLIs: ``cli.train`` (the stock recipe, no remat, one
+    epoch), ``cli.adapt`` (Tent, the no-adapt report, surface metrics) and
+    ``cli.predict`` (continual Tent, masks written) with ``model=name`` on
+    phase 14's HECKTOR21 fixture. Checks the best checkpoint, finite losses,
+    the report's schema and ranges, a mask file per test case, and each
+    call's launches exactly: ``per_forward`` norm calls a forward, a
+    training step one forward and one backward, an adapted test batch three
+    forwards (no-adapt, the Tent step, the post-update forward) and one
+    backward, a predicted one two forwards and one backward."""
+    import csv
+
+    import numpy as np
+
+    from multimodal_tta_tpu_torch.cli import adapt, predict, train
+    from multimodal_tta_tpu_torch.core.experiment_manager import ExperimentManager
+
+    managers = []
+    orig = ExperimentManager.setup_optimizer
+
+    def setup_optimizer(self):  # each CLI calls it once: the manager it built
+        managers.append(self)
+        return orig(self)
+
+    def run(cli, tag: str, *more: str):
+        run_dir = os.path.join(root, f"{name}_{tag}")
+        reset_counts()
+        t1 = time.perf_counter()
+        try:
+            result = cli.main(cli_overrides(manifest, run_dir, "training.epochs=1", *more, *extra, model=name),
+                              device=device)
+        finally:
+            os.chdir(REPO)  # the run moved into its run directory
+        return result, run_dir, time.perf_counter() - t1, read_counts()
+
+    out: dict = {}
+    ExperimentManager.setup_optimizer = setup_optimizer
+    try:
+        history, run_dir, wall, counts = run(train, "train")
+        mt = managers[-1]
+        steps, val = len(mt.train_loader), len(mt.val_loader)
+        want = {"forward": per_forward * (steps + val), "backward": per_forward * steps, "minplus": val}
+        losses = [h["loss"] for h in history["train_history"]]
+        out["train"] = {"wall_s": wall, "launches": counts, "want": want, "steps": steps, "val_batches": val,
+                        "losses": losses, "model": type(mt.model).__name__,
+                        "val": [{k: v for k, v in ev.items() if "/" not in k} for ev in history["eval_history"]]}
+        best = os.path.join(run_dir, "checkpoints", "best_model")
+        if not os.path.isfile(best + ".pt") or not all(np.isfinite(losses)) or not _counted(counts, want):
+            raise AssertionError(f"{name} cli.train: {out['train']}")
+
+        results, run_dir, wall, counts = run(adapt, "adapt", "tta=tent", "tta.steps=1", "tta.report_no_adapt=true",
+                                             f"training.resume={best}")
+        with open(os.path.join(run_dir, "tta_metrics.json"), encoding="utf-8") as f:
+            written = json.load(f)
+        b = len(managers[-1].test_loader)
+        want = {"forward": 3 * per_forward * b, "backward": per_forward * b, "minplus": 2 * b}
+        out["adapt"] = {"wall_s": wall, "launches": counts, "want": want, "test_batches": b,
+                        "metrics": {mode: {k: v for k, v in r.items() if "/" not in k} for mode, r in written.items()}}
+        if written != json.loads(json.dumps(results)) or set(written) != {"no_adapt", "adapted"}:
+            raise AssertionError(f"{name} tta_metrics.json: {sorted(written)}")
+        for mode, r in written.items():
+            for k, v in r.items():
+                bounded = k.endswith(("_dc", "_iou", "_nsd")) or k.split("/")[-1] in ("avg_dc", "avg_iou")
+                if not math.isfinite(v) or v < 0 or (bounded and v > 1) or "gtvt_hd95" not in r:
+                    raise AssertionError(f"{name} cli.adapt {mode}: {k} = {v}")
+        if not _counted(counts, want):
+            raise AssertionError(f"{name} cli.adapt: launches {counts}, derived {want}")
+
+        rows, run_dir, wall, counts = run(predict, "predict", "tta=tent", "tta.episodic=false",
+                                          f"training.resume={best}")
+        pred_dir = os.path.join(run_dir, "predictions")
+        with open(os.path.join(pred_dir, "predictions.csv"), newline="", encoding="utf-8") as f:
+            written = list(csv.DictReader(f))
+        b = len(managers[-1].test_loader)
+        want = {"forward": 2 * per_forward * b, "backward": per_forward * b}  # the Tent step, the inline forward
+        ok = [r["status"] == "ok" and os.path.isfile(os.path.join(pred_dir, r["files"])) for r in written]
+        out["predict"] = {"wall_s": wall, "launches": counts, "want": want, "test_batches": b, "cases": len(written),
+                          "voxels": [int(r["voxels_gtvt"]) for r in written]}
+        if not written or len(rows) != len(written) or not all(ok) or not _counted(counts, want):
+            raise AssertionError(f"{name} cli.predict: {out['predict']}, rows ok {ok}")
+    finally:
+        ExperimentManager.setup_optimizer = orig
+        managers.clear()
+    return out
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -2072,19 +2486,6 @@ def main() -> int:
     run_root = os.path.join(REPO, "build", "chip_smoke_train")  # build/ is in .gitignore
     shutil.rmtree(run_root, ignore_errors=True)
 
-    def hecktor_volumes(n: int, seed: int) -> list:
-        """CT/PET-like volumes [48,144,144,2] with an ellipsoid lesion each."""
-        r = np.random.RandomState(seed)
-        out = []
-        for i in range(n):
-            lesion = ellipsoid(r.uniform((14, 40, 40), (34, 104, 104)), r.uniform((3, 8, 8), (8, 24, 24)))
-            ct = r.randn(d_, h_, w_).astype(np.float32) * 150.0 - 50.0 + 250.0 * lesion
-            ct[r.rand(d_, h_, w_) < 0.3] = -1000.0  # air
-            pt = np.abs(r.randn(d_, h_, w_)).astype(np.float32) * 1.5 + 8.0 * lesion
-            out.append({"image": np.stack([ct, pt], axis=-1).astype(np.float32),
-                        "label": lesion[..., None].astype(np.float32), "domain": ("CHUM", "CHGJ")[i % 2]})
-        return out
-
     t1 = time.perf_counter()
     train_set, val_set = hecktor_volumes(16, 21), hecktor_volumes(4, 22)
     data_s = time.perf_counter() - t1
@@ -2537,7 +2938,6 @@ def main() -> int:
     stream = stream_phase(dev, cli["manifest"], cli["best"], cli_root, reset_counts=reset_counts,
                           read_counts=read_counts)
     stream_s = time.perf_counter() - t1
-    shutil.rmtree(cli_root, ignore_errors=True)
     for name, r in stream.items():
         m = r["metrics"]
         log(f"[tta-stream] {name}: {r['batches']} batches over {list(STREAM_ORDER)} in {r['wall_s']:.2f} s; "
@@ -2791,9 +3191,153 @@ def main() -> int:
     brats["phase_s"] = brats_s
     log(f"[brats] phase 16 took {brats_s:.1f} s; launches {brats_launches}; card {smi}")
 
+    # ---- 17. the transformer segmenters --------------------------------------
+    from multimodal_tta_tpu_torch.registry import get_model
+
+    t_tr = time.perf_counter()
+    torch.cuda.empty_cache()
+    transformers = {"card": smi}
+    tr_launches = {"forward": 0, "backward": 0, "minplus": 0}
+    tr_root = os.path.join(REPO, "build", "chip_smoke_transformers")  # build/ is in .gitignore
+
+    def add_tr(counts: dict) -> None:
+        for k in tr_launches:
+            tr_launches[k] += counts.get(k, 0)
+
+    x17 = norm_fn(torch.from_numpy(np.stack([v["image"] for v in hecktor_volumes(BATCH, 55)])).to(dev))
+    for name, (per_fwd17, want_params) in TRANSFORMERS.items():
+        rec17 = transformers[name] = {}
+        # 17.1: one forward at the paper widths on a HECKTOR21 batch, bf16
+        cfg17 = compose(os.path.join(REPO, "configs"), "config", transformer_overrides(name))
+        build = get_model(name).from_config
+        t1 = time.perf_counter()
+        tm = build(cfg17.model, dtype=torch.bfloat16, remat=False, image_size=SHAPE[:3], device=dev, seed=0)
+        built_s = time.perf_counter() - t1
+        n_params, n_norm = len(list(tm.parameters())), sum(norm_param_mask(tm).values())
+        shapes17 = []
+        hooks = [m.register_forward_pre_hook(
+            lambda mod, args, kw: shapes17.append((tuple(args[0].permute(0, 2, 3, 4, 1).shape), kw["relu"])),
+            with_kwargs=True) for m in tm.modules() if isinstance(m, InstanceNorm)]
+        with torch.no_grad():
+            sync()
+            reset_counts()
+            logits = tm(x17)
+            sync()
+            fwd17 = read_counts()
+            for h in hooks:
+                h.remove()
+            set_plain_norm(tm, True)
+            logits_plain = tm(x17)
+            plain_ms17 = cuda_ms(lambda: tm(x17), iters=3, warmup=1)
+            set_plain_norm(tm, False)
+            ms17 = cuda_ms(lambda: tm(x17), iters=3, warmup=1)
+        add_tr(fwd17)
+        rel = float((logits - logits_plain).norm() / logits_plain.norm())
+        tm32 = build(cfg17.model, dtype=torch.float32, remat=False, image_size=SHAPE[:3], device=dev, seed=None)
+        tm32.load_state_dict(tm.state_dict())
+        with torch.no_grad():
+            logits32 = tm32(x17)
+            set_plain_norm(tm32, True)
+            logits32_plain = tm32(x17)
+        rel_f32 = float((logits32 - logits32_plain).norm() / logits32_plain.norm())
+        rel_bf16 = float((logits_plain - logits32_plain).norm() / logits32_plain.norm())
+        finite = bool(torch.isfinite(logits).all())
+        rec17["forward"] = {"params": [n_params, n_norm], "launches": fwd17, "norm_calls": len(shapes17),
+                            "logits_rel_l2_plain": rel, "f32_logits_rel_l2_plain": rel_f32,
+                            "bf16_plain_rel_l2_f32": rel_bf16, "ms": ms17, "plain_norm_ms": plain_ms17,
+                            "built_s": built_s, "weights": sum(p.numel() for p in tm.parameters())}
+        log(f"[transformer] {name} bf16 (configs/model/{name}.yaml), {n_params} param tensors ({n_norm} norm), "
+            f"{rec17['forward']['weights']} weights, built in {built_s:.1f} s; forward on {list(x17.shape)}: logits "
+            f"{list(logits.shape)} finite={finite}; launches {fwd17} ({len(shapes17)} norm calls); kernel vs plain "
+            f"norm rel L2 {rel:.3g} in bf16 (limit {LOGITS_REL_L2}, else the plain norm's bf16 logits vs f32, "
+            f"{rel_bf16:.3g}), {rel_f32:.3g} in f32 (limit {LOGITS_REL_L2}); forward {ms17:.2f} ms (plain norm "
+            f"{plain_ms17:.2f} ms); card {smi}")
+        del tm32, logits32, logits32_plain
+        if (n_params, n_norm) != want_params:
+            raise AssertionError(f"{name}: {n_params} tensors, {n_norm} norm ({want_params} expected)")
+        if tuple(logits.shape) != (BATCH,) + SHAPE[:3] + (1,) or not finite:
+            raise AssertionError(f"{name} logits have the wrong shape or are not finite")
+        if fwd17["forward"] != per_fwd17 or len(shapes17) != per_fwd17:
+            raise AssertionError(f"{name}: launches {fwd17}, {len(shapes17)} norm calls ({per_fwd17} expected)")
+        if not (rel <= LOGITS_REL_L2 or (rel <= rel_bf16 and rel_f32 <= LOGITS_REL_L2)):
+            raise AssertionError(f"the {name} forward through the kernel disagrees with the plain norm")
+        del logits, logits_plain, tm
+
+        # 17.2: both norm kernels at every norm shape of that forward, bf16
+        # and f32, against the plain versions; their times per forward
+        regimes17 = {}
+        for shape, _ in sorted(set(shapes17)):
+            for dtype in (torch.bfloat16, torch.float32):
+                err, dx_err, pf, pb = check_norm_shape(shape, dtype, name)
+                max_abs_err, backward_err = max(max_abs_err, err), max(backward_err, dx_err)
+                regimes17[f"{list(shape)} {str(dtype)[6:]}"] = {"forward": pf.regime, "backward": pb.regime}
+        norm17 = time_norm_calls(Counter(shapes17))
+        rec17.update(regimes=regimes17, norm_shapes=sorted(Counter(shapes17).items()),
+                     norm={"forward": norm17[0], "backward": norm17[1]})
+        log(f"[transformer] {name}: one forward's {len(shapes17)} norm calls, bf16 batch {BATCH}: forward kernel "
+            f"{norm17[0]['ms']:.4f} ms, plain {norm17[0]['plain_ms']:.4f} ms, library {norm17[0]['library_ms']:.4f} "
+            f"ms, bound {norm17[0]['bound_ms']:.4f} ms; backward kernel {norm17[1]['ms']:.4f} ms, plain "
+            f"{norm17[1]['plain_ms']:.4f} ms, library {norm17[1]['library_ms']:.4f} ms, bound "
+            f"{norm17[1]['bound_ms']:.4f} ms; regimes {regimes17}; card {smi}")
+
+        # 17.3-17.6: training, TTAEngine.evaluate, serving, the f32 step
+        served = transformer_train_and_serve(dev, name, os.path.join(tr_root, name), reset_counts=reset_counts,
+                                             read_counts=read_counts, per_forward=per_fwd17)
+        tr17 = served["train"]
+        add_tr(tr17["launches"])
+        log(f"[transformer] {name} training (HECKTOR21 recipe: adam 1e-5 poly, batch {tr17['batch']}, remat, "
+            f"{tr17['recompute']} norms recomputed a backward) 2 epochs of {TRANSFORMER_TRAIN_VOLUMES} volumes + "
+            f"validation of {TRANSFORMER_VAL_VOLUMES}: wall {tr17['wall_s']:.2f} s; losses "
+            f"{[round(v, 5) for v in tr17['losses']]}; step ms {[round(t, 1) for t in tr17['step_ms']]}; launches per "
+            f"step {tr17['step_launches']} (derived {tr17['step_want']}); over the run {tr17['launches']} (derived "
+            f"{tr17['want']}); validation EDT {tr17['edt']}; peak allocated {tr17['peak_gib']:.2f} GiB; validation "
+            f"{tr17['val']}; card {smi}")
+        log(f"[transformer] {name} warm training steps on device batches: "
+            f"{[round(t, 1) for t in tr17['warm_step_ms']]} ms -> median {tr17['median_step_ms']:.2f} ms, "
+            f"{tr17['volumes_per_s']:.3f} volumes/s, peak allocated {tr17['warm_peak_gib']:.2f} GiB; card {smi}")
+        for tag, r in served["tta"].items():
+            add_tr(r["launches"])
+            m_ = r["metrics"]
+            log(f"[transformer] {name} evaluate {tag}: ms per batch {[round(t, 1) for t in r['ms_per_batch']]}; "
+                f"launches {r['launches']} (derived {r['want']}); avg_dc {m_['avg_dc']:.5f} hd95 "
+                f"{m_['gtvt_hd95']:.3f} loss {m_['loss']:.5f}; entropy {r['traces']}; card {smi}")
+        for proto, r in served["serving"].items():
+            add_tr(r["launches"])
+            log(f"[transformer] {name} serving {proto}: ms per step {[round(t, 1) for t in r['ms_per_step']]}, "
+                f"{r['volumes_per_s']:.3f} volumes/s; launches {r['launches']} (derived {r['want']}); gradient in "
+                f"{r['grad_reached']}/{r['norm_tensors']} norm tensors; entropy {r['entropy']}; card {smi}")
+        f32 = served["f32_step"]
+        log(f"[transformer-parity] {name} f32 Tent step {f32['input']}, kernel vs plain norm: entropy rel "
+            f"{f32['entropy_rel']:.3g} (limit 1e-4), norm-delta rel {f32['delta_rel']:.3g} (limit 1e-3), predictions "
+            f"agree {f32['predictions_agree']:.6f} (limit 0.999)")
+        rec17.update(train=tr17, tta=served["tta"], serving=served["serving"], f32_step=f32)
+        del served
+        torch.cuda.empty_cache()
+
+        # 17.7: cli.train, cli.adapt and cli.predict with model=<name> on phase 14's fixture
+        tcli = transformer_cli(dev, name, cli["manifest"], os.path.join(tr_root, "cli"), reset_counts=reset_counts,
+                               read_counts=read_counts, per_forward=per_fwd17)
+        for call in ("train", "adapt", "predict"):
+            add_tr(tcli[call]["launches"])
+            log(f"[transformer] {name} cli.{call}: {tcli[call]['wall_s']:.2f} s, launches {tcli[call]['launches']} "
+                f"(derived {tcli[call]['want']}); " + (
+                    f"{tcli['train']['steps']} steps, losses {tcli['train']['losses']}, validation "
+                    f"{tcli['train']['val']}" if call == "train" else f"metrics {tcli['adapt']['metrics']}"
+                    if call == "adapt" else f"{tcli['predict']['cases']} cases, foreground voxels "
+                    f"{tcli['predict']['voxels']}")
+                + f"; card {smi}")
+        rec17["cli"] = tcli
+        shutil.rmtree(tr_root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    shutil.rmtree(cli_root, ignore_errors=True)  # phase 14's fixture: phases 15 and 17 ran on it
+    del x17
+    transformers["launches"] = tr_launches
+    transformers["phase_s"] = time.perf_counter() - t_tr
+    log(f"[transformer] phase 17 took {transformers['phase_s']:.1f} s; launches {tr_launches}; card {smi}")
+
 
     def norm_summary(name: str, tot: dict, train_tot: dict, brats_tot: dict, n_launches: dict, err: float,
-                     extra: dict) -> dict:
+                     extra: dict, direction: str) -> dict:
         return {
             "name": name,
             "route": "cuda",
@@ -2810,6 +3354,9 @@ def main() -> int:
             "per": f"one bf16 forward's {len(shapes)} norm calls at batch {BATCH}",
             "train_step_batch8": {k: train_tot[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
             "brats_forward_batch2": {k: brats_tot[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+            **{f"{tname}_forward_batch2": {k: transformers[tname]["norm"][direction][k]
+                                           for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+               for tname in TRANSFORMERS},
             "card": smi,
             **extra,
         }
@@ -2817,21 +3364,24 @@ def main() -> int:
     summary = norm_summary("fused_instance_norm", totals, norm_totals[TRAIN_BATCH][0], brats_norm[0],
                            {**launches, **norm_eval_launches, "train": train_launches["forward"],
                             "cli": cli_launches["forward"], "tta": tta_launches["forward"],
-                            "brats": brats_launches["forward"]}, max_abs_err, {})
+                            "brats": brats_launches["forward"], "transformer": tr_launches["forward"]},
+                           max_abs_err, {}, "forward")
     backward_summary = norm_summary(
         "fused_instance_norm_backward", btotals, norm_totals[TRAIN_BATCH][1], brats_norm[1],
         {**backward_launches, "train": train_launches["backward"], "cli": cli_launches["backward"],
-         "tta": tta_launches["backward"], "brats": brats_launches["backward"]}, backward_err,
-        {"note": "the gradient of the TPU kernel's function; dx computed in all 18 timed calls"})
+         "tta": tta_launches["backward"], "brats": brats_launches["backward"],
+         "transformer": tr_launches["backward"]}, backward_err,
+        {"note": "the gradient of the TPU kernel's function; dx computed in all 18 timed calls"}, "backward")
     minplus_summary = {
         "name": "minplus",
         "route": "cuda",
         "source": "multimodal_tta_tpu_torch/csrc/edt_minplus.cu",
         "replaces": "multimodal_tta_tpu/pallas/edt_minplus.py:52",
         "launches": sum(eval_launches.values()) + train_launches["minplus"] + cli_launches["minplus"]
-        + tta_launches["minplus"] + brats_launches["minplus"],
+        + tta_launches["minplus"] + brats_launches["minplus"] + tr_launches["minplus"],
         "launches_by_path": {**eval_launches, "train": train_launches["minplus"], "cli": cli_launches["minplus"],
-                             "tta": tta_launches["minplus"], "brats": brats_launches["minplus"]},
+                             "tta": tta_launches["minplus"], "brats": brats_launches["minplus"],
+                             "transformer": tr_launches["minplus"]},
         "max_abs_err": minplus_err,
         "ms": edt_ms,
         "plain_ms": edt_plain_ms,
@@ -2851,7 +3401,8 @@ def main() -> int:
     log(json.dumps({"serving": serving, "forward_ms": fwd_ms, "forward_plain_norm_ms": fwd_plain_ms,
                     "eval_ms_per_batch": eval_ms, "eval_warm_ms_per_batch": eval_warm_ms,
                     "eval_batch_split_ms": split,
-                    "eval_metrics": eval_runs, "training": training, "cli": cli, "tta": tta_log, "brats": brats}))
+                    "eval_metrics": eval_runs, "training": training, "cli": cli, "tta": tta_log, "brats": brats,
+                    "transformers": transformers}, default=str))
     log(json.dumps({"kernels": [summary, backward_summary, minplus_summary]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                             "count": torch.cuda.device_count()}}))

@@ -92,8 +92,11 @@ class ExperimentManager:
         # the init seed is the root generator's first draw (the reference
         # splits its root key for the init)
         init_seed = int(torch.randint(0, 2**31 - 1, (1,), generator=self.root_gen))
+        sized = {}
+        if getattr(model_cls, "input_sized", False):  # params shaped by the input (UNETR, SwinUNETR)
+            sized["image_size"] = get_config(self.config, "training.data.transforms.image_size", None)
         self.model = model_cls.from_config(model_cfg, dtype=_DTYPES[compute_dtype], remat=remat,
-                                           device=self.device, seed=init_seed)
+                                           device=self.device, seed=init_seed, **sized)
         n_params = param_count(self.model)
         self.logger.info(
             f"Model created: {model_name} ({n_params / 1e6:.2f}M params, "

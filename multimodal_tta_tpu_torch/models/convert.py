@@ -13,7 +13,13 @@ function. It imports no JAX.
     dilated input with the kernel as stored, while ``conv_transpose3d``
     scatters it, so the kernel is flipped spatially and laid out as
     ``[in, out, kd, kh, kw]``
-  * ``bias`` as is; norm ``scale``/``bias`` by name
+  * attention (flax ``DenseGeneral``, an ``nn.Linear`` here): the q/k/v
+    ``kernel`` ``[H, heads, hd]`` -> ``weight`` ``[heads*hd, H]`` and its
+    ``bias`` ``[heads, hd]`` -> ``[heads*hd]``; the ``out`` ``kernel``
+    ``[heads, hd, H]`` -> ``weight`` ``[H, heads*hd]``
+  * every other ``bias`` as is; norm ``scale``/``bias`` by name; the
+    transformers' ``pos_embed`` ``[1, N, H]`` and ``rel_pos_bias``
+    ``[(2w-1)^3, heads]`` as they are
 
 ``flax_path(name)`` goes the other way for a name: the reference's
 '/'-joined param path of a torch parameter.
@@ -27,6 +33,7 @@ import numpy as np
 import torch
 
 _TRANSPOSED = "up"  # module name of TransposedConvUp's nn.ConvTranspose
+_ATTN_OUT = "out"  # module name of an attention's out projection (DenseGeneral over heads, hd)
 
 
 def _leaves(tree: Mapping[str, Any], prefix=()):
@@ -52,12 +59,17 @@ def from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     for path, leaf in _leaves(params):
         a = np.asarray(leaf, dtype=np.float32)
         mod, name = path[:-1], path[-1]
-        if name == "kernel":
+        if name == "bias" and a.ndim == 2:  # q/k/v DenseGeneral [heads, hd]
+            a = a.reshape(-1)
+        elif name == "kernel":
+            if a.ndim == 3:  # DenseGeneral: q/k/v [H, heads, hd], out [heads, hd, H]
+                a = a.reshape(-1, a.shape[-1]) if mod[-1] == _ATTN_OUT else a.reshape(a.shape[0], -1)
             if a.ndim == 2:
                 sd[".".join(mod + ("weight",))] = torch.from_numpy(a.T.copy())
                 continue
             if a.ndim != 5:
-                raise ValueError(f"{'/'.join(path)}: expected a 3D conv or a dense kernel, got {a.shape}")
+                raise ValueError(f"{'/'.join(path)}: expected a 3D conv, a dense or an attention kernel, "
+                                 f"got {a.shape}")
             if mod[-1] == _TRANSPOSED:
                 a = a[::-1, ::-1, ::-1].transpose(3, 4, 0, 1, 2)
             else:

@@ -128,6 +128,32 @@ class GroupNorm(nn.Module):
         return (F.relu(y) if relu else y).to(x.dtype)
 
 
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm(dtype=...)`` over the last axis, as the
+    transformers build it: epsilon 1e-6 (flax's default, not the config
+    norm's 1e-5), statistics and affine in f32, the output cast to the
+    compute dtype ``dtype``. 1-D ``scale`` and ``bias`` and nothing else, so
+    Tent's structural mask adapts it. flax takes the variance as
+    E[x^2] - E[x]^2; ``F.layer_norm`` takes it in two passes."""
+
+    def __init__(self, features: int, dtype: torch.dtype = torch.float32, epsilon: float = 1e-6):
+        super().__init__()
+        self.dtype = dtype
+        self.epsilon = epsilon
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(x.float(), (x.shape[-1],), self.scale, self.bias, self.epsilon)
+        return y.to(self.dtype)
+
+
+def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
+    """flax ``nn.Dense(dtype=...)``: input, kernel and bias in the compute dtype."""
+    b = None if layer.bias is None else layer.bias.to(dtype)
+    return F.linear(x.to(dtype), layer.weight.to(dtype), b)
+
+
 class Norm(nn.Module):
     """Config-string-selected normalization over the channel axis (the
     reference's ``Norm``): INSTANCE (the fused kernel), GROUP, LAYER or
@@ -296,10 +322,16 @@ def remat_call(module: nn.Module, *args: torch.Tensor, enabled: bool) -> torch.T
 def init_flax_defaults(model: nn.Module, seed: int) -> None:
     """flax's default initialisers from an explicit generator:
     lecun-normal kernels (fan_in = kernel volume x input features for a
-    conv, input features for a dense layer), zero biases, ones and zeros in
-    the norms (as built). The numbers differ from JAX's PRNG; the parity
-    tests carry JAX's weights across with ``models/convert.py``."""
+    conv, input features for a dense layer: H for an attention's q/k/v,
+    heads x head dim for its out projection, as flax's DenseGeneral counts),
+    zero biases, ones and zeros in the norms (as built), ``normal(0.02)``
+    for the transformers' ``pos_embed`` and ``rel_pos_bias``. The numbers
+    differ from JAX's PRNG; the parity tests carry JAX's weights across with
+    ``models/convert.py``."""
     gen = torch.Generator().manual_seed(int(seed))
+    for name, p in model.named_parameters():
+        if name.rpartition(".")[2] in ("pos_embed", "rel_pos_bias"):
+            p.normal_(0.0, 0.02, generator=gen)
     for m in model.modules():
         if isinstance(m, (nn.Conv3d, nn.ConvTranspose3d, nn.Linear)):
             if isinstance(m, nn.Linear):

@@ -2,27 +2,32 @@
 """Where the time of the port's Tent serving step, of one evaluated batch, or
 of one training step goes on one CUDA card.
 
-    python3 scripts/torch_serving_profile.py [--protocol online|strict|eval|train] [--batch 2] [--steps 3]
-        [--model unet|midfusion]
+    python3 scripts/torch_serving_profile.py [--protocol online|strict|eval|train|forward] [--batch 2] [--steps 3]
+        [--model unet|midfusion|unetr|swin_unetr] [--remat]
 
 Builds the flagship UNet3D (channels 32..512, bf16, random weights from a
 seed) as chip_smoke.py does, on HECKTOR21 batches; with ``--model
 midfusion`` the BraTS mid-fusion UNet (channels 32..512, bf16, remat) on
 synthetic BraTS batches [B,160,192,160,4] with the recipe of train_brats.sh
 (chip_smoke.py's ``brats_overrides``: adam 1e-4, multi-label DiceCE,
-modality dropout in training, threshold 0.5). ``online`` and ``strict`` profile the Tent
+modality dropout in training, threshold 0.5); with ``--model unetr`` or
+``--model swin_unetr`` that transformer at the paper widths of
+configs/model/<name>.yaml (bf16, chip_smoke.py's phase 17) on the HECKTOR21
+batches, ``--remat`` rematerializing it as ``training.remat=true`` does.
+``online`` and ``strict`` profile the Tent
 adapt+segment serving step; ``eval`` profiles the evaluation step of one
 batch (forward, Dice/IoU, loss, HD95/ASD/NSD) on synthetic volumes with
 ellipsoid labels; ``train`` profiles ``SegTrainer.run_step`` with the
 HECKTOR21 training recipe of chip_smoke.py (``train_recipe``: adam, DiceCE,
 bf16) on a device-resident batch with ellipsoid labels (run it with
-``--batch 8``, the recipe's batch). The step is warmed up, timed over ten
+``--batch 8``, the recipe's batch); ``forward`` profiles one no-grad
+forward. The step is warmed up, timed over ten
 steps without the profiler (and once more without a synchronise, for the
 host's share), then ``--steps`` steps run under ``torch.profiler``. Prints:
 the wall time per step, the device time by kernel (top 20), the device time
 by kind (the fused-InstanceNorm CUDA kernels, forward and backward apart,
-convolutions, the min-plus CUDA kernel, the optimizer's foreach kernels,
-sorts, copies, the rest), the kernels launched per step in all and per kind
+convolutions, matmuls (cuBLAS), softmax, LayerNorm, the min-plus CUDA
+kernel, the optimizer's foreach kernels, sorts, copies, the rest), the kernels launched per step in all and per kind
 (``direct_copy`` kernels on a line of their own, with the calls that launch
 them), and the device busy share (summed kernel time over the profiled wall
 time). The last line is one JSON object with the same
@@ -43,6 +48,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NORM_FORWARD_KERNELS = ("in_fwd_resident", "in_fwd_stream")
 NORM_BACKWARD_KERNELS = ("in_bwd_resident", "in_bwd_stream")
 CONV_MARKS = ("conv", "cudnn", "xmma", "implicit", "dgrad", "wgrad", "fprop", "nhwc")
+CONV_ONLY_MARKS = ("conv", "implicit", "dgrad", "wgrad", "fprop")  # a gemm kernel of cuDNN's, not cuBLAS's
 
 
 SORT_MARKS = ("sort", "radix")
@@ -64,6 +70,12 @@ def kind(name: str) -> str:
         return "sort"
     if any(k in low for k in COPY_MARKS):
         return "copy"
+    if "softmax" in low:
+        return "softmax"
+    if "layer_norm" in low or "layernorm" in low:
+        return "layer_norm"
+    if ("gemm" in low or "nvjet" in low) and not any(k in low for k in CONV_ONLY_MARKS):
+        return "matmul"
     if any(k in low for k in CONV_MARKS):
         return "convolution"
     return "other"
@@ -137,10 +149,11 @@ def train_step_fn(torch, dev, model, batch: int, label=None):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--protocol", choices=("online", "strict", "eval", "train"), default="online")
+    ap.add_argument("--protocol", choices=("online", "strict", "eval", "train", "forward"), default="online")
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--steps", type=int, default=3)
-    ap.add_argument("--model", choices=("unet", "midfusion"), default="unet")
+    ap.add_argument("--model", choices=("unet", "midfusion", "unetr", "swin_unetr"), default="unet")
+    ap.add_argument("--remat", action="store_true", help="rematerialize a transformer (training.remat=true)")
     args = ap.parse_args()
 
     import torch
@@ -174,6 +187,17 @@ def main() -> int:
         x = torch.from_numpy(np.stack([v["image"] for v in vols])).to(dev)
         label = torch.from_numpy(np.stack([v["label"] for v in vols])).to(dev, torch.uint8)
         transform, threshold = {"normalize": False}, BRATS_THRESHOLD
+    elif args.model in ("unetr", "swin_unetr"):
+        from chip_smoke import transformer_overrides
+        from multimodal_tta_tpu_torch.conf import compose
+        from multimodal_tta_tpu_torch.registry import get_model
+
+        mcfg = compose(os.path.join(REPO, "configs"), "config", transformer_overrides(args.model)).model
+        model = get_model(args.model).from_config(mcfg, dtype=torch.bfloat16, remat=args.remat,
+                                                  image_size=SHAPE[:3], device=dev, seed=0)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        x = torch.randn((args.batch,) + SHAPE, generator=gen, device=dev) * 100
+        label, transform, threshold = None, DEVICE_TRANSFORM, THRESHOLD
     else:
         model = UNet3D(channels=(32, 64, 128, 256, 512), dtype=torch.bfloat16, device=dev, seed=0)
         gen = torch.Generator(device=dev).manual_seed(1)
@@ -183,6 +207,10 @@ def main() -> int:
         step = eval_step_fn(torch, dev, model, args.batch, label)
     elif args.protocol == "train":
         step = train_step_fn(torch, dev, model, args.batch, label)
+    elif args.protocol == "forward":
+        def step(model, x, n_valid):
+            with torch.no_grad():
+                return model(x)
     else:
         adapter = TentAdapter(cfg.tta, config=cfg, device_transform=transform, device=dev)
         step = adapter.make_adapt_predict_fn(model, threshold=threshold,
@@ -253,7 +281,8 @@ def main() -> int:
     print("host time by operator, self ms/step (calls/step): "
           + ", ".join(f"{k} {ms:.2f} ({n:.0f})" for k, ms, n in host))
     print(json.dumps({
-        "protocol": args.protocol, "model": args.model, "batch": args.batch, "steps": args.steps, "card": card,
+        "protocol": args.protocol, "model": args.model, "remat": args.remat, "batch": args.batch,
+        "steps": args.steps, "card": card,
         "warm_ms_per_step_no_profiler": warm_ms, "host_enqueue_ms_per_step": host_ms,
         "wall_ms_per_step": wall_ms / args.steps, "device_ms_per_step": device_ms / args.steps,
         "busy_share": device_ms / wall_ms, "device_ms_per_step_by_kind": per_step,
