@@ -153,6 +153,31 @@ Phases, in order (any failure propagates and exits non-zero):
                phase 14's fixture (``transformer_cli``), each call's launches
                counted exactly.
 
+ 18. batchnorm — BatchNorm (``batchnorm_flagship``, ``batchnorm_cli``,
+               ``classifier_phase``): the flagship with ``model.norm=BATCH``
+               at full width (bf16): training steps at batch 8 on device
+               batches (median of 8 warm, peak memory; the running
+               statistics move every step), a remat step moving them as a
+               plain step does (once), a checkpoint round trip bitwise with
+               its buffers, one ``norm`` step's running statistics against
+               ``0.9 ra + 0.1 (mean, biased var)`` in f64 on the host,
+               ``TTAEngine.evaluate`` for none, norm (episodic, continual)
+               and Tent (episodic post, continual inline) over 3 batches of 2
+               (one min-plus launch per batch, each batch's EDT bitwise its
+               plain version, no norm launch, params and buffers bitwise
+               afterwards), the Tent serving step; ``cli.train`` with
+               ``model.norm=BATCH`` on phase 14's fixture and ``cli.adapt``
+               with norm, tent, sar, cotta and memo on its checkpoint, each
+               call's launches exactly; ResNet-50 in Tent's ImageNet-C
+               setting (batch 64 of 224x224, SGD 2.5e-4, continual, bf16 and
+               f32: ms per step, peak memory), one step of norm, sar, memo
+               and cotta on it, each family's registry default
+               (resnet18, densenet121, efficientnet_b0, efficientnet_v2_s,
+               vit_b_16) loaded through ``model.pretrained`` from a
+               torchvision-named file and run at batch 16, and ResNet-50's
+               f32 logits, affine deltas and statistics after a Tent step
+               against the port on the CPU.
+
 Phase 2 also holds the norm kernels against their plain versions at the nine
 norm shapes of the batch-8 training step (the largest, [8,48,144,144,32], in
 bf16 and f32) and at the nine shapes of windowed Tent's 4 windows.
@@ -1662,6 +1687,549 @@ def transformer_cli(device, name: str, manifest: str, root: str, *, extra=(), re
     return out
 
 
+# ---- phase 18: BatchNorm ----------------------------------------------------
+# 18.1: the flagship with model.norm=BATCH in the HECKTOR21 recipe: its
+# TTAEngine.evaluate runs (3 batches of 2) and the methods cli.adapt runs on
+# the checkpoint of a BATCH cli.train. 18.2: the classifiers in Tent's
+# ImageNet-C setting (Wang et al., ICLR 2021, section 4: ResNet-50, batch 64,
+# 224x224, SGD lr 2.5e-4 momentum 0.9, the BN affines, continual) and the
+# registry default of each family at batch 16.
+BN_NORMS = 18  # the flagship's BatchNorms with model.norm=BATCH, one per InstanceNorm of the stock model
+BN_EVAL_BATCHES, BN_WARM_STEPS, BN_SERVING_STEPS = 3, 8, 4
+BN_EVAL_RUNS = [
+    ("none", ["tta=none"]),
+    ("norm_episodic", ["tta=norm"]),
+    ("norm_continual", ["tta=norm", "tta.episodic=false"]),
+    ("tent_episodic_post", ["tta=tent", "tta.episodic=true", "tta.predict=post"]),
+    ("tent_continual_inline", ["tta=tent", "tta.episodic=false", "tta.predict=inline"]),
+]
+BN_CLI_METHODS = ("norm", "tent", "sar", "cotta", "memo")
+BN_STATS_REL = 1e-5  # running statistics after one norm step vs f64 on the host, of each tensor's largest value
+CLS_BATCH, CLS_SIDE, CLS_CLASSES, CLS_STEPS = 64, 224, 1000, 8
+CLS_FAMILIES = ("resnet18", "densenet121", "efficientnet_b0", "efficientnet_v2_s", "vit_b_16")
+CLS_FAMILY_BATCH, CLS_PARITY_BATCH = 16, 4
+CLS_PARITY_REL_L2 = 1e-3  # resnet50 f32 on the card (TF32 off) vs the port on the CPU
+# the adapted affines' deltas alone: the f32 step itself is 2.1e-2 off an f64
+# run on the CPU (measured at this batch; BN -> ReLU -> conv -> BN makes the
+# entropy nearly invariant to an earlier BN's scale, so its gradient cancels)
+CLS_PARITY_DELTA_REL_L2 = 5e-2
+CLS_OTHER_METHODS = ("norm", "sar", "memo", "cotta")
+
+
+def bn_overrides(*extra: str) -> list:
+    """The HECKTOR21 recipe of configs/ with ``model.norm=BATCH``, surface
+    metrics on, seed 0, then ``extra``."""
+    return tta_overrides("model.norm=BATCH", "task.seed=0", *extra)
+
+
+def batchnorm_flagship(device, root: str, *, shape=SHAPE[:3], extra=(), reset_counts=lambda: None,
+                       read_counts=lambda: {}) -> dict:
+    """Phase 18.1 in process: the flagship UNet3D with ``model.norm=BATCH``
+    built by ``ExperimentManager`` from the HECKTOR21 recipe.
+
+      - training steps at the recipe's batch on device-resident batches
+        (median of ``BN_WARM_STEPS`` warm ones, peak memory), no norm kernel
+        launched, the running statistics moved every step;
+      - one step of the same model with remat (every level) moves the
+        running statistics as the step without it does (once);
+      - one ``norm`` step: the running statistics equal
+        ``0.9 * ra + 0.1 * (mean, biased var)`` of each BatchNorm's input,
+        taken in f64 on the host (``BN_STATS_REL``);
+      - ``TTAEngine.evaluate`` for ``BN_EVAL_RUNS`` over ``BN_EVAL_BATCHES``
+        batches: one min-plus launch per batch and no norm launch, each
+        batch's EDT input bitwise through the kernel and its plain version,
+        params and buffers bitwise the source afterwards;
+      - the Tent serving step (continual, inline): ms per step;
+      - a checkpoint round trip: params and buffers bitwise.
+    The caller holds the times."""
+    import shutil
+    import statistics
+
+    import numpy as np
+    import torch
+
+    import multimodal_tta_tpu_torch.ops.surface as surface_module
+    from multimodal_tta_tpu_torch.conf import compose
+    from multimodal_tta_tpu_torch.core.checkpoint import load_checkpoint, save_checkpoint
+    from multimodal_tta_tpu_torch.core.experiment_manager import ExperimentManager
+    from multimodal_tta_tpu_torch.data import get_seg_transforms
+    from multimodal_tta_tpu_torch.kernels.edt_minplus import squared_edt_volumes, squared_edt_volumes_plain
+    from multimodal_tta_tpu_torch.models.layers import BatchNorm, InstanceNorm, running_statistics
+    from multimodal_tta_tpu_torch.tta.norm_adapt import NormAdapter
+    from multimodal_tta_tpu_torch.tta.tent import TentAdapter, norm_param_mask
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    shutil.rmtree(root, ignore_errors=True)
+    configs = os.path.join(REPO, "configs")
+    spec = get_seg_transforms(ndim=3, split="train", normalize=True, geom_aug=False, intensity_aug=False,
+                              image_size=list(shape), intensity_policy=HECKTOR_POLICY,
+                              channel_names=["ct", "pt"], on_device=True).device_spec()
+    out: dict = {}
+
+    def manager(*more):
+        cfg = compose(configs, "config", bn_overrides(f"task.save_dir={root}", f"hydra.run.dir={root}", *more, *extra))
+        m = ExperimentManager(cfg, device=dev)
+        m.setup_model()
+        m.setup_optimizer()
+        m.setup_scheduler()
+        m.device_transform = spec
+        m.setup_trainer(root)
+        return m
+
+    m = manager()
+    model, trainer = m.model, m.trainer
+    batch = int(m.config.training.batch_size)
+    bns = [mod for mod in model.modules() if isinstance(mod, BatchNorm)]
+    n_params, n_norm = len(list(model.parameters())), sum(norm_param_mask(model).values())
+    if len(bns) != BN_NORMS or any(isinstance(mod, InstanceNorm) for mod in model.modules()) or n_norm != 2 * BN_NORMS:
+        raise AssertionError(f"the BATCH flagship has {len(bns)} BatchNorms, {n_params} tensors ({n_norm} norm)")
+
+    # ---- training steps at the recipe's batch -------------------------------
+    train_set = hecktor_volumes(2 * batch, 61, shape)
+    dev_batches = [{"image": torch.from_numpy(np.stack([v["image"] for v in train_set[k:k + batch]])).to(dev),
+                    "label": torch.from_numpy(np.stack([v["label"] for v in train_set[k:k + batch]])).to(dev),
+                    "_n_valid": batch} for k in (0, batch)]
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    times, losses, moved = [], [], []
+    reset_counts()
+    for i in range(1 + BN_WARM_STEPS):
+        before = running_statistics(model)
+        sync()
+        t0 = time.perf_counter()
+        trainer.run_step(dev_batches[i % 2])
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+        moved.append(sum(not torch.equal(t, before[k]) for k, t in running_statistics(model).items()))
+        losses.append(float(trainer._pending_loss))
+    counts = read_counts()
+    trainer.flush_step_metrics()
+    med = statistics.median(times[1:])
+    out["train"] = {"batch": batch, "step_ms": times, "median_step_ms": med, "volumes_per_s": batch * 1e3 / med,
+                    "peak_gib": (torch.cuda.max_memory_allocated(dev) if cuda else 0) / 2**30, "losses": losses,
+                    "launches": counts, "params": [n_params, n_norm]}
+    if not all(np.isfinite(losses)) or any(n != 2 * BN_NORMS for n in moved) or not _counted(counts, {}):
+        raise AssertionError(f"BATCH training: losses {losses}, statistics moved {moved}, launches {counts}")
+
+    # ---- remat moves the running statistics once ----------------------------
+    m_r = manager("training.remat=true")
+    m_r.model.load_state_dict(model.state_dict())
+    src = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    after = {}
+    for tag, t in (("plain", trainer), ("remat", m_r.trainer)):
+        t.state.model.load_state_dict(src)
+        img = dev_batches[0]["image"].float()
+        t._step(img, dev_batches[0]["label"], batch)
+        after[tag] = running_statistics(t.state.model)
+    stats_rel = max(float((after["remat"][k] - after["plain"][k]).abs().max() / after["plain"][k].abs().max())
+                    for k in after["plain"])
+    moved_rel = min(float((after["plain"][k] - src[k]).abs().max() / src[k].abs().max()) for k in after["plain"])
+    out["remat"] = {"stats_rel_vs_plain": stats_rel, "stats_bitwise": all(
+        torch.equal(after["remat"][k], after["plain"][k]) for k in after["plain"]), "min_move_rel": moved_rel}
+    if not stats_rel <= 1e-5 or not moved_rel > 0.0:
+        raise AssertionError(f"a remat step moves the running statistics otherwise than a plain step: {out['remat']}")
+    model.load_state_dict(src)
+    ckpt = os.path.join(root, "bn_roundtrip")
+    save_checkpoint(ckpt, m.state)
+    got, _ = load_checkpoint(ckpt, m_r.state)
+    want_sd, got_sd = m.state.model.state_dict(), got.model.state_dict()
+    out["checkpoint_bitwise"] = set(want_sd) == set(got_sd) and all(torch.equal(got_sd[k], want_sd[k]) for k in want_sd)
+    if not out["checkpoint_bitwise"] or len(running_statistics(got.model)) != 2 * BN_NORMS:
+        raise AssertionError("the checkpoint round trip lost the BATCH model's buffers")
+    del m_r, got, after, dev_batches
+
+    # ---- one norm step against f64 on the host -------------------------------
+    vols = hecktor_volumes(BATCH * BN_EVAL_BATCHES, 62, shape)
+    batches = [{"image": np.stack([v["image"] for v in vols[k:k + BATCH]]),
+                "label": np.stack([v["label"] for v in vols[k:k + BATCH]]),
+                "domain": [v["domain"] for v in vols[k:k + BATCH]]} for k in range(0, len(vols), BATCH)]
+    ra = running_statistics(model)
+    inputs = {}
+    names = {mod: n for n, mod in model.named_modules() if isinstance(mod, BatchNorm)}
+    hooks = [mod.register_forward_pre_hook(lambda mod, args: inputs.__setitem__(names[mod], args[0].detach().cpu()))
+             for mod in bns]
+    cfg_n = compose(configs, "config", bn_overrides("tta=norm", *extra))
+    ad = NormAdapter(cfg_n.tta, config=cfg_n, device_transform=DEVICE_TRANSFORM, device=dev)
+    reset_counts()
+    ad.make_adapt_fn(model)(model, torch.from_numpy(batches[0]["image"]).to(dev), BATCH)
+    sync()
+    norm_counts = read_counts()
+    for h in hooks:
+        h.remove()
+    got_stats, worst = running_statistics(model), 0.0
+    for name, x in inputs.items():
+        x64 = x.double().movedim(1, -1).reshape(-1, x.shape[1])
+        mean = x64.mean(0)
+        var = (x64 * x64).mean(0) - mean * mean
+        for k, batch_stat in (("mean", mean), ("var", var)):
+            want = 0.9 * ra[f"{name}.{k}"].double().cpu() + 0.1 * batch_stat
+            err = float((got_stats[f"{name}.{k}"].double().cpu() - want).abs().max() / want.abs().max())
+            worst = max(worst, err)
+    ad.restore()
+    restored = all(torch.equal(t, ra[k]) for k, t in running_statistics(model).items())
+    out["norm_step"] = {"layers": len(inputs), "stats_rel_vs_f64": worst, "launches": norm_counts,
+                        "restored": restored}
+    del inputs
+    if out["norm_step"]["layers"] != BN_NORMS or not worst <= BN_STATS_REL or not restored \
+            or not _counted(norm_counts, {}):
+        raise AssertionError(f"the norm step's running statistics: {out['norm_step']}")
+
+    # ---- TTAEngine.evaluate: none, norm, Tent ---------------------------------
+    edt_in = []
+
+    def recording_edt(pts, spacing, *, sqrt=False):
+        got = squared_edt_volumes(pts, spacing, sqrt=sqrt)
+        edt_in.append((pts.clone(), spacing, sqrt, got.clone()))
+        return got
+
+    surface_module.squared_edt_volumes = recording_edt
+    try:
+        runs = tta_phase(dev, model, batches, runs=BN_EVAL_RUNS, base=bn_overrides, extra=extra,
+                         reset_counts=reset_counts, read_counts=read_counts)
+    finally:
+        surface_module.squared_edt_volumes = squared_edt_volumes
+    out["evaluate"] = {}
+    want = {"forward": 0, "backward": 0, "minplus": BN_EVAL_BATCHES}
+    for tag, r in runs.items():
+        out["evaluate"][tag] = {"ms_per_batch": r["ms_per_batch"], "launches": r["launches"], "want": want,
+                                "traces": r["traces"], "unchanged": r["model_unchanged"],
+                                "metrics": {k: v for k, v in r["metrics"].items() if "/" not in k}}
+        if not _counted(r["launches"], want) or not r["model_unchanged"]:
+            raise AssertionError(f"BATCH evaluate {tag}: launches {r['launches']} (derived {want})")
+    edt = [torch.equal(got, squared_edt_volumes_plain(pts, spacing, sqrt=root_)) for pts, spacing, root_, got in edt_in]
+    pts, spacing, root_, _ = edt_in[0]
+    out["edt"] = {"batches": len(edt), "bitwise_plain": all(edt), "shape": list(pts.shape)}
+    if cuda:
+        out["edt"].update(ms=cuda_ms(lambda: squared_edt_volumes(pts, spacing, sqrt=root_), iters=10),
+                          plain_ms=cuda_ms(lambda: squared_edt_volumes_plain(pts, spacing, sqrt=root_), iters=10))
+    del edt_in, runs
+    if len(edt) != BN_EVAL_BATCHES * len(BN_EVAL_RUNS) or not all(edt):
+        raise AssertionError(f"BATCH evaluation EDT: {out['edt']}")
+
+    # ---- the Tent serving step (continual, inline) -----------------------------
+    source = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    cfg_s = compose(configs, "config", bn_overrides("tta=tent", "tta.episodic=false", "tta.predict=inline", *extra))
+    ad = TentAdapter(cfg_s.tta, config=cfg_s, device_transform=DEVICE_TRANSFORM, device=dev)
+    step = ad.make_adapt_predict_fn(model, threshold=THRESHOLD, predict_mode="inline")
+    serve_ms, ents = [], []
+    reset_counts()
+    for i in range(BN_SERVING_STEPS):
+        sync()
+        t0 = time.perf_counter()
+        _, pred = step(model, torch.from_numpy(batches[i % len(batches)]["image"]).to(dev), BATCH)
+        sync()
+        serve_ms.append((time.perf_counter() - t0) * 1e3)
+        ents.append(ad.last_entropy)
+    counts = read_counts()
+    moved = sum(not torch.equal(t, source[k]) for k, t in running_statistics(model).items())
+    ad.restore()
+    unchanged = all(torch.equal(v, source[k]) for k, v in model.state_dict().items())
+    out["serving"] = {"ms_per_step": serve_ms, "volumes_per_s": BATCH * 1e3 / statistics.median(serve_ms[1:]),
+                      "entropy": ents, "launches": counts, "statistics_moved": moved, "restored": unchanged}
+    if pred.dtype != torch.uint8 or tuple(pred.shape) != (BATCH,) + tuple(shape) + (1,) \
+            or not all(map(math.isfinite, ents)) or moved != 2 * BN_NORMS or not unchanged \
+            or not _counted(counts, {}):
+        raise AssertionError(f"BATCH serving: {out['serving']}")
+    del model, m, trainer
+    if cuda:
+        torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 2) -> float:
+    """Mean ms of ``fn`` over ``iters`` calls after ``warmup``, by CUDA events."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def batchnorm_cli(device, manifest: str, root: str, *, extra=(), reset_counts=lambda: None,
+                  read_counts=lambda: {}) -> dict:
+    """Phase 18.1, the CLIs: ``cli.train`` with ``model.norm=BATCH`` (the
+    stock recipe, one epoch) on phase 14's fixture, then ``cli.adapt`` with
+    each of ``BN_CLI_METHODS`` from its best checkpoint. Checks the
+    checkpoint holds the running statistics, finite losses and metrics, and
+    each call's launches exactly: no norm kernel, one min-plus launch per
+    evaluated batch."""
+    import numpy as np
+    import torch
+
+    from multimodal_tta_tpu_torch.cli import adapt, train
+    from multimodal_tta_tpu_torch.core.experiment_manager import ExperimentManager
+
+    managers = []
+    orig = ExperimentManager.setup_optimizer
+
+    def setup_optimizer(self):  # each CLI calls it once: the manager it built
+        managers.append(self)
+        return orig(self)
+
+    def run(cli, tag: str, *more: str):
+        run_dir = os.path.join(root, tag)
+        reset_counts()
+        t1 = time.perf_counter()
+        try:
+            result = cli.main(cli_overrides(manifest, run_dir, "model.norm=BATCH", "training.epochs=1", *more, *extra),
+                              device=device)
+        finally:
+            os.chdir(REPO)  # the run moved into its run directory
+        return result, run_dir, time.perf_counter() - t1, read_counts()
+
+    out: dict = {}
+    ExperimentManager.setup_optimizer = setup_optimizer
+    try:
+        history, run_dir, wall, counts = run(train, "train")
+        mt = managers[-1]
+        steps, val = len(mt.train_loader), len(mt.val_loader)
+        want = {"forward": 0, "backward": 0, "minplus": val}
+        losses = [h["loss"] for h in history["train_history"]]
+        best = os.path.join(run_dir, "checkpoints", "best_model")
+        saved = torch.load(best + ".pt", map_location="cpu", weights_only=True)["model"]
+        buffers = sorted(k for k in saved if k.rpartition(".")[2] in ("mean", "var"))
+        out["train"] = {"wall_s": wall, "launches": counts, "want": want, "steps": steps, "val_batches": val,
+                        "losses": losses, "checkpoint_buffers": len(buffers),
+                        "val": [{k: v for k, v in ev.items() if "/" not in k} for ev in history["eval_history"]]}
+        if len(buffers) != 2 * BN_NORMS or not all(np.isfinite(losses)) or not _counted(counts, want):
+            raise AssertionError(f"BATCH cli.train: {out['train']}")
+        for method in BN_CLI_METHODS:
+            results, run_dir, wall, counts = run(adapt, f"adapt_{method}", f"tta={method}", f"training.resume={best}")
+            b = len(managers[-1].test_loader)
+            want = {"forward": 0, "backward": 0, "minplus": b}
+            metrics = {k: v for k, v in results["adapted"].items() if "/" not in k}
+            out[f"adapt_{method}"] = {"wall_s": wall, "launches": counts, "want": want, "test_batches": b,
+                                      "metrics": metrics}
+            bad = {k: v for k, v in metrics.items() if not math.isfinite(v) or v < 0}
+            if bad or "gtvt_hd95" not in metrics or not _counted(counts, want):
+                raise AssertionError(f"BATCH cli.adapt tta={method}: {out[f'adapt_{method}']}")
+    finally:
+        ExperimentManager.setup_optimizer = orig
+        managers.clear()
+    return out
+
+
+def classifier_phase(device, root: str, *, side: int = CLS_SIDE, batch: int = CLS_BATCH, classes: int = CLS_CLASSES,
+                     families=CLS_FAMILIES, family_batch: int = CLS_FAMILY_BATCH, parity_batch: int = CLS_PARITY_BATCH,
+                     steps: int = CLS_STEPS, reset_counts=lambda: None, read_counts=lambda: {}) -> dict:
+    """Phase 18.2, the classifiers through ``classifier_logits_apply``:
+
+      - ResNet-50 in Tent's ImageNet-C setting on [batch, side, side, 3]:
+        the continual Tent serving step (inline predictions), bf16 and f32,
+        median of ``steps`` after a warm-up and peak memory; only BN affines
+        move, the running statistics move, no kernel launch;
+      - one step each of ``CLS_OTHER_METHODS``: a finite entropy (norm has
+        none), only BN affines move, the running statistics move, restore()
+        puts the model back bitwise;
+      - each family's registry default loaded through
+        ``ExperimentManager.setup_model`` with ``model.pretrained=true`` from
+        a torchvision-named state dict written from random weights
+        (``to_torchvision``): bitwise the weights written, a forward and a
+        continual Tent step at ``family_batch`` (each timed at its second
+        call);
+      - ResNet-50's f32 logits, and its BN affines and running statistics
+        after one Tent step, on ``device`` against the port on the CPU at
+        ``parity_batch`` (``CLS_PARITY_REL_L2``; the affines' deltas alone
+        ``CLS_PARITY_DELTA_REL_L2``)."""
+    import shutil
+    import statistics
+
+    import torch
+
+    from multimodal_tta_tpu_torch.conf import ConfigNode
+    from multimodal_tta_tpu_torch.core.experiment_manager import ExperimentManager
+    from multimodal_tta_tpu_torch.models.layers import running_statistics
+    from multimodal_tta_tpu_torch.models.pretrained import to_torchvision
+    from multimodal_tta_tpu_torch.registry import get_model, get_tta_method
+    from multimodal_tta_tpu_torch.tta import classifier_logits_apply, norm_param_mask
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def cfg_of(method: str, **tta):
+        base = {"method": method, "steps": 1, "lr": 2.5e-4, "optimizer": "sgd", "momentum": 0.9, "update": "norm",
+                "episodic": False, "entropy_focus": "all", "predict": "inline", "n_views": 4, "aug_flip": True}
+        base.update(tta)
+        return ConfigNode({"task": {"seed": 0}, "training": {"criterion": {"softmax": True, "sigmoid": False}},
+                           "tta": base})
+
+    def build(name: str, dtype, seed, dev_=dev, n_classes=classes):
+        return get_model(name).from_config(ConfigNode({"name": name, "num_classes": n_classes}), dtype=dtype,
+                                           device=dev_, seed=seed)
+
+    def moved_only_affines(model, source) -> tuple:
+        mask = norm_param_mask(model)
+        stats = running_statistics(model)
+        params_ok = all(mask[n] or torch.equal(p, source[n]) for n, p in model.named_parameters())
+        affines = any(mask[n] and not torch.equal(p, source[n]) for n, p in model.named_parameters())
+        return params_ok, affines, all(not torch.equal(t, source[k]) for k, t in stats.items())
+
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root, exist_ok=True)
+    gen = torch.Generator(device=dev).manual_seed(18)
+    x = torch.randn(batch, side, side, 3, generator=gen, device=dev) * 1.5 + 0.3  # shifted input statistics
+    out: dict = {"resnet50": {}}
+
+    # ---- ResNet-50, Tent's ImageNet-C step -------------------------------------
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = str(dtype)[6:]
+        model = build("resnet50", dtype, seed=0)
+        w = classifier_logits_apply(model)
+        source = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        cfg = cfg_of("tent")
+        ad = get_tta_method("tent")(cfg.tta, config=cfg, device=dev)
+        step = ad.make_adapt_predict_fn(w, threshold=0.5, predict_mode="inline")
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        times, ents = [], []
+        reset_counts()
+        for _ in range(1 + steps):
+            sync()
+            t0 = time.perf_counter()
+            _, pred = step(w, x, batch)
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+            ents.append(ad.last_entropy)
+        counts = read_counts()
+        params_ok, affines, stats_moved = moved_only_affines(model, source)
+        med = statistics.median(times[1:])
+        out["resnet50"][f"tent_{tag}"] = {
+            "ms_per_step": times, "median_ms": med, "images_per_s": batch * 1e3 / med,
+            "peak_gib": (torch.cuda.max_memory_allocated(dev) if cuda else 0) / 2**30, "entropy": ents,
+            "launches": counts, "input": [batch, side, side, 3]}
+        if pred.dtype != torch.uint8 or tuple(pred.shape) != (batch, 1) or not all(map(math.isfinite, ents)) \
+                or not (params_ok and affines and stats_moved) or not _counted(counts, {}):
+            raise AssertionError(f"resnet50 Tent {tag}: {out['resnet50'][f'tent_{tag}']}, only affines moved "
+                                 f"{params_ok}, affines {affines}, statistics {stats_moved}")
+        ad.restore()
+        if dtype == torch.float32:
+            break
+        del model, w, ad, step
+
+    # ---- one step of the other methods (f32 model) -----------------------------
+    for method in CLS_OTHER_METHODS:
+        # random weights are uncertain everywhere: SAR's stock 0.4 H_max gate would pass no sample
+        cfg = cfg_of(method, episodic=True, predict="post", **({"margin_ratio": 1.0} if method == "sar" else {}))
+        ad = get_tta_method(method)(cfg.tta, config=cfg, device=dev)
+        reset_counts()
+        sync()
+        t0 = time.perf_counter()
+        ad.make_adapt_fn(w)(w, x, batch)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = read_counts()
+        params_ok, affines, stats_moved = moved_only_affines(model, source)
+        ent = ad.last_entropy
+        ad.restore()
+        restored = all(torch.equal(v, source[k]) for k, v in model.state_dict().items())
+        out["resnet50"][method] = {"ms": ms, "entropy": ent, "launches": counts, "restored": restored}
+        if (method != "norm" and not (ent is not None and math.isfinite(ent) and affines)) or not params_ok \
+                or not stats_moved or not restored or not _counted(counts, {}):
+            raise AssertionError(f"resnet50 {method}: {out['resnet50'][method]}, only affines {params_ok}, "
+                                 f"affines moved {affines}, statistics moved {stats_moved}")
+    del model, w, x
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # ---- each family's registry default, pretrained from a torchvision file -----
+    out["families"] = {}
+    xf = torch.randn(family_batch, side, side, 3, generator=gen, device=dev)
+    for name in families:
+        src = build(name, torch.float32, seed=1, dev_=torch.device("cpu"))
+        path = os.path.join(root, f"{name}.pt")
+        torch.save(to_torchvision(src, name), path)
+        cfg = ConfigNode({"task": {"name": "imagenet", "seed": 0}, "training": {"compute_dtype": "bfloat16"},
+                          "model": {"name": name, "num_classes": classes, "pretrained": True,
+                                    "pretrained_source": path}})
+        t0 = time.perf_counter()
+        model = ExperimentManager(cfg, device=dev).setup_model()
+        load_s = time.perf_counter() - t0
+        want, got = src.state_dict(), model.state_dict()
+        loaded = set(want) == set(got) and all(torch.equal(got[k].cpu(), want[k]) for k in want)
+        w = classifier_logits_apply(model)
+        cfg_t = cfg_of("tent")
+        ad = get_tta_method("tent")(cfg_t.tta, config=cfg_t, device=dev)
+        adapt = ad.make_adapt_fn(w)
+        fwd_ms, step_ms = [], []
+        reset_counts()
+        for _ in range(2):  # the first call of each sets up cuDNN's plans: the second is timed
+            with torch.no_grad():
+                sync()
+                t0 = time.perf_counter()
+                logits = w(xf)
+                sync()
+                fwd_ms.append((time.perf_counter() - t0) * 1e3)
+        for _ in range(2):
+            sync()
+            t0 = time.perf_counter()
+            adapt(w, xf, family_batch)
+            sync()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        counts = read_counts()
+        ent = ad.last_entropy
+        ad.restore()
+        out["families"][name] = {"loaded_bitwise": loaded, "load_s": load_s, "forward_ms": fwd_ms[1],
+                                 "tent_step_ms": step_ms[1], "first_call_ms": [fwd_ms[0], step_ms[0]],
+                                 "entropy": ent, "launches": counts,
+                                 "params": sum(p.numel() for p in model.parameters()),
+                                 "norm_tensors": sum(norm_param_mask(model).values())}
+        if not loaded or tuple(logits.shape) != (family_batch, classes) or not bool(torch.isfinite(logits).all()) \
+                or not math.isfinite(ent) or not _counted(counts, {}):
+            raise AssertionError(f"{name}: {out['families'][name]}")
+        del src, model, w, ad, logits
+        if cuda:
+            torch.cuda.empty_cache()
+
+    # ---- ResNet-50 f32 on the device against the port on the CPU ---------------
+    xp = torch.randn(parity_batch, side, side, 3, generator=gen, device=dev) * 1.5 + 0.3
+    res = {}
+    source = {k: v.detach().cpu() for k, v in build("resnet50", torch.float32, seed=2).state_dict().items()}
+    for where in (dev, torch.device("cpu")):
+        model = build("resnet50", torch.float32, seed=None, dev_=where)
+        model.load_state_dict(source)
+        w = classifier_logits_apply(model)
+        with torch.no_grad():
+            logits = w(xp.to(where)).cpu()
+        cfg = cfg_of("tent", lr=1e-2, episodic=True, predict="post")
+        ad = get_tta_method("tent")(cfg.tta, config=cfg, device=where)
+        ad.make_adapt_fn(w)(w, xp.to(where), parity_batch)
+        mask = norm_param_mask(model)
+        affines = torch.cat([p.detach().cpu().flatten() for n, p in model.named_parameters() if mask[n]])
+        delta = affines - torch.cat([source[n].flatten() for n, _ in model.named_parameters() if mask[n]])
+        stats = torch.cat([t.flatten().cpu() for t in running_statistics(model).values()])
+        res[where.type] = (logits, affines, stats, delta)
+        del model, w, ad
+    rel = {k: float((a - b).norm() / b.norm())
+           for k, a, b in zip(("logits", "affines", "statistics", "affine_deltas"), res[dev.type], res["cpu"])}
+    out["resnet50_vs_cpu"] = {"batch": parity_batch, "rel_l2": rel}
+    if not (all(rel[k] <= CLS_PARITY_REL_L2 for k in ("logits", "affines", "statistics"))
+            and rel["affine_deltas"] <= CLS_PARITY_DELTA_REL_L2):
+        raise AssertionError(f"resnet50 on {dev.type} vs the CPU: {rel}")
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -1733,19 +2301,6 @@ def main() -> int:
 
     def sync():
         torch.cuda.synchronize()
-
-    def cuda_ms(fn, iters: int = 20, warmup: int = 2) -> float:
-        for _ in range(warmup):
-            fn()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        sync()
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        sync()
-        return start.elapsed_time(end) / iters
 
     def within(got, ref, tol) -> tuple:
         err = (got.float() - ref.float()).abs()
@@ -3329,11 +3884,74 @@ def main() -> int:
         rec17["cli"] = tcli
         shutil.rmtree(tr_root, ignore_errors=True)
         torch.cuda.empty_cache()
-    shutil.rmtree(cli_root, ignore_errors=True)  # phase 14's fixture: phases 15 and 17 ran on it
     del x17
     transformers["launches"] = tr_launches
     transformers["phase_s"] = time.perf_counter() - t_tr
     log(f"[transformer] phase 17 took {transformers['phase_s']:.1f} s; launches {tr_launches}; card {smi}")
+
+    # ---- 18. BatchNorm: the BATCH flagship and the classifiers ------------
+    t_bn = time.perf_counter()
+    torch.cuda.empty_cache()
+    bn_root = os.path.join(REPO, "build", "chip_smoke_batchnorm")  # build/ is in .gitignore
+    bn_launches = {"forward": 0, "backward": 0, "minplus": 0}
+
+    def add_bn(counts: dict) -> None:
+        for k in bn_launches:
+            bn_launches[k] += counts.get(k, 0)
+
+    # 18.1: the flagship with model.norm=BATCH, in process and through the CLIs
+    flag = batchnorm_flagship(dev, os.path.join(bn_root, "flagship"), reset_counts=reset_counts,
+                              read_counts=read_counts)
+    for counts in ([flag["train"]["launches"], flag["norm_step"]["launches"], flag["serving"]["launches"]]
+                   + [r["launches"] for r in flag["evaluate"].values()]):
+        add_bn(counts)
+    tr18 = flag["train"]
+    log(f"[batchnorm] BATCH flagship (channels 32..512, bf16, {tr18['params'][0]} param tensors, "
+        f"{tr18['params'][1]} BN affines, {BN_NORMS} BatchNorms): training at batch {tr18['batch']} on device "
+        f"batches, ms per step {[round(t, 2) for t in tr18['step_ms']]} -> median of the warm {BN_WARM_STEPS} "
+        f"{tr18['median_step_ms']:.2f} ms, {tr18['volumes_per_s']:.2f} volumes/s, peak allocated "
+        f"{tr18['peak_gib']:.2f} GiB; losses {[round(v, 5) for v in tr18['losses']]}; launches {tr18['launches']}; "
+        f"card {smi}")
+    log(f"[batchnorm] remat step vs plain step, running statistics: {flag['remat']}; checkpoint round trip "
+        f"bitwise {flag['checkpoint_bitwise']}; one norm step: {flag['norm_step']} (limit {BN_STATS_REL} vs f64 "
+        f"on the host)")
+    for tag, r in flag["evaluate"].items():
+        m_ = r["metrics"]
+        log(f"[batchnorm] evaluate {tag}: ms per batch {[round(t, 2) for t in r['ms_per_batch']]}; launches "
+            f"{r['launches']} (derived {r['want']}); avg_dc {m_['avg_dc']:.5f} hd95 {m_['gtvt_hd95']:.3f} loss "
+            f"{m_['loss']:.5f}; entropy {r['traces']}; params and buffers restored {r['unchanged']}; card {smi}")
+    log(f"[batchnorm] the evaluated batches' EDT through the kernel and its plain version: {flag['edt']}; "
+        f"Tent serving (continual, inline): ms per step {[round(t, 2) for t in flag['serving']['ms_per_step']]}, "
+        f"{flag['serving']['volumes_per_s']:.2f} volumes/s, entropy {flag['serving']['entropy']}, launches "
+        f"{flag['serving']['launches']}; card {smi}")
+    bcli18 = batchnorm_cli(dev, cli["manifest"], os.path.join(bn_root, "cli"), reset_counts=reset_counts,
+                           read_counts=read_counts)
+    shutil.rmtree(cli_root, ignore_errors=True)  # phase 14's fixture: phases 15, 17 and 18 ran on it
+    for call, r in bcli18.items():
+        add_bn(r["launches"])
+        log(f"[batchnorm] cli.{call.split('_')[0]}{' tta=' + call.split('_', 1)[1] if '_' in call else ''}: "
+            f"{r['wall_s']:.2f} s, launches {r['launches']} (derived {r['want']}); "
+            + (f"{r['steps']} steps, losses {r['losses']}, checkpoint buffers {r['checkpoint_buffers']}"
+               if call == "train" else f"metrics {r['metrics']}") + f"; card {smi}")
+    # 18.2: the classifiers
+    cls18 = classifier_phase(dev, os.path.join(bn_root, "classifiers"), reset_counts=reset_counts,
+                             read_counts=read_counts)
+    for tag, r in cls18["resnet50"].items():
+        add_bn(r["launches"])
+        log(f"[batchnorm] resnet50 {tag}: " + json.dumps({k: v for k, v in r.items() if k != "launches"})
+            + f"; launches {r['launches']}; card {smi}")
+    for name, r in cls18["families"].items():
+        add_bn(r["launches"])
+        log(f"[batchnorm] {name} pretrained from a torchvision-named file: {r}; card {smi}")
+    log(f"[batchnorm] resnet50 f32 on the card (TF32 off) vs the CPU at batch {cls18['resnet50_vs_cpu']['batch']}: "
+        f"rel L2 {cls18['resnet50_vs_cpu']['rel_l2']} (limit {CLS_PARITY_REL_L2}; the affines' deltas "
+        f"{CLS_PARITY_DELTA_REL_L2})")
+    shutil.rmtree(bn_root, ignore_errors=True)
+    if bn_launches["forward"] or bn_launches["backward"] or not bn_launches["minplus"]:
+        raise AssertionError(f"phase 18 launches {bn_launches}: no norm kernel, the min-plus kernel per batch")
+    batchnorm = {"flagship": flag, "cli": bcli18, "classifiers": cls18, "launches": bn_launches,
+                 "phase_s": time.perf_counter() - t_bn, "card": smi}
+    log(f"[batchnorm] phase 18 took {batchnorm['phase_s']:.1f} s; launches {bn_launches}; card {smi}")
 
 
     def norm_summary(name: str, tot: dict, train_tot: dict, brats_tot: dict, n_launches: dict, err: float,
@@ -3364,13 +3982,14 @@ def main() -> int:
     summary = norm_summary("fused_instance_norm", totals, norm_totals[TRAIN_BATCH][0], brats_norm[0],
                            {**launches, **norm_eval_launches, "train": train_launches["forward"],
                             "cli": cli_launches["forward"], "tta": tta_launches["forward"],
-                            "brats": brats_launches["forward"], "transformer": tr_launches["forward"]},
+                            "brats": brats_launches["forward"], "transformer": tr_launches["forward"],
+                            "batchnorm": bn_launches["forward"]},
                            max_abs_err, {}, "forward")
     backward_summary = norm_summary(
         "fused_instance_norm_backward", btotals, norm_totals[TRAIN_BATCH][1], brats_norm[1],
         {**backward_launches, "train": train_launches["backward"], "cli": cli_launches["backward"],
          "tta": tta_launches["backward"], "brats": brats_launches["backward"],
-         "transformer": tr_launches["backward"]}, backward_err,
+         "transformer": tr_launches["backward"], "batchnorm": bn_launches["backward"]}, backward_err,
         {"note": "the gradient of the TPU kernel's function; dx computed in all 18 timed calls"}, "backward")
     minplus_summary = {
         "name": "minplus",
@@ -3378,10 +3997,10 @@ def main() -> int:
         "source": "multimodal_tta_tpu_torch/csrc/edt_minplus.cu",
         "replaces": "multimodal_tta_tpu/pallas/edt_minplus.py:52",
         "launches": sum(eval_launches.values()) + train_launches["minplus"] + cli_launches["minplus"]
-        + tta_launches["minplus"] + brats_launches["minplus"] + tr_launches["minplus"],
+        + tta_launches["minplus"] + brats_launches["minplus"] + tr_launches["minplus"] + bn_launches["minplus"],
         "launches_by_path": {**eval_launches, "train": train_launches["minplus"], "cli": cli_launches["minplus"],
                              "tta": tta_launches["minplus"], "brats": brats_launches["minplus"],
-                             "transformer": tr_launches["minplus"]},
+                             "transformer": tr_launches["minplus"], "batchnorm": bn_launches["minplus"]},
         "max_abs_err": minplus_err,
         "ms": edt_ms,
         "plain_ms": edt_plain_ms,
@@ -3402,7 +4021,7 @@ def main() -> int:
                     "eval_ms_per_batch": eval_ms, "eval_warm_ms_per_batch": eval_warm_ms,
                     "eval_batch_split_ms": split,
                     "eval_metrics": eval_runs, "training": training, "cli": cli, "tta": tta_log, "brats": brats,
-                    "transformers": transformers}, default=str))
+                    "transformers": transformers, "batchnorm": batchnorm}, default=str))
     log(json.dumps({"kernels": [summary, backward_summary, minplus_summary]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                             "count": torch.cuda.device_count()}}))

@@ -85,9 +85,14 @@ class ExperimentManager:
         remat = get_config(self.config, "training.remat", False)
         if not isinstance(remat, (bool, int)):
             remat = bool(remat)
-        if bool(get_config(model_cfg, "pretrained", False)):
-            raise NotImplementedError("model.pretrained is not ported yet (ROADMAP.md, item 11: "
-                                      "models/pretrained.py with the BatchNorm backbones)")
+        pretrained = bool(get_config(model_cfg, "pretrained", False))
+        src_path = get_config(model_cfg, "pretrained_source", None)
+        if pretrained and not src_path:
+            # honored or a hard error, never silently ignored
+            raise ValueError(
+                "model.pretrained=true but model.pretrained_source is not set — this "
+                "environment cannot download torchvision weights; save a torch state_dict "
+                "(torch.save(model.state_dict(), p)) and point model.pretrained_source at it")
 
         # the init seed is the root generator's first draw (the reference
         # splits its root key for the init)
@@ -97,6 +102,10 @@ class ExperimentManager:
             sized["image_size"] = get_config(self.config, "training.data.transforms.image_size", None)
         self.model = model_cls.from_config(model_cfg, dtype=_DTYPES[compute_dtype], remat=remat,
                                            device=self.device, seed=init_seed, **sized)
+        if pretrained:
+            from ..models.pretrained import load_pretrained
+
+            load_pretrained(self.model, model_name, str(src_path))
         n_params = param_count(self.model)
         self.logger.info(
             f"Model created: {model_name} ({n_params / 1e6:.2f}M params, "

@@ -48,7 +48,9 @@ def param_count(model: nn.Module) -> int:
 @torch.no_grad()
 def shadow_module(model: nn.Module, params: Mapping[str, torch.Tensor],
                   into: Optional[nn.Module] = None) -> nn.Module:
-    """A module like ``model`` carrying ``params`` (by name): ``into`` when
+    """A module like ``model`` carrying ``params`` (by name) and ``model``'s
+    live buffers (a BatchNorm's running statistics; the reference swaps only
+    ``params`` and evaluates with the live ``batch_stats``): ``into`` when
     given, else a frozen copy of ``model`` made once. ``model`` itself, and
     an optimizer's references to its parameters, are left as they are."""
     if into is None:
@@ -58,4 +60,7 @@ def shadow_module(model: nn.Module, params: Mapping[str, torch.Tensor],
             p.requires_grad_(False)
     for name, p in into.named_parameters():
         p.copy_(params[name])
+    live = dict(model.named_buffers())
+    for name, b in into.named_buffers():
+        b.copy_(live[name])
     return into

@@ -20,8 +20,10 @@ dict on the first step) and ``flush_step_metrics()`` drains the last one;
 the host never waits on the step it has just launched.
 
 The model runs its step in training mode (the reference's ``train=True``)
-and is put back in the mode it had. ``training.remat`` is the model's
-(``ExperimentManager`` builds it with it). Distillation, the MoE aux loss
+and is put back in the mode it had: a BatchNorm model normalizes with the
+batch's statistics (padded rows included, as in the reference) and moves
+its running statistics once a step, with remat or without.
+``training.remat`` is the model's (``ExperimentManager`` builds it with it). Distillation, the MoE aux loss
 and deep supervision raise ``NotImplementedError`` (ROADMAP.md); there is no
 mesh (one device).
 """
@@ -148,9 +150,9 @@ class SegTrainer(TrainerBase):
     # ------------------------------------------------------------------
     def eval_state(self) -> nn.Module:
         """The module evaluation runs on: the live model, or with
-        ``training.ema.eval`` a copy carrying the EMA shadow (kept between
-        calls; the live params and the optimizer's references to them are
-        not touched)."""
+        ``training.ema.eval`` a copy carrying the EMA shadow and the live
+        running statistics (kept between calls; the live params and the
+        optimizer's references to them are not touched)."""
         model = self.state.model
         if self.ema_enabled and self.ema_eval and self.state.ema_params is not None:
             self._ema_module = shadow_module(model, self.state.ema_params, into=self._ema_module)

@@ -4,9 +4,14 @@
 numpy arrays (``jax.tree_util.tree_map(np.asarray, params)``) and returns a
 ``state_dict`` for the port model's ``load_state_dict``: every model of
 ``models/`` keeps flax's module names. ``unet3d_from_flax`` is the same
-function. It imports no JAX.
+function. ``variables_from_flax({"params": ..., "batch_stats": ...})``
+adds a BatchNorm model's running statistics (flax's ``mean``/``var``
+leaves) as the buffers of the same names. It imports no JAX.
 
-  * conv ``kernel`` ``[kd, kh, kw, in, out]`` -> ``weight`` ``[out, in, kd, kh, kw]``
+  * conv ``kernel`` ``[kd, kh, kw, in, out]`` -> ``weight`` ``[out, in, kd, kh, kw]``,
+    and 2D ``[kh, kw, in, out]`` -> ``[out, in, kh, kw]``; a grouped or
+    depthwise conv (flax ``feature_group_count``) stores ``in / groups``
+    input features in both layouts, so it takes the same transpose
   * dense ``kernel`` ``[in, out]`` -> ``weight`` ``[out, in]`` (``nn.Linear``)
   * transposed conv (the ``up`` module of ``TransposedConvUp``): flax's
     ``nn.ConvTranspose`` with ``transpose_kernel=False`` correlates the
@@ -67,10 +72,12 @@ def from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             if a.ndim == 2:
                 sd[".".join(mod + ("weight",))] = torch.from_numpy(a.T.copy())
                 continue
-            if a.ndim != 5:
-                raise ValueError(f"{'/'.join(path)}: expected a 3D conv, a dense or an attention kernel, "
-                                 f"got {a.shape}")
-            if mod[-1] == _TRANSPOSED:
+            if a.ndim == 4:  # 2D conv [kh, kw, in / groups, out]
+                a = a.transpose(3, 2, 0, 1)
+            elif a.ndim != 5:
+                raise ValueError(f"{'/'.join(path)}: expected a 2D or 3D conv, a dense or an attention "
+                                 f"kernel, got {a.shape}")
+            elif mod[-1] == _TRANSPOSED:
                 a = a[::-1, ::-1, ::-1].transpose(3, 4, 0, 1, 2)
             else:
                 a = a.transpose(4, 3, 0, 1, 2)
@@ -80,3 +87,12 @@ def from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 
 
 unet3d_from_flax = from_flax
+
+
+def variables_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """``from_flax`` of ``variables["params"]`` plus the ``batch_stats``
+    collection's leaves (``.../mean``, ``.../var``) as buffers by name."""
+    sd = from_flax(variables["params"])
+    for path, leaf in _leaves(variables.get("batch_stats") or {}):
+        sd[".".join(path)] = torch.from_numpy(np.array(leaf, dtype=np.float32))
+    return sd

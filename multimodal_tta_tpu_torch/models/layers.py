@@ -16,15 +16,19 @@ Numerics follow flax, which the parity tests check:
     f32. The norm takes f32 statistics and casts its output back.
 
 Models are built in inference mode, the reference's ``train=False``:
-dropout is the identity there. ``SegTrainer`` runs its step in training
-mode, where dropout raises, as the reference cannot train with it.
-``remat_call`` is the reference's ``nn.remat`` (``torch.utils.checkpoint``).
+dropout is the identity there and ``BatchNorm`` reads its running
+statistics. ``SegTrainer`` runs its step in training mode (the reference's
+``train=True``), where dropout raises, as the reference cannot train with
+it, and ``BatchNorm`` normalizes with the batch's statistics and moves its
+running statistics once. ``remat_call`` is the reference's ``nn.remat``
+(``torch.utils.checkpoint``); its recompute moves no statistics.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Sequence, Tuple, Union
+from contextlib import contextmanager, nullcontext
+from typing import Callable, Dict, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -148,6 +152,126 @@ class LayerNorm(nn.Module):
         return y.to(self.dtype)
 
 
+@contextmanager
+def frozen_statistics(module: nn.Module):
+    """A training-mode ``BatchNorm`` of ``module`` still normalizes with the
+    batch's statistics inside the block, but leaves its running statistics
+    as they are: the reference computes such a forward and drops the
+    statistics it returns (a remat recompute; the SAR ascent, consistency
+    and MEMO gradient passes)."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    held = [m.frozen for m in bns]
+    for m in bns:
+        m.frozen = True
+    try:
+        yield
+    finally:
+        for m, f in zip(bns, held):
+            m.frozen = f
+
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=...)`` over the channel axis
+    (dim 1) of an ``[N, C, ...]`` tensor, as the reference builds it:
+
+      * training mode (``train=True``): the batch's statistics over every
+        axis but the channel, in f32 (f64 stays f64, as in flax), as
+        ``mean = E[x]`` and the biased ``var = max(E[x^2] - E[x]^2, 0)``
+        (flax's ``use_fast_variance``); the running statistics become
+        ``0.9 * running + 0.1 * batch`` once per forward, unless ``frozen``
+        (``frozen_statistics``). Padded rows of a batch pool in, as in the
+        reference. Gradients flow through the batch statistics.
+      * inference mode: the running statistics.
+
+    The output is ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in f32,
+    cast to the input's dtype (the compute dtype, flax's ``dtype=``), the
+    ReLU optionally fused before the cast. Params ``scale``/``bias`` (1-D;
+    ``use_bias=False`` drops the bias: the BNNeck), buffers ``mean``/``var``
+    as flax's ``batch_stats``, no ``num_batches_tracked``. torch's own
+    BatchNorm updates with the unbiased variance and is not used."""
+
+    momentum = 0.9  # every BatchNorm of the reference
+
+    def __init__(self, features: int, epsilon: float = 1e-5, use_bias: bool = True):
+        super().__init__()
+        self.epsilon = float(epsilon)
+        self.frozen = False
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor, relu: bool = False) -> torch.Tensor:
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))  # at least f32, as flax
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        if self.training:
+            red = [0] + list(range(2, x.dim()))
+            mean = xf.mean(red)
+            var = torch.clamp(xf.square().mean(red) - mean.square(), min=0.0)
+            if not self.frozen:
+                with torch.no_grad():
+                    m = self.momentum
+                    self.mean.copy_(self.mean * m + mean.detach() * (1.0 - m))
+                    self.var.copy_(self.var * m + var.detach() * (1.0 - m))
+        else:
+            mean, var = self.mean, self.var
+        mul = torch.rsqrt(var + self.epsilon) * self.scale
+        y = (xf - mean.view(shape)) * mul.view(shape)
+        if self.bias is not None:
+            y = y + self.bias.view(shape)
+        return (F.relu(y) if relu else y).to(x.dtype)
+
+
+def has_batch_statistics(model: nn.Module) -> bool:
+    """True when ``model`` holds a ``BatchNorm`` (running statistics)."""
+    return any(isinstance(m, BatchNorm) for m in model.modules())
+
+
+def reject_torch_batchnorm(model: nn.Module) -> None:
+    """Raise on torch's own BatchNorm inside ``model``: it moves its running
+    variance by torch's rule (the unbiased batch variance), not the
+    reference's. The TTA methods call this when they bind a model."""
+    for m in model.modules():
+        if isinstance(m, nn.modules.batchnorm._NormBase):
+            raise ValueError(
+                f"{type(m).__name__} is torch's BatchNorm, whose running statistics follow torch's "
+                "rules; build the model with multimodal_tta_tpu_torch.models.layers.BatchNorm")
+
+
+def running_statistics(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """Copies of the running statistics of every ``BatchNorm`` in ``model``,
+    by buffer name (``{}`` for a model without them)."""
+    return {f"{n}.{b}" if n else b: t.detach().clone()
+            for n, m in model.named_modules() if isinstance(m, BatchNorm)
+            for b, t in m.named_buffers(recurse=False)}
+
+
+@torch.no_grad()
+def load_running_statistics(model: nn.Module, stats: Dict[str, torch.Tensor]) -> None:
+    """Write ``stats`` (``running_statistics``) back into ``model``'s buffers."""
+    if stats:
+        buffers = dict(model.named_buffers())
+        for name, t in stats.items():
+            buffers[name].copy_(t)
+
+
+@contextmanager
+def batch_statistics(model: nn.Module, update: bool = True):
+    """``model`` in training mode for the block (the reference's
+    ``apply_fn(..., train=True, mutable=["batch_stats"])``): its
+    ``BatchNorm`` layers normalize with the batch's statistics and, with
+    ``update``, move their running statistics once; without, the reference
+    drops the new statistics (``frozen_statistics``). The mode is put back
+    after the block."""
+    was = model.training
+    model.train(True)
+    try:
+        with (nullcontext() if update else frozen_statistics(model)):
+            yield
+    finally:
+        model.train(was)
+
+
 def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
     """flax ``nn.Dense(dtype=...)``: input, kernel and bias in the compute dtype."""
     b = None if layer.bias is None else layer.bias.to(dtype)
@@ -156,8 +280,9 @@ def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tenso
 
 class Norm(nn.Module):
     """Config-string-selected normalization over the channel axis (the
-    reference's ``Norm``): INSTANCE (the fused kernel), GROUP, LAYER or
-    NONE. The child is named ``norm``, as in flax."""
+    reference's ``Norm``): INSTANCE (the fused kernel), BATCH (running
+    statistics, eps 1e-5), GROUP, LAYER or NONE. The child is named
+    ``norm``, as in flax."""
 
     def __init__(self, kind: str, features: int):
         super().__init__()
@@ -171,8 +296,7 @@ class Norm(nn.Module):
         elif kind in ("NONE", ""):
             self.norm = None
         elif kind == "BATCH":
-            raise NotImplementedError(
-                "norm 'BATCH' is not ported yet (ROADMAP.md, item 11: the BatchNorm backbones)")
+            self.norm = BatchNorm(features, epsilon=1e-5)
         else:
             raise ValueError(f"Unknown norm '{kind}'")
 
@@ -307,25 +431,51 @@ def repeat_nearest(x: torch.Tensor, scale: Tuple[int, int, int]) -> torch.Tensor
     return F.interpolate(x, scale_factor=tuple(float(s) for s in scale), mode="nearest")
 
 
+def _recompute_context(module: nn.Module):
+    """``checkpoint``'s ``context_fn``: the recompute runs every submodule in
+    the mode it had in the forward (the caller may have switched it back
+    before the backward) and moves no running statistics (the reference's
+    ``nn.remat`` returns a segment's statistics once)."""
+    modes = [(m, m.training) for m in module.modules()]
+
+    @contextmanager
+    def replay():
+        now = [m.training for m, _ in modes]
+        for m, t in modes:
+            m.training = t
+        try:
+            with frozen_statistics(module):
+                yield
+        finally:
+            for (m, _), t in zip(modes, now):
+                m.training = t
+
+    return nullcontext(), replay()
+
+
 def remat_call(module: nn.Module, *args: torch.Tensor, enabled: bool) -> torch.Tensor:
     """``module(*args)``; with ``enabled`` (the reference's ``nn.remat``) its
     activations are dropped after the forward and recomputed in the
     backward, so every norm inside launches its forward kernel twice a
-    training step. Nothing inside draws random numbers (dropout raises in
+    training step; a ``BatchNorm`` inside moves its running statistics in
+    the forward only. Nothing inside draws random numbers (dropout raises in
     training), so no RNG state is kept. Without autograd it is a plain call."""
     if enabled and torch.is_grad_enabled():
-        return checkpoint(module, *args, use_reentrant=False, preserve_rng_state=False)
+        return checkpoint(module, *args, use_reentrant=False, preserve_rng_state=False,
+                          context_fn=lambda: _recompute_context(module))
     return module(*args)
 
 
 @torch.no_grad()
 def init_flax_defaults(model: nn.Module, seed: int) -> None:
     """flax's default initialisers from an explicit generator:
-    lecun-normal kernels (fan_in = kernel volume x input features for a
-    conv, input features for a dense layer: H for an attention's q/k/v,
-    heads x head dim for its out projection, as flax's DenseGeneral counts),
-    zero biases, ones and zeros in the norms (as built), ``normal(0.02)``
-    for the transformers' ``pos_embed`` and ``rel_pos_bias``. The numbers
+    lecun-normal kernels (fan_in = kernel volume x input features per group
+    for a conv, 2D or 3D, depthwise too; input features for a dense layer: H
+    for an attention's q/k/v, heads x head dim for its out projection, as
+    flax's DenseGeneral counts), zero biases, ones and zeros in the norms
+    and their running statistics (as built), ``normal(0.02)`` for the
+    transformers' ``pos_embed`` and ``rel_pos_bias`` (the ViT classifier's
+    ``cls_token`` stays zero). The numbers
     differ from JAX's PRNG; the parity tests carry JAX's weights across with
     ``models/convert.py``."""
     gen = torch.Generator().manual_seed(int(seed))
@@ -333,11 +483,11 @@ def init_flax_defaults(model: nn.Module, seed: int) -> None:
         if name.rpartition(".")[2] in ("pos_embed", "rel_pos_bias"):
             p.normal_(0.0, 0.02, generator=gen)
     for m in model.modules():
-        if isinstance(m, (nn.Conv3d, nn.ConvTranspose3d, nn.Linear)):
+        if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d, nn.Linear)):
             if isinstance(m, nn.Linear):
                 fan_in = m.in_features
             else:
-                in_axis = 1 if isinstance(m, nn.Conv3d) else 0
+                in_axis = 0 if isinstance(m, nn.ConvTranspose3d) else 1
                 fan_in = m.weight.shape[in_axis] * math.prod(m.kernel_size)
             sd = math.sqrt(1.0 / fan_in) / _TRUNC_SD
             nn.init.trunc_normal_(m.weight, mean=0.0, std=sd, a=-2.0 * sd, b=2.0 * sd, generator=gen)

@@ -31,16 +31,18 @@ def remat_levels(remat, n_levels: int) -> int:
     return n_levels + 1 if remat is True else int(remat or 0)
 
 
-def finish_model(model: nn.Module, seed: Optional[int], device: DeviceLike) -> None:
+def finish_model(model: nn.Module, seed: Optional[int], device: DeviceLike,
+                 memory_format: torch.memory_format = torch.channels_last_3d) -> None:
     """The last step of every model's constructor: flax's initialisers from
     ``seed`` (``None`` leaves the params for an enclosing model to set),
     inference mode (the reference's ``train=False``; ``SegTrainer`` switches
     to training for its step), and the params on ``device`` with conv
-    kernels in ``channels_last_3d``, the memory order of the activations."""
+    kernels in ``channels_last_3d`` (``channels_last`` for the 2D
+    classifiers), the memory order of the activations."""
     if seed is not None:
         init_flax_defaults(model, seed)
     model.eval()
-    model.to(device=resolve_device(device), memory_format=torch.channels_last_3d)
+    model.to(device=resolve_device(device), memory_format=memory_format)
 
 
 @register_model("unet")

@@ -1,6 +1,8 @@
-"""The ViT encoder pieces that UNETR and SwinUNETR share (the port of
-``multimodal_tta_tpu/models/vit.py:84-177``): ``SelfAttention`` and the
-pre-norm ``EncoderBlock``. Tokens are ``[B, N, H]``.
+"""The Vision Transformer (the port of ``multimodal_tta_tpu/models/vit.py``):
+the encoder pieces that UNETR and SwinUNETR share, ``SelfAttention`` and
+the pre-norm ``EncoderBlock``, and the ``ViT`` classifier (``vit_b_16``,
+``vit_b_32``, ``vit_l_16``, ``vit_l_32``, ``vit_h_14``). Tokens are
+``[B, N, H]``.
 
 Module names are flax's (``MultiHeadDotProductAttention_0`` with
 ``query``/``key``/``value``/``out``, ``LayerNorm_0``, ``LayerNorm_1``,
@@ -14,18 +16,28 @@ by ``1/sqrt(hd)`` in the compute dtype, ``q @ k^T``, softmax over the last
 axis, ``@ v``, the out projection. The reference runs it as XLA ops, not a
 Pallas kernel, so it is library matmuls here too.
 
-The ViT classifier (``vit_b_16`` ...) waits for ROADMAP.md item 11.2.
+The classifier embeds ``patch x patch`` patches with a VALID conv
+(``patch_embed``), prepends ``cls_token``, adds ``pos_embed`` (one row per
+patch and the CLS token, so its size follows ``image_size``), runs
+``block{i}`` and ``final_ln`` (flax's LayerNorm, eps 1e-6) and returns
+``(CLS features, logits)`` in f32 from the ``head``. It has no BatchNorm:
+Tent adapts its LayerNorms. The mesh options (``tp_axis``,
+``seq_shard_axis``) and MoE blocks raise, naming their ROADMAP.md items.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import DeviceLike, resolve_device
+from ..registry import register_model
+from ..utils.config import get_config
 from .layers import LayerNorm, check_dropout, linear
+from .resnet import _VariantFactory, finish_classifier
 
 
 def check_unported(tp_axis: Optional[str] = None, seq_shard_axis: Optional[str] = None,
@@ -105,4 +117,87 @@ class EncoderBlock(nn.Module):
         return x + linear(y, self.Dense_1, self.dtype)
 
 
-__all__ = ["SelfAttention", "EncoderBlock", "attend", "check_unported"]
+_SPECS = {
+    # (patch, hidden, depth, heads, mlp_dim)
+    "vit_b_16": (16, 768, 12, 12, 3072),
+    "vit_b_32": (32, 768, 12, 12, 3072),
+    "vit_l_16": (16, 1024, 24, 16, 4096),
+    "vit_l_32": (32, 1024, 24, 16, 4096),
+    "vit_h_14": (14, 1280, 32, 16, 5120),
+}
+
+
+class ViT(nn.Module):
+    """x: [B, H, W, C] -> (CLS features [B, hidden], logits [B, num_classes]).
+    ``patch``, ``hidden``, ``depth``, ``heads`` and ``mlp_dim`` override the
+    variant's topology, as in the reference."""
+
+    def __init__(self, variant: str = "vit_b_16", num_classes: int = 1000, image_size: int = 224,
+                 dropout: float = 0.0, dtype: torch.dtype = torch.float32, seq_shard_axis: Optional[str] = None,
+                 tp_axis: Optional[str] = None, moe_experts: int = 0, patch: Optional[int] = None,
+                 hidden: Optional[int] = None, depth: Optional[int] = None, heads: Optional[int] = None,
+                 mlp_dim: Optional[int] = None, in_channels: int = 3, *, device: DeviceLike = "cuda",
+                 seed: Optional[int] = 0):
+        super().__init__()
+        if variant not in _SPECS:
+            raise ValueError(f"Unknown vit variant: {variant}")
+        check_unported(tp_axis=tp_axis, seq_shard_axis=seq_shard_axis, num_experts=moe_experts)
+        resolve_device(device)
+        spec = [v if o is None else int(o) for v, o in zip(_SPECS[variant], (patch, hidden, depth, heads, mlp_dim))]
+        self.patch, hidden, depth, heads, mlp_dim = spec
+        self.variant, self.dtype, self.in_channels = variant, dtype, int(in_channels)
+        self.image_size = int(image_size)
+        if self.image_size % self.patch:
+            raise ValueError(f"ViT input {self.image_size}x{self.image_size} not divisible by patch {self.patch}")
+        n_tokens = (self.image_size // self.patch) ** 2 + 1
+        self.patch_embed = nn.Conv2d(self.in_channels, hidden, self.patch, self.patch)
+        self.cls_token = nn.Parameter(torch.zeros(1, 1, hidden))
+        self.pos_embed = nn.Parameter(torch.zeros(1, n_tokens, hidden))
+        self.depth = depth
+        for i in range(depth):
+            self.add_module(f"block{i}", EncoderBlock(hidden, heads, mlp_dim, dropout, dtype))
+        self.final_ln = LayerNorm(hidden, dtype)
+        self.head = nn.Linear(hidden, num_classes)
+        finish_classifier(self, seed, device)
+
+    @classmethod
+    def from_config(cls, cfg, **overrides) -> "ViT":
+        kw = dict(
+            variant=str(get_config(cfg, "name", "vit_b_16")),
+            num_classes=int(get_config(cfg, "num_classes", 1000)),
+            image_size=int(get_config(cfg, "image_size", 224)),
+            dropout=float(get_config(cfg, "dropout", 0.0)),
+            seq_shard_axis=get_config(cfg, "seq_shard_axis", None),
+            tp_axis=get_config(cfg, "tp_axis", None),
+            moe_experts=int(get_config(cfg, "moe_experts", 0)),
+            in_channels=int(get_config(cfg, "in_channels", 3)),
+        )
+        kw.update(overrides)
+        kw.pop("remat", None)
+        return cls(**kw)
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        b, h, w, c = x.shape
+        if h % self.patch or w % self.patch:
+            raise ValueError(f"ViT input {h}x{w} not divisible by patch {self.patch}")
+        if (h // self.patch) * (w // self.patch) + 1 != self.pos_embed.shape[1]:
+            raise ValueError(f"ViT input {h}x{w} gives another patch count than image_size {self.image_size}")
+        if c != self.in_channels:
+            raise ValueError(f"ViT expects {self.in_channels} input channels, got {c}")
+        pe = self.patch_embed
+        x = F.conv2d(x.to(self.dtype).permute(0, 3, 1, 2), pe.weight.to(self.dtype), pe.bias.to(self.dtype),
+                     stride=pe.stride)
+        x = x.flatten(2).transpose(1, 2)  # [B, N, hidden], patches row-major as the reference's reshape
+        cls_tok = self.cls_token.to(self.dtype).expand(b, -1, -1)
+        x = torch.cat([cls_tok, x], dim=1) + self.pos_embed.to(self.dtype)
+        for i in range(self.depth):
+            x = getattr(self, f"block{i}")(x)
+        feats = self.final_ln(x)[:, 0].float()
+        return feats, F.linear(feats, self.head.weight, self.head.bias)
+
+
+for _name in _SPECS:
+    register_model(_name)(_VariantFactory(ViT, _name))
+
+
+__all__ = ["SelfAttention", "EncoderBlock", "ViT", "attend", "check_unported"]

@@ -312,6 +312,15 @@ def make_criterion(crit_cfg) -> Callable:
     raise ValueError(f"[criterion] unknown criterion name: {name!r} (dice_ce | gwdl)")
 
 
+def reduce_dims(t: torch.Tensor, dims, op: str = "sum") -> torch.Tensor:
+    """``t.sum(dims)`` / ``t.mean(dims)``; with no dims ``t`` as it is (a
+    classifier's per-sample value: torch would reduce every dim for
+    ``dim=()``)."""
+    if not dims:
+        return t
+    return t.sum(dim=dims) if op == "sum" else t.mean(dim=dims)
+
+
 def entropy_loss(
     logits: torch.Tensor,
     *,
@@ -342,10 +351,10 @@ def entropy_loss(
     dims = tuple(range(1 if per_sample else 0, h.dim()))
     if focus == "uncertain":
         w = h.detach()
-        return (h * w).sum(dim=dims) / torch.clamp(w.sum(dim=dims), min=1e-12)
+        return reduce_dims(h * w, dims) / torch.clamp(reduce_dims(w, dims), min=1e-12)
     if focus != "all":
         raise ValueError(f"Unknown entropy focus: {focus}")
-    return h.mean(dim=dims)
+    return reduce_dims(h, dims, "mean")
 
 
 def pseudo_label_loss(
@@ -381,4 +390,4 @@ def pseudo_label_loss(
         w = (p.amax(dim=-1) >= conf_threshold).to(logits.dtype)
         ce = -torch.gather(logp, -1, hard)[..., 0]
     dims = tuple(range(1 if per_sample else 0, ce.dim()))
-    return (ce * w).sum(dim=dims) / torch.clamp(w.sum(dim=dims), min=1.0)
+    return reduce_dims(ce * w, dims) / torch.clamp(reduce_dims(w, dims), min=1.0)

@@ -4,7 +4,7 @@ registers them: ``tent``, ``pl``, ``eata``, ``norm``, ``sar``, ``cotta`` and
 
 from .cotta import CottaAdapter
 from .eata import EataAdapter
-from .engine import TTAEngine
+from .engine import TTAEngine, classifier_logits_apply
 from .memo import MemoAdapter
 from .norm_adapt import NormAdapter
 from .pl import PseudoLabelAdapter
@@ -24,4 +24,5 @@ __all__ = [
     "StreamTTAController",
     "evaluate_stream",
     "norm_param_mask",
+    "classifier_logits_apply",
 ]

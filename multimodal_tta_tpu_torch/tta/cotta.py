@@ -17,6 +17,13 @@ their probabilities is kept, so no two views' activations are held at once.
 ``serve`` picks the served prediction: the view-averaged teacher
 probabilities ("teacher") or the student ("student"). The entropy trace is
 the student's self-normalized prediction entropy.
+
+On a BatchNorm model the teacher runs in inference mode on the running
+statistics the student carries into the step (``functional_call`` swaps
+the adapted params only, and moves no statistics); the student's forward
+runs on the batch's statistics and moves the running statistics once a
+step; a post-update student prediction runs on the batch's statistics and
+moves nothing, as in the reference.
 """
 
 from __future__ import annotations
@@ -67,10 +74,13 @@ def view_combos(ndim: int, flip: bool) -> Tuple[Tuple[int, ...], ...]:
 
 
 def flipped_probs(forward, xv: torch.Tensor, combo: Tuple[int, ...]) -> torch.Tensor:
-    """``forward`` on the view mirrored along ``combo``, mirrored back."""
+    """``forward`` on the view mirrored along ``combo``, mirrored back; an
+    output without the input's spatial axes (a classifier's ``[B, C]``) has
+    nothing to mirror back."""
     if not combo:
         return forward(xv)
-    return torch.flip(forward(torch.flip(xv, dims=combo)), dims=combo)
+    p = forward(torch.flip(xv, dims=combo))
+    return torch.flip(p, dims=combo) if p.dim() == xv.dim() else p
 
 
 @register_tta_method("cotta")
@@ -187,7 +197,7 @@ class CottaAdapter(TentAdapter):
             x = image
             if self.md_enabled and not (inline and i == self.steps - 1):
                 x = apply_modality_dropout(x, d["drop"])
-            logits = self._model(x)
+            logits = self._student(x)
             if self.sigmoid_mode:
                 ce = -(pseudo * torch.nn.functional.logsigmoid(logits)
                        + (1.0 - pseudo) * torch.nn.functional.logsigmoid(-logits))
@@ -215,5 +225,5 @@ class CottaAdapter(TentAdapter):
             p = self._pseudo_labels(teacher, image, draws["post"])
         else:
             with torch.no_grad():
-                p = self._probs(self._model(image))
+                p = self._probs(self._student(image, update=False))
         return self._predict_probs(p, threshold)

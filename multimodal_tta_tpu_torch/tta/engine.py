@@ -18,12 +18,14 @@ resets what the method carries (momentum, SAR's entropy EMA, CoTTA's
 teacher), before it returns, also when the loop raises — a second ``evaluate``, or a
 following no-adaptation run, scores the source model as the reference does.
 
-``classifier_logits_apply`` (the bridge for the 2D classification
-backbones) comes with those backbones.
+``classifier_logits_apply`` bridges the 2D classification backbones'
+``(features, logits)`` contract to the adapters, which take a model whose
+forward returns the logits.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Dict
 
 from torch import nn
@@ -81,3 +83,27 @@ class TTAEngine:
             )
         finally:
             self.adapter.restore()
+
+
+def classifier_logits_apply(model: nn.Module) -> nn.Module:
+    """A classifier whose forward returns the logits of ``model``'s
+    ``(features, logits)`` (the registry's resnet / densenet / efficientnet /
+    vit backbones), for any adapter: ``TentAdapter(...).make_adapt_fn(
+    classifier_logits_apply(model))`` and the same for pl, eata, norm, sar,
+    cotta and memo, whose BatchNorm branches recompute the running
+    statistics from the test batch (for a classifier under covariate shift
+    most of Tent's value).
+
+    The wrapper is a shallow copy of ``model`` with another forward: it
+    shares the backbone's parameters, buffers and submodules under their own
+    names (no submodule prefix, so ``update_path_regex`` and the structural
+    norm mask see the backbone's names), and adapting it adapts ``model``.
+    Its own mode flag starts as ``model``'s."""
+    wrapper = copy.copy(model)
+    wrapper.__class__ = type(f"{type(model).__name__}Logits", (_LogitsOnly, type(model)), {})
+    return wrapper
+
+
+class _LogitsOnly:
+    def forward(self, x):
+        return super().forward(x)[1]

@@ -20,6 +20,12 @@ through the clamp would), then (2) one forward+backward of
 ``sum(p_v * g_hat / V)`` per view, accumulating into ``.grad``. Peak memory
 holds one view's activations, whatever V is. The accumulated gradient is
 autograd's of the marginal objective, to float rounding.
+
+On a BatchNorm model the clean view is the statistics-recomputing pass (the
+batch's statistics; the running statistics move once, in the marginal pass
+of (1); the clean forward of (2) moves nothing) and the augmented views read
+the statistics it wrote, as in the reference. A post-update prediction runs
+the clean view the same way and moves them again, as the reference does.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.augment import apply_modality_dropout, modality_dropout_draws
+from ..ops.losses import reduce_dims
 from ..registry import register_tta_method
 from ..utils.config import get_config
 from .cotta import apply_view, flipped_probs, view_combos, view_draws
@@ -51,11 +58,11 @@ def marginal_entropy(p_marg: torch.Tensor, w: torch.Tensor, denom: torch.Tensor,
     ax = tuple(range(1, h.dim()))
     bshape = (b,) + (1,) * (h.dim() - 1)
     if focus == "uncertain":
-        wsum = torch.clamp(h.sum(dim=ax), min=1e-12)
-        per_sample = (h * h).sum(dim=ax) / wsum
+        wsum = torch.clamp(reduce_dims(h, ax), min=1e-12)
+        per_sample = reduce_dims(h * h, ax) / wsum
         g_h = h * (w / denom / wsum).reshape(bshape)
     else:
-        per_sample = h.mean(dim=ax)
+        per_sample = reduce_dims(h, ax, "mean")
         g_h = ((w / denom) / float(h[0].numel())).reshape(bshape).expand(h.shape)
     g = g_h * dhdp if sigmoid else g_h[..., None] * dhdp
     return (per_sample * w).sum() / denom, g
@@ -144,7 +151,7 @@ class MemoAdapter(TentAdapter):
     def _marginal(self, x: torch.Tensor, views):
         """Marginal probabilities over the views (view 0 clean) and the clean
         logits; the views run one after another."""
-        logits0 = self._model(x)
+        logits0 = self._student(x)
         p = self._probs(logits0)
         combos = view_combos(x.dim(), self.aug_flip)
         for i in range(len(views)):
@@ -156,7 +163,7 @@ class MemoAdapter(TentAdapter):
         view (each a Tent-sized forward+backward)."""
         gv = g_hat / float(self.n_views)
         combos = view_combos(x.dim(), self.aug_flip)
-        (self._probs(self._model(x)) * gv).sum().backward()
+        (self._probs(self._student(x, update=False)) * gv).sum().backward()
         for i in range(len(views)):
             (self._view_probs(x, views, i, combos) * gv).sum().backward()
 
@@ -190,5 +197,5 @@ class MemoAdapter(TentAdapter):
             p, _ = self._marginal(image, draws["post"])
         else:
             with torch.no_grad():
-                p = self._probs(self._model(image))
+                p = self._probs(self._student(image))
         return self._predict_probs(p, threshold)

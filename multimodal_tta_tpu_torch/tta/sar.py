@@ -19,7 +19,11 @@ Niu et al., "Towards Stable Test-Time Adaptation in Dynamic Wild World"
      across batches in continual mode; ``reset_optimizer`` clears it.
 
 Each step runs two forwards and two backwards; the reset decision reads
-``em`` on the host once a step.
+``em`` on the host once a step. On a BatchNorm model both forwards run on
+the batch's statistics from the same running statistics, and the step keeps
+those of the second (the reference's ``new_bs`` of the descent pass): the
+running statistics move once a step. A recovery reset puts back the params,
+not the statistics, as in the reference.
 """
 
 from __future__ import annotations
@@ -103,10 +107,10 @@ class SarAdapter(TentAdapter):
     def _h_max(self, logits: torch.Tensor) -> float:
         return math.log(2.0) if self.sigmoid_mode else math.log(float(logits.shape[-1]))
 
-    def _loss(self, x: torch.Tensor, w: torch.Tensor, denom: torch.Tensor):
+    def _loss(self, x: torch.Tensor, w: torch.Tensor, denom: torch.Tensor, update: bool):
         """Reliable-filtered objective, the unfiltered monitor score and the
         logits; the filter is recomputed at every evaluation point."""
-        logits = self._model(x)
+        logits = self._student(x, update=update)
         per = entropy_loss(logits, sigmoid=self.sigmoid_mode, focus=self.entropy_focus, per_sample=True)
         score = entropy_loss(logits.detach(), sigmoid=self.sigmoid_mode, focus="uncertain", per_sample=True)
         reliable = (score < self.margin_ratio * self._h_max(logits)).to(torch.float32)
@@ -125,14 +129,14 @@ class SarAdapter(TentAdapter):
             x = image
             if self.md_enabled and not (inline and i == self.steps - 1):
                 x = apply_modality_dropout(x, d["drop"])
-            loss, mon, logits = self._loss(x, w, denom)
+            loss, mon, logits = self._loss(x, w, denom, update=False)
             g = torch.autograd.grad(loss, params)
             scale = self.rho / (torch.sqrt(torch.stack([(t * t).sum() for t in g]).sum()) + 1e-12)
             with torch.no_grad():
                 theta = [p.detach().clone() for p in params]
                 for p, t in zip(params, g):
                     p.add_(scale * t)
-            loss_sam, _, _ = self._loss(x, w, denom)
+            loss_sam, _, _ = self._loss(x, w, denom, update=True)
             g_sam = torch.autograd.grad(loss_sam, params)
             with torch.no_grad():
                 for p, t, gs in zip(params, theta, g_sam):

@@ -34,6 +34,16 @@ the adapted set (``requires_grad=False``), keep a copy of the adapted
 params' source values, and the returned functions take and return that same
 model as the ``state``. ``restore()`` puts the source values back.
 
+BatchNorm models (``models/layers.py:BatchNorm``): as in the reference,
+the student forward of a step runs in training mode on the batch's
+statistics and moves the running statistics once (the consistency view's
+forward normalizes by its own batch but moves nothing); post-update
+predictions, the Fisher estimate (at the source statistics) and the gated
+forward read the running statistics; a frozen early-stop step leaves them
+as they were. Episodic mode and ``restore()`` put the source statistics
+back with the source params. A model without batch statistics runs every
+forward as built (inference mode).
+
 Randomness: the adapter owns one ``torch.Generator`` on its device, seeded
 with ``task.seed + 777`` (the reference's ``PRNGKey``), kept across
 ``make_*`` calls and ``restore()``. Each batch takes its random numbers
@@ -56,6 +66,13 @@ from torch import nn
 from .. import DeviceLike, resolve_device
 from ..conf.node import ConfigNode
 from ..models.convert import flax_path
+from ..models.layers import (
+    batch_statistics,
+    has_batch_statistics,
+    load_running_statistics,
+    reject_torch_batchnorm,
+    running_statistics,
+)
 from ..ops.augment import (
     apply_intensity_scale_shift,
     apply_modality_dropout,
@@ -262,6 +279,8 @@ class TentAdapter:
         self._names: List[str] = []
         self._trainable: List[nn.Parameter] = []
         self._source: List[torch.Tensor] = []
+        self._bn = False
+        self._source_stats: Dict[str, torch.Tensor] = {}
         self._opt: Optional[torch.optim.Optimizer] = None
         self._last_ents: Optional[torch.Tensor] = None
         self._fisher_sum: Optional[List[torch.Tensor]] = None
@@ -334,6 +353,7 @@ class TentAdapter:
     def _bind(self, model: nn.Module) -> None:
         """Select and unfreeze the adapted params, freeze the rest, keep the
         adapted params' source values, and start the carried state afresh."""
+        reject_torch_batchnorm(model)
         for p in model.parameters():
             if p.device != self.device:
                 raise ValueError(f"[{self.method}] model is on {p.device}, adapter on {self.device}")
@@ -346,6 +366,8 @@ class TentAdapter:
                 self._names.append(name)
                 self._trainable.append(p)
         self._source = [p.detach().clone() for p in self._trainable]
+        self._bn = has_batch_statistics(model)
+        self._source_stats = running_statistics(model)
         self._opt = self._build_opt()
         self._reset_carry()
         self._last_ents = None
@@ -367,8 +389,20 @@ class TentAdapter:
 
     @torch.no_grad()
     def _copy_source(self) -> None:
+        """The adapted params back to their source values (the running
+        statistics stay: SAR's recovery resets the params only)."""
         for p, s in zip(self._trainable, self._source):
             p.copy_(s)
+
+    def _student(self, x: torch.Tensor, update: bool = True) -> torch.Tensor:
+        """The reference's student ``forward(trainable, bs, x)``: a BatchNorm
+        model runs in training mode on ``x``'s statistics and, with
+        ``update``, keeps the forward's new running statistics (once); a
+        model without them runs as built."""
+        if not self._bn:
+            return self._model(x)
+        with batch_statistics(self._model, update=update):
+            return self._model(x)
 
     def _prepare(self, image, n_valid):
         """The normalized f32 image on the device, the valid-sample weights
@@ -386,6 +420,7 @@ class TentAdapter:
             raise ValueError(f"[{self.method}] the state must be the model this function was built with")
         if self.episodic:
             self._copy_source()
+            load_running_statistics(self._model, self._source_stats)
             self._opt = self._build_opt()
         return self._prepare(image, n_valid)
 
@@ -429,26 +464,25 @@ class TentAdapter:
 
     def _objective(self, x: torch.Tensor, d: dict, w: torch.Tensor, denom: torch.Tensor):
         """The step's loss and the logits of its (first) forward."""
-        model = self._model
         if self.window_enabled:
             x = apply_crop_windows(x, d["windows"], self.window_roi)
-            logits = model(x)
+            logits = self._student(x)
             if self.rel_enabled:
                 ww = reliability_weights(logits, sigmoid=self.sigmoid_mode, margin_ratio=self.rel_margin_ratio)
                 loss = (self._per_sample_objective(logits) * ww).sum() / logits.shape[0]
             else:
                 loss = self._batch_objective(logits)
             if d["cons"] is not None:
-                p2 = self._probs(model(apply_intensity_scale_shift(x, *d["cons"])))
+                p2 = self._probs(self._student(apply_intensity_scale_shift(x, *d["cons"]), update=False))
                 loss = loss + self.cons_weight * ((self._probs(logits) - p2) ** 2).mean()
             return loss, logits
-        logits = model(x)
+        logits = self._student(x)
         sw = w
         if self.rel_enabled:
             sw = w * reliability_weights(logits, sigmoid=self.sigmoid_mode, margin_ratio=self.rel_margin_ratio)
         loss = (self._per_sample_objective(logits) * sw).sum() / denom
         if d["cons"] is not None:
-            p2 = self._probs(model(apply_intensity_scale_shift(x, *d["cons"])))
+            p2 = self._probs(self._student(apply_intensity_scale_shift(x, *d["cons"]), update=False))
             per_cons = ((self._probs(logits) - p2) ** 2).mean(dim=tuple(range(1, logits.dim())))
             loss = loss + self.cons_weight * (per_cons * w).sum() / denom
         return loss, logits
@@ -480,20 +514,23 @@ class TentAdapter:
             x = image
             if self.md_enabled and not (inline and i == self.steps - 1):
                 x = apply_modality_dropout(x, d["drop"])
+            held = running_statistics(self._model) if self.early_stop else None
             with torch.set_grad_enabled(active):
                 loss, logits = self._objective(x, d, w, denom)
             ents.append(loss.detach())
             if self.early_stop:
                 # freeze once the step entropy falls below the floor: the
-                # reference discards the step's update and keeps the state
-                # for the rest of the batch (its trace then reports the
-                # frozen params' entropy, as the forwards here do)
+                # reference discards the step's update (params and running
+                # statistics) and keeps the state for the rest of the batch
+                # (its trace then reports the frozen params' entropy, as the
+                # forwards here do)
                 ent = float(loss.detach())
                 if e0 != e0:
                     e0 = ent
                 floor = self.early_stop_ratio * e0 if ent_floor is None or ent_floor != ent_floor else ent_floor
                 active = active and ent >= floor
                 if not active:
+                    load_running_statistics(self._model, held)
                     continue
             opt.zero_grad(set_to_none=True)
             loss.backward()
@@ -510,17 +547,20 @@ class TentAdapter:
     # ------------------------------------------------------------------
     @contextmanager
     def _at_source(self):
-        """The adapted params at their source values for the block, then
-        back to what they were."""
+        """The adapted params and the running statistics at their source
+        values for the block, then back to what they were."""
         with torch.no_grad():
             held = [p.detach().clone() for p in self._trainable]
+            held_stats = running_statistics(self._model)
             self._copy_source()
+            load_running_statistics(self._model, self._source_stats)
         try:
             yield
         finally:
             with torch.no_grad():
                 for p, h in zip(self._trainable, held):
                     p.copy_(h)
+                load_running_statistics(self._model, held_stats)
 
     def _maybe_accumulate_fisher(self, image: torch.Tensor, w: torch.Tensor, denom: torch.Tensor) -> None:
         """Squared entropy gradients of the SOURCE model on this batch, summed
@@ -550,9 +590,9 @@ class TentAdapter:
     # ------------------------------------------------------------------
     def restore(self) -> None:
         """Write the source values back into the bound model's adapted
-        params, drop their gradients, start a fresh optimizer and reset the
-        method's carried state — the model is again what it was when it was
-        bound. The reference's adapt functions are pure and leave the
+        params and running statistics, drop the gradients, start a fresh
+        optimizer and reset the method's carried state — the model is again
+        what it was when it was bound. The reference's adapt functions are pure and leave the
         caller's state alone; the port adapts in place, so whoever borrowed a
         model (``TTAEngine.evaluate``) calls this when done. The
         ``requires_grad`` flags stay as bound; the generator and the Fisher
@@ -560,6 +600,7 @@ class TentAdapter:
         if self._model is None:
             return
         self._copy_source()
+        load_running_statistics(self._model, self._source_stats)
         for p in self._trainable:
             p.grad = None
         self.reset_optimizer()

@@ -3,7 +3,7 @@
 of one training step goes on one CUDA card.
 
     python3 scripts/torch_serving_profile.py [--protocol online|strict|eval|train|forward] [--batch 2] [--steps 3]
-        [--model unet|midfusion|unetr|swin_unetr] [--remat]
+        [--model unet|midfusion|unetr|swin_unetr|resnet50] [--remat] [--norm INSTANCE|BATCH]
 
 Builds the flagship UNet3D (channels 32..512, bf16, random weights from a
 seed) as chip_smoke.py does, on HECKTOR21 batches; with ``--model
@@ -13,7 +13,12 @@ synthetic BraTS batches [B,160,192,160,4] with the recipe of train_brats.sh
 modality dropout in training, threshold 0.5); with ``--model unetr`` or
 ``--model swin_unetr`` that transformer at the paper widths of
 configs/model/<name>.yaml (bf16, chip_smoke.py's phase 17) on the HECKTOR21
-batches, ``--remat`` rematerializing it as ``training.remat=true`` does.
+batches, ``--remat`` rematerializing it as ``training.remat=true`` does;
+``--norm BATCH`` builds the flagship with BatchNorm (``model.norm=BATCH``);
+``--model resnet50`` is ResNet-50 through ``classifier_logits_apply`` (bf16,
+1000 classes) on [B,224,224,3] in Tent's ImageNet-C setting (SGD 2.5e-4,
+momentum 0.9, softmax, entropy over all samples; ``online`` and
+``strict`` only; run it with ``--batch 64``).
 ``online`` and ``strict`` profile the Tent
 adapt+segment serving step; ``eval`` profiles the evaluation step of one
 batch (forward, Dice/IoU, loss, HD95/ASD/NSD) on synthetic volumes with
@@ -27,7 +32,9 @@ host's share), then ``--steps`` steps run under ``torch.profiler``. Prints:
 the wall time per step, the device time by kernel (top 20), the device time
 by kind (the fused-InstanceNorm CUDA kernels, forward and backward apart,
 convolutions, matmuls (cuBLAS), softmax, LayerNorm, the min-plus CUDA
-kernel, the optimizer's foreach kernels, sorts, copies, the rest), the kernels launched per step in all and per kind
+kernel, the optimizer's foreach kernels, sorts, copies, PyTorch's generic
+reduction and elementwise kernels (where a BatchNorm's time goes, with the
+loss's and the optimizer-free arithmetic), the rest), the kernels launched per step in all and per kind
 (``direct_copy`` kernels on a line of their own, with the calls that launch
 them), and the device busy share (summed kernel time over the profiled wall
 time). The last line is one JSON object with the same
@@ -78,6 +85,10 @@ def kind(name: str) -> str:
         return "matmul"
     if any(k in low for k in CONV_MARKS):
         return "convolution"
+    if "reduce_kernel" in low:
+        return "reduction"
+    if "elementwise" in low:
+        return "elementwise"
     return "other"
 
 
@@ -152,8 +163,9 @@ def main() -> int:
     ap.add_argument("--protocol", choices=("online", "strict", "eval", "train", "forward"), default="online")
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--steps", type=int, default=3)
-    ap.add_argument("--model", choices=("unet", "midfusion", "unetr", "swin_unetr"), default="unet")
+    ap.add_argument("--model", choices=("unet", "midfusion", "unetr", "swin_unetr", "resnet50"), default="unet")
     ap.add_argument("--remat", action="store_true", help="rematerialize a transformer (training.remat=true)")
+    ap.add_argument("--norm", choices=("INSTANCE", "BATCH"), default="INSTANCE", help="the flagship's norm")
     args = ap.parse_args()
 
     import torch
@@ -198,8 +210,22 @@ def main() -> int:
         gen = torch.Generator(device=dev).manual_seed(1)
         x = torch.randn((args.batch,) + SHAPE, generator=gen, device=dev) * 100
         label, transform, threshold = None, DEVICE_TRANSFORM, THRESHOLD
+    elif args.model == "resnet50":
+        from multimodal_tta_tpu_torch.registry import get_model
+        from multimodal_tta_tpu_torch.tta import classifier_logits_apply
+
+        if args.protocol not in ("online", "strict"):
+            raise SystemExit("--model resnet50 profiles the Tent step only (--protocol online|strict)")
+        cfg = ConfigNode({"training": {"criterion": {"softmax": True, "sigmoid": False}},
+                          "tta": {"steps": 1, "lr": 2.5e-4, "momentum": 0.9, "episodic": not online,
+                                  "entropy_focus": "all"}})
+        model = classifier_logits_apply(get_model("resnet50").from_config(
+            ConfigNode({"name": "resnet50", "num_classes": 1000}), dtype=torch.bfloat16, device=dev, seed=0))
+        gen = torch.Generator(device=dev).manual_seed(1)
+        x = torch.randn((args.batch, 224, 224, 3), generator=gen, device=dev) * 1.5 + 0.3
+        label, transform, threshold = None, None, 0.5
     else:
-        model = UNet3D(channels=(32, 64, 128, 256, 512), dtype=torch.bfloat16, device=dev, seed=0)
+        model = UNet3D(channels=(32, 64, 128, 256, 512), norm=args.norm, dtype=torch.bfloat16, device=dev, seed=0)
         gen = torch.Generator(device=dev).manual_seed(1)
         x = torch.randn((args.batch,) + SHAPE, generator=gen, device=dev) * 100
         label, transform, threshold = None, DEVICE_TRANSFORM, THRESHOLD
@@ -281,7 +307,7 @@ def main() -> int:
     print("host time by operator, self ms/step (calls/step): "
           + ", ".join(f"{k} {ms:.2f} ({n:.0f})" for k, ms, n in host))
     print(json.dumps({
-        "protocol": args.protocol, "model": args.model, "remat": args.remat, "batch": args.batch,
+        "protocol": args.protocol, "model": args.model, "remat": args.remat, "norm": args.norm, "batch": args.batch,
         "steps": args.steps, "card": card,
         "warm_ms_per_step_no_profiler": warm_ms, "host_enqueue_ms_per_step": host_ms,
         "wall_ms_per_step": wall_ms / args.steps, "device_ms_per_step": device_ms / args.steps,

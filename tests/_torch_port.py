@@ -4,6 +4,8 @@ a seed, carry them to the port, and move arrays across as numpy."""
 
 from __future__ import annotations
 
+from unittest import mock
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -80,6 +82,17 @@ def random_flax_params(module, x_shape, seed: int = 0):
         return a.astype(np.float32)
 
     return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+def meta_model(name: str, cfg: dict) -> torch.nn.Module:
+    """A registry model's structure without storage: its tensors are made on
+    the ``meta`` device and the constructor's move to ``device="cpu"``
+    (``Module.to``) is skipped, as a meta tensor cannot be copied out."""
+    from multimodal_tta_tpu_torch.conf import ConfigNode
+    from multimodal_tta_tpu_torch.registry import get_model
+
+    with torch.device("meta"), mock.patch.object(torch.nn.Module, "to", lambda self, *a, **k: self):
+        return get_model(name).from_config(ConfigNode(cfg), device="cpu", seed=None)
 
 
 def flat_flax(tree) -> dict:
@@ -233,16 +246,40 @@ class JaxDraws:
         return d
 
 
-def jax_state(params, num_classes: int = 1, module=None):
-    """A JAX ``TrainState`` of ``module`` (default: the dryrun UNet3D)."""
+def jax_state(params, num_classes: int = 1, module=None, batch_stats=None, apply_fn=None):
+    """A JAX ``TrainState`` of ``module`` (default: the dryrun UNet3D), with
+    ``batch_stats`` for a BatchNorm model; ``apply_fn`` replaces
+    ``module.apply`` (``classifier_logits_apply``)."""
     import optax
 
     from multimodal_tta_tpu.core.train_state import TrainState
     from multimodal_tta_tpu.models.unet3d import UNet3D as JaxUNet3D
 
     jm = module if module is not None else JaxUNet3D(**dict(DRYRUN, num_classes=num_classes))
-    return TrainState.create(apply_fn=jm.apply, params=jax.tree_util.tree_map(jnp.asarray, params),
-                             tx=optax.identity())
+    bs = None if batch_stats is None else jax.tree_util.tree_map(jnp.asarray, batch_stats)
+    return TrainState.create(apply_fn=apply_fn or jm.apply, params=jax.tree_util.tree_map(jnp.asarray, params),
+                             tx=optax.identity(), batch_stats=bs)
+
+
+def bn_unet_variables(seed: int = 0, num_classes: int = 1, cfg=None, shape=None):
+    """``random_flax_params`` and running statistics (mean near 0, var in
+    [0.5, 2]) of a UNet3D with norm BATCH (default: the SMALL one on
+    ``SMALL_SHAPE``), as nested numpy. Training-mode BatchNorm over few
+    values per channel is ill-conditioned in f32 (a dryrun UNet3D's 1x1x1
+    bottleneck at batch 2 takes its variance from 2 values, and both
+    packages then sit up to 2e-4 off an f64 run), so the parity tests keep
+    at least 64 values per channel."""
+    from multimodal_tta_tpu.models.unet3d import UNet3D as JaxUNet3D
+
+    cfg = dict(SMALL if cfg is None else cfg, num_classes=num_classes)
+    x_shape = (1,) + tuple(SMALL_SHAPE if shape is None else shape)
+    jm = JaxUNet3D(**cfg, norm="BATCH")
+    shapes = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), jnp.zeros(x_shape), train=True))
+    rng = np.random.RandomState(seed + 50)
+    stats = jax.tree_util.tree_map_with_path(
+        lambda path, a: (0.3 * rng.randn(*a.shape) if str(getattr(path[-1], "key", "")) == "mean"
+                         else rng.uniform(0.5, 2.0, a.shape)).astype(np.float32), shapes["batch_stats"])
+    return {"params": random_flax_params(jm, x_shape, seed), "batch_stats": stats}
 
 
 def run_jax_adapter(cls, params, cfg_dict, batches, n_valid, mode, threshold=0.3, floors=None,
@@ -314,6 +351,21 @@ def assert_adapted_close(t_adapted, j_adapted, source, names, rel=1e-3):
     for n in t_adapted:
         if n not in names:
             assert torch.equal(t_adapted[n], source[n]), n
+
+
+def assert_stats_close(got: dict, want: dict, rel: float = 1e-5) -> int:
+    """Every running statistic (``.mean`` / ``.var`` buffer) of ``want``
+    within ``rel`` of the tensor's largest magnitude in ``got``; returns how
+    many were compared. (flax takes the variance as E[x^2] - E[x]^2, so its
+    error scales with E[x^2], not with the variance: an elementwise bound on
+    a near-zero entry would hold the two packages to their summation
+    order.)"""
+    keys = [k for k in want if k.rpartition(".")[2] in ("mean", "var")]
+    for k in keys:
+        w, g = want[k].double(), got[k].double()
+        err = float((g - w).abs().max())
+        assert err <= rel * float(w.abs().max()) + 1e-12, (k, err, float(w.abs().max()))
+    return len(keys)
 
 
 def assert_preds_close(t_preds, j_preds, agree=0.999):

@@ -208,8 +208,16 @@ def test_manager_defaults_to_cuda_and_raises_what_is_not_ported(tmp_path):
         m.setup_data("train")
     with pytest.raises(ValueError, match="Model must be setup"):
         m.setup_optimizer()
-    for patch in ({"model": dict(cfg["model"], pretrained=True)},
-                  {"training": dict(cfg["training"], profile={"enabled": True})},
+    # model.pretrained is ported (it raised naming the ROADMAP before the
+    # BatchNorm slice): without a source it is a ValueError, as in the
+    # reference, and the unet family has no torchvision porter
+    with pytest.raises(ValueError, match="pretrained_source is not set"):
+        ExperimentManager(ConfigNode(dict(cfg, model=dict(cfg["model"], pretrained=True))), device="cpu").setup_model()
+    torch.save({"conv1.weight": torch.zeros(1, 1, 1, 1)}, tmp_path / "sd.pt")
+    with pytest.raises(NotImplementedError, match="no torchvision porter exists for model family 'unet'"):
+        ExperimentManager(ConfigNode(dict(cfg, model=dict(cfg["model"], pretrained=True, pretrained_source=str(
+            tmp_path / "sd.pt")))), device="cpu").setup_model()
+    for patch in ({"training": dict(cfg["training"], profile={"enabled": True})},
                   {"training": dict(cfg["training"], checkpoint_format="orbax")},
                   {"training": dict(cfg["training"], debug_nans=True)}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):

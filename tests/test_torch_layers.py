@@ -10,6 +10,7 @@ import torch
 
 from multimodal_tta_tpu.models import layers as jl
 from multimodal_tta_tpu_torch.models import layers as tl
+from multimodal_tta_tpu_torch.models.convert import variables_from_flax
 from tests._torch_port import load_flax, np_params, randomize, to_ncdhw, to_ndhwc
 
 torch.set_num_threads(1)
@@ -82,12 +83,31 @@ def test_get_act(name):
 
 
 def test_unported_norms_raise():
-    """BATCH waits for the BatchNorm backbones; GROUP, LAYER and NONE are
-    ported (tests/test_torch_seg_models.py::test_norm_kinds)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, item 11"):
-        tl.Norm("BATCH", 4)
+    """An unknown norm raises. BATCH is ported (it raised before the
+    BatchNorm slice): flax's ``Norm("BATCH")`` in training mode (batch
+    statistics, running statistics moved once) and in inference mode
+    (running statistics), within ATOL; GROUP, LAYER and NONE are in
+    tests/test_torch_seg_models.py::test_norm_kinds."""
     with pytest.raises(ValueError, match="Unknown norm"):
         tl.Norm("SPECTRAL", 4)
+    x = _x((2, 4, 6, 5, 4), seed=11) * 2.0 + 1.0
+    jm = jl.Norm("BATCH")
+    v = jm.init(jax.random.PRNGKey(0), jnp.asarray(x), train=True)
+    v = {"params": randomize(jax.tree_util.tree_map(np.asarray, v["params"]), 5),
+         "batch_stats": {"norm": {"mean": np.full(4, 0.5, np.float32), "var": np.full(4, 2.0, np.float32)}}}
+    tm = tl.Norm("BATCH", 4)
+    tm.load_state_dict(variables_from_flax(v), strict=True)
+    for train in (False, True):  # inference first: training moves the port's statistics in place
+        out = jm.apply(v, jnp.asarray(x), train=train, mutable=["batch_stats"] if train else False)
+        want = np.asarray(out[0] if train else out)
+        tm.train(train)
+        with torch.no_grad():
+            got = to_ndhwc(tm(to_ncdhw(x)))
+        np.testing.assert_allclose(got, want, atol=ATOL)
+        if train:
+            for k in ("mean", "var"):
+                np.testing.assert_allclose(getattr(tm.norm, k).numpy(), np.asarray(out[1]["batch_stats"]["norm"][k]),
+                                           rtol=1e-5)
 
 
 def test_bf16_block_casts_like_flax():

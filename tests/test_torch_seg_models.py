@@ -229,8 +229,12 @@ def test_norm_kinds(kind, c):
 
 
 def test_stale_messages_name_the_roadmap_item_and_the_reference():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tl.Norm("BATCH", 4)
+    # BATCH is ported (it raised naming item 11 before the BatchNorm slice):
+    # the norm is the reference's BatchNorm, with running statistics
+    bn = tl.Norm("BATCH", 4).norm
+    assert isinstance(bn, tl.BatchNorm) and bn.epsilon == 1e-5 and bn.momentum == 0.9
+    assert sorted(n for n, _ in bn.named_parameters()) == ["bias", "scale"]
+    assert sorted(n for n, _ in bn.named_buffers()) == ["mean", "var"]
     m = UNet3D(in_channels=2, num_classes=1, dropout=0.1, device="cpu", **SMALL)
     with pytest.raises(NotImplementedError, match="reference cannot train with dropout"):
         m.train()

@@ -29,7 +29,7 @@ from multimodal_tta_tpu.tta.norm_adapt import NormAdapter as JaxNorm
 from multimodal_tta_tpu.tta.pl import PseudoLabelAdapter as JaxPL
 from multimodal_tta_tpu.tta.sar import SarAdapter as JaxSar
 from multimodal_tta_tpu_torch.conf import ConfigNode
-from multimodal_tta_tpu_torch.models.convert import flax_path, unet3d_from_flax
+from multimodal_tta_tpu_torch.models.convert import flax_path, unet3d_from_flax, variables_from_flax
 from multimodal_tta_tpu_torch.models.unet3d import UNet3D
 from multimodal_tta_tpu_torch.registry import get_tta_method
 from multimodal_tta_tpu_torch.tta import (
@@ -47,9 +47,14 @@ from multimodal_tta_tpu_torch.tta.tent import norm_param_mask
 from tests._torch_port import (
     DEVICE_TRANSFORM,
     DRYRUN,
+    SMALL,
+    SMALL_SHAPE,
     assert_adapted_close,
     assert_preds_close,
+    assert_stats_close,
+    bn_unet_variables,
     dryrun_params,
+    jax_state,
     load_flax,
     run_jax_adapter,
     run_torch_adapter,
@@ -120,13 +125,39 @@ def test_norm_is_the_identity_without_batch_statistics(monkeypatch):
     assert len(warned) == 2 and all("no batch statistics" in w for w in warned)
     assert all(torch.equal(v, before[k]) for k, v in model.state_dict().items())
     jcfg = JaxConfigNode(tta_config("norm"))
-    from tests._torch_port import jax_state
-
     state = jax_state(params)
     assert JaxNorm(jcfg.tta, config=jcfg).make_adapt_fn(state)(state, None, 2) is state
     bn = torch.nn.Sequential(torch.nn.BatchNorm3d(2))
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="torch's BatchNorm"):
         NormAdapter(cfg.tta, device="cpu").make_adapt_fn(bn)
+    # a model with the port's BatchNorm (it raised before the BatchNorm
+    # slice): the statistic recompute against the reference's over two
+    # batches, episodic and continual, running statistics within 1e-5 of
+    # each tensor's largest value; restore() puts the source statistics back
+    v = bn_unet_variables(4)
+    from multimodal_tta_tpu.models.unet3d import UNet3D as JaxUNet3D
+
+    jm = JaxUNet3D(**SMALL, norm="BATCH")
+    for episodic in (True, False):
+        jcfg, cfg = JaxConfigNode(tta_config("norm", episodic=episodic)), ConfigNode(tta_config("norm", episodic=episodic))
+        state = jax_state(v["params"], module=jm, batch_stats=v["batch_stats"])
+        jfn = JaxNorm(jcfg.tta, config=jcfg, device_transform=DEVICE_TRANSFORM).make_adapt_fn(state)
+        model = UNet3D(**SMALL, norm="BATCH", device="cpu")
+        model.load_state_dict(variables_from_flax(v), strict=True)
+        source = {k: t.clone() for k, t in model.state_dict().items()}
+        ad = NormAdapter(cfg.tta, config=cfg, device_transform=DEVICE_TRANSFORM, device="cpu")
+        fn = ad.make_adapt_fn(model)
+        cur = state
+        for x in volumes(2, seed=5, shape=(2,) + SMALL_SHAPE):
+            cur = jfn(cur, jax.numpy.asarray(x), 2)
+            assert fn(model, torch.from_numpy(x), 2) is model
+            want = variables_from_flax({"params": v["params"], "batch_stats": cur.batch_stats})
+            got = model.state_dict()
+            assert assert_stats_close(got, want) == 20
+            for k, t in got.items():
+                assert torch.equal(t, source[k]) != k.endswith((".mean", ".var")), k
+        ad.restore()
+        assert all(torch.equal(t, source[k]) for k, t in model.state_dict().items())
 
 
 # ---- sar -------------------------------------------------------------------

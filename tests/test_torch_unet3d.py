@@ -10,11 +10,12 @@ import torch
 
 from multimodal_tta_tpu.models.unet3d import UNet3D as JaxUNet3D
 from multimodal_tta_tpu_torch.conf import ConfigNode
-from multimodal_tta_tpu_torch.models.convert import unet3d_from_flax
+from multimodal_tta_tpu_torch.models.convert import unet3d_from_flax, variables_from_flax
 from multimodal_tta_tpu_torch.models.unet3d import UNet3D
 from multimodal_tta_tpu_torch.registry import get_model
 from multimodal_tta_tpu_torch.tta.tent import norm_param_mask
-from tests._torch_port import DRYRUN, load_flax, np_params, randomize
+from tests._torch_port import (DRYRUN, SMALL, SMALL_SHAPE, assert_stats_close, bn_unet_variables, load_flax,
+                               np_params, randomize)
 
 torch.set_num_threads(1)
 
@@ -92,7 +93,25 @@ def test_from_config_and_registry():
 def test_unported_options_raise(kw):
     """Each raises at construction, except dropout: the identity outside
     training, it raises in a training forward (the reference cannot train
-    with it either). remat is ported (tests/test_torch_seg_models.py)."""
+    with it either). remat is ported (tests/test_torch_seg_models.py).
+    norm BATCH is ported too (it raised before the BatchNorm slice): its
+    training forward matches flax's ``train=True`` apply, logits within
+    1e-5 relative L2 and the running statistics within 1e-5 of each
+    tensor's largest value."""
+    if kw == {"norm": "BATCH"}:  # on the SMALL UNet3D (tests/_torch_port.py:bn_unet_variables says why)
+        x = np.random.RandomState(2).randn(2, *SMALL_SHAPE).astype(np.float32)
+        v = bn_unet_variables(3)
+        want, upd = JaxUNet3D(**SMALL, **kw).apply(v, jnp.asarray(x), train=True, mutable=["batch_stats"])
+        m = UNet3D(**SMALL, **kw, device="cpu")
+        m.load_state_dict(variables_from_flax(v), strict=True)
+        m.train()
+        with torch.no_grad():
+            got = m(torch.from_numpy(x)).numpy()
+        want = np.asarray(want)
+        assert np.linalg.norm(got - want) <= 1e-5 * np.linalg.norm(want)
+        stats = variables_from_flax({"params": v["params"], "batch_stats": upd["batch_stats"]})
+        assert assert_stats_close(m.state_dict(), stats) == 20
+        return
     with pytest.raises(NotImplementedError):
         m = UNet3D(**{**DRYRUN, **kw}, device="cpu")
         m.train()
