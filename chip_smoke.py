@@ -177,6 +177,25 @@ Phases, in order (any failure propagates and exits non-zero):
                torchvision-named file and run at batch 16, and ResNet-50's
                f32 logits, affine deltas and statistics after a Tent step
                against the port on the CPU.
+ 19. serving — the serving artifact (``serving/export.py``,
+               ``serving_artifact_phase``) on the flagship at full width (bf16,
+               random weights from a seed, batches of [2,48,144,144,2],
+               threshold 0.3): Tent's continual-inline and episodic-post steps
+               (the stock tent.yaml) exported with ``torch.export`` on the
+               card, saved, loaded and run over 8 and 6 batches against the
+               live ``make_adapt_predict_fn`` on the same weights, batches and
+               draws (predictions on 99.9% of voxels, entropies, the adapted
+               norm tensors, the frozen params bitwise), the norm operator
+               calls the program holds and each call's launches exactly (18 +
+               18 and 36 + 18, no plain backward), ms per step of both, and
+               one more call of each under the profiler (device time, the
+               host calls that take the most host time); SAR,
+               CoTTA and MEMO one batch each; the forward artifact against
+               ``_probs_fn`` (18 launches); ``cli.export_serving`` from phase
+               14's checkpoint and ``cli.serve_artifact`` on 3 of its fixture's
+               cases (every row ok, uint8 masks in the source grid, 18 + 18
+               launches a batch); export seconds and bytes of each artifact
+               (SAR's, CoTTA's and MEMO's programs run from memory).
 
 Phase 2 also holds the norm kernels against their plain versions at the nine
 norm shapes of the batch-8 training step (the largest, [8,48,144,144,32], in
@@ -2230,6 +2249,343 @@ def classifier_phase(device, root: str, *, side: int = CLS_SIDE, batch: int = CL
     return out
 
 
+# ---- phase 19: the serving artifact -----------------------------------------
+# the two Tent artifacts of the serving step (the stock tent.yaml), the
+# overrides that make each, and how many batches each serves against the
+# live step on the same weights and batches
+SERVING_ARTIFACT_RUNS = (("continual_inline", ["tta=tent", "tta.episodic=false", "tta.predict=inline"], 8),
+                         ("episodic_post", ["tta=tent", "tta.episodic=true", "tta.predict=post"], 6))
+# the other methods' pure steps, one batch each against their live step
+# (SAR with every sample reliable: random weights are too uncertain for its
+# stock gate, which would leave nothing to compare)
+SERVING_ARTIFACT_METHODS = (("sar", ["tta=sar", "tta.steps=1", "tta.margin_ratio=1.0"]),
+                            ("cotta", ["tta=cotta", "tta.steps=1", "tta.n_views=2"]),
+                            ("memo", ["tta=memo", "tta.steps=1", "tta.n_views=2"]))
+ARTIFACT_PRED_AGREE = 0.999  # voxels of the artifact's predictions equal to the live step's
+ARTIFACT_ENT_ABS = 1e-5  # |entropy| of a step: the artifact against the live step
+ARTIFACT_DELTA_REL = 1e-3  # adapted norm tensors' deltas from source, relative L2
+ARTIFACT_PROBS_ABS = 1e-5  # the forward artifact's probabilities against _probs_fn
+# cases served through cli.serve_artifact: a full batch and a padded tail (each mask
+# of random weights is noise, which nifti.save's gzip level 9 takes ~4 s to write)
+SERVE_CASES = 3
+
+
+def artifact_launches(adapter, mode: str, per_forward: int = 18) -> dict:
+    """Norm forward and backward launches of one call of an adapter's
+    artifact, from the step's structure (every step runs its forward and its
+    backward: an early-stop freeze is a merge): per step one of each (two
+    with ``+consistency``), SAR two of each, CoTTA ``n_views`` teacher
+    forwards and the student's forward and backward, MEMO ``n_views``
+    marginal forwards and one forward and backward per view; ``post`` adds
+    the served forward, or the ensemble's ``n_views``."""
+    f, k, method = per_forward, adapter.steps, adapter.method
+    if method == "sar":
+        fwd, bwd = 2 * f * k, 2 * f * k
+    elif method == "cotta":
+        fwd, bwd = (adapter.n_views + 1) * f * k, f * k
+    elif method == "memo":
+        fwd, bwd = 2 * adapter.n_views * f * k, adapter.n_views * f * k
+    else:
+        per = 2 if adapter.loss_mode.endswith("+consistency") else 1
+        fwd, bwd = per * f * k, per * f * k
+    if mode == "post":
+        fwd += f * (adapter.n_views if adapter.serving_post(mode) else 1)
+    return {"forward": fwd, "backward": bwd}
+
+
+def program_norm_calls(art) -> dict:
+    """The norm operator calls that an artifact's program holds."""
+    import torch
+
+    ops = {torch.ops.mtta.fused_instance_norm_forward.default: "forward",
+           torch.ops.mtta.fused_instance_norm_backward.default: "backward"}
+    out = {"forward": 0, "backward": 0}
+    for node in art._graph.graph.nodes:
+        if node.op == "call_function" and node.target in ops:
+            out[ops[node.target]] += 1
+    return out
+
+
+def serving_artifact_phase(device, root: str, *, manifest=None, best=None, shape=SHAPE[:3], batch: int = BATCH,
+                           model_kw=None, runs=SERVING_ARTIFACT_RUNS, methods=SERVING_ARTIFACT_METHODS,
+                           cli_extra=(), per_forward: int = 18, reset_counts=lambda: None,
+                           read_counts=lambda: {}) -> dict:
+    """Phase 19: the serving artifact (``serving/export.py``) on the device.
+    The flagship (or ``model_kw``) with random weights from a seed: Tent's
+    continual-inline and episodic-post steps exported, saved, loaded and run
+    against the live ``make_adapt_predict_fn`` on the same weights, batches
+    and draws (predictions, entropies, the adapted norm tensors, ms per
+    step, the norm operator calls in the program and the launches of each
+    call); the forward artifact against ``_probs_fn``; SAR, CoTTA and MEMO one
+    batch each; then, given phase 14's fixture and checkpoint,
+    ``cli.export_serving`` and ``cli.serve_artifact`` (every row ok, uint8
+    masks in the source grid). Raises on any check that holds on every
+    device; the caller holds the launch counts (``read_counts``, zeroed by
+    ``reset_counts`` before each call) against ``want``."""
+    import csv
+    import gc
+    import shutil
+    import statistics
+    import threading
+
+    import numpy as np
+    import torch
+
+    import multimodal_tta_tpu_torch.tta  # noqa: F401  (registers the methods)
+    from multimodal_tta_tpu_torch.cli import CONFIG_DIR, export_serving, serve_artifact
+    from multimodal_tta_tpu_torch.conf import compose
+    from multimodal_tta_tpu_torch.data import nifti
+    from multimodal_tta_tpu_torch.evaluation.seg_eval import SegmentationEvaluationStrategy
+    from multimodal_tta_tpu_torch.models.unet3d import UNet3D
+    from multimodal_tta_tpu_torch.ops.augment import group_draws
+    from multimodal_tta_tpu_torch.registry import get_tta_method
+    from multimodal_tta_tpu_torch.serving import (
+        ServingArtifact,
+        export_adapt_serving,
+        export_forward_serving,
+        load_artifact,
+        save_artifact,
+    )
+
+    dev = torch.device(device)
+    kw = dict(model_kw or {"channels": (32, 64, 128, 256, 512), "strides": (2, 2, 2, 2), "num_res_units": 2,
+                           "dtype": torch.bfloat16})
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def new_model():
+        return UNet3D(in_channels=2, num_classes=1, **kw, device=dev, seed=11)
+
+    def median(xs):
+        return statistics.median(xs[1:] if len(xs) > 1 else xs)
+
+    def timed(fn) -> float:
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        return (time.perf_counter() - t0) * 1e3
+
+    def profiled(fn) -> tuple:
+        """One call of ``fn`` under ``torch.profiler`` (its summed kernel time,
+        ms, and the host calls that took the most host time: ms, calls), and
+        one under ``cProfile`` (the Python functions that took the most time
+        of their own: ms, calls)."""
+        import cProfile
+        import pstats
+
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            sync()
+        events = prof.key_averages()
+        device = sum(e.self_device_time_total for e in events
+                     if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        host = sorted(((e.key, round(e.self_cpu_time_total / 1e3, 3), e.count) for e in events),
+                      key=lambda r: -r[1])[:6]
+        py = cProfile.Profile()
+        py.enable()
+        fn()
+        sync()
+        py.disable()
+        stats = pstats.Stats(py).stats
+        python = sorted(((f"{os.path.basename(k[0])}:{k[1]}:{k[2]}", round(v[2] * 1e3, 3), v[1])
+                         for k, v in stats.items()), key=lambda r: -r[1])[:8]
+        return device, host, python
+
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    n_batches = max(n for *_, n in runs)
+    vols = hecktor_volumes(n_batches * batch, seed=19, shape=tuple(shape))
+    images = [torch.from_numpy(np.stack([v["image"] for v in vols[i * batch:(i + 1) * batch]]))
+              for i in range(n_batches)]
+    image_shape = (batch, *shape, 2)
+    out = {"device": str(dev), "image": list(image_shape), "runs": {}}
+
+    def export(tag, overrides, to_file: bool):
+        """One method's artifact: through its file (Tent's two), or the
+        exported program as it is (the other methods, to keep the phase short)."""
+        cfg = compose(CONFIG_DIR, "config", tta_overrides(*overrides))
+        cls = get_tta_method(str(cfg.tta.method))
+        mode = str(cfg.tta.predict).lower()
+        ad = cls(cfg.tta, config=cfg, device_transform=DEVICE_TRANSFORM, device=dev)
+        t0 = time.perf_counter()
+        program, meta, state0 = export_adapt_serving(ad, new_model(), image_shape, threshold=THRESHOLD,
+                                                     predict_mode=mode, device=dev)
+        sync()
+        rec = {"mode": mode, "episodic": meta["episodic"], "steps": meta["steps"],
+               "export_s": time.perf_counter() - t0, "n_state": len(state0),
+               "want": artifact_launches(ad, mode, per_forward)}
+        if to_file:
+            path = os.path.join(root, f"{tag}.mttap")
+            t0 = time.perf_counter()
+            save_artifact(path, program, meta, state0)
+            rec["save_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            art = load_artifact(path, device=dev)
+            rec["load_s"] = time.perf_counter() - t0
+            rec["bytes"] = os.path.getsize(path)
+            state0 = art.initial_state()
+        else:
+            art = ServingArtifact(program, meta, b"", dev)
+        rec["program_norm_calls"] = program_norm_calls(art)
+        live = cls(cfg.tta, config=cfg, device_transform=DEVICE_TRANSFORM, device=dev)
+        return ad, art, meta, state0, live, rec
+
+    def serve(ad, art, meta, state0, live, rec, n):
+        live_model = new_model()
+        fn = live.make_adapt_predict_fn(live_model, THRESHOLD, rec["mode"])
+        gen = torch.Generator(device=dev).manual_seed(5)
+        state = state0
+        art_ms, live_ms, launches, live_launches, agree, ent_err, ents = [], [], [], [], [], [], []
+        for i in range(n):
+            x = images[i].to(dev)
+            draws = art.draws(gen, batch)
+            live.batch_draws = lambda *a, _d=draws, **k: group_draws(meta["draws"], _d)
+            sync()
+            reset_counts()
+            t0 = time.perf_counter()
+            res = art.call(*(state0 if meta["episodic"] else state), x, *draws, batch, float("nan"))
+            sync()
+            art_ms.append((time.perf_counter() - t0) * 1e3)
+            launches.append(read_counts())
+            state = list(res[:art.n_state])
+            reset_counts()
+            t0 = time.perf_counter()
+            _, live_pred = fn(live_model, x, batch)
+            sync()
+            live_ms.append((time.perf_counter() - t0) * 1e3)
+            live_launches.append(read_counts())
+            agree.append(1.0 - int((res[art.n_state + 1] != live_pred).sum()) / live_pred.numel())
+            ent_err.append(float((res[art.n_state] - live._last_ents).abs().max()))
+            ents.append([float(e) for e in res[art.n_state]])
+        names = [a["name"] for a in meta["args"][:art.n_state]]
+        got = dict(zip(names, state))
+        want = dict(live_model.named_parameters())
+        src = dict(zip(ad._names, ad._source))
+        d_art = torch.cat([(got[f"param:{k}"] - s).flatten() for k, s in src.items()])
+        d_live = torch.cat([(want[k].detach() - s).flatten() for k, s in src.items()])
+        frozen_equal = all(torch.equal(got[f"param:{k}"], p.detach()) for k, p in want.items() if k not in src)
+        rec.update({"batches": n, "art_ms": art_ms, "live_ms": live_ms, "art_median_ms": median(art_ms),
+                    "live_median_ms": median(live_ms), "launches": launches, "live_launches": live_launches,
+                    "pred_agree": agree, "ent_abs_err": ent_err, "entropy": ents,
+                    "delta_rel_l2": float((d_art - d_live).norm() / d_live.norm().clamp_min(1e-30)),
+                    "delta_norm": float(d_live.norm()), "frozen_equal": frozen_equal})
+        if dev.type == "cuda":
+            # one more call of each under the profiler, after the comparison
+            # (the live step adapts its model again): the device time of a step
+            rec["art_device_ms"], rec["art_host_top"], rec["art_python_top"] = profiled(
+                lambda: art.call(*(state0 if meta["episodic"] else state), x, *draws, batch, float("nan")))
+            rec["live_device_ms"], rec["live_host_top"], rec["live_python_top"] = profiled(
+                lambda: fn(live_model, x, batch))
+            # the artifact's ms per call with Python's cyclic collector on and off:
+            # a long-lived process holds many tracked objects for it to walk
+            rec["gc_tracked_objects"] = len(gc.get_objects())
+            # other Python threads of the process contend for the interpreter lock that each
+            # replayed operator call takes
+            rec["threads"] = sorted(t.name for t in threading.enumerate())
+            for tag in ("art_ms_gc_on", "art_ms_gc_off"):
+                if tag == "art_ms_gc_off":
+                    gc.disable()
+                try:
+                    rec[tag] = [timed(lambda: art.call(*(state0 if meta["episodic"] else state), x, *draws,
+                                                       batch, float("nan"))) for _ in range(3)]
+                finally:
+                    gc.enable()
+        bad = (min(agree) < ARTIFACT_PRED_AGREE or max(ent_err) > ARTIFACT_ENT_ABS
+               or not rec["delta_rel_l2"] <= ARTIFACT_DELTA_REL or not rec["delta_norm"] > 0 or not frozen_equal
+               or rec["program_norm_calls"] != rec["want"])
+        if bad:
+            raise AssertionError(f"artifact vs live step: {rec}")
+        return rec
+
+    for tag, overrides, n in runs:
+        out["runs"][tag] = serve(*export(tag, overrides, True), n)
+    for tag, overrides in methods:
+        out["runs"][tag] = serve(*export(tag, overrides, False), 1)
+
+    # the forward artifact against the evaluation forward
+    cfg = compose(CONFIG_DIR, "config", tta_overrides("tta=tent"))
+    strat = SegmentationEvaluationStrategy(cfg)
+    model = new_model()
+
+    def probs(image):
+        return strat._probs_fn(model)(image)[1]
+
+    path = os.path.join(root, "forward.mttap")
+    t0 = time.perf_counter()
+    program, meta = export_forward_serving(probs, image_shape, device=dev)
+    save_artifact(path, program, meta)
+    export_s = time.perf_counter() - t0
+    art = load_artifact(path, device=dev)
+    x = images[0].to(dev)
+    fwd_ms, launches = [], []
+    for _ in range(3):
+        sync()
+        reset_counts()
+        t0 = time.perf_counter()
+        p_art = art.call(x)
+        sync()
+        fwd_ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append(read_counts())
+    with torch.no_grad():
+        live_ms = []
+        for _ in range(3):
+            sync()
+            t0 = time.perf_counter()
+            p_live = probs(x)
+            sync()
+            live_ms.append((time.perf_counter() - t0) * 1e3)
+    err = float((p_art - p_live).abs().max())
+    out["forward"] = {"export_s": export_s, "bytes": os.path.getsize(path), "max_abs_err": err,
+                      "art_ms": fwd_ms, "live_ms": live_ms, "launches": launches,
+                      "program_norm_calls": program_norm_calls(art), "want": {"forward": per_forward, "backward": 0}}
+    if err > ARTIFACT_PROBS_ABS or out["forward"]["program_norm_calls"] != out["forward"]["want"]:
+        raise AssertionError(f"forward artifact: {out['forward']}")
+    del model, art
+
+    if manifest is not None:
+        art_path = os.path.join(root, "cli_tent.mttap")
+        overrides = cli_overrides(manifest, os.path.join(root, "export_run"), "tta=tent", "tta.episodic=false",
+                                  "tta.predict=inline", f"training.resume={best}", f"+export.batch_size={batch}",
+                                  f"+export.path={art_path}", *cli_extra)
+        reset_counts()
+        t0 = time.perf_counter()
+        export_serving.main(overrides, device=dev)
+        sync()
+        out["export_cli"] = {"wall_s": time.perf_counter() - t0, "bytes": os.path.getsize(art_path),
+                             "launches": read_counts()}
+        served = os.path.join(root, "served")
+        reset_counts()
+        t0 = time.perf_counter()
+        rows = serve_artifact.main(["--artifact", art_path, "--manifest", manifest, "--channels", "ct_proc",
+                                    "pt_proc", "--out", served, "--limit", str(SERVE_CASES),
+                                    "--dispatch-deadline", "300"], device=dev)
+        sync()
+        wall = time.perf_counter() - t0
+        with open(manifest, newline="", encoding="utf-8") as f:
+            sources = {r["patient_id"]: r for r in csv.DictReader(f)}
+        masks_ok = []
+        for r in rows:
+            img = nifti.load(os.path.join(served, r["files"]))
+            src_affine, src_xyz = nifti.peek_canonical_geometry(sources[r["case_id"]]["ct_proc"])
+            masks_ok.append(img.dataobj.dtype == np.uint8 and tuple(img.shape) == tuple(src_xyz)
+                            and bool(np.allclose(img.affine, src_affine)))
+        with open(os.path.join(served, "predictions.csv"), newline="", encoding="utf-8") as f:
+            written = list(csv.DictReader(f))
+        out["serve_cli"] = {"wall_s": wall, "cases": len(rows), "launches": read_counts(),
+                            "statuses": [r["status"] for r in rows], "masks_in_source_grid": masks_ok,
+                            "manifest_rows": len(written), "entropy_final": [r["entropy_final"] for r in rows]}
+        if (len(rows) != SERVE_CASES or any(r["status"] != "ok" for r in rows) or not all(masks_ok)
+                or len(written) != SERVE_CASES):
+            raise AssertionError(f"cli.serve_artifact: {out['serve_cli']}")
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -3926,7 +4282,6 @@ def main() -> int:
         f"{flag['serving']['launches']}; card {smi}")
     bcli18 = batchnorm_cli(dev, cli["manifest"], os.path.join(bn_root, "cli"), reset_counts=reset_counts,
                            read_counts=read_counts)
-    shutil.rmtree(cli_root, ignore_errors=True)  # phase 14's fixture: phases 15, 17 and 18 ran on it
     for call, r in bcli18.items():
         add_bn(r["launches"])
         log(f"[batchnorm] cli.{call.split('_')[0]}{' tta=' + call.split('_', 1)[1] if '_' in call else ''}: "
@@ -3952,6 +4307,54 @@ def main() -> int:
     batchnorm = {"flagship": flag, "cli": bcli18, "classifiers": cls18, "launches": bn_launches,
                  "phase_s": time.perf_counter() - t_bn, "card": smi}
     log(f"[batchnorm] phase 18 took {batchnorm['phase_s']:.1f} s; launches {bn_launches}; card {smi}")
+
+    # ---- 19. the serving artifact -----------------------------------------
+    t_srv = time.perf_counter()
+    torch.cuda.empty_cache()
+    srv = serving_artifact_phase(dev, os.path.join(REPO, "build", "chip_smoke_serving"), manifest=cli["manifest"],
+                                 best=cli["best"], reset_counts=reset_counts, read_counts=read_counts)
+    shutil.rmtree(cli_root, ignore_errors=True)  # phase 14's fixture: phases 15, 17, 18 and 19 ran on it
+    art_launches = {"forward": 0, "backward": 0}
+
+    def add_art(got: dict, want: dict, what: str) -> None:
+        if got != {**want, "minplus": 0, "plain_backward": 0}:
+            raise AssertionError(f"{what}: launches {got}, derived {want}")
+        for k in art_launches:
+            art_launches[k] += got[k]
+
+    for tag, r in srv["runs"].items():
+        for got in r["launches"]:
+            add_art(got, r["want"], f"artifact {tag}")
+        filed = (f", save {r['save_s']:.2f} s, load {r['load_s']:.2f} s, {r['bytes']} bytes" if "bytes" in r
+                 else " (the program in memory)")
+        log(f"[serving] {tag} artifact ({r['mode']}, {'episodic' if r['episodic'] else 'continual'}, {r['steps']} "
+            f"step): export {r['export_s']:.2f} s{filed}, {r['n_state']} state leaves, norm calls in the program "
+            f"{r['program_norm_calls']}; {r['batches']} batches: ms per step artifact "
+            f"{[round(t, 2) for t in r['art_ms']]} (median of the warm {r['art_median_ms']:.2f}) vs live "
+            f"{[round(t, 2) for t in r['live_ms']]} (median {r['live_median_ms']:.2f}); one more call profiled: "
+            f"device ms {r['art_device_ms']:.2f} vs {r['live_device_ms']:.2f}, most host time {r['art_host_top']} "
+            f"vs {r['live_host_top']}, Python functions by own time {r['art_python_top']} vs "
+            f"{r['live_python_top']}; the artifact with the cyclic collector on / off "
+            f"{[round(t, 2) for t in r['art_ms_gc_on']]} / {[round(t, 2) for t in r['art_ms_gc_off']]} ms "
+            f"({r['gc_tracked_objects']} tracked objects), threads {r['threads']}; launches per call "
+            f"{r['launches'][0]} (live {r['live_launches'][0]}); predictions agree {min(r['pred_agree'])}, "
+            f"entropy abs err {max(r['ent_abs_err'])}, adapted deltas rel L2 {r['delta_rel_l2']} (norm "
+            f"{r['delta_norm']:.3e}), frozen params equal {r['frozen_equal']}; card {smi}")
+    fa = srv["forward"]
+    for got in fa["launches"]:
+        add_art(got, fa["want"], "forward artifact")
+    log(f"[serving] forward artifact: export {fa['export_s']:.2f} s, {fa['bytes']} bytes, probabilities vs "
+        f"_probs_fn max abs {fa['max_abs_err']}, ms {[round(t, 2) for t in fa['art_ms']]} vs live "
+        f"{[round(t, 2) for t in fa['live_ms']]}, launches {fa['launches'][0]}; card {smi}")
+    ec, sc = srv["export_cli"], srv["serve_cli"]
+    n_served = -(-SERVE_CASES // BATCH)
+    add_art(sc["launches"], {"forward": 18 * n_served, "backward": 18 * n_served}, "cli.serve_artifact")
+    log(f"[serving] cli.export_serving {ec['wall_s']:.2f} s, {ec['bytes']} bytes, launches {ec['launches']}; "
+        f"cli.serve_artifact {sc['cases']} cases in {sc['wall_s']:.2f} s, statuses {sc['statuses']}, masks in the "
+        f"source grid {sc['masks_in_source_grid']}, entropy {sc['entropy_final']}, launches {sc['launches']}; "
+        f"card {smi}")
+    srv.update({"launches": art_launches, "phase_s": time.perf_counter() - t_srv, "card": smi})
+    log(f"[serving] phase 19 took {srv['phase_s']:.1f} s; launches through artifacts {art_launches}; card {smi}")
 
 
     def norm_summary(name: str, tot: dict, train_tot: dict, brats_tot: dict, n_launches: dict, err: float,
@@ -3983,13 +4386,14 @@ def main() -> int:
                            {**launches, **norm_eval_launches, "train": train_launches["forward"],
                             "cli": cli_launches["forward"], "tta": tta_launches["forward"],
                             "brats": brats_launches["forward"], "transformer": tr_launches["forward"],
-                            "batchnorm": bn_launches["forward"]},
+                            "batchnorm": bn_launches["forward"], "serving_artifact": art_launches["forward"]},
                            max_abs_err, {}, "forward")
     backward_summary = norm_summary(
         "fused_instance_norm_backward", btotals, norm_totals[TRAIN_BATCH][1], brats_norm[1],
         {**backward_launches, "train": train_launches["backward"], "cli": cli_launches["backward"],
          "tta": tta_launches["backward"], "brats": brats_launches["backward"],
-         "transformer": tr_launches["backward"], "batchnorm": bn_launches["backward"]}, backward_err,
+         "transformer": tr_launches["backward"], "batchnorm": bn_launches["backward"],
+         "serving_artifact": art_launches["backward"]}, backward_err,
         {"note": "the gradient of the TPU kernel's function; dx computed in all 18 timed calls"}, "backward")
     minplus_summary = {
         "name": "minplus",
@@ -4021,7 +4425,7 @@ def main() -> int:
                     "eval_ms_per_batch": eval_ms, "eval_warm_ms_per_batch": eval_warm_ms,
                     "eval_batch_split_ms": split,
                     "eval_metrics": eval_runs, "training": training, "cli": cli, "tta": tta_log, "brats": brats,
-                    "transformers": transformers, "batchnorm": batchnorm}, default=str))
+                    "transformers": transformers, "batchnorm": batchnorm, "serving_artifact": srv}, default=str))
     log(json.dumps({"kernels": [summary, backward_summary, minplus_summary]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                             "count": torch.cuda.device_count()}}))

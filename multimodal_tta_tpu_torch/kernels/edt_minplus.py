@@ -16,7 +16,9 @@ carries HD95/ASD/NSD in evaluation. Two entry points share the inner loop of
 * ``minplus(f, cost)`` — the TPU kernel's function with an arbitrary finite
   cost matrix, one launch.
 
-A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
+Both entries are registered torch operators (``mtta::minplus``,
+``mtta::squared_edt_volumes``, with fake implementations and no gradient). A
+CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
 version (``squared_edt_volumes_plain``, ``minplus_plain``). There is no other
 route and no fallback from a failed build, a refused launch or a grid that is
 not co-resident. ``minplus.launches`` counts the kernel launches of both
@@ -35,7 +37,7 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
-from typing import Dict, Iterator, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -412,17 +414,56 @@ def _launch_volumes(points: torch.Tensor, spacing: Tuple[float, float, float], s
     return out
 
 
+# ---- the operators ----------------------------------------------------------
+# Both entries are registered torch operators (``mtta::minplus``,
+# ``mtta::squared_edt_volumes``), as the norm's are, so that the port's two
+# kernels bind one way: the CPU implementation is the plain version, the CUDA
+# one the kernel launch, and no other device has one. Neither has a gradient.
+
+
+@torch.library.custom_op("mtta::minplus", mutates_args=(), device_types="cpu")
+def _minplus_op(f: torch.Tensor, cost: torch.Tensor) -> torch.Tensor:
+    return minplus_plain(f, cost)
+
+
+@_minplus_op.register_kernel("cuda")
+def _minplus_cuda(f, cost):
+    return _launch_matrix(f, cost)
+
+
+@_minplus_op.register_fake
+def _minplus_fake(f, cost):
+    return torch.empty_like(f)
+
+
+@torch.library.custom_op("mtta::squared_edt_volumes", mutates_args=(), device_types="cpu")
+def _edt_op(points: torch.Tensor, spacing: List[float], sqrt: bool) -> torch.Tensor:
+    return squared_edt_volumes_plain(points, spacing, sqrt=sqrt)
+
+
+@_edt_op.register_kernel("cuda")
+def _edt_cuda(points, spacing, sqrt):
+    return _launch_volumes(points, tuple(spacing), sqrt)
+
+
+@_edt_op.register_fake
+def _edt_fake(points, spacing, sqrt):
+    return points.new_empty(points.shape, dtype=torch.float32)
+
+
+def _check_device(t: torch.Tensor, what: str) -> None:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: no kernel for device {t.device}")
+
+
 def minplus(f: torch.Tensor, cost: torch.Tensor) -> torch.Tensor:
     """f: [rows, n] f32 with values in [0, +inf]; cost: [n, n] f32, finite.
     Returns g [rows, n] f32 with ``g[r, i] = min_j f[r, j] + cost[j, i]``;
     an all-inf row stays all inf. Launches on the current stream and does
     not synchronise."""
     _check(f, cost)
-    if f.device.type == "cuda":
-        return _launch_matrix(f, cost)
-    if f.device.type == "cpu":
-        return minplus_plain(f, cost)
-    raise ValueError(f"minplus: no kernel for device {f.device}")
+    _check_device(f, "minplus")
+    return _minplus_op(f, cost)
 
 
 minplus.launches = 0
@@ -439,11 +480,8 @@ def squared_edt_volumes(points: torch.Tensor, spacing: Sequence[float], *,
     points. One kernel launch on the current stream for a CUDA tensor, no
     synchronise; ``minplus.launches`` counts it."""
     spacing = _check_volumes(points, spacing)
-    if points.device.type == "cuda":
-        return _launch_volumes(points, spacing, bool(sqrt))
-    if points.device.type == "cpu":
-        return squared_edt_volumes_plain(points, spacing, sqrt=sqrt)
-    raise ValueError(f"squared_edt_volumes: no kernel for device {points.device}")
+    _check_device(points, "squared_edt_volumes")
+    return _edt_op(points, list(spacing), bool(sqrt))
 
 
 def addmin_probe(device: torch.device, blocks: int, iters: int, mode: int = 0) -> int:

@@ -4,13 +4,18 @@ The port of ``multimodal_tta_tpu/pallas/fused_instance_norm.py``. On the
 port it is the norm of every ``ConvBlock`` (``models/layers.py``), so it
 carries the main path's forward and, under Tent, its backward.
 
-* ``fused_instance_norm`` — the wrapper, an ``autograd.Function``. For a
-  CUDA tensor both the forward and the backward launch a hand-written kernel
-  of ``csrc/fused_instance_norm.cu`` (built by ``nvcc`` at first use,
+* ``fused_instance_norm`` — the wrapper of the registered operators
+  ``mtta::fused_instance_norm_forward`` and ``mtta::fused_instance_norm_backward``
+  (``torch.library.custom_op``; the forward's autograd calls the backward
+  operator). For a CUDA tensor both launch a hand-written kernel of
+  ``csrc/fused_instance_norm.cu`` (built by ``nvcc`` at first use,
   ``_build.py``) with one host call each, or raise; a CPU tensor takes the
-  plain versions. No other route exists: there is no fallback from a failed
-  build or launch. ``fused_instance_norm.launches`` counts forward launches,
-  ``fused_instance_norm.backward_launches`` backward launches.
+  plain versions; any other device raises. No other route exists, in eager
+  code or in a traced program that holds the operators: there is no
+  fallback from a failed build or launch. ``fused_instance_norm.launches``
+  counts forward launches, ``fused_instance_norm.backward_launches`` backward
+  launches, both inside the CUDA implementations, so that launches from a
+  traced program count too.
   ``instance_norm_forward`` and ``instance_norm_backward`` are the two
   halves without autograd, with the same routing.
 * ``plan`` — picks the kernel's regime and launch geometry from the shape
@@ -345,15 +350,14 @@ def _launch_backward(gy, x, gamma, beta, stats, relu: bool, need_dx: bool):
     """Run the backward kernel; returns (dx or None, sums [2, B, C]) with
     sums[0] = sum g and sums[1] = sum g * xhat per sample."""
     B, S, C = _check_inputs(x, gamma, beta)
-    if gy.shape != x.shape or gy.dtype != x.dtype or gy.device != x.device:
-        raise ValueError(f"fused_instance_norm: the output's gradient must be {x.dtype} "
-                         f"{tuple(x.shape)} on {x.device}, got {gy.dtype} {tuple(gy.shape)} on {gy.device}")
+    if gy.shape != x.shape or gy.dtype != x.dtype or gy.device != x.device or not gy.is_contiguous():
+        raise ValueError(f"fused_instance_norm: the output's gradient must be a contiguous {x.dtype} "
+                         f"{tuple(x.shape)} tensor on {x.device}, got {gy.dtype} {tuple(gy.shape)} "
+                         f"on {gy.device}")
     if (stats.shape != (2, B, C) or stats.dtype != torch.float32 or stats.device != x.device
             or not stats.is_contiguous()):
         raise ValueError(f"fused_instance_norm: stats must be a contiguous f32 [2, {B}, {C}] tensor "
                          f"on {x.device}, got {stats.dtype} {tuple(stats.shape)} on {stats.device}")
-    if not gy.is_contiguous():
-        gy = gy.contiguous()
     dx = torch.empty_like(x) if need_dx else None
     sums = torch.empty((2, B, C), device=x.device, dtype=torch.float32)
     entry = _cached_plan(x, (gy, dx) if need_dx else (gy,), True)
@@ -365,21 +369,80 @@ def _launch_backward(gy, x, gamma, beta, stats, relu: bool, need_dx: bool):
     return dx, sums
 
 
-class _FusedInstanceNormFn(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, gamma, beta, eps: float, relu: bool):
-        y, stats = instance_norm_forward(x, gamma, beta, eps=eps, relu=relu)
-        ctx.relu = relu
-        ctx.save_for_backward(x, gamma, beta, stats)
-        return y
+# ---- the operators ----------------------------------------------------------
+# Both halves are registered torch operators, the only route to the kernels:
+# a traced program (torch.export, ``serving/export.py``) holds them as calls
+# that it replays, and eager code calls the same operators. The CPU
+# implementation is the plain version and the CUDA one the kernel launch; no
+# other device has one (a fake implementation gives the shapes to tracers).
+# An operator's outputs may not alias each other, so the backward returns
+# ``x.new_empty(0)`` for a dx it was not asked for.
 
-    @staticmethod
-    def backward(ctx, gy):
-        x, gamma, beta, stats = ctx.saved_tensors
-        dx, dgamma, dbeta = instance_norm_backward(gy, x, gamma, beta, stats, relu=ctx.relu,
-                                                   need_dx=ctx.needs_input_grad[0])
-        return (dx, dgamma if ctx.needs_input_grad[1] else None,
-                dbeta if ctx.needs_input_grad[2] else None, None, None)
+
+@torch.library.custom_op("mtta::fused_instance_norm_forward", mutates_args=(), device_types="cpu")
+def _forward_op(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float,
+                relu: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    y, mean, rstd = _plain_forward(x, gamma, beta, eps, relu)
+    return y, torch.stack((mean, rstd))
+
+
+@_forward_op.register_kernel("cuda")
+def _forward_cuda(x, gamma, beta, eps, relu):
+    return _launch_forward(x, gamma, beta, eps, relu)
+
+
+@_forward_op.register_fake
+def _forward_fake(x, gamma, beta, eps, relu):
+    stats = x.new_empty((2, x.shape[0], x.shape[-1]), dtype=torch.float32)
+    return torch.empty_like(x, memory_format=torch.contiguous_format), stats
+
+
+@torch.library.custom_op("mtta::fused_instance_norm_backward", mutates_args=(), device_types="cpu")
+def _backward_op(gy: torch.Tensor, x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                 stats: torch.Tensor, relu: bool, need_dx: bool
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    dx, dgamma, dbeta = instance_norm_backward_plain(gy, x, gamma, beta, stats[0], stats[1], relu, need_dx)
+    return (dx if need_dx else x.new_empty(0)), dgamma, dbeta
+
+
+@_backward_op.register_kernel("cuda")
+def _backward_cuda(gy, x, gamma, beta, stats, relu, need_dx):
+    dx, sums = _launch_backward(gy, x, gamma, beta, stats, relu, need_dx)
+    # over the samples; two sums, as the outputs may not be views of one
+    return (dx if need_dx else x.new_empty(0)), sums[1].sum(dim=0), sums[0].sum(dim=0)
+
+
+@_backward_op.register_fake
+def _backward_fake(gy, x, gamma, beta, stats, relu, need_dx):
+    dx = torch.empty_like(x, memory_format=torch.contiguous_format) if need_dx else x.new_empty(0)
+    return dx, gamma.new_empty(gamma.shape), gamma.new_empty(gamma.shape)
+
+
+def _setup_context(ctx, inputs, output):
+    x, gamma, beta, _, relu = inputs
+    ctx.relu = relu
+    ctx.set_materialize_grads(False)
+    ctx.mark_non_differentiable(output[1])
+    ctx.save_for_backward(x, gamma, beta, output[1])
+
+
+def _backward(ctx, gy, _gstats):
+    if gy is None:
+        return None, None, None, None, None
+    x, gamma, beta, stats = ctx.saved_tensors
+    need_dx, need_gamma, need_beta = ctx.needs_input_grad[:3]
+    # the first norm's input needs no dx: its kernel then writes none
+    dx, dgamma, dbeta = _backward_op(gy.contiguous(), x, gamma, beta, stats, ctx.relu, need_dx)
+    return (dx if need_dx else None, dgamma if need_gamma else None,
+            dbeta if need_beta else None, None, None)
+
+
+_forward_op.register_autograd(_backward, setup_context=_setup_context)
+
+
+def _check_device(x: torch.Tensor) -> None:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_instance_norm: no kernel for device {x.device}")
 
 
 def instance_norm_forward(x, gamma, beta, *, eps: float = 1e-5, relu: bool = True):
@@ -387,12 +450,9 @@ def instance_norm_forward(x, gamma, beta, *, eps: float = 1e-5, relu: bool = Tru
     ``stats`` ``[2, B, C]`` (mean, rstd) that ``instance_norm_backward`` takes.
     A CUDA tensor launches the forward kernel or raises; a CPU tensor takes
     the plain version."""
-    if x.device.type == "cuda":
-        return _launch_forward(x, gamma, beta, eps, relu)
-    if x.device.type == "cpu":
-        y, mean, rstd = _plain_forward(x, gamma, beta, eps, relu)
-        return y, torch.stack((mean, rstd))
-    raise ValueError(f"fused_instance_norm: no kernel for device {x.device}")
+    _check_device(x)
+    with torch.no_grad():
+        return _forward_op(x, gamma, beta, float(eps), bool(relu))
 
 
 def instance_norm_backward(gy, x, gamma, beta, stats, *, relu: bool, need_dx: bool = True):
@@ -400,13 +460,9 @@ def instance_norm_backward(gy, x, gamma, beta, stats, *, relu: bool, need_dx: bo
     the forward's input and its f32 ``stats`` ``[2, B, C]`` (mean, rstd):
     ``(dx or None, dgamma, dbeta)``. A CUDA tensor launches the backward
     kernel or raises; a CPU tensor takes the plain version."""
-    if x.device.type == "cuda":
-        dx, sums = _launch_backward(gy, x, gamma, beta, stats, relu, need_dx)
-        dbeta, dgamma = sums.sum(dim=1).unbind(0)  # over the samples: [2, C]
-        return dx, dgamma, dbeta
-    if x.device.type == "cpu":
-        return instance_norm_backward_plain(gy, x, gamma, beta, stats[0], stats[1], relu, need_dx)
-    raise ValueError(f"fused_instance_norm: no kernel for device {x.device}")
+    _check_device(x)
+    dx, dgamma, dbeta = _backward_op(gy.contiguous(), x, gamma, beta, stats, bool(relu), bool(need_dx))
+    return (dx if need_dx else None), dgamma, dbeta
 
 
 def fused_instance_norm(
@@ -420,9 +476,12 @@ def fused_instance_norm(
     """InstanceNorm over the spatial dims of NDHWC ``x`` ([B, D, H, W, C]),
     with the affine transform and optional ReLU fused: returns
     ``act((x - mean) * rsqrt(var + eps) * gamma + beta)`` in x's dtype, with
-    mean/var per (B, C) taken in f32. Differentiable in x, gamma and beta.
-    Launches on the current stream and does not synchronise."""
-    return _FusedInstanceNormFn.apply(x, gamma, beta, float(eps), _check_act(act))
+    mean/var per (B, C) taken in f32. Differentiable in x, gamma and beta
+    (the backward operator). Launches on the current stream and does not
+    synchronise."""
+    relu = _check_act(act)
+    _check_device(x)
+    return _forward_op(x, gamma, beta, float(eps), relu)[0]
 
 
 fused_instance_norm.launches = 0

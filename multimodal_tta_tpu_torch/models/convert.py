@@ -96,3 +96,47 @@ def variables_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]
     for path, leaf in _leaves(variables.get("batch_stats") or {}):
         sd[".".join(path)] = torch.from_numpy(np.array(leaf, dtype=np.float32))
     return sd
+
+
+def _present(tree: Mapping[str, Any]) -> Dict[str, Any]:
+    """``tree`` without its None leaves (a JAX adapter's trainable subtree
+    holds None at every frozen param)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            v = _present(v)
+            if v:
+                out[k] = v
+        elif v is not None:
+            out[k] = v
+    return out
+
+
+def serving_state_from_flax(names, params, batch_stats, opt_state, carry=()) -> list:
+    """The port's flat serving state (the leaf ``names`` that
+    ``TentAdapter.serving_export_spec`` gives) from the state tuple of the
+    JAX adapter's ``serving_export_spec``, as numpy: ``params``,
+    ``batch_stats`` (None without BatchNorm), the optax state (a chain's
+    tuple of states: ``TraceState.trace`` gives the momentum buffers,
+    ``ScaleByAdamState`` ``mu``, ``nu`` and ``count``) and the method's
+    carry (SAR's ``em`` scalar; CoTTA's teacher subtree)."""
+    sd = variables_from_flax({"params": params, "batch_stats": batch_stats or {}})
+    for part in opt_state:
+        fields = getattr(part, "_fields", ())  # an optax state is a NamedTuple
+        for field, prefix in (("trace", "momentum"), ("mu", "mu"), ("nu", "nu")):
+            if field in fields:
+                sd.update({f"opt:{prefix}:{k}": v for k, v in from_flax(_present(getattr(part, field))).items()})
+        if "count" in fields:
+            sd["opt:count"] = torch.tensor(float(np.asarray(part.count)), dtype=torch.float32)
+    for c in carry:
+        if isinstance(c, Mapping):
+            sd.update({f"teacher:{k}": v for k, v in from_flax(_present(c)).items()})
+        else:
+            sd["em"] = torch.tensor(float(np.asarray(c)), dtype=torch.float32)
+    out = []
+    for n in names:
+        key = n.split(":", 1)[1] if n.startswith(("param:", "stat:")) else n
+        if key not in sd:
+            raise KeyError(f"serving_state_from_flax: no JAX leaf for {n}")
+        out.append(sd[key])
+    return out

@@ -28,37 +28,16 @@ moves nothing, as in the reference.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Tuple
 
 import torch
-from torch.func import functional_call
 
-from ..ops.augment import (
-    apply_intensity_scale_shift,
-    apply_modality_dropout,
-    intensity_scale_shift_draws,
-    modality_dropout_draws,
-)
+from ..ops.augment import View, apply_intensity_scale_shift, apply_modality_dropout
 from ..ops.flip_tta import flip_combos
 from ..ops.losses import entropy_loss
 from ..registry import register_tta_method
 from ..utils.config import get_config
-from .tent import TentAdapter, apply_restore, restore_draws
-
-View = Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]
-
-
-def view_draws(shape: Sequence[int], n: int, generator: torch.Generator, *, scale: float, shift: float,
-               noise: float) -> List[View]:
-    """``n`` augmented views' random numbers: per view a per-sample intensity
-    factor and offset (always applied) and, when ``noise > 0``, a standard
-    normal tensor of the input's shape."""
-    out = []
-    for _ in range(n):
-        factor, offset = intensity_scale_shift_draws(shape[0], generator, scale=scale, shift=shift, prob=1.0)
-        z = torch.randn(tuple(shape), generator=generator, device=generator.device) if noise > 0.0 else None
-        out.append((factor, offset, z))
-    return out
+from .tent import TentAdapter, apply_restore, restored
 
 
 def apply_view(x: torch.Tensor, view: View, noise: float) -> torch.Tensor:
@@ -153,19 +132,25 @@ class CottaAdapter(TentAdapter):
         """The teacher back to the source values."""
         self._teacher = [s.clone() for s in self._source]
 
-    def post_draws(self, shape) -> List[View]:
+    def _views_spec(self, shape) -> dict:
         """The teacher's augmented views (also of a post-update prediction)."""
-        return view_draws(shape, self.n_views - 1, self.generator, scale=self.aug_scale, shift=self.aug_shift,
-                          noise=self.aug_noise)
+        return {"key": "views", "kind": "views", "n": self.n_views - 1, "shape": list(shape),
+                "scale": self.aug_scale, "shift": self.aug_shift, "noise": self.aug_noise}
 
-    def step_draws(self, shape, n_valid) -> dict:
-        g = self.generator
-        d = {"restore": None, "views": self.post_draws(shape), "drop": None}
+    def post_draw_spec(self, shape):
+        return [self._views_spec(shape)]
+
+    def step_draw_spec(self, shape):
+        spec = [self._views_spec(shape)]
         if self.restore_enabled:
-            d["restore"] = restore_draws([p.shape for p in self._trainable], self.restore_prob, g)
+            spec.append({"key": "restore", "kind": "bernoulli", "p": self.restore_prob,
+                         "shapes": [list(p.shape) for p in self._trainable]})
         if self.md_enabled:
-            d["drop"] = modality_dropout_draws(shape[0], shape[-1], g, prob=self.md_prob)
-        return d
+            spec.append({"key": "drop", "kind": "dropout", "b": shape[0], "m": shape[-1], "p": self.md_prob})
+        return spec
+
+    def serving_post(self, mode: str) -> bool:
+        return mode == "post" and self.serve == "teacher"
 
     @torch.no_grad()
     def _pseudo_labels(self, teacher: List[torch.Tensor], image: torch.Tensor, views: List[View]) -> torch.Tensor:
@@ -174,7 +159,7 @@ class CottaAdapter(TentAdapter):
         values = dict(zip(self._names, teacher))
 
         def forward(x):
-            return self._probs(functional_call(self._model, values, (x,)))
+            return self._probs(self._run(x, values))
 
         p = forward(image)
         combos = view_combos(image.dim(), self.aug_flip)
@@ -182,6 +167,23 @@ class CottaAdapter(TentAdapter):
             xv = apply_view(image, v, self.aug_noise)
             p = p + flipped_probs(forward, xv, combos[i % len(combos)] if combos else ())
         return p / float(self.n_views) if views else p
+
+    def _teacher_ce(self, logits, pseudo, w, denom) -> torch.Tensor:
+        """The student's cross-entropy against the teacher's probabilities."""
+        if self.sigmoid_mode:
+            ce = -(pseudo * torch.nn.functional.logsigmoid(logits)
+                   + (1.0 - pseudo) * torch.nn.functional.logsigmoid(-logits))
+        else:
+            ce = -(pseudo * torch.log_softmax(logits, dim=-1)).sum(dim=-1, keepdim=True)
+        return (ce.mean(dim=tuple(range(1, ce.dim()))) * w).sum() / denom
+
+    def _monitor(self, logits, w, denom) -> torch.Tensor:
+        """The entropy trace: the student's self-normalized entropy."""
+        per_ent = entropy_loss(logits.detach(), sigmoid=self.sigmoid_mode, focus="uncertain", per_sample=True)
+        return (per_ent * w).sum() / denom
+
+    def _ema_teacher(self, teacher, student) -> List[torch.Tensor]:
+        return [self.ema * t + (1.0 - self.ema) * p.detach() for t, p in zip(teacher, student)]
 
     def _adapt(self, state, image, n_valid, threshold, predict_mode, ent_floor=None):
         del ent_floor  # cotta has no early-stop brake
@@ -198,22 +200,15 @@ class CottaAdapter(TentAdapter):
             if self.md_enabled and not (inline and i == self.steps - 1):
                 x = apply_modality_dropout(x, d["drop"])
             logits = self._student(x)
-            if self.sigmoid_mode:
-                ce = -(pseudo * torch.nn.functional.logsigmoid(logits)
-                       + (1.0 - pseudo) * torch.nn.functional.logsigmoid(-logits))
-            else:
-                ce = -(pseudo * torch.log_softmax(logits, dim=-1)).sum(dim=-1, keepdim=True)
-            loss = (ce.mean(dim=tuple(range(1, ce.dim()))) * w).sum() / denom
+            loss = self._teacher_ce(logits, pseudo, w, denom)
             opt.zero_grad(set_to_none=True)
             loss.backward()
             opt.step()
             with torch.no_grad():
-                per_ent = entropy_loss(logits.detach(), sigmoid=self.sigmoid_mode, focus="uncertain",
-                                       per_sample=True)
-                ents.append((per_ent * w).sum() / denom)
+                ents.append(self._monitor(logits, w, denom))
                 if d["restore"] is not None:
                     apply_restore(self._trainable, self._source, d["restore"])
-                teacher = [self.ema * t + (1.0 - self.ema) * p for t, p in zip(teacher, self._trainable)]
+                teacher = self._ema_teacher(teacher, self._trainable)
         if not self.episodic:
             self._teacher = teacher
         self._last_ents = torch.stack(ents)
@@ -227,3 +222,45 @@ class CottaAdapter(TentAdapter):
             with torch.no_grad():
                 p = self._probs(self._student(image, update=False))
         return self._predict_probs(p, threshold)
+
+    # ---- the pure serving step -------------------------------------------
+    def _carry_leaves(self):
+        return [(f"teacher:{n}", s.clone()) for n, s in zip(self._names, self._source)]
+
+    def _pure_step(self, state, image, draws, n_valid, ent_floor, thr, mode):
+        """CoTTA's step; the teacher is the carry (the source values again
+        in episodic mode)."""
+        del ent_floor  # cotta has no early-stop brake
+        params, stats, opt, teacher = self._split_state(state)
+        image, w, denom = self._prepare(image, n_valid)
+        ts = [params[n] for n in self._names]
+        if self.episodic:
+            opt, teacher = [t for _, t in self._opt_leaves(ts)], list(self._source)
+        inline = mode == "inline"
+        ents, logits, pseudo = [], None, None
+        for i, d in enumerate(draws["steps"]):
+            with self._pure_values(params, ts, stats):
+                pseudo = self._pseudo_labels(teacher, image, d["views"])
+            x = image
+            if self.md_enabled and not (inline and i == self.steps - 1):
+                x = apply_modality_dropout(x, d["drop"])
+            leaves = [t.detach().requires_grad_() for t in ts]
+            work = {k: v.clone() for k, v in stats.items()}
+            with self._pure_values(params, leaves, work), torch.enable_grad():
+                logits = self._student(x)
+                grads = torch.autograd.grad(self._teacher_ce(logits, pseudo, w, denom), leaves)
+            ts, opt = self._opt_update(ts, grads, opt)
+            ents.append(self._monitor(logits, w, denom))
+            if d["restore"] is not None:
+                ts = restored(ts, self._source, d["restore"])
+            teacher = self._ema_teacher(teacher, ts)
+            stats = work
+        if inline:
+            p = pseudo if self.serve == "teacher" else self._probs(logits.detach())
+        else:
+            with self._pure_values(params, ts, stats), torch.no_grad():
+                if self.serve == "teacher":
+                    p = self._pseudo_labels(teacher, image, draws["post"])
+                else:
+                    p = self._probs(self._student(image, update=False))
+        return self._join_state(params, ts, stats, opt, teacher), torch.stack(ents), self._predict_probs(p, thr)

@@ -32,12 +32,12 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.augment import apply_modality_dropout, modality_dropout_draws
+from ..ops.augment import apply_modality_dropout
 from ..ops.losses import reduce_dims
 from ..registry import register_tta_method
 from ..utils.config import get_config
-from .cotta import apply_view, flipped_probs, view_combos, view_draws
-from .tent import TentAdapter, apply_restore, restore_draws
+from .cotta import apply_view, flipped_probs, view_combos
+from .tent import TentAdapter, apply_restore, restored
 
 _EPS = 1e-6
 
@@ -128,24 +128,29 @@ class MemoAdapter(TentAdapter):
             f"linearized per-view gradient accumulation)"
         )
 
-    def post_draws(self, shape):
+    def _views_spec(self, shape) -> dict:
         """The augmented views of a marginal (also of a post-update one)."""
-        return view_draws(shape, self.n_views - 1, self.generator, scale=self.aug_scale,
-                          shift=self.aug_shift, noise=self.aug_noise)
+        return {"key": "views", "kind": "views", "n": self.n_views - 1, "shape": list(shape),
+                "scale": self.aug_scale, "shift": self.aug_shift, "noise": self.aug_noise}
 
-    def step_draws(self, shape, n_valid) -> dict:
-        g = self.generator
-        d = {"restore": None, "drop": None}
+    def post_draw_spec(self, shape):
+        return [self._views_spec(shape)]
+
+    def step_draw_spec(self, shape):
+        spec = []
         if self.restore_enabled:
-            d["restore"] = restore_draws([p.shape for p in self._trainable], self.restore_prob, g)
+            spec.append({"key": "restore", "kind": "bernoulli", "p": self.restore_prob,
+                         "shapes": [list(p.shape) for p in self._trainable]})
         if self.md_enabled:
-            d["drop"] = modality_dropout_draws(shape[0], shape[-1], g, prob=self.md_prob)
-        d["views"] = self.post_draws(shape)
-        return d
+            spec.append({"key": "drop", "kind": "dropout", "b": shape[0], "m": shape[-1], "p": self.md_prob})
+        return spec + [self._views_spec(shape)]
+
+    def serving_post(self, mode: str) -> bool:
+        return mode == "post" and self.serve == "marginal"
 
     def _view_probs(self, x: torch.Tensor, views, i: int, combos) -> torch.Tensor:
         xv = apply_view(x, views[i], self.aug_noise)
-        return flipped_probs(lambda v: self._probs(self._model(v)), xv, combos[i % len(combos)] if combos else ())
+        return flipped_probs(lambda v: self._probs(self._run(v)), xv, combos[i % len(combos)] if combos else ())
 
     @torch.no_grad()
     def _marginal(self, x: torch.Tensor, views):
@@ -158,14 +163,20 @@ class MemoAdapter(TentAdapter):
             p = p + self._view_probs(x, views, i, combos)
         return (p / float(self.n_views) if views else p), logits0
 
+    def _surrogates(self, x: torch.Tensor, views, g_hat: torch.Tensor):
+        """``<g_hat/V, p_v>`` for the clean view, then each augmented one, made
+        one at a time: the caller differentiates each before the next."""
+        gv = g_hat / float(self.n_views)
+        combos = view_combos(x.dim(), self.aug_flip)
+        yield (self._probs(self._student(x, update=False)) * gv).sum()
+        for i in range(len(views)):
+            yield (self._view_probs(x, views, i, combos) * gv).sum()
+
     def accumulate_grads(self, x: torch.Tensor, views, g_hat: torch.Tensor) -> None:
         """``.grad`` of the adapted params += d<g_hat/V, p_v>/dtheta, view by
         view (each a Tent-sized forward+backward)."""
-        gv = g_hat / float(self.n_views)
-        combos = view_combos(x.dim(), self.aug_flip)
-        (self._probs(self._student(x, update=False)) * gv).sum().backward()
-        for i in range(len(views)):
-            (self._view_probs(x, views, i, combos) * gv).sum().backward()
+        for s in self._surrogates(x, views, g_hat):
+            s.backward()
 
     def _adapt(self, state, image, n_valid, threshold, predict_mode, ent_floor=None):
         del ent_floor  # no early-stop brake; the stream watchdog guards memo
@@ -199,3 +210,47 @@ class MemoAdapter(TentAdapter):
             with torch.no_grad():
                 p = self._probs(self._student(image))
         return self._predict_probs(p, threshold)
+
+    # ---- the pure serving step -------------------------------------------
+    def _pure_step(self, state, image, draws, n_valid, ent_floor, thr, mode):
+        """MEMO's step: the gradient of each view by ``torch.autograd.grad``,
+        summed in the order the live step accumulates them."""
+        del ent_floor  # no early-stop brake; the stream watchdog guards memo
+        params, stats, opt, _ = self._split_state(state)
+        image, w, denom = self._prepare(image, n_valid)
+        ts = [params[n] for n in self._names]
+        if self.episodic:
+            opt = [t for _, t in self._opt_leaves(ts)]
+        inline = mode == "inline"
+        ents, p_marg, logits0 = [], None, None
+        for i, d in enumerate(draws["steps"]):
+            x = image
+            if self.md_enabled and not (inline and i == self.steps - 1):
+                x = apply_modality_dropout(x, d["drop"])
+            leaves = [t.detach().requires_grad_() for t in ts]
+            work = {k: v.clone() for k, v in stats.items()}
+            with self._pure_values(params, leaves, work):
+                p_marg, logits0 = self._marginal(x, d["views"])
+                ent, g_hat = marginal_entropy(p_marg, w, denom, sigmoid=self.sigmoid_mode,
+                                              focus=self.entropy_focus)
+                grads = None
+                with torch.enable_grad():
+                    for s in self._surrogates(x, d["views"], g_hat):
+                        g = torch.autograd.grad(s, leaves)
+                        grads = g if grads is None else [a + b for a, b in zip(grads, g)]
+            ts, opt = self._opt_update(ts, grads, opt)
+            if d["restore"] is not None:
+                ts = restored(ts, self._source, d["restore"])
+            ents.append(ent)
+            stats = work
+        if inline:
+            p = p_marg if self.serve == "marginal" else self._probs(logits0)
+        else:
+            work = {k: v.clone() for k, v in stats.items()}
+            with self._pure_values(params, ts, work), torch.no_grad():
+                if self.serve == "marginal":
+                    p, _ = self._marginal(image, draws["post"])
+                else:
+                    p = self._probs(self._student(image))
+            stats = work
+        return self._join_state(params, ts, stats, opt, []), torch.stack(ents), self._predict_probs(p, thr)

@@ -19,7 +19,7 @@ Niu et al., "Towards Stable Test-Time Adaptation in Dynamic Wild World"
      across batches in continual mode; ``reset_optimizer`` clears it.
 
 Each step runs two forwards and two backwards; the reset decision reads
-``em`` on the host once a step. On a BatchNorm model both forwards run on
+``em`` on the host once a step (the pure serving step merges instead). On a BatchNorm model both forwards run on
 the batch's statistics from the same running statistics, and the step keeps
 those of the second (the reference's ``new_bs`` of the descent pass): the
 running statistics move once a step. A recovery reset puts back the params,
@@ -32,7 +32,7 @@ import math
 
 import torch
 
-from ..ops.augment import apply_modality_dropout, modality_dropout_draws
+from ..ops.augment import apply_modality_dropout
 from ..ops.losses import entropy_loss
 from ..registry import register_tta_method
 from ..utils.config import get_config
@@ -98,11 +98,14 @@ class SarAdapter(TentAdapter):
     def _reset_carry(self) -> None:
         self._em = self._nan()
 
-    def step_draws(self, shape, n_valid) -> dict:
-        d = {"drop": None}
-        if self.md_enabled:
-            d["drop"] = modality_dropout_draws(shape[0], shape[-1], self.generator, prob=self.md_prob)
-        return d
+    def step_draw_spec(self, shape):
+        if not self.md_enabled:
+            return []
+        return [{"key": "drop", "kind": "dropout", "b": shape[0], "m": shape[-1], "p": self.md_prob}]
+
+    def _em_next(self, em: torch.Tensor, mon: torch.Tensor) -> torch.Tensor:
+        """The entropy EMA after a step's monitor score (seeded by the first)."""
+        return torch.where(torch.isnan(em), mon, self.reset_alpha * em + (1.0 - self.reset_alpha) * mon)
 
     def _h_max(self, logits: torch.Tensor) -> float:
         return math.log(2.0) if self.sigmoid_mode else math.log(float(logits.shape[-1]))
@@ -144,7 +147,7 @@ class SarAdapter(TentAdapter):
                     p.grad = gs
             self._opt.step()
             mon = mon.detach()
-            em = torch.where(torch.isnan(em), mon, self.reset_alpha * em + (1.0 - self.reset_alpha) * mon)
+            em = self._em_next(em, mon)
             if bool(em < self.reset_floor_ratio * self._h_max(logits)):
                 # collapsed into a degenerate minimum: back to source
                 self._copy_source()
@@ -161,4 +164,52 @@ class SarAdapter(TentAdapter):
         if inline:
             return self._predict(logits.detach(), threshold)
         with torch.no_grad():
-            return self._predict(self._model(image), threshold)
+            return self._predict(self._run(image), threshold)
+
+    # ---- the pure serving step -------------------------------------------
+    def _carry_leaves(self):
+        return [("em", self._nan())]
+
+    def _pure_step(self, state, image, draws, n_valid, ent_floor, thr, mode):
+        """SAR's step; the entropy EMA ``em`` is the carry. The recovery reset
+        is a merge: params and optimizer state back to source, ``em`` to NaN,
+        where the EMA falls below the floor (the live step reads it on the
+        host instead)."""
+        del ent_floor  # SAR's recovery scheme replaces the early-stop brake
+        params, stats, opt, (em,) = self._split_state(state)
+        image, w, denom = self._prepare(image, n_valid)
+        ts = [params[n] for n in self._names]
+        opt0 = [t for _, t in self._opt_leaves(ts)]
+        if self.episodic:
+            opt, em = opt0, self._nan()
+        inline = mode == "inline"
+        ents, logits = [], None
+        for i, d in enumerate(draws["steps"]):
+            x = image
+            if self.md_enabled and not (inline and i == self.steps - 1):
+                x = apply_modality_dropout(x, d["drop"])
+            leaves = [t.detach().requires_grad_() for t in ts]
+            with self._pure_values(params, leaves, stats), torch.enable_grad():
+                loss, mon, logits = self._loss(x, w, denom, update=False)
+                g = torch.autograd.grad(loss, leaves)
+            scale = self.rho / (torch.sqrt(torch.stack([(t * t).sum() for t in g]).sum()) + 1e-12)
+            perturbed = [(t + scale * gg).requires_grad_() for t, gg in zip(ts, g)]
+            work = {k: v.clone() for k, v in stats.items()}
+            with self._pure_values(params, perturbed, work), torch.enable_grad():
+                loss_sam, _, _ = self._loss(x, w, denom, update=True)
+                g_sam = torch.autograd.grad(loss_sam, perturbed)
+            ts, opt = self._opt_update(ts, g_sam, opt)
+            mon = mon.detach()
+            em = self._em_next(em, mon)
+            reset = em < self.reset_floor_ratio * self._h_max(logits)
+            ts = [torch.where(reset, s, t) for t, s in zip(ts, self._source)]
+            opt = [torch.where(reset, z, o) for o, z in zip(opt, opt0)]
+            em = torch.where(reset, self._nan(), em)
+            stats = work
+            ents.append(mon)
+        if inline:
+            pred = self._predict(logits.detach(), thr)
+        else:
+            with self._pure_values(params, ts, stats), torch.no_grad():
+                pred = self._predict(self._run(image), thr)
+        return self._join_state(params, ts, stats, opt, [em]), torch.stack(ents), pred

@@ -62,6 +62,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.func import functional_call
 
 from .. import DeviceLike, resolve_device
 from ..conf.node import ConfigNode
@@ -76,8 +77,9 @@ from ..models.layers import (
 from ..ops.augment import (
     apply_intensity_scale_shift,
     apply_modality_dropout,
-    intensity_scale_shift_draws,
-    modality_dropout_draws,
+    group_draws,
+    make_draws,
+    window_draws,  # noqa: F401  (the windows' draws; tests import them from here)
 )
 from ..ops.intensity import make_intensity_normalizer
 from ..ops.losses import entropy_loss, pseudo_label_loss
@@ -125,45 +127,28 @@ def reliability_weights(logits: torch.Tensor, *, sigmoid: bool, margin_ratio: fl
     return torch.where(e < margin, torch.exp(margin - e), torch.zeros_like(e))
 
 
-def window_draws(
-    n_windows: int,
-    n_valid: int,
-    spatial: Sequence[int],
-    roi: Sequence[int],
-    generator: torch.Generator,
-) -> torch.Tensor:
-    """``[n_windows, 4]`` int64 rows ``(sample, d0, h0, w0)``: a valid sample
-    index and the ROI's corner, uniform over the positions that fit."""
-    dev = generator.device
-    n = max(int(n_valid), 1)
-    cols = [torch.randint(0, n, (n_windows,), generator=generator, device=dev)]
-    for size, r in zip(spatial, roi):
-        cols.append(torch.randint(0, max(int(size) - int(r), 0) + 1, (n_windows,),
-                                  generator=generator, device=dev))
-    return torch.stack(cols, dim=1)
-
-
 def apply_crop_windows(x: torch.Tensor, corners: torch.Tensor, roi: Sequence[int]) -> torch.Tensor:
     """``[W, *roi, C]`` windows of ``x`` [B, D, H, W, C] at ``corners``
-    (``window_draws``)."""
-    rd, rh, rw = (int(r) for r in roi)
-    rows = corners.tolist()
-    return torch.stack([x[s, d:d + rd, h:h + rh, w:w + rw] for s, d, h, w in rows])
+    (``window_draws``), gathered by index tensors: no host read, so a traced
+    step holds it."""
+    c = corners.to(x.device)
+    s, starts = c[:, 0], c[:, 1:]
+    idx = [starts[:, k, None] + torch.arange(int(r), device=x.device) for k, r in enumerate(roi)]
+    return x[s[:, None, None, None], idx[0][:, :, None, None], idx[1][:, None, :, None], idx[2][:, None, None, :]]
 
 
-def restore_draws(shapes: Sequence[torch.Size], prob: float, generator: torch.Generator) -> List[torch.Tensor]:
-    """One bool mask per adapted tensor: True where the element snaps back
-    to its source value (Bernoulli ``prob`` each)."""
-    return [torch.rand(s, generator=generator, device=generator.device) < prob for s in shapes]
+def restored(params: Sequence[torch.Tensor], sources: Sequence[torch.Tensor],
+             masks: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """``params`` with the source value wherever its mask is set."""
+    return [torch.where(m, s, p) for p, s, m in zip(params, sources, masks)]
 
 
 @torch.no_grad()
 def apply_restore(params: Sequence[torch.Tensor], sources: Sequence[torch.Tensor],
                   masks: Sequence[torch.Tensor]) -> None:
-    """Write the source value into each element of ``params`` where its mask
-    is set (in place)."""
-    for p, s, m in zip(params, sources, masks):
-        p.copy_(torch.where(m, s, p))
+    """``restored``, written into ``params`` (in place)."""
+    for p, r in zip(params, restored(params, sources, masks)):
+        p.copy_(r)
 
 
 @register_tta_method("tent")
@@ -286,6 +271,9 @@ class TentAdapter:
         self._fisher_sum: Optional[List[torch.Tensor]] = None
         self._fisher_n = 0
         self._fisher_cached: Optional[List[torch.Tensor]] = None
+        # inside a pure serving step: the values of every param and running
+        # statistic that the model's forwards read (``_run``)
+        self._values: Optional[Dict[str, torch.Tensor]] = None
         seed = int(get_config(self.config, "task.seed", 0)) + 777
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
@@ -394,15 +382,24 @@ class TentAdapter:
         for p, s in zip(self._trainable, self._source):
             p.copy_(s)
 
+    def _run(self, x: torch.Tensor, values: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+        """The bound model on ``x``, with ``values`` (name -> tensor) in
+        place of its own params where given (``functional_call``). Inside a
+        pure serving step every param and running statistic comes from the
+        step's values (``_pure_values``)."""
+        if self._values is not None:
+            values = dict(self._values, **(values or {}))
+        return self._model(x) if values is None else functional_call(self._model, values, (x,))
+
     def _student(self, x: torch.Tensor, update: bool = True) -> torch.Tensor:
         """The reference's student ``forward(trainable, bs, x)``: a BatchNorm
         model runs in training mode on ``x``'s statistics and, with
         ``update``, keeps the forward's new running statistics (once); a
         model without them runs as built."""
         if not self._bn:
-            return self._model(x)
+            return self._run(x)
         with batch_statistics(self._model, update=update):
-            return self._model(x)
+            return self._run(x)
 
     def _prepare(self, image, n_valid):
         """The normalized f32 image on the device, the valid-sample weights
@@ -425,31 +422,51 @@ class TentAdapter:
         return self._prepare(image, n_valid)
 
     # ------------------------------------------------------------------
-    def step_draws(self, shape: Tuple[int, ...], n_valid: int) -> dict:
-        """One adaptation step's random numbers, from ``self.generator``."""
-        g = self.generator
-        d = {"restore": None, "drop": None, "windows": None, "cons": None}
+    def step_draw_spec(self, shape: Tuple[int, ...]) -> List[dict]:
+        """What one adaptation step draws, in generator order
+        (``ops/augment.py``: restore masks, dropout, windows, consistency)."""
+        spec = []
         if self.restore_enabled:
-            d["restore"] = restore_draws([p.shape for p in self._trainable], self.restore_prob, g)
+            spec.append({"key": "restore", "kind": "bernoulli", "p": self.restore_prob,
+                         "shapes": [list(p.shape) for p in self._trainable]})
         if self.md_enabled:
-            d["drop"] = modality_dropout_draws(shape[0], shape[-1], g, prob=self.md_prob)
+            spec.append({"key": "drop", "kind": "dropout", "b": shape[0], "m": shape[-1], "p": self.md_prob})
         if self.window_enabled:
-            d["windows"] = window_draws(self.windows_per_step, n_valid, shape[1:4], self.window_roi, g)
+            spec.append({"key": "windows", "kind": "windows", "n": self.windows_per_step,
+                         "spatial": list(shape[1:4]), "roi": list(self.window_roi)})
         if self.loss_mode.endswith("+consistency"):
             nb = self.windows_per_step if self.window_enabled else shape[0]
-            d["cons"] = intensity_scale_shift_draws(nb, g, scale=self.cons_scale, shift=self.cons_shift,
-                                                    prob=1.0)
-        return d
+            spec.append({"key": "cons", "kind": "scale_shift", "n": nb, "scale": self.cons_scale,
+                         "shift": self.cons_shift})
+        return spec
 
-    def post_draws(self, shape: Tuple[int, ...]):
+    def post_draw_spec(self, shape: Tuple[int, ...]) -> Optional[List[dict]]:
         """What a post-update ensemble prediction draws (Tent: nothing)."""
         return None
+
+    def batch_draw_spec(self, shape: Tuple[int, ...], post: bool = False) -> dict:
+        """``{"steps": [one spec per step], "post": post spec or None}``."""
+        return {"steps": [self.step_draw_spec(shape) for _ in range(self.steps)],
+                "post": self.post_draw_spec(shape) if post else None}
+
+    def step_draws(self, shape: Tuple[int, ...], n_valid: int) -> dict:
+        """One adaptation step's random numbers, from ``self.generator``."""
+        spec = {"steps": [self.step_draw_spec(shape)], "post": None}
+        return group_draws(spec, make_draws(spec, self.generator, n_valid))["steps"][0]
+
+    def post_draws(self, shape: Tuple[int, ...]):
+        """A post-update ensemble prediction's random numbers (Tent: None)."""
+        post = self.post_draw_spec(shape)
+        if post is None:
+            return None
+        spec = {"steps": [], "post": post}
+        return group_draws(spec, make_draws(spec, self.generator, shape[0]))["post"]
 
     def batch_draws(self, shape: Tuple[int, ...], n_valid: int, post: bool = False) -> dict:
         """A batch's draws: ``{"steps": [one dict per step], "post":
         post_draws or None}``, taken before the batch runs."""
-        steps = [self.step_draws(shape, n_valid) for _ in range(self.steps)]
-        return {"steps": steps, "post": self.post_draws(shape) if post else None}
+        spec = self.batch_draw_spec(shape, post)
+        return group_draws(spec, make_draws(spec, self.generator, n_valid))
 
     def _per_sample_objective(self, logits: torch.Tensor) -> torch.Tensor:
         if self.loss_mode.startswith("pl"):
@@ -542,7 +559,7 @@ class TentAdapter:
         if inline:
             return self._predict(logits.detach(), threshold)
         with torch.no_grad():
-            return self._predict(self._model(image), threshold)
+            return self._predict(self._run(image), threshold)
 
     # ------------------------------------------------------------------
     @contextmanager
@@ -682,3 +699,186 @@ class TentAdapter:
             return self._predict(logits, thr), e[0], e[1]
 
         return forward_predict_fn
+
+    # ---- the pure serving step (serving/export.py) ------------------------
+    # The reference's ``build_serving_step`` / ``serving_export_spec``: the
+    # fused adapt+segment step as a pure function over a flat state, which
+    # ``serving/export.py`` traces and saves. The state's leaves, in order:
+    # every param of the model (``named_parameters``), its running statistics
+    # (``running_statistics``; none without BatchNorm), the optimizer's state
+    # over the adapted tensors (``_opt_leaves``), then the method's carry
+    # (``_carry_leaves``: SAR's entropy EMA, CoTTA's teacher). The step takes
+    # its random numbers as inputs (the flat ``batch_draws``, ``ops/augment.py``)
+    # and reads nothing on the host: the early stop is a merge, as in the
+    # reference's ``gated``. It shares the objective, the prediction and the
+    # draws with the live step; the model's forwards read the step's values
+    # through ``_run`` (``functional_call``), and a BatchNorm forward writes
+    # its new running statistics into a copy that the step returns.
+
+    def serving_post(self, mode: str) -> bool:
+        """Whether a batch served in ``mode`` draws for a post-update
+        ensemble prediction (Tent: never)."""
+        return False
+
+    def _opt_leaves(self, ts: Sequence[torch.Tensor]) -> List[Tuple[str, torch.Tensor]]:
+        """The optimizer's initial state over the adapted tensors ``ts``:
+        SGD's momentum buffers (none without momentum), Adam's first and
+        second moments and its step count."""
+        if self.opt_name == "sgd":
+            return [(f"momentum:{n}", torch.zeros_like(t)) for n, t in zip(self._names, ts)] if self.momentum else []
+        if self.opt_name == "adam":
+            return ([(f"mu:{n}", torch.zeros_like(t)) for n, t in zip(self._names, ts)]
+                    + [(f"nu:{n}", torch.zeros_like(t)) for n, t in zip(self._names, ts)]
+                    + [("count", torch.zeros((), dtype=torch.float32, device=self.device))])
+        raise ValueError(f"[tent] unsupported optimizer: {self.opt_name}")
+
+    def _opt_update(self, ts, grads, opt) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+        """One optimizer update as a function, ``(new ts, new state)``, with
+        the arithmetic of the live step's ``torch.optim`` SGD (dampening 0)
+        and Adam (its defaults)."""
+        if self.opt_name == "sgd":
+            if not self.momentum:
+                return [t.add(g, alpha=-self.lr) for t, g in zip(ts, grads)], []
+            bufs = [b.mul(self.momentum).add(g) for b, g in zip(opt, grads)]
+            return [t.add(b, alpha=-self.lr) for t, b in zip(ts, bufs)], bufs
+        b1, b2, eps = 0.9, 0.999, 1e-8
+        n = len(ts)
+        count = opt[2 * n] + 1.0
+        mu = [m.lerp(g, 1.0 - b1) for m, g in zip(opt[:n], grads)]
+        nu = [v.mul(b2).addcmul(g, g, value=1.0 - b2) for v, g in zip(opt[n:2 * n], grads)]
+        c = count.double()  # the bias corrections in f64, as torch.optim takes them on the host
+        step = (-self.lr / (1.0 - b1 ** c)).float()
+        bc2 = torch.sqrt(1.0 - b2 ** c).float()
+        new = [t + step * m / (v.sqrt() / bc2 + eps) for t, m, v in zip(ts, mu, nu)]
+        return new, mu + nu + [count]
+
+    def _carry_leaves(self) -> List[Tuple[str, torch.Tensor]]:
+        """The method's carried state at its source value (Tent: none)."""
+        return []
+
+    def _serving_leaves(self) -> List[Tuple[str, torch.Tensor]]:
+        """The step's initial state as named leaves, in the documented order."""
+        self._param_names = [n for n, _ in self._model.named_parameters()]
+        stats = running_statistics(self._model)
+        self._stat_names = list(stats)
+        opt = self._opt_leaves(self._source)
+        self._n_opt = len(opt)
+        return ([(f"param:{n}", p.detach().clone()) for n, p in self._model.named_parameters()]
+                + [(f"stat:{n}", t) for n, t in stats.items()] + [(f"opt:{n}", t) for n, t in opt]
+                + self._carry_leaves())
+
+    def _split_state(self, state):
+        """``(params, stats, opt, carry)`` of a flat state: two dicts by name
+        and two lists."""
+        a = len(self._param_names)
+        b = a + len(self._stat_names)
+        c = b + self._n_opt
+        return (dict(zip(self._param_names, state[:a])), dict(zip(self._stat_names, state[a:b])),
+                list(state[b:c]), list(state[c:]))
+
+    def _join_state(self, params, ts, stats, opt, carry) -> List[torch.Tensor]:
+        """The flat state of ``params`` with the adapted ones replaced by
+        ``ts``, then ``stats``, ``opt`` and ``carry``."""
+        out = dict(params)
+        out.update(zip(self._names, ts))
+        return [out[n] for n in self._param_names] + [stats[n] for n in self._stat_names] + list(opt) + list(carry)
+
+    @contextmanager
+    def _pure_values(self, params, ts, stats):
+        """The model's forwards inside the block read ``params`` with the
+        adapted ones replaced by ``ts``, and the running statistics ``stats``
+        (a BatchNorm forward that moves them writes into these tensors)."""
+        values = dict(params)
+        values.update(zip(self._names, ts))
+        values.update(stats)
+        held, self._values = self._values, values
+        try:
+            yield
+        finally:
+            self._values = held
+
+    def _pure_step(self, state, image, draws, n_valid, ent_floor, thr: float, mode: str):
+        """Tent's step: ``(state', ents [steps], pred uint8)``."""
+        params, stats, opt, _ = self._split_state(state)
+        image, w, denom = self._prepare(image, n_valid)
+        ts = [params[n] for n in self._names]
+        if self.episodic:
+            opt = [t for _, t in self._opt_leaves(ts)]
+        inline = mode == "inline"
+        ents, logits = [], None
+        e0 = torch.full((), float("nan"), device=image.device)
+        active = torch.ones((), dtype=torch.bool, device=image.device)
+        for i, d in enumerate(draws["steps"]):
+            x = image
+            if self.md_enabled and not (inline and i == self.steps - 1):
+                x = apply_modality_dropout(x, d["drop"])
+            leaves = [t.detach().requires_grad_() for t in ts]
+            work = {k: v.clone() for k, v in stats.items()}
+            with self._pure_values(params, leaves, work), torch.enable_grad():
+                loss, logits = self._objective(x, d, w, denom)
+                grads = torch.autograd.grad(loss, leaves)
+            new_ts, new_opt = self._opt_update(ts, grads, opt)
+            if d["restore"] is not None:
+                new_ts = restored(new_ts, self._source, d["restore"])
+            ent = loss.detach()
+            ents.append(ent)
+            if self.early_stop:
+                # the reference's gated merge: a step below the floor, and
+                # every step after it, leaves params, statistics and
+                # optimizer state as they were (its forward and backward
+                # still run)
+                e0 = torch.where(torch.isnan(e0), ent, e0)
+                floor = torch.where(torch.isnan(ent_floor), self.early_stop_ratio * e0, ent_floor)
+                active = active & (ent >= floor)
+                new_ts = [torch.where(active, a, b) for a, b in zip(new_ts, ts)]
+                work = {k: torch.where(active, work[k], stats[k]) for k in stats}
+                new_opt = [torch.where(active, a, b) for a, b in zip(new_opt, opt)]
+            ts, stats, opt = new_ts, work, new_opt
+        if inline:
+            pred = self._predict(logits.detach(), thr)
+        else:
+            with self._pure_values(params, ts, stats), torch.no_grad():
+                pred = self._predict(self._run(image), thr)
+        return self._join_state(params, ts, stats, opt, []), torch.stack(ents), pred
+
+    def serving_export_spec(self, source_model: nn.Module, threshold: float, predict_mode: str = "inline"):
+        """The export protocol (``serving/export.py``): ``(call, state0,
+        names)``. ``call(state, image, draws, n_valid, ent_floor) -> (state',
+        ents [steps], pred uint8)`` is pure: ``state`` the flat leaves,
+        ``draws`` the flat draws of ``batch_draw_spec(image.shape,
+        serving_post(mode))``, ``n_valid`` an int32 and ``ent_floor`` an f32
+        scalar tensor (NaN: the batch-relative floor). ``state0`` holds the
+        source model's leaves and ``names`` theirs. Episodic mode starts the
+        optimizer (and the carry) afresh inside the step; the runtime feeds
+        ``state0`` again for every batch. Binds ``source_model`` as the
+        ``make_*`` functions do; its values stay as they are."""
+        mode = str(predict_mode or self.predict_mode).lower()
+        self._check_predict_mode(mode)
+        if self.fisher_enabled:
+            raise ValueError(f"[{self.method}] the Fisher anchor is estimated on the host across "
+                             "batches and has no pure serving step; set tta.fisher.enabled=false")
+        self._bind(source_model)
+        leaves = self._serving_leaves()
+        thr = float(threshold)
+
+        def call(state, image, draws, n_valid, ent_floor):
+            spec = self.batch_draw_spec(tuple(image.shape), self.serving_post(mode))
+            return self._pure_step(list(state), image, group_draws(spec, list(draws)), n_valid, ent_floor,
+                                   thr, mode)
+
+        return call, [t for _, t in leaves], [n for n, _ in leaves]
+
+    def build_serving_step(self, source_model: nn.Module, threshold: float,
+                           predict_mode: str = "inline") -> Callable:
+        """The pure step over one flat tuple: ``step(*state, image, *draws,
+        n_valid, ent_floor) -> (*state', ents, pred)``; ``serving_export_spec``
+        says what each part is. Also returns ``state0``."""
+        call, state0, _ = self.serving_export_spec(source_model, threshold, predict_mode)
+        n = len(state0)
+
+        def step(*args):
+            *draws, n_valid, ent_floor = args[n + 1:]
+            new, ents, pred = call(args[:n], args[n], draws, n_valid, ent_floor)
+            return (*new, ents, pred)
+
+        return step, state0

@@ -3,7 +3,7 @@
 of one training step goes on one CUDA card.
 
     python3 scripts/torch_serving_profile.py [--protocol online|strict|eval|train|forward] [--batch 2] [--steps 3]
-        [--model unet|midfusion|unetr|swin_unetr|resnet50] [--remat] [--norm INSTANCE|BATCH]
+        [--model unet|midfusion|unetr|swin_unetr|resnet50] [--remat] [--norm INSTANCE|BATCH] [--artifact]
 
 Builds the flagship UNet3D (channels 32..512, bf16, random weights from a
 seed) as chip_smoke.py does, on HECKTOR21 batches; with ``--model
@@ -20,7 +20,9 @@ batches, ``--remat`` rematerializing it as ``training.remat=true`` does;
 momentum 0.9, softmax, entropy over all samples; ``online`` and
 ``strict`` only; run it with ``--batch 64``).
 ``online`` and ``strict`` profile the Tent
-adapt+segment serving step; ``eval`` profiles the evaluation step of one
+adapt+segment serving step (with ``--artifact`` the serving artifact of that
+step, ``serving/export.py``: exported on the card, saved, loaded, and called
+with the state it returns, or its initial state in strict mode); ``eval`` profiles the evaluation step of one
 batch (forward, Dice/IoU, loss, HD95/ASD/NSD) on synthetic volumes with
 ellipsoid labels; ``train`` profiles ``SegTrainer.run_step`` with the
 HECKTOR21 training recipe of chip_smoke.py (``train_recipe``: adam, DiceCE,
@@ -158,6 +160,32 @@ def train_step_fn(torch, dev, model, batch: int, label=None):
     return step
 
 
+def artifact_step_fn(torch, dev, adapter, model, shape, threshold, mode):
+    """The Tent step as a loaded serving artifact, called as a runtime calls
+    it: the state it returned (continual) or its initial state (episodic);
+    n_valid and the floor as device tensors made once."""
+    from multimodal_tta_tpu_torch.serving import export_adapt_serving, load_artifact, save_artifact
+
+    program, meta, state0 = export_adapt_serving(adapter, model, shape, threshold=threshold, predict_mode=mode)
+    path = os.path.join(REPO, "build", "profile_artifact.mttap")  # build/ is in .gitignore
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    save_artifact(path, program, meta, state0)
+    art = load_artifact(path)
+    os.remove(path)
+    held = {"state": art.initial_state()}
+    initial, episodic = list(held["state"]), meta["episodic"]
+    n_valid = torch.tensor(shape[0], dtype=torch.int32, device=dev)
+    floor = torch.tensor(float("nan"), device=dev)
+
+    def step(model, x, _n):
+        out = art.call(*(initial if episodic else held["state"]), x, n_valid, floor)
+        if not episodic:
+            held["state"] = list(out[:art.n_state])
+        return out
+
+    return step
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--protocol", choices=("online", "strict", "eval", "train", "forward"), default="online")
@@ -166,6 +194,8 @@ def main() -> int:
     ap.add_argument("--model", choices=("unet", "midfusion", "unetr", "swin_unetr", "resnet50"), default="unet")
     ap.add_argument("--remat", action="store_true", help="rematerialize a transformer (training.remat=true)")
     ap.add_argument("--norm", choices=("INSTANCE", "BATCH"), default="INSTANCE", help="the flagship's norm")
+    ap.add_argument("--artifact", action="store_true",
+                    help="online/strict: profile the exported serving step instead of the live one")
     args = ap.parse_args()
 
     import torch
@@ -239,8 +269,13 @@ def main() -> int:
                 return model(x)
     else:
         adapter = TentAdapter(cfg.tta, config=cfg, device_transform=transform, device=dev)
-        step = adapter.make_adapt_predict_fn(model, threshold=threshold,
-                                             predict_mode="inline" if online else "post")
+        mode = "inline" if online else "post"
+        if args.artifact:
+            step = artifact_step_fn(torch, dev, adapter, model, tuple(x.shape), threshold, mode)
+        else:
+            step = adapter.make_adapt_predict_fn(model, threshold=threshold, predict_mode=mode)
+    if args.artifact and args.protocol not in ("online", "strict"):
+        raise SystemExit("--artifact profiles the serving step only (--protocol online|strict)")
     for _ in range(3):
         step(model, x, args.batch)
     torch.cuda.synchronize()
@@ -290,10 +325,11 @@ def main() -> int:
                               "aten::_to_copy", "aten::cat", "aten::pad", "aten::constant_pad_nd")}
 
     print(f"card: {card}")
-    print(f"{args.protocol} step without the profiler, 10 warm steps: median "
+    what = f"{args.protocol}{' artifact' if args.artifact else ''}"
+    print(f"{what} step without the profiler, 10 warm steps: median "
           f"{sorted(warm_ms)[5]:.3f} ms/step (min {min(warm_ms):.3f}, max {max(warm_ms):.3f}); "
           f"host alone, no synchronise: {host_ms:.3f} ms/step")
-    print(f"{args.protocol} step, batch {args.batch}, {args.steps} steps: wall {wall_ms / args.steps:.3f} ms/step, "
+    print(f"{what} step, batch {args.batch}, {args.steps} steps: wall {wall_ms / args.steps:.3f} ms/step, "
           f"device {device_ms / args.steps:.3f} ms/step, busy share {device_ms / wall_ms:.3f}")
     for name, ms, count in rows[:20]:
         print(f"  {ms / args.steps:9.3f} ms/step  x{count // args.steps:<4d} {name[:110]}")
@@ -307,7 +343,8 @@ def main() -> int:
     print("host time by operator, self ms/step (calls/step): "
           + ", ".join(f"{k} {ms:.2f} ({n:.0f})" for k, ms, n in host))
     print(json.dumps({
-        "protocol": args.protocol, "model": args.model, "remat": args.remat, "norm": args.norm, "batch": args.batch,
+        "protocol": args.protocol, "artifact": args.artifact, "model": args.model, "remat": args.remat,
+        "norm": args.norm, "batch": args.batch,
         "steps": args.steps, "card": card,
         "warm_ms_per_step_no_profiler": warm_ms, "host_enqueue_ms_per_step": host_ms,
         "wall_ms_per_step": wall_ms / args.steps, "device_ms_per_step": device_ms / args.steps,

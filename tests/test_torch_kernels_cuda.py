@@ -477,3 +477,80 @@ def _sar_step_kernel_vs_plain():
     assert abs(e_k - e_p) <= 1e-4 * abs(e_p), (e_k, e_p)
     rel = float((d_k - d_p).norm() / d_p.norm())
     assert float(d_p.norm()) > 0 and rel <= 1e-3, (float(d_p.norm()), rel)
+
+
+# the norm shapes of the serving artifact's step: one flagship forward at batch 2
+SERVING_NORM_SHAPES = [(2, 48, 144, 144, 32), (2, 24, 72, 72, 64), (2, 12, 36, 36, 128), (2, 6, 18, 18, 256),
+                       (2, 3, 9, 9, 512), (2, 6, 18, 18, 128), (2, 12, 36, 36, 64), (2, 24, 72, 72, 32),
+                       (2, 48, 144, 144, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(set(SERVING_NORM_SHAPES)))
+def test_norm_operators_at_the_serving_shapes(shape):
+    """``torch.ops.mtta.fused_instance_norm_forward`` / ``_backward`` called
+    as a replayed program calls them, at the serving step's shapes (bf16):
+    each launches its kernel once and agrees with the plain versions."""
+    _need_card()
+    x, gamma, beta, gy = _norm_case(shape, torch.bfloat16)
+    at = (fused_instance_norm.launches, fused_instance_norm.backward_launches)
+    y, stats = torch.ops.mtta.fused_instance_norm_forward(x, gamma, beta, 1e-5, True)
+    dx, dgamma, dbeta = torch.ops.mtta.fused_instance_norm_backward(gy, x, gamma, beta, stats, True, True)
+    _, _, dbeta_only = torch.ops.mtta.fused_instance_norm_backward(gy, x, gamma, beta, stats, True, False)
+    torch.cuda.synchronize()
+    assert (fused_instance_norm.launches - at[0], fused_instance_norm.backward_launches - at[1]) == (1, 2)
+    want_y = _plain_forward(x, gamma, beta, 1e-5, True)[0]
+    atol, rtol = TOLS[torch.bfloat16]
+    assert bool(((y.float() - want_y.float()).abs() <= atol + rtol * want_y.float().abs()).all())
+    ref = instance_norm_backward_plain(gy, x, gamma, beta, stats[0], stats[1], True)
+    assert torch.equal(dbeta, dbeta_only)
+    # the tolerances of the other backward tests: bf16 dx one rounding, f32 sums
+    for name, u, v in zip(("dx", "dgamma", "dbeta"), (dx, dgamma, dbeta), ref):
+        assert u.dtype == v.dtype and u.shape == v.shape, name
+        diff, vmax = (u.float() - v.float()).abs(), float(v.float().abs().max())
+        if name == "dx":
+            assert bool((diff <= 2.0 ** -7 * (vmax + v.float().abs())).all()), name
+        else:
+            assert float(diff.max()) <= 1e-4 * vmax + 1e-5, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["inline", "post"])
+def test_serving_artifact_on_the_card(tmp_path, mode):
+    """A small bf16 UNet3D's Tent artifact exported, saved and loaded on the
+    card: each call launches the norm kernels as the live step does (no
+    plain backward) and gives the live step's entropies and predictions."""
+    _need_card()
+    from multimodal_tta_tpu_torch.conf import ConfigNode
+    from multimodal_tta_tpu_torch.models.layers import InstanceNorm
+    from multimodal_tta_tpu_torch.models.unet3d import UNet3D
+    from multimodal_tta_tpu_torch.serving import export_adapt_serving, load_artifact, save_artifact
+    from multimodal_tta_tpu_torch.tta.tent import TentAdapter
+
+    cfg = ConfigNode({"task": {"seed": 0}, "tta": {"method": "tent", "steps": 1, "lr": 1e-2,
+                                                    "episodic": mode == "post", "entropy_focus": "uncertain"}})
+    kw = dict(channels=(16, 32, 64), strides=(2, 2), dtype=torch.bfloat16, device="cuda", seed=5)
+    shape = (2, 16, 32, 32, 2)
+    ad = TentAdapter(cfg.tta, config=cfg, device="cuda")
+    program, meta, state0 = export_adapt_serving(ad, UNet3D(**kw), shape, threshold=0.3, predict_mode=mode)
+    save_artifact(str(tmp_path / "a.mttap"), program, meta, state0)
+    art = load_artifact(str(tmp_path / "a.mttap"))
+    live = TentAdapter(cfg.tta, config=cfg, device="cuda")
+    model = UNet3D(**kw)
+    n = sum(isinstance(m, InstanceNorm) for m in model.modules())
+    fn = live.make_adapt_predict_fn(model, 0.3, mode)
+    state = art.initial_state()
+    g = torch.Generator("cuda").manual_seed(7)
+    for _ in range(2):
+        x = torch.randn(shape, generator=g, device="cuda") * 100
+        at = (fused_instance_norm.launches, fused_instance_norm.backward_launches,
+              instance_norm_backward_plain.cuda_calls)
+        out = art.call(*(art.initial_state() if mode == "post" else state), x, 2, float("nan"))
+        torch.cuda.synchronize()
+        ran = (fused_instance_norm.launches - at[0], fused_instance_norm.backward_launches - at[1],
+               instance_norm_backward_plain.cuda_calls - at[2])
+        assert ran == ((2 * n, n, 0) if mode == "post" else (n, n, 0)), ran
+        state = list(out[:art.n_state])
+        _, pred = fn(model, x, 2)
+        assert torch.equal(out[art.n_state], live._last_ents)
+        assert torch.equal(out[art.n_state + 1], pred)
