@@ -197,6 +197,29 @@ Phases, in order (any failure propagates and exits non-zero):
                launches a batch); export seconds and bytes of each artifact
                (SAR's, CoTTA's and MEMO's programs run from memory).
 
+ 20. options — the training options (``training_options_phase``): through
+               ``ExperimentManager`` with the HECKTOR21 recipe at batch 8 on
+               [8,48,144,144,2], bf16, 2 epochs of 16 synthetic volumes with
+               validation of 4 (surface metrics) each: A, UNETR at
+               configs/model/unetr.yaml's widths with 8 experts in blocks 1, 3,
+               .., 11 and remat, once with Adam and once with the stock
+               adafactor block; B, the flagship with deep supervision 2; C,
+               UNet3D-WS distilled from phase 11's flagship checkpoint (focus
+               all, then uncertain); D, the flagship's bottleneck MoE, its
+               steps 1-2 traced by ``training.profile``: finite losses, every
+               trainable tensor moved, the teacher bitwise its checkpoint, each
+               step's launches and the run's exactly (``OPTION_NORMS``,
+               ``remat_norms``, the teacher's 18), each validation EDT bitwise
+               its plain version, the MoE aux and dropped share of every step,
+               the top-1 routing of a bf16 forward through the kernel and the
+               plain norm, ms per warm step, volumes/s, peak memory and the
+               optimizer state's bytes; one f32 step of each on a small
+               input, kernel vs plain norm (phase 12's limits); the trace's 2
+               ``ProfilerStep``s and the norm kernels' names; then
+               ``training.debug_nans`` on B: two clean steps (strict mode)
+               bitwise the flag-off steps and what the checks cost a step,
+               a batch with a NaN raising ``FloatingPointError``.
+
 Phase 2 also holds the norm kernels against their plain versions at the nine
 norm shapes of the batch-8 training step (the largest, [8,48,144,144,32], in
 bf16 and f32) and at the nine shapes of windowed Tent's 4 windows.
@@ -211,6 +234,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
 import sys
@@ -2586,6 +2610,402 @@ def serving_artifact_phase(device, root: str, *, manifest=None, best=None, shape
     return out
 
 
+# ---- phase 20: the training options ----------------------------------------
+OPTION_TRAIN_VOLUMES, OPTION_VAL_VOLUMES = 16, 4  # phase 11's: 2 steps of batch 8 an epoch
+OPTION_EXPERTS = 8
+# the runs of phase 20: (tag, model family, the recipe's overrides, what the
+# training node gains). A: UNETR with 8 experts in blocks 1, 3, .., 11 and
+# remat, once with Adam and once with the stock adafactor block; B: the
+# flagship with deep supervision 2; C: UNet3D-WS under the flagship teacher
+# (phase 11's checkpoint), focus all and uncertain; D: the flagship's
+# bottleneck MoE (profiled at steps 1-2)
+OPTION_RUNS = (
+    ("A_unetr_moe8_adam", "unetr", ["model=unetr", f"model.moe_experts={OPTION_EXPERTS}", "training.remat=true"], {}),
+    ("A_unetr_moe8_adafactor", "unetr", ["model=unetr", f"model.moe_experts={OPTION_EXPERTS}", "training.remat=true",
+                                         "training.optimizer=adafactor"], {}),
+    ("B_unet_deep_supervision2", "unet", ["model=unet", "model.deep_supervision=2"], {}),
+    ("C_unet_ws_distill_all", "unet_ws", ["model=unet", "model.name=unet_ws"], {"focus": "all"}),
+    ("C_unet_ws_distill_uncertain", "unet_ws", ["model=unet", "model.name=unet_ws"], {"focus": "uncertain"}),
+    ("D_unet_moe8", "unet", ["model=unet", f"model.moe_experts={OPTION_EXPERTS}"], {"profile": True}),
+)
+# norm calls of one forward: the flagship 18, UNet3D-WS 16, UNETR 16
+OPTION_NORMS = {"unet": 18, "unet_ws": 16, "unetr": 16}
+# the f32 step, kernel vs plain norm: a small input the patch grid divides
+OPTION_SMALL = {"unet": (16, 32, 32), "unet_ws": (16, 32, 32), "unetr": (32, 64, 64)}
+PROFILE_STEPS = (1, 2)  # training.profile: start_step, num_steps
+
+
+def option_overrides(*extra: str) -> list:
+    """The HECKTOR21 recipe of configs/ (2 epochs, poly, validation with
+    surface metrics every epoch, seed 0), then ``extra``."""
+    return ["task=hecktor21", "dataset=hecktor21", "task.seed=0", "training.epochs=2", "training.scheduler.name=poly",
+            "training.eval_test.every_n_epochs=1", "evaluation.surface.enable=true",
+            f"evaluation.surface.nsd_tol={NSD_TOL}", *extra]
+
+
+def option_config(tag: str, shape, teacher: str, root: str, extra=(), teacher_extra=()) -> dict:
+    """The composed config of run ``tag`` of ``OPTION_RUNS``: the recipe,
+    the run's overrides, ``extra``; the distillation node (the flagship
+    ``model=unet`` node, composed with ``teacher_extra``, as the teacher;
+    ``teacher`` the extension-less checkpoint) and the profiler node."""
+    from multimodal_tta_tpu_torch.conf import compose
+
+    _, family, overrides, node = dict((r[0], r) for r in OPTION_RUNS)[tag]
+    configs = os.path.join(REPO, "configs")
+    size = "training.data.transforms.image_size=[" + ",".join(map(str, shape)) + "]"
+    run_dir = os.path.join(root, tag)
+    cfg = compose(configs, "config", option_overrides(*overrides, size, f"task.save_dir={run_dir}",
+                                                      f"hydra.run.dir={run_dir}", *extra)).to_container()
+    if "focus" in node:
+        flagship = compose(configs, "config", option_overrides("model=unet", *teacher_extra)).to_container()["model"]
+        cfg["training"]["distill"] = {"enabled": True, "checkpoint": teacher, "temperature": 2.0, "weight": 1.0,
+                                      "focus": node["focus"], "model": flagship}
+    if node.get("profile"):
+        cfg["training"]["profile"] = {"enabled": True, "start_step": PROFILE_STEPS[0], "num_steps": PROFILE_STEPS[1],
+                                      "log_dir": os.path.join(run_dir, "profile")}
+    return cfg
+
+
+def routing_of(model, fn) -> list:
+    """The top-1 expert of every token at each MoE layer while ``fn()``
+    runs: each layer's first call (a remat recompute calls it again)."""
+    import torch
+    import torch.nn.functional as F
+
+    from multimodal_tta_tpu_torch.models.moe import MoEMlp, route
+
+    got, handles = {}, []
+    for name, m in model.named_modules():
+        if isinstance(m, MoEMlp):
+            def hook(mod, args, name=name):
+                if name not in got:
+                    with torch.no_grad():
+                        gates = torch.softmax(F.linear(args[0].float(), mod.router.weight, mod.router.bias), -1)
+                        got[name] = route(gates, 1)[1].flatten()
+            handles.append(m.register_forward_pre_hook(hook))
+    try:
+        fn()
+    finally:
+        for h in handles:
+            h.remove()
+    return [got[k] for k in sorted(got)]
+
+
+def share_alike(a: list, b: list) -> float:
+    same = sum(int((x == y).sum()) for x, y in zip(a, b))
+    return same / max(sum(x.numel() for x in a), 1)
+
+
+def training_options_phase(device, root: str, teacher: str, *, shape=SHAPE[:3], small=None, extra=None,
+                           teacher_extra=(), runs=None, reset_counts=lambda: None, read_counts=lambda: {},
+                           warm_steps: int = 4) -> dict:
+    """Phase 20: the training options through ``ExperimentManager`` with the
+    HECKTOR21 recipe at batch 8 (``OPTION_RUNS``): 2 epochs of
+    ``OPTION_TRAIN_VOLUMES`` synthetic volumes of ``shape``, validation of
+    ``OPTION_VAL_VOLUMES`` (surface metrics) each epoch; per run the warm
+    step's ms on device batches, volumes/s, peak memory and the optimizer
+    state's bytes; the MoE aux and dropped share of every step; for the MoE
+    runs the share of tokens routed alike by a bf16 forward through the
+    kernel and through the plain norm; one f32 step per run on a ``small``
+    input, kernel vs plain norm; the profiler's trace of D; then
+    ``training.debug_nans`` on B's model: two clean steps (strict mode)
+    bitwise the flag-off steps, and timed, then a batch with a NaN raises
+    ``FloatingPointError``.
+    ``extra`` maps a family to overrides (the CPU test's narrow widths).
+
+    Checks what holds on any device: finite losses; every trainable tensor
+    moved; the teacher bitwise its checkpoint; each step's launches and the
+    run's exactly as ``OPTION_NORMS``, ``remat_norms`` and the teacher's
+    forward derive them; each validation EDT bitwise its plain version; the
+    f32 step's loss and deltas (phase 12's limits); the trace's
+    ``ProfilerStep``s; the NaN checks. The caller holds the numbers."""
+    import gc
+    import shutil
+    import statistics
+
+    import numpy as np
+    import torch
+
+    import multimodal_tta_tpu_torch.ops.surface as surface_module
+    from multimodal_tta_tpu_torch.conf import ConfigNode
+    from multimodal_tta_tpu_torch.core.experiment_manager import ExperimentManager
+    from multimodal_tta_tpu_torch.core.optim import build_optimizer
+    from multimodal_tta_tpu_torch.core.train_state import TrainState
+    from multimodal_tta_tpu_torch.core.trainer_base import HookBase
+    from multimodal_tta_tpu_torch.core.trainers.seg_trainer import SegTrainer
+    from multimodal_tta_tpu_torch.data import HostLoader, get_seg_transforms
+    from multimodal_tta_tpu_torch.kernels.edt_minplus import squared_edt_volumes, squared_edt_volumes_plain
+    from multimodal_tta_tpu_torch.models.layers import set_plain_norm
+    from multimodal_tta_tpu_torch.registry import get_model
+    from multimodal_tta_tpu_torch.utils.metrics import set_random_seed
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    extra = extra or {}
+    small = small or OPTION_SMALL
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    shutil.rmtree(root, ignore_errors=True)
+    out: dict = {"runs": {}}
+    train_set = hecktor_volumes(OPTION_TRAIN_VOLUMES, 61, shape)
+    val_set = hecktor_volumes(OPTION_VAL_VOLUMES, 62, shape)
+    spec = get_seg_transforms(ndim=3, split="train", normalize=True, geom_aug=False, intensity_aug=False,
+                              image_size=list(shape), intensity_policy=HECKTOR_POLICY,
+                              channel_names=["ct", "pt"], on_device=True).device_spec()
+    teacher_sd = torch.load(teacher + ".pt", map_location="cpu", weights_only=True)["model"]
+
+    class StepRecorder(HookBase):
+        def __init__(self):
+            self.launches, self.losses, self.ms, self.moe = [], [], [], []
+
+        def before_train_step(self):
+            sync()
+            self._at, self._t = read_counts(), time.perf_counter()
+
+        def after_train_step(self):
+            sync()
+            self.ms.append((time.perf_counter() - self._t) * 1e3)
+            got = read_counts()
+            self.launches.append({k: got[k] - self._at[k] for k in got})
+            self.losses.append(self.trainer._pending_loss)
+            if self.trainer.moe_stats is not None:
+                self.moe.append({k: [float(v) for v in t] for k, t in self.trainer.moe_stats.items()})
+
+    def run_one(tag: str, family: str, node: dict) -> dict:
+        """One run of ``OPTION_RUNS``: its numbers; every tensor it made is
+        freed when it returns, so the next run's peak memory is its own."""
+        t_run = time.perf_counter()
+        cfg = option_config(tag, shape, teacher, root, extra.get(family, ()), teacher_extra)
+        batch = int(cfg["training"]["batch_size"])
+        m = ExperimentManager(ConfigNode(cfg), device=dev)
+        model = m.setup_model()
+        m.setup_optimizer()
+        m.setup_scheduler()
+        m.train_loader = HostLoader(train_set, batch_size=batch, shuffle=True, drop_last=True, num_workers=2, seed=0)
+        m.val_loader = HostLoader(val_set, batch_size=int(cfg["training"]["eval_batch_size"]), num_workers=2)
+        m.device_transform = spec
+        m.setup_trainer()
+        trainer = m.trainer
+        trainer._hooks.remove(m.checkpoint_hook)  # phase 11 checks the checkpoints; no 3 GB writes here
+        rec = StepRecorder()
+        trainer.register_hooks([rec])
+        params0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+        per_forward = OPTION_NORMS[family]
+        recompute = remat_norms(model) if family == "unetr" else 0
+        teacher_fwd = OPTION_NORMS["unet"] if "focus" in node else 0
+        val_edt = []
+
+        def recording_edt(pts, spacing, *, sqrt=False):
+            got = squared_edt_volumes(pts, spacing, sqrt=sqrt)
+            val_edt.append((pts.clone(), spacing, sqrt, got.clone()))
+            return got
+
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        surface_module.squared_edt_volumes = recording_edt
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            history = m.train(2)
+            sync()
+        finally:
+            surface_module.squared_edt_volumes = squared_edt_volumes
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+        losses = [float(v) for v in rec.losses]
+        unmoved = sorted(n for n, p in model.named_parameters() if torch.equal(p, params0[n]))
+        n_steps, n_val = len(losses), 2 * len(m.val_loader)
+        step_want = {"forward": per_forward + recompute + teacher_fwd, "backward": per_forward}
+        run_want = {"forward": n_steps * step_want["forward"] + n_val * per_forward,
+                    "backward": n_steps * per_forward, "minplus": n_val}
+        edt = [torch.equal(got, squared_edt_volumes_plain(pts, spacing, sqrt=root_))
+               for pts, spacing, root_, got in val_edt]
+        del val_edt
+        r = {"family": family, "params": len(params0), "param_count": sum(p.numel() for p in params0.values()),
+             "wall_s": wall, "losses": losses, "step_ms": rec.ms, "step_launches": rec.launches, "launches": counts,
+             "want": run_want, "step_want": step_want, "unmoved": unmoved, "moe": rec.moe, "peak_gib": peak / 2**30,
+             "optimizer": type(getattr(trainer.state.optimizer, "optimizer", trainer.state.optimizer)).__name__,
+             "val": [{k: v for k, v in ev.items() if "/" not in k} for ev in history["eval_history"]],
+             "edt_bitwise": edt, "steps": n_steps, "val_batches": n_val, "batch": batch}
+        if n_steps != 2 * (OPTION_TRAIN_VOLUMES // batch) or not all(np.isfinite(losses)):
+            raise AssertionError(f"{tag}: {n_steps} steps, losses {losses}")
+        if unmoved:
+            raise AssertionError(f"{tag}: training left {unmoved} unmoved")
+        if not all(_counted(s, step_want) for s in rec.launches) or not _counted(counts, run_want):
+            raise AssertionError(f"{tag}: launches {rec.launches} / {counts}, derived {step_want} / {run_want}")
+        if len(edt) != n_val or not all(edt):
+            raise AssertionError(f"{tag}: validation EDT bitwise {edt}")
+        for ev in history["eval_history"]:
+            bad = {k: v for k, v in ev.items() if not math.isfinite(float(v))}
+            if bad or "gtvt_hd95" not in ev:
+                raise AssertionError(f"{tag} validation: {bad or sorted(ev)}")
+        if int(cfg["model"].get("moe_experts") or 0) > 0:
+            n_layers = sum(1 for n in model.state_dict() if n.endswith(".router.weight"))
+            if len(rec.moe) != n_steps or any(len(s["aux"]) != n_layers for s in rec.moe):
+                raise AssertionError(f"{tag}: MoE stats {rec.moe}, {n_layers} layers")
+            r["moe_layers"] = n_layers
+        if trainer.teacher is not None:
+            tsd = trainer.teacher.state_dict()
+            r["teacher_bitwise_checkpoint"] = tsd.keys() == teacher_sd.keys() and all(
+                torch.equal(tsd[k].cpu(), v) for k, v in teacher_sd.items())
+            if not r["teacher_bitwise_checkpoint"] or any(p.requires_grad for p in trainer.teacher.parameters()):
+                raise AssertionError(f"{tag}: the teacher moved or is trainable")
+        if node.get("profile"):
+            hook = m.profiler_hook
+            with open(hook.trace_path) as f:
+                trace = json.load(f)["traceEvents"]
+            names = {str(e.get("name", "")) for e in trace}
+            steps_ = sorted(n for n in names if n.startswith("ProfilerStep#"))
+            kernels = sorted({k for n in names for k in re.findall(r"in_(?:fwd|bwd)_(?:resident|stream)", n)})
+            r["profile"] = {"trace": os.path.relpath(hook.trace_path, root), "bytes": os.path.getsize(hook.trace_path),
+                            "profiler_steps": steps_, "norm_kernels": kernels, "events": len(trace)}
+            if len(steps_) != PROFILE_STEPS[1] or (cuda and {k[:6] for k in kernels} != {"in_fwd", "in_bwd"}):
+                raise AssertionError(f"{tag}: the trace holds {steps_} and norm kernels {kernels}")
+
+        # warm steps on device-resident batches: ms a step, volumes/s, peak memory
+        dev_batches = [{"image": torch.from_numpy(np.stack([v["image"] for v in train_set[k:k + batch]])).to(dev),
+                        "label": torch.from_numpy(np.stack([v["label"] for v in train_set[k:k + batch]])).to(dev),
+                        "_n_valid": batch} for k in (0, batch)]
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        warm = []
+        for i in range(warm_steps):
+            sync()
+            t0 = time.perf_counter()
+            trainer.run_step(dev_batches[i % 2])
+            sync()
+            warm.append((time.perf_counter() - t0) * 1e3)
+        trainer.flush_step_metrics()
+        med = statistics.median(warm[1:])
+        opt = trainer.state.optimizer
+        r.update(warm_step_ms=warm, median_step_ms=med, volumes_per_s=batch * 1e3 / med,
+                 warm_peak_gib=(torch.cuda.max_memory_allocated(dev) if cuda else 0) / 2**30,
+                 optimizer_state_bytes=sum(t.numel() * t.element_size()
+                                           for st in getattr(opt, "optimizer", opt).state.values()
+                                           for t in st.values() if torch.is_tensor(t)))
+        if "moe_layers" in r:  # a bf16 forward through the kernel and through the plain norm
+            x = dev_batches[0]["image"][:2].float()
+            x = trainer._norm_fn(x) if trainer._norm_fn is not None else x
+            routes = {}
+            with torch.no_grad():
+                for plain in (False, True):
+                    set_plain_norm(model, plain)
+                    routes[plain] = routing_of(model, lambda: model(x))
+            set_plain_norm(model, False)
+            r["bf16_routed_alike"] = share_alike(routes[False], routes[True])
+        del dev_batches
+        trainer.state.optimizer.zero_grad(set_to_none=True)
+        del trainer, model, m, rec, params0
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # one f32 step on a small input, kernel vs plain norm (phase 12's limits)
+        sm = small[family]
+        cfg32 = option_config(tag, sm, teacher, root, extra.get(family, ()), teacher_extra)
+        cfg32["training"].update(compute_dtype="float32", optimizer="sgd",
+                                 optimizers={"sgd": {"lr": 1e-2, "momentum": 0.9}}, profile={"enabled": False})
+        rs = np.random.RandomState(23)
+        small_batch = {"image": np.stack([np.stack([rs.randn(*sm) * 200.0 - 100.0, np.abs(rs.randn(*sm)) * 3.0],
+                                                   axis=-1) for _ in range(2)]).astype(np.float32),
+                       "label": (rs.rand(2, *sm, 1) > 0.9).astype(np.float32)}
+        parity, routed = {}, {}
+        for plain in (False, True):
+            sized = {"image_size": list(sm)} if family == "unetr" else {}
+            mm = get_model(family).from_config(ConfigNode(cfg32["model"]), dtype=torch.float32,
+                                               remat=cfg32["training"].get("remat", False), device=dev, seed=5,
+                                               **sized)
+            set_plain_norm(mm, plain)
+            tr = SegTrainer(ConfigNode(cfg32), device_transform=spec, device=dev)
+            tr.setup(TrainState(model=mm, optimizer=build_optimizer(ConfigNode(cfg32["training"]), mm)[0]))
+            tr.prepare()
+            if tr.teacher is not None:
+                set_plain_norm(tr.teacher, plain)
+            src = {n: p.detach().clone() for n, p in mm.named_parameters()}
+            reset_counts()
+            routed[plain] = routing_of(mm, lambda: tr.run_step(small_batch))
+            loss = tr.flush_step_metrics()["loss"]
+            sync()
+            ran = read_counts()
+            parity[plain] = (loss, {n: (p.detach() - src[n]).flatten() for n, p in mm.named_parameters()},
+                             {k: ran.get(k, 0) for k in ("forward", "backward")})
+            del mm, tr
+        (l_k, d_k, ran_k), (l_p, d_p, ran_p) = parity[False], parity[True]
+        dk, dp = torch.cat(list(d_k.values())), torch.cat(list(d_p.values()))
+        off = sorted(((float((d_k[n] - d_p[n]).norm()), n) for n in d_p), reverse=True)[:3]
+        f32 = {"shape": [2, *sm, 2], "loss": (l_k, l_p), "loss_rel": abs(l_k - l_p) / abs(l_p),
+               "delta_rel_l2": float((dk - dp).norm() / dp.norm()), "launches": (ran_k, ran_p),
+               "most_apart": [(n, d / float(dp.norm())) for d, n in off]}
+        if routed[False]:
+            f32["routed_alike"] = share_alike(routed[False], routed[True])
+        r["f32_step"] = f32
+        del parity, d_k, d_p, dk, dp, routed  # params-sized: the next run's peak memory is its own
+        if not (f32["loss_rel"] <= TRAIN_LOSS_REL and f32["delta_rel_l2"] <= TRAIN_DELTA_REL):
+            raise AssertionError(f"{tag}: the f32 step through the kernel disagrees with the plain norm: {f32}")
+        if cuda and (ran_k != {"forward": step_want["forward"], "backward": per_forward}
+                     or ran_p != {"forward": 0, "backward": 0}):
+            raise AssertionError(f"{tag}: f32 parity launches {ran_k} / {ran_p}, derived {step_want}")
+        r["run_s"] = time.perf_counter() - t_run
+        return r
+
+    for tag, family, _, node in (OPTION_RUNS if runs is None else [r for r in OPTION_RUNS if r[0] in runs]):
+        out["runs"][tag] = run_one(tag, family, node)
+        gc.collect()  # a trainer and its hooks refer to each other
+        if cuda:
+            torch.cuda.empty_cache()
+
+    # training.debug_nans on B's model: clean steps in strict mode, bitwise
+    # the flag-off steps; then a batch with a NaN raises FloatingPointError
+    if runs is None or "debug_nans" in runs:
+        tag = "B_unet_deep_supervision2"
+        fam = "unet"
+        clean = {"image": np.stack([v["image"] for v in train_set[:2]]),
+                 "label": np.stack([v["label"] for v in train_set[:2]])}
+        got, step_ms = {}, {}
+        set_random_seed(0, "strict")
+        try:
+            for flag in (False, True):
+                cfg = option_config(tag, shape, teacher, root, extra.get(fam, ()), teacher_extra)
+                cfg["training"]["debug_nans"] = flag
+                m = ExperimentManager(ConfigNode(cfg), device=dev)
+                m.setup_model()
+                m.setup_optimizer()
+                m.device_transform = spec
+                m.setup_trainer()
+                step_ms[flag] = []
+                for _ in range(2):  # the second step's time: what the checks cost a warm step
+                    sync()
+                    t0 = time.perf_counter()
+                    m.trainer.run_step(clean)
+                    sync()
+                    step_ms[flag].append((time.perf_counter() - t0) * 1e3)
+                got[flag] = (m.trainer.flush_step_metrics()["loss"],
+                             {n: p.detach().clone() for n, p in m.model.named_parameters()})
+            sync()
+        finally:
+            set_random_seed(0, "practical")
+        bitwise = got[True][0] == got[False][0] and all(torch.equal(p, got[False][1][n])
+                                                        for n, p in got[True][1].items())
+        nan_batch = {k: v.copy() for k, v in clean.items()}
+        nan_batch["image"][1, 5, 7, 9, 1] = np.nan
+        try:
+            m.trainer.run_step(nan_batch)
+            raised = None
+        except FloatingPointError as e:
+            raised = str(e)
+        out["debug_nans"] = {"clean_steps_bitwise_flag_off": bitwise, "loss": got[True][0], "raised": raised,
+                             "step_ms": {"off": step_ms[False], "on": step_ms[True]}, "batch": 2}
+        if not bitwise or raised is None:
+            raise AssertionError(f"debug_nans: {out['debug_nans']}")
+        del m, got
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -3671,6 +4091,12 @@ def main() -> int:
     log(f"[train] phases 11-13 took {time.perf_counter() - t_train_phase:.1f} s")
     trained_sd = {k: v.detach().clone() for k, v in model.state_dict().items()}  # phase 15 adapts these
     del run_a, trainer, model, dev_batches
+    # phase 20 distills from phase 11's best checkpoint
+    teacher_root = os.path.join(REPO, "build", "chip_smoke_teacher")
+    shutil.rmtree(teacher_root, ignore_errors=True)
+    os.makedirs(teacher_root)
+    for ext in (".pt", ".json"):
+        shutil.copy(os.path.join(ckpt_dir, "best_model" + ext), os.path.join(teacher_root, "flagship" + ext))
     shutil.rmtree(run_root, ignore_errors=True)
 
     # ---- 14. the command-line entry points --------------------------------
@@ -4356,6 +4782,43 @@ def main() -> int:
     srv.update({"launches": art_launches, "phase_s": time.perf_counter() - t_srv, "card": smi})
     log(f"[serving] phase 19 took {srv['phase_s']:.1f} s; launches through artifacts {art_launches}; card {smi}")
 
+    # ---- 20. the training options: MoE, deep supervision, Adafactor, ------
+    # distillation, the profiler and debug_nans
+    t_opt = time.perf_counter()
+    torch.cuda.empty_cache()
+    opt20 = training_options_phase(dev, os.path.join(REPO, "build", "chip_smoke_options"),
+                                   os.path.join(teacher_root, "flagship"), reset_counts=reset_counts,
+                                   read_counts=read_counts)
+    shutil.rmtree(teacher_root, ignore_errors=True)
+    opt_launches = {k: sum(r["launches"][k] for r in opt20["runs"].values())
+                    for k in ("forward", "backward", "minplus")}
+    for tag, r in opt20["runs"].items():
+        f32 = r["f32_step"]
+        log(f"[options] {tag} ({r['family']}, {r['params']} param tensors, {r['param_count'] / 1e6:.1f}M params, "
+            f"{r['optimizer']}): {r['steps']} steps at batch {r['batch']} in {r['wall_s']:.2f} s (run with its f32 "
+            f"step {r['run_s']:.1f} s); losses {[round(v, 5) for v in r['losses']]}; ms per step (host loader) "
+            f"{[round(t, 2) for t in r['step_ms']]}; warm on device batches {[round(t, 2) for t in r['warm_step_ms']]} "
+            f"-> median {r['median_step_ms']:.2f} ms, {r['volumes_per_s']:.2f} volumes/s, peak allocated "
+            f"{r['warm_peak_gib']:.2f} GiB ({r['peak_gib']:.2f} GiB in the 2-epoch run), optimizer state "
+            f"{r['optimizer_state_bytes']} bytes; launches per step {r['step_launches'][0]} (derived "
+            f"{r['step_want']}), over the run {r['launches']}; validation EDT bitwise plain {r['edt_bitwise']}; "
+            f"validation {r['val']}; card {smi}")
+        if "moe" in r and r["moe"]:
+            log(f"[options] {tag} MoE ({r['moe_layers']} layers of {OPTION_EXPERTS} experts) aux per step "
+                f"{[[round(a, 5) for a in s['aux']] for s in r['moe']]}, dropped per step "
+                f"{[[round(d, 5) for d in s['dropped']] for s in r['moe']]}; top-1 routing alike, bf16 forward "
+                f"kernel vs plain norm: {r['bf16_routed_alike']}")
+        if "teacher_bitwise_checkpoint" in r:
+            log(f"[options] {tag}: the teacher bitwise its checkpoint {r['teacher_bitwise_checkpoint']}")
+        if "profile" in r:
+            log(f"[options] {tag} profiler trace: {r['profile']}")
+        log(f"[options] {tag} f32 step {f32['shape']} kernel vs plain norm: loss {f32['loss']} rel "
+            f"{f32['loss_rel']:.3g} (limit {TRAIN_LOSS_REL}), param deltas rel L2 {f32['delta_rel_l2']:.3g} (limit {TRAIN_DELTA_REL}), "
+            f"launches {f32['launches']}" + (f", routed alike {f32['routed_alike']}" if "routed_alike" in f32 else ""))
+    log(f"[options] debug_nans: {opt20['debug_nans']}")
+    opt20.update({"launches": opt_launches, "phase_s": time.perf_counter() - t_opt, "card": smi})
+    log(f"[options] phase 20 took {opt20['phase_s']:.1f} s; launches {opt_launches}; card {smi}")
+
 
     def norm_summary(name: str, tot: dict, train_tot: dict, brats_tot: dict, n_launches: dict, err: float,
                      extra: dict, direction: str) -> dict:
@@ -4386,14 +4849,15 @@ def main() -> int:
                            {**launches, **norm_eval_launches, "train": train_launches["forward"],
                             "cli": cli_launches["forward"], "tta": tta_launches["forward"],
                             "brats": brats_launches["forward"], "transformer": tr_launches["forward"],
-                            "batchnorm": bn_launches["forward"], "serving_artifact": art_launches["forward"]},
+                            "batchnorm": bn_launches["forward"], "serving_artifact": art_launches["forward"],
+                            "training_options": opt_launches["forward"]},
                            max_abs_err, {}, "forward")
     backward_summary = norm_summary(
         "fused_instance_norm_backward", btotals, norm_totals[TRAIN_BATCH][1], brats_norm[1],
         {**backward_launches, "train": train_launches["backward"], "cli": cli_launches["backward"],
          "tta": tta_launches["backward"], "brats": brats_launches["backward"],
          "transformer": tr_launches["backward"], "batchnorm": bn_launches["backward"],
-         "serving_artifact": art_launches["backward"]}, backward_err,
+         "serving_artifact": art_launches["backward"], "training_options": opt_launches["backward"]}, backward_err,
         {"note": "the gradient of the TPU kernel's function; dx computed in all 18 timed calls"}, "backward")
     minplus_summary = {
         "name": "minplus",
@@ -4401,10 +4865,12 @@ def main() -> int:
         "source": "multimodal_tta_tpu_torch/csrc/edt_minplus.cu",
         "replaces": "multimodal_tta_tpu/pallas/edt_minplus.py:52",
         "launches": sum(eval_launches.values()) + train_launches["minplus"] + cli_launches["minplus"]
-        + tta_launches["minplus"] + brats_launches["minplus"] + tr_launches["minplus"] + bn_launches["minplus"],
+        + tta_launches["minplus"] + brats_launches["minplus"] + tr_launches["minplus"] + bn_launches["minplus"]
+        + opt_launches["minplus"],
         "launches_by_path": {**eval_launches, "train": train_launches["minplus"], "cli": cli_launches["minplus"],
                              "tta": tta_launches["minplus"], "brats": brats_launches["minplus"],
-                             "transformer": tr_launches["minplus"], "batchnorm": bn_launches["minplus"]},
+                             "transformer": tr_launches["minplus"], "batchnorm": bn_launches["minplus"],
+                             "training_options": opt_launches["minplus"]},
         "max_abs_err": minplus_err,
         "ms": edt_ms,
         "plain_ms": edt_plain_ms,
@@ -4425,7 +4891,8 @@ def main() -> int:
                     "eval_ms_per_batch": eval_ms, "eval_warm_ms_per_batch": eval_warm_ms,
                     "eval_batch_split_ms": split,
                     "eval_metrics": eval_runs, "training": training, "cli": cli, "tta": tta_log, "brats": brats,
-                    "transformers": transformers, "batchnorm": batchnorm, "serving_artifact": srv}, default=str))
+                    "transformers": transformers, "batchnorm": batchnorm, "serving_artifact": srv,
+                    "training_options": opt20}, default=str))
     log(json.dumps({"kernels": [summary, backward_summary, minplus_summary]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                             "count": torch.cuda.device_count()}}))

@@ -7,8 +7,11 @@ sidecar ``path.json`` (epoch, best metrics, scheduler state; ``_format:
 "torch"``). Both are written to a ``.tmp`` file first and renamed with
 ``os.replace``, so an interrupted save never leaves a torn checkpoint.
 
+``load_params_only`` reads a model's params and buffers alone (the
+frozen teacher of ``core/distill.py``), with no optimizer template.
+
 The reference's msgpack and orbax formats are not ported (they need flax,
-msgpack and orbax; ROADMAP.md): loading such a checkpoint raises.
+msgpack and orbax; ROADMAP.md, item 12b): loading such a checkpoint raises.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..utils.logger import get_logger
 from .train_state import TrainState, shadow_module
@@ -54,6 +58,18 @@ def _json_default(o):
     return str(o)
 
 
+def _pt_file(path: str) -> str:
+    """``path.pt``; a checkpoint in the reference's formats raises."""
+    if not os.path.exists(path + ".pt"):
+        for other in (".msgpack", ".orbax"):
+            if os.path.exists(path + other):
+                raise NotImplementedError(
+                    f"[checkpoint] {path}{other} is in the reference's {other[1:]} format, which "
+                    "the port does not read (ROADMAP.md, item 12b)")
+        raise FileNotFoundError(f"[checkpoint] no checkpoint at {path}.pt")
+    return path + ".pt"
+
+
 def load_checkpoint(path: str, template_state: TrainState) -> Tuple[TrainState, Dict[str, Any]]:
     """Restore ``path`` into ``template_state``'s model and optimizer (in
     place, on their device); returns ``(state, extra_metadata)`` with the
@@ -62,18 +78,12 @@ def load_checkpoint(path: str, template_state: TrainState) -> Tuple[TrainState, 
     a shadow in the checkpoint is restored either way; resuming with EMA
     from a checkpoint without one starts the shadow at the restored
     params."""
-    if not os.path.exists(path + ".pt"):
-        for other in (".msgpack", ".orbax"):
-            if os.path.exists(path + other):
-                raise NotImplementedError(
-                    f"[checkpoint] {path}{other} is in the reference's {other[1:]} format, which "
-                    "the port does not read (ROADMAP.md, training slice left-overs)")
-        raise FileNotFoundError(f"[checkpoint] no checkpoint at {path}.pt")
+    pt = _pt_file(path)
     model = template_state.model
     device = next(model.parameters()).device
     # read to the host: the state dicts' loaders put each tensor where the
     # live one lives (Adam's step counts stay on the host, as in a fresh run)
-    raw = torch.load(path + ".pt", map_location="cpu", weights_only=True)
+    raw = torch.load(pt, map_location="cpu", weights_only=True)
     model.load_state_dict(raw["model"])
     template_state.optimizer.load_state_dict(raw["optimizer"])
     if "ema_params" in raw:
@@ -88,6 +98,25 @@ def load_checkpoint(path: str, template_state: TrainState) -> Tuple[TrainState, 
         ema = None
     state = dataclasses.replace(template_state, step=int(raw["step"]), ema_params=ema)
     return state, _read_sidecar(path)
+
+
+def load_params_only(path: str, model: nn.Module, *, use_ema: bool = False) -> nn.Module:
+    """Load ONLY the params and buffers of the checkpoint ``path`` into
+    ``model`` (in place; returned): no optimizer template is needed, so the
+    loading run's optimizer may differ from the saving run's (the frozen
+    teacher of ``core/distill.py``). ``use_ema=True`` takes the EMA shadow as
+    the params and raises when the checkpoint has none."""
+    raw = torch.load(_pt_file(path), map_location="cpu", weights_only=True)
+    sd = dict(raw["model"])
+    if use_ema:
+        if "ema_params" not in raw:
+            raise ValueError(
+                f"[checkpoint] use_ema requested but {path} carries no "
+                "ema_params — the teacher was trained without training.ema"
+            )
+        sd.update(raw["ema_params"])
+    model.load_state_dict(sd)
+    return model
 
 
 def resolve_serving_params(state: TrainState, use_ema: bool) -> TrainState:

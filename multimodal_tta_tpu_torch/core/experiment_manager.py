@@ -15,6 +15,11 @@ may instead hand in loaders by setting ``train_loader`` / ``val_loader`` /
 ``test_loader``, and the train step's on-device transform by setting
 ``device_transform`` (a ``SegTransform.device_spec()``), before
 ``setup_trainer``.
+
+``training.profile.enabled`` adds the ``ProfilerHook`` (``log_dir``, default
+``<run_dir>/profile``; ``start_step``; ``num_steps``), and
+``training.debug_nans`` makes ``SegTrainer`` stop at the first NaN
+(``utils/debug_nans.py``).
 """
 
 from __future__ import annotations
@@ -30,12 +35,20 @@ from ..registry import get_dataset_builder, get_evaluation_strategy, get_model, 
 from ..utils.config import get_config, require_config
 from ..utils.logger import get_logger
 from ..utils.metrics import set_random_seed
-from .hooks import CheckpointHook, EarlyStoppingHook, MemoryMonitorHook, MetricsLoggerHook, TimerHook
+from .hooks import CheckpointHook, EarlyStoppingHook, MemoryMonitorHook, MetricsLoggerHook, ProfilerHook, TimerHook
 from .optim import EpochScheduler, Optimizer, build_optimizer
 from .train_state import TrainState, param_count
 from .trainers.seg_trainer import SegTrainer
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
+
+
+def compute_dtype_of(config) -> torch.dtype:
+    """``training.compute_dtype`` (default bfloat16) as a torch dtype."""
+    compute_dtype = str(get_config(config, "training.compute_dtype", "bfloat16"))
+    if compute_dtype not in _DTYPES:
+        raise ValueError(f"training.compute_dtype must be one of {sorted(_DTYPES)}, got {compute_dtype}")
+    return _DTYPES[compute_dtype]
 
 
 class ExperimentManager:
@@ -53,9 +66,10 @@ class ExperimentManager:
         self.task_name = require_config(config, "task.name")
         self.eval_strategy_name = get_config(config, "task.eval_strategy")
 
+        # numerical sanitizer: SegTrainer stops at the first NaN a module or
+        # a backward node produces (utils/debug_nans.py)
         if bool(get_config(config, "training.debug_nans", False)):
-            raise NotImplementedError(
-                "training.debug_nans is not ported yet (ROADMAP.md, training slice left-overs)")
+            self.logger.info("debug_nans enabled")
 
         self.model: Optional[torch.nn.Module] = None
         self.state: Optional[TrainState] = None
@@ -79,9 +93,8 @@ class ExperimentManager:
         model_name = require_config(model_cfg, "name", type_=str)
         model_cls = get_model(model_name)
 
+        dtype = compute_dtype_of(self.config)
         compute_dtype = str(get_config(self.config, "training.compute_dtype", "bfloat16"))
-        if compute_dtype not in _DTYPES:
-            raise ValueError(f"training.compute_dtype must be one of {sorted(_DTYPES)}, got {compute_dtype}")
         remat = get_config(self.config, "training.remat", False)
         if not isinstance(remat, (bool, int)):
             remat = bool(remat)
@@ -100,7 +113,7 @@ class ExperimentManager:
         sized = {}
         if getattr(model_cls, "input_sized", False):  # params shaped by the input (UNETR, SwinUNETR)
             sized["image_size"] = get_config(self.config, "training.data.transforms.image_size", None)
-        self.model = model_cls.from_config(model_cfg, dtype=_DTYPES[compute_dtype], remat=remat,
+        self.model = model_cls.from_config(model_cfg, dtype=dtype, remat=remat,
                                            device=self.device, seed=init_seed, **sized)
         if pretrained:
             from ..models.pretrained import load_pretrained
@@ -223,9 +236,15 @@ class ExperimentManager:
         hooks.append(MemoryMonitorHook())
         hooks.append(MetricsLoggerHook())
 
-        if bool(get_config(self.config, "training.profile.enabled", False)):
-            raise NotImplementedError(
-                "training.profile (ProfilerHook) is not ported yet (ROADMAP.md, training slice left-overs)")
+        self.profiler_hook = None
+        prof = get_config(self.config, "training.profile", None)
+        if prof is not None and bool(get_config(prof, "enabled", False)):
+            self.profiler_hook = ProfilerHook(
+                log_dir=str(get_config(prof, "log_dir", os.path.join(run_dir, "profile"))),
+                start_step=int(get_config(prof, "start_step", 10)),
+                num_steps=int(get_config(prof, "num_steps", 5)),
+            )
+            hooks.append(self.profiler_hook)
 
         es = get_config(self.config, "training.early_stopping", None)
         if es is not None and bool(get_config(es, "enabled", False)):

@@ -1,9 +1,8 @@
 """Training hooks (the port of ``multimodal_tta_tpu/core/hooks.py``).
 
-Timer, Checkpoint, MemoryMonitor, MetricsLogger and EarlyStopping. The
-trainer steps the learning rate itself, once per epoch, so the reference's
-no-op scheduler hook has no counterpart; the profiler hook is not ported yet
-(ROADMAP.md).
+Timer, Checkpoint, MemoryMonitor, MetricsLogger, Profiler and
+EarlyStopping. The trainer steps the learning rate itself, once per epoch,
+so the reference's no-op scheduler hook has no counterpart.
 """
 
 from __future__ import annotations
@@ -58,7 +57,7 @@ class CheckpointHook(HookBase):
         if fmt in ("orbax", "sharded"):
             raise NotImplementedError(
                 f"[CheckpointHook] the {fmt} checkpoint format is not ported "
-                "(ROADMAP.md, training slice left-overs); use training.checkpoint_format=torch")
+                "(ROADMAP.md, item 12b); use training.checkpoint_format=torch")
         if fmt != "torch":
             raise ValueError(f"[CheckpointHook] unknown checkpoint format: {fmt}")
         self.fmt = fmt
@@ -144,6 +143,57 @@ class MetricsLoggerHook(HookBase):
             else:
                 parts.append(f"{key.replace('_', ' ').title()}: {value:.4f}")
         return f"{prefix}: {', '.join(parts)}"
+
+
+class ProfilerHook(HookBase):
+    """A ``torch.profiler`` trace of training steps ``[start_step,
+    start_step + num_steps)`` (the reference's ``jax.profiler`` trace): the
+    host and, on a card, the device's kernels, with one ``ProfilerStep#k``
+    range per trained step. The Chrome trace is written into ``log_dir`` when
+    the last of those steps ends, or in ``after_train`` if the run ends
+    first; ``trace_path`` names the file."""
+
+    def __init__(self, log_dir: str, start_step: int = 10, num_steps: int = 5):
+        self.log_dir = log_dir
+        self.start_step = int(start_step)
+        self.num_steps = int(num_steps)
+        self.trace_path: Optional[str] = None
+        self._prof = None
+        self._done = False
+
+    def before_train_step(self):
+        if self._prof is not None:
+            self._prof.step()  # closes the last step's ProfilerStep range, opens this one's
+            return
+        if not self._done and self.trainer.iter >= self.start_step:
+            from torch.profiler import ProfilerAction, ProfilerActivity, profile
+
+            activities = [ProfilerActivity.CPU]
+            if self.trainer.device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            os.makedirs(self.log_dir, exist_ok=True)
+            # a schedule that records every step: it names the ProfilerStep ranges
+            self._prof = profile(activities=activities, schedule=lambda step: ProfilerAction.RECORD,
+                                 acc_events=True)
+            self._prof.start()
+
+    def after_train_step(self):
+        if self._prof is not None and self.trainer.iter >= self.start_step + self.num_steps:
+            self._stop()
+
+    def after_train(self):
+        if self._prof is not None:
+            self._stop()
+
+    def _stop(self):
+        if self.trainer.device.type == "cuda":
+            torch.cuda.synchronize(self.trainer.device)
+        self._prof.stop()
+        self.trace_path = os.path.join(self.log_dir, f"trace_step{self.start_step}.json")
+        self._prof.export_chrome_trace(self.trace_path)
+        self._prof = None
+        self._done = True
+        self.trainer.logger.info(f"Profiler trace written to {self.trace_path}")
 
 
 class EarlyStoppingHook(HookBase):

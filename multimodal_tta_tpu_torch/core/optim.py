@@ -14,6 +14,10 @@ optax chain:
   * adam  — decay added to the gradient (L2) + ``optax.adam``:
             ``torch.optim.Adam(weight_decay=)``
   * adamw — ``optax.adamw`` (decoupled decay): ``torch.optim.AdamW``
+  * adafactor — ``add_decayed_weights`` + ``optax.adafactor`` with the
+            reference's keys: ``Adafactor`` below, written out (torch's
+            own Adafactor is another algorithm: its decay, epsilons and
+            relative step differ)
 
 ``training.grad_accum = k`` wraps the optimizer in ``MultiSteps``, the
 counterpart of ``optax.MultiSteps``: the running mean of k gradients is
@@ -31,8 +35,10 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import torch
 from torch import nn
 
+import numpy as np
+
 from ..conf.node import ConfigNode
-from ..models.convert import flax_path
+from ..models.convert import flax_layouts, flax_path
 from ..utils.config import get_config
 
 
@@ -110,6 +116,107 @@ class MultiSteps:
             a.to(device=p.device, dtype=p.dtype).clone() for a, p in zip(acc, self._params())]
 
 
+def factored_dims(shape, min_dim_size_to_factor: int) -> Optional[Tuple[int, int]]:
+    """optax's ``_factored_dims``: ``(d1, d0)``, the second-largest and the
+    largest axis of ``shape``, or None when fewer than two axes reach
+    ``min_dim_size_to_factor``."""
+    if len(shape) < 2:
+        return None
+    sorted_dims = np.argsort(shape)
+    if shape[sorted_dims[-2]] < min_dim_size_to_factor:
+        return None
+    return int(sorted_dims[-2]), int(sorted_dims[-1])
+
+
+class Adafactor(torch.optim.Optimizer):
+    """The reference's Adafactor chain (``multimodal_tta_tpu/core/optim.py``):
+    ``add_decayed_weights`` (the group's ``weight_decay``, added to the
+    gradient) then ``optax.adafactor``: the factored second moment with
+    ``beta2_t = 1 - (t + 1)^-decay_rate`` and epsilon 1e-30
+    (``scale_by_factored_rms``), update clipping by block RMS
+    (``clipping_threshold``), the learning rate, optionally
+    ``multiply_by_parameter_scale`` (``max(rms(p), 1e-3)``) and momentum
+    (an EMA of the updates, not debiased), all per parameter.
+
+    A parameter is read in its flax layout (``layouts``: ``flax_layouts``),
+    so the moments factor the axes the reference factors: optax picks the
+    two largest axes of the flax shape, and a torch conv kernel
+    ``[out, in, k, k, k]`` is flax's ``[k, k, k, in, out]``. The learning
+    rate is the param group's, so ``set_learning_rate`` and ``MultiSteps``
+    act as they do for Adam. A parameter without a gradient takes a zero
+    one, as every leaf of the reference has a gradient."""
+
+    def __init__(self, params, lr: float, layouts: Dict[int, Tuple[Tuple[int, ...], Tuple[int, ...]]],
+                 min_dim_size_to_factor: int = 128, decay_rate: float = 0.8, momentum: Optional[float] = None,
+                 clipping_threshold: Optional[float] = 1.0, multiply_by_parameter_scale: bool = False,
+                 eps: float = 1e-30):
+        super().__init__(params, dict(lr=lr, weight_decay=0.0))
+        self.layouts = layouts
+        self.min_dim_size_to_factor = int(min_dim_size_to_factor)
+        self.decay_rate, self.momentum, self.eps = float(decay_rate), momentum, float(eps)
+        self.clipping_threshold = clipping_threshold
+        self.multiply_by_parameter_scale = bool(multiply_by_parameter_scale)
+
+    def _layout(self, p: torch.Tensor):
+        return self.layouts.get(id(p), (tuple(range(p.dim())), tuple(p.shape)))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            lr, wd = group["lr"], group["weight_decay"]
+            for p in group["params"]:
+                g = p.grad if p.grad is not None else torch.zeros_like(p)
+                if wd:
+                    g = g + wd * p
+                self._update(p, g, lr)
+
+    def _update(self, p: torch.Tensor, g: torch.Tensor, lr: float) -> None:
+        perm, shape = self._layout(p)
+        gf = g.permute(perm).reshape(shape)
+        dims = factored_dims(shape, self.min_dim_size_to_factor)
+        state = self.state[p]
+        if not state:
+            state["step"] = 0
+            if dims is None:
+                state["v"] = torch.zeros(shape, dtype=p.dtype, device=p.device)
+            else:
+                d1, d0 = dims
+                state["v_row"] = torch.zeros([s for i, s in enumerate(shape) if i != d0], dtype=p.dtype,
+                                             device=p.device)
+                state["v_col"] = torch.zeros([s for i, s in enumerate(shape) if i != d1], dtype=p.dtype,
+                                             device=p.device)
+            if self.momentum is not None:
+                state["mu"] = torch.zeros_like(p, dtype=torch.float32)
+        # beta2_t in f32, as optax's _decay_rate_pow (a host scalar: no copy to the device)
+        beta = float(np.float32(1.0) - np.float32(state["step"] + 1) ** np.float32(-self.decay_rate))
+        grad_sqr = gf * gf + self.eps
+        if dims is None:
+            v = beta * state["v"] + (1.0 - beta) * grad_sqr
+            state["v"] = v
+            u = gf * v ** -0.5
+        else:
+            d1, d0 = dims
+            v_row = beta * state["v_row"] + (1.0 - beta) * grad_sqr.mean(dim=d0)
+            v_col = beta * state["v_col"] + (1.0 - beta) * grad_sqr.mean(dim=d1)
+            state["v_row"], state["v_col"] = v_row, v_col
+            reduced_d1 = d1 - 1 if d1 > d0 else d1
+            row_factor = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)) ** -0.5
+            col_factor = v_col ** -0.5
+            u = gf * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
+        state["step"] += 1
+        if self.clipping_threshold is not None:
+            u = u / torch.clamp(torch.sqrt((u * u).mean()) / self.clipping_threshold, min=1.0)
+        u = u * lr
+        if self.multiply_by_parameter_scale:
+            u = u * torch.clamp(torch.sqrt((p * p).mean()), min=1e-3)
+        u = u.reshape(p.permute(perm).shape).permute(*np.argsort(perm).tolist())  # the parameter's layout
+        if self.momentum is not None:
+            mu = (1.0 - self.momentum) * u + self.momentum * state["mu"]
+            state["mu"] = mu
+            u = mu
+        p.sub_(u)
+
+
 Optimizer = Union[torch.optim.Optimizer, MultiSteps]
 
 
@@ -117,11 +224,7 @@ def build_optimizer(training_cfg, model: nn.Module) -> Tuple[Optimizer, float]:
     """Build the optimizer over ``model``'s trainable params; returns
     ``(optimizer, base_lr)``."""
     opt_name = str(get_config(training_cfg, "optimizer", "sgd")).lower()
-    if opt_name == "adafactor":
-        raise NotImplementedError(
-            "[optim] adafactor is not ported yet (ROADMAP.md, training slice left-overs)"
-        )
-    if opt_name not in ("sgd", "adam", "adamw"):
+    if opt_name not in ("sgd", "adam", "adamw", "adafactor"):
         raise ValueError(f"Unsupported optimizer: {opt_name}")
     blocks = get_config(training_cfg, "optimizers", ConfigNode())
     opt_cfg = get_config(blocks, opt_name, ConfigNode())
@@ -145,6 +248,16 @@ def build_optimizer(training_cfg, model: nn.Module) -> Tuple[Optimizer, float]:
         nesterov = bool(get_config(opt_cfg, "nesterov", False)) and momentum > 0
         tx: torch.optim.Optimizer = torch.optim.SGD(
             groups, lr=lr, momentum=momentum, dampening=0.0, nesterov=nesterov)
+    elif opt_name == "adafactor":
+        momentum = get_config(opt_cfg, "momentum", None)
+        layouts = flax_layouts(model)
+        tx = Adafactor(
+            groups, lr=lr, layouts={id(p): layouts[n] for n, p in params},
+            min_dim_size_to_factor=int(get_config(opt_cfg, "min_dim_size_to_factor", 128)),
+            decay_rate=float(get_config(opt_cfg, "decay_rate", 0.8)),
+            momentum=None if momentum in (None, 0, 0.0, False, "none") else float(momentum),
+            clipping_threshold=float(get_config(opt_cfg, "clipping_threshold", 1.0)),
+            multiply_by_parameter_scale=bool(get_config(opt_cfg, "multiply_by_parameter_scale", False)))
     else:
         betas = get_config(opt_cfg, "betas", [0.9, 0.999])
         eps = float(get_config(opt_cfg, "eps", 1e-8))

@@ -11,6 +11,15 @@ One step, on the trainer's device:
   - forward in the model's compute dtype (bf16 with an f32 head for the
     flagship), the loss per sample averaged over the batch's valid samples,
     backward, the optimizer step (``TrainState.apply_gradients``)
+  - ``model.deep_supervision = k``: the same loss on the sown ``ds{i}``
+    logits against labels sliced ``::f`` (f the product of the first i
+    strides) on the three spatial axes, weights ``2^-i`` normalized to sum
+    1; ``model.moe_experts > 0``: ``model.moe_aux_weight * mean(aux)`` of
+    the sown Switch aux losses, added after the masked mean;
+    ``training.distill``: ``weight * kd_loss`` of the frozen teacher's
+    logits on the same input, per sample before the mask. The model's
+    forward runs inside ``capture_intermediates``; a model that sows no
+    ``ds{i}`` or no ``moe_aux`` raises the reference's ``ValueError``
   - the EMA shadow (``training.ema``), ticked only on applied steps under
     ``training.grad_accum``
 
@@ -23,13 +32,14 @@ The model runs its step in training mode (the reference's ``train=True``)
 and is put back in the mode it had: a BatchNorm model normalizes with the
 batch's statistics (padded rows included, as in the reference) and moves
 its running statistics once a step, with remat or without.
-``training.remat`` is the model's (``ExperimentManager`` builds it with it). Distillation, the MoE aux loss
-and deep supervision raise ``NotImplementedError`` (ROADMAP.md); there is no
-mesh (one device).
+``training.remat`` is the model's (``ExperimentManager`` builds it with it).
+``training.debug_nans`` checks every module's outputs and the backward for
+a NaN (``utils/debug_nans.py``). There is no mesh (one device).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -39,14 +49,16 @@ from torch import nn
 from ... import DeviceLike
 from ...conf.node import ConfigNode
 from ...data.prefetch import TRANSFER_DTYPES, prefetch_to_device
+from ...models.layers import capture_intermediates
+from ...models.moe import collect_moe_aux
 from ...ops.augment import modality_dropout, rand_intensity_scale_shift
 from ...ops.intensity import make_intensity_normalizer
 from ...ops.losses import make_criterion
 from ...utils.config import get_config
+from ...utils.debug_nans import check_nan, checked_backward, install_nan_hooks
+from ..distill import DistillConfig, build_teacher, kd_loss
 from ..train_state import shadow_module
 from ..trainer_base import TrainerBase
-
-_UNPORTED = "ROADMAP.md, item 10, the training left-overs"
 
 
 class SegTrainer(TrainerBase):
@@ -64,13 +76,28 @@ class SegTrainer(TrainerBase):
             raise ValueError("[SegTrainer] both softmax and sigmoid are False. Set one True.")
         self.loss_fn = make_criterion(crit_cfg)
 
-        for flag, what in (
-            (get_config(config, "model.deep_supervision", 0), "deep supervision (model.deep_supervision)"),
-            (get_config(config, "model.moe_experts", 0), "the MoE aux loss (model.moe_experts)"),
-            (get_config(config, "training.distill.enabled", False), "distillation (training.distill)"),
-        ):
-            if flag:
-                raise NotImplementedError(f"[SegTrainer] {what} is not ported yet ({_UNPORTED})")
+        # nnU-Net-style deep supervision: the same loss on the model's aux
+        # logits at the k next-coarser decoder levels, against strided
+        # (nearest) labels, weights 1/2^k normalized to sum 1
+        self.ds_levels = int(get_config(config, "model.deep_supervision", 0))
+        strides = [int(s) for s in get_config(config, "model.strides", [2, 2, 2, 2])]
+        self.ds_factors = [math.prod(strides[:i]) for i in range(1, self.ds_levels + 1)]
+        w = np.array([0.5**k for k in range(self.ds_levels + 1)], np.float64)
+        self.ds_weights = [float(x) for x in w / w.sum()]
+
+        # the Switch load-balance aux loss of routed-expert models
+        self.moe_experts = int(get_config(config, "model.moe_experts", 0))
+        self.moe_aux_weight = float(get_config(config, "model.moe_aux_weight", 0.01))
+        # the last step's sown MoE scalars, detached, on the device
+        self.moe_stats: Optional[Dict[str, torch.Tensor]] = None
+
+        # knowledge distillation: parsed now, so a bad config fails at
+        # bring-up; the teacher is built at the first step
+        self.distill = DistillConfig(config)
+        self.teacher: Optional[nn.Module] = None
+
+        self.debug_nans = bool(get_config(config, "training.debug_nans", False))
+        self._nan_hooked: set = set()
 
         # device-side transform spec (from SegTransform.device_spec())
         self.device_transform = device_transform or {}
@@ -123,12 +150,51 @@ class SegTrainer(TrainerBase):
         was_training = state.model.training
         state.model.train()
         try:
-            logits = state.model(image)
-            per_sample = torch.stack([self.loss_fn(logits[i:i + 1], lbl[i:i + 1]) for i in range(b)])
+            with capture_intermediates(bool(self.ds_levels or self.moe_experts)) as inter:
+                logits = state.model(image)
+            per_sample = self._per_sample(logits, lbl)
+            if self.ds_levels:
+                missing = [f"ds{k + 1}" for k in range(self.ds_levels) if f"ds{k + 1}" not in inter]
+                if missing:
+                    raise ValueError(
+                        f"[SegTrainer] model.deep_supervision={self.ds_levels} but the "
+                        f"model sowed no {missing} intermediates — the selected "
+                        "model does not implement deep supervision (models/"
+                        "unet3d.py does; set model.deep_supervision=0 for others)"
+                    )
+                per_sample = self.ds_weights[0] * per_sample
+                for k, f in enumerate(self.ds_factors):
+                    lb_k = lbl[:, ::f, ::f, ::f]  # nearest-downsampled: the label stays crisp
+                    aux_logits = inter[f"ds{k + 1}"][0]
+                    per_sample = per_sample + self.ds_weights[k + 1] * self._per_sample(aux_logits, lb_k)
+            if self.distill.enabled:
+                with torch.no_grad():  # the frozen teacher, on the input the student sees
+                    t_logits = self.teacher(image)
+                per_sample = per_sample + self.distill.weight * kd_loss(
+                    logits, t_logits, sigmoid=self.sigmoid, temperature=self.distill.temperature,
+                    focus=self.distill.focus)
             # samples past n_valid (a padded batch tail) are masked out
             mask = (torch.arange(b, device=per_sample.device) < n_valid).to(torch.float32)
             loss = (per_sample * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-            loss.backward()  # a rematerialized segment runs its forward again here
+            if self.moe_experts:
+                aux = collect_moe_aux(inter)
+                if not aux:
+                    raise ValueError(
+                        "[SegTrainer] model.moe_experts > 0 but the model "
+                        "sowed no moe_aux intermediates — the selected "
+                        "model has no MoE layers (models/unetr.py "
+                        "moe_experts does; set model.moe_experts=0 for "
+                        "others)"
+                    )
+                loss = loss + self.moe_aux_weight * torch.stack(aux).mean()
+                self.moe_stats = {"aux": torch.stack(aux).detach(),
+                                  "dropped": torch.stack(inter["moe_dropped"]).detach()}
+            # a rematerialized segment runs its forward again in the backward
+            if self.debug_nans:
+                check_nan(loss, "the training loss")
+                checked_backward(loss)
+            else:
+                loss.backward()
         finally:
             state.model.train(was_training)
         applied = state.apply_gradients()
@@ -137,6 +203,31 @@ class SegTrainer(TrainerBase):
         if self.ema_enabled and applied:
             self._update_ema()
         return loss.detach()
+
+    def _per_sample(self, logits: torch.Tensor, lbl: torch.Tensor) -> torch.Tensor:
+        return torch.stack([self.loss_fn(logits[i:i + 1], lbl[i:i + 1]) for i in range(logits.shape[0])])
+
+    def prepare(self) -> None:
+        """Build the distillation teacher and hook the NaN checks (each
+        once); ``run_step`` calls it before every step."""
+        if self.distill.enabled and self.teacher is None:
+            image_size = get_config(self.config, "training.data.transforms.image_size", None)
+            if not image_size:
+                raise ValueError(
+                    "[distill] training.data.transforms.image_size is required "
+                    "to initialize the teacher"
+                )
+            self.teacher = build_teacher(self.config, self.device, [int(x) for x in image_size])
+            self.logger.info(
+                f"[distill] teacher {get_config(self.distill.model, 'name')} "
+                f"loaded from {self.distill.checkpoint} "
+                f"(T={self.distill.temperature}, weight={self.distill.weight}, focus={self.distill.focus})"
+            )
+        if self.debug_nans:
+            for tag, module in (("model", self.state.model), ("teacher", self.teacher)):
+                if module is not None and id(module) not in self._nan_hooked:
+                    install_nan_hooks(module, tag)
+                    self._nan_hooked.add(id(module))
 
     @torch.no_grad()
     def _update_ema(self) -> None:
@@ -207,6 +298,7 @@ class SegTrainer(TrainerBase):
             label = torch.as_tensor(np.asarray(label)).to(self.device)
             n_valid = image.shape[0]
 
+        self.prepare()
         if self.ema_enabled and self.state.ema_params is None:
             # standard EMA init: the shadow starts at a copy of the params
             self.state.ema_params = {n: p.detach().clone() for n, p in self.state.model.named_parameters()}

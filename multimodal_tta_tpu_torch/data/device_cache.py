@@ -87,7 +87,7 @@ class DeviceCachedLoader:
         if shard_store:
             raise NotImplementedError(
                 "[device_cache] the sharded store (training.device_cache_sharded) is not "
-                "ported yet (ROADMAP.md item 12, the multi-GPU path)")
+                "ported yet (ROADMAP.md, item 12b, the multi-GPU path)")
         _rejects_host_random_transform(dataset)
         self.dataset = dataset
         self.batch_size = int(batch_size)

@@ -25,17 +25,23 @@ leaves) as the buffers of the same names. It imports no JAX.
   * every other ``bias`` as is; norm ``scale``/``bias`` by name; the
     transformers' ``pos_embed`` ``[1, N, H]`` and ``rel_pos_bias``
     ``[(2w-1)^3, heads]`` as they are
+  * MoE (``models/moe.py``): the ``router`` is a dense layer; the experts'
+    ``wi`` ``[E, H, F]``, ``bi`` ``[E, F]``, ``wo`` ``[E, F, H]`` and ``bo``
+    ``[E, H]`` keep their layout; ``moe_ln``, the MoE block's ``LayerNorm_1``
+    and UNet3D's ``ds_head{i}`` convs take the rules above
 
 ``flax_path(name)`` goes the other way for a name: the reference's
-'/'-joined param path of a torch parameter.
+'/'-joined param path of a torch parameter, and ``flax_layouts(model)``
+for a layout: how each parameter reads as the flax leaf it came from.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 _TRANSPOSED = "up"  # module name of TransposedConvUp's nn.ConvTranspose
 _ATTN_OUT = "out"  # module name of an attention's out projection (DenseGeneral over heads, hd)
@@ -87,6 +93,42 @@ def from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 
 
 unet3d_from_flax = from_flax
+
+_ATTENTION_INPUTS = ("query", "key", "value")
+
+
+def flax_layouts(model: nn.Module) -> Dict[str, Tuple[Tuple[int, ...], Tuple[int, ...]]]:
+    """``{param name: (perm, shape)}``: ``p.permute(perm).reshape(shape)``
+    is the parameter in the layout of its flax leaf, up to the spatial flip
+    of a transposed conv (``from_flax`` the other way): a conv kernel
+    ``[kd, kh, kw, in, out]``, a dense kernel ``[in, out]``, an attention's
+    q/k/v kernel ``[H, heads, hd]`` and bias ``[heads, hd]``, its out kernel
+    ``[heads, hd, H]``. Optimizers that treat axes apart (Adafactor's
+    factored moments) read a parameter through it."""
+    out = {}
+    for mname, m in model.named_modules():
+        heads = getattr(m, "heads", None)
+        for cname, c in m.named_children():
+            prefix = f"{mname}.{cname}" if mname else cname
+            w = getattr(c, "weight", None)
+            if isinstance(c, nn.Linear) and heads and cname in _ATTENTION_INPUTS:
+                h = c.in_features
+                out[prefix + ".weight"] = ((1, 0), (h, heads, c.out_features // heads))
+                if c.bias is not None:
+                    out[prefix + ".bias"] = ((0,), (heads, c.out_features // heads))
+            elif isinstance(c, nn.Linear) and heads and cname == _ATTN_OUT:
+                out[prefix + ".weight"] = ((1, 0), (heads, c.in_features // heads, c.out_features))
+            elif isinstance(c, nn.Linear):
+                out[prefix + ".weight"] = ((1, 0), (c.in_features, c.out_features))
+            elif isinstance(c, (nn.Conv2d, nn.Conv3d)):
+                perm = tuple(range(2, w.dim())) + (1, 0)
+                out[prefix + ".weight"] = (perm, tuple(w.shape[i] for i in perm))
+            elif isinstance(c, nn.ConvTranspose3d):
+                perm = (2, 3, 4, 0, 1)
+                out[prefix + ".weight"] = (perm, tuple(w.shape[i] for i in perm))
+    for name, p in model.named_parameters():
+        out.setdefault(name, (tuple(range(p.dim())), tuple(p.shape)))
+    return {name: out[name] for name, _ in model.named_parameters()}
 
 
 def variables_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:

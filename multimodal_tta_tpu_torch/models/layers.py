@@ -453,6 +453,36 @@ def _recompute_context(module: nn.Module):
     return nullcontext(), replay()
 
 
+_CAPTURES: list = []  # the open capture_intermediates dicts, innermost last
+
+
+@contextmanager
+def capture_intermediates(enabled: bool = True):
+    """flax's ``mutable=["intermediates"]``: inside the block, ``sow(name,
+    value)`` appends ``value`` to the yielded dict's list ``name`` (the MoE
+    aux loss and dropped fraction, the deep-supervision logits); outside
+    any block ``sow`` records nothing. A remat recompute runs in the
+    backward, after the block has closed, so it sows nothing twice."""
+    inter: Dict[str, list] = {}
+    if not enabled:
+        yield inter
+        return
+    _CAPTURES.append(inter)
+    try:
+        yield inter
+    finally:
+        _CAPTURES.remove(inter)
+
+
+def capturing() -> bool:
+    return bool(_CAPTURES)
+
+
+def sow(name: str, value: torch.Tensor) -> None:
+    if _CAPTURES:
+        _CAPTURES[-1].setdefault(name, []).append(value)
+
+
 def remat_call(module: nn.Module, *args: torch.Tensor, enabled: bool) -> torch.Tensor:
     """``module(*args)``; with ``enabled`` (the reference's ``nn.remat``) its
     activations are dropped after the forward and recomputed in the
@@ -493,6 +523,12 @@ def init_flax_defaults(model: nn.Module, seed: int) -> None:
             nn.init.trunc_normal_(m.weight, mean=0.0, std=sd, a=-2.0 * sd, b=2.0 * sd, generator=gen)
             if m.bias is not None:
                 m.bias.zero_()
+        # per-expert kernels [E, in, out] (models/moe.py): lecun-normal over
+        # (in, out) with the expert axis a batch axis
+        for pname in getattr(m, "expert_kernels", ()):
+            w = getattr(m, pname)
+            sd = math.sqrt(1.0 / w.shape[-2]) / _TRUNC_SD
+            nn.init.trunc_normal_(w, mean=0.0, std=sd, a=-2.0 * sd, b=2.0 * sd, generator=gen)
 
 
 def head_linear(h: torch.Tensor, conv: nn.Conv3d) -> torch.Tensor:

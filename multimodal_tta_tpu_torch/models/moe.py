@@ -1,0 +1,131 @@
+"""Mixture-of-Experts MLP (the port of ``multimodal_tta_tpu/models/moe.py``).
+
+A drop-in transformer FFN, ``[B, N, H] -> [B, N, H]``, with the reference's
+static Switch/GShard routing:
+
+  - an f32 router (``nn.Linear`` on ``x.float()``), softmax, top-k with k in
+    {1, 2}; k=2 gates are renormalized to sum 1, k=1 keeps the raw gate;
+  - per-expert capacity ``C = ceil(capacity_factor * k * N / E)`` (at least
+    1, at most N), assigned one choice at a time by a cumsum over the
+    tokens, so a token's second choice queues behind every first choice;
+    tokens past an expert's capacity are dropped (the caller's residual
+    carries them);
+  - dense ``[B, N, E, C]`` dispatch and combine tensors and three einsums
+    over the capacity buffer with the exact GELU, in the compute dtype;
+  - the Switch load-balance aux loss ``E * sum_e f_e * P_e`` (``f_e`` the
+    share of FIRST choices on e, ``P_e`` the mean router probability) and
+    the dropped share ``1 - sum(dispatch) / (B * N * k)``, sown as
+    ``moe_aux`` and ``moe_dropped`` (``layers.sow``), which ``SegTrainer``
+    collects inside ``capture_intermediates``.
+
+The top-k takes the FIRST maximum (``argmax``), as ``jax.lax.top_k`` puts
+the lower index first under a tie: a constant token after a LayerNorm gives
+router logits equal to the (zero at init) bias, so every expert ties there.
+``F.one_hot`` raises for an index past the capacity where
+``jax.nn.one_hot`` gives a zero row, so the position is clamped and the
+row multiplied by ``keep``.
+
+The parameters keep flax's names and layouts (``router``; ``wi`` [E, H, F],
+``bi`` [E, F], ``wo`` [E, F, H], ``bo`` [E, H]). The reference pins the
+expert axis to a mesh axis (``expert_axis``); on one device that is the
+identity, so the key is accepted and nothing is sharded (ROADMAP.md, item
+12b).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .layers import sow
+
+EXPERT_AXIS = "expert"
+
+
+def route(gates: torch.Tensor, k: int):
+    """``jax.lax.top_k(gates, k)`` with its tie order (lower index first):
+    ``(top_g, top_i)`` of shape ``[..., k]``."""
+    first = gates.argmax(dim=-1, keepdim=True)
+    if k == 1:
+        return gates.gather(-1, first), first
+    masked = gates.scatter(-1, first, float("-inf"))
+    idx = torch.cat([first, masked.argmax(dim=-1, keepdim=True)], dim=-1)
+    return gates.gather(-1, idx), idx
+
+
+def capacity(n: int, num_experts: int, k: int, capacity_factor: float) -> int:
+    return max(1, min(int(math.ceil(capacity_factor * k * n / num_experts)), n))
+
+
+def dispatch_combine(gates: torch.Tensor, k: int, cap: int):
+    """The ``[B, N, E, C]`` dispatch and combine tensors (f32) and the top-k
+    indices, from the router's softmax ``gates`` [B, N, E]."""
+    b, n, e = gates.shape
+    top_g, top_i = route(gates, k)
+    if k > 1:
+        top_g = top_g / torch.clamp(top_g.sum(dim=-1, keepdim=True), min=1e-9)
+    counts = gates.new_zeros(b, e)  # tokens already assigned to each expert
+    dispatch = gates.new_zeros(b, n, e, cap)
+    combine = gates.new_zeros(b, n, e, cap)
+    for j in range(k):
+        oh_e = F.one_hot(top_i[..., j], e).to(gates.dtype)  # [B, N, E]
+        pos_e = torch.cumsum(oh_e, dim=1) - 1.0 + counts[:, None, :]
+        pos = (pos_e * oh_e).sum(dim=-1)  # [B, N]
+        keep = (pos < cap).to(gates.dtype)
+        oh_c = F.one_hot(pos.long().clamp(max=cap - 1), cap).to(gates.dtype)
+        d_j = oh_e[..., None] * oh_c[:, :, None, :] * keep[..., None, None]
+        dispatch = dispatch + d_j
+        combine = combine + d_j * top_g[..., j][..., None, None]
+        counts = counts + oh_e.sum(dim=1)
+    return dispatch, combine, top_i
+
+
+class MoEMlp(nn.Module):
+    expert_kernels = ("wi", "wo")  # layers.init_flax_defaults: lecun over (in, out)
+
+    def __init__(self, hidden: int, mlp_dim: int, num_experts: int, k: int = 1, capacity_factor: float = 1.25,
+                 expert_axis: Optional[str] = EXPERT_AXIS, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if k not in (1, 2):
+            raise ValueError(f"MoEMlp supports top-1/top-2 routing, got k={k}")
+        if num_experts < 2:
+            raise ValueError(f"MoEMlp needs >= 2 experts, got {num_experts}")
+        self.num_experts, self.k, self.capacity_factor = int(num_experts), int(k), float(capacity_factor)
+        self.expert_axis, self.dtype = expert_axis, dtype
+        e = self.num_experts
+        self.router = nn.Linear(hidden, e)
+        self.wi = nn.Parameter(torch.zeros(e, hidden, mlp_dim))
+        self.bi = nn.Parameter(torch.zeros(e, mlp_dim))
+        self.wo = nn.Parameter(torch.zeros(e, mlp_dim, hidden))
+        self.bo = nn.Parameter(torch.zeros(e, hidden))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, n, _ = x.shape
+        e, k, dt = self.num_experts, self.k, self.dtype
+        cap = capacity(n, e, k, self.capacity_factor)
+        # the router in f32 whatever the compute dtype
+        gates = torch.softmax(F.linear(x.float(), self.router.weight, self.router.bias), dim=-1)
+        dispatch, combine, top_i = dispatch_combine(gates, k, cap)
+        f_e = F.one_hot(top_i[..., 0], e).to(gates.dtype).mean(dim=(0, 1))
+        p_e = gates.mean(dim=(0, 1))
+        sow("moe_aux", e * (f_e * p_e).sum())
+        sow("moe_dropped", 1.0 - dispatch.sum() / float(b * n * k))
+
+        x = x.to(dt)
+        xin = torch.einsum("bnec,bnh->ebch", dispatch.to(dt), x)
+        y = torch.einsum("ebch,ehf->ebcf", xin, self.wi.to(dt)) + self.bi.to(dt)[:, None, None, :]
+        y = F.gelu(y, approximate="none")
+        y = torch.einsum("ebcf,efh->ebch", y, self.wo.to(dt)) + self.bo.to(dt)[:, None, None, :]
+        return torch.einsum("bnec,ebch->bnh", combine.to(dt), y)
+
+
+def collect_moe_aux(intermediates: dict) -> list:
+    """Every sown ``moe_aux`` scalar of a ``capture_intermediates`` dict."""
+    return list(intermediates.get("moe_aux", []))
+
+
+__all__ = ["MoEMlp", "collect_moe_aux", "capacity", "dispatch_combine", "route", "EXPERT_AXIS"]

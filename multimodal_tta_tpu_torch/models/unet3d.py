@@ -8,6 +8,18 @@ tensors, 36 of them norm affines, and ``models/convert.py`` maps flax
 params onto it by name. ``forward`` takes and returns NDHWC. ``remat``:
 ``True`` rematerializes every level's blocks (the bottleneck's too), an
 int n the blocks of the n highest-resolution levels, the reference's rule.
+
+Two training options of the reference:
+  * ``moe_experts > 0``: a pre-norm residual MoE token FFN over the
+    bottleneck's positions (``moe_ln``, then ``moe_bottleneck``, a
+    ``models/moe.py:MoEMlp`` with expert hidden ``moe_mlp_mult`` x the
+    bottleneck channels), in every forward, outside remat;
+  * ``deep_supervision = k``: 1x1x1 f32 heads ``ds_head{i}`` on the decoder
+    output at R/2^i for i in 1..min(k, levels - 1). They exist from
+    construction (flax's init creates them) and run only in a training
+    forward inside ``layers.capture_intermediates`` (``SegTrainer``'s
+    step), after the level's block and outside its remat, sowing ``ds{i}``;
+    an eval, TTA or serving forward computes the logits alone.
 """
 
 from __future__ import annotations
@@ -21,7 +33,9 @@ from torch import nn
 from .. import DeviceLike, resolve_device
 from ..registry import register_model
 from ..utils.config import get_config
-from .layers import ConvBlock, ResidualUnit, TransposedConvUp, head_linear, init_flax_defaults, remat_call
+from .layers import (ConvBlock, LayerNorm, ResidualUnit, TransposedConvUp, capturing, head_linear,
+                     init_flax_defaults, remat_call, sow)
+from .moe import MoEMlp
 
 
 def remat_levels(remat, n_levels: int) -> int:
@@ -62,6 +76,9 @@ class UNet3D(nn.Module):
         remat=False,
         deep_supervision: int = 0,
         moe_experts: int = 0,
+        moe_k: int = 1,
+        moe_capacity_factor: float = 1.25,
+        moe_mlp_mult: float = 2.0,
         *,
         device: DeviceLike = "cuda",
         seed: Optional[int] = 0,
@@ -73,10 +90,6 @@ class UNet3D(nn.Module):
             raise ValueError(
                 f"len(strides)={len(strides)} must equal len(channels)-1={len(channels) - 1}"
             )
-        for flag, what, item in ((deep_supervision, "deep_supervision", "item 10, the training left-overs"),
-                                 (moe_experts, "moe_experts", "item 11, moe")):
-            if flag:
-                raise NotImplementedError(f"UNet3D {what} is not ported yet (ROADMAP.md, {item})")
         resolve_device(device)
         self.remat = remat
         self.in_channels = int(in_channels)
@@ -97,10 +110,18 @@ class UNet3D(nn.Module):
         for i in range(n):
             self.add_module(f"enc{i}", block(self.in_channels if i == 0 else chs[i - 1], chs[i], sts[i]))
         self.bottleneck = block(chs[n - 1], chs[n], 1)
+        self.moe_experts = int(moe_experts)
+        if self.moe_experts > 0:
+            self.moe_ln = LayerNorm(chs[n], dtype)
+            self.moe_bottleneck = MoEMlp(chs[n], int(moe_mlp_mult * chs[n]), self.moe_experts, moe_k,
+                                         moe_capacity_factor, dtype=dtype)
         for i in range(n):
             self.add_module(f"up{i}", TransposedConvUp(chs[i + 1], chs[i], sts[i], dtype=dtype))
             skip = chs[i - 1] if i > 0 else self.in_channels
             self.add_module(f"dec{i}", block(chs[i] + skip, chs[i], 1))
+        self.ds_levels = min(int(deep_supervision or 0), n - 1)
+        for i in range(1, self.ds_levels + 1):
+            self.add_module(f"ds_head{i}", nn.Conv3d(chs[i], self.num_classes, 1, bias=True))
         self.head = nn.Conv3d(chs[0], self.num_classes, 1, bias=True)
         finish_model(self, seed, device)
 
@@ -119,6 +140,9 @@ class UNet3D(nn.Module):
             spatial_dims=int(get_config(cfg, "spatial_dims", 3)),
             deep_supervision=int(get_config(cfg, "deep_supervision", 0)),
             moe_experts=int(get_config(cfg, "moe_experts", 0)),
+            moe_k=int(get_config(cfg, "moe_k", 1)),
+            moe_capacity_factor=float(get_config(cfg, "moe_capacity_factor", 1.25)),
+            moe_mlp_mult=float(get_config(cfg, "moe_mlp_mult", 2.0)),
         )
         kw.update(overrides)
         return cls(**kw)
@@ -147,8 +171,16 @@ class UNet3D(nn.Module):
             h = remat_call(getattr(self, f"enc{i}"), h, enabled=i < levels)
             skips.append(h)
         h = remat_call(self.bottleneck, h, enabled=n < levels)
+        if self.moe_experts > 0:
+            b, c = h.shape[:2]
+            tokens = h.permute(0, 2, 3, 4, 1).reshape(b, -1, c)  # [B, D*H*W, C] in flax's raster order
+            tokens = tokens + self.moe_bottleneck(self.moe_ln(tokens))
+            h = tokens.reshape(b, *h.shape[2:], c).permute(0, 4, 1, 2, 3)
+        heads = self.training and capturing()
         for i in reversed(range(n)):
             h = getattr(self, f"up{i}")(h)
             skip = skips[i - 1] if i > 0 else x
             h = remat_call(getattr(self, f"dec{i}"), torch.cat([h, skip], dim=1), enabled=i < levels)
+            if heads and 1 <= i <= self.ds_levels:
+                sow(f"ds{i}", head_linear(h, getattr(self, f"ds_head{i}")))
         return head_linear(h, self.head)

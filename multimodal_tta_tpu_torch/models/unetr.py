@@ -4,8 +4,9 @@
   - the patch embed is a stride-p conv; its tokens are flattened in flax's
     raster order (``permute(0, 2, 3, 4, 1).reshape(b, N, H)``), the order
     ``pos_embed`` [1, N, H] indexes;
-  - ``num_layers`` ``EncoderBlock``s; after every ``num_layers / levels``
-    layers the tokens feed a skip branch (``skip{k}_up{s}`` /
+  - ``num_layers`` ``EncoderBlock``s (with ``moe_experts > 0``, block ``i``
+    routes to experts when ``i % moe_every == moe_every - 1``); after every
+    ``num_layers / levels`` layers the tokens feed a skip branch (``skip{k}_up{s}`` /
     ``skip{k}_conv{s}``: transposed conv up, then a ConvBlock, ``levels - k``
     times), the last through ``encoder_ln`` to the bottleneck;
   - a full-resolution stem pair (``stem0``, ``stem1``) on the raw input;
@@ -35,7 +36,7 @@ from ..registry import register_model
 from ..utils.config import get_config
 from .layers import ConvBlock, LayerNorm, TransposedConvUp, head_linear, remat_call
 from .unet3d import finish_model
-from .vit import EncoderBlock, check_unported
+from .vit import EncoderBlock, check_unported, is_moe_block
 
 
 def image_size_of(overrides: dict, name: str) -> tuple:
@@ -70,13 +71,16 @@ class UNETR(nn.Module):
         seq_shard_axis: Optional[str] = None,
         tp_axis: Optional[str] = None,
         moe_experts: int = 0,
+        moe_every: int = 2,
+        moe_k: int = 1,
+        moe_capacity_factor: float = 1.25,
         *,
         image_size: Sequence[int],
         device: DeviceLike = "cuda",
         seed: Optional[int] = 0,
     ):
         super().__init__()
-        check_unported(tp_axis=tp_axis, seq_shard_axis=seq_shard_axis, num_experts=moe_experts)
+        check_unported(tp_axis=tp_axis, seq_shard_axis=seq_shard_axis)
         resolve_device(device)
         p = int(patch_size)
         levels = int(math.log2(p))
@@ -99,7 +103,10 @@ class UNETR(nn.Module):
         self.patch_embed = nn.Conv3d(self.in_channels, h, p, stride=p, bias=True)
         self.pos_embed = nn.Parameter(torch.zeros(1, math.prod(d // p for d in self.image_size), h))
         for i in range(self.num_layers):
-            self.add_module(f"block{i}", EncoderBlock(h, num_heads, mlp_dim, dropout, dtype))
+            self.add_module(f"block{i}", EncoderBlock(
+                h, num_heads, mlp_dim, dropout, dtype,
+                num_experts=moe_experts if is_moe_block(i, moe_experts, moe_every) else 0,
+                moe_k=moe_k, moe_capacity_factor=moe_capacity_factor))
         self.encoder_ln = LayerNorm(h, dtype)
         for k in range(1, levels):
             for s in range(levels - k):
@@ -136,6 +143,9 @@ class UNETR(nn.Module):
             seq_shard_axis=get_config(cfg, "seq_shard_axis", None),
             tp_axis=get_config(cfg, "tp_axis", None),
             moe_experts=int(get_config(cfg, "moe_experts", 0)),
+            moe_every=int(get_config(cfg, "moe_every", 2)),
+            moe_k=int(get_config(cfg, "moe_k", 1)),
+            moe_capacity_factor=float(get_config(cfg, "moe_capacity_factor", 1.25)),
         )
         kw.update(overrides)
         return cls(**kw, image_size=image_size)

@@ -21,8 +21,11 @@ The classifier embeds ``patch x patch`` patches with a VALID conv
 patch and the CLS token, so its size follows ``image_size``), runs
 ``block{i}`` and ``final_ln`` (flax's LayerNorm, eps 1e-6) and returns
 ``(CLS features, logits)`` in f32 from the ``head``. It has no BatchNorm:
-Tent adapts its LayerNorms. The mesh options (``tp_axis``,
-``seq_shard_axis``) and MoE blocks raise, naming their ROADMAP.md items.
+Tent adapts its LayerNorms. With ``num_experts > 0`` an ``EncoderBlock``
+swaps its dense MLP for ``models/moe.py:MoEMlp`` (``moe``, after the
+pre-norm ``LayerNorm_1``), and ``ViT(moe_experts=...)`` routes every
+``moe_every``-th block, as in the reference. The mesh options
+(``tp_axis``, ``seq_shard_axis``) raise, naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -37,18 +40,21 @@ from .. import DeviceLike, resolve_device
 from ..registry import register_model
 from ..utils.config import get_config
 from .layers import LayerNorm, check_dropout, linear
+from .moe import EXPERT_AXIS, MoEMlp
 from .resnet import _VariantFactory, finish_classifier
 
 
-def check_unported(tp_axis: Optional[str] = None, seq_shard_axis: Optional[str] = None,
-                   num_experts: int = 0) -> None:
-    """The reference's mesh and MoE options raise here, naming their item."""
+def check_unported(tp_axis: Optional[str] = None, seq_shard_axis: Optional[str] = None) -> None:
+    """The reference's mesh options raise here, naming their item."""
     for flag, what in ((tp_axis, "tp_axis"), (seq_shard_axis, "seq_shard_axis")):
         if flag:
-            raise NotImplementedError(f"{what}={flag!r} is not ported yet (ROADMAP.md, item 12: "
+            raise NotImplementedError(f"{what}={flag!r} is not ported yet (ROADMAP.md, item 12b: "
                                       "tensor and sequence parallelism come with the mesh)")
-    if num_experts:
-        raise NotImplementedError(f"num_experts={num_experts} is not ported yet (ROADMAP.md, item 11: moe)")
+
+
+def is_moe_block(i: int, moe_experts: int, moe_every: int) -> bool:
+    """Block ``i`` routes to experts: every ``moe_every``-th, the last of each group."""
+    return moe_experts > 0 and i % moe_every == moe_every - 1
 
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: Optional[torch.Tensor] = None,
@@ -97,21 +103,28 @@ class SelfAttention(nn.Module):
 
 class EncoderBlock(nn.Module):
     """Pre-norm transformer block: ``x + attn(LN(x))``, then
-    ``x + Dense(gelu(Dense(LN(x))))`` with the exact (erf) GELU."""
+    ``x + Dense(gelu(Dense(LN(x))))`` with the exact (erf) GELU, or with
+    ``num_experts > 0`` ``x + moe(LN(x))`` (``models/moe.py``)."""
 
     def __init__(self, hidden: int, heads: int, mlp_dim: int, dropout: float = 0.0,
-                 dtype: torch.dtype = torch.float32, tp_axis: Optional[str] = None, num_experts: int = 0):
+                 dtype: torch.dtype = torch.float32, tp_axis: Optional[str] = None, num_experts: int = 0,
+                 moe_k: int = 1, moe_capacity_factor: float = 1.25, moe_axis: Optional[str] = EXPERT_AXIS):
         super().__init__()
-        check_unported(tp_axis=tp_axis, num_experts=num_experts)
-        self.dtype = dtype
+        check_unported(tp_axis=tp_axis)
+        self.dtype, self.num_experts = dtype, int(num_experts)
         self.LayerNorm_0 = LayerNorm(hidden, dtype)
         self.MultiHeadDotProductAttention_0 = SelfAttention(hidden, heads, dropout, dtype)
         self.LayerNorm_1 = LayerNorm(hidden, dtype)
+        if self.num_experts > 0:
+            self.moe = MoEMlp(hidden, mlp_dim, num_experts, moe_k, moe_capacity_factor, moe_axis, dtype)
+            return
         self.Dense_0 = nn.Linear(hidden, mlp_dim)
         self.Dense_1 = nn.Linear(mlp_dim, hidden)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.MultiHeadDotProductAttention_0(self.LayerNorm_0(x))
+        if self.num_experts > 0:
+            return x + self.moe(self.LayerNorm_1(x))
         # flax nn.gelu(approximate=False); get_act("GELU") is flax's tanh default
         y = F.gelu(linear(self.LayerNorm_1(x), self.Dense_0, self.dtype), approximate="none")
         return x + linear(y, self.Dense_1, self.dtype)
@@ -134,14 +147,15 @@ class ViT(nn.Module):
 
     def __init__(self, variant: str = "vit_b_16", num_classes: int = 1000, image_size: int = 224,
                  dropout: float = 0.0, dtype: torch.dtype = torch.float32, seq_shard_axis: Optional[str] = None,
-                 tp_axis: Optional[str] = None, moe_experts: int = 0, patch: Optional[int] = None,
+                 tp_axis: Optional[str] = None, moe_experts: int = 0, moe_every: int = 2, moe_k: int = 1,
+                 moe_capacity_factor: float = 1.25, patch: Optional[int] = None,
                  hidden: Optional[int] = None, depth: Optional[int] = None, heads: Optional[int] = None,
                  mlp_dim: Optional[int] = None, in_channels: int = 3, *, device: DeviceLike = "cuda",
                  seed: Optional[int] = 0):
         super().__init__()
         if variant not in _SPECS:
             raise ValueError(f"Unknown vit variant: {variant}")
-        check_unported(tp_axis=tp_axis, seq_shard_axis=seq_shard_axis, num_experts=moe_experts)
+        check_unported(tp_axis=tp_axis, seq_shard_axis=seq_shard_axis)
         resolve_device(device)
         spec = [v if o is None else int(o) for v, o in zip(_SPECS[variant], (patch, hidden, depth, heads, mlp_dim))]
         self.patch, hidden, depth, heads, mlp_dim = spec
@@ -155,7 +169,9 @@ class ViT(nn.Module):
         self.pos_embed = nn.Parameter(torch.zeros(1, n_tokens, hidden))
         self.depth = depth
         for i in range(depth):
-            self.add_module(f"block{i}", EncoderBlock(hidden, heads, mlp_dim, dropout, dtype))
+            self.add_module(f"block{i}", EncoderBlock(
+                hidden, heads, mlp_dim, dropout, dtype, num_experts=moe_experts if is_moe_block(
+                    i, moe_experts, moe_every) else 0, moe_k=moe_k, moe_capacity_factor=moe_capacity_factor))
         self.final_ln = LayerNorm(hidden, dtype)
         self.head = nn.Linear(hidden, num_classes)
         finish_classifier(self, seed, device)
@@ -170,6 +186,9 @@ class ViT(nn.Module):
             seq_shard_axis=get_config(cfg, "seq_shard_axis", None),
             tp_axis=get_config(cfg, "tp_axis", None),
             moe_experts=int(get_config(cfg, "moe_experts", 0)),
+            moe_every=int(get_config(cfg, "moe_every", 2)),
+            moe_k=int(get_config(cfg, "moe_k", 1)),
+            moe_capacity_factor=float(get_config(cfg, "moe_capacity_factor", 1.25)),
             in_channels=int(get_config(cfg, "in_channels", 3)),
         )
         kw.update(overrides)
@@ -200,4 +219,4 @@ for _name in _SPECS:
     register_model(_name)(_VariantFactory(ViT, _name))
 
 
-__all__ = ["SelfAttention", "EncoderBlock", "ViT", "attend", "check_unported"]
+__all__ = ["SelfAttention", "EncoderBlock", "ViT", "attend", "check_unported", "is_moe_block"]

@@ -4,6 +4,7 @@ of one training step goes on one CUDA card.
 
     python3 scripts/torch_serving_profile.py [--protocol online|strict|eval|train|forward] [--batch 2] [--steps 3]
         [--model unet|midfusion|unetr|swin_unetr|resnet50] [--remat] [--norm INSTANCE|BATCH] [--artifact]
+        [--moe-experts 8] [--deep-supervision 2]
 
 Builds the flagship UNet3D (channels 32..512, bf16, random weights from a
 seed) as chip_smoke.py does, on HECKTOR21 batches; with ``--model
@@ -15,6 +16,11 @@ modality dropout in training, threshold 0.5); with ``--model unetr`` or
 configs/model/<name>.yaml (bf16, chip_smoke.py's phase 17) on the HECKTOR21
 batches, ``--remat`` rematerializing it as ``training.remat=true`` does;
 ``--norm BATCH`` builds the flagship with BatchNorm (``model.norm=BATCH``);
+``--moe-experts N`` gives the flagship its bottleneck MoE, or UNETR N
+experts in every second encoder block (``model.moe_experts``; in ``train``
+the Switch aux loss joins the loss), and ``--deep-supervision K`` gives the
+flagship K deep-supervision heads and their loss (``model.deep_supervision``;
+chip_smoke.py's phase 20 trains all of these);
 ``--model resnet50`` is ResNet-50 through ``classifier_logits_apply`` (bf16,
 1000 classes) on [B,224,224,3] in Tent's ImageNet-C setting (SGD 2.5e-4,
 momentum 0.9, softmax, entropy over all samples; ``online`` and
@@ -135,9 +141,11 @@ def eval_step_fn(torch, dev, model, batch: int, label=None):
     return step
 
 
-def train_step_fn(torch, dev, model, batch: int, label=None):
+def train_step_fn(torch, dev, model, batch: int, label=None, model_keys=None):
     """``SegTrainer.run_step`` with chip_smoke.py's training recipe on one
-    device-resident batch (the loss read one step late, as in training)."""
+    device-resident batch (the loss read one step late, as in training);
+    ``model_keys`` join the recipe's model node (the MoE and
+    deep-supervision options)."""
     from chip_smoke import DEVICE_TRANSFORM, train_recipe
     from multimodal_tta_tpu_torch.conf import ConfigNode
     from multimodal_tta_tpu_torch.core.optim import build_optimizer
@@ -146,7 +154,9 @@ def train_step_fn(torch, dev, model, batch: int, label=None):
     from multimodal_tta_tpu_torch.registry import get_dataset_builder
 
     if label is None:
-        cfg, spec = ConfigNode(train_recipe("")), DEVICE_TRANSFORM
+        recipe = train_recipe("")
+        recipe["model"].update(model_keys or {})
+        cfg, spec = ConfigNode(recipe), DEVICE_TRANSFORM
         label = ellipsoid_labels(torch, dev, batch)
     else:
         cfg = brats_config()
@@ -196,7 +206,12 @@ def main() -> int:
     ap.add_argument("--norm", choices=("INSTANCE", "BATCH"), default="INSTANCE", help="the flagship's norm")
     ap.add_argument("--artifact", action="store_true",
                     help="online/strict: profile the exported serving step instead of the live one")
+    ap.add_argument("--moe-experts", type=int, default=0, help="unet/unetr: model.moe_experts")
+    ap.add_argument("--deep-supervision", type=int, default=0, help="unet: model.deep_supervision")
     args = ap.parse_args()
+    options = {k: v for k, v in (("moe_experts", args.moe_experts), ("deep_supervision", args.deep_supervision)) if v}
+    if options and args.model not in ("unet", "unetr") or (args.deep_supervision and args.model != "unet"):
+        raise SystemExit("--moe-experts takes --model unet or unetr, --deep-supervision --model unet")
 
     import torch
 
@@ -236,7 +251,7 @@ def main() -> int:
 
         mcfg = compose(os.path.join(REPO, "configs"), "config", transformer_overrides(args.model)).model
         model = get_model(args.model).from_config(mcfg, dtype=torch.bfloat16, remat=args.remat,
-                                                  image_size=SHAPE[:3], device=dev, seed=0)
+                                                  image_size=SHAPE[:3], device=dev, seed=0, **options)
         gen = torch.Generator(device=dev).manual_seed(1)
         x = torch.randn((args.batch,) + SHAPE, generator=gen, device=dev) * 100
         label, transform, threshold = None, DEVICE_TRANSFORM, THRESHOLD
@@ -255,14 +270,15 @@ def main() -> int:
         x = torch.randn((args.batch, 224, 224, 3), generator=gen, device=dev) * 1.5 + 0.3
         label, transform, threshold = None, None, 0.5
     else:
-        model = UNet3D(channels=(32, 64, 128, 256, 512), norm=args.norm, dtype=torch.bfloat16, device=dev, seed=0)
+        model = UNet3D(channels=(32, 64, 128, 256, 512), norm=args.norm, dtype=torch.bfloat16, device=dev, seed=0,
+                       **options)
         gen = torch.Generator(device=dev).manual_seed(1)
         x = torch.randn((args.batch,) + SHAPE, generator=gen, device=dev) * 100
         label, transform, threshold = None, DEVICE_TRANSFORM, THRESHOLD
     if args.protocol == "eval":
         step = eval_step_fn(torch, dev, model, args.batch, label)
     elif args.protocol == "train":
-        step = train_step_fn(torch, dev, model, args.batch, label)
+        step = train_step_fn(torch, dev, model, args.batch, label, options)
     elif args.protocol == "forward":
         def step(model, x, n_valid):
             with torch.no_grad():
@@ -344,7 +360,7 @@ def main() -> int:
           + ", ".join(f"{k} {ms:.2f} ({n:.0f})" for k, ms, n in host))
     print(json.dumps({
         "protocol": args.protocol, "artifact": args.artifact, "model": args.model, "remat": args.remat,
-        "norm": args.norm, "batch": args.batch,
+        "norm": args.norm, "batch": args.batch, "options": options,
         "steps": args.steps, "card": card,
         "warm_ms_per_step_no_profiler": warm_ms, "host_enqueue_ms_per_step": host_ms,
         "wall_ms_per_step": wall_ms / args.steps, "device_ms_per_step": device_ms / args.steps,

@@ -411,3 +411,76 @@ class NormCalls:
     def remove(self):
         for h in self.handles:
             h.remove()
+
+
+# ---------------------------------------------------------------------------
+# SegTrainer parity on any model (tests/test_torch_moe.py,
+# test_torch_deep_supervision.py, test_torch_distill.py): the JAX trainer
+# over a flax module and the port's over a port model holding the same params
+
+HECKTOR_CRITERION = {"sigmoid": True, "lambda_dice": 5.0, "lambda_ce": 1.0, "ce_weight": [50.0],
+                     "include_background": False}
+NO_DECAY = {"no_decay_keys": ["bias", "bn", "norm", "scale"], "treat_1d_as_no_decay": True}
+ADAM = {"optimizer": "adam", "optimizers": {"adam": {"lr": 1e-3, "weight_decay": 5e-4, "betas": [0.9, 0.9999]}}}
+# a transformer's attention key bias has a zero gradient up to rounding,
+# which Adam would scale up to a full step: its steps take SGD
+SGD = {"optimizer": "sgd", "optimizers": {"sgd": {"lr": 0.01, "momentum": 0.9, "weight_decay": 1e-3}}}
+
+
+def trainer_config(training: dict, model: dict = None, **top) -> dict:
+    t = {"param_groups": NO_DECAY, "criterion": HECKTOR_CRITERION, "compute_dtype": "float32"}
+    t.update(training)
+    return {"task": {"seed": 0}, "training": t, "model": dict(model or {}), **top}
+
+
+def trainer_pair(cfg: dict, jax_module, port_model: torch.nn.Module, params, device_transform=DEVICE_TRANSFORM):
+    """``(jax SegTrainer, port SegTrainer)`` over ``jax_module`` and
+    ``port_model`` (loaded here with ``params``), each with its package's
+    optimizer and scheduler from ``cfg``."""
+    from multimodal_tta_tpu.conf import ConfigNode as JaxConfigNode
+    from multimodal_tta_tpu.core import optim as joptim
+    from multimodal_tta_tpu.core.train_state import TrainState as JaxTrainState
+    from multimodal_tta_tpu.core.trainers.seg_trainer import SegTrainer as JaxSegTrainer
+    from multimodal_tta_tpu_torch.conf import ConfigNode
+    from multimodal_tta_tpu_torch.core import optim as toptim
+    from multimodal_tta_tpu_torch.core.train_state import TrainState
+    from multimodal_tta_tpu_torch.core.trainers.seg_trainer import SegTrainer
+
+    jcfg = JaxConfigNode(cfg)
+    jt = JaxSegTrainer(jcfg, mesh=None, device_transform=device_transform)
+    jparams = jax.tree_util.tree_map(jnp.asarray, params)
+    tx, lr = joptim.build_optimizer(jcfg.training, jparams)
+    jt.setup(JaxTrainState.create(apply_fn=jax_module.apply, params=jparams, tx=tx), None,
+             joptim.EpochScheduler(jcfg.training, lr))
+    pcfg = ConfigNode(cfg)
+    pt = SegTrainer(pcfg, device_transform=device_transform, device="cpu")
+    port_model.load_state_dict(unet3d_from_flax(params), strict=True)
+    optimizer, lr = toptim.build_optimizer(pcfg.training, port_model)
+    pt.setup(TrainState(model=port_model, optimizer=optimizer), None, toptim.EpochScheduler(pcfg.training, lr))
+    return jt, pt
+
+
+def assert_steps_match(jt, pt, batches, what: str, loss_rtol: float = 2e-5, param_rtol: float = 1e-5,
+                       param_atol: float = 2e-6) -> list:
+    """``run_step`` both trainers over ``batches``: each step's loss within
+    ``loss_rtol`` and the params after it within ``param_rtol`` relative
+    plus ``param_atol`` absolute (``tests/test_torch_seg_trainer.py``'s
+    tolerances; Adam's atol grows with the step, as there). Returns the
+    port's losses."""
+    inner = getattr(pt.state.optimizer, "optimizer", pt.state.optimizer)  # through MultiSteps
+    adam = type(inner).__name__ in ("Adam", "AdamW")
+    losses = []
+    for i, batch in enumerate(batches):
+        jt.run_step(batch)
+        pt.run_step(batch)
+        want, got = jt.flush_step_metrics()["loss"], pt.flush_step_metrics()["loss"]
+        np.testing.assert_allclose(got, want, rtol=loss_rtol, err_msg=f"{what}: loss of step {i}")
+        ref = unet3d_from_flax(jax.tree_util.tree_map(np.asarray, jt.state.params))
+        params = dict(pt.state.model.named_parameters())
+        assert set(params) == set(ref)
+        atol = param_atol * (i + 2 if adam else 1)
+        for n, p in params.items():
+            np.testing.assert_allclose(p.detach().numpy(), ref[n].numpy(), rtol=param_rtol, atol=atol,
+                                       err_msg=f"{what}: {n} after step {i}")
+        losses.append(got)
+    return losses

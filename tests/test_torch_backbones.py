@@ -146,10 +146,14 @@ def test_from_config_and_what_is_not_ported():
                                                    device="cpu", remat=True)
     assert m.bn_eps == 1e-3 and all(b.epsilon == 1e-3 for b in m.modules() if isinstance(b, tl.BatchNorm))
     assert meta_model("resnet50", {}).variant == "resnet50"
-    for kw, item in (({"tp_axis": "model"}, "item 12"), ({"seq_shard_axis": "space"}, "item 12"),
-                     ({"moe_experts": 4}, "item 11")):
+    for kw, item in (({"tp_axis": "model"}, "item 12b"), ({"seq_shard_axis": "space"}, "item 12b")):
         with pytest.raises(NotImplementedError, match=item):
             meta_model("vit_b_16", kw)
+    # moe_experts raised before the training-options slice: every second
+    # block routes to its experts, as flax's ViT builds it
+    moe_vit = meta_model("vit_b_16", {"moe_experts": 4})
+    assert [i for i in range(12) if getattr(moe_vit, f"block{i}").num_experts] == [1, 3, 5, 7, 9, 11]
+    assert moe_vit.block1.moe.wi.shape == (4, 768, 3072)
     vit = get_model("vit_b_16").from_config(ConfigNode({}), device="cpu", seed=0, **TINY_VIT)
     with pytest.raises(ValueError, match="patch count"):
         vit(torch.zeros(1, 48, 48, 3))

@@ -147,8 +147,9 @@ def test_multisteps_state_dict_round_trip(flax_params):
 
 def test_build_optimizer_errors(flax_params):
     model = port_model(flax_params)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        toptim.build_optimizer(ConfigNode({"optimizer": "adafactor"}), model)
+    # adafactor raised before the training-options slice
+    # (tests/test_torch_adafactor.py holds it to optax.adafactor)
+    assert isinstance(toptim.build_optimizer(ConfigNode({"optimizer": "adafactor"}), model)[0], toptim.Adafactor)
     with pytest.raises(ValueError, match="Unsupported optimizer"):
         toptim.build_optimizer(ConfigNode({"optimizer": "lion"}), model)
     with pytest.raises(ValueError, match="grad_accum"):

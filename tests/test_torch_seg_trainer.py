@@ -445,15 +445,27 @@ def test_epoch_stepped_lr_and_loader_epoch(params1):
 
 @pytest.mark.parametrize("key,value", [
     ("model.deep_supervision", 2), ("model.moe_experts", 4), ("training.distill.enabled", True)])
-def test_unported_options_raise(key, value):
+def test_unported_options_raise(params1, key, value):
+    """These options raised NotImplementedError before the training-options
+    slice; they are ported (tests/test_torch_deep_supervision.py,
+    test_torch_moe.py, test_torch_distill.py). Misused, each raises the
+    reference's error: deep supervision or MoE asked of a model that sows
+    no ``ds{k}`` / ``moe_aux`` (the small dense UNet3D) at the step, with the
+    reference's text; distillation without a checkpoint at construction."""
     cfg = config(STEP_CASES["sgd"])
     section, name = key.split(".", 1)
     node = cfg.setdefault(section, {})
     for part in name.split(".")[:-1]:
         node = node.setdefault(part, {})
     node[name.split(".")[-1]] = value
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SegTrainer(ConfigNode(cfg), device="cpu")
+    batch = batches(1, seed=10)[0]
+    raised = []
+    for make in (jax_trainer, port_trainer):
+        with pytest.raises((ValueError, KeyError)) as err:
+            make(cfg, params1).run_step(batch)
+        raised.append((err.type, str(err.value)))
+    assert raised[0] == raised[1]
+    assert ("sowed no" in raised[1][1]) if section == "model" else ("checkpoint" in raised[1][1])
 
 
 @pytest.mark.parametrize("criterion,image,label", [

@@ -11,11 +11,12 @@ import torch
 from multimodal_tta_tpu.models.unet3d import UNet3D as JaxUNet3D
 from multimodal_tta_tpu_torch.conf import ConfigNode
 from multimodal_tta_tpu_torch.models.convert import unet3d_from_flax, variables_from_flax
+from multimodal_tta_tpu_torch.models.layers import capture_intermediates
 from multimodal_tta_tpu_torch.models.unet3d import UNet3D
 from multimodal_tta_tpu_torch.registry import get_model
 from multimodal_tta_tpu_torch.tta.tent import norm_param_mask
-from tests._torch_port import (DRYRUN, SMALL, SMALL_SHAPE, assert_stats_close, bn_unet_variables, load_flax,
-                               np_params, randomize)
+from tests._torch_port import (DRYRUN, SMALL, SMALL_SHAPE, assert_stats_close, bn_unet_variables, flat_flax,
+                               load_flax, np_params, randomize)
 
 torch.set_num_threads(1)
 
@@ -91,9 +92,9 @@ def test_from_config_and_registry():
 @pytest.mark.parametrize("kw", [{"norm": "BATCH"}, {"deep_supervision": 1}, {"moe_experts": 2},
                                 {"dropout": 0.1}])
 def test_unported_options_raise(kw):
-    """Each raises at construction, except dropout: the identity outside
-    training, it raises in a training forward (the reference cannot train
-    with it either). remat is ported (tests/test_torch_seg_models.py).
+    """Dropout, the identity outside training, raises in a training forward
+    (the reference cannot train with it either). remat is ported
+    (tests/test_torch_seg_models.py), and so are the other three cases.
     norm BATCH is ported too (it raised before the BatchNorm slice): its
     training forward matches flax's ``train=True`` apply, logits within
     1e-5 relative L2 and the running statistics within 1e-5 of each
@@ -111,6 +112,27 @@ def test_unported_options_raise(kw):
         assert np.linalg.norm(got - want) <= 1e-5 * np.linalg.norm(want)
         stats = variables_from_flax({"params": v["params"], "batch_stats": upd["batch_stats"]})
         assert assert_stats_close(m.state_dict(), stats) == 20
+        return
+    if kw != {"dropout": 0.1}:
+        # deep supervision and the MoE bottleneck raised at construction
+        # before the training-options slice; a training forward now sows
+        # what flax's does (tests/test_torch_deep_supervision.py and
+        # test_torch_moe.py hold them closer): logits within 1e-4, the sown
+        # ds1 logits within 1e-4 and the MoE aux within 1e-6, in f32
+        x = np.random.RandomState(2).randn(2, 16, 16, 16, 2).astype(np.float32)
+        jm = JaxUNet3D(**DRYRUN, **kw)
+        params = randomize(np_params(jm, x, train=True), 5)
+        want, inter = jm.apply({"params": params}, jnp.asarray(x), train=True, mutable=["intermediates"])
+        m = load_flax(UNet3D(**{**DRYRUN, **kw}, device="cpu"), params)
+        m.train()
+        with torch.no_grad(), capture_intermediates() as got_inter:
+            got = m(torch.from_numpy(x))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
+        key = "ds1" if "deep_supervision" in kw else "moe_aux"
+        want_aux = [v for path, v in flat_flax(inter["intermediates"]).items() if path.split("/")[-2] == key]
+        assert len(got_inter[key]) == len(want_aux) == 1
+        np.testing.assert_allclose(got_inter[key][0].numpy(), np.asarray(want_aux[0]), atol=1e-4 if key == "ds1"
+                                   else 1e-6)
         return
     with pytest.raises(NotImplementedError):
         m = UNet3D(**{**DRYRUN, **kw}, device="cpu")
