@@ -219,6 +219,31 @@ Phases, in order (any failure propagates and exits non-zero):
                ``training.debug_nans`` on B: two clean steps (strict mode)
                bitwise the flag-off steps and what the checks cost a step,
                a batch with a NaN raising ``FloatingPointError``.
+ 21. preprocess — the offline preprocessing on the card (``preprocess_phase``):
+               a raw HECKTOR21 tree written from seeds at HECKTOR 2021's grids
+               (6 cases over CHGJ, CHUS and the target CHUP: CT 512x512x128
+               int16 at 0.977 x 0.977 x 3 mm, PET 200x200x128 f32 at 4.07 x
+               4.07 x 3 mm with another origin, the GTVt, a 144 mm bbox;
+               uncompressed .nii through the config's suffix keys) through
+               ``cli.prepare_hecktor21`` (the stock geometry: [1, 1, 3] mm,
+               [144, 144, 48]): ms per case by part (decode, the CT, PET and
+               GTVt resamples, crop/pad, encode and write), cases/s, the
+               resample's ms per CT and peak memory, no kernel launched; its
+               first case again on the CPU (labels equal, images within
+               1e-5 of their range, affines and the manifest row equal); 2
+               BraTS cases (four int16 modalities and seg at 240x240x155, 1 mm)
+               through ``cli.prepare_brats`` to [160, 192, 160], one again on
+               the CPU, held the same way; the prepared manifest through
+               ``cli.train`` (one epoch at batch 2, validation with surface
+               metrics) and ``cli.adapt`` (Tent on CHUP, the no-adapt report):
+               18 + 18 launches a step, 18 a validation batch, 54 + 18 a test
+               batch, each call's launches exactly, each EDT bitwise its plain
+               version; then the ops nothing calls (``unused_ops_phase``), card
+               vs CPU: SSIM and MS-SSIM of a prepared CT/PET pair (3D, three
+               scales) and of a [64,224,224,3] pair, ``rand_rot90`` on
+               [8,48,144,144,2] (bitwise), focal and triplet losses with their
+               gradients, ``vae_delta_mog`` at its default widths (channels
+               32..512, 64x64, K = 16) at batch 64.
 
 Phase 2 also holds the norm kernels against their plain versions at the nine
 norm shapes of the batch-8 training step (the largest, [8,48,144,144,32], in
@@ -3006,6 +3031,537 @@ def training_options_phase(device, root: str, teacher: str, *, shape=SHAPE[:3], 
     return out
 
 
+# ---- phase 21: preprocessing on the card, from raw NIfTI into training and Tent
+# HECKTOR 2021's grids (CT 512x512 at 0.977 mm in 3 mm slices, int16 HU; PET
+# 200x200 at 4.07 mm, f32) and the stock preprocessing config
+# (scripts/configs/hecktor21.yaml: [1, 1, 3] mm, [144, 144, 48], a 144 mm
+# bbox): 6 raw cases over two source centres and one target centre, written
+# uncompressed (through the config's suffix keys) so that the phase's time
+# goes to the preprocessing and not to writing its input
+PREP_CT = ((512, 512, 128), (0.977, 0.977, 3.0))
+PREP_PT = ((200, 200, 128), (4.07, 4.07, 3.0))
+PREP_CENTERS = {"CHGJ": 2, "CHUS": 2, "CHUP": 2}
+PREP_TARGET = "CHUP"
+PREP_BBOX_MM = 144.0
+PREP_SPACING = (1.0, 1.0, 3.0)
+PREP_OUTPUT = (144, 144, 48)
+PREP_SUFFIX = ".nii"
+PREP_NORMS = 18  # norm calls of one forward of the flagship UNet3D that cli.train and cli.adapt build
+# BraTS 2023's grid (240x240x155 at 1 mm: four int16 modalities and the seg,
+# gzip level 1) to scripts/configs/brats.yaml's [160, 192, 160]
+PREP_BRATS_SHAPE = (240, 240, 155)
+PREP_BRATS_CASES = 2
+PREP_BRATS_OUTPUT = (160, 192, 160)
+PREP_LINEAR_REL = 1e-5  # linear images, card vs CPU, of the data's range (tests/test_torch_resample.py)
+UNUSED_OPS_REL = 1e-5  # SSIM, MS-SSIM, the losses and their gradients: card (TF32 off) vs CPU, relative
+MOG_REL_L2 = 1e-4  # vae_delta_mog's f32 outputs: card (TF32 off) vs CPU, relative L2
+
+
+def _ras_affine(origin, spacing):
+    """The NIfTI RAS affine of an ITK (LPS) grid with the identity direction,
+    as a DICOM-converted scan has: x and y negated."""
+    import numpy as np
+
+    aff = np.diag([-spacing[0], -spacing[1], spacing[2], 1.0])
+    aff[:3, 3] = [-origin[0], -origin[1], origin[2]]
+    return aff
+
+
+def _ellipsoid(origin, spacing, shape, centre, radii):
+    """The voxels of a grid (2D or 3D, LPS, identity direction) whose
+    centres lie in an ellipse or ellipsoid, computed in its bounding box."""
+    import numpy as np
+
+    d = [((o + s * np.arange(n) - c) / r) ** 2 for o, s, n, c, r in zip(origin, spacing, shape, centre, radii)]
+    out = np.zeros(tuple(shape), bool)
+    hits = [np.nonzero(di <= 1.0)[0] for di in d]
+    if all(len(h) for h in hits):
+        box = tuple(slice(h[0], h[-1] + 1) for h in hits)
+        total = sum(di[b].reshape([-1 if j == i else 1 for j in range(len(d))])
+                    for i, (di, b) in enumerate(zip(d, box)))
+        out[box] = total <= 1.0
+    return out
+
+
+def write_raw_hecktor(root: str, *, ct=PREP_CT, pt=PREP_PT, centers=PREP_CENTERS,
+                      bbox_mm: float = PREP_BBOX_MM) -> dict:
+    """A raw HECKTOR21-like tree from seed 0: per case a CT (int16 HU: air,
+    a body ellipse of soft tissue with noise, a lesion 120 HU brighter), a
+    PET on its own grid and origin (f32: a body, a hot lesion), the GTVt on
+    the CT grid (uint8), a bbox CSV row of a ``bbox_mm`` cube around the
+    lesion in ITK LPS millimetres and an info CSV row. Returns the paths and
+    the case ids."""
+    import csv
+
+    import numpy as np
+
+    from multimodal_tta_tpu_torch.data import nifti
+
+    nii = os.path.join(root, "hecktor_nii")
+    os.makedirs(nii, exist_ok=True)
+    r = np.random.RandomState(0)
+    (cshape, csp), (pshape, psp) = ct, pt
+    csp, psp = np.asarray(csp, np.float64), np.asarray(psp, np.float64)
+    fov = np.asarray(cshape) * csp
+    rows = {"bbox_csv": [], "info_csv": []}
+    cases = []
+    for cid, (center, n) in enumerate(centers.items()):
+        for i in range(n):
+            pid = f"{center}{i + 1:03d}"
+            centre = r.uniform(-20.0, 20.0, 3)
+            ct_origin = centre - csp * (np.asarray(cshape) - 1) / 2
+            pt_origin = centre + r.uniform(-5.0, 5.0, 3) - psp * (np.asarray(pshape) - 1) / 2
+            lesion, radii = centre + r.uniform(-0.12, 0.12, 3) * fov, r.uniform(0.03, 0.06, 3) * fov
+            body = (0.4 * fov[0], 0.33 * fov[1])
+
+            inside = _ellipsoid(ct_origin[:2], csp[:2], cshape[:2], centre[:2], body)
+            ct_vol = np.where(inside, 40.0 + 25.0 * r.randn(*inside.shape), -1000.0).astype(np.float32)
+            ct_vol = ct_vol[:, :, None] + (5.0 * r.randn(cshape[2])).astype(np.float32)
+            gt = _ellipsoid(ct_origin, csp, cshape, lesion, radii)
+            ct_vol[gt] += 120.0
+            inside = _ellipsoid(pt_origin[:2], psp[:2], pshape[:2], centre[:2], body)
+            pt_vol = np.where(inside, 1.0 + 0.2 * np.abs(r.randn(*inside.shape)), 0.05).astype(np.float32)
+            pt_vol = pt_vol[:, :, None] * (1.0 + 0.01 * r.randn(pshape[2])).astype(np.float32)
+            pt_vol[_ellipsoid(pt_origin, psp, pshape, lesion, radii)] += 8.0
+
+            nifti.save(np.rint(ct_vol).astype(np.int16), _ras_affine(ct_origin, csp),
+                       os.path.join(nii, f"{pid}_ct{PREP_SUFFIX}"))
+            nifti.save(pt_vol, _ras_affine(pt_origin, psp), os.path.join(nii, f"{pid}_pt{PREP_SUFFIX}"))
+            nifti.save(gt.astype(np.uint8), _ras_affine(ct_origin, csp),
+                       os.path.join(nii, f"{pid}_gtvt{PREP_SUFFIX}"))
+            box = {f"{a}{k}": float(c + s * bbox_mm / 2) for a, c in zip("xyz", lesion)
+                   for k, s in ((1, -1), (2, 1))}
+            rows["bbox_csv"].append({"PatientID": pid, **box})
+            rows["info_csv"].append({"PatientID": pid, "CenterID": cid + 1})
+            cases.append(pid)
+    out = {"nii_root": nii, "cases": cases}
+    for key, table in rows.items():
+        out[key] = os.path.join(root, key.replace("_csv", ".csv"))
+        with open(out[key], "w", newline="", encoding="utf-8") as f:
+            w = csv.DictWriter(f, fieldnames=list(table[0]))
+            w.writeheader()
+            w.writerows(table)
+    return out
+
+
+def hecktor_prep_config(raw: dict, out_root: str, *, spacing=PREP_SPACING, output=PREP_OUTPUT) -> dict:
+    """scripts/configs/hecktor21.yaml's keys for the raw tree ``raw``: the
+    stock geometry, pads and dtypes, the given spacing and size, one
+    validation case per source centre, per-domain CSVs."""
+    return {"bbox_csv": raw["bbox_csv"], "info_csv": raw["info_csv"], "nii_root": raw["nii_root"],
+            "out_root": out_root, "out_manifest_csv": os.path.join(out_root, "manifest.csv"),
+            "export_per_domain_csv": True, "target_spacing": list(spacing), "output_size": list(output),
+            "pad_value_ct": -1024.0, "pad_value_pt": 0.0, "pad_value_mask": 0.0, "interp_ct": "linear",
+            "interp_pt": "linear", "interp_mask": "nearest", "save_float_dtype": "float32",
+            "save_mask_dtype": "uint8", "ct_suffix": f"_ct{PREP_SUFFIX}", "pt_suffix": f"_pt{PREP_SUFFIX}",
+            "gt_suffix": f"_gtvt{PREP_SUFFIX}", "enable_split": True, "seed": 2026, "val_per_center": 1,
+            "source_centers": [c for c in PREP_CENTERS if c != PREP_TARGET], "target_centers": [PREP_TARGET],
+            "other_centers_policy": "ignore"}
+
+
+def write_raw_brats(root: str, *, shape=PREP_BRATS_SHAPE, cases: int = PREP_BRATS_CASES) -> str:
+    """A raw BraTS-layout tree from seed 0: per case four int16 modalities
+    (integer intensities, as BraTS stores them: zero outside a brain
+    ellipsoid, noise inside, a tumour of three nested regions) and the uint8
+    seg (labels 1-3), 1 mm, ``.nii.gz`` at gzip level 1."""
+    import gzip
+
+    import numpy as np
+
+    from multimodal_tta_tpu_torch.data import nifti
+
+    r = np.random.RandomState(0)
+    sp = np.ones(3)
+    for i in range(cases):
+        case = f"BraTS-GLI-{i:05d}-000"
+        d = os.path.join(root, case)
+        os.makedirs(d, exist_ok=True)
+        origin = r.uniform(-10.0, 10.0, 3) - (np.asarray(shape) - 1) / 2
+        brain = _ellipsoid(origin, sp, shape, (0.0, 0.0, 0.0), np.asarray(shape) * 0.4)
+        centre = r.uniform(-20.0, 20.0, 3)
+        regions = [_ellipsoid(origin, sp, shape, centre, np.full(3, rad)) for rad in (24.0, 14.0, 7.0)]
+        seg = np.zeros(shape, np.uint8)
+        for label, region in zip((2, 1, 3), regions):
+            seg[region] = label
+        vols = {}
+        for m, (base, gain) in zip(("t1n", "t1c", "t2w", "t2f"), ((300, 80), (350, 200), (250, -60), (200, 150))):
+            v = np.where(brain, base + 30.0 * r.randn(shape[0], shape[1], 1), 0.0) + gain * (seg > 0)
+            vols[m] = np.rint(v).astype(np.int16)
+        vols["seg"] = seg
+        for m, v in vols.items():
+            raw = os.path.join(d, f"{case}-{m}.nii")
+            nifti.save(v, _ras_affine(origin, sp), raw)
+            with open(raw, "rb") as f, gzip.open(raw + ".gz", "wb", compresslevel=1) as g:
+                g.write(f.read())
+            os.remove(raw)
+    return root
+
+
+def _same_volumes(a: str, b: str) -> dict:
+    """Two written volumes: affine and dtype equal, values' max abs error
+    and the data's range."""
+    import numpy as np
+
+    from multimodal_tta_tpu_torch.data import nifti
+
+    ia, ib = nifti.load(a), nifti.load(b)
+    va, vb = np.asarray(ia.dataobj), np.asarray(ib.dataobj)
+    return {"affine_equal": bool(np.array_equal(ia.affine, ib.affine)) and va.dtype == vb.dtype
+            and va.shape == vb.shape,
+            "max_abs_err": float(np.abs(va.astype(np.float64) - vb.astype(np.float64)).max()),
+            "range": float(np.ptp(vb.astype(np.float64))), "equal": bool(np.array_equal(va, vb))}
+
+
+def _check_volumes(pairs: dict, labels: tuple, what: str) -> dict:
+    """Hold each volume of one device against the other's: labels equal,
+    images within ``PREP_LINEAR_REL`` of their range, affines equal."""
+    out = {name: _same_volumes(a, b) for name, (a, b) in pairs.items()}
+    for name, r in out.items():
+        ok = r["equal"] if name in labels else r["max_abs_err"] <= PREP_LINEAR_REL * r["range"]
+        if not (ok and r["affine_equal"]):
+            raise AssertionError(f"{what}: {name} card vs CPU {r}")
+    return out
+
+
+def _rows_equal_but_dirs(a: dict, b: dict) -> bool:
+    """Manifest rows equal, output paths compared by file name."""
+    def norm(row):
+        return {k: os.path.basename(v) if k.endswith("_proc") else v for k, v in row.items()}
+
+    return norm(a) == norm(b)
+
+
+def unused_ops_phase(device, ct_path: str, pt_path: str, *, image2d=(64, 224, 224, 3), rot_batch=(8, 48, 144, 144, 2),
+                     seg_batch=(2, 48, 144, 144, 1), embed=(64, 512, 8), mog=None, mog_batch: int = 64) -> dict:
+    """Phase 21 (e): the ops nothing calls, on ``device`` against the CPU on
+    the same inputs: SSIM and MS-SSIM of a prepared CT/PET pair (3D, with as
+    many scales as its smallest side holds: three at 48 slices) and of a 2D
+    pair, ``rand_rot90`` on a training batch (each of the four quarter-turn
+    counts, bitwise), focal and triplet losses with their gradients, and
+    ``vae_delta_mog``'s forward with the same weights and draws. Returns each
+    comparison and its ms on ``device``."""
+    import numpy as np
+    import torch
+
+    from multimodal_tta_tpu_torch.data import nifti
+    from multimodal_tta_tpu_torch.models.mogvae import VAEDeltaMoG
+    from multimodal_tta_tpu_torch.ops.augment import apply_rand_rot90
+    from multimodal_tta_tpu_torch.ops.losses import focal_loss, triplet_margin_loss
+    from multimodal_tta_tpu_torch.ops.ssim import ms_ssim, ssim
+
+    dev, cpu = torch.device(device), torch.device("cpu")
+    cuda = dev.type == "cuda"
+    g = torch.Generator().manual_seed(21)
+    out = {}
+
+    def timed(fn):
+        if not cuda:
+            return fn(), None
+        fn()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize(dev)
+        return got, (time.perf_counter() - t0) * 1e3
+
+    def rel(a, b) -> float:
+        a, b = a.detach().double().cpu(), b.detach().double().cpu()
+        return float((a - b).norm() / b.norm().clamp(min=1e-30))
+
+    def vol(path, lo, hi):  # a prepared volume [D, H, W] in [0, 1]
+        v = np.asarray(nifti.load(path).dataobj, np.float32).transpose(2, 1, 0)
+        return torch.from_numpy((np.clip(v, lo, hi) - lo) / (hi - lo))
+
+    x3 = vol(ct_path, -1000.0, 1000.0)[None, ..., None]
+    y3 = vol(pt_path, 0.0, 15.0)[None, ..., None]
+    # as many of MS-SSIM's scales as the volume's smallest side holds (win 11)
+    scales = max(s for s in range(1, 6) if min(x3.shape[1:4]) > 12 * 2 ** (s - 1) - 2)
+    x2 = torch.rand(image2d, generator=g)
+    y2 = (x2 + 0.1 * torch.randn(image2d, generator=g)).clamp(0, 1)
+    cases = {"ssim_3d": (ssim, x3, y3, {}),
+             "ms_ssim_3d": (ms_ssim, x3, y3, {"weights": (0.0448, 0.2856, 0.3001, 0.2363, 0.1333)[:scales]}),
+             "ssim_2d": (ssim, x2, y2, {}), "ms_ssim_2d": (ms_ssim, x2, y2, {})}
+    for name, (fn, a, b, kw) in cases.items():
+        want = fn(a, b, **kw)
+        got, ms = timed(lambda: fn(a.to(dev), b.to(dev), **kw))
+        out[name] = {"shape": list(a.shape), "value": float(got), "cpu": float(want), "rel": rel(got, want), "ms": ms}
+        if not out[name]["rel"] <= UNUSED_OPS_REL:
+            raise AssertionError(f"{name}: {out[name]}")
+
+    image = torch.randn(rot_batch, generator=g)
+    label = (torch.rand(rot_batch[:-1] + (1,), generator=g) > 0.5).float()
+    k = torch.arange(rot_batch[0]) % 4  # each of the four branches
+    want = apply_rand_rot90(image, label, k)
+    got, ms = timed(lambda: apply_rand_rot90(image.to(dev), label.to(dev), k.to(dev)))
+    out["rand_rot90"] = {"shape": list(rot_batch), "k": k.tolist(), "ms": ms,
+                         "bitwise": all(torch.equal(a.cpu(), b) for a, b in zip(got, want))}
+    if not out["rand_rot90"]["bitwise"]:
+        raise AssertionError(f"rand_rot90: {out['rand_rot90']}")
+
+    logits = torch.randn(seg_batch, generator=g) * 3
+    target = (torch.rand(seg_batch, generator=g) > 0.8).float()
+    n, width, classes = embed
+    emb = torch.randn(n, width, generator=g)
+    labels = torch.randint(0, classes, (n,), generator=g)
+    for name, fn, args in (("focal_loss", focal_loss, (logits, target)),
+                           ("triplet_margin_loss", triplet_margin_loss, (emb, labels))):
+        def run(on):
+            x = args[0].to(on).requires_grad_()
+            value = fn(x, args[1].to(on))
+            return value, torch.autograd.grad(value, x)[0]
+
+        (want, want_g), ((got, got_g), ms) = run(cpu), timed(lambda: run(dev))
+        out[name] = {"shape": list(args[0].shape), "value": float(got.detach()), "rel": rel(got, want),
+                     "grad_rel": rel(got_g, want_g), "ms": ms}
+        if not (out[name]["rel"] <= UNUSED_OPS_REL and out[name]["grad_rel"] <= UNUSED_OPS_REL):
+            raise AssertionError(f"{name}: {out[name]}")
+
+    m_cpu = VAEDeltaMoG(**(mog or {}), device="cpu", seed=0)
+    m_dev = VAEDeltaMoG(**(mog or {}), device=dev, seed=None)
+    m_dev.load_state_dict(m_cpu.state_dict())
+    xm = torch.rand((mog_batch,) + m_cpu.image_size + (m_cpu.in_channels,), generator=g)
+    eps = m_cpu.reparam_draws(mog_batch, g)
+    with torch.no_grad():
+        want = m_cpu(xm, *eps)
+        got, ms = timed(lambda: m_dev(xm.to(dev), *(e.to(dev) for e in eps)))
+    out["vae_delta_mog"] = {"input": list(xm.shape), "params": sum(p.numel() for p in m_cpu.parameters()),
+                            "delta_rel_l2": rel(got[0], want[0]), "ms": ms,
+                            "aux_rel_l2": {k: rel(got[1][k], want[1][k]) for k in want[1]}}
+    worst = max([out["vae_delta_mog"]["delta_rel_l2"]] + list(out["vae_delta_mog"]["aux_rel_l2"].values()))
+    if not worst <= MOG_REL_L2 or tuple(got[0].shape) != tuple(xm.shape[:3]) + (1,):
+        raise AssertionError(f"vae_delta_mog: {out['vae_delta_mog']}")
+    return out
+
+
+def prep_overrides(manifest: str, run_dir: str, *extra: str) -> list:
+    """``cli.train`` / ``cli.adapt`` on the prepared HECKTOR manifest: the
+    full-width recipe of configs/, target centre ``PREP_TARGET``, one
+    validation case per source centre, one epoch at batch 2 with validation
+    (surface metrics on) and a checkpoint."""
+    return ["task=hecktor21", "dataset=hecktor21", "model=unet", f"dataset.manifest_csv={manifest}",
+            f"dataset.target_center={PREP_TARGET}", "dataset.val_per_center=1", "training.epochs=1",
+            "training.batch_size=2", "training.eval_batch_size=2", "training.model_save_start=0",
+            "training.model_save_freq=1", "evaluation.surface.enable=true",
+            f"task.save_dir={os.path.dirname(run_dir)}", f"hydra.run.dir={run_dir}", *extra]
+
+
+def preprocess_phase(device, root: str, *, ct=PREP_CT, pt=PREP_PT, bbox_mm: float = PREP_BBOX_MM,
+                     spacing=PREP_SPACING, output=PREP_OUTPUT, brats_shape=PREP_BRATS_SHAPE,
+                     brats_output=PREP_BRATS_OUTPUT, extra=(), ops_kw=None, reset_counts=lambda: None, read_counts=lambda: {}) -> dict:
+    """Phase 21: raw NIfTI -> ``cli.prepare_hecktor21`` on ``device`` -> the
+    prepared manifest through ``cli.train`` and ``cli.adapt`` with Tent.
+
+    (a) writes the raw HECKTOR21 tree (``write_raw_hecktor``) and prepares it
+    on ``device``: ms per case by part, cases/s, the resample's peak memory
+    and its ms per CT; (b) prepares its first case again on the CPU and holds
+    the device to it (labels equal, images within ``PREP_LINEAR_REL`` of their
+    range, affines and the manifest row equal); (c) prepares a raw BraTS tree
+    (``write_raw_brats``) on ``device`` and one case again on the CPU, held
+    the same way; (d) ``cli.train`` (1 epoch, batch 2, validation with surface
+    metrics) and ``cli.adapt`` (Tent, the no-adapt report) on the prepared
+    manifest, their launches counted from 0 (``reset_counts`` /
+    ``read_counts``) and each EDT recorded to be held bitwise against its
+    plain version; (e) ``unused_ops_phase`` on the prepared CT/PET pair.
+    ``extra`` is appended to (d)'s overrides. Returns every number; the
+    caller holds (d)'s launches against ``out[...]["want"]``."""
+    import shutil
+    import statistics
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    import multimodal_tta_tpu_torch.ops.surface as surface_module
+    from multimodal_tta_tpu_torch.cli import adapt, prepare_brats, prepare_hecktor21, train
+    from multimodal_tta_tpu_torch.conf import yaml_subset
+    from multimodal_tta_tpu_torch.core.experiment_manager import ExperimentManager
+    from multimodal_tta_tpu_torch.data.csv_table import read_csv
+    from multimodal_tta_tpu_torch.kernels.edt_minplus import squared_edt_volumes, squared_edt_volumes_plain
+    from multimodal_tta_tpu_torch.ops.resample import resample_to_spacing
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def write_config(path: str, cfg: dict) -> str:
+        with open(path, "w", encoding="utf-8") as f:
+            f.write(yaml_subset.dump(cfg))
+        return path
+
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    out: dict = {"device": str(dev)}
+
+    # (a) the raw HECKTOR21 tree, prepared on the device
+    t0 = time.perf_counter()
+    raw = write_raw_hecktor(os.path.join(root, "raw"), ct=ct, pt=pt, bbox_mm=bbox_mm)
+    out["fixture_s"] = time.perf_counter() - t0
+    out["fixture_bytes"] = sum(os.path.getsize(os.path.join(raw["nii_root"], n)) for n in os.listdir(raw["nii_root"]))
+    cfg = hecktor_prep_config(raw, os.path.join(root, "hecktor21"), spacing=spacing, output=output)
+    cfg_path = write_config(os.path.join(root, "hecktor21.yaml"), cfg)
+    def peak_gib(base: int):
+        """The peak allocated since ``reset_peak_memory_stats`` above what was
+        allocated before (the phases before this one hold their own)."""
+        return (torch.cuda.max_memory_allocated(dev) - base) / 2**30 if cuda else None
+
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev) if cuda else 0
+    reset_counts()
+    t0 = time.perf_counter()
+    res = prepare_hecktor21.main(["--config", cfg_path], device=dev)
+    wall = time.perf_counter() - t0
+    rows, part_ms = res["rows"], res["part_ms"]
+    if [r["patient_id"] for r in rows] != raw["cases"] or any(r["status"] != "ok" for r in rows):
+        raise AssertionError(f"prepare_hecktor21: {[(r['patient_id'], r['status']) for r in rows]}")
+    manifest = cfg["out_manifest_csv"]
+    read_back = read_csv(manifest)
+    domains = sorted(os.listdir(os.path.dirname(manifest)))
+    if len(read_back) != len(rows) or not {"source.csv", "target.csv"} <= set(domains):
+        raise AssertionError(f"manifest {len(read_back)} rows, files {domains}")
+    out["hecktor"] = {
+        "cases": len(rows), "wall_s": wall, "cases_per_s": len(rows) / wall,
+        "launches": read_counts(), "peak_gib": peak_gib(base),
+        "part_ms": part_ms,
+        "mean_part_ms": {p: statistics.fmean(ms[p] for ms in part_ms.values()) for p in prepare_hecktor21.PARTS},
+        "ct_resampled": rows[0]["ct_size_resampled"], "roi": rows[0]["roi_size_idx"],
+        "splits": [r["split"] for r in read_back.rows]}
+    # the resample alone: the first case's CT at full size, ms and peak
+    ct_data, ct_grid = prepare_hecktor21.read_image(os.path.join(raw["nii_root"], f"{raw['cases'][0]}_ct{PREP_SUFFIX}"))
+    ms = []
+    for _ in range(3):
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+        sync()
+        t0 = time.perf_counter()
+        resampled, _ = resample_to_spacing(ct_data, ct_grid, spacing, default_value=-1024.0, device=dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    out["hecktor"]["ct_resample"] = {
+        "input": list(ct_data.shape), "output": list(resampled.shape), "ms": ms, "median_ms": statistics.median(ms),
+        "bytes_in_out": int(ct_data.nbytes + resampled.nbytes), "peak_gib": peak_gib(base)}
+    del ct_data, resampled
+
+    # (b) the first case again on the CPU
+    pid = raw["cases"][0]
+    bbox_row = next(r for r in read_csv(cfg["bbox_csv"]).rows if r["PatientID"] == pid)
+    cpu_dir = os.path.join(root, "hecktor21_cpu")
+    cpu_ms: dict = {}
+    raw_paths = [os.path.join(raw["nii_root"], f"{pid}{cfg[k]}") for k in ("ct_suffix", "pt_suffix", "gt_suffix")]
+    row_cpu = prepare_hecktor21.process_case(
+        pid, bbox_row, prepare_hecktor21.geometry_config(cfg),
+        (*(Path(p) for p in raw_paths), Path(cpu_dir, "images"), Path(cpu_dir, "labels")),
+        device="cpu", part_ms=cpu_ms)
+    row_dev = rows[0]
+    out["hecktor"]["cpu_case"] = {
+        "part_ms": cpu_ms, "row_equal": _rows_equal_but_dirs({k: row_dev[k] for k in row_cpu}, row_cpu),
+        "volumes": _check_volumes({m: (row_dev[f"{m}_proc"], row_cpu[f"{m}_proc"]) for m in ("ct", "pt", "gtvt")},
+                                  ("gtvt",), f"HECKTOR {pid}")}
+    if not out["hecktor"]["cpu_case"]["row_equal"]:
+        raise AssertionError(f"HECKTOR {pid}: the manifest rows of the card and the CPU differ")
+
+    # (c) BraTS: two raw cases prepared on the device, one again on the CPU
+    t0 = time.perf_counter()
+    brats_raw = write_raw_brats(os.path.join(root, "brats_raw"), shape=brats_shape)
+    fixture_s = time.perf_counter() - t0
+    bcfg = {"raw_root": brats_raw, "out_root": os.path.join(root, "brats"), "modalities": ["t1n", "t1c", "t2w", "t2f"],
+            "seg_suffix": "-seg.nii.gz", "target_spacing": [1.0, 1.0, 1.0], "output_size": list(brats_output),
+            "pad_value_image": 0.0, "pad_value_mask": 0.0, "split_seed": 42, "split_ratios": [0.8, 0.1, 0.1]}
+    bcfg_path = write_config(os.path.join(root, "brats.yaml"), bcfg)
+    t0 = time.perf_counter()
+    bres = prepare_brats.main(["--config", bcfg_path, "--workers", str(PREP_BRATS_CASES)], device=dev)
+    bwall = time.perf_counter() - t0
+    brows = bres["rows"]
+    if len(brows) != 4 * PREP_BRATS_CASES or any(r["status"] != "ok" for r in brows):
+        raise AssertionError(f"prepare_brats: {[(r['subject_id'], r['status']) for r in brows]}")
+    case = brows[0]["subject_id"]
+    bcpu_ms: dict = {}
+    bcpu_dir = os.path.join(root, "brats_cpu")
+    os.makedirs(os.path.join(bcpu_dir, "images"))
+    os.makedirs(os.path.join(bcpu_dir, "labels"))
+    mod_rows, lab = prepare_brats.process_case(Path(brats_raw, case), bcfg, Path(bcpu_dir, "images"),
+                                               Path(bcpu_dir, "labels"), device="cpu", part_ms=bcpu_ms)
+    dev_paths = {r["modality"]: r["img_path"] for r in brows if r["subject_id"] == case}
+    pairs = {m: (dev_paths[m], p) for m, p in mod_rows}
+    pairs["seg"] = (brows[0]["label_path"], lab)
+    out["brats"] = {"cases": PREP_BRATS_CASES, "fixture_s": fixture_s, "wall_s": bwall,
+                    "cases_per_s": PREP_BRATS_CASES / bwall, "part_ms": bres["part_ms"], "cpu_part_ms": bcpu_ms,
+                    "volumes": _check_volumes(pairs, ("seg",), f"BraTS {case}")}
+    if sorted(os.path.basename(p) for p in dev_paths.values()) != sorted(os.path.basename(p) for _, p in mod_rows):
+        raise AssertionError("BraTS: the card and the CPU wrote other files")
+
+    # (d) the prepared manifest through cli.train and cli.adapt
+    managers = []
+    orig_setup_optimizer = ExperimentManager.setup_optimizer
+
+    def setup_optimizer(self):
+        managers.append(self)
+        return orig_setup_optimizer(self)
+
+    edt_in = []
+
+    def recording_edt(pts, sp, *, sqrt=False):
+        got = squared_edt_volumes(pts, sp, sqrt=sqrt)
+        edt_in.append((pts.clone(), sp, sqrt, got.clone()))
+        return got
+
+    def run(cli, name: str, *args: str):
+        run_dir = os.path.join(root, "runs", name)
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            result = cli.main(prep_overrides(manifest, run_dir, *args, *extra), device=dev)
+            sync()
+        finally:
+            os.chdir(REPO)  # the run moved into its run directory
+        return result, run_dir, time.perf_counter() - t0, read_counts()
+
+    ExperimentManager.setup_optimizer = setup_optimizer
+    surface_module.squared_edt_volumes = recording_edt
+    try:
+        history, run_dir, wall, counts = run(train, "train")
+        m = managers[-1]
+        steps, n_val = len(m.train_loader), len(m.val_loader)
+        losses = [h["loss"] for h in history["train_history"]]
+        out["train"] = {"wall_s": wall, "launches": counts, "steps": steps, "val_batches": n_val,
+                        "train_volumes": len(m.train_loader.dataset), "losses": losses,
+                        "val": [{k: v for k, v in ev.items() if "/" not in k} for ev in history["eval_history"]],
+                        "want": {"forward": PREP_NORMS * (steps + n_val), "backward": PREP_NORMS * steps,
+                                 "minplus": n_val}}
+        if not losses or not all(np.isfinite(losses)) or not history["eval_history"]:
+            raise AssertionError(f"cli.train on the prepared manifest: {out['train']}")
+        best = os.path.join(run_dir, "checkpoints", "best_model")
+        results, run_dir, wall, counts = run(adapt, "adapt", "tta=tent", "tta.steps=1", "tta.report_no_adapt=true",
+                                             f"training.resume={best}")
+        b = len(managers[-1].test_loader)
+        out["adapt"] = {"wall_s": wall, "launches": counts, "test_batches": b, "target": PREP_TARGET,
+                        "metrics": {mode: {k: v for k, v in r.items() if "/" not in k} for mode, r in results.items()},
+                        "want": {"forward": 3 * PREP_NORMS * b, "backward": PREP_NORMS * b, "minplus": 2 * b}}
+        for mode, metrics in results.items():
+            if not all(np.isfinite(v) for v in metrics.values()):
+                raise AssertionError(f"cli.adapt {mode}: {metrics}")
+    finally:
+        ExperimentManager.setup_optimizer = orig_setup_optimizer
+        surface_module.squared_edt_volumes = squared_edt_volumes
+        managers.clear()
+    out["edt"] = [{"shape": list(p.shape), "bitwise_plain": torch.equal(got, squared_edt_volumes_plain(p, sp, sqrt=s))}
+                  for p, sp, s, got in edt_in]
+    del edt_in
+    if len(out["edt"]) != out["train"]["val_batches"] + 2 * out["adapt"]["test_batches"] or not all(
+            e["bitwise_plain"] for e in out["edt"]):
+        raise AssertionError(f"phase 21 EDTs: {out['edt']}")
+
+    # (e) the ops nothing calls
+    out["ops"] = unused_ops_phase(dev, rows[0]["ct_proc"], rows[0]["pt_proc"], **(ops_kw or {}))
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -4819,6 +5375,53 @@ def main() -> int:
     opt20.update({"launches": opt_launches, "phase_s": time.perf_counter() - t_opt, "card": smi})
     log(f"[options] phase 20 took {opt20['phase_s']:.1f} s; launches {opt_launches}; card {smi}")
 
+    # ---- 21. preprocessing on the card: raw NIfTI -> training and Tent -----
+    t_prep = time.perf_counter()
+    torch.cuda.empty_cache()
+    prep = preprocess_phase(dev, os.path.join(REPO, "build", "chip_smoke_preprocess"), reset_counts=reset_counts,
+                            read_counts=read_counts)
+    h21, b21 = prep["hecktor"], prep["brats"]
+    log(f"[preprocess] raw HECKTOR21 tree: {h21['cases']} cases (CT {list(PREP_CT[0])} int16 at {list(PREP_CT[1])} "
+        f"mm, PET {list(PREP_PT[0])} f32 at {list(PREP_PT[1])} mm, GTVt), {prep['fixture_bytes'] / 2**20:.1f} MiB "
+        f"uncompressed, written in {prep['fixture_s']:.2f} s")
+    log(f"[preprocess] cli.prepare_hecktor21 on the card: {h21['wall_s']:.2f} s, {h21['cases_per_s']:.3f} cases/s; "
+        f"ms per case by part (mean) {({k: round(v, 2) for k, v in h21['mean_part_ms'].items()})}; CT resampled to "
+        f"{h21['ct_resampled']}, ROI {h21['roi']}; peak allocated {h21['peak_gib']:.3f} GiB (above what the "
+        f"earlier phases hold); kernel launches "
+        f"{h21['launches']}; splits {h21['splits']}; card {smi}")
+    for pid, ms in h21["part_ms"].items():
+        log(f"[preprocess]   {pid}: {({k: round(v, 2) for k, v in ms.items()})}")
+    cr = h21["ct_resample"]
+    log(f"[preprocess] resample_to_spacing of one CT {cr['input']} -> {cr['output']} (host numpy in and out): ms "
+        f"{[round(t, 2) for t in cr['ms']]} -> median {cr['median_ms']:.2f}, {cr['bytes_in_out'] / 2**20:.1f} MiB "
+        f"in + out, peak allocated {cr['peak_gib']:.3f} GiB (above what the earlier phases hold); card {smi}")
+    cc = h21["cpu_case"]
+    log(f"[preprocess] {prep['hecktor']['cases']} cases on the card vs its first case on the CPU: manifest row equal "
+        f"{cc['row_equal']}, volumes {cc['volumes']} (labels equal, images within {PREP_LINEAR_REL} of their range); "
+        f"CPU ms by part {({k: round(v, 2) for k, v in cc['part_ms'].items()})}")
+    log(f"[preprocess] cli.prepare_brats on the card: {b21['cases']} cases {list(PREP_BRATS_SHAPE)} -> "
+        f"{list(PREP_BRATS_OUTPUT)} in {b21['wall_s']:.2f} s ({b21['cases_per_s']:.3f} cases/s; the raw tree written "
+        f"in {b21['fixture_s']:.2f} s); ms by part {b21['part_ms']}; one case on the CPU "
+        f"{({k: round(v, 2) for k, v in b21['cpu_part_ms'].items()})}, volumes card vs CPU {b21['volumes']}")
+    if any(h21["launches"].values()):
+        raise AssertionError(f"preprocessing launched a kernel: {h21['launches']}")
+    for call in ("train", "adapt"):
+        r = prep[call]
+        log(f"[preprocess] cli.{call} on the prepared manifest: {r['wall_s']:.2f} s, launches {r['launches']} "
+            f"(derived {r['want']}); " + (f"{r['steps']} steps, {r['val_batches']} validation batches, losses "
+                                          f"{r['losses']}, validation {r['val']}" if call == "train"
+                                          else f"target {r['target']}, {r['test_batches']} test batches, metrics "
+                                          f"{r['metrics']}") + f"; card {smi}")
+        if r["launches"] != {**r["want"], "plain_backward": 0}:
+            raise AssertionError(f"phase 21 cli.{call}: launches {r['launches']}, derived {r['want']}")
+    log(f"[preprocess] EDTs of the validation and test batches, each bitwise its plain version: {prep['edt']}")
+    for name, r in prep["ops"].items():
+        log(f"[preprocess] {name} on the card vs the CPU: {r}")
+    prep_launches = {k: prep["train"]["launches"][k] + prep["adapt"]["launches"][k]
+                     for k in ("forward", "backward", "minplus")}
+    prep.update({"launches": prep_launches, "phase_s": time.perf_counter() - t_prep, "card": smi})
+    log(f"[preprocess] phase 21 took {prep['phase_s']:.1f} s; launches {prep_launches}; card {smi}")
+
 
     def norm_summary(name: str, tot: dict, train_tot: dict, brats_tot: dict, n_launches: dict, err: float,
                      extra: dict, direction: str) -> dict:
@@ -4850,14 +5453,15 @@ def main() -> int:
                             "cli": cli_launches["forward"], "tta": tta_launches["forward"],
                             "brats": brats_launches["forward"], "transformer": tr_launches["forward"],
                             "batchnorm": bn_launches["forward"], "serving_artifact": art_launches["forward"],
-                            "training_options": opt_launches["forward"]},
+                            "training_options": opt_launches["forward"], "preprocess": prep_launches["forward"]},
                            max_abs_err, {}, "forward")
     backward_summary = norm_summary(
         "fused_instance_norm_backward", btotals, norm_totals[TRAIN_BATCH][1], brats_norm[1],
         {**backward_launches, "train": train_launches["backward"], "cli": cli_launches["backward"],
          "tta": tta_launches["backward"], "brats": brats_launches["backward"],
          "transformer": tr_launches["backward"], "batchnorm": bn_launches["backward"],
-         "serving_artifact": art_launches["backward"], "training_options": opt_launches["backward"]}, backward_err,
+         "serving_artifact": art_launches["backward"], "training_options": opt_launches["backward"],
+         "preprocess": prep_launches["backward"]}, backward_err,
         {"note": "the gradient of the TPU kernel's function; dx computed in all 18 timed calls"}, "backward")
     minplus_summary = {
         "name": "minplus",
@@ -4866,11 +5470,11 @@ def main() -> int:
         "replaces": "multimodal_tta_tpu/pallas/edt_minplus.py:52",
         "launches": sum(eval_launches.values()) + train_launches["minplus"] + cli_launches["minplus"]
         + tta_launches["minplus"] + brats_launches["minplus"] + tr_launches["minplus"] + bn_launches["minplus"]
-        + opt_launches["minplus"],
+        + opt_launches["minplus"] + prep_launches["minplus"],
         "launches_by_path": {**eval_launches, "train": train_launches["minplus"], "cli": cli_launches["minplus"],
                              "tta": tta_launches["minplus"], "brats": brats_launches["minplus"],
                              "transformer": tr_launches["minplus"], "batchnorm": bn_launches["minplus"],
-                             "training_options": opt_launches["minplus"]},
+                             "training_options": opt_launches["minplus"], "preprocess": prep_launches["minplus"]},
         "max_abs_err": minplus_err,
         "ms": edt_ms,
         "plain_ms": edt_plain_ms,
@@ -4892,7 +5496,7 @@ def main() -> int:
                     "eval_batch_split_ms": split,
                     "eval_metrics": eval_runs, "training": training, "cli": cli, "tta": tta_log, "brats": brats,
                     "transformers": transformers, "batchnorm": batchnorm, "serving_artifact": srv,
-                    "training_options": opt20}, default=str))
+                    "training_options": opt20, "preprocess": prep}, default=str))
     log(json.dumps({"kernels": [summary, backward_summary, minplus_summary]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                             "count": torch.cuda.device_count()}}))

@@ -13,7 +13,9 @@ see of pandas' semantics by hand:
     pandas' default index does after filtering.
 
 ``str`` of such a cell is pandas' ``astype(str)`` of a filled one (``'1.0'``,
-``'True'``); ``notna`` is its ``notna()``.
+``'True'``); ``notna`` is its ``notna()``. ``write_csv`` writes rows as
+``pandas.DataFrame(rows).to_csv(path, index=False)`` does, for the
+preparation CLIs' manifests.
 """
 
 from __future__ import annotations
@@ -90,3 +92,37 @@ def read_csv(path: str) -> Table:
 
 def notna(value: Any) -> bool:
     return value is not None and not (isinstance(value, float) and math.isnan(value))
+
+
+def _is_number(v: Any) -> bool:
+    return isinstance(v, (int, float)) and not isinstance(v, bool)
+
+
+def write_csv(path: str, rows: List[Dict[str, Any]]) -> None:
+    """``pandas.DataFrame(rows).to_csv(path, index=False)``: the columns in the
+    order they first appear, an absent or NaN cell empty; a column of numbers
+    with a float or an empty cell is pandas' float64 (each number as its float
+    repr, ``1`` as ``1.0``), any other cell ``str``; quoting as the ``csv``
+    module's, ``\\n`` line ends."""
+    columns: List[str] = []
+    for r in rows:
+        columns += [k for k in r if k not in columns]
+    as_float = {}
+    for c in columns:
+        cells = [r.get(c) for r in rows]
+        filled = [v for v in cells if notna(v)]
+        as_float[c] = all(_is_number(v) for v in filled) and (len(filled) < len(cells) or any(
+            isinstance(v, float) for v in filled))
+
+    def cell(c: str, v: Any) -> str:
+        if not notna(v):
+            return ""
+        return repr(float(v)) if as_float[c] else str(v)
+
+    with open(path, "w", newline="", encoding="utf-8") as f:
+        w = csv.writer(f, lineterminator="\n")
+        if not columns:
+            f.write("\n")
+            return
+        w.writerow(columns)
+        w.writerows([cell(c, r.get(c)) for c in columns] for r in rows)

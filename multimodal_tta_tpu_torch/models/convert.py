@@ -13,11 +13,12 @@ leaves) as the buffers of the same names. It imports no JAX.
     depthwise conv (flax ``feature_group_count``) stores ``in / groups``
     input features in both layouts, so it takes the same transpose
   * dense ``kernel`` ``[in, out]`` -> ``weight`` ``[out, in]`` (``nn.Linear``)
-  * transposed conv (the ``up`` module of ``TransposedConvUp``): flax's
-    ``nn.ConvTranspose`` with ``transpose_kernel=False`` correlates the
-    dilated input with the kernel as stored, while ``conv_transpose3d``
-    scatters it, so the kernel is flipped spatially and laid out as
-    ``[in, out, kd, kh, kw]``
+  * transposed conv (the ``up`` module of ``TransposedConvUp``, and the
+    2D ``dec{i}`` of ``vae_delta_mog``): flax's ``nn.ConvTranspose`` with
+    ``transpose_kernel=False`` correlates the dilated input with the kernel
+    as stored, while ``conv_transpose3d`` / ``2d`` scatters it, so the
+    kernel is flipped spatially and laid out as ``[in, out, kd, kh, kw]``
+    (``[in, out, kh, kw]``)
   * attention (flax ``DenseGeneral``, an ``nn.Linear`` here): the q/k/v
     ``kernel`` ``[H, heads, hd]`` -> ``weight`` ``[heads*hd, H]`` and its
     ``bias`` ``[heads, hd]`` -> ``[heads*hd]``; the ``out`` ``kernel``
@@ -37,6 +38,7 @@ for a layout: how each parameter reads as the flax leaf it came from.
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
@@ -44,6 +46,7 @@ import torch
 from torch import nn
 
 _TRANSPOSED = "up"  # module name of TransposedConvUp's nn.ConvTranspose
+_TRANSPOSED_2D = re.compile(r"dec\d+")  # vae_delta_mog's decoder nn.ConvTranspose (a 2D kernel)
 _ATTN_OUT = "out"  # module name of an attention's out projection (DenseGeneral over heads, hd)
 
 
@@ -78,7 +81,9 @@ def from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             if a.ndim == 2:
                 sd[".".join(mod + ("weight",))] = torch.from_numpy(a.T.copy())
                 continue
-            if a.ndim == 4:  # 2D conv [kh, kw, in / groups, out]
+            if a.ndim == 4 and _TRANSPOSED_2D.fullmatch(mod[-1]):
+                a = a[::-1, ::-1].transpose(2, 3, 0, 1)
+            elif a.ndim == 4:  # 2D conv [kh, kw, in / groups, out]
                 a = a.transpose(3, 2, 0, 1)
             elif a.ndim != 5:
                 raise ValueError(f"{'/'.join(path)}: expected a 2D or 3D conv, a dense or an attention "
@@ -123,8 +128,8 @@ def flax_layouts(model: nn.Module) -> Dict[str, Tuple[Tuple[int, ...], Tuple[int
             elif isinstance(c, (nn.Conv2d, nn.Conv3d)):
                 perm = tuple(range(2, w.dim())) + (1, 0)
                 out[prefix + ".weight"] = (perm, tuple(w.shape[i] for i in perm))
-            elif isinstance(c, nn.ConvTranspose3d):
-                perm = (2, 3, 4, 0, 1)
+            elif isinstance(c, (nn.ConvTranspose2d, nn.ConvTranspose3d)):
+                perm = tuple(range(2, w.dim())) + (0, 1)
                 out[prefix + ".weight"] = (perm, tuple(w.shape[i] for i in perm))
     for name, p in model.named_parameters():
         out.setdefault(name, (tuple(range(p.dim())), tuple(p.shape)))

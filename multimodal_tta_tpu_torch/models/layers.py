@@ -71,8 +71,10 @@ def _triple(v: IntOr3) -> Tuple[int, int, int]:
     return t
 
 
-def conv3d_same(x: torch.Tensor, conv: nn.Conv3d, dtype: torch.dtype) -> torch.Tensor:
-    """``conv(x)`` with flax ``padding="SAME"`` in the compute dtype."""
+def conv3d_same(x: torch.Tensor, conv: nn.Module, dtype: torch.dtype) -> torch.Tensor:
+    """``conv(x)`` with flax ``padding="SAME"`` in the compute dtype (an
+    ``nn.Conv3d`` on NCDHW, or an ``nn.Conv2d`` on NCHW)."""
+    conv_fn = F.conv3d if x.dim() == 5 else F.conv2d
     pads = []
     for n, k, s in zip(x.shape[2:], conv.kernel_size, conv.stride):
         out = -(-n // s)
@@ -82,10 +84,10 @@ def conv3d_same(x: torch.Tensor, conv: nn.Conv3d, dtype: torch.dtype) -> torch.T
     b = None if conv.bias is None else conv.bias.to(dtype)
     x = x.to(dtype)
     if all(lo == hi for lo, hi in pads):
-        return F.conv3d(x, w, b, stride=conv.stride, padding=tuple(lo for lo, _ in pads))
+        return conv_fn(x, w, b, stride=conv.stride, padding=tuple(lo for lo, _ in pads))
     # F.pad lists the last dim first
     flat = [p for lo_hi in reversed(pads) for p in lo_hi]
-    return F.conv3d(F.pad(x, flat), w, b, stride=conv.stride)
+    return conv_fn(F.pad(x, flat), w, b, stride=conv.stride)
 
 
 class InstanceNorm(nn.Module):
@@ -513,11 +515,11 @@ def init_flax_defaults(model: nn.Module, seed: int) -> None:
         if name.rpartition(".")[2] in ("pos_embed", "rel_pos_bias"):
             p.normal_(0.0, 0.02, generator=gen)
     for m in model.modules():
-        if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d, nn.Linear)):
+        if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d, nn.ConvTranspose3d, nn.Linear)):
             if isinstance(m, nn.Linear):
                 fan_in = m.in_features
             else:
-                in_axis = 0 if isinstance(m, nn.ConvTranspose3d) else 1
+                in_axis = 0 if isinstance(m, (nn.ConvTranspose2d, nn.ConvTranspose3d)) else 1
                 fan_in = m.weight.shape[in_axis] * math.prod(m.kernel_size)
             sd = math.sqrt(1.0 / fan_in) / _TRUNC_SD
             nn.init.trunc_normal_(m.weight, mean=0.0, std=sd, a=-2.0 * sd, b=2.0 * sd, generator=gen)

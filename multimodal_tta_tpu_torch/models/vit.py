@@ -219,4 +219,10 @@ for _name in _SPECS:
     register_model(_name)(_VariantFactory(ViT, _name))
 
 
-__all__ = ["SelfAttention", "EncoderBlock", "ViT", "attend", "check_unported", "is_moe_block"]
+def get_vit_model(name: str, **kw) -> ViT:
+    if name not in _SPECS:
+        raise ValueError(f"Unknown vit variant: {name}")
+    return ViT(variant=name, **kw)
+
+
+__all__ = ["SelfAttention", "EncoderBlock", "ViT", "attend", "check_unported", "get_vit_model", "is_moe_block"]

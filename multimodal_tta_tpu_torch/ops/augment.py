@@ -1,12 +1,12 @@
 """On-device data augmentation of the train step (the port of
 ``multimodal_tta_tpu/ops/augment.py``): the per-sample intensity scale and
-shift, and modality dropout.
+shift, modality dropout and random 90-degree rotations.
 
 Each augmentation is split in two: ``*_draws`` takes the random numbers
 from an explicit ``torch.Generator``, and ``apply_*`` is a function of the
 input and the draws only, so a test can feed both packages the same draws.
 Layout: channels-last ``[B, *spatial, C]``, as every public function of the
-port. ``rand_rot90`` is not ported yet (ROADMAP.md, remaining inference ops).
+port.
 
 The test-time adapters take their random numbers the same way, described by
 a draw spec: a list of JSON-able entries, one per kind of draw, in the order
@@ -91,6 +91,50 @@ def modality_dropout(x: torch.Tensor, generator: torch.Generator, *, prob: float
 
     x: [B, ..., M]."""
     return apply_modality_dropout(x, modality_dropout_draws(x.shape[0], x.shape[-1], generator, prob=prob))
+
+
+def rot90_draws(b: int, generator: torch.Generator, *, prob: float = 0.3, max_k: int = 3) -> torch.Tensor:
+    """``k [b]`` (int64): a number of quarter turns in ``[1, max_k]`` with
+    probability ``prob``, else 0, per sample, on the generator's device."""
+    do = torch.rand(b, generator=generator, device=generator.device) < prob
+    ks = torch.randint(1, max_k + 1, (b,), generator=generator, device=generator.device)
+    return torch.where(do, ks, torch.zeros_like(ks))
+
+
+def apply_rand_rot90(image: torch.Tensor, label: torch.Tensor, k: torch.Tensor,
+                     axes: Tuple[int, int] = (2, 3)) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rotate each sample of ``image`` and ``label`` by ``k[i]`` quarter turns
+    (``jnp.rot90`` / ``torch.rot90``'s direction: from the first axis
+    towards the second) on the square plane ``axes``; ``k`` is clamped to
+    [0, 3] as the reference's ``lax.switch`` clamps its index. Each of the
+    four rotations of the batch is selected per sample with ``torch.where``,
+    so nothing is read back to the host."""
+    if image.shape[axes[0]] != image.shape[axes[1]]:
+        raise ValueError(f"rand_rot90 needs square plane on axes {axes}: got {tuple(image.shape)}")
+    k = k.to(image.device).clamp(0, 3)
+    out = []
+    for x in (image, label):
+        kx = k.reshape((-1,) + (1,) * (x.dim() - 1))
+        y = x
+        for turns in (1, 2, 3):
+            y = torch.where(kx == turns, torch.rot90(x, turns, dims=axes), y)
+        out.append(y)
+    return out[0], out[1]
+
+
+def rand_rot90(
+    image: torch.Tensor,
+    label: torch.Tensor,
+    generator: torch.Generator,
+    *,
+    prob: float = 0.3,
+    max_k: int = 3,
+    axes: Tuple[int, int] = (2, 3),
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-sample random 90-degree rotations of image and label on the (H, W)
+    plane (batch layout [B, D, H, W, C]; ``axes=(2, 3)``), which must be
+    square, as the reference requires (MONAI's RandRotate90d in effect)."""
+    return apply_rand_rot90(image, label, rot90_draws(image.shape[0], generator, prob=prob, max_k=max_k), axes)
 
 
 # ---- the test-time adapters' draws ------------------------------------------

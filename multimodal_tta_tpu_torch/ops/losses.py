@@ -10,8 +10,10 @@
     for CE (softmax mode)
   - smooth_nr / smooth_dr = 1e-5 (MONAI defaults), mean reduction
 
-and the generalized Wasserstein Dice criterion (``gwdl``, optionally with
-class-weighted CE). Shapes are channels-last ``[B, *spatial, C]``.
+the generalized Wasserstein Dice criterion (``gwdl``, optionally with
+class-weighted CE), and the two losses the reference exports and calls
+nowhere, ``focal_loss`` and the batch-hard ``triplet_margin_loss``. Shapes
+are channels-last ``[B, *spatial, C]``.
 """
 
 from __future__ import annotations
@@ -310,6 +312,39 @@ def make_criterion(crit_cfg) -> Callable:
     if name == "gwdl":
         return make_gwdl_loss(crit_cfg)
     raise ValueError(f"[criterion] unknown criterion name: {name!r} (dice_ce | gwdl)")
+
+
+def focal_loss(logits: torch.Tensor, target: torch.Tensor, alpha: float = 0.25, gamma: float = 2.0) -> torch.Tensor:
+    """Binary focal loss with logits (reference: src/utils/losses.py:6-24),
+    the mean over every element."""
+    p = torch.sigmoid(logits)
+    t = target.to(logits.dtype)
+    ce = -(t * F.logsigmoid(logits) + (1 - t) * F.logsigmoid(-logits))
+    p_t = p * t + (1 - p) * (1 - t)
+    alpha_t = alpha * t + (1 - alpha) * (1 - t)
+    return torch.mean(alpha_t * (1 - p_t) ** gamma * ce)
+
+
+def triplet_margin_loss(embeddings: torch.Tensor, labels: torch.Tensor, margin: float = 0.3) -> torch.Tensor:
+    """Batch-hard triplet loss on L2 distances (the reference's standard
+    formulation). The distances are formed as the reference forms them
+    (difference, square, sum, a floor of 1e-12, root; not ``torch.cdist``,
+    whose matmul form rounds differently), and ``torch.maximum`` /
+    ``amax`` / ``amin`` split the gradient between ties as JAX's
+    ``maximum`` / ``max`` / ``min`` do."""
+    sq = torch.sum((embeddings[:, None, :] - embeddings[None, :, :]) ** 2, dim=-1)
+    d = torch.sqrt(torch.maximum(sq, torch.tensor(1e-12, dtype=sq.dtype, device=sq.device)))
+    same = labels[:, None] == labels[None, :]
+    eye = torch.eye(labels.shape[0], dtype=torch.bool, device=labels.device)
+    pos_mask = same & ~eye
+    neg_mask = ~same
+
+    inf = torch.tensor(float("inf"), dtype=d.dtype, device=d.device)
+    hardest_pos = torch.amax(torch.where(pos_mask, d, -inf), dim=1)
+    hardest_neg = torch.amin(torch.where(neg_mask, d, inf), dim=1)
+    valid = torch.isfinite(hardest_pos) & torch.isfinite(hardest_neg)
+    loss = torch.maximum(hardest_pos - hardest_neg + margin, torch.zeros((), dtype=d.dtype, device=d.device))
+    return torch.sum(torch.where(valid, loss, torch.zeros_like(loss))) / torch.clamp(valid.sum(), min=1)
 
 
 def reduce_dims(t: torch.Tensor, dims, op: str = "sum") -> torch.Tensor:

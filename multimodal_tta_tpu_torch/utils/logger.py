@@ -45,3 +45,25 @@ def get_logger(name: str = _DEFAULT_NAME) -> logging.Logger:
     if not logger.handlers:
         setup_logger(name=name)
     return logger
+
+
+class LoggerWriter:
+    """File-like adapter redirecting a stream (stdout/stderr) into a logger:
+    each complete line is one record at ``level``; ``flush`` logs the rest."""
+
+    def __init__(self, logger: logging.Logger, level: int = logging.INFO):
+        self.logger = logger
+        self.level = level
+        self._buf = ""
+
+    def write(self, message: str) -> None:
+        self._buf += message
+        while "\n" in self._buf:
+            line, self._buf = self._buf.split("\n", 1)
+            if line.strip():
+                self.logger.log(self.level, line.rstrip())
+
+    def flush(self) -> None:
+        if self._buf.strip():
+            self.logger.log(self.level, self._buf.rstrip())
+        self._buf = ""
