@@ -244,6 +244,30 @@ Phases, in order (any failure propagates and exits non-zero):
                [8,48,144,144,2] (bitwise), focal and triplet losses with their
                gradients, ``vae_delta_mog`` at its default widths (channels
                32..512, 64x64, K = 16) at batch 64.
+ 22. data_parallel — the data axis over ranks (``data_parallel_phase``): a
+               probe of NCCL with two ranks on card 0 (its answer printed;
+               it refuses, so the two-rank runs name ``gloo`` before they
+               start), then two ranks spawned on card 0
+               (``training.devices=[0, 0]``) against one process on the same
+               global batches, the flagship at full width: 3 training steps
+               of the HECKTOR21 recipe in f32 at global batch 8 (4 a rank)
+               with zero1 and the sharded device cache, one validation batch
+               of 3 (ragged), Tent online (continual, inline) and strict
+               (episodic, post) over 2 batches of 2, ``TTAEngine.evaluate``
+               with continual Tent over batches of 2, 2 and 1 — losses,
+               the first step's gradients (with a witness: one process's
+               two half-batch passes), metrics, entropies, predictions and
+               adapted tensors within ``DP_*``, each rank's launches
+               exactly, each rank's norm kernels at every input its path
+               gave them and its EDTs against their plain versions, rank
+               0's checkpoints (zero1 consolidated); the bf16
+               training and Tent steps' ms per rank against one process, the
+               bytes all-reduced per step, the optimizer state with zero1
+               against without, peak memory; then ``cli.train`` and
+               ``cli.adapt`` on phase 14's fixture under
+               ``python -m torch.distributed.run --nproc_per_node=1`` (NCCL,
+               one rank). Two ranks on one card show the collectives' cost,
+               not scaling.
 
 Phase 2 also holds the norm kernels against their plain versions at the nine
 norm shapes of the batch-8 training step (the largest, [8,48,144,144,32], in
@@ -3562,6 +3586,780 @@ def preprocess_phase(device, root: str, *, ct=PREP_CT, pt=PREP_PT, bbox_mm: floa
     return out
 
 
+# ---- phase 22: the data axis over ranks ---------------------------------------
+# two ranks share the one card (training.devices=[0, 0]); the global batches
+# are the recipe's, rank r steps on rows [r*B/2, (r+1)*B/2)
+DP_WORLD = 2
+DP_VOLUMES = 24  # the sharded store: 12 volumes a rank, 3 steps of 4 a rank in one epoch
+DP_STEPS = DP_VOLUMES // TRAIN_BATCH
+DP_VAL = 3  # the validation batch: ragged over the ranks (2 + 1 and a padded row)
+DP_TENT_BATCHES = 2  # Tent online and strict, each over this many batches of BATCH
+DP_EVAL_SIZES = (2, 2, 1)  # TTAEngine.evaluate's batches, the last ragged
+DP_TIMED_TENT = 4
+# the f32 gate (TF32 off), two ranks vs one process on the same global
+# batches (the ranks add their partial sums, one process sums the batch: f32
+# sums in another order): losses and entropies relative; Tent's adapted norm
+# tensors' deltas relative L2 (phase 12's limit, TRAIN_DELTA_REL); metrics
+# absolute plus relative; predictions' equal voxels. Training: the losses at
+# every step, and the first step's gradients (relative L2 of all 82 tensors
+# together), split in two by a witness in the one process: the two ranks'
+# summed gradients against the one process's own sum of two batch-4
+# backward passes, rows [0, 4) and [4, 8), within DP_GRAD_RANKS_REL (the
+# same cuDNN reductions, added once: 8.3e-9 on an NVIDIA H100 80GB HBM3 at
+# 700 W); and that sum against the one process's batch-8 pass within
+# DP_GRAD_REL, where cuDNN's weight gradient reduces 8 samples in another
+# order than twice 4 (2.63e-5 there, all of the ranks' distance). The
+# params' moves over the 3 steps are read, not gated: Adam's first steps
+# move every element by about lr whatever its gradient's size, so they
+# cannot see a gradient's scale; the gradients carry that check
+DP_LOSS_REL = 1e-5
+DP_GRAD_RANKS_REL = 1e-6
+DP_GRAD_REL = 1e-4
+DP_DELTA_REL = TRAIN_DELTA_REL
+DP_METRIC_ABS, DP_METRIC_REL = 1e-5, 1e-5
+DP_PRED_AGREE = 0.9999
+DP_TIMEOUT_S = 600
+
+
+def dp_config(save_dir: str, dtype: str, world: int) -> dict:
+    """The HECKTOR21 recipe (``train_recipe``) for phase 22: one epoch, zero1,
+    the sharded device cache, ``training.devices`` with card 0 for each of
+    the ``world`` ranks, ``compute_dtype``."""
+    cfg = train_recipe(save_dir)
+    cfg["training"].update({"epochs": 1, "compute_dtype": dtype, "zero1": True, "device_cache": True,
+                            "device_cache_sharded": True, "devices": [0] * world, "batch_size": TRAIN_BATCH})
+    return cfg
+
+
+def dp_sharded_order(n: int, batch: int, world: int, seed: int, epoch: int = 0) -> list:
+    """The sample ids of each global batch of the sharded store over
+    ``world`` ranks (``data/device_cache.py``: rank r's block, the tail
+    wrapped, its Philox permutation): what one process is given."""
+    import numpy as np
+
+    per, bsl = -(-n // world), batch // world
+    blocks = [np.arange(r * per, (r + 1) * per) % n for r in range(world)]
+    perms = [np.random.Generator(np.random.Philox(key=[seed + 0x9E3779B9 * (r + 1), epoch])).permutation(per)
+             for r in range(world)]
+    return [np.concatenate([blocks[r][perms[r][k * bsl:(k + 1) * bsl]] for r in range(world)])
+            for k in range(per // bsl)]
+
+
+def dp_data(shape, volumes: int) -> dict:
+    """Phase 22's volumes (from seeds): the training set, whose volumes the
+    Tent and evaluation batches reuse, and the validation batch. Made once
+    and handed to every process in a file."""
+    return {"train": hecktor_volumes(volumes, 220, shape), "val": hecktor_volumes(DP_VAL, 221, shape)}
+
+
+def _stack(vols, dtype=None) -> dict:
+    import numpy as np
+
+    image = np.stack([v["image"] for v in vols])
+    return {"image": image if dtype is None else image.astype(dtype),
+            "label": np.stack([v["label"] for v in vols]), "domain": [v["domain"] for v in vols]}
+
+
+def dp_run(device, root: str, mesh, spec: dict) -> dict:
+    """Phase 22's main path in this process: over the ranks of ``mesh``, or
+    in one process (``mesh`` None) on the same global batches. Training of
+    the recipe in f32 through ``ExperimentManager`` (zero1 and the sharded
+    device cache over ranks; the store's global batches in one process),
+    one validation batch, Tent online and strict on global batches of 2,
+    ``TTAEngine.evaluate`` with continual Tent over 3 batches (the last
+    ragged); the launches of each part; on the card each kernel against its
+    plain version on this process's inputs, then bf16 timing of the
+    training and Tent steps."""
+    import numpy as np
+    import torch
+
+    import multimodal_tta_tpu_torch.models.layers as layers_module
+    import multimodal_tta_tpu_torch.ops.surface as surface_module
+    from multimodal_tta_tpu_torch.conf import ConfigNode
+    from multimodal_tta_tpu_torch.core.experiment_manager import ExperimentManager
+    from multimodal_tta_tpu_torch.core.trainer_base import HookBase
+    from multimodal_tta_tpu_torch.data import get_seg_transforms
+    from multimodal_tta_tpu_torch.data.device_cache import DeviceCachedLoader
+    from multimodal_tta_tpu_torch.kernels.edt_minplus import minplus, squared_edt_volumes, squared_edt_volumes_plain
+    from multimodal_tta_tpu_torch.kernels.fused_instance_norm import fused_instance_norm, instance_norm_backward_plain
+    from multimodal_tta_tpu_torch.parallel.mesh import Mesh
+    from multimodal_tta_tpu_torch.tta.engine import TTAEngine
+    from multimodal_tta_tpu_torch.tta.tent import TentAdapter, norm_param_mask
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_part, parts = time.perf_counter(), {}  # seconds by part
+
+    def part(name: str) -> None:
+        nonlocal t_part
+        now = time.perf_counter()
+        parts[name] = now - t_part
+        t_part = now
+
+    shape, world = tuple(spec["shape"]), DP_WORLD if mesh is not None else 1
+    dev = mesh.device if mesh is not None else torch.device(device)
+    cuda = dev.type == "cuda"
+    rank = mesh.rank if mesh is not None else 0
+    tag = f"rank{rank}" if mesh is not None else "one"
+    data = torch.load(spec["data"], weights_only=False)  # dp_data's, written by the phase
+    data["tent"] = data["train"][:(2 * DP_TENT_BATCHES + DP_TIMED_TENT) * BATCH]
+    data["eval"] = data["train"][-sum(DP_EVAL_SIZES):]
+    part("data")
+    spec_t = get_seg_transforms(ndim=3, split="train", normalize=True, geom_aug=False, intensity_aug=False,
+                                image_size=shape, intensity_policy=HECKTOR_POLICY, channel_names=["ct", "pt"],
+                                on_device=True).device_spec()
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def counts() -> dict:
+        return {"forward": fused_instance_norm.launches, "backward": fused_instance_norm.backward_launches,
+                "minplus": minplus.launches, "plain_backward": instance_norm_backward_plain.cuda_calls}
+
+    def since(at: dict) -> dict:
+        now = counts()
+        return {k: now[k] - at[k] for k in now}
+
+    def rows(x):
+        return x if mesh is None else x[mesh.rows(x.shape[0])]
+
+    def gather(t):
+        return t if mesh is None else mesh.gather_rows(t)
+
+    class Steps(HookBase):
+        """Each step's global loss, the first step's gradients (summed over
+        the ranks; rank 0's) and, with ``timed``, its ms."""
+
+        def __init__(self, timed: bool):
+            self.timed, self.losses, self.ms, self.grads = timed, [], [], None
+
+        def before_train_step(self):
+            if self.timed:
+                sync()
+                self._t = time.perf_counter()
+
+        def after_train_step(self):
+            self.losses.append(self.trainer._pending_loss)
+            if self.grads is None and not self.timed and rank == 0:
+                self.grads = {n: p.grad.detach().cpu().clone()
+                              for n, p in self.trainer.state.model.named_parameters() if p.grad is not None}
+            if self.timed:
+                sync()
+                self.ms.append((time.perf_counter() - self._t) * 1e3)
+
+    def manager(dtype: str, sub: str, timed: bool):
+        cfg = dp_config(os.path.join(root, f"{tag}_{sub}"), dtype, world)
+        cfg["model"]["channels"] = list(spec["channels"])
+        cfg["training"]["model_save_start"] = 10**6  # the f32 run writes best_model only
+        if timed:  # the timing run trains only
+            cfg["training"]["eval_test"]["do_val"] = False
+        m = ExperimentManager(ConfigNode(cfg), device=dev, mesh=mesh if mesh is not None else Mesh(dev))
+        m.setup_model()
+        m.setup_optimizer()
+        m.setup_scheduler()
+        if mesh is not None:
+            m.train_loader = DeviceCachedLoader(data["train"], batch_size=TRAIN_BATCH, shuffle=True, drop_last=True,
+                                                seed=0, device=dev, num_workers=4, shard_store=True, mesh=mesh)
+        else:
+            order = dp_sharded_order(len(data["train"]), TRAIN_BATCH, DP_WORLD, seed=0)
+            m.train_loader = [_stack([data["train"][i] for i in ids], np.float16) for ids in order]
+        m.val_loader = [_stack(data["val"])]
+        m.device_transform = spec_t
+        m.setup_trainer(os.path.join(root, f"{tag}_{sub}"))
+        steps = Steps(timed)
+        m.trainer.register_hooks([steps])
+        return m, steps
+
+    out = {"tag": tag, "rank": rank, "device": str(dev)}
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    # ---- the main path, in f32 -------------------------------------------------
+    m, steps = manager("float32", "f32", timed=False)
+    part("setup")
+    model = m.model
+    # Tent and evaluation start from the initial weights (equal in every
+    # process), not from the trained ones (which differ by the training's rounding)
+    init = {n: p.detach().clone() for n, p in model.named_parameters()}
+    sums = []  # each step's samples, by their first 16 values: the store's order, seen from here
+    loader = m.train_loader
+
+    class Seen:
+        def __iter__(self):
+            for b in loader:
+                img = torch.as_tensor(b["image"])
+                sums.append(img.reshape(img.shape[0], -1)[:, :16].float().cpu())
+                yield b
+
+        def __len__(self):
+            return len(loader)
+
+        def set_epoch(self, e):
+            if hasattr(loader, "set_epoch"):
+                loader.set_epoch(e)
+
+    m.train_loader = Seen()
+    if mesh is not None:
+        m.train_loader.device_resident = True
+    val_edt, norm_in, witness = [], {}, {}
+
+    def recording_edt(pts, spacing, *, sqrt=False):
+        got = squared_edt_volumes(pts, spacing, sqrt=sqrt)
+        val_edt.append((pts.clone(), spacing, sqrt, got.clone()))
+        return got
+
+    def recording_norm(x, gamma, beta, *, eps=1e-5, act="relu"):
+        """The kernel; the first input the path gives it at each shape,
+        dtype and activation is kept (on the host, outside the peak) for
+        the check against the plain version."""
+        key = (tuple(x.shape), str(x.dtype), act)
+        if cuda and key not in norm_in:
+            norm_in[key] = tuple(t.detach().cpu() for t in (x, gamma, beta))
+        return fused_instance_norm(x, gamma, beta, eps=eps, act=act)
+
+    if mesh is None:  # the witness of the ranks' first step (dp_compare), before that step moves anything
+        step = m.trainer._step
+
+        def witness_step(image, label, n_valid):
+            if not witness:
+                w_at = counts()
+                witness["grads"] = rank_view_grads(m.trainer, step, image, label, n_valid, DP_WORLD)
+                witness["launches"] = since(w_at)
+            return step(image, label, n_valid)
+
+        m.trainer._step = witness_step
+
+    surface_module.squared_edt_volumes = recording_edt
+    layers_module.fused_instance_norm = recording_norm
+    try:
+        at = counts()
+        history = m.train(1)
+        sync()
+        out["launches"] = {"train": since(at)}
+        if witness:  # the witness's passes are no launch of the path
+            out["launches"]["train"] = {k: v - witness["launches"][k] for k, v in out["launches"]["train"].items()}
+        part("train_and_validation")
+        out["losses"] = [float(v) for v in steps.losses]
+        out["step_sums"] = [s.tolist() for s in sums]
+        out["val"] = history["eval_history"][0]
+        out["optimizer_state_bytes"] = _optimizer_state_bytes(m.trainer.state.optimizer)
+        grads = sum(p.numel() for p in model.parameters() if p.requires_grad)
+        out["train_allreduce_bytes"] = 4 * (grads + 1) if mesh is not None else 0
+        out["checkpoints"] = sorted(f for f in os.listdir(os.path.join(root, f"{tag}_f32", "checkpoints"))) \
+            if os.path.isdir(os.path.join(root, f"{tag}_f32", "checkpoints")) else []
+        if rank == 0:
+            out["params"] = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+            out["init"] = {n: t.cpu() for n, t in init.items()}
+            out["grads"] = steps.grads
+
+        # Tent online (continual, inline) and strict (episodic, post)
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(init[n])
+        tent = [_stack(data["tent"][i * BATCH:(i + 1) * BATCH])["image"] for i in range(2 * DP_TENT_BATCHES)]
+        source = {n: p.detach().clone() for n, p in model.named_parameters()}
+        norm = [n for n, k in norm_param_mask(model).items() if k]
+        out["tent"] = {}
+        for mode, episodic, batches in (("inline", False, tent[:DP_TENT_BATCHES]), ("post", True, tent[DP_TENT_BATCHES:])):
+            cfg = ConfigNode(eval_config("tent", episodic))
+            ad = TentAdapter(cfg.tta, config=cfg, device_transform=DEVICE_TRANSFORM, device=dev, mesh=mesh)
+            fn = ad.make_adapt_predict_fn(model, THRESHOLD, mode)
+            at = counts()
+            preds, ents = [], []
+            for x in batches:
+                _, pred = fn(model, torch.from_numpy(rows(x)), x.shape[0])
+                preds.append(gather(pred).cpu())
+                ents.append(ad._last_ents.cpu())
+            sync()
+            out["launches"][f"tent_{mode}"] = since(at)
+            adapted = {n: dict(model.named_parameters())[n].detach().cpu().clone() for n in norm}
+            ad.restore()
+            out["tent"][mode] = {"ents": [e.tolist() for e in ents], "preds": preds if rank == 0 else None,
+                                 "adapted": adapted if rank == 0 else None}
+        part("tent")
+        out["tent_allreduce_bytes"] = 4 * (sum(source[n].numel() for n in norm) + 1) if mesh is not None else 0
+        out["source_norm"] = {n: source[n].cpu() for n in norm} if rank == 0 else None
+
+        # TTAEngine.evaluate with continual Tent, the last batch ragged
+        ev, i0 = [], 0
+        for b in DP_EVAL_SIZES:
+            ev.append(_stack(data["eval"][i0:i0 + b]))
+            i0 += b
+        engine = TTAEngine(ConfigNode(eval_config("tent", False)), device_transform=DEVICE_TRANSFORM, device=dev,
+                           mesh=mesh)
+        at = counts()
+        out["eval"] = engine.evaluate(model, ev)
+        sync()
+        out["launches"]["evaluate"] = since(at)
+        part("evaluate")
+    finally:
+        surface_module.squared_edt_volumes = squared_edt_volumes
+        layers_module.fused_instance_norm = fused_instance_norm
+    out["witness_grads"] = witness.get("grads")
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else None
+
+    # ---- each kernel against its plain version on this process's inputs ------
+    if cuda:
+        g = torch.Generator(device=dev).manual_seed(22 + rank)
+        norms = [{"shape": list(shape), "act": act} | norm_vs_plain(*(t.to(dev) for t in ins), act, g)
+                 for (shape, _, act), ins in norm_in.items()]
+        edt = [bool(torch.equal(o, squared_edt_volumes_plain(p, s, sqrt=q))) for p, s, q, o in val_edt]
+        out["kernel_check"] = {"norm": norms, "norm_ok": bool(norms) and all(n["ok"] for n in norms),
+                               "edt_bitwise": edt}
+    else:
+        out["kernel_check"] = None
+    norm_in.clear()
+    part("kernel_check")
+    del m, model
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # ---- bf16 timing: the recipe's training step and the Tent step ----------------
+    if spec.get("timed", cuda):
+        torch.cuda.reset_peak_memory_stats(dev)
+        mb, tsteps = manager("bfloat16", "bf16", timed=True)
+        mb.train(1)
+        cfg = ConfigNode(eval_config("tent", False))
+        ad = TentAdapter(cfg.tta, config=cfg, device_transform=DEVICE_TRANSFORM, device=dev, mesh=mesh)
+        fn = ad.make_adapt_predict_fn(mb.model, THRESHOLD, "inline")
+        tent_ms = []
+        for i in range(DP_TIMED_TENT):
+            x = tent[0] if i == 0 else _stack(data["tent"][(2 * DP_TENT_BATCHES + i) * BATCH:
+                                                            (2 * DP_TENT_BATCHES + i + 1) * BATCH])["image"]
+            sync()
+            t1 = time.perf_counter()
+            fn(mb.model, torch.from_numpy(rows(x)), x.shape[0])
+            sync()
+            tent_ms.append((time.perf_counter() - t1) * 1e3)
+        out["timing"] = {"train_step_ms": tsteps.ms, "tent_step_ms": tent_ms,
+                         "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else None}
+        part("bf16_timing")
+    out["part_s"] = parts
+    return out
+
+
+def norm_vs_plain(x, gamma, beta, act, gen) -> dict:
+    """The norm kernels against their plain versions on one input of the
+    path (f32): the forward within TOL_F32; the backward at a random output
+    gradient, zero within KINK_MARGIN of the ReLU's kink (there the mask
+    rightly depends on the statistics' summation order), on the kernel's
+    statistics, each of dx, dgamma, dbeta within phase 2's f32 limit."""
+    import torch
+
+    from multimodal_tta_tpu_torch.kernels.fused_instance_norm import (
+        instance_norm_backward,
+        instance_norm_backward_plain,
+        instance_norm_forward,
+        instance_norm_plain,
+    )
+
+    if x.dtype != torch.float32:
+        raise ValueError(f"norm_vs_plain holds f32 inputs, got {x.dtype}")
+    relu = act == "relu"
+    y, stats = instance_norm_forward(x, gamma, beta, relu=relu)
+    fwd = float((y - instance_norm_plain(x, gamma, beta, act=act)).abs().max())
+    gy = torch.randn(x.shape, generator=gen, device=x.device)
+    if relu:
+        gy = torch.where(instance_norm_plain(x, gamma, beta, act=None).abs() < KINK_MARGIN, 0.0, gy)
+    got = instance_norm_backward(gy, x, gamma, beta, stats, relu=relu)
+    want = instance_norm_backward_plain(gy, x, gamma, beta, stats[0], stats[1], relu)
+    bwd = [(float((a - w).abs().max()), GRAD_F32_REL * float(w.abs().max()) + GRAD_F32_ABS)
+           for a, w in zip(got, want)]
+    return {"forward_err": fwd, "backward_err": [e for e, _ in bwd],
+            "ok": fwd <= TOL_F32["atol"] and all(e <= lim for e, lim in bwd)}
+
+
+def rank_view_grads(trainer, step, image, label, n_valid: int, world: int) -> dict:
+    """One process's witness of the ranks' first training step: each
+    rank's rows of the global batch through the trainer's own ``step``
+    (its ``_step``) under a stand-in mesh (rank r of ``world`` with no
+    group, so a sum over the ranks is its own part), the ``world`` passes'
+    gradients added in rank order. The update is skipped and the generator
+    put back, so the real step that follows is untouched. On the host."""
+    from multimodal_tta_tpu_torch.parallel.mesh import Mesh
+
+    class RankView(Mesh):
+        def __init__(self, rank: int):
+            self.device, self.data, self.rank, self.group = trainer.mesh.device, world, rank, None
+
+        def sum(self, t):
+            return t
+
+        def sum_with_grad(self, t):
+            return t
+
+    state, mesh, gen = trainer.state, trainer.mesh, trainer._gen.get_state()
+    total = {}
+    state.apply_gradients = lambda: False
+    try:
+        for r in range(world):
+            trainer.mesh = RankView(r)
+            rows = trainer.mesh.rows(image.shape[0])
+            trainer._gen.set_state(gen)
+            step(image[rows], label[rows], n_valid)
+            for n, p in state.model.named_parameters():
+                if p.grad is not None:
+                    total[n] = total[n] + p.grad if n in total else p.grad.detach().clone()
+    finally:
+        del state.apply_gradients
+        trainer.mesh = mesh
+        trainer._gen.set_state(gen)
+    return {n: t.cpu() for n, t in total.items()}
+
+
+def _optimizer_state_bytes(optimizer) -> int:
+    """The bytes of optimizer state this process holds (ZeRO-1: its
+    partition's)."""
+    import torch
+
+    inner = getattr(optimizer, "optimizer", optimizer)  # through MultiSteps
+    inner = getattr(inner, "optim", inner)  # ZeroRedundancyOptimizer's local optimizer
+    return sum(t.numel() * t.element_size() for s in inner.state.values() for t in s.values() if torch.is_tensor(t))
+
+
+def _dp_rank(rank: int, world: int, root: str, backend: str, device: str, spec: dict) -> None:
+    """One rank of phase 22: the process group over a ``file://`` store in
+    ``root`` (``backend`` chosen before), the mesh of ``training.devices``,
+    ``dp_run``; its result in ``root``."""
+    import datetime
+
+    sys.path.insert(0, REPO)
+    import torch
+
+    from multimodal_tta_tpu_torch.conf import ConfigNode
+    from multimodal_tta_tpu_torch.parallel.distributed import maybe_initialize_distributed
+    from multimodal_tta_tpu_torch.parallel.mesh import mesh_from_config
+
+    torch.set_num_threads(spec.get("threads", 4))
+    maybe_initialize_distributed(backend, f"file://{root}/store", world, rank, device=device,
+                                 timeout=datetime.timedelta(seconds=DP_TIMEOUT_S))
+    mesh = mesh_from_config(ConfigNode(dp_config(root, "float32", world)), device)
+    torch.save(dp_run(device, root, mesh, spec), os.path.join(root, f"rank{rank}.pt"))
+
+
+def _nccl_probe_rank(rank: int, root: str) -> None:
+    """Two NCCL ranks on card 0: init and one all_reduce; the outcome in
+    ``root``."""
+    import datetime
+    import json as _json
+
+    import torch
+    import torch.distributed as dist
+
+    outcome = {"rank": rank}
+    try:
+        dist.init_process_group("nccl", init_method=f"file://{root}/store", world_size=2, rank=rank,
+                                timeout=datetime.timedelta(seconds=60))
+        torch.cuda.set_device(0)
+        t = torch.ones(4, device="cuda:0")
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        outcome.update(accepted=True, value=float(t[0]))
+    except Exception as e:  # the probe's answer: recorded, and the phase picks its backend from it
+        outcome.update(accepted=False, error=f"{type(e).__name__}: {e}"[:2000])
+    finally:
+        with open(os.path.join(root, f"probe{rank}.json"), "w", encoding="utf-8") as f:
+            _json.dump(outcome, f)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def nccl_probe(root: str, timeout: float = 120.0) -> dict:
+    """Whether NCCL takes two ranks on one card; what it says when it does
+    not (or that it did not answer within ``timeout``)."""
+    import multiprocessing as mp
+
+    os.makedirs(root, exist_ok=True)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_nccl_probe_rank, args=(r, root), daemon=True) for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+    hung = [p.is_alive() for p in procs]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(timeout=30)
+    ranks = []
+    for r in range(2):
+        path = os.path.join(root, f"probe{r}.json")
+        ranks.append(json.load(open(path, encoding="utf-8")) if os.path.exists(path)
+                     else {"rank": r, "accepted": False, "error": "no answer" + (" (killed)" if hung[r] else "")})
+    return {"accepted": all(r.get("accepted") for r in ranks), "ranks": ranks, "seconds": time.perf_counter() - t0}
+
+
+def dp_compare(one: dict, ranks: list) -> dict:
+    """The two-rank run against the one-process run: what agrees and by how
+    much, every check made before any failure raises."""
+    import torch
+
+    r0 = ranks[0]
+    out, failed = {"ranks": len(ranks)}, []
+    for r, res in enumerate(ranks):  # the store's order: rank r holds rows [r*4, r*4+4) of each global batch
+        for k, s in enumerate(res["step_sums"]):
+            want = one["step_sums"][k][r * len(s):(r + 1) * len(s)]
+            if s != want:
+                failed.append(f"rank {r} step {k} samples {s}, one process's rows {want}")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], one["losses"]))
+    out["losses"] = {"ranks": r0["losses"], "one": one["losses"], "max_rel": loss_rel}
+    if any(res["losses"] != r0["losses"] for res in ranks) or loss_rel > DP_LOSS_REL:
+        failed.append(f"losses {[res['losses'] for res in ranks]} vs {one['losses']}")
+    # the params moved by the steps: Adam scales each gradient by its own
+    # RMS, so an element whose true gradient is near zero moves by up to lr
+    # either way at the rounding of its sum; held, as phase 12 holds the
+    # kernel against the plain norm, by the deltas' relative L2
+    names = sorted(one["params"])
+    d_one = {n: one["params"][n] - one["init"][n] for n in names}
+    d_ranks = {n: r0["params"][n] - r0["init"][n] for n in names}
+    diff = torch.cat([(d_ranks[n] - d_one[n]).flatten() for n in names])
+    delta_rel = float(diff.norm() / torch.cat([d_one[n].flatten() for n in names]).norm())
+    apart = sorted(((float((d_ranks[n] - d_one[n]).norm() / d_one[n].norm().clamp_min(1e-30)), n) for n in names),
+                   reverse=True)[:3]
+    flipped = sum(int(((d_ranks[n] * d_one[n]) < 0).sum()) for n in names)
+    grads = sorted(one["grads"])
+    halves = one["witness_grads"]  # one process: rows [0, 4) and [4, 8) in two passes, added
+
+    def grad_rel(a: dict, b: dict) -> float:
+        return float(torch.cat([(a[n] - b[n]).flatten() for n in grads]).norm()
+                     / torch.cat([b[n].flatten() for n in grads]).norm())
+
+    g_rel, g_ranks_halves, g_halves_one = grad_rel(r0["grads"], one["grads"]), grad_rel(r0["grads"], halves), \
+        grad_rel(halves, one["grads"])
+    g_apart = sorted(((float((r0["grads"][n] - one["grads"][n]).norm() / one["grads"][n].norm().clamp_min(1e-30)),
+                       n) for n in grads), reverse=True)[:3]
+    out["params"] = {"first_step_grad_rel_l2": g_rel, "ranks_vs_two_half_passes": g_ranks_halves,
+                     "two_half_passes_vs_batch_8": g_halves_one, "grads_most_apart": g_apart,
+                     "grad_tensors": len(grads), "delta_rel_l2": delta_rel, "most_apart": apart,
+                     "moved_the_other_way": flipped, "elements": sum(d_one[n].numel() for n in names),
+                     "max_abs": max(float((r0["params"][n] - one["params"][n]).abs().max()) for n in names),
+                     "init_equal": all(torch.equal(r0["init"][n], one["init"][n]) for n in names)}
+    if (g_ranks_halves > DP_GRAD_RANKS_REL or g_halves_one > DP_GRAD_REL or len(grads) != len(names)
+            or sorted(halves) != grads or not out["params"]["init_equal"]):
+        failed.append(f"params after the steps: {out['params']}")
+
+    def metrics_diff(a: dict, b: dict, what: str) -> float:
+        if set(a) != set(b):
+            failed.append(f"{what}: keys differ")
+            return float("nan")
+        diff = max(abs(a[k] - b[k]) for k in b if isinstance(b[k], float))
+        if any(abs(a[k] - b[k]) > DP_METRIC_ABS + DP_METRIC_REL * abs(b[k]) for k in b if isinstance(b[k], float)):
+            failed.append(f"{what}: {a} vs {b}")
+        return diff
+
+    if any(res["val"] != r0["val"] or res["eval"] != r0["eval"] for res in ranks):
+        failed.append("the ranks' metrics differ")
+    out["val_max_abs"] = metrics_diff(r0["val"], one["val"], "validation")
+    out["eval_max_abs"] = metrics_diff(r0["eval"], one["eval"], "TTAEngine.evaluate")
+    out["tent"] = {}
+    for mode, t in r0["tent"].items():
+        o = one["tent"][mode]
+        ent_rel = max(abs(a - b) / abs(b) for ea, eb in zip(t["ents"], o["ents"]) for a, b in zip(ea, eb))
+        agree = min(float((a == b).float().mean()) for a, b in zip(t["preds"], o["preds"]))
+        keys = sorted(o["adapted"])  # the relative L2 of the 36 tensors' deltas together
+        diff = torch.cat([(t["adapted"][k] - o["adapted"][k]).flatten() for k in keys])
+        delta = torch.cat([(o["adapted"][k] - one["source_norm"][k]).flatten() for k in keys])
+        rel = float(diff.norm() / delta.norm())
+        out["tent"][mode] = {"ents_max_rel": ent_rel, "pred_agree": agree, "delta_rel_l2": rel}
+        if any(res["tent"][mode]["ents"] != t["ents"] for res in ranks):
+            failed.append(f"Tent {mode}: the ranks' entropies differ")
+        if ent_rel > DP_LOSS_REL or agree < DP_PRED_AGREE or rel > DP_DELTA_REL:
+            failed.append(f"Tent {mode}: {out['tent'][mode]}")
+    if failed:
+        raise AssertionError("phase 22, two ranks vs one process: " + "; ".join(failed) + f"; all: {out}")
+    return out
+
+
+def dp_torchrun_cli(manifest: str, root: str, timeout: float = 600.0, two_ranks: bool = False) -> dict:
+    """``cli.train`` then ``cli.adapt`` (Tent) as a user with N cards
+    launches them, under ``torch.distributed.run --nproc_per_node=1`` (the
+    default backend, NCCL, one rank) on phase 14's fixture: 1 epoch, then
+    Tent from its best checkpoint; the group's line names the backend, and
+    the log, the metrics file and the checkpoints exist. With ``two_ranks``
+    also ``cli.adapt`` over two ranks on card 0 (``training.devices=[0,0]``,
+    gloo, as the CLI chooses for ranks that share a card)."""
+    out = {}
+    best = f"training.resume={os.path.join(root, 'train', 'checkpoints', 'best_model')}"
+    runs = [("train", 1, "nccl", ["training.epochs=1"]),
+            ("adapt", 1, "nccl", ["tta=tent", "tta.report_no_adapt=true", best])]
+    if two_ranks:
+        runs.append(("adapt", 2, "gloo", ["tta=tent", "tta.report_no_adapt=true", best, "training.devices=[0,0]"]))
+    for call, ranks, backend, extra in runs:
+        tag = call if ranks == 1 else f"{call}_{ranks}_ranks"
+        run_dir = os.path.join(root, tag)
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", f"--nproc_per_node={ranks}", "-m",
+               f"multimodal_tta_tpu_torch.cli.{call}", *cli_overrides(manifest, run_dir, *extra)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=timeout)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"torchrun cli.{call} exited {proc.returncode}:\n{proc.stdout[-4000:]}\n"
+                                 f"{proc.stderr[-4000:]}")
+        # the group starts before rank 0 opens its log file: its line is on stdout
+        groups = re.findall(rf"torch\.distributed initialized: rank (\d)/{ranks} \(local rank \d\), backend (\w+)",
+                            proc.stdout)
+        if sorted(groups) != [(str(r), backend) for r in range(ranks)] \
+                or not os.path.exists(os.path.join(run_dir, f"{call}.log")):
+            raise AssertionError(f"torchrun cli.{call} over {ranks}: groups {groups}, not {backend}, or no log "
+                                 f"file:\n{proc.stdout[-4000:]}")
+        r = {"wall_s": wall, "ranks": ranks, "backend": backend}
+        if call == "train":
+            r["checkpoints"] = sorted(os.listdir(os.path.join(run_dir, "checkpoints")))
+            if "best_model.pt" not in r["checkpoints"]:
+                raise AssertionError(f"torchrun cli.train wrote {r['checkpoints']}")
+        else:
+            metrics = json.load(open(os.path.join(run_dir, "tta_metrics.json"), encoding="utf-8"))
+            r["metrics"] = {k: metrics["adapted"][k] for k in ("gtvt_dc", "avg_hd95", "loss")
+                            if k in metrics["adapted"]}
+            if not all(math.isfinite(v) for v in r["metrics"].values()) or "no_adapt" not in metrics:
+                raise AssertionError(f"torchrun cli.adapt metrics {metrics}")
+        out[tag] = r
+    return out
+
+
+def data_parallel_phase(device, root: str, *, shape=SHAPE[:3], channels=(32, 64, 128, 256, 512),
+                        volumes: int = DP_VOLUMES, manifest=None, backend=None, threads: int = 4,
+                        two_rank_cli: bool = False) -> dict:
+    """Phase 22: the NCCL probe (on a card), two ranks sharing the device
+    (``training.devices=[0, 0]``, spawned here over the probe's backend, or
+    ``backend``) against the one-process run here on the same global
+    batches, each rank's launches exactly, its kernels against their plain
+    versions; then (with ``manifest``) ``cli.train`` and ``cli.adapt`` under
+    torchrun with NCCL."""
+    import shutil
+
+    import torch
+
+    from multimodal_tta_tpu_torch.parallel.distributed import spawn_ranks
+
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root, exist_ok=True)
+    t0 = time.perf_counter()
+    cuda = torch.device(device).type == "cuda"
+    out = {}
+    if backend is None:
+        if cuda:
+            out["nccl_probe"] = nccl_probe(os.path.join(root, "probe"))
+            backend = "nccl" if out["nccl_probe"]["accepted"] else "gloo"
+        else:
+            backend = "gloo"
+    out["backend"] = backend
+    log(f"[data_parallel] two ranks on {device} over {backend}" + (
+        f" (NCCL probe: {'accepted' if out['nccl_probe']['accepted'] else 'refused'}, "
+        f"{[r.get('error', 'ok')[:300] for r in out['nccl_probe']['ranks']]}, "
+        f"{out['nccl_probe']['seconds']:.1f} s)" if "nccl_probe" in out else ""))
+    spec = {"shape": list(shape), "channels": list(channels), "threads": threads,
+            "data": os.path.join(root, "data.pt")}
+    torch.save(dp_data(shape, volumes), spec["data"])
+    ranks_root = os.path.join(root, "ranks")
+    os.makedirs(ranks_root, exist_ok=True)
+    t1 = time.perf_counter()
+    spawn_ranks(_dp_rank, DP_WORLD, ranks_root, (ranks_root, backend, str(device), spec), DP_TIMEOUT_S)
+    out["ranks_s"] = time.perf_counter() - t1
+    ranks = [torch.load(os.path.join(ranks_root, f"rank{r}.pt"), weights_only=False) for r in range(DP_WORLD)]
+    t1 = time.perf_counter()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(spec["threads"])  # the ranks' host threads: on the CPU the same reductions as theirs
+    try:
+        one = dp_run(device, os.path.join(root, "one"), None, spec)
+    finally:
+        torch.set_num_threads(threads)
+    out["one_s"] = time.perf_counter() - t1
+    out["compare"] = dp_compare(one, ranks)
+    per_forward = 18 if cuda else 0
+    steps = len(one["losses"])
+    want = {"train": {"forward": per_forward * (steps + 1), "backward": per_forward * steps, "minplus": int(cuda)},
+            "tent_inline": {"forward": per_forward * DP_TENT_BATCHES, "backward": per_forward * DP_TENT_BATCHES,
+                            "minplus": 0},
+            "tent_post": {"forward": 2 * per_forward * DP_TENT_BATCHES, "backward": per_forward * DP_TENT_BATCHES,
+                          "minplus": 0},
+            "evaluate": {"forward": 2 * per_forward * len(DP_EVAL_SIZES),
+                         "backward": per_forward * len(DP_EVAL_SIZES), "minplus": int(cuda) * len(DP_EVAL_SIZES)}}
+    for res in ranks + [one]:
+        for part, w in want.items():
+            if res["launches"][part] != {**w, "plain_backward": 0}:
+                raise AssertionError(f"phase 22 {res['tag']} {part}: launches {res['launches'][part]}, derived {w}")
+        kc = res["kernel_check"]
+        if cuda and not (kc["norm_ok"] and kc["edt_bitwise"] and all(kc["edt_bitwise"])):
+            raise AssertionError(f"phase 22 {res['tag']} kernels vs plain: {kc}")
+    if cuda:  # the norm checked at each rank's own batches: training's 4, Tent's and evaluate's 1
+        for res in ranks:
+            held = {n["shape"][0] for n in res["kernel_check"]["norm"]}
+            if not {TRAIN_BATCH // DP_WORLD, BATCH // DP_WORLD} <= held:
+                raise AssertionError(f"phase 22 {res['tag']}: the norm held at batches {sorted(held)} only")
+    out["launches"] = {k: sum(res["launches"][p][k] for res in ranks for p in want)
+                       for k in ("forward", "backward", "minplus")}
+    out["ranks"] = [{k: res[k] for k in ("tag", "device", "launches", "kernel_check", "optimizer_state_bytes",
+                                         "train_allreduce_bytes", "tent_allreduce_bytes", "peak_gib", "losses",
+                                         "val", "eval", "checkpoints", "part_s") if k in res}
+                    | {"timing": res.get("timing")} for res in ranks]
+    out["one"] = {k: one.get(k) for k in ("launches", "kernel_check", "optimizer_state_bytes", "peak_gib", "losses",
+                                          "val", "eval", "timing", "part_s")}
+    if ranks[0]["optimizer_state_bytes"] + ranks[1]["optimizer_state_bytes"] < one["optimizer_state_bytes"] \
+            or max(r["optimizer_state_bytes"] for r in ranks) >= one["optimizer_state_bytes"]:
+        raise AssertionError(f"phase 22 zero1: state bytes {[r['optimizer_state_bytes'] for r in ranks]} vs "
+                             f"{one['optimizer_state_bytes']} in one process")
+    if not all("best_model.pt" in r["checkpoints"] for r in ranks[:1]):
+        raise AssertionError(f"phase 22: rank 0 wrote {ranks[0]['checkpoints']}")
+    if manifest is not None:
+        out["torchrun"] = dp_torchrun_cli(manifest, os.path.join(root, "torchrun"), two_ranks=two_rank_cli)
+    out["phase_s"] = time.perf_counter() - t0
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def kernel_check_text(kc) -> str:
+    """Phase 22's kernel checks of one process, in a few words."""
+    if kc is None:
+        return "none (CPU)"
+    norms = kc["norm"]
+    return (f"the norm at {len(norms)} path inputs (shape, activation: {[(n['shape'], n['act']) for n in norms]}), "
+            f"max forward error {max(n['forward_err'] for n in norms):.3g} (limit {TOL_F32['atol']}), max backward "
+            f"errors dx/dgamma/dbeta {[max(n['backward_err'][i] for n in norms) for i in range(3)]} (limit "
+            f"{GRAD_F32_REL} x max|plain| + {GRAD_F32_ABS} each), ok {kc['norm_ok']}; the EDT bitwise "
+            f"{kc['edt_bitwise']}")
+
+
+def log_data_parallel(dp: dict, card: str) -> None:
+    """Phase 22's numbers, a line each."""
+    import statistics
+
+    def warm(ms):  # the first call compiles and warms up
+        return statistics.median(ms[1:]) if len(ms) > 1 else float("nan")
+
+    c, one = dp["compare"], dp["one"]
+    log(f"[data_parallel] two ranks vs one process on the same global batches (f32, TF32 off): losses "
+        f"{c['losses']['ranks']} vs {c['losses']['one']} (max rel {c['losses']['max_rel']:.3g}, limit {DP_LOSS_REL}); "
+        f"gradients and params {c['params']} (limits: the first step's gradients, the ranks' against one process's "
+        f"two batch-4 passes {DP_GRAD_RANKS_REL}, those against its batch-8 pass {DP_GRAD_REL}; the moves are "
+        f"read, not gated); "
+        f"validation metrics max abs {c['val_max_abs']:.3g}, TTAEngine.evaluate {c['eval_max_abs']:.3g} (limit "
+        f"{DP_METRIC_ABS} + {DP_METRIC_REL} x |value|); Tent {c['tent']} (limits: entropies {DP_LOSS_REL}, "
+        f"deltas {DP_DELTA_REL}, predictions {DP_PRED_AGREE}); ranks {dp['ranks_s']:.1f} s, one process "
+        f"{dp['one_s']:.1f} s; "
+        f"card {card}")
+    ot = one.get("timing") or {}
+    for r in dp["ranks"]:
+        t = r.get("timing") or {}
+        log(f"[data_parallel] {r['tag']} on {r['device']}: launches {r['launches']}; kernels vs plain on this "
+            f"rank's inputs: {kernel_check_text(r['kernel_check'])}; ms per bf16 training step (4 of the global 8) "
+            f"{[round(v, 2) for v in t.get('train_step_ms', [])]} "
+            f"-> warm median {warm(t.get('train_step_ms', [])):.2f} vs one process at 8 "
+            f"{warm(ot.get('train_step_ms', [])):.2f}; ms per bf16 Tent step (1 of the global 2) "
+            f"{[round(v, 2) for v in t.get('tent_step_ms', [])]} -> {warm(t.get('tent_step_ms', [])):.2f} vs one "
+            f"process at 2 {warm(ot.get('tent_step_ms', [])):.2f}; all-reduced per training step "
+            f"{r['train_allreduce_bytes']} bytes, per Tent step {r['tent_allreduce_bytes']} bytes; optimizer state "
+            f"{r['optimizer_state_bytes']} bytes with zero1 vs {one['optimizer_state_bytes']} without (one process); "
+            f"peak allocated {r['peak_gib']} GiB (the f32 main path), {t.get('peak_gib')} GiB (the bf16 runs) "
+            f"(one process: {one['peak_gib']}, {ot.get('peak_gib')}); s by part {r['part_s']} (one process "
+            f"{one['part_s']}); card {card}")
+    if "torchrun" in dp:
+        log(f"[data_parallel] torchrun --nproc_per_node=1: {dp['torchrun']}; card {card}")
+    log(f"[data_parallel] phase 22 took {dp['phase_s']:.1f} s; launches over both ranks {dp['launches']}; "
+        f"backend {dp['backend']}; card {card}")
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -5295,7 +6093,6 @@ def main() -> int:
     torch.cuda.empty_cache()
     srv = serving_artifact_phase(dev, os.path.join(REPO, "build", "chip_smoke_serving"), manifest=cli["manifest"],
                                  best=cli["best"], reset_counts=reset_counts, read_counts=read_counts)
-    shutil.rmtree(cli_root, ignore_errors=True)  # phase 14's fixture: phases 15, 17, 18 and 19 ran on it
     art_launches = {"forward": 0, "backward": 0}
 
     def add_art(got: dict, want: dict, what: str) -> None:
@@ -5422,6 +6219,14 @@ def main() -> int:
     prep.update({"launches": prep_launches, "phase_s": time.perf_counter() - t_prep, "card": smi})
     log(f"[preprocess] phase 21 took {prep['phase_s']:.1f} s; launches {prep_launches}; card {smi}")
 
+    # ---- 22. the data axis over ranks: two ranks on the card, torchrun ------
+    torch.cuda.empty_cache()
+    dp = data_parallel_phase(dev, os.path.join(REPO, "build", "chip_smoke_dp"), manifest=cli["manifest"])
+    shutil.rmtree(cli_root, ignore_errors=True)  # phase 14's fixture: phases 15, 17, 18, 19 and 22 ran on it
+    dp["card"] = smi
+    log_data_parallel(dp, smi)
+    dp_launches = dp["launches"]
+
 
     def norm_summary(name: str, tot: dict, train_tot: dict, brats_tot: dict, n_launches: dict, err: float,
                      extra: dict, direction: str) -> dict:
@@ -5453,7 +6258,8 @@ def main() -> int:
                             "cli": cli_launches["forward"], "tta": tta_launches["forward"],
                             "brats": brats_launches["forward"], "transformer": tr_launches["forward"],
                             "batchnorm": bn_launches["forward"], "serving_artifact": art_launches["forward"],
-                            "training_options": opt_launches["forward"], "preprocess": prep_launches["forward"]},
+                            "training_options": opt_launches["forward"], "preprocess": prep_launches["forward"],
+                            "data_parallel": dp_launches["forward"]},
                            max_abs_err, {}, "forward")
     backward_summary = norm_summary(
         "fused_instance_norm_backward", btotals, norm_totals[TRAIN_BATCH][1], brats_norm[1],
@@ -5461,7 +6267,7 @@ def main() -> int:
          "tta": tta_launches["backward"], "brats": brats_launches["backward"],
          "transformer": tr_launches["backward"], "batchnorm": bn_launches["backward"],
          "serving_artifact": art_launches["backward"], "training_options": opt_launches["backward"],
-         "preprocess": prep_launches["backward"]}, backward_err,
+         "preprocess": prep_launches["backward"], "data_parallel": dp_launches["backward"]}, backward_err,
         {"note": "the gradient of the TPU kernel's function; dx computed in all 18 timed calls"}, "backward")
     minplus_summary = {
         "name": "minplus",
@@ -5470,11 +6276,12 @@ def main() -> int:
         "replaces": "multimodal_tta_tpu/pallas/edt_minplus.py:52",
         "launches": sum(eval_launches.values()) + train_launches["minplus"] + cli_launches["minplus"]
         + tta_launches["minplus"] + brats_launches["minplus"] + tr_launches["minplus"] + bn_launches["minplus"]
-        + opt_launches["minplus"] + prep_launches["minplus"],
+        + opt_launches["minplus"] + prep_launches["minplus"] + dp_launches["minplus"],
         "launches_by_path": {**eval_launches, "train": train_launches["minplus"], "cli": cli_launches["minplus"],
                              "tta": tta_launches["minplus"], "brats": brats_launches["minplus"],
                              "transformer": tr_launches["minplus"], "batchnorm": bn_launches["minplus"],
-                             "training_options": opt_launches["minplus"], "preprocess": prep_launches["minplus"]},
+                             "training_options": opt_launches["minplus"], "preprocess": prep_launches["minplus"],
+                             "data_parallel": dp_launches["minplus"]},
         "max_abs_err": minplus_err,
         "ms": edt_ms,
         "plain_ms": edt_plain_ms,
@@ -5496,7 +6303,7 @@ def main() -> int:
                     "eval_batch_split_ms": split,
                     "eval_metrics": eval_runs, "training": training, "cli": cli, "tta": tta_log, "brats": brats,
                     "transformers": transformers, "batchnorm": batchnorm, "serving_artifact": srv,
-                    "training_options": opt20, "preprocess": prep}, default=str))
+                    "training_options": opt20, "preprocess": prep, "data_parallel": dp}, default=str))
     log(json.dumps({"kernels": [summary, backward_summary, minplus_summary]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                             "count": torch.cuda.device_count()}}))

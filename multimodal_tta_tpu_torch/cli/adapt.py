@@ -13,7 +13,9 @@ through the streaming protocol instead (``tta/stream.py``: reset policy,
 entropy watchdog, gated serving), one test pass per centre of
 ``tta.stream.domain_order`` or the test split's own order, and
 ``evaluate_stream``'s Dice report is written under ``adapted``. The model
-is left as the checkpoint gave it.
+is left as the checkpoint gave it. Under torchrun each rank adapts and
+scores its rows of every batch (tent and norm), every rank computes the
+global metrics, and rank 0 writes them.
 """
 
 from __future__ import annotations
@@ -24,11 +26,11 @@ import sys
 from typing import Any, Dict, Optional, Sequence
 
 from .. import DeviceLike, resolve_device
-from ..conf import compose, setup_run_dir
+from ..conf import compose
+from ..parallel.distributed import is_primary_host
 from ..utils.config import get_config
 from ..utils.host_alloc import retain_host_memory
-from ..utils.logger import setup_logger
-from . import CONFIG_DIR
+from . import CONFIG_DIR, start_ranks
 
 
 def load_serving_state(manager, cfg, logger, what: str):
@@ -88,15 +90,14 @@ def main(argv: Optional[Sequence[str]] = None, device: DeviceLike = "cuda") -> D
     argv = list(sys.argv[1:] if argv is None else argv)
     cfg = compose(CONFIG_DIR, "config", argv)
 
-    run_dir = setup_run_dir(cfg)
-    logger = setup_logger(log_file=os.path.join(run_dir, "adapt.log"))
+    mesh, run_dir, logger = start_ranks(cfg, dev, "adapt.log")
     logger.info(f"Run dir: {run_dir}")
     logger.info(f"TTA Configs:\n{cfg.to_yaml()}")
 
     from ..core.experiment_manager import ExperimentManager
     from ..tta.engine import TTAEngine
 
-    manager = ExperimentManager(cfg, device=dev)
+    manager = ExperimentManager(cfg, device=dev, mesh=mesh)
     manager.setup_model()
     test_loader = manager.setup_test_data()
     manager.setup_optimizer()
@@ -108,12 +109,13 @@ def main(argv: Optional[Sequence[str]] = None, device: DeviceLike = "cuda") -> D
     if hasattr(builder, "build_transform"):
         device_transform = builder.build_transform("test").device_spec()
 
-    engine = TTAEngine(cfg, device_transform=device_transform, device=dev)
+    dev = manager.device
+    engine = TTAEngine(cfg, device_transform=device_transform, device=dev, mesh=mesh)
 
     results = {}
     if bool(get_config(cfg, "tta.report_no_adapt", False)):
         logger.info("Evaluating WITHOUT adaptation (source model)...")
-        no_adapt = engine.strategy.evaluate_epoch(model, test_loader, device=dev)
+        no_adapt = engine.strategy.evaluate_epoch(model, test_loader, device=dev, mesh=engine.mesh)
         results["no_adapt"] = no_adapt
         logger.info(f"[no-adapt] {no_adapt}")
 
@@ -125,10 +127,11 @@ def main(argv: Optional[Sequence[str]] = None, device: DeviceLike = "cuda") -> D
         logger.info(f"[adapted] {adapted}")
     results["adapted"] = adapted
 
-    out_path = os.path.join(run_dir, "tta_metrics.json")
-    with open(out_path, "w", encoding="utf-8") as f:
-        json.dump(results, f, indent=2)
-    logger.info(f"Metrics written to {out_path}")
+    if is_primary_host():
+        out_path = os.path.join(run_dir, "tta_metrics.json")
+        with open(out_path, "w", encoding="utf-8") as f:
+            json.dump(results, f, indent=2)
+        logger.info(f"Metrics written to {out_path}")
     return results
 
 

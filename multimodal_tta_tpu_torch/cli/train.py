@@ -5,20 +5,21 @@
 
 Composes ``configs/`` with the overrides, makes the run directory (and
 moves into it), logs to ``<run_dir>/train.log`` and trains through
-``ExperimentManager``; checkpoints land in ``<run_dir>/checkpoints``.
+``ExperimentManager``; checkpoints land in ``<run_dir>/checkpoints``. Under
+torchrun each rank trains on its rows of every global batch
+(``training.batch_size`` is the global batch; ``training.devices=[0,0]``
+puts two ranks on card 0, with ``gloo``: NCCL refuses it).
 """
 
 from __future__ import annotations
 
-import os
 import sys
 from typing import Dict, List, Optional, Sequence
 
 from .. import DeviceLike, resolve_device
-from ..conf import compose, setup_run_dir
+from ..conf import compose
 from ..utils.host_alloc import retain_host_memory
-from ..utils.logger import setup_logger
-from . import CONFIG_DIR
+from . import CONFIG_DIR, start_ranks
 
 
 def main(argv: Optional[Sequence[str]] = None, device: DeviceLike = "cuda") -> Dict[str, List]:
@@ -28,14 +29,13 @@ def main(argv: Optional[Sequence[str]] = None, device: DeviceLike = "cuda") -> D
     argv = list(sys.argv[1:] if argv is None else argv)
     cfg = compose(CONFIG_DIR, "config", argv)
 
-    run_dir = setup_run_dir(cfg)
-    logger = setup_logger(log_file=os.path.join(run_dir, "train.log"))
+    mesh, run_dir, logger = start_ranks(cfg, dev, "train.log")
     logger.info(f"Run dir: {run_dir}")
     logger.info(f"Running Configs:\n{cfg.to_yaml()}")
 
     from ..core.experiment_manager import ExperimentManager
 
-    manager = ExperimentManager(cfg, device=dev)
+    manager = ExperimentManager(cfg, device=dev, mesh=mesh)
     manager.setup_model()
     manager.setup_data(mode="train")
     manager.setup_optimizer()

@@ -229,21 +229,25 @@ def setup_run_dir(cfg: ConfigNode, chdir: bool = True) -> str:
 
     Mirrors the reference's hydra.run.dir + hydra.job.chdir behaviour
     (reference: configs/config.yaml:10-14). The composed config is saved to
-    ``<run_dir>/.hydra_equiv/config.yaml`` for provenance.
+    ``<run_dir>/.hydra_equiv/config.yaml`` for provenance. Over ranks every
+    rank takes rank 0's directory, and rank 0 writes the provenance.
     """
+    from ..parallel.distributed import from_primary, is_primary_host
+
     run_dir = cfg.select("hydra.run.dir", None)
     if run_dir is None:
         save_dir = cfg.select("task.save_dir", "./outputs")
         run_name = cfg.select("task.run_name", cfg.select("training.run_name", "run"))
-        stamp = datetime.datetime.now().strftime("%Y%m%d_%H%M%S")
+        stamp = from_primary(datetime.datetime.now().strftime("%Y%m%d_%H%M%S"))
         run_dir = os.path.join(str(save_dir), str(run_name), stamp)
     run_dir = os.path.abspath(str(run_dir))
     os.makedirs(run_dir, exist_ok=True)
 
-    prov_dir = os.path.join(run_dir, ".hydra_equiv")
-    os.makedirs(prov_dir, exist_ok=True)
-    with open(os.path.join(prov_dir, "config.yaml"), "w", encoding="utf-8") as f:
-        f.write(cfg.to_yaml())
+    if is_primary_host():
+        prov_dir = os.path.join(run_dir, ".hydra_equiv")
+        os.makedirs(prov_dir, exist_ok=True)
+        with open(os.path.join(prov_dir, "config.yaml"), "w", encoding="utf-8") as f:
+            f.write(cfg.to_yaml())
 
     if chdir and bool(cfg.select("hydra.job.chdir", True)):
         os.chdir(run_dir)

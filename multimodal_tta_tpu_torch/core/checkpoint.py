@@ -10,6 +10,13 @@ sidecar ``path.json`` (epoch, best metrics, scheduler state; ``_format:
 ``load_params_only`` reads a model's params and buffers alone (the
 frozen teacher of ``core/distill.py``), with no optimizer template.
 
+Over ranks rank 0 writes, as in the reference, and the other ranks wait at
+a barrier. Under ZeRO-1 (``training.zero1``) the optimizer's state is first
+consolidated to rank 0, so the file holds the plain optimizer's state dict:
+a checkpoint of a run over ranks resumes in one process and the reverse
+(``ZeroRedundancyOptimizer.load_state_dict`` takes its partition). Every
+rank reads the file to resume.
+
 The reference's msgpack and orbax formats are not ported (they need flax,
 msgpack and orbax; ROADMAP.md, item 12b): loading such a checkpoint raises.
 """
@@ -25,11 +32,28 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..parallel.distributed import barrier, is_primary_host
 from ..utils.logger import get_logger
 from .train_state import TrainState, shadow_module
 
 
+def _zero1_of(optimizer):
+    """The ``ZeroRedundancyOptimizer`` of ``optimizer`` (itself, or inside
+    ``MultiSteps``), or None."""
+    from torch.distributed.optim import ZeroRedundancyOptimizer
+
+    inner = getattr(optimizer, "optimizer", optimizer)
+    return inner if isinstance(inner, ZeroRedundancyOptimizer) else None
+
+
 def _state_payload(state: TrainState) -> Dict[str, Any]:
+    """What the file holds; under ZeRO-1 every rank takes part in the
+    consolidation and only rank 0's payload is complete."""
+    zero = _zero1_of(state.optimizer)
+    if zero is not None:
+        zero.consolidate_state_dict(to=0)
+        if not is_primary_host():
+            return {}
     payload = {
         "step": int(state.step),
         "model": state.model.state_dict(),
@@ -42,12 +66,16 @@ def _state_payload(state: TrainState) -> Dict[str, Any]:
 
 
 def save_checkpoint(path: str, state: TrainState, extra: Dict[str, Any] = None) -> None:
-    """path is extension-less; writes path.pt + path.json atomically."""
-    os.makedirs(os.path.dirname(os.path.abspath(path)) or ".", exist_ok=True)
-    tmp = path + ".pt.tmp"
-    torch.save(_state_payload(state), tmp)
-    os.replace(tmp, path + ".pt")
-    _write_sidecar(path, dict(extra or {}, _format="torch"))
+    """path is extension-less; writes path.pt + path.json atomically (rank 0
+    over ranks; every rank calls it and returns once the files exist)."""
+    payload = _state_payload(state)
+    if is_primary_host():
+        os.makedirs(os.path.dirname(os.path.abspath(path)) or ".", exist_ok=True)
+        tmp = path + ".pt.tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, path + ".pt")
+        _write_sidecar(path, dict(extra or {}, _format="torch"))
+    barrier()
 
 
 def _json_default(o):

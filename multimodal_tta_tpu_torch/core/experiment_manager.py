@@ -5,8 +5,17 @@
 setup_optimizer / setup_scheduler / setup_trainer / train``, as in the
 reference. The model is an ``nn.Module`` from the model registry on one
 device; the optimizer is ``torch.optim`` with the reference's no-decay
-param groups; seeding returns a ``torch.Generator``. There is no mesh and no
-distributed launch yet (ROADMAP.md, parallel slice).
+param groups; seeding returns a ``torch.Generator``.
+
+Ranks: the manager calls ``maybe_initialize_distributed()`` (a torchrun
+launch starts the process group; a plain run is untouched) and then
+``mesh_from_config``, whose rank device replaces ``device``; a caller may
+hand in a ``mesh`` instead. The backend is NCCL on distinct cards, gloo on
+the CPU or for ranks that share a card (``parallel/distributed.py:
+default_backend``). Every rank seeds alike and
+then takes rank 0's weights; the loaders, the optimizer
+(``training.zero1``) and the trainer run over the mesh's data axis
+(``parallel/mesh.py``).
 
 Data: ``setup_data`` goes through the dataset-builder registry (the
 HECKTOR21 and BraTS builders of ``data/``), with ``training.device_cache``
@@ -31,6 +40,8 @@ import torch
 
 from .. import DeviceLike, resolve_device
 from ..conf.node import ConfigNode
+from ..parallel.distributed import maybe_initialize_distributed
+from ..parallel.mesh import Mesh, mesh_from_config, select_devices
 from ..registry import get_dataset_builder, get_evaluation_strategy, get_model, list_dataset_builders
 from ..utils.config import get_config, require_config
 from ..utils.logger import get_logger
@@ -52,12 +63,19 @@ def compute_dtype_of(config) -> torch.dtype:
 
 
 class ExperimentManager:
-    def __init__(self, config: ConfigNode, device: DeviceLike = "cuda"):
+    def __init__(self, config: ConfigNode, device: DeviceLike = "cuda", mesh: Optional[Mesh] = None):
         if not isinstance(config, ConfigNode):
             raise TypeError("ExperimentManager expects a ConfigNode configuration")
         self.config = config
         self.logger = get_logger()
         self.device = resolve_device(device)
+        if mesh is None:
+            # a no-op unless a multi-process launch is detected
+            maybe_initialize_distributed(device=select_devices(get_config(config, "training", None),
+                                                               self.device))
+            mesh = mesh_from_config(config, self.device)
+        self.mesh = mesh
+        self.device = mesh.device
 
         seed = require_config(config, "task.seed")
         deterministic = str(get_config(config, "task.deterministic", "practical"))
@@ -119,6 +137,7 @@ class ExperimentManager:
             from ..models.pretrained import load_pretrained
 
             load_pretrained(self.model, model_name, str(src_path))
+        self.mesh.broadcast_(list(self.model.parameters()) + list(self.model.buffers()))  # rank 0's weights
         n_params = param_count(self.model)
         self.logger.info(
             f"Model created: {model_name} ({n_params / 1e6:.2f}M params, "
@@ -164,6 +183,7 @@ class ExperimentManager:
                 device=self.device,
                 num_workers=args["num_workers"],
                 shard_store=bool(get_config(self.config, "training.device_cache_sharded", False)),
+                mesh=self.mesh,
                 logger=self.logger,
             )
         else:
@@ -206,7 +226,7 @@ class ExperimentManager:
         if self.model is None:
             raise ValueError("Model must be setup before optimizer")
         training_cfg = require_config(self.config, "training")
-        self.optimizer, self.base_lr = build_optimizer(training_cfg, self.model)
+        self.optimizer, self.base_lr = build_optimizer(training_cfg, self.model, self.mesh)
         self.state = TrainState(model=self.model, optimizer=self.optimizer)
         opt_name = get_config(training_cfg, "optimizer", "sgd")
         self.logger.info(f"Optimizer created (primary): {opt_name} lr={self.base_lr}")
@@ -283,6 +303,7 @@ class ExperimentManager:
             evaluation_strategy=evaluation_strategy,
             device_transform=device_transform,
             device=self.device,
+            mesh=self.mesh,
         )
         self.trainer.setup(self.state, evaluation_strategy, self.scheduler)
         self.setup_hooks(run_dir)

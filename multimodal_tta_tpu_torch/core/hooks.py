@@ -14,6 +14,7 @@ from typing import Dict, Optional
 import torch
 
 from ..utils.logger import get_logger
+from ..parallel.distributed import is_primary_host
 from .checkpoint import load_checkpoint, save_checkpoint
 from .trainer_base import HookBase
 
@@ -151,7 +152,7 @@ class ProfilerHook(HookBase):
     host and, on a card, the device's kernels, with one ``ProfilerStep#k``
     range per trained step. The Chrome trace is written into ``log_dir`` when
     the last of those steps ends, or in ``after_train`` if the run ends
-    first; ``trace_path`` names the file."""
+    first; ``trace_path`` names the file. Over ranks, rank 0 traces."""
 
     def __init__(self, log_dir: str, start_step: int = 10, num_steps: int = 5):
         self.log_dir = log_dir
@@ -165,7 +166,7 @@ class ProfilerHook(HookBase):
         if self._prof is not None:
             self._prof.step()  # closes the last step's ProfilerStep range, opens this one's
             return
-        if not self._done and self.trainer.iter >= self.start_step:
+        if not self._done and self.trainer.iter >= self.start_step and is_primary_host():
             from torch.profiler import ProfilerAction, ProfilerActivity, profile
 
             activities = [ProfilerActivity.CPU]

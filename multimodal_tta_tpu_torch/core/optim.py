@@ -220,9 +220,12 @@ class Adafactor(torch.optim.Optimizer):
 Optimizer = Union[torch.optim.Optimizer, MultiSteps]
 
 
-def build_optimizer(training_cfg, model: nn.Module) -> Tuple[Optimizer, float]:
+def build_optimizer(training_cfg, model: nn.Module, mesh=None) -> Tuple[Optimizer, float]:
     """Build the optimizer over ``model``'s trainable params; returns
-    ``(optimizer, base_lr)``."""
+    ``(optimizer, base_lr)``. With ``training.zero1`` and a data axis of
+    more than one rank (``mesh``), the optimizer's state is partitioned over
+    the ranks (``parallel/mesh.py:zero1_optimizer``), also under
+    ``grad_accum`` and for Adafactor."""
     opt_name = str(get_config(training_cfg, "optimizer", "sgd")).lower()
     if opt_name not in ("sgd", "adam", "adamw", "adafactor"):
         raise ValueError(f"Unsupported optimizer: {opt_name}")
@@ -246,13 +249,12 @@ def build_optimizer(training_cfg, model: nn.Module) -> Tuple[Optimizer, float]:
     if opt_name == "sgd":
         momentum = float(get_config(opt_cfg, "momentum", get_config(training_cfg, "momentum", 0.0)))
         nesterov = bool(get_config(opt_cfg, "nesterov", False)) and momentum > 0
-        tx: torch.optim.Optimizer = torch.optim.SGD(
-            groups, lr=lr, momentum=momentum, dampening=0.0, nesterov=nesterov)
+        cls, kw = torch.optim.SGD, dict(lr=lr, momentum=momentum, dampening=0.0, nesterov=nesterov)
     elif opt_name == "adafactor":
         momentum = get_config(opt_cfg, "momentum", None)
         layouts = flax_layouts(model)
-        tx = Adafactor(
-            groups, lr=lr, layouts={id(p): layouts[n] for n, p in params},
+        cls, kw = Adafactor, dict(
+            lr=lr, layouts={id(p): layouts[n] for n, p in params},
             min_dim_size_to_factor=int(get_config(opt_cfg, "min_dim_size_to_factor", 128)),
             decay_rate=float(get_config(opt_cfg, "decay_rate", 0.8)),
             momentum=None if momentum in (None, 0, 0.0, False, "none") else float(momentum),
@@ -262,7 +264,13 @@ def build_optimizer(training_cfg, model: nn.Module) -> Tuple[Optimizer, float]:
         betas = get_config(opt_cfg, "betas", [0.9, 0.999])
         eps = float(get_config(opt_cfg, "eps", 1e-8))
         cls = torch.optim.Adam if opt_name == "adam" else torch.optim.AdamW
-        tx = cls(groups, lr=lr, betas=(float(betas[0]), float(betas[1])), eps=eps)
+        kw = dict(lr=lr, betas=(float(betas[0]), float(betas[1])), eps=eps)
+    if bool(get_config(training_cfg, "zero1", False)) and mesh is not None and mesh.parallel:
+        from ..parallel.mesh import zero1_optimizer
+
+        tx: torch.optim.Optimizer = zero1_optimizer(cls, groups, mesh, **kw)
+    else:
+        tx = cls(groups, **kw)
 
     accum = int(get_config(training_cfg, "grad_accum", 1))
     if accum < 1:

@@ -7,7 +7,9 @@ tracking via the evaluation strategy, early stop through StopIteration, hooks
 at the same lifecycle points in the same order, an epoch-stepped learning
 rate, NaN loss for a zero-batch epoch, and the returned
 ``{train_history, eval_history}`` dict. Progress goes to the logger (the
-reference draws progress bars).
+reference draws progress bars). Over ranks (``mesh``) every rank runs the
+same schedule on its rows, and evaluation returns the global metrics on
+every rank, so the hooks decide alike everywhere.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from abc import ABC, abstractmethod
 from typing import Any, Dict, List, Optional, Tuple
 
 from .. import DeviceLike, resolve_device
+from ..parallel.mesh import Mesh
 from ..utils.config import get_config
 from ..utils.logger import get_logger
 from ..utils.metrics import AverageMeter
@@ -51,10 +54,12 @@ class HookBase:
 
 
 class TrainerBase(ABC):
-    def __init__(self, config, device: DeviceLike = "cuda"):
+    def __init__(self, config, device: DeviceLike = "cuda", mesh=None):
         self.config = config
         self.device = resolve_device(device)
         self.logger = get_logger()
+        # the data axis over ranks (one process: a mesh of one rank)
+        self.mesh = mesh if mesh is not None else Mesh(self.device)
 
         self.epoch = 0
         self.iter = 0
@@ -270,7 +275,8 @@ class TrainerBase(ABC):
         return self.state
 
     def _evaluate_with_strategy(self, data_loader) -> Dict[str, float]:
-        return self.evaluation_strategy.evaluate_epoch(self.eval_state(), data_loader, device=self.device)
+        return self.evaluation_strategy.evaluate_epoch(self.eval_state(), data_loader, device=self.device,
+                                                       mesh=self.mesh)
 
     def evaluate(self, epoch: int, data_loader) -> Tuple[Dict[str, float], bool]:
         if self.evaluation_strategy is None:

@@ -34,7 +34,21 @@ batch's statistics (padded rows included, as in the reference) and moves
 its running statistics once a step, with remat or without.
 ``training.remat`` is the model's (``ExperimentManager`` builds it with it).
 ``training.debug_nans`` checks every module's outputs and the backward for
-a NaN (``utils/debug_nans.py``). There is no mesh (one device).
+a NaN (``utils/debug_nans.py``).
+
+Over ranks (``mesh``, ``parallel/mesh.py``) a step on rank ``r`` runs on its
+rows of the padded global batch and equals one process's step on the global
+batch: the draws (modality dropout, intensity augmentation) are made for
+the global batch and sliced; the loss is the rank's masked sum over the
+GLOBAL valid count; the MoE load balance pools its statistics over the
+ranks and, being the same on every rank, enters each rank's loss divided
+by the rank count; a BatchNorm pools its statistics
+(``models/layers.py:pool_over_ranks``); after the backward the gradients
+and the loss are SUMMED over the ranks in one ``all_reduce`` of a flat
+buffer (no DDP wrapper, so the module keeps its names and a sum needs no
+rescaling), and every rank applies the same update (with ``training.zero1``
+each steps its partition of the optimizer state and the params are
+broadcast).
 """
 
 from __future__ import annotations
@@ -51,7 +65,14 @@ from ...conf.node import ConfigNode
 from ...data.prefetch import TRANSFER_DTYPES, prefetch_to_device
 from ...models.layers import capture_intermediates
 from ...models.moe import collect_moe_aux
-from ...ops.augment import modality_dropout, rand_intensity_scale_shift
+from ...models.layers import pool_over_ranks
+from ...ops.augment import (
+    apply_intensity_scale_shift,
+    apply_modality_dropout,
+    intensity_scale_shift_draws,
+    modality_dropout_draws,
+)
+from ...parallel.mesh import pad_batch_to_multiple
 from ...ops.intensity import make_intensity_normalizer
 from ...ops.losses import make_criterion
 from ...utils.config import get_config
@@ -63,8 +84,8 @@ from ..trainer_base import TrainerBase
 
 class SegTrainer(TrainerBase):
     def __init__(self, config, evaluation_strategy=None, device_transform=None,
-                 device: DeviceLike = "cuda"):
-        super().__init__(config, device)
+                 device: DeviceLike = "cuda", mesh=None):
+        super().__init__(config, device, mesh)
         self.evaluation_strategy = evaluation_strategy
 
         crit_cfg = get_config(config, "training.criterion", ConfigNode())
@@ -133,18 +154,25 @@ class SegTrainer(TrainerBase):
         dt = self.device_transform
         state = self.state
         image = image.to(torch.float32)  # upcast compact transfer dtypes
+        # the global batch this rank holds ``rows`` of (one process: all of
+        # it); the draws are the global batch's
+        world = self.mesh.data
+        n = image.shape[0] * world
+        rows = self.mesh.rows(n)
         if dt.get("modality_dropout"):
             # before normalization, so training sees what deployment gives
             # for an absent modality: raw zeros through the normalizer
-            image = modality_dropout(image, self._gen, prob=float(dt.get("modality_dropout_prob", 0.25)))
+            drop = modality_dropout_draws(n, image.shape[-1], self._gen,
+                                          prob=float(dt.get("modality_dropout_prob", 0.25)))
+            image = apply_modality_dropout(image, drop[rows])
         if self._norm_fn is not None:
             image = self._norm_fn(image)
         if dt.get("intensity_aug"):
-            image = rand_intensity_scale_shift(
-                image, self._gen, scale=float(dt.get("int_scale", 0.1)),
-                shift=float(dt.get("int_shift", 0.1)), prob=float(dt.get("int_prob", 0.5)))
+            factor, offset = intensity_scale_shift_draws(
+                n, self._gen, scale=float(dt.get("int_scale", 0.1)), shift=float(dt.get("int_shift", 0.1)),
+                prob=float(dt.get("int_prob", 0.5)))
+            image = apply_intensity_scale_shift(image, factor[rows], offset[rows])
 
-        b = image.shape[0]
         lbl = label.to(torch.float32) if self.sigmoid else label.to(torch.int64)
         state.optimizer.zero_grad(set_to_none=True)
         was_training = state.model.training
@@ -173,9 +201,10 @@ class SegTrainer(TrainerBase):
                 per_sample = per_sample + self.distill.weight * kd_loss(
                     logits, t_logits, sigmoid=self.sigmoid, temperature=self.distill.temperature,
                     focus=self.distill.focus)
-            # samples past n_valid (a padded batch tail) are masked out
-            mask = (torch.arange(b, device=per_sample.device) < n_valid).to(torch.float32)
-            loss = (per_sample * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+            # samples past n_valid (a padded batch tail) are masked out;
+            # the denominator is the global batch's valid count
+            valid = (torch.arange(n, device=per_sample.device) < n_valid).to(torch.float32)
+            loss = (per_sample * valid[rows]).sum() / torch.clamp(valid.sum(), min=1.0)
             if self.moe_experts:
                 aux = collect_moe_aux(inter)
                 if not aux:
@@ -186,7 +215,8 @@ class SegTrainer(TrainerBase):
                         "moe_experts does; set model.moe_experts=0 for "
                         "others)"
                     )
-                loss = loss + self.moe_aux_weight * torch.stack(aux).mean()
+                # the same value on every rank: its share of the summed loss
+                loss = loss + self.moe_aux_weight * torch.stack(aux).mean() / world
                 self.moe_stats = {"aux": torch.stack(aux).detach(),
                                   "dropped": torch.stack(inter["moe_dropped"]).detach()}
             # a rematerialized segment runs its forward again in the backward
@@ -197,12 +227,24 @@ class SegTrainer(TrainerBase):
                 loss.backward()
         finally:
             state.model.train(was_training)
+        loss = self._sum_over_ranks(loss.detach())
         applied = state.apply_gradients()
         # under training.grad_accum the params move on every k-th step only,
         # and the shadow ticks with them, not per microstep
         if self.ema_enabled and applied:
             self._update_ema()
-        return loss.detach()
+        return loss
+
+    def _sum_over_ranks(self, loss: torch.Tensor) -> torch.Tensor:
+        """The params' gradients and ``loss`` summed over the ranks in one
+        ``all_reduce`` of a flat buffer; returns the global loss. Every rank
+        has gradients for the same params (one graph), and a param without
+        one stays without, as in one process."""
+        params = [p for p in self.state.model.parameters() if p.grad is not None]
+        *grads, total = self.mesh.sum_flat([p.grad for p in params] + [loss.reshape(1).to(params[0].grad.dtype)])
+        for p, g in zip(params, grads):
+            p.grad = g
+        return total[0].to(loss.dtype)
 
     def _per_sample(self, logits: torch.Tensor, lbl: torch.Tensor) -> torch.Tensor:
         return torch.stack([self.loss_fn(logits[i:i + 1], lbl[i:i + 1]) for i in range(logits.shape[0])])
@@ -276,14 +318,19 @@ class SegTrainer(TrainerBase):
                     f"image={tuple(image.shape)}."
                 )
 
+    def setup(self, state, evaluation_strategy=None, scheduler=None):
+        super().setup(state, evaluation_strategy, scheduler)
+        pool_over_ranks(state.model, self.mesh)
+
     def _wrap_loader(self, loader):
         if getattr(loader, "device_resident", False):
-            return loader  # batches already live on the device
+            return loader  # batches already live on the device (this rank's rows)
         return prefetch_to_device(
             loader,
             self.device,
             image_transfer_dtype=self._transfer_dtype,
             label_transfer_dtype=torch.uint8 if self.sigmoid else None,
+            mesh=self.mesh,
         )
 
     def run_step(self, batch: Dict[str, Any]) -> Dict[str, float]:
@@ -294,9 +341,13 @@ class SegTrainer(TrainerBase):
             # already on the device (prefetch_to_device)
             n_valid = int(batch["_n_valid"])
         else:
-            image = torch.as_tensor(np.asarray(image, dtype=np.float32)).to(self.device)
-            label = torch.as_tensor(np.asarray(label)).to(self.device)
-            n_valid = image.shape[0]
+            # the global host batch, padded to the data axis; this rank's rows
+            padded, n_valid = pad_batch_to_multiple({"image": np.asarray(image, dtype=np.float32),
+                                                     "label": np.asarray(label)}, self.mesh.data)
+            rows = self.mesh.rows(padded["image"].shape[0])
+            image, label = padded["image"][rows], padded["label"][rows]
+            image = torch.as_tensor(image).to(self.device)
+            label = torch.as_tensor(label).to(self.device)
 
         self.prepare()
         if self.ema_enabled and self.state.ema_params is None:

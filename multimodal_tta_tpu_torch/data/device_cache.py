@@ -18,9 +18,22 @@ must re-randomize per epoch); datasets carrying one are rejected at
 construction. Deterministic host transforms are applied during the one-time
 decode; on-device normalization/augmentation stays in the train step.
 
-Only the replicated store of the reference is ported (one GPU holds the
-whole set). The sharded store (``training.device_cache_sharded``) comes with
-the multi-GPU path.
+Over ranks (``mesh``) there are the reference's two stores:
+
+  * replicated (the default): every rank holds the whole set; batch k is
+    the one-process batch's index vector padded (with sample 0, masked by
+    ``_n_valid``) to a multiple of the data axis, and each rank gathers its
+    rows;
+  * sharded (``training.device_cache_sharded``, ``shard_store``): rank ``r``
+    stores only its block of ``ceil(n/w)`` samples, the tail wrapped by
+    ``i % n``, and draws its own Philox permutation of that block with key
+    ``[seed + 0x9E3779B9*(r+1), epoch]``; batch k is every rank's k-th slice
+    of ``batch_size / w`` (a distributed sampler), sample for sample the
+    reference's order. It needs ``batch_size`` divisible by the data axis
+    and ``drop_last``, and is the replicated store on one rank.
+
+Batches over ranks hold this rank's rows (``_rank_rows``) and the global
+``_n_valid``.
 """
 
 from __future__ import annotations
@@ -82,12 +95,9 @@ class DeviceCachedLoader:
         device: DeviceLike = "cuda",
         num_workers: int = 8,
         shard_store: bool = False,
+        mesh=None,
         logger=None,
     ):
-        if shard_store:
-            raise NotImplementedError(
-                "[device_cache] the sharded store (training.device_cache_sharded) is not "
-                "ported yet (ROADMAP.md, item 12b, the multi-GPU path)")
         _rejects_host_random_transform(dataset)
         self.dataset = dataset
         self.batch_size = int(batch_size)
@@ -96,6 +106,7 @@ class DeviceCachedLoader:
         self.seed = int(seed)
         self.device = resolve_device(device)
         self.logger = logger or get_logger()
+        self.mesh = mesh if mesh is not None and mesh.parallel else None
         self._epoch = -1
 
         n = len(dataset)
@@ -107,6 +118,23 @@ class DeviceCachedLoader:
                 f"dataset ({n} cases) with drop_last=True — every epoch would "
                 f"silently train zero steps"
             )
+
+        self.shard_store = bool(shard_store) and self.mesh is not None
+        if self.shard_store:
+            shards = self.mesh.data
+            if self.batch_size % shards:
+                raise ValueError(
+                    f"[device_cache] shard_store needs batch_size ({self.batch_size}) "
+                    f"divisible by the data axis ({shards})"
+                )
+            if not self.drop_last:
+                raise ValueError(
+                    "[device_cache] shard_store requires drop_last=True (a ragged "
+                    "tail would interleave padding inside shard segments, breaking "
+                    "the leading-rows-valid contract of _n_valid)"
+                )
+        elif shard_store:
+            self.logger.info("[device_cache] one rank: the sharded store is the replicated one")
 
         # ---- one-time decode (threaded: NIfTI inflate releases the GIL) ----
         t0 = time.perf_counter()
@@ -134,6 +162,12 @@ class DeviceCachedLoader:
             list(pool.map(decode_into, range(1, n)))
 
         # ---- stage on the device: one tensor per field ----
+        if self.shard_store:
+            # this rank's block of the samples, the tail wrapped (row i is
+            # sample i % n: real training data, merely re-sampled)
+            self._per_shard = -(-n // self.mesh.data)
+            block = np.arange(self.mesh.rank * self._per_shard, (self.mesh.rank + 1) * self._per_shard) % n
+            images, labels = images[block], labels[block]
         self._images = torch.from_numpy(images).to(self.device)
         self._labels = torch.from_numpy(labels).to(self.device)
         if self.device.type == "cuda":
@@ -157,6 +191,8 @@ class DeviceCachedLoader:
 
     # -- HostLoader-compatible surface --------------------------------------
     def __len__(self) -> int:
+        if self.shard_store:
+            return self._per_shard // (self.batch_size // self.mesh.data)
         n = len(self.dataset)
         if self.drop_last:
             return n // self.batch_size
@@ -174,13 +210,39 @@ class DeviceCachedLoader:
 
     def __iter__(self) -> Iterator[Dict[str, Any]]:
         self._epoch += 1
+        if self.shard_store:
+            yield from self._iter_sharded(self._epoch)
+            return
         order = self._epoch_order(self._epoch)
         n = len(order)
         bs = self.batch_size
         nb = n // bs if self.drop_last else (n + bs - 1) // bs
         for b in range(nb):
             idxs = order[b * bs: (b + 1) * bs]
-            idx = torch.from_numpy(idxs.astype(np.int64)).to(self.device, non_blocking=True)
-            yield {"image": self._images.index_select(0, idx),
-                   "label": self._labels.index_select(0, idx),
-                   "_n_valid": len(idxs)}
+            n_valid = len(idxs)
+            if self.mesh is not None:
+                # pad the index vector (not the volumes) to the data axis
+                pad_to = -(-n_valid // self.mesh.data) * self.mesh.data
+                idxs = np.concatenate([idxs, np.zeros(pad_to - n_valid, idxs.dtype)])[self.mesh.rows(pad_to)]
+            yield self._gather(idxs, n_valid)
+
+    def _gather(self, idxs: np.ndarray, n_valid: int) -> Dict[str, Any]:
+        idx = torch.from_numpy(idxs.astype(np.int64)).to(self.device, non_blocking=True)
+        batch = {"image": self._images.index_select(0, idx), "label": self._labels.index_select(0, idx),
+                 "_n_valid": n_valid}
+        if self.mesh is not None:
+            batch["_rank_rows"] = True
+        return batch
+
+    def _iter_sharded(self, epoch: int) -> Iterator[Dict[str, Any]]:
+        """Distributed-sampler epoch: this rank's Philox permutation of its
+        block, ``batch_size / w`` rows a batch (the reference's order)."""
+        bsl = self.batch_size // self.mesh.data
+        m = self._per_shard
+        perm = np.arange(m)
+        if self.shuffle:
+            # Philox takes a 2-word key; the rank folds into the first word
+            key = [self.seed + 0x9E3779B9 * (self.mesh.rank + 1), epoch]
+            perm = np.random.Generator(np.random.Philox(key=key)).permutation(m)
+        for b in range(m // bsl):
+            yield self._gather(perm[b * bsl:(b + 1) * bsl], self.batch_size)

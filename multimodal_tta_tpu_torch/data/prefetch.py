@@ -3,9 +3,12 @@
 Keeps ``depth`` batches ahead of the consumer: for a CUDA device the array
 fields are cast to their compact transfer dtypes on the host, staged in
 pinned memory and copied with ``non_blocking=True``, so the copy of batch
-k+1 is queued while the step for batch k is still running. There is no mesh
-yet: padding a batch to a multiple of the data-parallel size comes with the
-parallel slice.
+k+1 is queued while the step for batch k is still running. Over ranks
+(``mesh``) the global batch is zero-padded to a multiple of the data axis
+and only this rank's rows cross to its device; ``_n_valid`` stays the
+global count and ``_n_local`` counts this rank's valid rows. A batch that a
+rank-aware loader already cut (``_rank_rows``, ``DeviceCachedLoader`` over
+ranks) passes through as it is.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ def prefetch_to_device(
     array_keys: Sequence[str] = ("image", "label"),
     image_transfer_dtype: Optional[torch.dtype] = None,
     label_transfer_dtype: Optional[torch.dtype] = None,
+    mesh=None,
 ) -> Iterator[Dict[str, Any]]:
     """Yields batches with array fields (numpy arrays or tensors) already on
     ``device`` plus ``_n_valid`` = the true batch size.
@@ -41,12 +45,25 @@ def prefetch_to_device(
     depth = max(1, int(depth))
     dev = resolve_device(device)
     dtypes = {"image": image_transfer_dtype, "label": label_transfer_dtype}
+    mesh = mesh if mesh is not None and mesh.parallel else None
 
     def put(batch: Dict[str, Any]) -> Dict[str, Any]:
+        if mesh is not None and batch.get("_rank_rows"):
+            return batch
         present = [k for k in array_keys if k in batch]
         out = dict(batch)
+        rows = None
+        if mesh is not None and present:
+            # zero rows pad the global batch to a multiple of the data axis
+            n = len(batch[present[0]])
+            pad_to = -(-n // mesh.data) * mesh.data
+            rows = mesh.rows(pad_to)
         for k in present:
             t = torch.as_tensor(batch[k])
+            if rows is not None:
+                if t.shape[0] < pad_to:
+                    t = torch.cat([t, t.new_zeros((pad_to - t.shape[0],) + tuple(t.shape[1:]))])
+                t = t[rows]
             if dtypes.get(k) is not None:
                 t = t.to(dtypes[k])
             if dev.type == "cuda" and t.device.type == "cpu":
@@ -55,9 +72,14 @@ def prefetch_to_device(
         n_valid = int(out[present[0]].shape[0]) if present else 0
         # an incoming batch may ALREADY carry _n_valid (a loader that pads
         # with duplicate rows): the true count is the minimum of the two
+        if rows is not None:
+            n_valid = n
         if "_n_valid" in batch:
             n_valid = min(n_valid, int(batch["_n_valid"]))
         out["_n_valid"] = n_valid
+        if rows is not None:
+            out["_n_local"] = max(0, min(rows.stop, n_valid) - rows.start)
+            out["_rank_rows"] = True
         return out
 
     queue: deque = deque()

@@ -16,6 +16,12 @@ the accumulators are numpy float64 on the host, as in the reference.
 
 Where the reference threads a functional ``TrainState``, the ``state`` here
 is the port's ``nn.Module``; a per-batch ``adapt_fn`` adapts it in place.
+
+Over ranks (``mesh``): each rank scores its rows of the padded global
+batch (its own surfaces through the min-plus kernel), and the packed
+per-sample metrics are gathered, so every rank accumulates the global
+batch's values in the same order and returns the metrics one process
+returns.
 """
 
 from __future__ import annotations
@@ -280,14 +286,18 @@ class SegmentationEvaluationStrategy:
         return out
 
     @staticmethod
-    def _to_host(out: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
-        """All of a step's ``[B,R]`` tensors in ONE device->host copy."""
+    def _to_host(out: Dict[str, torch.Tensor], mesh=None) -> Dict[str, np.ndarray]:
+        """All of a step's ``[B,R]`` tensors in ONE device->host copy (over
+        ranks, after one gather of the global batch's rows)."""
         b, r = out["dice"].shape
         keys = list(out)
         packed = torch.stack([
             (out[k][:, None].expand(b, r) if out[k].dim() == 1 else out[k]).to(torch.float32)
             for k in keys
-        ]).cpu().numpy()
+        ], dim=1)  # [B, K, R]
+        if mesh is not None:
+            packed = mesh.gather_rows(packed)
+        packed = packed.transpose(0, 1).cpu().numpy()
         host = dict(zip(keys, packed))
         for k in ("valid", "pred_empty"):
             host[k] = host[k] > 0.5
@@ -303,6 +313,7 @@ class SegmentationEvaluationStrategy:
         adapt_fn=None,
         carry_state: bool = False,
         device: DeviceLike = "cuda",
+        mesh=None,
     ) -> Dict[str, float]:
         """Evaluate (optionally with per-batch test-time adaptation).
 
@@ -310,9 +321,11 @@ class SegmentationEvaluationStrategy:
         BEFORE the eval step (the TTA hook point). With ``carry_state`` the
         adapted state flows into the next batch (continual TTA); otherwise
         each batch adapts from the source state (episodic) — the port's
-        adapters reset the module they adapt in place themselves.
+        adapters reset the module they adapt in place themselves. Over ranks
+        ``adapt_fn`` gets this rank's rows and the global valid count.
         """
         dev = resolve_device(device)
+        mesh = mesh if mesh is not None and mesh.parallel else None
         for p in state.parameters():
             if p.device != dev:
                 raise ValueError(f"[SegEval] model is on {p.device}, evaluation on {dev}")
@@ -336,6 +349,7 @@ class SegmentationEvaluationStrategy:
             dev,
             image_transfer_dtype=self._transfer_dtype,
             label_transfer_dtype=torch.uint8,
+            mesh=mesh,
         )
 
         for batch in stream:
@@ -356,7 +370,7 @@ class SegmentationEvaluationStrategy:
                 if carry_state:
                     state = eval_state
 
-            out = self._to_host(self._eval_step(eval_state, image, label))
+            out = self._to_host(self._eval_step(eval_state, image, label), mesh)
             dice = out["dice"][:B]
             iou = out["iou"][:B]
             valid = out["valid"][:B]

@@ -190,9 +190,16 @@ class BatchNorm(nn.Module):
     ReLU optionally fused before the cast. Params ``scale``/``bias`` (1-D;
     ``use_bias=False`` drops the bias: the BNNeck), buffers ``mean``/``var``
     as flax's ``batch_stats``, no ``num_batches_tracked``. torch's own
-    BatchNorm updates with the unbiased variance and is not used."""
+    BatchNorm updates with the unbiased variance and is not used.
+
+    Over ranks (``pool_over_ranks``): the per-channel sums of x and x^2 are
+    summed over the data axis before the statistics are formed, over the
+    global padded batch (every rank holds as many rows), as XLA computes
+    the reference's statistics on a sharded batch; every rank then moves
+    the same running statistics."""
 
     momentum = 0.9  # every BatchNorm of the reference
+    pools_over_ranks = True
 
     def __init__(self, features: int, epsilon: float = 1e-5, use_bias: bool = True):
         super().__init__()
@@ -202,14 +209,17 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
+        self.mesh = None  # the data axis the statistics pool over (pool_over_ranks)
 
     def forward(self, x: torch.Tensor, relu: bool = False) -> torch.Tensor:
         xf = x.to(torch.promote_types(x.dtype, torch.float32))  # at least f32, as flax
         shape = (1, -1) + (1,) * (x.dim() - 2)
         if self.training:
-            red = [0] + list(range(2, x.dim()))
-            mean = xf.mean(red)
-            var = torch.clamp(xf.square().mean(red) - mean.square(), min=0.0)
+            red, c = [0] + list(range(2, x.dim())), x.shape[1]
+            sums, world = pooled_sums(torch.cat([xf.sum(red), xf.square().sum(red)]), self.mesh)
+            count = float(x.numel() // c * world)
+            mean = sums[:c] / count
+            var = torch.clamp(sums[c:] / count - mean.square(), min=0.0)
             if not self.frozen:
                 with torch.no_grad():
                     m = self.momentum
@@ -222,6 +232,24 @@ class BatchNorm(nn.Module):
         if self.bias is not None:
             y = y + self.bias.view(shape)
         return (F.relu(y) if relu else y).to(x.dtype)
+
+
+def pooled_sums(t: torch.Tensor, mesh) -> Tuple[torch.Tensor, int]:
+    """``t`` summed over the data axis of ``mesh`` (differentiable) and the
+    rank count; ``(t, 1)`` without one (``pool_over_ranks``)."""
+    if mesh is None:
+        return t, 1
+    return mesh.sum_with_grad(t), mesh.data
+
+
+def pool_over_ranks(model: nn.Module, mesh) -> None:
+    """Every batch statistic of ``model`` (``BatchNorm``, the MoE load
+    balance of ``models/moe.py``) pools over the data axis of ``mesh`` from
+    now on; a mesh of one rank, or None, turns the pooling off."""
+    mesh = mesh if mesh is not None and mesh.parallel else None
+    for m in model.modules():
+        if getattr(m, "pools_over_ranks", False):
+            m.mesh = mesh
 
 
 def has_batch_statistics(model: nn.Module) -> bool:

@@ -29,7 +29,9 @@ The parameters keep flax's names and layouts (``router``; ``wi`` [E, H, F],
 ``bi`` [E, F], ``wo`` [E, F, H], ``bo`` [E, H]). The reference pins the
 expert axis to a mesh axis (``expert_axis``); on one device that is the
 identity, so the key is accepted and nothing is sharded (ROADMAP.md, item
-12b).
+12b-ii). Over the data axis (``layers.pool_over_ranks``) the load balance's
+``f_e`` and ``P_e`` are means over the ranks' global padded batch, their
+sums summed over the ranks before the product.
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import sow
+from .layers import pooled_sums, sow
 
 EXPERT_AXIS = "expert"
 
@@ -85,6 +87,7 @@ def dispatch_combine(gates: torch.Tensor, k: int, cap: int):
 
 
 class MoEMlp(nn.Module):
+    pools_over_ranks = True
     expert_kernels = ("wi", "wo")  # layers.init_flax_defaults: lecun over (in, out)
 
     def __init__(self, hidden: int, mlp_dim: int, num_experts: int, k: int = 1, capacity_factor: float = 1.25,
@@ -96,6 +99,7 @@ class MoEMlp(nn.Module):
             raise ValueError(f"MoEMlp needs >= 2 experts, got {num_experts}")
         self.num_experts, self.k, self.capacity_factor = int(num_experts), int(k), float(capacity_factor)
         self.expert_axis, self.dtype = expert_axis, dtype
+        self.mesh = None  # the data axis the load balance pools over (layers.pool_over_ranks)
         e = self.num_experts
         self.router = nn.Linear(hidden, e)
         self.wi = nn.Parameter(torch.zeros(e, hidden, mlp_dim))
@@ -110,10 +114,15 @@ class MoEMlp(nn.Module):
         # the router in f32 whatever the compute dtype
         gates = torch.softmax(F.linear(x.float(), self.router.weight, self.router.bias), dim=-1)
         dispatch, combine, top_i = dispatch_combine(gates, k, cap)
-        f_e = F.one_hot(top_i[..., 0], e).to(gates.dtype).mean(dim=(0, 1))
-        p_e = gates.mean(dim=(0, 1))
+        top1 = F.one_hot(top_i[..., 0], e).to(gates.dtype)
+        # the reference's means over the (global, padded) batch: over ranks
+        # the sums meet BEFORE the product
+        sums, world = pooled_sums(torch.cat([top1.sum(dim=(0, 1)), gates.sum(dim=(0, 1)),
+                                             dispatch.sum().detach()[None]]), self.mesh)
+        count = float(b * n * world)
+        f_e, p_e = sums[:e] / count, sums[e:2 * e] / count
         sow("moe_aux", e * (f_e * p_e).sum())
-        sow("moe_dropped", 1.0 - dispatch.sum() / float(b * n * k))
+        sow("moe_dropped", 1.0 - sums[2 * e] / (count * k))
 
         x = x.to(dt)
         xin = torch.einsum("bnec,bnh->ebch", dispatch.to(dt), x)

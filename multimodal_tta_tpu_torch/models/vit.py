@@ -48,8 +48,8 @@ def check_unported(tp_axis: Optional[str] = None, seq_shard_axis: Optional[str] 
     """The reference's mesh options raise here, naming their item."""
     for flag, what in ((tp_axis, "tp_axis"), (seq_shard_axis, "seq_shard_axis")):
         if flag:
-            raise NotImplementedError(f"{what}={flag!r} is not ported yet (ROADMAP.md, item 12b: "
-                                      "tensor and sequence parallelism come with the mesh)")
+            raise NotImplementedError(f"{what}={flag!r} is not ported yet (ROADMAP.md, item 12b-ii: "
+                                      "the model and sequence axes over ranks)")
 
 
 def is_moe_block(i: int, moe_experts: int, moe_every: int) -> bool:

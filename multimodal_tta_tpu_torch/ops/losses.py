@@ -356,6 +356,29 @@ def reduce_dims(t: torch.Tensor, dims, op: str = "sum") -> torch.Tensor:
     return t.sum(dim=dims) if op == "sum" else t.mean(dim=dims)
 
 
+def _entropy_map(logits: torch.Tensor, sigmoid: bool) -> torch.Tensor:
+    """Per-voxel (per-channel, sigmoid) entropy."""
+    if sigmoid:
+        p = torch.sigmoid(logits)
+        return -(p * F.logsigmoid(logits) + (1 - p) * F.logsigmoid(-logits))
+    logp = F.log_softmax(logits, dim=-1)
+    return -(logp.exp() * logp).sum(dim=-1)
+
+
+def entropy_sums(logits: torch.Tensor, *, sigmoid: bool = True, focus: str = "all"):
+    """``entropy_loss`` over the whole batch as ``(numerator, denominator)``
+    sums: the loss is ``num / den`` ("all"; ``den`` the element count, a
+    float) or ``num / max(den, 1e-12)`` ("uncertain"). Over ranks the ranks'
+    denominators meet before the division; ``den`` carries no gradient."""
+    h = _entropy_map(logits, sigmoid)
+    if focus == "uncertain":
+        w = h.detach()
+        return (h * w).sum(), w.sum()
+    if focus != "all":
+        raise ValueError(f"Unknown entropy focus: {focus}")
+    return h.sum(), float(h.numel())
+
+
 def entropy_loss(
     logits: torch.Tensor,
     *,
@@ -377,12 +400,7 @@ def entropy_loss(
     ``per_sample=True`` one value per sample ``[B]`` — the reference's
     ``jax.vmap(lambda lg: entropy_loss(lg[None]))``.
     """
-    if sigmoid:
-        p = torch.sigmoid(logits)
-        h = -(p * F.logsigmoid(logits) + (1 - p) * F.logsigmoid(-logits))
-    else:
-        logp = F.log_softmax(logits, dim=-1)
-        h = -(logp.exp() * logp).sum(dim=-1)
+    h = _entropy_map(logits, sigmoid)
     dims = tuple(range(1 if per_sample else 0, h.dim()))
     if focus == "uncertain":
         w = h.detach()
@@ -413,16 +431,28 @@ def pseudo_label_loss(
     Returns a scalar over the whole batch, or with ``per_sample=True`` one
     value per sample ``[B]`` (each normalized by its own count).
     """
+    ce, w = _pseudo_label_terms(logits, sigmoid, conf_threshold)
+    dims = tuple(range(1 if per_sample else 0, ce.dim()))
+    return reduce_dims(ce * w, dims) / torch.clamp(reduce_dims(w, dims), min=1.0)
+
+
+def _pseudo_label_terms(logits: torch.Tensor, sigmoid: bool, conf_threshold: float):
+    """Per-voxel CE against the hard pseudo-labels and the confidence gate."""
     if sigmoid:
         p = torch.sigmoid(logits).detach()
         hard = (p >= 0.5).to(logits.dtype)
         w = (torch.maximum(p, 1.0 - p) >= conf_threshold).to(logits.dtype)
-        ce = -(hard * F.logsigmoid(logits) + (1.0 - hard) * F.logsigmoid(-logits))
-    else:
-        logp = F.log_softmax(logits, dim=-1)
-        p = logp.exp().detach()
-        hard = torch.argmax(p, dim=-1, keepdim=True)
-        w = (p.amax(dim=-1) >= conf_threshold).to(logits.dtype)
-        ce = -torch.gather(logp, -1, hard)[..., 0]
-    dims = tuple(range(1 if per_sample else 0, ce.dim()))
-    return reduce_dims(ce * w, dims) / torch.clamp(reduce_dims(w, dims), min=1.0)
+        return -(hard * F.logsigmoid(logits) + (1.0 - hard) * F.logsigmoid(-logits)), w
+    logp = F.log_softmax(logits, dim=-1)
+    p = logp.exp().detach()
+    hard = torch.argmax(p, dim=-1, keepdim=True)
+    w = (p.amax(dim=-1) >= conf_threshold).to(logits.dtype)
+    return -torch.gather(logp, -1, hard)[..., 0], w
+
+
+def pseudo_label_sums(logits: torch.Tensor, *, sigmoid: bool = True, conf_threshold: float = 0.9):
+    """``pseudo_label_loss`` over the whole batch as ``(numerator,
+    denominator)``: the loss is ``num / max(den, 1)``; ``den`` (the
+    confident-voxel count) carries no gradient."""
+    ce, w = _pseudo_label_terms(logits, sigmoid, conf_threshold)
+    return (ce * w).sum(), w.sum()

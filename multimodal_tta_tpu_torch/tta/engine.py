@@ -18,6 +18,11 @@ resets what the method carries (momentum, SAR's entropy EMA, CoTTA's
 teacher), before it returns, also when the loop raises — a second ``evaluate``, or a
 following no-adaptation run, scores the source model as the reference does.
 
+Over ranks (``mesh``, ``parallel/mesh.py``) each rank adapts and scores its
+rows of every batch, and ``evaluate`` returns on every rank the metrics one
+process returns for the global batches. Tent and norm run over ranks; the
+other methods raise (ROADMAP.md, item 12b-ii).
+
 ``classifier_logits_apply`` bridges the 2D classification backbones'
 ``(features, logits)`` contract to the adapters, which take a model whose
 forward returns the logits.
@@ -36,12 +41,16 @@ from ..registry import get_evaluation_strategy, get_tta_method
 from ..utils.config import get_config
 from ..utils.logger import get_logger
 
+# the methods that adapt over ranks
+RANK_METHODS = ("tent", "norm")
+
 
 class TTAEngine:
-    def __init__(self, config, device_transform=None, strategy=None, *, device: DeviceLike = "cuda"):
+    def __init__(self, config, device_transform=None, strategy=None, *, device: DeviceLike = "cuda", mesh=None):
         self.config = config
         self.device = resolve_device(device)
         self.logger = get_logger()
+        self.mesh = mesh if mesh is not None and mesh.parallel else None
 
         self.tta_cfg = get_config(config, "tta", ConfigNode())
         self.method = str(get_config(self.tta_cfg, "method", "none")).lower()
@@ -55,11 +64,19 @@ class TTAEngine:
         self.adapter = None
         if self.method not in ("none", ""):
             adapter_cls = get_tta_method(self.method)
+            over_ranks = {}
+            if self.mesh is not None:
+                if self.method not in RANK_METHODS:
+                    raise NotImplementedError(
+                        f"[TTAEngine] tta.method={self.method} over {self.mesh.data} ranks is not ported "
+                        f"yet (ROADMAP.md, item 12b-ii); {sorted(RANK_METHODS)} run over ranks")
+                over_ranks["mesh"] = self.mesh
             self.adapter = adapter_cls(
                 self.tta_cfg,
                 config=config,
                 device_transform=device_transform,
                 device=self.device,
+                **over_ranks,
             )
 
     @property
@@ -70,7 +87,7 @@ class TTAEngine:
         """Run (adapt +) evaluate over the loader; returns the seg_eval
         metric dict. The model's parameters are left as they were."""
         if self.adapter is None:
-            return self.strategy.evaluate_epoch(state, data_loader, device=self.device)
+            return self.strategy.evaluate_epoch(state, data_loader, device=self.device, mesh=self.mesh)
 
         adapt_fn = self.adapter.make_adapt_fn(state)
         try:
@@ -80,6 +97,7 @@ class TTAEngine:
                 adapt_fn=adapt_fn,
                 carry_state=not self.adapter.episodic,
                 device=self.device,
+                mesh=self.mesh,
             )
         finally:
             self.adapter.restore()

@@ -7,7 +7,9 @@ statistics moved once (``0.9 * running + 0.1 * batch``; the padded rows of
 a batch pool in). Episodic mode starts every batch from the source
 statistics, continual mode carries them. ``restore()`` puts the source
 statistics back. Models without batch statistics (the InstanceNorm ones)
-pass through unchanged, with a warning, in both modes.
+pass through unchanged, with a warning, in both modes. Over ranks
+(``mesh``) the statistics pool over the ranks' rows
+(``models/layers.py:pool_over_ranks``).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from ..models.layers import (
     batch_statistics,
     has_batch_statistics,
     load_running_statistics,
+    pool_over_ranks,
     reject_torch_batchnorm,
     running_statistics,
 )
@@ -34,8 +37,9 @@ from ..utils.logger import get_logger
 class NormAdapter:
     method = "norm"
 
-    def __init__(self, tta_cfg, config=None, device_transform=None, *, device: DeviceLike = "cuda"):
+    def __init__(self, tta_cfg, config=None, device_transform=None, *, device: DeviceLike = "cuda", mesh=None):
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None and mesh.parallel else None
         self.logger = get_logger()
         self.episodic = bool(get_config(tta_cfg or ConfigNode(), "episodic", True))
         self.last_entropy = None
@@ -54,6 +58,7 @@ class NormAdapter:
 
     def make_adapt_fn(self, source_model: nn.Module):
         reject_torch_batchnorm(source_model)
+        pool_over_ranks(source_model, self.mesh)
         if not has_batch_statistics(source_model):
             self.logger.warning(
                 "[norm] model has no batch statistics (InstanceNorm?); "

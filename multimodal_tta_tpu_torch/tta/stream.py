@@ -26,8 +26,10 @@ stream whose domain changes over time:
 A re-anchor here is ``adapter.restore()`` (the source params) plus
 ``adapter.reset_optimizer()`` (momentum, and what the method carries: SAR's
 entropy EMA, CoTTA's teacher); the reference gets the same by handing back
-its source ``TrainState``. There is no mesh, so no padding to a mesh
-multiple.
+its source ``TrainState``. Over ranks (the adapter's ``mesh``) ``step``
+takes the global batch, pads it with zero rows to a multiple of the data
+axis (``n_valid`` masks them out), adapts on this rank's rows and returns
+the prediction of the whole padded batch, gathered from the ranks.
 """
 
 from __future__ import annotations
@@ -181,8 +183,19 @@ class StreamTTAController:
         self._last_domain = domain
 
         image = torch.as_tensor(image)
+        mesh = getattr(self.adapter, "mesh", None)
+        if mesh is not None:
+            # the ranks need the batch divisible by the data axis; pad with
+            # zero rows, which n_valid masks out of the objective
+            b = image.shape[0]
+            if b % mesh.data:
+                pad = image.new_zeros((mesh.data - b % mesh.data,) + tuple(image.shape[1:]))
+                image = torch.cat([image, pad])
+            image = image[mesh.rows(image.shape[0])]
         if self.gate and self.mode == "forward":
             pred, ent_obj, ent_gate = self._fp(self.state, image, int(n_valid))
+            if mesh is not None:
+                pred = mesh.gather_rows(pred)
             if self._gate_ref is None:
                 self._gate_ref = ent_gate
             if self._e0 is None:
@@ -215,6 +228,8 @@ class StreamTTAController:
             floor = float(self.adapter.early_stop_ratio) * self._e0
         self.n_adapt_batches += 1
         self.state, pred = self._ap(self.state, image, int(n_valid), ent_floor=floor)
+        if mesh is not None:
+            pred = mesh.gather_rows(pred)
         ents = self.adapter._last_ents
         ent_first, ent_final = torch.stack([ents[0], ents[-1]]).tolist()  # one device read
         if self._e0 is None:

@@ -50,7 +50,22 @@ with ``task.seed + 777`` (the reference's ``PRNGKey``), kept across
 from ``batch_draws`` (one dict per step: dropout mask, window offsets,
 consistency factor and offset, restore masks) before it runs, and every
 stochastic op is applied from those draws alone, so a test can hand both
-packages the same numbers. The mesh (multi-GPU) path is not ported.
+packages the same numbers.
+
+Over ranks (``mesh``, ``parallel/mesh.py``): each rank adapts on its rows
+of the padded global batch, and the step equals one process's on the
+global batch. The objective is each rank's masked sum over the GLOBAL
+valid count (the windows' mean over the global window count; a batch
+objective's sums meet before its division); the adapted tensors' gradients
+are summed over the ranks in one ``all_reduce`` of a flat buffer, so every
+rank takes the same update; a BatchNorm's statistics pool over the ranks
+(``models/layers.py:pool_over_ranks``); the early-stop and gate entropies
+are the global ones, so all ranks freeze and gate together. The draws are
+made for the global batch from the equally seeded generator and each rank
+takes its rows (its windows: ``windows_per_step`` must divide by the data
+axis, and the windows are cut from the gathered global batch). The serving
+artifact and the other methods do not run over ranks (ROADMAP.md, item
+12b-ii).
 """
 
 from __future__ import annotations
@@ -71,6 +86,7 @@ from ..models.layers import (
     batch_statistics,
     has_batch_statistics,
     load_running_statistics,
+    pool_over_ranks,
     reject_torch_batchnorm,
     running_statistics,
 )
@@ -82,7 +98,8 @@ from ..ops.augment import (
     window_draws,  # noqa: F401  (the windows' draws; tests import them from here)
 )
 from ..ops.intensity import make_intensity_normalizer
-from ..ops.losses import entropy_loss, pseudo_label_loss
+from ..ops.losses import entropy_loss, entropy_sums, pseudo_label_loss, pseudo_label_sums
+from ..parallel.mesh import Mesh
 from ..registry import register_tta_method
 from ..utils.config import get_config
 from ..utils.logger import get_logger
@@ -162,11 +179,13 @@ class TentAdapter:
     # a method with its own loop (sar, cotta, memo) sets this False
     inline_caveats = True
 
-    def __init__(self, tta_cfg, config=None, device_transform=None, *, device: DeviceLike = "cuda"):
+    def __init__(self, tta_cfg, config=None, device_transform=None, *, device: DeviceLike = "cuda", mesh=None):
         self.cfg = tta_cfg or ConfigNode()
         self.config = config or ConfigNode()
         self.device = resolve_device(device)
         self.logger = get_logger()
+        # the data axis over ranks (one process: a mesh of one rank)
+        self.mesh = mesh if mesh is not None else Mesh(self.device)
 
         self.steps = int(get_config(self.cfg, "steps", 1))
         self.lr = float(get_config(self.cfg, "lr", 1e-3))
@@ -188,6 +207,10 @@ class TentAdapter:
         self.window_enabled = bool(get_config(wnd, "enabled", False))
         self.window_roi = tuple(int(x) for x in get_config(wnd, "roi_size", [32, 96, 96]))
         self.windows_per_step = int(get_config(wnd, "windows_per_step", 4))
+        if self.window_enabled and self.windows_per_step % self.mesh.data:
+            raise ValueError(
+                f"[tent] tta.window.windows_per_step={self.windows_per_step} must divide by the data "
+                f"axis ({self.mesh.data}): each rank adapts on its share of the windows")
 
         self.predict_mode = str(get_config(self.cfg, "predict", "post")).lower()
         if self.predict_mode not in ("post", "inline"):
@@ -346,6 +369,7 @@ class TentAdapter:
             if p.device != self.device:
                 raise ValueError(f"[{self.method}] model is on {p.device}, adapter on {self.device}")
         mask = self._param_mask(model)
+        pool_over_ranks(model, self.mesh)
         self._model = model
         self._names, self._trainable = [], []
         for name, p in model.named_parameters():
@@ -403,12 +427,43 @@ class TentAdapter:
 
     def _prepare(self, image, n_valid):
         """The normalized f32 image on the device, the valid-sample weights
-        and their count (at least 1)."""
+        of its rows and the global valid count (at least 1): over ranks,
+        ``image`` is this rank's rows and ``n_valid`` counts the global
+        batch."""
         image = torch.as_tensor(image).to(self.device, torch.float32)
         if self._norm_fn is not None:
             image = self._norm_fn(image)
-        w = (torch.arange(image.shape[0], device=image.device) < n_valid).to(torch.float32)
-        return image, w, torch.clamp(w.sum(), min=1.0)
+        n = image.shape[0] * self.mesh.data
+        w = (torch.arange(n, device=image.device) < n_valid).to(torch.float32)
+        return image, w[self.mesh.rows(n)], torch.clamp(w.sum(), min=1.0)
+
+    def _global_shape(self, image: torch.Tensor) -> Tuple[int, ...]:
+        """The shape of the global batch that ``image`` is this rank's rows of."""
+        return (image.shape[0] * self.mesh.data,) + tuple(image.shape[1:])
+
+    def _rank_draws(self, d: dict, n: int) -> dict:
+        """This rank's share of one step's draws for a global batch of
+        ``n``: its rows of the per-sample draws, its windows (and their
+        consistency draws); the restore masks are the params' and stay."""
+        rows = self.mesh.rows(n)
+        d = dict(d)
+        if d.get("drop") is not None:
+            d["drop"] = d["drop"][rows]
+        if d.get("windows") is not None:
+            rows = self.mesh.rows(self.windows_per_step)
+            d["windows"] = d["windows"][rows]
+        if d.get("cons") is not None:
+            d["cons"] = tuple(t[rows] for t in d["cons"])
+        return d
+
+    def _sum_grads(self) -> None:
+        """The adapted tensors' gradients summed over the ranks in one
+        ``all_reduce`` of a flat buffer. Every rank has gradients for the
+        same tensors (one graph), and a tensor without one stays without, as
+        in one process."""
+        params = [p for p in self._trainable if p.grad is not None]
+        for p, g in zip(params, self.mesh.sum_flat([p.grad for p in params])):
+            p.grad = g
 
     def _begin(self, state: nn.Module, image: torch.Tensor, n_valid):
         """Common head of a batch: the state check, the episodic reset, and
@@ -475,23 +530,31 @@ class TentAdapter:
         return entropy_loss(logits, sigmoid=self.sigmoid_mode, focus=self.entropy_focus, per_sample=True)
 
     def _batch_objective(self, logits: torch.Tensor) -> torch.Tensor:
+        # over ranks the sums meet before the division (the denominators
+        # carry no gradient; every rank holds as many elements)
         if self.loss_mode.startswith("pl"):
-            return pseudo_label_loss(logits, sigmoid=self.sigmoid_mode, conf_threshold=self.pl_conf_threshold)
-        return entropy_loss(logits, sigmoid=self.sigmoid_mode, focus=self.entropy_focus)
+            num, den = pseudo_label_sums(logits, sigmoid=self.sigmoid_mode, conf_threshold=self.pl_conf_threshold)
+            return num / torch.clamp(self.mesh.total(den), min=1.0)
+        num, den = entropy_sums(logits, sigmoid=self.sigmoid_mode, focus=self.entropy_focus)
+        if self.entropy_focus == "uncertain":
+            return num / torch.clamp(self.mesh.total(den), min=1e-12)
+        return num / (den * self.mesh.data)
 
     def _objective(self, x: torch.Tensor, d: dict, w: torch.Tensor, denom: torch.Tensor):
         """The step's loss and the logits of its (first) forward."""
         if self.window_enabled:
+            x = self.mesh.gather_rows(x)  # a rank's windows may lie in another rank's rows
             x = apply_crop_windows(x, d["windows"], self.window_roi)
             logits = self._student(x)
             if self.rel_enabled:
                 ww = reliability_weights(logits, sigmoid=self.sigmoid_mode, margin_ratio=self.rel_margin_ratio)
-                loss = (self._per_sample_objective(logits) * ww).sum() / logits.shape[0]
+                loss = (self._per_sample_objective(logits) * ww).sum() / self.windows_per_step
             else:
                 loss = self._batch_objective(logits)
             if d["cons"] is not None:
                 p2 = self._probs(self._student(apply_intensity_scale_shift(x, *d["cons"]), update=False))
-                loss = loss + self.cons_weight * ((self._probs(logits) - p2) ** 2).mean()
+                sq = (self._probs(logits) - p2) ** 2
+                loss = loss + self.cons_weight * sq.sum() / float(sq.numel() * self.mesh.data)
             return loss, logits
         logits = self._student(x)
         sw = w
@@ -523,7 +586,8 @@ class TentAdapter:
             self._maybe_accumulate_fisher(image, w, denom)
             fisher = self._fisher_arg()
         inline = threshold is not None and predict_mode == "inline"
-        draws = self.batch_draws(tuple(image.shape), int(n_valid))["steps"]
+        shape = self._global_shape(image)
+        draws = [self._rank_draws(d, shape[0]) for d in self.batch_draws(shape, int(n_valid))["steps"]]
         opt = self._opt
         ents, logits = [], None
         active, e0 = True, float("nan")
@@ -534,14 +598,15 @@ class TentAdapter:
             held = running_statistics(self._model) if self.early_stop else None
             with torch.set_grad_enabled(active):
                 loss, logits = self._objective(x, d, w, denom)
-            ents.append(loss.detach())
+            ent_t = self.mesh.total(loss.detach())
+            ents.append(ent_t)
             if self.early_stop:
                 # freeze once the step entropy falls below the floor: the
                 # reference discards the step's update (params and running
                 # statistics) and keeps the state for the rest of the batch
                 # (its trace then reports the frozen params' entropy, as the
                 # forwards here do)
-                ent = float(loss.detach())
+                ent = float(ent_t)
                 if e0 != e0:
                     e0 = ent
                 floor = self.early_stop_ratio * e0 if ent_floor is None or ent_floor != ent_floor else ent_floor
@@ -551,6 +616,7 @@ class TentAdapter:
                     continue
             opt.zero_grad(set_to_none=True)
             loss.backward()
+            self._sum_grads()
             opt.step()
             self._after_update(d, fisher)
         self._last_ents = torch.stack(ents)
@@ -587,7 +653,7 @@ class TentAdapter:
         with self._at_source():
             logits = self._model(image)
             per = entropy_loss(logits, sigmoid=self.sigmoid_mode, focus=self.entropy_focus, per_sample=True)
-            grads = torch.autograd.grad((per * w).sum() / denom, self._trainable)
+            grads = self.mesh.sum_flat(torch.autograd.grad((per * w).sum() / denom, self._trainable))
         sq = [g * g for g in grads]
         self._fisher_sum = sq if self._fisher_sum is None else [a + b for a, b in zip(self._fisher_sum, sq)]
         self._fisher_n += 1
@@ -695,7 +761,7 @@ class TentAdapter:
             obj = entropy_loss(logits, sigmoid=self.sigmoid_mode, focus=focus, per_sample=True)
             gate = obj if focus == "all" else entropy_loss(logits, sigmoid=self.sigmoid_mode, focus="all",
                                                            per_sample=True)
-            e = torch.stack([(obj * w).sum() / denom, (gate * w).sum() / denom]).tolist()
+            e = self.mesh.total(torch.stack([(obj * w).sum() / denom, (gate * w).sum() / denom])).tolist()
             return self._predict(logits, thr), e[0], e[1]
 
         return forward_predict_fn
@@ -857,6 +923,10 @@ class TentAdapter:
         if self.fisher_enabled:
             raise ValueError(f"[{self.method}] the Fisher anchor is estimated on the host across "
                              "batches and has no pure serving step; set tta.fisher.enabled=false")
+        if self.mesh.parallel:
+            raise NotImplementedError(
+                f"[{self.method}] the serving artifact runs on one device; over ranks it is not "
+                "ported yet (ROADMAP.md, item 12b-ii)")
         self._bind(source_model)
         leaves = self._serving_leaves()
         thr = float(threshold)

@@ -57,7 +57,6 @@ from multimodal_tta_tpu_torch.core.trainers.seg_trainer import SegTrainer
 from multimodal_tta_tpu_torch.data.synthetic import brats_volumes, make_brats_fixture
 from multimodal_tta_tpu_torch.models import MultimodalUNetMidFusion
 from multimodal_tta_tpu_torch.models.convert import from_flax
-from multimodal_tta_tpu_torch.ops.augment import apply_modality_dropout
 from multimodal_tta_tpu_torch.tta.tent import TentAdapter, norm_param_mask
 from tests._torch_port import (
     NormCalls,
@@ -153,12 +152,12 @@ def test_brats_recipe_training_steps_match_the_reference(mid_params, monkeypatch
 
     key = [jax.random.PRNGKey(0)]
 
-    def reference_draws(x, gen, prob):
+    def reference_draws(b, m, gen, prob):
         key[0], step_key = jax.random.split(key[0])
         _, k_md = jax.random.split(step_key)
-        return apply_modality_dropout(x, _jax_dropout(k_md, x.shape[0], x.shape[-1], prob))
+        return _jax_dropout(k_md, b, m, prob)
 
-    monkeypatch.setattr(seg_trainer_module, "modality_dropout", reference_draws)
+    monkeypatch.setattr(seg_trainer_module, "modality_dropout_draws", reference_draws)
     source = {n: p.detach().clone() for n, p in model.named_parameters()}
     for i, seed in enumerate((5, 6)):
         samples = _samples(2, seed)
