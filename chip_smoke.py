@@ -249,7 +249,7 @@ Phases, in order (any failure propagates and exits non-zero):
                it refuses, so the two-rank runs name ``gloo`` before they
                start), then two ranks spawned on card 0
                (``training.devices=[0, 0]``) against one process on the same
-               global batches, the flagship at full width: 3 training steps
+               global batches, the flagship at full width: 2 training steps
                of the HECKTOR21 recipe in f32 at global batch 8 (4 a rank)
                with zero1 and the sharded device cache, one validation batch
                of 3 (ragged), Tent online (continual, inline) and strict
@@ -268,6 +268,27 @@ Phases, in order (any failure propagates and exits non-zero):
                ``python -m torch.distributed.run --nproc_per_node=1`` (NCCL,
                one rank). Two ranks on one card show the collectives' cost,
                not scaling.
+ 23. space_parallel — the space axis over ranks (``space_parallel_phase``):
+               two ranks spawned on card 0 over gloo on a ``data=1 x
+               space=2`` mesh (each rank every row and half the depth)
+               against one process on the same global batches: the
+               flagship at full width, 3 f32 training steps of the recipe at
+               global batch 8 and a validation batch, Tent online and strict
+               on batches of 2, ``TTAEngine.evaluate`` with continual Tent;
+               one f32 training step of the mid-fusion UNet at BraTS size
+               with remat — losses, the first steps' gradients summed over
+               the ranks, metrics, entropies, predictions and adapted
+               tensors within ``SP_*``, each rank's launches exactly, every
+               call of the four split norm entries held to its plain version
+               as the path makes it (``SplitCheck``: the f32 path, then the
+               first bf16 training and Tent steps), the EDTs bitwise, peak
+               memory a rank against one process; bf16 ms per training and
+               Tent step and the collectives' calls and bytes; then
+               ``cli.train`` and ``cli.adapt`` under ``python -m
+               torch.distributed.run --nproc_per_node=2`` with
+               ``training.mesh.space=2``; and the split entries against
+               their plain versions in f32 and bf16, and timed, at the 14
+               split norm shapes of a batch-8 training forward.
 
 Phase 2 also holds the norm kernels against their plain versions at the nine
 norm shapes of the batch-8 training step (the largest, [8,48,144,144,32], in
@@ -4360,6 +4381,971 @@ def log_data_parallel(dp: dict, card: str) -> None:
         f"backend {dp['backend']}; card {card}")
 
 
+# ---- phase 23: the space axis over ranks ---------------------------------------
+# two ranks share the one card (training.devices=[0, 0], gloo), training.mesh
+# data=1 x space=2: each rank holds every row of the global batch and half its
+# depth (parallel/space.py)
+SP_WORLD = 2
+SP_STEPS = 3  # f32 training steps of the recipe at global batch 8
+SP_VAL = 2  # the validation batch
+SP_TENT_BATCHES = 2  # Tent online and strict, each over this many batches of BATCH
+SP_EVAL_SIZES = (2, 1)  # TTAEngine.evaluate's batches
+SP_TIMED = 4  # bf16 training and Tent steps timed
+SP_MID_BATCH = 1  # the mid-fusion UNet's f32 training step at BRATS_SHAPE
+SP_TIMEOUT_S = 600
+# the f32 gates (TF32 off), two ranks vs one process on the same global
+# batches: losses and entropies relative (the slabs' partial sums added in
+# another order than one process's sums); the first step's gradients (all
+# tensors together, summed over the ranks: a gamma/beta or a whole level's
+# gradient counted twice is off by its own size) relative L2, where cuDNN's
+# weight gradients over two half-depth slabs reduce in another order than
+# over the whole depth (phase 22 measured that kind of distance at 2.63e-5);
+# Tent's adapted tensors' deltas relative L2 (phase 12's limit); metrics;
+# predictions' equal voxels
+# The mid-fusion UNet's step at BraTS size (every level split) takes its
+# own gradient limit: its f32 gradients are ill-conditioned in the norms'
+# statistics, so that one process moves them by about as much when only
+# the order of those sums changes (torch's reductions instead of the
+# kernel's: scripts/torch_space_parallel.py --witnesses)
+SP_LOSS_REL = 1e-5
+SP_GRAD_REL = 1e-4
+SP_MID_GRAD_REL = 1e-3
+SP_DELTA_REL = TRAIN_DELTA_REL
+SP_PRED_AGREE = 0.9999
+SPLIT_ENTRIES = ("instance_norm_stats", "instance_norm_apply", "instance_norm_bwd_sums", "instance_norm_bwd_apply")
+MID_CRITERION = {"task": "multilabel", "lambda_dice": 1.0, "lambda_ce": 1.0, "include_background": True,
+                 "squared_pred": False, "jaccard": False, "sigmoid": True}
+
+
+def sp_config(save_dir: str, dtype: str, world: int) -> dict:
+    """The HECKTOR21 recipe (``train_recipe``) for phase 23: one epoch,
+    ``training.devices`` with card 0 for each of the ``world`` ranks, a
+    ``data=1 x space=world`` mesh, ``compute_dtype``."""
+    cfg = train_recipe(save_dir)
+    cfg["training"].update({"epochs": 1, "compute_dtype": dtype, "devices": [0] * world, "batch_size": TRAIN_BATCH,
+                            "mesh": {"data": 1, "space": world}})
+    return cfg
+
+
+def sp_data(shape, mid_shape) -> dict:
+    """Phase 23's volumes (from seeds): the training set (Tent and evaluation
+    reuse its volumes), the validation batch, the mid-fusion batch."""
+    from multimodal_tta_tpu_torch.data.synthetic import brats_volumes
+
+    return {"train": hecktor_volumes(SP_STEPS * TRAIN_BATCH, 230, shape), "val": hecktor_volumes(SP_VAL, 231, shape),
+            "mid": brats_volumes(SP_MID_BATCH, tuple(mid_shape), seed=232)}
+
+
+def split_counts() -> dict:
+    """The norm kernels' launch counters, the split entries' included."""
+    import importlib
+
+    from multimodal_tta_tpu_torch.kernels.edt_minplus import minplus
+
+    fin = importlib.import_module("multimodal_tta_tpu_torch.kernels.fused_instance_norm")
+
+    out = {"forward": fin.fused_instance_norm.launches, "backward": fin.fused_instance_norm.backward_launches,
+           "minplus": minplus.launches, "plain_backward": fin.instance_norm_backward_plain.cuda_calls}
+    out.update({name: getattr(fin, name).launches for name in SPLIT_ENTRIES})
+    return out
+
+
+def sp_run(device, root: str, mesh, spec: dict) -> dict:
+    """Phase 23's main path in this process: over the ranks of ``mesh``
+    (data 1 x space 2), or in one process (``mesh`` None) on the same global
+    batches. The flagship in f32 through ``ExperimentManager`` (the
+    replicated device cache: each rank stages its depth slab), one
+    validation batch, Tent online and strict on global batches of 2,
+    ``TTAEngine.evaluate`` with continual Tent; one f32 training step of the
+    mid-fusion UNet with remat; the launches of each part; each split norm
+    entry against its plain version at every call of that path
+    (``SplitCheck``), the peak memory; then bf16 timing of the flagship's
+    training and Tent steps, the entries held the same way in the first
+    (cold) step of each."""
+    import torch
+
+    import multimodal_tta_tpu_torch.ops.surface as surface_module
+    from multimodal_tta_tpu_torch.conf import ConfigNode
+    from multimodal_tta_tpu_torch.core.experiment_manager import ExperimentManager
+    from multimodal_tta_tpu_torch.core.optim import EpochScheduler, build_optimizer
+    from multimodal_tta_tpu_torch.core.train_state import TrainState
+    from multimodal_tta_tpu_torch.core.trainer_base import HookBase
+    from multimodal_tta_tpu_torch.core.trainers.seg_trainer import SegTrainer
+    from multimodal_tta_tpu_torch.data import get_seg_transforms
+    from multimodal_tta_tpu_torch.data.device_cache import DeviceCachedLoader
+    from multimodal_tta_tpu_torch.kernels.edt_minplus import squared_edt_volumes, squared_edt_volumes_plain
+    from multimodal_tta_tpu_torch.models.unet_multimodal_midfusion import MultimodalUNetMidFusion
+    from multimodal_tta_tpu_torch.parallel.mesh import Mesh
+    from multimodal_tta_tpu_torch.tta.engine import TTAEngine
+    from multimodal_tta_tpu_torch.tta.tent import TentAdapter, norm_param_mask
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_part, parts = time.perf_counter(), {}
+
+    def part(name: str) -> None:
+        nonlocal t_part
+        now = time.perf_counter()
+        parts[name] = now - t_part
+        t_part = now
+
+    shape = tuple(spec["shape"])
+    dev = mesh.device if mesh is not None else torch.device(device)
+    cuda = dev.type == "cuda"
+    rank = mesh.rank if mesh is not None else 0
+    tag = f"rank{rank}" if mesh is not None else "one"
+    world = SP_WORLD if mesh is not None else 1
+    one_mesh = mesh if mesh is not None else Mesh(dev)
+    data = torch.load(spec["data"], weights_only=False)
+    data["tent"] = data["train"][:(2 * SP_TENT_BATCHES + SP_TIMED) * BATCH]
+    data["eval"] = data["train"][-sum(SP_EVAL_SIZES):]
+    spec_t = get_seg_transforms(ndim=3, split="train", normalize=True, geom_aug=False, intensity_aug=False,
+                                image_size=shape, intensity_policy=HECKTOR_POLICY, channel_names=["ct", "pt"],
+                                on_device=True).device_spec()
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def since(at: dict) -> dict:
+        now = split_counts()
+        return {k: now[k] - at[k] for k in now}
+
+    def local(x):
+        return x if mesh is None else mesh.local(x)
+
+    def gather(t):
+        return t if mesh is None else mesh.gather(t)
+
+    class Steps(HookBase):
+        """Each step's global loss, the first step's gradients (summed over
+        the ranks) and, with ``timed``, its ms."""
+
+        def __init__(self, timed: bool):
+            self.timed, self.losses, self.ms, self.grads, self.check = timed, [], [], None, None
+
+        def before_train_step(self):
+            if self.check is not None:
+                self.check.on = not self.ms
+            if self.timed:
+                sync()
+                self._t = time.perf_counter()
+
+        def after_train_step(self):
+            self.losses.append(self.trainer._pending_loss)
+            if self.grads is None and not self.timed:
+                self.grads = {n: p.grad.detach().cpu().clone()
+                              for n, p in self.trainer.state.model.named_parameters() if p.grad is not None}
+            if self.timed:
+                sync()
+                self.ms.append((time.perf_counter() - self._t) * 1e3)
+
+    def manager(dtype: str, sub: str, timed: bool):
+        cfg = sp_config(os.path.join(root, f"{tag}_{sub}"), dtype, world)
+        cfg["model"]["channels"] = list(spec["channels"])
+        cfg["training"]["model_save_start"] = 10**6
+        if timed:
+            cfg["training"]["eval_test"]["do_val"] = False
+        m = ExperimentManager(ConfigNode(cfg), device=dev, mesh=one_mesh)
+        m.setup_model()
+        m.setup_optimizer()
+        m.setup_scheduler()
+        # the replicated store: one process's order on every rank; a rank
+        # stages its depth slab of every volume
+        m.train_loader = DeviceCachedLoader(data["train"], batch_size=TRAIN_BATCH, shuffle=True, drop_last=True,
+                                            seed=0, device=dev, num_workers=4, mesh=mesh)
+        m.val_loader = [_stack(data["val"])]
+        m.device_transform = spec_t
+        m.setup_trainer(os.path.join(root, f"{tag}_{sub}"))
+        steps = Steps(timed)
+        m.trainer.register_hooks([steps])
+        return m, steps
+
+    out = {"tag": tag, "rank": rank, "device": str(dev)}
+
+    def peak_from_here():
+        """Start a peak-memory window; its reading counts only what this
+        run allocates above what was live at the start (the whole smoke's
+        one process still holds earlier phases' tensors)."""
+        torch.cuda.reset_peak_memory_stats(dev)
+        return torch.cuda.memory_allocated(dev)
+
+    def peak_gib(base):
+        return (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+
+    base = peak_from_here() if cuda else 0
+    val_edt = []
+
+    def recording_edt(pts, spacing, *, sqrt=False):
+        got = squared_edt_volumes(pts, spacing, sqrt=sqrt)
+        val_edt.append((pts.clone(), spacing, sqrt, got.clone()))
+        return got
+
+    m, steps = manager("float32", "f32", timed=False)
+    model = m.model
+    init = {n: p.detach().clone() for n, p in model.named_parameters()}
+    check = SplitCheck()
+    surface_module.squared_edt_volumes = recording_edt
+    try:
+        check.__enter__()
+        part("setup")
+        at = split_counts()
+        with NormLevels(model) as levels:
+            history = m.train(1)
+        sync()
+        out["launches"] = {"train": since(at)}
+        part("train_and_validation")
+        out["losses"] = [float(v) for v in steps.losses]
+        out["val"] = history["eval_history"][0]
+        out["grads"] = steps.grads
+        out["norms"] = {"split": len(levels.split), "whole": len(levels.whole)}
+        out["store_shape"] = list(m.train_loader._images.shape)
+
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(init[n])
+        tent = [_stack(data["tent"][i * BATCH:(i + 1) * BATCH])["image"] for i in range(2 * SP_TENT_BATCHES)]
+        source = {n: p.detach().clone() for n, p in model.named_parameters()}
+        norm = [n for n, k in norm_param_mask(model).items() if k]
+        out["tent"] = {}
+        for mode, episodic, batches in (("inline", False, tent[:SP_TENT_BATCHES]),
+                                        ("post", True, tent[SP_TENT_BATCHES:])):
+            cfg = ConfigNode(eval_config("tent", episodic))
+            ad = TentAdapter(cfg.tta, config=cfg, device_transform=DEVICE_TRANSFORM, device=dev, mesh=mesh)
+            fn = ad.make_adapt_predict_fn(model, THRESHOLD, mode)
+            at = split_counts()
+            preds, ents = [], []
+            for x in batches:
+                _, pred = fn(model, torch.from_numpy(local(x)), x.shape[0])
+                preds.append(gather(pred).cpu())
+                ents.append(ad._last_ents.cpu())
+            sync()
+            out["launches"][f"tent_{mode}"] = since(at)
+            adapted = {n: dict(model.named_parameters())[n].detach().cpu().clone() for n in norm}
+            ad.restore()
+            out["tent"][mode] = {"ents": [e.tolist() for e in ents], "preds": preds if rank == 0 else None,
+                                 "adapted": adapted}
+        part("tent")
+        out["source_norm"] = {n: source[n].cpu() for n in norm}
+
+        ev, i0 = [], 0
+        for b in SP_EVAL_SIZES:
+            ev.append(_stack(data["eval"][i0:i0 + b]))
+            i0 += b
+        engine = TTAEngine(ConfigNode(eval_config("tent", False)), device_transform=DEVICE_TRANSFORM, device=dev,
+                           mesh=mesh)
+        at = split_counts()
+        out["eval"] = engine.evaluate(model, ev)
+        sync()
+        out["launches"]["evaluate"] = since(at)
+        part("evaluate")
+        out["peak_gib"] = peak_gib(base) if cuda else None
+        del m, model, engine
+        if cuda:
+            torch.cuda.empty_cache()
+            base = peak_from_here()
+
+        # the mid-fusion UNet: one f32 training step of the BraTS recipe with remat
+        mcfg = ConfigNode({"task": {"seed": 0}, "training": {
+            "optimizer": "sgd", "optimizers": {"sgd": {"lr": 1e-2, "momentum": 0.9}}, "remat": True,
+            "criterion": MID_CRITERION, "compute_dtype": "float32",
+            "param_groups": {"no_decay_keys": ["bias", "norm", "scale"], "treat_1d_as_no_decay": True}}})
+        mid = MultimodalUNetMidFusion(channels=tuple(spec["mid_channels"]), remat=True, device=dev, seed=5)
+        optimizer, lr = build_optimizer(mcfg.training, mid, mesh)
+        trainer = SegTrainer(mcfg, device_transform={"normalize": False}, device=dev, mesh=one_mesh)
+        trainer.setup(TrainState(model=mid, optimizer=optimizer), None, EpochScheduler(mcfg.training, lr))
+        grads = {}
+
+        def keep():
+            grads.update({n: p.grad.detach().cpu().clone() for n, p in mid.named_parameters() if p.grad is not None})
+            return False
+
+        trainer.state.apply_gradients = keep
+        batch = _stack(data["mid"])
+        at = split_counts()
+        with NormLevels(mid) as levels:
+            trainer.run_step({"image": batch["image"], "label": batch["label"]})
+        out["mid"] = {"loss": trainer.flush_step_metrics()["loss"], "grads": grads}
+        sync()
+        out["launches"]["mid_train"] = since(at)
+        # norm calls over a split depth a forward: the one fusion norm runs once per modality
+        fusion = [mod for mod in mid.fusion_layer.modules() if mod in levels.split]
+        out["mid"]["norms"] = len(levels.split) + (mid.num_modalities - 1) * len(fusion)
+        out["mid_peak_gib"] = peak_gib(base) if cuda else None
+        del mid, trainer, optimizer
+        part("mid_train")
+    finally:
+        check.__exit__(None, None, None)
+        surface_module.squared_edt_volumes = squared_edt_volumes
+    # the f32 path's split calls, each held to its plain version as it ran;
+    # its EDTs against theirs
+    out["kernel_check"] = {"split": dict(check.seen), "split_ok": mesh is None or check.ok(),
+                           "edt_bitwise": [bool(torch.equal(o, squared_edt_volumes_plain(p, s, sqrt=q)))
+                                           for p, s, q, o in val_edt]}
+    val_edt.clear()
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # ---- bf16 timing: the recipe's training step and the Tent step ----------------
+    if spec.get("timed", cuda):
+        base = peak_from_here()
+        mb, tsteps = manager("bfloat16", "bf16", timed=True)
+        bcheck = SplitCheck()
+        tsteps.check = bcheck  # on for the first (cold) step alone
+        with CollectiveBytes() as coll, bcheck:
+            mb.train(1)
+        out["collectives_per_train_step"] = {k: {"calls": coll.calls[k] / len(tsteps.ms),
+                                                 "bytes": coll.bytes[k] / len(tsteps.ms)} for k in coll.calls}
+        cfg = ConfigNode(eval_config("tent", False))
+        ad = TentAdapter(cfg.tta, config=cfg, device_transform=DEVICE_TRANSFORM, device=dev, mesh=mesh)
+        fn = ad.make_adapt_predict_fn(mb.model, THRESHOLD, "inline")
+        tent_ms = []
+        with CollectiveBytes() as coll, bcheck:
+            for i in range(SP_TIMED):
+                x = _stack(data["tent"][(2 * SP_TENT_BATCHES + i) * BATCH:
+                                        (2 * SP_TENT_BATCHES + i + 1) * BATCH])["image"]
+                bcheck.on = i == 0
+                sync()
+                t1 = time.perf_counter()
+                fn(mb.model, torch.from_numpy(local(x)), x.shape[0])
+                sync()
+                tent_ms.append((time.perf_counter() - t1) * 1e3)
+        out["collectives_per_tent_step"] = {k: {"calls": coll.calls[k] / SP_TIMED, "bytes": coll.bytes[k] / SP_TIMED}
+                                            for k in coll.calls}
+        out["timing"] = {"train_step_ms": tsteps.ms, "tent_step_ms": tent_ms, "peak_gib": peak_gib(base)}
+        out["kernel_check"]["split_bf16"] = dict(bcheck.seen)
+        out["kernel_check"]["split_ok"] &= mesh is None or bcheck.ok(("bfloat16",))
+        del mb
+        torch.cuda.empty_cache()
+        part("bf16_timing")
+    out["part_s"] = parts
+    return out
+
+
+class NormLevels:
+    """Inside the block, the instance norms of ``model`` that ran over a
+    split depth (given a level's space axis) and those that ran whole, by
+    forward pre-hooks."""
+
+    def __init__(self, model):
+        self.model, self.split, self.whole = model, set(), set()
+
+    def __enter__(self):
+        from multimodal_tta_tpu_torch.models.layers import InstanceNorm
+
+        def seen(mod, args, kwargs):
+            (self.split if kwargs.get("space") is not None else self.whole).add(mod)
+
+        self._hooks = [mod.register_forward_pre_hook(seen, with_kwargs=True) for mod in self.model.modules()
+                       if isinstance(mod, InstanceNorm)]
+        return self
+
+    def __exit__(self, *exc):
+        for h in self._hooks:
+            h.remove()
+        return False
+
+
+class CollectiveBytes:
+    """Inside the block, count this process's ``all_gather`` and
+    ``all_reduce`` calls and the bytes each sends (its own tensor), by
+    wrapping ``torch.distributed``'s two functions (the port calls them
+    through the module)."""
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self.calls = {"all_gather": 0, "all_reduce": 0}
+        self.bytes = {"all_gather": 0, "all_reduce": 0}
+        self._orig = (dist.all_gather, dist.all_reduce)
+
+        def gather(parts, t, *a, **k):
+            self.calls["all_gather"] += 1
+            self.bytes["all_gather"] += t.numel() * t.element_size()
+            return self._orig[0](parts, t, *a, **k)
+
+        def reduce(t, *a, **k):
+            self.calls["all_reduce"] += 1
+            self.bytes["all_reduce"] += t.numel() * t.element_size()
+            return self._orig[1](t, *a, **k)
+
+        dist.all_gather, dist.all_reduce = gather, reduce
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        dist.all_gather, dist.all_reduce = self._orig
+        return False
+
+
+SPLIT_CHECK_BYTES = 32 << 20  # a check's plain version runs on slices of at most this many f32 bytes
+SPLIT_KEYS = {"instance_norm_stats": "stats", "instance_norm_apply": "apply", "instance_norm_bwd_sums": "bwd_sums",
+              "instance_norm_bwd_apply": "bwd_apply"}
+
+
+def _slices(x):
+    """(b, depth slice) of ``x`` [B, D, H, W, C], each at most
+    SPLIT_CHECK_BYTES of f32."""
+    k = max(1, SPLIT_CHECK_BYTES // (x[0, 0].numel() * 4))
+    for b in range(x.shape[0]):
+        for d0 in range(0, x.shape[1], k):
+            yield b, slice(d0, min(d0 + k, x.shape[1]))
+
+
+def _sums_check(got, want, slack=None) -> tuple:
+    """f32 [2, B, C] sums: (max |error|, its largest share of the limit
+    GRAD_F32_REL * max |want| + GRAD_F32_ABS (+ ``slack``))."""
+    diff = (got - want).abs()
+    lim = GRAD_F32_REL * want.abs().max() + GRAD_F32_ABS
+    if slack is not None:
+        lim = lim + slack
+    return diff.max(), (diff / lim).max()
+
+
+def _kink(x, gamma, beta, stats, b, d, relu: bool):
+    """The elements of ``x[b, d]`` within KINK_MARGIN of the ReLU's kink
+    (there the mask rightly depends on the summation order), and xhat."""
+    import torch
+
+    shp = (1, 1, 1, 1, x.shape[-1])
+    xhat = (x[b:b + 1, d].float() - stats[0, b].view(shp)) * stats[1, b].view(shp)
+    kink = (xhat * gamma + beta).abs() < KINK_MARGIN if relu else torch.zeros_like(xhat, dtype=torch.bool)
+    return kink, xhat
+
+
+def check_split_entry(key: str, args: tuple, got) -> dict:
+    """Split norm entry ``key`` (stats, apply, bwd_sums, bwd_apply) given
+    ``args`` (its operator's arguments) returned ``got``: its plain version
+    on the same arguments, one slice at a time (``_slices``), so the check
+    holds at most a slice's temporaries. Limits by the input's dtype, as
+    phase 2 holds the one-launch kernel: the f32 sums and statistics relative
+    to their largest value (GRAD_F32_*); y within TOL_F32 / TOL_BF16; dx
+    within phase 2's f32 limit / DX_BF16_REL. The ReLU's kink: a backward
+    sum may take the output gradient of an element within KINK_MARGIN of it
+    either way (its limit widens by those elements' |gy| and |gy * xhat|),
+    and dx is held elsewhere. Returns the max |error|, ``worst`` (its
+    largest share of the limit: the entry passes at <= 1), the elements at
+    the kink."""
+    import importlib
+
+    import torch
+
+    fin = importlib.import_module("multimodal_tta_tpu_torch.kernels.fused_instance_norm")
+    zero = torch.zeros((), device=got[0].device if isinstance(got, tuple) else got.device)
+    err, worst, kinks = zero.clone(), zero.clone(), 0
+    if key == "stats":
+        (x,) = args
+        want = torch.zeros_like(got)
+        for b, d in _slices(x):
+            want[:, b] += fin.instance_norm_stats_plain(x[b:b + 1, d])[:, 0]
+        err, worst = _sums_check(got, want)
+    elif key == "apply":
+        x, gamma, beta, sums, n, eps, relu = args
+        y, stats = got
+        tol = TOL_BF16 if x.dtype == torch.bfloat16 else TOL_F32
+        want_stats = torch.zeros_like(stats)
+        for b, d in _slices(x):
+            y_p, st = fin.instance_norm_apply_plain(x[b:b + 1, d], gamma, beta, sums[:, b:b + 1], n, eps, relu)
+            diff = (y[b:b + 1, d].float() - y_p.float()).abs()
+            err = torch.maximum(err, diff.max())
+            worst = torch.maximum(worst, ((diff - tol["rtol"] * y_p.float().abs()) / tol["atol"]).max())
+            want_stats[:, b] = st[:, 0]
+        if y.dtype != x.dtype or y.shape != x.shape:
+            worst = zero + float("inf")
+        e2, w2 = _sums_check(stats, want_stats)
+        err, worst = torch.maximum(err, e2), torch.maximum(worst, w2)
+    elif key == "bwd_sums":
+        gy, x, gamma, beta, stats, relu = args
+        want, slack = torch.zeros_like(got), torch.zeros_like(got)
+        for b, d in _slices(x):
+            g, xhat = fin._masked_grad(gy[b:b + 1, d], x[b:b + 1, d], gamma, beta, stats[:, b:b + 1], relu)
+            want[0, b] += g.sum(dim=(0, 1, 2, 3))
+            want[1, b] += (g * xhat).sum(dim=(0, 1, 2, 3))
+            kink, _ = _kink(x, gamma, beta, stats, b, d, relu)
+            a = gy[b:b + 1, d].float().abs() * kink
+            slack[0, b] += a.sum(dim=(0, 1, 2, 3))
+            slack[1, b] += (a * xhat.abs()).sum(dim=(0, 1, 2, 3))
+            kinks += int(kink.sum())
+        err, worst = _sums_check(got, want, slack)
+    elif key == "bwd_apply":
+        gy, x, gamma, beta, stats, sums, n, relu = args
+        dx = got
+        vmax, excess = zero.clone(), zero - float("inf")
+        for b, d in _slices(x):
+            ref = fin.instance_norm_bwd_apply_plain(gy[b:b + 1, d], x[b:b + 1, d], gamma, beta, stats[:, b:b + 1],
+                                                     sums[:, b:b + 1], n, relu).float()
+            kink, _ = _kink(x, gamma, beta, stats, b, d, relu)
+            diff = torch.where(kink, 0.0, (dx[b:b + 1, d].float() - ref).abs())
+            kinks += int(kink.sum())
+            err = torch.maximum(err, diff.max())
+            vmax = torch.maximum(vmax, ref.abs().max())
+            if x.dtype == torch.bfloat16:  # diff <= REL * (vmax + |ref|)
+                excess = torch.maximum(excess, (diff - DX_BF16_REL * ref.abs()).max())
+        if x.dtype == torch.bfloat16:
+            worst = excess / (DX_BF16_REL * vmax)
+        else:
+            worst = err / (GRAD_F32_REL * vmax + GRAD_F32_ABS)
+        if dx.dtype != x.dtype or dx.shape != x.shape:
+            worst = zero + float("inf")
+    else:
+        raise ValueError(f"no split entry {key!r}")
+    return {"err": float(err), "worst": float(worst), "kink": kinks}
+
+
+class SplitCheck:
+    """While ``on``, every call that the main path makes to a split norm
+    entry (the four operators ``kernels/fused_instance_norm.py:_SplitNorm``
+    calls) is held against the entry's plain version on the same arguments,
+    the path's own output gradient included (``check_split_entry``); the
+    kernel's result goes on down the path. The check launches no kernel, so
+    the path's launch counts stay its own. Per entry and input dtype: the
+    calls checked, the max |error|, the worst share of the limit, the
+    elements at the ReLU's kink."""
+
+    OPS = {"_stats_op": "stats", "_apply_op": "apply", "_bwd_sums_op": "bwd_sums", "_bwd_apply_op": "bwd_apply"}
+
+    def __init__(self):
+        self.on, self.seen = True, {}
+
+    def __enter__(self):
+        import importlib
+
+        self._fin = importlib.import_module("multimodal_tta_tpu_torch.kernels.fused_instance_norm")
+        self._orig = {name: getattr(self._fin, name) for name in self.OPS}
+        for name, key in self.OPS.items():
+            setattr(self._fin, name, self._wrap(self._orig[name], key))
+        return self
+
+    def __exit__(self, *exc):
+        for name, op in self._orig.items():
+            setattr(self._fin, name, op)
+        return False
+
+    def _wrap(self, op, key: str):
+        def checked(*args):
+            got = op(*args)
+            if self.on:
+                x = args[1] if key.startswith("bwd") else args[0]
+                r = check_split_entry(key, args, got)
+                s = self.seen.setdefault(f"{key} {str(x.dtype).replace('torch.', '')}",
+                                         {"calls": 0, "max_abs_err": 0.0, "worst": float("-inf"), "kink": 0})
+                s["calls"] += 1
+                s["max_abs_err"] = max(s["max_abs_err"], r["err"])
+                s["worst"] = max(s["worst"], r["worst"])
+                s["kink"] += r["kink"]
+            return got
+
+        return checked
+
+    def ok(self, dtypes=("float32",)) -> bool:
+        """Every entry seen in each of ``dtypes``, each within its limit."""
+        want = {f"{k} {dt}" for k in self.OPS.values() for dt in dtypes}
+        return want <= set(self.seen) and all(s["worst"] <= 1.0 for s in self.seen.values())
+
+
+def split_vs_plain(x, gamma, beta, n: float, act, gen) -> dict:
+    """The four split entries' kernels on one input (f32 or bf16), each fed
+    the previous one's result as on the path (the sums unreduced: one rank),
+    against their plain versions on the same arguments
+    (``check_split_entry``); the backward at a random output gradient."""
+    import importlib
+
+    import torch
+
+    fin = importlib.import_module("multimodal_tta_tpu_torch.kernels.fused_instance_norm")
+    relu = act == "relu"
+    sums = fin.instance_norm_stats(x)
+    y, stats = fin.instance_norm_apply(x, gamma, beta, sums, n=n, relu=relu)
+    gy = torch.randn(x.shape, generator=gen, device=x.device).to(x.dtype)
+    gsums = fin.instance_norm_bwd_sums(gy, x, gamma, beta, stats, relu=relu)
+    dx = fin.instance_norm_bwd_apply(gy, x, gamma, beta, stats, gsums, n=n, relu=relu)
+    e = {"stats": check_split_entry("stats", (x,), sums),
+         "apply": check_split_entry("apply", (x, gamma, beta, sums, n, 1e-5, relu), (y, stats)),
+         "bwd_sums": check_split_entry("bwd_sums", (gy, x, gamma, beta, stats, relu), gsums),
+         "bwd_apply": check_split_entry("bwd_apply", (gy, x, gamma, beta, stats, gsums, n, relu), dx)}
+    return {"errors": {k: v["err"] for k, v in e.items()}, "worst": {k: v["worst"] for k, v in e.items()},
+            "ok": all(v["worst"] <= 1.0 for v in e.values())}
+
+
+def split_norm_shapes(batch: int, shape, channels, strides, space: int = SP_WORLD) -> list:
+    """The split norms of one flagship forward over ``space`` ranks, per
+    rank: ``[(x shape [B, D_slab, H, W, C], calls)]``. Level ``l`` (depth
+    ``D_l``) is split where ``parallel/space.py:splits`` says so; its
+    norms are the two of ``enc{l-1}`` (C = channels[l-1]) and the two of
+    ``dec{l}`` (C = channels[l])."""
+    from multimodal_tta_tpu_torch.parallel.space import splits
+
+    dims, out = [tuple(shape)], {}
+    for s in strides:
+        dims.append(tuple(d // s for d in dims[-1]))
+    for lvl, (d, h, w) in enumerate(dims[:-1]):
+        if not splits(d, space):
+            continue
+        for c in ([channels[lvl - 1]] if lvl > 0 else []) + [channels[lvl]]:
+            key = (batch, d // space, h, w, c)
+            out[key] = out.get(key, 0) + 2
+    return sorted(out.items(), key=lambda kv: -kv[0][1] * kv[0][2] * kv[0][3])
+
+
+def split_kernel_table(dev, shapes: list, space: int = SP_WORLD, iters: int = 10) -> dict:
+    """Each split entry against its plain version at ``shapes``
+    (``split_norm_shapes``; inputs from a seed, a ReLU), in f32 and in bf16
+    (``split_vs_plain``), and the ms of all the calls together (each shape's
+    ms times its calls) against the plain versions' and the byte bound
+    (stats reads x once; apply reads x and writes y; bwd_sums reads gy and
+    x; bwd_apply reads gy and x and writes dx): f32 (the kernels line) and
+    bf16 (``bf16``)."""
+    import importlib
+
+    import torch
+
+    fin = importlib.import_module("multimodal_tta_tpu_torch.kernels.fused_instance_norm")
+    gen = torch.Generator(device=dev).manual_seed(123)
+    moved = {"instance_norm_stats": (1, 2), "instance_norm_apply": (2, 6), "instance_norm_bwd_sums": (2, 8),
+             "instance_norm_bwd_apply": (3, 10)}  # (tensors moved, operations per element)
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    tot = {dt: {k: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0, "max_abs_err": 0.0} for k in moved}
+           for dt in dtypes}
+    per_shape = []
+    for shp, calls in shapes:
+        x32 = torch.randn(shp, generator=gen, device=dev) * 2.0 + 0.5
+        g = torch.rand(shp[-1], generator=gen, device=dev) + 0.5
+        b = torch.randn(shp[-1], generator=gen, device=dev) * 0.1
+        n = float(shp[1] * shp[2] * shp[3] * space)
+        row = {"shape": list(shp), "calls": calls, "ok": True}
+        for dt, dtype in dtypes.items():
+            x = x32.to(dtype)
+            chk = split_vs_plain(x, g, b, n, "relu", gen)
+            sums = fin.instance_norm_stats_plain(x)
+            _, stats = fin.instance_norm_apply_plain(x, g, b, sums, n, 1e-5, True)
+            gy = torch.randn(shp, generator=gen, device=dev).to(dtype)
+            gsums = fin.instance_norm_bwd_sums_plain(gy, x, g, b, stats, True)
+            runs = {
+                "instance_norm_stats": (lambda: fin.instance_norm_stats(x), lambda: fin.instance_norm_stats_plain(x)),
+                "instance_norm_apply": (lambda: fin.instance_norm_apply(x, g, b, sums, n=n),
+                                        lambda: fin.instance_norm_apply_plain(x, g, b, sums, n, 1e-5, True)),
+                "instance_norm_bwd_sums": (lambda: fin.instance_norm_bwd_sums(gy, x, g, b, stats, relu=True),
+                                           lambda: fin.instance_norm_bwd_sums_plain(gy, x, g, b, stats, True)),
+                "instance_norm_bwd_apply": (
+                    lambda: fin.instance_norm_bwd_apply(gy, x, g, b, stats, gsums, n=n, relu=True),
+                    lambda: fin.instance_norm_bwd_apply_plain(gy, x, g, b, stats, gsums, n, True)),
+            }
+            row[dt] = {"errors": chk["errors"], "worst": chk["worst"]}
+            row["ok"] = row["ok"] and chk["ok"]
+            for name, (kern, plain) in runs.items():
+                ms, pms = cuda_ms(kern, iters=iters), cuda_ms(plain, iters=iters)
+                o = tot[dt][name]
+                o["ms"] += ms * calls
+                o["plain_ms"] += pms * calls
+                o["bytes"] += moved[name][0] * x.numel() * x.element_size() * calls
+                o["ops"] += moved[name][1] * x.numel() * calls
+                o["max_abs_err"] = max(o["max_abs_err"], chk["errors"][SPLIT_KEYS[name]])
+                row[dt][name] = {"ms": ms, "plain_ms": pms}
+            del x, gy, sums, stats, gsums, runs
+        per_shape.append(row)
+    for per_dt in tot.values():
+        for o in per_dt.values():
+            t_b, t_o = o["bytes"] / HBM_BYTES_PER_S * 1e3, o["ops"] / FP32_FLOPS * 1e3
+            o["bound_ms"], o["bound_by"] = max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+    return {"entries": tot["float32"], "bf16": tot["bfloat16"], "per_shape": per_shape,
+            "ok": all(r["ok"] for r in per_shape), "calls": sum(c for _, c in shapes)}
+
+
+def _sp_rank(rank: int, world: int, root: str, device: str, spec: dict) -> None:
+    """One rank of phase 23: the process group over a ``file://`` store in
+    ``root`` (gloo: the ranks share the card), the mesh of
+    ``training.mesh``, ``sp_run``; its result in ``root``."""
+    import datetime
+
+    sys.path.insert(0, REPO)
+    import torch
+
+    from multimodal_tta_tpu_torch.conf import ConfigNode
+    from multimodal_tta_tpu_torch.parallel.distributed import maybe_initialize_distributed
+    from multimodal_tta_tpu_torch.parallel.mesh import mesh_from_config
+
+    torch.set_num_threads(spec.get("threads", 4))
+    maybe_initialize_distributed("gloo", f"file://{root}/store", world, rank, device=device,
+                                 timeout=datetime.timedelta(seconds=SP_TIMEOUT_S))
+    mesh = mesh_from_config(ConfigNode(sp_config(root, "float32", world)), device)
+    torch.save(sp_run(device, root, mesh, spec), os.path.join(root, f"rank{rank}.pt"))
+
+
+def _grad_rel(a: dict, b: dict) -> float:
+    import torch
+
+    names = sorted(b)
+    return float(torch.cat([(a[n] - b[n]).flatten() for n in names]).norm()
+                 / torch.cat([b[n].flatten() for n in names]).norm())
+
+
+def sp_compare(one: dict, ranks: list) -> dict:
+    """The two-rank run against the one-process run: what agrees and by how
+    much, every check made before any failure raises."""
+    import torch
+
+    r0 = ranks[0]
+    out, failed = {"ranks": len(ranks)}, []
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], one["losses"]))
+    out["losses"] = {"ranks": r0["losses"], "one": one["losses"], "max_rel": loss_rel}
+    if any(res["losses"] != r0["losses"] for res in ranks) or loss_rel > SP_LOSS_REL:
+        failed.append(f"losses {[res['losses'] for res in ranks]} vs {one['losses']}")
+    g_rel = _grad_rel(r0["grads"], one["grads"])
+    worst = sorted(((_grad_rel({n: r0["grads"][n]}, {n: one["grads"][n]}), n) for n in one["grads"]),
+                   reverse=True)[:3]
+    out["grads"] = {"rel_l2": g_rel, "most_apart": worst, "tensors": len(one["grads"])}
+    if g_rel > SP_GRAD_REL or sorted(r0["grads"]) != sorted(one["grads"]) \
+            or any(not all(torch.equal(res["grads"][n], r0["grads"][n]) for n in r0["grads"]) for res in ranks):
+        failed.append(f"first step's gradients {out['grads']}")
+
+    def metrics_diff(a: dict, b: dict, what: str) -> float:
+        if set(a) != set(b):
+            failed.append(f"{what}: keys differ")
+            return float("nan")
+        if any(abs(a[k] - b[k]) > DP_METRIC_ABS + DP_METRIC_REL * abs(b[k]) for k in b if isinstance(b[k], float)):
+            failed.append(f"{what}: {a} vs {b}")
+        return max(abs(a[k] - b[k]) for k in b if isinstance(b[k], float))
+
+    if any(res["val"] != r0["val"] or res["eval"] != r0["eval"] for res in ranks):
+        failed.append("the ranks' metrics differ")
+    out["val_max_abs"] = metrics_diff(r0["val"], one["val"], "validation")
+    out["eval_max_abs"] = metrics_diff(r0["eval"], one["eval"], "TTAEngine.evaluate")
+    out["tent"] = {}
+    for mode, t in r0["tent"].items():
+        o = one["tent"][mode]
+        ent_rel = max(abs(a - b) / abs(b) for ea, eb in zip(t["ents"], o["ents"]) for a, b in zip(ea, eb))
+        agree = min(float((a == b).float().mean()) for a, b in zip(t["preds"], o["preds"]))
+        keys = sorted(o["adapted"])
+        diff = torch.cat([(t["adapted"][k] - o["adapted"][k]).flatten() for k in keys])
+        delta = torch.cat([(o["adapted"][k] - one["source_norm"][k]).flatten() for k in keys])
+        rel = float(diff.norm() / delta.norm())
+        out["tent"][mode] = {"ents_max_rel": ent_rel, "pred_agree": agree, "delta_rel_l2": rel}
+        if any(res["tent"][mode]["ents"] != t["ents"] for res in ranks):
+            failed.append(f"Tent {mode}: the ranks' entropies differ")
+        if ent_rel > SP_LOSS_REL or agree < SP_PRED_AGREE or rel > SP_DELTA_REL:
+            failed.append(f"Tent {mode}: {out['tent'][mode]}")
+    mid_rel = abs(r0["mid"]["loss"] - one["mid"]["loss"]) / abs(one["mid"]["loss"])
+    mg, og = r0["mid"]["grads"], one["mid"]["grads"]
+    out["mid"] = {"loss_rel": mid_rel, "grad_rel_l2": _grad_rel(mg, og), "loss": [r0["mid"]["loss"], one["mid"]["loss"]],
+                  "most_apart": sorted(((_grad_rel({n: mg[n]}, {n: og[n]}), n) for n in og), reverse=True)[:4]}
+    if mid_rel > SP_LOSS_REL or out["mid"]["grad_rel_l2"] > SP_MID_GRAD_REL:
+        failed.append(f"mid-fusion step {out['mid']}")
+    if failed:
+        raise AssertionError("phase 23, two ranks vs one process: " + "; ".join(failed) + f"; all: {out}")
+    return out
+
+
+def sp_torchrun_cli(manifest: str, root: str, timeout: float = 600.0) -> dict:
+    """``cli.train`` then ``cli.adapt`` (Tent) over two ranks on card 0 with
+    ``training.mesh.space=2`` under ``torch.distributed.run
+    --nproc_per_node=2`` (gloo, as the CLI chooses for ranks that share a
+    card) on phase 14's fixture: 1 epoch, then Tent from its best
+    checkpoint."""
+    out = {}
+    space = ["training.devices=[0,0]", "training.mesh.data=1", "training.mesh.space=2"]
+    best = f"training.resume={os.path.join(root, 'train', 'checkpoints', 'best_model')}"
+    for call, extra in (("train", ["training.epochs=1"]), ("adapt", ["tta=tent", "tta.report_no_adapt=true", best])):
+        run_dir = os.path.join(root, call)
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", f"--nproc_per_node={SP_WORLD}", "-m",
+               f"multimodal_tta_tpu_torch.cli.{call}", *cli_overrides(manifest, run_dir, *space, *extra)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=timeout)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"torchrun cli.{call} over space=2 exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+        log_path = os.path.join(run_dir, f"{call}.log")
+        text = proc.stdout + proc.stderr + (open(log_path, encoding="utf-8").read() if os.path.exists(log_path) else "")
+        mesh_lines = re.findall(r"Device mesh: \{'data': 1, 'space': 2\} over 2 rank\(s\)", text)
+        if not mesh_lines or not os.path.exists(log_path):
+            raise AssertionError(f"torchrun cli.{call}: mesh lines {mesh_lines} or no log file:\n"
+                                 f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+        r = {"wall_s": wall}
+        if call == "train":
+            r["checkpoints"] = sorted(os.listdir(os.path.join(run_dir, "checkpoints")))
+            if "best_model.pt" not in r["checkpoints"]:
+                raise AssertionError(f"torchrun cli.train wrote {r['checkpoints']}")
+        else:
+            metrics = json.load(open(os.path.join(run_dir, "tta_metrics.json"), encoding="utf-8"))
+            r["metrics"] = {k: metrics["adapted"][k] for k in ("gtvt_dc", "avg_hd95", "loss")
+                            if k in metrics["adapted"]}
+            if not all(math.isfinite(v) for v in r["metrics"].values()) or "no_adapt" not in metrics:
+                raise AssertionError(f"torchrun cli.adapt metrics {metrics}")
+        out[call] = r
+    return out
+
+
+def sp_expected(res: dict, cuda: bool) -> dict:
+    """Each part's launches, derived from the model's split and whole norms
+    (``res['norms']``; the mid-fusion UNet's ``res['mid']['norms']``, all
+    split, remat recomputing each forward once): a forward launches the
+    one-launch kernel for each whole norm and stats + apply for each split
+    one; a training backward bwd_sums + bwd_apply for each split norm; a
+    Tent backward no bwd_apply for the first norm (its input carries no
+    gradient: the convolutions are frozen)."""
+    s, w = (res["norms"]["split"], res["norms"]["whole"]) if cuda else (0, 0)
+    mid = res["mid"]["norms"] if cuda else 0
+
+    def launches(fwd=0, bwd=0, tent_bwd=0, minplus=0, mid_fwd=0, mid_bwd=0):
+        return {"forward": w * fwd, "backward": w * (bwd + tent_bwd), "minplus": minplus * int(cuda),
+                "plain_backward": 0, "instance_norm_stats": s * fwd + mid * mid_fwd,
+                "instance_norm_apply": s * fwd + mid * mid_fwd, "instance_norm_bwd_sums": s * (bwd + tent_bwd) + mid * mid_bwd,
+                "instance_norm_bwd_apply": s * bwd + (s - 1) * tent_bwd * int(cuda) + mid * mid_bwd}
+
+    steps = len(res["losses"])
+    return {"train": launches(fwd=steps + 1, bwd=steps, minplus=1),
+            "tent_inline": launches(fwd=SP_TENT_BATCHES, tent_bwd=SP_TENT_BATCHES),
+            "tent_post": launches(fwd=2 * SP_TENT_BATCHES, tent_bwd=SP_TENT_BATCHES),
+            "evaluate": launches(fwd=2 * len(SP_EVAL_SIZES), tent_bwd=len(SP_EVAL_SIZES), minplus=len(SP_EVAL_SIZES)),
+            "mid_train": launches(mid_fwd=2, mid_bwd=1)}
+
+
+def space_parallel_phase(device, root: str, *, shape=SHAPE[:3], channels=(32, 64, 128, 256, 512),
+                         mid_shape=BRATS_SHAPE, mid_channels=(32, 64, 128, 256, 512), manifest=None,
+                         threads: int = 4) -> dict:
+    """Phase 23: two ranks sharing the device over gloo on a ``data=1 x
+    space=2`` mesh, spawned here, against the one-process run here on the
+    same global batches: each rank's launches exactly, its split kernels
+    against their plain versions, its peak memory against one process's;
+    then (with ``manifest``) ``cli.train`` and ``cli.adapt`` under torchrun
+    with ``training.mesh.space=2``."""
+    import shutil
+
+    import torch
+
+    from multimodal_tta_tpu_torch.parallel.distributed import spawn_ranks
+
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root, exist_ok=True)
+    t0 = time.perf_counter()
+    cuda = torch.device(device).type == "cuda"
+    out = {"backend": "gloo"}
+    log(f"[space_parallel] two ranks on {device} over gloo, data=1 x space=2")
+    spec = {"shape": list(shape), "channels": list(channels), "mid_channels": list(mid_channels),
+            "threads": threads, "data": os.path.join(root, "data.pt")}
+    torch.save(sp_data(shape, mid_shape), spec["data"])
+    ranks_root = os.path.join(root, "ranks")
+    os.makedirs(ranks_root, exist_ok=True)
+    t1 = time.perf_counter()
+    spawn_ranks(_sp_rank, SP_WORLD, ranks_root, (ranks_root, str(device), spec), SP_TIMEOUT_S)
+    out["ranks_s"] = time.perf_counter() - t1
+    ranks = [torch.load(os.path.join(ranks_root, f"rank{r}.pt"), weights_only=False) for r in range(SP_WORLD)]
+    t1 = time.perf_counter()
+    threads_before = torch.get_num_threads()
+    torch.set_num_threads(spec["threads"])
+    try:
+        one = sp_run(device, os.path.join(root, "one"), None, spec)
+    finally:
+        torch.set_num_threads(threads_before)
+    out["one_s"] = time.perf_counter() - t1
+    failed = []  # every check is made before a failure raises
+    try:
+        out["compare"] = sp_compare(one, ranks)
+    except AssertionError as e:
+        failed.append(str(e))
+    for res in ranks:
+        want = sp_expected(res, cuda)
+        for part, w in want.items():
+            if res["launches"][part] != w:
+                failed.append(f"{res['tag']} {part}: launches {res['launches'][part]}, derived {w}")
+        if res["store_shape"][1] != shape[0] // SP_WORLD:
+            failed.append(f"{res['tag']}: the store holds {res['store_shape']}, not a slab")
+        kc = res["kernel_check"]
+        if not kc["split_ok"] or (cuda and not (kc["edt_bitwise"] and all(kc["edt_bitwise"]))):
+            failed.append(f"{res['tag']} split kernels vs plain: {kc}")
+    if cuda and not all(res["norms"]["split"] > 0 and res["norms"]["whole"] > 0 for res in ranks):
+        failed.append(f"the flagship's levels {[r['norms'] for r in ranks]}")
+    keys = ("forward", "backward", "minplus") + SPLIT_ENTRIES
+    out["launches"] = {k: sum(res["launches"][p][k] for res in ranks for p in res["launches"]) for k in keys}
+    out["ranks"] = [{k: res.get(k) for k in ("tag", "device", "launches", "kernel_check", "peak_gib",
+                                             "mid_peak_gib", "losses", "norms", "store_shape", "part_s", "timing",
+                                             "collectives_per_train_step", "collectives_per_tent_step")}
+                    for res in ranks]
+    out["one"] = {k: one.get(k) for k in ("launches", "peak_gib", "mid_peak_gib", "losses", "norms", "timing",
+                                          "part_s")}
+    if manifest is not None:
+        try:
+            out["torchrun"] = sp_torchrun_cli(manifest, os.path.join(root, "torchrun"))
+        except AssertionError as e:
+            failed.append(str(e))
+    out["phase_s"] = time.perf_counter() - t0
+    shutil.rmtree(root, ignore_errors=True)
+    if failed:
+        raise AssertionError("phase 23: " + " | ".join(failed) + f"; peaks: {[r['peak_gib'] for r in out['ranks']]}"
+                             f" vs {out['one']['peak_gib']}, mid {[r['mid_peak_gib'] for r in out['ranks']]} vs "
+                             f"{out['one']['mid_peak_gib']}; s {out['phase_s']:.1f}")
+    return out
+
+
+def log_space_parallel(sp: dict, card: str) -> None:
+    """Phase 23's numbers, a line each."""
+    import statistics
+
+    def warm(ms):
+        return statistics.median(ms[1:]) if len(ms) > 1 else float("nan")
+
+    c, one = sp["compare"], sp["one"]
+    log(f"[space_parallel] two ranks (data 1 x space 2) vs one process on the same global batches (f32, TF32 "
+        f"off): losses {c['losses']['ranks']} vs {c['losses']['one']} (max rel {c['losses']['max_rel']:.3g}, "
+        f"limit {SP_LOSS_REL}); the first step's gradients summed over the ranks {c['grads']} (limit "
+        f"{SP_GRAD_REL}); validation metrics max abs {c['val_max_abs']:.3g}, TTAEngine.evaluate "
+        f"{c['eval_max_abs']:.3g}; Tent {c['tent']}; the mid-fusion step {c['mid']} (limits: loss {SP_LOSS_REL}, "
+        f"gradients {SP_MID_GRAD_REL}); ranks {sp['ranks_s']:.1f} s, "
+        f"one process {sp['one_s']:.1f} s; card {card}")
+    ot = one.get("timing") or {}
+    for r in sp["ranks"]:
+        t = r.get("timing") or {}
+        kc = r["kernel_check"]
+        log(f"[space_parallel] {r['tag']} on {r['device']}: norms {r['norms']} (split, whole); launches "
+            f"{r['launches']}; split entries vs plain at every call of the f32 path (calls, max abs error, worst "
+            f"share of the limit, elements at the kink) {kc['split']} and of the first bf16 training and Tent "
+            f"steps {kc.get('split_bf16')}, ok {kc['split_ok']}; EDT bitwise {kc['edt_bitwise']}; the store "
+            f"{r['store_shape']}; peak allocated {r['peak_gib']} GiB (flagship f32 main path) vs one process "
+            f"{one['peak_gib']} GiB, mid-fusion f32 step {r['mid_peak_gib']} GiB vs {one['mid_peak_gib']} GiB, bf16 "
+            f"runs {t.get('peak_gib')} vs {ot.get('peak_gib')} GiB; ms per bf16 training step (global 8, half "
+            f"depth) {[round(v, 2) for v in t.get('train_step_ms', [])]} -> warm median "
+            f"{warm(t.get('train_step_ms', [])):.2f} vs one process {warm(ot.get('train_step_ms', [])):.2f}; ms per "
+            f"bf16 Tent step (global 2) {[round(v, 2) for v in t.get('tent_step_ms', [])]} -> "
+            f"{warm(t.get('tent_step_ms', [])):.2f} vs one process {warm(ot.get('tent_step_ms', [])):.2f}; "
+            f"collectives a bf16 training step (calls, bytes this rank sends) {r['collectives_per_train_step']}, a "
+            f"Tent step {r['collectives_per_tent_step']}; s by part {r['part_s']} (one process {one['part_s']}); "
+            f"card {card}")
+    if "torchrun" in sp:
+        log(f"[space_parallel] torchrun --nproc_per_node=2 training.mesh.space=2: {sp['torchrun']}; card {card}")
+    log(f"[space_parallel] phase 23 took {sp['phase_s']:.1f} s; launches over both ranks {sp['launches']}; "
+        f"card {card}")
+
+
+SPLIT_REPLACES = {"instance_norm_stats": ":114", "instance_norm_apply": ":136", "instance_norm_bwd_sums": ":87",
+                  "instance_norm_bwd_apply": ":87"}  # the TPU kernel's stats and normalize pallas_calls; its gradient
+
+
+def split_summaries(sp: dict, card: str) -> list:
+    """The kernels line's entries of the four split-depth norm entries:
+    launches on phase 23's main path (both ranks), the largest error at the
+    path's own calls and at the timing table's inputs (f32 and bf16), times
+    of one flagship training forward's split norm calls at batch 8 on one of
+    two space ranks in f32 (and, under ``bf16``, in bf16)."""
+    table = sp["table"]
+    out = []
+    for name in SPLIT_ENTRIES:
+        e, e16, key = table["entries"][name], table["bf16"][name], SPLIT_KEYS[name]
+        path_err = max((c["max_abs_err"] for r in sp["ranks"] for part in ("split", "split_bf16")
+                        for k, c in r["kernel_check"].get(part, {}).items() if k.split()[0] == key), default=0.0)
+        out.append({
+            "name": name, "route": "cuda", "source": "multimodal_tta_tpu_torch/csrc/fused_instance_norm.cu",
+            "replaces": "multimodal_tta_tpu/pallas/fused_instance_norm.py" + SPLIT_REPLACES[name],
+            "launches": sp["launches"][name], "launches_by_path": {"space_parallel": sp["launches"][name]},
+            "max_abs_err": max(e["max_abs_err"], e16["max_abs_err"], path_err), "ms": e["ms"],
+            "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"], "bound_by": e["bound_by"], "library_ms": None,
+            "bf16": {k: e16[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")},
+            "per": f"the {table['calls']} split norm calls of one flagship training forward at global batch "
+                   f"{TRAIN_BATCH}, one of {SP_WORLD} space ranks (f32 [8, D/2, H, W, C])",
+            "card": card})
+    return out
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -6220,12 +7206,26 @@ def main() -> int:
     log(f"[preprocess] phase 21 took {prep['phase_s']:.1f} s; launches {prep_launches}; card {smi}")
 
     # ---- 22. the data axis over ranks: two ranks on the card, torchrun ------
+    # (2 steps of the sharded store: the smoke's time leaves room for phase 23)
     torch.cuda.empty_cache()
-    dp = data_parallel_phase(dev, os.path.join(REPO, "build", "chip_smoke_dp"), manifest=cli["manifest"])
-    shutil.rmtree(cli_root, ignore_errors=True)  # phase 14's fixture: phases 15, 17, 18, 19 and 22 ran on it
+    dp = data_parallel_phase(dev, os.path.join(REPO, "build", "chip_smoke_dp"), manifest=cli["manifest"],
+                             volumes=2 * TRAIN_BATCH)
     dp["card"] = smi
     log_data_parallel(dp, smi)
     dp_launches = dp["launches"]
+
+    # ---- 23. the space axis over ranks: two ranks on the card, torchrun -----
+    torch.cuda.empty_cache()
+    sp23 = space_parallel_phase(dev, os.path.join(REPO, "build", "chip_smoke_sp"), manifest=cli["manifest"])
+    shutil.rmtree(cli_root, ignore_errors=True)  # phase 14's fixture: phases 15, 17, 18, 19, 22 and 23 ran on it
+    sp23["card"] = smi
+    torch.cuda.empty_cache()
+    sp23["table"] = split_kernel_table(dev, split_norm_shapes(TRAIN_BATCH, SHAPE[:3], (32, 64, 128, 256, 512),
+                                                              (2, 2, 2, 2)))
+    if not sp23["table"]["ok"]:
+        raise AssertionError(f"phase 23 split kernels vs plain at the path shapes: {sp23['table']['per_shape']}")
+    log_space_parallel(sp23, smi)
+    sp_launches = sp23["launches"]
 
 
     def norm_summary(name: str, tot: dict, train_tot: dict, brats_tot: dict, n_launches: dict, err: float,
@@ -6259,7 +7259,7 @@ def main() -> int:
                             "brats": brats_launches["forward"], "transformer": tr_launches["forward"],
                             "batchnorm": bn_launches["forward"], "serving_artifact": art_launches["forward"],
                             "training_options": opt_launches["forward"], "preprocess": prep_launches["forward"],
-                            "data_parallel": dp_launches["forward"]},
+                            "data_parallel": dp_launches["forward"], "space_parallel": sp_launches["forward"]},
                            max_abs_err, {}, "forward")
     backward_summary = norm_summary(
         "fused_instance_norm_backward", btotals, norm_totals[TRAIN_BATCH][1], brats_norm[1],
@@ -6267,7 +7267,8 @@ def main() -> int:
          "tta": tta_launches["backward"], "brats": brats_launches["backward"],
          "transformer": tr_launches["backward"], "batchnorm": bn_launches["backward"],
          "serving_artifact": art_launches["backward"], "training_options": opt_launches["backward"],
-         "preprocess": prep_launches["backward"], "data_parallel": dp_launches["backward"]}, backward_err,
+         "preprocess": prep_launches["backward"], "data_parallel": dp_launches["backward"],
+         "space_parallel": sp_launches["backward"]}, backward_err,
         {"note": "the gradient of the TPU kernel's function; dx computed in all 18 timed calls"}, "backward")
     minplus_summary = {
         "name": "minplus",
@@ -6276,12 +7277,12 @@ def main() -> int:
         "replaces": "multimodal_tta_tpu/pallas/edt_minplus.py:52",
         "launches": sum(eval_launches.values()) + train_launches["minplus"] + cli_launches["minplus"]
         + tta_launches["minplus"] + brats_launches["minplus"] + tr_launches["minplus"] + bn_launches["minplus"]
-        + opt_launches["minplus"] + prep_launches["minplus"] + dp_launches["minplus"],
+        + opt_launches["minplus"] + prep_launches["minplus"] + dp_launches["minplus"] + sp_launches["minplus"],
         "launches_by_path": {**eval_launches, "train": train_launches["minplus"], "cli": cli_launches["minplus"],
                              "tta": tta_launches["minplus"], "brats": brats_launches["minplus"],
                              "transformer": tr_launches["minplus"], "batchnorm": bn_launches["minplus"],
                              "training_options": opt_launches["minplus"], "preprocess": prep_launches["minplus"],
-                             "data_parallel": dp_launches["minplus"]},
+                             "data_parallel": dp_launches["minplus"], "space_parallel": sp_launches["minplus"]},
         "max_abs_err": minplus_err,
         "ms": edt_ms,
         "plain_ms": edt_plain_ms,
@@ -6303,8 +7304,9 @@ def main() -> int:
                     "eval_batch_split_ms": split,
                     "eval_metrics": eval_runs, "training": training, "cli": cli, "tta": tta_log, "brats": brats,
                     "transformers": transformers, "batchnorm": batchnorm, "serving_artifact": srv,
-                    "training_options": opt20, "preprocess": prep, "data_parallel": dp}, default=str))
-    log(json.dumps({"kernels": [summary, backward_summary, minplus_summary]}))
+                    "training_options": opt20, "preprocess": prep, "data_parallel": dp, "space_parallel": sp23},
+                   default=str))
+    log(json.dumps({"kernels": [summary, backward_summary, minplus_summary] + split_summaries(sp23, smi)}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                             "count": torch.cuda.device_count()}}))
     return 0

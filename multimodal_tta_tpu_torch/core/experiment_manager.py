@@ -15,7 +15,8 @@ the CPU or for ranks that share a card (``parallel/distributed.py:
 default_backend``). Every rank seeds alike and
 then takes rank 0's weights; the loaders, the optimizer
 (``training.zero1``) and the trainer run over the mesh's data axis
-(``parallel/mesh.py``).
+(``parallel/mesh.py``) and, with ``training.mesh.space`` above 1, its space
+axis (each rank a depth slab: ``parallel/space.py``).
 
 Data: ``setup_data`` goes through the dataset-builder registry (the
 HECKTOR21 and BraTS builders of ``data/``), with ``training.device_cache``

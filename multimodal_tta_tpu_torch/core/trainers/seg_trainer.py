@@ -49,6 +49,13 @@ buffer (no DDP wrapper, so the module keeps its names and a sum needs no
 rescaling), and every rank applies the same update (with ``training.zero1``
 each steps its partition of the optimizer state and the params are
 broadcast).
+
+Over a space axis (``mesh.space > 1``) rank ``(d, s)`` holds data rank
+``d``'s rows and depth slab ``s``: the intensity transform and the model
+run over the split depth (``parallel/space.py``), the per-sample loss is
+the slab's CE over the whole volume's count plus ``1 / space`` of the Dice
+of the space group's sums, and the world's sum of the gradients and the
+loss then holds every rank once. GWDL and distillation raise there.
 """
 
 from __future__ import annotations
@@ -72,6 +79,7 @@ from ...ops.augment import (
     intensity_scale_shift_draws,
     modality_dropout_draws,
 )
+from ...parallel import space as sp
 from ...parallel.mesh import pad_batch_to_multiple
 from ...ops.intensity import make_intensity_normalizer
 from ...ops.losses import make_criterion
@@ -95,6 +103,9 @@ class SegTrainer(TrainerBase):
             raise ValueError("[SegTrainer] softmax=True and sigmoid=True cannot both be True.")
         if not self.softmax and not self.sigmoid:
             raise ValueError("[SegTrainer] both softmax and sigmoid are False. Set one True.")
+        self.space = sp.axis_of(self.mesh)
+        if self.space is not None and str(get_config(crit_cfg, "name", "dice_ce")).lower() != "dice_ce":
+            raise sp.unported(f"the {get_config(crit_cfg, 'name')} criterion")
         self.loss_fn = make_criterion(crit_cfg)
 
         # nnU-Net-style deep supervision: the same loss on the model's aux
@@ -116,6 +127,8 @@ class SegTrainer(TrainerBase):
         # bring-up; the teacher is built at the first step
         self.distill = DistillConfig(config)
         self.teacher: Optional[nn.Module] = None
+        if self.distill.enabled and self.space is not None:
+            raise sp.unported("distillation")
 
         self.debug_nans = bool(get_config(config, "training.debug_nans", False))
         self._nan_hooked: set = set()
@@ -166,7 +179,7 @@ class SegTrainer(TrainerBase):
                                           prob=float(dt.get("modality_dropout_prob", 0.25)))
             image = apply_modality_dropout(image, drop[rows])
         if self._norm_fn is not None:
-            image = self._norm_fn(image)
+            image = self._norm_fn(image, space=self.space)
         if dt.get("intensity_aug"):
             factor, offset = intensity_scale_shift_draws(
                 n, self._gen, scale=float(dt.get("int_scale", 0.1)), shift=float(dt.get("int_shift", 0.1)),
@@ -178,7 +191,7 @@ class SegTrainer(TrainerBase):
         was_training = state.model.training
         state.model.train()
         try:
-            with capture_intermediates(bool(self.ds_levels or self.moe_experts)) as inter:
+            with sp.sharded(self.mesh), capture_intermediates(bool(self.ds_levels or self.moe_experts)) as inter:
                 logits = state.model(image)
             per_sample = self._per_sample(logits, lbl)
             if self.ds_levels:
@@ -247,7 +260,8 @@ class SegTrainer(TrainerBase):
         return total[0].to(loss.dtype)
 
     def _per_sample(self, logits: torch.Tensor, lbl: torch.Tensor) -> torch.Tensor:
-        return torch.stack([self.loss_fn(logits[i:i + 1], lbl[i:i + 1]) for i in range(logits.shape[0])])
+        kw = {} if self.space is None else {"space": self.space}
+        return torch.stack([self.loss_fn(logits[i:i + 1], lbl[i:i + 1], **kw) for i in range(logits.shape[0])])
 
     def prepare(self) -> None:
         """Build the distillation teacher and hook the NaN checks (each
@@ -320,6 +334,7 @@ class SegTrainer(TrainerBase):
 
     def setup(self, state, evaluation_strategy=None, scheduler=None):
         super().setup(state, evaluation_strategy, scheduler)
+        sp.require_support(state.model, self.mesh)
         pool_over_ranks(state.model, self.mesh)
 
     def _wrap_loader(self, loader):
@@ -344,8 +359,7 @@ class SegTrainer(TrainerBase):
             # the global host batch, padded to the data axis; this rank's rows
             padded, n_valid = pad_batch_to_multiple({"image": np.asarray(image, dtype=np.float32),
                                                      "label": np.asarray(label)}, self.mesh.data)
-            rows = self.mesh.rows(padded["image"].shape[0])
-            image, label = padded["image"][rows], padded["label"][rows]
+            image, label = self.mesh.local(padded["image"]), self.mesh.local(padded["label"])
             image = torch.as_tensor(image).to(self.device)
             label = torch.as_tensor(label).to(self.device)
 

@@ -10,7 +10,9 @@
 //
 // Replaces the TPU kernel multimodal_tta_tpu/pallas/fused_instance_norm.py
 // (fused_instance_norm: _stats_kernel and _norm_kernel, two pallas_calls), and
-// gives its gradient a kernel of the same skeleton.
+// gives its gradient a kernel of the same skeleton. Over a depth split between
+// ranks the two halves are separate entries again (stats, apply; bwd_sums,
+// bwd_apply: see "split depth" below), with an all-reduce between them.
 //
 // What bounds it on Hopper: bytes. A few flops per element and no tensor-core
 // work, so the least time is x read once and y written once (backward: gy and
@@ -600,6 +602,226 @@ in_bwd_stream(const T* __restrict__ gy, const T* __restrict__ x, const float* __
     }
 }
 
+// ==== split depth: the statistics and the normalisation as separate entries ==
+// When a volume's depth is split over ranks (parallel/space.py), the
+// statistics of a (b, c) span ranks: each rank sums its slab (stats,
+// bwd_sums), the sums are all-reduced between the launches, and a second
+// launch normalises with the global sums (apply, bwd_apply). stats and
+// bwd_sums are the streaming kernels' phase 1 and fold, without phase 2;
+// apply and bwd_apply are their phase 2, with the totals read from memory
+// instead of folded, so they need no grid barrier. Same grid and chunks as
+// the streaming regime: chunk (b, p) is rows [p * rpc, (p + 1) * rpc) of b.
+
+template <typename T, int V>
+__global__ void __launch_bounds__(THREADS)
+in_stats_split(const T* __restrict__ x, float* __restrict__ out, float* __restrict__ ws,
+               int B, int S, int C, int P, int rpc) {
+    using R = typename Raw<T, V>::type;
+    extern __shared__ __align__(16) float sm[];
+    float* scratch = sm;
+    float* tot = sm + THREADS * 2 * V;
+    const Geometry g = geometry<V>(C);
+    const int nchunks = B * P;
+    for (int chunk = blockIdx.x; chunk < nchunks; chunk += gridDim.x) {
+        const int b = chunk / P, p = chunk % P;
+        const int row0 = p * rpc, nrows = min(rpc, S - row0);
+        const T* xb = x + (static_cast<long long>(b) * S + row0) * C;
+        for (int tile = 0; tile < g.NT; ++tile) {
+            const int cv = tile * g.LC + g.lane;
+            float s[V], q[V];
+#pragma unroll
+            for (int i = 0; i < V; ++i) s[i] = q[i] = 0.0f;
+            if (g.rl < g.RPI && cv < g.lanes_c) {
+#pragma unroll 4
+                for (int r = g.rl; r < nrows; r += g.RPI) {
+                    float f[V];
+                    unpack(*reinterpret_cast<const R*>(xb + static_cast<long long>(r) * C + cv * V), f);
+#pragma unroll
+                    for (int i = 0; i < V; ++i) {
+                        s[i] += f[i];
+                        q[i] += f[i] * f[i];
+                    }
+                }
+            }
+            chunk_partial<V>(s, q, g, cv, scratch, ws + static_cast<long long>(chunk) * 2 * C, C);
+        }
+    }
+    cg::this_grid().sync();
+    for (int b = blockIdx.x; b < B; b += gridDim.x) {
+        sample_totals(ws + static_cast<long long>(b) * P * 2 * C, P, C, scratch, tot);
+        for (int c = threadIdx.x; c < C; c += THREADS) {
+            out[b * C + c] = tot[c];
+            out[(B + b) * C + c] = tot[C + c];
+        }
+        __syncthreads();
+    }
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(THREADS)
+in_apply_split(const T* __restrict__ x, T* __restrict__ y, const float* __restrict__ gamma,
+               const float* __restrict__ beta, const float* __restrict__ sums,
+               float* __restrict__ stats, int B, int S, int C, int P, int rpc, float n, float eps,
+               int relu) {
+    using R = typename Raw<T, V>::type;
+    extern __shared__ __align__(16) float st[];  // mean [C], rstd [C] of the chunk's sample
+    const Geometry g = geometry<V>(C);
+    const int nchunks = B * P;
+    for (int chunk = blockIdx.x; chunk < nchunks; chunk += gridDim.x) {
+        const int b = chunk / P, p = chunk % P;
+        const int row0 = p * rpc, nrows = min(rpc, S - row0);
+        for (int c = threadIdx.x; c < C; c += THREADS) {
+            float mean, rstd;
+            finish_stats(sums[b * C + c], sums[(B + b) * C + c], n, eps, mean, rstd);
+            st[c] = mean;
+            st[C + c] = rstd;
+            if (p == 0) {
+                stats[b * C + c] = mean;
+                stats[(B + b) * C + c] = rstd;
+            }
+        }
+        __syncthreads();
+        const long long cbase = (static_cast<long long>(b) * S + row0) * C;
+        for (int tile = 0; tile < g.NT; ++tile) {
+            const int cv = tile * g.LC + g.lane;
+            if (g.rl < g.RPI && cv < g.lanes_c) {
+                float m[V], rs[V], ga[V], be[V];
+#pragma unroll
+                for (int i = 0; i < V; ++i) {
+                    m[i] = st[cv * V + i];
+                    rs[i] = st[C + cv * V + i];
+                    ga[i] = gamma[cv * V + i];
+                    be[i] = beta[cv * V + i];
+                }
+#pragma unroll 4
+                for (int r = g.rl; r < nrows; r += g.RPI) {
+                    const long long off = cbase + static_cast<long long>(r) * C + cv * V;
+                    float f[V];
+                    unpack(*reinterpret_cast<const R*>(x + off), f);
+#pragma unroll
+                    for (int i = 0; i < V; ++i) {
+                        const float o = affine_of(xhat_of(f[i], m[i], rs[i]), ga[i], be[i]);
+                        f[i] = relu ? fmaxf(o, 0.0f) : o;
+                    }
+                    R ov;
+                    pack(f, ov);
+                    *reinterpret_cast<R*>(y + off) = ov;
+                }
+            }
+        }
+        __syncthreads();  // st is rewritten for the CTA's next chunk
+    }
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(THREADS)
+in_bwd_sums_split(const T* __restrict__ gy, const T* __restrict__ x, const float* __restrict__ gamma,
+                  const float* __restrict__ beta, const float* __restrict__ stats,
+                  float* __restrict__ out, float* __restrict__ ws, int B, int S, int C, int P,
+                  int rpc, int relu) {
+    using R = typename Raw<T, V>::type;
+    extern __shared__ __align__(16) float sm[];
+    float* scratch = sm;
+    float* tot = sm + THREADS * 2 * V;
+    const Geometry g = geometry<V>(C);
+    const int nchunks = B * P;
+    for (int chunk = blockIdx.x; chunk < nchunks; chunk += gridDim.x) {
+        const int b = chunk / P, p = chunk % P;
+        const int row0 = p * rpc, nrows = min(rpc, S - row0);
+        const long long cbase = (static_cast<long long>(b) * S + row0) * C;
+        for (int tile = 0; tile < g.NT; ++tile) {
+            const int cv = tile * g.LC + g.lane;
+            float sg[V], sgx[V];
+#pragma unroll
+            for (int i = 0; i < V; ++i) sg[i] = sgx[i] = 0.0f;
+            if (g.rl < g.RPI && cv < g.lanes_c) {
+                float m[V], rs[V], ga[V], be[V];
+#pragma unroll
+                for (int i = 0; i < V; ++i) {
+                    m[i] = stats[b * C + cv * V + i];
+                    rs[i] = stats[(B + b) * C + cv * V + i];
+                    ga[i] = gamma[cv * V + i];
+                    be[i] = beta[cv * V + i];
+                }
+#pragma unroll 2
+                for (int r = g.rl; r < nrows; r += g.RPI) {
+                    const long long off = cbase + static_cast<long long>(r) * C + cv * V;
+                    float gg[V], f[V];
+                    unpack(*reinterpret_cast<const R*>(gy + off), gg);
+                    unpack(*reinterpret_cast<const R*>(x + off), f);
+#pragma unroll
+                    for (int i = 0; i < V; ++i) {
+                        const float xh = xhat_of(f[i], m[i], rs[i]);
+                        const float gi =
+                            (relu && !(affine_of(xh, ga[i], be[i]) > 0.0f)) ? 0.0f : gg[i];
+                        sg[i] += gi;
+                        sgx[i] += gi * xh;
+                    }
+                }
+            }
+            chunk_partial<V>(sg, sgx, g, cv, scratch, ws + static_cast<long long>(chunk) * 2 * C, C);
+        }
+    }
+    cg::this_grid().sync();
+    for (int b = blockIdx.x; b < B; b += gridDim.x) {
+        sample_totals(ws + static_cast<long long>(b) * P * 2 * C, P, C, scratch, tot);
+        for (int c = threadIdx.x; c < C; c += THREADS) {
+            out[b * C + c] = tot[c];
+            out[(B + b) * C + c] = tot[C + c];
+        }
+        __syncthreads();
+    }
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(THREADS)
+in_bwd_apply_split(const T* __restrict__ gy, const T* __restrict__ x, const float* __restrict__ gamma,
+                   const float* __restrict__ beta, const float* __restrict__ stats,
+                   const float* __restrict__ sums, T* __restrict__ dx, int B, int S, int C, int P,
+                   int rpc, float n, int relu) {
+    using R = typename Raw<T, V>::type;
+    const Geometry g = geometry<V>(C);
+    const int nchunks = B * P;
+    for (int chunk = blockIdx.x; chunk < nchunks; chunk += gridDim.x) {
+        const int b = chunk / P, p = chunk % P;
+        const int row0 = p * rpc, nrows = min(rpc, S - row0);
+        const long long cbase = (static_cast<long long>(b) * S + row0) * C;
+        for (int tile = 0; tile < g.NT; ++tile) {
+            const int cv = tile * g.LC + g.lane;
+            if (g.rl < g.RPI && cv < g.lanes_c) {
+                float m[V], rs[V], ga[V], be[V], mg[V], mgx[V], scale[V];
+#pragma unroll
+                for (int i = 0; i < V; ++i) {
+                    m[i] = stats[b * C + cv * V + i];
+                    rs[i] = stats[(B + b) * C + cv * V + i];
+                    ga[i] = gamma[cv * V + i];
+                    be[i] = beta[cv * V + i];
+                    mg[i] = __fdiv_rn(sums[b * C + cv * V + i], n);
+                    mgx[i] = __fdiv_rn(sums[(B + b) * C + cv * V + i], n);
+                    scale[i] = __fmul_rn(rs[i], ga[i]);
+                }
+#pragma unroll 2
+                for (int r = g.rl; r < nrows; r += g.RPI) {
+                    const long long off = cbase + static_cast<long long>(r) * C + cv * V;
+                    float gg[V], f[V];
+                    unpack(*reinterpret_cast<const R*>(gy + off), gg);
+                    unpack(*reinterpret_cast<const R*>(x + off), f);
+#pragma unroll
+                    for (int i = 0; i < V; ++i) {
+                        const float xh = xhat_of(f[i], m[i], rs[i]);
+                        const float gi =
+                            (relu && !(affine_of(xh, ga[i], be[i]) > 0.0f)) ? 0.0f : gg[i];
+                        f[i] = dx_of(gi, xh, mg[i], mgx[i], scale[i]);
+                    }
+                    R ov;
+                    pack(f, ov);
+                    *reinterpret_cast<R*>(dx + off) = ov;
+                }
+            }
+        }
+    }
+}
+
 // ==== host side =============================================================
 
 constexpr int REGIME_RESIDENT = 0;
@@ -671,6 +893,40 @@ template <typename T, int V>
 const void* stream_kernel(int backward) {
     return backward ? reinterpret_cast<const void*>(&in_bwd_stream<T, V>)
                     : reinterpret_cast<const void*>(&in_fwd_stream<T, V>);
+}
+
+// The split entries that reduce over the grid (cooperative): 0 stats, 1 bwd_sums.
+template <typename T, int V>
+const void* split_sum_kernel(int backward) {
+    return backward ? reinterpret_cast<const void*>(&in_bwd_sums_split<T, V>)
+                    : reinterpret_cast<const void*>(&in_stats_split<T, V>);
+}
+
+const void* split_sum_kernel(int backward, int is_bf16, int vec) {
+    if (is_bf16) {
+        return vec == 8 ? split_sum_kernel<__nv_bfloat16, 8>(backward)
+             : vec == 1 ? split_sum_kernel<__nv_bfloat16, 1>(backward) : nullptr;
+    }
+    return vec == 4 ? split_sum_kernel<float, 4>(backward)
+         : vec == 1 ? split_sum_kernel<float, 1>(backward) : nullptr;
+}
+
+bool bad_split(int B, int S, int C, int is_bf16, int vec, int rows, int grid, int P) {
+    const int full = is_bf16 ? 8 : 4;
+    return B <= 0 || S <= 0 || C <= 0 || rows <= 0 || grid < 1 || P < 1 ||
+           (vec != full && vec != 1) || C % vec != 0 || static_cast<long long>(P) * rows < S;
+}
+
+template <typename K, typename... Args>
+int launch_plain(K kernel, int grid, size_t smem, cudaStream_t stream, Args... args) {
+    if (smem > STATIC_SMEM_LIMIT) {
+        const cudaError_t e = cudaFuncSetAttribute(reinterpret_cast<const void*>(kernel),
+                                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                   static_cast<int>(smem));
+        if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    kernel<<<grid, THREADS, smem, stream>>>(args...);
+    return static_cast<int>(cudaGetLastError());
 }
 
 const void* stream_kernel(int backward, int is_bf16, int vec) {
@@ -787,6 +1043,119 @@ extern "C" int mtta_instance_norm_backward(const void* gy, const void* x, const 
 extern "C" int mtta_instance_norm_stream_ctas_per_sm(int backward, int is_bf16, int vec,
                                                      long long smem) {
     const void* kernel = stream_kernel(backward, is_bf16, vec);
+    if (kernel == nullptr || smem < 0) return -static_cast<int>(cudaErrorInvalidValue);
+    int per_sm = 0;
+    const int code = ctas_per_sm(kernel, static_cast<size_t>(smem), &per_sm);
+    return code != 0 ? -code : per_sm;
+}
+
+// ---- the split-depth entries (parallel/space.py) ---------------------------
+// Streaming geometry: `grid` CTAs, P chunks of `rows` rows per sample. stats
+// and bwd_sums take ws [B, P, 2, C] f32 and `smem` = (THREADS * 2 * vec + 2 *
+// C) * 4 (cooperative: the grid must be co-resident); apply takes 2 * C
+// floats of dynamic shared memory, bwd_apply none. `n` is the element count
+// of a (b, c) over the WHOLE depth (every rank's slab), as a float.
+
+// out [2, B, C] f32: sum x, sum x^2 of this slab per (b, c).
+extern "C" int mtta_instance_norm_stats(const void* x, void* out, void* ws, int B, int S, int C,
+                                        int is_bf16, int vec, int rows, int grid, int P,
+                                        long long smem, int validate, void* stream) {
+    if (x == nullptr || out == nullptr || ws == nullptr || smem < 0 ||
+        bad_split(B, S, C, is_bf16, vec, rows, grid, P)) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    void* args[] = {&x, &out, &ws, &B, &S, &C, &P, &rows};
+    return launch_cooperative(split_sum_kernel(0, is_bf16, vec), grid, smem,
+                              static_cast<cudaStream_t>(stream), validate, args);
+}
+
+// y = act((x - mean) * rstd * gamma + beta) from the global sums [2, B, C];
+// stats [2, B, C] receives mean and rstd (what bwd_sums and bwd_apply take).
+extern "C" int mtta_instance_norm_apply(const void* x, void* y, const void* gamma, const void* beta,
+                                        const void* sums, void* stats, int B, int S, int C,
+                                        int is_bf16, int relu, float n, float eps, int vec,
+                                        int rows, int grid, int P, void* stream) {
+    if (x == nullptr || y == nullptr || gamma == nullptr || beta == nullptr || sums == nullptr ||
+        stats == nullptr || !(n > 0.0f) || bad_split(B, S, C, is_bf16, vec, rows, grid, P)) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const size_t smem = static_cast<size_t>(2 * C) * sizeof(float);
+    const float* ga = static_cast<const float*>(gamma);
+    const float* be = static_cast<const float*>(beta);
+    const float* su = static_cast<const float*>(sums);
+    float* sf = static_cast<float*>(stats);
+    if (is_bf16) {
+        const __nv_bfloat16* xi = static_cast<const __nv_bfloat16*>(x);
+        __nv_bfloat16* yo = static_cast<__nv_bfloat16*>(y);
+        return vec == 8 ? launch_plain(in_apply_split<__nv_bfloat16, 8>, grid, smem, st, xi, yo, ga, be,
+                                       su, sf, B, S, C, P, rows, n, eps, relu)
+                        : launch_plain(in_apply_split<__nv_bfloat16, 1>, grid, smem, st, xi, yo, ga, be,
+                                       su, sf, B, S, C, P, rows, n, eps, relu);
+    }
+    const float* xi = static_cast<const float*>(x);
+    float* yo = static_cast<float*>(y);
+    return vec == 4 ? launch_plain(in_apply_split<float, 4>, grid, smem, st, xi, yo, ga, be, su, sf, B,
+                                   S, C, P, rows, n, eps, relu)
+                    : launch_plain(in_apply_split<float, 1>, grid, smem, st, xi, yo, ga, be, su, sf, B,
+                                   S, C, P, rows, n, eps, relu);
+}
+
+// out [2, B, C] f32: sum g, sum g * xhat of this slab per (b, c), g the
+// output gradient through the ReLU mask recomputed from x and stats.
+extern "C" int mtta_instance_norm_bwd_sums(const void* gy, const void* x, const void* gamma,
+                                           const void* beta, const void* stats, void* out, void* ws,
+                                           int B, int S, int C, int is_bf16, int relu, int vec,
+                                           int rows, int grid, int P, long long smem, int validate,
+                                           void* stream) {
+    if (gy == nullptr || x == nullptr || gamma == nullptr || beta == nullptr || stats == nullptr ||
+        out == nullptr || ws == nullptr || smem < 0 || bad_split(B, S, C, is_bf16, vec, rows, grid, P)) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    void* args[] = {&gy, &x, &gamma, &beta, &stats, &out, &ws, &B, &S, &C, &P, &rows, &relu};
+    return launch_cooperative(split_sum_kernel(1, is_bf16, vec), grid, smem,
+                              static_cast<cudaStream_t>(stream), validate, args);
+}
+
+// dx = rstd * gamma * (g - sum g / n - xhat * sum g xhat / n) from the global
+// sums [2, B, C] of bwd_sums.
+extern "C" int mtta_instance_norm_bwd_apply(const void* gy, const void* x, const void* gamma,
+                                            const void* beta, const void* stats, const void* sums,
+                                            void* dx, int B, int S, int C, int is_bf16, int relu,
+                                            float n, int vec, int rows, int grid, int P,
+                                            void* stream) {
+    if (gy == nullptr || x == nullptr || gamma == nullptr || beta == nullptr || stats == nullptr ||
+        sums == nullptr || dx == nullptr || !(n > 0.0f) ||
+        bad_split(B, S, C, is_bf16, vec, rows, grid, P)) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const float* ga = static_cast<const float*>(gamma);
+    const float* be = static_cast<const float*>(beta);
+    const float* sf = static_cast<const float*>(stats);
+    const float* su = static_cast<const float*>(sums);
+    if (is_bf16) {
+        const __nv_bfloat16* gi = static_cast<const __nv_bfloat16*>(gy);
+        const __nv_bfloat16* xi = static_cast<const __nv_bfloat16*>(x);
+        __nv_bfloat16* d = static_cast<__nv_bfloat16*>(dx);
+        return vec == 8 ? launch_plain(in_bwd_apply_split<__nv_bfloat16, 8>, grid, 0, st, gi, xi, ga, be,
+                                       sf, su, d, B, S, C, P, rows, n, relu)
+                        : launch_plain(in_bwd_apply_split<__nv_bfloat16, 1>, grid, 0, st, gi, xi, ga, be,
+                                       sf, su, d, B, S, C, P, rows, n, relu);
+    }
+    const float* gi = static_cast<const float*>(gy);
+    const float* xi = static_cast<const float*>(x);
+    float* d = static_cast<float*>(dx);
+    return vec == 4 ? launch_plain(in_bwd_apply_split<float, 4>, grid, 0, st, gi, xi, ga, be, sf, su, d,
+                                   B, S, C, P, rows, n, relu)
+                    : launch_plain(in_bwd_apply_split<float, 1>, grid, 0, st, gi, xi, ga, be, sf, su, d,
+                                   B, S, C, P, rows, n, relu);
+}
+
+// CTAs of stats (backward = 0) or bwd_sums (1) that one SM holds at `smem`
+// dynamic bytes; negative: minus the CUDA error code.
+extern "C" int mtta_instance_norm_split_ctas_per_sm(int backward, int is_bf16, int vec, long long smem) {
+    const void* kernel = split_sum_kernel(backward, is_bf16, vec);
     if (kernel == nullptr || smem < 0) return -static_cast<int>(cudaErrorInvalidValue);
     int per_sm = 0;
     const int code = ctas_per_sm(kernel, static_cast<size_t>(smem), &per_sm);

@@ -166,8 +166,13 @@ class DeviceCachedLoader:
             # this rank's block of the samples, the tail wrapped (row i is
             # sample i % n: real training data, merely re-sampled)
             self._per_shard = -(-n // self.mesh.data)
-            block = np.arange(self.mesh.rank * self._per_shard, (self.mesh.rank + 1) * self._per_shard) % n
+            d = self.mesh.data_rank
+            block = np.arange(d * self._per_shard, (d + 1) * self._per_shard) % n
             images, labels = images[block], labels[block]
+        if self.mesh is not None and self.mesh.space > 1:
+            # over a space axis this rank stages only its depth slab
+            slab = self.mesh.slab(images.shape[1])
+            images, labels = np.ascontiguousarray(images[:, slab]), np.ascontiguousarray(labels[:, slab])
         self._images = torch.from_numpy(images).to(self.device)
         self._labels = torch.from_numpy(labels).to(self.device)
         if self.device.type == "cuda":
@@ -242,7 +247,7 @@ class DeviceCachedLoader:
         perm = np.arange(m)
         if self.shuffle:
             # Philox takes a 2-word key; the rank folds into the first word
-            key = [self.seed + 0x9E3779B9 * (self.mesh.rank + 1), epoch]
+            key = [self.seed + 0x9E3779B9 * (self.mesh.data_rank + 1), epoch]
             perm = np.random.Generator(np.random.Philox(key=key)).permutation(m)
         for b in range(m // bsl):
             yield self._gather(perm[b * bsl:(b + 1) * bsl], self.batch_size)

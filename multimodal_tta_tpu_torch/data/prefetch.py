@@ -8,7 +8,8 @@ k+1 is queued while the step for batch k is still running. Over ranks
 and only this rank's rows cross to its device; ``_n_valid`` stays the
 global count and ``_n_local`` counts this rank's valid rows. A batch that a
 rank-aware loader already cut (``_rank_rows``, ``DeviceCachedLoader`` over
-ranks) passes through as it is.
+ranks) passes through as it is. Over a space axis a rank's rows also keep
+only its depth slab (dim 1 of a volume).
 """
 
 from __future__ import annotations
@@ -63,7 +64,7 @@ def prefetch_to_device(
             if rows is not None:
                 if t.shape[0] < pad_to:
                     t = torch.cat([t, t.new_zeros((pad_to - t.shape[0],) + tuple(t.shape[1:]))])
-                t = t[rows]
+                t = mesh.local(t) if t.dim() >= 4 else t[rows]
             if dtypes.get(k) is not None:
                 t = t.to(dtypes[k])
             if dev.type == "cuda" and t.device.type == "cpu":

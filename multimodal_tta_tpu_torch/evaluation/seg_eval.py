@@ -21,7 +21,11 @@ Over ranks (``mesh``): each rank scores its rows of the padded global
 batch (its own surfaces through the min-plus kernel), and the packed
 per-sample metrics are gathered, so every rank accumulates the global
 batch's values in the same order and returns the metrics one process
-returns.
+returns. Over a space axis each rank runs the forward on its depth slab
+(``parallel/space.py``), the logits and labels are gathered over the space
+group, and every space rank scores the same whole volumes (the same
+metrics, computed once per space rank); the data group gathers the rows.
+Sliding-window inference and flip TTA raise there.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from ..conf.node import ConfigNode
 from ..data.prefetch import TRANSFER_DTYPES, prefetch_to_device
 from ..ops.losses import make_criterion
 from ..ops.seg_metrics import binary_dice_iou
+from ..parallel import space as sp
 from ..registry import register_evaluation_strategy
 from ..utils.config import get_config
 from ..utils.logger import get_logger
@@ -203,7 +208,7 @@ class SegmentationEvaluationStrategy:
         return current > best_metrics.get(name, float("-inf"))
 
     # ------------------------------------------------------------------
-    def _probs_fn(self, state: nn.Module, with_variance: bool = False):
+    def _probs_fn(self, state: nn.Module, with_variance: bool = False, space=None):
         """Closure: raw device image -> (logits, prob).
 
         Single source of truth for the inference forward — upcast from the
@@ -213,7 +218,8 @@ class SegmentationEvaluationStrategy:
 
         ``with_variance=True`` (requires flip-TTA enabled) returns
         ``(logits, prob, var)`` with the mirror-ensemble disagreement map
-        (ops/flip_tta.py).
+        (ops/flip_tta.py). ``space``: the image is this rank's depth slab
+        (its normalizer's statistics span the space group).
         """
         if with_variance and not self.flip_enable:
             raise ValueError(
@@ -237,7 +243,7 @@ class SegmentationEvaluationStrategy:
         def probs(image):
             image = image.to(torch.float32)  # upcast compact transfer dtypes
             if self._norm_fn is not None:
-                image = self._norm_fn(image)
+                image = self._norm_fn(image, space=space)
             if self.flip_enable:
                 from ..ops.flip_tta import flip_averaged_probs
 
@@ -251,10 +257,19 @@ class SegmentationEvaluationStrategy:
         return probs
 
     @torch.no_grad()
-    def _eval_step(self, state: nn.Module, image: torch.Tensor, label: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """One batch on the device -> ``[B,R]`` metric tensors (``loss``: [B])."""
+    def _eval_step(self, state: nn.Module, image: torch.Tensor, label: torch.Tensor,
+                   mesh=None) -> Dict[str, torch.Tensor]:
+        """One batch on the device -> ``[B,R]`` metric tensors (``loss``: [B]).
+        Over a space axis of ``mesh`` the forward runs on the slabs and the
+        whole volumes are scored."""
         label = label.to(torch.float32)
-        logits, prob = self._probs_fn(state)(image)
+        space = sp.axis_of(mesh)
+        with sp.sharded(mesh):
+            logits, prob = self._probs_fn(state, space=space)(image)
+        if space is not None:
+            logits = sp.all_gather_cat(logits, 1, space.size, space.group)
+            label = sp.all_gather_cat(label, 1, space.size, space.group)
+            prob = torch.sigmoid(logits)
         pred = (prob >= self.threshold).to(torch.float32)
         gt = (label > 0.5).to(torch.float32)
 
@@ -326,6 +341,11 @@ class SegmentationEvaluationStrategy:
         """
         dev = resolve_device(device)
         mesh = mesh if mesh is not None and mesh.parallel else None
+        space = sp.axis_of(mesh)
+        if space is not None:
+            sp.require_support(state, mesh)
+            if self.sw_enable or self.flip_enable:
+                raise sp.unported("sliding-window inference and flip TTA")
         for p in state.parameters():
             if p.device != dev:
                 raise ValueError(f"[SegEval] model is on {p.device}, evaluation on {dev}")
@@ -370,7 +390,7 @@ class SegmentationEvaluationStrategy:
                 if carry_state:
                     state = eval_state
 
-            out = self._to_host(self._eval_step(eval_state, image, label), mesh)
+            out = self._to_host(self._eval_step(eval_state, image, label, mesh), mesh)
             dice = out["dice"][:B]
             iou = out["iou"][:B]
             valid = out["valid"][:B]
@@ -378,6 +398,7 @@ class SegmentationEvaluationStrategy:
 
             if self.enable_surface:
                 D, H, W = image.shape[1:4]
+                D *= sp.space_size(space)
                 diag = diag_mm_from_shape(D, H, W, self.spacing)
                 hd95 = out["hd95"][:B]
                 asd = out["asd"][:B]

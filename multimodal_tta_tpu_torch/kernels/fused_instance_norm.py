@@ -35,7 +35,7 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import torch
 
@@ -178,6 +178,14 @@ def plan(B: int, S: int, C: int, itemsize: int, smem_optin: int, sms: int, l2_by
             return Plan("resident", vec, cg, cluster, rows, cluster, (cluster, C // cg, B),
                         rows * ROW_BYTES * arrays, 0, 1)
 
+    return stream_plan(B, S, C, vec, smem_optin, sms, ctas_per_sm, hbm_reads)
+
+
+def stream_plan(B: int, S: int, C: int, vec: int, smem_optin: int, sms: int, ctas_per_sm: int,
+                hbm_reads: int = 1) -> Plan:
+    """The streaming regime's geometry: ``vec`` elements a load, as many
+    chunks per sample as the co-resident grid of ``ctas_per_sm`` CTAs per SM
+    takes. The split entries always run in it."""
     smem = (THREADS * 2 * vec + 2 * C) * 4
     if smem > smem_optin:
         raise ValueError(f"fused_instance_norm: C={C} needs {smem} bytes of shared memory, "
@@ -248,6 +256,17 @@ def _library():
         lib.mtta_instance_norm_backward.restype = i
         lib.mtta_instance_norm_stream_ctas_per_sm.argtypes = [i, i, i, ll]
         lib.mtta_instance_norm_stream_ctas_per_sm.restype = i
+        lib.mtta_instance_norm_stats.argtypes = [p] * 3 + [i] * 8 + [ll, i, p]
+        lib.mtta_instance_norm_stats.restype = i
+        f = ctypes.c_float
+        lib.mtta_instance_norm_apply.argtypes = [p] * 6 + [i] * 5 + [f, f] + [i] * 4 + [p]
+        lib.mtta_instance_norm_apply.restype = i
+        lib.mtta_instance_norm_bwd_sums.argtypes = [p] * 7 + [i] * 9 + [ll, i, p]
+        lib.mtta_instance_norm_bwd_sums.restype = i
+        lib.mtta_instance_norm_bwd_apply.argtypes = [p] * 7 + [i] * 5 + [f] + [i] * 4 + [p]
+        lib.mtta_instance_norm_bwd_apply.restype = i
+        lib.mtta_instance_norm_split_ctas_per_sm.argtypes = [i, i, i, ll]
+        lib.mtta_instance_norm_split_ctas_per_sm.restype = i
         lib.mtta_cuda_error_string.argtypes = [i]
         lib.mtta_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -311,7 +330,7 @@ def _launch(fn, what: str, x: torch.Tensor, entry: _Cached, pointers: tuple, siz
     entry.validated = True
 
 
-def _check_inputs(x, gamma, beta) -> Tuple[int, int, int]:
+def _check_x(x) -> Tuple[int, int, int]:
     if x.dim() != 5:
         raise ValueError(f"fused_instance_norm: x must be [B,D,H,W,C], got {tuple(x.shape)}")
     if x.dtype not in _KERNEL_DTYPES:
@@ -320,17 +339,35 @@ def _check_inputs(x, gamma, beta) -> Tuple[int, int, int]:
         raise ValueError("fused_instance_norm: x must be contiguous NDHWC")
     B, D, H, W, C = x.shape
     S = D * H * W
+    if S == 0 or B == 0 or C == 0:
+        raise ValueError(f"fused_instance_norm: empty input {tuple(x.shape)}")
+    if S * C >= 2**31:
+        raise ValueError("fused_instance_norm: one sample must hold fewer than 2**31 elements")
+    return B, S, C
+
+
+def _check_inputs(x, gamma, beta) -> Tuple[int, int, int]:
+    B, S, C = _check_x(x)
     for name, t in (("gamma", gamma), ("beta", beta)):
         if t.shape != (C,) or t.dtype != torch.float32 or t.device != x.device or not t.is_contiguous():
             raise ValueError(
                 f"fused_instance_norm: {name} must be a contiguous f32 [{C}] tensor on "
                 f"{x.device}, got {t.dtype} {tuple(t.shape)} on {t.device}"
             )
-    if S == 0 or B == 0 or C == 0:
-        raise ValueError(f"fused_instance_norm: empty input {tuple(x.shape)}")
-    if S * C >= 2**31:
-        raise ValueError("fused_instance_norm: one sample must hold fewer than 2**31 elements")
     return B, S, C
+
+
+def _check_gy(gy: torch.Tensor, x: torch.Tensor) -> None:
+    if gy.shape != x.shape or gy.dtype != x.dtype or gy.device != x.device or not gy.is_contiguous():
+        raise ValueError(f"fused_instance_norm: the output's gradient must be a contiguous {x.dtype} "
+                         f"{tuple(x.shape)} tensor on {x.device}, got {gy.dtype} {tuple(gy.shape)} on {gy.device}")
+
+
+def _check_sums(t: torch.Tensor, x: torch.Tensor, name: str) -> None:
+    B, C = x.shape[0], x.shape[-1]
+    if t.shape != (2, B, C) or t.dtype != torch.float32 or t.device != x.device or not t.is_contiguous():
+        raise ValueError(f"fused_instance_norm: {name} must be a contiguous f32 [2, {B}, {C}] tensor on "
+                         f"{x.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
 def _launch_forward(x, gamma, beta, eps: float, relu: bool):
@@ -350,14 +387,8 @@ def _launch_backward(gy, x, gamma, beta, stats, relu: bool, need_dx: bool):
     """Run the backward kernel; returns (dx or None, sums [2, B, C]) with
     sums[0] = sum g and sums[1] = sum g * xhat per sample."""
     B, S, C = _check_inputs(x, gamma, beta)
-    if gy.shape != x.shape or gy.dtype != x.dtype or gy.device != x.device or not gy.is_contiguous():
-        raise ValueError(f"fused_instance_norm: the output's gradient must be a contiguous {x.dtype} "
-                         f"{tuple(x.shape)} tensor on {x.device}, got {gy.dtype} {tuple(gy.shape)} "
-                         f"on {gy.device}")
-    if (stats.shape != (2, B, C) or stats.dtype != torch.float32 or stats.device != x.device
-            or not stats.is_contiguous()):
-        raise ValueError(f"fused_instance_norm: stats must be a contiguous f32 [2, {B}, {C}] tensor "
-                         f"on {x.device}, got {stats.dtype} {tuple(stats.shape)} on {stats.device}")
+    _check_gy(gy, x)
+    _check_sums(stats, x, "stats")
     dx = torch.empty_like(x) if need_dx else None
     sums = torch.empty((2, B, C), device=x.device, dtype=torch.float32)
     entry = _cached_plan(x, (gy, dx) if need_dx else (gy,), True)
@@ -486,3 +517,296 @@ def fused_instance_norm(
 
 fused_instance_norm.launches = 0
 fused_instance_norm.backward_launches = 0
+
+
+# ---- the split-depth entries ------------------------------------------------
+# Over a depth split between ranks (``parallel/space.py``) the per-(b, c)
+# statistics span ranks, so the norm runs as two halves with an all-reduce
+# between them, as the TPU kernel's two ``pallas_call``s do within one
+# device: ``stats`` (this slab's f32 sums of x and x^2), then ``apply``
+# (normalise with the global sums); backward ``bwd_sums`` (this slab's
+# sums of g and g * xhat), then ``bwd_apply`` (dx from the global sums).
+# Each is a registered operator with a plain version for the CPU and a
+# kernel of ``csrc/fused_instance_norm.cu`` for CUDA (no other route); each
+# counts its CUDA launches in ``<wrapper>.launches``. ``n`` is a (b, c)'s
+# element count over the whole depth.
+
+
+def instance_norm_stats_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``stats``: f32 ``[2, B, C]``, sum x and sum x^2 over
+    D, H, W."""
+    xf = x.float()
+    return torch.stack((xf.sum(dim=_REDUCE), xf.square().sum(dim=_REDUCE)))
+
+
+def _finish_plain(sums: torch.Tensor, n: float, eps: float):
+    mean = sums[0] / n
+    var = torch.clamp(sums[1] / n - mean.square(), min=0.0)
+    return mean, torch.rsqrt(var + eps)
+
+
+def instance_norm_apply_plain(x, gamma, beta, sums, n: float, eps: float, relu: bool):
+    """Plain version of ``apply``: ``(y, stats)``, the statistics from the
+    global sums as the one-launch kernel forms them (``var = max(E[x^2] -
+    E[x]^2, 0)``), ``stats`` [2, B, C] = (mean, rstd)."""
+    mean, rstd = _finish_plain(sums, n, eps)
+    shp = (x.shape[0], 1, 1, 1, x.shape[-1])
+    y = (x.float() - mean.view(shp)) * rstd.view(shp) * gamma + beta
+    if relu:
+        y = torch.relu(y)
+    return y.to(x.dtype), torch.stack((mean, rstd))
+
+
+def _masked_grad(gy, x, gamma, beta, stats, relu: bool):
+    shp = (x.shape[0], 1, 1, 1, x.shape[-1])
+    xhat = (x.float() - stats[0].view(shp)) * stats[1].view(shp)
+    g = gy.float()
+    if relu:
+        g = g * (xhat * gamma + beta > 0)
+    return g, xhat
+
+
+def instance_norm_bwd_sums_plain(gy, x, gamma, beta, stats, relu: bool) -> torch.Tensor:
+    """Plain version of ``bwd_sums``: f32 ``[2, B, C]``, sum g and sum g *
+    xhat over this slab (g the output gradient through the ReLU mask)."""
+    g, xhat = _masked_grad(gy, x, gamma, beta, stats, relu)
+    return torch.stack((g.sum(dim=_REDUCE), (g * xhat).sum(dim=_REDUCE)))
+
+
+def instance_norm_bwd_apply_plain(gy, x, gamma, beta, stats, sums, n: float, relu: bool) -> torch.Tensor:
+    """Plain version of ``bwd_apply``: ``dx = rstd * gamma * (g - sum g / n -
+    xhat * sum g xhat / n)`` from the global sums, in x's dtype."""
+    g, xhat = _masked_grad(gy, x, gamma, beta, stats, relu)
+    shp = (x.shape[0], 1, 1, 1, x.shape[-1])
+    dx = stats[1].view(shp) * gamma * (g - (sums[0] / n).view(shp) - xhat * (sums[1] / n).view(shp))
+    return dx.to(x.dtype)
+
+
+_split_plans: Dict[tuple, Plan] = {}
+
+
+def split_plan_for(x: torch.Tensor, *others: torch.Tensor, backward: bool = False) -> Plan:
+    """The streaming geometry of the split entries for CUDA tensor ``x`` (the
+    cooperative ``stats`` / ``bwd_sums`` sets how many CTAs co-reside)."""
+    B, C = x.shape[0], x.shape[-1]
+    aligned = x.data_ptr() % 16 == 0 and all(t.data_ptr() % 16 == 0 for t in others)
+    key = (x.device.index, B, x.numel(), C, x.dtype, backward, aligned)
+    got = _split_plans.get(key)
+    if got is not None:
+        return got
+    S = x.numel() // (B * C)
+    props = torch.cuda.get_device_properties(x.device)
+    full = 16 // x.element_size()
+    vec = full if aligned and C % full == 0 else 1
+    smem = (THREADS * 2 * vec + 2 * C) * 4
+    with torch.cuda.device(x.device):
+        per_sm = _library().mtta_instance_norm_split_ctas_per_sm(
+            int(backward), int(x.dtype == torch.bfloat16), vec, min(smem, props.shared_memory_per_block_optin))
+    if per_sm < 1:
+        raise RuntimeError(f"fused_instance_norm: the split kernel does not fit an SM for x {tuple(x.shape)} "
+                           f"(occupancy query returned {per_sm})")
+    got = stream_plan(B, S, C, vec, props.shared_memory_per_block_optin, props.multi_processor_count,
+                      min(per_sm, STREAM_CTAS_PER_SM))
+    _split_plans[key] = got
+    return got
+
+
+def _split_call(fn, what: str, x: torch.Tensor, p: Plan, args: tuple) -> None:
+    """Call split launcher ``fn(*args, stream)`` on x's device and current
+    stream; raise if the launch is refused."""
+    if x.device.index != torch.cuda.current_device():
+        with torch.cuda.device(x.device):
+            return _split_call(fn, what, x, p, args)
+    code = fn(*args, torch._C._cuda_getCurrentRawStream(x.device.index))
+    if code != 0:
+        text = _library().mtta_cuda_error_string(code).decode()
+        raise RuntimeError(f"fused_instance_norm: {what} launch refused for x {tuple(x.shape)} with {p}: "
+                           f"CUDA error {code} ({text})")
+
+
+def _split_workspace(x: torch.Tensor, p: Plan) -> int:
+    stream = torch._C._cuda_getCurrentRawStream(x.device.index)
+    ws = _workspaces.get((x.device.index, stream))
+    if ws is None or ws.numel() < p.ws_floats:
+        ws = torch.empty(p.ws_floats, device=x.device, dtype=torch.float32)
+        _workspaces[(x.device.index, stream)] = ws
+    return ws.data_ptr()
+
+
+def _geometry(x) -> tuple:
+    B, S, C = x.shape[0], x.numel() // (x.shape[0] * x.shape[-1]), x.shape[-1]
+    return B, S, C, int(x.dtype == torch.bfloat16)
+
+
+@torch.library.custom_op("mtta::instance_norm_stats", mutates_args=(), device_types="cpu")
+def _stats_op(x: torch.Tensor) -> torch.Tensor:
+    return instance_norm_stats_plain(x)
+
+
+@_stats_op.register_kernel("cuda")
+def _stats_cuda(x):
+    _check_x(x)
+    p = split_plan_for(x)
+    B, S, C, bf16 = _geometry(x)
+    out = torch.empty((2, B, C), device=x.device, dtype=torch.float32)
+    _split_call(_library().mtta_instance_norm_stats, "stats", x, p,
+                (x.data_ptr(), out.data_ptr(), _split_workspace(x, p), B, S, C, bf16, p.vec, p.rows, p.grid[0],
+                 p.chunks, p.smem_bytes, 1))
+    instance_norm_stats.launches += 1
+    return out
+
+
+@_stats_op.register_fake
+def _stats_fake(x):
+    return x.new_empty((2, x.shape[0], x.shape[-1]), dtype=torch.float32)
+
+
+@torch.library.custom_op("mtta::instance_norm_apply", mutates_args=(), device_types="cpu")
+def _apply_op(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, sums: torch.Tensor, n: float,
+              eps: float, relu: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    return instance_norm_apply_plain(x, gamma, beta, sums, n, eps, relu)
+
+
+@_apply_op.register_kernel("cuda")
+def _apply_cuda(x, gamma, beta, sums, n, eps, relu):
+    _check_inputs(x, gamma, beta)
+    _check_sums(sums, x, "sums")
+    y = torch.empty_like(x)
+    p = split_plan_for(x, y)
+    B, S, C, bf16 = _geometry(x)
+    stats = torch.empty((2, B, C), device=x.device, dtype=torch.float32)
+    _split_call(_library().mtta_instance_norm_apply, "apply", x, p,
+                (x.data_ptr(), y.data_ptr(), gamma.data_ptr(), beta.data_ptr(), sums.data_ptr(), stats.data_ptr(),
+                 B, S, C, bf16, int(relu), float(n), float(eps), p.vec, p.rows, p.grid[0], p.chunks))
+    instance_norm_apply.launches += 1
+    return y, stats
+
+
+@_apply_op.register_fake
+def _apply_fake(x, gamma, beta, sums, n, eps, relu):
+    return torch.empty_like(x, memory_format=torch.contiguous_format), sums.new_empty(sums.shape)
+
+
+@torch.library.custom_op("mtta::instance_norm_bwd_sums", mutates_args=(), device_types="cpu")
+def _bwd_sums_op(gy: torch.Tensor, x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                 stats: torch.Tensor, relu: bool) -> torch.Tensor:
+    return instance_norm_bwd_sums_plain(gy, x, gamma, beta, stats, relu)
+
+
+@_bwd_sums_op.register_kernel("cuda")
+def _bwd_sums_cuda(gy, x, gamma, beta, stats, relu):
+    _check_inputs(x, gamma, beta)
+    _check_gy(gy, x)
+    _check_sums(stats, x, "stats")
+    p = split_plan_for(x, gy, backward=True)
+    B, S, C, bf16 = _geometry(x)
+    out = torch.empty((2, B, C), device=x.device, dtype=torch.float32)
+    _split_call(_library().mtta_instance_norm_bwd_sums, "bwd_sums", x, p,
+                (gy.data_ptr(), x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), stats.data_ptr(), out.data_ptr(),
+                 _split_workspace(x, p), B, S, C, bf16, int(relu), p.vec, p.rows, p.grid[0], p.chunks,
+                 p.smem_bytes, 1))
+    instance_norm_bwd_sums.launches += 1
+    return out
+
+
+@_bwd_sums_op.register_fake
+def _bwd_sums_fake(gy, x, gamma, beta, stats, relu):
+    return stats.new_empty(stats.shape)
+
+
+@torch.library.custom_op("mtta::instance_norm_bwd_apply", mutates_args=(), device_types="cpu")
+def _bwd_apply_op(gy: torch.Tensor, x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                  stats: torch.Tensor, sums: torch.Tensor, n: float, relu: bool) -> torch.Tensor:
+    return instance_norm_bwd_apply_plain(gy, x, gamma, beta, stats, sums, n, relu)
+
+
+@_bwd_apply_op.register_kernel("cuda")
+def _bwd_apply_cuda(gy, x, gamma, beta, stats, sums, n, relu):
+    _check_inputs(x, gamma, beta)
+    _check_gy(gy, x)
+    _check_sums(stats, x, "stats")
+    _check_sums(sums, x, "sums")
+    dx = torch.empty_like(x)
+    p = split_plan_for(x, gy, dx, backward=True)
+    B, S, C, bf16 = _geometry(x)
+    _split_call(_library().mtta_instance_norm_bwd_apply, "bwd_apply", x, p,
+                (gy.data_ptr(), x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), stats.data_ptr(), sums.data_ptr(),
+                 dx.data_ptr(), B, S, C, bf16, int(relu), float(n), p.vec, p.rows, p.grid[0], p.chunks))
+    instance_norm_bwd_apply.launches += 1
+    return dx
+
+
+@_bwd_apply_op.register_fake
+def _bwd_apply_fake(gy, x, gamma, beta, stats, sums, n, relu):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
+def instance_norm_stats(x: torch.Tensor) -> torch.Tensor:
+    """``stats`` without autograd: f32 ``[2, B, C]`` (sum x, sum x^2) of NDHWC
+    ``x``. A CUDA tensor launches the kernel or raises; a CPU tensor takes
+    the plain version."""
+    _check_device(x)
+    with torch.no_grad():
+        return _stats_op(x)
+
+
+def instance_norm_apply(x, gamma, beta, sums, *, n: float, eps: float = 1e-5, relu: bool = True):
+    """``apply`` without autograd: ``(y, stats)`` from the global ``sums``."""
+    _check_device(x)
+    with torch.no_grad():
+        return _apply_op(x, gamma, beta, sums, float(n), float(eps), bool(relu))
+
+
+def instance_norm_bwd_sums(gy, x, gamma, beta, stats, *, relu: bool) -> torch.Tensor:
+    """``bwd_sums`` without autograd: f32 ``[2, B, C]`` (sum g, sum g * xhat)."""
+    _check_device(x)
+    with torch.no_grad():
+        return _bwd_sums_op(gy.contiguous(), x, gamma, beta, stats, bool(relu))
+
+
+def instance_norm_bwd_apply(gy, x, gamma, beta, stats, sums, *, n: float, relu: bool) -> torch.Tensor:
+    """``bwd_apply`` without autograd: dx from the global ``sums``."""
+    _check_device(x)
+    with torch.no_grad():
+        return _bwd_apply_op(gy.contiguous(), x, gamma, beta, stats, sums, float(n), bool(relu))
+
+
+for _w in (instance_norm_stats, instance_norm_apply, instance_norm_bwd_sums, instance_norm_bwd_apply):
+    _w.launches = 0
+
+
+class _SplitNorm(torch.autograd.Function):
+    """stats -> ``reduce`` -> apply; backward bwd_sums -> ``reduce`` ->
+    bwd_apply. dgamma and dbeta come from this slab's own sums: the sum of
+    the params' gradients over the ranks adds the others'."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps, relu, n, reduce):
+        sums = reduce(_stats_op(x))
+        y, stats = _apply_op(x, gamma, beta, sums, n, eps, relu)
+        ctx.relu, ctx.n, ctx.reduce = relu, n, reduce
+        ctx.save_for_backward(x, gamma, beta, stats)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, gamma, beta, stats = ctx.saved_tensors
+        gy = gy.contiguous()
+        local = _bwd_sums_op(gy, x, gamma, beta, stats, ctx.relu)
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dx = _bwd_apply_op(gy, x, gamma, beta, stats, ctx.reduce(local), ctx.n, ctx.relu)
+        return dx, local[1].sum(dim=0), local[0].sum(dim=0), None, None, None, None
+
+
+def split_instance_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *, n: float,
+                        reduce: Callable[[torch.Tensor], torch.Tensor], eps: float = 1e-5,
+                        act: Optional[str] = "relu") -> torch.Tensor:
+    """``fused_instance_norm`` of a volume whose depth is split between ranks:
+    ``x`` [B, D_slab, H, W, C] is this rank's slab, ``n`` the element count
+    of a (b, c) over the whole depth, and ``reduce`` sums an f32 ``[2, B, C]``
+    tensor over the ranks into a new tensor (no gradient). Differentiable in
+    x, gamma and beta; gamma's and beta's gradients are this slab's part."""
+    relu = _check_act(act)
+    _check_device(x)
+    return _SplitNorm.apply(x, gamma, beta, float(eps), relu, float(n), reduce)

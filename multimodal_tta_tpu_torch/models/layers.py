@@ -35,7 +35,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..kernels.fused_instance_norm import fused_instance_norm, instance_norm_plain
+from ..kernels.fused_instance_norm import fused_instance_norm, instance_norm_plain, split_instance_norm
+from ..parallel.space import halo_exchange, slice_depth, space_sum, unported
 
 IntOr3 = Union[int, Sequence[int]]
 
@@ -71,18 +72,36 @@ def _triple(v: IntOr3) -> Tuple[int, int, int]:
     return t
 
 
-def conv3d_same(x: torch.Tensor, conv: nn.Module, dtype: torch.dtype) -> torch.Tensor:
+def conv3d_same(x: torch.Tensor, conv: nn.Module, dtype: torch.dtype, space=None) -> torch.Tensor:
     """``conv(x)`` with flax ``padding="SAME"`` in the compute dtype (an
-    ``nn.Conv3d`` on NCDHW, or an ``nn.Conv2d`` on NCHW)."""
+    ``nn.Conv3d`` on NCDHW, or an ``nn.Conv2d`` on NCHW).
+
+    With ``space`` (``parallel/space.py``) ``x`` is this rank's depth slab
+    of a volume split over the space axis: the SAME padding of the whole
+    depth applies its zeros at the volume's two ends only, and the slab
+    takes its neighbours' planes at the inner boundaries
+    (``halo_exchange``): ``lo`` = the left pad planes before it and
+    ``k - stride - lo`` after it, so that it computes its own slab of the
+    whole conv's output (a 3x3x3 conv: 1 each side; stride 2, pad (0, 1): 1
+    after; 1x1x1: none)."""
     conv_fn = F.conv3d if x.dim() == 5 else F.conv2d
+    depth = x.shape[2] * (space.size if space is not None else 1)
     pads = []
-    for n, k, s in zip(x.shape[2:], conv.kernel_size, conv.stride):
+    for n, k, s in zip((depth,) + tuple(x.shape[3:]), conv.kernel_size, conv.stride):
         out = -(-n // s)
         total = max((out - 1) * s + k - n, 0)
         pads.append((total // 2, total - total // 2))
     w = conv.weight.to(dtype)
     b = None if conv.bias is None else conv.bias.to(dtype)
     x = x.to(dtype)
+    if space is not None:
+        k, s, lo = conv.kernel_size[0], conv.stride[0], pads[0][0]
+        hi = max(k - s - lo, 0)
+        if x.shape[2] % s or (x.shape[2] + lo + hi - k) // s + 1 != x.shape[2] // s:
+            raise ValueError(f"[space] a slab of {x.shape[2]} planes cannot take a depth conv of kernel {k}, "
+                             f"stride {s}")
+        x = halo_exchange(x, lo, hi, space)
+        pads[0] = (0, 0)
     if all(lo == hi for lo, hi in pads):
         return conv_fn(x, w, b, stride=conv.stride, padding=tuple(lo for lo, _ in pads))
     # F.pad lists the last dim first
@@ -95,7 +114,8 @@ class InstanceNorm(nn.Module):
     ReLU optionally fused (the reference's ``InstanceNorm``; same param
     names: 1-D ``scale`` and ``bias``). Runs the fused kernel; ``plain=True``
     runs the plain PyTorch version instead, the reference forward that the
-    kernel is held against."""
+    kernel is held against. Over a split depth (``space``, the level's axis
+    from ``parallel/space.py``) the statistics span the space group."""
 
     def __init__(self, features: int, epsilon: float = 1e-5):
         super().__init__()
@@ -104,10 +124,23 @@ class InstanceNorm(nn.Module):
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
 
-    def forward(self, x: torch.Tensor, relu: bool = False) -> torch.Tensor:
-        fn = instance_norm_plain if self.plain else fused_instance_norm
-        y = fn(x.permute(0, 2, 3, 4, 1).contiguous(), self.scale, self.bias,
-               eps=self.epsilon, act="relu" if relu else None)
+    def forward(self, x: torch.Tensor, relu: bool = False, space=None) -> torch.Tensor:
+        act = "relu" if relu else None
+        x = x.permute(0, 2, 3, 4, 1).contiguous()
+        if space is not None:
+            # the statistics span the space group: the kernel's stats and
+            # apply entries around an all-reduce (a CPU tensor takes their
+            # plain versions; on the card each is held to its plain version
+            # alone, so the plain-norm switch does not apply here)
+            if self.plain:
+                raise NotImplementedError("[space] the plain norm over a split depth: the split entries each have "
+                                          "their plain version (kernels/fused_instance_norm.py)")
+            n = float(x[0, ..., 0].numel() * space.size)
+            y = split_instance_norm(x, self.scale, self.bias, n=n, reduce=lambda t: space_sum(t, space),
+                                    eps=self.epsilon, act=act)
+        else:
+            fn = instance_norm_plain if self.plain else fused_instance_norm
+            y = fn(x, self.scale, self.bias, eps=self.epsilon, act=act)
         return y.permute(0, 4, 1, 2, 3)
 
 
@@ -330,10 +363,16 @@ class Norm(nn.Module):
         else:
             raise ValueError(f"Unknown norm '{kind}'")
 
-    def forward(self, x: torch.Tensor, relu: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, relu: bool = False, space=None) -> torch.Tensor:
+        """``space``: the level's space axis over a split depth, which the
+        instance norm alone takes so far (and no norm at all)."""
         if self.norm is None:
             return F.relu(x) if relu else x
-        return self.norm(x, relu=relu)
+        if space is None:
+            return self.norm(x, relu=relu)
+        if not isinstance(self.norm, InstanceNorm):
+            raise unported(type(self.norm).__name__)
+        return self.norm(x, relu=relu, space=space)
 
 
 def check_dropout(module: nn.Module, rate: float) -> None:
@@ -373,10 +412,11 @@ class ConvBlock(nn.Module):
         self.act = get_act(act) if use_act else None
         self.fuse_relu = use_norm and use_act and str(act).upper() == "RELU"
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = conv3d_same(x, self.conv, self.dtype)
+    def forward(self, x: torch.Tensor, space=None) -> torch.Tensor:
+        """``space``: the level's space axis when ``x`` is a depth slab."""
+        x = conv3d_same(x, self.conv, self.dtype, space)
         if self.n is not None:
-            x = self.n(x, relu=self.fuse_relu)
+            x = self.n(x, relu=self.fuse_relu, space=space)
         if self.act is not None and not self.fuse_relu:
             x = self.act(x)
         check_dropout(self, self.dropout)
@@ -413,11 +453,12 @@ class ResidualUnit(nn.Module):
                 strides if i == 0 else 1, norm, act, dropout, dtype=dtype,
             ))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        res = x if self.residual_proj is None else conv3d_same(x, self.residual_proj, self.dtype)
+    def forward(self, x: torch.Tensor, space=None) -> torch.Tensor:
+        """``space``: the level's space axis when ``x`` is a depth slab."""
+        res = x if self.residual_proj is None else conv3d_same(x, self.residual_proj, self.dtype, space)
         y = x
         for i in range(self.n_sub):
-            y = getattr(self, f"unit{i}")(y)
+            y = getattr(self, f"unit{i}")(y, space)
         return y + res.to(y.dtype)
 
 
@@ -448,8 +489,12 @@ class UpSample(nn.Module):
         self.scale = _triple(scale)
         self.proj = nn.Conv3d(in_features, features, 1, bias=True) if in_features != features else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, slice_to=None) -> torch.Tensor:
+        """``slice_to``: the space axis of a split output level whose input
+        is whole (this rank keeps its slab of the repeat)."""
         x = repeat_nearest(x, self.scale)
+        if slice_to is not None:
+            x = slice_depth(x, slice_to)
         return x if self.proj is None else conv3d_same(x, self.proj, self.dtype)
 
 
@@ -513,7 +558,7 @@ def sow(name: str, value: torch.Tensor) -> None:
         _CAPTURES[-1].setdefault(name, []).append(value)
 
 
-def remat_call(module: nn.Module, *args: torch.Tensor, enabled: bool) -> torch.Tensor:
+def remat_call(module: nn.Module, *args, enabled: bool) -> torch.Tensor:
     """``module(*args)``; with ``enabled`` (the reference's ``nn.remat``) its
     activations are dropped after the forward and recomputed in the
     backward, so every norm inside launches its forward kernel twice a

@@ -20,6 +20,13 @@ Two training options of the reference:
     forward inside ``layers.capture_intermediates`` (``SegTrainer``'s
     step), after the level's block and outside its remat, sowing ``ds{i}``;
     an eval, TTA or serving forward computes the logits alone.
+
+Over the space axis (``parallel/space.py``, ambient inside
+``space.sharded(mesh)``) ``x`` is this rank's depth slab: each level is
+split or whole by the reference's rule (``space.level_axes``), an encoder
+stage whose output level is whole takes its input gathered, and an ``up``
+whose output level is split keeps its slab of the whole output; the skip
+concatenation is local. MoE and deep supervision raise there.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from torch import nn
 from .. import DeviceLike, resolve_device
 from ..registry import register_model
 from ..utils.config import get_config
+from ..parallel import space as sp
 from .layers import (ConvBlock, LayerNorm, ResidualUnit, TransposedConvUp, capturing, head_linear,
                      init_flax_defaults, remat_call, sow)
 from .moe import MoEMlp
@@ -61,6 +69,8 @@ def finish_model(model: nn.Module, seed: Optional[int], device: DeviceLike,
 
 @register_model("unet")
 class UNet3D(nn.Module):
+    space_ported = True  # runs over the space axis (parallel/space.py)
+
     def __init__(
         self,
         in_channels: int = 2,
@@ -156,7 +166,9 @@ class UNet3D(nn.Module):
         if x.shape[-1] != self.in_channels:
             raise ValueError(f"UNet3D expects {self.in_channels} input channels, got {x.shape[-1]}")
         total_stride = math.prod(self.strides)
+        space = sp.current()
         for ax, dim in enumerate(x.shape[1:4]):
+            dim = dim * (space.size if space is not None and ax == 0 else 1)
             if dim % total_stride != 0:
                 raise ValueError(
                     f"UNet3D spatial dim {ax} = {dim} must be divisible by the total "
@@ -164,23 +176,32 @@ class UNet3D(nn.Module):
                 )
         n = len(self.strides)
         levels = remat_levels(self.remat, n)
+        axes = sp.level_axes(space, x.shape[1], self.strides)  # each level's axis, None where it is whole
         x = x.to(self.dtype).permute(0, 4, 1, 2, 3)  # NCDHW view of NDHWC memory
         skips = []
         h = x
         for i in range(n):
-            h = remat_call(getattr(self, f"enc{i}"), h, enabled=i < levels)
+            if axes[i] is not None and axes[i + 1] is None:
+                h = sp.gather_depth(h, space)  # the stage's output level is whole
+            h = remat_call(getattr(self, f"enc{i}"), h, axes[i + 1], enabled=i < levels)
             skips.append(h)
-        h = remat_call(self.bottleneck, h, enabled=n < levels)
+        h = remat_call(self.bottleneck, h, axes[n], enabled=n < levels)
         if self.moe_experts > 0:
+            if space is not None:
+                raise sp.unported("the UNet3D bottleneck's MoE")
             b, c = h.shape[:2]
             tokens = h.permute(0, 2, 3, 4, 1).reshape(b, -1, c)  # [B, D*H*W, C] in flax's raster order
             tokens = tokens + self.moe_bottleneck(self.moe_ln(tokens))
             h = tokens.reshape(b, *h.shape[2:], c).permute(0, 4, 1, 2, 3)
         heads = self.training and capturing()
+        if heads and self.ds_levels and space is not None:
+            raise sp.unported("deep supervision")
         for i in reversed(range(n)):
             h = getattr(self, f"up{i}")(h)
+            if axes[i + 1] is None and axes[i] is not None:
+                h = sp.slice_depth(h, space)  # this rank's slab of a whole level's output
             skip = skips[i - 1] if i > 0 else x
-            h = remat_call(getattr(self, f"dec{i}"), torch.cat([h, skip], dim=1), enabled=i < levels)
+            h = remat_call(getattr(self, f"dec{i}"), torch.cat([h, skip], dim=1), axes[i], enabled=i < levels)
             if heads and 1 <= i <= self.ds_levels:
                 sow(f"ds{i}", head_linear(h, getattr(self, f"ds_head{i}")))
         return head_linear(h, self.head)

@@ -20,6 +20,13 @@ Remat covers each encoder and each fusion and decoder stage. At full width
 (channels 32..512, two subunits) the model has 208 parameter tensors, 98 of
 them norm affines, and a forward makes 52 norm calls: 40 in the encoders, 4
 in the fusion, 8 in the decoder. ``forward`` takes and returns NDHWC.
+
+Over the space axis (``parallel/space.py``) ``x`` is this rank's depth
+slab; the encoders and the shared path follow the flagship's rule
+(``space.level_axes``; a stage whose output level is whole takes its input
+gathered, an ``UpSample`` into a split level keeps its slab of the repeat),
+and ``_spatial_mean`` sums over the space group with its gradient and
+divides by the whole volume's count.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from torch import nn
 from .. import DeviceLike, resolve_device
 from ..registry import register_model
 from ..utils.config import get_config
+from ..parallel import space as sp
 from .layers import ConvBlock, ResidualUnit, UpSample, conv3d_same, head_linear, remat_call
 from .unet3d import finish_model
 
@@ -45,9 +53,14 @@ def _mean(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     return (acc / len(tensors)).to(tensors[0].dtype)
 
 
-def _spatial_mean(h: torch.Tensor) -> torch.Tensor:
-    """Mean over D, H, W of [B, C, D, H, W]: f32 sum, cast back."""
-    return h.float().mean(dim=(2, 3, 4)).to(h.dtype)
+def _spatial_mean(h: torch.Tensor, space=None) -> torch.Tensor:
+    """Mean over D, H, W of [B, C, D, H, W]: f32 sum, cast back. Over a split
+    depth (``space``) the slabs' sums meet, with their gradient, and the
+    count is the whole volume's."""
+    if space is None:
+        return h.float().mean(dim=(2, 3, 4)).to(h.dtype)
+    total = sp.space_sum(h.float().sum(dim=(2, 3, 4)), space, grad=True)
+    return (total / float(h[0, 0].numel() * space.size)).to(h.dtype)
 
 
 class SpecificEncoder(nn.Module):
@@ -62,15 +75,19 @@ class SpecificEncoder(nn.Module):
                                                       act=act, dropout=dropout, dtype=dtype))
             cin = feat
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, List[torch.Tensor]]:
-        """x [B,1,D,H,W] -> (bottleneck, global feature [B,C], skips)."""
+    def forward(self, x: torch.Tensor, axes=None) -> Tuple[torch.Tensor, torch.Tensor, List[torch.Tensor]]:
+        """x [B,1,D,H,W] -> (bottleneck, global feature [B,C], skips);
+        ``axes``: each level's space axis (None where it is whole)."""
+        axes = axes or [None] * (self.n_layers + 1)
         skips = []
         h = x
         for i in range(self.n_layers):
-            h = getattr(self, f"layer{i}")(h)
+            if axes[i] is not None and axes[i + 1] is None:
+                h = sp.gather_depth(h, axes[i])  # the stage's output level is whole
+            h = getattr(self, f"layer{i}")(h, axes[i + 1])
             if i < self.n_layers - 1:
                 skips.append(h)
-        return h, _spatial_mean(h), skips
+        return h, _spatial_mean(h, axes[-1]), skips
 
 
 class CompositionalLayer(nn.Module):
@@ -80,8 +97,8 @@ class CompositionalLayer(nn.Module):
         super().__init__()
         self.fusion_conv = ConvBlock(2 * features, features, 3, 1, norm, act, dtype=dtype)
 
-    def forward(self, f_shared: torch.Tensor, f_specific: torch.Tensor) -> torch.Tensor:
-        return f_shared + self.fusion_conv(torch.cat([f_shared, f_specific], dim=1))
+    def forward(self, f_shared: torch.Tensor, f_specific: torch.Tensor, space=None) -> torch.Tensor:
+        return f_shared + self.fusion_conv(torch.cat([f_shared, f_specific], dim=1), space)
 
 
 class DecoderStage(nn.Module):
@@ -94,13 +111,17 @@ class DecoderStage(nn.Module):
         self.conv = ResidualUnit(features + skip_features, features, 1, subunits=num_res_units, norm=norm,
                                  act=act, dropout=dropout, dtype=dtype)
 
-    def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
-        return self.conv(torch.cat([self.upsample(x), skip], dim=1))
+    def forward(self, x: torch.Tensor, skip: torch.Tensor, space=None, slice_to=None) -> torch.Tensor:
+        """``space``: the output level's space axis; ``slice_to``: the same
+        axis when ``x``'s level is whole and the output's split."""
+        return self.conv(torch.cat([self.upsample(x, slice_to), skip], dim=1), space)
 
 
 @register_model("unet_multimodal_deepfusion")
 @register_model("unet_multimodal_midfusion")
 class MultimodalUNetMidFusion(nn.Module):
+    space_ported = True  # runs over the space axis (parallel/space.py)
+
     def __init__(
         self,
         num_modalities: int = 4,
@@ -178,30 +199,36 @@ class MultimodalUNetMidFusion(nn.Module):
         M = self.num_modalities
         if x.shape[-1] != M:
             raise ValueError(f"Expected {M} modalities, got {x.shape[-1]} channels")
+        space = sp.current()
+        # each level's axis (None where it is whole): the encoders' levels
+        # 0..5, strides then the stride-1 bottleneck stage
+        axes = sp.level_axes(space, x.shape[1], list(self.strides) + [1])
         x = x.to(self.dtype).permute(0, 4, 1, 2, 3)  # NCDHW view of NDHWC memory
 
         feats, globs, all_skips = [], [], []
         for m in range(M):
             xm = x[:, m:m + 1].contiguous(memory_format=torch.channels_last_3d)
-            feat, glob, skips = remat_call(getattr(self, f"specific_encoder{m}"), xm, enabled=self.remat)
+            feat, glob, skips = remat_call(getattr(self, f"specific_encoder{m}"), xm, axes, enabled=self.remat)
             feats.append(feat)
             globs.append(glob)
             all_skips.append(skips)
 
         shared = _mean(feats)
-        fused = [remat_call(self.fusion_layer, shared, f, enabled=self.remat) for f in feats]
-        h = conv3d_same(torch.cat(fused, dim=1), self.bottleneck_reduce, self.dtype)
+        fused = [remat_call(self.fusion_layer, shared, f, axes[-1], enabled=self.remat) for f in feats]
+        h = conv3d_same(torch.cat(fused, dim=1), self.bottleneck_reduce, self.dtype, axes[-1])
 
         fused_skips = [_mean([sk[i] for sk in all_skips]) for i in range(len(all_skips[0]))]
         input_mean = _mean([x[:, m:m + 1] for m in range(M)])
         for i, skip in enumerate([fused_skips[2], fused_skips[1], fused_skips[0], input_mean]):
-            h = remat_call(getattr(self, f"decoder{i}"), h, skip, enabled=self.remat)
+            # decoder i: level 4 - i up to level 3 - i
+            slice_to = space if axes[4 - i] is None and axes[3 - i] is not None else None
+            h = remat_call(getattr(self, f"decoder{i}"), h, skip, axes[3 - i], slice_to, enabled=self.remat)
 
         logits = head_linear(h, self.final_conv)
         if self.domain_classifier is None:
             return logits
         if return_intermediate_features:
-            shared_glob = _spatial_mean(shared)
+            shared_glob = _spatial_mean(shared, axes[-1])
             return logits, [shared_glob] * M, globs
         if return_domain_logits:
             stacked = torch.cat(globs, dim=0).float()  # [M*B, C], row m*B + b

@@ -11,13 +11,21 @@ Layout: channels-last. The normalizer built here takes a batch
 ``[B, *spatial, C]`` and takes its statistics per sample — the per-sample
 application that the reference's Tent step writes as ``jax.vmap``. The
 fallback is a ``torch.where`` select, so nothing waits on the device.
+
+Over the space axis (``space=``, ``parallel/space.py``) the batch is this
+rank's depth slab: the counts and sums of a statistic are summed over the
+space group, the reference's formula kept (two all-reduces a call: the
+means, then the squared deviations).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
+
+from ..parallel.space import space_size, space_sum
 
 
 def zscore_masked(
@@ -26,11 +34,15 @@ def zscore_masked(
     eps: float = 1e-6,
     min_count: int = 16,
     dim: Optional[Sequence[int]] = None,
+    space=None,
 ) -> torch.Tensor:
     """Z-score ``x`` using stats over voxels > mask_gt, reduced over ``dim``
     (all dims when None). Falls back to whole-volume stats where fewer than
-    ``min_count`` voxels pass the mask."""
+    ``min_count`` voxels pass the mask. With ``space`` the reduced dims hold
+    this rank's slab of a volume split over the space axis."""
     dim = tuple(range(x.dim())) if dim is None else tuple(dim)
+    if space is not None:
+        return _zscore_masked_split(x, mask_gt, eps, min_count, dim, space)
     m = x > mask_gt
     cnt = m.sum(dim=dim, keepdim=True)
     use_mask = cnt >= min_count
@@ -45,6 +57,25 @@ def zscore_masked(
 
     mu = torch.where(use_mask, mu_masked, mu_all)
     var = torch.where(use_mask, var_masked, var_all)
+    sd = torch.clamp(torch.sqrt(var), min=eps)
+    return (x - mu) / sd
+
+
+def _zscore_masked_split(x, mask_gt, eps, min_count, dim, space) -> torch.Tensor:
+    """``zscore_masked`` over a slab: the count, the masked sum and the sum
+    summed over the space group, then the two squared deviations."""
+    m = x > mask_gt
+    mf = m.to(x.dtype)
+    n_all = float(math.prod(x.shape[d] for d in dim) * space_size(space))
+    first = space_sum(torch.stack([m.sum(dim=dim, keepdim=True).to(x.dtype), (x * mf).sum(dim=dim, keepdim=True),
+                                   x.sum(dim=dim, keepdim=True)]), space)
+    cnt, use_mask = first[0], first[0] >= min_count
+    n_masked = torch.clamp(cnt, min=1.0)
+    mu_masked, mu_all = first[1] / n_masked, first[2] / n_all
+    second = space_sum(torch.stack([(((x - mu_masked) ** 2) * mf).sum(dim=dim, keepdim=True),
+                                    ((x - mu_all) ** 2).sum(dim=dim, keepdim=True)]), space)
+    mu = torch.where(use_mask, mu_masked, mu_all)
+    var = torch.where(use_mask, second[0] / n_masked, second[1] / n_all)
     sd = torch.clamp(torch.sqrt(var), min=eps)
     return (x - mu) / sd
 
@@ -95,10 +126,11 @@ def make_intensity_normalizer(
     mean: Optional[Sequence[float]] = None,
     std: Optional[Sequence[float]] = None,
 ) -> Callable[[torch.Tensor], torch.Tensor]:
-    """Build ``f(x[B, *spatial, C]) -> x[B, *spatial, C]`` with per-sample
-    statistics (config semantics as in the reference)."""
+    """Build ``f(x[B, *spatial, C], space=None) -> x[B, *spatial, C]`` with
+    per-sample statistics (config semantics as in the reference); ``space``
+    when ``x`` is this rank's depth slab (``parallel/space.py``)."""
     if not normalize:
-        return lambda x: x
+        return lambda x, space=None: x
 
     ip: Dict[str, Any] = {}
     if intensity_policy is not None:
@@ -107,7 +139,7 @@ def make_intensity_normalizer(
 
     if bool(ip.get("enabled", False)):
 
-        def normalize_policy(x: torch.Tensor) -> torch.Tensor:
+        def normalize_policy(x: torch.Tensor, space=None) -> torch.Tensor:
             c = x.shape[-1]
             rules = _parse_rules(ip, channel_names, c)
             per_sample = tuple(range(1, x.dim() - 1))
@@ -120,7 +152,13 @@ def make_intensity_normalizer(
                 zc = rule["zscore"]
                 if zc is not None:
                     if zc["masked"]:
-                        ch = zscore_masked(ch, zc["mask_gt"], zc["eps"], zc["min_count"], dim=per_sample)
+                        ch = zscore_masked(ch, zc["mask_gt"], zc["eps"], zc["min_count"], dim=per_sample,
+                                           space=space)
+                    elif space is not None:
+                        n = float(math.prod(ch.shape[1:]) * space_size(space))
+                        mu = space_sum(ch.sum(dim=per_sample, keepdim=True), space) / n
+                        var = space_sum(((ch - mu) ** 2).sum(dim=per_sample, keepdim=True), space) / n
+                        ch = (ch - mu) / torch.clamp(torch.sqrt(var), min=zc["eps"])
                     else:
                         mu = ch.mean(dim=per_sample, keepdim=True)
                         sd = torch.clamp(ch.std(dim=per_sample, keepdim=True, correction=0), min=zc["eps"])
@@ -133,7 +171,7 @@ def make_intensity_normalizer(
     mean_l = [0.0] if mean is None else [float(m) for m in mean]
     std_l = [1.0] if std is None else [float(s) for s in std]
 
-    def normalize_meanstd(x: torch.Tensor) -> torch.Tensor:
+    def normalize_meanstd(x: torch.Tensor, space=None) -> torch.Tensor:
         c = x.shape[-1]
         mu = torch.tensor(mean_l * c if len(mean_l) == 1 else mean_l, dtype=x.dtype, device=x.device)
         sd = torch.tensor(std_l * c if len(std_l) == 1 else std_l, dtype=x.dtype, device=x.device)

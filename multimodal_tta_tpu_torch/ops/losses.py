@@ -14,16 +14,24 @@ the generalized Wasserstein Dice criterion (``gwdl``, optionally with
 class-weighted CE), and the two losses the reference exports and calls
 nowhere, ``focal_loss`` and the batch-hard ``triplet_margin_loss``. Shapes
 are channels-last ``[B, *spatial, C]``.
+
+Over the space axis (``space=``, ``parallel/space.py``) the spatial dims
+hold this rank's depth slab: a mean over voxels is this slab's sum over the
+whole volume's count (the ranks' parts add up in the gradient sum), and a
+ratio of sums (Dice) is taken from the space group's sums, alike on every
+rank, and counted once as ``1 / space`` of it on each.
 """
 
 from __future__ import annotations
 
+import math
 from functools import partial
 from typing import Callable, Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
 
+from ..parallel.space import space_size, space_sum
 from ..utils.config import get_config
 
 
@@ -57,10 +65,12 @@ def soft_dice_loss(
     jaccard: bool = False,
     smooth_nr: float = 1e-5,
     smooth_dr: float = 1e-5,
+    space=None,
 ) -> torch.Tensor:
     """Soft dice loss on activated predictions.
 
-    pred/target: [B, *spatial, C] float. Returns scalar mean over (B, C).
+    pred/target: [B, *spatial, C] float. Returns scalar mean over (B, C)
+    (over a space axis: ``1 / space`` of it, from the group's sums).
     """
     pred = _flatten_spatial(pred)
     target = _flatten_spatial(target)
@@ -77,18 +87,22 @@ def soft_dice_loss(
         p_sum = pred.sum(dim=1)
         g_sum = target.sum(dim=1)
 
+    if space is not None:
+        sums = space_sum(torch.stack([inter, p_sum, g_sum]), space, grad=True)
+        inter, p_sum, g_sum = sums[0], sums[1], sums[2]
     denom = p_sum + g_sum
     if jaccard:
         denom = 2.0 * denom - 2.0 * inter  # union-style denominator
 
     dice = (2.0 * inter + smooth_nr) / (denom + smooth_dr)
-    return (1.0 - dice).mean()
+    return (1.0 - dice).mean() / space_size(space)
 
 
 def binary_cross_entropy_with_logits(
     logits: torch.Tensor,
     target: torch.Tensor,
     pos_weight: Optional[torch.Tensor] = None,
+    space=None,
 ) -> torch.Tensor:
     """Numerically-stable BCE-with-logits, optional per-channel pos_weight
     (``torch.nn.BCEWithLogitsLoss(pos_weight=w, reduction='mean')``, written
@@ -100,6 +114,8 @@ def binary_cross_entropy_with_logits(
         loss = -(w * target * log_p + (1.0 - target) * log_not_p)
     else:
         loss = -(target * log_p + (1.0 - target) * log_not_p)
+    if space is not None:
+        return loss.sum() / float(loss.numel() * space_size(space))
     return loss.mean()
 
 
@@ -107,6 +123,7 @@ def softmax_cross_entropy(
     logits: torch.Tensor,
     target_idx: torch.Tensor,
     class_weight: Optional[torch.Tensor] = None,
+    space=None,
 ) -> torch.Tensor:
     """CE with integer targets. logits [B, *spatial, C], target [B, *spatial].
 
@@ -118,7 +135,9 @@ def softmax_cross_entropy(
     if class_weight is not None:
         w = torch.as_tensor(class_weight, dtype=logits.dtype, device=logits.device)
         pix_w = w[target_idx]
-        return (nll * pix_w).sum() / torch.clamp(pix_w.sum(), min=1e-12)
+        return (nll * pix_w).sum() / torch.clamp(space_sum(pix_w.sum(), space), min=1e-12)
+    if space is not None:
+        return nll.sum() / float(nll.numel() * space_size(space))
     return nll.mean()
 
 
@@ -137,6 +156,7 @@ def dice_ce_loss(
     ce_weight: Union[Sequence[float], torch.Tensor, None] = None,
     smooth_nr: float = 1e-5,
     smooth_dr: float = 1e-5,
+    space=None,
 ) -> torch.Tensor:
     """Combined Dice + CE/BCE loss (MONAI DiceCELoss semantics).
 
@@ -154,12 +174,12 @@ def dice_ce_loss(
     if ce_weight is not None:
         w = torch.as_tensor(ce_weight, dtype=logits.dtype, device=logits.device)
     dice_kw = dict(include_background=include_background, squared_pred=squared_pred,
-                   jaccard=jaccard, smooth_nr=smooth_nr, smooth_dr=smooth_dr)
+                   jaccard=jaccard, smooth_nr=smooth_nr, smooth_dr=smooth_dr, space=space)
 
     if sigmoid:
         target_f = target.to(logits.dtype)
         l_dice = soft_dice_loss(torch.sigmoid(logits), target_f, **dice_kw)
-        l_ce = binary_cross_entropy_with_logits(logits, target_f, pos_weight=w)
+        l_ce = binary_cross_entropy_with_logits(logits, target_f, pos_weight=w, space=space)
     else:
         if to_onehot_y and target.dim() == logits.dim() - 1:
             target_idx = target.to(torch.int64)
@@ -172,7 +192,7 @@ def dice_ce_loss(
                 f"softmax mode: target ndim {target.dim()} incompatible with logits ndim {logits.dim()}"
             )
         l_dice = soft_dice_loss(torch.softmax(logits, dim=-1), target_1h, **dice_kw)
-        l_ce = softmax_cross_entropy(logits, target_idx, class_weight=w)
+        l_ce = softmax_cross_entropy(logits, target_idx, class_weight=w, space=space)
 
     return lambda_dice * l_dice + lambda_ce * l_ce
 
@@ -203,7 +223,7 @@ def make_dice_ce_loss(crit_cfg) -> Callable:
     if ce_weight is None:
         return loss
     weight = _Constant([float(x) for x in list(ce_weight)])
-    return lambda logits, target: loss(logits, target, ce_weight=weight.on(logits))
+    return lambda logits, target, **kw: loss(logits, target, ce_weight=weight.on(logits), **kw)
 
 
 def generalized_wasserstein_dice_loss(
@@ -385,6 +405,7 @@ def entropy_loss(
     sigmoid: bool = True,
     focus: str = "all",
     per_sample: bool = False,
+    space=None,
 ) -> torch.Tensor:
     """Prediction-entropy objective for Tent-style TTA.
 
@@ -399,14 +420,19 @@ def entropy_loss(
     Returns a scalar over the whole batch, as the reference does, or with
     ``per_sample=True`` one value per sample ``[B]`` — the reference's
     ``jax.vmap(lambda lg: entropy_loss(lg[None]))``.
+
+    Over a space axis (``space``) the value is this slab's part: its sum
+    over the space group's denominator; the parts add up to the whole.
     """
     h = _entropy_map(logits, sigmoid)
     dims = tuple(range(1 if per_sample else 0, h.dim()))
     if focus == "uncertain":
         w = h.detach()
-        return reduce_dims(h * w, dims) / torch.clamp(reduce_dims(w, dims), min=1e-12)
+        return reduce_dims(h * w, dims) / torch.clamp(space_sum(reduce_dims(w, dims), space), min=1e-12)
     if focus != "all":
         raise ValueError(f"Unknown entropy focus: {focus}")
+    if space is not None:
+        return reduce_dims(h, dims) / float(math.prod(h.shape[d] for d in dims) * space_size(space))
     return reduce_dims(h, dims, "mean")
 
 
@@ -416,6 +442,7 @@ def pseudo_label_loss(
     sigmoid: bool = True,
     conf_threshold: float = 0.9,
     per_sample: bool = False,
+    space=None,
 ) -> torch.Tensor:
     """Hard pseudo-label self-training objective for test-time adaptation:
     cross-entropy of the outputs against their OWN hard predictions,
@@ -433,7 +460,7 @@ def pseudo_label_loss(
     """
     ce, w = _pseudo_label_terms(logits, sigmoid, conf_threshold)
     dims = tuple(range(1 if per_sample else 0, ce.dim()))
-    return reduce_dims(ce * w, dims) / torch.clamp(reduce_dims(w, dims), min=1.0)
+    return reduce_dims(ce * w, dims) / torch.clamp(space_sum(reduce_dims(w, dims), space), min=1.0)
 
 
 def _pseudo_label_terms(logits: torch.Tensor, sigmoid: bool, conf_threshold: float):

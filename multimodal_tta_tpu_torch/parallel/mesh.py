@@ -22,11 +22,20 @@ over the port's optimizer, each rank keeping the state of a partition of
 whole tensors (the reference shards each moment's largest divisible dim:
 the same numbers, other bytes per rank).
 
+The space axis (``space > 1``): ``data x space`` ranks, rank ``r`` at
+``(d, s) = divmod(r, space)``. Rank ``(d, s)`` holds the rows
+``rows(n)`` of data rank ``d`` and the depth planes ``slab(D)``, ``[s*D/space,
+(s+1)*D/space)`` (``batch_sharding``). The space group (the ranks of one
+``d``) carries the conv halos, the norm statistics and the per-sample sums
+(``parallel/space.py``, the counterpart of ``constrain_activations``); the
+world carries the gradients; the data group (the ranks of one ``s``)
+gathers the rows of a per-sample result (``gather_rows``).
+
 What has no counterpart: ``ambient_axes``, ``constrain`` and
-``constrain_activations`` pin XLA layouts inside one program and mean
-nothing for a process per device. The ``space``, ``model``, ``expert`` and
-``stage`` axes are not ported yet (ROADMAP.md items 12b-ii to 12b-iv):
-a mesh that asks for one raises.
+``constrain_activations`` pin XLA layouts inside one program; here
+``parallel/space.py`` writes the collectives they imply. The ``model``,
+``expert`` and ``stage`` axes are not ported yet (ROADMAP.md items 12b-ii
+and 12b-iii): a mesh that asks for one raises.
 """
 
 from __future__ import annotations
@@ -42,6 +51,7 @@ from .. import DeviceLike, resolve_device
 from ..utils.config import get_config
 from ..utils.logger import get_logger
 from .distributed import local_rank, local_world_size
+from .space import all_gather_cat
 
 DATA_AXIS = "data"
 SPACE_AXIS = "space"
@@ -50,43 +60,88 @@ STAGE_AXIS = "stage"
 EXPERT_AXIS = "expert"
 
 # the ROADMAP item that ports each axis
-_UNPORTED_AXES = {SPACE_AXIS: "12b-iv", MODEL_AXIS: "12b-ii", EXPERT_AXIS: "12b-ii", STAGE_AXIS: "12b-iii"}
+_UNPORTED_AXES = {MODEL_AXIS: "12b-ii", EXPERT_AXIS: "12b-ii", STAGE_AXIS: "12b-iii"}
 
 
 class Mesh:
-    """The data axis over ``data`` ranks: this process's ``rank``, its
-    ``device`` and the process ``group`` (None for one process). With
-    ``data == 1`` every collective is the identity."""
+    """The data and space axes over ``data * space`` ranks: this process's
+    world ``rank``, its ``device`` and the process ``group`` (None: the
+    default group, or one process). With one rank every collective is the
+    identity."""
 
-    def __init__(self, device: torch.device, data: int = 1, rank: int = 0, group=None):
+    space = 1  # the space axis (class default: a mesh of the data axis alone)
+    space_group = None  # the ranks of this rank's data index (None: the world, or no space axis)
+    data_group = None  # the ranks of this rank's space index (None: the world, or no data axis)
+
+    def __init__(self, device: torch.device, data: int = 1, rank: int = 0, group=None, space: int = 1):
         self.device = device
         self.data = int(data)
+        self.space = int(space)
         self.rank = int(rank)
         self.group = group
-        if not 0 <= self.rank < self.data:
-            raise ValueError(f"[mesh] rank {self.rank} outside a data axis of {self.data}")
-        if self.data > 1 and not dist.is_initialized():
+        if not 0 <= self.rank < self.size:
+            raise ValueError(f"[mesh] rank {self.rank} outside a mesh of {self.data}x{self.space}")
+        if self.size > 1 and not dist.is_initialized():
             raise RuntimeError("[mesh] a data axis over several ranks needs a process group")
+        if self.space > 1 and self.data > 1:
+            # every rank creates every group, in one order (torch.distributed's rule)
+            for d in range(self.data):
+                g = dist.new_group([d * self.space + s for s in range(self.space)])
+                if d == self.data_rank:
+                    self.space_group = g
+            for s in range(self.space):
+                g = dist.new_group([d * self.space + s for d in range(self.data)])
+                if s == self.space_rank:
+                    self.data_group = g
 
     @property
     def shape(self) -> Dict[str, int]:
-        return {DATA_AXIS: self.data, SPACE_AXIS: 1}
+        return {DATA_AXIS: self.data, SPACE_AXIS: self.space}
 
     @property
     def size(self) -> int:
-        return self.data
+        return self.data * self.space
 
     @property
     def parallel(self) -> bool:
-        """More than one rank on the data axis."""
-        return self.data > 1
+        """More than one rank."""
+        return self.size > 1
+
+    @property
+    def data_rank(self) -> int:
+        return self.rank // self.space
+
+    @property
+    def space_rank(self) -> int:
+        return self.rank % self.space
 
     def rows(self, n: int) -> slice:
         """This rank's rows of a padded global batch of ``n``."""
         if n % self.data:
             raise ValueError(f"[mesh] a global batch of {n} does not split over a data axis of {self.data}")
         b = n // self.data
-        return slice(self.rank * b, (self.rank + 1) * b)
+        return slice(self.data_rank * b, (self.data_rank + 1) * b)
+
+    def slab(self, depth: int) -> slice:
+        """This rank's depth planes of a volume of ``depth`` planes."""
+        if depth % self.space:
+            raise ValueError(f"[mesh] a depth of {depth} does not split over a space axis of {self.space}")
+        k = depth // self.space
+        return slice(self.space_rank * k, (self.space_rank + 1) * k)
+
+    def local(self, x):
+        """This rank's rows and depth slab of a global batch ``x`` [B, D, ...]
+        (a tensor or numpy array; its own rows without a space axis)."""
+        x = x[self.rows(x.shape[0])]
+        return x[:, self.slab(x.shape[1])] if self.space > 1 else x
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """The global batch of a per-voxel result ``t`` [b, d, ...] that
+        ``local`` cut: the depth gathered over the space group, then the
+        rows over the data group (``t`` itself on one rank)."""
+        if self.space > 1:
+            t = all_gather_cat(t, 1, self.space, self.space_group)
+        return self.gather_rows(t)
 
     # -- collectives (the identity on one rank) -----------------------------
     def sum(self, t: torch.Tensor) -> torch.Tensor:
@@ -118,13 +173,12 @@ class Mesh:
         return all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
 
     def gather_rows(self, t: torch.Tensor) -> torch.Tensor:
-        """Every rank's ``t`` (equal shapes), concatenated on dim 0 in rank
-        order: the global batch of a per-row tensor."""
-        if not self.parallel:
+        """Every data rank's ``t`` (equal shapes), concatenated on dim 0 in
+        rank order: the global batch of a per-row tensor. Over a space axis
+        the data group gathers: its space ranks hold the same rows."""
+        if self.data == 1:
             return t
-        parts = [torch.empty_like(t) for _ in range(self.data)]
-        dist.all_gather(parts, t.contiguous(), group=self.group)
-        return torch.cat(parts)
+        return all_gather_cat(t, 0, self.data, self.data_group if self.space > 1 else self.group)
 
     def broadcast_(self, tensors: Sequence[torch.Tensor]) -> None:
         """Rank 0's values into ``tensors`` on every rank."""
@@ -134,7 +188,7 @@ class Mesh:
                     dist.broadcast(t, src=0, group=self.group)
 
     def __repr__(self) -> str:
-        return f"Mesh(data={self.data}, rank={self.rank}, device={self.device})"
+        return f"Mesh(data={self.data}, space={self.space}, rank={self.rank}, device={self.device})"
 
 
 def data_axis_size(mesh: Optional[Mesh]) -> int:
@@ -184,9 +238,10 @@ def select_devices(training_cfg=None, device: DeviceLike = "cuda") -> List[torch
 
 def axis_sizes(n: int, *, data: int = -1, space: int = 1, model: int = 1, stage: int = 1,
                expert: int = 1) -> int:
-    """The data axis of a mesh over ``n`` ranks (``data=-1``: every rank),
-    with the reference's checks and messages; an axis other than ``data``
-    above 1 raises ``NotImplementedError``, naming its ROADMAP item."""
+    """The data axis of a mesh over ``n`` ranks (``data=-1``: every rank
+    the other axes leave), with the reference's checks and messages; a
+    model, expert or stage axis above 1 raises ``NotImplementedError``,
+    naming its ROADMAP item."""
     space, model, stage, expert = (max(1, int(a)) for a in (space, model, stage, expert))
     per_data = space * model * stage * expert
     if n % per_data != 0:
@@ -200,11 +255,11 @@ def axis_sizes(n: int, *, data: int = -1, space: int = 1, model: int = 1, stage:
         raise ValueError(
             f"mesh {data}x{space}x{model}x{expert}x{stage} != {n} devices"
         )
-    for axis, size in ((SPACE_AXIS, space), (MODEL_AXIS, model), (EXPERT_AXIS, expert), (STAGE_AXIS, stage)):
+    for axis, size in ((MODEL_AXIS, model), (EXPERT_AXIS, expert), (STAGE_AXIS, stage)):
         if size > 1:
             raise NotImplementedError(
                 f"[mesh] the {axis} axis ({axis}={size}) is not ported yet "
-                f"(ROADMAP.md, item {_UNPORTED_AXES[axis]}); only the data axis runs over ranks")
+                f"(ROADMAP.md, item {_UNPORTED_AXES[axis]}); the data and space axes run over ranks")
     return int(data)
 
 
@@ -219,9 +274,9 @@ def make_mesh(
 ) -> Mesh:
     """The mesh of this process over the default process group (one rank
     without one), on this rank's device of ``devices`` (by local rank;
-    default: ``select_devices()``). ``data=-1`` takes every rank. The
-    reference's size checks and messages; an axis other than ``data``
-    above 1 raises ``NotImplementedError``."""
+    default: ``select_devices()``). ``data=-1`` takes every rank that
+    ``space`` leaves. The reference's size checks and messages; a model,
+    expert or stage axis above 1 raises ``NotImplementedError``."""
     n = dist.get_world_size() if dist.is_initialized() else 1
     rank = dist.get_rank() if dist.is_initialized() else 0
     data = axis_sizes(n, data=data, space=space, model=model, stage=stage, expert=expert)
@@ -229,7 +284,7 @@ def make_mesh(
     device = devices[local_rank()] if len(devices) > 1 else devices[0]
     if device.type == "cuda":
         torch.cuda.set_device(device)
-    return Mesh(device, data=data, rank=rank, group=None)
+    return Mesh(device, data=data, rank=rank, group=None, space=max(1, int(space)))
 
 
 def mesh_from_config(config, device: DeviceLike = "cuda") -> Mesh:
@@ -252,7 +307,8 @@ def mesh_from_config(config, device: DeviceLike = "cuda") -> Mesh:
 @dataclass(frozen=True)
 class Layout:
     """Where a tensor lives over the ranks: its rows split over the data
-    axis (``batch_sharding``) or whole on every rank (``replicated``)."""
+    axis and, over a space axis, its depth (dim 1) over the space axis
+    (``batch_sharding``), or whole on every rank (``replicated``)."""
 
     mesh: Mesh
     rows: bool
@@ -261,12 +317,13 @@ class Layout:
         """``x`` (numpy or a tensor) as this rank holds it, on its device."""
         t = torch.as_tensor(x)
         if self.rows:
-            t = t[self.mesh.rows(t.shape[0])]
+            t = self.mesh.local(t) if t.dim() >= 4 else t[self.mesh.rows(t.shape[0])]
         return t.to(self.mesh.device)
 
 
 def batch_sharding(mesh: Mesh) -> Layout:
-    """The batch's rows over the data axis (the space axis is not ported)."""
+    """The batch's rows over the data axis and, when the mesh has a space
+    axis, the depth of a volume ([B, D, H, W, ...]) over the space axis."""
     return Layout(mesh, True)
 
 

@@ -1,0 +1,289 @@
+"""The space axis: a volume's depth split over the ranks of a space group
+(the counterpart of ``multimodal_tta_tpu/parallel/mesh.py:constrain_activations``).
+
+In the reference the space axis is a set of layout pins, and XLA's
+partitioner inserts the conv halo exchanges and the reductions. Here each
+rank is a process, so the model calls the collectives itself, and a run
+over ``space`` ranks computes what one process computes on whole volumes:
+
+  * the layout rule (``splits``): a level of depth ``D`` is split while
+    ``D % space == 0`` and every rank keeps at least 2 planes (the
+    reference's rule); every other level is whole, gathered and computed
+    alike on every space rank. A split level feeding a stride-2 conv holds
+    an even slab whenever the level below it is split too; a conv whose
+    output level is whole takes its input gathered (``gather_depth``);
+  * ``halo_exchange`` gives a conv over a split depth its neighbours'
+    boundary planes (zeros at the volume's two ends: SAME padding); its
+    backward adds the halos' gradients into their owners' planes;
+  * ``gather_depth`` (split -> whole): its backward all-reduces the
+    gradient over the space group and keeps this rank's slab, so a whole
+    level's gradient, which each rank takes only through its own slice of
+    the next split level (``slice_depth``, a local slice), enters the
+    world's gradient sum once;
+  * ``space_sum`` sums per-sample partial sums over the space group:
+    without a gradient (counts, statistics of the input), or with the sum's
+    gradient (``grad=True``: the backward all-reduces the gradient), for a
+    term that every rank computes alike from the global sums and divides
+    by ``space`` (Dice's ratio, a global mean's share).
+
+Every collective is an ``all_gather`` or an ``all_reduce`` over the space
+group, which gloo and NCCL both take for CUDA tensors. ``sharded(mesh)``
+makes the mesh's space axis the ambient one for a model's forward
+(``current``): the model computes each level's axis from it
+(``level_axes``) at every forward and hands it to the level's blocks as an
+argument, so no module keeps an axis; the loss, the intensity transform
+and Tent get theirs as an argument too.
+"""
+
+from __future__ import annotations
+
+from contextlib import contextmanager
+from typing import List, Optional
+
+import torch
+import torch.distributed as dist
+
+
+class SpaceAxis:
+    """This rank's place on the space axis of ``mesh``: ``size`` ranks,
+    this one at ``rank``, their process ``group``."""
+
+    def __init__(self, mesh):
+        self.size = int(mesh.space)
+        self.rank = int(mesh.space_rank)
+        self.group = mesh.space_group
+
+    def __repr__(self) -> str:
+        return f"SpaceAxis(size={self.size}, rank={self.rank})"
+
+
+# the ambient axes of the forwards running now, innermost last (as the
+# reference's ambient_axes): a model reads the axis of the block it runs in
+# without the mesh threaded through every module
+_ACTIVE: List[SpaceAxis] = []
+
+
+def axis_of(mesh) -> Optional[SpaceAxis]:
+    """The space axis of ``mesh`` (one object per mesh); None without one
+    (or without a mesh)."""
+    if mesh is None or getattr(mesh, "space", 1) <= 1:
+        return None
+    ax = getattr(mesh, "_space_axis", None)
+    if ax is None:
+        ax = mesh._space_axis = SpaceAxis(mesh)
+    return ax
+
+
+@contextmanager
+def sharded(mesh):
+    """The space axis of ``mesh`` is the ambient one inside the block (a
+    model's forward reads it with ``current``); without one the block runs
+    as it is."""
+    ax = axis_of(mesh)
+    if ax is None:
+        yield None
+        return
+    _ACTIVE.append(ax)
+    try:
+        yield ax
+    finally:
+        _ACTIVE.remove(ax)
+
+
+def current() -> Optional[SpaceAxis]:
+    return _ACTIVE[-1] if _ACTIVE else None
+
+
+def splits(depth: int, size: int) -> bool:
+    """Whether a level of ``depth`` planes is split over ``size`` ranks: the
+    reference's ``constrain_activations`` rule."""
+    return size > 1 and depth % size == 0 and depth // size >= 2
+
+
+def level_axes(ax: Optional[SpaceAxis], depth: int, strides) -> List[Optional[SpaceAxis]]:
+    """The axis of each level of a pyramid whose input holds ``depth`` local
+    planes (the input level must be split) and whose levels follow by
+    ``strides``: ``ax`` where the level is split, None where it is whole."""
+    if ax is None:
+        return [None] * (len(strides) + 1)
+    d = depth * ax.size
+    if not splits(d, ax.size):
+        raise ValueError(f"[space] an input depth of {d} does not split over a space axis of {ax.size} "
+                         f"(each rank needs at least 2 planes)")
+    out = [ax]
+    for s in strides:
+        d = -(-d // int(s))
+        out.append(ax if splits(d, ax.size) else None)
+    return out
+
+
+UNPORTED_ITEM = "12b-v"  # the ROADMAP item of what does not run over the space axis yet
+
+
+def unported(what: str, item: str = UNPORTED_ITEM) -> NotImplementedError:
+    return NotImplementedError(f"[space] {what} over the space axis is not ported yet (ROADMAP.md, item {item})")
+
+
+def require_support(model, mesh) -> None:
+    """Raise unless ``model`` runs over the space axis of ``mesh`` (the
+    flagship UNet3D and the mid-fusion UNet do: ``space_ported``)."""
+    if axis_of(mesh) is not None and not getattr(model, "space_ported", False):
+        raise unported(f"the model {type(model).__name__}")
+
+
+# ---- collectives --------------------------------------------------------------
+
+
+def _cl(t: torch.Tensor, dim: int):
+    """``t`` with ``dim`` moved to 1 in a contiguous view (an NCDHW tensor in
+    channels_last_3d memory is NDHWC underneath: a free permute), and the
+    permutation back."""
+    if t.dim() == 5 and dim == 2 and t.is_contiguous(memory_format=torch.channels_last_3d):
+        return t.permute(0, 2, 3, 4, 1), (0, 4, 1, 2, 3), 1
+    return t.contiguous(), None, dim
+
+
+def all_gather_cat(t: torch.Tensor, dim: int, size: int, group) -> torch.Tensor:
+    """Every rank's ``t`` (equal shapes) of ``group`` concatenated on
+    ``dim`` in rank order (no gradient)."""
+    v, back, d = _cl(t, dim)
+    parts = [torch.empty_like(v) for _ in range(size)]
+    dist.all_gather(parts, v, group=group)
+    out = torch.cat(parts, dim=d)
+    return out.permute(*back) if back is not None else out
+
+
+class _GatherDepth(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, ax):
+        ctx.dim, ctx.ax, ctx.local = dim, ax, x.shape[dim]
+        return all_gather_cat(x, dim, ax.size, ax.group)
+
+    @staticmethod
+    def backward(ctx, g):
+        v, back, d = _cl(g, ctx.dim)
+        v = v.clone()
+        dist.all_reduce(v, op=dist.ReduceOp.SUM, group=ctx.ax.group)
+        v = v.narrow(d, ctx.ax.rank * ctx.local, ctx.local)
+        return (v.permute(*back) if back is not None else v), None, None
+
+
+def gather_depth(x: torch.Tensor, ax: SpaceAxis, dim: int = 2) -> torch.Tensor:
+    """Split -> whole: the space group's slabs of ``x`` concatenated on
+    ``dim``. Backward: the gradient all-reduced over the group, this rank's
+    slab of it."""
+    return _GatherDepth.apply(x, dim, ax)
+
+
+def slice_depth(x: torch.Tensor, ax: SpaceAxis, dim: int = 2) -> torch.Tensor:
+    """Whole -> split: this rank's slab of ``x`` on ``dim`` (a local slice;
+    its backward is local too)."""
+    k = x.shape[dim] // ax.size
+    if k * ax.size != x.shape[dim]:
+        raise ValueError(f"[space] a depth of {x.shape[dim]} does not split over {ax.size} ranks")
+    return x.narrow(dim, ax.rank * k, k)
+
+
+def _exchange(x: torch.Tensor, dim: int, ax: SpaceAxis, first: int, last: int):
+    """All-gather each rank's first ``first`` and last ``last`` planes of
+    ``x`` on ``dim``; returns (the left neighbour's last ``last`` planes, the
+    right neighbour's first ``first`` planes), zeros past the volume's ends."""
+    v, back, d = _cl(x, dim)
+    n = v.shape[d]
+    pieces = [v.narrow(d, 0, first), v.narrow(d, n - last, last)]
+    buf = torch.cat(pieces, dim=d).contiguous()
+    parts = [torch.empty_like(buf) for _ in range(ax.size)]
+    dist.all_gather(parts, buf, group=ax.group)
+    if ax.rank > 0:
+        left = parts[ax.rank - 1].narrow(d, first, last)
+    else:
+        left = buf.new_zeros(buf.narrow(d, first, last).shape)
+    if ax.rank < ax.size - 1:
+        right = parts[ax.rank + 1].narrow(d, 0, first)
+    else:
+        right = buf.new_zeros(buf.narrow(d, 0, first).shape)
+    if back is not None:
+        left, right = left.permute(*back), right.permute(*back)
+    return left, right
+
+
+class _Halo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, lo, hi, dim, ax):
+        ctx.lo, ctx.hi, ctx.dim, ctx.ax = lo, hi, dim, ax
+        left, right = _exchange(x, dim, ax, hi, lo)
+        fmt = torch.channels_last_3d if x.dim() == 5 and x.is_contiguous(memory_format=torch.channels_last_3d) \
+            else torch.contiguous_format
+        return torch.cat([left, x, right], dim=dim).contiguous(memory_format=fmt)
+
+    @staticmethod
+    def backward(ctx, g):
+        lo, hi, dim, ax = ctx.lo, ctx.hi, ctx.dim, ctx.ax
+        n = g.shape[dim] - lo - hi
+        mid = g.narrow(dim, lo, n).clone()
+        gl, gr = g.narrow(dim, 0, lo), g.narrow(dim, lo + n, hi)
+        # the left halo's gradient belongs to the left neighbour's last lo
+        # planes, the right halo's to the right neighbour's first hi planes
+        both = torch.cat([gr, gl], dim=dim)  # each rank's [right halo | left halo] gradients
+        v, back, d = _cl(both, dim)
+        v = v.contiguous()
+        parts = [torch.empty_like(v) for _ in range(ax.size)]
+        dist.all_gather(parts, v, group=ax.group)
+        if back is not None:
+            parts = [p.permute(*back) for p in parts]
+        if hi and ax.rank > 0:
+            mid.narrow(dim, 0, hi).add_(parts[ax.rank - 1].narrow(dim, 0, hi))
+        if lo and ax.rank < ax.size - 1:
+            mid.narrow(dim, n - lo, lo).add_(parts[ax.rank + 1].narrow(dim, hi, lo))
+        return mid, None, None, None, None
+
+
+def halo_exchange(x: torch.Tensor, lo: int, hi: int, ax: SpaceAxis, dim: int = 2) -> torch.Tensor:
+    """``x`` with ``lo`` planes of the left neighbour before it and ``hi``
+    planes of the right neighbour after it on ``dim`` (zeros at the
+    volume's two ends). Backward: each halo's gradient is added into the
+    planes of the rank that owns them."""
+    n = x.shape[dim]
+    if lo > n or hi > n:
+        raise ValueError(f"[space] halos ({lo}, {hi}) wider than a slab of {n} planes")
+    if lo == 0 and hi == 0:
+        return x
+    return _Halo.apply(x, lo, hi, dim, ax)
+
+
+class _SumWithGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, ax):
+        ctx.ax = ax
+        out = t.detach().clone()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=ax.group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.ax.group)
+        return g, None
+
+
+def space_sum(t: torch.Tensor, ax: Optional[SpaceAxis], grad: bool = False) -> torch.Tensor:
+    """``t`` summed over the space group as a new tensor (``t`` itself
+    without an axis). Without ``grad`` it carries no gradient; with it, the
+    gradient of each rank's ``t`` is the sum of the ranks' upstream
+    gradients, so a term that every rank computes alike from the sum and
+    divides by the axis size enters the world's gradient sum once."""
+    if ax is None:
+        return t
+    if grad:
+        return _SumWithGrad.apply(t, ax)
+    out = t.detach().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=ax.group)
+    return out
+
+
+def space_size(ax: Optional[SpaceAxis]) -> int:
+    return 1 if ax is None else ax.size
+
+
+__all__ = ["SpaceAxis", "axis_of", "sharded", "current", "splits", "level_axes", "require_support", "unported",
+           "all_gather_cat", "gather_depth", "slice_depth", "halo_exchange", "space_sum", "space_size"]

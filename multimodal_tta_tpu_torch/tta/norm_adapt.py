@@ -9,7 +9,8 @@ statistics, continual mode carries them. ``restore()`` puts the source
 statistics back. Models without batch statistics (the InstanceNorm ones)
 pass through unchanged, with a warning, in both modes. Over ranks
 (``mesh``) the statistics pool over the ranks' rows
-(``models/layers.py:pool_over_ranks``).
+(``models/layers.py:pool_over_ranks``); over a space axis a BatchNorm
+raises (``parallel/space.py``).
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from ..models.layers import (
     running_statistics,
 )
 from ..ops.intensity import make_intensity_normalizer
+from ..parallel import space as sp
 from ..registry import register_tta_method
 from ..utils.config import get_config
 from ..utils.logger import get_logger
@@ -82,8 +84,8 @@ class NormAdapter:
                 load_running_statistics(state, self._source)
             image = torch.as_tensor(image).to(self.device, torch.float32)  # upcast compact transfer dtypes
             if self._norm_fn is not None:
-                image = self._norm_fn(image)
-            with batch_statistics(state):
+                image = self._norm_fn(image, space=sp.axis_of(self.mesh))
+            with sp.sharded(self.mesh), batch_statistics(state):
                 state(image)
             return state
 

@@ -191,11 +191,11 @@ class StreamTTAController:
             if b % mesh.data:
                 pad = image.new_zeros((mesh.data - b % mesh.data,) + tuple(image.shape[1:]))
                 image = torch.cat([image, pad])
-            image = image[mesh.rows(image.shape[0])]
+            image = mesh.local(image)  # its rows (and, over a space axis, its depth slab)
         if self.gate and self.mode == "forward":
             pred, ent_obj, ent_gate = self._fp(self.state, image, int(n_valid))
             if mesh is not None:
-                pred = mesh.gather_rows(pred)
+                pred = mesh.gather(pred)
             if self._gate_ref is None:
                 self._gate_ref = ent_gate
             if self._e0 is None:
@@ -229,7 +229,7 @@ class StreamTTAController:
         self.n_adapt_batches += 1
         self.state, pred = self._ap(self.state, image, int(n_valid), ent_floor=floor)
         if mesh is not None:
-            pred = mesh.gather_rows(pred)
+            pred = mesh.gather(pred)
         ents = self.adapter._last_ents
         ent_first, ent_final = torch.stack([ents[0], ents[-1]]).tolist()  # one device read
         if self._e0 is None:

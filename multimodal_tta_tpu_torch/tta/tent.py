@@ -65,7 +65,10 @@ made for the global batch from the equally seeded generator and each rank
 takes its rows (its windows: ``windows_per_step`` must divide by the data
 axis, and the windows are cut from the gathered global batch). The serving
 artifact and the other methods do not run over ranks (ROADMAP.md, item
-12b-ii).
+12b-ii). Over a space axis each rank also holds a depth slab: the forwards
+run split (``parallel/space.py``), each sample's objective is the slab's
+part over the space group's denominator (so the world's sum holds it once),
+and the predictions are the slab's; Tent's windows raise there.
 """
 
 from __future__ import annotations
@@ -99,7 +102,9 @@ from ..ops.augment import (
 )
 from ..ops.intensity import make_intensity_normalizer
 from ..ops.losses import entropy_loss, entropy_sums, pseudo_label_loss, pseudo_label_sums
+from ..parallel import space as sp
 from ..parallel.mesh import Mesh
+from ..parallel.space import space_sum
 from ..registry import register_tta_method
 from ..utils.config import get_config
 from ..utils.logger import get_logger
@@ -133,12 +138,14 @@ def norm_param_mask(model: nn.Module) -> Dict[str, bool]:
     }
 
 
-def reliability_weights(logits: torch.Tensor, *, sigmoid: bool, margin_ratio: float) -> torch.Tensor:
+def reliability_weights(logits: torch.Tensor, *, sigmoid: bool, margin_ratio: float, space=None) -> torch.Tensor:
     """EATA-style per-sample reliability weights, [B] in [0, e^margin]: a
     sample whose SELF-NORMALIZED entropy exceeds ``margin_ratio * H_max``
     gets 0, the rest ``exp(margin - e)``. H_max = ln 2 per Bernoulli channel
-    (sigmoid) or ln C (softmax). No gradient flows through the weights."""
-    e = entropy_loss(logits.detach(), sigmoid=sigmoid, focus="uncertain", per_sample=True)
+    (sigmoid) or ln C (softmax). No gradient flows through the weights.
+    Over a space axis the sample's entropy is the space group's whole."""
+    e = entropy_loss(logits.detach(), sigmoid=sigmoid, focus="uncertain", per_sample=True, space=space)
+    e = space_sum(e, space)
     h_max = math.log(2.0) if sigmoid else math.log(float(logits.shape[-1]))
     margin = margin_ratio * h_max
     return torch.where(e < margin, torch.exp(margin - e), torch.zeros_like(e))
@@ -207,6 +214,9 @@ class TentAdapter:
         self.window_enabled = bool(get_config(wnd, "enabled", False))
         self.window_roi = tuple(int(x) for x in get_config(wnd, "roi_size", [32, 96, 96]))
         self.windows_per_step = int(get_config(wnd, "windows_per_step", 4))
+        self.space = sp.axis_of(self.mesh)
+        if self.window_enabled and self.space is not None:
+            raise sp.unported("Tent's windows (tta.window)")
         if self.window_enabled and self.windows_per_step % self.mesh.data:
             raise ValueError(
                 f"[tent] tta.window.windows_per_step={self.windows_per_step} must divide by the data "
@@ -365,6 +375,7 @@ class TentAdapter:
         """Select and unfreeze the adapted params, freeze the rest, keep the
         adapted params' source values, and start the carried state afresh."""
         reject_torch_batchnorm(model)
+        sp.require_support(model, self.mesh)
         for p in model.parameters():
             if p.device != self.device:
                 raise ValueError(f"[{self.method}] model is on {p.device}, adapter on {self.device}")
@@ -413,7 +424,8 @@ class TentAdapter:
         step's values (``_pure_values``)."""
         if self._values is not None:
             values = dict(self._values, **(values or {}))
-        return self._model(x) if values is None else functional_call(self._model, values, (x,))
+        with sp.sharded(self.mesh):
+            return self._model(x) if values is None else functional_call(self._model, values, (x,))
 
     def _student(self, x: torch.Tensor, update: bool = True) -> torch.Tensor:
         """The reference's student ``forward(trainable, bs, x)``: a BatchNorm
@@ -432,7 +444,7 @@ class TentAdapter:
         batch."""
         image = torch.as_tensor(image).to(self.device, torch.float32)
         if self._norm_fn is not None:
-            image = self._norm_fn(image)
+            image = self._norm_fn(image, space=self.space)
         n = image.shape[0] * self.mesh.data
         w = (torch.arange(n, device=image.device) < n_valid).to(torch.float32)
         return image, w[self.mesh.rows(n)], torch.clamp(w.sum(), min=1.0)
@@ -524,10 +536,12 @@ class TentAdapter:
         return group_draws(spec, make_draws(spec, self.generator, n_valid))
 
     def _per_sample_objective(self, logits: torch.Tensor) -> torch.Tensor:
+        # over a space axis: this slab's part of each sample's value
         if self.loss_mode.startswith("pl"):
             return pseudo_label_loss(logits, sigmoid=self.sigmoid_mode,
-                                     conf_threshold=self.pl_conf_threshold, per_sample=True)
-        return entropy_loss(logits, sigmoid=self.sigmoid_mode, focus=self.entropy_focus, per_sample=True)
+                                     conf_threshold=self.pl_conf_threshold, per_sample=True, space=self.space)
+        return entropy_loss(logits, sigmoid=self.sigmoid_mode, focus=self.entropy_focus, per_sample=True,
+                            space=self.space)
 
     def _batch_objective(self, logits: torch.Tensor) -> torch.Tensor:
         # over ranks the sums meet before the division (the denominators
@@ -559,11 +573,13 @@ class TentAdapter:
         logits = self._student(x)
         sw = w
         if self.rel_enabled:
-            sw = w * reliability_weights(logits, sigmoid=self.sigmoid_mode, margin_ratio=self.rel_margin_ratio)
+            sw = w * reliability_weights(logits, sigmoid=self.sigmoid_mode, margin_ratio=self.rel_margin_ratio,
+                                         space=self.space)
         loss = (self._per_sample_objective(logits) * sw).sum() / denom
         if d["cons"] is not None:
             p2 = self._probs(self._student(apply_intensity_scale_shift(x, *d["cons"]), update=False))
-            per_cons = ((self._probs(logits) - p2) ** 2).mean(dim=tuple(range(1, logits.dim())))
+            sq = (self._probs(logits) - p2) ** 2
+            per_cons = sq.sum(dim=tuple(range(1, logits.dim()))) / float(sq[0].numel() * sp.space_size(self.space))
             loss = loss + self.cons_weight * (per_cons * w).sum() / denom
         return loss, logits
 
@@ -651,8 +667,9 @@ class TentAdapter:
         if self._fisher_n >= self.fisher_batches:
             return
         with self._at_source():
-            logits = self._model(image)
-            per = entropy_loss(logits, sigmoid=self.sigmoid_mode, focus=self.entropy_focus, per_sample=True)
+            logits = self._run(image)
+            per = entropy_loss(logits, sigmoid=self.sigmoid_mode, focus=self.entropy_focus, per_sample=True,
+                               space=self.space)
             grads = self.mesh.sum_flat(torch.autograd.grad((per * w).sum() / denom, self._trainable))
         sq = [g * g for g in grads]
         self._fisher_sum = sq if self._fisher_sum is None else [a + b for a, b in zip(self._fisher_sum, sq)]
@@ -757,10 +774,11 @@ class TentAdapter:
         @torch.no_grad()
         def forward_predict_fn(state, image, n_valid):
             image, w, denom = self._prepare(image, n_valid)
-            logits = state(image)
-            obj = entropy_loss(logits, sigmoid=self.sigmoid_mode, focus=focus, per_sample=True)
+            with sp.sharded(self.mesh):
+                logits = state(image)
+            obj = entropy_loss(logits, sigmoid=self.sigmoid_mode, focus=focus, per_sample=True, space=self.space)
             gate = obj if focus == "all" else entropy_loss(logits, sigmoid=self.sigmoid_mode, focus="all",
-                                                           per_sample=True)
+                                                           per_sample=True, space=self.space)
             e = self.mesh.total(torch.stack([(obj * w).sum() / denom, (gate * w).sum() / denom])).tolist()
             return self._predict(logits, thr), e[0], e[1]
 

@@ -1,0 +1,144 @@
+#!/usr/bin/env python3
+"""chip_smoke.py's phase 23 alone: the space axis over ranks on one CUDA card.
+
+    python3 scripts/torch_space_parallel.py [--kernels] [--no-cli] [--witnesses]
+
+Builds the CUDA kernels and holds the four split-depth norm entries
+(``stats``, ``apply``, ``bwd_sums``, ``bwd_apply``) against their plain
+versions at the split norm shapes of one flagship training forward at batch
+8 on one of two space ranks, with their times and byte bounds
+(``chip_smoke.split_kernel_table``); with ``--kernels`` that is all. Then
+``chip_smoke.space_parallel_phase``: two ranks spawned on card 0
+(``training.devices=[0, 0]``, gloo) on a ``data=1 x space=2`` mesh against
+one process on the same global batches (the flagship at full width: training,
+validation, Tent online and strict, ``TTAEngine.evaluate``; one mid-fusion
+training step at BraTS size), each rank's launches exactly, its split
+kernels against their plain versions, its peak memory against one process's;
+then, unless ``--no-cli``, ``cli.train`` and ``cli.adapt`` under ``python -m
+torch.distributed.run --nproc_per_node=2`` with ``training.mesh.space=2`` on
+a HECKTOR21 fixture written here at (144,144,48). Prints the card's name and
+power limit, the phase's lines, and as the last line one JSON object with
+its numbers. Needs a CUDA card.
+
+``--witnesses`` (instead of the phase) reads how sensitive phase 23's
+mid-fusion step is to the order of its sums, in one process: the gradients
+of that f32 step (BraTS size, remat, TF32 off) taken again with cuDNN's
+deterministic algorithms (its weight gradients reduced in another order)
+and with the plain norm (the statistics summed by torch's reductions
+instead of the kernel's), each as a relative L2 from the first. These are
+what ``chip_smoke.SP_MID_GRAD_REL`` rests on.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shutil
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def mid_witnesses(dev) -> dict:
+    """The first mid-fusion step's gradients three ways (``--witnesses``):
+    each variant's relative L2 from the plain run's."""
+    import torch
+
+    import chip_smoke
+    from multimodal_tta_tpu_torch.conf import ConfigNode
+    from multimodal_tta_tpu_torch.core.optim import EpochScheduler, build_optimizer
+    from multimodal_tta_tpu_torch.core.train_state import TrainState
+    from multimodal_tta_tpu_torch.core.trainers.seg_trainer import SegTrainer
+    from multimodal_tta_tpu_torch.data.synthetic import brats_volumes
+    from multimodal_tta_tpu_torch.models.layers import set_plain_norm
+    from multimodal_tta_tpu_torch.models.unet_multimodal_midfusion import MultimodalUNetMidFusion
+
+    cfg = ConfigNode({"task": {"seed": 0}, "training": {
+        "optimizer": "sgd", "optimizers": {"sgd": {"lr": 1e-2, "momentum": 0.9}}, "remat": True,
+        "criterion": chip_smoke.MID_CRITERION, "compute_dtype": "float32",
+        "param_groups": {"no_decay_keys": ["bias", "norm", "scale"], "treat_1d_as_no_decay": True}}})
+    batch = chip_smoke._stack(brats_volumes(chip_smoke.SP_MID_BATCH, tuple(chip_smoke.BRATS_SHAPE), seed=232))
+
+    def grads(deterministic: bool, plain: bool) -> dict:
+        torch.backends.cudnn.deterministic = deterministic
+        try:
+            mid = MultimodalUNetMidFusion(channels=(32, 64, 128, 256, 512), remat=True, device=dev, seed=5)
+            set_plain_norm(mid, plain)
+            optimizer, lr = build_optimizer(cfg.training, mid, None)
+            trainer = SegTrainer(cfg, device_transform={"normalize": False}, device=dev)
+            trainer.setup(TrainState(model=mid, optimizer=optimizer), None, EpochScheduler(cfg.training, lr))
+            trainer.state.apply_gradients = lambda: False
+            trainer.run_step({"image": batch["image"], "label": batch["label"]})
+            return {n: p.grad.detach().clone() for n, p in mid.named_parameters() if p.grad is not None}
+        finally:
+            torch.backends.cudnn.deterministic = False
+
+    base = grads(False, False)
+    return {key: chip_smoke._grad_rel(grads(det, plain), base)
+            for key, det, plain in (("cudnn_deterministic", True, False), ("plain_norm", False, True))}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernels", action="store_true", help="only the split entries against their plain versions")
+    ap.add_argument("--no-cli", action="store_true", help="skip the torchrun CLI runs")
+    ap.add_argument("--witnesses", action="store_true", help="the mid-fusion step's sensitivity to its sums' order")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_space_parallel: needs a CUDA card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    from multimodal_tta_tpu_torch.data.synthetic import make_hecktor_fixture
+    from multimodal_tta_tpu_torch.kernels import _build
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(f"card: {card}", flush=True)
+    t0 = time.perf_counter()
+    built = {src: _build.load(src) for src in ("fused_instance_norm", "edt_minplus")}
+    print(f"kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
+    if args.kernels:  # ptxas -v of the split entries: registers, shared memory, spills
+        lines = built["fused_instance_norm"].log.splitlines()
+        for i, line in enumerate(lines):
+            if "_split" in line:
+                print("\n".join(lines[i:i + 3]), flush=True)
+    dev = torch.device("cuda")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if args.witnesses:
+        got = mid_witnesses(dev)
+        print(f"[witnesses] the mid-fusion step's gradients, relative L2 from the default run: {got}; card {card}")
+        print(json.dumps({"witnesses": got, "card": card}))
+        return 0
+    shapes = chip_smoke.split_norm_shapes(chip_smoke.TRAIN_BATCH, chip_smoke.SHAPE[:3], (32, 64, 128, 256, 512),
+                                          (2, 2, 2, 2))
+    table = chip_smoke.split_kernel_table(dev, shapes)
+    for row in table["per_shape"]:
+        print(f"[split] {row}", flush=True)
+    print(f"[split] totals {table['entries']}; ok {table['ok']}; card {card}", flush=True)
+    out = {"table": table, "card": card}
+    if not args.kernels:
+        root = os.path.join(REPO, "build", "space_parallel")  # build/ is in .gitignore
+        shutil.rmtree(root, ignore_errors=True)
+        manifest = None
+        if not args.no_cli:
+            manifest = make_hecktor_fixture(os.path.join(root, "fixture"), shape=chip_smoke.CLI_SHAPE,
+                                            centers={"CHUS": 4, "CHUM": 10, "CHGJ": 10})
+        sp = chip_smoke.space_parallel_phase(dev, os.path.join(root, "phase"), manifest=manifest)
+        sp["table"] = table
+        chip_smoke.log_space_parallel(sp, card)
+        shutil.rmtree(root, ignore_errors=True)
+        out["space_parallel"] = sp
+    print(json.dumps(out, default=str))
+    return 0 if table["ok"] else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

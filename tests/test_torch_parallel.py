@@ -103,12 +103,31 @@ def test_mesh_size_errors_match_reference(n, axes):
     assert mesh.axis_sizes(n, **axes) == want
 
 
-@pytest.mark.parametrize("axis,item", [("space", "12b-iv"), ("model", "12b-ii"), ("expert", "12b-ii"),
-                                       ("stage", "12b-iii")])
+@pytest.mark.parametrize("axis,item", [("model", "12b-ii"), ("expert", "12b-ii"), ("stage", "12b-iii")])
 def test_unported_axes_raise(axis, item):
     with pytest.raises(NotImplementedError, match=f"the {axis} axis .*item {item}"):
         mesh.axis_sizes(4, **{axis: 2})
     assert mesh.make_mesh([torch.device("cpu")], **{axis: 1}).data == 1  # a size of 1 is no axis
+
+
+def test_space_axis_sizes_rows_and_slabs():
+    """A ``data x space`` mesh: the reference's data size beside the space
+    axis, and rank ``(d, s) = divmod(r, space)`` holding data rank d's rows
+    and depth slab s of the global batch (``local``), its shape the real
+    axes."""
+    assert mesh.axis_sizes(4, space=2) == jmesh.make_mesh(jax.devices()[:4], space=2).shape["data"] == 2
+    assert mesh.axis_sizes(2, data=1, space=2) == 1
+    batch = np.arange(4 * 8 * 3, dtype=np.float32).reshape(4, 8, 3, 1)
+    for r in range(4):
+        m = mesh.Mesh.__new__(mesh.Mesh)
+        m.data, m.space, m.rank = 2, 2, r
+        d, s = divmod(r, 2)
+        assert (m.data_rank, m.space_rank, m.size, m.parallel) == (d, s, 4, True)
+        assert m.shape == {"data": 2, "space": 2}
+        assert m.rows(4) == slice(2 * d, 2 * d + 2) and m.slab(8) == slice(4 * s, 4 * s + 4)
+        np.testing.assert_array_equal(m.local(batch), batch[2 * d:2 * d + 2, 4 * s:4 * s + 4])
+    with pytest.raises(ValueError, match="does not split over a space axis of 2"):
+        m.slab(7)
 
 
 def test_one_process_mesh_rows_and_layouts():
