@@ -443,6 +443,87 @@ def cli_overrides(manifest: str, run_dir: str, *extra: str, model: str = "unet")
             f"hydra.run.dir={run_dir}", *extra]
 
 
+_LIVE = set()  # the processes run_command started that have not ended
+
+
+def run_command(cmd: list, timeout: float) -> subprocess.CompletedProcess:
+    """``subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+    timeout=timeout)``, with the process kept where ``stop_commands`` can
+    end it from another thread."""
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    _LIVE.add(proc)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.terminate()  # torchrun ends its ranks on SIGTERM
+        try:
+            proc.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+        raise
+    finally:
+        _LIVE.discard(proc)
+    return subprocess.CompletedProcess(cmd, proc.returncode, out, err)
+
+
+def stop_commands() -> None:
+    """End every process ``run_command`` started that still runs."""
+    for proc in list(_LIVE):
+        proc.terminate()
+    for proc in list(_LIVE):
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+
+
+class CliLane:
+    """Phase 22's NCCL probe and the torchrun command lines of phases 22-24
+    (``dp_torchrun_cli``, ``sp_torchrun_cli``, ``ad_torchrun_cli``), run one
+    after another on a thread of their own while this process goes on with
+    phases 15-21: each job is mostly the start of fresh processes (the
+    launcher's and each rank's imports, each rank's first kernels) and
+    writes under its own root. ``result(name)`` waits for the lane and returns that job's result
+    or raises its error; ``stop()`` ends what still runs."""
+
+    def __init__(self, jobs: dict):
+        import threading
+
+        self.results, self.seconds = {}, {}
+        self.t0 = time.perf_counter()
+        self.wall_s = None
+        self._thread = threading.Thread(target=self._run, args=(dict(jobs),), name="cli-lane", daemon=True)
+        self._thread.start()
+
+    def _run(self, jobs: dict) -> None:
+        for name, job in jobs.items():
+            t = time.perf_counter()
+            try:
+                self.results[name] = job()
+            except BaseException as e:  # raised again by result(name)
+                self.results[name] = e
+            self.seconds[name] = time.perf_counter() - t
+        self.wall_s = time.perf_counter() - self.t0
+
+    def join(self) -> float:
+        """Wait for the lane; the seconds this process waited."""
+        t = time.perf_counter()
+        self._thread.join()
+        return time.perf_counter() - t
+
+    def result(self, name: str):
+        self._thread.join()
+        got = self.results[name]
+        if isinstance(got, BaseException):
+            raise AssertionError(f"the CLI lane's {name} job failed: {type(got).__name__}: {got}") from got
+        return got
+
+    def stop(self) -> None:
+        stop_commands()
+        self._thread.join(timeout=60)
+
+
 def cli_phase(device, root: str, *, shape=CLI_SHAPE, centers=CLI_CENTERS, extra=(),
               reset_counts=lambda: None, read_counts=lambda: {}) -> dict:
     """Phase 14: the port's command-line entry points end to end, as a user
@@ -2351,7 +2432,10 @@ SERVING_ARTIFACT_RUNS = (("continual_inline", ["tta=tent", "tta.episodic=false",
                          ("episodic_post", ["tta=tent", "tta.episodic=true", "tta.predict=post"], 6))
 # the other methods' pure steps, one batch each against their live step
 # (SAR with every sample reliable: random weights are too uncertain for its
-# stock gate, which would leave nothing to compare)
+# stock gate, which would leave nothing to compare), on the flagship's first
+# SERVING_METHODS_LEVELS levels: tracing the whole flagship's step took 10-15 s
+# a method on an H100 host, and the operators it holds are the same at any depth
+SERVING_METHODS_LEVELS = 3
 SERVING_ARTIFACT_METHODS = (("sar", ["tta=sar", "tta.steps=1", "tta.margin_ratio=1.0"]),
                             ("cotta", ["tta=cotta", "tta.steps=1", "tta.n_views=2"]),
                             ("memo", ["tta=memo", "tta.steps=1", "tta.n_views=2"]))
@@ -2411,7 +2495,8 @@ def serving_artifact_phase(device, root: str, *, manifest=None, best=None, shape
     and draws (predictions, entropies, the adapted norm tensors, ms per
     step, the norm operator calls in the program and the launches of each
     call); the forward artifact against ``_probs_fn``; SAR, CoTTA and MEMO one
-    batch each; then, given phase 14's fixture and checkpoint,
+    batch each on the model's first ``SERVING_METHODS_LEVELS`` levels; then,
+    given phase 14's fixture and checkpoint,
     ``cli.export_serving`` and ``cli.serve_artifact`` (every row ok, uint8
     masks in the source grid). Raises on any check that holds on every
     device; the caller holds the launch counts (``read_counts``, zeroed by
@@ -2430,6 +2515,7 @@ def serving_artifact_phase(device, root: str, *, manifest=None, best=None, shape
     from multimodal_tta_tpu_torch.conf import compose
     from multimodal_tta_tpu_torch.data import nifti
     from multimodal_tta_tpu_torch.evaluation.seg_eval import SegmentationEvaluationStrategy
+    from multimodal_tta_tpu_torch.models.layers import InstanceNorm
     from multimodal_tta_tpu_torch.models.unet3d import UNet3D
     from multimodal_tta_tpu_torch.ops.augment import group_draws
     from multimodal_tta_tpu_torch.registry import get_tta_method
@@ -2449,8 +2535,14 @@ def serving_artifact_phase(device, root: str, *, manifest=None, best=None, shape
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-    def new_model():
-        return UNet3D(in_channels=2, num_classes=1, **kw, device=dev, seed=11)
+    def new_model(arch=kw):
+        return UNet3D(in_channels=2, num_classes=1, **arch, device=dev, seed=11)
+
+    # the other methods' model: the first SERVING_METHODS_LEVELS levels; its
+    # norm calls a forward are its norm modules
+    methods_kw = dict(kw, channels=tuple(kw["channels"][:SERVING_METHODS_LEVELS]),
+                      strides=tuple(kw["strides"][:SERVING_METHODS_LEVELS - 1]))
+    methods_per_forward = sum(isinstance(m, InstanceNorm) for m in new_model(methods_kw).modules())
 
     def median(xs):
         return statistics.median(xs[1:] if len(xs) > 1 else xs)
@@ -2499,20 +2591,21 @@ def serving_artifact_phase(device, root: str, *, manifest=None, best=None, shape
     image_shape = (batch, *shape, 2)
     out = {"device": str(dev), "image": list(image_shape), "runs": {}}
 
-    def export(tag, overrides, to_file: bool):
-        """One method's artifact: through its file (Tent's two), or the
-        exported program as it is (the other methods, to keep the phase short)."""
+    def export(tag, overrides, to_file: bool, arch=kw, per=per_forward):
+        """One method's artifact of ``new_model(arch)`` (``per`` norm
+        calls a forward): through its file (Tent's two), or the exported
+        program as it is (the other methods, to keep the phase short)."""
         cfg = compose(CONFIG_DIR, "config", tta_overrides(*overrides))
         cls = get_tta_method(str(cfg.tta.method))
         mode = str(cfg.tta.predict).lower()
         ad = cls(cfg.tta, config=cfg, device_transform=DEVICE_TRANSFORM, device=dev)
         t0 = time.perf_counter()
-        program, meta, state0 = export_adapt_serving(ad, new_model(), image_shape, threshold=THRESHOLD,
+        program, meta, state0 = export_adapt_serving(ad, new_model(arch), image_shape, threshold=THRESHOLD,
                                                      predict_mode=mode, device=dev)
         sync()
         rec = {"mode": mode, "episodic": meta["episodic"], "steps": meta["steps"],
-               "export_s": time.perf_counter() - t0, "n_state": len(state0),
-               "want": artifact_launches(ad, mode, per_forward)}
+               "export_s": time.perf_counter() - t0, "n_state": len(state0), "arch": arch,
+               "want": artifact_launches(ad, mode, per)}
         if to_file:
             path = os.path.join(root, f"{tag}.mttap")
             t0 = time.perf_counter()
@@ -2530,7 +2623,7 @@ def serving_artifact_phase(device, root: str, *, manifest=None, best=None, shape
         return ad, art, meta, state0, live, rec
 
     def serve(ad, art, meta, state0, live, rec, n):
-        live_model = new_model()
+        live_model = new_model(rec["arch"])
         fn = live.make_adapt_predict_fn(live_model, THRESHOLD, rec["mode"])
         gen = torch.Generator(device=dev).manual_seed(5)
         state = state0
@@ -2599,7 +2692,7 @@ def serving_artifact_phase(device, root: str, *, manifest=None, best=None, shape
     for tag, overrides, n in runs:
         out["runs"][tag] = serve(*export(tag, overrides, True), n)
     for tag, overrides in methods:
-        out["runs"][tag] = serve(*export(tag, overrides, False), 1)
+        out["runs"][tag] = serve(*export(tag, overrides, False, methods_kw, methods_per_forward), 1)
 
     # the forward artifact against the evaluation forward
     cfg = compose(CONFIG_DIR, "config", tta_overrides("tta=tent"))
@@ -3525,19 +3618,34 @@ def preprocess_phase(device, root: str, *, ct=PREP_CT, pt=PREP_PT, bbox_mm: floa
     if len(brows) != 4 * PREP_BRATS_CASES or any(r["status"] != "ok" for r in brows):
         raise AssertionError(f"prepare_brats: {[(r['subject_id'], r['status']) for r in brows]}")
     case = brows[0]["subject_id"]
+    # the first case again on the CPU, after the card's run: its voxels are
+    # held to the card's. It writes each volume as .nii, without gzip: the
+    # write is the same host code on both sides, and gzip level 9 of its
+    # five noise volumes takes ~40 s (the card's ms by part hold that write)
     bcpu_ms: dict = {}
     bcpu_dir = os.path.join(root, "brats_cpu")
     os.makedirs(os.path.join(bcpu_dir, "images"))
     os.makedirs(os.path.join(bcpu_dir, "labels"))
-    mod_rows, lab = prepare_brats.process_case(Path(brats_raw, case), bcfg, Path(bcpu_dir, "images"),
-                                               Path(bcpu_dir, "labels"), device="cpu", part_ms=bcpu_ms)
+    write_image = prepare_brats.write_image
+
+    def unzipped(path):
+        return str(path)[:-len(".gz")] if str(path).endswith(".gz") else str(path)
+
+    prepare_brats.write_image = lambda path, *args: write_image(Path(unzipped(path)), *args)
+    try:
+        mod_rows, lab = prepare_brats.process_case(Path(brats_raw, case), bcfg, Path(bcpu_dir, "images"),
+                                                   Path(bcpu_dir, "labels"), device="cpu", part_ms=bcpu_ms)
+    finally:
+        prepare_brats.write_image = write_image
+    mod_rows, lab = [(m, unzipped(p)) for m, p in mod_rows], unzipped(lab)
     dev_paths = {r["modality"]: r["img_path"] for r in brows if r["subject_id"] == case}
     pairs = {m: (dev_paths[m], p) for m, p in mod_rows}
     pairs["seg"] = (brows[0]["label_path"], lab)
     out["brats"] = {"cases": PREP_BRATS_CASES, "fixture_s": fixture_s, "wall_s": bwall,
                     "cases_per_s": PREP_BRATS_CASES / bwall, "part_ms": bres["part_ms"], "cpu_part_ms": bcpu_ms,
                     "volumes": _check_volumes(pairs, ("seg",), f"BraTS {case}")}
-    if sorted(os.path.basename(p) for p in dev_paths.values()) != sorted(os.path.basename(p) for _, p in mod_rows):
+    if sorted(os.path.basename(p) for p in dev_paths.values()) != sorted(os.path.basename(p) + ".gz"
+                                                                     for _, p in mod_rows):
         raise AssertionError("BraTS: the card and the CPU wrote other files")
 
     # (d) the prepared manifest through cli.train and cli.adapt
@@ -4212,7 +4320,7 @@ def dp_torchrun_cli(manifest: str, root: str, timeout: float = 600.0, two_ranks:
         cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", f"--nproc_per_node={ranks}", "-m",
                f"multimodal_tta_tpu_torch.cli.{call}", *cli_overrides(manifest, run_dir, *extra)]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=timeout)
+        proc = run_command(cmd, timeout)
         wall = time.perf_counter() - t0
         if proc.returncode != 0:
             raise AssertionError(f"torchrun cli.{call} exited {proc.returncode}:\n{proc.stdout[-4000:]}\n"
@@ -4240,14 +4348,12 @@ def dp_torchrun_cli(manifest: str, root: str, timeout: float = 600.0, two_ranks:
 
 
 def data_parallel_phase(device, root: str, *, shape=SHAPE[:3], channels=(32, 64, 128, 256, 512),
-                        volumes: int = DP_VOLUMES, manifest=None, backend=None, threads: int = 4,
-                        two_rank_cli: bool = False) -> dict:
-    """Phase 22: the NCCL probe (on a card), two ranks sharing the device
-    (``training.devices=[0, 0]``, spawned here over the probe's backend, or
-    ``backend``) against the one-process run here on the same global
+                        volumes: int = DP_VOLUMES, backend=None, probe=None, threads: int = 4) -> dict:
+    """Phase 22: the NCCL probe (on a card; ``probe``, its result, when it
+    ran before), two ranks sharing the device (``training.devices=[0, 0]``,
+    spawned here over the probe's backend, or ``backend``) against the one-process run here on the same global
     batches, each rank's launches exactly, its kernels against their plain
-    versions; then (with ``manifest``) ``cli.train`` and ``cli.adapt`` under
-    torchrun with NCCL."""
+    versions. Its command lines under torchrun are ``dp_torchrun_cli``."""
     import shutil
 
     import torch
@@ -4261,7 +4367,7 @@ def data_parallel_phase(device, root: str, *, shape=SHAPE[:3], channels=(32, 64,
     out = {}
     if backend is None:
         if cuda:
-            out["nccl_probe"] = nccl_probe(os.path.join(root, "probe"))
+            out["nccl_probe"] = probe or nccl_probe(os.path.join(root, "probe"))
             backend = "nccl" if out["nccl_probe"]["accepted"] else "gloo"
         else:
             backend = "gloo"
@@ -4323,8 +4429,6 @@ def data_parallel_phase(device, root: str, *, shape=SHAPE[:3], channels=(32, 64,
                              f"{one['optimizer_state_bytes']} in one process")
     if not all("best_model.pt" in r["checkpoints"] for r in ranks[:1]):
         raise AssertionError(f"phase 22: rank 0 wrote {ranks[0]['checkpoints']}")
-    if manifest is not None:
-        out["torchrun"] = dp_torchrun_cli(manifest, os.path.join(root, "torchrun"), two_ranks=two_rank_cli)
     out["phase_s"] = time.perf_counter() - t0
     shutil.rmtree(root, ignore_errors=True)
     return out
@@ -5150,7 +5254,7 @@ def sp_torchrun_cli(manifest: str, root: str, timeout: float = 600.0) -> dict:
         cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", f"--nproc_per_node={SP_WORLD}", "-m",
                f"multimodal_tta_tpu_torch.cli.{call}", *cli_overrides(manifest, run_dir, *space, *extra)]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=timeout)
+        proc = run_command(cmd, timeout)
         wall = time.perf_counter() - t0
         if proc.returncode != 0:
             raise AssertionError(f"torchrun cli.{call} over space=2 exited {proc.returncode}:\n"
@@ -5202,14 +5306,13 @@ def sp_expected(res: dict, cuda: bool) -> dict:
 
 
 def space_parallel_phase(device, root: str, *, shape=SHAPE[:3], channels=(32, 64, 128, 256, 512),
-                         mid_shape=BRATS_SHAPE, mid_channels=(32, 64, 128, 256, 512), manifest=None,
+                         mid_shape=BRATS_SHAPE, mid_channels=(32, 64, 128, 256, 512),
                          threads: int = 4) -> dict:
     """Phase 23: two ranks sharing the device over gloo on a ``data=1 x
     space=2`` mesh, spawned here, against the one-process run here on the
     same global batches: each rank's launches exactly, its split kernels
-    against their plain versions, its peak memory against one process's;
-    then (with ``manifest``) ``cli.train`` and ``cli.adapt`` under torchrun
-    with ``training.mesh.space=2``."""
+    against their plain versions, its peak memory against one process's.
+    Its command lines under torchrun are ``sp_torchrun_cli``."""
     import shutil
 
     import torch
@@ -5264,11 +5367,6 @@ def space_parallel_phase(device, root: str, *, shape=SHAPE[:3], channels=(32, 64
                     for res in ranks]
     out["one"] = {k: one.get(k) for k in ("launches", "peak_gib", "mid_peak_gib", "losses", "norms", "timing",
                                           "part_s")}
-    if manifest is not None:
-        try:
-            out["torchrun"] = sp_torchrun_cli(manifest, os.path.join(root, "torchrun"))
-        except AssertionError as e:
-            failed.append(str(e))
     out["phase_s"] = time.perf_counter() - t0
     shutil.rmtree(root, ignore_errors=True)
     if failed:
@@ -5344,6 +5442,861 @@ def split_summaries(sp: dict, card: str) -> list:
                    f"{TRAIN_BATCH}, one of {SP_WORLD} space ranks (f32 [8, D/2, H, W, C])",
             "card": card})
     return out
+
+
+# ---- phase 24: every adapter over the data axis --------------------------------
+# two ranks share the one card (gloo), as in phase 22; the flagship at full
+# width on HECKTOR21 batches of BATCH; TTAEngine.evaluate with pl, eata, sar,
+# cotta and memo, episodic and continual, each over AD_BATCHES batches, in f32
+# against one process on the same global batches (phase 22's limits), every
+# norm and min-plus call of that path held to its plain version as it runs
+# (CallCheck); then each method's bf16 ms per evaluated batch, a rank against
+# one process; then cli.adapt tta=sar and cli.predict under torchrun
+AD_WORLD = 2
+AD_METHODS = ("pl", "eata", "sar", "cotta", "memo")
+AD_BATCHES = 2
+AD_TIMED = 2  # bf16 batches timed per method (after one warm batch)
+AD_SEED = 240
+# each method's knobs beyond eval_config's: pl's threshold that some voxels
+# clear; EATA's gate open to every sample and its Fisher on the first batch;
+# SAR's filter open (and, episodic, a recovery floor at H_max, so every step
+# resets: the reset driven open); CoTTA's teacher with restore; MEMO with 3
+# views and restore
+AD_KNOBS = {
+    "pl": {"pl": {"conf_threshold": 0.6}},
+    "eata": {"reliability": {"margin_ratio": 1.0}, "fisher": {"batches": 1}},
+    "sar": {"margin_ratio": 1.0},
+    "cotta": {"restore": {"enabled": True, "prob": 0.01}},
+    "memo": {"n_views": 3, "restore": {"enabled": True, "prob": 0.01}},
+}
+AD_SAR_OPEN_FLOOR = 1.0
+AD_TIMEOUT_S = 900
+# norm launches of one flagship forward, and the forwards / backwards of one
+# evaluated batch (one adaptation step, then the scoring forward) by method;
+# EATA adds a forward and a backward at the source on its Fisher batch
+AD_PER_FORWARD = 18
+AD_PASSES = {"pl": (2, 1), "eata": (2, 1), "sar": (3, 2), "cotta": (4, 1), "memo": (7, 3)}
+
+
+def ad_config(method: str, episodic: bool) -> dict:
+    cfg = eval_config(method, episodic)
+    cfg["tta"].update(json.loads(json.dumps(AD_KNOBS[method])))
+    if method == "sar" and episodic:
+        cfg["tta"]["reset_floor_ratio"] = AD_SAR_OPEN_FLOOR
+    return cfg
+
+
+def ad_expected(method: str, batches: int, cuda: bool) -> dict:
+    """The kernel launches of ``TTAEngine.evaluate`` with ``method`` over
+    ``batches`` batches, on each rank and in one process."""
+    f, b = AD_PASSES[method]
+    if method == "eata":
+        f, b = f * batches + 1, b * batches + 1
+    else:
+        f, b = f * batches, b * batches
+    n = AD_PER_FORWARD if cuda else 0
+    return {"forward": n * f, "backward": n * b, "minplus": batches if cuda else 0}
+
+
+class CallCheck:
+    """While ``on``, every call that the path makes to the norm kernel's
+    forward and backward operators and to the min-plus EDT is held against
+    its plain version on the same arguments (the kernel's result goes on
+    down the path): y within TOL_F32 / TOL_BF16 and the statistics within
+    GRAD_F32_*; dx within phase 2's f32 limit / DX_BF16_REL off the ReLU's
+    kink, dgamma and dbeta within GRAD_F32_* plus the kink's share; the EDT
+    bitwise. The check launches no kernel. Per check and dtype: the calls,
+    the max |error| and the worst share of its limit (<= 1 passes)."""
+
+    def __init__(self):
+        self.on, self.seen = True, {}
+
+    def __enter__(self):
+        import importlib
+
+        self._fin = importlib.import_module("multimodal_tta_tpu_torch.kernels.fused_instance_norm")
+        self._edt = importlib.import_module("multimodal_tta_tpu_torch.kernels.edt_minplus")
+        self._orig = [(self._fin, "_forward_op"), (self._fin, "_backward_op"), (self._edt, "_edt_op")]
+        self._held = [getattr(m, n) for m, n in self._orig]
+        for (m, n), op in zip(self._orig, self._held):
+            setattr(m, n, self._wrap(op, n))
+        return self
+
+    def __exit__(self, *exc):
+        for (m, n), op in zip(self._orig, self._held):
+            setattr(m, n, op)
+        return False
+
+    def _note(self, key: str, err: float, worst: float) -> None:
+        s = self.seen.setdefault(key, {"calls": 0, "max_abs_err": 0.0, "worst": float("-inf")})
+        s["calls"] += 1
+        s["max_abs_err"] = max(s["max_abs_err"], err)
+        s["worst"] = max(s["worst"], worst)
+
+    def _wrap(self, op, name: str):
+        def checked(*args):
+            import torch
+
+            got = op(*args)
+            if self.on and args[0].device.type == "cuda":
+                with torch.no_grad():
+                    getattr(self, name.strip("_"))(args, got)
+            return got
+
+        return checked
+
+    def forward_op(self, args, got) -> None:
+        import torch
+
+        x, gamma, beta, eps, relu = args
+        y, stats = got
+        y_p, mean, rstd = self._fin._plain_forward(x, gamma, beta, eps, relu)
+        tol = TOL_BF16 if x.dtype == torch.bfloat16 else TOL_F32
+        diff = (y.float() - y_p.float()).abs()
+        worst = float(((diff - tol["rtol"] * y_p.float().abs()) / tol["atol"]).max())
+        e2, w2 = _sums_check(stats, torch.stack((mean, rstd)))
+        self._note(f"forward {str(x.dtype).replace('torch.', '')}", max(float(diff.max()), float(e2)),
+                   max(worst, float(w2)))
+
+    def backward_op(self, args, got) -> None:
+        import torch
+
+        gy, x, gamma, beta, stats, relu, need_dx = args
+        dx, dgamma, dbeta = got
+        want = self._fin.instance_norm_backward_plain(gy, x, gamma, beta, stats[0], stats[1], relu, need_dx)
+        shp = (1,) * (x.dim() - 1) + (x.shape[-1],)
+        b = x.shape[0]
+        xhat = (x.float() - stats[0].view(b, *shp[1:])) * stats[1].view(b, *shp[1:])
+        kink = (xhat * gamma + beta).abs() < KINK_MARGIN if relu else torch.zeros_like(xhat, dtype=torch.bool)
+        a = gy.float().abs() * kink
+        worst, err = float("-inf"), 0.0
+        for got_s, want_s, slack in ((dgamma, want[1], (a * xhat.abs()).sum(dim=(0, 1, 2, 3))),
+                                     (dbeta, want[2], a.sum(dim=(0, 1, 2, 3)))):
+            e, w = _sums_check(got_s.float(), want_s.float(), slack)
+            err, worst = max(err, float(e)), max(worst, float(w))
+        if need_dx:
+            ref = want[0].float()
+            diff = torch.where(kink, 0.0, (dx.float() - ref).abs())
+            vmax = float(ref.abs().max())
+            if x.dtype == torch.bfloat16:
+                w = float((diff - DX_BF16_REL * ref.abs()).max()) / (DX_BF16_REL * vmax)
+            else:
+                w = float(diff.max()) / (GRAD_F32_REL * vmax + GRAD_F32_ABS)
+            err, worst = max(err, float(diff.max())), max(worst, w)
+        self._note(f"backward {str(x.dtype).replace('torch.', '')}", err, worst)
+
+    def edt_op(self, args, got) -> None:
+        points, spacing, sqrt = args
+        want = self._edt.squared_edt_volumes_plain(points, spacing, sqrt=sqrt)
+        same = bool(((got == want) | (got.isinf() & want.isinf())).all())
+        self._note("minplus", 0.0 if same else float("inf"), 0.0 if same else float("inf"))
+
+    def ok(self, keys) -> bool:
+        """Every check in ``keys`` seen, and every check within its limit."""
+        return set(keys) <= set(self.seen) and all(s["worst"] <= 1.0 for s in self.seen.values())
+
+
+def ad_data(shape, batches: int) -> list:
+    """The phase's global host batches of BATCH (two domains)."""
+    import numpy as np
+
+    vols = hecktor_volumes(BATCH * batches, AD_SEED, shape)
+    return [{"image": np.stack([v["image"] for v in vols[i * BATCH:(i + 1) * BATCH]]),
+             "label": np.stack([v["label"] for v in vols[i * BATCH:(i + 1) * BATCH]]),
+             "domain": [v["domain"] for v in vols[i * BATCH:(i + 1) * BATCH]]} for i in range(batches)]
+
+
+def ad_run(device, mesh, spec: dict) -> dict:
+    """Phase 24's main path in this process: over the ranks of ``mesh``, or
+    in one process (``mesh`` None) on the same global batches."""
+    import torch
+
+    from multimodal_tta_tpu_torch.conf import ConfigNode
+    from multimodal_tta_tpu_torch.kernels.edt_minplus import minplus
+    from multimodal_tta_tpu_torch.kernels.fused_instance_norm import fused_instance_norm
+    from multimodal_tta_tpu_torch.models.unet3d import UNet3D
+    from multimodal_tta_tpu_torch.tta.engine import TTAEngine
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = mesh.device if mesh is not None else torch.device(device)
+    cuda = dev.type == "cuda"
+    batches = torch.load(spec["data"], weights_only=False)
+    mk = dict(in_channels=2, num_classes=1, channels=tuple(spec["channels"]), strides=(2,) * (len(spec["channels"]) - 1),
+              num_res_units=2, device=dev, seed=0)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def counts() -> dict:
+        return {"forward": fused_instance_norm.launches, "backward": fused_instance_norm.backward_launches,
+                "minplus": minplus.launches}
+
+    def engine_of(method: str, episodic: bool):
+        return TTAEngine(ConfigNode(ad_config(method, episodic)), device_transform=DEVICE_TRANSFORM, device=dev,
+                         mesh=mesh)
+
+    def recording(engine, rec: dict) -> None:
+        """After each adapted batch: the step's entropies, the adapted
+        tensors (by name, in the adapter's order) and CoTTA's teacher, into
+        ``rec`` (``evaluate`` restores the source after its last batch)."""
+        adapter, make = engine.adapter, engine.adapter.make_adapt_fn
+
+        def make_adapt_fn(source):
+            fn = make(source)
+
+            def adapt_fn(state, *args, **kwargs):
+                state = fn(state, *args, **kwargs)
+                params = dict(state.named_parameters())
+                rec["ents"].append(adapter._last_ents.detach().cpu().clone())
+                rec["adapted"].append({n: params[n].detach().cpu().clone() for n in adapter._names})
+                rec["teacher"].append([t.detach().cpu().clone() for t in getattr(adapter, "_teacher", [])])
+                return state
+
+            return adapt_fn
+
+        adapter.make_adapt_fn = make_adapt_fn
+
+    out = {"tag": f"rank{mesh.rank}" if mesh is not None else "one", "runs": {}}
+    if cuda:  # the peak is read above the memory live at the start (the smoke's earlier phases hold some)
+        torch.cuda.reset_peak_memory_stats(dev)
+        live = torch.cuda.memory_allocated(dev)
+    model = UNet3D(**mk, dtype=torch.float32)
+    out["source"] = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+    check = CallCheck()
+    with check:
+        check.on = cuda
+        for method in AD_METHODS:
+            for episodic in (True, False):
+                engine = engine_of(method, episodic)
+                copies = [0]
+                copy_source = engine.adapter._copy_source
+
+                def counted(copy_source=copy_source, copies=copies):
+                    copies[0] += 1
+                    copy_source()
+
+                engine.adapter._copy_source = counted
+                rec = {"ents": [], "adapted": [], "teacher": []}
+                recording(engine, rec)
+                at, t0 = counts(), time.perf_counter()
+                metrics = engine.evaluate(model, batches)
+                sync()
+                r = {"metrics": metrics, "s": time.perf_counter() - t0,
+                     "launches": {k: v - at[k] for k, v in counts().items()}, **rec}
+                if method == "sar":  # a recovery reset snaps back once; so do an episodic batch and restore()
+                    r["resets"] = copies[0] - (len(batches) if episodic else 0) - 1
+                out["runs"][f"{method}_{'episodic' if episodic else 'continual'}"] = r
+        names = {n for r in out["runs"].values() for a in r["adapted"] for n in a}
+        out["source"] = {n: v for n, v in out["source"].items() if n in names}
+        # bf16: each method's ms per evaluated batch (continual): one cold
+        # batch with every kernel call checked, then AD_TIMED unchecked
+        del model
+        model16 = UNet3D(**mk, dtype=torch.bfloat16)
+        out["bf16_ms"] = {}
+        for method in AD_METHODS:
+            engine = engine_of(method, False)
+            check.on = cuda
+            engine.evaluate(model16, batches[:1])  # cold: the kernels' plans, cuDNN's choices
+            sync()
+            check.on = False
+            t0 = time.perf_counter()
+            engine.evaluate(model16, (batches * AD_TIMED)[:AD_TIMED])
+            sync()
+            out["bf16_ms"][method] = (time.perf_counter() - t0) * 1e3 / AD_TIMED
+    out["check"] = check.seen
+    out["check_ok"] = check.ok(["forward float32", "backward float32", "forward bfloat16", "backward bfloat16",
+                                "minplus"]) if cuda else None
+    out["peak_gib"] = (torch.cuda.max_memory_allocated(dev) - live) / 2**30 if cuda else 0.0
+    return out
+
+
+def ad_states(a: dict, b: dict, source: dict) -> dict:
+    """Run ``a`` (a rank's) against run ``b`` (one process's) of the same
+    method: the entropies' largest relative difference, and after each
+    batch the adapted tensors' and CoTTA's teacher's distance, relative L2
+    of one process's moves from ``source`` (0 where both sit at source)."""
+    import torch
+
+    def rel(xs, ys, src) -> float:
+        if not xs:
+            return 0.0
+        d = float(torch.cat([(x - y).flatten() for x, y in zip(xs, ys)]).double().norm())
+        m = float(torch.cat([(y - s).flatten() for y, s in zip(ys, src)]).double().norm())
+        return 0.0 if d == 0 else (d / m if m > 0 else float("inf"))
+
+    if [e.shape for e in a["ents"]] != [e.shape for e in b["ents"]] or len(a["adapted"]) != len(b["adapted"]):
+        return {"ents_max_rel": float("inf"), "delta_rel_l2": float("inf"), "teacher_rel_l2": float("inf")}
+    ea = torch.cat([e.flatten() for e in a["ents"]]).double()
+    eb = torch.cat([e.flatten() for e in b["ents"]]).double()
+    out = {"ents_max_rel": float(((ea - eb).abs() / eb.abs()).max()) if eb.numel() else 0.0,
+           "delta_rel_l2": 0.0, "teacher_rel_l2": 0.0}
+    for x, y, tx, ty in zip(a["adapted"], b["adapted"], a["teacher"], b["teacher"]):
+        names = list(y)
+        if list(x) != names or len(tx) != len(ty):
+            return dict(out, delta_rel_l2=float("inf"))
+        src = [source[n] for n in names]
+        out["delta_rel_l2"] = max(out["delta_rel_l2"], rel([x[n] for n in names], [y[n] for n in names], src))
+        out["teacher_rel_l2"] = max(out["teacher_rel_l2"], rel(tx, ty, src[:len(ty)]))
+    return out
+
+
+def ad_ranks_equal(a: dict, b: dict) -> bool:
+    """Two ranks' runs: the entropies, the adapted tensors and the teacher
+    after each batch equal bit for bit."""
+    import torch
+
+    def same(xs, ys):
+        return len(xs) == len(ys) and all(torch.equal(x, y) for x, y in zip(xs, ys))
+
+    return (same(a["ents"], b["ents"]) and len(a["adapted"]) == len(b["adapted"])
+            and all(list(x) == list(y) and same(list(x.values()), list(y.values()))
+                    for x, y in zip(a["adapted"], b["adapted"]))
+            and all(same(x, y) for x, y in zip(a["teacher"], b["teacher"])) and len(a["teacher"]) == len(b["teacher"]))
+
+
+def _rank_device(device: str):
+    """Every rank's device: card 0 (or the card ``device`` names), or the CPU."""
+    import torch
+
+    d = torch.device(device)
+    return torch.device("cuda", d.index or 0) if d.type == "cuda" else d
+
+
+def _ad_rank(rank: int, world: int, root: str, device: str, spec: dict) -> None:
+    """One rank of phase 24: the process group over a ``file://`` store in
+    ``root`` (gloo: the ranks share the card), a ``data=2`` mesh, ``ad_run``."""
+    import datetime
+
+    sys.path.insert(0, REPO)
+    import torch
+
+    from multimodal_tta_tpu_torch.parallel.distributed import maybe_initialize_distributed
+    from multimodal_tta_tpu_torch.parallel.mesh import make_mesh
+
+    torch.set_num_threads(spec.get("threads", 4))
+    maybe_initialize_distributed("gloo", f"file://{root}/store", world, rank, device=device,
+                                 timeout=datetime.timedelta(seconds=AD_TIMEOUT_S))
+    mesh = make_mesh([_rank_device(device)] * world, data=world)
+    torch.save(ad_run(device, mesh, spec), os.path.join(root, f"rank{rank}.pt"))
+
+
+def ad_torchrun_cli(manifest: str, root: str, timeout: float = 600.0) -> dict:
+    """``cli.adapt tta=sar`` under torchrun over two ranks, then
+    ``cli.predict`` under torchrun over two ranks (one case a rank a batch)
+    into ``root/ranks``, for ``ad_predict_check``. Two ranks share card 0
+    (``training.devices=[0,0]``, gloo)."""
+    out = {}
+    ranks2 = ["training.devices=[0,0]"]
+    for call, tag, extra in (("adapt", "adapt", ["tta=sar", "tta.report_no_adapt=true"] + ranks2),
+                             ("predict", "predict_ranks", ["training.eval_batch_size=2",
+                                                           f"predict.out_dir={root}/ranks"] + ranks2)):
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=2", "-m",
+               f"multimodal_tta_tpu_torch.cli.{call}", *cli_overrides(manifest, os.path.join(root, tag), *extra)]
+        t0 = time.perf_counter()
+        proc = run_command(cmd, timeout)
+        if proc.returncode != 0:
+            raise AssertionError(f"torchrun cli.{call} over 2 ranks exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+        out[tag] = {"wall_s": time.perf_counter() - t0}
+    metrics = json.load(open(os.path.join(root, "adapt", "tta_metrics.json"), encoding="utf-8"))
+    out["adapt"]["metrics"] = {k: metrics["adapted"][k] for k in ("gtvt_dc", "avg_hd95", "loss")
+                               if k in metrics["adapted"]}
+    if not all(math.isfinite(v) for v in out["adapt"]["metrics"].values()) or "no_adapt" not in metrics:
+        raise AssertionError(f"torchrun cli.adapt tta=sar metrics {metrics}")
+    return out
+
+
+def ad_predict_check(manifest: str, root: str, torchrun: dict) -> dict:
+    """``cli.predict`` in this process at one case a batch against the two
+    ranks' export in ``root/ranks`` (``ad_torchrun_cli``): the same
+    ``predictions.csv`` and the same masks byte for byte (the NIfTI bytes;
+    the gzip header holds a time stamp). Both sides run each convolution on
+    a batch of one: cuDNN picks its algorithm by batch size, and a model of
+    random weights has many voxels within rounding of the threshold (a
+    batch of 2 against 2 x 1 left 0.24% of a mask's voxels apart on an
+    H100)."""
+    import gzip
+
+    from multimodal_tta_tpu_torch.cli import predict
+
+    out = dict(torchrun)
+    t0 = time.perf_counter()
+    try:
+        rows = predict.main(cli_overrides(manifest, os.path.join(root, "predict_one"), "training.eval_batch_size=1",
+                                          f"predict.out_dir={root}/one"))
+    finally:
+        os.chdir(REPO)  # the run moved into its run directory
+    out["predict_one"] = {"wall_s": time.perf_counter() - t0, "cases": len(rows)}
+    got, want = f"{root}/ranks", f"{root}/one"
+    names = sorted(os.listdir(want))
+    r = {"cases": len(rows), "names_equal": sorted(os.listdir(got)) == names,
+         "csv_equal": open(f"{got}/predictions.csv", "rb").read() == open(f"{want}/predictions.csv", "rb").read(),
+         "masks_apart": []}
+    for n in (n for n in names if n.endswith(".nii.gz")):
+        with gzip.open(f"{got}/{n}") as fa, gzip.open(f"{want}/{n}") as fb:
+            if fa.read() != fb.read():
+                r["masks_apart"].append(n)
+    out["predict"] = r
+    if not (r["cases"] and r["names_equal"] and r["csv_equal"]) or r["masks_apart"]:
+        raise AssertionError(f"cli.predict over two ranks against one process: {r}")
+    return out
+
+
+def adapters_phase(device, root: str, *, shape=SHAPE[:3], channels=(32, 64, 128, 256, 512),
+                   threads: int = 4) -> dict:
+    """Phase 24: two ranks sharing the device (gloo) against the one-process
+    run here on the same global batches: every method's metrics, each
+    rank's launches exactly, every norm and min-plus call held to its plain
+    version; bf16 ms per evaluated batch. Its command lines are
+    ``ad_torchrun_cli`` and ``ad_predict_check``."""
+    import shutil
+
+    import torch
+
+    from multimodal_tta_tpu_torch.parallel.distributed import spawn_ranks
+
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root, exist_ok=True)
+    t0 = time.perf_counter()
+    cuda = torch.device(device).type == "cuda"
+    spec = {"shape": list(shape), "channels": list(channels), "threads": threads,
+            "data": os.path.join(root, "data.pt")}
+    torch.save(ad_data(shape, AD_BATCHES), spec["data"])
+    ranks_root = os.path.join(root, "ranks")
+    os.makedirs(ranks_root, exist_ok=True)
+    t1 = time.perf_counter()
+    spawn_ranks(_ad_rank, AD_WORLD, ranks_root, (ranks_root, str(device), spec), AD_TIMEOUT_S)
+    out = {"ranks_s": time.perf_counter() - t1}
+    log(f"[adapters] the ranks took {out['ranks_s']:.1f} s")
+    ranks = [torch.load(os.path.join(ranks_root, f"rank{r}.pt"), weights_only=False) for r in range(AD_WORLD)]
+    t1 = time.perf_counter()
+    held = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    try:
+        one = ad_run(device, None, spec)
+    finally:
+        torch.set_num_threads(held)
+    out["one_s"] = time.perf_counter() - t1
+    log(f"[adapters] one process took {out['one_s']:.1f} s")
+    failed, compare = [], {}
+    for key, o in one["runs"].items():
+        method = key.split("_")[0]
+        r0 = ranks[0]["runs"][key]
+        if any(res["runs"][key]["metrics"] != r0["metrics"] for res in ranks):
+            failed.append(f"{key}: the ranks' metrics differ")
+        a, b = r0["metrics"], o["metrics"]
+        floats = [k for k in b if isinstance(b[k], float)]
+        diff = max(abs(a[k] - b[k]) for k in floats)
+        if set(a) != set(b) or any(abs(a[k] - b[k]) > DP_METRIC_ABS + DP_METRIC_REL * abs(b[k]) for k in floats):
+            failed.append(f"{key}: metrics {a} vs {b}")
+        want = ad_expected(method, AD_BATCHES, cuda)
+        for res in ranks + [one]:
+            if res["runs"][key]["launches"] != want:
+                failed.append(f"{key} {res['tag']}: launches {res['runs'][key]['launches']}, derived {want}")
+        # the entropies, adapted tensors and teacher after each batch: the
+        # ranks' bit for bit, one process's within DP_LOSS_REL / DP_DELTA_REL
+        if not all(ad_ranks_equal(res["runs"][key], r0) for res in ranks[1:]):
+            failed.append(f"{key}: the ranks' entropies, adapted tensors or teacher differ")
+        states = ad_states(r0, o, one["source"])
+        if states["ents_max_rel"] > DP_LOSS_REL or max(states["delta_rel_l2"], states["teacher_rel_l2"]) > DP_DELTA_REL:
+            failed.append(f"{key}: against one process {states}")
+        compare[key] = {"metrics_max_abs": diff, "dice": b.get("gtvt_dc"), "launches": want, **states,
+                        "adapted": len(o["adapted"][0]) if o["adapted"] else 0,
+                        "teacher": bool(o["teacher"] and o["teacher"][-1])}
+        if method == "sar":
+            resets = [res["runs"][key]["resets"] for res in ranks + [one]]
+            compare[key]["resets"] = resets[-1]
+            if len(set(resets)) != 1 or (key.endswith("episodic") and resets[-1] != AD_BATCHES):
+                failed.append(f"{key}: SAR's resets {resets}")
+    if cuda:
+        for res in ranks + [one]:
+            if not res["check_ok"]:
+                failed.append(f"{res['tag']} kernels vs plain: {res['check']}")
+    if failed:
+        raise AssertionError("phase 24: " + "; ".join(failed))
+    out["compare"] = compare
+    out["launches"] = {k: sum(res["runs"][key]["launches"][k] for res in ranks for key in res["runs"])
+                       for k in ("forward", "backward", "minplus")}
+    out["ranks"] = [{k: res[k] for k in ("tag", "check", "bf16_ms", "peak_gib")} for res in ranks]
+    out["one"] = {k: one[k] for k in ("check", "bf16_ms", "peak_gib")}
+    out["s_by_run"] = {key: (ranks[0]["runs"][key]["s"], one["runs"][key]["s"]) for key in one["runs"]}
+    out["phase_s"] = time.perf_counter() - t0
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def log_adapters(ad: dict, card: str) -> None:
+    log(f"[adapters] phase 24: {AD_WORLD} ranks over gloo on one card vs one process, the flagship at full width, "
+        f"TTAEngine.evaluate over {AD_BATCHES} batches of {BATCH}, f32: ranks {ad['ranks_s']:.1f} s, one process "
+        f"{ad['one_s']:.1f} s; card {card}")
+    for key, c in ad["compare"].items():
+        log(f"[adapters]   {key}: metrics within {c['metrics_max_abs']:.3g} of one process (limit {DP_METRIC_ABS} "
+            f"+ {DP_METRIC_REL} x |v|), entropies {c['ents_max_rel']:.3g} (limit {DP_LOSS_REL}), the {c['adapted']} "
+            f"adapted tensors {c['delta_rel_l2']:.3g}" + (f", the teacher {c['teacher_rel_l2']:.3g}" if c["teacher"] else "")
+            + f" of one process's moves (limit {DP_DELTA_REL}; the ranks' bit for bit), Dice {c['dice']}, launches a "
+            f"rank {c['launches']}"
+            + (f", SAR resets {c['resets']}" if "resets" in c else "")
+            + f", s rank/one {ad['s_by_run'][key][0]:.2f}/{ad['s_by_run'][key][1]:.2f}")
+    for res in ad["ranks"] + [dict(ad["one"], tag="one")]:
+        log(f"[adapters]   {res['tag']}: kernels vs plain {json.dumps(res['check'])}; bf16 ms per evaluated batch "
+            f"{({k: round(v, 2) for k, v in res['bf16_ms'].items()})}; peak {res['peak_gib']:.3f} GiB above the memory live "
+            f"at the start; card {card}")
+    if "torchrun" in ad:
+        log(f"[adapters]   torchrun: {json.dumps(ad['torchrun'])}")
+    log(f"[adapters] phase 24 took {ad['phase_s']:.1f} s; launches over both ranks {ad['launches']}; card {card}")
+
+
+# ---- phase 25: the model axis (Megatron heads and MLP) for UNETR ----------------
+# four ranks share the one card (gloo) on a data=2 x model=2 mesh: UNETR at
+# the width of configs/model/unetr.yaml with tp_axis=model, each model rank
+# holding half the heads and MLP features; against one process on the same
+# global batches: a forward, two f32 SGD training steps at global batch 4,
+# Tent online (continual, inline) and strict (episodic, post) over two
+# batches of BATCH. Limits: the forward's logits within TP_LOGIT_REL of the
+# largest |logit| (the row-parallel products are summed over the model
+# group, in another order than one matmul); the losses and entropies within
+# DP_LOSS_REL; the params' and Tent's deltas within DP_DELTA_REL relative L2;
+# predictions on DP_PRED_AGREE of voxels
+TP_WORLD, TP_MODEL = 4, 2
+TP_UNETR = dict(in_channels=2, num_classes=1, patch_size=16, hidden_size=768, mlp_dim=3072, num_heads=12,
+                num_layers=12, feature_size=16)
+TP_TRAIN_BATCH = 4
+TP_STEPS = 2
+TP_TENT_BATCHES = 2
+TP_PER_FORWARD = 16  # UNETR's norm calls: skip branches, stem, decoder
+TP_LOGIT_REL = 1e-4
+TP_SEED = 250
+TP_TIMEOUT_S = 900
+TP_WEIGHTS = ("query.", "key.", "value.", "out.", "Dense_0.", "Dense_1.")
+
+
+def tp_run(device, root: str, mesh, spec: dict) -> dict:
+    """Phase 25's main path in this process: over the ranks of ``mesh``
+    (``data=2 x model=2``), or in one process (``mesh`` None)."""
+    import torch
+    import torch.distributed as dist
+
+    from multimodal_tta_tpu_torch.conf import ConfigNode
+    from multimodal_tta_tpu_torch.core.optim import EpochScheduler, build_optimizer
+    from multimodal_tta_tpu_torch.core.train_state import TrainState
+    from multimodal_tta_tpu_torch.core.trainers.seg_trainer import SegTrainer
+    from multimodal_tta_tpu_torch.kernels.fused_instance_norm import fused_instance_norm
+    from multimodal_tta_tpu_torch.models.unetr import UNETR
+    from multimodal_tta_tpu_torch.parallel.tensor import shard_model, sharded_params, whole_state_dict
+    from multimodal_tta_tpu_torch.tta.tent import TentAdapter
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = mesh.device if mesh is not None else torch.device(device)
+    cuda = dev.type == "cuda"
+    data = torch.load(spec["data"], weights_only=False)
+    kw = dict(TP_UNETR, **spec.get("model", {}))
+    shape = tuple(spec["shape"])
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def counts() -> dict:
+        return {"forward": fused_instance_norm.launches, "backward": fused_instance_norm.backward_launches}
+
+    def since(at):
+        return {k: v - at[k] for k, v in counts().items()}
+
+    def rows(x):
+        return x if mesh is None else x[mesh.rows(x.shape[0])]
+
+    def gather(t):
+        return (t if mesh is None else mesh.gather_rows(t.contiguous())).detach().cpu()
+
+    reduced = {"model": 0, "data": 0, "calls": 0}  # bytes all-reduced by group while ``counting``
+    counting = [False]
+    all_reduce = dist.all_reduce
+
+    def counted_all_reduce(t, *a, group=None, **k):
+        if counting[0]:
+            axis = "model" if mesh is not None and group is mesh.model_group else "data"
+            reduced[axis] += t.numel() * t.element_size()
+            reduced["calls"] += 1
+        return all_reduce(t, *a, group=group, **k)
+
+    dist.all_reduce = counted_all_reduce
+
+    def build():
+        model = UNETR(**kw, tp_axis="model", image_size=shape, dtype=torch.float32, device=dev, seed=TP_SEED)
+        shard_model(model, mesh)
+        return model
+
+    out = {"tag": f"rank{mesh.rank}" if mesh is not None else "one", "launches": {}}
+    if cuda:  # the peak is read above the memory live at the start (the smoke's earlier phases hold some)
+        torch.cuda.reset_peak_memory_stats(dev)
+        live = torch.cuda.memory_allocated(dev)
+    check = CallCheck()  # every norm call of the forward, the training and Tent held to its plain version
+    try:
+        with check:
+            check.on = cuda
+            model = build()
+            out["tp_bytes"] = sum(p.numel() * p.element_size() for n, p in model.named_parameters()
+                                  if any(k in n for k in TP_WEIGHTS))
+            out["whole_bias_bytes"] = sum(p.numel() * p.element_size() for n, p in model.named_parameters()
+                                          if n.endswith(("out.bias", "Dense_1.bias")))
+            out["sharded"] = len(sharded_params(model))
+            # the forward
+            x = torch.from_numpy(rows(data["forward"])).to(dev)
+            at = counts()
+            with torch.no_grad():
+                out["logits"] = gather(model(x))
+            sync()
+            out["launches"]["forward"] = since(at)
+            # two f32 SGD steps at global batch TP_TRAIN_BATCH, with cuDNN's
+            # default algorithms (as a user runs), then again with
+            # deterministic ones: there the whole (replicated) params'
+            # gradients of the ranks of a model group must be equal bit for
+            # bit, as nothing all-reduces them over the group
+            recipe = train_recipe(root)  # the HECKTOR21 recipe's criterion; SGD (a key bias's gradient is rounding)
+            recipe["training"].update(optimizer="sgd", compute_dtype="float32", grad_accum=1)
+            recipe["training"]["optimizers"]["sgd"] = {"lr": 0.01, "momentum": 0.9}
+            cfg = ConfigNode(recipe)
+
+            def timed(fn) -> float:
+                sync()
+                t0 = time.perf_counter()
+                fn()
+                sync()
+                return (time.perf_counter() - t0) * 1e3
+
+            def train(deterministic: bool) -> dict:
+                held = torch.backends.cudnn.deterministic
+                torch.backends.cudnn.deterministic = deterministic
+                m = model if not deterministic else build()
+                optimizer, lr = build_optimizer(cfg.training, m, mesh)
+                trainer = SegTrainer(cfg, device_transform=DEVICE_TRANSFORM, device=dev, mesh=mesh)
+                trainer.setup(TrainState(model=m, optimizer=optimizer), None, EpochScheduler(cfg.training, lr))
+                shards = sharded_params(m)
+                r = {"init": {k: v.detach().cpu().clone() for k, v in whole_state_dict(m).items()}, "losses": []}
+                at = counts()
+                for batch in data["train"]:
+                    counting[0] = not deterministic and not r["losses"]
+                    trainer.run_step(batch)
+                    r["losses"].append(trainer.flush_step_metrics()["loss"])
+                    sync()
+                    counting[0] = False
+                    if len(r["losses"]) == 1:  # the first step's summed gradients of the whole params
+                        r["replicated_grads"] = {n: p.grad.detach().cpu().clone() for n, p in m.named_parameters()
+                                                 if n not in shards and p.grad is not None}
+                r["launches"] = since(at)
+                r["params"] = {k: v.detach().cpu().clone() for k, v in whole_state_dict(m).items()}
+                if not deterministic:  # the same steps again, unchecked and timed
+                    check.on, at = False, counts()
+                    r["step_ms"] = [timed(lambda b=b: (trainer.run_step(b), trainer.flush_step_metrics()))
+                                    for b in data["train"]]
+                    r["launches_timed"] = since(at)
+                    check.on = cuda
+                torch.backends.cudnn.deterministic = held
+                return r
+
+            r = train(False)
+            out["launches"]["train"] = r.pop("launches")
+            out["launches"]["train_timed"] = r.pop("launches_timed")
+            out.update(r, step_reduced=dict(reduced))
+            det = train(True)
+            out["launches"]["train_det"] = det.pop("launches")
+            out["det"] = {"losses": det["losses"], "replicated_grads": det["replicated_grads"]}
+            # Tent online (continual, inline) and strict (episodic, post) from
+            # the init weights; then its batches again, unchecked and timed
+            out["tent"] = {}
+            for mode, episodic in (("inline", False), ("post", True)):
+                model = build()  # the seed's weights again
+                tcfg = eval_config("tent", episodic)
+                tcfg["tta"].update(lr=1e-2, predict=mode)
+                tcfg = ConfigNode(tcfg)
+                adapter = TentAdapter(tcfg.tta, config=tcfg, device_transform=DEVICE_TRANSFORM, device=dev, mesh=mesh)
+                fn = adapter.make_adapt_predict_fn(model, threshold=THRESHOLD, predict_mode=mode)
+                ents, preds = [], []
+                at = counts()
+                for xb in data["tent"]:
+                    _, pred = fn(model, torch.from_numpy(rows(xb)).to(dev), xb.shape[0])
+                    preds.append(gather(pred))
+                    ents.append(adapter._last_ents.tolist())
+                out["launches"][f"tent_{mode}"] = since(at)
+                state = whole_state_dict(model)
+                adapted = {k: state[k].detach().cpu().clone() for k in adapter._names}
+                check.on, at = False, counts()
+                ms = [timed(lambda xb=xb: fn(model, torch.from_numpy(rows(xb)).to(dev), xb.shape[0]))
+                      for xb in data["tent"]]
+                out["launches"][f"tent_{mode}_timed"] = since(at)
+                check.on = cuda
+                out["tent"][mode] = {"ents": ents, "preds": preds, "ms": ms, "adapted": adapted}
+    finally:
+        dist.all_reduce = all_reduce
+    out["check"] = check.seen
+    out["check_ok"] = check.ok(["forward float32", "backward float32"]) if cuda else None
+    out["peak_gib"] = (torch.cuda.max_memory_allocated(dev) - live) / 2**30 if cuda else 0.0
+    return out
+
+
+def _tp_rank(rank: int, world: int, root: str, device: str, spec: dict) -> None:
+    """One rank of phase 25: the process group over a ``file://`` store in
+    ``root`` (gloo: the ranks share the card), a ``data x model`` mesh,
+    ``tp_run``."""
+    import datetime
+
+    sys.path.insert(0, REPO)
+    import torch
+
+    from multimodal_tta_tpu_torch.parallel.distributed import maybe_initialize_distributed
+    from multimodal_tta_tpu_torch.parallel.mesh import make_mesh
+
+    torch.set_num_threads(spec.get("threads", 4))
+    maybe_initialize_distributed("gloo", f"file://{root}/store", world, rank, device=device,
+                                 timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
+    mesh = make_mesh([_rank_device(device)] * world, data=world // TP_MODEL, model=TP_MODEL)
+    torch.save(tp_run(device, root, mesh, spec), os.path.join(root, f"rank{rank}.pt"))
+
+
+def tp_data(shape) -> dict:
+    import numpy as np
+
+    vols = hecktor_volumes(BATCH + TP_STEPS * TP_TRAIN_BATCH + TP_TENT_BATCHES * BATCH, TP_SEED, shape)
+    img = np.stack([v["image"] for v in vols])
+    lbl = np.stack([v["label"] for v in vols])
+    n_train = TP_STEPS * TP_TRAIN_BATCH
+    return {"forward": img[:BATCH],
+            "train": [{"image": img[BATCH + i * TP_TRAIN_BATCH:BATCH + (i + 1) * TP_TRAIN_BATCH],
+                       "label": lbl[BATCH + i * TP_TRAIN_BATCH:BATCH + (i + 1) * TP_TRAIN_BATCH]}
+                      for i in range(TP_STEPS)],
+            "tent": [img[BATCH + n_train + i * BATCH:BATCH + n_train + (i + 1) * BATCH] for i in range(TP_TENT_BATCHES)]}
+
+
+def tp_expected(cuda: bool) -> dict:
+    """The norm launches of each part of ``tp_run`` (``_timed``: the same
+    steps again, unchecked and timed)."""
+    n = TP_PER_FORWARD if cuda else 0
+    train = {"forward": n * TP_STEPS, "backward": n * TP_STEPS}
+    inline = {"forward": n * TP_TENT_BATCHES, "backward": n * TP_TENT_BATCHES}
+    post = {"forward": 2 * n * TP_TENT_BATCHES, "backward": n * TP_TENT_BATCHES}
+    return {"forward": {"forward": n, "backward": 0}, "train": train, "train_timed": train, "train_det": train,
+            "tent_inline": inline, "tent_inline_timed": inline, "tent_post": post, "tent_post_timed": post}
+
+
+def model_axis_phase(device, root: str, *, shape=SHAPE[:3], model=None, threads: int = 4) -> dict:
+    """Phase 25: four ranks sharing the device (gloo) on a ``data=2 x
+    model=2`` mesh against the one-process run here."""
+    import shutil
+
+    import torch
+
+    from multimodal_tta_tpu_torch.parallel.distributed import spawn_ranks
+
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root, exist_ok=True)
+    t0 = time.perf_counter()
+    cuda = torch.device(device).type == "cuda"
+    spec = {"shape": list(shape), "threads": threads, "data": os.path.join(root, "data.pt"), "model": model or {}}
+    torch.save(tp_data(shape), spec["data"])
+    ranks_root = os.path.join(root, "ranks")
+    os.makedirs(ranks_root, exist_ok=True)
+    t1 = time.perf_counter()
+    spawn_ranks(_tp_rank, TP_WORLD, ranks_root, (ranks_root, str(device), spec), TP_TIMEOUT_S)
+    out = {"ranks_s": time.perf_counter() - t1}
+    log(f"[model_axis] the ranks took {out['ranks_s']:.1f} s")
+    ranks = [torch.load(os.path.join(ranks_root, f"rank{r}.pt"), weights_only=False) for r in range(TP_WORLD)]
+    t1 = time.perf_counter()
+    held = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    try:
+        one = tp_run(device, os.path.join(root, "one"), None, spec)
+    finally:
+        torch.set_num_threads(held)
+    out["one_s"] = time.perf_counter() - t1
+    failed, r0 = [], ranks[0]
+    scale = float(one["logits"].abs().max())
+    logit_err = max(float((res["logits"] - one["logits"]).abs().max()) for res in ranks)
+    if logit_err > TP_LOGIT_REL * scale:
+        failed.append(f"the forward's logits {logit_err} from one process's (limit {TP_LOGIT_REL} x {scale})")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], one["losses"]))
+    if any(res["losses"] != r0["losses"] for res in ranks) or loss_rel > DP_LOSS_REL:
+        failed.append(f"losses {[res['losses'] for res in ranks]} vs {one['losses']}")
+    names = sorted(one["params"])
+    d_one = torch.cat([(one["params"][n] - one["init"][n]).flatten() for n in names])
+    d_r = torch.cat([(r0["params"][n] - r0["init"][n]).flatten() for n in names])
+    delta_rel = float((d_r - d_one).norm() / d_one.norm())
+    # how far the ranks' params sit from rank 0's after the default steps
+    # (cuDNN's weight gradients need not repeat bit for bit), and the
+    # deterministic steps' whole-param gradients, model rank against model rank
+    spread = max(float((res["params"][n] - r0["params"][n]).abs().max()) for res in ranks for n in names)
+    spread_rel = max(float(torch.cat([(res["params"][n] - r0["params"][n]).flatten() for n in names]).norm()
+                           / d_one.norm()) for res in ranks)
+    grads_apart = sorted({n for d in range(TP_WORLD // TP_MODEL) for n in ranks[d * TP_MODEL]["det"]["replicated_grads"]
+                          for m in range(1, TP_MODEL)
+                          if not torch.equal(ranks[d * TP_MODEL + m]["det"]["replicated_grads"][n],
+                                             ranks[d * TP_MODEL]["det"]["replicated_grads"][n])})
+    det_loss_rel = max(abs(a - b) / abs(b) for a, b in zip(r0["det"]["losses"], one["det"]["losses"]))
+    if delta_rel > DP_DELTA_REL or spread_rel > DP_DELTA_REL:
+        failed.append(f"the params' moves over the steps: {delta_rel}, the ranks' spread {spread_rel} "
+                      f"(limit {DP_DELTA_REL} each)")
+    if grads_apart or not r0["det"]["replicated_grads"] or det_loss_rel > DP_LOSS_REL:
+        failed.append(f"deterministic steps: whole params' gradients apart over a model group {grads_apart[:5]} "
+                      f"({len(grads_apart)} tensors), losses {det_loss_rel}")
+    tent = {}
+    for mode, t in r0["tent"].items():
+        o = one["tent"][mode]
+        ent_rel = max(abs(a - b) / abs(b) for ea, eb in zip(t["ents"], o["ents"]) for a, b in zip(ea, eb))
+        agree = min(float((a == b).float().mean()) for a, b in zip(t["preds"], o["preds"]))
+        keys = sorted(o["adapted"])
+        diff = torch.cat([(t["adapted"][k] - o["adapted"][k]).flatten() for k in keys])
+        delta = torch.cat([(o["adapted"][k] - one["init"][k]).flatten() for k in keys])
+        tent[mode] = {"ents_max_rel": ent_rel, "pred_agree": agree, "delta_rel_l2": float(diff.norm() / delta.norm()),
+                      "adapted": len(keys), "ms_rank": t["ms"], "ms_one": o["ms"]}
+        if ent_rel > DP_LOSS_REL or agree < DP_PRED_AGREE or tent[mode]["delta_rel_l2"] > DP_DELTA_REL:
+            failed.append(f"Tent {mode}: {tent[mode]}")
+    for res in ranks:
+        if res["tp_bytes"] - res["whole_bias_bytes"] != (one["tp_bytes"] - one["whole_bias_bytes"]) // TP_MODEL:
+            failed.append(f"{res['tag']} holds {res['tp_bytes']} bytes of attention and MLP weights, one process "
+                          f"{one['tp_bytes']}")
+    want = tp_expected(cuda)
+    for res in ranks + [one]:
+        if res["launches"] != want:
+            failed.append(f"{res['tag']}: launches {res['launches']}, derived {want}")
+        if cuda and not res["check_ok"]:
+            failed.append(f"{res['tag']} kernels vs plain: {res['check']}")
+    if failed:
+        raise AssertionError("phase 25: " + "; ".join(failed))
+    out.update({"ranks_spread_max_abs": spread, "ranks_spread_rel_l2": spread_rel,
+                "det_replicated_grads": len(r0["det"]["replicated_grads"]), "det_loss_rel": det_loss_rel})
+    out.update({"logit_max_abs": logit_err, "logit_scale": scale, "losses": {"ranks": r0["losses"],
+                "one": one["losses"], "max_rel": loss_rel}, "delta_rel_l2": delta_rel, "tent": tent,
+                "launches": {k: sum(res["launches"][p][k] for res in ranks for p in want)
+                             for k in ("forward", "backward")},
+                "ranks": [{k: res[k] for k in ("tag", "tp_bytes", "sharded", "step_ms", "step_reduced", "peak_gib",
+                                               "check")} for res in ranks],
+                "one": {k: one[k] for k in ("tp_bytes", "step_ms", "peak_gib", "check")}})
+    out["phase_s"] = time.perf_counter() - t0
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def log_model_axis(tp: dict, card: str) -> None:
+    log(f"[model_axis] phase 25: UNETR {TP_UNETR} with tp_axis=model on {TP_WORLD} ranks (data={TP_WORLD // TP_MODEL}"
+        f" x model={TP_MODEL}) over gloo on one card vs one process, f32: ranks {tp['ranks_s']:.1f} s, one process "
+        f"{tp['one_s']:.1f} s; card {card}")
+    log(f"[model_axis]   forward logits within {tp['logit_max_abs']:.3g} of one process (limit {TP_LOGIT_REL} x "
+        f"{tp['logit_scale']:.3g}); losses {tp['losses']}; the params' moves within {tp['delta_rel_l2']:.3g} "
+        f"(limit {DP_DELTA_REL}); the ranks' params apart by at most {tp['ranks_spread_max_abs']:.3g} (relative L2 "
+        f"{tp['ranks_spread_rel_l2']:.3g} of the moves); with deterministic cuDNN the {tp['det_replicated_grads']} "
+        f"whole params' gradients equal on the ranks of each model group (losses {tp['det_loss_rel']:.3g} from one "
+        f"process's); Tent {json.dumps(tp['tent'])}")
+    for res in tp["ranks"]:
+        log(f"[model_axis]   {res['tag']}: {res['tp_bytes']} bytes of attention and MLP weights (one process "
+            f"{tp['one']['tp_bytes']}), {res['sharded']} tensors cut; kernels vs plain {json.dumps(res['check'])}; f32 "
+            f"step ms (warm, unchecked) {[round(t, 1) for t in res['step_ms']]} (one process "
+            f"{[round(t, 1) for t in tp['one']['step_ms']]}); first step all-reduced {res['step_reduced']}"
+            f"; peak {res['peak_gib']:.3f} GiB above the memory live at the start (one process "
+            f"{tp['one']['peak_gib']:.3f}); card {card}")
+    log(f"[model_axis]   one process: kernels vs plain {json.dumps(tp['one']['check'])}")
+    log(f"[model_axis] phase 25 took {tp['phase_s']:.1f} s; launches over the four ranks {tp['launches']}; card {card}")
 
 
 def log(msg: str) -> None:
@@ -6494,6 +7447,15 @@ def main() -> int:
     cli["launches"] = cli_launches
     cli["card"] = smi
     log(f"[cli] phase 14 took {cli_s:.1f} s; launches over the CLI runs {cli_launches}; card {smi}")
+    # phase 22's NCCL probe and the torchrun command lines of phases 22-24
+    # need only phase 14's fixture: they run on a lane of their own beside
+    # phases 15-21 (CliLane)
+    lane_root = os.path.join(REPO, "build", "chip_smoke_cli_lane")
+    shutil.rmtree(lane_root, ignore_errors=True)
+    lane = CliLane({"nccl_probe": lambda: nccl_probe(os.path.join(lane_root, "probe")),
+                    "data_parallel": lambda: dp_torchrun_cli(cli["manifest"], os.path.join(lane_root, "dp")),
+                    "space_parallel": lambda: sp_torchrun_cli(cli["manifest"], os.path.join(lane_root, "sp")),
+                    "adapters": lambda: ad_torchrun_cli(cli["manifest"], os.path.join(lane_root, "ad"))})
 
     # ---- 15. the TTA methods ---------------------------------------------
     from multimodal_tta_tpu_torch.conf import compose
@@ -7093,7 +8055,8 @@ def main() -> int:
         filed = (f", save {r['save_s']:.2f} s, load {r['load_s']:.2f} s, {r['bytes']} bytes" if "bytes" in r
                  else " (the program in memory)")
         log(f"[serving] {tag} artifact ({r['mode']}, {'episodic' if r['episodic'] else 'continual'}, {r['steps']} "
-            f"step): export {r['export_s']:.2f} s{filed}, {r['n_state']} state leaves, norm calls in the program "
+            f"step; UNet3D {list(r['arch']['channels'])}): export {r['export_s']:.2f} s{filed}, {r['n_state']} "
+            f"state leaves, norm calls in the program "
             f"{r['program_norm_calls']}; {r['batches']} batches: ms per step artifact "
             f"{[round(t, 2) for t in r['art_ms']]} (median of the warm {r['art_median_ms']:.2f}) vs live "
             f"{[round(t, 2) for t in r['live_ms']]} (median {r['live_median_ms']:.2f}); one more call profiled: "
@@ -7206,18 +8169,24 @@ def main() -> int:
     log(f"[preprocess] phase 21 took {prep['phase_s']:.1f} s; launches {prep_launches}; card {smi}")
 
     # ---- 22. the data axis over ranks: two ranks on the card, torchrun ------
-    # (2 steps of the sharded store: the smoke's time leaves room for phase 23)
+    # (2 steps of the sharded store: the smoke's time leaves room for phases 23-25)
+    lane_wait = lane.join()
+    starts = {15: t_tta, 16: t_brats, 17: t_tr, 18: t_bn, 19: t_srv, 20: t_opt, 21: t_prep}
+    log(f"[cli_lane] the NCCL probe and the torchrun command lines of phases 22-24 took {lane.wall_s:.1f} s "
+        f"({ {k: round(v, 1) for k, v in lane.seconds.items()} }) beside phases "
+        f"{[p for p, t in starts.items() if t < lane.t0 + lane.wall_s]}; phase 22 waited {lane_wait:.1f} s for them")
     torch.cuda.empty_cache()
-    dp = data_parallel_phase(dev, os.path.join(REPO, "build", "chip_smoke_dp"), manifest=cli["manifest"],
-                             volumes=2 * TRAIN_BATCH)
+    dp = data_parallel_phase(dev, os.path.join(REPO, "build", "chip_smoke_dp"), volumes=2 * TRAIN_BATCH,
+                             probe=lane.result("nccl_probe"))
+    dp["torchrun"] = lane.result("data_parallel")
     dp["card"] = smi
     log_data_parallel(dp, smi)
     dp_launches = dp["launches"]
 
     # ---- 23. the space axis over ranks: two ranks on the card, torchrun -----
     torch.cuda.empty_cache()
-    sp23 = space_parallel_phase(dev, os.path.join(REPO, "build", "chip_smoke_sp"), manifest=cli["manifest"])
-    shutil.rmtree(cli_root, ignore_errors=True)  # phase 14's fixture: phases 15, 17, 18, 19, 22 and 23 ran on it
+    sp23 = space_parallel_phase(dev, os.path.join(REPO, "build", "chip_smoke_sp"))
+    sp23["torchrun"] = lane.result("space_parallel")
     sp23["card"] = smi
     torch.cuda.empty_cache()
     sp23["table"] = split_kernel_table(dev, split_norm_shapes(TRAIN_BATCH, SHAPE[:3], (32, 64, 128, 256, 512),
@@ -7226,6 +8195,23 @@ def main() -> int:
         raise AssertionError(f"phase 23 split kernels vs plain at the path shapes: {sp23['table']['per_shape']}")
     log_space_parallel(sp23, smi)
     sp_launches = sp23["launches"]
+
+    # ---- 24. every adapter over the data axis: two ranks, torchrun CLIs ----
+    torch.cuda.empty_cache()
+    ad24 = adapters_phase(dev, os.path.join(REPO, "build", "chip_smoke_ad"))
+    ad24["torchrun"] = ad_predict_check(cli["manifest"], os.path.join(lane_root, "ad"), lane.result("adapters"))
+    shutil.rmtree(cli_root, ignore_errors=True)  # phase 14's fixture: phases 15, 17-19 and 22-24 ran on it
+    shutil.rmtree(lane_root, ignore_errors=True)
+    ad24["card"] = smi
+    log_adapters(ad24, smi)
+    ad_launches = ad24["launches"]
+
+    # ---- 25. the model axis: UNETR over data=2 x model=2, four ranks --------
+    torch.cuda.empty_cache()
+    tp25 = model_axis_phase(dev, os.path.join(REPO, "build", "chip_smoke_tp"))
+    tp25["card"] = smi
+    log_model_axis(tp25, smi)
+    tp_launches = dict(tp25["launches"], minplus=0)
 
 
     def norm_summary(name: str, tot: dict, train_tot: dict, brats_tot: dict, n_launches: dict, err: float,
@@ -7259,7 +8245,8 @@ def main() -> int:
                             "brats": brats_launches["forward"], "transformer": tr_launches["forward"],
                             "batchnorm": bn_launches["forward"], "serving_artifact": art_launches["forward"],
                             "training_options": opt_launches["forward"], "preprocess": prep_launches["forward"],
-                            "data_parallel": dp_launches["forward"], "space_parallel": sp_launches["forward"]},
+                            "data_parallel": dp_launches["forward"], "space_parallel": sp_launches["forward"],
+                            "adapters": ad_launches["forward"], "model_axis": tp_launches["forward"]},
                            max_abs_err, {}, "forward")
     backward_summary = norm_summary(
         "fused_instance_norm_backward", btotals, norm_totals[TRAIN_BATCH][1], brats_norm[1],
@@ -7268,7 +8255,8 @@ def main() -> int:
          "transformer": tr_launches["backward"], "batchnorm": bn_launches["backward"],
          "serving_artifact": art_launches["backward"], "training_options": opt_launches["backward"],
          "preprocess": prep_launches["backward"], "data_parallel": dp_launches["backward"],
-         "space_parallel": sp_launches["backward"]}, backward_err,
+         "space_parallel": sp_launches["backward"], "adapters": ad_launches["backward"],
+         "model_axis": tp_launches["backward"]}, backward_err,
         {"note": "the gradient of the TPU kernel's function; dx computed in all 18 timed calls"}, "backward")
     minplus_summary = {
         "name": "minplus",
@@ -7277,12 +8265,14 @@ def main() -> int:
         "replaces": "multimodal_tta_tpu/pallas/edt_minplus.py:52",
         "launches": sum(eval_launches.values()) + train_launches["minplus"] + cli_launches["minplus"]
         + tta_launches["minplus"] + brats_launches["minplus"] + tr_launches["minplus"] + bn_launches["minplus"]
-        + opt_launches["minplus"] + prep_launches["minplus"] + dp_launches["minplus"] + sp_launches["minplus"],
+        + opt_launches["minplus"] + prep_launches["minplus"] + dp_launches["minplus"] + sp_launches["minplus"]
+        + ad_launches["minplus"],
         "launches_by_path": {**eval_launches, "train": train_launches["minplus"], "cli": cli_launches["minplus"],
                              "tta": tta_launches["minplus"], "brats": brats_launches["minplus"],
                              "transformer": tr_launches["minplus"], "batchnorm": bn_launches["minplus"],
                              "training_options": opt_launches["minplus"], "preprocess": prep_launches["minplus"],
-                             "data_parallel": dp_launches["minplus"], "space_parallel": sp_launches["minplus"]},
+                             "data_parallel": dp_launches["minplus"], "space_parallel": sp_launches["minplus"],
+                             "adapters": ad_launches["minplus"]},
         "max_abs_err": minplus_err,
         "ms": edt_ms,
         "plain_ms": edt_plain_ms,
@@ -7304,7 +8294,8 @@ def main() -> int:
                     "eval_batch_split_ms": split,
                     "eval_metrics": eval_runs, "training": training, "cli": cli, "tta": tta_log, "brats": brats,
                     "transformers": transformers, "batchnorm": batchnorm, "serving_artifact": srv,
-                    "training_options": opt20, "preprocess": prep, "data_parallel": dp, "space_parallel": sp23},
+                    "training_options": opt20, "preprocess": prep, "data_parallel": dp, "space_parallel": sp23,
+                    "adapters": ad24, "model_axis": tp25},
                    default=str))
     log(json.dumps({"kernels": [summary, backward_summary, minplus_summary] + split_summaries(sp23, smi)}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
@@ -7313,4 +8304,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        stop_commands()  # a failed phase leaves no command line of the lane running

@@ -9,7 +9,11 @@ and write NIfTI masks.
 Loads a checkpoint, streams a split, optionally TTA-adapts per batch, and
 writes every case's segmentation back into its source NIfTI grid, plus a
 ``predictions.csv`` provenance manifest. The model is left as the
-checkpoint gave it.
+checkpoint gave it. Under torchrun (or ``training.devices=[0, 0]`` and
+friends, as ``cli.adapt``) each rank adapts and writes its rows of every
+batch, and the files and ``predictions.csv`` are those of one process:
+
+    torchrun --nproc_per_node=2 -m multimodal_tta_tpu_torch.cli.predict ... tta=sar
 
 Config surface (all optional):
   predict.split     split to export (default "test")
@@ -28,11 +32,10 @@ import sys
 from typing import Any, Dict, List, Optional, Sequence
 
 from .. import DeviceLike, resolve_device
-from ..conf import compose, setup_run_dir
+from ..conf import compose
 from ..utils.config import get_config
 from ..utils.host_alloc import retain_host_memory
-from ..utils.logger import setup_logger
-from . import CONFIG_DIR
+from . import CONFIG_DIR, start_ranks
 from .adapt import load_serving_state
 
 
@@ -43,15 +46,15 @@ def main(argv: Optional[Sequence[str]] = None, device: DeviceLike = "cuda") -> L
     argv = list(sys.argv[1:] if argv is None else argv)
     cfg = compose(CONFIG_DIR, "config", argv)
 
-    run_dir = setup_run_dir(cfg)
-    logger = setup_logger(log_file=os.path.join(run_dir, "predict.log"))
+    mesh, run_dir, logger = start_ranks(cfg, dev, "predict.log")
     logger.info(f"Run dir: {run_dir}")
 
     from ..core.experiment_manager import ExperimentManager
     from ..evaluation.export import PredictionExporter
     from ..tta.engine import TTAEngine
 
-    manager = ExperimentManager(cfg, device=dev)
+    manager = ExperimentManager(cfg, device=dev, mesh=mesh)
+    dev = manager.device
     manager.setup_model()
     manager.setup_optimizer()
 
@@ -72,7 +75,7 @@ def main(argv: Optional[Sequence[str]] = None, device: DeviceLike = "cuda") -> L
     if hasattr(builder, "build_transform"):
         device_transform = builder.build_transform(split).device_spec()
 
-    engine = TTAEngine(cfg, device_transform=device_transform, device=dev)
+    engine = TTAEngine(cfg, device_transform=device_transform, device=dev, mesh=mesh)
     adapt_fn = None
     carry = False
     if engine.adapter is not None:
@@ -90,7 +93,7 @@ def main(argv: Optional[Sequence[str]] = None, device: DeviceLike = "cuda") -> L
         logger=logger,
     )
     try:
-        rows = exporter.run(model, loader, adapt_fn=adapt_fn, carry_state=carry, device=dev)
+        rows = exporter.run(model, loader, adapt_fn=adapt_fn, carry_state=carry, device=dev, mesh=mesh)
     finally:
         if engine.adapter is not None:
             engine.adapter.restore()  # the adapted norms back to the checkpoint's values

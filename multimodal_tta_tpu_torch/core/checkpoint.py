@@ -15,7 +15,11 @@ a barrier. Under ZeRO-1 (``training.zero1``) the optimizer's state is first
 consolidated to rank 0, so the file holds the plain optimizer's state dict:
 a checkpoint of a run over ranks resumes in one process and the reverse
 (``ZeroRedundancyOptimizer.load_state_dict`` takes its partition). Every
-rank reads the file to resume.
+rank reads the file to resume. Over a model axis (``parallel/tensor.py``)
+the file holds the whole tree too: the ranks of a model group gather each
+sharded param, its EMA shadow and its optimizer moments, and a rank that
+loads cuts its share, so a checkpoint moves between any model axis and one
+process.
 
 The reference's msgpack and orbax formats are not ported (they need flax,
 msgpack and orbax; ROADMAP.md, item 12b): loading such a checkpoint raises.
@@ -32,6 +36,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..parallel import tensor as tp
 from ..parallel.distributed import barrier, is_primary_host
 from ..utils.logger import get_logger
 from .train_state import TrainState, shadow_module
@@ -49,19 +54,22 @@ def _zero1_of(optimizer):
 def _state_payload(state: TrainState) -> Dict[str, Any]:
     """What the file holds; under ZeRO-1 every rank takes part in the
     consolidation and only rank 0's payload is complete."""
+    model = tp.whole_state_dict(state.model)
+    ema = None if state.ema_params is None else tp.whole_tensors(state.model, state.ema_params)
     zero = _zero1_of(state.optimizer)
     if zero is not None:
+        # each data group consolidates to its first rank: over a model axis
+        # those ranks form one model group and gather its moments together
         zero.consolidate_state_dict(to=0)
-        if not is_primary_host():
+        if zero.rank != 0:
             return {}
-    payload = {
-        "step": int(state.step),
-        "model": state.model.state_dict(),
-        "optimizer": state.optimizer.state_dict(),
-    }
+    optimizer = tp.optimizer_state(state.model, state.optimizer, state.optimizer.state_dict(), cut=False)
+    if not is_primary_host():
+        return {}
+    payload = {"step": int(state.step), "model": model, "optimizer": optimizer}
     # the EMA shadow rides along only when the run tracks it
-    if state.ema_params is not None:
-        payload["ema_params"] = dict(state.ema_params)
+    if ema is not None:
+        payload["ema_params"] = ema
     return payload
 
 
@@ -112,10 +120,11 @@ def load_checkpoint(path: str, template_state: TrainState) -> Tuple[TrainState, 
     # read to the host: the state dicts' loaders put each tensor where the
     # live one lives (Adam's step counts stay on the host, as in a fresh run)
     raw = torch.load(pt, map_location="cpu", weights_only=True)
-    model.load_state_dict(raw["model"])
-    template_state.optimizer.load_state_dict(raw["optimizer"])
+    model.load_state_dict(tp.local_tensors(model, raw["model"]))
+    template_state.optimizer.load_state_dict(tp.optimizer_state(model, template_state.optimizer, raw["optimizer"],
+                                                                cut=True))
     if "ema_params" in raw:
-        ema = {k: v.to(device) for k, v in raw["ema_params"].items()}
+        ema = {k: v.to(device) for k, v in tp.local_tensors(model, raw["ema_params"]).items()}
     elif template_state.ema_params is not None:
         get_logger().info(
             "[checkpoint] no ema_params in checkpoint; warm-starting the EMA "
@@ -143,7 +152,7 @@ def load_params_only(path: str, model: nn.Module, *, use_ema: bool = False) -> n
                 "ema_params — the teacher was trained without training.ema"
             )
         sd.update(raw["ema_params"])
-    model.load_state_dict(sd)
+    model.load_state_dict(tp.local_tensors(model, sd))
     return model
 
 

@@ -39,6 +39,7 @@ import numpy as np
 
 from ..conf.node import ConfigNode
 from ..models.convert import flax_layouts, flax_path
+from ..parallel.tensor import model_axis
 from ..utils.config import get_config
 
 
@@ -251,6 +252,10 @@ def build_optimizer(training_cfg, model: nn.Module, mesh=None) -> Tuple[Optimize
         nesterov = bool(get_config(opt_cfg, "nesterov", False)) and momentum > 0
         cls, kw = torch.optim.SGD, dict(lr=lr, momentum=momentum, dampening=0.0, nesterov=nesterov)
     elif opt_name == "adafactor":
+        if model_axis(model) is not None:
+            raise NotImplementedError(
+                "[optim] Adafactor over a model axis is not ported yet (ROADMAP.md, item 12b-vi): its factored "
+                "moments and its update clipping read whole tensors, and a rank holds a share")
         momentum = get_config(opt_cfg, "momentum", None)
         layouts = flax_layouts(model)
         cls, kw = Adafactor, dict(

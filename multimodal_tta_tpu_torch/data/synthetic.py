@@ -11,6 +11,7 @@ the same manifest rows as the reference; the manifests are written with the
 from __future__ import annotations
 
 import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Tuple
 
 import csv
@@ -69,71 +70,78 @@ def make_hecktor_fixture(
     affine = np.diag([1.0, 1.0, 3.0, 1.0])
     X, Y, Z = np.meshgrid(*(np.arange(s) for s in shape), indexing="ij")
     rows = []
-    for center, n in centers.items():
-        for i in range(n):
-            pid = f"{center}{i:03d}"
-            ct = rng.randn(*shape).astype(np.float32) * 200.0
-            pt = np.abs(rng.randn(*shape)).astype(np.float32) * 4.0
-            mask = np.zeros(shape, dtype=np.uint8)
-            for _ in range(rng.randint(n_lesions[0], n_lesions[1] + 1)):
-                r = rng.uniform(*radius_range)
-                cx, cy, cz = (rng.randint(2, max(s - 2, 3)) for s in shape)
-                # ellipsoid, z squashed 2x (anisotropic spacing)
-                ball = ((X - cx) ** 2 + (Y - cy) ** 2 + ((Z - cz) * 2.0) ** 2) < r * r
-                mask |= ball.astype(np.uint8)
-            # make the tumor visible in both modalities. The cast matters:
-            # uint8 * python-float promotes to float64, which silently made
-            # every fixture volume 8 bytes/voxel — 2x the production dtype
-            # on disk AND a deflate worst case (zero-interleaved doubles
-            # compressed ~60x slower at gzip-9: 10s vs 0.16s per volume)
-            ct = ct + mask.astype(np.float32) * np.float32(lesion_contrast[0])
-            pt = pt + mask.astype(np.float32) * np.float32(lesion_contrast[1])
+    # the volumes are drawn in order and written on threads (gzip releases the GIL)
+    workers = min(8, os.cpu_count() or 1)
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        writes = []
+        for center, n in centers.items():
+            for i in range(n):
+                pid = f"{center}{i:03d}"
+                ct = rng.randn(*shape).astype(np.float32) * 200.0
+                pt = np.abs(rng.randn(*shape)).astype(np.float32) * 4.0
+                mask = np.zeros(shape, dtype=np.uint8)
+                for _ in range(rng.randint(n_lesions[0], n_lesions[1] + 1)):
+                    r = rng.uniform(*radius_range)
+                    cx, cy, cz = (rng.randint(2, max(s - 2, 3)) for s in shape)
+                    # ellipsoid, z squashed 2x (anisotropic spacing)
+                    ball = ((X - cx) ** 2 + (Y - cy) ** 2 + ((Z - cz) * 2.0) ** 2) < r * r
+                    mask |= ball.astype(np.uint8)
+                # make the tumor visible in both modalities. The cast matters:
+                # uint8 * python-float promotes to float64, which silently made
+                # every fixture volume 8 bytes/voxel — 2x the production dtype
+                # on disk AND a deflate worst case (zero-interleaved doubles
+                # compressed ~60x slower at gzip-9: 10s vs 0.16s per volume)
+                ct = ct + mask.astype(np.float32) * np.float32(lesion_contrast[0])
+                pt = pt + mask.astype(np.float32) * np.float32(lesion_contrast[1])
 
-            sh = (domain_shift or {}).get(center)
-            if sh:
-                amp = float(sh.get("bias_field", 0.0))
-                if amp:
-                    # smooth multiplicative field: product of random-phase
-                    # cosines per axis (spatially varying, so it is NOT
-                    # removed by per-channel z-score normalization)
-                    fx, fy, fz = (rng.uniform(0.5, 1.5) for _ in range(3))
-                    px, py, pz = (rng.uniform(0, 2 * np.pi) for _ in range(3))
-                    field = 1.0 + amp * (
-                        np.cos(2 * np.pi * fx * X / shape[0] + px)
-                        * np.cos(2 * np.pi * fy * Y / shape[1] + py)
-                        * np.cos(2 * np.pi * fz * Z / shape[2] + pz)
-                    ).astype(np.float32)
-                    ct = ct * field
-                    pt = pt * field
-                ct = ct * float(sh.get("ct_gain", 1.0)) + float(sh.get("ct_bias", 0.0))
-                gamma = float(sh.get("pt_gamma", 1.0))
-                if gamma != 1.0:
-                    pt = np.power(np.maximum(pt, 0.0) / 15.0, gamma) * 15.0
-                pt = pt * float(sh.get("pt_gain", 1.0))
-                noise = float(sh.get("noise", 0.0))
-                if noise:
-                    ct = ct + rng.randn(*shape).astype(np.float32) * noise
+                sh = (domain_shift or {}).get(center)
+                if sh:
+                    amp = float(sh.get("bias_field", 0.0))
+                    if amp:
+                        # smooth multiplicative field: product of random-phase
+                        # cosines per axis (spatially varying, so it is NOT
+                        # removed by per-channel z-score normalization)
+                        fx, fy, fz = (rng.uniform(0.5, 1.5) for _ in range(3))
+                        px, py, pz = (rng.uniform(0, 2 * np.pi) for _ in range(3))
+                        field = 1.0 + amp * (
+                            np.cos(2 * np.pi * fx * X / shape[0] + px)
+                            * np.cos(2 * np.pi * fy * Y / shape[1] + py)
+                            * np.cos(2 * np.pi * fz * Z / shape[2] + pz)
+                        ).astype(np.float32)
+                        ct = ct * field
+                        pt = pt * field
+                    ct = ct * float(sh.get("ct_gain", 1.0)) + float(sh.get("ct_bias", 0.0))
+                    gamma = float(sh.get("pt_gamma", 1.0))
+                    if gamma != 1.0:
+                        pt = np.power(np.maximum(pt, 0.0) / 15.0, gamma) * 15.0
+                    pt = pt * float(sh.get("pt_gain", 1.0))
+                    noise = float(sh.get("noise", 0.0))
+                    if noise:
+                        ct = ct + rng.randn(*shape).astype(np.float32) * noise
 
-            ct_p = os.path.join(img_dir, f"{pid}_ct.nii.gz")
-            pt_p = os.path.join(img_dir, f"{pid}_pt.nii.gz")
-            gt_p = os.path.join(lab_dir, f"{pid}_gtvt.nii.gz")
-            nifti.save(ct, affine, ct_p)
-            nifti.save(pt, affine, pt_p)
-            nifti.save(mask, affine, gt_p)
-            rows.append(
-                {
-                    "patient_id": pid,
-                    "center_code": center,
-                    "center_id": list(centers).index(center),
-                    "domain": "source",
-                    "split": "train",
-                    "status": "ok",
-                    "ct_proc": ct_p,
-                    "pt_proc": pt_p,
-                    "gtvt_proc": gt_p,
-                }
-            )
+                ct_p = os.path.join(img_dir, f"{pid}_ct.nii.gz")
+                pt_p = os.path.join(img_dir, f"{pid}_pt.nii.gz")
+                gt_p = os.path.join(lab_dir, f"{pid}_gtvt.nii.gz")
+                writes += [pool.submit(nifti.save, v, affine, path)
+                           for v, path in ((ct, ct_p), (pt, pt_p), (mask, gt_p))]
+                if len(writes) > 6 * workers:  # a bounded queue of volumes in memory
+                    writes.pop(0).result()
+                rows.append(
+                    {
+                        "patient_id": pid,
+                        "center_code": center,
+                        "center_id": list(centers).index(center),
+                        "domain": "source",
+                        "split": "train",
+                        "status": "ok",
+                        "ct_proc": ct_p,
+                        "pt_proc": pt_p,
+                        "gtvt_proc": gt_p,
+                    }
+                )
 
+        for w in writes:
+            w.result()
     manifest = os.path.join(root, "manifest.csv")
     _write_rows(manifest, rows)
     return manifest

@@ -26,19 +26,29 @@ On the GPU each batch runs ``_probs_fn``, the threshold and (when asked)
 the probability and the uncertainty map under ``torch.no_grad()``; what
 the host writes crosses in ONE device-to-host copy per batch. Progress goes
 to the logger, one line per batch.
+
+Over ranks (``mesh``, ``parallel/mesh.py``) each rank adapts and predicts
+its rows of every batch and writes its own cases (gzip-9 writes set an
+export's pace); the ranks of a model axis hold the same rows and only its
+first rank writes. The rows of ``predictions.csv`` are gathered and rank 0
+writes them in the order one process writes them: the files and the
+manifest are those of one process.
 """
 
 from __future__ import annotations
 
 import csv
 import os
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from .. import DeviceLike, resolve_device
+from ..parallel import space as sp
 from ..utils.logger import get_logger
 from .seg_eval import as_list_str
 
@@ -151,15 +161,23 @@ class PredictionExporter:
         adapt_fn=None,
         carry_state: bool = False,
         device: DeviceLike = "cuda",
+        mesh=None,
     ) -> List[Dict[str, Any]]:
         """Export predictions for every case in the loader.
 
         ``adapt_fn``/``carry_state`` follow evaluate_epoch's TTA hook
-        contract (adapt before predict; carry = continual). Returns the
-        manifest rows (also written to ``<out_dir>/predictions.csv``).
+        contract (adapt before predict; carry = continual; over ranks
+        ``adapt_fn`` gets this rank's rows and the global valid count).
+        Returns the manifest rows (also written to
+        ``<out_dir>/predictions.csv``), all of them on every rank.
         """
         dev = resolve_device(device)
-        os.makedirs(self.out_dir, exist_ok=True)
+        mesh = mesh if mesh is not None and mesh.parallel else None
+        if sp.axis_of(mesh) is not None:
+            raise sp.unported("the prediction export")
+        writes = mesh is None or mesh.model_rank == 0
+        if writes:
+            os.makedirs(self.out_dir, exist_ok=True)
         dataset = getattr(data_loader, "dataset", None)
 
         from ..data.prefetch import prefetch_to_device
@@ -169,51 +187,63 @@ class PredictionExporter:
             dev,
             array_keys=("image",),
             image_transfer_dtype=self.strategy._transfer_dtype,
+            mesh=mesh,
         )
         n_batches = len(data_loader) if hasattr(data_loader, "__len__") else "?"
 
-        rows: List[Dict[str, Any]] = []
-        for b, batch in enumerate(stream):
-            image = batch["image"]
-            B = int(batch["_n_valid"])
-            case_ids = as_list_str(batch.get("case_id"), B)
-            domains = as_list_str(batch.get("domain"), B)
-            indices = np.asarray(batch.get("index", np.arange(B))).reshape(-1)
+        # each case's files are written on a thread while the next batch runs
+        # (gzip level 9 of a mask takes seconds and releases the GIL)
+        written: List[List[Future]] = []  # this rank's rows of each batch, as they are written
+        with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
+            for b, batch in enumerate(stream):
+                image = batch["image"]
+                B = int(batch["_n_valid"])
+                case_ids = as_list_str(batch.get("case_id"), B)
+                domains = as_list_str(batch.get("domain"), B)
+                indices = np.asarray(batch.get("index", np.arange(B))).reshape(-1)
+                first, n_here = 0, B  # this rank's first row of the global batch and its valid rows
+                if mesh is not None:
+                    first, n_here = mesh.rows(image.shape[0] * mesh.data).start, int(batch["_n_local"])
 
-            eval_state = state
-            if adapt_fn is not None:
-                eval_state = adapt_fn(state, image, B)
-                if carry_state:
-                    state = eval_state
+                eval_state = state
+                if adapt_fn is not None:
+                    eval_state = adapt_fn(state, image, B)
+                    if carry_state:
+                        state = eval_state
 
-            out = self._step(eval_state, image)
-            pred = out["pred"][:B]
-            prob = out["prob"][:B] if self.save_prob else None
-            uncert = out["uncert"][:B] if self.save_uncertainty else None
+                out = self._step(eval_state, image)
+                pred = out["pred"][:n_here]
+                prob = out["prob"][:n_here] if self.save_prob else None
+                uncert = out["uncert"][:n_here] if self.save_uncertainty else None
 
-            for i in range(B):
-                affine, status = self._case_geometry(
-                    dataset, int(indices[i]), pred.shape[1:4]
-                )
-                if status != "ok":
-                    self.logger.warning(
-                        f"[export] case '{case_ids[i]}': {status} — writing "
-                        f"with identity affine"
+                rows_b: List[Future] = []
+                for i in range(n_here if writes else 0):
+                    c = first + i
+                    affine, status = self._case_geometry(
+                        dataset, int(indices[c]), pred.shape[1:4]
                     )
-                row = self._write_case(
-                    case_ids[i],
-                    domains[i],
-                    pred[i],
-                    prob[i] if prob is not None else None,
-                    affine,
-                    status,
-                    uncert_dhwr=uncert[i] if uncert is not None else None,
-                )
-                rows.append(row)
-            self.logger.info(f"[export] batch {b + 1}/{n_batches}: {B} cases written")
+                    if status != "ok":
+                        self.logger.warning(
+                            f"[export] case '{case_ids[c]}': {status} — writing "
+                            f"with identity affine"
+                        )
+                    rows_b.append(pool.submit(
+                        self._write_case,
+                        case_ids[c],
+                        domains[c],
+                        pred[i],
+                        prob[i] if prob is not None else None,
+                        affine,
+                        status,
+                        uncert_dhwr=uncert[i] if uncert is not None else None,
+                    ))
+                written.append(rows_b)
+                self.logger.info(f"[export] batch {b + 1}/{n_batches}: {B} cases")
 
+        batch_rows = [[f.result() for f in rows_b] for rows_b in written]
+        rows = self._merge_rows(batch_rows, mesh)
         manifest = os.path.join(self.out_dir, "predictions.csv")
-        if rows:
+        if rows and (mesh is None or dist.get_rank() == 0):
             keys: List[str] = []
             for r in rows:
                 for k in r:
@@ -225,3 +255,13 @@ class PredictionExporter:
                 writer.writerows(rows)
         self.logger.info(f"[export] {len(rows)} cases -> {self.out_dir}")
         return rows
+
+    @staticmethod
+    def _merge_rows(batch_rows: List[List[Dict[str, Any]]], mesh) -> List[Dict[str, Any]]:
+        """Every rank's manifest rows in one process's order: batch by
+        batch, the writing ranks' rows in rank order (= data rank order)."""
+        if mesh is None:
+            return [r for rows_b in batch_rows for r in rows_b]
+        every: List[Any] = [None] * dist.get_world_size()
+        dist.all_gather_object(every, batch_rows)
+        return [r for b in range(len(batch_rows)) for ranks_rows in every for r in ranks_rows[b]]

@@ -3,7 +3,9 @@
 ``from_flax(params)`` takes the flax ``params`` tree as a nested dict of
 numpy arrays (``jax.tree_util.tree_map(np.asarray, params)``) and returns a
 ``state_dict`` for the port model's ``load_state_dict``: every model of
-``models/`` keeps flax's module names. ``unet3d_from_flax`` is the same
+``models/`` keeps flax's module names. ``from_flax(params, model)`` returns
+the share of a ViT or UNETR cut over a model axis (its rank's heads and MLP
+features). ``unet3d_from_flax`` is the same
 function. ``variables_from_flax({"params": ..., "batch_stats": ...})``
 adds a BatchNorm model's running statistics (flax's ``mean``/``var``
 leaves) as the buffers of the same names. It imports no JAX.
@@ -39,11 +41,13 @@ for a layout: how each parameter reads as the flax leaf it came from.
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+
+from ..parallel.tensor import local_tensors
 
 _TRANSPOSED = "up"  # module name of TransposedConvUp's nn.ConvTranspose
 _TRANSPOSED_2D = re.compile(r"dec\d+")  # vae_delta_mog's decoder nn.ConvTranspose (a 2D kernel)
@@ -68,7 +72,16 @@ def flax_path(name: str) -> str:
     return "/".join(parts)
 
 
-def from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+def from_flax(params: Mapping[str, Any], model: Optional[nn.Module] = None) -> Dict[str, torch.Tensor]:
+    """The port state dict of a flax ``params`` tree; given a ``model``
+    cut over a model axis (``parallel/tensor.py:shard_model``), the share
+    that model holds: each sharded kernel's block of heads or MLP features
+    on its model rank."""
+    sd = _from_flax(params)
+    return sd if model is None else local_tensors(model, sd)
+
+
+def _from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     sd: Dict[str, torch.Tensor] = {}
     for path, leaf in _leaves(params):
         a = np.asarray(leaf, dtype=np.float32)

@@ -29,7 +29,7 @@ The parameters keep flax's names and layouts (``router``; ``wi`` [E, H, F],
 ``bi`` [E, F], ``wo`` [E, F, H], ``bo`` [E, H]). The reference pins the
 expert axis to a mesh axis (``expert_axis``); on one device that is the
 identity, so the key is accepted and nothing is sharded (ROADMAP.md, item
-12b-ii). Over the data axis (``layers.pool_over_ranks``) the load balance's
+12b-ii part 3). Over the data axis (``layers.pool_over_ranks``) the load balance's
 ``f_e`` and ``P_e`` are means over the ranks' global padded batch, their
 sums summed over the ranks before the product.
 """

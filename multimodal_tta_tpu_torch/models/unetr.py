@@ -19,7 +19,10 @@ dummy input (``training.data.transforms.image_size``); an input with
 another patch count raises, as flax's shape check does. Remat (the
 reference's rule): the encoder blocks only under ``True``; the stem at level
 0 and ``dec{k}`` at level k when remat covers the level; the skip branches
-never. ``forward`` takes and returns NDHWC.
+never. ``forward`` takes and returns NDHWC. With ``tp_axis="model"`` the
+encoder blocks' heads and MLP features shard over the model axis
+(``models/vit.py``, ``parallel/tensor.py``), as the reference's do; the
+conv decoder stays whole on every rank.
 """
 
 from __future__ import annotations
@@ -80,7 +83,7 @@ class UNETR(nn.Module):
         seed: Optional[int] = 0,
     ):
         super().__init__()
-        check_unported(tp_axis=tp_axis, seq_shard_axis=seq_shard_axis)
+        check_unported(seq_shard_axis=seq_shard_axis)
         resolve_device(device)
         p = int(patch_size)
         levels = int(math.log2(p))
@@ -104,7 +107,7 @@ class UNETR(nn.Module):
         self.pos_embed = nn.Parameter(torch.zeros(1, math.prod(d // p for d in self.image_size), h))
         for i in range(self.num_layers):
             self.add_module(f"block{i}", EncoderBlock(
-                h, num_heads, mlp_dim, dropout, dtype,
+                h, num_heads, mlp_dim, dropout, dtype, tp_axis=tp_axis,
                 num_experts=moe_experts if is_moe_block(i, moe_experts, moe_every) else 0,
                 moe_k=moe_k, moe_capacity_factor=moe_capacity_factor))
         self.encoder_ln = LayerNorm(h, dtype)

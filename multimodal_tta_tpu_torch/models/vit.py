@@ -24,8 +24,13 @@ patch and the CLS token, so its size follows ``image_size``), runs
 Tent adapts its LayerNorms. With ``num_experts > 0`` an ``EncoderBlock``
 swaps its dense MLP for ``models/moe.py:MoEMlp`` (``moe``, after the
 pre-norm ``LayerNorm_1``), and ``ViT(moe_experts=...)`` routes every
-``moe_every``-th block, as in the reference. The mesh options
-(``tp_axis``, ``seq_shard_axis``) raise, naming their ROADMAP.md item.
+``moe_every``-th block, as in the reference.
+
+``tp_axis="model"`` makes the heads and the MLP features shardable over
+the model axis (``parallel/tensor.py``: ``shard_model`` cuts each rank's
+share, Megatron-style; the MoE blocks stay whole, as in the reference); a
+model that is not cut runs whole. ``seq_shard_axis`` raises, naming its
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import DeviceLike, resolve_device
+from ..parallel.tensor import check_tp_axis, copy_to_model, narrow_param, reduce_from_model
 from ..registry import register_model
 from ..utils.config import get_config
 from .layers import LayerNorm, check_dropout, linear
@@ -44,12 +50,20 @@ from .moe import EXPERT_AXIS, MoEMlp
 from .resnet import _VariantFactory, finish_classifier
 
 
-def check_unported(tp_axis: Optional[str] = None, seq_shard_axis: Optional[str] = None) -> None:
-    """The reference's mesh options raise here, naming their item."""
-    for flag, what in ((tp_axis, "tp_axis"), (seq_shard_axis, "seq_shard_axis")):
-        if flag:
-            raise NotImplementedError(f"{what}={flag!r} is not ported yet (ROADMAP.md, item 12b-ii: "
-                                      "the model and sequence axes over ranks)")
+def check_unported(seq_shard_axis: Optional[str] = None) -> None:
+    """The reference's sequence axis raises here, naming its item."""
+    if seq_shard_axis:
+        raise NotImplementedError(f"seq_shard_axis={seq_shard_axis!r} is not ported yet (ROADMAP.md, item 12b-v: "
+                                  "the transformers' tokens over the space axis)")
+
+
+def row_parallel(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype, tp) -> torch.Tensor:
+    """``linear`` of a row-parallel layer (this rank's input features): the
+    products summed over the model group, then the bias once."""
+    if tp is None:
+        return linear(x, layer, dtype)
+    y = reduce_from_model(F.linear(x.to(dtype), layer.weight.to(dtype)), tp)
+    return y + layer.bias.to(dtype)
 
 
 def is_moe_block(i: int, moe_experts: int, moe_every: int) -> bool:
@@ -80,40 +94,60 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: Optional[tor
 class SelfAttention(nn.Module):
     """Multi-head self-attention with ``nn.MultiHeadDotProductAttention``'s
     param tree (q/k/v DenseGeneral ``[H, heads, hd]``, out ``[heads, hd, H]``
-    in flax)."""
+    in flax). Cut over a model axis (``shard``) a rank holds ``heads /
+    model`` heads: the rows of q/k/v, the columns of out."""
+
+    tp = None  # the model axis this module is cut over (``parallel/tensor.py``)
 
     def __init__(self, hidden: int, heads: int, dropout: float = 0.0, dtype: torch.dtype = torch.float32,
                  tp_axis: Optional[str] = None):
         super().__init__()
         if hidden % heads:
             raise ValueError(f"hidden {hidden} not divisible by heads {heads}")
-        check_unported(tp_axis=tp_axis)
+        self.tp_axis = check_tp_axis(tp_axis)
         self.heads, self.dtype, self.dropout = heads, dtype, float(dropout)
         for name in ("query", "key", "value"):
             self.add_module(name, nn.Linear(hidden, hidden))
         self.out = nn.Linear(hidden, hidden)
 
+    def shard(self, axis) -> None:
+        """Keep this rank's heads (column-parallel q/k/v, row-parallel out)."""
+        heads = axis.block(self.heads, "heads")
+        hd = self.query.out_features // self.heads
+        rows = slice(heads.start * hd, heads.stop * hd)
+        for name in ("query", "key", "value"):
+            narrow_param(self, f"{name}.weight", 0, rows)
+            narrow_param(self, f"{name}.bias", 0, rows)
+        narrow_param(self, "out.weight", 1, rows)
+        self.heads, self.tp = heads.stop - heads.start, axis
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, n, _ = x.shape
+        x = copy_to_model(x, self.tp)
         q, k, v = (linear(x, getattr(self, p), self.dtype).view(b, n, self.heads, -1)
                    for p in ("query", "key", "value"))
         check_dropout(self, self.dropout)
-        return linear(attend(q, k, v), self.out, self.dtype)
+        return row_parallel(attend(q, k, v), self.out, self.dtype, self.tp)
 
 
 class EncoderBlock(nn.Module):
     """Pre-norm transformer block: ``x + attn(LN(x))``, then
     ``x + Dense(gelu(Dense(LN(x))))`` with the exact (erf) GELU, or with
-    ``num_experts > 0`` ``x + moe(LN(x))`` (``models/moe.py``)."""
+    ``num_experts > 0`` ``x + moe(LN(x))`` (``models/moe.py``). Cut over a
+    model axis (``shard``) a dense block holds ``mlp_dim / model`` features
+    (column-parallel ``Dense_0``, row-parallel ``Dense_1``); a MoE block
+    stays whole, as in the reference."""
+
+    tp = None  # the model axis this module's MLP is cut over
 
     def __init__(self, hidden: int, heads: int, mlp_dim: int, dropout: float = 0.0,
                  dtype: torch.dtype = torch.float32, tp_axis: Optional[str] = None, num_experts: int = 0,
                  moe_k: int = 1, moe_capacity_factor: float = 1.25, moe_axis: Optional[str] = EXPERT_AXIS):
         super().__init__()
-        check_unported(tp_axis=tp_axis)
+        self.tp_axis = check_tp_axis(tp_axis)
         self.dtype, self.num_experts = dtype, int(num_experts)
         self.LayerNorm_0 = LayerNorm(hidden, dtype)
-        self.MultiHeadDotProductAttention_0 = SelfAttention(hidden, heads, dropout, dtype)
+        self.MultiHeadDotProductAttention_0 = SelfAttention(hidden, heads, dropout, dtype, tp_axis=tp_axis)
         self.LayerNorm_1 = LayerNorm(hidden, dtype)
         if self.num_experts > 0:
             self.moe = MoEMlp(hidden, mlp_dim, num_experts, moe_k, moe_capacity_factor, moe_axis, dtype)
@@ -121,13 +155,24 @@ class EncoderBlock(nn.Module):
         self.Dense_0 = nn.Linear(hidden, mlp_dim)
         self.Dense_1 = nn.Linear(mlp_dim, hidden)
 
+    def shard(self, axis) -> None:
+        """Keep this rank's MLP features (the attention cuts itself)."""
+        if self.num_experts > 0:
+            return
+        feats = axis.block(self.Dense_0.out_features, "mlp_dim")
+        narrow_param(self, "Dense_0.weight", 0, feats)
+        narrow_param(self, "Dense_0.bias", 0, feats)
+        narrow_param(self, "Dense_1.weight", 1, feats)
+        self.tp = axis
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.MultiHeadDotProductAttention_0(self.LayerNorm_0(x))
         if self.num_experts > 0:
             return x + self.moe(self.LayerNorm_1(x))
         # flax nn.gelu(approximate=False); get_act("GELU") is flax's tanh default
-        y = F.gelu(linear(self.LayerNorm_1(x), self.Dense_0, self.dtype), approximate="none")
-        return x + linear(y, self.Dense_1, self.dtype)
+        y = copy_to_model(self.LayerNorm_1(x), self.tp)
+        y = F.gelu(linear(y, self.Dense_0, self.dtype), approximate="none")
+        return x + row_parallel(y, self.Dense_1, self.dtype, self.tp)
 
 
 _SPECS = {
@@ -155,7 +200,7 @@ class ViT(nn.Module):
         super().__init__()
         if variant not in _SPECS:
             raise ValueError(f"Unknown vit variant: {variant}")
-        check_unported(tp_axis=tp_axis, seq_shard_axis=seq_shard_axis)
+        check_unported(seq_shard_axis=seq_shard_axis)
         resolve_device(device)
         spec = [v if o is None else int(o) for v, o in zip(_SPECS[variant], (patch, hidden, depth, heads, mlp_dim))]
         self.patch, hidden, depth, heads, mlp_dim = spec
@@ -170,7 +215,7 @@ class ViT(nn.Module):
         self.depth = depth
         for i in range(depth):
             self.add_module(f"block{i}", EncoderBlock(
-                hidden, heads, mlp_dim, dropout, dtype, num_experts=moe_experts if is_moe_block(
+                hidden, heads, mlp_dim, dropout, dtype, tp_axis=tp_axis, num_experts=moe_experts if is_moe_block(
                     i, moe_experts, moe_every) else 0, moe_k=moe_k, moe_capacity_factor=moe_capacity_factor))
         self.final_ln = LayerNorm(hidden, dtype)
         self.head = nn.Linear(hidden, num_classes)

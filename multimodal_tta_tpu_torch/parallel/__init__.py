@@ -1,4 +1,5 @@
-"""Multi-GPU layers of the port (the data axis; ``multimodal_tta_tpu/parallel``).
+"""Multi-GPU layers of the port (the data, space and model axes;
+``multimodal_tta_tpu/parallel``).
 
 The pipeline schedule (``pipeline_apply``, ``pipeline_value_and_grad``,
 ``make_pipeline_train_step``, ``stack_layer_params``,

@@ -31,11 +31,21 @@ The space axis (``space > 1``): ``data x space`` ranks, rank ``r`` at
 world carries the gradients; the data group (the ranks of one ``s``)
 gathers the rows of a per-sample result (``gather_rows``).
 
+The model axis (``model > 1``): ``data x model`` ranks in the reference's
+axis order, rank ``r`` at ``(d, m) = divmod(r, model)``. The model group
+(the ranks of one ``d``) holds one replica of the model, each rank its
+share of the transformer's heads and MLP features (``parallel/tensor.py``,
+Megatron-style, the counterpart of ``tp_axis``); the data group (the ranks
+of one ``m``) carries the gradients, the batch sums and the rows of a
+per-sample result: ``sum``, ``sum_flat``, ``sum_with_grad`` and
+``gather_rows`` run over it, and a model rank's rows are its data rank's.
+
 What has no counterpart: ``ambient_axes``, ``constrain`` and
 ``constrain_activations`` pin XLA layouts inside one program; here
-``parallel/space.py`` writes the collectives they imply. The ``model``,
-``expert`` and ``stage`` axes are not ported yet (ROADMAP.md items 12b-ii
-and 12b-iii): a mesh that asks for one raises.
+``parallel/space.py`` and ``parallel/tensor.py`` write the collectives they
+imply. The ``expert`` and ``stage`` axes are not ported yet (ROADMAP.md
+items 12b-ii part 3 and 12b-iii), nor a space axis beside a model axis
+(item 12b-v, with the sequence axis): a mesh that asks for one raises.
 """
 
 from __future__ import annotations
@@ -60,29 +70,49 @@ STAGE_AXIS = "stage"
 EXPERT_AXIS = "expert"
 
 # the ROADMAP item that ports each axis
-_UNPORTED_AXES = {MODEL_AXIS: "12b-ii", EXPERT_AXIS: "12b-ii", STAGE_AXIS: "12b-iii"}
+_UNPORTED_AXES = {EXPERT_AXIS: "12b-ii part 3", STAGE_AXIS: "12b-iii"}
 
 
 class Mesh:
-    """The data and space axes over ``data * space`` ranks: this process's
-    world ``rank``, its ``device`` and the process ``group`` (None: the
-    default group, or one process). With one rank every collective is the
-    identity."""
+    """The data, space and model axes over ``data * space * model`` ranks:
+    this process's world ``rank``, its ``device`` and the process ``group``
+    of its sums (None: the default group, or one process). With one rank
+    every collective is the identity."""
 
     space = 1  # the space axis (class default: a mesh of the data axis alone)
+    model = 1  # the model axis
     space_group = None  # the ranks of this rank's data index (None: the world, or no space axis)
-    data_group = None  # the ranks of this rank's space index (None: the world, or no data axis)
+    data_group = None  # the ranks of this rank's space / model index (None: the world, or no data axis)
+    model_group = None  # the ranks of this rank's data index over a model axis
 
-    def __init__(self, device: torch.device, data: int = 1, rank: int = 0, group=None, space: int = 1):
+    def __init__(self, device: torch.device, data: int = 1, rank: int = 0, group=None, space: int = 1,
+                 model: int = 1):
         self.device = device
         self.data = int(data)
         self.space = int(space)
+        self.model = int(model)
         self.rank = int(rank)
         self.group = group
         if not 0 <= self.rank < self.size:
-            raise ValueError(f"[mesh] rank {self.rank} outside a mesh of {self.data}x{self.space}")
+            raise ValueError(f"[mesh] rank {self.rank} outside a mesh of {self.data}x{self.space}x{self.model}")
+        if self.space > 1 and self.model > 1:
+            raise NotImplementedError(
+                f"[mesh] a space axis ({SPACE_AXIS}={self.space}) beside a model axis ({MODEL_AXIS}="
+                f"{self.model}) is not ported yet (ROADMAP.md, item 12b-v: the transformers over the "
+                "space axis)")
         if self.size > 1 and not dist.is_initialized():
             raise RuntimeError("[mesh] a data axis over several ranks needs a process group")
+        if self.model > 1:
+            # every rank creates every group, in one order (torch.distributed's rule)
+            for d in range(self.data):
+                g = dist.new_group([d * self.model + m for m in range(self.model)])
+                if d == self.data_rank:
+                    self.model_group = g
+            for m in range(self.model):
+                g = dist.new_group([d * self.model + m for d in range(self.data)])
+                if m == self.model_rank:
+                    self.data_group = g
+            self.group = self.data_group  # the sums run over the data group
         if self.space > 1 and self.data > 1:
             # every rank creates every group, in one order (torch.distributed's rule)
             for d in range(self.data):
@@ -96,11 +126,14 @@ class Mesh:
 
     @property
     def shape(self) -> Dict[str, int]:
-        return {DATA_AXIS: self.data, SPACE_AXIS: self.space}
+        out = {DATA_AXIS: self.data, SPACE_AXIS: self.space}
+        if self.model > 1:
+            out[MODEL_AXIS] = self.model
+        return out
 
     @property
     def size(self) -> int:
-        return self.data * self.space
+        return self.data * self.space * self.model
 
     @property
     def parallel(self) -> bool:
@@ -109,11 +142,20 @@ class Mesh:
 
     @property
     def data_rank(self) -> int:
-        return self.rank // self.space
+        return self.rank // (self.space * self.model)
 
     @property
     def space_rank(self) -> int:
-        return self.rank % self.space
+        return (self.rank // self.model) % self.space
+
+    @property
+    def model_rank(self) -> int:
+        return self.rank % self.model
+
+    @property
+    def sums(self) -> bool:
+        """The sums run over more than one rank (the data and space axes)."""
+        return self.data * self.space > 1
 
     def rows(self, n: int) -> slice:
         """This rank's rows of a padded global batch of ``n``."""
@@ -145,20 +187,21 @@ class Mesh:
 
     # -- collectives (the identity on one rank) -----------------------------
     def sum(self, t: torch.Tensor) -> torch.Tensor:
-        """``t`` summed over the ranks, in place (no gradient)."""
-        if self.parallel:
+        """``t`` summed over the ranks (over a model axis: its data group),
+        in place (no gradient)."""
+        if self.sums:
             dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
         return t
 
     def total(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` summed over the ranks as a new tensor without a gradient
         (``t`` itself on one rank)."""
-        return self.sum(t.detach().clone()) if self.parallel else t
+        return self.sum(t.detach().clone()) if self.sums else t
 
     def sum_flat(self, tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         """``tensors`` (one dtype) summed over the ranks in one
         ``all_reduce`` of a flat buffer (themselves on one rank)."""
-        if not self.parallel:
+        if not self.sums:
             return list(tensors)
         flat = self.sum(torch.cat([t.reshape(-1) for t in tensors]))
         return [f.view_as(t) for f, t in zip(flat.split([t.numel() for t in tensors]), tensors)]
@@ -166,7 +209,7 @@ class Mesh:
     def sum_with_grad(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` summed over the ranks, differentiable: the gradient of each
         rank's ``t`` is the sum of the ranks' upstream gradients."""
-        if not self.parallel:
+        if not self.sums:
             return t
         from torch.distributed.nn.functional import all_reduce
 
@@ -178,17 +221,19 @@ class Mesh:
         the data group gathers: its space ranks hold the same rows."""
         if self.data == 1:
             return t
-        return all_gather_cat(t, 0, self.data, self.data_group if self.space > 1 else self.group)
+        return all_gather_cat(t, 0, self.data, self.data_group if self.data_group is not None else self.group)
 
     def broadcast_(self, tensors: Sequence[torch.Tensor]) -> None:
-        """Rank 0's values into ``tensors`` on every rank."""
+        """Rank 0's values into ``tensors`` on every rank of the world (a
+        whole model, before a model axis cuts each rank's share)."""
         if self.parallel:
             with torch.no_grad():
                 for t in tensors:
-                    dist.broadcast(t, src=0, group=self.group)
+                    dist.broadcast(t, src=0)
 
     def __repr__(self) -> str:
-        return f"Mesh(data={self.data}, space={self.space}, rank={self.rank}, device={self.device})"
+        return (f"Mesh(data={self.data}, space={self.space}, model={self.model}, rank={self.rank}, "
+                f"device={self.device})")
 
 
 def data_axis_size(mesh: Optional[Mesh]) -> int:
@@ -239,9 +284,9 @@ def select_devices(training_cfg=None, device: DeviceLike = "cuda") -> List[torch
 def axis_sizes(n: int, *, data: int = -1, space: int = 1, model: int = 1, stage: int = 1,
                expert: int = 1) -> int:
     """The data axis of a mesh over ``n`` ranks (``data=-1``: every rank
-    the other axes leave), with the reference's checks and messages; a
-    model, expert or stage axis above 1 raises ``NotImplementedError``,
-    naming its ROADMAP item."""
+    the other axes leave), with the reference's checks and messages; an
+    expert or stage axis above 1 raises ``NotImplementedError``, naming its
+    ROADMAP item."""
     space, model, stage, expert = (max(1, int(a)) for a in (space, model, stage, expert))
     per_data = space * model * stage * expert
     if n % per_data != 0:
@@ -255,11 +300,11 @@ def axis_sizes(n: int, *, data: int = -1, space: int = 1, model: int = 1, stage:
         raise ValueError(
             f"mesh {data}x{space}x{model}x{expert}x{stage} != {n} devices"
         )
-    for axis, size in ((MODEL_AXIS, model), (EXPERT_AXIS, expert), (STAGE_AXIS, stage)):
+    for axis, size in ((EXPERT_AXIS, expert), (STAGE_AXIS, stage)):
         if size > 1:
             raise NotImplementedError(
                 f"[mesh] the {axis} axis ({axis}={size}) is not ported yet "
-                f"(ROADMAP.md, item {_UNPORTED_AXES[axis]}); the data and space axes run over ranks")
+                f"(ROADMAP.md, item {_UNPORTED_AXES[axis]}); the data, space and model axes run over ranks")
     return int(data)
 
 
@@ -275,8 +320,10 @@ def make_mesh(
     """The mesh of this process over the default process group (one rank
     without one), on this rank's device of ``devices`` (by local rank;
     default: ``select_devices()``). ``data=-1`` takes every rank that
-    ``space`` leaves. The reference's size checks and messages; a model,
-    expert or stage axis above 1 raises ``NotImplementedError``."""
+    ``space`` and ``model`` leave. The reference's size checks and
+    messages; an expert or stage axis above 1 raises
+    ``NotImplementedError``, and so does a space axis beside a model
+    axis."""
     n = dist.get_world_size() if dist.is_initialized() else 1
     rank = dist.get_rank() if dist.is_initialized() else 0
     data = axis_sizes(n, data=data, space=space, model=model, stage=stage, expert=expert)
@@ -284,7 +331,7 @@ def make_mesh(
     device = devices[local_rank()] if len(devices) > 1 else devices[0]
     if device.type == "cuda":
         torch.cuda.set_device(device)
-    return Mesh(device, data=data, rank=rank, group=None, space=max(1, int(space)))
+    return Mesh(device, data=data, rank=rank, group=None, space=max(1, int(space)), model=max(1, int(model)))
 
 
 def mesh_from_config(config, device: DeviceLike = "cuda") -> Mesh:

@@ -1,0 +1,233 @@
+"""The model axis over ranks: Megatron-style tensor parallelism (the
+counterpart of the reference's ``tp_axis``, ``multimodal_tta_tpu/models/vit.py``).
+
+The reference names the mesh axis and XLA shards the heads of
+``SelfAttention`` and the MLP features of ``EncoderBlock`` over it. Here
+each rank of a model group (``Mesh.model_group``, the ranks of one data
+index) holds its share of those weights, and the modules call the two
+collectives of Megatron-LM themselves:
+
+  * ``copy_to_model`` ("f"): the identity forward; the backward sums the
+    input's gradient over the model group, since each rank's heads or
+    features saw the whole input;
+  * ``reduce_from_model`` ("g"): the forward sums the row-parallel
+    products over the model group; the backward is the identity.
+
+A sharded pair is column-parallel then row-parallel: q/k/v take the rows
+(output features) of this rank's heads, the out projection the matching
+columns, and its bias is added once after the sum; the MLP's ``Dense_0``
+takes a block of hidden features (rows and bias), ``Dense_1`` the matching
+columns. One ``all_reduce`` a forward for each, one a backward. Everything
+else (LayerNorms, embeddings, MoE blocks, the head, UNETR's conv decoder)
+stays whole on every rank, and its gradients are the same on every rank of
+a model group.
+
+The model is built whole from its seed on every rank and ``shard_model``
+cuts each rank's share, so the ranks together hold the weights one process
+holds. A checkpoint holds the whole tree: ``whole_state_dict`` gathers the
+shares and ``local_tensors`` cuts a whole tree to this rank's share, so a
+checkpoint of a run over a model axis loads into one process and the
+reverse.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, Mapping, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+from torch import nn
+
+MODEL_AXIS = "model"
+
+
+@dataclass(frozen=True)
+class ModelAxis:
+    """This rank's place on the model axis: its ``size``, ``rank`` and the
+    model ``group``."""
+
+    size: int
+    rank: int
+    group: Any = None
+
+    def block(self, n: int, what: str) -> slice:
+        """This rank's block of ``n`` heads or features."""
+        if n % self.size:
+            raise ValueError(f"[tensor] {what}={n} does not split over a model axis of {self.size}")
+        k = n // self.size
+        return slice(self.rank * k, (self.rank + 1) * k)
+
+
+def axis_of(mesh) -> Optional[ModelAxis]:
+    """The model axis of ``mesh`` (None without one, or of size 1)."""
+    if mesh is None or getattr(mesh, "model", 1) <= 1:
+        return None
+    return ModelAxis(mesh.model, mesh.model_rank, mesh.model_group)
+
+
+def check_tp_axis(tp_axis: Optional[str]) -> Optional[str]:
+    """``tp_axis`` is None or the model axis (the only one that shards
+    heads and MLP features)."""
+    if tp_axis and tp_axis != MODEL_AXIS:
+        raise ValueError(f"tp_axis={tp_axis!r}: heads and MLP features shard over the {MODEL_AXIS!r} axis")
+    return tp_axis or None
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.axis.group)
+        return g, None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        x = x.contiguous().clone()
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=axis.group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model(x: torch.Tensor, axis: Optional[ModelAxis]) -> torch.Tensor:
+    """Megatron's "f": ``x`` as it is; its gradient summed over the model group."""
+    return x if axis is None else _Copy.apply(x, axis)
+
+
+def reduce_from_model(x: torch.Tensor, axis: Optional[ModelAxis]) -> torch.Tensor:
+    """Megatron's "g": ``x`` summed over the model group; its gradient as it is."""
+    return x if axis is None else _Reduce.apply(x, axis)
+
+
+def narrow_param(module: nn.Module, name: str, dim: int, block: slice) -> None:
+    """Replace ``module``'s param ``name`` (dotted, under ``module``) by its
+    ``block`` along ``dim``, and record the cut in ``module.tp_shards``."""
+    owner_name, _, pname = name.rpartition(".")
+    owner = module.get_submodule(owner_name) if owner_name else module
+    p = getattr(owner, pname)
+    piece = p.detach().narrow(dim, block.start, block.stop - block.start).clone()
+    setattr(owner, pname, nn.Parameter(piece, requires_grad=p.requires_grad))
+    module.tp_shards = dict(getattr(module, "tp_shards", {}), **{name: dim})
+
+
+def shard_model(model: nn.Module, mesh) -> int:
+    """Cut each ``tp_axis`` module of ``model`` (``SelfAttention`` and a dense
+    ``EncoderBlock``) to this rank's share over the model axis of ``mesh``;
+    returns how many modules were cut (0 without a model axis). A model
+    axis over a model without such a module raises."""
+    axis = axis_of(mesh)
+    if axis is None:
+        return 0
+    mods = [m for m in model.modules() if getattr(m, "tp_axis", None) and hasattr(m, "shard")]
+    if not mods:
+        raise ValueError(f"[tensor] a model axis of {axis.size} needs a model built with tp_axis={MODEL_AXIS!r} "
+                         f"(model.tp_axis; the transformers' heads and MLP features shard over it), "
+                         f"not {type(model).__name__}")
+    for m in mods:
+        m.shard(axis)
+    return len(mods)
+
+
+def sharded_params(model: nn.Module) -> Dict[str, Tuple[int, ModelAxis]]:
+    """``{param name: (dim, axis)}`` of every param ``model`` holds a share of."""
+    out = {}
+    for mname, m in model.named_modules():
+        for name, dim in getattr(m, "tp_shards", {}).items():
+            out[f"{mname}.{name}" if mname else name] = (dim, m.tp)
+    return out
+
+
+def model_axis(model: nn.Module) -> Optional[ModelAxis]:
+    """The model axis ``model`` is sharded over (None: whole)."""
+    for _, (_, axis) in sharded_params(model).items():
+        return axis
+    return None
+
+
+def gather_share(t: torch.Tensor, dim: int, axis: ModelAxis) -> torch.Tensor:
+    """Every model rank's share of a tensor concatenated along ``dim``."""
+    t = t.detach().contiguous()
+    parts = [torch.empty_like(t) for _ in range(axis.size)]
+    dist.all_gather(parts, t, group=axis.group)
+    return torch.cat(parts, dim=dim)
+
+
+def cut_share(t: torch.Tensor, dim: int, axis: ModelAxis) -> torch.Tensor:
+    """This rank's share along ``dim`` of a whole tensor."""
+    s = axis.block(t.shape[dim], "a sharded dim")
+    return t.narrow(dim, s.start, s.stop - s.start)
+
+
+def whole_tensors(model: nn.Module, tensors: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """``tensors`` by param name (a state dict, an EMA shadow) with every
+    sharded param's share gathered over its model group (every rank of the
+    group takes part); the others as they are."""
+    shards = sharded_params(model)
+    return {k: gather_share(v, *shards[k]) if k in shards else v for k, v in tensors.items()}
+
+
+def local_tensors(model: nn.Module, tensors: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The inverse of ``whole_tensors``: each sharded param's whole tensor
+    cut to this rank's share."""
+    shards = sharded_params(model)
+    return {k: cut_share(v, *shards[k]).clone() if k in shards else v for k, v in tensors.items()}
+
+
+def whole_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """``model.state_dict()`` with every sharded param whole."""
+    return whole_tensors(model, model.state_dict())
+
+
+def _param_index(model: nn.Module, optimizer) -> Dict[int, str]:
+    """``{index in the optimizer's state dict: param name}``."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    return {i: names[id(p)] for i, p in enumerate(params)}
+
+
+def optimizer_state(model: nn.Module, optimizer, sd: Optional[dict], cut: bool) -> Optional[dict]:
+    """An optimizer state dict with the moments of each sharded param
+    gathered whole (``cut=False``; every rank of the model group takes
+    part) or cut to this rank's share (``cut=True``); the others, and the
+    scalars, as they are. Without a sharded param: ``sd``."""
+    shards = sharded_params(model)
+    if not shards or sd is None:
+        return sd
+    index = _param_index(model, optimizer)
+    state = {}
+    for i, entry in sd["state"].items():
+        name = index.get(int(i))
+        if name not in shards:
+            state[i] = entry
+            continue
+        dim, axis = shards[name]
+        state[i] = {k: (cut_share(v, dim, axis).clone() if cut else gather_share(v, dim, axis))
+                    if isinstance(v, torch.Tensor) and v.dim() > dim else v for k, v in entry.items()}
+    return dict(sd, state=state)
+
+
+__all__ = [
+    "MODEL_AXIS",
+    "ModelAxis",
+    "axis_of",
+    "check_tp_axis",
+    "copy_to_model",
+    "local_tensors",
+    "model_axis",
+    "optimizer_state",
+    "reduce_from_model",
+    "shard_model",
+    "sharded_params",
+    "whole_state_dict",
+    "whole_tensors",
+]

@@ -24,6 +24,11 @@ the adapted params only, and moves no statistics); the student's forward
 runs on the batch's statistics and moves the running statistics once a
 step; a post-update student prediction runs on the batch's statistics and
 moves nothing, as in the reference.
+
+Over ranks each rank takes its rows of the global batch's views, the
+student's gradients are summed over the ranks before each update, and the
+restore masks come from the equally seeded generator: student and teacher
+stay the same on every rank without a broadcast.
 """
 
 from __future__ import annotations
@@ -70,8 +75,8 @@ class CottaAdapter(TentAdapter):
     method = "cotta"
     inline_caveats = False
 
-    def __init__(self, tta_cfg, config=None, device_transform=None, *, device="cuda"):
-        super().__init__(tta_cfg, config=config, device_transform=device_transform, device=device)
+    def __init__(self, tta_cfg, config=None, device_transform=None, *, device="cuda", mesh=None):
+        super().__init__(tta_cfg, config=config, device_transform=device_transform, device=device, mesh=mesh)
 
         self.ema = float(get_config(self.cfg, "ema", 0.999))
         self.n_views = int(get_config(self.cfg, "n_views", 2))
@@ -191,7 +196,7 @@ class CottaAdapter(TentAdapter):
         teacher = [s.clone() for s in self._source] if self.episodic else self._teacher
         inline = threshold is not None and predict_mode == "inline"
         post_teacher = threshold is not None and not inline and self.serve == "teacher"
-        draws = self.batch_draws(tuple(image.shape), int(n_valid), post=post_teacher)
+        draws = self._local_draws(image, n_valid, post=post_teacher)
         opt = self._opt
         ents, logits, pseudo = [], None, None
         for i, d in enumerate(draws["steps"]):
@@ -203,9 +208,10 @@ class CottaAdapter(TentAdapter):
             loss = self._teacher_ce(logits, pseudo, w, denom)
             opt.zero_grad(set_to_none=True)
             loss.backward()
+            self._sum_grads()
             opt.step()
             with torch.no_grad():
-                ents.append(self._monitor(logits, w, denom))
+                ents.append(self.mesh.total(self._monitor(logits, w, denom)))
                 if d["restore"] is not None:
                     apply_restore(self._trainable, self._source, d["restore"])
                 teacher = self._ema_teacher(teacher, self._trainable)

@@ -28,7 +28,7 @@ class EataAdapter(TentAdapter):
 
     method = "eata"
 
-    def __init__(self, tta_cfg, config=None, device_transform=None, *, device="cuda"):
+    def __init__(self, tta_cfg, config=None, device_transform=None, *, device="cuda", mesh=None):
         tta_cfg = tta_cfg or ConfigNode()
         rel = tta_cfg.setdefault("reliability", ConfigNode())
         rel.setdefault("enabled", True)
@@ -40,4 +40,4 @@ class EataAdapter(TentAdapter):
                 "plain Tent; run it as tta.method=tent so results are not "
                 "mislabeled"
             )
-        super().__init__(tta_cfg, config=config, device_transform=device_transform, device=device)
+        super().__init__(tta_cfg, config=config, device_transform=device_transform, device=device, mesh=mesh)

@@ -26,6 +26,12 @@ batch's statistics; the running statistics move once, in the marginal pass
 of (1); the clean forward of (2) moves nothing) and the augmented views read
 the statistics it wrote, as in the reference. A post-update prediction runs
 the clean view the same way and moves them again, as the reference does.
+
+Over ranks each rank takes its rows of the global batch's views; the
+marginal stays per sample, the objective is each rank's sum over the
+global valid count (its trace the ranks' total), the accumulated gradients
+are summed over the ranks before the update, and a BatchNorm's statistics
+pool over the ranks.
 """
 
 from __future__ import annotations
@@ -75,8 +81,8 @@ class MemoAdapter(TentAdapter):
     method = "memo"
     inline_caveats = False
 
-    def __init__(self, tta_cfg, config=None, device_transform=None, *, device="cuda"):
-        super().__init__(tta_cfg, config=config, device_transform=device_transform, device=device)
+    def __init__(self, tta_cfg, config=None, device_transform=None, *, device="cuda", mesh=None):
+        super().__init__(tta_cfg, config=config, device_transform=device_transform, device=device, mesh=mesh)
 
         self.n_views = int(get_config(self.cfg, "n_views", 4))
         self.aug_scale = float(get_config(self.cfg, "aug_scale", 0.1))
@@ -183,7 +189,7 @@ class MemoAdapter(TentAdapter):
         image, w, denom = self._begin(state, image, n_valid)
         inline = threshold is not None and predict_mode == "inline"
         post_marginal = threshold is not None and not inline and self.serve == "marginal"
-        draws = self.batch_draws(tuple(image.shape), int(n_valid), post=post_marginal)
+        draws = self._local_draws(image, n_valid, post=post_marginal)
         opt = self._opt
         ents, p_marg, logits0 = [], None, None
         for i, d in enumerate(draws["steps"]):
@@ -195,10 +201,11 @@ class MemoAdapter(TentAdapter):
                                           focus=self.entropy_focus)
             opt.zero_grad(set_to_none=True)
             self.accumulate_grads(x, d["views"], g_hat)
+            self._sum_grads()
             opt.step()
             if d["restore"] is not None:
                 apply_restore(self._trainable, self._source, d["restore"])
-            ents.append(ent)
+            ents.append(self.mesh.total(ent))
         self._last_ents = torch.stack(ents)
         if threshold is None:
             return None

@@ -22,7 +22,7 @@ class PseudoLabelAdapter(TentAdapter):
 
     method = "pl"
 
-    def __init__(self, tta_cfg, config=None, device_transform=None, *, device="cuda"):
+    def __init__(self, tta_cfg, config=None, device_transform=None, *, device="cuda", mesh=None):
         tta_cfg = tta_cfg or ConfigNode()
         tta_cfg.setdefault("loss", "pl")
         loss = str(get_config(tta_cfg, "loss", "pl")).lower()
@@ -31,4 +31,4 @@ class PseudoLabelAdapter(TentAdapter):
                 f"[pl] tta.loss={loss!r} is not a pseudo-label objective — "
                 f"run it as tta.method=tent so results are not mislabeled"
             )
-        super().__init__(tta_cfg, config=config, device_transform=device_transform, device=device)
+        super().__init__(tta_cfg, config=config, device_transform=device_transform, device=device, mesh=mesh)

@@ -19,7 +19,11 @@ Niu et al., "Towards Stable Test-Time Adaptation in Dynamic Wild World"
      across batches in continual mode; ``reset_optimizer`` clears it.
 
 Each step runs two forwards and two backwards; the reset decision reads
-``em`` on the host once a step (the pure serving step merges instead). On a BatchNorm model both forwards run on
+``em`` on the host once a step (the pure serving step merges instead).
+Over ranks each rank runs both passes on its rows: each pass's gradients
+are summed over the ranks before use (the perturbation's scale
+``rho / ||g||`` is the global batch's), and the monitor score is the global
+one, so every rank's EMA and reset decision are the same. On a BatchNorm model both forwards run on
 the batch's statistics from the same running statistics, and the step keeps
 those of the second (the reference's ``new_bs`` of the descent pass): the
 running statistics move once a step. A recovery reset puts back the params,
@@ -47,8 +51,8 @@ class SarAdapter(TentAdapter):
     method = "sar"
     inline_caveats = False
 
-    def __init__(self, tta_cfg, config=None, device_transform=None, *, device="cuda"):
-        super().__init__(tta_cfg, config=config, device_transform=device_transform, device=device)
+    def __init__(self, tta_cfg, config=None, device_transform=None, *, device="cuda", mesh=None):
+        super().__init__(tta_cfg, config=config, device_transform=device_transform, device=device, mesh=mesh)
 
         self.rho = float(get_config(self.cfg, "rho", 0.05))
         self.margin_ratio = float(get_config(self.cfg, "margin_ratio", 0.4))
@@ -125,7 +129,7 @@ class SarAdapter(TentAdapter):
         image, w, denom = self._begin(state, image, n_valid)
         em = self._nan() if self.episodic else self._em
         inline = threshold is not None and predict_mode == "inline"
-        draws = self.batch_draws(tuple(image.shape), int(n_valid))["steps"]
+        draws = self._local_draws(image, n_valid)["steps"]
         params = self._trainable
         ents, logits = [], None
         for i, d in enumerate(draws):
@@ -133,20 +137,20 @@ class SarAdapter(TentAdapter):
             if self.md_enabled and not (inline and i == self.steps - 1):
                 x = apply_modality_dropout(x, d["drop"])
             loss, mon, logits = self._loss(x, w, denom, update=False)
-            g = torch.autograd.grad(loss, params)
+            g = self.mesh.sum_flat(torch.autograd.grad(loss, params))
             scale = self.rho / (torch.sqrt(torch.stack([(t * t).sum() for t in g]).sum()) + 1e-12)
             with torch.no_grad():
                 theta = [p.detach().clone() for p in params]
                 for p, t in zip(params, g):
                     p.add_(scale * t)
             loss_sam, _, _ = self._loss(x, w, denom, update=True)
-            g_sam = torch.autograd.grad(loss_sam, params)
+            g_sam = self.mesh.sum_flat(torch.autograd.grad(loss_sam, params))
             with torch.no_grad():
                 for p, t, gs in zip(params, theta, g_sam):
                     p.copy_(t)
                     p.grad = gs
             self._opt.step()
-            mon = mon.detach()
+            mon = self.mesh.total(mon.detach())
             em = self._em_next(em, mon)
             if bool(em < self.reset_floor_ratio * self._h_max(logits)):
                 # collapsed into a degenerate minimum: back to source

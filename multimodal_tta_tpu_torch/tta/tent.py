@@ -62,10 +62,12 @@ rank takes the same update; a BatchNorm's statistics pool over the ranks
 (``models/layers.py:pool_over_ranks``); the early-stop and gate entropies
 are the global ones, so all ranks freeze and gate together. The draws are
 made for the global batch from the equally seeded generator and each rank
-takes its rows (its windows: ``windows_per_step`` must divide by the data
-axis, and the windows are cut from the gathered global batch). The serving
-artifact and the other methods do not run over ranks (ROADMAP.md, item
-12b-ii). Over a space axis each rank also holds a depth slab: the forwards
+takes its rows (``_local_draws``; its windows: ``windows_per_step`` must
+divide by the data axis, and the windows are cut from the gathered global
+batch). The methods built on this class (pl, eata, sar, cotta, memo) take
+their draws, denominators and summed gradients the same way. The serving
+artifact is one device's and refuses a mesh, as the reference's does. Over
+a space axis each rank also holds a depth slab: the forwards
 run split (``parallel/space.py``), each sample's objective is the slab's
 part over the space group's denominator (so the world's sum holds it once),
 and the predictions are the slab's; Tent's windows raise there.
@@ -453,20 +455,38 @@ class TentAdapter:
         """The shape of the global batch that ``image`` is this rank's rows of."""
         return (image.shape[0] * self.mesh.data,) + tuple(image.shape[1:])
 
+    def _rank_views(self, views, n: int):
+        """This rank's rows of augmented views drawn for a global batch of
+        ``n`` (each view's factor, offset and noise)."""
+        rows = self.mesh.rows(n)
+        return [tuple(None if t is None else t[rows] for t in v) for v in views]
+
     def _rank_draws(self, d: dict, n: int) -> dict:
         """This rank's share of one step's draws for a global batch of
-        ``n``: its rows of the per-sample draws, its windows (and their
-        consistency draws); the restore masks are the params' and stay."""
+        ``n``: its rows of the per-sample draws and views, its windows (and
+        their consistency draws); the restore masks are the params' and
+        stay."""
         rows = self.mesh.rows(n)
         d = dict(d)
         if d.get("drop") is not None:
             d["drop"] = d["drop"][rows]
+        if d.get("views") is not None:
+            d["views"] = self._rank_views(d["views"], n)
         if d.get("windows") is not None:
             rows = self.mesh.rows(self.windows_per_step)
             d["windows"] = d["windows"][rows]
         if d.get("cons") is not None:
             d["cons"] = tuple(t[rows] for t in d["cons"])
         return d
+
+    def _local_draws(self, image: torch.Tensor, n_valid, post: bool = False) -> dict:
+        """``batch_draws`` for the global batch that ``image`` is this rank's
+        rows of, cut to this rank's share: over ranks every rank draws what
+        one process draws, from its equally seeded generator."""
+        shape = self._global_shape(image)
+        draws = self.batch_draws(shape, int(n_valid), post=post)
+        return {"steps": [self._rank_draws(d, shape[0]) for d in draws["steps"]],
+                "post": None if draws["post"] is None else self._rank_views(draws["post"], shape[0])}
 
     def _sum_grads(self) -> None:
         """The adapted tensors' gradients summed over the ranks in one
@@ -602,8 +622,7 @@ class TentAdapter:
             self._maybe_accumulate_fisher(image, w, denom)
             fisher = self._fisher_arg()
         inline = threshold is not None and predict_mode == "inline"
-        shape = self._global_shape(image)
-        draws = [self._rank_draws(d, shape[0]) for d in self.batch_draws(shape, int(n_valid))["steps"]]
+        draws = self._local_draws(image, n_valid)["steps"]
         opt = self._opt
         ents, logits = [], None
         active, e0 = True, float("nan")
@@ -942,9 +961,10 @@ class TentAdapter:
             raise ValueError(f"[{self.method}] the Fisher anchor is estimated on the host across "
                              "batches and has no pure serving step; set tta.fisher.enabled=false")
         if self.mesh.parallel:
-            raise NotImplementedError(
-                f"[{self.method}] the serving artifact runs on one device; over ranks it is not "
-                "ported yet (ROADMAP.md, item 12b-ii)")
+            raise ValueError(
+                f"[{self.method}] export is the single-device serving artifact; build the adapter "
+                "without a mesh (a deployment over several devices replicates the artifact, it does "
+                "not shard it)")
         self._bind(source_model)
         leaves = self._serving_leaves()
         thr = float(threshold)

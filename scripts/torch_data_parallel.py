@@ -61,8 +61,10 @@ def main() -> int:
     if not args.no_cli:
         manifest = make_hecktor_fixture(os.path.join(root, "fixture"), shape=chip_smoke.CLI_SHAPE,
                                         centers={"CHUS": 4, "CHUM": 10, "CHGJ": 10})
-    dp = chip_smoke.data_parallel_phase(torch.device("cuda"), os.path.join(root, "phase"), manifest=manifest,
-                                        backend=args.backend, two_rank_cli=args.two_rank_cli)
+    dp = chip_smoke.data_parallel_phase(torch.device("cuda"), os.path.join(root, "phase"), backend=args.backend)
+    if manifest is not None:
+        dp["torchrun"] = chip_smoke.dp_torchrun_cli(manifest, os.path.join(root, "torchrun"),
+                                                    two_ranks=args.two_rank_cli)
     chip_smoke.log_data_parallel(dp, card)
     shutil.rmtree(root, ignore_errors=True)
     print(json.dumps({"data_parallel": dp, "card": card}, default=str))

@@ -131,7 +131,9 @@ def main() -> int:
         if not args.no_cli:
             manifest = make_hecktor_fixture(os.path.join(root, "fixture"), shape=chip_smoke.CLI_SHAPE,
                                             centers={"CHUS": 4, "CHUM": 10, "CHGJ": 10})
-        sp = chip_smoke.space_parallel_phase(dev, os.path.join(root, "phase"), manifest=manifest)
+        sp = chip_smoke.space_parallel_phase(dev, os.path.join(root, "phase"))
+        if manifest is not None:
+            sp["torchrun"] = chip_smoke.sp_torchrun_cli(manifest, os.path.join(root, "torchrun"))
         sp["table"] = table
         chip_smoke.log_space_parallel(sp, card)
         shutil.rmtree(root, ignore_errors=True)

@@ -33,6 +33,7 @@ from multimodal_tta_tpu_torch.models.layers import running_statistics
 from multimodal_tta_tpu_torch.models.unet3d import UNet3D
 from multimodal_tta_tpu_torch.parallel.distributed import maybe_initialize_distributed, spawn_ranks
 from multimodal_tta_tpu_torch.parallel.mesh import make_mesh
+from multimodal_tta_tpu_torch.registry import get_tta_method
 from multimodal_tta_tpu_torch.tta.engine import TTAEngine
 from multimodal_tta_tpu_torch.tta.stream import StreamTTAController
 from multimodal_tta_tpu_torch.tta.tent import TentAdapter
@@ -137,6 +138,57 @@ def tent_case(mesh, *, cfg: dict, model_kw: dict, state: dict, batches: Sequence
     return {"ents": ents, "preds": preds, "state": numpy_state(model), "gate": gate}
 
 
+def adapter_case(mesh, *, cfg: dict, model_kw: dict, state: dict, batches: Sequence[np.ndarray],
+                 n_valid: Sequence[int], mode: Optional[str], draws: Optional[List[dict]] = None,
+                 device_transform: Optional[dict] = None, threshold: float = 0.3) -> Dict[str, Any]:
+    """``tta.method``'s adapter (pl, eata, sar, cotta, memo) over global host
+    ``batches``, as ``tent_case``; also the batches on which SAR's recovery
+    snapped back to source and its entropy EMA after each batch, and
+    CoTTA's teacher after each batch."""
+    config = ConfigNode(cfg)
+    model = port_model(model_kw, state)
+    adapter = get_tta_method(config.tta.method)(config.tta, config=config, device_transform=device_transform,
+                                                device="cpu", mesh=mesh)
+    if draws is not None:
+        queue = list(draws)
+        adapter.batch_draws = lambda shape, n, post=False: queue.pop(0)
+    fn = adapter.make_adapt_fn(model) if mode is None else adapter.make_adapt_predict_fn(
+        model, threshold=threshold, predict_mode=mode)
+    resets = []
+    copy_source = adapter._copy_source
+
+    def counted():  # SAR's recovery (continual: nothing else snaps back mid-batch)
+        resets[-1] += 1
+        copy_source()
+
+    adapter._copy_source = counted
+    out: Dict[str, Any] = {"ents": [], "preds": [], "em": [], "teacher": []}
+    for x, n in zip(batches, n_valid):
+        resets.append(0)
+        res = fn(model, torch.from_numpy(x if mesh is None else x[mesh.rows(x.shape[0])]), n)
+        if mode is not None:
+            out["preds"].append((res[1] if mesh is None else mesh.gather_rows(res[1])).numpy())
+        out["ents"].append(adapter._last_ents.numpy())
+        if hasattr(adapter, "_em"):
+            out["em"].append(float(adapter._em))
+        if hasattr(adapter, "_teacher"):
+            out["teacher"].append([t.numpy().copy() for t in adapter._teacher])
+    out.update(state=numpy_state(model), resets=resets, names=list(adapter._names))
+    return out
+
+
+def predict_case(mesh, *, argv: Sequence[str]) -> Dict[str, Any]:
+    """``cli.predict`` on the CPU (over the ranks' group when there is one):
+    its manifest rows."""
+    from multimodal_tta_tpu_torch.cli import predict
+
+    cwd = os.getcwd()
+    try:
+        return {"rows": predict.main(list(argv), device="cpu")}
+    finally:
+        os.chdir(cwd)
+
+
 def stream_case(mesh, *, cfg: dict, model_kw: dict, state: dict, batches: Sequence[np.ndarray],
                 n_valid: Sequence[int], device_transform: Optional[dict] = None) -> Dict[str, Any]:
     """A continual Tent stream over ragged global host batches (the
@@ -229,9 +281,10 @@ def launch_case(mesh, *, store: str) -> Dict[str, Any]:
 
 
 def errors_case(mesh, *, cfg: dict, model_kw: dict, state: dict) -> Dict[str, str]:
-    """What the data axis refuses, by message: another method than tent and
-    norm, the serving artifact, windows that do not split over the ranks,
-    ``sync_over_mesh=false``."""
+    """What the data axis refuses, by message (None: nothing raised): the
+    serving artifact, windows that do not split over the ranks,
+    ``sync_over_mesh=false``; ``pl`` and every other method build their
+    engine over the ranks (``engines``: the adapter's class by method)."""
     out = {}
 
     def message(key, fn):
@@ -249,6 +302,8 @@ def errors_case(mesh, *, cfg: dict, model_kw: dict, state: dict) -> Dict[str, st
 
     model = port_model(model_kw, state)
     message("pl", lambda: TTAEngine(config(method="pl"), device="cpu", mesh=mesh))
+    out["engines"] = {m: type(TTAEngine(config(method=m), device="cpu", mesh=mesh).adapter).__name__
+                      for m in ("tent", "pl", "eata", "norm", "sar", "cotta", "memo")}
     message("artifact", lambda: TentAdapter(config().tta, config=config(), device="cpu", mesh=mesh)
             .serving_export_spec(model, 0.3))
     message("windows", lambda: TentAdapter(config(window={"enabled": True, "windows_per_step": 3}).tta,
@@ -269,7 +324,7 @@ def hang(rank: int, world: int) -> None:
 
 
 CASES = {"train": train_case, "errors": errors_case, "evaluate": evaluate_case, "tent": tent_case,
-         "stream": stream_case,
+         "adapter": adapter_case, "predict": predict_case, "stream": stream_case,
          "sharded_store": sharded_store_case, "launch": launch_case}
 
 

@@ -24,6 +24,8 @@ Tolerances:
   - the sharded store: the reference's sample order exactly.
 """
 
+import gzip
+import os
 import time
 
 import jax
@@ -40,12 +42,15 @@ from multimodal_tta_tpu.data.device_cache import DeviceCachedLoader as JaxDevice
 from multimodal_tta_tpu.models.unet3d import UNet3D as JaxUNet3D
 from multimodal_tta_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from multimodal_tta_tpu.parallel.mesh import shard_batch as jax_shard_batch
+from multimodal_tta_tpu.registry import get_tta_method as jax_get_tta_method
 from multimodal_tta_tpu.tta.tent import TentAdapter as JaxTentAdapter
 from multimodal_tta_tpu_torch.conf import ConfigNode
+from multimodal_tta_tpu_torch.data.synthetic import make_hecktor_fixture
 from multimodal_tta_tpu_torch.models.convert import unet3d_from_flax
 from multimodal_tta_tpu_torch.models.unet3d import UNet3D
 from multimodal_tta_tpu_torch.parallel.distributed import spawn_ranks
 from multimodal_tta_tpu_torch.parallel.mesh import pad_batch_to_multiple
+from multimodal_tta_tpu_torch.registry import get_tta_method
 from multimodal_tta_tpu_torch.tta.tent import TentAdapter, norm_param_mask
 
 from _torch_dp_worker import CASES, IdDataset, fail_on_rank_one, hang, spawn
@@ -119,6 +124,18 @@ def _tent_cfg(**tta):
     return cfg
 
 
+def _predict_argv(tmp: str, run: str) -> list:
+    """``cli.predict`` with SAR on a HECKTOR21 fixture of (16,16,16) volumes
+    (three test cases: a batch of 2 and a ragged one), writing to
+    ``<tmp>/pred_<run>``."""
+    return [f"dataset.manifest_csv={tmp}/data/manifest.csv", "dataset.expected_shape=[16,16,16]",
+            "dataset.val_per_center=1", "training.batch_size=2", "training.eval_batch_size=2",
+            "training.num_workers=0", "training.compute_dtype=float32",
+            "training.data.transforms.image_size=[16,16,16]", "model.channels=[2,4,8,16,32]",
+            "model.num_res_units=1", "tta=sar", "tta.episodic=false", "tta.lr=0.05",
+            f"task.save_dir={tmp}/outputs", f"task.run_name=predict_{run}", f"predict.out_dir={tmp}/pred_{run}"]
+
+
 def _payloads(tmp):
     zero1_cfg = trainer_config(dict(ADAM, zero1=True))
     jp = _params(5)
@@ -126,6 +143,17 @@ def _payloads(tmp):
     jd_adapter._bind(UNet3D(**MK, device="cpu"))
     draws = JaxDraws(jd_adapter, jp)
     tent_batches = _batches([4, 4], 7, label=False)
+    make_hecktor_fixture(f"{tmp}/data", shape=(16, 16, 16), centers={"CHUS": 3, "CHUM": 3, "CHGJ": 3})
+    methods = {}
+    for name, cfg in METHOD_CFGS.items():
+        port = get_tta_method(cfg["tta"]["method"])(ConfigNode(cfg).tta, config=ConfigNode(cfg), device="cpu")
+        port._bind(UNet3D(**MK, device="cpu"))
+        md = JaxDraws(port, jp)
+        post = name in POST_DRAWS
+        methods[name] = ("adapter", dict(cfg=cfg, model_kw=MK, state=unet3d_from_flax(jp), batches=METHOD_BATCHES,
+                                         n_valid=[4, 3], mode="post",
+                                         draws=[md(x.shape, n, post=post) for x, n in zip(METHOD_BATCHES, [4, 3])],
+                                         device_transform=DEVICE_TRANSFORM))
     return {
         "train": ("train", TRAIN),
         "zero1": ("train", dict(TRAIN, cfg=zero1_cfg, checkpoint=f"{tmp}/zero1", more=MORE)),
@@ -168,11 +196,38 @@ def _payloads(tmp):
                                   device_transform=DEVICE_TRANSFORM)),
         "sharded_store": ("sharded_store", dict(n=11, batch_size=4, seed=5, epochs=2)),
         "errors": ("errors", dict(cfg=_tent_cfg(), model_kw=MK, state=_state(0))),
+        "evaluate_sar": ("evaluate", dict(cfg=dict(METHOD_CFGS["sar"], **SURFACE),
+                                          model_kw=MK, state=_state(6), batches=_eval_batches([4, 3], 6),
+                                          device_transform=DEVICE_TRANSFORM)),
+        "predict": ("predict", dict(argv=_predict_argv(tmp, "ranks"))),
+        **methods,
     }
 
 
 # an early-stop floor that the second step of every batch crosses
 FLOOR = 0.99999
+# SAR's recovery floor (x H_max = ln 2): 0.6283, between the fixture's
+# monitor scores of the first batch (0.6279, both steps reset) and of the
+# second (0.6289, no reset, the params adapt)
+SAR_FLOOR = 0.9065
+# the other adapters, continual, each with the reference's draws: pl with a
+# threshold that some voxels clear, eata's gate and Fisher, sar with a
+# recovery floor that fires, cotta's teacher with restore and post views,
+# memo's marginal with modality dropout and post views
+METHOD_CFGS = {
+    "pl": _tent_cfg(method="pl", steps=2, lr=1e-2, episodic=False, pl={"conf_threshold": 0.6}),
+    "eata": _tent_cfg(method="eata", steps=2, lr=1e-2, episodic=False, entropy_focus="uncertain",
+                      reliability={"margin_ratio": 1.0}, fisher={"batches": 1, "lambda": 50.0}),
+    "sar": _tent_cfg(method="sar", steps=2, lr=0.2, episodic=False, rho=0.5, margin_ratio=1.0,
+                     reset_floor_ratio=SAR_FLOOR),
+    "cotta": _tent_cfg(method="cotta", steps=2, lr=1e-2, episodic=False, ema=0.9, n_views=2,
+                       restore={"enabled": True, "prob": 0.2}),
+    "memo": _tent_cfg(method="memo", steps=1, lr=1e-2, episodic=False, n_views=3, serve="marginal",
+                      restore={"enabled": True, "prob": 0.2}, modality_dropout={"enabled": True, "prob": 0.5}),
+}
+POST_DRAWS = ("cotta", "memo")  # serve the teacher's / the marginal's post-update views
+METHOD_BATCHES = _batches([4, 4], 11, label=False)
+ADAPTERS = tuple(METHOD_CFGS)
 JAX_TENT_CFG = _tent_cfg(steps=2, lr=1e-2, loss="entropy+consistency",
                          modality_dropout={"enabled": True, "prob": 0.5})
 
@@ -388,6 +443,94 @@ def test_tent_over_ranks_matches_the_reference_on_a_data_mesh(runs):
     assert_preds_close(r0["preds"], preds)
 
 
+@pytest.mark.parametrize("name", ADAPTERS)
+def test_adapters_over_ranks_equal_one_process(runs, name):
+    """pl, eata, sar, cotta and memo over two ranks (continual, strict, a
+    ragged second batch, the reference's draws for the global batch) equal
+    one process: entropies, adapted params, predictions, SAR's recovery
+    resets and its EMA, CoTTA's teacher; both ranks hold the same adapted
+    state, teacher and reset decisions without a broadcast."""
+    r0, r1 = runs[name][1]
+    one = _one(runs, name, "adapter")
+    for a, b in zip(r0["ents"], one["ents"]):
+        np.testing.assert_allclose(a, b, rtol=1e-5)
+    _close_params(r0["state"], one["state"], name)
+    for a, b in zip(r0["preds"], one["preds"]):
+        assert (a == b).mean() >= 0.9999
+    np.testing.assert_allclose(r0["em"], one["em"], rtol=1e-5)
+    for ta, tb in zip(r0["teacher"], one["teacher"]):
+        for a, b in zip(ta, tb):
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=2e-6)
+    assert r0["resets"] == one["resets"] == r1["resets"]
+    for key in ("ents", "em"):
+        np.testing.assert_array_equal(r0[key], r1[key])
+    _close_params(r0["state"], r1["state"], f"{name}: rank 1", exact=True)
+    for ta, tb in zip(r0["teacher"], r1["teacher"]):
+        for a, b in zip(ta, tb):
+            np.testing.assert_array_equal(a, b)
+    if name == "sar":  # the recovery fired on both steps of the first batch only
+        assert one["resets"] == [2, 0] and np.isnan(one["em"][0]) and not np.isnan(one["em"][1])
+    if name == "cotta":
+        assert len(one["teacher"]) == 2
+
+
+@pytest.mark.parametrize("name", ADAPTERS)
+def test_adapters_over_ranks_match_the_reference_on_a_data_mesh(runs, name):
+    """The two-rank adapters against the JAX adapters of the same method on a
+    ``data=2`` mesh, both given the reference's draws."""
+    payload, (r0, _) = runs[name]
+    cfg = JaxConfigNode(payload["cfg"])
+    mesh = jax_make_mesh(jax.devices()[:2], data=2)
+    params = _params(5)
+    state = jax_state(params, module=JaxUNet3D(**MK))
+    with mesh:
+        adapter = jax_get_tta_method(cfg.tta.method)(cfg.tta, config=cfg, mesh=mesh,
+                                                      device_transform=DEVICE_TRANSFORM)
+        fn = adapter.make_adapt_predict_fn(state, threshold=0.3, predict_mode="post")
+        cur, ents, preds = state, [], []
+        for x, n in zip(payload["batches"], payload["n_valid"]):
+            cur, pred = fn(cur, jax_shard_batch({"image": x}, mesh)["image"], n)
+            ents.append(np.asarray(adapter._last_ents))
+            preds.append(np.asarray(pred))
+    adapted = unet3d_from_flax(jax.tree_util.tree_map(np.asarray, cur.params))
+    assert_adapted_close({k: torch.from_numpy(v) for k, v in r0["state"].items()}, adapted,
+                         unet3d_from_flax(params), r0["names"])
+    for a, b in zip(r0["ents"], ents):
+        np.testing.assert_allclose(a, b, rtol=1e-5)
+    assert_preds_close(r0["preds"], preds)
+
+
+def test_evaluate_with_sar_over_ranks_equals_one_process(runs):
+    """``TTAEngine.evaluate`` with continual SAR over two ranks returns the
+    metrics of one process on both ranks and restores the model."""
+    r0, r1 = runs["evaluate_sar"][1]
+    one = _one(runs, "evaluate_sar", "evaluate")
+    assert r0["metrics"] == r1["metrics"] and set(r0["metrics"]) == set(one["metrics"])
+    for k, v in one["metrics"].items():
+        np.testing.assert_allclose(r0["metrics"][k], v, rtol=1e-6, atol=1e-6, err_msg=k)
+    _close_params(r0["state"], one["state"], "evaluate_sar: the model after evaluate", exact=True)
+
+
+def test_predict_cli_over_ranks_writes_what_one_process_writes(runs):
+    """``cli.predict`` with continual SAR over two ranks writes the files and
+    ``predictions.csv`` of one process: each rank adapts and writes its rows
+    of every batch (three cases: a batch of 2 and a ragged one), and no case
+    is written twice."""
+    payload, (r0, r1) = runs["predict"]
+    tmp = payload["argv"][0].split("=", 1)[1].rsplit("/data/", 1)[0]
+    one = CASES["predict"](None, argv=_predict_argv(tmp, "one"))
+    assert r0["rows"] == r1["rows"] == one["rows"] and len(one["rows"]) == 3
+    got_dir, want_dir = f"{tmp}/pred_ranks", f"{tmp}/pred_one"
+    with open(f"{got_dir}/predictions.csv", "rb") as f, open(f"{want_dir}/predictions.csv", "rb") as g:
+        assert f.read() == g.read()
+    names = sorted(os.listdir(want_dir))
+    assert sorted(os.listdir(got_dir)) == names and len(names) == 4
+    for fname in names:
+        if fname.endswith(".nii.gz"):  # the NIfTI bytes (the gzip header holds a time stamp)
+            with gzip.open(f"{got_dir}/{fname}") as f, gzip.open(f"{want_dir}/{fname}") as g:
+                assert f.read() == g.read(), fname
+
+
 def test_stream_pads_ragged_batches_over_ranks(runs):
     """The stream controller pads batches of 3 and 1 to the data axis and
     returns the global batch's predictions, as one process does."""
@@ -400,9 +543,15 @@ def test_stream_pads_ragged_batches_over_ranks(runs):
 
 
 def test_what_the_data_axis_refuses(runs):
+    """The serving artifact refuses a mesh by design, as the reference's
+    ``serving/export.py`` does: it is one device's, and a deployment over
+    several replicates it. Every method builds its engine over the ranks."""
     out = runs["errors"][1][0]
-    assert "NotImplementedError" in out["pl"] and "12b-ii" in out["pl"]
-    assert "NotImplementedError" in out["artifact"] and "12b-ii" in out["artifact"]
+    assert out["pl"] is None
+    assert out["engines"] == {"tent": "TentAdapter", "pl": "PseudoLabelAdapter", "eata": "EataAdapter",
+                              "norm": "NormAdapter", "sar": "SarAdapter", "cotta": "CottaAdapter",
+                              "memo": "MemoAdapter"}
+    assert "ValueError" in out["artifact"] and "single-device serving artifact" in out["artifact"]
     assert "windows_per_step=3 must divide by the data axis (2)" in out["windows"]
     assert "sync_over_mesh=false is not supported" in out["sync"]
 
@@ -481,3 +630,25 @@ def test_a_failing_or_hung_rank_fails_the_run(tmp_path):
     with pytest.raises(RuntimeError, match=r"rank 0: exit code -9 \(stopped at the 3.0 s limit\)"):
         spawn_ranks(hang, 1, str(tmp_path), timeout=3.0)
     assert time.monotonic() - t0 < 45
+
+
+def test_chip_smoke_adapters_phase_at_fixture_size(tmp_path):
+    """chip_smoke.py's phase 24 on the CPU at fixture size (channels 4..64 on
+    [16,32,32]): two spawned gloo ranks against one process, every method
+    episodic and continual within the phase's limits (the metrics; the
+    entropies, adapted tensors and CoTTA's teacher after each batch), SAR's
+    open floor resetting once a batch, no kernel launches on the CPU."""
+    import chip_smoke
+
+    out = chip_smoke.adapters_phase("cpu", str(tmp_path / "ad"), shape=(16, 32, 32), channels=(4, 8, 16, 32, 64),
+                                    threads=1)
+    assert sorted(out["compare"]) == sorted(f"{m}_{mode}" for m in chip_smoke.AD_METHODS
+                                            for mode in ("episodic", "continual"))
+    assert out["compare"]["sar_episodic"]["resets"] == chip_smoke.AD_BATCHES
+    assert all(c["metrics_max_abs"] <= chip_smoke.DP_METRIC_ABS for c in out["compare"].values())
+    assert all(c["adapted"] == 36 and c["ents_max_rel"] <= chip_smoke.DP_LOSS_REL
+               and max(c["delta_rel_l2"], c["teacher_rel_l2"]) <= chip_smoke.DP_DELTA_REL for c in out["compare"].values())
+    assert [k for k, c in out["compare"].items() if c["teacher"]] == ["cotta_episodic", "cotta_continual"]
+    assert out["launches"] == {"forward": 0, "backward": 0, "minplus": 0}
+    assert [r["tag"] for r in out["ranks"]] == ["rank0", "rank1"]
+    assert set(out["ranks"][0]["bf16_ms"]) == set(chip_smoke.AD_METHODS)

@@ -410,7 +410,7 @@ def test_stream_over_the_space_axis(runs):
 def test_what_the_space_axis_refuses(runs):
     out = runs["errors"][1][0]
     assert "NotImplementedError" in out["windows"] and "windows" in out["windows"] and "12b-v" in out["windows"]
-    assert "NotImplementedError" in out["pl"] and "12b-ii" in out["pl"]
+    assert "NotImplementedError" in out["pl"] and "tta.method=pl" in out["pl"] and "12b-v" in out["pl"]
     assert "GroupNorm" in out["group_norm"] and "12b-v" in out["group_norm"]
     assert "BatchNorm" in out["batch_norm"] and "12b-v" in out["batch_norm"]
     assert "MoE" in out["moe"] and "12b-v" in out["moe"]

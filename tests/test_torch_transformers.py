@@ -395,9 +395,10 @@ def test_registry_defaults_and_what_is_not_ported(monkeypatch):
         assert sw(torch.zeros(1, 12, 16, 16, 2)).shape == (1, 12, 16, 16, 1)
     with pytest.raises(ValueError, match="takes the window"):
         sw(torch.zeros(1, 2, 16, 16, 2))
-    for key, value, item in (("tp_axis", "model", "item 12b"), ("seq_shard_axis", "space", "item 12b")):
-        with pytest.raises(NotImplementedError, match=item):
-            UNETR(**UNETR_KW, **{key: value}, image_size=(16, 16, 16), device="cpu")
+    # tp_axis builds the blocks that a model axis cuts (tests/test_torch_tensor_parallel.py)
+    assert UNETR(**UNETR_KW, tp_axis="model", image_size=(16, 16, 16), device="cpu").block0.tp_axis == "model"
+    with pytest.raises(NotImplementedError, match="item 12b-v"):
+        UNETR(**UNETR_KW, seq_shard_axis="space", image_size=(16, 16, 16), device="cpu")
     # moe_experts and num_experts raised before the training-options slice;
     # blocks 1 and 3 route (every moe_every=2-th), tests/test_torch_moe.py
     # holds them to flax
@@ -405,8 +406,7 @@ def test_registry_defaults_and_what_is_not_ported(monkeypatch):
     assert [i for i in range(4) if getattr(moe, f"block{i}").num_experts] == [1, 3]
     assert moe.block1.moe.num_experts == 4 and not hasattr(moe.block1, "Dense_0")
     assert tvit.EncoderBlock(32, 4, 64, num_experts=2).moe.wi.shape == (2, 32, 64)
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        tvit.SelfAttention(32, 4, tp_axis="model")
+    assert tvit.SelfAttention(32, 4, tp_axis="model").tp is None  # cut only over a model axis
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         get_model("swin_unetr").from_config(ConfigNode(SWIN_KW), image_size=(12, 16, 20))
