@@ -289,6 +289,26 @@ Phases, in order (any failure propagates and exits non-zero):
                ``training.mesh.space=2``; and the split entries against
                their plain versions in f32 and bf16, and timed, at the 14
                split norm shapes of a batch-8 training forward.
+ 24. adapters — pl, eata, sar, cotta and memo over two ranks on card 0
+               against one process (``adapters_phase``), every norm and
+               min-plus call held to its plain version (``CallCheck``).
+ 25. model_axis — UNETR over ``data=2 x model=2`` (``model_axis_phase``).
+ 26. expert_axis — MoE UNETR (8 experts, remat, f32) over four ranks on
+               card 0 on ``data=2 x expert=2`` (``expert_axis_phase``), each
+               rank holding 4 of the 8 experts of every MoE block and their
+               Adam moments, against one process on the same global batches:
+               a forward, two training steps with Adam and with Adafactor,
+               Tent online and strict, one evaluated batch with the surface
+               metrics; every norm and min-plus call held to its plain
+               version, launches exact, the ranks of a data group bit for
+               bit; bytes over the expert and data groups, ms, peaks.
+ 27. stage_axis — ViT-B/16 on [64,224,224,3] over four ranks on card 0 on
+               ``data=2 x stage=2`` (``stage_axis_phase``, GPipe,
+               ``n_micro=4``) against the sequential model: the pipelined
+               forward's logits, two ``make_pipeline_train_step`` SGD steps
+               on the trunk (loss, stacked gradients, the loss falling),
+               each stage holding 6 blocks; ms against sequential, the
+               bubble, bytes a hop.
 
 Phase 2 also holds the norm kernels against their plain versions at the nine
 norm shapes of the batch-8 training step (the largest, [8,48,144,144,32], in
@@ -444,6 +464,22 @@ def cli_overrides(manifest: str, run_dir: str, *extra: str, model: str = "unet")
 
 
 _LIVE = set()  # the processes run_command started that have not ended
+# what the forkserver the ranks of phases 22-27 are forked from imports
+# once (``start_rank_server``); a fresh process takes 6-8 s to import
+# torch on the card's host
+RANK_PRELOAD = ("__main__", "numpy", "torch", "multimodal_tta_tpu_torch.core", "multimodal_tta_tpu_torch.evaluation",
+                "multimodal_tta_tpu_torch.models", "multimodal_tta_tpu_torch.parallel", "multimodal_tta_tpu_torch.tta")
+
+
+def start_rank_server() -> None:
+    """Start the forkserver that ``spawn_ranks`` forks the ranks of phases
+    22-27 from, with ``RANK_PRELOAD`` imported in the background (it never
+    touches the card)."""
+    import multiprocessing as mp
+    from multiprocessing import forkserver
+
+    mp.get_context("forkserver").set_forkserver_preload(list(RANK_PRELOAD))
+    forkserver.ensure_running()
 
 
 def run_command(cmd: list, timeout: float) -> subprocess.CompletedProcess:
@@ -6033,11 +6069,18 @@ def tp_run(device, root: str, mesh, spec: dict) -> dict:
     if cuda:  # the peak is read above the memory live at the start (the smoke's earlier phases hold some)
         torch.cuda.reset_peak_memory_stats(dev)
         live = torch.cuda.memory_allocated(dev)
+    model = build()  # once (an init from the seed takes seconds); each run below starts from its weights
+    seed_state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+    def fresh():
+        model.load_state_dict(seed_state)
+        model.zero_grad(set_to_none=True)
+        return model
+
     check = CallCheck()  # every norm call of the forward, the training and Tent held to its plain version
     try:
         with check:
             check.on = cuda
-            model = build()
             out["tp_bytes"] = sum(p.numel() * p.element_size() for n, p in model.named_parameters()
                                   if any(k in n for k in TP_WEIGHTS))
             out["whole_bias_bytes"] = sum(p.numel() * p.element_size() for n, p in model.named_parameters()
@@ -6070,7 +6113,7 @@ def tp_run(device, root: str, mesh, spec: dict) -> dict:
             def train(deterministic: bool) -> dict:
                 held = torch.backends.cudnn.deterministic
                 torch.backends.cudnn.deterministic = deterministic
-                m = model if not deterministic else build()
+                m = model if not deterministic else fresh()
                 optimizer, lr = build_optimizer(cfg.training, m, mesh)
                 trainer = SegTrainer(cfg, device_transform=DEVICE_TRANSFORM, device=dev, mesh=mesh)
                 trainer.setup(TrainState(model=m, optimizer=optimizer), None, EpochScheduler(cfg.training, lr))
@@ -6108,7 +6151,7 @@ def tp_run(device, root: str, mesh, spec: dict) -> dict:
             # the init weights; then its batches again, unchecked and timed
             out["tent"] = {}
             for mode, episodic in (("inline", False), ("post", True)):
-                model = build()  # the seed's weights again
+                model = fresh()  # the seed's weights again
                 tcfg = eval_config("tent", episodic)
                 tcfg["tta"].update(lr=1e-2, predict=mode)
                 tcfg = ConfigNode(tcfg)
@@ -6137,25 +6180,6 @@ def tp_run(device, root: str, mesh, spec: dict) -> dict:
     return out
 
 
-def _tp_rank(rank: int, world: int, root: str, device: str, spec: dict) -> None:
-    """One rank of phase 25: the process group over a ``file://`` store in
-    ``root`` (gloo: the ranks share the card), a ``data x model`` mesh,
-    ``tp_run``."""
-    import datetime
-
-    sys.path.insert(0, REPO)
-    import torch
-
-    from multimodal_tta_tpu_torch.parallel.distributed import maybe_initialize_distributed
-    from multimodal_tta_tpu_torch.parallel.mesh import make_mesh
-
-    torch.set_num_threads(spec.get("threads", 4))
-    maybe_initialize_distributed("gloo", f"file://{root}/store", world, rank, device=device,
-                                 timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
-    mesh = make_mesh([_rank_device(device)] * world, data=world // TP_MODEL, model=TP_MODEL)
-    torch.save(tp_run(device, root, mesh, spec), os.path.join(root, f"rank{rank}.pt"))
-
-
 def tp_data(shape) -> dict:
     import numpy as np
 
@@ -6181,36 +6205,24 @@ def tp_expected(cuda: bool) -> dict:
             "tent_inline": inline, "tent_inline_timed": inline, "tent_post": post, "tent_post_timed": post}
 
 
-def model_axis_phase(device, root: str, *, shape=SHAPE[:3], model=None, threads: int = 4) -> dict:
-    """Phase 25: four ranks sharing the device (gloo) on a ``data=2 x
-    model=2`` mesh against the one-process run here."""
-    import shutil
-
+def model_axis_prepare(device, root: str, *, shape=SHAPE[:3], model=None, threads: int = 4) -> dict:
+    """Phase 25's data and its one-process run: the ranks' ``spec`` (for
+    ``spawn_axes``) and what ``model_axis_compare`` holds them to."""
     import torch
 
-    from multimodal_tta_tpu_torch.parallel.distributed import spawn_ranks
-
-    shutil.rmtree(root, ignore_errors=True)
-    os.makedirs(root, exist_ok=True)
-    t0 = time.perf_counter()
-    cuda = torch.device(device).type == "cuda"
-    spec = {"shape": list(shape), "threads": threads, "data": os.path.join(root, "data.pt"), "model": model or {}}
+    spec = {"shape": list(shape), "threads": threads, "model": model or {}}
+    prep = _prepare(root, spec)
     torch.save(tp_data(shape), spec["data"])
-    ranks_root = os.path.join(root, "ranks")
-    os.makedirs(ranks_root, exist_ok=True)
-    t1 = time.perf_counter()
-    spawn_ranks(_tp_rank, TP_WORLD, ranks_root, (ranks_root, str(device), spec), TP_TIMEOUT_S)
-    out = {"ranks_s": time.perf_counter() - t1}
-    log(f"[model_axis] the ranks took {out['ranks_s']:.1f} s")
-    ranks = [torch.load(os.path.join(ranks_root, f"rank{r}.pt"), weights_only=False) for r in range(TP_WORLD)]
-    t1 = time.perf_counter()
-    held = torch.get_num_threads()
-    torch.set_num_threads(threads)
-    try:
-        one = tp_run(device, os.path.join(root, "one"), None, spec)
-    finally:
-        torch.set_num_threads(held)
-    out["one_s"] = time.perf_counter() - t1
+    return _one_process(prep, tp_run, device)
+
+
+def model_axis_compare(device, prep: dict) -> dict:
+    """Phase 25: the four ranks on a ``data=2 x model=2`` mesh (their
+    results in ``prep``'s ``ranks_root``) against the one-process run."""
+    import torch
+
+    cuda = torch.device(device).type == "cuda"
+    one, ranks, out = _ranks_of(prep, "model_axis")
     failed, r0 = [], ranks[0]
     scale = float(one["logits"].abs().max())
     logit_err = max(float((res["logits"] - one["logits"]).abs().max()) for res in ranks)
@@ -6273,9 +6285,17 @@ def model_axis_phase(device, root: str, *, shape=SHAPE[:3], model=None, threads:
                 "ranks": [{k: res[k] for k in ("tag", "tp_bytes", "sharded", "step_ms", "step_reduced", "peak_gib",
                                                "check")} for res in ranks],
                 "one": {k: one[k] for k in ("tp_bytes", "step_ms", "peak_gib", "check")}})
-    out["phase_s"] = time.perf_counter() - t0
-    shutil.rmtree(root, ignore_errors=True)
-    return out
+    return _finish(prep, out)
+
+
+
+
+def model_axis_phase(device, root: str, **kw) -> dict:
+    """Phase 25 alone: ``model_axis_prepare``, four ranks sharing the device
+    (gloo), ``model_axis_compare``."""
+    prep = model_axis_prepare(device, root, **kw)
+    spawn_axes(device, [("model_axis", prep["spec"])], os.path.join(root, "store"))
+    return model_axis_compare(device, prep)
 
 
 def log_model_axis(tp: dict, card: str) -> None:
@@ -6297,6 +6317,861 @@ def log_model_axis(tp: dict, card: str) -> None:
             f"{tp['one']['peak_gib']:.3f}); card {card}")
     log(f"[model_axis]   one process: kernels vs plain {json.dumps(tp['one']['check'])}")
     log(f"[model_axis] phase 25 took {tp['phase_s']:.1f} s; launches over the four ranks {tp['launches']}; card {card}")
+
+
+# ---- phase 26: the expert axis (MoE experts over ranks) for MoE UNETR ----------
+# four ranks share the one card (gloo) on a data=2 x expert=2 mesh: UNETR at
+# configs/model/unetr.yaml's width with 8 experts in blocks 1, 3, .., 11
+# (phase 20's A_unetr_moe8 runs), remat, f32, each rank holding 4 of the 8
+# experts of every MoE block; against one process on the same global
+# batches: a forward, two training steps at global batch 4 with Adam and
+# with Adafactor, Tent online and strict, one evaluated batch with the
+# surface metrics. Limits: the logits within TP_LOGIT_REL of the largest
+# (each rank sums its experts' share of the combine over the expert group,
+# in another order than one einsum); losses and entropies within
+# DP_LOSS_REL; the first Adam step's gradients (all tensors, and the
+# routers') within DP_GRAD_REL relative L2; the first Adafactor step's
+# moves of the cut tensors (the experts) within EP_CUT_RULE_REL relative L2
+# of the update rule applied uncut to their gathered gradients (the cut
+# statistics' sums over the expert group alone); the moves against one
+# process's are read, as phase 22 reads them (see expert_axis_compare);
+# Tent's moves within DP_DELTA_REL relative L2; the metrics within phase
+# 22's limits; the ranks of a data group bit for bit
+EP_WORLD, EP_EXPERT = 4, 2
+EP_UNETR = dict(TP_UNETR, moe_experts=8, moe_every=2, moe_k=1, moe_capacity_factor=1.25)
+EP_TRAIN_BATCH = 4
+EP_STEPS = 2
+EP_TENT_BATCHES = 2
+EP_OPTIMIZERS = ("adam", "adafactor")
+EP_SEED = 260
+EP_TIMEOUT_S = 900
+EP_LEAVES = (".wi", ".bi", ".wo", ".bo")  # the tensors the expert axis cuts (parallel/expert.py)
+EP_KEY_BIAS = "key.bias"
+EP_CUT_RULE_REL = 1e-5
+
+
+def ep_config(root: str, optimizer: str, adafactor=None) -> dict:
+    """The HECKTOR21 recipe (``train_recipe``) in f32 with ``optimizer`` (the
+    stock adam or adafactor block, the latter updated with ``adafactor``)
+    and the MoE aux loss."""
+    recipe = train_recipe(root)
+    recipe["training"].update(optimizer=optimizer, compute_dtype="float32", grad_accum=1, remat=True)
+    recipe["training"]["optimizers"]["adafactor"].update(adafactor or {})
+    recipe["model"].update(moe_experts=EP_UNETR["moe_experts"])
+    return recipe
+
+
+def ep_expected(cuda: bool) -> dict:
+    """The norm and min-plus launches of each part of ``ep_run``: UNETR's 16
+    norms a forward, its decoder's 10 recomputed in a remat backward (the 6
+    skip-branch norms never are), 16 backward."""
+    n, r = (TP_PER_FORWARD, 10) if cuda else (0, 0)
+
+    def parts(fwd: int, bwd: int, minplus: int = 0) -> dict:
+        return {"forward": fwd, "backward": bwd, "minplus": minplus}
+
+    train = parts(EP_STEPS * (n + r), EP_STEPS * n)
+    return {"forward": parts(n, 0), **{f"train_{o}": train for o in EP_OPTIMIZERS}, "train_timed": train,
+            "tent_inline": parts(EP_TENT_BATCHES * (n + r), EP_TENT_BATCHES * n),
+            "tent_post": parts(EP_TENT_BATCHES * (2 * n + r), EP_TENT_BATCHES * n),
+            "evaluate": parts(2 * n + r, n, 1 if cuda else 0)}
+
+
+def ep_data(shape) -> dict:
+    import numpy as np
+
+    n_train = EP_STEPS * EP_TRAIN_BATCH
+    vols = hecktor_volumes(BATCH + n_train + (EP_TENT_BATCHES + 1) * BATCH, EP_SEED, shape)
+    img = np.stack([v["image"] for v in vols])
+    lbl = np.stack([v["label"] for v in vols])
+    at = BATCH + n_train
+    return {"forward": img[:BATCH],
+            "train": [{"image": img[BATCH + i * EP_TRAIN_BATCH:BATCH + (i + 1) * EP_TRAIN_BATCH],
+                       "label": lbl[BATCH + i * EP_TRAIN_BATCH:BATCH + (i + 1) * EP_TRAIN_BATCH]}
+                      for i in range(EP_STEPS)],
+            "tent": [img[at + i * BATCH:at + (i + 1) * BATCH] for i in range(EP_TENT_BATCHES)],
+            "evaluate": [{"image": img[at + EP_TENT_BATCHES * BATCH:], "label": lbl[at + EP_TENT_BATCHES * BATCH:]}]}
+
+
+def ep_run(device, root: str, mesh, spec: dict) -> dict:
+    """Phase 26's main path in this process: over the ranks of ``mesh``
+    (``data=2 x expert=2``), or in one process (``mesh`` None), which returns
+    its first Adam step's gradients, its first Adafactor step's factored
+    moves and their gradients, and its moves for the ranks to read
+    (``spec["one"]``: the whole trees are 1.16 GB each)."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from multimodal_tta_tpu_torch.conf import ConfigNode
+    from multimodal_tta_tpu_torch.core.optim import EpochScheduler, build_optimizer
+    from multimodal_tta_tpu_torch.core.train_state import TrainState
+    from multimodal_tta_tpu_torch.core.trainers.seg_trainer import SegTrainer
+    from multimodal_tta_tpu_torch.kernels.edt_minplus import minplus
+    from multimodal_tta_tpu_torch.kernels.fused_instance_norm import fused_instance_norm
+    from multimodal_tta_tpu_torch.models import moe as moe_module
+    from multimodal_tta_tpu_torch.models.unetr import UNETR
+    from multimodal_tta_tpu_torch.parallel.expert import shard_experts
+    from multimodal_tta_tpu_torch.parallel.tensor import whole_state_dict, whole_tensors
+    from multimodal_tta_tpu_torch.tta.engine import TTAEngine
+    from multimodal_tta_tpu_torch.tta.tent import TentAdapter
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = mesh.device if mesh is not None else torch.device(device)
+    cuda = dev.type == "cuda"
+    data = torch.load(spec["data"], weights_only=False)
+    kw = dict(EP_UNETR, **spec.get("model", {}))
+    shape = tuple(spec["shape"])
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def counts() -> dict:
+        return {"forward": fused_instance_norm.launches, "backward": fused_instance_norm.backward_launches,
+                "minplus": minplus.launches}
+
+    def since(at):
+        return {k: v - at[k] for k, v in counts().items()}
+
+    def rows(x):
+        return x if mesh is None else x[mesh.rows(x.shape[0])]
+
+    def gather(t):
+        return (t if mesh is None else mesh.gather_rows(t.contiguous())).detach().cpu()
+
+    def timed(fn) -> float:
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        return (time.perf_counter() - t0) * 1e3
+
+    def rel_l2(a: dict, b: dict, keys) -> float:
+        return float(torch.cat([(a[k] - b[k]).flatten() for k in keys]).norm()
+                     / torch.cat([b[k].flatten() for k in keys]).norm())
+
+    reduced = {"expert": 0, "data": 0, "calls": 0}  # bytes all-reduced by group while ``counting``
+    counting = [False]
+    all_reduce = dist.all_reduce
+
+    def counted_all_reduce(t, *a, group=None, **k):
+        if counting[0]:
+            axis = "expert" if mesh is not None and group is mesh.expert_group else "data"
+            reduced[axis] += t.numel() * t.element_size()
+            reduced["calls"] += 1
+        return all_reduce(t, *a, group=group, **k)
+
+    dist.all_reduce = counted_all_reduce
+    routed, recording = [], [False]  # the routers' gates of every route call while ``recording``
+    route = moe_module.route
+
+    def recorded_route(gates, k):
+        if recording[0]:
+            routed.append(gates.detach().float().cpu())
+        return route(gates, k)
+
+    moe_module.route = recorded_route
+
+    def cut_rule_rel(m, optimizer) -> float:
+        """The largest relative L2, over the params this rank holds a share
+        of, between their first Adafactor step's whole moves and the update
+        rule applied uncut to the whole param and its gathered gradient: what
+        the cut statistics' sums over the group add (0.0 with no cut)."""
+        from multimodal_tta_tpu_torch.core.optim import Adafactor
+        from multimodal_tta_tpu_torch.parallel.tensor import gather_share, sharded_params
+
+        params, worst = dict(m.named_parameters()), 0.0
+        for n, (dim, axis) in sorted(sharded_params(m).items(), key=lambda kv: kv[0]):
+            p = params[n]
+            got = gather_share(p.detach(), dim, axis)  # every rank of the group gathers, in one order
+            perm, shape = optimizer._layout(p)
+            whole = list(shape)
+            whole[optimizer.cuts[id(p)][1]] *= axis.size
+            group = next(g for g in optimizer.param_groups if any(q is p for q in g["params"]))
+            w0 = init[n].to(dev)
+            w = w0.clone()
+            w.grad = gather_share(p.grad, dim, axis)
+            Adafactor([{"params": [w], "weight_decay": group["weight_decay"]}], lr=group["lr"],
+                      layouts={id(w): (perm, tuple(whole))}, min_dim_size_to_factor=optimizer.min_dim_size_to_factor,
+                      decay_rate=optimizer.decay_rate, momentum=optimizer.momentum,
+                      clipping_threshold=optimizer.clipping_threshold,
+                      multiply_by_parameter_scale=optimizer.multiply_by_parameter_scale, eps=optimizer.eps).step()
+            worst = max(worst, float((got - w).norm() / (w - w0).norm()))
+        return worst
+
+    def factored_moves(m, optimizer):
+        """The moves of the params Adafactor factors (a row and a column
+        statistic each) and their gradients, whole."""
+        params = {n: p for n, p in m.named_parameters() if "v_row" in optimizer.state[p]}
+        moves = whole_tensors(m, {n: p.detach() for n, p in params.items()})
+        grads = whole_tensors(m, {n: p.grad for n, p in params.items()})
+        return {k: v.cpu() - init[k] for k, v in moves.items()}, {k: v.cpu() for k, v in grads.items()}
+
+    def expert_bytes(tensors) -> int:
+        return sum(t.numel() * t.element_size() for n, t in tensors if n.endswith(EP_LEAVES))
+
+    one = None if mesh is None else torch.load(spec["one"], map_location="cpu", weights_only=False)
+    out = {"tag": f"rank{mesh.rank}" if mesh is not None else "one", "launches": {}, "train": {}, "moves": {}}
+    if cuda:  # the peak is read above the memory live at the start (the smoke's earlier phases hold some)
+        torch.cuda.reset_peak_memory_stats(dev)
+        live = torch.cuda.memory_allocated(dev)
+    # built once from the seed (the init of 290M params takes seconds); each
+    # run below starts from these weights again
+    model = UNETR(**kw, image_size=shape, dtype=torch.float32, remat=True, device=dev, seed=EP_SEED)
+    shard_experts(model, mesh)
+    seed_state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+    def restore():
+        model.load_state_dict(seed_state)
+        model.zero_grad(set_to_none=True)
+        return model
+
+    out["expert_bytes"] = expert_bytes(model.named_parameters())
+    out["experts"] = sorted({p.shape[0] for n, p in model.named_parameters() if n.endswith(EP_LEAVES)})
+    check = CallCheck()  # every norm and min-plus call of the path held to its plain version
+    try:
+        with check:
+            check.on = cuda
+            # the forward
+            at = counts()
+            with torch.no_grad():
+                out["logits"] = gather(model(torch.from_numpy(rows(data["forward"])).to(dev)))
+            sync()
+            out["launches"]["forward"] = since(at)
+            # two f32 steps at global batch EP_TRAIN_BATCH with Adam, then with
+            # Adafactor, each from the seed's weights; the first Adam step's
+            # collectives counted and its summed gradients kept, then the
+            # Adam steps again unchecked for the ms
+            init = {k: v.detach().to("cpu", copy=True) for k, v in whole_state_dict(model).items()}
+            for opt in EP_OPTIMIZERS:
+                m = restore()
+                cfg = ConfigNode(ep_config(root, opt, spec.get("adafactor")))
+                optimizer, lr = build_optimizer(cfg.training, m, mesh)
+                trainer = SegTrainer(cfg, device_transform=DEVICE_TRANSFORM, device=dev, mesh=mesh)
+                trainer.setup(TrainState(model=m, optimizer=optimizer), None, EpochScheduler(cfg.training, lr))
+                r, at = {"losses": []}, counts()
+                for batch in data["train"]:
+                    counting[0] = recording[0] = opt == "adam" and not r["losses"]
+                    trainer.run_step(batch)
+                    r["losses"].append(trainer.flush_step_metrics()["loss"])
+                    sync()
+                    counting[0] = recording[0] = False
+                    if opt == "adam" and len(r["losses"]) == 1:
+                        grads = {k: v.cpu() for k, v in whole_tensors(m, {n: p.grad for n, p in m.named_parameters()
+                                                                            if p.grad is not None}).items()}
+                    if opt == "adafactor" and len(r["losses"]) == 1:
+                        r["cut_rule_rel"] = cut_rule_rel(m, optimizer)
+                        first, first_grads = factored_moves(m, optimizer)
+                        r["factored"] = sorted(first)
+                        if mesh is None:
+                            out["first_moves"], out["first_grads"] = first, first_grads
+                        else:
+                            keys = sorted(one["first_moves"])
+                            experts = [k for k in keys if k.endswith(EP_LEAVES)]
+                            r["first_delta_rel_l2"] = rel_l2(first, one["first_moves"], keys)
+                            r["first_experts_delta_rel_l2"] = rel_l2(first, one["first_moves"], experts)
+                            # each tensor's move and the gradient it was made from
+                            r["first_leaves"] = {k: (rel_l2(first, one["first_moves"], [k]),
+                                                     rel_l2(first_grads, one["first_grads"], [k])) for k in keys}
+                        del first, first_grads
+                out["launches"][f"train_{opt}"] = since(at)
+                moves = {k: v.detach().cpu() - init[k] for k, v in whole_state_dict(m).items()}
+                if mesh is None:
+                    out["moves"][opt] = moves
+                else:  # against one process's, here: the whole trees stay on the ranks
+                    keys = sorted(k for k in moves if not k.endswith(EP_KEY_BIAS))
+                    r["delta_rel_l2"] = rel_l2(moves, one["moves"][opt], keys)
+                    r["sign_apart"] = float(sum(int((moves[k].sign() != one["moves"][opt][k].sign()).sum())
+                                                for k in keys) / sum(moves[k].numel() for k in keys))
+                    r["most_apart"] = sorted(((rel_l2(moves, one["moves"][opt], [k]), k) for k in keys),
+                                             reverse=True)[:3]
+                    r["local_sha"] = [hashlib.sha256(p.detach().cpu().numpy().tobytes()).hexdigest()
+                                      for p in m.parameters()]
+                if opt == "adam":
+                    if mesh is None:
+                        out["grads"], out["routed"] = grads, routed
+                    else:
+                        # the tokens whose expert differs from one process's, route call by
+                        # call (the forward's, then remat's), and the widest top-2 gap among them
+                        rows_at = rows(torch.arange(EP_TRAIN_BATCH))
+                        flipped = [(g.argmax(-1) != w[rows_at].argmax(-1)) for g, w in zip(routed, one["routed"])]
+                        out["route_flips"] = [int(f.sum()) for f in flipped]
+                        gaps = [w[rows_at].topk(2, dim=-1).values.diff(dim=-1).abs().squeeze(-1)[f]
+                                for f, w in zip(flipped, one["routed"])]
+                        out["route_flip_gap"] = max((float(g.max()) for g in gaps if g.numel()), default=0.0)
+                        out["grad_rel_l2"] = rel_l2(grads, one["grads"], sorted(one["grads"]))
+                        out["grad_most_apart"] = sorted(((rel_l2(grads, one["grads"], [k]), k) for k in one["grads"]
+                                                         if not k.endswith(EP_KEY_BIAS)), reverse=True)[:3]
+                        routers = sorted(k for k in one["grads"] if ".router." in k)
+                        out["router_grad_rel_l2"] = rel_l2(grads, one["grads"], routers)
+                    inner = getattr(optimizer, "optim", optimizer)
+                    r["expert_moment_bytes"] = expert_bytes(
+                        (n, v) for n, p in m.named_parameters() for k, v in inner.state[p].items()
+                        if k in ("exp_avg", "exp_avg_sq"))
+                    check.on, at = False, counts()
+                    r["step_ms"] = [timed(lambda b=b: (trainer.run_step(b), trainer.flush_step_metrics()))
+                                    for b in data["train"]]
+                    out["launches"]["train_timed"] = since(at)
+                    check.on = cuda
+                out["train"][opt] = r
+                del trainer, optimizer, moves
+            del init, grads
+            out["step_reduced"] = dict(reduced)
+            # Tent online (continual, inline) and strict (episodic, post) from the seed's weights
+            out["tent"] = {}
+            for mode, episodic in (("inline", False), ("post", True)):
+                m = restore()
+                tcfg = eval_config("tent", episodic)
+                tcfg["tta"].update(lr=1e-2, predict=mode)
+                tcfg = ConfigNode(tcfg)
+                adapter = TentAdapter(tcfg.tta, config=tcfg, device_transform=DEVICE_TRANSFORM, device=dev, mesh=mesh)
+                fn = adapter.make_adapt_predict_fn(m, threshold=THRESHOLD, predict_mode=mode)
+                ents, preds, at = [], [], counts()
+                for xb in data["tent"]:
+                    _, pred = fn(m, torch.from_numpy(rows(xb)).to(dev), xb.shape[0])
+                    preds.append(gather(pred))
+                    ents.append(adapter._last_ents.tolist())
+                out["launches"][f"tent_{mode}"] = since(at)
+                state = dict(m.named_parameters())
+                out["tent"][mode] = {"ents": ents, "preds": preds, "names": list(adapter._names),
+                                     "adapted": {k: state[k].detach().cpu().clone() for k in adapter._names},
+                                     "experts_grad": any(p.grad is not None for n, p in m.named_parameters()
+                                                         if n.endswith(EP_LEAVES))}
+            out["source"] = {n: seed_state[n].cpu() for n in out["tent"]["post"]["names"]}
+            # one evaluated batch (Tent strict, the surface metrics on the min-plus kernel)
+            m = restore()
+            engine = TTAEngine(ConfigNode(eval_config("tent", True)), device_transform=DEVICE_TRANSFORM, device=dev,
+                               mesh=mesh)
+            at = counts()
+            out["metrics"] = engine.evaluate(m, data["evaluate"])
+            sync()
+            out["launches"]["evaluate"] = since(at)
+    finally:
+        dist.all_reduce = all_reduce
+        moe_module.route = route
+    out["check"] = check.seen
+    out["check_ok"] = check.ok(["forward float32", "backward float32", "minplus"]) if cuda else None
+    out["peak_gib"] = (torch.cuda.max_memory_allocated(dev) - live) / 2**30 if cuda else 0.0
+    return out
+
+
+def _max_rel(a, b) -> float:
+    return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+
+def expert_axis_prepare(device, root: str, *, shape=SHAPE[:3], model=None, adafactor=None, threads: int = 4) -> dict:
+    """Phase 26's data and its one-process run, whose first Adam step's
+    gradients, first Adafactor step's factored moves and their gradients, and
+    moves are written for the ranks (``spec["one"]``). ``adafactor`` updates the stock
+    Adafactor block (a fixture's narrow tensors factor below its 128)."""
+    import torch
+
+    spec = {"shape": list(shape), "threads": threads, "model": model or {}, "adafactor": adafactor or {}}
+    prep = _prepare(root, spec)
+    spec["one"] = os.path.join(root, "one_moves.pt")
+    torch.save(ep_data(shape), spec["data"])
+    prep = _one_process(prep, ep_run, device)
+    torch.save({k: prep["one"].pop(k) for k in ("moves", "grads", "first_moves", "first_grads", "routed")},
+               spec["one"])
+    return prep
+
+
+def expert_axis_compare(device, prep: dict) -> dict:
+    """Phase 26: the four ranks on a ``data=2 x expert=2`` mesh against the
+    one-process run."""
+    import torch
+
+    cuda = torch.device(device).type == "cuda"
+    one, ranks, out = _ranks_of(prep, "expert_axis")
+    failed, r0 = [], ranks[0]
+    scale = float(one["logits"].abs().max())
+    logit_err = max(float((res["logits"] - one["logits"]).abs().max()) for res in ranks)
+    if logit_err > TP_LOGIT_REL * scale:
+        failed.append(f"the forward's logits {logit_err} from one process's (limit {TP_LOGIT_REL} x {scale})")
+    # the first Adam step's gradients (all tensors, and the routers') and the
+    # first Adafactor step's cut rule are gated; the moves against one
+    # process's are read: Adam's first steps, and Adafactor's on a tensor it
+    # does not factor (its eps 1e-30 makes that first update sign(g)), move
+    # an element by about lr whatever its gradient's size, so an element
+    # whose gradient sits within the ranks' rounding moves by +-lr on either
+    # side (phase 22's finding); a factored update divides each row, column
+    # and expert by its own mean, so one whose gradient is small moves a
+    # full step whatever its size too, and the block-RMS clip carries that
+    # to the whole tensor (``adafactor_first_most_apart``: the move's and
+    # the gradient's distance of the tensors most apart)
+    af = one["train"]["adafactor"]["factored"]
+    train = {"grad_rel_l2": max(res["grad_rel_l2"] for res in ranks),
+             "router_grad_rel_l2": max(res["router_grad_rel_l2"] for res in ranks),
+             "grad_most_apart": r0["grad_most_apart"],
+             "adafactor_first_delta_rel_l2": max(res["train"]["adafactor"]["first_delta_rel_l2"] for res in ranks),
+             "adafactor_first_experts_delta_rel_l2": max(res["train"]["adafactor"]["first_experts_delta_rel_l2"]
+                                                         for res in ranks),
+             "adafactor_first_most_apart": sorted(((*v, k) for k, v in r0["train"]["adafactor"]["first_leaves"].items()),
+                                                  reverse=True)[:4],
+             "route_flips": [res["route_flips"] for res in ranks],
+             "route_flip_gap": max(res["route_flip_gap"] for res in ranks),
+             "adafactor_cut_rule_rel": max(res["train"]["adafactor"]["cut_rule_rel"] for res in ranks),
+             "adafactor_factored": len(af), "adafactor_factored_experts": sum(k.endswith((".wi", ".wo")) for k in af)}
+    if train["grad_rel_l2"] > DP_GRAD_REL or train["router_grad_rel_l2"] > DP_GRAD_REL:
+        failed.append(f"the first step's gradients {train['grad_rel_l2']}, the routers' "
+                      f"{train['router_grad_rel_l2']} from one process's (limit {DP_GRAD_REL})")
+    if train["adafactor_cut_rule_rel"] > EP_CUT_RULE_REL:
+        failed.append(f"the first Adafactor step's moves of the cut tensors {train['adafactor_cut_rule_rel']} from "
+                      f"the update rule applied uncut to their gathered gradients (limit {EP_CUT_RULE_REL})")
+    if not train["adafactor_factored_experts"] or any(res["train"]["adafactor"]["factored"] != af for res in ranks):
+        failed.append(f"Adafactor factors {[res['train']['adafactor']['factored'] for res in ranks]} on the ranks, "
+                      f"{af} in one process")
+    for opt in EP_OPTIMIZERS:
+        t, o = r0["train"][opt], one["train"][opt]
+        train[opt] = {"losses": t["losses"], "one": o["losses"], "loss_max_rel": _max_rel(t["losses"], o["losses"]),
+                      "delta_rel_l2": max(res["train"][opt]["delta_rel_l2"] for res in ranks),
+                      "sign_apart": max(res["train"][opt]["sign_apart"] for res in ranks),
+                      "most_apart": t["most_apart"]}
+        # the ranks of an expert group may round apart under cuDNN's default
+        # algorithms (phase 25's finding): each is held to one process
+        train[opt]["loss_max_rel"] = max(_max_rel(res["train"][opt]["losses"], o["losses"]) for res in ranks)
+        if train[opt]["loss_max_rel"] > DP_LOSS_REL:
+            failed.append(f"{opt} losses {[res['train'][opt]['losses'] for res in ranks]} vs {o['losses']}")
+        for e in range(EP_EXPERT):  # ranks (0, e) and (1, e): one data group, the same losses and local params
+            a, b = ranks[e]["train"][opt], ranks[EP_EXPERT + e]["train"][opt]
+            if a["local_sha"] != b["local_sha"] or a["losses"] != b["losses"]:
+                failed.append(f"{opt}: the ranks of data group {e} hold other params or losses")
+    tent = {}
+    for mode, t in r0["tent"].items():
+        o = one["tent"][mode]
+        ent_rel = max(abs(a - b) / abs(b) for ea, eb in zip(t["ents"], o["ents"]) for a, b in zip(ea, eb))
+        agree = min(float((a == b).float().mean()) for a, b in zip(t["preds"], o["preds"]))
+        keys = sorted(o["adapted"])
+        diff = torch.cat([(t["adapted"][k] - o["adapted"][k]).flatten() for k in keys])
+        delta = torch.cat([(o["adapted"][k] - one["source"][k]).flatten() for k in keys])
+        tent[mode] = {"ents_max_rel": ent_rel, "pred_agree": agree, "delta_rel_l2": float(diff.norm() / delta.norm()),
+                      "adapted": len(keys), "experts_adapted": any(k.endswith(EP_LEAVES) for k in keys)}
+        if (ent_rel > DP_LOSS_REL or agree < DP_PRED_AGREE or tent[mode]["delta_rel_l2"] > DP_DELTA_REL
+                or t["names"] != o["names"] or tent[mode]["experts_adapted"]
+                or any(res["tent"][mode]["experts_grad"] for res in ranks)):
+            failed.append(f"Tent {mode}: {tent[mode]}")
+    a, b = r0["metrics"], one["metrics"]
+    floats = [k for k in b if isinstance(b[k], float)]
+    metrics_rel = max(abs(a[k] - b[k]) / max(abs(b[k]), 1.0) for k in floats)
+    if (set(a) != set(b) or any(res["metrics"] != a for res in ranks)
+            or any(abs(a[k] - b[k]) > DP_METRIC_ABS + DP_METRIC_REL * abs(b[k]) for k in floats)):
+        failed.append(f"evaluate: metrics {a} vs {b}")
+    for res in ranks:
+        if res["experts"] != [one["experts"][0] // EP_EXPERT] or res["expert_bytes"] * EP_EXPERT != one["expert_bytes"]:
+            failed.append(f"{res['tag']} holds experts {res['experts']}, {res['expert_bytes']} bytes (one process "
+                          f"{one['expert_bytes']})")
+        if res["train"]["adam"]["expert_moment_bytes"] * EP_EXPERT != one["train"]["adam"]["expert_moment_bytes"]:
+            failed.append(f"{res['tag']} holds {res['train']['adam']['expert_moment_bytes']} bytes of expert moments "
+                          f"(one process {one['train']['adam']['expert_moment_bytes']})")
+    want = ep_expected(cuda)
+    for res in ranks + [one]:
+        if res["launches"] != want:
+            failed.append(f"{res['tag']}: launches {res['launches']}, derived {want}")
+        if cuda and not res["check_ok"]:
+            failed.append(f"{res['tag']} kernels vs plain: {res['check']}")
+    if failed:
+        raise AssertionError("phase 26: " + "; ".join(failed))
+    out.update({"logit_max_abs": logit_err, "logit_scale": scale, "train": train, "tent": tent,
+                "evaluate": {"metrics": b, "metrics_max_rel": metrics_rel},
+                "launches": {k: sum(res["launches"][p][k] for res in ranks for p in want)
+                             for k in ("forward", "backward", "minplus")},
+                "ranks": [{"tag": res["tag"], "expert_bytes": res["expert_bytes"],
+                           "expert_moment_bytes": res["train"]["adam"]["expert_moment_bytes"],
+                           "step_ms": res["train"]["adam"]["step_ms"], "step_reduced": res["step_reduced"],
+                           "peak_gib": res["peak_gib"], "check": res["check"]} for res in ranks],
+                "one": {"expert_bytes": one["expert_bytes"],
+                        "expert_moment_bytes": one["train"]["adam"]["expert_moment_bytes"],
+                        "step_ms": one["train"]["adam"]["step_ms"], "peak_gib": one["peak_gib"],
+                        "check": one["check"]}})
+    return _finish(prep, out)
+
+
+
+
+def expert_axis_phase(device, root: str, **kw) -> dict:
+    """Phase 26 alone: ``expert_axis_prepare``, four ranks sharing the
+    device (gloo), ``expert_axis_compare``."""
+    prep = expert_axis_prepare(device, root, **kw)
+    spawn_axes(device, [("expert_axis", prep["spec"])], os.path.join(root, "store"))
+    return expert_axis_compare(device, prep)
+
+
+def log_expert_axis(ep: dict, card: str) -> None:
+    log(f"[expert_axis] phase 26: MoE UNETR {EP_UNETR} with remat on {EP_WORLD} ranks (data={EP_WORLD // EP_EXPERT} "
+        f"x expert={EP_EXPERT}) over gloo on one card vs one process, f32: one process {ep['one_s']:.1f} s, ranks "
+        f"{ep['ranks_s']:.1f} s; card {card}")
+    log(f"[expert_axis]   forward logits within {ep['logit_max_abs']:.3g} of one process (limit {TP_LOGIT_REL} x "
+        f"{ep['logit_scale']:.3g}); training {json.dumps(ep['train'])}; Tent {json.dumps(ep['tent'])}; evaluate "
+        f"{json.dumps(ep['evaluate'])}")
+    for res in ep["ranks"]:
+        log(f"[expert_axis]   {res['tag']}: {res['expert_bytes']} bytes of experts (one process "
+            f"{ep['one']['expert_bytes']}), {res['expert_moment_bytes']} bytes of their Adam moments (one process "
+            f"{ep['one']['expert_moment_bytes']}); kernels vs plain {json.dumps(res['check'])}; f32 Adam step ms "
+            f"(warm, unchecked) {[round(t, 1) for t in res['step_ms']]} (one process "
+            f"{[round(t, 1) for t in ep['one']['step_ms']]}); first Adam step all-reduced {res['step_reduced']}; peak "
+            f"{res['peak_gib']:.3f} GiB above the memory live at the start (one process {ep['one']['peak_gib']:.3f}); "
+            f"card {card}")
+    log(f"[expert_axis]   one process: kernels vs plain {json.dumps(ep['one']['check'])}")
+    log(f"[expert_axis] phase 26 took {ep['phase_s']:.1f} s; launches over the four ranks {ep['launches']}; card {card}")
+
+
+# ---- phase 27: the stage axis (GPipe) for ViT-B/16 -----------------------------
+# four ranks share the one card (gloo) on a data=2 x stage=2 mesh: ViT-B/16
+# at configs/model/vit.yaml's width (patch 16, hidden 768, depth 12, 12
+# heads, MLP 3072, 1000 classes) on [64,224,224,3] in f32 with TF32 off,
+# n_micro=4 (each data rank's microbatch slice [8,197,768]); each stage
+# holds 6 blocks. Against the sequential model in one process:
+# vit_forward_pipelined's logits within PP_LOGIT_REL of the largest (the
+# reference's 1e-4: the pipeline applies the same layers in the same
+# order, so it should sit at rounding); two make_pipeline_train_step SGD
+# steps on the trunk (remat; the loss the head's cross-entropy), the first
+# step's loss within PP_LOSS_REL and each stacked leaf's gradient within
+# PP_GRAD_REL of that leaf's largest in the sequential step (all but the
+# attention key bias, whose gradient is rounding), the second loss below
+# the first. The trunk launches neither kernel (LayerNorms only).
+PP_WORLD, PP_STAGES = 4, 2
+PP_VIT = dict(variant="vit_b_16", num_classes=1000, patch=16, hidden=768, depth=12, heads=12, mlp_dim=3072)
+PP_BATCH, PP_SIDE, PP_MICRO = 64, 224, 4
+PP_LR, PP_MOMENTUM = 0.1, 0.9
+PP_LOGIT_REL, PP_LOSS_REL, PP_GRAD_REL = 1e-4, 1e-5, 1e-4
+PP_SEED = 270
+PP_TIMED = 3
+PP_TIMEOUT_S = 600
+
+
+def pp_model(spec: dict, dev):
+    import torch
+
+    from multimodal_tta_tpu_torch.models.vit import ViT
+
+    kw = dict(PP_VIT, **spec.get("model", {}))
+    return ViT(**kw, image_size=spec["side"], dtype=torch.float32, device=dev, seed=PP_SEED)
+
+
+def pp_trunk(model):
+    """The trunk's layer function, its stacked blocks (leaves) and the loss
+    of its output: the head's cross-entropy (the head fixed)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.func import functional_call
+
+    from multimodal_tta_tpu_torch.parallel.pipeline import stack_layer_params
+
+    template = model.block0
+    stacked = {k: v.detach().clone().requires_grad_() for k, v in
+               stack_layer_params(dict(model.named_parameters()), "block", model.depth).items()}
+
+    def layer_fn(p, tokens):
+        return functional_call(template, p, (tokens,))
+
+    def loss_fn(y, labels):
+        return F.cross_entropy(model.head_of(y)[1], labels)
+
+    for p in model.parameters():
+        p.requires_grad_(False)
+    return layer_fn, stacked, loss_fn
+
+
+def pp_run(device, root: str, mesh, spec: dict) -> dict:
+    """Phase 27's main path over the ranks of ``mesh`` (``data=2 x
+    stage=2``), or the sequential model in one process (``mesh`` None),
+    which writes what the ranks compare with (``spec["one"]``)."""
+    import torch
+    import torch.distributed as dist
+
+    from multimodal_tta_tpu_torch.kernels.fused_instance_norm import fused_instance_norm
+    from multimodal_tta_tpu_torch.parallel.pipeline import (gather_stages, make_pipeline_train_step, stage_params,
+                                                            vit_forward_pipelined)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = mesh.device if mesh is not None else torch.device(device)
+    cuda = dev.type == "cuda"
+    data = torch.load(spec["data"], weights_only=False)
+    x, labels = torch.from_numpy(data["x"]).to(dev), torch.from_numpy(data["labels"]).to(dev)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def timed(fn) -> float:
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        return (time.perf_counter() - t0) * 1e3
+
+    hops = {"sends": 0, "bytes": 0}
+    send = dist.send
+
+    def counted_send(t, *a, **k):
+        hops["sends"] += 1
+        hops["bytes"] += t.numel() * t.element_size()
+        return send(t, *a, **k)
+
+    dist.send = counted_send
+    launches0 = (fused_instance_norm.launches, fused_instance_norm.backward_launches)
+    out = {"tag": f"rank{mesh.rank}" if mesh is not None else "one"}
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+        live = torch.cuda.memory_allocated(dev)
+    try:
+        model = pp_model(spec, dev)
+        with torch.no_grad():
+            if mesh is None:
+                _, logits = model(x)
+                out["forward_ms"] = [timed(lambda: model(x)) for _ in range(PP_TIMED)]
+            else:
+                _, logits = vit_forward_pipelined(model, x, mesh, n_micro=PP_MICRO)
+                out["forward_hops"] = dict(hops)
+                out["forward_ms"] = [timed(lambda: vit_forward_pipelined(model, x, mesh, n_micro=PP_MICRO))
+                                     for _ in range(PP_TIMED)]
+            h0 = model.embed(x)
+        layer_fn, stacked, loss_fn = pp_trunk(model)
+        if mesh is None:
+            params = stacked
+            opt = torch.optim.SGD(list(params.values()), lr=PP_LR, momentum=PP_MOMENTUM)
+
+            def step(ps, h, t):
+                opt.zero_grad(set_to_none=True)
+                y = h
+                for i in range(model.depth):
+                    y = layer_fn({k: v[i] for k, v in ps.items()}, y)
+                loss = loss_fn(y, t)
+                loss.backward()
+                opt.step()
+                return loss.detach()
+        else:
+            params = stage_params(mesh, stacked)
+            opt = torch.optim.SGD(list(params.values()), lr=PP_LR, momentum=PP_MOMENTUM)
+            step = make_pipeline_train_step(mesh, layer_fn, loss_fn, opt, n_micro=PP_MICRO, remat=True)
+        out["block_bytes"] = sum(v.numel() * v.element_size() for v in params.values())
+        losses = [float(step(params, h0, labels))]
+        grads = {k: v.grad.detach() for k, v in params.items()}
+        if mesh is not None:
+            grads = gather_stages(mesh, grads)
+        losses.append(float(step(params, h0, labels)))
+        out["train_ms"] = [timed(lambda: step(params, h0, labels)) for _ in range(PP_TIMED)]
+        out["losses"] = losses
+        if mesh is None:
+            out["logits"] = logits.cpu()
+            torch.save({"logits": logits.cpu(), "grads": {k: v.cpu() for k, v in grads.items()}, "losses": losses},
+                       spec["one"])
+        else:
+            one = torch.load(spec["one"], map_location=dev, weights_only=False)
+            out["logits_max_rel"] = float((logits - one["logits"]).abs().max() / one["logits"].abs().max())
+            # each stacked leaf against its own largest gradient, but the
+            # attention key bias: softmax is blind to it, so its gradient is rounding
+            per_leaf = {k: float((grads[k] - g).abs().max() / g.abs().max()) for k, g in one["grads"].items()
+                        if not k.endswith("key.bias")}
+            out["grad_rel_leaf"] = max(per_leaf, key=per_leaf.get)
+            out["grad_rel"] = per_leaf[out["grad_rel_leaf"]]
+            out["loss_rel"] = abs(losses[0] - one["losses"][0]) / abs(one["losses"][0])
+            out["second_loss_rel"] = abs(losses[1] - one["losses"][1]) / abs(one["losses"][1])
+        out["launches"] = {"forward": fused_instance_norm.launches - launches0[0],
+                           "backward": fused_instance_norm.backward_launches - launches0[1]}
+    finally:
+        dist.send = send
+    out["peak_gib"] = (torch.cuda.max_memory_allocated(dev) - live) / 2**30 if cuda else 0.0
+    return out
+
+
+def stage_axis_prepare(device, root: str, *, batch: int = PP_BATCH, side: int = PP_SIDE, model=None,
+                       threads: int = 4) -> dict:
+    """Phase 27's data and the sequential ViT in one process, whose logits,
+    losses and stacked gradients are written for the ranks (``spec["one"]``)."""
+    import numpy as np
+    import torch
+
+    spec = {"side": side, "threads": threads, "model": model or {}, "batch": batch}
+    prep = _prepare(root, spec)
+    spec["one"] = os.path.join(root, "one.pt")
+    rng = np.random.RandomState(PP_SEED)
+    classes = dict(PP_VIT, **(model or {}))["num_classes"]
+    torch.save({"x": rng.randn(batch, side, side, 3).astype(np.float32),
+                "labels": rng.randint(0, classes, size=batch).astype(np.int64)}, spec["data"])
+    return _one_process(prep, pp_run, device)
+
+
+def stage_axis_compare(device, prep: dict) -> dict:
+    """Phase 27: the four ranks on a ``data=2 x stage=2`` mesh against the
+    sequential model."""
+    one, ranks, out = _ranks_of(prep, "stage_axis")
+    spec = prep["spec"]
+    batch, side, model = spec["batch"], spec["side"], spec["model"]
+    failed = []
+    depth = dict(PP_VIT, **(model or {}))["depth"]
+    mbl = batch // PP_MICRO // (PP_WORLD // PP_STAGES)
+    tokens = (side // dict(PP_VIT, **(model or {}))["patch"]) ** 2 + 1
+    hop_bytes = mbl * tokens * dict(PP_VIT, **(model or {}))["hidden"] * 4
+    out.update({"logits_max_rel": max(r["logits_max_rel"] for r in ranks),
+                "train": {"losses": ranks[0]["losses"], "one": one["losses"],
+                          "loss_rel": max(r["loss_rel"] for r in ranks),
+                          "second_loss_rel": max(r["second_loss_rel"] for r in ranks),
+                          "grad_rel": max(r["grad_rel"] for r in ranks),
+                          "grad_rel_leaf": max(ranks, key=lambda r: r["grad_rel"])["grad_rel_leaf"]},
+                "bubble": (PP_STAGES - 1) / (PP_MICRO + PP_STAGES - 1), "hop_bytes": hop_bytes})
+    if out["logits_max_rel"] > PP_LOGIT_REL:
+        failed.append(f"the pipelined logits {out['logits_max_rel']} of the largest from the sequential ones "
+                      f"(limit {PP_LOGIT_REL})")
+    tr = out["train"]
+    if tr["loss_rel"] > PP_LOSS_REL or tr["grad_rel"] > PP_GRAD_REL or not tr["losses"][1] < tr["losses"][0]:
+        failed.append(f"training: {tr} (limits {PP_LOSS_REL}, {PP_GRAD_REL}, the second loss below the first)")
+    for r, res in enumerate(ranks):
+        last = r % PP_STAGES == PP_STAGES - 1
+        want = {"sends": 0 if last else PP_MICRO, "bytes": 0 if last else PP_MICRO * hop_bytes}
+        if res["block_bytes"] * PP_STAGES != one["block_bytes"]:
+            failed.append(f"{res['tag']} holds {res['block_bytes']} bytes of blocks (one process {one['block_bytes']}"
+                          f", {depth} blocks)")
+        if res["forward_hops"] != want:
+            failed.append(f"{res['tag']}: hops of a forward {res['forward_hops']}, derived {want}")
+        if any(res["launches"].values()):
+            failed.append(f"{res['tag']}: the ViT launched the norm kernel: {res['launches']}")
+    if failed:
+        raise AssertionError("phase 27: " + "; ".join(failed))
+    out["ranks"] = [{k: res[k] for k in ("tag", "block_bytes", "forward_ms", "train_ms", "forward_hops", "peak_gib")}
+                    for res in ranks]
+    out["one"] = {k: one[k] for k in ("block_bytes", "forward_ms", "train_ms", "peak_gib")}
+    return _finish(prep, out)
+
+
+
+
+def stage_axis_phase(device, root: str, **kw) -> dict:
+    """Phase 27 alone: ``stage_axis_prepare``, four ranks sharing the
+    device (gloo), ``stage_axis_compare``."""
+    prep = stage_axis_prepare(device, root, **kw)
+    spawn_axes(device, [("stage_axis", prep["spec"])], os.path.join(root, "store"))
+    return stage_axis_compare(device, prep)
+
+
+def log_stage_axis(pp: dict, card: str) -> None:
+    log(f"[stage_axis] phase 27: ViT {PP_VIT} on [{PP_BATCH},{PP_SIDE},{PP_SIDE},3] f32 (TF32 off) on {PP_WORLD} ranks "
+        f"(data={PP_WORLD // PP_STAGES} x stage={PP_STAGES}), n_micro={PP_MICRO}, over gloo on one card vs the "
+        f"sequential model: one process {pp['one_s']:.1f} s, ranks {pp['ranks_s']:.1f} s; card {card}")
+    log(f"[stage_axis]   pipelined logits within {pp['logits_max_rel']:.3g} of the largest sequential one (limit "
+        f"{PP_LOGIT_REL}); GPipe SGD steps {json.dumps(pp['train'])}; bubble {pp['bubble']:.3f}; "
+        f"{pp['hop_bytes']} bytes a hop (hops through pinned host memory: gloo); card {card}")
+    for res in pp["ranks"]:
+        log(f"[stage_axis]   {res['tag']}: {res['block_bytes']} bytes of blocks (one process "
+            f"{pp['one']['block_bytes']}); pipelined forward ms {[round(t, 1) for t in res['forward_ms']]} (sequential "
+            f"{[round(t, 1) for t in pp['one']['forward_ms']]}); GPipe step ms {[round(t, 1) for t in res['train_ms']]}"
+            f" (sequential {[round(t, 1) for t in pp['one']['train_ms']]}); hops a forward {res['forward_hops']}; "
+            f"peak {res['peak_gib']:.3f} GiB (one process {pp['one']['peak_gib']:.3f}); card {card}")
+    log(f"[stage_axis] phase 27 took {pp['phase_s']:.1f} s; no kernel on this path (the ViT has LayerNorms only); "
+        f"card {card}")
+
+
+# ---- phases 25-27: the rank side in one spawn ---------------------------------
+# each phase prepares its data and its one-process run here (``*_prepare``),
+# then four ranks spawned once run the phases' rank side in turn, each on its
+# own mesh (``spawn_axes``: a fresh process takes seconds to start on the
+# card's host), and each phase compares them (``*_compare``)
+AXES_WORLD = 4
+
+
+def _prepare(root: str, spec: dict) -> dict:
+    import shutil
+
+    shutil.rmtree(root, ignore_errors=True)
+    spec.update(data=os.path.join(root, "data.pt"), ranks_root=os.path.join(root, "ranks"))
+    os.makedirs(spec["ranks_root"], exist_ok=True)
+    return {"root": root, "spec": spec, "t0": time.perf_counter()}
+
+
+def _one_process(prep: dict, run, device) -> dict:
+    """``run`` in this process (``mesh`` None) with the spec's threads."""
+    import torch
+
+    held = torch.get_num_threads()
+    torch.set_num_threads(prep["spec"]["threads"])
+    try:
+        prep["one"] = run(device, os.path.join(prep["root"], "one"), None, prep["spec"])
+    finally:
+        torch.set_num_threads(held)
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    prep["one_s"] = time.perf_counter() - prep["t0"]
+    return prep
+
+
+def _ranks_of(prep: dict, name: str):
+    """``(one, ranks, out)``: the one-process result, each rank's, and the
+    phase's seconds so far."""
+    import torch
+
+    ranks = [torch.load(os.path.join(prep["spec"]["ranks_root"], f"rank{r}.pt"), weights_only=False)
+             for r in range(AXES_WORLD)]
+    out = {"one_s": prep["one_s"], "ranks_s": max(res["s"] for res in ranks)}
+    log(f"[{name}] one process took {out['one_s']:.1f} s, the ranks {out['ranks_s']:.1f} s")
+    prep["t_compare"] = time.perf_counter()
+    return prep["one"], ranks, out
+
+
+def _finish(prep: dict, out: dict) -> dict:
+    import shutil
+
+    out["phase_s"] = out["one_s"] + out["ranks_s"] + time.perf_counter() - prep["t_compare"]
+    shutil.rmtree(prep["root"], ignore_errors=True)
+    return out
+
+
+def _axes_rank(rank: int, world: int, store: str, device: str, jobs: list) -> None:
+    """One rank of phases 25-27 (those of ``jobs``, in turn): the process
+    group over a ``file://`` store in ``store`` (gloo: the ranks share the
+    card), then ``run_axes_jobs``."""
+    import datetime
+
+    sys.path.insert(0, REPO)
+    import torch
+
+    from multimodal_tta_tpu_torch.parallel.distributed import maybe_initialize_distributed
+
+    torch.set_num_threads(jobs[0][1].get("threads", 4))
+    maybe_initialize_distributed("gloo", f"file://{store}/store", world, rank, device=device,
+                                 timeout=datetime.timedelta(seconds=max(AXES_RUNS[n][2] for n, _ in jobs)))
+    run_axes_jobs(rank, world, device, jobs)
+
+
+def run_axes_jobs(rank: int, world: int, device: str, jobs: list) -> None:
+    """The rank side of ``jobs`` in this rank of an initialised process
+    group of ``world`` ranks: each job's ``data x <axis>`` mesh and run, its
+    result (with its seconds) written to the job's ``ranks_root``."""
+    import torch
+
+    from multimodal_tta_tpu_torch.parallel.mesh import make_mesh
+
+    for name, spec in jobs:
+        run, axis, _ = AXES_RUNS[name]
+        mesh = make_mesh([_rank_device(device)] * world, data=world // 2, **{axis: 2})
+        t0 = time.perf_counter()
+        res = run(device, spec["ranks_root"], mesh, spec)
+        res["s"] = time.perf_counter() - t0
+        torch.save(res, os.path.join(spec["ranks_root"], f"rank{rank}.pt"))
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+
+
+def spawn_axes(device, jobs: list, store: str) -> float:
+    """The rank side of ``jobs`` (``[(phase, spec)]``) in ``AXES_WORLD``
+    ranks spawned once; returns the seconds."""
+    import shutil
+
+    from multimodal_tta_tpu_torch.parallel.distributed import spawn_ranks
+
+    shutil.rmtree(store, ignore_errors=True)
+    os.makedirs(store, exist_ok=True)
+    t0 = time.perf_counter()
+    spawn_ranks(_axes_rank, AXES_WORLD, store, (store, str(device), jobs), sum(AXES_RUNS[n][2] for n, _ in jobs))
+    return time.perf_counter() - t0
+
+
+# phase -> (its rank function, the axis beside data=2 (size 2), its time limit)
+AXES_RUNS = {"model_axis": (tp_run, "model", TP_TIMEOUT_S), "expert_axis": (ep_run, "expert", EP_TIMEOUT_S),
+             "stage_axis": (pp_run, "stage", PP_TIMEOUT_S)}
 
 
 def log(msg: str) -> None:
@@ -6363,6 +7238,7 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     log(f"card: {smi}")
+    start_rank_server()  # imports torch and the port in the background, for phases 22-27's ranks
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
         f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
@@ -7448,8 +8324,8 @@ def main() -> int:
     cli["card"] = smi
     log(f"[cli] phase 14 took {cli_s:.1f} s; launches over the CLI runs {cli_launches}; card {smi}")
     # phase 22's NCCL probe and the torchrun command lines of phases 22-24
-    # need only phase 14's fixture: they run on a lane of their own beside
-    # phases 15-21 (CliLane)
+    # need only phase 14's fixture (or nothing): they run on a lane of their
+    # own beside phases 15-21 (CliLane)
     lane_root = os.path.join(REPO, "build", "chip_smoke_cli_lane")
     shutil.rmtree(lane_root, ignore_errors=True)
     lane = CliLane({"nccl_probe": lambda: nccl_probe(os.path.join(lane_root, "probe")),
@@ -8206,12 +9082,29 @@ def main() -> int:
     log_adapters(ad24, smi)
     ad_launches = ad24["launches"]
 
-    # ---- 25. the model axis: UNETR over data=2 x model=2, four ranks --------
+    # ---- 25-27. the model, expert and stage axes: four ranks, one spawn ------
+    # (each phase's one process first, then the ranks of all three in turn)
+    axes_root = os.path.join(REPO, "build", "chip_smoke_axes")
+    preps = {}
+    for name, prepare in (("model_axis", model_axis_prepare), ("expert_axis", expert_axis_prepare),
+                          ("stage_axis", stage_axis_prepare)):
+        torch.cuda.empty_cache()
+        preps[name] = prepare(dev, os.path.join(axes_root, name))
     torch.cuda.empty_cache()
-    tp25 = model_axis_phase(dev, os.path.join(REPO, "build", "chip_smoke_tp"))
+    axes_s = spawn_axes(dev, [(name, p["spec"]) for name, p in preps.items()], os.path.join(axes_root, "store"))
+    log(f"[axes] the four ranks of phases 25-27 took {axes_s:.1f} s, one start-up for the three")
+    tp25 = model_axis_compare(dev, preps["model_axis"])
     tp25["card"] = smi
     log_model_axis(tp25, smi)
     tp_launches = dict(tp25["launches"], minplus=0)
+    ep26 = expert_axis_compare(dev, preps["expert_axis"])
+    ep26["card"] = smi
+    log_expert_axis(ep26, smi)
+    ep_launches = ep26["launches"]
+    pp27 = stage_axis_compare(dev, preps["stage_axis"])
+    pp27.update(card=smi, axes_s=axes_s)
+    log_stage_axis(pp27, smi)
+    shutil.rmtree(axes_root, ignore_errors=True)
 
 
     def norm_summary(name: str, tot: dict, train_tot: dict, brats_tot: dict, n_launches: dict, err: float,
@@ -8246,7 +9139,8 @@ def main() -> int:
                             "batchnorm": bn_launches["forward"], "serving_artifact": art_launches["forward"],
                             "training_options": opt_launches["forward"], "preprocess": prep_launches["forward"],
                             "data_parallel": dp_launches["forward"], "space_parallel": sp_launches["forward"],
-                            "adapters": ad_launches["forward"], "model_axis": tp_launches["forward"]},
+                            "adapters": ad_launches["forward"], "model_axis": tp_launches["forward"],
+                            "expert_axis": ep_launches["forward"]},
                            max_abs_err, {}, "forward")
     backward_summary = norm_summary(
         "fused_instance_norm_backward", btotals, norm_totals[TRAIN_BATCH][1], brats_norm[1],
@@ -8256,7 +9150,7 @@ def main() -> int:
          "serving_artifact": art_launches["backward"], "training_options": opt_launches["backward"],
          "preprocess": prep_launches["backward"], "data_parallel": dp_launches["backward"],
          "space_parallel": sp_launches["backward"], "adapters": ad_launches["backward"],
-         "model_axis": tp_launches["backward"]}, backward_err,
+         "model_axis": tp_launches["backward"], "expert_axis": ep_launches["backward"]}, backward_err,
         {"note": "the gradient of the TPU kernel's function; dx computed in all 18 timed calls"}, "backward")
     minplus_summary = {
         "name": "minplus",
@@ -8266,13 +9160,13 @@ def main() -> int:
         "launches": sum(eval_launches.values()) + train_launches["minplus"] + cli_launches["minplus"]
         + tta_launches["minplus"] + brats_launches["minplus"] + tr_launches["minplus"] + bn_launches["minplus"]
         + opt_launches["minplus"] + prep_launches["minplus"] + dp_launches["minplus"] + sp_launches["minplus"]
-        + ad_launches["minplus"],
+        + ad_launches["minplus"] + ep_launches["minplus"],
         "launches_by_path": {**eval_launches, "train": train_launches["minplus"], "cli": cli_launches["minplus"],
                              "tta": tta_launches["minplus"], "brats": brats_launches["minplus"],
                              "transformer": tr_launches["minplus"], "batchnorm": bn_launches["minplus"],
                              "training_options": opt_launches["minplus"], "preprocess": prep_launches["minplus"],
                              "data_parallel": dp_launches["minplus"], "space_parallel": sp_launches["minplus"],
-                             "adapters": ad_launches["minplus"]},
+                             "adapters": ad_launches["minplus"], "expert_axis": ep_launches["minplus"]},
         "max_abs_err": minplus_err,
         "ms": edt_ms,
         "plain_ms": edt_plain_ms,
@@ -8295,7 +9189,7 @@ def main() -> int:
                     "eval_metrics": eval_runs, "training": training, "cli": cli, "tta": tta_log, "brats": brats,
                     "transformers": transformers, "batchnorm": batchnorm, "serving_artifact": srv,
                     "training_options": opt20, "preprocess": prep, "data_parallel": dp, "space_parallel": sp23,
-                    "adapters": ad24, "model_axis": tp25},
+                    "adapters": ad24, "model_axis": tp25, "expert_axis": ep26, "stage_axis": pp27},
                    default=str))
     log(json.dumps({"kernels": [summary, backward_summary, minplus_summary] + split_summaries(sp23, smi)}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,

@@ -43,6 +43,7 @@ from .. import DeviceLike, resolve_device
 from ..conf.node import ConfigNode
 from ..parallel.distributed import maybe_initialize_distributed
 from ..parallel.mesh import Mesh, mesh_from_config, select_devices
+from ..parallel.expert import shard_experts
 from ..parallel.tensor import shard_model
 from ..registry import get_dataset_builder, get_evaluation_strategy, get_model, list_dataset_builders
 from ..utils.config import get_config, require_config
@@ -141,6 +142,7 @@ class ExperimentManager:
             load_pretrained(self.model, model_name, str(src_path))
         self.mesh.broadcast_(list(self.model.parameters()) + list(self.model.buffers()))  # rank 0's weights
         shard_model(self.model, self.mesh)  # over a model axis: this rank's heads and MLP features
+        shard_experts(self.model, self.mesh)  # over an expert axis: this rank's experts of each MoE block
         n_params = param_count(self.model)
         self.logger.info(
             f"Model created: {model_name} ({n_params / 1e6:.2f}M params, "

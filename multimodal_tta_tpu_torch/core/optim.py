@@ -17,7 +17,8 @@ optax chain:
   * adafactor — ``add_decayed_weights`` + ``optax.adafactor`` with the
             reference's keys: ``Adafactor`` below, written out (torch's
             own Adafactor is another algorithm: its decay, epsilons and
-            relative step differ)
+            relative step differ); over a model or expert axis it reads
+            each cut tensor whole through sums over the cut's group
 
 ``training.grad_accum = k`` wraps the optimizer in ``MultiSteps``, the
 counterpart of ``optax.MultiSteps``: the running mean of k gradients is
@@ -33,13 +34,14 @@ import math
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 import numpy as np
 
 from ..conf.node import ConfigNode
 from ..models.convert import flax_layouts, flax_path
-from ..parallel.tensor import model_axis
+from ..parallel.tensor import sharded_params
 from ..utils.config import get_config
 
 
@@ -117,6 +119,19 @@ class MultiSteps:
             a.to(device=p.device, dtype=p.dtype).clone() for a, p in zip(acc, self._params())]
 
 
+def flax_cut_dim(perm: Tuple[int, ...], torch_shape, flax_shape, dim: int) -> int:
+    """The axis of a parameter's flax layout (``flax_layouts``: permuted by
+    ``perm``, then reshaped to ``flax_shape``) that holds its torch dim
+    ``dim``: the first flax axis of the group that dim reshapes into (a cut
+    of q/k/v's rows is a cut of their heads)."""
+    permuted = [torch_shape[i] for i in perm]
+    before = math.prod(permuted[:perm.index(dim)])
+    for k in range(len(flax_shape)):
+        if math.prod(flax_shape[:k]) == before:
+            return k
+    raise ValueError(f"[optim] no axis of the flax layout {tuple(flax_shape)} holds dim {dim} of {tuple(torch_shape)}")
+
+
 def factored_dims(shape, min_dim_size_to_factor: int) -> Optional[Tuple[int, int]]:
     """optax's ``_factored_dims``: ``(d1, d0)``, the second-largest and the
     largest axis of ``shape``, or None when fewer than two axes reach
@@ -145,14 +160,23 @@ class Adafactor(torch.optim.Optimizer):
     ``[out, in, k, k, k]`` is flax's ``[k, k, k, in, out]``. The learning
     rate is the param group's, so ``set_learning_rate`` and ``MultiSteps``
     act as they do for Adam. A parameter without a gradient takes a zero
-    one, as every leaf of the reference has a gradient."""
+    one, as every leaf of the reference has a gradient.
+
+    A parameter that this rank holds a share of over a model or expert axis
+    (``cuts``: ``{id: (torch dim, flax axis, ShardAxis)}``) is read as the
+    whole tensor the reference reads: its factored axes are chosen on the
+    whole flax shape, a row or column statistic taken along the cut axis and
+    the block RMS of the clip (and of ``multiply_by_parameter_scale``) sum
+    their squares over the cut's group, and a statistic along another axis
+    (one per expert, say) is this rank's own."""
 
     def __init__(self, params, lr: float, layouts: Dict[int, Tuple[Tuple[int, ...], Tuple[int, ...]]],
                  min_dim_size_to_factor: int = 128, decay_rate: float = 0.8, momentum: Optional[float] = None,
                  clipping_threshold: Optional[float] = 1.0, multiply_by_parameter_scale: bool = False,
-                 eps: float = 1e-30):
+                 eps: float = 1e-30, cuts: Optional[Dict[int, tuple]] = None):
         super().__init__(params, dict(lr=lr, weight_decay=0.0))
         self.layouts = layouts
+        self.cuts = cuts or {}
         self.min_dim_size_to_factor = int(min_dim_size_to_factor)
         self.decay_rate, self.momentum, self.eps = float(decay_rate), momentum, float(eps)
         self.clipping_threshold = clipping_threshold
@@ -171,10 +195,45 @@ class Adafactor(torch.optim.Optimizer):
                     g = g + wd * p
                 self._update(p, g, lr)
 
+    def _dims(self, p: torch.Tensor):
+        """``(dims, c, axis)``: the factored axes of the whole flax shape,
+        and the flax axis cut over ``axis`` (None, None: whole)."""
+        perm, shape = self._layout(p)
+        if id(p) not in self.cuts:
+            return factored_dims(shape, self.min_dim_size_to_factor), None, None
+        _, c, axis = self.cuts[id(p)]
+        whole = list(shape)
+        whole[c] *= axis.size
+        return factored_dims(whole, self.min_dim_size_to_factor), c, axis
+
+    def state_cut(self, p: torch.Tensor, key: str) -> Optional[int]:
+        """The dim of state ``key`` of a cut param ``p`` that is cut over its
+        axis (None: the state is whole or scalar): ``mu`` in the param's
+        layout, ``v`` / ``v_row`` / ``v_col`` in its flax layout."""
+        if key == "mu":
+            return self.cuts[id(p)][0]
+        dims, c, _ = self._dims(p)
+        if key == "v":
+            return c
+        if key not in ("v_row", "v_col") or c == dims[key == "v_row"]:
+            return None  # v_row drops axis d0, v_col drops d1
+        return c - (c > dims[key == "v_row"])
+
+    @staticmethod
+    def _mean(t: torch.Tensor, dim: Optional[int], cut: Optional[int], axis) -> torch.Tensor:
+        """``t.mean(dim)`` (``dim`` None: of every element) of a tensor whose
+        axis ``cut`` holds this rank's share over ``axis``: the squares'
+        sums meet over the group when the mean reads the cut axis."""
+        if cut is None or (dim is not None and dim != cut):
+            return t.mean() if dim is None else t.mean(dim=dim)
+        s = t.sum() if dim is None else t.sum(dim=dim)
+        dist.all_reduce(s, op=dist.ReduceOp.SUM, group=axis.group)
+        return s / ((t.numel() if dim is None else t.shape[dim]) * axis.size)
+
     def _update(self, p: torch.Tensor, g: torch.Tensor, lr: float) -> None:
         perm, shape = self._layout(p)
         gf = g.permute(perm).reshape(shape)
-        dims = factored_dims(shape, self.min_dim_size_to_factor)
+        dims, c, axis = self._dims(p)
         state = self.state[p]
         if not state:
             state["step"] = 0
@@ -197,19 +256,21 @@ class Adafactor(torch.optim.Optimizer):
             u = gf * v ** -0.5
         else:
             d1, d0 = dims
-            v_row = beta * state["v_row"] + (1.0 - beta) * grad_sqr.mean(dim=d0)
-            v_col = beta * state["v_col"] + (1.0 - beta) * grad_sqr.mean(dim=d1)
+            v_row = beta * state["v_row"] + (1.0 - beta) * self._mean(grad_sqr, d0, c, axis)
+            v_col = beta * state["v_col"] + (1.0 - beta) * self._mean(grad_sqr, d1, c, axis)
             state["v_row"], state["v_col"] = v_row, v_col
             reduced_d1 = d1 - 1 if d1 > d0 else d1
-            row_factor = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)) ** -0.5
+            c_row = self.state_cut(p, "v_row") if c is not None else None
+            row_mean = self._mean(v_row, reduced_d1, c_row, axis).unsqueeze(reduced_d1)
+            row_factor = (v_row / row_mean) ** -0.5
             col_factor = v_col ** -0.5
             u = gf * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
         state["step"] += 1
         if self.clipping_threshold is not None:
-            u = u / torch.clamp(torch.sqrt((u * u).mean()) / self.clipping_threshold, min=1.0)
+            u = u / torch.clamp(torch.sqrt(self._mean(u * u, None, c, axis)) / self.clipping_threshold, min=1.0)
         u = u * lr
         if self.multiply_by_parameter_scale:
-            u = u * torch.clamp(torch.sqrt((p * p).mean()), min=1e-3)
+            u = u * torch.clamp(torch.sqrt(self._mean(p * p, None, c, axis)), min=1e-3)
         u = u.reshape(p.permute(perm).shape).permute(*np.argsort(perm).tolist())  # the parameter's layout
         if self.momentum is not None:
             mu = (1.0 - self.momentum) * u + self.momentum * state["mu"]
@@ -252,14 +313,16 @@ def build_optimizer(training_cfg, model: nn.Module, mesh=None) -> Tuple[Optimize
         nesterov = bool(get_config(opt_cfg, "nesterov", False)) and momentum > 0
         cls, kw = torch.optim.SGD, dict(lr=lr, momentum=momentum, dampening=0.0, nesterov=nesterov)
     elif opt_name == "adafactor":
-        if model_axis(model) is not None:
-            raise NotImplementedError(
-                "[optim] Adafactor over a model axis is not ported yet (ROADMAP.md, item 12b-vi): its factored "
-                "moments and its update clipping read whole tensors, and a rank holds a share")
         momentum = get_config(opt_cfg, "momentum", None)
         layouts = flax_layouts(model)
+        cuts = {}  # a param this rank holds a share of: its cut in both layouts, and the axis
+        for n, (dim, axis) in sharded_params(model).items():
+            p = dict(params).get(n)
+            if p is not None:
+                perm, fshape = layouts[n]
+                cuts[id(p)] = (dim, flax_cut_dim(perm, p.shape, fshape, dim), axis)
         cls, kw = Adafactor, dict(
-            lr=lr, layouts={id(p): layouts[n] for n, p in params},
+            lr=lr, layouts={id(p): layouts[n] for n, p in params}, cuts=cuts,
             min_dim_size_to_factor=int(get_config(opt_cfg, "min_dim_size_to_factor", 128)),
             decay_rate=float(get_config(opt_cfg, "decay_rate", 0.8)),
             momentum=None if momentum in (None, 0, 0.0, False, "none") else float(momentum),

@@ -29,8 +29,8 @@ to the logger, one line per batch.
 
 Over ranks (``mesh``, ``parallel/mesh.py``) each rank adapts and predicts
 its rows of every batch and writes its own cases (gzip-9 writes set an
-export's pace); the ranks of a model axis hold the same rows and only its
-first rank writes. The rows of ``predictions.csv`` are gathered and rank 0
+export's pace); the ranks of a model, expert or stage group hold the same
+rows and only the first of them writes (``Mesh.replica_lead``). The rows of ``predictions.csv`` are gathered and rank 0
 writes them in the order one process writes them: the files and the
 manifest are those of one process.
 """
@@ -175,7 +175,7 @@ class PredictionExporter:
         mesh = mesh if mesh is not None and mesh.parallel else None
         if sp.axis_of(mesh) is not None:
             raise sp.unported("the prediction export")
-        writes = mesh is None or mesh.model_rank == 0
+        writes = mesh is None or mesh.replica_lead
         if writes:
             os.makedirs(self.out_dir, exist_ok=True)
         dataset = getattr(data_loader, "dataset", None)

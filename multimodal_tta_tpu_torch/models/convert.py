@@ -129,15 +129,16 @@ def flax_layouts(model: nn.Module) -> Dict[str, Tuple[Tuple[int, ...], Tuple[int
         for cname, c in m.named_children():
             prefix = f"{mname}.{cname}" if mname else cname
             w = getattr(c, "weight", None)
+            if isinstance(c, nn.Linear):  # from the weight: a share cut over a model axis keeps its features
+                n_out, n_in = w.shape
             if isinstance(c, nn.Linear) and heads and cname in _ATTENTION_INPUTS:
-                h = c.in_features
-                out[prefix + ".weight"] = ((1, 0), (h, heads, c.out_features // heads))
+                out[prefix + ".weight"] = ((1, 0), (n_in, heads, n_out // heads))
                 if c.bias is not None:
-                    out[prefix + ".bias"] = ((0,), (heads, c.out_features // heads))
+                    out[prefix + ".bias"] = ((0,), (heads, n_out // heads))
             elif isinstance(c, nn.Linear) and heads and cname == _ATTN_OUT:
-                out[prefix + ".weight"] = ((1, 0), (heads, c.in_features // heads, c.out_features))
+                out[prefix + ".weight"] = ((1, 0), (heads, n_in // heads, n_out))
             elif isinstance(c, nn.Linear):
-                out[prefix + ".weight"] = ((1, 0), (c.in_features, c.out_features))
+                out[prefix + ".weight"] = ((1, 0), (n_in, n_out))
             elif isinstance(c, (nn.Conv2d, nn.Conv3d)):
                 perm = tuple(range(2, w.dim())) + (1, 0)
                 out[prefix + ".weight"] = (perm, tuple(w.shape[i] for i in perm))

@@ -26,12 +26,26 @@ router logits equal to the (zero at init) bias, so every expert ties there.
 row multiplied by ``keep``.
 
 The parameters keep flax's names and layouts (``router``; ``wi`` [E, H, F],
-``bi`` [E, F], ``wo`` [E, F, H], ``bo`` [E, H]). The reference pins the
-expert axis to a mesh axis (``expert_axis``); on one device that is the
-identity, so the key is accepted and nothing is sharded (ROADMAP.md, item
-12b-ii part 3). Over the data axis (``layers.pool_over_ranks``) the load balance's
-``f_e`` and ``P_e`` are means over the ranks' global padded batch, their
-sums summed over the ranks before the product.
+``bi`` [E, F], ``wo`` [E, F, H], ``bo`` [E, H]). Over the data axis
+(``layers.pool_over_ranks``) the load balance's ``f_e`` and ``P_e`` are
+means over the ranks' global padded batch, their sums summed over the data
+group before the product.
+
+Over the expert axis (``expert_axis``; ``parallel/expert.py:shard_experts``
+calls ``shard``) a rank holds ``E / ep`` experts. The ranks of an expert
+group hold the same rows (the reference keeps rows whole over the axis), so
+each computes the router, the ``[B, N, E, C]`` dispatch and combine and the
+load balance whole, runs the three einsums for its own experts, and its
+share of the combine is summed over the expert group (``reduce_from``: the
+sum forward, the identity backward). A rank backpropagates through its own
+experts only, so the expert path's gradients into the tokens and into the
+gates are partial: both enter that path through ``copy_to`` (the identity
+forward, the sum over the group backward), and the router and the input
+then get whole gradients, the same on every rank of the group. The load
+balance reads the gates before that ``copy_to``: it is whole on every rank,
+and its gradient enters once. The sum replaces the reference's all-to-all:
+that pays only when rows are split over the expert group too, and the
+reference does not split them.
 """
 
 from __future__ import annotations
@@ -43,6 +57,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.tensor import copy_to, narrow_param, reduce_from
 from .layers import pooled_sums, sow
 
 EXPERT_AXIS = "expert"
@@ -89,6 +104,8 @@ def dispatch_combine(gates: torch.Tensor, k: int, cap: int):
 class MoEMlp(nn.Module):
     pools_over_ranks = True
     expert_kernels = ("wi", "wo")  # layers.init_flax_defaults: lecun over (in, out)
+    ep = None  # the expert axis this block is cut over (``shard``)
+    first = 0  # the index of this rank's first expert
 
     def __init__(self, hidden: int, mlp_dim: int, num_experts: int, k: int = 1, capacity_factor: float = 1.25,
                  expert_axis: Optional[str] = EXPERT_AXIS, dtype: torch.dtype = torch.float32):
@@ -107,13 +124,21 @@ class MoEMlp(nn.Module):
         self.wo = nn.Parameter(torch.zeros(e, mlp_dim, hidden))
         self.bo = nn.Parameter(torch.zeros(e, hidden))
 
+    def shard(self, axis) -> None:
+        """Keep this rank's block of experts over ``axis`` (dim 0 of ``wi``,
+        ``bi``, ``wo`` and ``bo``)."""
+        block = axis.block(self.num_experts, "num_experts")
+        for name in ("wi", "bi", "wo", "bo"):
+            narrow_param(self, name, 0, block, axis)
+        self.ep, self.first = axis, block.start
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, n, _ = x.shape
         e, k, dt = self.num_experts, self.k, self.dtype
         cap = capacity(n, e, k, self.capacity_factor)
         # the router in f32 whatever the compute dtype
         gates = torch.softmax(F.linear(x.float(), self.router.weight, self.router.bias), dim=-1)
-        dispatch, combine, top_i = dispatch_combine(gates, k, cap)
+        dispatch, combine, top_i = dispatch_combine(copy_to(gates, self.ep), k, cap)
         top1 = F.one_hot(top_i[..., 0], e).to(gates.dtype)
         # the reference's means over the (global, padded) batch: over ranks
         # the sums meet BEFORE the product
@@ -124,12 +149,15 @@ class MoEMlp(nn.Module):
         sow("moe_aux", e * (f_e * p_e).sum())
         sow("moe_dropped", 1.0 - sums[2 * e] / (count * k))
 
-        x = x.to(dt)
+        if self.ep is not None:  # this rank's experts
+            mine = slice(self.first, self.first + self.wi.shape[0])
+            dispatch, combine = dispatch[:, :, mine], combine[:, :, mine]
+        x = copy_to(x.to(dt), self.ep)
         xin = torch.einsum("bnec,bnh->ebch", dispatch.to(dt), x)
         y = torch.einsum("ebch,ehf->ebcf", xin, self.wi.to(dt)) + self.bi.to(dt)[:, None, None, :]
         y = F.gelu(y, approximate="none")
         y = torch.einsum("ebcf,efh->ebch", y, self.wo.to(dt)) + self.bo.to(dt)[:, None, None, :]
-        return torch.einsum("bnec,ebch->bnh", combine.to(dt), y)
+        return reduce_from(torch.einsum("bnec,ebch->bnh", combine.to(dt), y), self.ep)
 
 
 def collect_moe_aux(intermediates: dict) -> list:

@@ -42,7 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import DeviceLike, resolve_device
-from ..parallel.tensor import check_tp_axis, copy_to_model, narrow_param, reduce_from_model
+from ..parallel.tensor import check_tp_axis, copy_to, narrow_param, reduce_from
 from ..registry import register_model
 from ..utils.config import get_config
 from .layers import LayerNorm, check_dropout, linear
@@ -62,7 +62,7 @@ def row_parallel(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype, tp) -> t
     products summed over the model group, then the bias once."""
     if tp is None:
         return linear(x, layer, dtype)
-    y = reduce_from_model(F.linear(x.to(dtype), layer.weight.to(dtype)), tp)
+    y = reduce_from(F.linear(x.to(dtype), layer.weight.to(dtype)), tp)
     return y + layer.bias.to(dtype)
 
 
@@ -116,14 +116,14 @@ class SelfAttention(nn.Module):
         hd = self.query.out_features // self.heads
         rows = slice(heads.start * hd, heads.stop * hd)
         for name in ("query", "key", "value"):
-            narrow_param(self, f"{name}.weight", 0, rows)
-            narrow_param(self, f"{name}.bias", 0, rows)
-        narrow_param(self, "out.weight", 1, rows)
+            narrow_param(self, f"{name}.weight", 0, rows, axis)
+            narrow_param(self, f"{name}.bias", 0, rows, axis)
+        narrow_param(self, "out.weight", 1, rows, axis)
         self.heads, self.tp = heads.stop - heads.start, axis
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, n, _ = x.shape
-        x = copy_to_model(x, self.tp)
+        x = copy_to(x, self.tp)
         q, k, v = (linear(x, getattr(self, p), self.dtype).view(b, n, self.heads, -1)
                    for p in ("query", "key", "value"))
         check_dropout(self, self.dropout)
@@ -160,9 +160,9 @@ class EncoderBlock(nn.Module):
         if self.num_experts > 0:
             return
         feats = axis.block(self.Dense_0.out_features, "mlp_dim")
-        narrow_param(self, "Dense_0.weight", 0, feats)
-        narrow_param(self, "Dense_0.bias", 0, feats)
-        narrow_param(self, "Dense_1.weight", 1, feats)
+        narrow_param(self, "Dense_0.weight", 0, feats, axis)
+        narrow_param(self, "Dense_0.bias", 0, feats, axis)
+        narrow_param(self, "Dense_1.weight", 1, feats, axis)
         self.tp = axis
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -170,7 +170,7 @@ class EncoderBlock(nn.Module):
         if self.num_experts > 0:
             return x + self.moe(self.LayerNorm_1(x))
         # flax nn.gelu(approximate=False); get_act("GELU") is flax's tanh default
-        y = copy_to_model(self.LayerNorm_1(x), self.tp)
+        y = copy_to(self.LayerNorm_1(x), self.tp)
         y = F.gelu(linear(y, self.Dense_0, self.dtype), approximate="none")
         return x + row_parallel(y, self.Dense_1, self.dtype, self.tp)
 
@@ -241,6 +241,14 @@ class ViT(nn.Module):
         return cls(**kw)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        x = self.embed(x)
+        for i in range(self.depth):
+            x = getattr(self, f"block{i}")(x)
+        return self.head_of(x)
+
+    def embed(self, x: torch.Tensor) -> torch.Tensor:
+        """The tokens [B, N, hidden] the first block takes: the patch
+        embedding, the CLS token and the position embedding."""
         b, h, w, c = x.shape
         if h % self.patch or w % self.patch:
             raise ValueError(f"ViT input {h}x{w} not divisible by patch {self.patch}")
@@ -253,9 +261,10 @@ class ViT(nn.Module):
                      stride=pe.stride)
         x = x.flatten(2).transpose(1, 2)  # [B, N, hidden], patches row-major as the reference's reshape
         cls_tok = self.cls_token.to(self.dtype).expand(b, -1, -1)
-        x = torch.cat([cls_tok, x], dim=1) + self.pos_embed.to(self.dtype)
-        for i in range(self.depth):
-            x = getattr(self, f"block{i}")(x)
+        return torch.cat([cls_tok, x], dim=1) + self.pos_embed.to(self.dtype)
+
+    def head_of(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(CLS features, logits)`` in f32 of the last block's tokens."""
         feats = self.final_ln(x)[:, 0].float()
         return feats, F.linear(feats, self.head.weight, self.head.bias)
 

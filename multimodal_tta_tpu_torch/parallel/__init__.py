@@ -1,9 +1,5 @@
-"""Multi-GPU layers of the port (the data, space and model axes;
-``multimodal_tta_tpu/parallel``).
-
-The pipeline schedule (``pipeline_apply``, ``pipeline_value_and_grad``,
-``make_pipeline_train_step``, ``stack_layer_params``,
-``vit_forward_pipelined``) waits for its item (ROADMAP.md, 12b-iii)."""
+"""Multi-GPU layers of the port (the data, space, model, expert and stage
+axes; ``multimodal_tta_tpu/parallel``)."""
 
 from .distributed import is_primary_host, maybe_initialize_distributed
 from .mesh import (
@@ -22,6 +18,13 @@ from .mesh import (
     shard_batch,
     zero1_optimizer,
 )
+from .pipeline import (
+    make_pipeline_train_step,
+    pipeline_apply,
+    pipeline_value_and_grad,
+    stack_layer_params,
+    vit_forward_pipelined,
+)
 
 __all__ = [
     "is_primary_host",
@@ -30,6 +33,11 @@ __all__ = [
     "MODEL_AXIS",
     "SPACE_AXIS",
     "STAGE_AXIS",
+    "pipeline_apply",
+    "pipeline_value_and_grad",
+    "make_pipeline_train_step",
+    "stack_layer_params",
+    "vit_forward_pipelined",
     "Mesh",
     "batch_sharding",
     "data_axis_size",

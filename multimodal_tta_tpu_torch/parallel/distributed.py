@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import datetime
 import os
+import pickle
 import time
 import traceback
 from typing import Any, Callable, Optional, Sequence, Union
@@ -144,11 +145,11 @@ def barrier() -> None:
             dist.barrier()
 
 
-def _rank_entry(fn: Callable, rank: int, world: int, directory: str, args: Sequence) -> None:
-    """A spawned rank: ``fn(rank, world, *args)``; its traceback, if it
-    raises, in ``directory/rank{rank}.err``."""
+def _rank_entry(fn: Callable, rank: int, world: int, directory: str, args: bytes) -> None:
+    """A spawned rank: ``fn(rank, world, *pickle.loads(args))``; its
+    traceback, if it raises, in ``directory/rank{rank}.err``."""
     try:
-        fn(rank, world, *args)
+        fn(rank, world, *pickle.loads(args))
     except BaseException:
         with open(os.path.join(directory, f"rank{rank}.err"), "w", encoding="utf-8") as f:
             f.write(traceback.format_exc())
@@ -159,15 +160,23 @@ def _rank_entry(fn: Callable, rank: int, world: int, directory: str, args: Seque
 
 
 def spawn_ranks(fn: Callable, world: int, directory: str, args: Sequence = (), timeout: float = 600.0) -> None:
-    """Run ``fn(rank, world, *args)`` in ``world`` processes spawned on this
-    host (``fn`` importable by module: a spawned process unpickles it) and
+    """Run ``fn(rank, world, *args)`` in ``world`` processes started on this
+    host (``fn`` importable by module: a started process unpickles it) and
     wait for all of them. The first rank that fails, or the time limit,
     stops every rank, and the call raises with each failed rank's traceback
-    (written to ``directory``)."""
+    (written to ``directory``). Each rank is forked from this process's
+    forkserver, a fresh interpreter that the first call starts with
+    ``fn``'s module imported, or with what the caller preloaded before
+    starting it (``multiprocessing.set_forkserver_preload``): the ranks
+    share one import of torch. ``args`` go by value, pickled here: the
+    forkserver hands a rank fewer than 256 file descriptors, and
+    multiprocessing's pickler would share each CPU tensor through one."""
     import multiprocessing as mp
 
-    ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=_rank_entry, args=(fn, r, world, directory, tuple(args)), daemon=True)
+    ctx = mp.get_context("forkserver")
+    ctx.set_forkserver_preload([fn.__module__])  # read only where this call starts the server
+    payload = pickle.dumps(tuple(args))
+    procs = [ctx.Process(target=_rank_entry, args=(fn, r, world, directory, payload), daemon=True)
              for r in range(world)]
     for p in procs:
         p.start()

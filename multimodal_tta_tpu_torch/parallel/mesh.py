@@ -31,21 +31,33 @@ The space axis (``space > 1``): ``data x space`` ranks, rank ``r`` at
 world carries the gradients; the data group (the ranks of one ``s``)
 gathers the rows of a per-sample result (``gather_rows``).
 
-The model axis (``model > 1``): ``data x model`` ranks in the reference's
-axis order, rank ``r`` at ``(d, m) = divmod(r, model)``. The model group
-(the ranks of one ``d``) holds one replica of the model, each rank its
-share of the transformer's heads and MLP features (``parallel/tensor.py``,
-Megatron-style, the counterpart of ``tp_axis``); the data group (the ranks
-of one ``m``) carries the gradients, the batch sums and the rows of a
-per-sample result: ``sum``, ``sum_flat``, ``sum_with_grad`` and
-``gather_rows`` run over it, and a model rank's rows are its data rank's.
+The model, expert and stage axes (``model``, ``expert``, ``stage`` > 1)
+follow the reference's axis order ``data, space, model, expert, stage``:
+rank ``r`` sits at ``(d, s, m, e, t)``, the stage index varying fastest.
+The group of an axis is the ranks that share every other index
+(``model_group``, ``expert_group``, ``stage_group``; ``data_group``, the
+ranks of one model, expert and stage index). A rank's rows are its data
+rank's (the reference's ``batch_sharding`` is ``P(data)``), so the ranks of
+a model, expert or stage group hold the same rows:
+
+  * the model group holds one replica of a transformer, each rank its share
+    of the heads and MLP features (``parallel/tensor.py``, Megatron-style);
+  * the expert group holds one replica of a MoE model, each rank ``E/ep``
+    experts of every MoE block (``parallel/expert.py``, ``models/moe.py``);
+  * the stage group runs the layer groups of a pipelined trunk
+    (``parallel/pipeline.py``); every other path computes its data rank's
+    step whole on each stage rank, as the reference's jit does with a stage
+    axis its program does not name.
+
+``sum``, ``sum_flat``, ``sum_with_grad``, ``gather_rows`` and ZeRO-1 run
+over the data group.
 
 What has no counterpart: ``ambient_axes``, ``constrain`` and
 ``constrain_activations`` pin XLA layouts inside one program; here
-``parallel/space.py`` and ``parallel/tensor.py`` write the collectives they
-imply. The ``expert`` and ``stage`` axes are not ported yet (ROADMAP.md
-items 12b-ii part 3 and 12b-iii), nor a space axis beside a model axis
-(item 12b-v, with the sequence axis): a mesh that asks for one raises.
+``parallel/space.py``, ``parallel/tensor.py`` and ``parallel/expert.py``
+write the collectives they imply. A space axis beside a model, expert or
+stage axis is not ported yet (ROADMAP.md, item 12b-v): a mesh that asks
+for one raises.
 """
 
 from __future__ import annotations
@@ -69,88 +81,129 @@ MODEL_AXIS = "model"
 STAGE_AXIS = "stage"
 EXPERT_AXIS = "expert"
 
-# the ROADMAP item that ports each axis
-_UNPORTED_AXES = {EXPERT_AXIS: "12b-ii part 3", STAGE_AXIS: "12b-iii"}
+AXES = (DATA_AXIS, SPACE_AXIS, MODEL_AXIS, EXPERT_AXIS, STAGE_AXIS)  # the reference's order, stage last
 
 
 class Mesh:
-    """The data, space and model axes over ``data * space * model`` ranks:
-    this process's world ``rank``, its ``device`` and the process ``group``
-    of its sums (None: the default group, or one process). With one rank
-    every collective is the identity."""
+    """The data, space, model, expert and stage axes over their product of
+    ranks: this process's world ``rank``, its ``device`` and the process
+    ``group`` of its sums (None: the default group, or one process). With
+    one rank every collective is the identity."""
 
     space = 1  # the space axis (class default: a mesh of the data axis alone)
     model = 1  # the model axis
+    expert = 1  # the expert axis
+    stage = 1  # the stage axis
     space_group = None  # the ranks of this rank's data index (None: the world, or no space axis)
-    data_group = None  # the ranks of this rank's space / model index (None: the world, or no data axis)
-    model_group = None  # the ranks of this rank's data index over a model axis
+    data_group = None  # the ranks that share this rank's other indices (None: the world, or no data axis)
+    model_group = None  # the ranks that share every index but the model index
+    expert_group = None  # the ranks that share every index but the expert index
+    stage_group = None  # the ranks that share every index but the stage index
 
     def __init__(self, device: torch.device, data: int = 1, rank: int = 0, group=None, space: int = 1,
-                 model: int = 1):
+                 model: int = 1, expert: int = 1, stage: int = 1):
         self.device = device
-        self.data = int(data)
-        self.space = int(space)
-        self.model = int(model)
+        self.data, self.space, self.model = int(data), int(space), int(model)
+        self.expert, self.stage = int(expert), int(stage)
         self.rank = int(rank)
         self.group = group
         if not 0 <= self.rank < self.size:
-            raise ValueError(f"[mesh] rank {self.rank} outside a mesh of {self.data}x{self.space}x{self.model}")
-        if self.space > 1 and self.model > 1:
+            raise ValueError(f"[mesh] rank {self.rank} outside a mesh of "
+                             f"{'x'.join(str(n) for n in self.sizes.values())}")
+        beside = [f"{a}={n}" for a, n in self.sizes.items() if a in (MODEL_AXIS, EXPERT_AXIS, STAGE_AXIS) and n > 1]
+        if self.space > 1 and beside:
             raise NotImplementedError(
-                f"[mesh] a space axis ({SPACE_AXIS}={self.space}) beside a model axis ({MODEL_AXIS}="
-                f"{self.model}) is not ported yet (ROADMAP.md, item 12b-v: the transformers over the "
-                "space axis)")
+                f"[mesh] a space axis ({SPACE_AXIS}={self.space}) beside a {beside[0].split('=')[0]} axis "
+                f"({', '.join(beside)}) is not ported yet (ROADMAP.md, item 12b-v: the transformers, the "
+                "experts and the pipeline over the space axis)")
         if self.size > 1 and not dist.is_initialized():
             raise RuntimeError("[mesh] a data axis over several ranks needs a process group")
-        if self.model > 1:
+        if self.size > 1 and self.space * self.data < self.size:
             # every rank creates every group, in one order (torch.distributed's rule)
-            for d in range(self.data):
-                g = dist.new_group([d * self.model + m for m in range(self.model)])
-                if d == self.data_rank:
-                    self.model_group = g
-            for m in range(self.model):
-                g = dist.new_group([d * self.model + m for d in range(self.data)])
-                if m == self.model_rank:
-                    self.data_group = g
+            for axis in (MODEL_AXIS, EXPERT_AXIS, STAGE_AXIS, DATA_AXIS):
+                if axis == DATA_AXIS or self.sizes[axis] > 1:
+                    setattr(self, f"{axis}_group", self._new_groups(axis))
             self.group = self.data_group  # the sums run over the data group
-        if self.space > 1 and self.data > 1:
-            # every rank creates every group, in one order (torch.distributed's rule)
-            for d in range(self.data):
-                g = dist.new_group([d * self.space + s for s in range(self.space)])
-                if d == self.data_rank:
-                    self.space_group = g
-            for s in range(self.space):
-                g = dist.new_group([d * self.space + s for d in range(self.data)])
-                if s == self.space_rank:
-                    self.data_group = g
+        elif self.space > 1 and self.data > 1:
+            self.space_group = self._new_groups(SPACE_AXIS)
+            self.data_group = self._new_groups(DATA_AXIS)
+
+    def _new_groups(self, axis: str):
+        """Create the group of ``axis`` for every value of the other indices
+        (all ranks, one order); returns this rank's."""
+        sizes = list(self.sizes.values())
+        i = AXES.index(axis)
+        stride = int(np.prod(sizes[i + 1:]))
+        mine = None
+        for base in range(self.size):
+            if (base // stride) % sizes[i]:
+                continue  # ``base`` has a nonzero index on ``axis``: its group was made at index 0
+            members = [base + k * stride for k in range(sizes[i])]
+            g = dist.new_group(members)
+            if self.rank in members:
+                mine = g
+        return mine
+
+    @property
+    def sizes(self) -> Dict[str, int]:
+        """Every axis's size, in the reference's order."""
+        return dict(zip(AXES, (self.data, self.space, self.model, self.expert, self.stage)))
 
     @property
     def shape(self) -> Dict[str, int]:
-        out = {DATA_AXIS: self.data, SPACE_AXIS: self.space}
-        if self.model > 1:
-            out[MODEL_AXIS] = self.model
-        return out
+        """The axes the reference's mesh materializes: data and space, and
+        each of model, expert and stage above 1."""
+        return {a: n for a, n in self.sizes.items() if a in (DATA_AXIS, SPACE_AXIS) or n > 1}
 
     @property
     def size(self) -> int:
-        return self.data * self.space * self.model
+        return self.data * self.space * self.model * self.expert * self.stage
 
     @property
     def parallel(self) -> bool:
         """More than one rank."""
         return self.size > 1
 
+    def _index(self, axis: str) -> int:
+        sizes = list(self.sizes.values())
+        i = AXES.index(axis)
+        return (self.rank // int(np.prod(sizes[i + 1:]))) % sizes[i]
+
     @property
     def data_rank(self) -> int:
-        return self.rank // (self.space * self.model)
+        return self._index(DATA_AXIS)
 
     @property
     def space_rank(self) -> int:
-        return (self.rank // self.model) % self.space
+        return self._index(SPACE_AXIS)
 
     @property
     def model_rank(self) -> int:
-        return self.rank % self.model
+        return self._index(MODEL_AXIS)
+
+    @property
+    def expert_rank(self) -> int:
+        return self._index(EXPERT_AXIS)
+
+    @property
+    def stage_rank(self) -> int:
+        return self._index(STAGE_AXIS)
+
+    @property
+    def replica_lead(self) -> bool:
+        """The first rank of the ranks that hold this rank's rows and depth
+        (model, expert and stage index 0): the one that writes them."""
+        return self.model_rank == self.expert_rank == self.stage_rank == 0
+
+    def global_rank(self, **index: int) -> int:
+        """The world rank of this rank with the given axes' indices changed
+        (``global_rank(stage=s + 1)``: the next stage's)."""
+        sizes = list(self.sizes.values())
+        idx = [index.get(a, self._index(a)) for a in AXES]
+        r = 0
+        for i, n in zip(idx, sizes):
+            r = r * n + i
+        return r
 
     @property
     def sums(self) -> bool:
@@ -187,8 +240,8 @@ class Mesh:
 
     # -- collectives (the identity on one rank) -----------------------------
     def sum(self, t: torch.Tensor) -> torch.Tensor:
-        """``t`` summed over the ranks (over a model axis: its data group),
-        in place (no gradient)."""
+        """``t`` summed over the ranks (beside a model, expert or stage axis:
+        over the data group), in place (no gradient)."""
         if self.sums:
             dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
         return t
@@ -217,23 +270,23 @@ class Mesh:
 
     def gather_rows(self, t: torch.Tensor) -> torch.Tensor:
         """Every data rank's ``t`` (equal shapes), concatenated on dim 0 in
-        rank order: the global batch of a per-row tensor. Over a space axis
-        the data group gathers: its space ranks hold the same rows."""
+        rank order: the global batch of a per-row tensor. The data group
+        gathers: the ranks of its other axes hold the same rows."""
         if self.data == 1:
             return t
         return all_gather_cat(t, 0, self.data, self.data_group if self.data_group is not None else self.group)
 
     def broadcast_(self, tensors: Sequence[torch.Tensor]) -> None:
         """Rank 0's values into ``tensors`` on every rank of the world (a
-        whole model, before a model axis cuts each rank's share)."""
+        whole model, before a model or expert axis cuts each rank's share)."""
         if self.parallel:
             with torch.no_grad():
                 for t in tensors:
                     dist.broadcast(t, src=0)
 
     def __repr__(self) -> str:
-        return (f"Mesh(data={self.data}, space={self.space}, model={self.model}, rank={self.rank}, "
-                f"device={self.device})")
+        axes = ", ".join(f"{a}={n}" for a, n in self.sizes.items())
+        return f"Mesh({axes}, rank={self.rank}, device={self.device})"
 
 
 def data_axis_size(mesh: Optional[Mesh]) -> int:
@@ -284,9 +337,7 @@ def select_devices(training_cfg=None, device: DeviceLike = "cuda") -> List[torch
 def axis_sizes(n: int, *, data: int = -1, space: int = 1, model: int = 1, stage: int = 1,
                expert: int = 1) -> int:
     """The data axis of a mesh over ``n`` ranks (``data=-1``: every rank
-    the other axes leave), with the reference's checks and messages; an
-    expert or stage axis above 1 raises ``NotImplementedError``, naming its
-    ROADMAP item."""
+    the other axes leave), with the reference's checks and messages."""
     space, model, stage, expert = (max(1, int(a)) for a in (space, model, stage, expert))
     per_data = space * model * stage * expert
     if n % per_data != 0:
@@ -300,11 +351,6 @@ def axis_sizes(n: int, *, data: int = -1, space: int = 1, model: int = 1, stage:
         raise ValueError(
             f"mesh {data}x{space}x{model}x{expert}x{stage} != {n} devices"
         )
-    for axis, size in ((EXPERT_AXIS, expert), (STAGE_AXIS, stage)):
-        if size > 1:
-            raise NotImplementedError(
-                f"[mesh] the {axis} axis ({axis}={size}) is not ported yet "
-                f"(ROADMAP.md, item {_UNPORTED_AXES[axis]}); the data, space and model axes run over ranks")
     return int(data)
 
 
@@ -320,10 +366,9 @@ def make_mesh(
     """The mesh of this process over the default process group (one rank
     without one), on this rank's device of ``devices`` (by local rank;
     default: ``select_devices()``). ``data=-1`` takes every rank that
-    ``space`` and ``model`` leave. The reference's size checks and
-    messages; an expert or stage axis above 1 raises
-    ``NotImplementedError``, and so does a space axis beside a model
-    axis."""
+    the other axes leave. The reference's size checks and messages; a space
+    axis beside a model, expert or stage axis raises
+    ``NotImplementedError``."""
     n = dist.get_world_size() if dist.is_initialized() else 1
     rank = dist.get_rank() if dist.is_initialized() else 0
     data = axis_sizes(n, data=data, space=space, model=model, stage=stage, expert=expert)
@@ -331,7 +376,8 @@ def make_mesh(
     device = devices[local_rank()] if len(devices) > 1 else devices[0]
     if device.type == "cuda":
         torch.cuda.set_device(device)
-    return Mesh(device, data=data, rank=rank, group=None, space=max(1, int(space)), model=max(1, int(model)))
+    return Mesh(device, data=data, rank=rank, group=None, space=max(1, int(space)), model=max(1, int(model)),
+                expert=max(1, int(expert)), stage=max(1, int(stage)))
 
 
 def mesh_from_config(config, device: DeviceLike = "cuda") -> Mesh:
@@ -432,6 +478,7 @@ __all__ = [
     "SPACE_AXIS",
     "STAGE_AXIS",
     "EXPERT_AXIS",
+    "AXES",
     "Mesh",
     "Layout",
     "axis_sizes",

@@ -1,5 +1,8 @@
 """The model axis over ranks: Megatron-style tensor parallelism (the
-counterpart of the reference's ``tp_axis``, ``multimodal_tta_tpu/models/vit.py``).
+counterpart of the reference's ``tp_axis``, ``multimodal_tta_tpu/models/vit.py``),
+and the pieces every axis that cuts a tensor shares (``ShardAxis``, the two
+collectives, ``narrow_param``, the whole / local trees; the expert axis of
+``parallel/expert.py`` uses them over its own group).
 
 The reference names the mesh axis and XLA shards the heads of
 ``SelfAttention`` and the MLP features of ``EncoderBlock`` over it. Here
@@ -7,10 +10,10 @@ each rank of a model group (``Mesh.model_group``, the ranks of one data
 index) holds its share of those weights, and the modules call the two
 collectives of Megatron-LM themselves:
 
-  * ``copy_to_model`` ("f"): the identity forward; the backward sums the
+  * ``copy_to`` ("f"): the identity forward; the backward sums the
     input's gradient over the model group, since each rank's heads or
     features saw the whole input;
-  * ``reduce_from_model`` ("g"): the forward sums the row-parallel
+  * ``reduce_from`` ("g"): the forward sums the row-parallel
     products over the model group; the backward is the identity.
 
 A sharded pair is column-parallel then row-parallel: q/k/v take the rows
@@ -26,8 +29,9 @@ The model is built whole from its seed on every rank and ``shard_model``
 cuts each rank's share, so the ranks together hold the weights one process
 holds. A checkpoint holds the whole tree: ``whole_state_dict`` gathers the
 shares and ``local_tensors`` cuts a whole tree to this rank's share, so a
-checkpoint of a run over a model axis loads into one process and the
-reverse.
+checkpoint of a run over a model (or expert) axis loads into one process
+and the reverse. Each module that holds a share records it in ``shards``
+(``{param: (dim, axis)}``), which ``sharded_params`` reads.
 """
 
 from __future__ import annotations
@@ -43,27 +47,29 @@ MODEL_AXIS = "model"
 
 
 @dataclass(frozen=True)
-class ModelAxis:
-    """This rank's place on the model axis: its ``size``, ``rank`` and the
-    model ``group``."""
+class ShardAxis:
+    """This rank's place on an axis that cuts tensors (the model axis, the
+    expert axis): its ``size``, ``rank``, the ``group`` of the ranks that
+    hold the other shares, and the axis ``name``."""
 
     size: int
     rank: int
     group: Any = None
+    name: str = MODEL_AXIS
 
     def block(self, n: int, what: str) -> slice:
-        """This rank's block of ``n`` heads or features."""
+        """This rank's block of ``n`` heads, features or experts."""
         if n % self.size:
-            raise ValueError(f"[tensor] {what}={n} does not split over a model axis of {self.size}")
+            raise ValueError(f"[tensor] {what}={n} does not split over a {self.name} axis of {self.size}")
         k = n // self.size
         return slice(self.rank * k, (self.rank + 1) * k)
 
 
-def axis_of(mesh) -> Optional[ModelAxis]:
-    """The model axis of ``mesh`` (None without one, or of size 1)."""
-    if mesh is None or getattr(mesh, "model", 1) <= 1:
+def axis_of(mesh, name: str = MODEL_AXIS) -> Optional[ShardAxis]:
+    """The ``name`` axis of ``mesh`` (None without one, or of size 1)."""
+    if mesh is None or getattr(mesh, name, 1) <= 1:
         return None
-    return ModelAxis(mesh.model, mesh.model_rank, mesh.model_group)
+    return ShardAxis(getattr(mesh, name), getattr(mesh, f"{name}_rank"), getattr(mesh, f"{name}_group"), name)
 
 
 def check_tp_axis(tp_axis: Optional[str]) -> Optional[str]:
@@ -99,25 +105,26 @@ class _Reduce(torch.autograd.Function):
         return g, None
 
 
-def copy_to_model(x: torch.Tensor, axis: Optional[ModelAxis]) -> torch.Tensor:
-    """Megatron's "f": ``x`` as it is; its gradient summed over the model group."""
+def copy_to(x: torch.Tensor, axis: Optional[ShardAxis]) -> torch.Tensor:
+    """Megatron's "f": ``x`` as it is; its gradient summed over the axis's group."""
     return x if axis is None else _Copy.apply(x, axis)
 
 
-def reduce_from_model(x: torch.Tensor, axis: Optional[ModelAxis]) -> torch.Tensor:
-    """Megatron's "g": ``x`` summed over the model group; its gradient as it is."""
+def reduce_from(x: torch.Tensor, axis: Optional[ShardAxis]) -> torch.Tensor:
+    """Megatron's "g": ``x`` summed over the axis's group; its gradient as it is."""
     return x if axis is None else _Reduce.apply(x, axis)
 
 
-def narrow_param(module: nn.Module, name: str, dim: int, block: slice) -> None:
+def narrow_param(module: nn.Module, name: str, dim: int, block: slice, axis: ShardAxis) -> None:
     """Replace ``module``'s param ``name`` (dotted, under ``module``) by its
-    ``block`` along ``dim``, and record the cut in ``module.tp_shards``."""
+    ``block`` along ``dim`` over ``axis``, and record the cut in
+    ``module.shards``."""
     owner_name, _, pname = name.rpartition(".")
     owner = module.get_submodule(owner_name) if owner_name else module
     p = getattr(owner, pname)
     piece = p.detach().narrow(dim, block.start, block.stop - block.start).clone()
     setattr(owner, pname, nn.Parameter(piece, requires_grad=p.requires_grad))
-    module.tp_shards = dict(getattr(module, "tp_shards", {}), **{name: dim})
+    module.shards = dict(getattr(module, "shards", {}), **{name: (dim, axis)})
 
 
 def shard_model(model: nn.Module, mesh) -> int:
@@ -138,31 +145,25 @@ def shard_model(model: nn.Module, mesh) -> int:
     return len(mods)
 
 
-def sharded_params(model: nn.Module) -> Dict[str, Tuple[int, ModelAxis]]:
-    """``{param name: (dim, axis)}`` of every param ``model`` holds a share of."""
+def sharded_params(model: nn.Module) -> Dict[str, Tuple[int, ShardAxis]]:
+    """``{param name: (dim, axis)}`` of every param ``model`` holds a share of
+    (over the model or the expert axis)."""
     out = {}
     for mname, m in model.named_modules():
-        for name, dim in getattr(m, "tp_shards", {}).items():
-            out[f"{mname}.{name}" if mname else name] = (dim, m.tp)
+        for name, cut in getattr(m, "shards", {}).items():
+            out[f"{mname}.{name}" if mname else name] = cut
     return out
 
 
-def model_axis(model: nn.Module) -> Optional[ModelAxis]:
-    """The model axis ``model`` is sharded over (None: whole)."""
-    for _, (_, axis) in sharded_params(model).items():
-        return axis
-    return None
-
-
-def gather_share(t: torch.Tensor, dim: int, axis: ModelAxis) -> torch.Tensor:
-    """Every model rank's share of a tensor concatenated along ``dim``."""
+def gather_share(t: torch.Tensor, dim: int, axis: ShardAxis) -> torch.Tensor:
+    """Every share of a tensor over ``axis`` concatenated along ``dim``."""
     t = t.detach().contiguous()
     parts = [torch.empty_like(t) for _ in range(axis.size)]
     dist.all_gather(parts, t, group=axis.group)
     return torch.cat(parts, dim=dim)
 
 
-def cut_share(t: torch.Tensor, dim: int, axis: ModelAxis) -> torch.Tensor:
+def cut_share(t: torch.Tensor, dim: int, axis: ShardAxis) -> torch.Tensor:
     """This rank's share along ``dim`` of a whole tensor."""
     s = axis.block(t.shape[dim], "a sharded dim")
     return t.narrow(dim, s.start, s.stop - s.start)
@@ -170,8 +171,8 @@ def cut_share(t: torch.Tensor, dim: int, axis: ModelAxis) -> torch.Tensor:
 
 def whole_tensors(model: nn.Module, tensors: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """``tensors`` by param name (a state dict, an EMA shadow) with every
-    sharded param's share gathered over its model group (every rank of the
-    group takes part); the others as they are."""
+    sharded param's share gathered over its group (every rank of the group
+    takes part); the others as they are."""
     shards = sharded_params(model)
     return {k: gather_share(v, *shards[k]) if k in shards else v for k, v in tensors.items()}
 
@@ -188,44 +189,59 @@ def whole_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
     return whole_tensors(model, model.state_dict())
 
 
-def _param_index(model: nn.Module, optimizer) -> Dict[int, str]:
-    """``{index in the optimizer's state dict: param name}``."""
+def _param_index(model: nn.Module, optimizer) -> Dict[int, Tuple[str, torch.Tensor]]:
+    """``{index in the optimizer's state dict: (param name, param)}``."""
     names = {id(p): n for n, p in model.named_parameters()}
     params = [p for g in optimizer.param_groups for p in g["params"]]
-    return {i: names[id(p)] for i, p in enumerate(params)}
+    return {i: (names[id(p)], p) for i, p in enumerate(params)}
+
+
+def _inner(optimizer):
+    """The update rule under ``MultiSteps`` and ZeRO-1's wrapper."""
+    optimizer = getattr(optimizer, "optimizer", optimizer)
+    return getattr(optimizer, "optim", optimizer)
 
 
 def optimizer_state(model: nn.Module, optimizer, sd: Optional[dict], cut: bool) -> Optional[dict]:
     """An optimizer state dict with the moments of each sharded param
-    gathered whole (``cut=False``; every rank of the model group takes
-    part) or cut to this rank's share (``cut=True``); the others, and the
-    scalars, as they are. Without a sharded param: ``sd``."""
+    gathered whole (``cut=False``; every rank of its group takes part) or
+    cut to this rank's share (``cut=True``); the others, and the scalars, as
+    they are. A moment is cut where its param is, unless the update rule
+    says otherwise (``state_cut``: Adafactor's factored statistics in the
+    flax layout). Without a sharded param: ``sd``."""
     shards = sharded_params(model)
     if not shards or sd is None:
         return sd
     index = _param_index(model, optimizer)
+    state_cut = getattr(_inner(optimizer), "state_cut", None)
     state = {}
     for i, entry in sd["state"].items():
-        name = index.get(int(i))
+        name, p = index.get(int(i), (None, None))
         if name not in shards:
             state[i] = entry
             continue
         dim, axis = shards[name]
-        state[i] = {k: (cut_share(v, dim, axis).clone() if cut else gather_share(v, dim, axis))
-                    if isinstance(v, torch.Tensor) and v.dim() > dim else v for k, v in entry.items()}
+        state[i] = {}
+        for k, v in entry.items():
+            d = state_cut(p, k) if state_cut is not None else dim
+            if isinstance(v, torch.Tensor) and d is not None and v.dim() > d:
+                v = cut_share(v, d, axis).clone() if cut else gather_share(v, d, axis)
+            state[i][k] = v
     return dict(sd, state=state)
 
 
 __all__ = [
     "MODEL_AXIS",
-    "ModelAxis",
+    "ShardAxis",
     "axis_of",
     "check_tp_axis",
-    "copy_to_model",
+    "copy_to",
+    "cut_share",
+    "gather_share",
     "local_tensors",
-    "model_axis",
+    "narrow_param",
     "optimizer_state",
-    "reduce_from_model",
+    "reduce_from",
     "shard_model",
     "sharded_params",
     "whole_state_dict",

@@ -4,10 +4,9 @@ import.
   - every registry of ``multimodal_tta_tpu/registry.py`` holds the same names
     in the port's, every subpackage's ``__all__`` (``ops.__all__`` first among
     them) has its counterpart, and every module file has one (``pallas/`` is
-    the port's ``kernels/``); ``parallel/pipeline.py`` (the GPipe schedule,
-    item 12b-iii of ROADMAP.md) and its five names in ``parallel.__all__``
-    are the only exceptions, with ``utils/jax_setup.py``, which sets JAX's
-    own platform environment, which the port has none of;
+    the port's ``kernels/``); ``utils/jax_setup.py``, which sets JAX's own
+    platform environment, which the port has none of, is the only
+    exception;
   - no module of ``multimodal_tta_tpu_torch/``, no ``scripts/torch_*.py``,
     not ``chip_smoke.py`` and not the ranks' helper
     ``tests/_torch_dp_worker.py`` imports ``jax``, ``flax``, ``optax`` or the
@@ -31,12 +30,7 @@ import multimodal_tta_tpu_torch.registry as port_registry
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "flax", "optax", "multimodal_tta_tpu")
 SUBPACKAGES = ("conf", "core", "data", "evaluation", "models", "ops", "parallel", "serving", "tta", "utils")
-NOT_PORTED = {  # module of the JAX package -> why the port has no counterpart
-    "parallel/pipeline.py": "item 12b-iii", "utils/jax_setup.py": "JAX's platform environment",
-}
-# names of a subpackage's __all__ that wait for their item
-NOT_EXPORTED = {"parallel": {"pipeline_apply", "pipeline_value_and_grad", "make_pipeline_train_step",
-                             "stack_layer_params", "vit_forward_pipelined"}}  # item 12b-iii
+NOT_PORTED = {"utils/jax_setup.py": "JAX's platform environment"}  # module of the JAX package -> why
 
 
 @pytest.mark.parametrize("kind", sorted(jax_registry._KINDS.values()))
@@ -52,9 +46,8 @@ def test_registries_hold_the_same_names(kind):
 def test_subpackages_export_the_same_names(pkg):
     want = set(importlib.import_module(f"multimodal_tta_tpu.{pkg}").__all__)
     port = importlib.import_module(f"multimodal_tta_tpu_torch.{pkg}")
-    missing = sorted(want - set(getattr(port, "__all__", ())) - NOT_EXPORTED.get(pkg, set()))
+    missing = sorted(want - set(getattr(port, "__all__", ())))
     assert not missing, f"multimodal_tta_tpu_torch.{pkg} lacks {missing}"
-    assert NOT_EXPORTED.get(pkg, set()) <= want - set(port.__all__)
     assert all(hasattr(port, name) for name in port.__all__)
 
 
@@ -69,7 +62,6 @@ def test_every_module_has_its_counterpart():
         if not os.path.isfile(os.path.join(port_root, rel.replace("pallas/", "kernels/"))):
             missing.append(rel)
     assert not missing
-    assert not os.path.exists(os.path.join(port_root, "parallel", "pipeline.py")), "item 12b-iii: update NOT_PORTED"
 
 
 def _imports(path):

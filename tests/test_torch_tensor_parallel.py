@@ -45,7 +45,7 @@ from multimodal_tta_tpu_torch.models.convert import from_flax
 from multimodal_tta_tpu_torch.models.unetr import UNETR
 from multimodal_tta_tpu_torch.models.vit import SelfAttention, ViT
 from multimodal_tta_tpu_torch.parallel import mesh as pmesh
-from multimodal_tta_tpu_torch.parallel.tensor import ModelAxis
+from multimodal_tta_tpu_torch.parallel.tensor import ShardAxis
 
 from _torch_port import SGD, assert_adapted_close, assert_preds_close, jax_state, random_flax_params
 from _torch_port import trainer_config, tta_config
@@ -364,8 +364,8 @@ def test_tent_over_the_model_axis_matches_the_reference(runs):
 def test_what_the_model_axis_refuses():
     """The sequence axis and a space axis beside a model axis raise, naming
     item 12b-v; a ``tp_axis`` other than ``model`` and a head count that
-    does not split raise ``ValueError``; Adafactor over a model axis raises,
-    naming item 12b-vi."""
+    does not split raise ``ValueError``; Adafactor builds over a model axis
+    (its steps against one process: ``tests/test_torch_expert_parallel.py``)."""
     with pytest.raises(NotImplementedError, match="seq_shard_axis.*item 12b-v"):
         UNETR(**UNETR_KW, seq_shard_axis="space", device="cpu")
     with pytest.raises(NotImplementedError, match="seq_shard_axis.*item 12b-v"):
@@ -375,13 +375,14 @@ def test_what_the_model_axis_refuses():
     with pytest.raises(ValueError, match="shard over the 'model' axis"):
         SelfAttention(32, 4, tp_axis="data")
     with pytest.raises(ValueError, match="heads=4 does not split over a model axis of 3"):
-        SelfAttention(32, 4, tp_axis="model").shard(ModelAxis(3, 0))
+        SelfAttention(32, 4, tp_axis="model").shard(ShardAxis(3, 0))
     model = UNETR(**UNETR_KW, tp_axis="model", device="cpu")
-    model.block0.shard(ModelAxis(2, 1))
-    model.block0.MultiHeadDotProductAttention_0.shard(ModelAxis(2, 1))
+    model.block0.shard(ShardAxis(2, 1))
+    model.block0.MultiHeadDotProductAttention_0.shard(ShardAxis(2, 1))
     cfg = ConfigNode(trainer_config({"optimizer": "adafactor", "optimizers": {"adafactor": {"lr": 1e-2}}}))
-    with pytest.raises(NotImplementedError, match="Adafactor over a model axis.*item 12b-vi"):
-        build_optimizer(cfg.training, model)
+    tx, _ = build_optimizer(cfg.training, model)
+    q = model.block0.MultiHeadDotProductAttention_0.query.weight  # [heads * hd / 2, H]: flax [H, heads, hd]
+    assert tx.cuts[id(q)][:2] == (0, 1) and tx.cuts[id(model.block0.Dense_1.weight)][:2] == (1, 0)
     # one process runs a tp_axis model whole: no module is cut without a model axis
     assert not any(getattr(m, "tp", None) for m in UNETR(**UNETR_KW, tp_axis="model", device="cpu").modules())
 
