@@ -4182,24 +4182,14 @@ def _optimizer_state_bytes(optimizer) -> int:
     return sum(t.numel() * t.element_size() for s in inner.state.values() for t in s.values() if torch.is_tensor(t))
 
 
-def _dp_rank(rank: int, world: int, root: str, backend: str, device: str, spec: dict) -> None:
-    """One rank of phase 22: the process group over a ``file://`` store in
-    ``root`` (``backend`` chosen before), the mesh of ``training.devices``,
-    ``dp_run``; its result in ``root``."""
-    import datetime
-
-    sys.path.insert(0, REPO)
-    import torch
-
+def _dp_job(rank: int, world: int, device: str, spec: dict) -> dict:
+    """Phase 22's rank side in an initialised process group: the mesh of
+    ``training.devices``, ``dp_run``."""
     from multimodal_tta_tpu_torch.conf import ConfigNode
-    from multimodal_tta_tpu_torch.parallel.distributed import maybe_initialize_distributed
     from multimodal_tta_tpu_torch.parallel.mesh import mesh_from_config
 
-    torch.set_num_threads(spec.get("threads", 4))
-    maybe_initialize_distributed(backend, f"file://{root}/store", world, rank, device=device,
-                                 timeout=datetime.timedelta(seconds=DP_TIMEOUT_S))
-    mesh = mesh_from_config(ConfigNode(dp_config(root, "float32", world)), device)
-    torch.save(dp_run(device, root, mesh, spec), os.path.join(root, f"rank{rank}.pt"))
+    mesh = mesh_from_config(ConfigNode(dp_config(spec["ranks_root"], "float32", world)), device)
+    return dp_run(device, spec["ranks_root"], mesh, spec)
 
 
 def _nccl_probe_rank(rank: int, root: str) -> None:
@@ -4383,18 +4373,25 @@ def dp_torchrun_cli(manifest: str, root: str, timeout: float = 600.0, two_ranks:
     return out
 
 
-def data_parallel_phase(device, root: str, *, shape=SHAPE[:3], channels=(32, 64, 128, 256, 512),
-                        volumes: int = DP_VOLUMES, backend=None, probe=None, threads: int = 4) -> dict:
+def data_parallel_phase(device, root: str, **kw) -> dict:
     """Phase 22: the NCCL probe (on a card; ``probe``, its result, when it
     ran before), two ranks sharing the device (``training.devices=[0, 0]``,
     spawned here over the probe's backend, or ``backend``) against the one-process run here on the same global
     batches, each rank's launches exactly, its kernels against their plain
-    versions. Its command lines under torchrun are ``dp_torchrun_cli``."""
+    versions. Its command lines under torchrun are ``dp_torchrun_cli``;
+    ``main`` spawns its ranks with phases 23-24's (``spawn_pairs``)."""
+    prep = data_parallel_prepare(device, root, **kw)
+    spawn_pairs([prep])
+    return data_parallel_finish(prep)
+
+
+def data_parallel_prepare(device, root: str, *, shape=SHAPE[:3], channels=(32, 64, 128, 256, 512),
+                          volumes: int = DP_VOLUMES, backend=None, probe=None, threads: int = 4) -> dict:
+    """Phase 22 up to its ranks: the probe, the backend, the data, the
+    ranks' spec (``spawn_pairs`` runs them)."""
     import shutil
 
     import torch
-
-    from multimodal_tta_tpu_torch.parallel.distributed import spawn_ranks
 
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root, exist_ok=True)
@@ -4415,12 +4412,22 @@ def data_parallel_phase(device, root: str, *, shape=SHAPE[:3], channels=(32, 64,
     spec = {"shape": list(shape), "channels": list(channels), "threads": threads,
             "data": os.path.join(root, "data.pt")}
     torch.save(dp_data(shape, volumes), spec["data"])
-    ranks_root = os.path.join(root, "ranks")
-    os.makedirs(ranks_root, exist_ok=True)
-    t1 = time.perf_counter()
-    spawn_ranks(_dp_rank, DP_WORLD, ranks_root, (ranks_root, backend, str(device), spec), DP_TIMEOUT_S)
-    out["ranks_s"] = time.perf_counter() - t1
-    ranks = [torch.load(os.path.join(ranks_root, f"rank{r}.pt"), weights_only=False) for r in range(DP_WORLD)]
+    spec["ranks_root"] = os.path.join(root, "ranks")
+    os.makedirs(spec["ranks_root"], exist_ok=True)
+    return {"name": "data_parallel", "device": device, "root": root, "t0": t0, "cuda": cuda, "out": out,
+            "backend": backend, "spec": spec}
+
+
+def data_parallel_finish(prep: dict) -> dict:
+    """Phase 22 after its ranks: the one-process run and the checks."""
+    import shutil
+
+    import torch
+
+    device, root, t0, cuda, out, spec = (prep[k] for k in ("device", "root", "t0", "cuda", "out", "spec"))
+    ranks = [torch.load(os.path.join(spec["ranks_root"], f"rank{r}.pt"), weights_only=False)
+             for r in range(DP_WORLD)]
+    out["ranks_s"] = ranks[0]["s"]
     t1 = time.perf_counter()
     threads = torch.get_num_threads()
     torch.set_num_threads(spec["threads"])  # the ranks' host threads: on the CPU the same reductions as theirs
@@ -4526,13 +4533,14 @@ def log_data_parallel(dp: dict, card: str) -> None:
 # data=1 x space=2: each rank holds every row of the global batch and half its
 # depth (parallel/space.py)
 SP_WORLD = 2
-SP_STEPS = 3  # f32 training steps of the recipe at global batch 8
+SP_STEPS = 2  # f32 training steps of the recipe at global batch 8 (and bf16 steps timed)
 SP_VAL = 2  # the validation batch
 SP_TENT_BATCHES = 2  # Tent online and strict, each over this many batches of BATCH
 SP_EVAL_SIZES = (2, 1)  # TTAEngine.evaluate's batches
-SP_TIMED = 4  # bf16 training and Tent steps timed
+SP_TIMED = 3  # bf16 Tent steps timed
 SP_MID_BATCH = 1  # the mid-fusion UNet's f32 training step at BRATS_SHAPE
 SP_TIMEOUT_S = 600
+SP_TRAIN_SEED = 230  # the training set's volumes (Tent, evaluation and the other models reuse them)
 # the f32 gates (TF32 off), two ranks vs one process on the same global
 # batches: losses and entropies relative (the slabs' partial sums added in
 # another order than one process's sums); the first step's gradients (all
@@ -4569,11 +4577,15 @@ def sp_config(save_dir: str, dtype: str, world: int) -> dict:
 
 def sp_data(shape, mid_shape) -> dict:
     """Phase 23's volumes (from seeds): the training set (Tent and evaluation
-    reuse its volumes), the validation batch, the mid-fusion batch."""
+    reuse its volumes), the validation batch, the mid-fusion batch, the
+    other models' HECKTOR21 and BraTS volumes (the first of the training
+    set's and the mid-fusion batch's)."""
     from multimodal_tta_tpu_torch.data.synthetic import brats_volumes
 
-    return {"train": hecktor_volumes(SP_STEPS * TRAIN_BATCH, 230, shape), "val": hecktor_volumes(SP_VAL, 231, shape),
-            "mid": brats_volumes(SP_MID_BATCH, tuple(mid_shape), seed=232)}
+    train = hecktor_volumes(SP_STEPS * TRAIN_BATCH, SP_TRAIN_SEED, shape)
+    mid = brats_volumes(SP_MID_BATCH, tuple(mid_shape), seed=232)
+    return {"train": train, "val": hecktor_volumes(SP_VAL, 231, shape), "mid": mid,
+            "sm_hecktor": train[:SM_HECKTOR_VOLUMES], "sm_brats": mid[:1]}
 
 
 def split_counts() -> dict:
@@ -4814,6 +4826,12 @@ def sp_run(device, root: str, mesh, spec: dict) -> dict:
         out["mid_peak_gib"] = peak_gib(base) if cuda else None
         del mid, trainer, optimizer
         part("mid_train")
+        if cuda:
+            torch.cuda.empty_cache()
+        out["models"] = sm_run(dev, root, mesh, one_mesh, spec, data, {
+            "sync": sync, "since": since, "local": local, "gather": gather, "peak_from_here": peak_from_here,
+            "peak_gib": peak_gib, "check": check, "teacher": spec["teacher"]})
+        part("space_models")
     finally:
         check.__exit__(None, None, None)
         surface_module.squared_edt_volumes = squared_edt_volumes
@@ -4859,6 +4877,337 @@ def sp_run(device, root: str, mesh, spec: dict) -> dict:
         torch.cuda.empty_cache()
         part("bf16_timing")
     out["part_s"] = parts
+    return out
+
+
+# ---- phase 23, the other models, norms and training options over space ----
+# each case at full width on the two ranks against one process (f32, TF32
+# off): late fusion with remat on [1,160,192,160,4] (a step, a strict Tent
+# step), UNet3D-WS distilled from a flagship teacher on [2,48,144,144,2] (two
+# steps, an evaluated batch), SegResNet (GROUP; a step, TTAEngine.evaluate
+# with continual Tent), the BatchNorm flagship (a step, an online Tent step,
+# TTAEngine.evaluate with norm), the flagship with deep supervision 2 and 4
+# bottleneck experts on [1,160,192,160,4] (its bottleneck split: 5 planes a
+# rank; one step), the flagship with GWDL (one step); each split norm call
+# held to its plain version as it runs (SplitCheck), each EDT bitwise; then
+# each model's bf16 training step timed (one cold, one warm)
+SM_CASES = ("late", "ws_distill", "segresnet", "batchnorm", "ds_moe", "gwdl")
+SM_HECKTOR_VOLUMES = 4
+SM_SEED = 233
+SM_TIMED = 2  # bf16 training steps a model (the first cold)
+# SegResNet's f32 gradients are ill-conditioned at its stem: one process's
+# own step moves them 2.03e-4 when only its group norms' sums are reordered
+# (tests/test_torch_space_models.py's witness at test size), so its limit is
+# the mid-fusion step's; the BatchNorm flagship's likewise: on another batch
+# one process's step moves 1.28e-4 when only its statistics' sums are taken
+# over half-depth slabs, as the ranks' (scripts/torch_space_parallel.py
+# --witnesses), where phase 23's batch sits 2.5e-6 apart
+SM_GRAD_REL = {"segresnet": SP_MID_GRAD_REL, "batchnorm": SP_MID_GRAD_REL}
+GWDL_CRITERION = {"name": "gwdl", "softmax": True, "sigmoid": False, "lambda_ce": 1.0,
+                  "distance_matrix": [[0.0, 1.0], [1.0, 0.0]]}
+
+
+def model_node(name: str, **overrides) -> dict:
+    """``configs/model/<name>.yaml`` (its ``defaults`` dropped) with
+    ``overrides``."""
+    from multimodal_tta_tpu_torch.conf import yaml_subset
+
+    with open(os.path.join(REPO, "configs", "model", f"{name}.yaml"), encoding="utf-8") as f:
+        node = yaml_subset.load(f.read())
+    node.pop("defaults", None)
+    node.update(overrides)
+    return node
+
+
+def sm_config(model: dict, criterion: dict, dtype: str, **training) -> dict:
+    """A SegTrainer config: SGD (lr 1e-2, momentum 0.9) outside the no-decay
+    groups, ``criterion``, the compute dtype, ``model``."""
+    t = {"optimizer": "sgd", "optimizers": {"sgd": {"lr": 1e-2, "momentum": 0.9}}, "criterion": criterion,
+         "compute_dtype": dtype, "param_groups": {"no_decay_keys": ["bias", "norm", "scale"],
+                                                  "treat_1d_as_no_decay": True}}
+    t.update(training)
+    return {"task": {"seed": 0}, "training": t, "model": model}
+
+
+def sm_specs(spec: dict, teacher: str) -> dict:
+    """Each case: its model node, criterion, device transform, data key and
+    the training options."""
+    shape = list(spec["shape"])
+    chans = list(spec["channels"])
+    flagship = model_node("unet", channels=chans)
+    out = {
+        "late": dict(model=model_node("unet_multimodal_late", channels=list(spec["mid_channels"])), remat=True,
+                     criterion=MID_CRITERION, transform={"normalize": False}, data="brats"),
+        "ws_distill": dict(model=dict(flagship, name="unet_ws"), data="hecktor", transform=DEVICE_TRANSFORM,
+                           distill={"enabled": True, "checkpoint": teacher, "temperature": 2.0, "weight": 0.5,
+                                    "focus": "uncertain", "model": flagship},
+                           image_size=shape),
+        "segresnet": dict(model=model_node("segresnet", init_filters=spec["init_filters"]), data="hecktor",
+                          transform=DEVICE_TRANSFORM),
+        "batchnorm": dict(model=dict(flagship, norm="BATCH"), data="hecktor", transform=DEVICE_TRANSFORM),
+        "ds_moe": dict(model=dict(model_node("unet", channels=list(spec["mid_channels"])), in_channels=4,
+                                  num_classes=3, deep_supervision=2, moe_experts=4),
+                       criterion=MID_CRITERION, transform={"normalize": False}, data="brats"),
+        "gwdl": dict(model=dict(flagship, num_classes=2), criterion=GWDL_CRITERION, data="hecktor_map",
+                     transform=DEVICE_TRANSFORM),
+    }
+    return out
+
+
+def sm_teacher(path: str, channels) -> str:
+    """The distillation teacher: a flagship UNet3D at ``channels`` from a
+    seed, written as the port's checkpoint at ``path`` (on the CPU)."""
+    import torch
+
+    from multimodal_tta_tpu_torch.conf import ConfigNode
+    from multimodal_tta_tpu_torch.core.checkpoint import save_checkpoint
+    from multimodal_tta_tpu_torch.core.train_state import TrainState
+    from multimodal_tta_tpu_torch.models.unet3d import UNet3D
+
+    model = UNet3D.from_config(ConfigNode(model_node("unet", channels=list(channels))), device="cpu", seed=SM_SEED + 2)
+    save_checkpoint(path, TrainState(model=model, optimizer=torch.optim.SGD(model.parameters(), lr=0.1)))
+    return path
+
+
+def sm_batches(data: dict, key: str) -> list:
+    """The case's global host batches: BraTS volumes one at a time, HECKTOR
+    volumes two at a time (class maps for GWDL)."""
+    if key == "brats":
+        return [_stack(data["sm_brats"])]
+    vols = data["sm_hecktor"]
+    out = [_stack(vols[i:i + 2]) for i in range(0, len(vols), 2)]
+    if key == "hecktor_map":
+        for b in out:
+            b["label"] = b["label"][..., 0].astype("int64")
+    return out
+
+
+def sm_run(dev, root: str, mesh, one_mesh, spec: dict, data: dict, tools: dict) -> dict:
+    """The other models, norms and training options over the space axis
+    (``SM_CASES``) in this process: over the ranks of ``mesh``, or in one
+    process on the same global batches. Per case: the losses, the first
+    step's gradients, the running statistics, the MoE scalars, Tent's
+    entropies and adapted tensors, the evaluated metrics, the norms that ran
+    split and whole (``NormLevels``), each part's launches, the peak memory
+    and the f32 step ms; then the bf16 training steps' ms (``tools["check"]``
+    off for them)."""
+    import torch
+
+    from multimodal_tta_tpu_torch.conf import ConfigNode
+    from multimodal_tta_tpu_torch.core.optim import EpochScheduler, build_optimizer
+    from multimodal_tta_tpu_torch.core.train_state import TrainState
+    from multimodal_tta_tpu_torch.core.trainers.seg_trainer import SegTrainer
+    from multimodal_tta_tpu_torch.models.layers import running_statistics
+    from multimodal_tta_tpu_torch.registry import get_model
+    from multimodal_tta_tpu_torch.tta.engine import TTAEngine
+    from multimodal_tta_tpu_torch.tta.tent import TentAdapter, norm_param_mask
+
+    sync, since, local = tools["sync"], tools["since"], tools["local"]
+    cuda = dev.type == "cuda"
+    specs = sm_specs(spec, tools["teacher"])
+    recipe_criterion = train_recipe(os.path.join(root, "recipe"))["training"]["criterion"]
+    out = {}
+
+    def build(case: dict, dtype: str):
+        criterion = case.get("criterion", recipe_criterion)
+        extra = {}
+        if "distill" in case:
+            extra = {"distill": case["distill"], "data": {"transforms": {"image_size": case["image_size"]}}}
+        cfg = ConfigNode(sm_config(case["model"], criterion, dtype, remat=case.get("remat", False), **extra))
+        model = get_model(case["model"]["name"]).from_config(
+            cfg.model, dtype=getattr(torch, dtype), remat=case.get("remat", False), device=dev, seed=SM_SEED)
+        optimizer, lr = build_optimizer(cfg.training, model, one_mesh)
+        trainer = SegTrainer(cfg, device_transform=case["transform"], device=dev, mesh=one_mesh)
+        trainer.setup(TrainState(model=model, optimizer=optimizer), None, EpochScheduler(cfg.training, lr))
+        return cfg, model, trainer
+
+    def train(trainer, batches, grads=None):
+        """``run_step`` on each batch: losses, each step's ms; the first
+        step's gradients into ``grads`` (a dict)."""
+        apply = trainer.state.apply_gradients
+
+        def first():
+            grads.update({n: p.grad.detach().cpu().clone() for n, p in trainer.state.model.named_parameters()
+                          if p.grad is not None})
+            trainer.state.apply_gradients = apply
+            return apply()
+
+        if grads is not None:
+            trainer.state.apply_gradients = first
+        losses, ms = [], []
+        for b in batches:
+            sync()
+            t0 = time.perf_counter()
+            trainer.run_step({"image": b["image"], "label": b["label"]})
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(trainer.flush_step_metrics()["loss"])
+        return losses, ms
+
+    for name in SM_CASES:
+        case = specs[name]
+        batches = sm_batches(data, case["data"])
+        base = tools["peak_from_here"]() if cuda else 0
+        cfg, model, trainer = build(case, "float32")
+        r = {"launches": {}}
+        grads = {}
+        steps = batches[:1] if name in ("late", "segresnet", "batchnorm", "ds_moe", "gwdl") else batches
+        at = split_counts()
+        with NormLevels(model) as levels:
+            if trainer.distill.enabled:
+                trainer.prepare()
+                with NormLevels(trainer.teacher) as tlevels:
+                    r["losses"], r["f32_ms"] = train(trainer, steps, grads)
+                r["teacher_norms"] = {"split": len(tlevels.split), "whole": len(tlevels.whole)}
+            else:
+                r["losses"], r["f32_ms"] = train(trainer, steps, grads)
+        sync()
+        r["launches"]["train"] = since(at)
+        r["norms"] = {"split": len(levels.split), "whole": len(levels.whole)}
+        r["first_norms"] = 4 if name == "late" else 1  # norms whose input needs no gradient in a Tent step
+        r["grads"] = grads
+        r["stats"] = {k: v.cpu() for k, v in running_statistics(model).items()}
+        if trainer.moe_stats is not None:
+            r["moe"] = {k: v.cpu().tolist() for k, v in trainer.moe_stats.items()}
+        norm = [n for n, k in norm_param_mask(model).items() if k]
+        if name in ("late", "batchnorm"):
+            # a Tent step: late fusion strict (episodic, post), the BN flagship online
+            tcfg = ConfigNode(eval_config("tent", name == "late"))
+            ad = TentAdapter(tcfg.tta, config=tcfg, device_transform=case["transform"], device=dev, mesh=mesh)
+            fn = ad.make_adapt_predict_fn(model, THRESHOLD if name == "batchnorm" else 0.5,
+                                          "post" if name == "late" else "inline")
+            before = {n: p.detach().clone() for n, p in model.named_parameters() if n in norm}
+            at = split_counts()
+            _, pred = fn(model, torch.from_numpy(local(batches[0]["image"])), batches[0]["image"].shape[0])
+            sync()
+            r["launches"]["tent"] = since(at)
+            r["tent"] = {"ents": ad._last_ents.cpu().tolist(),
+                         "moved": {n: (p.detach() - before[n]).cpu() for n, p in model.named_parameters() if n in norm},
+                         "stats": {k: v.cpu() for k, v in running_statistics(model).items()},
+                         "preds": tools["gather"](pred).cpu()}
+            ad.restore()
+        evals = {"ws_distill": "none", "segresnet": "tent", "batchnorm": "norm"}
+        if name in evals:
+            method = evals[name]
+            ecfg = ConfigNode(eval_config(method, False))
+            engine = TTAEngine(ecfg, device_transform=case["transform"], device=dev, mesh=mesh)
+            at = split_counts()
+            r["eval"] = engine.evaluate(model, batches[-1:])
+            sync()
+            r["launches"]["evaluate"] = since(at)
+        r["peak_gib"] = tools["peak_gib"](base) if cuda else None
+        del model, trainer
+        if cuda:
+            torch.cuda.empty_cache()
+        out[name] = r
+
+    if spec.get("timed", cuda):
+        tools["check"].on = False
+        for name in SM_CASES:
+            case = specs[name]
+            base = tools["peak_from_here"]()
+            _, _, trainer = build(case, "bfloat16")
+            batches = sm_batches(data, case["data"])
+            _, ms = train(trainer, (batches * SM_TIMED)[:SM_TIMED])
+            out[name]["bf16_ms"] = ms
+            out[name]["bf16_peak_gib"] = tools["peak_gib"](base)
+            del trainer
+            torch.cuda.empty_cache()
+        tools["check"].on = True
+    return out
+
+
+def sm_expected(res: dict, cuda: bool) -> dict:
+    """Each case's launches by part, derived from the norms that ran split
+    and whole (``res["norms"]``): a forward takes the one-launch kernel for
+    each whole norm and stats + apply for each split one, a training
+    backward bwd_sums + bwd_apply for each split norm and the backward
+    kernel for each whole one, a Tent backward no bwd_apply for the norms
+    whose input needs no gradient (``first_norms``: each tower's first);
+    remat runs each training forward twice; a distilled step adds the
+    teacher's forward; each evaluated batch one min-plus launch."""
+    out = {}
+    for name, r in res.items():
+        s, w = (r["norms"]["split"], r["norms"]["whole"]) if cuda else (0, 0)
+        ts, tw = (r["teacher_norms"]["split"], r["teacher_norms"]["whole"]) if cuda and "teacher_norms" in r \
+            else (0, 0)
+        first = r["first_norms"]
+
+        def launches(fwd=0, bwd=0, tent_bwd=0, minplus=0, teacher=0):
+            return {"forward": w * fwd + tw * teacher, "backward": w * (bwd + tent_bwd),
+                    "minplus": minplus * int(cuda), "plain_backward": 0,
+                    "instance_norm_stats": s * fwd + ts * teacher, "instance_norm_apply": s * fwd + ts * teacher,
+                    "instance_norm_bwd_sums": s * (bwd + tent_bwd),
+                    "instance_norm_bwd_apply": s * bwd + max(s - first, 0) * tent_bwd}
+
+        steps = len(r["losses"])
+        remat = 2 if name == "late" else 1
+        want = {"train": launches(fwd=remat * steps, bwd=steps, teacher=steps if "teacher_norms" in r else 0)}
+        if "tent" in r:
+            # strict: the step's forward (twice under remat) and the post-update forward
+            want["tent"] = launches(fwd=remat + 1 if name == "late" else 1, tent_bwd=1)
+        if "eval" in r:
+            tent = name == "segresnet"
+            want["evaluate"] = launches(fwd=2 if tent else 1, tent_bwd=int(tent), minplus=1)
+        out[name] = want
+    return out
+
+
+def sm_compare(one: dict, ranks: list) -> dict:
+    """The ranks' cases against one process's: losses, the first step's
+    gradients (summed over the ranks), running statistics, MoE scalars,
+    Tent's entropies, moves and predictions, evaluated metrics; each rank
+    alike. Every check is made before a failure raises."""
+    import torch
+
+    out, failed = {}, []
+    for name, o in one.items():
+        r0 = ranks[0][name]
+        c = {}
+        c["loss_rel"] = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], o["losses"]))
+        c["losses"] = [r0["losses"], o["losses"]]
+        c["grad_rel_l2"] = _grad_rel(r0["grads"], o["grads"])
+        c["most_apart"] = sorted(((_grad_rel({n: r0["grads"][n]}, {n: o["grads"][n]}), n) for n in o["grads"]),
+                                 reverse=True)[:3]
+        limit = SM_GRAD_REL.get(name, SP_GRAD_REL)
+        if c["loss_rel"] > SP_LOSS_REL or c["grad_rel_l2"] > limit or sorted(r0["grads"]) != sorted(o["grads"]):
+            failed.append(f"{name} training: {c}")
+        if any(res[name]["losses"] != r0["losses"] for res in ranks):
+            failed.append(f"{name}: the ranks' losses differ")
+        if o["stats"]:
+            c["stats_rel"] = max(float((r0["stats"][k] - v).norm() / v.norm().clamp(min=1e-30))
+                                 for k, v in o["stats"].items())
+            if c["stats_rel"] > SP_GRAD_REL or any(not torch.equal(res[name]["stats"][k], r0["stats"][k])
+                                                   for res in ranks for k in r0["stats"]):
+                failed.append(f"{name}: running statistics {c['stats_rel']}")
+        if "moe" in o:
+            c["moe"] = [r0["moe"], o["moe"]]
+            if any(abs(a - b) > 1e-5 * abs(b) + 1e-7 for k in o["moe"] for a, b in zip(r0["moe"][k], o["moe"][k])):
+                failed.append(f"{name}: MoE scalars {c['moe']}")
+        if "tent" in o:
+            t, ot = r0["tent"], o["tent"]
+            keys = sorted(ot["moved"])
+            diff = torch.cat([(t["moved"][k] - ot["moved"][k]).flatten() for k in keys])
+            ref = torch.cat([ot["moved"][k].flatten() for k in keys])
+            c["tent"] = {"ents_max_rel": max(abs(a - b) / abs(b) for a, b in zip(t["ents"], ot["ents"])),
+                         "delta_rel_l2": float(diff.norm() / ref.norm()),
+                         "pred_agree": float((t["preds"] == ot["preds"]).float().mean())}
+            if ot["stats"]:
+                c["tent"]["stats_rel"] = max(float((t["stats"][k] - v).norm() / v.norm().clamp(min=1e-30))
+                                             for k, v in ot["stats"].items())
+            if c["tent"]["ents_max_rel"] > SP_LOSS_REL or c["tent"]["delta_rel_l2"] > SP_DELTA_REL \
+                    or c["tent"]["pred_agree"] < SP_PRED_AGREE or c["tent"].get("stats_rel", 0.0) > SP_GRAD_REL:
+                failed.append(f"{name} Tent: {c['tent']}")
+        if "eval" in o:
+            e0 = r0["eval"]
+            c["eval_max_abs"] = max(abs(e0[k] - v) for k, v in o["eval"].items() if isinstance(v, float))
+            if set(e0) != set(o["eval"]) or any(abs(e0[k] - v) > DP_METRIC_ABS + DP_METRIC_REL * abs(v)
+                                                for k, v in o["eval"].items() if isinstance(v, float)) \
+                    or any(res[name]["eval"] != e0 for res in ranks):
+                failed.append(f"{name} evaluation: {e0} vs {o['eval']}")
+        out[name] = c
+    if failed:
+        raise AssertionError("phase 23 (models), two ranks vs one process: " + "; ".join(failed) + f"; all: {out}")
     return out
 
 
@@ -5192,24 +5541,14 @@ def split_kernel_table(dev, shapes: list, space: int = SP_WORLD, iters: int = 10
             "ok": all(r["ok"] for r in per_shape), "calls": sum(c for _, c in shapes)}
 
 
-def _sp_rank(rank: int, world: int, root: str, device: str, spec: dict) -> None:
-    """One rank of phase 23: the process group over a ``file://`` store in
-    ``root`` (gloo: the ranks share the card), the mesh of
-    ``training.mesh``, ``sp_run``; its result in ``root``."""
-    import datetime
-
-    sys.path.insert(0, REPO)
-    import torch
-
+def _sp_job(rank: int, world: int, device: str, spec: dict) -> dict:
+    """Phase 23's rank side in an initialised process group: the mesh of
+    ``training.mesh`` (data 1 x space 2), ``sp_run``."""
     from multimodal_tta_tpu_torch.conf import ConfigNode
-    from multimodal_tta_tpu_torch.parallel.distributed import maybe_initialize_distributed
     from multimodal_tta_tpu_torch.parallel.mesh import mesh_from_config
 
-    torch.set_num_threads(spec.get("threads", 4))
-    maybe_initialize_distributed("gloo", f"file://{root}/store", world, rank, device=device,
-                                 timeout=datetime.timedelta(seconds=SP_TIMEOUT_S))
-    mesh = mesh_from_config(ConfigNode(sp_config(root, "float32", world)), device)
-    torch.save(sp_run(device, root, mesh, spec), os.path.join(root, f"rank{rank}.pt"))
+    mesh = mesh_from_config(ConfigNode(sp_config(spec["ranks_root"], "float32", world)), device)
+    return sp_run(device, spec["ranks_root"], mesh, spec)
 
 
 def _grad_rel(a: dict, b: dict) -> float:
@@ -5341,19 +5680,25 @@ def sp_expected(res: dict, cuda: bool) -> dict:
             "mid_train": launches(mid_fwd=2, mid_bwd=1)}
 
 
-def space_parallel_phase(device, root: str, *, shape=SHAPE[:3], channels=(32, 64, 128, 256, 512),
-                         mid_shape=BRATS_SHAPE, mid_channels=(32, 64, 128, 256, 512),
-                         threads: int = 4) -> dict:
+def space_parallel_phase(device, root: str, **kw) -> dict:
     """Phase 23: two ranks sharing the device over gloo on a ``data=1 x
     space=2`` mesh, spawned here, against the one-process run here on the
     same global batches: each rank's launches exactly, its split kernels
     against their plain versions, its peak memory against one process's.
-    Its command lines under torchrun are ``sp_torchrun_cli``."""
+    Its command lines under torchrun are ``sp_torchrun_cli``; ``main``
+    spawns its ranks with phases 22 and 24's (``spawn_pairs``)."""
+    prep = space_parallel_prepare(device, root, **kw)
+    spawn_pairs([prep])
+    return space_parallel_finish(prep)
+
+
+def space_parallel_prepare(device, root: str, *, shape=SHAPE[:3], channels=(32, 64, 128, 256, 512),
+                           mid_shape=BRATS_SHAPE, mid_channels=(32, 64, 128, 256, 512), init_filters: int = 16,
+                           threads: int = 4) -> dict:
+    """Phase 23 up to its ranks: the data, the teacher, the ranks' spec."""
     import shutil
 
     import torch
-
-    from multimodal_tta_tpu_torch.parallel.distributed import spawn_ranks
 
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root, exist_ok=True)
@@ -5362,14 +5707,26 @@ def space_parallel_phase(device, root: str, *, shape=SHAPE[:3], channels=(32, 64
     out = {"backend": "gloo"}
     log(f"[space_parallel] two ranks on {device} over gloo, data=1 x space=2")
     spec = {"shape": list(shape), "channels": list(channels), "mid_channels": list(mid_channels),
-            "threads": threads, "data": os.path.join(root, "data.pt")}
+            "init_filters": init_filters, "threads": threads, "data": os.path.join(root, "data.pt"),
+            "teacher": sm_teacher(os.path.join(root, "teacher"), channels)}
     torch.save(sp_data(shape, mid_shape), spec["data"])
-    ranks_root = os.path.join(root, "ranks")
-    os.makedirs(ranks_root, exist_ok=True)
-    t1 = time.perf_counter()
-    spawn_ranks(_sp_rank, SP_WORLD, ranks_root, (ranks_root, str(device), spec), SP_TIMEOUT_S)
-    out["ranks_s"] = time.perf_counter() - t1
-    ranks = [torch.load(os.path.join(ranks_root, f"rank{r}.pt"), weights_only=False) for r in range(SP_WORLD)]
+    spec["ranks_root"] = os.path.join(root, "ranks")
+    os.makedirs(spec["ranks_root"], exist_ok=True)
+    return {"name": "space_parallel", "device": device, "root": root, "t0": t0, "cuda": cuda, "out": out,
+            "backend": "gloo", "spec": spec, "shape": shape}
+
+
+def space_parallel_finish(prep: dict) -> dict:
+    """Phase 23 after its ranks: the one-process run and the checks."""
+    import shutil
+
+    import torch
+
+    device, root, t0, cuda, out, spec, shape = (prep[k] for k in ("device", "root", "t0", "cuda", "out", "spec",
+                                                                  "shape"))
+    ranks = [torch.load(os.path.join(spec["ranks_root"], f"rank{r}.pt"), weights_only=False)
+             for r in range(SP_WORLD)]
+    out["ranks_s"] = ranks[0]["s"]
     t1 = time.perf_counter()
     threads_before = torch.get_num_threads()
     torch.set_num_threads(spec["threads"])
@@ -5383,11 +5740,20 @@ def space_parallel_phase(device, root: str, *, shape=SHAPE[:3], channels=(32, 64
         out["compare"] = sp_compare(one, ranks)
     except AssertionError as e:
         failed.append(str(e))
+    try:
+        out["models_compare"] = sm_compare(one["models"], [res["models"] for res in ranks])
+    except AssertionError as e:
+        failed.append(str(e))
     for res in ranks:
         want = sp_expected(res, cuda)
         for part, w in want.items():
             if res["launches"][part] != w:
                 failed.append(f"{res['tag']} {part}: launches {res['launches'][part]}, derived {w}")
+        for name, parts in sm_expected(res["models"], cuda).items():
+            for part, w in parts.items():
+                if res["models"][name]["launches"][part] != w:
+                    failed.append(f"{res['tag']} {name} {part}: launches {res['models'][name]['launches'][part]}, "
+                                  f"derived {w}")
         if res["store_shape"][1] != shape[0] // SP_WORLD:
             failed.append(f"{res['tag']}: the store holds {res['store_shape']}, not a slab")
         kc = res["kernel_check"]
@@ -5397,12 +5763,17 @@ def space_parallel_phase(device, root: str, *, shape=SHAPE[:3], channels=(32, 64
         failed.append(f"the flagship's levels {[r['norms'] for r in ranks]}")
     keys = ("forward", "backward", "minplus") + SPLIT_ENTRIES
     out["launches"] = {k: sum(res["launches"][p][k] for res in ranks for p in res["launches"]) for k in keys}
+    out["models_launches"] = {k: sum(r["launches"][p][k] for res in ranks for r in res["models"].values()
+                                     for p in r["launches"]) for k in keys}
+    light = ("norms", "teacher_norms", "launches", "losses", "f32_ms", "bf16_ms", "peak_gib", "bf16_peak_gib", "moe")
+    for res in ranks + [one]:
+        res["models"] = {name: {k: v for k, v in r.items() if k in light} for name, r in res["models"].items()}
     out["ranks"] = [{k: res.get(k) for k in ("tag", "device", "launches", "kernel_check", "peak_gib",
                                              "mid_peak_gib", "losses", "norms", "store_shape", "part_s", "timing",
-                                             "collectives_per_train_step", "collectives_per_tent_step")}
+                                             "collectives_per_train_step", "collectives_per_tent_step", "models")}
                     for res in ranks]
     out["one"] = {k: one.get(k) for k in ("launches", "peak_gib", "mid_peak_gib", "losses", "norms", "timing",
-                                          "part_s")}
+                                          "part_s", "models")}
     out["phase_s"] = time.perf_counter() - t0
     shutil.rmtree(root, ignore_errors=True)
     if failed:
@@ -5419,6 +5790,16 @@ def log_space_parallel(sp: dict, card: str) -> None:
     def warm(ms):
         return statistics.median(ms[1:]) if len(ms) > 1 else float("nan")
 
+    log_space_flagship(sp, card, warm)
+    log_space_models(sp, card)
+    if "torchrun" in sp:
+        log(f"[space_parallel] torchrun --nproc_per_node=2 training.mesh.space=2: {sp['torchrun']}; card {card}")
+    log(f"[space_parallel] phase 23 took {sp['phase_s']:.1f} s; launches over both ranks {sp['launches']}; "
+        f"card {card}")
+
+
+def log_space_flagship(sp: dict, card: str, warm) -> None:
+    """Phase 23's flagship and mid-fusion numbers, a line each."""
     c, one = sp["compare"], sp["one"]
     log(f"[space_parallel] two ranks (data 1 x space 2) vs one process on the same global batches (f32, TF32 "
         f"off): losses {c['losses']['ranks']} vs {c['losses']['one']} (max rel {c['losses']['max_rel']:.3g}, "
@@ -5445,10 +5826,29 @@ def log_space_parallel(sp: dict, card: str) -> None:
             f"collectives a bf16 training step (calls, bytes this rank sends) {r['collectives_per_train_step']}, a "
             f"Tent step {r['collectives_per_tent_step']}; s by part {r['part_s']} (one process {one['part_s']}); "
             f"card {card}")
-    if "torchrun" in sp:
-        log(f"[space_parallel] torchrun --nproc_per_node=2 training.mesh.space=2: {sp['torchrun']}; card {card}")
-    log(f"[space_parallel] phase 23 took {sp['phase_s']:.1f} s; launches over both ranks {sp['launches']}; "
-        f"card {card}")
+
+
+def log_space_models(sp: dict, card: str) -> None:
+    """Phase 23's other models, norms and training options, a line each."""
+    one = sp["one"]
+    for r in sp["ranks"]:
+        kc = r["kernel_check"]
+        log(f"[space_models] {r['tag']}: split entries vs plain at every call of the f32 path {kc['split']}, ok "
+            f"{kc['split_ok']}; EDT bitwise {kc['edt_bitwise']}; card {card}")
+    for name, c in sp["models_compare"].items():
+        one_m = one["models"][name]
+        log(f"[space_models] {name}: two ranks vs one process (f32, TF32 off): {c} (limits: losses "
+            f"{SP_LOSS_REL}, gradients {SM_GRAD_REL.get(name, SP_GRAD_REL)}, Tent moves {SP_DELTA_REL}); card {card}")
+        for r in sp["ranks"]:
+            m = r["models"][name]
+            log(f"[space_models] {name} {r['tag']}: norms {m['norms']} (split, whole), teacher "
+                f"{m.get('teacher_norms')}; launches {m['launches']}; peak allocated {m['peak_gib']} GiB (f32 path) "
+                f"vs one process {one_m['peak_gib']}, bf16 {m.get('bf16_peak_gib')} vs {one_m.get('bf16_peak_gib')}; "
+                f"ms per f32 step {[round(v, 1) for v in m['f32_ms']]} vs one process "
+                f"{[round(v, 1) for v in one_m['f32_ms']]}; ms per bf16 step (cold, warm) "
+                f"{[round(v, 1) for v in m.get('bf16_ms', [])]} vs one process "
+                f"{[round(v, 1) for v in one_m.get('bf16_ms', [])]}; card {card}")
+    log(f"[space_models] launches over both ranks {sp['models_launches']}; card {card}")
 
 
 SPLIT_REPLACES = {"instance_norm_stats": ":114", "instance_norm_apply": ":136", "instance_norm_bwd_sums": ":87",
@@ -5470,7 +5870,8 @@ def split_summaries(sp: dict, card: str) -> list:
         out.append({
             "name": name, "route": "cuda", "source": "multimodal_tta_tpu_torch/csrc/fused_instance_norm.cu",
             "replaces": "multimodal_tta_tpu/pallas/fused_instance_norm.py" + SPLIT_REPLACES[name],
-            "launches": sp["launches"][name], "launches_by_path": {"space_parallel": sp["launches"][name]},
+            "launches": sp["launches"][name] + sp["models_launches"][name],
+            "launches_by_path": {"space_parallel": sp["launches"][name], "space_models": sp["models_launches"][name]},
             "max_abs_err": max(e["max_abs_err"], e16["max_abs_err"], path_err), "ms": e["ms"],
             "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"], "bound_by": e["bound_by"], "library_ms": None,
             "bf16": {k: e16[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")},
@@ -5800,22 +6201,58 @@ def _rank_device(device: str):
     return torch.device("cuda", d.index or 0) if d.type == "cuda" else d
 
 
-def _ad_rank(rank: int, world: int, root: str, device: str, spec: dict) -> None:
-    """One rank of phase 24: the process group over a ``file://`` store in
-    ``root`` (gloo: the ranks share the card), a ``data=2`` mesh, ``ad_run``."""
+def _ad_job(rank: int, world: int, device: str, spec: dict) -> dict:
+    """Phase 24's rank side in an initialised process group: a ``data=2``
+    mesh, ``ad_run``."""
+    from multimodal_tta_tpu_torch.parallel.mesh import make_mesh
+
+    return ad_run(device, make_mesh([_rank_device(device)] * world, data=world), spec)
+
+
+# phase -> (its rank side, its time limit): the two-rank phases that share a spawn
+PAIR_JOBS = {"data_parallel": (_dp_job, DP_TIMEOUT_S), "space_parallel": (_sp_job, SP_TIMEOUT_S),
+             "adapters": (_ad_job, AD_TIMEOUT_S)}
+
+
+def _pair_rank(rank: int, world: int, store: str, backend: str, device: str, jobs: list) -> None:
+    """One rank of phases 22-24 (those of ``jobs``, in turn): the process
+    group over a ``file://`` store in ``store``, then each job's rank side,
+    its result (with its seconds) written to the job's ``ranks_root``."""
     import datetime
 
     sys.path.insert(0, REPO)
     import torch
 
     from multimodal_tta_tpu_torch.parallel.distributed import maybe_initialize_distributed
-    from multimodal_tta_tpu_torch.parallel.mesh import make_mesh
 
-    torch.set_num_threads(spec.get("threads", 4))
-    maybe_initialize_distributed("gloo", f"file://{root}/store", world, rank, device=device,
-                                 timeout=datetime.timedelta(seconds=AD_TIMEOUT_S))
-    mesh = make_mesh([_rank_device(device)] * world, data=world)
-    torch.save(ad_run(device, mesh, spec), os.path.join(root, f"rank{rank}.pt"))
+    maybe_initialize_distributed(backend, f"file://{store}/store", world, rank, device=device,
+                                 timeout=datetime.timedelta(seconds=sum(PAIR_JOBS[n][1] for n, _ in jobs)))
+    for name, spec in jobs:
+        torch.set_num_threads(spec.get("threads", 4))
+        t0 = time.perf_counter()
+        res = PAIR_JOBS[name][0](rank, world, device, spec)
+        res["s"] = time.perf_counter() - t0
+        torch.save(res, os.path.join(spec["ranks_root"], f"rank{rank}.pt"))
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+
+
+def spawn_pairs(preps: list) -> float:
+    """The rank side of ``preps`` (``*_prepare`` results of phases 22-24)
+    in two ranks spawned once, over the first one's backend (the ranks
+    share the card: gloo); returns the seconds."""
+    import shutil
+
+    from multimodal_tta_tpu_torch.parallel.distributed import spawn_ranks
+
+    store = os.path.join(preps[0]["root"], "pair_store")
+    shutil.rmtree(store, ignore_errors=True)
+    os.makedirs(store, exist_ok=True)
+    jobs = [(p["name"], p["spec"]) for p in preps]
+    t0 = time.perf_counter()
+    spawn_ranks(_pair_rank, 2, store, (store, preps[0]["backend"], str(preps[0]["device"]), jobs),
+                sum(PAIR_JOBS[n][1] for n, _ in jobs))
+    return time.perf_counter() - t0
 
 
 def ad_torchrun_cli(manifest: str, root: str, timeout: float = 600.0) -> dict:
@@ -5880,18 +6317,24 @@ def ad_predict_check(manifest: str, root: str, torchrun: dict) -> dict:
     return out
 
 
-def adapters_phase(device, root: str, *, shape=SHAPE[:3], channels=(32, 64, 128, 256, 512),
-                   threads: int = 4) -> dict:
+def adapters_phase(device, root: str, **kw) -> dict:
     """Phase 24: two ranks sharing the device (gloo) against the one-process
     run here on the same global batches: every method's metrics, each
     rank's launches exactly, every norm and min-plus call held to its plain
     version; bf16 ms per evaluated batch. Its command lines are
-    ``ad_torchrun_cli`` and ``ad_predict_check``."""
+    ``ad_torchrun_cli`` and ``ad_predict_check``; ``main`` spawns its ranks
+    with phases 22-23's (``spawn_pairs``)."""
+    prep = adapters_prepare(device, root, **kw)
+    spawn_pairs([prep])
+    return adapters_finish(prep)
+
+
+def adapters_prepare(device, root: str, *, shape=SHAPE[:3], channels=(32, 64, 128, 256, 512),
+                     threads: int = 4) -> dict:
+    """Phase 24 up to its ranks: the data and the ranks' spec."""
     import shutil
 
     import torch
-
-    from multimodal_tta_tpu_torch.parallel.distributed import spawn_ranks
 
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root, exist_ok=True)
@@ -5900,13 +6343,24 @@ def adapters_phase(device, root: str, *, shape=SHAPE[:3], channels=(32, 64, 128,
     spec = {"shape": list(shape), "channels": list(channels), "threads": threads,
             "data": os.path.join(root, "data.pt")}
     torch.save(ad_data(shape, AD_BATCHES), spec["data"])
-    ranks_root = os.path.join(root, "ranks")
-    os.makedirs(ranks_root, exist_ok=True)
-    t1 = time.perf_counter()
-    spawn_ranks(_ad_rank, AD_WORLD, ranks_root, (ranks_root, str(device), spec), AD_TIMEOUT_S)
-    out = {"ranks_s": time.perf_counter() - t1}
+    spec["ranks_root"] = os.path.join(root, "ranks")
+    os.makedirs(spec["ranks_root"], exist_ok=True)
+    return {"name": "adapters", "device": device, "root": root, "t0": t0, "cuda": cuda, "out": {},
+            "backend": "gloo", "spec": spec}
+
+
+def adapters_finish(prep: dict) -> dict:
+    """Phase 24 after its ranks: the one-process run and the checks."""
+    import shutil
+
+    import torch
+
+    device, root, t0, cuda, out, spec = (prep[k] for k in ("device", "root", "t0", "cuda", "out", "spec"))
+    threads = spec["threads"]
+    ranks = [torch.load(os.path.join(spec["ranks_root"], f"rank{r}.pt"), weights_only=False)
+             for r in range(AD_WORLD)]
+    out["ranks_s"] = ranks[0]["s"]
     log(f"[adapters] the ranks took {out['ranks_s']:.1f} s")
-    ranks = [torch.load(os.path.join(ranks_root, f"rank{r}.pt"), weights_only=False) for r in range(AD_WORLD)]
     t1 = time.perf_counter()
     held = torch.get_num_threads()
     torch.set_num_threads(threads)
@@ -9051,9 +9505,16 @@ def main() -> int:
     log(f"[cli_lane] the NCCL probe and the torchrun command lines of phases 22-24 took {lane.wall_s:.1f} s "
         f"({ {k: round(v, 1) for k, v in lane.seconds.items()} }) beside phases "
         f"{[p for p, t in starts.items() if t < lane.t0 + lane.wall_s]}; phase 22 waited {lane_wait:.1f} s for them")
+    # the rank side of phases 22-24 in one spawn of two ranks, then each phase's
+    # one-process run and checks
     torch.cuda.empty_cache()
-    dp = data_parallel_phase(dev, os.path.join(REPO, "build", "chip_smoke_dp"), volumes=2 * TRAIN_BATCH,
-                             probe=lane.result("nccl_probe"))
+    pairs = [data_parallel_prepare(dev, os.path.join(REPO, "build", "chip_smoke_dp"), volumes=2 * TRAIN_BATCH,
+                                   probe=lane.result("nccl_probe")),
+             space_parallel_prepare(dev, os.path.join(REPO, "build", "chip_smoke_sp")),
+             adapters_prepare(dev, os.path.join(REPO, "build", "chip_smoke_ad"))]
+    pairs_s = spawn_pairs(pairs)
+    log(f"[pairs] the two ranks of phases 22-24 took {pairs_s:.1f} s, one start-up for the three")
+    dp = data_parallel_finish(pairs[0])
     dp["torchrun"] = lane.result("data_parallel")
     dp["card"] = smi
     log_data_parallel(dp, smi)
@@ -9061,7 +9522,7 @@ def main() -> int:
 
     # ---- 23. the space axis over ranks: two ranks on the card, torchrun -----
     torch.cuda.empty_cache()
-    sp23 = space_parallel_phase(dev, os.path.join(REPO, "build", "chip_smoke_sp"))
+    sp23 = space_parallel_finish(pairs[1])
     sp23["torchrun"] = lane.result("space_parallel")
     sp23["card"] = smi
     torch.cuda.empty_cache()
@@ -9071,10 +9532,11 @@ def main() -> int:
         raise AssertionError(f"phase 23 split kernels vs plain at the path shapes: {sp23['table']['per_shape']}")
     log_space_parallel(sp23, smi)
     sp_launches = sp23["launches"]
+    sm_launches = sp23["models_launches"]
 
     # ---- 24. every adapter over the data axis: two ranks, torchrun CLIs ----
     torch.cuda.empty_cache()
-    ad24 = adapters_phase(dev, os.path.join(REPO, "build", "chip_smoke_ad"))
+    ad24 = adapters_finish(pairs[2])
     ad24["torchrun"] = ad_predict_check(cli["manifest"], os.path.join(lane_root, "ad"), lane.result("adapters"))
     shutil.rmtree(cli_root, ignore_errors=True)  # phase 14's fixture: phases 15, 17-19 and 22-24 ran on it
     shutil.rmtree(lane_root, ignore_errors=True)
@@ -9139,6 +9601,7 @@ def main() -> int:
                             "batchnorm": bn_launches["forward"], "serving_artifact": art_launches["forward"],
                             "training_options": opt_launches["forward"], "preprocess": prep_launches["forward"],
                             "data_parallel": dp_launches["forward"], "space_parallel": sp_launches["forward"],
+                            "space_models": sm_launches["forward"],
                             "adapters": ad_launches["forward"], "model_axis": tp_launches["forward"],
                             "expert_axis": ep_launches["forward"]},
                            max_abs_err, {}, "forward")
@@ -9149,7 +9612,8 @@ def main() -> int:
          "transformer": tr_launches["backward"], "batchnorm": bn_launches["backward"],
          "serving_artifact": art_launches["backward"], "training_options": opt_launches["backward"],
          "preprocess": prep_launches["backward"], "data_parallel": dp_launches["backward"],
-         "space_parallel": sp_launches["backward"], "adapters": ad_launches["backward"],
+         "space_parallel": sp_launches["backward"], "space_models": sm_launches["backward"],
+         "adapters": ad_launches["backward"],
          "model_axis": tp_launches["backward"], "expert_axis": ep_launches["backward"]}, backward_err,
         {"note": "the gradient of the TPU kernel's function; dx computed in all 18 timed calls"}, "backward")
     minplus_summary = {
@@ -9160,12 +9624,13 @@ def main() -> int:
         "launches": sum(eval_launches.values()) + train_launches["minplus"] + cli_launches["minplus"]
         + tta_launches["minplus"] + brats_launches["minplus"] + tr_launches["minplus"] + bn_launches["minplus"]
         + opt_launches["minplus"] + prep_launches["minplus"] + dp_launches["minplus"] + sp_launches["minplus"]
-        + ad_launches["minplus"] + ep_launches["minplus"],
+        + sm_launches["minplus"] + ad_launches["minplus"] + ep_launches["minplus"],
         "launches_by_path": {**eval_launches, "train": train_launches["minplus"], "cli": cli_launches["minplus"],
                              "tta": tta_launches["minplus"], "brats": brats_launches["minplus"],
                              "transformer": tr_launches["minplus"], "batchnorm": bn_launches["minplus"],
                              "training_options": opt_launches["minplus"], "preprocess": prep_launches["minplus"],
                              "data_parallel": dp_launches["minplus"], "space_parallel": sp_launches["minplus"],
+                             "space_models": sm_launches["minplus"],
                              "adapters": ad_launches["minplus"], "expert_axis": ep_launches["minplus"]},
         "max_abs_err": minplus_err,
         "ms": edt_ms,

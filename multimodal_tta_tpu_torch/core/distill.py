@@ -10,7 +10,9 @@ params (and buffers) from ``training.distill.checkpoint``, the port's
 reference's ``.msgpack`` raises, ROADMAP.md). The teacher is in inference
 mode, frozen (``requires_grad_(False)``), holds no optimizer state and runs
 under ``torch.no_grad()`` in ``SegTrainer``'s step, on the student's
-normalized and augmented input.
+normalized and augmented input. Over a space axis the teacher runs on the
+same depth slab inside the same ``space.sharded(mesh)``, so it must run
+over the axis itself (``space.require_support``).
 """
 
 from __future__ import annotations
@@ -23,17 +25,20 @@ from torch import nn
 
 from .. import DeviceLike
 from ..conf.node import ConfigNode
+from ..parallel.space import space_size, space_sum
 from ..utils.config import get_config, require_config
 
 
 def kd_loss(student_logits: torch.Tensor, teacher_logits: torch.Tensor, *, sigmoid: bool = True,
-            temperature: float = 2.0, focus: str = "all") -> torch.Tensor:
+            temperature: float = 2.0, focus: str = "all", space=None) -> torch.Tensor:
     """Per-sample [B] KD loss ``T^2 * KL(teacher_T || student_T)`` of NDHWC
     logits: a Bernoulli KL per voxel and channel (sigmoid) or a categorical
     KL over the channel axis (softmax). ``focus="uncertain"`` weights each
     voxel by the teacher's softened prediction entropy, normalized per
     sample; ``"all"`` takes the plain mean. The teacher side carries no
-    gradient."""
+    gradient. Over a space axis (``space``; the logits this rank's depth
+    slab) the value is the slab's part: its sum over the whole volume's
+    count, or over the space group's sum of the weights."""
     t = float(temperature)
     ls = student_logits / t
     lt = teacher_logits.detach() / t
@@ -51,10 +56,12 @@ def kd_loss(student_logits: torch.Tensor, teacher_logits: torch.Tensor, *, sigmo
     if focus == "uncertain":
         w = h_t.detach()
         num = (kl * w).sum(dim=reduce_dims)
-        den = torch.clamp(w.sum(dim=reduce_dims), min=1e-12)
+        den = torch.clamp(space_sum(w.sum(dim=reduce_dims), space), min=1e-12)
         return (t * t) * num / den
     if focus != "all":
         raise ValueError(f"[distill] unknown focus: {focus}")
+    if space is not None:
+        return (t * t) * kl.sum(dim=reduce_dims) / float(kl[0].numel() * space_size(space))
     return (t * t) * kl.mean(dim=reduce_dims)
 
 

@@ -54,8 +54,12 @@ Over a space axis (``mesh.space > 1``) rank ``(d, s)`` holds data rank
 ``d``'s rows and depth slab ``s``: the intensity transform and the model
 run over the split depth (``parallel/space.py``), the per-sample loss is
 the slab's CE over the whole volume's count plus ``1 / space`` of the Dice
-of the space group's sums, and the world's sum of the gradients and the
-loss then holds every rank once. GWDL and distillation raise there.
+(or GWDL) of the space group's sums, and the world's sum of the gradients
+and the loss then holds every rank once. A deep-supervision level that is
+whole is scored on the gathered labels and counted once (``_add_ds_terms``);
+the MoE load balance is the same on every rank of the world and enters
+each loss divided by ``data x space``; the teacher runs on the same slab
+and the KD term is the slab's part.
 """
 
 from __future__ import annotations
@@ -104,15 +108,13 @@ class SegTrainer(TrainerBase):
         if not self.softmax and not self.sigmoid:
             raise ValueError("[SegTrainer] both softmax and sigmoid are False. Set one True.")
         self.space = sp.axis_of(self.mesh)
-        if self.space is not None and str(get_config(crit_cfg, "name", "dice_ce")).lower() != "dice_ce":
-            raise sp.unported(f"the {get_config(crit_cfg, 'name')} criterion")
         self.loss_fn = make_criterion(crit_cfg)
 
         # nnU-Net-style deep supervision: the same loss on the model's aux
         # logits at the k next-coarser decoder levels, against strided
         # (nearest) labels, weights 1/2^k normalized to sum 1
         self.ds_levels = int(get_config(config, "model.deep_supervision", 0))
-        strides = [int(s) for s in get_config(config, "model.strides", [2, 2, 2, 2])]
+        self.strides = strides = [int(s) for s in get_config(config, "model.strides", [2, 2, 2, 2])]
         self.ds_factors = [math.prod(strides[:i]) for i in range(1, self.ds_levels + 1)]
         w = np.array([0.5**k for k in range(self.ds_levels + 1)], np.float64)
         self.ds_weights = [float(x) for x in w / w.sum()]
@@ -127,8 +129,6 @@ class SegTrainer(TrainerBase):
         # bring-up; the teacher is built at the first step
         self.distill = DistillConfig(config)
         self.teacher: Optional[nn.Module] = None
-        if self.distill.enabled and self.space is not None:
-            raise sp.unported("distillation")
 
         self.debug_nans = bool(get_config(config, "training.debug_nans", False))
         self._nan_hooked: set = set()
@@ -193,7 +193,7 @@ class SegTrainer(TrainerBase):
         try:
             with sp.sharded(self.mesh), capture_intermediates(bool(self.ds_levels or self.moe_experts)) as inter:
                 logits = state.model(image)
-            per_sample = self._per_sample(logits, lbl)
+            per_sample = self._per_sample(logits, lbl, self.space)
             if self.ds_levels:
                 missing = [f"ds{k + 1}" for k in range(self.ds_levels) if f"ds{k + 1}" not in inter]
                 if missing:
@@ -203,17 +203,13 @@ class SegTrainer(TrainerBase):
                         "model does not implement deep supervision (models/"
                         "unet3d.py does; set model.deep_supervision=0 for others)"
                     )
-                per_sample = self.ds_weights[0] * per_sample
-                for k, f in enumerate(self.ds_factors):
-                    lb_k = lbl[:, ::f, ::f, ::f]  # nearest-downsampled: the label stays crisp
-                    aux_logits = inter[f"ds{k + 1}"][0]
-                    per_sample = per_sample + self.ds_weights[k + 1] * self._per_sample(aux_logits, lb_k)
+                per_sample = self._add_ds_terms(self.ds_weights[0] * per_sample, inter, lbl)
             if self.distill.enabled:
-                with torch.no_grad():  # the frozen teacher, on the input the student sees
+                with torch.no_grad(), sp.sharded(self.mesh):  # the frozen teacher, on the input the student sees
                     t_logits = self.teacher(image)
                 per_sample = per_sample + self.distill.weight * kd_loss(
                     logits, t_logits, sigmoid=self.sigmoid, temperature=self.distill.temperature,
-                    focus=self.distill.focus)
+                    focus=self.distill.focus, space=self.space)
             # samples past n_valid (a padded batch tail) are masked out;
             # the denominator is the global batch's valid count
             valid = (torch.arange(n, device=per_sample.device) < n_valid).to(torch.float32)
@@ -229,7 +225,8 @@ class SegTrainer(TrainerBase):
                         "others)"
                     )
                 # the same value on every rank: its share of the summed loss
-                loss = loss + self.moe_aux_weight * torch.stack(aux).mean() / world
+                ranks = world * sp.space_size(self.space)
+                loss = loss + self.moe_aux_weight * torch.stack(aux).mean() / ranks
                 self.moe_stats = {"aux": torch.stack(aux).detach(),
                                   "dropped": torch.stack(inter["moe_dropped"]).detach()}
             # a rematerialized segment runs its forward again in the backward
@@ -259,9 +256,32 @@ class SegTrainer(TrainerBase):
             p.grad = g
         return total[0].to(loss.dtype)
 
-    def _per_sample(self, logits: torch.Tensor, lbl: torch.Tensor) -> torch.Tensor:
-        kw = {} if self.space is None else {"space": self.space}
+    def _per_sample(self, logits: torch.Tensor, lbl: torch.Tensor, space=None) -> torch.Tensor:
+        """The loss of each sample; ``space``: the logits and labels are this
+        rank's depth slabs (each value the slab's part)."""
+        kw = {} if space is None else {"space": space}
         return torch.stack([self.loss_fn(logits[i:i + 1], lbl[i:i + 1], **kw) for i in range(logits.shape[0])])
+
+    def _add_ds_terms(self, per_sample: torch.Tensor, inter: dict, lbl: torch.Tensor) -> torch.Tensor:
+        """``per_sample`` plus the weighted deep-supervision terms against labels
+        sliced ``::f`` (nearest-downsampled: the label stays crisp). Over a
+        space axis a split level's logits are this rank's slab, and so is
+        its slab of the labels ``[::f]`` (a split level's slab length is a
+        multiple of f); a whole level's logits are every rank's alike, so
+        its term is taken from the gathered labels and counted once, as
+        ``1 / space`` of it on each rank."""
+        axes = sp.level_axes(self.space, lbl.shape[1], self.strides)
+        whole_lbl = None
+        for k, f in enumerate(self.ds_factors):
+            aux_logits = inter[f"ds{k + 1}"][0]
+            if self.space is not None and axes[k + 1] is None:
+                if whole_lbl is None:
+                    whole_lbl = sp.all_gather_cat(lbl, 1, self.space.size, self.space.group)
+                term = self._per_sample(aux_logits, whole_lbl[:, ::f, ::f, ::f]) / self.space.size
+            else:
+                term = self._per_sample(aux_logits, lbl[:, ::f, ::f, ::f], self.space)
+            per_sample = per_sample + self.ds_weights[k + 1] * term
+        return per_sample
 
     def prepare(self) -> None:
         """Build the distillation teacher and hook the NaN checks (each
@@ -274,6 +294,7 @@ class SegTrainer(TrainerBase):
                     "to initialize the teacher"
                 )
             self.teacher = build_teacher(self.config, self.device, [int(x) for x in image_size])
+            sp.require_support(self.teacher, self.mesh)
             self.logger.info(
                 f"[distill] teacher {get_config(self.distill.model, 'name')} "
                 f"loaded from {self.distill.checkpoint} "

@@ -36,7 +36,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.fused_instance_norm import fused_instance_norm, instance_norm_plain, split_instance_norm
-from ..parallel.space import halo_exchange, slice_depth, space_sum, unported
+from ..parallel.space import halo_exchange, slice_depth, space_sum
 
 IntOr3 = Union[int, Sequence[int]]
 
@@ -148,7 +148,16 @@ class GroupNorm(nn.Module):
     """flax ``nn.GroupNorm`` (``math.gcd(8, C)`` groups, eps 1e-5) or, with
     ``groups=None``, ``nn.LayerNorm`` over the channels: statistics and
     affine in f32, the output cast back to the input's dtype, as flax does
-    for a bf16 input. 1-D ``scale`` and ``bias``, the reference's names."""
+    for a bf16 input. 1-D ``scale`` and ``bias``, the reference's names.
+
+    Over a split depth (``space``) a group's statistics span the space
+    group in two passes, as ``F.group_norm`` takes them in one process: the
+    slabs' per (sample, group) sums of x meet (``space_sum``, with their
+    gradient) for the mean, then their sums of the squared deviations from
+    it for the variance. flax takes E[x^2] - E[x]^2 in one pass, which
+    loses f32 precision where a group's mean is large against its spread
+    (SegResNet's residual stream). The layer norm is per voxel and takes no
+    collective."""
 
     def __init__(self, features: int, groups=None, epsilon: float = 1e-5):
         super().__init__()
@@ -157,14 +166,32 @@ class GroupNorm(nn.Module):
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
 
-    def forward(self, x: torch.Tensor, relu: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, relu: bool = False, space=None) -> torch.Tensor:
         xf = x.float()
         if self.groups is None:
             y = F.layer_norm(xf.movedim(1, -1), (xf.shape[1],), self.scale, self.bias,
                              self.epsilon).movedim(-1, 1)
-        else:
+        elif space is None:
             y = F.group_norm(xf, self.groups, self.scale, self.bias, self.epsilon)
+        else:
+            y = _split_group_norm(xf, self.groups, self.scale, self.bias, self.epsilon, space)
         return (F.relu(y) if relu else y).to(x.dtype)
+
+
+def _split_group_norm(x: torch.Tensor, groups: int, scale: torch.Tensor, bias: torch.Tensor, eps: float,
+                      space) -> torch.Tensor:
+    """Group norm of an f32 ``[B, C, d, H, W]`` slab of a depth split over
+    ``space``: the space group's sums per (sample, group), the mean, then
+    the squared deviations from it."""
+    v = x.movedim(1, -1)  # NDHWC (a free view of channels_last_3d memory)
+    b, c = x.shape[:2]
+    xg = v.reshape(b, -1, groups, c // groups)  # a group: consecutive channels
+    n = float(xg.shape[1] * xg.shape[3] * space.size)
+    mean = (space_sum(xg.sum(dim=(1, 3)), space, grad=True) / n)[:, None, :, None]
+    dev = xg - mean
+    var = (space_sum(dev.square().sum(dim=(1, 3)), space, grad=True) / n)[:, None, :, None]
+    y = dev * torch.rsqrt(var + eps)
+    return (y.reshape(v.shape) * scale + bias).movedim(-1, 1)
 
 
 class LayerNorm(nn.Module):
@@ -226,10 +253,14 @@ class BatchNorm(nn.Module):
     BatchNorm updates with the unbiased variance and is not used.
 
     Over ranks (``pool_over_ranks``): the per-channel sums of x and x^2 are
-    summed over the data axis before the statistics are formed, over the
-    global padded batch (every rank holds as many rows), as XLA computes
-    the reference's statistics on a sharded batch; every rank then moves
-    the same running statistics."""
+    summed over the data and space axes before the statistics are formed,
+    over the global padded batch (every rank holds as many rows) and the
+    whole depth, as XLA computes the reference's statistics on a sharded
+    batch; every rank then moves the same running statistics. A level that
+    is whole over a space axis is held alike by the space group's ranks:
+    its sums and count both take the group's size as a factor, so the
+    statistics are the same, and each rank's share of their gradient is
+    ``1 / space`` of it, as for every whole level."""
 
     momentum = 0.9  # every BatchNorm of the reference
     pools_over_ranks = True
@@ -268,11 +299,12 @@ class BatchNorm(nn.Module):
 
 
 def pooled_sums(t: torch.Tensor, mesh) -> Tuple[torch.Tensor, int]:
-    """``t`` summed over the data axis of ``mesh`` (differentiable) and the
-    rank count; ``(t, 1)`` without one (``pool_over_ranks``)."""
+    """``t`` summed over the data and space axes of ``mesh``
+    (differentiable) and their rank count; ``(t, 1)`` without a mesh
+    (``pool_over_ranks``)."""
     if mesh is None:
         return t, 1
-    return mesh.sum_with_grad(t), mesh.data
+    return mesh.sum_with_grad(t), mesh.data * mesh.space
 
 
 def pool_over_ranks(model: nn.Module, mesh) -> None:
@@ -364,14 +396,13 @@ class Norm(nn.Module):
             raise ValueError(f"Unknown norm '{kind}'")
 
     def forward(self, x: torch.Tensor, relu: bool = False, space=None) -> torch.Tensor:
-        """``space``: the level's space axis over a split depth, which the
-        instance norm alone takes so far (and no norm at all)."""
+        """``space``: the level's space axis over a split depth. A BatchNorm
+        pools over the mesh's data and space axes whether its level is
+        split or whole (``pool_over_ranks``), so it takes no axis."""
         if self.norm is None:
             return F.relu(x) if relu else x
-        if space is None:
+        if space is None or isinstance(self.norm, BatchNorm):
             return self.norm(x, relu=relu)
-        if not isinstance(self.norm, InstanceNorm):
-            raise unported(type(self.norm).__name__)
         return self.norm(x, relu=relu, space=space)
 
 

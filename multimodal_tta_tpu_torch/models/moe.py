@@ -46,6 +46,17 @@ balance reads the gates before that ``copy_to``: it is whole on every rank,
 and its gradient enters once. The sum replaces the reference's all-to-all:
 that pays only when rows are split over the expert group too, and the
 reference does not split them.
+
+Over a split depth (``forward(x, space)``; the flagship's bottleneck at
+BraTS's depth) each rank holds a contiguous block of every sample's token
+sequence, in rank order. The capacity is the whole sequence's; a token's
+buffer position adds the earlier ranks' counts of its expert (an exclusive
+prefix over the space group), and with k=2 a second choice queues behind
+the whole sequence's first choices, so routing and drops are one
+process's token for token. The expert FFN is per token: a rank runs it on
+its own kept tokens, and no buffer is gathered. The load balance's sums
+meet over the data and space axes (``pool_over_ranks``), so ``f_e``,
+``P_e`` and the dropped share are the global means.
 """
 
 from __future__ import annotations
@@ -57,6 +68,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.space import space_prefix, space_size
 from ..parallel.tensor import copy_to, narrow_param, reduce_from
 from .layers import pooled_sums, sow
 
@@ -78,9 +90,13 @@ def capacity(n: int, num_experts: int, k: int, capacity_factor: float) -> int:
     return max(1, min(int(math.ceil(capacity_factor * k * n / num_experts)), n))
 
 
-def dispatch_combine(gates: torch.Tensor, k: int, cap: int):
+def dispatch_combine(gates: torch.Tensor, k: int, cap: int, space=None):
     """The ``[B, N, E, C]`` dispatch and combine tensors (f32) and the top-k
-    indices, from the router's softmax ``gates`` [B, N, E]."""
+    indices, from the router's softmax ``gates`` [B, N, E]. Over a split
+    token axis (``space``: this rank's block of each sample's sequence, in
+    rank order) a token's buffer position also counts the earlier ranks'
+    choices of its expert (``space_prefix``), and a second choice queues
+    behind the whole sequence's first choices."""
     b, n, e = gates.shape
     top_g, top_i = route(gates, k)
     if k > 1:
@@ -90,14 +106,15 @@ def dispatch_combine(gates: torch.Tensor, k: int, cap: int):
     combine = gates.new_zeros(b, n, e, cap)
     for j in range(k):
         oh_e = F.one_hot(top_i[..., j], e).to(gates.dtype)  # [B, N, E]
-        pos_e = torch.cumsum(oh_e, dim=1) - 1.0 + counts[:, None, :]
+        before, total = space_prefix(oh_e.sum(dim=1), space)  # [B, E]: earlier ranks', the sequence's
+        pos_e = torch.cumsum(oh_e, dim=1) - 1.0 + (counts + before)[:, None, :]
         pos = (pos_e * oh_e).sum(dim=-1)  # [B, N]
         keep = (pos < cap).to(gates.dtype)
         oh_c = F.one_hot(pos.long().clamp(max=cap - 1), cap).to(gates.dtype)
         d_j = oh_e[..., None] * oh_c[:, :, None, :] * keep[..., None, None]
         dispatch = dispatch + d_j
         combine = combine + d_j * top_g[..., j][..., None, None]
-        counts = counts + oh_e.sum(dim=1)
+        counts = counts + total
     return dispatch, combine, top_i
 
 
@@ -132,13 +149,15 @@ class MoEMlp(nn.Module):
             narrow_param(self, name, 0, block, axis)
         self.ep, self.first = axis, block.start
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, space=None) -> torch.Tensor:
+        """``space``: the space axis when ``x`` [B, n, H] is this rank's
+        block of each sample's sequence (a split depth's tokens)."""
         b, n, _ = x.shape
         e, k, dt = self.num_experts, self.k, self.dtype
-        cap = capacity(n, e, k, self.capacity_factor)
+        cap = capacity(n * space_size(space), e, k, self.capacity_factor)  # the whole sequence's
         # the router in f32 whatever the compute dtype
         gates = torch.softmax(F.linear(x.float(), self.router.weight, self.router.bias), dim=-1)
-        dispatch, combine, top_i = dispatch_combine(copy_to(gates, self.ep), k, cap)
+        dispatch, combine, top_i = dispatch_combine(copy_to(gates, self.ep), k, cap, space)
         top1 = F.one_hot(top_i[..., 0], e).to(gates.dtype)
         # the reference's means over the (global, padded) batch: over ranks
         # the sums meet BEFORE the product

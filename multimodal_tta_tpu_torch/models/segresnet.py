@@ -13,6 +13,14 @@ Remat: ``True`` all stages, an int n the n highest-resolution ones (a
 decoder stage counts as the stage it upsamples to). With 4 inputs and 3
 classes: 83 parameter tensors, 50 of them norm affines. ``forward`` takes
 and returns NDHWC.
+
+Over the space axis (``parallel/space.py``) ``x`` is this rank's depth
+slab and each stage's level is split or whole by the flagship's rule
+(``space.level_axes``, strides 2): the 3x3x3 convs take halos, a ``down``
+conv whose output level is whole takes its input gathered, the group norms'
+statistics span the space group (``layers.GroupNorm``), and a decoder
+stage that upsamples a whole level into a split one keeps its slab of the
+repeat before the additive skip.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ from torch import nn
 from .. import DeviceLike, resolve_device
 from ..registry import register_model
 from ..utils.config import get_config
+from ..parallel import space as sp
 from .layers import Norm, check_dropout, conv3d_same, get_act, head_linear, remat_call, repeat_nearest
 from .unet3d import finish_model
 
@@ -42,17 +51,20 @@ class PreActResBlock(nn.Module):
         self.n1 = Norm(norm, features)
         self.conv1 = nn.Conv3d(features, features, 3, bias=False)
 
-    def _norm_act(self, n: Norm, x: torch.Tensor) -> torch.Tensor:
-        return n(x, relu=True) if self.relu else self.act(n(x))
+    def _norm_act(self, n: Norm, x: torch.Tensor, space) -> torch.Tensor:
+        return n(x, relu=True, space=space) if self.relu else self.act(n(x, space=space))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = conv3d_same(self._norm_act(self.n0, x), self.conv0, self.dtype)
-        y = conv3d_same(self._norm_act(self.n1, y), self.conv1, self.dtype)
+    def forward(self, x: torch.Tensor, space=None) -> torch.Tensor:
+        """``space``: the level's space axis when ``x`` is a depth slab."""
+        y = conv3d_same(self._norm_act(self.n0, x, space), self.conv0, self.dtype, space)
+        y = conv3d_same(self._norm_act(self.n1, y, space), self.conv1, self.dtype, space)
         return x + y
 
 
 @register_model("segresnet")
 class SegResNet(nn.Module):
+    space_ported = True  # runs over the space axis (parallel/space.py)
+
     def __init__(
         self,
         in_channels: int = 2,
@@ -123,29 +135,39 @@ class SegResNet(nn.Module):
             raise ValueError(f"SegResNet expects {self.in_channels} input channels, got {x.shape[-1]}")
         n_stages = len(self.blocks_down)
         total_stride = 2 ** (n_stages - 1)
+        space = sp.current()
         for ax, dim in enumerate(x.shape[1:4]):
+            dim = dim * (sp.space_size(space) if ax == 0 else 1)  # the whole depth
             if dim % total_stride != 0:
                 raise ValueError(f"SegResNet spatial dim {ax} = {dim} must be divisible by "
                                  f"{total_stride} ({n_stages} stages)")
         stages = n_stages if self.remat is True else int(self.remat or 0)
+        axes = sp.level_axes(space, x.shape[1], [2] * (n_stages - 1))  # each stage's axis, None where whole
         x = x.to(self.dtype).permute(0, 4, 1, 2, 3)  # NCDHW view of NDHWC memory
-        h = conv3d_same(x, self.stem, self.dtype)
+        h = conv3d_same(x, self.stem, self.dtype, axes[0])
         check_dropout(self, self.dropout)
 
         skips = []
         for i, n_blocks in enumerate(self.blocks_down):
             if i > 0:
-                h = conv3d_same(h, getattr(self, f"down{i}"), self.dtype)
+                if axes[i - 1] is not None and axes[i] is None:
+                    h = sp.gather_depth(h, space)  # the stage's level is whole
+                h = conv3d_same(h, getattr(self, f"down{i}"), self.dtype, axes[i])
             for b in range(n_blocks):
-                h = remat_call(getattr(self, f"enc{i}_{b}"), h, enabled=i < stages)
+                h = remat_call(getattr(self, f"enc{i}_{b}"), h, axes[i], enabled=i < stages)
             skips.append(h)
 
         for j, n_blocks in enumerate(self.blocks_up):
             i = n_stages - 1 - j
-            h = conv3d_same(h, getattr(self, f"up_proj{i}"), self.dtype)
-            h = repeat_nearest(h, (2, 2, 2)) + skips[i - 1]
+            h = repeat_nearest(conv3d_same(h, getattr(self, f"up_proj{i}"), self.dtype, axes[i]), (2, 2, 2))
+            if axes[i] is None and axes[i - 1] is not None:
+                h = sp.slice_depth(h, space)  # this rank's slab of the whole level's repeat
+            h = h + skips[i - 1]
             for b in range(n_blocks):
-                h = remat_call(getattr(self, f"dec{i}_{b}"), h, enabled=i - 1 < stages)
+                h = remat_call(getattr(self, f"dec{i}_{b}"), h, axes[i - 1], enabled=i - 1 < stages)
 
-        h = self.final_norm(h, relu=True) if self.relu else self.act(self.final_norm(h))
+        if self.relu:
+            h = self.final_norm(h, relu=True, space=axes[0])
+        else:
+            h = self.act(self.final_norm(h, space=axes[0]))
         return head_linear(h, self.head)

@@ -26,7 +26,12 @@ Over the space axis (``parallel/space.py``, ambient inside
 split or whole by the reference's rule (``space.level_axes``), an encoder
 stage whose output level is whole takes its input gathered, and an ``up``
 whose output level is split keeps its slab of the whole output; the skip
-concatenation is local. MoE and deep supervision raise there.
+concatenation is local. The bottleneck MoE takes the bottleneck level's
+axis: a split level's tokens are this rank's block of each sequence
+(``models/moe.py``), a whole level's are every rank's alike. A ``ds{i}``
+head is per voxel: on a split level it sows this rank's slab of the
+logits, on a whole level the whole logits (``SegTrainer`` counts such a
+term once).
 """
 
 from __future__ import annotations
@@ -187,15 +192,11 @@ class UNet3D(nn.Module):
             skips.append(h)
         h = remat_call(self.bottleneck, h, axes[n], enabled=n < levels)
         if self.moe_experts > 0:
-            if space is not None:
-                raise sp.unported("the UNet3D bottleneck's MoE")
             b, c = h.shape[:2]
             tokens = h.permute(0, 2, 3, 4, 1).reshape(b, -1, c)  # [B, D*H*W, C] in flax's raster order
-            tokens = tokens + self.moe_bottleneck(self.moe_ln(tokens))
+            tokens = tokens + self.moe_bottleneck(self.moe_ln(tokens), space=axes[n])
             h = tokens.reshape(b, *h.shape[2:], c).permute(0, 4, 1, 2, 3)
         heads = self.training and capturing()
-        if heads and self.ds_levels and space is not None:
-            raise sp.unported("deep supervision")
         for i in reversed(range(n)):
             h = getattr(self, f"up{i}")(h)
             if axes[i + 1] is None and axes[i] is not None:

@@ -11,6 +11,14 @@
 At full width (channels 32..512): 72 parameter tensors, 32 of them norm
 affines, 16 norm calls a forward. ``remat`` is accepted and, as in the
 reference, not used. ``forward`` takes and returns NDHWC.
+
+Over the space axis (``parallel/space.py``) ``x`` is this rank's depth
+slab. The levels are the input's, the stem's half resolution, then the
+body's by ``strides[1:]``, each split or whole by the flagship's rule
+(``space.level_axes``). On a split stem level the space-to-depth packing
+and the head's unpacking are local (an even slab packs to its half); on a
+whole one the input is gathered first and the logits sliced back to this
+rank's slab. The body's transitions are the flagship's.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ from torch import nn
 from .. import DeviceLike, resolve_device
 from ..registry import register_model
 from ..utils.config import get_config
+from ..parallel import space as sp
 from .layers import ResidualUnit, TransposedConvUp, head_linear
 from .unet3d import finish_model
 
@@ -46,6 +55,8 @@ def depth_to_space_3d(x: torch.Tensor, r: int = 2) -> torch.Tensor:
 
 @register_model("unet_ws")
 class UNet3DWS(nn.Module):
+    space_ported = True  # runs over the space axis (parallel/space.py)
+
     def __init__(
         self,
         in_channels: int = 2,
@@ -107,18 +118,31 @@ class UNet3DWS(nn.Module):
         """x: [B, D, H, W, C_in] -> logits [B, D, H, W, num_classes] (f32)."""
         if x.shape[-1] != self.in_channels:
             raise ValueError(f"UNet3DWS expects {self.in_channels} channels, got {x.shape[-1]}")
+        space = sp.current()
         for ax, dim in enumerate(x.shape[1:4]):
+            dim = dim * (sp.space_size(space) if ax == 0 else 1)  # the whole depth
             if dim % (2 * 2 ** (len(self.strides) - 1)) != 0:
                 raise ValueError(f"spatial dim {ax}={dim} not divisible for the WS stem + strides")
         n = len(self.strides) - 1
-        h = space_to_depth_3d(x.to(self.dtype), 2).contiguous().permute(0, 4, 1, 2, 3)
-        h = self.stem(h)
+        # the input level, the stem's half resolution, then the body's levels
+        axes = sp.level_axes(space, x.shape[1], (2,) + self.strides[1:])
+        gathered = axes[0] is not None and axes[1] is None
+        x = x.to(self.dtype)
+        if gathered:
+            x = sp.gather_depth(x, space, dim=1)  # the stem level is whole
+        h = space_to_depth_3d(x, 2).contiguous().permute(0, 4, 1, 2, 3)
+        h = self.stem(h, axes[1])
         skips = [h]
         for i in range(n):
-            h = getattr(self, f"enc{i}")(h)
+            if axes[i + 1] is not None and axes[i + 2] is None:
+                h = sp.gather_depth(h, space)  # the stage's output level is whole
+            h = getattr(self, f"enc{i}")(h, axes[i + 2])
             skips.append(h)
-        h = self.bottleneck(h)
+        h = self.bottleneck(h, axes[n + 1])
         for i in reversed(range(n)):
             h = getattr(self, f"up{i}")(h)
-            h = getattr(self, f"dec{i}")(torch.cat([h, skips[i]], dim=1))
-        return depth_to_space_3d(head_linear(h, self.head), 2)
+            if axes[i + 2] is None and axes[i + 1] is not None:
+                h = sp.slice_depth(h, space)  # this rank's slab of a whole level's output
+            h = getattr(self, f"dec{i}")(torch.cat([h, skips[i]], dim=1), axes[i + 1])
+        out = depth_to_space_3d(head_linear(h, self.head), 2)
+        return sp.slice_depth(out, space, dim=1) if gathered else out

@@ -8,6 +8,10 @@
 
 At full width with 4 modalities: 328 parameter tensors, 144 of them norm
 affines, 72 norm calls a forward. ``remat`` goes to every tower.
+
+Over the space axis (``parallel/space.py``) each tower is a ``UNet3D`` on
+this rank's depth slab of its modality, so the average is this slab's of
+the whole logits.
 """
 
 from __future__ import annotations
@@ -29,6 +33,8 @@ register_model("unet_multimodal_mid")(MultimodalUNetMidFusion)
 @register_model("unet_multimodal_late")
 @register_model("unet_multimodal_latefusion")
 class MultimodalUNetLateFusion(nn.Module):
+    space_ported = True  # runs over the space axis (parallel/space.py)
+
     def __init__(
         self,
         num_modalities: int = 4,

@@ -233,6 +233,7 @@ def generalized_wasserstein_dice_loss(
     *,
     background_index: int = 0,
     smooth: float = 1e-5,
+    space=None,
 ) -> torch.Tensor:
     """Generalized Wasserstein Dice Loss (Fidon et al., BrainLes 2017),
     softmax label-map formulation. With the class-distance matrix ``M``
@@ -240,6 +241,8 @@ def generalized_wasserstein_dice_loss(
     the generalized true positives ``TP = sum_i M[y_i, b] * (M[y_i, b] -
     delta_i)`` and the loss ``1 - (2 TP + s) / (2 TP + sum_i delta_i + s)``,
     averaged over the batch. With ``M = 1 - I`` it is foreground soft Dice.
+    Over a space axis the per-sample sums are the space group's, and the
+    value ``1 / space`` of it, as for ``soft_dice_loss``.
 
     logits: [B, *spatial, C]; label: [B, *spatial] int class map."""
     M = torch.as_tensor(distance_matrix, dtype=torch.float32, device=logits.device)
@@ -257,8 +260,10 @@ def generalized_wasserstein_dice_loss(
     b = logits.shape[0]
     tp = (gamma * (gamma - delta)).reshape(b, -1).sum(dim=-1)
     all_error = delta.reshape(b, -1).sum(dim=-1)
+    if space is not None:
+        tp, all_error = space_sum(torch.stack([tp, all_error]), space, grad=True)
     wasserstein_dice = (2.0 * tp + smooth) / (2.0 * tp + all_error + smooth)
-    return (1.0 - wasserstein_dice).mean()
+    return (1.0 - wasserstein_dice).mean() / space_size(space)
 
 
 def gwdl_ce_loss(
@@ -270,17 +275,18 @@ def gwdl_ce_loss(
     smooth: float = 1e-5,
     lambda_ce: float = 0.0,
     ce_weight: Union[Sequence[float], torch.Tensor, None] = None,
+    space=None,
 ) -> torch.Tensor:
     """GWDL optionally combined with voxel CE: ``gwdl + lambda_ce * CE``
     (class-weighted with ``ce_weight``, which keeps a rare class from being
     abandoned when its transport cost to a neighbour is cheap)."""
     loss = generalized_wasserstein_dice_loss(
-        logits, label, distance_matrix, background_index=background_index, smooth=smooth)
+        logits, label, distance_matrix, background_index=background_index, smooth=smooth, space=space)
     if lambda_ce:
         w = None if ce_weight is None else torch.as_tensor(ce_weight, dtype=torch.float32,
                                                            device=logits.device)
         loss = loss + lambda_ce * softmax_cross_entropy(
-            logits.float(), label.to(torch.int64), class_weight=w)
+            logits.float(), label.to(torch.int64), class_weight=w, space=space)
     return loss
 
 
@@ -315,9 +321,9 @@ def make_gwdl_loss(crit_cfg) -> Callable:
     )
     tables = (_Constant(matrix), None if ce_weight is None else _Constant([float(x) for x in list(ce_weight)]))
 
-    def gwdl(logits, label):
+    def gwdl(logits, label, space=None):
         m, w = (None if t is None else t.on(logits, torch.float32) for t in tables)
-        return loss(logits, label, distance_matrix=m, ce_weight=w)
+        return loss(logits, label, distance_matrix=m, ce_weight=w, space=space)
 
     return gwdl
 

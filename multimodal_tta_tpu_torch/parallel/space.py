@@ -24,7 +24,10 @@ over ``space`` ranks computes what one process computes on whole volumes:
     without a gradient (counts, statistics of the input), or with the sum's
     gradient (``grad=True``: the backward all-reduces the gradient), for a
     term that every rank computes alike from the global sums and divides
-    by ``space`` (Dice's ratio, a global mean's share).
+    by ``space`` (Dice's ratio, a global mean's share);
+  * ``space_prefix`` gives each rank the exclusive prefix sum of a count
+    over the earlier ranks (rank order is depth order) and the group's
+    total: a split MoE's buffer positions (``models/moe.py``).
 
 Every collective is an ``all_gather`` or an ``all_reduce`` over the space
 group, which gloo and NCCL both take for CUDA tensors. ``sharded(mesh)``
@@ -125,8 +128,8 @@ def unported(what: str, item: str = UNPORTED_ITEM) -> NotImplementedError:
 
 
 def require_support(model, mesh) -> None:
-    """Raise unless ``model`` runs over the space axis of ``mesh`` (the
-    flagship UNet3D and the mid-fusion UNet do: ``space_ported``)."""
+    """Raise unless ``model`` runs over the space axis of ``mesh`` (every
+    conv segmenter does: ``space_ported``; the transformers do not)."""
     if axis_of(mesh) is not None and not getattr(model, "space_ported", False):
         raise unported(f"the model {type(model).__name__}")
 
@@ -285,5 +288,22 @@ def space_size(ax: Optional[SpaceAxis]) -> int:
     return 1 if ax is None else ax.size
 
 
+def space_prefix(t: torch.Tensor, ax: Optional[SpaceAxis]):
+    """The exclusive prefix sum of ``t`` over the space group in rank order
+    (rank order is depth order: the earlier ranks' part), and the group's
+    total; no gradient. Without an axis: zeros and ``t``."""
+    if ax is None:
+        return torch.zeros_like(t), t
+    parts = [torch.empty_like(t) for _ in range(ax.size)]
+    dist.all_gather(parts, t.detach().contiguous(), group=ax.group)
+    prefix = torch.zeros_like(t)
+    for p in parts[:ax.rank]:
+        prefix = prefix + p
+    total = prefix.clone()
+    for p in parts[ax.rank:]:
+        total = total + p
+    return prefix, total
+
+
 __all__ = ["SpaceAxis", "axis_of", "sharded", "current", "splits", "level_axes", "require_support", "unported",
-           "all_gather_cat", "gather_depth", "slice_depth", "halo_exchange", "space_sum", "space_size"]
+           "all_gather_cat", "gather_depth", "slice_depth", "halo_exchange", "space_sum", "space_size", "space_prefix"]

@@ -9,8 +9,8 @@ statistics, continual mode carries them. ``restore()`` puts the source
 statistics back. Models without batch statistics (the InstanceNorm ones)
 pass through unchanged, with a warning, in both modes. Over ranks
 (``mesh``) the statistics pool over the ranks' rows
-(``models/layers.py:pool_over_ranks``); over a space axis a BatchNorm
-raises (``parallel/space.py``).
+(``models/layers.py:pool_over_ranks``), over a space axis the depth
+slabs' too (``parallel/space.py``): every rank moves the same statistics.
 """
 
 from __future__ import annotations

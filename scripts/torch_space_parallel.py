@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """chip_smoke.py's phase 23 alone: the space axis over ranks on one CUDA card.
 
-    python3 scripts/torch_space_parallel.py [--kernels] [--no-cli] [--witnesses]
+    python3 scripts/torch_space_parallel.py [--kernels] [--no-cli] [--witnesses] [--models]
 
 Builds the CUDA kernels and holds the four split-depth norm entries
 (``stats``, ``apply``, ``bwd_sums``, ``bwd_apply``) against their plain
@@ -12,7 +12,8 @@ versions at the split norm shapes of one flagship training forward at batch
 (``training.devices=[0, 0]``, gloo) on a ``data=1 x space=2`` mesh against
 one process on the same global batches (the flagship at full width: training,
 validation, Tent online and strict, ``TTAEngine.evaluate``; one mid-fusion
-training step at BraTS size), each rank's launches exactly, its split
+training step at BraTS size; the other models, norms and training options
+below), each rank's launches exactly, its split
 kernels against their plain versions, its peak memory against one process's;
 then, unless ``--no-cli``, ``cli.train`` and ``cli.adapt`` under ``python -m
 torch.distributed.run --nproc_per_node=2`` with ``training.mesh.space=2`` on
@@ -20,19 +21,33 @@ a HECKTOR21 fixture written here at (144,144,48). Prints the card's name and
 power limit, the phase's lines, and as the last line one JSON object with
 its numbers. Needs a CUDA card.
 
+``--models`` runs the phase without the kernel table and the command
+lines, and prints the lines of its other models, norms and training
+options (``chip_smoke.sm_run``, ``SM_CASES``): late fusion with remat and
+the flagship with deep supervision and 4 bottleneck experts on
+[1,160,192,160,4], UNet3D-WS distilled from a flagship teacher, SegResNet,
+the BatchNorm flagship and the flagship with GWDL on [2,48,144,144,2],
+each over the two ranks against one process (training, Tent, ``norm`` and
+evaluated batches as the phase runs them), then each model's bf16 step.
+
 ``--witnesses`` (instead of the phase) reads how sensitive phase 23's
 mid-fusion step is to the order of its sums, in one process: the gradients
 of that f32 step (BraTS size, remat, TF32 off) taken again with cuDNN's
 deterministic algorithms (its weight gradients reduced in another order)
 and with the plain norm (the statistics summed by torch's reductions
-instead of the kernel's), each as a relative L2 from the first. These are
-what ``chip_smoke.SP_MID_GRAD_REL`` rests on.
+instead of the kernel's), each as a relative L2 from the first; and the
+BatchNorm flagship's first step of ``--models`` again with cuDNN's
+deterministic algorithms, again with its defaults, and with each BatchNorm
+sum taken as the sum of its two depth halves' (the order a split depth
+sums in). These are what
+``chip_smoke.SP_MID_GRAD_REL`` and ``SM_GRAD_REL`` rest on.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+from unittest import mock
 import os
 import shutil
 import subprocess
@@ -81,11 +96,77 @@ def mid_witnesses(dev) -> dict:
             for key, det, plain in (("cudnn_deterministic", True, False), ("plain_norm", False, True))}
 
 
+def bn_witnesses(dev) -> dict:
+    """The BatchNorm flagship's first f32 step of phase 23's space models
+    (``chip_smoke.sm_run``'s ``batchnorm`` case, one process) on an
+    ill-conditioned batch: its gradients again with cuDNN's deterministic
+    algorithms, again with the defaults, and with each BatchNorm sum taken
+    over two depth halves, each as a relative L2 from the default run's.
+    What ``chip_smoke.SM_GRAD_REL["batchnorm"]`` rests on."""
+    import torch
+
+    import chip_smoke
+    from multimodal_tta_tpu_torch.conf import ConfigNode
+    from multimodal_tta_tpu_torch.core.optim import EpochScheduler, build_optimizer
+    from multimodal_tta_tpu_torch.core.train_state import TrainState
+    from multimodal_tta_tpu_torch.core.trainers.seg_trainer import SegTrainer
+    from multimodal_tta_tpu_torch.models import layers
+    from multimodal_tta_tpu_torch.registry import get_model
+
+    criterion = chip_smoke.train_recipe(os.path.join(REPO, "build", "witness_recipe"))["training"]["criterion"]
+    node = dict(chip_smoke.model_node("unet"), norm="BATCH")
+    cfg = ConfigNode(chip_smoke.sm_config(node, criterion, "float32", remat=False))
+    # HECKTOR21 volumes of seed SM_SEED: a batch on which two ranks' BN step
+    # sits 1.27e-4 from one process's (phase 23's own batch: 2.5e-6)
+    vols = chip_smoke.hecktor_volumes(chip_smoke.SM_HECKTOR_VOLUMES, chip_smoke.SM_SEED)
+    batch = chip_smoke.sm_batches({"sm_hecktor": vols}, "hecktor")[0]
+
+    stock_sum = torch.Tensor.sum
+
+    def halves(x, *a, **k):
+        """``x.sum(dims)`` taken as the sum of its two depth halves' sums
+        where the depth (dim 2 of a 5-D tensor) is even and reduced: the
+        order a split depth sums in."""
+        dims = a[0] if a else k.get("dim")
+        if x.dim() == 5 and isinstance(dims, (list, tuple)) and 2 in dims and x.shape[2] % 2 == 0:
+            d = x.shape[2] // 2
+            return stock_sum(x.narrow(2, 0, d), *a, **k) + stock_sum(x.narrow(2, d, d), *a, **k)
+        return stock_sum(x, *a, **k)
+
+    def grads(deterministic: bool, split_sums: bool = False) -> dict:
+        torch.backends.cudnn.deterministic = deterministic
+        stock = layers.BatchNorm.forward
+
+        def forward(self, x, relu=False):
+            with mock.patch.object(torch.Tensor, "sum", halves):
+                return stock(self, x, relu)
+
+        try:
+            if split_sums:
+                layers.BatchNorm.forward = forward
+            model = get_model("unet").from_config(cfg.model, device=dev, seed=chip_smoke.SM_SEED)
+            optimizer, lr = build_optimizer(cfg.training, model, None)
+            trainer = SegTrainer(cfg, device_transform=chip_smoke.DEVICE_TRANSFORM, device=dev)
+            trainer.setup(TrainState(model=model, optimizer=optimizer), None, EpochScheduler(cfg.training, lr))
+            trainer.state.apply_gradients = lambda: False
+            trainer.run_step({"image": batch["image"], "label": batch["label"]})
+            return {n: p.grad.detach().clone() for n, p in model.named_parameters() if p.grad is not None}
+        finally:
+            torch.backends.cudnn.deterministic = False
+            layers.BatchNorm.forward = stock
+
+    base = grads(False)
+    return {"bn_cudnn_deterministic": chip_smoke._grad_rel(grads(True), base),
+            "bn_default_again": chip_smoke._grad_rel(grads(False), base),
+            "bn_sums_in_depth_halves": chip_smoke._grad_rel(grads(False, split_sums=True), base)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels", action="store_true", help="only the split entries against their plain versions")
     ap.add_argument("--no-cli", action="store_true", help="skip the torchrun CLI runs")
     ap.add_argument("--witnesses", action="store_true", help="the mid-fusion step's sensitivity to its sums' order")
+    ap.add_argument("--models", action="store_true", help="the phase alone, with its other models' lines")
     args = ap.parse_args()
 
     import torch
@@ -113,9 +194,15 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.witnesses:
-        got = mid_witnesses(dev)
+        got = dict(mid_witnesses(dev), **bn_witnesses(dev))
         print(f"[witnesses] the mid-fusion step's gradients, relative L2 from the default run: {got}; card {card}")
         print(json.dumps({"witnesses": got, "card": card}))
+        return 0
+    if args.models:
+        sp = chip_smoke.space_parallel_phase(dev, os.path.join(REPO, "build", "space_models"))
+        chip_smoke.log_space_parallel(sp, card)
+        print(json.dumps({"space_models": {k: sp[k] for k in ("models_compare", "models_launches", "ranks_s",
+                                                              "one_s", "phase_s")}, "card": card}, default=str))
         return 0
     shapes = chip_smoke.split_norm_shapes(chip_smoke.TRAIN_BATCH, chip_smoke.SHAPE[:3], (32, 64, 128, 256, 512),
                                           (2, 2, 2, 2))

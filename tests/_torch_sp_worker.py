@@ -153,7 +153,12 @@ def collectives_case(mesh, *, x: np.ndarray, w_halo: np.ndarray, w_gather: np.nd
 
 
 def errors_case(mesh, *, cfg: dict, model_kw: dict, state: dict, shape: Tuple[int, ...]) -> Dict[str, str]:
-    """What the space axis refuses, by message."""
+    """What the space axis still refuses (ROADMAP.md, item 12b-v), by
+    message."""
+    from multimodal_tta_tpu_torch.evaluation.export import PredictionExporter
+    from multimodal_tta_tpu_torch.evaluation.seg_eval import SegmentationEvaluationStrategy
+    from multimodal_tta_tpu_torch.parallel.mesh import Mesh
+
     out = {}
 
     def message(key, fn):
@@ -169,23 +174,31 @@ def errors_case(mesh, *, cfg: dict, model_kw: dict, state: dict, shape: Tuple[in
             c.set_path(f"tta.{k}", v)
         return c
 
-    def forward(model, depth=shape[0] // mesh.space):
-        with sp.sharded(mesh):
-            model(torch.zeros((1, depth) + tuple(shape[1:])))
+    def evaluation(**node):
+        c = ConfigNode(cfg)
+        for k, v in node.items():
+            c.set_path(f"evaluation.{k}", v)
+        return SegmentationEvaluationStrategy(c).evaluate_epoch(port_model("unet", model_kw, state), [], device="cpu",
+                                                                mesh=mesh)
 
-    unet = get_model("unet")
     message("windows", lambda: TentAdapter(config(window={"enabled": True, "windows_per_step": 2}).tta,
                                            device="cpu", mesh=mesh))
-    message("pl", lambda: TTAEngine(config(method="pl"), device="cpu", mesh=mesh))
-    message("group_norm", lambda: forward(unet(**dict(model_kw, norm="GROUP"), device="cpu")))
-    message("batch_norm", lambda: forward(unet(**dict(model_kw, norm="BATCH"), device="cpu")))
-    message("moe", lambda: forward(unet(**dict(model_kw, moe_experts=2), device="cpu")))
-    message("other_model", lambda: sp.require_support(get_model("segresnet")(device="cpu"), mesh))
+    for method in ("pl", "eata", "sar", "cotta", "memo"):
+        message(method, lambda: TTAEngine(config(method=method), device="cpu", mesh=mesh))
+    message("sliding_window", lambda: evaluation(sliding_window={"enable": True}))
+    message("flip_tta", lambda: evaluation(flip_tta={"enable": True}))
+    message("export", lambda: PredictionExporter(None, "unused").run(port_model("unet", model_kw, state), [],
+                                                                     device="cpu", mesh=mesh))
+    tiny = dict(in_channels=2, num_classes=1, image_size=list(shape[:3]), device="cpu")
+    message("unetr", lambda: sp.require_support(get_model("unetr")(
+        patch_size=4, hidden_size=16, mlp_dim=32, num_heads=2, num_layers=2, feature_size=4, **tiny), mesh))
+    message("swin_unetr", lambda: sp.require_support(get_model("swin_unetr")(
+        feature_size=12, depths=(1, 1), num_heads=(1, 2), window_size=2, **tiny), mesh))
+    message("sequence", lambda: get_model("unetr")(patch_size=4, hidden_size=16, mlp_dim=32, num_heads=2, num_layers=2,
+                                                   feature_size=4, seq_shard_axis="space", **tiny))
+    for axis in ("model", "expert", "stage"):
+        message(f"beside_{axis}", lambda: Mesh(torch.device("cpu"), space=2, **{axis: 2}))
     message("thin_slab", lambda: sp.level_axes(sp.axis_of(mesh), 1, (2, 2)))
-    gwdl = ConfigNode(cfg)
-    for k, v in (("name", "gwdl"), ("softmax", True), ("sigmoid", False)):
-        gwdl.set_path(f"training.criterion.{k}", v)
-    message("gwdl", lambda: SegTrainer(gwdl, device="cpu", mesh=mesh))
     return out
 
 
