@@ -284,11 +284,20 @@ Phases, in order (any failure propagates and exits non-zero):
                first bf16 training and Tent steps), the EDTs bitwise, peak
                memory a rank against one process; bf16 ms per training and
                Tent step and the collectives' calls and bytes; then
-               ``cli.train`` and ``cli.adapt`` under ``python -m
-               torch.distributed.run --nproc_per_node=2`` with
-               ``training.mesh.space=2``; and the split entries against
-               their plain versions in f32 and bf16, and timed, at the 14
-               split norm shapes of a batch-8 training forward.
+               ``cli.train``, ``cli.adapt`` and ``cli.predict`` under
+               ``python -m torch.distributed.run --nproc_per_node=2`` with
+               ``training.mesh.space=2``, the export held byte for byte to
+               one process's from the same checkpoint
+               (``sp_predict_check``); and the split entries against their
+               plain versions in f32 and bf16, and timed, at the 14 split
+               norm shapes of a batch-8 training forward. Its evaluation
+               and adaptation over a split depth (``space_adapters_phase``,
+               a job of the same spawn): ``TTAEngine.evaluate`` with pl,
+               eata, sar, cotta and memo, Tent with windows, flip TTA and
+               the sliding window on one full-width batch against one
+               process, each rank's launches exactly, every kernel call
+               held to its plain version, ms, peak and collective bytes
+               per case.
  24. adapters — pl, eata, sar, cotta and memo over two ranks on card 0
                against one process (``adapters_phase``), every norm and
                min-plus call held to its plain version (``CallCheck``).
@@ -482,11 +491,13 @@ def start_rank_server() -> None:
     forkserver.ensure_running()
 
 
-def run_command(cmd: list, timeout: float) -> subprocess.CompletedProcess:
+def run_command(cmd: list, timeout: float, env=None) -> subprocess.CompletedProcess:
     """``subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
-    timeout=timeout)``, with the process kept where ``stop_commands`` can
-    end it from another thread."""
-    proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    timeout=timeout)`` (``env``: variables set on top of this process's),
+    with the process kept where ``stop_commands`` can end it from another
+    thread."""
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            env=None if env is None else {**os.environ, **env})
     _LIVE.add(proc)
     try:
         out, err = proc.communicate(timeout=timeout)
@@ -5615,28 +5626,56 @@ def sp_compare(one: dict, ranks: list) -> dict:
     return out
 
 
+# cli.predict over space: Tent and flip TTA over the depth (the flip that
+# crosses the ranks; 2 forwards a batch, not 8: the lane runs beside phases
+# 15-21) in f32 with the probability volumes, TF32 off in cuDNN and cuBLAS for both exports
+# (NVIDIA_TF32_OVERRIDE; the CLIs keep torch's default, TF32 convolutions,
+# whose algorithms differ between a half-depth slab and the whole depth:
+# 121-144 voxels a case apart on an H100). In f32 the two exports' sums run
+# in another order, so a voxel within rounding of the threshold may fall on
+# either side (2 of 995,328 in one of 4 cases on an H100): the masks are
+# held byte for byte but at voxels whose probability lies within
+# SP_PROB_ABS of the threshold, and the probabilities within SP_PROB_ABS
+SP_PREDICT = ("training.eval_batch_size=2", "training.compute_dtype=float32", "tta=tent",
+              "evaluation.flip_tta.enable=true", "evaluation.flip_tta.axes=[1]", "predict.save_prob=true")
+SP_PREDICT_ENV = {"NVIDIA_TF32_OVERRIDE": "0"}
+SP_PROB_ABS = 1e-5
+
+
 def sp_torchrun_cli(manifest: str, root: str, timeout: float = 600.0) -> dict:
-    """``cli.train`` then ``cli.adapt`` (Tent) over two ranks on card 0 with
-    ``training.mesh.space=2`` under ``torch.distributed.run
-    --nproc_per_node=2`` (gloo, as the CLI chooses for ranks that share a
-    card) on phase 14's fixture: 1 epoch, then Tent from its best
-    checkpoint."""
+    """``cli.train``, ``cli.adapt`` (Tent) and ``cli.predict``
+    (``SP_PREDICT``) over two ranks on card 0 with ``training.mesh.space=2``
+    under ``torch.distributed.run --nproc_per_node=2`` (gloo, as the CLI
+    chooses for ranks that share a card) on phase 14's fixture: 1 epoch,
+    then Tent and the export from its best checkpoint into
+    ``root/export_space``; then ``cli.predict`` in one process from the
+    same checkpoint into ``root/export_one`` (a command line as well, so
+    both exports run with the same backend settings), for
+    ``sp_predict_check``."""
     out = {}
     space = ["training.devices=[0,0]", "training.mesh.data=1", "training.mesh.space=2"]
     best = f"training.resume={os.path.join(root, 'train', 'checkpoints', 'best_model')}"
-    for call, extra in (("train", ["training.epochs=1"]), ("adapt", ["tta=tent", "tta.report_no_adapt=true", best])):
+    for call, extra in (("train", ["training.epochs=1"]), ("adapt", ["tta=tent", "tta.report_no_adapt=true", best]),
+                        ("predict", [*SP_PREDICT, best, f"predict.out_dir={root}/export_space"]),
+                        ("predict_one", [*SP_PREDICT, best, f"predict.out_dir={root}/export_one"])):
         run_dir = os.path.join(root, call)
-        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", f"--nproc_per_node={SP_WORLD}", "-m",
-               f"multimodal_tta_tpu_torch.cli.{call}", *cli_overrides(manifest, run_dir, *space, *extra)]
+        if call == "predict_one":
+            cmd = [sys.executable, "-m", "multimodal_tta_tpu_torch.cli.predict", *cli_overrides(manifest, run_dir,
+                                                                                                 *extra)]
+        else:
+            cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", f"--nproc_per_node={SP_WORLD}",
+                   "-m", f"multimodal_tta_tpu_torch.cli.{call}", *cli_overrides(manifest, run_dir, *space, *extra)]
         t0 = time.perf_counter()
-        proc = run_command(cmd, timeout)
+        proc = run_command(cmd, timeout, SP_PREDICT_ENV if call.startswith("predict") else None)
         wall = time.perf_counter() - t0
         if proc.returncode != 0:
-            raise AssertionError(f"torchrun cli.{call} over space=2 exited {proc.returncode}:\n"
+            raise AssertionError(f"cli.{call} exited {proc.returncode}:\n"
                                  f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
-        log_path = os.path.join(run_dir, f"{call}.log")
+        log_path = os.path.join(run_dir, f"{call.split('_')[0]}.log")
         text = proc.stdout + proc.stderr + (open(log_path, encoding="utf-8").read() if os.path.exists(log_path) else "")
-        mesh_lines = re.findall(r"Device mesh: \{'data': 1, 'space': 2\} over 2 rank\(s\)", text)
+        mesh = r"\{'data': 1, 'space': 1\} over 1 rank" if call == "predict_one" else \
+            r"\{'data': 1, 'space': 2\} over 2 rank"
+        mesh_lines = re.findall(r"Device mesh: " + mesh + r"\(s\)", text)
         if not mesh_lines or not os.path.exists(log_path):
             raise AssertionError(f"torchrun cli.{call}: mesh lines {mesh_lines} or no log file:\n"
                                  f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
@@ -5645,13 +5684,78 @@ def sp_torchrun_cli(manifest: str, root: str, timeout: float = 600.0) -> dict:
             r["checkpoints"] = sorted(os.listdir(os.path.join(run_dir, "checkpoints")))
             if "best_model.pt" not in r["checkpoints"]:
                 raise AssertionError(f"torchrun cli.train wrote {r['checkpoints']}")
-        else:
+        elif call == "adapt":
             metrics = json.load(open(os.path.join(run_dir, "tta_metrics.json"), encoding="utf-8"))
             r["metrics"] = {k: metrics["adapted"][k] for k in ("gtvt_dc", "avg_hd95", "loss")
                             if k in metrics["adapted"]}
             if not all(math.isfinite(v) for v in r["metrics"].values()) or "no_adapt" not in metrics:
                 raise AssertionError(f"torchrun cli.adapt metrics {metrics}")
         out[call] = r
+    return out
+
+
+def same_predictions(got: str, want: str, cases: int) -> dict:
+    """Two exports' directories: the same file names, ``predictions.csv``
+    and masks byte for byte (the NIfTI bytes; the gzip header holds a time
+    stamp)."""
+    import gzip
+
+    names = sorted(os.listdir(want))
+    r = {"cases": cases, "names_equal": sorted(os.listdir(got)) == names,
+         "csv_equal": open(f"{got}/predictions.csv", "rb").read() == open(f"{want}/predictions.csv", "rb").read(),
+         "masks_apart": []}
+    for n in (n for n in names if n.endswith("_pred.nii.gz")):
+        with gzip.open(f"{got}/{n}") as fa, gzip.open(f"{want}/{n}") as fb:
+            a, b = fa.read(), fb.read()
+        if a != b:
+            apart = sum(x != y for x, y in zip(a, b)) + abs(len(a) - len(b))  # bytes apart: a mask holds a byte a voxel
+            r["masks_apart"].append((n, apart))
+    r["ok"] = bool(r["cases"] and r["names_equal"] and r["csv_equal"] and not r["masks_apart"])
+    return r
+
+
+def sp_predict_check(root: str, torchrun: dict) -> dict:
+    """The space ranks' export (``root/export_space``) against one
+    process's from the same checkpoint (``root/export_one``), both written
+    by ``sp_torchrun_cli``: the file names, the masks byte for byte
+    (``same_predictions``) but at voxels whose probability (one process's)
+    lies within ``SP_PROB_ABS`` of the threshold, the probabilities within
+    ``SP_PROB_ABS``, the manifest's rows equal but for the voxel counts of
+    those voxels."""
+    import csv
+
+    import numpy as np
+
+    from multimodal_tta_tpu_torch.data import nifti
+
+    out = dict(torchrun)
+    got, want = f"{root}/export_space", f"{root}/export_one"
+    rows = [list(csv.DictReader(open(f"{d}/predictions.csv", encoding="utf-8"))) for d in (got, want)]
+    r = same_predictions(got, want, len(rows[1]))
+    r.update(prob_max_abs=0.0, apart_voxels=0, apart_from_threshold=0.0, voxels=0)
+    counts_apart = []
+    for row in rows[1]:
+        case = row["case_id"]
+        ma, mb = (nifti.load(f"{d}/{case}_pred.nii.gz").dataobj for d in (got, want))
+        pa, pb = (np.asarray(nifti.load(f"{d}/{case}_prob.nii.gz").dataobj, np.float64) for d in (got, want))
+        apart = ma != mb
+        counts_apart.append(int(ma.astype(np.int64).sum() - mb.astype(np.int64).sum()))
+        r["prob_max_abs"] = max(r["prob_max_abs"], float(np.abs(pa - pb).max()))
+        r["apart_voxels"] += int(apart.sum())
+        r["voxels"] += int(apart.size)
+        if apart.any():
+            r["apart_from_threshold"] = max(r["apart_from_threshold"], float(np.abs(pb[apart] - THRESHOLD).max()))
+    count_keys = [k for k in rows[1][0] if k.startswith("voxels_")] if rows[1] else []
+    same_rows = len(rows[0]) == len(rows[1]) and all(
+        {k: v for k, v in a.items() if k not in count_keys} == {k: v for k, v in b.items() if k not in count_keys}
+        and sum(int(a[k]) - int(b[k]) for k in count_keys) == d for a, b, d in zip(*rows, counts_apart))
+    r["rows_equal_but_counts"] = same_rows
+    r["ok"] = bool(r["cases"] and r["names_equal"] and same_rows and r["prob_max_abs"] <= SP_PROB_ABS
+                   and r["apart_from_threshold"] <= SP_PROB_ABS
+                   and r["apart_voxels"] <= (1.0 - SP_PRED_AGREE) * max(r["voxels"], 1))
+    out["predict_compare"] = r
+    if not r["ok"]:
+        raise AssertionError(f"cli.predict over two space ranks against one process: {out['predict_compare']}")
     return out
 
 
@@ -5855,23 +5959,27 @@ SPLIT_REPLACES = {"instance_norm_stats": ":114", "instance_norm_apply": ":136", 
                   "instance_norm_bwd_apply": ":87"}  # the TPU kernel's stats and normalize pallas_calls; its gradient
 
 
-def split_summaries(sp: dict, card: str) -> list:
+def split_summaries(sp: dict, card: str, sa: dict) -> list:
     """The kernels line's entries of the four split-depth norm entries:
-    launches on phase 23's main path (both ranks), the largest error at the
-    path's own calls and at the timing table's inputs (f32 and bf16), times
-    of one flagship training forward's split norm calls at batch 8 on one of
-    two space ranks in f32 (and, under ``bf16``, in bf16)."""
+    launches on phase 23's main paths (both ranks; ``sa`` its adapters,
+    windows, flip TTA and sliding window), the largest error at the paths'
+    own calls and at the timing table's inputs (f32 and bf16), times of one
+    flagship training forward's split norm calls at batch 8 on one of two
+    space ranks in f32 (and, under ``bf16``, in bf16)."""
     table = sp["table"]
     out = []
     for name in SPLIT_ENTRIES:
         e, e16, key = table["entries"][name], table["bf16"][name], SPLIT_KEYS[name]
-        path_err = max((c["max_abs_err"] for r in sp["ranks"] for part in ("split", "split_bf16")
-                        for k, c in r["kernel_check"].get(part, {}).items() if k.split()[0] == key), default=0.0)
+        path_err = max([c["max_abs_err"] for r in sp["ranks"] for part in ("split", "split_bf16")
+                        for k, c in r["kernel_check"].get(part, {}).items() if k.split()[0] == key]
+                       + [c["max_abs_err"] for r in sa["ranks"] for k, c in r["check"]["split"].items()
+                          if k.split()[0] == key], default=0.0)
         out.append({
             "name": name, "route": "cuda", "source": "multimodal_tta_tpu_torch/csrc/fused_instance_norm.cu",
             "replaces": "multimodal_tta_tpu/pallas/fused_instance_norm.py" + SPLIT_REPLACES[name],
-            "launches": sp["launches"][name] + sp["models_launches"][name],
-            "launches_by_path": {"space_parallel": sp["launches"][name], "space_models": sp["models_launches"][name]},
+            "launches": sp["launches"][name] + sp["models_launches"][name] + sa["launches"][name],
+            "launches_by_path": {"space_parallel": sp["launches"][name], "space_models": sp["models_launches"][name],
+                                 "space_adapters": sa["launches"][name]},
             "max_abs_err": max(e["max_abs_err"], e16["max_abs_err"], path_err), "ms": e["ms"],
             "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"], "bound_by": e["bound_by"], "library_ms": None,
             "bf16": {k: e16[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")},
@@ -5879,6 +5987,367 @@ def split_summaries(sp: dict, card: str) -> list:
                    f"{TRAIN_BATCH}, one of {SP_WORLD} space ranks (f32 [8, D/2, H, W, C])",
             "card": card})
     return out
+
+
+# ---- phase 23, evaluation and adaptation over a split depth ---------------------
+# the same two ranks on card 0 (gloo) on data=1 x space=2, the flagship at
+# full width (f32, TF32 off) on one HECKTOR21 batch of BATCH (phase 23's
+# first two training volumes), against one process on the same batch:
+# TTAEngine.evaluate with pl, eata (its Fisher batch), sar, cotta and memo
+# (2 views each), episodic; Tent with windows (configs/tta/tent.yaml's roi
+# and count); evaluation with flip TTA on axes 1, 2, 3 and with the sliding
+# window (seg_eval's default roi: the depth padded to 64, nine windows,
+# each split). Each case runs once with every split-entry call (SplitCheck)
+# and every whole-norm and min-plus call (CallCheck) held to its plain
+# version, the launches counted and the predictions gathered, then once
+# unchecked for its ms, its peak above the memory live at its start and the
+# bytes it gathers and reduces; limits: phase 23's
+SA_WORLD = 2
+SA_METHODS = ("pl", "eata", "sar", "cotta", "memo")
+SA_CASES = SA_METHODS + ("tent_windows", "flip_tta", "sliding_window")
+SA_TIMEOUT_S = 600
+SA_KNOBS = {
+    "pl": {"pl": {"conf_threshold": 0.6}},
+    "eata": {"reliability": {"margin_ratio": 1.0}, "fisher": {"batches": 1}},
+    "sar": {"margin_ratio": 1.0},
+    "cotta": {"n_views": 2},
+    "memo": {"n_views": 2},
+}
+SA_WINDOW_ROI = (32, 96, 96)  # configs/tta/tent.yaml: tta.window
+SA_WINDOWS = 4
+SA_SLIDING_ROI = (64, 64, 64)  # evaluation.sliding_window's default
+SA_OVERLAP = 0.25
+# the forwards and backwards of one evaluated batch: the adaptation step
+# (EATA's Fisher batch adds a forward and a backward at the source), then
+# the scoring forward; flip TTA's 2^3 mirrored forwards; the sliding
+# window's windows (``sa_passes``)
+SA_PASSES = {"pl": (2, 1), "eata": (3, 2), "sar": (3, 2), "cotta": (4, 1), "memo": (5, 2), "tent_windows": (2, 1),
+             "flip_tta": (8, 0)}
+# pl's objective has hard edges (the pseudo-label at p = 0.5, the
+# confidence gate), so the voxels that rounding moves across them move its
+# step: its adapted tensors are held to twice one process's own distance
+# when only the norms' sums are reordered (the witness: the same step with
+# the plain norm) where that is above SP_DELTA_REL
+SA_WITNESSED = ("pl",)
+
+
+def sa_config(case: str, window_roi=SA_WINDOW_ROI, sliding_roi=SA_SLIDING_ROI) -> dict:
+    """The evaluation config of one case (episodic adaptation)."""
+    if case in SA_METHODS:
+        cfg = eval_config(case, True)
+        cfg["tta"].update(json.loads(json.dumps(SA_KNOBS[case])))
+    elif case == "tent_windows":
+        cfg = eval_config("tent", True)
+        cfg["tta"]["window"] = {"enabled": True, "roi_size": list(window_roi), "windows_per_step": SA_WINDOWS}
+    else:
+        cfg = eval_config("none", True)
+        if case == "flip_tta":
+            cfg["evaluation"]["flip_tta"] = {"enable": True, "axes": [1, 2, 3]}
+        else:
+            cfg["evaluation"]["sliding_window"] = {"enable": True, "roi_size": list(sliding_roi),
+                                                   "overlap": SA_OVERLAP}
+    return cfg
+
+
+def sa_passes(case: str, shape, sliding_roi=SA_SLIDING_ROI) -> tuple:
+    """(forwards, backwards) of one evaluated batch of ``case``."""
+    if case != "sliding_window":
+        return SA_PASSES[case]
+    from multimodal_tta_tpu_torch.ops.sliding_window import window_starts
+
+    return math.prod(len(window_starts(max(n, r), r, SA_OVERLAP)) for n, r in zip(shape, sliding_roi)), 0
+
+
+def record_adapter(engine, rec: dict) -> None:
+    """After each adapted batch of ``engine``: the step's entropies, the
+    adapted tensors (by name, in the adapter's order) and CoTTA's teacher,
+    into ``rec`` (``evaluate`` restores the source after its last batch)."""
+    adapter, make = engine.adapter, engine.adapter.make_adapt_fn
+
+    def make_adapt_fn(source):
+        fn = make(source)
+
+        def adapt_fn(state, *args, **kwargs):
+            state = fn(state, *args, **kwargs)
+            params = dict(state.named_parameters())
+            rec["ents"].append(adapter._last_ents.detach().cpu().clone())
+            rec["adapted"].append({n: params[n].detach().cpu().clone() for n in adapter._names})
+            rec["teacher"].append([t.detach().cpu().clone() for t in getattr(adapter, "_teacher", [])])
+            return state
+
+        return adapt_fn
+
+    adapter.make_adapt_fn = make_adapt_fn
+
+
+def sa_run(device, mesh, spec: dict) -> dict:
+    """The slice's phase-23 cases in this process: over the ranks of
+    ``mesh`` (data 1 x space 2), or in one process (``mesh`` None) on the
+    same global batch. Per case: the metrics, entropies, adapted tensors and
+    gathered predictions, the norms that ran split and whole, the launches,
+    every kernel call against its plain version; then unchecked its ms,
+    peak and collective bytes."""
+    import torch
+
+    from multimodal_tta_tpu_torch.conf import ConfigNode
+    from multimodal_tta_tpu_torch.models.layers import set_plain_norm
+    from multimodal_tta_tpu_torch.models.unet3d import UNet3D
+    from multimodal_tta_tpu_torch.tta.engine import TTAEngine
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = mesh.device if mesh is not None else torch.device(device)
+    cuda = dev.type == "cuda"
+    batch = torch.load(spec["data"], weights_only=False)
+    channels = tuple(spec["channels"])
+    model = UNet3D(in_channels=2, num_classes=1, channels=channels, strides=(2,) * (len(channels) - 1),
+                   num_res_units=2, dtype=torch.float32, device=dev, seed=0)
+    source = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+    gather = (lambda t: t) if mesh is None else mesh.gather
+    rank = mesh.rank if mesh is not None else 0
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def engine_of(case: str, preds=None):
+        cfg = sa_config(case, spec["window_roi"], spec["sliding_roi"])
+        engine = TTAEngine(ConfigNode(cfg), device_transform=DEVICE_TRANSFORM, device=dev, mesh=mesh)
+        if preds is not None:  # the scored masks, gathered whole
+            probs_fn, thr = engine.strategy._probs_fn, engine.strategy.threshold
+
+            def recording(state, with_variance=False, space=None):
+                fn = probs_fn(state, with_variance, space)
+
+                def probs(image):
+                    out = fn(image)
+                    preds.append(gather((out[1] >= thr).to(torch.uint8)).cpu())
+                    return out
+
+                return probs
+
+            engine.strategy._probs_fn = recording
+        return engine
+
+    out = {"tag": f"rank{rank}" if mesh is not None else "one", "cases": {}}
+    split, calls = SplitCheck(), CallCheck()
+    calls.on = cuda
+
+    def checked_backwards() -> int:  # the plain backward calls that CallCheck itself makes
+        return sum(v["calls"] for k, v in calls.seen.items() if k.startswith("backward"))
+
+    for case in SA_CASES:
+        rec, preds = {"ents": [], "adapted": [], "teacher": []}, []
+        engine = engine_of(case, preds)
+        if engine.adapter is not None:
+            record_adapter(engine, rec)
+        at, checks = split_counts(), checked_backwards()
+        with split, calls, NormLevels(model) as levels:
+            metrics = engine.evaluate(model, [batch])
+        sync()
+        launches = {k: v - at[k] for k, v in split_counts().items()}
+        launches["plain_backward"] -= checked_backwards() - checks
+        r = {"metrics": metrics, "launches": launches, "norms": {"split": len(levels.split), "whole": len(levels.whole)},
+             "preds": preds if rank == 0 else None, **rec}
+        if mesh is None and case in SA_WITNESSED:  # one process again, its norms' sums in another order
+            witness = {"ents": [], "adapted": [], "teacher": []}
+            engine = engine_of(case)
+            record_adapter(engine, witness)
+            set_plain_norm(model, True)
+            try:
+                engine.evaluate(model, [batch])
+            finally:
+                set_plain_norm(model, False)
+            r["witness"] = witness
+        # unchecked: ms per evaluated batch, the peak above what is live, the collectives
+        engine = engine_of(case)
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            live = torch.cuda.memory_allocated(dev)
+        with CollectiveBytes() as coll:
+            sync()
+            t0 = time.perf_counter()
+            engine.evaluate(model, [batch])
+            sync()
+        r["ms"] = (time.perf_counter() - t0) * 1e3
+        r["peak_gib"] = (torch.cuda.max_memory_allocated(dev) - live) / 2**30 if cuda else None
+        r["collectives"] = {"calls": dict(coll.calls), "bytes": dict(coll.bytes)}
+        out["cases"][case] = r
+    names = {n for r in out["cases"].values() for a in r["adapted"] for n in a}
+    out["source"] = {n: v for n, v in source.items() if n in names}
+    out["check"] = {"split": split.seen, "calls": calls.seen}
+    out["check_ok"] = (mesh is None or split.ok()) and (
+        not cuda or calls.ok(["forward float32", "backward float32", "minplus"]))
+    return out
+
+
+def sa_expected(res: dict, cuda: bool, shape, sliding_roi=SA_SLIDING_ROI) -> dict:
+    """Each case's launches, derived from the norms that ran split and whole
+    (``NormLevels``) and the case's forwards and backwards (``sa_passes``):
+    a forward takes the one-launch kernel for each whole norm and stats +
+    apply for each split one, a backward the backward kernel for each whole
+    norm and bwd_sums + bwd_apply for each split one but the first (its
+    input carries no gradient: the convolutions are frozen); one min-plus
+    launch for the evaluated batch."""
+    out = {}
+    for case, r in res["cases"].items():
+        s, w = (r["norms"]["split"], r["norms"]["whole"]) if cuda else (0, 0)
+        f, b = sa_passes(case, shape, sliding_roi)
+        out[case] = {"forward": w * f, "backward": w * b, "minplus": int(cuda), "plain_backward": 0,
+                     "instance_norm_stats": s * f, "instance_norm_apply": s * f, "instance_norm_bwd_sums": s * b,
+                     "instance_norm_bwd_apply": max(s - 1, 0) * b}
+    return out
+
+
+def sa_compare(one: dict, ranks: list) -> dict:
+    """The two ranks' cases against one process's: metrics, entropies,
+    adapted tensors (and CoTTA's teacher), predictions; each rank alike.
+    Every check is made before a failure raises."""
+    r0 = ranks[0]
+    out, failed = {"ranks": len(ranks), "cases": {}}, []
+    for case, o in one["cases"].items():
+        a = r0["cases"][case]
+        c = {}
+        floats = [k for k, v in o["metrics"].items() if isinstance(v, float)]
+        c["metrics_max_abs"] = max(abs(a["metrics"][k] - o["metrics"][k]) for k in floats)
+        if set(a["metrics"]) != set(o["metrics"]) or any(
+                abs(a["metrics"][k] - o["metrics"][k]) > DP_METRIC_ABS + DP_METRIC_REL * abs(o["metrics"][k])
+                for k in floats):
+            failed.append(f"{case}: metrics {a['metrics']} vs {o['metrics']}")
+        if any(res["cases"][case]["metrics"] != a["metrics"] for res in ranks):
+            failed.append(f"{case}: the ranks' metrics differ")
+        states = ad_states(a, o, one["source"]) if o["ents"] else {"ents_max_rel": 0.0, "delta_rel_l2": 0.0,
+                                                                   "teacher_rel_l2": 0.0}
+        c.update(states)
+        c["delta_limit"] = SP_DELTA_REL
+        if "witness" in o:
+            c["witness_rel_l2"] = ad_states(o["witness"], o, one["source"])["delta_rel_l2"]
+            c["delta_limit"] = max(SP_DELTA_REL, 2.0 * c["witness_rel_l2"])
+        if states["ents_max_rel"] > SP_LOSS_REL or max(states["delta_rel_l2"], states["teacher_rel_l2"]) > c["delta_limit"]:
+            failed.append(f"{case}: against one process {states} (limit {c['delta_limit']})")
+        if not all(ad_ranks_equal(res["cases"][case], a) for res in ranks[1:]):
+            failed.append(f"{case}: the ranks' entropies, adapted tensors or teacher differ")
+        c["pred_agree"] = min(float((p == q).float().mean()) for p, q in zip(a["preds"], o["preds"]))
+        if len(a["preds"]) != len(o["preds"]) or c["pred_agree"] < SP_PRED_AGREE:
+            failed.append(f"{case}: predictions agree on {c['pred_agree']}")
+        c["dice"] = o["metrics"].get("gtvt_dc")
+        out["cases"][case] = c
+    if failed:
+        raise AssertionError("phase 23 (adapters over space), two ranks vs one process: " + "; ".join(failed)
+                             + f"; all: {out}")
+    return out
+
+
+def _sa_job(rank: int, world: int, device: str, spec: dict) -> dict:
+    """The slice's phase-23 cases, rank side, in an initialised process
+    group: a ``data=1 x space=2`` mesh, ``sa_run``."""
+    from multimodal_tta_tpu_torch.parallel.mesh import make_mesh
+
+    return sa_run(device, make_mesh([_rank_device(device)] * world, data=1, space=world), spec)
+
+
+def space_adapters_phase(device, root: str, **kw) -> dict:
+    """The slice's phase-23 cases alone: two ranks sharing the device over
+    gloo on a ``data=1 x space=2`` mesh, spawned here, against the
+    one-process run here (``main`` spawns their ranks with phases 22-24's,
+    ``spawn_pairs``)."""
+    prep = space_adapters_prepare(device, root, **kw)
+    spawn_pairs([prep])
+    return space_adapters_finish(prep)
+
+
+def space_adapters_prepare(device, root: str, *, shape=SHAPE[:3], channels=(32, 64, 128, 256, 512),
+                           window_roi=SA_WINDOW_ROI, sliding_roi=SA_SLIDING_ROI, threads: int = 4) -> dict:
+    """Up to the ranks: the batch (phase 23's first two training volumes)
+    and the ranks' spec."""
+    import shutil
+
+    import torch
+
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root, exist_ok=True)
+    t0 = time.perf_counter()
+    spec = {"shape": list(shape), "channels": list(channels), "window_roi": list(window_roi),
+            "sliding_roi": list(sliding_roi), "threads": threads, "data": os.path.join(root, "data.pt"),
+            "ranks_root": os.path.join(root, "ranks")}
+    torch.save(_stack(hecktor_volumes(BATCH, SP_TRAIN_SEED, shape)), spec["data"])
+    os.makedirs(spec["ranks_root"], exist_ok=True)
+    return {"name": "space_adapters", "device": device, "root": root, "t0": t0,
+            "cuda": torch.device(device).type == "cuda", "out": {"backend": "gloo"}, "backend": "gloo",
+            "spec": spec}
+
+
+def space_adapters_finish(prep: dict) -> dict:
+    """After the ranks: the one-process run and the checks (each rank's
+    launches against ``sa_expected``, its kernels against their plain
+    versions, ``sa_compare``)."""
+    import shutil
+
+    import torch
+
+    device, root, t0, cuda, out, spec = (prep[k] for k in ("device", "root", "t0", "cuda", "out", "spec"))
+    ranks = [torch.load(os.path.join(spec["ranks_root"], f"rank{r}.pt"), weights_only=False)
+             for r in range(SA_WORLD)]
+    out["ranks_s"] = ranks[0]["s"]
+    t1 = time.perf_counter()
+    held = torch.get_num_threads()
+    torch.set_num_threads(spec["threads"])
+    try:
+        one = sa_run(device, None, spec)
+    finally:
+        torch.set_num_threads(held)
+    out["one_s"] = time.perf_counter() - t1
+    failed = []
+    try:
+        out["compare"] = sa_compare(one, ranks)
+    except AssertionError as e:
+        failed.append(str(e))
+    for res in ranks:
+        for case, want in sa_expected(res, cuda, spec["shape"], spec["sliding_roi"]).items():
+            if res["cases"][case]["launches"] != want:
+                failed.append(f"{res['tag']} {case}: launches {res['cases'][case]['launches']}, derived {want}")
+        if not res["check_ok"]:
+            failed.append(f"{res['tag']} kernels vs plain: {res['check']}")
+    if cuda and not one["check_ok"]:
+        failed.append(f"one process kernels vs plain: {one['check']}")
+    keys = ("forward", "backward", "minplus") + SPLIT_ENTRIES
+    out["launches"] = {k: sum(r["launches"][k] for res in ranks for r in res["cases"].values()) for k in keys}
+    light = ("launches", "norms", "ms", "peak_gib", "collectives")
+    out["cases"] = list(SA_CASES)
+    out["ranks"] = [{"tag": res["tag"], "check": res["check"], "s": res["s"],
+                     "launches": {c: r["launches"] for c, r in res["cases"].items()},
+                     "cases": {c: {k: r[k] for k in light} for c, r in res["cases"].items()}} for res in ranks]
+    out["one"] = {"check": one["check"], "cases": {c: {k: r[k] for k in light} for c, r in one["cases"].items()}}
+    out["phase_s"] = time.perf_counter() - t0
+    shutil.rmtree(root, ignore_errors=True)
+    if failed:
+        raise AssertionError("phase 23 (adapters over space): " + " | ".join(failed))
+    return out
+
+
+def log_space_adapters(sa: dict, card: str) -> None:
+    """The slice's phase-23 numbers, a line each case."""
+    log(f"[space_adapters] two ranks (data 1 x space 2, gloo) vs one process, the flagship at full width on one "
+        f"batch of {BATCH}, f32 (TF32 off): ranks {sa['ranks_s']:.1f} s, one process {sa['one_s']:.1f} s; card "
+        f"{card}")
+    for case, c in sa["compare"]["cases"].items():
+        one = sa["one"]["cases"][case]
+        per_rank = [(r["cases"][case]["ms"], r["cases"][case]["peak_gib"], r["cases"][case]["collectives"])
+                    for r in sa["ranks"]]
+        log(f"[space_adapters]   {case}: metrics within {c['metrics_max_abs']:.3g} of one process (limit "
+            f"{DP_METRIC_ABS} + {DP_METRIC_REL} x |v|), entropies {c['ents_max_rel']:.3g} (limit {SP_LOSS_REL}), "
+            f"adapted tensors {c['delta_rel_l2']:.3g} of one process's moves (limit {c['delta_limit']:.3g}"
+            + (f"; one process's own with the plain norm {c['witness_rel_l2']:.3g}" if "witness_rel_l2" in c else "")
+            + f"), predictions "
+            f"equal on {c['pred_agree']:.6f} of voxels (limit {SP_PRED_AGREE}), Dice {c['dice']}; norms "
+            f"{sa['ranks'][0]['cases'][case]['norms']} (split, whole), launches a rank "
+            f"{sa['ranks'][0]['launches'][case]}; per rank (ms per evaluated batch, peak GiB above the live memory, "
+            f"collectives: calls and bytes this rank sends) {per_rank} vs one process {one['ms']:.1f} ms, "
+            f"{one['peak_gib']} GiB; card {card}")
+    for r in sa["ranks"] + [dict(sa["one"], tag="one")]:
+        log(f"[space_adapters]   {r['tag']}: kernels vs plain {json.dumps(r['check'])}")
+    log(f"[space_adapters] took {sa['phase_s']:.1f} s; launches over both ranks {sa['launches']}; card {card}")
 
 
 # ---- phase 24: every adapter over the data axis --------------------------------
@@ -6074,27 +6543,6 @@ def ad_run(device, mesh, spec: dict) -> dict:
         return TTAEngine(ConfigNode(ad_config(method, episodic)), device_transform=DEVICE_TRANSFORM, device=dev,
                          mesh=mesh)
 
-    def recording(engine, rec: dict) -> None:
-        """After each adapted batch: the step's entropies, the adapted
-        tensors (by name, in the adapter's order) and CoTTA's teacher, into
-        ``rec`` (``evaluate`` restores the source after its last batch)."""
-        adapter, make = engine.adapter, engine.adapter.make_adapt_fn
-
-        def make_adapt_fn(source):
-            fn = make(source)
-
-            def adapt_fn(state, *args, **kwargs):
-                state = fn(state, *args, **kwargs)
-                params = dict(state.named_parameters())
-                rec["ents"].append(adapter._last_ents.detach().cpu().clone())
-                rec["adapted"].append({n: params[n].detach().cpu().clone() for n in adapter._names})
-                rec["teacher"].append([t.detach().cpu().clone() for t in getattr(adapter, "_teacher", [])])
-                return state
-
-            return adapt_fn
-
-        adapter.make_adapt_fn = make_adapt_fn
-
     out = {"tag": f"rank{mesh.rank}" if mesh is not None else "one", "runs": {}}
     if cuda:  # the peak is read above the memory live at the start (the smoke's earlier phases hold some)
         torch.cuda.reset_peak_memory_stats(dev)
@@ -6116,7 +6564,7 @@ def ad_run(device, mesh, spec: dict) -> dict:
 
                 engine.adapter._copy_source = counted
                 rec = {"ents": [], "adapted": [], "teacher": []}
-                recording(engine, rec)
+                record_adapter(engine, rec)
                 at, t0 = counts(), time.perf_counter()
                 metrics = engine.evaluate(model, batches)
                 sync()
@@ -6211,7 +6659,7 @@ def _ad_job(rank: int, world: int, device: str, spec: dict) -> dict:
 
 # phase -> (its rank side, its time limit): the two-rank phases that share a spawn
 PAIR_JOBS = {"data_parallel": (_dp_job, DP_TIMEOUT_S), "space_parallel": (_sp_job, SP_TIMEOUT_S),
-             "adapters": (_ad_job, AD_TIMEOUT_S)}
+             "space_adapters": (_sa_job, SA_TIMEOUT_S), "adapters": (_ad_job, AD_TIMEOUT_S)}
 
 
 def _pair_rank(rank: int, world: int, store: str, backend: str, device: str, jobs: list) -> None:
@@ -6290,8 +6738,6 @@ def ad_predict_check(manifest: str, root: str, torchrun: dict) -> dict:
     random weights has many voxels within rounding of the threshold (a
     batch of 2 against 2 x 1 left 0.24% of a mask's voxels apart on an
     H100)."""
-    import gzip
-
     from multimodal_tta_tpu_torch.cli import predict
 
     out = dict(torchrun)
@@ -6302,17 +6748,8 @@ def ad_predict_check(manifest: str, root: str, torchrun: dict) -> dict:
     finally:
         os.chdir(REPO)  # the run moved into its run directory
     out["predict_one"] = {"wall_s": time.perf_counter() - t0, "cases": len(rows)}
-    got, want = f"{root}/ranks", f"{root}/one"
-    names = sorted(os.listdir(want))
-    r = {"cases": len(rows), "names_equal": sorted(os.listdir(got)) == names,
-         "csv_equal": open(f"{got}/predictions.csv", "rb").read() == open(f"{want}/predictions.csv", "rb").read(),
-         "masks_apart": []}
-    for n in (n for n in names if n.endswith(".nii.gz")):
-        with gzip.open(f"{got}/{n}") as fa, gzip.open(f"{want}/{n}") as fb:
-            if fa.read() != fb.read():
-                r["masks_apart"].append(n)
-    out["predict"] = r
-    if not (r["cases"] and r["names_equal"] and r["csv_equal"]) or r["masks_apart"]:
+    out["predict"] = r = same_predictions(f"{root}/ranks", f"{root}/one", len(rows))
+    if not r["ok"]:
         raise AssertionError(f"cli.predict over two ranks against one process: {r}")
     return out
 
@@ -9511,9 +9948,10 @@ def main() -> int:
     pairs = [data_parallel_prepare(dev, os.path.join(REPO, "build", "chip_smoke_dp"), volumes=2 * TRAIN_BATCH,
                                    probe=lane.result("nccl_probe")),
              space_parallel_prepare(dev, os.path.join(REPO, "build", "chip_smoke_sp")),
+             space_adapters_prepare(dev, os.path.join(REPO, "build", "chip_smoke_sa")),
              adapters_prepare(dev, os.path.join(REPO, "build", "chip_smoke_ad"))]
     pairs_s = spawn_pairs(pairs)
-    log(f"[pairs] the two ranks of phases 22-24 took {pairs_s:.1f} s, one start-up for the three")
+    log(f"[pairs] the two ranks of phases 22-24 took {pairs_s:.1f} s, one start-up for the four jobs")
     dp = data_parallel_finish(pairs[0])
     dp["torchrun"] = lane.result("data_parallel")
     dp["card"] = smi
@@ -9533,10 +9971,21 @@ def main() -> int:
     log_space_parallel(sp23, smi)
     sp_launches = sp23["launches"]
     sm_launches = sp23["models_launches"]
+    # the slice's cases: every adapter, Tent's windows, flip TTA and the
+    # sliding window over the space axis; cli.predict over it vs one process
+    torch.cuda.empty_cache()
+    sa23 = space_adapters_finish(pairs[2])
+    sa23["torchrun"] = sp_predict_check(os.path.join(lane_root, "sp"), sp23["torchrun"])
+    sa23["card"] = smi
+    log_space_adapters(sa23, smi)
+    log(f"[space_adapters] cli.predict over space=2 under torchrun vs one process: "
+        f"{json.dumps(sa23['torchrun']['predict_compare'])}; walls {sa23['torchrun']['predict']['wall_s']:.1f} s "
+        f"(two ranks) / {sa23['torchrun']['predict_one']['wall_s']:.1f} s (one process); card {smi}")
+    sa_launches = sa23["launches"]
 
     # ---- 24. every adapter over the data axis: two ranks, torchrun CLIs ----
     torch.cuda.empty_cache()
-    ad24 = adapters_finish(pairs[2])
+    ad24 = adapters_finish(pairs[3])
     ad24["torchrun"] = ad_predict_check(cli["manifest"], os.path.join(lane_root, "ad"), lane.result("adapters"))
     shutil.rmtree(cli_root, ignore_errors=True)  # phase 14's fixture: phases 15, 17-19 and 22-24 ran on it
     shutil.rmtree(lane_root, ignore_errors=True)
@@ -9601,7 +10050,7 @@ def main() -> int:
                             "batchnorm": bn_launches["forward"], "serving_artifact": art_launches["forward"],
                             "training_options": opt_launches["forward"], "preprocess": prep_launches["forward"],
                             "data_parallel": dp_launches["forward"], "space_parallel": sp_launches["forward"],
-                            "space_models": sm_launches["forward"],
+                            "space_models": sm_launches["forward"], "space_adapters": sa_launches["forward"],
                             "adapters": ad_launches["forward"], "model_axis": tp_launches["forward"],
                             "expert_axis": ep_launches["forward"]},
                            max_abs_err, {}, "forward")
@@ -9613,6 +10062,7 @@ def main() -> int:
          "serving_artifact": art_launches["backward"], "training_options": opt_launches["backward"],
          "preprocess": prep_launches["backward"], "data_parallel": dp_launches["backward"],
          "space_parallel": sp_launches["backward"], "space_models": sm_launches["backward"],
+         "space_adapters": sa_launches["backward"],
          "adapters": ad_launches["backward"],
          "model_axis": tp_launches["backward"], "expert_axis": ep_launches["backward"]}, backward_err,
         {"note": "the gradient of the TPU kernel's function; dx computed in all 18 timed calls"}, "backward")
@@ -9624,13 +10074,13 @@ def main() -> int:
         "launches": sum(eval_launches.values()) + train_launches["minplus"] + cli_launches["minplus"]
         + tta_launches["minplus"] + brats_launches["minplus"] + tr_launches["minplus"] + bn_launches["minplus"]
         + opt_launches["minplus"] + prep_launches["minplus"] + dp_launches["minplus"] + sp_launches["minplus"]
-        + sm_launches["minplus"] + ad_launches["minplus"] + ep_launches["minplus"],
+        + sm_launches["minplus"] + sa_launches["minplus"] + ad_launches["minplus"] + ep_launches["minplus"],
         "launches_by_path": {**eval_launches, "train": train_launches["minplus"], "cli": cli_launches["minplus"],
                              "tta": tta_launches["minplus"], "brats": brats_launches["minplus"],
                              "transformer": tr_launches["minplus"], "batchnorm": bn_launches["minplus"],
                              "training_options": opt_launches["minplus"], "preprocess": prep_launches["minplus"],
                              "data_parallel": dp_launches["minplus"], "space_parallel": sp_launches["minplus"],
-                             "space_models": sm_launches["minplus"],
+                             "space_models": sm_launches["minplus"], "space_adapters": sa_launches["minplus"],
                              "adapters": ad_launches["minplus"], "expert_axis": ep_launches["minplus"]},
         "max_abs_err": minplus_err,
         "ms": edt_ms,
@@ -9654,9 +10104,9 @@ def main() -> int:
                     "eval_metrics": eval_runs, "training": training, "cli": cli, "tta": tta_log, "brats": brats,
                     "transformers": transformers, "batchnorm": batchnorm, "serving_artifact": srv,
                     "training_options": opt20, "preprocess": prep, "data_parallel": dp, "space_parallel": sp23,
-                    "adapters": ad24, "model_axis": tp25, "expert_axis": ep26, "stage_axis": pp27},
+                    "space_adapters": sa23, "adapters": ad24, "model_axis": tp25, "expert_axis": ep26, "stage_axis": pp27},
                    default=str))
-    log(json.dumps({"kernels": [summary, backward_summary, minplus_summary] + split_summaries(sp23, smi)}))
+    log(json.dumps({"kernels": [summary, backward_summary, minplus_summary] + split_summaries(sp23, smi, sa23)}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                             "count": torch.cuda.device_count()}}))
     return 0

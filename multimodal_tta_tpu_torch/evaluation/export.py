@@ -30,9 +30,12 @@ to the logger, one line per batch.
 Over ranks (``mesh``, ``parallel/mesh.py``) each rank adapts and predicts
 its rows of every batch and writes its own cases (gzip-9 writes set an
 export's pace); the ranks of a model, expert or stage group hold the same
-rows and only the first of them writes (``Mesh.replica_lead``). The rows of ``predictions.csv`` are gathered and rank 0
-writes them in the order one process writes them: the files and the
-manifest are those of one process.
+rows and only the first of them writes (``Mesh.replica_lead``). Over a
+space axis each rank computes on its depth slab, the probabilities (and
+the uncertainty map) are gathered over the space group, and the group's
+first rank writes the cases. The rows of ``predictions.csv`` are gathered
+and rank 0 writes them in the order one process writes them: the files and
+the manifest are those of one process.
 """
 
 from __future__ import annotations
@@ -75,13 +78,19 @@ class PredictionExporter:
 
     # ------------------------------------------------------------------
     @torch.no_grad()
-    def _step(self, state: nn.Module, image: torch.Tensor) -> Dict[str, np.ndarray]:
+    def _step(self, state: nn.Module, image: torch.Tensor, mesh=None) -> Dict[str, np.ndarray]:
         """One batch on the device -> host arrays ``pred`` (uint8) and, when
-        asked, ``prob`` and ``uncert`` (f32), in one device-to-host copy."""
-        if self.save_uncertainty:
-            _, prob, var = self.strategy._probs_fn(state, with_variance=True)(image)
-        else:
-            _, prob = self.strategy._probs_fn(state)(image)
+        asked, ``prob`` and ``uncert`` (f32), in one device-to-host copy.
+        Over a space axis of ``mesh`` ``image`` is this rank's depth slab and
+        the arrays are the whole volumes'."""
+        space = sp.axis_of(mesh)
+        with sp.sharded(mesh):
+            out = self.strategy._probs_fn(state, with_variance=self.save_uncertainty, space=space)(image)
+        prob, var = out[1], (out[2] if self.save_uncertainty else None)
+        if space is not None:
+            prob = sp.all_gather_cat(prob, 1, space.size, space.group)
+            if var is not None:
+                var = sp.all_gather_cat(var, 1, space.size, space.group)
         pred = (prob >= self.strategy.threshold).to(torch.uint8)
         if not (self.save_prob or self.save_uncertainty):
             return {"pred": pred.cpu().numpy()}
@@ -173,8 +182,7 @@ class PredictionExporter:
         """
         dev = resolve_device(device)
         mesh = mesh if mesh is not None and mesh.parallel else None
-        if sp.axis_of(mesh) is not None:
-            raise sp.unported("the prediction export")
+        sp.require_support(state, mesh)
         writes = mesh is None or mesh.replica_lead
         if writes:
             os.makedirs(self.out_dir, exist_ok=True)
@@ -211,7 +219,7 @@ class PredictionExporter:
                     if carry_state:
                         state = eval_state
 
-                out = self._step(eval_state, image)
+                out = self._step(eval_state, image, mesh)
                 pred = out["pred"][:n_here]
                 prob = out["prob"][:n_here] if self.save_prob else None
                 uncert = out["uncert"][:n_here] if self.save_uncertainty else None

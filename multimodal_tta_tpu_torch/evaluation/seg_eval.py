@@ -22,10 +22,13 @@ batch (its own surfaces through the min-plus kernel), and the packed
 per-sample metrics are gathered, so every rank accumulates the global
 batch's values in the same order and returns the metrics one process
 returns. Over a space axis each rank runs the forward on its depth slab
-(``parallel/space.py``), the logits and labels are gathered over the space
-group, and every space rank scores the same whole volumes (the same
-metrics, computed once per space rank); the data group gathers the rows.
-Sliding-window inference and flip TTA raise there.
+(``parallel/space.py``), the probabilities (the logits too, for the loss)
+and labels are gathered over the space group, and every space rank scores
+the same whole volumes (the same metrics, computed once per space rank);
+the data group gathers the rows. Flip TTA mirrors the depth over the group
+(``space.flip_depth``); sliding-window inference lays its grid on the whole
+volume and runs each window split, or whole where its depth does not split
+(``ops/sliding_window.py``).
 """
 
 from __future__ import annotations
@@ -219,7 +222,9 @@ class SegmentationEvaluationStrategy:
         ``with_variance=True`` (requires flip-TTA enabled) returns
         ``(logits, prob, var)`` with the mirror-ensemble disagreement map
         (ops/flip_tta.py). ``space``: the image is this rank's depth slab
-        (its normalizer's statistics span the space group).
+        (its normalizer's statistics span the space group, its flips and
+        windows are the whole volume's) and so are the results; call it
+        inside ``space.sharded``.
         """
         if with_variance and not self.flip_enable:
             raise ValueError(
@@ -234,7 +239,7 @@ class SegmentationEvaluationStrategy:
             def forward(x):
                 return sliding_window_inference(
                     state, x, self.sw_roi, num_classes=len(self.region_order),
-                    overlap=self.sw_overlap, mode=self.sw_mode,
+                    overlap=self.sw_overlap, mode=self.sw_mode, space=space,
                 )
 
         else:
@@ -249,7 +254,7 @@ class SegmentationEvaluationStrategy:
 
                 return flip_averaged_probs(
                     forward, image, self.flip_axes, torch.sigmoid,
-                    with_variance=with_variance,
+                    with_variance=with_variance, space=space,
                 )
             logits = forward(image)
             return logits, torch.sigmoid(logits)
@@ -267,9 +272,10 @@ class SegmentationEvaluationStrategy:
         with sp.sharded(mesh):
             logits, prob = self._probs_fn(state, space=space)(image)
         if space is not None:
-            logits = sp.all_gather_cat(logits, 1, space.size, space.group)
+            prob = sp.all_gather_cat(prob, 1, space.size, space.group)
             label = sp.all_gather_cat(label, 1, space.size, space.group)
-            prob = torch.sigmoid(logits)
+            if self.report_loss:
+                logits = sp.all_gather_cat(logits, 1, space.size, space.group)
         pred = (prob >= self.threshold).to(torch.float32)
         gt = (label > 0.5).to(torch.float32)
 
@@ -344,8 +350,6 @@ class SegmentationEvaluationStrategy:
         space = sp.axis_of(mesh)
         if space is not None:
             sp.require_support(state, mesh)
-            if self.sw_enable or self.flip_enable:
-                raise sp.unported("sliding-window inference and flip TTA")
         for p in state.parameters():
             if p.device != dev:
                 raise ValueError(f"[SegEval] model is on {p.device}, evaluation on {dev}")

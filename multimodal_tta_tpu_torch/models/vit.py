@@ -53,7 +53,7 @@ from .resnet import _VariantFactory, finish_classifier
 def check_unported(seq_shard_axis: Optional[str] = None) -> None:
     """The reference's sequence axis raises here, naming its item."""
     if seq_shard_axis:
-        raise NotImplementedError(f"seq_shard_axis={seq_shard_axis!r} is not ported yet (ROADMAP.md, item 12b-v: "
+        raise NotImplementedError(f"seq_shard_axis={seq_shard_axis!r} is not ported yet (ROADMAP.md, item 12b-v-c: "
                                   "the transformers' tokens over the space axis)")
 
 

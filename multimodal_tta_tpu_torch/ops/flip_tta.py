@@ -6,6 +6,8 @@ probability map, and average. Mirroring is the one augmentation whose
 inverse is exact, so the ensemble is label-consistent by construction; it
 costs 2^k forwards, which run one after another. Composable with
 sliding-window inference: the flips wrap whatever forward the evaluator uses.
+Over a space axis (``space``) the image is this rank's depth slab and a
+depth flip is ``parallel/space.py:flip_depth``; every other step is local.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ from itertools import combinations
 from typing import Callable, Sequence, Tuple
 
 import torch
+
+from ..parallel.space import flip
 
 
 def flip_combos(axes: Sequence[int]) -> Tuple[Tuple[int, ...], ...]:
@@ -31,6 +35,7 @@ def flip_averaged_probs(
     axes: Sequence[int],
     to_prob: Callable[[torch.Tensor], torch.Tensor],
     with_variance: bool = False,
+    space=None,
 ):
     """Returns ``(clean_logits, averaged_probs)`` — or, with
     ``with_variance=True``, ``(clean_logits, averaged_probs, var_probs)``.
@@ -46,6 +51,9 @@ def flip_averaged_probs(
     view probabilities — the mirror-ensemble disagreement map: zero where
     the model is flip-equivariant, high where it segments differently under
     mirroring.
+
+    ``space``: ``image`` is this rank's depth slab (dim 1) of the volume, and
+    the results are this rank's slabs.
     """
     combos = flip_combos(axes)
     clean_logits = forward(image)
@@ -53,8 +61,8 @@ def flip_averaged_probs(
     total = p0
     total_sq = p0 * p0 if with_variance else None
     for combo in combos[1:]:
-        x = torch.flip(image, dims=combo)
-        p = torch.flip(to_prob(forward(x)), dims=combo)
+        x = flip(image, combo, space)
+        p = flip(to_prob(forward(x)), combo, space)
         total = total + p
         if with_variance:
             total_sq = total_sq + p * p

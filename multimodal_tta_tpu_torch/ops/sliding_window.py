@@ -7,6 +7,17 @@ card's memory whole:
     the output canvas in place
   - overlap blending via a constant or gaussian importance map (MONAI's two
     modes), normalized at the end
+
+Over a space axis (``space``, ``parallel/space.py``) the volume is this
+rank's depth slab; the window grid is the whole (padded) volume's. Each
+rank gathers the volume's depth (the input only), and a window whose
+depth splits over the group (``space.splits``) runs split: each rank
+forwards its part of the window's depth, and the window's logits are
+gathered over the group. A window whose depth does not split runs whole
+on every rank of the group. Each rank blends only the planes of its own
+slab, voxel for voxel in one process's order, so its canvas is its slab's
+and the blended logits are those one process blends from the same
+windows' logits.
 """
 
 from __future__ import annotations
@@ -17,6 +28,8 @@ from typing import Callable, Sequence, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..parallel import space as sp
 
 
 def window_starts(size: int, roi: int, overlap: float) -> list:
@@ -56,12 +69,18 @@ def sliding_window_inference(
     num_classes: int,
     overlap: float = 0.25,
     mode: str = "gaussian",
+    space=None,
 ) -> torch.Tensor:
     """Run ``apply_fn(window [B,d,h,w,C]) -> logits [B,d,h,w,K]`` over a
     window grid of ``volume`` [B,D,H,W,C]; returns blended f32 logits
-    [B,D,H,W,K]."""
-    b, D, H, W, _ = volume.shape
+    [B,D,H,W,K]. ``space``: ``volume`` is this rank's depth slab and so are
+    the logits returned (``apply_fn`` a model that reads the ambient axis)."""
     rd, rh, rw = (int(r) for r in roi_size)
+    lo, hi = 0, volume.shape[1]  # the planes this rank blends (padding never)
+    if space is not None:
+        lo, hi = hi * space.rank, hi * (space.rank + 1)
+        volume = sp.all_gather_cat(volume, 1, space.size, space.group)
+    b, D, H, W, _ = volume.shape
 
     # pad volume up to at least the roi
     pad_d, pad_h, pad_w = max(0, rd - D), max(0, rh - H), max(0, rw - W)
@@ -77,14 +96,25 @@ def sliding_window_inference(
         raise ValueError(f"Unknown blend mode: {mode}")
     imp_k = imp[None, :, :, :, None]  # [1,d,h,w,1]
 
-    out = torch.zeros((b, Dp, Hp, Wp, num_classes), dtype=torch.float32, device=volume.device)
-    wgt = torch.zeros((1, Dp, Hp, Wp, 1), dtype=torch.float32, device=volume.device)
+    split = space is not None and sp.splits(rd, space.size)
+    out = torch.zeros((b, hi - lo, Hp, Wp, num_classes), dtype=torch.float32, device=volume.device)
+    wgt = torch.zeros((1, hi - lo, Hp, Wp, 1), dtype=torch.float32, device=volume.device)
     for sd in window_starts(Dp, rd, overlap):
+        a, z = max(sd, lo), min(sd + rd, hi)  # the window's planes in this rank's slab
         for sh in window_starts(Hp, rh, overlap):
             for sw in window_starts(Wp, rw, overlap):
-                win = (slice(None), slice(sd, sd + rd), slice(sh, sh + rh), slice(sw, sw + rw))
-                logits = apply_fn(volume[win]).to(torch.float32)
-                out[win] += logits * imp_k
-                wgt[win] += imp_k
+                win = volume[:, sd:sd + rd, sh:sh + rh, sw:sw + rw]
+                if split:
+                    with sp.ambient(space):
+                        part = apply_fn(sp.slice_depth(win, space, dim=1)).to(torch.float32)
+                    logits = sp.all_gather_cat(part, 1, space.size, space.group)
+                else:  # whole (on every rank of a space group)
+                    with sp.ambient(None):
+                        logits = apply_fn(win).to(torch.float32)
+                if a >= z:
+                    continue
+                dst = (slice(None), slice(a - lo, z - lo), slice(sh, sh + rh), slice(sw, sw + rw))
+                out[dst] += logits[:, a - sd:z - sd] * imp_k[:, a - sd:z - sd]
+                wgt[dst] += imp_k[:, a - sd:z - sd]
     blended = out / torch.clamp(wgt, min=1e-8)
-    return blended[:, :D, :H, :W, :]
+    return blended[:, :, :H, :W, :]

@@ -56,7 +56,7 @@ What has no counterpart: ``ambient_axes``, ``constrain`` and
 ``constrain_activations`` pin XLA layouts inside one program; here
 ``parallel/space.py``, ``parallel/tensor.py`` and ``parallel/expert.py``
 write the collectives they imply. A space axis beside a model, expert or
-stage axis is not ported yet (ROADMAP.md, item 12b-v): a mesh that asks
+stage axis is not ported yet (ROADMAP.md, item 12b-v-c): a mesh that asks
 for one raises.
 """
 
@@ -114,7 +114,7 @@ class Mesh:
         if self.space > 1 and beside:
             raise NotImplementedError(
                 f"[mesh] a space axis ({SPACE_AXIS}={self.space}) beside a {beside[0].split('=')[0]} axis "
-                f"({', '.join(beside)}) is not ported yet (ROADMAP.md, item 12b-v: the transformers, the "
+                f"({', '.join(beside)}) is not ported yet (ROADMAP.md, item 12b-v-c: the transformers, the "
                 "experts and the pipeline over the space axis)")
         if self.size > 1 and not dist.is_initialized():
             raise RuntimeError("[mesh] a data axis over several ranks needs a process group")
@@ -191,9 +191,10 @@ class Mesh:
 
     @property
     def replica_lead(self) -> bool:
-        """The first rank of the ranks that hold this rank's rows and depth
-        (model, expert and stage index 0): the one that writes them."""
-        return self.model_rank == self.expert_rank == self.stage_rank == 0
+        """The first rank of the ranks that hold this rank's rows (space,
+        model, expert and stage index 0; a space group gathers its depth
+        slabs): the one that writes them."""
+        return self.space_rank == self.model_rank == self.expert_rank == self.stage_rank == 0
 
     def global_rank(self, **index: int) -> int:
         """The world rank of this rank with the given axes' indices changed

@@ -27,15 +27,22 @@ over ``space`` ranks computes what one process computes on whole volumes:
     by ``space`` (Dice's ratio, a global mean's share);
   * ``space_prefix`` gives each rank the exclusive prefix sum of a count
     over the earlier ranks (rank order is depth order) and the group's
-    total: a split MoE's buffer positions (``models/moe.py``).
+    total: a split MoE's buffer positions (``models/moe.py``);
+  * ``flip_depth`` mirrors the volume's depth: rank ``s`` takes rank
+    ``S-1-s``'s slab, reversed (its backward is the same exchange);
+    ``flip`` mirrors any dims, the depth over the group and the rest
+    locally (flip TTA, CoTTA's and MEMO's mirrored views).
 
 Every collective is an ``all_gather`` or an ``all_reduce`` over the space
-group, which gloo and NCCL both take for CUDA tensors. ``sharded(mesh)``
-makes the mesh's space axis the ambient one for a model's forward
-(``current``): the model computes each level's axis from it
+group, which gloo and NCCL both take for CUDA tensors (gloo's ``send`` does
+not, so the depth flip gathers the group's slabs too: at two ranks twice
+the bytes of a pairwise swap, on input- and output-sized tensors).
+``sharded(mesh)`` makes the mesh's space axis the ambient one for a model's
+forward (``current``): the model computes each level's axis from it
 (``level_axes``) at every forward and hands it to the level's blocks as an
 argument, so no module keeps an axis; the loss, the intensity transform
-and Tent get theirs as an argument too.
+and Tent get theirs as an argument too. ``ambient(None)`` runs a forward
+whole inside a sharded block (a window whose depth does not split).
 """
 
 from __future__ import annotations
@@ -63,7 +70,7 @@ class SpaceAxis:
 # the ambient axes of the forwards running now, innermost last (as the
 # reference's ambient_axes): a model reads the axis of the block it runs in
 # without the mesh threaded through every module
-_ACTIVE: List[SpaceAxis] = []
+_ACTIVE: List[Optional[SpaceAxis]] = []
 
 
 def axis_of(mesh) -> Optional[SpaceAxis]:
@@ -93,6 +100,18 @@ def sharded(mesh):
         _ACTIVE.remove(ax)
 
 
+@contextmanager
+def ambient(ax: Optional[SpaceAxis]):
+    """``ax`` is the ambient space axis inside the block; ``None`` makes a
+    forward run whole there (every rank of the group alike), also inside
+    ``sharded``."""
+    _ACTIVE.append(ax)
+    try:
+        yield ax
+    finally:
+        _ACTIVE.pop()
+
+
 def current() -> Optional[SpaceAxis]:
     return _ACTIVE[-1] if _ACTIVE else None
 
@@ -120,7 +139,7 @@ def level_axes(ax: Optional[SpaceAxis], depth: int, strides) -> List[Optional[Sp
     return out
 
 
-UNPORTED_ITEM = "12b-v"  # the ROADMAP item of what does not run over the space axis yet
+UNPORTED_ITEM = "12b-v-c"  # the ROADMAP item of what does not run over the space axis yet
 
 
 def unported(what: str, item: str = UNPORTED_ITEM) -> NotImplementedError:
@@ -284,6 +303,47 @@ def space_sum(t: torch.Tensor, ax: Optional[SpaceAxis], grad: bool = False) -> t
     return out
 
 
+def _mirror(x: torch.Tensor, dim: int, ax: SpaceAxis) -> torch.Tensor:
+    """Rank ``S-1-s``'s slab of ``x`` reversed on ``dim``, on rank ``s``."""
+    v, back, d = _cl(x, dim)
+    parts = [torch.empty_like(v) for _ in range(ax.size)]
+    dist.all_gather(parts, v, group=ax.group)
+    out = torch.flip(parts[ax.size - 1 - ax.rank], dims=(d,))
+    return out.permute(*back) if back is not None else out
+
+
+class _FlipDepth(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, ax):
+        ctx.dim, ctx.ax = dim, ax
+        return _mirror(x, dim, ax)
+
+    @staticmethod
+    def backward(ctx, g):
+        # a permutation that is its own inverse: the gradient takes the same way back
+        return _mirror(g, ctx.dim, ctx.ax), None, None
+
+
+def flip_depth(x: torch.Tensor, ax: SpaceAxis, dim: int = 1) -> torch.Tensor:
+    """This rank's slab of the depth-mirrored volume whose slab ``x`` is
+    (``dim``, NDHWC's 1 by default): rank ``s`` takes rank ``S-1-s``'s slab,
+    reversed. Backward: the same exchange of the gradient."""
+    return _FlipDepth.apply(x, dim, ax)
+
+
+def flip(x: torch.Tensor, dims, ax: Optional[SpaceAxis] = None, depth_dim: int = 1) -> torch.Tensor:
+    """``torch.flip(x, dims)`` of the whole volume that ``x`` is this rank's
+    depth slab of (on ``depth_dim``): the depth mirrored over the space group
+    (``flip_depth``), every other dim locally; ``torch.flip`` itself
+    without an axis."""
+    dims = tuple(int(d) for d in dims)
+    if ax is None or depth_dim not in dims:
+        return torch.flip(x, dims=dims)
+    rest = tuple(d for d in dims if d != depth_dim)
+    y = flip_depth(x, ax, depth_dim)
+    return torch.flip(y, dims=rest) if rest else y
+
+
 def space_size(ax: Optional[SpaceAxis]) -> int:
     return 1 if ax is None else ax.size
 
@@ -305,5 +365,6 @@ def space_prefix(t: torch.Tensor, ax: Optional[SpaceAxis]):
     return prefix, total
 
 
-__all__ = ["SpaceAxis", "axis_of", "sharded", "current", "splits", "level_axes", "require_support", "unported",
-           "all_gather_cat", "gather_depth", "slice_depth", "halo_exchange", "space_sum", "space_size", "space_prefix"]
+__all__ = ["SpaceAxis", "axis_of", "sharded", "ambient", "current", "splits", "level_axes", "require_support",
+           "unported", "all_gather_cat", "gather_depth", "slice_depth", "halo_exchange", "flip_depth", "flip",
+           "space_sum", "space_size", "space_prefix"]

@@ -28,7 +28,11 @@ moves nothing, as in the reference.
 Over ranks each rank takes its rows of the global batch's views, the
 student's gradients are summed over the ranks before each update, and the
 restore masks come from the equally seeded generator: student and teacher
-stay the same on every rank without a broadcast.
+stay the same on every rank without a broadcast. Over a space axis the
+views' noise is the rank's slab of the global draw, a mirrored view's
+depth is exchanged over the group (``parallel/space.py:flip``), and each
+sample's cross-entropy and entropy trace are the slab's parts over the
+group's denominators.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ import torch
 from ..ops.augment import View, apply_intensity_scale_shift, apply_modality_dropout
 from ..ops.flip_tta import flip_combos
 from ..ops.losses import entropy_loss
+from ..parallel import space as sp
 from ..registry import register_tta_method
 from ..utils.config import get_config
 from .tent import TentAdapter, apply_restore, restored
@@ -57,14 +62,14 @@ def view_combos(ndim: int, flip: bool) -> Tuple[Tuple[int, ...], ...]:
     return flip_combos(tuple(range(1, ndim - 1)))[1:] if flip else ()
 
 
-def flipped_probs(forward, xv: torch.Tensor, combo: Tuple[int, ...]) -> torch.Tensor:
+def flipped_probs(forward, xv: torch.Tensor, combo: Tuple[int, ...], space=None) -> torch.Tensor:
     """``forward`` on the view mirrored along ``combo``, mirrored back; an
     output without the input's spatial axes (a classifier's ``[B, C]``) has
-    nothing to mirror back."""
+    nothing to mirror back. ``space``: ``xv`` is this rank's depth slab."""
     if not combo:
         return forward(xv)
-    p = forward(torch.flip(xv, dims=combo))
-    return torch.flip(p, dims=combo) if p.dim() == xv.dim() else p
+    p = forward(sp.flip(xv, combo, space))
+    return sp.flip(p, combo, space) if p.dim() == xv.dim() else p
 
 
 @register_tta_method("cotta")
@@ -170,7 +175,7 @@ class CottaAdapter(TentAdapter):
         combos = view_combos(image.dim(), self.aug_flip)
         for i, v in enumerate(views):
             xv = apply_view(image, v, self.aug_noise)
-            p = p + flipped_probs(forward, xv, combos[i % len(combos)] if combos else ())
+            p = p + flipped_probs(forward, xv, combos[i % len(combos)] if combos else (), self.space)
         return p / float(self.n_views) if views else p
 
     def _teacher_ce(self, logits, pseudo, w, denom) -> torch.Tensor:
@@ -180,11 +185,17 @@ class CottaAdapter(TentAdapter):
                    + (1.0 - pseudo) * torch.nn.functional.logsigmoid(-logits))
         else:
             ce = -(pseudo * torch.log_softmax(logits, dim=-1)).sum(dim=-1, keepdim=True)
-        return (ce.mean(dim=tuple(range(1, ce.dim()))) * w).sum() / denom
+        dims = tuple(range(1, ce.dim()))
+        if self.space is None:
+            per = ce.mean(dim=dims)
+        else:  # the slab's part of each sample's mean
+            per = ce.sum(dim=dims) / float(ce[0].numel() * self.space.size)
+        return (per * w).sum() / denom
 
     def _monitor(self, logits, w, denom) -> torch.Tensor:
         """The entropy trace: the student's self-normalized entropy."""
-        per_ent = entropy_loss(logits.detach(), sigmoid=self.sigmoid_mode, focus="uncertain", per_sample=True)
+        per_ent = entropy_loss(logits.detach(), sigmoid=self.sigmoid_mode, focus="uncertain", per_sample=True,
+                               space=self.space)
         return (per_ent * w).sum() / denom
 
     def _ema_teacher(self, teacher, student) -> List[torch.Tensor]:

@@ -21,8 +21,8 @@ following no-adaptation run, scores the source model as the reference does.
 Over ranks (``mesh``, ``parallel/mesh.py``) each rank adapts and scores its
 rows of every batch, and ``evaluate`` returns on every rank the metrics one
 process returns for the global batches. Every method runs over the data
-axis; over a space axis Tent and norm do (``SPACE_METHODS``) and the others
-raise (ROADMAP.md, item 12b-v).
+axis and over a space axis (each rank adapting on its depth slab of its
+rows, ``tta/tent.py``).
 
 ``classifier_logits_apply`` bridges the 2D classification backbones'
 ``(features, logits)`` contract to the adapters, which take a model whose
@@ -38,14 +38,9 @@ from torch import nn
 
 from .. import DeviceLike, resolve_device
 from ..conf.node import ConfigNode
-from ..parallel import space as sp
 from ..registry import get_evaluation_strategy, get_tta_method
 from ..utils.config import get_config
 from ..utils.logger import get_logger
-
-# the methods that adapt over a space axis (every method adapts over the data axis)
-SPACE_METHODS = ("tent", "norm")
-
 
 class TTAEngine:
     def __init__(self, config, device_transform=None, strategy=None, *, device: DeviceLike = "cuda", mesh=None):
@@ -66,8 +61,6 @@ class TTAEngine:
         self.adapter = None
         if self.method not in ("none", ""):
             adapter_cls = get_tta_method(self.method)
-            if sp.axis_of(self.mesh) is not None and self.method not in SPACE_METHODS:
-                raise sp.unported(f"tta.method={self.method}")
             self.adapter = adapter_cls(
                 self.tta_cfg,
                 config=config,

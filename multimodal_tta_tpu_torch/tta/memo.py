@@ -31,7 +31,10 @@ Over ranks each rank takes its rows of the global batch's views; the
 marginal stays per sample, the objective is each rank's sum over the
 global valid count (its trace the ranks' total), the accumulated gradients
 are summed over the ranks before the update, and a BatchNorm's statistics
-pool over the ranks.
+pool over the ranks. Over a space axis the views are the rank's slabs (a
+mirrored view's depth exchanged over the group), each sample's marginal
+entropy is the slab's part over the group's denominators, and its
+cotangent the whole objective's on the slab.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ import torch
 
 from ..ops.augment import apply_modality_dropout
 from ..ops.losses import reduce_dims
+from ..parallel.space import space_sum
 from ..registry import register_tta_method
 from ..utils.config import get_config
 from .cotta import apply_view, flipped_probs, view_combos
@@ -49,9 +53,11 @@ _EPS = 1e-6
 
 
 def marginal_entropy(p_marg: torch.Tensor, w: torch.Tensor, denom: torch.Tensor, *, sigmoid: bool,
-                     focus: str):
+                     focus: str, space=None):
     """The objective at the marginal and its analytic cotangent
-    ``dLoss/dp`` (no gradient through either)."""
+    ``dLoss/dp`` (no gradient through either). ``space``: ``p_marg`` is this
+    rank's depth slab; the objective is the slab's part, the cotangent the
+    whole objective's on the slab."""
     b = p_marg.shape[0]
     pc = torch.clamp(p_marg, _EPS, 1.0 - _EPS)
     inside = ((p_marg > _EPS) & (p_marg < 1.0 - _EPS)).to(torch.float32)
@@ -64,12 +70,13 @@ def marginal_entropy(p_marg: torch.Tensor, w: torch.Tensor, denom: torch.Tensor,
     ax = tuple(range(1, h.dim()))
     bshape = (b,) + (1,) * (h.dim() - 1)
     if focus == "uncertain":
-        wsum = torch.clamp(reduce_dims(h, ax), min=1e-12)
+        wsum = torch.clamp(space_sum(reduce_dims(h, ax), space), min=1e-12)
         per_sample = reduce_dims(h * h, ax) / wsum
         g_h = h * (w / denom / wsum).reshape(bshape)
     else:
-        per_sample = reduce_dims(h, ax, "mean")
-        g_h = ((w / denom) / float(h[0].numel())).reshape(bshape).expand(h.shape)
+        n = float(h[0].numel() * (1 if space is None else space.size))  # the whole sample's voxels
+        per_sample = reduce_dims(h, ax, "mean") if space is None else reduce_dims(h, ax) / n
+        g_h = ((w / denom) / n).reshape(bshape).expand(h.shape)
     g = g_h * dhdp if sigmoid else g_h[..., None] * dhdp
     return (per_sample * w).sum() / denom, g
 
@@ -156,7 +163,8 @@ class MemoAdapter(TentAdapter):
 
     def _view_probs(self, x: torch.Tensor, views, i: int, combos) -> torch.Tensor:
         xv = apply_view(x, views[i], self.aug_noise)
-        return flipped_probs(lambda v: self._probs(self._run(v)), xv, combos[i % len(combos)] if combos else ())
+        return flipped_probs(lambda v: self._probs(self._run(v)), xv, combos[i % len(combos)] if combos else (),
+                             self.space)
 
     @torch.no_grad()
     def _marginal(self, x: torch.Tensor, views):
@@ -198,7 +206,7 @@ class MemoAdapter(TentAdapter):
                 x = apply_modality_dropout(x, d["drop"])
             p_marg, logits0 = self._marginal(x, d["views"])
             ent, g_hat = marginal_entropy(p_marg, w, denom, sigmoid=self.sigmoid_mode,
-                                          focus=self.entropy_focus)
+                                          focus=self.entropy_focus, space=self.space)
             opt.zero_grad(set_to_none=True)
             self.accumulate_grads(x, d["views"], g_hat)
             self._sum_grads()

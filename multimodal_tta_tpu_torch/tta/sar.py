@@ -23,7 +23,10 @@ Each step runs two forwards and two backwards; the reset decision reads
 Over ranks each rank runs both passes on its rows: each pass's gradients
 are summed over the ranks before use (the perturbation's scale
 ``rho / ||g||`` is the global batch's), and the monitor score is the global
-one, so every rank's EMA and reset decision are the same. On a BatchNorm model both forwards run on
+one, so every rank's EMA and reset decision are the same. Over a space
+axis each sample's objective and monitor score are the slab's parts over
+the group's denominators, and the filter reads the whole sample's score
+(the group's sum), alike on its ranks. On a BatchNorm model both forwards run on
 the batch's statistics from the same running statistics, and the step keeps
 those of the second (the reference's ``new_bs`` of the descent pass): the
 running statistics move once a step. A recovery reset puts back the params,
@@ -38,6 +41,7 @@ import torch
 
 from ..ops.augment import apply_modality_dropout
 from ..ops.losses import entropy_loss
+from ..parallel.space import space_sum
 from ..registry import register_tta_method
 from ..utils.config import get_config
 from .tent import TentAdapter
@@ -118,11 +122,14 @@ class SarAdapter(TentAdapter):
         """Reliable-filtered objective, the unfiltered monitor score and the
         logits; the filter is recomputed at every evaluation point."""
         logits = self._student(x, update=update)
-        per = entropy_loss(logits, sigmoid=self.sigmoid_mode, focus=self.entropy_focus, per_sample=True)
-        score = entropy_loss(logits.detach(), sigmoid=self.sigmoid_mode, focus="uncertain", per_sample=True)
+        per = entropy_loss(logits, sigmoid=self.sigmoid_mode, focus=self.entropy_focus, per_sample=True,
+                           space=self.space)
+        part = entropy_loss(logits.detach(), sigmoid=self.sigmoid_mode, focus="uncertain", per_sample=True,
+                            space=self.space)
+        score = space_sum(part, self.space)  # the whole sample's
         reliable = (score < self.margin_ratio * self._h_max(logits)).to(torch.float32)
         loss = (per * reliable * w).sum() / denom
-        return loss, (score * w).sum() / denom, logits
+        return loss, (part * w).sum() / denom, logits
 
     def _adapt(self, state, image, n_valid, threshold, predict_mode, ent_floor=None):
         del ent_floor  # SAR's recovery scheme replaces the early-stop brake

@@ -70,7 +70,12 @@ artifact is one device's and refuses a mesh, as the reference's does. Over
 a space axis each rank also holds a depth slab: the forwards
 run split (``parallel/space.py``), each sample's objective is the slab's
 part over the space group's denominator (so the world's sum holds it once),
-and the predictions are the slab's; Tent's windows raise there.
+and the predictions are the slab's. The draws are made for the global
+depth too, and a view's noise is cut to the rank's slab. Tent's windows are
+cut from the gathered global batch (rows and depth); a window whose depth
+splits (``space.splits``) runs split, any other runs whole on every rank
+of the space group and counts ``1 / space`` of it on each, so the world's
+sum holds it once.
 """
 
 from __future__ import annotations
@@ -217,8 +222,6 @@ class TentAdapter:
         self.window_roi = tuple(int(x) for x in get_config(wnd, "roi_size", [32, 96, 96]))
         self.windows_per_step = int(get_config(wnd, "windows_per_step", 4))
         self.space = sp.axis_of(self.mesh)
-        if self.window_enabled and self.space is not None:
-            raise sp.unported("Tent's windows (tta.window)")
         if self.window_enabled and self.windows_per_step % self.mesh.data:
             raise ValueError(
                 f"[tent] tta.window.windows_per_step={self.windows_per_step} must divide by the data "
@@ -419,25 +422,27 @@ class TentAdapter:
         for p, s in zip(self._trainable, self._source):
             p.copy_(s)
 
-    def _run(self, x: torch.Tensor, values: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+    def _run(self, x: torch.Tensor, values: Optional[Dict[str, torch.Tensor]] = None,
+             split: bool = True) -> torch.Tensor:
         """The bound model on ``x``, with ``values`` (name -> tensor) in
         place of its own params where given (``functional_call``). Inside a
         pure serving step every param and running statistic comes from the
-        step's values (``_pure_values``)."""
+        step's values (``_pure_values``). ``split=False``: ``x`` is whole on
+        every rank of the space group (a window whose depth does not split)."""
         if self._values is not None:
             values = dict(self._values, **(values or {}))
-        with sp.sharded(self.mesh):
+        with sp.sharded(self.mesh) if split else sp.ambient(None):
             return self._model(x) if values is None else functional_call(self._model, values, (x,))
 
-    def _student(self, x: torch.Tensor, update: bool = True) -> torch.Tensor:
+    def _student(self, x: torch.Tensor, update: bool = True, split: bool = True) -> torch.Tensor:
         """The reference's student ``forward(trainable, bs, x)``: a BatchNorm
         model runs in training mode on ``x``'s statistics and, with
         ``update``, keeps the forward's new running statistics (once); a
         model without them runs as built."""
         if not self._bn:
-            return self._run(x)
+            return self._run(x, split=split)
         with batch_statistics(self._model, update=update):
-            return self._run(x)
+            return self._run(x, split=split)
 
     def _prepare(self, image, n_valid):
         """The normalized f32 image on the device, the valid-sample weights
@@ -452,14 +457,17 @@ class TentAdapter:
         return image, w[self.mesh.rows(n)], torch.clamp(w.sum(), min=1.0)
 
     def _global_shape(self, image: torch.Tensor) -> Tuple[int, ...]:
-        """The shape of the global batch that ``image`` is this rank's rows of."""
-        return (image.shape[0] * self.mesh.data,) + tuple(image.shape[1:])
+        """The shape of the global batch that ``image`` is this rank's rows
+        (and, over a space axis, depth slab) of."""
+        depth = image.shape[1] * sp.space_size(self.space)
+        return (image.shape[0] * self.mesh.data, depth) + tuple(image.shape[2:])
 
     def _rank_views(self, views, n: int):
-        """This rank's rows of augmented views drawn for a global batch of
-        ``n`` (each view's factor, offset and noise)."""
+        """This rank's share of augmented views drawn for a global batch of
+        ``n``: its rows of each view's factor and offset, its rows and depth
+        slab of the noise."""
         rows = self.mesh.rows(n)
-        return [tuple(None if t is None else t[rows] for t in v) for v in views]
+        return [(f[rows], o[rows], None if z is None else self.mesh.local(z)) for f, o, z in views]
 
     def _rank_draws(self, d: dict, n: int) -> dict:
         """This rank's share of one step's draws for a global batch of
@@ -555,40 +563,54 @@ class TentAdapter:
         spec = self.batch_draw_spec(shape, post)
         return group_draws(spec, make_draws(spec, self.generator, n_valid))
 
-    def _per_sample_objective(self, logits: torch.Tensor) -> torch.Tensor:
-        # over a space axis: this slab's part of each sample's value
+    def _per_sample_objective(self, logits: torch.Tensor, whole: bool = False) -> torch.Tensor:
+        # over a space axis: this slab's part of each sample's value (``whole``:
+        # the logits are the whole volumes')
+        space = None if whole else self.space
         if self.loss_mode.startswith("pl"):
             return pseudo_label_loss(logits, sigmoid=self.sigmoid_mode,
-                                     conf_threshold=self.pl_conf_threshold, per_sample=True, space=self.space)
+                                     conf_threshold=self.pl_conf_threshold, per_sample=True, space=space)
         return entropy_loss(logits, sigmoid=self.sigmoid_mode, focus=self.entropy_focus, per_sample=True,
-                            space=self.space)
+                            space=space)
 
     def _batch_objective(self, logits: torch.Tensor) -> torch.Tensor:
         # over ranks the sums meet before the division (the denominators
-        # carry no gradient; every rank holds as many elements)
+        # carry no gradient; every rank holds as many elements). Over a space
+        # axis a whole window's sums are alike on the group's ranks: its
+        # denominators then take the group's size as a factor, so each rank
+        # holds 1 / space of the value, as a split window's slab holds its part
         if self.loss_mode.startswith("pl"):
             num, den = pseudo_label_sums(logits, sigmoid=self.sigmoid_mode, conf_threshold=self.pl_conf_threshold)
             return num / torch.clamp(self.mesh.total(den), min=1.0)
         num, den = entropy_sums(logits, sigmoid=self.sigmoid_mode, focus=self.entropy_focus)
         if self.entropy_focus == "uncertain":
             return num / torch.clamp(self.mesh.total(den), min=1e-12)
-        return num / (den * self.mesh.data)
+        return num / (den * self.mesh.data * sp.space_size(self.space))
 
     def _objective(self, x: torch.Tensor, d: dict, w: torch.Tensor, denom: torch.Tensor):
         """The step's loss and the logits of its (first) forward."""
         if self.window_enabled:
-            x = self.mesh.gather_rows(x)  # a rank's windows may lie in another rank's rows
+            x = self.mesh.gather(x)  # a rank's windows may lie in other ranks' rows and slabs
             x = apply_crop_windows(x, d["windows"], self.window_roi)
-            logits = self._student(x)
+            # over a space axis a window runs split where its depth splits,
+            # else whole on every rank of the group (1 / space of it on each)
+            whole = self.space is not None and not sp.splits(x.shape[1], self.space.size)
+            if self.space is not None and not whole:
+                x = sp.slice_depth(x, self.space, dim=1)
+            logits = self._student(x, split=not whole)
             if self.rel_enabled:
-                ww = reliability_weights(logits, sigmoid=self.sigmoid_mode, margin_ratio=self.rel_margin_ratio)
-                loss = (self._per_sample_objective(logits) * ww).sum() / self.windows_per_step
+                ww = reliability_weights(logits, sigmoid=self.sigmoid_mode, margin_ratio=self.rel_margin_ratio,
+                                         space=None if whole else self.space)
+                share = self.space.size if whole else 1
+                loss = (self._per_sample_objective(logits, whole) * ww).sum() / float(self.windows_per_step * share)
             else:
                 loss = self._batch_objective(logits)
             if d["cons"] is not None:
-                p2 = self._probs(self._student(apply_intensity_scale_shift(x, *d["cons"]), update=False))
+                p2 = self._probs(self._student(apply_intensity_scale_shift(x, *d["cons"]), update=False,
+                                               split=not whole))
                 sq = (self._probs(logits) - p2) ** 2
-                loss = loss + self.cons_weight * sq.sum() / float(sq.numel() * self.mesh.data)
+                loss = loss + self.cons_weight * sq.sum() / float(sq.numel() * self.mesh.data
+                                                                  * sp.space_size(self.space))
             return loss, logits
         logits = self._student(x)
         sw = w

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """chip_smoke.py's phase 23 alone: the space axis over ranks on one CUDA card.
 
-    python3 scripts/torch_space_parallel.py [--kernels] [--no-cli] [--witnesses] [--models]
+    python3 scripts/torch_space_parallel.py [--kernels] [--no-cli] [--witnesses] [--models] [--adapters]
 
 Builds the CUDA kernels and holds the four split-depth norm entries
 (``stats``, ``apply``, ``bwd_sums``, ``bwd_apply``) against their plain
@@ -29,6 +29,16 @@ the flagship with deep supervision and 4 bottleneck experts on
 the BatchNorm flagship and the flagship with GWDL on [2,48,144,144,2],
 each over the two ranks against one process (training, Tent, ``norm`` and
 evaluated batches as the phase runs them), then each model's bf16 step.
+
+``--adapters`` runs the phase's evaluation and adaptation over a split
+depth alone (``chip_smoke.space_adapters_phase``, ``SA_CASES``): pl, eata,
+sar, cotta, memo, Tent with windows, evaluation with flip TTA and with the
+sliding window, the flagship at full width over the two ranks against one
+process, each rank's launches exactly and every kernel call against its
+plain version; then, unless ``--no-cli``, ``cli.train``, ``cli.adapt`` and
+``cli.predict`` over ``training.mesh.space=2`` under torchrun and
+``cli.predict`` in one process from the same checkpoint (each a command
+line), their files compared byte for byte (``chip_smoke.sp_predict_check``).
 
 ``--witnesses`` (instead of the phase) reads how sensitive phase 23's
 mid-fusion step is to the order of its sums, in one process: the gradients
@@ -167,6 +177,7 @@ def main() -> int:
     ap.add_argument("--no-cli", action="store_true", help="skip the torchrun CLI runs")
     ap.add_argument("--witnesses", action="store_true", help="the mid-fusion step's sensitivity to its sums' order")
     ap.add_argument("--models", action="store_true", help="the phase alone, with its other models' lines")
+    ap.add_argument("--adapters", action="store_true", help="the phase's adapters, flip TTA and sliding window alone")
     args = ap.parse_args()
 
     import torch
@@ -197,6 +208,21 @@ def main() -> int:
         got = dict(mid_witnesses(dev), **bn_witnesses(dev))
         print(f"[witnesses] the mid-fusion step's gradients, relative L2 from the default run: {got}; card {card}")
         print(json.dumps({"witnesses": got, "card": card}))
+        return 0
+    if args.adapters:
+        root = os.path.join(REPO, "build", "space_adapters")  # build/ is in .gitignore
+        shutil.rmtree(root, ignore_errors=True)
+        sa = chip_smoke.space_adapters_phase(dev, os.path.join(root, "phase"))
+        chip_smoke.log_space_adapters(sa, card)
+        if not args.no_cli:
+            manifest = make_hecktor_fixture(os.path.join(root, "fixture"), shape=chip_smoke.CLI_SHAPE,
+                                            centers={"CHUS": 4, "CHUM": 10, "CHGJ": 10})
+            cli = chip_smoke.sp_torchrun_cli(manifest, os.path.join(root, "torchrun"))
+            sa["torchrun"] = chip_smoke.sp_predict_check(os.path.join(root, "torchrun"), cli)
+            print(f"[space_adapters] cli over space=2 vs one process: {json.dumps(sa['torchrun'])}; card {card}",
+                  flush=True)
+        shutil.rmtree(root, ignore_errors=True)
+        print(json.dumps({"space_adapters": sa, "card": card}, default=str))
         return 0
     if args.models:
         sp = chip_smoke.space_parallel_phase(dev, os.path.join(REPO, "build", "space_models"))

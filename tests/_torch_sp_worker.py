@@ -153,10 +153,8 @@ def collectives_case(mesh, *, x: np.ndarray, w_halo: np.ndarray, w_gather: np.nd
 
 
 def errors_case(mesh, *, cfg: dict, model_kw: dict, state: dict, shape: Tuple[int, ...]) -> Dict[str, str]:
-    """What the space axis still refuses (ROADMAP.md, item 12b-v), by
+    """What the space axis still refuses (ROADMAP.md, item 12b-v-c), by
     message."""
-    from multimodal_tta_tpu_torch.evaluation.export import PredictionExporter
-    from multimodal_tta_tpu_torch.evaluation.seg_eval import SegmentationEvaluationStrategy
     from multimodal_tta_tpu_torch.parallel.mesh import Mesh
 
     out = {}
@@ -168,27 +166,6 @@ def errors_case(mesh, *, cfg: dict, model_kw: dict, state: dict, shape: Tuple[in
         except (NotImplementedError, ValueError) as e:
             out[key] = f"{type(e).__name__}: {e}"
 
-    def config(**tta):
-        c = ConfigNode(cfg)
-        for k, v in tta.items():
-            c.set_path(f"tta.{k}", v)
-        return c
-
-    def evaluation(**node):
-        c = ConfigNode(cfg)
-        for k, v in node.items():
-            c.set_path(f"evaluation.{k}", v)
-        return SegmentationEvaluationStrategy(c).evaluate_epoch(port_model("unet", model_kw, state), [], device="cpu",
-                                                                mesh=mesh)
-
-    message("windows", lambda: TentAdapter(config(window={"enabled": True, "windows_per_step": 2}).tta,
-                                           device="cpu", mesh=mesh))
-    for method in ("pl", "eata", "sar", "cotta", "memo"):
-        message(method, lambda: TTAEngine(config(method=method), device="cpu", mesh=mesh))
-    message("sliding_window", lambda: evaluation(sliding_window={"enable": True}))
-    message("flip_tta", lambda: evaluation(flip_tta={"enable": True}))
-    message("export", lambda: PredictionExporter(None, "unused").run(port_model("unet", model_kw, state), [],
-                                                                     device="cpu", mesh=mesh))
     tiny = dict(in_channels=2, num_classes=1, image_size=list(shape[:3]), device="cpu")
     message("unetr", lambda: sp.require_support(get_model("unetr")(
         patch_size=4, hidden_size=16, mlp_dim=32, num_heads=2, num_layers=2, feature_size=4, **tiny), mesh))

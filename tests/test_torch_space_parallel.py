@@ -409,22 +409,20 @@ def test_stream_over_the_space_axis(runs):
 
 
 def test_what_the_space_axis_refuses(runs):
-    """What the space axis still refuses names ROADMAP.md's item 12b-v:
-    Tent's windows, sliding-window inference and flip TTA, the methods
-    beyond Tent and norm, the prediction export, UNETR and SwinUNETR, the
-    sequence axis, a space axis beside a model, expert or stage axis; a
-    slab thinner than 2 planes is a ValueError. Every conv segmenter, every
-    norm, GWDL, distillation, deep supervision and the bottleneck MoE run
-    (``tests/test_torch_space_models.py``)."""
+    """What the space axis still refuses names ROADMAP.md's item 12b-v-c:
+    UNETR and SwinUNETR, the sequence axis, a space axis beside a model,
+    expert or stage axis; a slab thinner than 2 planes is a ValueError.
+    Every conv segmenter, every norm, GWDL, distillation, deep supervision
+    and the bottleneck MoE run (``tests/test_torch_space_models.py``), and
+    so do Tent's windows, the sliding window, flip TTA, pl, eata, sar, cotta,
+    memo and the prediction export (``tests/test_torch_space_adapters.py``)."""
     out = runs["errors"][1][0]
-    refused = {"windows": "windows", "pl": "tta.method=pl", "eata": "tta.method=eata", "sar": "tta.method=sar",
-               "cotta": "tta.method=cotta", "memo": "tta.method=memo", "sliding_window": "sliding-window",
-               "flip_tta": "flip TTA", "export": "prediction export", "unetr": "UNETR",
-               "swin_unetr": "SwinUNETR", "sequence": "seq_shard_axis", "beside_model": "model axis",
-               "beside_expert": "expert axis", "beside_stage": "stage axis"}
+    refused = {"unetr": "UNETR", "swin_unetr": "SwinUNETR", "sequence": "seq_shard_axis",
+               "beside_model": "model axis", "beside_expert": "expert axis", "beside_stage": "stage axis"}
+    assert set(out) == set(refused) | {"thin_slab"}
     for key, what in refused.items():
         assert out[key] is not None and out[key].startswith("NotImplementedError"), (key, out[key])
-        assert what in out[key] and "12b-v" in out[key], (key, out[key])
+        assert what in out[key] and "item 12b-v-c" in out[key], (key, out[key])
     assert "ValueError" in out["thin_slab"] and "at least 2 planes" in out["thin_slab"]
 
 
