@@ -298,19 +298,30 @@ Phases, in order (any failure propagates and exits non-zero):
                process, each rank's launches exactly, every kernel call
                held to its plain version, ms, peak and collective bytes
                per case.
+               Its transformers (``space_transformers_phase``, a job of the
+               same spawn): UNETR and SwinUNETR at ``configs/model/``'s
+               widths on one HECKTOR21 batch (a forward, an SGD step, a
+               continual Tent step, an evaluated batch) and UNETR with
+               ``seq_shard_axis=space`` on one BraTS volume (a forward, an
+               SGD step), f32, against one process: logits, losses, the
+               first step's gradients, Tent's moves, predictions, metrics;
+               each rank's launches exactly, every kernel call held to its
+               plain version.
  24. adapters — pl, eata, sar, cotta and memo over two ranks on card 0
                against one process (``adapters_phase``), every norm and
                min-plus call held to its plain version (``CallCheck``).
- 25. model_axis — UNETR over ``data=2 x model=2`` (``model_axis_phase``).
- 26. expert_axis — MoE UNETR (8 experts, remat, f32) over four ranks on
-               card 0 on ``data=2 x expert=2`` (``expert_axis_phase``), each
-               rank holding 4 of the 8 experts of every MoE block and their
-               Adam moments, against one process on the same global batches:
-               a forward, two training steps with Adam and with Adafactor,
-               Tent online and strict, one evaluated batch with the surface
-               metrics; every norm and min-plus call held to its plain
-               version, launches exact, the ranks of a data group bit for
-               bit; bytes over the expert and data groups, ms, peaks.
+ 25. model_axis — UNETR (8 blocks) over ``data=2 x model=2``
+               (``model_axis_phase``).
+ 26. expert_axis — MoE UNETR (8 blocks, 8 experts, remat, f32) over
+               four ranks on card 0 on ``data=2 x expert=2``
+               (``expert_axis_phase``), each rank holding 4 of the 8 experts
+               of every MoE block and their Adam moments, against one
+               process on the same global batches: a forward, two training
+               steps with Adam and with Adafactor, Tent online and strict,
+               one evaluated batch with the surface metrics; every norm
+               and min-plus call held to its plain version, launches exact,
+               the ranks of a data group bit for bit; bytes over the expert
+               and data groups, ms, peaks.
  27. stage_axis — ViT-B/16 on [64,224,224,3] over four ranks on card 0 on
                ``data=2 x stage=2`` (``stage_axis_phase``, GPipe,
                ``n_micro=4``) against the sequential model: the pipelined
@@ -318,6 +329,16 @@ Phases, in order (any failure propagates and exits non-zero):
                on the trunk (loss, stacked gradients, the loss falling),
                each stage holding 6 blocks; ms against sequential, the
                bubble, bytes a hop.
+ 27b. space_axes — a space axis beside the model, expert and stage axes
+               (``space_axes_phase``, a job of the same spawn, one mesh a
+               case): UNETR with ``tp_axis=model`` and the sequence axis on
+               one BraTS volume over ``space=2 x model=2`` (4 blocks), the
+               flagship with 4 bottleneck experts on one HECKTOR21 batch
+               over ``space=2 x expert=2`` (the routing bitwise), a forward
+               and an SGD step each against one process, every norm call
+               held to its plain version, launches exact; ViT-B/16 pipelined
+               over ``space=2 x stage=2``, one GPipe step against phase
+               27's sequential run, its forward and step ms.
 
 Phase 2 also holds the norm kernels against their plain versions at the nine
 norm shapes of the batch-8 training step (the largest, [8,48,144,144,32], in
@@ -5279,7 +5300,7 @@ class CollectiveBytes:
         return False
 
 
-SPLIT_CHECK_BYTES = 32 << 20  # a check's plain version runs on slices of at most this many f32 bytes
+SPLIT_CHECK_BYTES = 512 << 20  # a check's plain version runs on slices of at most this many f32 bytes
 SPLIT_KEYS = {"instance_norm_stats": "stats", "instance_norm_apply": "apply", "instance_norm_bwd_sums": "bwd_sums",
               "instance_norm_bwd_apply": "bwd_apply"}
 
@@ -5959,11 +5980,12 @@ SPLIT_REPLACES = {"instance_norm_stats": ":114", "instance_norm_apply": ":136", 
                   "instance_norm_bwd_apply": ":87"}  # the TPU kernel's stats and normalize pallas_calls; its gradient
 
 
-def split_summaries(sp: dict, card: str, sa: dict) -> list:
+def split_summaries(sp: dict, card: str, sa: dict, st: dict, sx: dict) -> list:
     """The kernels line's entries of the four split-depth norm entries:
     launches on phase 23's main paths (both ranks; ``sa`` its adapters,
-    windows, flip TTA and sliding window), the largest error at the paths'
-    own calls and at the timing table's inputs (f32 and bf16), times of one
+    windows, flip TTA and sliding window; ``st`` its transformers) and
+    phase 27b's (``sx``: four ranks), the largest error at the paths' own
+    calls and at the timing table's inputs (f32 and bf16), times of one
     flagship training forward's split norm calls at batch 8 on one of two
     space ranks in f32 (and, under ``bf16``, in bf16)."""
     table = sp["table"]
@@ -5972,14 +5994,16 @@ def split_summaries(sp: dict, card: str, sa: dict) -> list:
         e, e16, key = table["entries"][name], table["bf16"][name], SPLIT_KEYS[name]
         path_err = max([c["max_abs_err"] for r in sp["ranks"] for part in ("split", "split_bf16")
                         for k, c in r["kernel_check"].get(part, {}).items() if k.split()[0] == key]
-                       + [c["max_abs_err"] for r in sa["ranks"] for k, c in r["check"]["split"].items()
-                          if k.split()[0] == key], default=0.0)
+                       + [c["max_abs_err"] for r in sa["ranks"] + st["ranks"] + sx["ranks"]
+                          for k, c in r["check"]["split"].items() if k.split()[0] == key], default=0.0)
         out.append({
             "name": name, "route": "cuda", "source": "multimodal_tta_tpu_torch/csrc/fused_instance_norm.cu",
             "replaces": "multimodal_tta_tpu/pallas/fused_instance_norm.py" + SPLIT_REPLACES[name],
-            "launches": sp["launches"][name] + sp["models_launches"][name] + sa["launches"][name],
+            "launches": sp["launches"][name] + sp["models_launches"][name] + sa["launches"][name]
+            + st["launches"][name] + sx["launches"][name],
             "launches_by_path": {"space_parallel": sp["launches"][name], "space_models": sp["models_launches"][name],
-                                 "space_adapters": sa["launches"][name]},
+                                 "space_adapters": sa["launches"][name], "space_transformers": st["launches"][name],
+                                 "space_axes": sx["launches"][name]},
             "max_abs_err": max(e["max_abs_err"], e16["max_abs_err"], path_err), "ms": e["ms"],
             "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"], "bound_by": e["bound_by"], "library_ms": None,
             "bf16": {k: e16[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")},
@@ -6350,6 +6374,356 @@ def log_space_adapters(sa: dict, card: str) -> None:
     log(f"[space_adapters] took {sa['phase_s']:.1f} s; launches over both ranks {sa['launches']}; card {card}")
 
 
+# ---- phase 23, UNETR and SwinUNETR over a split depth; the sequence axis --------
+# the same two ranks on card 0 (gloo) on data=1 x space=2, f32 (TF32 off),
+# against one process on the same global batches: UNETR and SwinUNETR at
+# configs/model/'s widths on one HECKTOR21 batch of BATCH (phase 23's first
+# two training volumes): a forward (the logits gathered), one SGD step of the
+# recipe's criterion, a continual Tent step, one evaluated batch with the
+# surface metrics; UNETR with seq_shard_axis=space on one BraTS volume (4
+# channels, 3 classes: 1200 tokens, 600 a rank; every level from 160 planes
+# down to the 10-plane grid split): a forward and one SGD step. Every split
+# norm call (SplitCheck) and every whole-norm and min-plus call (CallCheck)
+# held to its plain version as the path makes it; each rank's launches
+# derived from the norms that ran split and whole (NormLevels); the first
+# step's summed gradients within SP_GRAD_REL of one process's
+ST_WORLD = 2
+ST_CASES = ("unetr", "swin_unetr", "unetr_seq")
+ST_SEED = 280
+ST_BRATS_SEED = 281
+ST_TIMEOUT_S = 600
+ST_LOGIT_REL = 1e-4  # the gathered logits' relative L2 against one process's (phase 25's TP_LOGIT_REL)
+ST_FIRST_NORMS = 1  # norms whose input needs no gradient in a Tent step: the first one on the raw input
+
+
+def st_specs(spec: dict) -> dict:
+    """Each case: its model node (``configs/model/``, ``spec``'s overrides),
+    image size, criterion (None: the recipe's), device transform, data key,
+    and whether it takes a Tent step and an evaluated batch."""
+    unetr = model_node("unetr", **spec.get("unetr", {}))
+    swin = model_node("swin_unetr", **spec.get("swin", {}))
+    hecktor = dict(image_size=list(spec["shape"]), criterion=None, transform=DEVICE_TRANSFORM, data="hecktor",
+                   adapt=True)
+    return {"unetr": dict(hecktor, model=unetr), "swin_unetr": dict(hecktor, model=swin),
+            "unetr_seq": dict(model=dict(unetr, in_channels=4, num_classes=3, seq_shard_axis="space"),
+                              image_size=list(spec["brats_shape"]), criterion=MID_CRITERION,
+                              transform={"normalize": False}, data="brats", adapt=False)}
+
+
+def st_run(device, mesh, spec: dict) -> dict:
+    """The transformers' cases (``ST_CASES``) in this process: over the
+    ranks of ``mesh`` (data 1 x space 2), or in one process (``mesh`` None)
+    on the same global batches. Per case: the gathered logits, the loss and
+    the first step's gradients (summed over the ranks; rank 0 keeps them),
+    Tent's entropies, moves and gathered predictions, the evaluated
+    metrics, the norms that ran split and whole, each part's launches."""
+    import torch
+
+    from multimodal_tta_tpu_torch.conf import ConfigNode
+    from multimodal_tta_tpu_torch.core.optim import EpochScheduler, build_optimizer
+    from multimodal_tta_tpu_torch.core.train_state import TrainState
+    from multimodal_tta_tpu_torch.core.trainers.seg_trainer import SegTrainer
+    from multimodal_tta_tpu_torch.ops.intensity import make_intensity_normalizer
+    from multimodal_tta_tpu_torch.parallel import space as sp
+    from multimodal_tta_tpu_torch.registry import get_model
+    from multimodal_tta_tpu_torch.tta.engine import TTAEngine
+    from multimodal_tta_tpu_torch.tta.tent import TentAdapter, norm_param_mask
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = mesh.device if mesh is not None else torch.device(device)
+    cuda = dev.type == "cuda"
+    data = torch.load(spec["data"], weights_only=False)
+    local = (lambda t: t) if mesh is None else mesh.local
+    gather = (lambda t: t) if mesh is None else mesh.gather
+    rank = mesh.rank if mesh is not None else 0
+    ax = sp.axis_of(mesh)
+    recipe = train_recipe(os.path.join(spec["ranks_root"], "recipe"))["training"]["criterion"]
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    split, calls = SplitCheck(), CallCheck()
+    calls.on = cuda
+
+    def mark() -> dict:
+        """The launch counters and the plain backward calls CallCheck itself made."""
+        return dict(split_counts(), checked=calls.backward_calls())
+
+    def since(at: dict) -> dict:
+        sync()
+        now = mark()
+        out = {k: v - at[k] for k, v in now.items() if k != "checked"}
+        out["plain_backward"] -= now["checked"] - at["checked"]
+        return out
+
+    def build(case: dict):
+        cfg = ConfigNode(sm_config(case["model"], case["criterion"] or recipe, "float32",
+                                   data={"transforms": {"image_size": case["image_size"]}}))
+        model = get_model(case["model"]["name"]).from_config(cfg.model, dtype=torch.float32, remat=False,
+                                                             image_size=case["image_size"], device=dev,
+                                                             seed=ST_SEED)
+        optimizer, lr = build_optimizer(cfg.training, model, mesh)
+        trainer = SegTrainer(cfg, device_transform=case["transform"], device=dev, mesh=mesh)
+        trainer.setup(TrainState(model=model, optimizer=optimizer), None, EpochScheduler(cfg.training, lr))
+        return model, trainer
+
+    def step(trainer, batch) -> tuple:
+        """One ``run_step``: the loss and the gradients it applied (summed
+        over the ranks), flat in sorted name order, on the CPU."""
+        grads, apply = {}, trainer.state.apply_gradients
+
+        def first():
+            names = sorted(n for n, p in trainer.state.model.named_parameters() if p.grad is not None)
+            params = dict(trainer.state.model.named_parameters())
+            grads["flat"] = torch.cat([params[n].grad.detach().flatten() for n in names]).cpu()
+            grads["names"] = [(n, params[n].numel()) for n in names]
+            trainer.state.apply_gradients = apply
+            return apply()
+
+        trainer.state.apply_gradients = first
+        trainer.run_step({"image": batch["image"], "label": batch["label"]})
+        return trainer.flush_step_metrics()["loss"], grads
+
+    specs = st_specs(spec)
+    out = {"tag": f"rank{rank}" if mesh is not None else "one", "cases": {}}
+    for name in spec.get("cases", ST_CASES):
+        case = specs[name]
+        batch = data[case["data"]]
+        norm_fn = make_intensity_normalizer(normalize=case["transform"].get("normalize", False),
+                                            intensity_policy=case["transform"].get("intensity_policy"),
+                                            channel_names=case["transform"].get("channel_names"))
+        model, trainer = build(case)
+        r = {"launches": {}}
+        with split, calls, NormLevels(model) as levels:
+            at = mark()
+            with torch.no_grad(), sp.sharded(mesh):
+                x = norm_fn(torch.from_numpy(local(batch["image"])).to(dev), space=ax)
+                logits = gather(model(x))
+            r["launches"]["forward"] = since(at)
+            r["logits"] = logits.cpu() if rank == 0 else None
+            r["logits_sq"] = float(logits.double().square().sum())
+            del logits, x
+            at = mark()
+            r["loss"], grads = step(trainer, batch)
+            r["launches"]["train"] = since(at)
+            r["grads"] = grads if rank == 0 else None
+            r["grads_sq"] = float(grads["flat"].double().square().sum())
+            if case["adapt"]:
+                tcfg = ConfigNode(eval_config("tent", False))
+                ad = TentAdapter(tcfg.tta, config=tcfg, device_transform=case["transform"], device=dev, mesh=mesh)
+                fn = ad.make_adapt_predict_fn(model, THRESHOLD, "inline")
+                norm = {n for n, k in norm_param_mask(model).items() if k}
+                before = {n: p.detach().clone() for n, p in model.named_parameters() if n in norm}
+                at = mark()
+                _, pred = fn(model, torch.from_numpy(local(batch["image"])), batch["image"].shape[0])
+                r["launches"]["tent"] = since(at)
+                pred = gather(pred).cpu()  # every rank gathers
+                r["tent"] = {"ents": ad._last_ents.cpu().tolist(),
+                             "moved": {n: (p.detach() - before[n]).cpu() for n, p in model.named_parameters()
+                                       if n in norm},
+                             "preds": pred if rank == 0 else None}
+                ad.restore()
+                engine = TTAEngine(ConfigNode(eval_config("none", False)), device_transform=case["transform"],
+                                   device=dev, mesh=mesh)
+                at = mark()
+                r["eval"] = engine.evaluate(model, [batch])
+                r["launches"]["evaluate"] = since(at)
+        r["norms"] = {"split": len(levels.split), "whole": len(levels.whole)}
+        del model, trainer
+        if cuda:
+            torch.cuda.empty_cache()
+        out["cases"][name] = r
+    out["check"] = {"split": split.seen, "calls": calls.seen}
+    out["check_ok"] = (mesh is None or split.ok()) and (
+        not cuda or calls.ok(["forward float32", "backward float32", "minplus"]))
+    return out
+
+
+def st_expected(res: dict, cuda: bool) -> dict:
+    """Each case's launches by part, derived from the norms that ran split
+    and whole (``NormLevels``): a forward takes the one-launch kernel for
+    each whole norm and stats + apply for each split one; the training
+    backward the backward kernel for each whole norm and bwd_sums +
+    bwd_apply for each split one; Tent's backward no bwd_apply for the first
+    norm (its input carries no gradient: the convolutions are frozen); one
+    min-plus launch for the evaluated batch."""
+    out = {}
+    for name, r in res["cases"].items():
+        s, w = (r["norms"]["split"], r["norms"]["whole"]) if cuda else (0, 0)
+
+        def launches(fwd=0, bwd=0, tent_bwd=0, minplus=0):
+            return {"forward": w * fwd, "backward": w * (bwd + tent_bwd), "minplus": minplus * int(cuda),
+                    "plain_backward": 0, "instance_norm_stats": s * fwd, "instance_norm_apply": s * fwd,
+                    "instance_norm_bwd_sums": s * (bwd + tent_bwd),
+                    "instance_norm_bwd_apply": s * bwd + max(s - ST_FIRST_NORMS, 0) * tent_bwd}
+
+        want = {"forward": launches(fwd=1), "train": launches(fwd=1, bwd=1)}
+        if "tent" in r:
+            want["tent"] = launches(fwd=1, tent_bwd=1)
+            want["evaluate"] = launches(fwd=1, minplus=1)
+        out[name] = want
+    return out
+
+
+def _flat_rel(a: dict, b: dict) -> float:
+    """Relative L2 of two flat gradients (``st_run``'s) of the same names."""
+    if a["names"] != b["names"]:
+        return float("inf")
+    return float((a["flat"] - b["flat"]).norm() / b["flat"].norm())
+
+
+def st_compare(one: dict, ranks: list) -> dict:
+    """The two ranks' cases against one process's: logits, loss, the first
+    step's gradients (within SP_GRAD_REL), Tent's entropies, moves and
+    predictions, metrics; each rank alike. Every check is made before a
+    failure raises."""
+    import torch
+
+    r0 = ranks[0]
+    out, failed = {"ranks": len(ranks), "cases": {}}, []
+    for name, o in one["cases"].items():
+        a = r0["cases"][name]
+        c = {"logits_rel_l2": float((a["logits"] - o["logits"]).norm() / o["logits"].norm()),
+             "loss": [a["loss"], o["loss"]], "loss_rel": abs(a["loss"] - o["loss"]) / abs(o["loss"]),
+             "grad_rel_l2": _flat_rel(a["grads"], o["grads"])}
+        if c["logits_rel_l2"] > ST_LOGIT_REL or c["loss_rel"] > SP_LOSS_REL or c["grad_rel_l2"] > SP_GRAD_REL:
+            failed.append(f"{name}: {c}")
+        if any(res["cases"][name][k] != a[k] for res in ranks for k in ("loss", "logits_sq", "grads_sq")):
+            failed.append(f"{name}: the ranks' losses, logits or gradients differ")
+        if "tent" in o:
+            t, ot = a["tent"], o["tent"]
+            keys = sorted(ot["moved"])
+            diff = torch.cat([(t["moved"][k] - ot["moved"][k]).flatten() for k in keys])
+            ref = torch.cat([ot["moved"][k].flatten() for k in keys])
+            c["tent"] = {"ents_max_rel": max(abs(x - y) / abs(y) for x, y in zip(t["ents"], ot["ents"])),
+                         "delta_rel_l2": float(diff.norm() / ref.norm()),
+                         "pred_agree": float((t["preds"] == ot["preds"]).float().mean())}
+            if c["tent"]["ents_max_rel"] > SP_LOSS_REL or c["tent"]["delta_rel_l2"] > SP_DELTA_REL \
+                    or c["tent"]["pred_agree"] < SP_PRED_AGREE:
+                failed.append(f"{name} Tent: {c['tent']}")
+            if any(res["cases"][name]["tent"]["ents"] != t["ents"] for res in ranks):
+                failed.append(f"{name} Tent: the ranks' entropies differ")
+            e0, oe = a["eval"], o["eval"]
+            floats = [k for k, v in oe.items() if isinstance(v, float)]
+            c["eval_max_abs"] = max(abs(e0[k] - oe[k]) for k in floats)
+            c["dice"] = oe.get("gtvt_dc")
+            if set(e0) != set(oe) or any(abs(e0[k] - oe[k]) > DP_METRIC_ABS + DP_METRIC_REL * abs(oe[k])
+                                         for k in floats) or any(res["cases"][name]["eval"] != e0 for res in ranks):
+                failed.append(f"{name} evaluation: {e0} vs {oe}")
+        out["cases"][name] = c
+    if failed:
+        raise AssertionError("phase 23 (transformers over space), two ranks vs one process: " + "; ".join(failed)
+                             + f"; all: {out}")
+    return out
+
+
+def _st_job(rank: int, world: int, device: str, spec: dict) -> dict:
+    """The transformers' phase-23 cases, rank side, in an initialised
+    process group: a ``data=1 x space=2`` mesh, ``st_run``."""
+    from multimodal_tta_tpu_torch.parallel.mesh import make_mesh
+
+    return st_run(device, make_mesh([_rank_device(device)] * world, data=1, space=world), spec)
+
+
+def space_transformers_phase(device, root: str, **kw) -> dict:
+    """The transformers' phase-23 cases alone: two ranks sharing the device
+    over gloo, spawned here, against the one-process run here (``main``
+    spawns their ranks with phases 22-24's, ``spawn_pairs``)."""
+    prep = space_transformers_prepare(device, root, **kw)
+    spawn_pairs([prep])
+    return space_transformers_finish(prep)
+
+
+def space_transformers_prepare(device, root: str, *, shape=SHAPE[:3], brats_shape=BRATS_SHAPE, unetr=None,
+                               swin=None, cases=ST_CASES, threads: int = 4) -> dict:
+    """Up to the ranks: the batches (phase 23's first two training volumes;
+    one BraTS volume from a seed) and the ranks' spec; ``unetr`` / ``swin``
+    override the configs' widths (the CPU tests' fixture size)."""
+    import shutil
+
+    import torch
+
+    from multimodal_tta_tpu_torch.data.synthetic import brats_volumes
+
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root, exist_ok=True)
+    t0 = time.perf_counter()
+    spec = {"shape": list(shape), "brats_shape": list(brats_shape), "unetr": dict(unetr or {}),
+            "swin": dict(swin or {}), "cases": list(cases), "threads": threads,
+            "data": os.path.join(root, "data.pt"), "ranks_root": os.path.join(root, "ranks")}
+    torch.save({"hecktor": _stack(hecktor_volumes(BATCH, SP_TRAIN_SEED, tuple(shape))),
+                "brats": _stack(brats_volumes(1, tuple(brats_shape), seed=ST_BRATS_SEED))}, spec["data"])
+    os.makedirs(spec["ranks_root"], exist_ok=True)
+    return {"name": "space_transformers", "device": device, "root": root, "t0": t0,
+            "cuda": torch.device(device).type == "cuda", "out": {"backend": "gloo"}, "backend": "gloo",
+            "spec": spec}
+
+
+def space_transformers_finish(prep: dict) -> dict:
+    """After the ranks: the one-process run and the checks (each rank's
+    launches against ``st_expected``, its kernels against their plain
+    versions, ``st_compare``)."""
+    import shutil
+
+    import torch
+
+    device, root, t0, cuda, out, spec = (prep[k] for k in ("device", "root", "t0", "cuda", "out", "spec"))
+    ranks = [torch.load(os.path.join(spec["ranks_root"], f"rank{r}.pt"), weights_only=False)
+             for r in range(ST_WORLD)]
+    out["ranks_s"] = ranks[0]["s"]
+    t1 = time.perf_counter()
+    held = torch.get_num_threads()
+    torch.set_num_threads(spec["threads"])
+    try:
+        one = st_run(device, None, spec)
+    finally:
+        torch.set_num_threads(held)
+    out["one_s"] = time.perf_counter() - t1
+    failed = []
+    try:
+        out["compare"] = st_compare(one, ranks)
+    except AssertionError as e:
+        failed.append(str(e))
+    for res in ranks + [one]:
+        for case, want in st_expected(res, cuda).items():
+            if res["cases"][case]["launches"] != want:
+                failed.append(f"{res['tag']} {case}: launches {res['cases'][case]['launches']}, derived {want}")
+        if not res["check_ok"]:
+            failed.append(f"{res['tag']} kernels vs plain: {res['check']}")
+    keys = ("forward", "backward", "minplus") + SPLIT_ENTRIES
+    out["launches"] = {k: sum(p[k] for res in ranks for r in res["cases"].values() for p in r["launches"].values())
+                       for k in keys}
+    out["cases"] = list(spec["cases"])
+    out["ranks"] = [{"tag": res["tag"], "check": res["check"], "s": res["s"],
+                     "norms": {c: r["norms"] for c, r in res["cases"].items()},
+                     "launches": {c: r["launches"] for c, r in res["cases"].items()}} for res in ranks]
+    out["one"] = {"check": one["check"], "norms": {c: r["norms"] for c, r in one["cases"].items()}}
+    out["phase_s"] = time.perf_counter() - t0
+    shutil.rmtree(root, ignore_errors=True)
+    if failed:
+        raise AssertionError("phase 23 (transformers over space): " + " | ".join(failed))
+    return out
+
+
+def log_space_transformers(st: dict, card: str) -> None:
+    """The transformers' phase-23 numbers, a line each case."""
+    log(f"[space_transformers] two ranks (data 1 x space 2, gloo) vs one process, f32 (TF32 off): UNETR and "
+        f"SwinUNETR at configs/model/'s widths on one HECKTOR21 batch of {BATCH}, UNETR with seq_shard_axis=space "
+        f"on one BraTS volume: ranks {st['ranks_s']:.1f} s, one process {st['one_s']:.1f} s; card {card}")
+    for case, c in st["compare"]["cases"].items():
+        log(f"[space_transformers]   {case}: logits {c['logits_rel_l2']:.3g} rel L2 of one process's (limit "
+            f"{ST_LOGIT_REL}); loss {c['loss']} ({c['loss_rel']:.3g}, limit {SP_LOSS_REL}); first step's gradients "
+            f"{c['grad_rel_l2']:.3g} (limit {SP_GRAD_REL})" + (f"; Tent {json.dumps(c['tent'])}; metrics within {c['eval_max_abs']:.3g}"
+                                            f", Dice {c['dice']}" if "tent" in c else "")
+            + f"; norms a rank {st['ranks'][0]['norms'][case]} (one process {st['one']['norms'][case]}); launches "
+            f"a rank {st['ranks'][0]['launches'][case]}; card {card}")
+    for r in st["ranks"] + [dict(st["one"], tag="one")]:
+        log(f"[space_transformers]   {r['tag']}: kernels vs plain {json.dumps(r['check'])}")
+    log(f"[space_transformers] took {st['phase_s']:.1f} s; launches over both ranks {st['launches']}; card {card}")
+
+
 # ---- phase 24: every adapter over the data axis --------------------------------
 # two ranks share the one card (gloo), as in phase 22; the flagship at full
 # width on HECKTOR21 batches of BATCH; TTAEngine.evaluate with pl, eata, sar,
@@ -6500,6 +6874,11 @@ class CallCheck:
     def ok(self, keys) -> bool:
         """Every check in ``keys`` seen, and every check within its limit."""
         return set(keys) <= set(self.seen) and all(s["worst"] <= 1.0 for s in self.seen.values())
+
+    def backward_calls(self) -> int:
+        """The plain backward calls the checks made (a path's own count of
+        them is the counter's less these)."""
+        return sum(v["calls"] for k, v in self.seen.items() if k.startswith("backward"))
 
 
 def ad_data(shape, batches: int) -> list:
@@ -6659,7 +7038,8 @@ def _ad_job(rank: int, world: int, device: str, spec: dict) -> dict:
 
 # phase -> (its rank side, its time limit): the two-rank phases that share a spawn
 PAIR_JOBS = {"data_parallel": (_dp_job, DP_TIMEOUT_S), "space_parallel": (_sp_job, SP_TIMEOUT_S),
-             "space_adapters": (_sa_job, SA_TIMEOUT_S), "adapters": (_ad_job, AD_TIMEOUT_S)}
+             "space_adapters": (_sa_job, SA_TIMEOUT_S), "space_transformers": (_st_job, ST_TIMEOUT_S),
+             "adapters": (_ad_job, AD_TIMEOUT_S)}
 
 
 def _pair_rank(rank: int, world: int, store: str, backend: str, device: str, jobs: list) -> None:
@@ -6887,8 +7267,11 @@ def log_adapters(ad: dict, card: str) -> None:
 # DP_LOSS_REL; the params' and Tent's deltas within DP_DELTA_REL relative L2;
 # predictions on DP_PRED_AGREE of voxels
 TP_WORLD, TP_MODEL = 4, 2
+# configs/model/unetr.yaml's widths, its depth cut from 12 blocks to 8 (the
+# axis cuts every block alike; the smoke's time pays for phase 23's
+# transformers and phase 27b; UNETR takes a multiple of 4)
 TP_UNETR = dict(in_channels=2, num_classes=1, patch_size=16, hidden_size=768, mlp_dim=3072, num_heads=12,
-                num_layers=12, feature_size=16)
+                num_layers=8, feature_size=16)
 TP_TRAIN_BATCH = 4
 TP_STEPS = 2
 TP_TENT_BATCHES = 2
@@ -7212,12 +7595,12 @@ def log_model_axis(tp: dict, card: str) -> None:
 
 # ---- phase 26: the expert axis (MoE experts over ranks) for MoE UNETR ----------
 # four ranks share the one card (gloo) on a data=2 x expert=2 mesh: UNETR at
-# configs/model/unetr.yaml's width with 8 experts in blocks 1, 3, .., 11
-# (phase 20's A_unetr_moe8 runs), remat, f32, each rank holding 4 of the 8
-# experts of every MoE block; against one process on the same global
-# batches: a forward, two training steps at global batch 4 with Adam and
-# with Adafactor, Tent online and strict, one evaluated batch with the
-# surface metrics. Limits: the logits within TP_LOGIT_REL of the largest
+# configs/model/unetr.yaml's width (8 blocks: TP_UNETR) with 8 experts in
+# blocks 1, 3, 5, 7 (phase 20's A_unetr_moe8 at 2/3 its depth), remat, f32,
+# each rank holding 4 of the 8 experts of every MoE block; against one
+# process on the same global batches: a forward, two training steps at
+# global batch 4 with Adam and with Adafactor, Tent online and strict, one
+# evaluated batch with the surface metrics. Limits: the logits within TP_LOGIT_REL of the largest
 # (each rank sums its experts' share of the combine over the expert group,
 # in another order than one einsum); losses and entropies within
 # DP_LOSS_REL; the first Adam step's gradients (all tensors, and the
@@ -7289,7 +7672,7 @@ def ep_run(device, root: str, mesh, spec: dict) -> dict:
     (``data=2 x expert=2``), or in one process (``mesh`` None), which returns
     its first Adam step's gradients, its first Adafactor step's factored
     moves and their gradients, and its moves for the ranks to read
-    (``spec["one"]``: the whole trees are 1.16 GB each)."""
+    (``spec["one"]``: the whole trees are 0.80 GB each)."""
     import hashlib
 
     import torch
@@ -7404,12 +7787,13 @@ def ep_run(device, root: str, mesh, spec: dict) -> dict:
     def expert_bytes(tensors) -> int:
         return sum(t.numel() * t.element_size() for n, t in tensors if n.endswith(EP_LEAVES))
 
-    one = None if mesh is None else torch.load(spec["one"], map_location="cpu", weights_only=False)
+    # each rank maps the one process's trees (0.80 GB each) rather than copying them in
+    one = None if mesh is None else torch.load(spec["one"], map_location="cpu", weights_only=False, mmap=True)
     out = {"tag": f"rank{mesh.rank}" if mesh is not None else "one", "launches": {}, "train": {}, "moves": {}}
     if cuda:  # the peak is read above the memory live at the start (the smoke's earlier phases hold some)
         torch.cuda.reset_peak_memory_stats(dev)
         live = torch.cuda.memory_allocated(dev)
-    # built once from the seed (the init of 290M params takes seconds); each
+    # built once from the seed (the init of 200M params takes seconds); each
     # run below starts from these weights again
     model = UNETR(**kw, image_size=shape, dtype=torch.float32, remat=True, device=dev, seed=EP_SEED)
     shard_experts(model, mesh)
@@ -7769,7 +8153,8 @@ def pp_trunk(model):
 def pp_run(device, root: str, mesh, spec: dict) -> dict:
     """Phase 27's main path over the ranks of ``mesh`` (``data=2 x
     stage=2``), or the sequential model in one process (``mesh`` None),
-    which writes what the ranks compare with (``spec["one"]``)."""
+    which writes what the ranks compare with (``spec["one"]``). ``spec``'s
+    ``steps``: its GPipe steps (2)."""
     import torch
     import torch.distributed as dist
 
@@ -7783,6 +8168,7 @@ def pp_run(device, root: str, mesh, spec: dict) -> dict:
     cuda = dev.type == "cuda"
     data = torch.load(spec["data"], weights_only=False)
     x, labels = torch.from_numpy(data["x"]).to(dev), torch.from_numpy(data["labels"]).to(dev)
+    n_steps = spec.get("steps", 2)
 
     def sync():
         if cuda:
@@ -7844,7 +8230,8 @@ def pp_run(device, root: str, mesh, spec: dict) -> dict:
         grads = {k: v.grad.detach() for k, v in params.items()}
         if mesh is not None:
             grads = gather_stages(mesh, grads)
-        losses.append(float(step(params, h0, labels)))
+        if n_steps > 1:
+            losses.append(float(step(params, h0, labels)))
         out["train_ms"] = [timed(lambda: step(params, h0, labels)) for _ in range(PP_TIMED)]
         out["losses"] = losses
         if mesh is None:
@@ -7861,7 +8248,8 @@ def pp_run(device, root: str, mesh, spec: dict) -> dict:
             out["grad_rel_leaf"] = max(per_leaf, key=per_leaf.get)
             out["grad_rel"] = per_leaf[out["grad_rel_leaf"]]
             out["loss_rel"] = abs(losses[0] - one["losses"][0]) / abs(one["losses"][0])
-            out["second_loss_rel"] = abs(losses[1] - one["losses"][1]) / abs(one["losses"][1])
+            if n_steps > 1:
+                out["second_loss_rel"] = abs(losses[1] - one["losses"][1]) / abs(one["losses"][1])
         out["launches"] = {"forward": fused_instance_norm.launches - launches0[0],
                            "backward": fused_instance_norm.backward_launches - launches0[1]}
     finally:
@@ -7956,6 +8344,297 @@ def log_stage_axis(pp: dict, card: str) -> None:
         f"card {card}")
 
 
+# ---- phase 27b: a space axis beside the model, expert and stage axes --------------
+# the same four ranks (gloo, card 0), one mesh a case, f32 (TF32 off), widths
+# kept and depth cut, against one process (run first: its logits, loss,
+# gradients and routing written once for the ranks to read): UNETR with
+# tp_axis=model and seq_shard_axis=space on one BraTS volume over
+# space=2 x model=2 (4 encoder blocks: 1200 tokens, 600 a space rank, half
+# the heads and MLP features a model rank), a forward and one SGD step; the
+# flagship with 4 bottleneck experts on one HECKTOR21 batch over
+# space=2 x expert=2 (2 experts a rank), the routing of a training forward
+# (the dispatch tensor, token for token) and one SGD step; ViT-B/16
+# pipelined over space=2 x stage=2 (the space ranks replicas, as the
+# reference's x_spec = P(None, data)), one GPipe step against phase 27's
+# sequential run, then its forward and step timed. Every norm call held to
+# its plain version as the path makes it (SplitCheck, CallCheck); each
+# rank's launches derived from NormLevels
+SX_CASES = ("unetr_seq_model", "flagship_expert")
+AXES_SPACE_CASES = SX_CASES + ("vit_stage",)
+SX_MESHES = {"unetr_seq_model": dict(data=1, space=2, model=2), "flagship_expert": dict(data=1, space=2, expert=2),
+             "vit_stage": dict(data=1, space=2, stage=2)}
+SX_UNETR = dict(TP_UNETR, in_channels=4, num_classes=3, num_layers=4, seq_shard_axis="space")
+SX_EXPERTS = 4
+SX_SEED = 290
+SX_TIMEOUT_S = 600
+
+
+def sx_models(spec: dict) -> dict:
+    """Each case's model node and image size (``spec``'s overrides: the CPU
+    tests' fixture size)."""
+    unetr = dict(SX_UNETR, name="unetr", tp_axis="model", **spec.get("unetr", {}))
+    flagship = dict(model_node("unet"), moe_experts=SX_EXPERTS, **spec.get("flagship", {}))
+    return {"unetr_seq_model": (unetr, list(spec["unetr_shape"]), MID_CRITERION, {"normalize": False}, "brats"),
+            "flagship_expert": (flagship, list(spec["flagship_shape"]), None, DEVICE_TRANSFORM, "hecktor")}
+
+
+def sx_run(device, root: str, meshes, spec: dict) -> dict:
+    """Phase 27b in this process: each case over the ranks of its mesh
+    (``meshes[case]``), or in one process (``meshes`` None), which writes
+    what the ranks compare with (``spec["one"]``); the pipelined ViT over
+    ``space=2 x stage=2`` through ``pp_run`` against phase 27's sequential
+    run (``spec["pipeline"]``)."""
+    import torch
+
+    from multimodal_tta_tpu_torch.conf import ConfigNode
+    from multimodal_tta_tpu_torch.core.optim import EpochScheduler, build_optimizer
+    from multimodal_tta_tpu_torch.core.train_state import TrainState
+    from multimodal_tta_tpu_torch.core.trainers.seg_trainer import SegTrainer
+    from multimodal_tta_tpu_torch.models import moe as moe_module
+    from multimodal_tta_tpu_torch.models.layers import capture_intermediates, pool_over_ranks
+    from multimodal_tta_tpu_torch.ops.intensity import make_intensity_normalizer
+    from multimodal_tta_tpu_torch.parallel import space as sp
+    from multimodal_tta_tpu_torch.parallel.expert import shard_experts
+    from multimodal_tta_tpu_torch.parallel.tensor import shard_model, sharded_params, whole_tensors
+    from multimodal_tta_tpu_torch.registry import get_model
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    data = torch.load(spec["data"], weights_only=False)
+    recipe = train_recipe(os.path.join(root, "recipe"))["training"]["criterion"]
+    one = None if meshes is None else torch.load(spec["one"], weights_only=False)
+    tag = "one" if meshes is None else f"rank{next(iter(meshes.values())).rank}"
+    out = {"tag": tag, "cases": {}}
+    split, calls = SplitCheck(), CallCheck()
+    saved = {}
+    for name, (node, image_size, criterion, transform, key) in sx_models(spec).items():
+        mesh = None if meshes is None else meshes[name]
+        dev = mesh.device if mesh is not None else torch.device(device)
+        cuda = dev.type == "cuda"
+        calls.on = cuda
+        batch = data[key]
+        local = (lambda t: t) if mesh is None else mesh.local
+        gather = (lambda t: t) if mesh is None else mesh.gather
+
+        def sync():
+            if cuda:
+                torch.cuda.synchronize(dev)
+
+        def mark() -> dict:
+            """The launch counters and the plain backward calls CallCheck itself made."""
+            return dict(split_counts(), checked=calls.backward_calls())
+
+        def since(at: dict) -> dict:
+            sync()
+            now = mark()
+            out = {k: v - at[k] for k, v in now.items() if k != "checked"}
+            out["plain_backward"] -= now["checked"] - at["checked"]
+            return out
+
+        def build():
+            cfg = ConfigNode(sm_config(node, criterion or recipe, "float32",
+                                       data={"transforms": {"image_size": image_size}}))
+            cls = get_model(node["name"])
+            sized = {"image_size": image_size} if getattr(cls, "input_sized", False) else {}
+            model = cls.from_config(cfg.model, dtype=torch.float32, remat=False, device=dev, seed=SX_SEED, **sized)
+            shard_model(model, mesh)  # this rank's heads and MLP features (model axis)
+            shard_experts(model, mesh)  # this rank's experts (expert axis)
+            optimizer, lr = build_optimizer(cfg.training, model, mesh)
+            trainer = SegTrainer(cfg, device_transform=transform, device=dev, mesh=mesh)
+            trainer.setup(TrainState(model=model, optimizer=optimizer), None, EpochScheduler(cfg.training, lr))
+            return model, trainer
+
+        def step(trainer):
+            """One ``run_step``: its loss and the whole gradients it applied
+            (summed over data x space, the cut ones gathered), flat in sorted
+            name order, on the CPU."""
+            grads, apply = {}, trainer.state.apply_gradients
+            model = trainer.state.model
+
+            def first():
+                whole = whole_tensors(model, {n: p.grad for n, p in model.named_parameters() if p.grad is not None})
+                grads["names"] = sorted(whole)
+                grads["flat"] = torch.cat([whole[n].detach().flatten() for n in grads["names"]]).cpu()
+                trainer.state.apply_gradients = apply
+                return apply()
+
+            trainer.state.apply_gradients = first
+            trainer.run_step({"image": batch["image"], "label": batch["label"]})
+            return trainer.flush_step_metrics()["loss"], grads
+
+        model, trainer = build()
+        r = {"launches": {}, "sharded": len(sharded_params(model))}
+        norm_fn = make_intensity_normalizer(normalize=transform.get("normalize", False),
+                                            intensity_policy=transform.get("intensity_policy"),
+                                            channel_names=transform.get("channel_names"))
+        seen = []
+        routed = moe_module.dispatch_combine
+
+        def recording(gates, k, cap, space=None):
+            got = routed(gates, k, cap, space)
+            d = got[0].detach()
+            seen.append(sp.all_gather_cat(d.contiguous(), 1, space.size, space.group) if space is not None else d)
+            return got
+
+        with split, calls, NormLevels(model) as levels:
+            at = mark()
+            moe_module.dispatch_combine = recording
+            model.train(bool(node.get("moe_experts")))  # the routing of a training forward
+            pool_over_ranks(model, mesh)
+            try:
+                with torch.no_grad(), sp.sharded(mesh), capture_intermediates():
+                    x = norm_fn(torch.from_numpy(local(batch["image"])).to(dev), space=sp.axis_of(mesh))
+                    logits = gather(model(x)).cpu()
+            finally:
+                moe_module.dispatch_combine = routed
+                model.eval()
+            r["launches"]["forward"] = since(at)
+            dispatch = [d.cpu() for d in seen]
+            at = mark()
+            loss, grads = step(trainer)
+            r["launches"]["train"] = since(at)
+        r["norms"] = {"split": len(levels.split), "whole": len(levels.whole)}
+        r["loss"] = loss
+        if meshes is None:
+            saved[name] = {"logits": logits, "loss": loss, "grads": grads, "dispatch": dispatch}
+        else:
+            o = one[name]
+            r["logits_rel_l2"] = float((logits - o["logits"]).norm() / o["logits"].norm())
+            r["loss_rel"] = abs(loss - o["loss"]) / abs(o["loss"])
+            r["grad_rel_l2"] = float((grads["flat"] - o["grads"]["flat"]).norm() / o["grads"]["flat"].norm()) \
+                if grads["names"] == o["grads"]["names"] else float("inf")
+            r["dispatch_equal"] = len(dispatch) == len(o["dispatch"]) and all(
+                torch.equal(a, b) for a, b in zip(dispatch, o["dispatch"]))
+            r["moe_blocks"] = len(dispatch)
+        del model, trainer
+        if cuda:
+            torch.cuda.empty_cache()
+        out["cases"][name] = r
+    if meshes is None:
+        torch.save(saved, spec["one"])
+    else:  # one GPipe step over space=2 x stage=2 against the sequential run
+        out["cases"]["vit_stage"] = pp_run(device, root, meshes["vit_stage"], spec["pipeline"])
+    cuda = torch.device(device).type == "cuda"
+    out["check"] = {"split": split.seen, "calls": calls.seen}
+    out["check_ok"] = (meshes is None or split.ok()) and (
+        not cuda or calls.ok(["forward float32", "backward float32"]))
+    return out
+
+
+def sx_expected(res: dict, cuda: bool) -> dict:
+    """Each case's launches by part, derived from the norms that ran split
+    and whole: a forward takes the one-launch kernel for each whole norm and
+    stats + apply for each split one; a training step one forward and a
+    backward (the backward kernel for each whole norm, bwd_sums + bwd_apply
+    for each split one)."""
+    out = {}
+    for name in SX_CASES:
+        r = res["cases"][name]
+        s, w = (r["norms"]["split"], r["norms"]["whole"]) if cuda else (0, 0)
+
+        def launches(fwd=0, bwd=0):
+            return {"forward": w * fwd, "backward": w * bwd, "minplus": 0, "plain_backward": 0,
+                    "instance_norm_stats": s * fwd, "instance_norm_apply": s * fwd,
+                    "instance_norm_bwd_sums": s * bwd, "instance_norm_bwd_apply": s * bwd}
+
+        out[name] = {"forward": launches(fwd=1), "train": launches(fwd=1, bwd=1)}
+    return out
+
+
+def space_axes_prepare(device, root: str, *, unetr=None, unetr_shape=BRATS_SHAPE, flagship=None,
+                       flagship_shape=SHAPE[:3], pipeline=None, vit=None, vit_side: int = PP_SIDE,
+                       vit_batch: int = PP_BATCH, threads: int = 4) -> dict:
+    """Phase 27b's data and its one process, whose results are written for
+    the ranks (``spec["one"]``); ``pipeline``: phase 27's spec, whose
+    sequential run the pipelined case compares with (None: its own,
+    ``stage_axis_prepare`` at ``vit`` / ``vit_side`` / ``vit_batch``)."""
+    import torch
+
+    from multimodal_tta_tpu_torch.data.synthetic import brats_volumes
+
+    spec = {"unetr": dict(unetr or {}), "unetr_shape": list(unetr_shape), "flagship": dict(flagship or {}),
+            "flagship_shape": list(flagship_shape), "threads": threads}
+    prep = _prepare(root, spec)
+    spec["one"] = os.path.join(root, "one.pt")
+    torch.save({"brats": _stack(brats_volumes(1, tuple(unetr_shape), seed=SX_SEED)),
+                "hecktor": _stack(hecktor_volumes(BATCH, SX_SEED, tuple(flagship_shape)))}, spec["data"])
+    if pipeline is None:
+        prep["pipeline_prep"] = stage_axis_prepare(device, os.path.join(root, "pipeline"), batch=vit_batch,
+                                                   side=vit_side, model=vit, threads=threads)
+        pipeline = prep["pipeline_prep"]["spec"]
+    spec["pipeline"] = dict(pipeline, steps=1)
+    return _one_process(prep, sx_run, device)
+
+
+def space_axes_compare(device, prep: dict) -> dict:
+    """Phase 27b: the four ranks, one mesh a case, against one process."""
+    import shutil
+
+    import torch
+
+    one, ranks, out = _ranks_of(prep, "space_axes")
+    cuda = torch.device(device).type == "cuda"
+    failed, cases = [], {}
+    for name in SX_CASES:
+        rs = [res["cases"][name] for res in ranks]
+        c = {k: max(r[k] for r in rs) for k in ("logits_rel_l2", "loss_rel", "grad_rel_l2")}
+        c.update(loss=[rs[0]["loss"], one["cases"][name]["loss"]], sharded=[r["sharded"] for r in rs],
+                 norms=rs[0]["norms"], launches=rs[0]["launches"], dispatch_equal=all(r["dispatch_equal"] for r in rs),
+                 moe_blocks=rs[0]["moe_blocks"])
+        c["ok"] = (c["logits_rel_l2"] <= ST_LOGIT_REL and c["loss_rel"] <= SP_LOSS_REL
+                   and c["grad_rel_l2"] <= SP_GRAD_REL and c["dispatch_equal"] and all(c["sharded"])
+                   and (c["moe_blocks"] > 0) == (name == "flagship_expert"))
+        if not c["ok"]:
+            failed.append(f"{name}: {c}")
+        cases[name] = c
+    pp = [res["cases"]["vit_stage"] for res in ranks]
+    c = {"logits_max_rel": max(r["logits_max_rel"] for r in pp), "loss_rel": max(r["loss_rel"] for r in pp),
+         "grad_rel": max(r["grad_rel"] for r in pp), "grad_rel_leaf": max(pp, key=lambda r: r["grad_rel"])["grad_rel_leaf"],
+         "losses": pp[0]["losses"], "forward_hops": [r["forward_hops"] for r in pp],
+         "forward_ms": pp[0]["forward_ms"], "train_ms": pp[0]["train_ms"]}
+    c["ok"] = c["logits_max_rel"] <= PP_LOGIT_REL and c["loss_rel"] <= PP_LOSS_REL and c["grad_rel"] <= PP_GRAD_REL \
+        and all(r["logits_max_rel"] == pp[0]["logits_max_rel"] for r in pp[::PP_STAGES])
+    if not c["ok"]:
+        failed.append(f"vit_stage: {c}")
+    cases["vit_stage"] = c
+    for res in ranks + [one]:
+        for case, want in sx_expected(res, cuda).items():
+            if res["cases"][case]["launches"] != want:
+                failed.append(f"{res['tag']} {case}: launches {res['cases'][case]['launches']}, derived {want}")
+        if not res["check_ok"]:
+            failed.append(f"{res['tag']} kernels vs plain: {res['check']}")
+    keys = ("forward", "backward", "minplus") + SPLIT_ENTRIES
+    out["launches"] = {k: sum(p[k] for res in ranks for case in SX_CASES
+                              for p in res["cases"][case]["launches"].values()) for k in keys}
+    out["cases"] = cases
+    out["ranks"] = [{"tag": res["tag"], "s": res["s"], "check": res["check"]} for res in ranks]
+    out["one"] = {"check": one["check"]}
+    if "pipeline_prep" in prep:
+        shutil.rmtree(prep["pipeline_prep"]["root"], ignore_errors=True)
+    if failed:
+        raise AssertionError("phase 27b (space beside model, expert, stage): " + "; ".join(failed))
+    return _finish(prep, out)
+
+
+def space_axes_phase(device, root: str, **kw) -> dict:
+    """Phase 27b alone: ``space_axes_prepare``, four ranks sharing the
+    device (gloo), ``space_axes_compare``."""
+    prep = space_axes_prepare(device, root, **kw)
+    spawn_axes(device, [("space_axes", prep["spec"])], os.path.join(root, "store"))
+    return space_axes_compare(device, prep)
+
+
+def log_space_axes(sx: dict, card: str) -> None:
+    log(f"[space_axes] phase 27b: four ranks over gloo on one card, one mesh a case, f32 (TF32 off), vs one "
+        f"process: one process {sx['one_s']:.1f} s, ranks {sx['ranks_s']:.1f} s; card {card}")
+    for name, c in sx["cases"].items():
+        log(f"[space_axes]   {name} over {SX_MESHES[name]}: {json.dumps(c)}; card {card}")
+    for r in sx["ranks"] + [dict(sx["one"], tag="one")]:
+        log(f"[space_axes]   {r['tag']}: kernels vs plain {json.dumps(r['check'])}")
+    log(f"[space_axes] phase 27b took {sx['phase_s']:.1f} s; launches over the four ranks {sx['launches']}; "
+        f"card {card}")
+
+
 # ---- phases 25-27: the rank side in one spawn ---------------------------------
 # each phase prepares its data and its one-process run here (``*_prepare``),
 # then four ranks spawned once run the phases' rank side in turn, each on its
@@ -8037,7 +8716,11 @@ def run_axes_jobs(rank: int, world: int, device: str, jobs: list) -> None:
 
     for name, spec in jobs:
         run, axis, _ = AXES_RUNS[name]
-        mesh = make_mesh([_rank_device(device)] * world, data=world // 2, **{axis: 2})
+        devices = [_rank_device(device)] * world
+        if isinstance(axis, dict):  # a mesh for each case, every rank alike
+            mesh = {case: make_mesh(devices, **sizes) for case, sizes in axis.items()}
+        else:
+            mesh = make_mesh(devices, data=world // 2, **{axis: 2})
         t0 = time.perf_counter()
         res = run(device, spec["ranks_root"], mesh, spec)
         res["s"] = time.perf_counter() - t0
@@ -8060,9 +8743,9 @@ def spawn_axes(device, jobs: list, store: str) -> float:
     return time.perf_counter() - t0
 
 
-# phase -> (its rank function, the axis beside data=2 (size 2), its time limit)
+# phase -> (its rank function, the axis beside data=2 (size 2) or each case's mesh, its time limit)
 AXES_RUNS = {"model_axis": (tp_run, "model", TP_TIMEOUT_S), "expert_axis": (ep_run, "expert", EP_TIMEOUT_S),
-             "stage_axis": (pp_run, "stage", PP_TIMEOUT_S)}
+             "stage_axis": (pp_run, "stage", PP_TIMEOUT_S), "space_axes": (sx_run, SX_MESHES, SX_TIMEOUT_S)}
 
 
 def log(msg: str) -> None:
@@ -9949,9 +10632,10 @@ def main() -> int:
                                    probe=lane.result("nccl_probe")),
              space_parallel_prepare(dev, os.path.join(REPO, "build", "chip_smoke_sp")),
              space_adapters_prepare(dev, os.path.join(REPO, "build", "chip_smoke_sa")),
+             space_transformers_prepare(dev, os.path.join(REPO, "build", "chip_smoke_st")),
              adapters_prepare(dev, os.path.join(REPO, "build", "chip_smoke_ad"))]
     pairs_s = spawn_pairs(pairs)
-    log(f"[pairs] the two ranks of phases 22-24 took {pairs_s:.1f} s, one start-up for the four jobs")
+    log(f"[pairs] the two ranks of phases 22-24 took {pairs_s:.1f} s, one start-up for the {len(pairs)} jobs")
     dp = data_parallel_finish(pairs[0])
     dp["torchrun"] = lane.result("data_parallel")
     dp["card"] = smi
@@ -9982,10 +10666,16 @@ def main() -> int:
         f"{json.dumps(sa23['torchrun']['predict_compare'])}; walls {sa23['torchrun']['predict']['wall_s']:.1f} s "
         f"(two ranks) / {sa23['torchrun']['predict_one']['wall_s']:.1f} s (one process); card {smi}")
     sa_launches = sa23["launches"]
+    # UNETR and SwinUNETR over the split depth; the sequence axis
+    torch.cuda.empty_cache()
+    st23 = space_transformers_finish(pairs[3])
+    st23["card"] = smi
+    log_space_transformers(st23, smi)
+    st_launches = st23["launches"]
 
     # ---- 24. every adapter over the data axis: two ranks, torchrun CLIs ----
     torch.cuda.empty_cache()
-    ad24 = adapters_finish(pairs[3])
+    ad24 = adapters_finish(pairs[4])
     ad24["torchrun"] = ad_predict_check(cli["manifest"], os.path.join(lane_root, "ad"), lane.result("adapters"))
     shutil.rmtree(cli_root, ignore_errors=True)  # phase 14's fixture: phases 15, 17-19 and 22-24 ran on it
     shutil.rmtree(lane_root, ignore_errors=True)
@@ -10001,9 +10691,12 @@ def main() -> int:
                           ("stage_axis", stage_axis_prepare)):
         torch.cuda.empty_cache()
         preps[name] = prepare(dev, os.path.join(axes_root, name))
+    torch.cuda.empty_cache()  # phase 27b's pipelined case compares with phase 27's sequential run
+    preps["space_axes"] = space_axes_prepare(dev, os.path.join(axes_root, "space_axes"),
+                                             pipeline=preps["stage_axis"]["spec"])
     torch.cuda.empty_cache()
     axes_s = spawn_axes(dev, [(name, p["spec"]) for name, p in preps.items()], os.path.join(axes_root, "store"))
-    log(f"[axes] the four ranks of phases 25-27 took {axes_s:.1f} s, one start-up for the three")
+    log(f"[axes] the four ranks of phases 25-27b took {axes_s:.1f} s, one start-up for the {len(preps)} jobs")
     tp25 = model_axis_compare(dev, preps["model_axis"])
     tp25["card"] = smi
     log_model_axis(tp25, smi)
@@ -10012,6 +10705,10 @@ def main() -> int:
     ep26["card"] = smi
     log_expert_axis(ep26, smi)
     ep_launches = ep26["launches"]
+    sx27 = space_axes_compare(dev, preps["space_axes"])  # before phase 27's compare removes its sequential run
+    sx27["card"] = smi
+    log_space_axes(sx27, smi)
+    sx_launches = sx27["launches"]
     pp27 = stage_axis_compare(dev, preps["stage_axis"])
     pp27.update(card=smi, axes_s=axes_s)
     log_stage_axis(pp27, smi)
@@ -10051,8 +10748,9 @@ def main() -> int:
                             "training_options": opt_launches["forward"], "preprocess": prep_launches["forward"],
                             "data_parallel": dp_launches["forward"], "space_parallel": sp_launches["forward"],
                             "space_models": sm_launches["forward"], "space_adapters": sa_launches["forward"],
-                            "adapters": ad_launches["forward"], "model_axis": tp_launches["forward"],
-                            "expert_axis": ep_launches["forward"]},
+                            "space_transformers": st_launches["forward"], "adapters": ad_launches["forward"],
+                            "model_axis": tp_launches["forward"], "expert_axis": ep_launches["forward"],
+                            "space_axes": sx_launches["forward"]},
                            max_abs_err, {}, "forward")
     backward_summary = norm_summary(
         "fused_instance_norm_backward", btotals, norm_totals[TRAIN_BATCH][1], brats_norm[1],
@@ -10062,9 +10760,10 @@ def main() -> int:
          "serving_artifact": art_launches["backward"], "training_options": opt_launches["backward"],
          "preprocess": prep_launches["backward"], "data_parallel": dp_launches["backward"],
          "space_parallel": sp_launches["backward"], "space_models": sm_launches["backward"],
-         "space_adapters": sa_launches["backward"],
+         "space_adapters": sa_launches["backward"], "space_transformers": st_launches["backward"],
          "adapters": ad_launches["backward"],
-         "model_axis": tp_launches["backward"], "expert_axis": ep_launches["backward"]}, backward_err,
+         "model_axis": tp_launches["backward"], "expert_axis": ep_launches["backward"],
+         "space_axes": sx_launches["backward"]}, backward_err,
         {"note": "the gradient of the TPU kernel's function; dx computed in all 18 timed calls"}, "backward")
     minplus_summary = {
         "name": "minplus",
@@ -10074,14 +10773,16 @@ def main() -> int:
         "launches": sum(eval_launches.values()) + train_launches["minplus"] + cli_launches["minplus"]
         + tta_launches["minplus"] + brats_launches["minplus"] + tr_launches["minplus"] + bn_launches["minplus"]
         + opt_launches["minplus"] + prep_launches["minplus"] + dp_launches["minplus"] + sp_launches["minplus"]
-        + sm_launches["minplus"] + sa_launches["minplus"] + ad_launches["minplus"] + ep_launches["minplus"],
+        + sm_launches["minplus"] + sa_launches["minplus"] + st_launches["minplus"] + ad_launches["minplus"]
+        + ep_launches["minplus"] + sx_launches["minplus"],
         "launches_by_path": {**eval_launches, "train": train_launches["minplus"], "cli": cli_launches["minplus"],
                              "tta": tta_launches["minplus"], "brats": brats_launches["minplus"],
                              "transformer": tr_launches["minplus"], "batchnorm": bn_launches["minplus"],
                              "training_options": opt_launches["minplus"], "preprocess": prep_launches["minplus"],
                              "data_parallel": dp_launches["minplus"], "space_parallel": sp_launches["minplus"],
                              "space_models": sm_launches["minplus"], "space_adapters": sa_launches["minplus"],
-                             "adapters": ad_launches["minplus"], "expert_axis": ep_launches["minplus"]},
+                             "space_transformers": st_launches["minplus"], "adapters": ad_launches["minplus"],
+                             "expert_axis": ep_launches["minplus"], "space_axes": sx_launches["minplus"]},
         "max_abs_err": minplus_err,
         "ms": edt_ms,
         "plain_ms": edt_plain_ms,
@@ -10104,9 +10805,11 @@ def main() -> int:
                     "eval_metrics": eval_runs, "training": training, "cli": cli, "tta": tta_log, "brats": brats,
                     "transformers": transformers, "batchnorm": batchnorm, "serving_artifact": srv,
                     "training_options": opt20, "preprocess": prep, "data_parallel": dp, "space_parallel": sp23,
-                    "space_adapters": sa23, "adapters": ad24, "model_axis": tp25, "expert_axis": ep26, "stage_axis": pp27},
+                    "space_adapters": sa23, "space_transformers": st23, "adapters": ad24, "model_axis": tp25,
+                    "expert_axis": ep26, "space_axes": sx27, "stage_axis": pp27},
                    default=str))
-    log(json.dumps({"kernels": [summary, backward_summary, minplus_summary] + split_summaries(sp23, smi, sa23)}))
+    log(json.dumps({"kernels": [summary, backward_summary, minplus_summary]
+                    + split_summaries(sp23, smi, sa23, st23, sx27)}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                             "count": torch.cuda.device_count()}}))
     return 0

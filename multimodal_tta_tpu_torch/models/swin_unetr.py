@@ -26,6 +26,22 @@ it; an input whose stages take other effective windows raises, as flax's
 shape check does. Remat (the reference's rule): the encoder only under ``True``;
 the bottleneck pair at level ``stages + 1``, ``enc{j}_`` / ``dec{j}_`` at
 level j. ``forward`` takes and returns NDHWC.
+
+Over the space axis (``parallel/space.py``, ambient inside
+``space.sharded(mesh)``) ``x`` is this rank's depth slab. The conv levels
+(level 0 the input's, level ``j + 1`` stage j's grid, level ``stages + 1``
+the bottleneck's) are split or whole by the reference's rule
+(``space.level_axes``). A Swin stage is split only where its level is and
+each rank's slab holds whole windows (slab depth ``% min(w, D) == 0`` with
+the stage's global ``D``: no depth pad, and every window on one rank); any
+other stage runs whole on every space rank. In a split stage the shift
+rolls the depth cyclically over the group (``space.roll_depth``, by ``-s``
+and back by ``+s``), the shift mask is built on the global padded grid and
+each rank takes its windows' rows of it, and only H and W pad. The patch
+embed is local where the slab holds whole patches; ``PatchMerging`` merges
+a split stage locally (its slab is even), else on the gathered grid, where
+the pad lies at the global end of the depth. A whole level's ``dec{j}_up``
+output is cropped to the global depth before each rank takes its slab.
 """
 
 from __future__ import annotations
@@ -39,6 +55,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import DeviceLike, resolve_device
+from ..parallel import space as sp
 from ..registry import register_model
 from ..utils.config import get_config
 from .layers import ConvBlock, LayerNorm, TransposedConvUp, head_linear, linear, remat_call
@@ -149,6 +166,9 @@ class WindowAttention(nn.Module):
         return got
 
     def forward(self, xw: torch.Tensor, mask_key=None) -> torch.Tensor:
+        """``mask_key``: ``(padded grid, window, shift, rows)`` of a shifted
+        block, ``rows`` the (start, stop) of this rank's windows in the
+        global grid's window order (None: all of them)."""
         b, n, _ = xw.shape
         dev = xw.device
         q, k, v = (linear(xw, getattr(self, p), self.dtype).view(b, n, self.heads, -1)
@@ -158,8 +178,9 @@ class WindowAttention(nn.Module):
         bias = self.rel_pos_bias[index].reshape(n, n, self.heads).permute(2, 0, 1)
         mask = None
         if mask_key is not None:
+            rows = slice(*mask_key[3]) if mask_key[3] is not None else slice(None)
             mask = self._table(("mask", dev) + mask_key, lambda: torch.from_numpy(
-                _shift_mask(*mask_key).copy()).to(dev))
+                _shift_mask(*mask_key[:3])[rows].copy()).to(dev))
         return linear(attend(q, k, v, bias=bias, mask=mask), self.out, self.dtype)
 
 
@@ -179,27 +200,44 @@ class SwinBlock(nn.Module):
         self.mlp_in = nn.Linear(dim, dim * mlp_ratio)
         self.mlp_out = nn.Linear(dim * mlp_ratio, dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, space=None) -> torch.Tensor:
+        """``space``: the space axis when ``x`` is this rank's depth slab of
+        the stage's grid (a slab of whole windows)."""
         b, d, h, w_, _ = x.shape
-        win, sh, pads = stage_windows((d, h, w_), self.window, self.shift)
+        dims = (d * sp.space_size(space), h, w_)  # the whole grid's
+        win, sh, pads = stage_windows(dims, self.window, self.shift)
         if win != self.attn.window:
             raise ValueError(f"SwinBlock: its rel_pos_bias fits the window {list(self.attn.window)} of the grid it "
-                             f"was built for; the grid {[d, h, w_]} takes the window {list(win)}")
-        pdims = (d + pads[0], h + pads[1], w_ + pads[2])
+                             f"was built for; the grid {list(dims)} takes the window {list(win)}")
+        if space is not None and d % win[0]:
+            raise ValueError(f"[space] a slab of {d} planes holds no whole windows of depth {win[0]}")
+        pdims = tuple(n + p for n, p in zip(dims, pads))
+        local = (d + (pads[0] if space is None else 0),) + pdims[1:]  # this rank's padded slab
+        rows = None
+        if space is not None:  # this rank's windows of the global grid (depth-major)
+            n_win = (d // win[0]) * (pdims[1] // win[1]) * (pdims[2] // win[2])
+            rows = (space.rank * n_win, (space.rank + 1) * n_win)
         y = self.ln_attn(x)
         if any(pads):
-            y = F.pad(y, (0, 0, 0, pads[2], 0, pads[1], 0, pads[0]))
-        if any(sh):
-            y = torch.roll(y, tuple(-s for s in sh), dims=(1, 2, 3))
-        yw = self.attn(_partition(y, win), (pdims, win, sh) if any(sh) else None)
-        y = _unpartition(yw, win, pdims, b)
-        if any(sh):
-            y = torch.roll(y, sh, dims=(1, 2, 3))
+            y = F.pad(y, (0, 0, 0, pads[2], 0, pads[1], 0, pads[0] if space is None else 0))
+        y = self._roll(y, tuple(-s for s in sh), space)
+        yw = self.attn(_partition(y, win), (pdims, win, sh, rows) if any(sh) else None)
+        y = self._roll(_unpartition(yw, win, local, b), sh, space)
         if any(pads):
             y = y[:, :d, :h, :w_]
         x = x + y
         y = F.gelu(linear(self.ln_mlp(x), self.mlp_in, self.dtype), approximate="none")  # flax's exact GELU
         return x + linear(y, self.mlp_out, self.dtype)
+
+    @staticmethod
+    def _roll(y: torch.Tensor, shifts: Triple, space) -> torch.Tensor:
+        """``torch.roll`` of the grid by ``shifts`` (D, H, W); a split depth
+        rolls over the space group."""
+        if not any(shifts):
+            return y
+        if space is None or not shifts[0]:
+            return torch.roll(y, shifts, dims=(1, 2, 3))
+        return torch.roll(sp.roll_depth(y, shifts[0], space), shifts[1:], dims=(2, 3))
 
 
 class PatchMerging(nn.Module):
@@ -226,6 +264,7 @@ class PatchMerging(nn.Module):
 @register_model("swin_unetr")
 class SwinUNETR(nn.Module):
     input_sized = True  # ExperimentManager passes training.data.transforms.image_size
+    space_ported = True  # runs over the space axis (parallel/space.py)
 
     def __init__(
         self,
@@ -258,6 +297,7 @@ class SwinUNETR(nn.Module):
         self.in_channels, self.num_classes, self.patch_size = int(in_channels), int(num_classes), p
         self.depths = tuple(int(d) for d in depths)
         self.stages, self.dtype, self.remat = len(self.depths), dtype, remat
+        self.window = _triple(window_size)
         fs = int(feature_size)
         blk = dict(norm=norm, act=act, dtype=dtype)
 
@@ -266,7 +306,7 @@ class SwinUNETR(nn.Module):
         for s_i, (depth, heads) in enumerate(zip(self.depths, num_heads)):
             dim = fs * 2 ** s_i
             for b_i in range(depth):
-                self.add_module(f"stage{s_i}_block{b_i}", SwinBlock(dim, int(heads), _triple(window_size),
+                self.add_module(f"stage{s_i}_block{b_i}", SwinBlock(dim, int(heads), self.window,
                                                                     bool(b_i % 2), dims, int(mlp_ratio), dtype))
             self.add_module(f"merge{s_i}", PatchMerging(dim, dtype))
             dims = tuple(-(-d // 2) for d in dims)
@@ -311,44 +351,67 @@ class SwinUNETR(nn.Module):
         kw.update(overrides)
         return cls(**kw, image_size=image_size)
 
+    def stage_axes(self, ax, depth: int) -> Tuple[list, list]:
+        """Over a space axis ``ax`` and an input slab of ``depth`` planes:
+        each conv level's axis (None where it is whole) and each stage's
+        (split where its level is and the slab holds whole windows)."""
+        strides = (self.patch_size,) + (2,) * self.stages
+        levels = sp.level_axes(ax, depth, strides)
+        stages, d = [], depth * sp.space_size(ax) // self.patch_size
+        for j in range(self.stages):
+            wd = min(self.window[0], d)
+            stages.append(levels[j + 1] if levels[j + 1] is not None and (d // ax.size) % wd == 0 else None)
+            d = -(-d // 2)
+        return levels, stages
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: [B, D, H, W, C_in] -> logits [B, D, H, W, num_classes] (f32)."""
+        """x: [B, D, H, W, C_in] -> logits [B, D, H, W, num_classes] (f32);
+        over the space axis both are this rank's depth slab."""
         if x.shape[-1] != self.in_channels:
             raise ValueError(f"SwinUNETR expects {self.in_channels} input channels, got {x.shape[-1]}")
-        for ax, dim in enumerate(x.shape[1:4]):
+        ax = sp.current()
+        for i, dim in enumerate((x.shape[1] * sp.space_size(ax),) + tuple(x.shape[2:4])):
             if dim % self.patch_size:
-                raise ValueError(f"SwinUNETR spatial dim {ax} = {dim} must be divisible by "
+                raise ValueError(f"SwinUNETR spatial dim {i} = {dim} must be divisible by "
                                  f"patch_size={self.patch_size}")
-        stages = self.stages
+        stages, p = self.stages, self.patch_size
         rl = stages + 2 if self.remat is True else int(self.remat or 0)
+        axes, stage_ax = self.stage_axes(ax, x.shape[1])
         x = x.to(self.dtype).permute(0, 4, 1, 2, 3)  # NCDHW view of NDHWC memory
 
         def pair(name: str, y: torch.Tensor, level: int) -> torch.Tensor:
-            y = remat_call(getattr(self, f"{name}0"), y, enabled=level < rl)
-            return remat_call(getattr(self, f"{name}1"), y, enabled=level < rl)
+            y = remat_call(getattr(self, f"{name}0"), y, axes[level], enabled=level < rl)
+            return remat_call(getattr(self, f"{name}1"), y, axes[level], enabled=level < rl)
 
         w = self.patch_embed
-        h = F.conv3d(x, w.weight.to(self.dtype), w.bias.to(self.dtype), stride=w.stride)
+        cur = ax if ax is not None and x.shape[2] % p == 0 else None  # a slab of whole patches embeds itself
+        src = x if ax is None or cur is not None else sp.gather_depth(x, ax)
+        h = F.conv3d(src, w.weight.to(self.dtype), w.bias.to(self.dtype), stride=w.stride)
         h = h.permute(0, 2, 3, 4, 1)  # NDHWC tokens (contiguous: channels_last_3d)
         states = []
         for s_i, depth in enumerate(self.depths):
+            h, cur = sp.relayout(h, cur, stage_ax[s_i], ax, 1), stage_ax[s_i]
             for b_i in range(depth):
-                h = remat_call(getattr(self, f"stage{s_i}_block{b_i}"), h, enabled=stages + 1 < rl)
+                h = remat_call(getattr(self, f"stage{s_i}_block{b_i}"), h, cur, enabled=stages + 1 < rl)
             states.append(h)
+            if cur is not None and h.shape[1] % 2:  # a split slab merges locally when it is even
+                h, cur = sp.gather_depth(h, ax, 1), None
             h = getattr(self, f"merge{s_i}")(h)
 
-        def ncdhw(t: torch.Tensor) -> torch.Tensor:
-            return t.permute(0, 4, 1, 2, 3)
+        def ncdhw(t: torch.Tensor, have, level: int) -> torch.Tensor:
+            return sp.relayout(t.permute(0, 4, 1, 2, 3), have, axes[level], ax, 2)
 
-        h = pair("bottleneck", ncdhw(self.norm_bottom(h)), stages + 1)
+        h = pair("bottleneck", ncdhw(self.norm_bottom(h), cur, stages + 1), stages + 1)
         for j in reversed(range(stages)):
-            skip = pair(f"enc{j + 1}_", ncdhw(getattr(self, f"norm_state{j}")(states[j])), j + 1)
+            skip = pair(f"enc{j + 1}_", ncdhw(getattr(self, f"norm_state{j}")(states[j]), stage_ax[j], j + 1), j + 1)
             h = getattr(self, f"dec{j + 1}_up")(h)
             sd, sh_, sw = skip.shape[2:]
-            h = h[:, :, :sd, :sh_, :sw]  # merges ceil-halve odd sizes: crop the doubled map back
+            if axes[j + 2] is None:  # merges ceil-halve odd sizes: crop the doubled map back, then the slab
+                h = sp.relayout(h[:, :, :sd * sp.space_size(axes[j + 1])], None, axes[j + 1], ax, 2)
+            h = h[:, :, :, :sh_, :sw]
             h = pair(f"dec{j + 1}_", torch.cat([h, skip], dim=1), j + 1)
         enc0 = pair("enc0_", x, 0)
-        h = torch.cat([self.dec0_up(h), enc0], dim=1)
+        h = torch.cat([sp.relayout(self.dec0_up(h), axes[1], axes[0], ax, 2), enc0], dim=1)
         return head_linear(pair("dec0_", h, 0), self.head)
 
 

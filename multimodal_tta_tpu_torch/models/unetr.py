@@ -22,7 +22,21 @@ reference's rule): the encoder blocks only under ``True``; the stem at level
 never. ``forward`` takes and returns NDHWC. With ``tp_axis="model"`` the
 encoder blocks' heads and MLP features shard over the model axis
 (``models/vit.py``, ``parallel/tensor.py``), as the reference's do; the
-conv decoder stays whole on every rank.
+conv decoder stays whole on every rank of the model group.
+
+Over the space axis (``parallel/space.py``, ambient inside
+``space.sharded(mesh)``) ``x`` is this rank's depth slab, and each conv
+level (the stem's, the skip branches', the decoder's) is split or whole by
+the reference's rule (``space.level_axes``), an ``up`` whose output level
+is split keeping its slab of a whole input's output. The patch embed needs
+whole patches: a slab that holds whole patches embeds them itself (its
+block of the raster-ordered tokens, plus its rows of ``pos_embed``), any
+other rank gathers the input's depth first (HECKTOR21's 24-plane slab
+holds 1.5 patches of 16). The encoder runs whole on every space rank, or,
+with ``seq_shard_axis="space"`` and a token count that divides, on this
+rank's block of the tokens (``models/vit.py``). A token map enters the
+decoder as its level's slab: a split block whose level is split is that
+slab already, any other is gathered whole first.
 """
 
 from __future__ import annotations
@@ -35,11 +49,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import DeviceLike, resolve_device
+from ..parallel import space as sp
 from ..registry import register_model
 from ..utils.config import get_config
 from .layers import ConvBlock, LayerNorm, TransposedConvUp, head_linear, remat_call
 from .unet3d import finish_model
-from .vit import EncoderBlock, check_unported, is_moe_block
+from .vit import EncoderBlock, is_moe_block, sequence_axis
 
 
 def image_size_of(overrides: dict, name: str) -> tuple:
@@ -55,6 +70,7 @@ def image_size_of(overrides: dict, name: str) -> tuple:
 @register_model("unetr")
 class UNETR(nn.Module):
     input_sized = True  # ExperimentManager passes training.data.transforms.image_size
+    space_ported = True  # runs over the space axis (parallel/space.py)
 
     def __init__(
         self,
@@ -83,8 +99,8 @@ class UNETR(nn.Module):
         seed: Optional[int] = 0,
     ):
         super().__init__()
-        check_unported(seq_shard_axis=seq_shard_axis)
         resolve_device(device)
+        self.seq_shard_axis = seq_shard_axis
         p = int(patch_size)
         levels = int(math.log2(p))
         if 2 ** levels != p or levels < 2:
@@ -154,48 +170,70 @@ class UNETR(nn.Module):
         return cls(**kw, image_size=image_size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: [B, D, H, W, C_in] -> logits [B, D, H, W, num_classes] (f32)."""
+        """x: [B, D, H, W, C_in] -> logits [B, D, H, W, num_classes] (f32);
+        over the space axis both are this rank's depth slab."""
         if x.shape[-1] != self.in_channels:
             raise ValueError(f"UNETR expects {self.in_channels} input channels, got {x.shape[-1]}")
-        p = self.patch_size
-        for ax, dim in enumerate(x.shape[1:4]):
+        p, ax = self.patch_size, sp.current()
+        size = sp.space_size(ax)
+        dims = (x.shape[1] * size,) + tuple(x.shape[2:4])  # the whole volume's
+        for i, dim in enumerate(dims):
             if dim % p:
-                raise ValueError(f"UNETR spatial dim {ax} = {dim} must be divisible by patch_size={p}")
-        grid = tuple(d // p for d in x.shape[1:4])
+                raise ValueError(f"UNETR spatial dim {i} = {dim} must be divisible by patch_size={p}")
+        grid = tuple(d // p for d in dims)
         if math.prod(grid) != self.pos_embed.shape[1]:
             raise ValueError(f"UNETR's pos_embed has {self.pos_embed.shape[1]} rows, one per patch of image_size "
-                             f"{list(self.image_size)}; the input {list(x.shape[1:4])} has {math.prod(grid)} patches")
+                             f"{list(self.image_size)}; the input {list(dims)} has {math.prod(grid)} patches")
         levels, b, hid = self.levels, x.shape[0], self.hidden_size
         rl = levels + 1 if self.remat is True else int(self.remat or 0)
+        axes = sp.level_axes(ax, x.shape[1], (2,) * levels)  # each level's axis, None where it is whole
         x = x.to(self.dtype).permute(0, 4, 1, 2, 3)  # NCDHW view of NDHWC memory
 
         w = self.patch_embed
-        tok = F.conv3d(x, w.weight.to(self.dtype), w.bias.to(self.dtype), stride=w.stride)
-        tok = tok.permute(0, 2, 3, 4, 1).reshape(b, -1, hid) + self.pos_embed.to(self.dtype)
+        n = math.prod(grid)
+        seq = sequence_axis(self.seq_shard_axis, n)
+        local = ax is not None and x.shape[2] % p == 0  # this slab holds whole patches: its block of the tokens
+        src = x if ax is None or local else sp.gather_depth(x, ax)
+        tok = F.conv3d(src, w.weight.to(self.dtype), w.bias.to(self.dtype), stride=w.stride)
+        tok = tok.permute(0, 2, 3, 4, 1).reshape(b, -1, hid)
+        pos = self.pos_embed.to(self.dtype)
+        if local:
+            k = tok.shape[1]
+            tok = sp.relayout(tok + pos[:, ax.rank * k:(ax.rank + 1) * k], ax, seq, ax, 1)
+        else:
+            tok = sp.relayout(tok + pos, None, seq, ax, 1)
         step = self.num_layers // levels
         skips = {}
         for i in range(self.num_layers):
-            tok = remat_call(getattr(self, f"block{i}"), tok, enabled=levels < rl)
+            tok = remat_call(getattr(self, f"block{i}"), tok, seq, enabled=levels < rl)
             k = (i + 1) // step
             if (i + 1) % step == 0 and 1 <= k <= levels - 1:
                 skips[k] = tok
         ztop = self.encoder_ln(tok)
 
         def to_3d(t: torch.Tensor) -> torch.Tensor:
-            return t.reshape(b, *grid, hid).permute(0, 4, 1, 2, 3)  # channels_last_3d
+            """The token map as the deepest level's slab (channels_last_3d)."""
+            if seq is not None and axes[levels] is not None:  # the block is this rank's slab of planes
+                return t.reshape(b, grid[0] // size, *grid[1:], hid).permute(0, 4, 1, 2, 3)
+            whole = t if seq is None else sp.gather_depth(t, seq, 1)
+            return sp.relayout(whole.reshape(b, *grid, hid).permute(0, 4, 1, 2, 3), None, axes[levels], ax, 2)
+
+        def up(name: str, h: torch.Tensor, k: int) -> torch.Tensor:
+            """``name``'s transposed conv from level ``k + 1`` to level ``k``."""
+            return sp.relayout(getattr(self, name)(h), axes[k + 1], axes[k], ax, 2)
 
         branches = {}
         for k in range(1, levels):  # outside remat, as in the reference
             h = to_3d(skips[k])
             for s in range(levels - k):
-                h = getattr(self, f"skip{k}_conv{s}")(getattr(self, f"skip{k}_up{s}")(h))
+                lv = levels - s - 1
+                h = getattr(self, f"skip{k}_conv{s}")(up(f"skip{k}_up{s}", h, lv), axes[lv])
             branches[k] = h
-        enc0 = remat_call(self.stem1, remat_call(self.stem0, x, enabled=0 < rl), enabled=0 < rl)
+        enc0 = remat_call(self.stem1, remat_call(self.stem0, x, axes[0], enabled=0 < rl), axes[0], enabled=0 < rl)
 
         h = to_3d(ztop)
         for k in reversed(range(levels)):
-            h = getattr(self, f"dec{k}_up")(h)
-            h = torch.cat([h, branches[k] if k > 0 else enc0], dim=1)
-            h = remat_call(getattr(self, f"dec{k}_conv0"), h, enabled=k < rl)
-            h = remat_call(getattr(self, f"dec{k}_conv1"), h, enabled=k < rl)
+            h = torch.cat([up(f"dec{k}_up", h, k), branches[k] if k > 0 else enc0], dim=1)
+            h = remat_call(getattr(self, f"dec{k}_conv0"), h, axes[k], enabled=k < rl)
+            h = remat_call(getattr(self, f"dec{k}_conv1"), h, axes[k], enabled=k < rl)
         return head_linear(h, self.head)

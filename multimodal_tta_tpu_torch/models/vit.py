@@ -29,8 +29,25 @@ pre-norm ``LayerNorm_1``), and ``ViT(moe_experts=...)`` routes every
 ``tp_axis="model"`` makes the heads and the MLP features shardable over
 the model axis (``parallel/tensor.py``: ``shard_model`` cuts each rank's
 share, Megatron-style; the MoE blocks stay whole, as in the reference); a
-model that is not cut runs whole. ``seq_shard_axis`` raises, naming its
-ROADMAP.md item.
+model that is not cut runs whole.
+
+The sequence axis (``seq_shard_axis="space"``, the reference's
+``_maybe_shard_seq``): inside ``space.sharded(mesh)`` a token axis of ``N``
+splits over the space group when ``N % space == 0`` (``space.tokens_split``,
+the reference's strict rule), rank ``s`` holding the tokens
+``[s*N/space, (s+1)*N/space)``. ``SelfAttention`` then takes this rank's
+queries against the keys and values gathered over the group
+(``space.gather_depth`` on the token dim: the backward sums each rank's part of their
+gradient), and the softmax runs over the whole key axis; the MLP, the
+LayerNorms and the residuals are per token and stay local. Any other axis
+name, an axis without a mesh and an indivisible count run whole, the
+numbers the reference's no-op gives.
+
+``ViT`` on a space mesh (``space_ported``): ``Mesh.local`` cuts the image's
+rows, which the forward gathers before the patch embed; the tokens split by
+the rule above (whole without the sequence axis), and the CLS features come
+out whole on every rank of the group (a loss of them is alike on every
+rank: the adapters count it at ``1 / space``).
 """
 
 from __future__ import annotations
@@ -42,6 +59,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import DeviceLike, resolve_device
+from ..parallel import space as sp
 from ..parallel.tensor import check_tp_axis, copy_to, narrow_param, reduce_from
 from ..registry import register_model
 from ..utils.config import get_config
@@ -50,11 +68,16 @@ from .moe import EXPERT_AXIS, MoEMlp
 from .resnet import _VariantFactory, finish_classifier
 
 
-def check_unported(seq_shard_axis: Optional[str] = None) -> None:
-    """The reference's sequence axis raises here, naming its item."""
-    if seq_shard_axis:
-        raise NotImplementedError(f"seq_shard_axis={seq_shard_axis!r} is not ported yet (ROADMAP.md, item 12b-v-c: "
-                                  "the transformers' tokens over the space axis)")
+SEQ_AXIS = "space"  # the mesh axis a token axis splits over (``seq_shard_axis``)
+
+
+def sequence_axis(seq_shard_axis: Optional[str], n_tokens: int) -> Optional[sp.SpaceAxis]:
+    """The ambient space axis that a token axis of ``n_tokens`` splits over
+    under ``seq_shard_axis`` (None: the tokens run whole)."""
+    ax = sp.current()
+    if seq_shard_axis != SEQ_AXIS or ax is None or not sp.tokens_split(n_tokens, ax.size):
+        return None
+    return ax
 
 
 def row_parallel(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype, tp) -> torch.Tensor:
@@ -121,11 +144,16 @@ class SelfAttention(nn.Module):
         narrow_param(self, "out.weight", 1, rows, axis)
         self.heads, self.tp = heads.stop - heads.start, axis
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, space=None) -> torch.Tensor:
+        """``space``: the space axis when ``x`` [B, n, H] is this rank's
+        block of a split token axis (its queries; the keys and values are
+        gathered over the group)."""
         b, n, _ = x.shape
         x = copy_to(x, self.tp)
         q, k, v = (linear(x, getattr(self, p), self.dtype).view(b, n, self.heads, -1)
                    for p in ("query", "key", "value"))
+        if space is not None:
+            k, v = sp.gather_depth(torch.cat([k, v], dim=-1), space, 1).chunk(2, dim=-1)
         check_dropout(self, self.dropout)
         return row_parallel(attend(q, k, v), self.out, self.dtype, self.tp)
 
@@ -165,10 +193,12 @@ class EncoderBlock(nn.Module):
         narrow_param(self, "Dense_1.weight", 1, feats, axis)
         self.tp = axis
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.MultiHeadDotProductAttention_0(self.LayerNorm_0(x))
+    def forward(self, x: torch.Tensor, space=None) -> torch.Tensor:
+        """``space``: the space axis when ``x`` is this rank's block of a
+        split token axis."""
+        x = x + self.MultiHeadDotProductAttention_0(self.LayerNorm_0(x), space)
         if self.num_experts > 0:
-            return x + self.moe(self.LayerNorm_1(x))
+            return x + self.moe(self.LayerNorm_1(x), space=space)
         # flax nn.gelu(approximate=False); get_act("GELU") is flax's tanh default
         y = copy_to(self.LayerNorm_1(x), self.tp)
         y = F.gelu(linear(y, self.Dense_0, self.dtype), approximate="none")
@@ -190,6 +220,8 @@ class ViT(nn.Module):
     ``patch``, ``hidden``, ``depth``, ``heads`` and ``mlp_dim`` override the
     variant's topology, as in the reference."""
 
+    space_ported = True  # runs over the space axis (its rows gathered; the sequence axis)
+
     def __init__(self, variant: str = "vit_b_16", num_classes: int = 1000, image_size: int = 224,
                  dropout: float = 0.0, dtype: torch.dtype = torch.float32, seq_shard_axis: Optional[str] = None,
                  tp_axis: Optional[str] = None, moe_experts: int = 0, moe_every: int = 2, moe_k: int = 1,
@@ -200,8 +232,8 @@ class ViT(nn.Module):
         super().__init__()
         if variant not in _SPECS:
             raise ValueError(f"Unknown vit variant: {variant}")
-        check_unported(seq_shard_axis=seq_shard_axis)
         resolve_device(device)
+        self.seq_shard_axis = seq_shard_axis
         spec = [v if o is None else int(o) for v, o in zip(_SPECS[variant], (patch, hidden, depth, heads, mlp_dim))]
         self.patch, hidden, depth, heads, mlp_dim = spec
         self.variant, self.dtype, self.in_channels = variant, dtype, int(in_channels)
@@ -241,10 +273,16 @@ class ViT(nn.Module):
         return cls(**kw)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        ax = sp.current()
+        if ax is not None:  # this rank's rows of the images: the patch embed takes them whole
+            x = sp.gather_depth(x, ax, dim=1)
         x = self.embed(x)
+        seq = sequence_axis(self.seq_shard_axis, x.shape[1])
+        if seq is not None:
+            x = sp.slice_depth(x, seq, dim=1)
         for i in range(self.depth):
-            x = getattr(self, f"block{i}")(x)
-        return self.head_of(x)
+            x = getattr(self, f"block{i}")(x, seq)
+        return self.head_of(x if seq is None else sp.gather_depth(x, seq, 1))
 
     def embed(self, x: torch.Tensor) -> torch.Tensor:
         """The tokens [B, N, hidden] the first block takes: the patch
@@ -279,4 +317,4 @@ def get_vit_model(name: str, **kw) -> ViT:
     return ViT(variant=name, **kw)
 
 
-__all__ = ["SelfAttention", "EncoderBlock", "ViT", "attend", "check_unported", "get_vit_model", "is_moe_block"]
+__all__ = ["SelfAttention", "EncoderBlock", "ViT", "attend", "get_vit_model", "is_moe_block", "sequence_axis"]

@@ -49,15 +49,25 @@ a model, expert or stage group hold the same rows:
     step whole on each stage rank, as the reference's jit does with a stage
     axis its program does not name.
 
-``sum``, ``sum_flat``, ``sum_with_grad``, ``gather_rows`` and ZeRO-1 run
+``sum``, ``sum_flat``, ``sum_with_grad`` and ZeRO-1 run over the data
+group (over a space axis too: the data x space group), ``gather_rows``
 over the data group.
+
+A space axis beside a model, expert or stage axis: the space group is the
+ranks that share ``(d, m, e, t)``, and the gradients and a batch's
+statistics sum over the data x space group, the ranks that share
+``(m, e, t)`` (``Mesh.group``). ``local`` and ``gather`` cut and gather the
+rows and the slab as without the other axis. A pipeline
+(``parallel/pipeline.py``) takes its data rank's rows whole on each space
+rank: in the reference the space ranks of a pipeline are replicas
+(``x_spec = P(None, data)``), and it sums its gradients over the data group
+alone, so they count once. ``axis_groups`` lists every axis's groups from
+the sizes alone.
 
 What has no counterpart: ``ambient_axes``, ``constrain`` and
 ``constrain_activations`` pin XLA layouts inside one program; here
 ``parallel/space.py``, ``parallel/tensor.py`` and ``parallel/expert.py``
-write the collectives they imply. A space axis beside a model, expert or
-stage axis is not ported yet (ROADMAP.md, item 12b-v-c): a mesh that asks
-for one raises.
+write the collectives they imply.
 """
 
 from __future__ import annotations
@@ -84,6 +94,23 @@ EXPERT_AXIS = "expert"
 AXES = (DATA_AXIS, SPACE_AXIS, MODEL_AXIS, EXPERT_AXIS, STAGE_AXIS)  # the reference's order, stage last
 
 
+def axis_groups(sizes: Sequence[int], *axes: str) -> List[List[int]]:
+    """The groups over ``axes`` of a mesh of ``sizes`` (in ``AXES``' order,
+    the last varying fastest): each the ranks that share every other index,
+    in rank order; the groups in the order of their first rank."""
+    sizes = [int(n) for n in sizes]
+    free = [AXES.index(a) for a in axes]
+    groups: Dict[tuple, List[int]] = {}
+    for r in range(int(np.prod(sizes))):
+        idx, rest = [], r
+        for n in reversed(sizes):
+            idx.append(rest % n)
+            rest //= n
+        idx.reverse()
+        groups.setdefault(tuple(i for a, i in enumerate(idx) if a not in free), []).append(r)
+    return list(groups.values())
+
+
 class Mesh:
     """The data, space, model, expert and stage axes over their product of
     ranks: this process's world ``rank``, its ``device`` and the process
@@ -94,8 +121,8 @@ class Mesh:
     model = 1  # the model axis
     expert = 1  # the expert axis
     stage = 1  # the stage axis
-    space_group = None  # the ranks of this rank's data index (None: the world, or no space axis)
-    data_group = None  # the ranks that share this rank's other indices (None: the world, or no data axis)
+    space_group = None  # the ranks that share every index but the space index (None: the world, or no space axis)
+    data_group = None  # the ranks that share every index but the data index (None: the world, or no data axis)
     model_group = None  # the ranks that share every index but the model index
     expert_group = None  # the ranks that share every index but the expert index
     stage_group = None  # the ranks that share every index but the stage index
@@ -110,12 +137,6 @@ class Mesh:
         if not 0 <= self.rank < self.size:
             raise ValueError(f"[mesh] rank {self.rank} outside a mesh of "
                              f"{'x'.join(str(n) for n in self.sizes.values())}")
-        beside = [f"{a}={n}" for a, n in self.sizes.items() if a in (MODEL_AXIS, EXPERT_AXIS, STAGE_AXIS) and n > 1]
-        if self.space > 1 and beside:
-            raise NotImplementedError(
-                f"[mesh] a space axis ({SPACE_AXIS}={self.space}) beside a {beside[0].split('=')[0]} axis "
-                f"({', '.join(beside)}) is not ported yet (ROADMAP.md, item 12b-v-c: the transformers, the "
-                "experts and the pipeline over the space axis)")
         if self.size > 1 and not dist.is_initialized():
             raise RuntimeError("[mesh] a data axis over several ranks needs a process group")
         if self.size > 1 and self.space * self.data < self.size:
@@ -124,21 +145,18 @@ class Mesh:
                 if axis == DATA_AXIS or self.sizes[axis] > 1:
                     setattr(self, f"{axis}_group", self._new_groups(axis))
             self.group = self.data_group  # the sums run over the data group
+            if self.space > 1:  # ... and its space group: over data x space
+                self.space_group = self._new_groups(SPACE_AXIS)
+                self.group = self._new_groups(DATA_AXIS, SPACE_AXIS)
         elif self.space > 1 and self.data > 1:
             self.space_group = self._new_groups(SPACE_AXIS)
             self.data_group = self._new_groups(DATA_AXIS)
 
-    def _new_groups(self, axis: str):
-        """Create the group of ``axis`` for every value of the other indices
-        (all ranks, one order); returns this rank's."""
-        sizes = list(self.sizes.values())
-        i = AXES.index(axis)
-        stride = int(np.prod(sizes[i + 1:]))
+    def _new_groups(self, *axes: str):
+        """Create the group over ``axes`` for every value of the other
+        indices (all ranks, one order: ``axis_groups``); returns this rank's."""
         mine = None
-        for base in range(self.size):
-            if (base // stride) % sizes[i]:
-                continue  # ``base`` has a nonzero index on ``axis``: its group was made at index 0
-            members = [base + k * stride for k in range(sizes[i])]
+        for members in axis_groups(list(self.sizes.values()), *axes):
             g = dist.new_group(members)
             if self.rank in members:
                 mine = g
@@ -242,7 +260,7 @@ class Mesh:
     # -- collectives (the identity on one rank) -----------------------------
     def sum(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` summed over the ranks (beside a model, expert or stage axis:
-        over the data group), in place (no gradient)."""
+        over the data x space group), in place (no gradient)."""
         if self.sums:
             dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
         return t
@@ -367,9 +385,7 @@ def make_mesh(
     """The mesh of this process over the default process group (one rank
     without one), on this rank's device of ``devices`` (by local rank;
     default: ``select_devices()``). ``data=-1`` takes every rank that
-    the other axes leave. The reference's size checks and messages; a space
-    axis beside a model, expert or stage axis raises
-    ``NotImplementedError``."""
+    the other axes leave. The reference's size checks and messages."""
     n = dist.get_world_size() if dist.is_initialized() else 1
     rank = dist.get_rank() if dist.is_initialized() else 0
     data = axis_sizes(n, data=data, space=space, model=model, stage=stage, expert=expert)
@@ -482,6 +498,7 @@ __all__ = [
     "AXES",
     "Mesh",
     "Layout",
+    "axis_groups",
     "axis_sizes",
     "batch_sharding",
     "data_axis_size",

@@ -31,7 +31,15 @@ over ``space`` ranks computes what one process computes on whole volumes:
   * ``flip_depth`` mirrors the volume's depth: rank ``s`` takes rank
     ``S-1-s``'s slab, reversed (its backward is the same exchange);
     ``flip`` mirrors any dims, the depth over the group and the rest
-    locally (flip TTA, CoTTA's and MEMO's mirrored views).
+    locally (flip TTA, CoTTA's and MEMO's mirrored views);
+  * the transformers' tokens (``seq_shard_axis="space"``): a token axis of
+    ``N`` splits over ``S`` ranks only when ``N % S == 0``
+    (``tokens_split``, the reference's strict ``_maybe_shard_seq`` under
+    the legacy ``with mesh:`` context), else it is whole on every rank;
+    ``gather_depth`` on the token dim gathers a split token axis;
+  * ``roll_depth`` rolls the volume's depth cyclically over the group
+    (``torch.roll`` of the whole depth; its backward rolls back): the
+    shifted windows of a Swin stage whose depth is split.
 
 Every collective is an ``all_gather`` or an ``all_reduce`` over the space
 group, which gloo and NCCL both take for CUDA tensors (gloo's ``send`` does
@@ -139,7 +147,7 @@ def level_axes(ax: Optional[SpaceAxis], depth: int, strides) -> List[Optional[Sp
     return out
 
 
-UNPORTED_ITEM = "12b-v-c"  # the ROADMAP item of what does not run over the space axis yet
+UNPORTED_ITEM = "12b-v-d"  # the ROADMAP item of what does not run over the space axis yet
 
 
 def unported(what: str, item: str = UNPORTED_ITEM) -> NotImplementedError:
@@ -147,10 +155,18 @@ def unported(what: str, item: str = UNPORTED_ITEM) -> NotImplementedError:
 
 
 def require_support(model, mesh) -> None:
-    """Raise unless ``model`` runs over the space axis of ``mesh`` (every
-    conv segmenter does: ``space_ported``; the transformers do not)."""
+    """Raise unless ``model`` runs over the space axis of ``mesh``
+    (``space_ported``: every 3D segmenter and the ViT classifier; the CNN
+    classifiers over a split image height do not)."""
     if axis_of(mesh) is not None and not getattr(model, "space_ported", False):
-        raise unported(f"the model {type(model).__name__}")
+        raise unported(f"the classifier {type(model).__name__} (its strided convs, max-pools and BatchNorm "
+                       "over a split image height)")
+
+
+def tokens_split(n: int, size: int) -> bool:
+    """Whether a token axis of ``n`` splits over ``size`` ranks: the
+    reference's strict rule (``vit.py:_maybe_shard_seq``)."""
+    return size > 1 and n % size == 0
 
 
 # ---- collectives --------------------------------------------------------------
@@ -204,6 +220,15 @@ def slice_depth(x: torch.Tensor, ax: SpaceAxis, dim: int = 2) -> torch.Tensor:
     if k * ax.size != x.shape[dim]:
         raise ValueError(f"[space] a depth of {x.shape[dim]} does not split over {ax.size} ranks")
     return x.narrow(dim, ax.rank * k, k)
+
+
+def relayout(t: torch.Tensor, have, want, ax: SpaceAxis, dim: int) -> torch.Tensor:
+    """``t`` split over ``ax`` on ``dim`` (``have`` not None) or whole, as
+    ``want`` asks: gathered (``gather_depth``), sliced (``slice_depth``), or
+    as it is."""
+    if (have is None) == (want is None):
+        return t
+    return gather_depth(t, ax, dim) if want is None else slice_depth(t, ax, dim)
 
 
 def _exchange(x: torch.Tensor, dim: int, ax: SpaceAxis, first: int, last: int):
@@ -344,6 +369,45 @@ def flip(x: torch.Tensor, dims, ax: Optional[SpaceAxis] = None, depth_dim: int =
     return torch.flip(y, dims=rest) if rest else y
 
 
+def _roll(x: torch.Tensor, shift: int, dim: int, ax: SpaceAxis) -> torch.Tensor:
+    """This rank's slab of the whole depth rolled by ``shift`` planes
+    (``torch.roll``: plane ``i`` takes plane ``i - shift``), ``|shift|`` at
+    most a slab: a slab's planes that cross to the neighbour (cyclically)
+    are all-gathered over the group."""
+    v, back, d = _cl(x, dim)
+    n, s = v.shape[d], abs(int(shift))
+    if s > n:
+        raise ValueError(f"[space] a roll by {shift} crosses more than a slab of {n} planes")
+    if s == 0:
+        return x
+    piece = (v.narrow(d, n - s, s) if shift > 0 else v.narrow(d, 0, s)).contiguous()
+    parts = [torch.empty_like(piece) for _ in range(ax.size)]
+    dist.all_gather(parts, piece, group=ax.group)
+    if shift > 0:  # the previous rank's last planes, then this slab's first
+        out = torch.cat([parts[(ax.rank - 1) % ax.size], v.narrow(d, 0, n - s)], dim=d)
+    else:  # this slab's last planes, then the next rank's first
+        out = torch.cat([v.narrow(d, s, n - s), parts[(ax.rank + 1) % ax.size]], dim=d)
+    return out.permute(*back) if back is not None else out
+
+
+class _RollDepth(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, shift, dim, ax):
+        ctx.shift, ctx.dim, ctx.ax = shift, dim, ax
+        return _roll(x, shift, dim, ax)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _roll(g, -ctx.shift, ctx.dim, ctx.ax), None, None, None
+
+
+def roll_depth(x: torch.Tensor, shift: int, ax: SpaceAxis, dim: int = 1) -> torch.Tensor:
+    """This rank's slab of ``torch.roll(whole, shift, dims=dim)`` of the
+    volume whose slab ``x`` is (``dim``, NDHWC's 1 by default), cyclically
+    over the space group. Backward: the gradient rolled back."""
+    return _RollDepth.apply(x, int(shift), dim, ax)
+
+
 def space_size(ax: Optional[SpaceAxis]) -> int:
     return 1 if ax is None else ax.size
 
@@ -366,5 +430,5 @@ def space_prefix(t: torch.Tensor, ax: Optional[SpaceAxis]):
 
 
 __all__ = ["SpaceAxis", "axis_of", "sharded", "ambient", "current", "splits", "level_axes", "require_support",
-           "unported", "all_gather_cat", "gather_depth", "slice_depth", "halo_exchange", "flip_depth", "flip",
-           "space_sum", "space_size", "space_prefix"]
+           "unported", "tokens_split", "all_gather_cat", "gather_depth", "slice_depth", "relayout",
+           "halo_exchange", "flip_depth", "flip", "roll_depth", "space_sum", "space_size", "space_prefix"]

@@ -2,6 +2,7 @@
 """chip_smoke.py's phase 23 alone: the space axis over ranks on one CUDA card.
 
     python3 scripts/torch_space_parallel.py [--kernels] [--no-cli] [--witnesses] [--models] [--adapters]
+                                            [--transformers] [--axes]
 
 Builds the CUDA kernels and holds the four split-depth norm entries
 (``stats``, ``apply``, ``bwd_sums``, ``bwd_apply``) against their plain
@@ -39,6 +40,19 @@ plain version; then, unless ``--no-cli``, ``cli.train``, ``cli.adapt`` and
 ``cli.predict`` over ``training.mesh.space=2`` under torchrun and
 ``cli.predict`` in one process from the same checkpoint (each a command
 line), their files compared byte for byte (``chip_smoke.sp_predict_check``).
+
+``--transformers`` runs the phase's transformers alone
+(``chip_smoke.space_transformers_phase``, ``ST_CASES``): UNETR and
+SwinUNETR at ``configs/model/``'s widths on one HECKTOR21 batch of 2 (a
+forward, an SGD step, a Tent step, an evaluated batch with the surface
+metrics) and UNETR with ``seq_shard_axis=space`` on one BraTS volume (a
+forward, an SGD step), f32, the two ranks against one process, each rank's
+launches exactly and every kernel call against its plain version.
+``--axes`` runs phase 27b alone (``chip_smoke.space_axes_phase``): four
+ranks on the card, UNETR with the sequence axis over ``space=2 x model=2``
+at BraTS size, the flagship with 4 bottleneck experts over
+``space=2 x expert=2``, ViT-B/16 pipelined over ``space=2 x stage=2``
+against its own sequential run. Each prints its seconds.
 
 ``--witnesses`` (instead of the phase) reads how sensitive phase 23's
 mid-fusion step is to the order of its sums, in one process: the gradients
@@ -178,6 +192,8 @@ def main() -> int:
     ap.add_argument("--witnesses", action="store_true", help="the mid-fusion step's sensitivity to its sums' order")
     ap.add_argument("--models", action="store_true", help="the phase alone, with its other models' lines")
     ap.add_argument("--adapters", action="store_true", help="the phase's adapters, flip TTA and sliding window alone")
+    ap.add_argument("--transformers", action="store_true", help="the phase's UNETR, SwinUNETR and sequence axis alone")
+    ap.add_argument("--axes", action="store_true", help="phase 27b alone: space beside the model, expert, stage axes")
     args = ap.parse_args()
 
     import torch
@@ -223,6 +239,22 @@ def main() -> int:
                   flush=True)
         shutil.rmtree(root, ignore_errors=True)
         print(json.dumps({"space_adapters": sa, "card": card}, default=str))
+        return 0
+    if args.transformers or args.axes:
+        out = {"card": card}
+        if args.transformers:
+            t1 = time.perf_counter()
+            st = chip_smoke.space_transformers_phase(dev, os.path.join(REPO, "build", "space_transformers"))
+            chip_smoke.log_space_transformers(st, card)
+            out["space_transformers"] = dict(st, s=time.perf_counter() - t1)
+            print(f"[space_transformers] the job took {out['space_transformers']['s']:.1f} s; card {card}", flush=True)
+        if args.axes:
+            t1 = time.perf_counter()
+            sx = chip_smoke.space_axes_phase(dev, os.path.join(REPO, "build", "space_axes"))
+            chip_smoke.log_space_axes(sx, card)
+            out["space_axes"] = dict(sx, s=time.perf_counter() - t1)
+            print(f"[space_axes] the job took {out['space_axes']['s']:.1f} s; card {card}", flush=True)
+        print(json.dumps(out, default=str))
         return 0
     if args.models:
         sp = chip_smoke.space_parallel_phase(dev, os.path.join(REPO, "build", "space_models"))

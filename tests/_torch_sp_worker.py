@@ -153,9 +153,10 @@ def collectives_case(mesh, *, x: np.ndarray, w_halo: np.ndarray, w_gather: np.nd
 
 
 def errors_case(mesh, *, cfg: dict, model_kw: dict, state: dict, shape: Tuple[int, ...]) -> Dict[str, str]:
-    """What the space axis still refuses (ROADMAP.md, item 12b-v-c), by
-    message."""
-    from multimodal_tta_tpu_torch.parallel.mesh import Mesh
+    """What the space axis refuses (ROADMAP.md, item 12b-v-d: the CNN
+    classifiers over a split image height), by message; None for what runs
+    (the transformers, the sequence axis, a space axis beside another)."""
+    from multimodal_tta_tpu_torch.tta.engine import classifier_logits_apply
 
     out = {}
 
@@ -167,14 +168,21 @@ def errors_case(mesh, *, cfg: dict, model_kw: dict, state: dict, shape: Tuple[in
             out[key] = f"{type(e).__name__}: {e}"
 
     tiny = dict(in_channels=2, num_classes=1, image_size=list(shape[:3]), device="cpu")
+    for name, kw in (("resnet18", {}), ("densenet121", {}), ("efficientnet_b0", {})):
+        model = get_model(name).from_config(ConfigNode({"num_classes": 3}), device="cpu", seed=None, **kw)
+        message(name, lambda: sp.require_support(classifier_logits_apply(model), mesh))
     message("unetr", lambda: sp.require_support(get_model("unetr")(
         patch_size=4, hidden_size=16, mlp_dim=32, num_heads=2, num_layers=2, feature_size=4, **tiny), mesh))
     message("swin_unetr", lambda: sp.require_support(get_model("swin_unetr")(
         feature_size=12, depths=(1, 1), num_heads=(1, 2), window_size=2, **tiny), mesh))
-    message("sequence", lambda: get_model("unetr")(patch_size=4, hidden_size=16, mlp_dim=32, num_heads=2, num_layers=2,
-                                                   feature_size=4, seq_shard_axis="space", **tiny))
-    for axis in ("model", "expert", "stage"):
-        message(f"beside_{axis}", lambda: Mesh(torch.device("cpu"), space=2, **{axis: 2}))
+    message("sequence", lambda: sp.require_support(get_model("unetr")(
+        patch_size=4, hidden_size=16, mlp_dim=32, num_heads=2, num_layers=2, feature_size=4, seq_shard_axis="space",
+        **tiny), mesh))
+    message("vit", lambda: sp.require_support(get_model("vit_b_16").from_config(ConfigNode(
+        {"num_classes": 3, "image_size": 32}), device="cpu", seed=None, patch=16, hidden=16, depth=1, heads=2,
+        mlp_dim=32, seq_shard_axis="space"), mesh))
+    for axis in ("model", "expert", "stage"):  # over the same four ranks, every rank alike
+        message(f"beside_{axis}", lambda: make_mesh([torch.device("cpu")], data=1, space=2, **{axis: 2}))
     message("thin_slab", lambda: sp.level_axes(sp.axis_of(mesh), 1, (2, 2)))
     return out
 

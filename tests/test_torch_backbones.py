@@ -148,8 +148,8 @@ def test_from_config_and_what_is_not_ported():
     assert meta_model("resnet50", {}).variant == "resnet50"
     # tp_axis builds the blocks that a model axis cuts (tests/test_torch_tensor_parallel.py)
     assert meta_model("vit_b_16", {"tp_axis": "model"}).block0.MultiHeadDotProductAttention_0.tp_axis == "model"
-    with pytest.raises(NotImplementedError, match="item 12b-v"):
-        meta_model("vit_b_16", {"seq_shard_axis": "space"})
+    # the sequence axis builds (over ranks: tests/test_torch_sequence_axis.py)
+    assert meta_model("vit_b_16", {"seq_shard_axis": "space"}).seq_shard_axis == "space"
     # moe_experts raised before the training-options slice: every second
     # block routes to its experts, as flax's ViT builds it
     moe_vit = meta_model("vit_b_16", {"moe_experts": 4})

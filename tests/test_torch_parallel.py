@@ -108,13 +108,18 @@ def test_unported_axes_raise(axis, item):
     """The model, expert and stage axes run over ranks
     (``tests/test_torch_tensor_parallel.py``, ``test_torch_expert_parallel.py``,
     ``test_torch_pipeline.py``), in the reference's axis order; beside a
-    space axis each raises, naming item 12b-v."""
+    space axis too since item 12b-v's last part (``tests/test_torch_space_axes.py``):
+    the space group pairs the ranks of one index on the other axis, the
+    sums run over data x space, and such a mesh needs a process group."""
     assert mesh.axis_sizes(4, **{axis: 2}) == 2
     m = mesh.Mesh.__new__(mesh.Mesh)
     m.data, m.space, m.rank = 2, 1, 3
     setattr(m, axis, 2)
     assert m.shape == {"data": 2, "space": 1, axis: 2} and getattr(m, f"{axis}_rank") == 1 and m.data_rank == 1
-    with pytest.raises(NotImplementedError, match=f"beside a {axis} axis .*item {item}"):
+    sizes = [1, 2] + [2 if a == axis else 1 for a in ("model", "expert", "stage")]
+    assert mesh.axis_groups(sizes, "space") == mesh.axis_groups(sizes, "data", "space") == [[0, 2], [1, 3]]
+    assert mesh.axis_groups(sizes, axis) == [[0, 1], [2, 3]] and item.startswith("12b-v")
+    with pytest.raises(RuntimeError, match="needs a process group"):
         mesh.Mesh(torch.device("cpu"), data=1, space=2, **{axis: 2})
     assert mesh.make_mesh([torch.device("cpu")], **{axis: 1}).data == 1  # a size of 1 is no axis
 

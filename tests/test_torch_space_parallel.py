@@ -409,20 +409,24 @@ def test_stream_over_the_space_axis(runs):
 
 
 def test_what_the_space_axis_refuses(runs):
-    """What the space axis still refuses names ROADMAP.md's item 12b-v-c:
-    UNETR and SwinUNETR, the sequence axis, a space axis beside a model,
-    expert or stage axis; a slab thinner than 2 planes is a ValueError.
-    Every conv segmenter, every norm, GWDL, distillation, deep supervision
-    and the bottleneck MoE run (``tests/test_torch_space_models.py``), and
-    so do Tent's windows, the sliding window, flip TTA, pl, eata, sar, cotta,
-    memo and the prediction export (``tests/test_torch_space_adapters.py``)."""
+    """What the space axis still refuses names ROADMAP.md's item 12b-v-d:
+    the CNN classifiers (ResNet, DenseNet, EfficientNet) over a split image
+    height; a slab thinner than 2 planes is a ValueError. UNETR, SwinUNETR,
+    the sequence axis, the ViT classifier and a space axis beside a model,
+    expert or stage axis run (``tests/test_torch_space_transformers.py``,
+    ``test_torch_sequence_axis.py``, ``test_torch_space_axes.py``), as do
+    every conv segmenter, norm and training option
+    (``tests/test_torch_space_models.py``) and every adapter, Tent's windows,
+    the sliding window, flip TTA and the export
+    (``tests/test_torch_space_adapters.py``)."""
     out = runs["errors"][1][0]
-    refused = {"unetr": "UNETR", "swin_unetr": "SwinUNETR", "sequence": "seq_shard_axis",
-               "beside_model": "model axis", "beside_expert": "expert axis", "beside_stage": "stage axis"}
-    assert set(out) == set(refused) | {"thin_slab"}
+    refused = {"resnet18": "ResNet", "densenet121": "DenseNet", "efficientnet_b0": "EfficientNet"}
+    runs_now = ("unetr", "swin_unetr", "sequence", "vit", "beside_model", "beside_expert", "beside_stage")
+    assert set(out) == set(refused) | set(runs_now) | {"thin_slab"}
     for key, what in refused.items():
         assert out[key] is not None and out[key].startswith("NotImplementedError"), (key, out[key])
-        assert what in out[key] and "item 12b-v-c" in out[key], (key, out[key])
+        assert what in out[key] and "item 12b-v-d" in out[key], (key, out[key])
+    assert all(out[key] is None for key in runs_now), out
     assert "ValueError" in out["thin_slab"] and "at least 2 planes" in out["thin_slab"]
 
 

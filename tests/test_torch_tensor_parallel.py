@@ -362,16 +362,22 @@ def test_tent_over_the_model_axis_matches_the_reference(runs):
 
 
 def test_what_the_model_axis_refuses():
-    """The sequence axis and a space axis beside a model axis raise, naming
-    item 12b-v; a ``tp_axis`` other than ``model`` and a head count that
-    does not split raise ``ValueError``; Adafactor builds over a model axis
-    (its steps against one process: ``tests/test_torch_expert_parallel.py``)."""
-    with pytest.raises(NotImplementedError, match="seq_shard_axis.*item 12b-v"):
-        UNETR(**UNETR_KW, seq_shard_axis="space", device="cpu")
-    with pytest.raises(NotImplementedError, match="seq_shard_axis.*item 12b-v"):
-        ViT(**TINY_VIT, seq_shard_axis="space", device="cpu")
-    with pytest.raises(NotImplementedError, match="beside a model axis.*item 12b-v"):
-        pmesh.Mesh(torch.device("cpu"), data=1, space=2, model=2)
+    """The sequence axis builds and, without a space axis, computes what the
+    model without it computes, and a space axis beside a model axis pairs
+    the ranks of one model index (over ranks:
+    ``tests/test_torch_space_axes.py``); a ``tp_axis`` other than ``model``
+    and a head count that does not split raise ``ValueError``; Adafactor
+    builds over a model axis (its steps against one process:
+    ``tests/test_torch_expert_parallel.py``)."""
+    for cls, kw, x in ((UNETR, UNETR_KW, UNETR_X), (ViT, TINY_VIT, VIT_X)):
+        seq = cls(**kw, seq_shard_axis="space", tp_axis="model", device="cpu", seed=3)
+        plain = cls(**kw, tp_axis="model", device="cpu", seed=3)
+        with torch.no_grad():
+            for a, b in zip(*(m(torch.from_numpy(x)) if cls is ViT else (m(torch.from_numpy(x)),)
+                              for m in (seq, plain))):
+                np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert pmesh.axis_groups([1, 2, 2, 1, 1], "space") == [[0, 2], [1, 3]]
+    assert pmesh.axis_groups([1, 2, 2, 1, 1], "data", "space") == [[0, 2], [1, 3]]
     with pytest.raises(ValueError, match="shard over the 'model' axis"):
         SelfAttention(32, 4, tp_axis="data")
     with pytest.raises(ValueError, match="heads=4 does not split over a model axis of 3"):

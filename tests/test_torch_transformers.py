@@ -397,8 +397,12 @@ def test_registry_defaults_and_what_is_not_ported(monkeypatch):
         sw(torch.zeros(1, 2, 16, 16, 2))
     # tp_axis builds the blocks that a model axis cuts (tests/test_torch_tensor_parallel.py)
     assert UNETR(**UNETR_KW, tp_axis="model", image_size=(16, 16, 16), device="cpu").block0.tp_axis == "model"
-    with pytest.raises(NotImplementedError, match="item 12b-v"):
-        UNETR(**UNETR_KW, seq_shard_axis="space", image_size=(16, 16, 16), device="cpu")
+    # the sequence axis builds and, without a space axis, computes the same
+    # (over ranks: tests/test_torch_sequence_axis.py)
+    seq = UNETR(**UNETR_KW, seq_shard_axis="space", image_size=(16, 16, 16), device="cpu", seed=1)
+    with torch.no_grad():
+        x = torch.from_numpy(np.random.RandomState(9).randn(1, 16, 16, 16, 2).astype(np.float32))
+        assert torch.equal(seq(x), m(x))
     # moe_experts and num_experts raised before the training-options slice;
     # blocks 1 and 3 route (every moe_every=2-th), tests/test_torch_moe.py
     # holds them to flax
