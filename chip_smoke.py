@@ -5980,11 +5980,12 @@ SPLIT_REPLACES = {"instance_norm_stats": ":114", "instance_norm_apply": ":136", 
                   "instance_norm_bwd_apply": ":87"}  # the TPU kernel's stats and normalize pallas_calls; its gradient
 
 
-def split_summaries(sp: dict, card: str, sa: dict, st: dict, sx: dict) -> list:
+def split_summaries(sp: dict, card: str, sa: dict, st: dict, sx: dict, sc: dict) -> list:
     """The kernels line's entries of the four split-depth norm entries:
     launches on phase 23's main paths (both ranks; ``sa`` its adapters,
     windows, flip TTA and sliding window; ``st`` its transformers) and
-    phase 27b's (``sx``: four ranks), the largest error at the paths' own
+    phase 27b's (``sx``: four ranks), phase 23's classifiers (``sc``: none
+    ran, asserted), the largest error at the paths' own
     calls and at the timing table's inputs (f32 and bf16), times of one
     flagship training forward's split norm calls at batch 8 on one of two
     space ranks in f32 (and, under ``bf16``, in bf16)."""
@@ -6000,10 +6001,10 @@ def split_summaries(sp: dict, card: str, sa: dict, st: dict, sx: dict) -> list:
             "name": name, "route": "cuda", "source": "multimodal_tta_tpu_torch/csrc/fused_instance_norm.cu",
             "replaces": "multimodal_tta_tpu/pallas/fused_instance_norm.py" + SPLIT_REPLACES[name],
             "launches": sp["launches"][name] + sp["models_launches"][name] + sa["launches"][name]
-            + st["launches"][name] + sx["launches"][name],
+            + st["launches"][name] + sx["launches"][name] + sc["launches"][name],
             "launches_by_path": {"space_parallel": sp["launches"][name], "space_models": sp["models_launches"][name],
                                  "space_adapters": sa["launches"][name], "space_transformers": st["launches"][name],
-                                 "space_axes": sx["launches"][name]},
+                                 "space_axes": sx["launches"][name], "space_classifiers": sc["launches"][name]},
             "max_abs_err": max(e["max_abs_err"], e16["max_abs_err"], path_err), "ms": e["ms"],
             "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"], "bound_by": e["bound_by"], "library_ms": None,
             "bf16": {k: e16[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")},
@@ -6724,6 +6725,372 @@ def log_space_transformers(st: dict, card: str) -> None:
     log(f"[space_transformers] took {st['phase_s']:.1f} s; launches over both ranks {st['launches']}; card {card}")
 
 
+# ---- phase 23, the CNN classifiers over a split image height -----------------
+# the same two ranks on card 0 (gloo) on data=1 x space=2 against one process
+# on the same global batches, f32 with TF32 off: ResNet-50 in Tent's setting
+# ([CLS_BATCH, CLS_SIDE, CLS_SIDE, 3], CLS_CLASSES classes) through
+# classifier_logits_apply: an inference forward, a continual Tent step, and
+# one step each of pl, eata, sar, cotta (2 views), memo (2 views) and norm;
+# DenseNet-121, EfficientNet-B0 and EfficientNet-V2-S at CLS_FAMILY_BATCH: a
+# forward and a Tent step. Each rank holds its rows of the images' height
+# (Mesh.local); a level runs on the rank's slab while the height rule holds
+# (parallel/space.py:row_axes), whole from the first op that breaks it.
+# Gates, fixed: logits within SC_LOGIT_REL relative L2 of one process's, the
+# adapted affines' moves within SP_GRAD_REL, the running statistics within
+# SC_STATS_REL (sc_stats_rel: a variance of its tensor's largest value, a
+# mean of its BatchNorm's largest running standard deviation, since
+# EfficientNet's expand convs give batch means of ~1e-9 whose rounding is
+# their values' scale), the predictions equal. In f32 the moves are rounding
+# at this init: BN -> ReLU -> conv -> BN makes the entropy nearly invariant
+# to an earlier BN's scale, so its gradient cancels (phase 18's
+# CLS_PARITY_DELTA_REL_L2), and two summation orders move it by ~1e-2 (the
+# CPU fixture of the job: 1.6e-2). So the f32 pass at Tent's setting gates
+# the logits and reports the rest, and the same cases computed in f64 (the
+# compute dtype, the BatchNorms' affines and statistics too) at
+# CLS_FAMILY_BATCH carry every gate. No norm or min-plus kernel on this
+# path: 0 launches a rank, asserted. Then a timing pass: ResNet-50's bf16
+# Tent step, ms a step and peak memory a rank against one process, and the
+# space group's collective calls and bytes a step.
+SC_WORLD = 2
+SC_SEED = 290
+SC_TIMEOUT_S = 600
+SC_LOGIT_REL = 1e-5
+SC_STATS_REL = 1e-5
+SC_METHODS = ("tent", "pl", "eata", "sar", "cotta", "memo", "norm")
+SC_FAMILIES = ("densenet121", "efficientnet_b0", "efficientnet_v2_s")
+SC_KNOBS = {"pl": {"pl": {"conf_threshold": 0.2}},
+            "eata": {"reliability": {"margin_ratio": 1.0}, "fisher": {"batches": 1, "lambda": 50.0}},
+            "sar": {"lr": 0.2, "rho": 0.5, "margin_ratio": 1.0},
+            "cotta": {"ema": 0.9, "n_views": 2}, "memo": {"n_views": 2, "serve": "marginal"}}
+SC_TIMED_STEPS = 5
+
+
+def sc_config(method: str) -> dict:
+    """A classifier adapter's config: softmax entropy, one continual step
+    at lr 0.1 (``SC_KNOBS``' overrides), f32."""
+    tta = {"method": method, "steps": 1, "lr": 0.1, "optimizer": "sgd", "momentum": 0.9, "update": "norm",
+           "episodic": False, **SC_KNOBS.get(method, {})}
+    return {"task": {"seed": 0}, "training": {"criterion": {"softmax": True, "sigmoid": False},
+                                              "compute_dtype": "float32"}, "tta": tta}
+
+
+def sc_images(n: int, side: int, seed: int):
+    import numpy as np
+
+    return (np.random.RandomState(seed).randn(n, side, side, 3) * 1.5 + 0.3).astype(np.float32)
+
+
+class CollectiveCount:
+    """Counts the calls of ``torch.distributed``'s ``all_reduce`` and
+    ``all_gather`` made inside the block, and the bytes of the tensors
+    handed to them (an all-gather's input, an all-reduce's tensor)."""
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self.calls, self.bytes, self._held = 0, 0, (dist.all_reduce, dist.all_gather)
+        reduce, gather = self._held
+
+        def all_reduce(t, *a, **k):
+            self.calls, self.bytes = self.calls + 1, self.bytes + t.numel() * t.element_size()
+            return reduce(t, *a, **k)
+
+        def all_gather(parts, t, *a, **k):
+            self.calls, self.bytes = self.calls + 1, self.bytes + t.numel() * t.element_size()
+            return gather(parts, t, *a, **k)
+
+        dist.all_reduce, dist.all_gather = all_reduce, all_gather
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        dist.all_reduce, dist.all_gather = self._held
+        return False
+
+
+def sc_run(device, mesh, spec: dict) -> dict:
+    """The classifiers' cases in this process: over the ranks of ``mesh``
+    (data 1 x space 2), or in one process (``mesh`` None) on the same global
+    batches. Per case: the logits (rank 0 keeps them), each method's
+    entropies, the adapted affines' moves, the running statistics and the
+    predictions; the kernels' launches; the bf16 timing pass."""
+    import torch
+
+    from multimodal_tta_tpu_torch.conf import ConfigNode
+    from multimodal_tta_tpu_torch.models.layers import BatchNorm, running_statistics
+    from multimodal_tta_tpu_torch.parallel import space as sp
+    from multimodal_tta_tpu_torch.registry import get_model, get_tta_method
+    from multimodal_tta_tpu_torch.tta import classifier_logits_apply, norm_param_mask
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = mesh.device if mesh is not None else torch.device(device)
+    cuda = dev.type == "cuda"
+    local = (lambda t: t) if mesh is None else mesh.local
+    rows = (lambda t: t) if mesh is None else (lambda t: mesh.gather_rows(t.contiguous()))
+    rank = mesh.rank if mesh is not None else 0
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def build(name: str, batch: int, dtype=torch.float32):
+        m = get_model(name).from_config(ConfigNode({"num_classes": spec["classes"]}), dtype=dtype, device=dev,
+                                        seed=SC_SEED)
+        if dtype == torch.float64:  # the adapted affines and the statistics held in f64 too
+            for bn in m.modules():
+                if isinstance(bn, BatchNorm):
+                    bn.double()
+        return classifier_logits_apply(m), torch.from_numpy(local(sc_images(batch, spec["side"], SC_SEED + 1))).to(dev)
+
+    def snapshot(model, names) -> dict:
+        params = dict(model.named_parameters())
+        return {"affines": {n: params[n].detach().float().cpu().clone() for n in names},
+                "stats": {k: v.float().cpu() for k, v in running_statistics(model).items()}}
+
+    def split_levels(model, x) -> int:
+        """How many BatchNorm calls of an inference forward ran on a slab."""
+        seen = []
+        hooks = [m.register_forward_pre_hook(lambda mod, a: seen.append(a[0].shape[2]))
+                 for m in model.modules() if isinstance(m, BatchNorm)]
+        with torch.no_grad(), sp.sharded(mesh):
+            model(x)
+        for h in hooks:
+            h.remove()
+        return seen
+
+    def adapt(model, x, method: str, n: int) -> dict:
+        cfg = ConfigNode(sc_config(method))
+        ad = get_tta_method(method)(cfg.tta, config=cfg, device=dev, mesh=mesh)
+        names = sorted(n for n, k in norm_param_mask(model).items() if k)
+        before = snapshot(model, names)
+        if method == "norm":
+            ad.make_adapt_fn(model)(model, x, n)
+            ents, pred = [], None
+        else:
+            fn = ad.make_adapt_predict_fn(model, threshold=0.5, predict_mode="post")
+            _, pred = fn(model, x, n)
+            ents, pred = ad._last_ents.float().cpu().tolist(), rows(pred).cpu()
+        sync()
+        after = snapshot(model, names)
+        ad.restore()
+        moves = {n: after["affines"][n] - before["affines"][n] for n in names}
+        return {"ents": ents, "moves": moves, "stats": after["stats"], "preds": pred}
+
+    out = {"tag": f"rank{rank}" if mesh is not None else "one", "passes": {}}
+    at = split_counts()
+    for tag, pass_spec in spec["passes"].items():
+        batches, dtype = pass_spec["batches"], getattr(torch, pass_spec["dtype"])
+        cases = out["passes"][tag] = {}
+        for name in ("resnet50",) + tuple(spec["families"]):
+            model, x = build(name, batches[name], dtype)
+            r = {}
+            with torch.no_grad(), sp.sharded(mesh):
+                logits = rows(model(x)).float()
+            sync()
+            r["logits"] = logits.cpu() if rank == 0 else None
+            r["slabs"] = split_levels(model, x)
+            for method in (SC_METHODS if name == "resnet50" else ("tent",)):
+                r[method] = adapt(model, x, method, batches[name])
+            cases[name] = r
+            del model, x, logits
+            if cuda:
+                torch.cuda.empty_cache()
+    sync()
+    now = split_counts()
+    out["launches"] = {k: now[k] - at[k] for k in now}
+
+    # the timing pass: ResNet-50's continual bf16 Tent step (inline predictions)
+    n = spec["passes"]["f32"]["batches"]["resnet50"]
+    model, x = build("resnet50", n, torch.bfloat16)
+    cfg = ConfigNode(dict(sc_config("tent"), training={"criterion": {"softmax": True, "sigmoid": False},
+                                                       "compute_dtype": "bfloat16"}))
+    ad = get_tta_method("tent")(cfg.tta, config=cfg, device=dev, mesh=mesh)
+    fn = ad.make_adapt_predict_fn(model, threshold=0.5, predict_mode="inline")
+    fn(model, x, n)
+    sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    with CollectiveCount() as coll:
+        for _ in range(spec["timed_steps"]):
+            t0 = time.perf_counter()
+            fn(model, x, n)
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+    out["timing"] = {"ms": sorted(times)[len(times) // 2], "all_ms": times,
+                     "peak_gib": (torch.cuda.max_memory_allocated(dev) if cuda else 0) / 2**30,
+                     "collective_calls": coll.calls / spec["timed_steps"],
+                     "collective_mb": coll.bytes / spec["timed_steps"] / 2**20}
+    ad.restore()
+    del model, x
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def _rel_l2(a, b) -> float:
+    return float((a - b).norm() / b.norm()) if float(b.norm()) > 0 else float((a - b).norm())
+
+
+def sc_stats_rel(got: dict, want: dict) -> float:
+    """The running statistics' largest distance: a variance against its
+    tensor's largest value, a mean against the largest running standard
+    deviation of its BatchNorm (a mean near 0 is rounding of the batch's
+    sum at the scale of its values, not of itself)."""
+    out = 0.0
+    for k, v in want.items():
+        base = want[k[:-len("mean")] + "var"].max().sqrt() if k.endswith(".mean") else v.abs().max()
+        out = max(out, float((got[k] - v).abs().max() / base))
+    return out
+
+
+def sc_compare(one: dict, ranks: list) -> dict:
+    """The two ranks' cases against one process's, pass by pass: the
+    logits, and for each method the entropies, the moves of the adapted
+    affines, the running statistics and the predictions. The f64 pass
+    carries every gate, the f32 pass the logits' (its moves and what follows
+    from them are reported). Every check is made before a failure raises."""
+    import torch
+
+    r0 = ranks[0]
+    out, failed = {"ranks": len(ranks), "passes": {}}, []
+    for tag, cases in one["passes"].items():
+        gated = tag == "f64"
+        out["passes"][tag] = {}
+        for name, o in cases.items():
+            a = r0["passes"][tag][name]
+            c = {"logits_rel_l2": _rel_l2(a["logits"], o["logits"]),
+                 "levels": {"split": sum(s < w for s, w in zip(a["slabs"], o["slabs"])),
+                            "whole": sum(s == w for s, w in zip(a["slabs"], o["slabs"]))}}
+            if c["logits_rel_l2"] > SC_LOGIT_REL:
+                failed.append(f"{tag} {name} forward: logits {c['logits_rel_l2']:.3g} (limit {SC_LOGIT_REL})")
+            if len(a["slabs"]) != len(o["slabs"]) or not c["levels"]["split"] or not all(
+                    s * SC_WORLD == w or s == w for s, w in zip(a["slabs"], o["slabs"])):
+                failed.append(f"{tag} {name}: BatchNorm rows {a['slabs']} against one process's {o['slabs']}")
+            for method in (m for m in SC_METHODS if m in o):
+                t, ot = a[method], o[method]
+                keys = sorted(ot["moves"])
+                got = torch.cat([t["moves"][k].flatten() for k in keys])
+                moved = torch.cat([ot["moves"][k].flatten() for k in keys])
+                m = {"moves_rel_l2": _rel_l2(got, moved) if float(moved.norm()) > 0 else float(got.abs().max()),
+                     "stats_rel": sc_stats_rel(t["stats"], ot["stats"]),
+                     "ents_max_rel": max([abs(x - y) / abs(y) if y else abs(x) for x, y in zip(t["ents"], ot["ents"])],
+                                         default=0.0),
+                     "preds_equal": ot["preds"] is None or bool(torch.equal(t["preds"], ot["preds"]))}
+                if gated and (m["moves_rel_l2"] > SP_GRAD_REL or m["stats_rel"] > SC_STATS_REL
+                              or m["ents_max_rel"] > SP_LOSS_REL or not m["preds_equal"]):
+                    failed.append(f"{tag} {name} {method}: {m}")
+                c[method] = m
+            out["passes"][tag][name] = c
+    if failed:
+        raise AssertionError("phase 23 (classifiers over space), two ranks vs one process: " + "; ".join(failed)
+                             + f"; all: {out}")
+    return out
+
+
+def _sc_job(rank: int, world: int, device: str, spec: dict) -> dict:
+    """The classifiers' phase-23 cases, rank side, in an initialised process
+    group: a ``data=1 x space=2`` mesh, ``sc_run``."""
+    from multimodal_tta_tpu_torch.parallel.mesh import make_mesh
+
+    return sc_run(device, make_mesh([_rank_device(device)] * world, data=1, space=world), spec)
+
+
+def space_classifiers_phase(device, root: str, **kw) -> dict:
+    """The classifiers' phase-23 cases alone: two ranks sharing the device
+    over gloo, spawned here, against the one-process run here (``main``
+    spawns their ranks with phases 22-24's, ``spawn_pairs``)."""
+    prep = space_classifiers_prepare(device, root, **kw)
+    spawn_pairs([prep])
+    return space_classifiers_finish(prep)
+
+
+def space_classifiers_prepare(device, root: str, *, side: int = CLS_SIDE, batch: int = CLS_BATCH,
+                              family_batch: int = CLS_FAMILY_BATCH, classes: int = CLS_CLASSES,
+                              families=SC_FAMILIES, timed_steps: int = SC_TIMED_STEPS, threads: int = 4) -> dict:
+    """Up to the ranks: the ranks' spec (each process makes the images from
+    ``SC_SEED``): the f64 pass at ``family_batch``, the f32 pass with
+    ResNet-50 at ``batch`` and the other families at ``family_batch``."""
+    import shutil
+
+    import torch
+
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root, exist_ok=True)
+    every = {f: family_batch for f in families}
+    spec = {"side": side, "classes": classes, "families": list(families), "timed_steps": timed_steps,
+            "passes": {"f64": {"dtype": "float64", "batches": {"resnet50": family_batch, **every}},
+                       "f32": {"dtype": "float32", "batches": {"resnet50": batch, **every}}},
+            "threads": threads, "ranks_root": os.path.join(root, "ranks")}
+    os.makedirs(spec["ranks_root"], exist_ok=True)
+    return {"name": "space_classifiers", "device": device, "root": root, "t0": time.perf_counter(),
+            "cuda": torch.device(device).type == "cuda", "out": {"backend": "gloo"}, "backend": "gloo",
+            "spec": spec}
+
+
+def space_classifiers_finish(prep: dict) -> dict:
+    """After the ranks: the one-process run and the checks (``sc_compare``;
+    no kernel launched on either side)."""
+    import shutil
+
+    import torch
+
+    device, root, t0, out, spec = (prep[k] for k in ("device", "root", "t0", "out", "spec"))
+    ranks = [torch.load(os.path.join(spec["ranks_root"], f"rank{r}.pt"), weights_only=False)
+             for r in range(SC_WORLD)]
+    out["ranks_s"] = ranks[0]["s"]
+    t1 = time.perf_counter()
+    held = torch.get_num_threads()
+    torch.set_num_threads(spec["threads"])
+    try:
+        one = sc_run(device, None, spec)
+    finally:
+        torch.set_num_threads(held)
+    out["one_s"] = time.perf_counter() - t1
+    failed = []
+    try:
+        out["compare"] = sc_compare(one, ranks)
+    except AssertionError as e:
+        failed.append(str(e))
+    for res in ranks + [one]:
+        if any(res["launches"].values()):
+            failed.append(f"{res['tag']}: kernel launches {res['launches']} on the classifiers' path (0 expected)")
+    out["launches"] = {k: sum(res["launches"][k] for res in ranks) for k in ranks[0]["launches"]}
+    out["timing"] = {"ranks": [res["timing"] for res in ranks], "one": one["timing"],
+                     "batch": spec["passes"]["f32"]["batches"]["resnet50"], "side": spec["side"]}
+    out["batches"] = {tag: p["batches"] for tag, p in spec["passes"].items()}
+    out["phase_s"] = time.perf_counter() - t0
+    shutil.rmtree(root, ignore_errors=True)
+    if failed:
+        raise AssertionError("phase 23 (classifiers over space): " + " | ".join(failed))
+    return out
+
+
+def log_space_classifiers(sc: dict, card: str) -> None:
+    """The classifiers' phase-23 numbers: a line a family a pass, the timing pass."""
+    t = sc["timing"]
+    log(f"[space_classifiers] two ranks (data 1 x space 2, gloo) vs one process, TF32 off: ResNet-50 (forward; "
+        f"tent, pl, eata, sar, cotta, memo, norm) and {', '.join(n for n in sc['batches']['f32'] if n != 'resnet50')} "
+        f"(forward, tent) at {t['side']} px, batches {sc['batches']}: ranks {sc['ranks_s']:.1f} s, one process "
+        f"{sc['one_s']:.1f} s; card {card}")
+    for tag, cases in sc["compare"]["passes"].items():
+        for name, c in cases.items():
+            log(f"[space_classifiers]   {tag} {name}: logits {c['logits_rel_l2']:.3g} rel L2 (limit {SC_LOGIT_REL}); "
+                f"BatchNorm calls on a slab {c['levels']['split']}, whole {c['levels']['whole']}; "
+                + "; ".join(f"{m} moves {c[m]['moves_rel_l2']:.3g}, stats {c[m]['stats_rel']:.3g}, entropies "
+                            f"{c[m]['ents_max_rel']:.3g}, predictions equal {c[m]['preds_equal']}"
+                            for m in SC_METHODS if m in c)
+                + (f" (limits: moves {SP_GRAD_REL}, stats {SC_STATS_REL}, entropies {SP_LOSS_REL})" if tag == "f64"
+                   else " (reported)") + f"; card {card}")
+    r = t["ranks"][0]
+    log(f"[space_classifiers] timing, ResNet-50 bf16 continual Tent step at {t['batch']}x{t['side']}x{t['side']}: "
+        f"{r['ms']:.1f} ms a step a rank (all ranks {[round(x['ms'], 1) for x in t['ranks']]}) vs {t['one']['ms']:.1f} "
+        f"ms one process; peak {r['peak_gib']:.2f} GiB a rank vs {t['one']['peak_gib']:.2f} GiB; the space group's "
+        f"collectives {r['collective_calls']:.0f} calls, {r['collective_mb']:.1f} MiB a step a rank; card {card}")
+    log(f"[space_classifiers] took {sc['phase_s']:.1f} s; launches over both ranks {sc['launches']}; card {card}")
+
 # ---- phase 24: every adapter over the data axis --------------------------------
 # two ranks share the one card (gloo), as in phase 22; the flagship at full
 # width on HECKTOR21 batches of BATCH; TTAEngine.evaluate with pl, eata, sar,
@@ -7039,7 +7406,7 @@ def _ad_job(rank: int, world: int, device: str, spec: dict) -> dict:
 # phase -> (its rank side, its time limit): the two-rank phases that share a spawn
 PAIR_JOBS = {"data_parallel": (_dp_job, DP_TIMEOUT_S), "space_parallel": (_sp_job, SP_TIMEOUT_S),
              "space_adapters": (_sa_job, SA_TIMEOUT_S), "space_transformers": (_st_job, ST_TIMEOUT_S),
-             "adapters": (_ad_job, AD_TIMEOUT_S)}
+             "space_classifiers": (_sc_job, SC_TIMEOUT_S), "adapters": (_ad_job, AD_TIMEOUT_S)}
 
 
 def _pair_rank(rank: int, world: int, store: str, backend: str, device: str, jobs: list) -> None:
@@ -7403,6 +7770,9 @@ def tp_run(device, root: str, mesh, spec: dict) -> dict:
                     if len(r["losses"]) == 1:  # the first step's summed gradients of the whole params
                         r["replicated_grads"] = {n: p.grad.detach().cpu().clone() for n, p in m.named_parameters()
                                                  if n not in shards and p.grad is not None}
+                        # the bytes the step averages over the model group: those gradients and the loss
+                        r["whole_grad_bytes"] = 4 + sum(g.numel() * g.element_size()
+                                                        for g in r["replicated_grads"].values())
                 r["launches"] = since(at)
                 r["params"] = {k: v.detach().cpu().clone() for k, v in whole_state_dict(m).items()}
                 if not deterministic:  # the same steps again, unchecked and timed
@@ -7510,7 +7880,8 @@ def model_axis_compare(device, prep: dict) -> dict:
     d_r = torch.cat([(r0["params"][n] - r0["init"][n]).flatten() for n in names])
     delta_rel = float((d_r - d_one).norm() / d_one.norm())
     # how far the ranks' params sit from rank 0's after the default steps
-    # (cuDNN's weight gradients need not repeat bit for bit), and the
+    # (cuDNN's weight gradients need not repeat bit for bit, but the step
+    # averages the whole params' over the model group: 0 expected), and the
     # deterministic steps' whole-param gradients, model rank against model rank
     spread = max(float((res["params"][n] - r0["params"][n]).abs().max()) for res in ranks for n in names)
     spread_rel = max(float(torch.cat([(res["params"][n] - r0["params"][n]).flatten() for n in names]).norm()
@@ -7520,9 +7891,10 @@ def model_axis_compare(device, prep: dict) -> dict:
                           if not torch.equal(ranks[d * TP_MODEL + m]["det"]["replicated_grads"][n],
                                              ranks[d * TP_MODEL]["det"]["replicated_grads"][n])})
     det_loss_rel = max(abs(a - b) / abs(b) for a, b in zip(r0["det"]["losses"], one["det"]["losses"]))
-    if delta_rel > DP_DELTA_REL or spread_rel > DP_DELTA_REL:
-        failed.append(f"the params' moves over the steps: {delta_rel}, the ranks' spread {spread_rel} "
-                      f"(limit {DP_DELTA_REL} each)")
+    if delta_rel > DP_DELTA_REL:
+        failed.append(f"the params' moves over the steps: {delta_rel} (limit {DP_DELTA_REL})")
+    if spread != 0.0:  # the whole params' gradients averaged over the model group: one value on every rank
+        failed.append(f"the ranks' params apart by {spread} after the default steps (bit for bit expected)")
     if grads_apart or not r0["det"]["replicated_grads"] or det_loss_rel > DP_LOSS_REL:
         failed.append(f"deterministic steps: whole params' gradients apart over a model group {grads_apart[:5]} "
                       f"({len(grads_apart)} tensors), losses {det_loss_rel}")
@@ -7556,8 +7928,8 @@ def model_axis_compare(device, prep: dict) -> dict:
                 "one": one["losses"], "max_rel": loss_rel}, "delta_rel_l2": delta_rel, "tent": tent,
                 "launches": {k: sum(res["launches"][p][k] for res in ranks for p in want)
                              for k in ("forward", "backward")},
-                "ranks": [{k: res[k] for k in ("tag", "tp_bytes", "sharded", "step_ms", "step_reduced", "peak_gib",
-                                               "check")} for res in ranks],
+                "ranks": [{k: res[k] for k in ("tag", "tp_bytes", "sharded", "step_ms", "step_reduced",
+                                               "whole_grad_bytes", "peak_gib", "check")} for res in ranks],
                 "one": {k: one[k] for k in ("tp_bytes", "step_ms", "peak_gib", "check")}})
     return _finish(prep, out)
 
@@ -7687,7 +8059,7 @@ def ep_run(device, root: str, mesh, spec: dict) -> dict:
     from multimodal_tta_tpu_torch.models import moe as moe_module
     from multimodal_tta_tpu_torch.models.unetr import UNETR
     from multimodal_tta_tpu_torch.parallel.expert import shard_experts
-    from multimodal_tta_tpu_torch.parallel.tensor import whole_state_dict, whole_tensors
+    from multimodal_tta_tpu_torch.parallel.tensor import sharded_params, whole_state_dict, whole_tensors
     from multimodal_tta_tpu_torch.tta.engine import TTAEngine
     from multimodal_tta_tpu_torch.tta.tent import TentAdapter
 
@@ -7865,6 +8237,9 @@ def ep_run(device, root: str, mesh, spec: dict) -> dict:
                                              reverse=True)[:3]
                     r["local_sha"] = [hashlib.sha256(p.detach().cpu().numpy().tobytes()).hexdigest()
                                       for p in m.parameters()]
+                    cut = sharded_params(m)  # the whole params: one value over the expert group
+                    r["whole_sha"] = {n: hashlib.sha256(p.detach().cpu().numpy().tobytes()).hexdigest()
+                                      for n, p in m.named_parameters() if n not in cut}
                 if opt == "adam":
                     if mesh is None:
                         out["grads"], out["routed"] = grads, routed
@@ -8014,6 +8389,13 @@ def expert_axis_compare(device, prep: dict) -> dict:
             a, b = ranks[e]["train"][opt], ranks[EP_EXPERT + e]["train"][opt]
             if a["local_sha"] != b["local_sha"] or a["losses"] != b["losses"]:
                 failed.append(f"{opt}: the ranks of data group {e} hold other params or losses")
+        # every rank's whole params bit for bit (Mesh.sum_flat averages their
+        # gradients over the expert group): an expert group's ranks too
+        apart = sorted({n for res in ranks for n, h in res["train"][opt]["whole_sha"].items()
+                        if h != r0["train"][opt]["whole_sha"][n]})
+        train[opt]["whole_apart"] = len(apart)
+        if apart or not r0["train"][opt]["whole_sha"]:
+            failed.append(f"{opt}: the whole params differ between the ranks: {apart[:5]} ({len(apart)} tensors)")
     tent = {}
     for mode, t in r0["tent"].items():
         o = one["tent"][mode]
@@ -10633,7 +11015,8 @@ def main() -> int:
              space_parallel_prepare(dev, os.path.join(REPO, "build", "chip_smoke_sp")),
              space_adapters_prepare(dev, os.path.join(REPO, "build", "chip_smoke_sa")),
              space_transformers_prepare(dev, os.path.join(REPO, "build", "chip_smoke_st")),
-             adapters_prepare(dev, os.path.join(REPO, "build", "chip_smoke_ad"))]
+             adapters_prepare(dev, os.path.join(REPO, "build", "chip_smoke_ad")),
+             space_classifiers_prepare(dev, os.path.join(REPO, "build", "chip_smoke_sc"))]
     pairs_s = spawn_pairs(pairs)
     log(f"[pairs] the two ranks of phases 22-24 took {pairs_s:.1f} s, one start-up for the {len(pairs)} jobs")
     dp = data_parallel_finish(pairs[0])
@@ -10672,6 +11055,12 @@ def main() -> int:
     st23["card"] = smi
     log_space_transformers(st23, smi)
     st_launches = st23["launches"]
+    # ResNet, DenseNet and EfficientNet over a split image height
+    torch.cuda.empty_cache()
+    sc23 = space_classifiers_finish(pairs[5])
+    sc23["card"] = smi
+    log_space_classifiers(sc23, smi)
+    sc_launches = sc23["launches"]
 
     # ---- 24. every adapter over the data axis: two ranks, torchrun CLIs ----
     torch.cuda.empty_cache()
@@ -10750,7 +11139,7 @@ def main() -> int:
                             "space_models": sm_launches["forward"], "space_adapters": sa_launches["forward"],
                             "space_transformers": st_launches["forward"], "adapters": ad_launches["forward"],
                             "model_axis": tp_launches["forward"], "expert_axis": ep_launches["forward"],
-                            "space_axes": sx_launches["forward"]},
+                            "space_axes": sx_launches["forward"], "space_classifiers": sc_launches["forward"]},
                            max_abs_err, {}, "forward")
     backward_summary = norm_summary(
         "fused_instance_norm_backward", btotals, norm_totals[TRAIN_BATCH][1], brats_norm[1],
@@ -10763,7 +11152,7 @@ def main() -> int:
          "space_adapters": sa_launches["backward"], "space_transformers": st_launches["backward"],
          "adapters": ad_launches["backward"],
          "model_axis": tp_launches["backward"], "expert_axis": ep_launches["backward"],
-         "space_axes": sx_launches["backward"]}, backward_err,
+         "space_axes": sx_launches["backward"], "space_classifiers": sc_launches["backward"]}, backward_err,
         {"note": "the gradient of the TPU kernel's function; dx computed in all 18 timed calls"}, "backward")
     minplus_summary = {
         "name": "minplus",
@@ -10774,7 +11163,7 @@ def main() -> int:
         + tta_launches["minplus"] + brats_launches["minplus"] + tr_launches["minplus"] + bn_launches["minplus"]
         + opt_launches["minplus"] + prep_launches["minplus"] + dp_launches["minplus"] + sp_launches["minplus"]
         + sm_launches["minplus"] + sa_launches["minplus"] + st_launches["minplus"] + ad_launches["minplus"]
-        + ep_launches["minplus"] + sx_launches["minplus"],
+        + ep_launches["minplus"] + sx_launches["minplus"] + sc_launches["minplus"],
         "launches_by_path": {**eval_launches, "train": train_launches["minplus"], "cli": cli_launches["minplus"],
                              "tta": tta_launches["minplus"], "brats": brats_launches["minplus"],
                              "transformer": tr_launches["minplus"], "batchnorm": bn_launches["minplus"],
@@ -10782,7 +11171,8 @@ def main() -> int:
                              "data_parallel": dp_launches["minplus"], "space_parallel": sp_launches["minplus"],
                              "space_models": sm_launches["minplus"], "space_adapters": sa_launches["minplus"],
                              "space_transformers": st_launches["minplus"], "adapters": ad_launches["minplus"],
-                             "expert_axis": ep_launches["minplus"], "space_axes": sx_launches["minplus"]},
+                             "expert_axis": ep_launches["minplus"], "space_axes": sx_launches["minplus"],
+                             "space_classifiers": sc_launches["minplus"]},
         "max_abs_err": minplus_err,
         "ms": edt_ms,
         "plain_ms": edt_plain_ms,
@@ -10805,11 +11195,12 @@ def main() -> int:
                     "eval_metrics": eval_runs, "training": training, "cli": cli, "tta": tta_log, "brats": brats,
                     "transformers": transformers, "batchnorm": batchnorm, "serving_artifact": srv,
                     "training_options": opt20, "preprocess": prep, "data_parallel": dp, "space_parallel": sp23,
-                    "space_adapters": sa23, "space_transformers": st23, "adapters": ad24, "model_axis": tp25,
+                    "space_adapters": sa23, "space_transformers": st23, "space_classifiers": sc23,
+                    "adapters": ad24, "model_axis": tp25,
                     "expert_axis": ep26, "space_axes": sx27, "stage_axis": pp27},
                    default=str))
     log(json.dumps({"kernels": [summary, backward_summary, minplus_summary]
-                    + split_summaries(sp23, smi, sa23, st23, sx27)}))
+                    + split_summaries(sp23, smi, sa23, st23, sx27, sc23)}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                             "count": torch.cuda.device_count()}}))
     return 0

@@ -21,8 +21,9 @@ sharded param, its EMA shadow and its optimizer moments, and a rank that
 loads cuts its share, so a checkpoint moves between any model axis and one
 process.
 
-The reference's msgpack and orbax formats are not ported (they need flax,
-msgpack and orbax; ROADMAP.md, item 12b): loading such a checkpoint raises.
+The reference's msgpack and orbax formats are not ported yet (ROADMAP.md,
+item 13: flax's msgpack first, through a reader of the port's own, then
+orbax): loading such a checkpoint raises.
 """
 
 from __future__ import annotations
@@ -101,7 +102,7 @@ def _pt_file(path: str) -> str:
             if os.path.exists(path + other):
                 raise NotImplementedError(
                     f"[checkpoint] {path}{other} is in the reference's {other[1:]} format, which "
-                    "the port does not read (ROADMAP.md, item 12b)")
+                    "the port does not read yet (ROADMAP.md, item 13)")
         raise FileNotFoundError(f"[checkpoint] no checkpoint at {path}.pt")
     return path + ".pt"
 

@@ -11,8 +11,8 @@ reference's ``.msgpack`` raises, ROADMAP.md). The teacher is in inference
 mode, frozen (``requires_grad_(False)``), holds no optimizer state and runs
 under ``torch.no_grad()`` in ``SegTrainer``'s step, on the student's
 normalized and augmented input. Over a space axis the teacher runs on the
-same depth slab inside the same ``space.sharded(mesh)``, so it must run
-over the axis itself (``space.require_support``).
+same depth slab inside the same ``space.sharded(mesh)``, over the axis
+itself.
 """
 
 from __future__ import annotations

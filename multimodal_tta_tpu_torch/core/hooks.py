@@ -58,7 +58,7 @@ class CheckpointHook(HookBase):
         if fmt in ("orbax", "sharded"):
             raise NotImplementedError(
                 f"[CheckpointHook] the {fmt} checkpoint format is not ported "
-                "(ROADMAP.md, item 12b); use training.checkpoint_format=torch")
+                "(ROADMAP.md, item 13); use training.checkpoint_format=torch")
         if fmt != "torch":
             raise ValueError(f"[CheckpointHook] unknown checkpoint format: {fmt}")
         self.fmt = fmt

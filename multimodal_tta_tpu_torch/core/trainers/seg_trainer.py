@@ -85,6 +85,7 @@ from ...ops.augment import (
 )
 from ...parallel import space as sp
 from ...parallel.mesh import pad_batch_to_multiple
+from ...parallel.tensor import shard_axes
 from ...ops.intensity import make_intensity_normalizer
 from ...ops.losses import make_criterion
 from ...utils.config import get_config
@@ -247,11 +248,15 @@ class SegTrainer(TrainerBase):
 
     def _sum_over_ranks(self, loss: torch.Tensor) -> torch.Tensor:
         """The params' gradients and ``loss`` summed over the ranks in one
-        ``all_reduce`` of a flat buffer; returns the global loss. Every rank
-        has gradients for the same params (one graph), and a param without
-        one stays without, as in one process."""
-        params = [p for p in self.state.model.parameters() if p.grad is not None]
-        *grads, total = self.mesh.sum_flat([p.grad for p in params] + [loss.reshape(1).to(params[0].grad.dtype)])
+        ``all_reduce`` of a flat buffer (the whole params' and the loss then
+        averaged over a model or expert group: ``Mesh.sum_flat``); returns
+        the global loss. Every rank has gradients for the same params (one
+        graph), and a param without one stays without, as in one process."""
+        named = [(n, p) for n, p in self.state.model.named_parameters() if p.grad is not None]
+        params = [p for _, p in named]
+        shards = shard_axes(self.state.model, [n for n, _ in named]) + [None]
+        *grads, total = self.mesh.sum_flat([p.grad for p in params] + [loss.reshape(1).to(params[0].grad.dtype)],
+                                           shards)
         for p, g in zip(params, grads):
             p.grad = g
         return total[0].to(loss.dtype)
@@ -294,7 +299,6 @@ class SegTrainer(TrainerBase):
                     "to initialize the teacher"
                 )
             self.teacher = build_teacher(self.config, self.device, [int(x) for x in image_size])
-            sp.require_support(self.teacher, self.mesh)
             self.logger.info(
                 f"[distill] teacher {get_config(self.distill.model, 'name')} "
                 f"loaded from {self.distill.checkpoint} "
@@ -355,7 +359,6 @@ class SegTrainer(TrainerBase):
 
     def setup(self, state, evaluation_strategy=None, scheduler=None):
         super().setup(state, evaluation_strategy, scheduler)
-        sp.require_support(state.model, self.mesh)
         pool_over_ranks(state.model, self.mesh)
 
     def _wrap_loader(self, loader):

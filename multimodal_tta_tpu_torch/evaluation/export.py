@@ -182,7 +182,6 @@ class PredictionExporter:
         """
         dev = resolve_device(device)
         mesh = mesh if mesh is not None and mesh.parallel else None
-        sp.require_support(state, mesh)
         writes = mesh is None or mesh.replica_lead
         if writes:
             os.makedirs(self.out_dir, exist_ok=True)

@@ -348,8 +348,6 @@ class SegmentationEvaluationStrategy:
         dev = resolve_device(device)
         mesh = mesh if mesh is not None and mesh.parallel else None
         space = sp.axis_of(mesh)
-        if space is not None:
-            sp.require_support(state, mesh)
         for p in state.parameters():
             if p.device != dev:
                 raise ValueError(f"[SegEval] model is on {p.device}, evaluation on {dev}")

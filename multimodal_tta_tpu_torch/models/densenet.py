@@ -6,7 +6,10 @@ names are flax's: the stem ``Conv_0`` / ``BatchNorm_0``, ``block{B}_layer{L}``
 (``BatchNorm_0``, ``Conv_0``, ``BatchNorm_1``, ``Conv_1``), ``transition{T}``
 (``BatchNorm_0``, ``Conv_0``), ``final_bn``, ``classifier``. ``growth_rate``,
 ``block_config`` and ``init_features`` override the variant's topology, as
-in the reference.
+in the reference. Over a space axis each op of ``row_ops`` (the stem, its
+max-pool, each dense layer and transition) runs on the rank's rows of the
+images or whole, as ``models/resnet.py`` says; a transition's 2x2 average
+pool takes no halo and needs an even slab.
 """
 
 from __future__ import annotations
@@ -18,10 +21,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import DeviceLike, resolve_device
+from ..parallel import space as sp
 from ..registry import register_model
 from ..utils.config import get_config
 from .layers import BatchNorm
-from .resnet import _VariantFactory, conv2d, finish_classifier, nchw, pooled
+from .resnet import (POOL_ROWS, _VariantFactory, conv2d, conv_rows, finish_classifier, max_pool, nchw, pooled,
+                     row_plan, to_rows)
 
 _SPECS = {
     # (growth_rate, block_config, init_features)
@@ -40,10 +45,11 @@ class DenseLayer(nn.Module):
         self.Conv_0 = nn.Conv2d(in_features, 4 * growth_rate, 1, bias=False)
         self.BatchNorm_1 = BatchNorm(4 * growth_rate)
         self.Conv_1 = nn.Conv2d(4 * growth_rate, growth_rate, 3, 1, 1, bias=False)
+        self.rows = conv_rows(self.Conv_1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = conv2d(self.BatchNorm_0(x, relu=True), self.Conv_0, self.dtype)
-        y = conv2d(self.BatchNorm_1(y, relu=True), self.Conv_1, self.dtype)
+    def forward(self, x: torch.Tensor, space=None) -> torch.Tensor:
+        y = conv2d(self.BatchNorm_0(x, relu=True), self.Conv_0, self.dtype, space)
+        y = conv2d(self.BatchNorm_1(y, relu=True), self.Conv_1, self.dtype, space)
         return torch.cat([x, y], dim=1)
 
 
@@ -53,9 +59,10 @@ class Transition(nn.Module):
         self.dtype = dtype
         self.BatchNorm_0 = BatchNorm(in_features)
         self.Conv_0 = nn.Conv2d(in_features, features, 1, bias=False)
+        self.rows = (2, 0)  # the 2x2/2 average pool: no halo
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.avg_pool2d(conv2d(self.BatchNorm_0(x, relu=True), self.Conv_0, self.dtype), 2, 2)
+    def forward(self, x: torch.Tensor, space=None) -> torch.Tensor:
+        return F.avg_pool2d(conv2d(self.BatchNorm_0(x, relu=True), self.Conv_0, self.dtype, space), 2, 2)
 
 
 class DenseNet(nn.Module):
@@ -87,6 +94,7 @@ class DenseNet(nn.Module):
                 feat = feat // 2
         self.final_bn = BatchNorm(feat)
         self.classifier = nn.Linear(feat, num_classes)
+        self.row_ops = [conv_rows(self.Conv_0), POOL_ROWS] + [getattr(self, n).rows for n in self.stages]
         finish_classifier(self, seed, device)
 
     @classmethod
@@ -102,11 +110,13 @@ class DenseNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         x = nchw(x, self.in_channels, self.dtype)
-        x = self.BatchNorm_0(conv2d(x, self.Conv_0, self.dtype), relu=True)
-        x = F.max_pool2d(x, 3, 2, 1)
-        for name in self.stages:
-            x = getattr(self, name)(x)
-        feats = pooled(self.final_bn(x, relu=True))
+        have, axes = sp.current(), row_plan(self.row_ops, x)
+        x = to_rows(x, have, axes[0])
+        x = self.BatchNorm_0(conv2d(x, self.Conv_0, self.dtype, axes[0]), relu=True)
+        x = max_pool(to_rows(x, axes[0], axes[1]), axes[1])
+        for i, name in enumerate(self.stages, 2):
+            x = getattr(self, name)(to_rows(x, axes[i - 1], axes[i]), axes[i])
+        feats = pooled(self.final_bn(x, relu=True), axes[-1])
         return feats, F.linear(feats, self.classifier.weight, self.classifier.bias)
 
 

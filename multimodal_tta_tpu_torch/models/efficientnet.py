@@ -10,7 +10,10 @@ BatchNorm eps 1e-3 for v2 and 1e-5 for the b-series, the v2 stem width taken
 from the first stage. Module names are flax's (``stem``, ``stem_bn``,
 ``stage{S}_block{J}`` with ``Conv_k`` / ``BatchNorm_k`` /
 ``SqueezeExcite_0.Conv_0|1`` in creation order, ``head_conv``, ``head_bn``,
-``classifier``).
+``classifier``). Over a space axis each op of ``row_ops`` (the stem, each
+block's ``k x k`` conv, depthwise or fused) runs on the rank's rows of the
+images or whole, as ``models/resnet.py`` says; the squeeze-excitation's
+mean is the whole image's (``resnet.mean_hw``).
 """
 
 from __future__ import annotations
@@ -23,10 +26,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import DeviceLike, resolve_device
+from ..parallel import space as sp
 from ..registry import register_model
 from ..utils.config import get_config
 from .layers import BatchNorm
-from .resnet import _VariantFactory, conv2d, finish_classifier, nchw, pooled
+from .resnet import _VariantFactory, conv2d, conv_rows, finish_classifier, mean_hw, nchw, pooled, row_plan, to_rows
 
 # B0 baseline stage spec: (expand, channels, layers, stride, kernel)
 _B0_STAGES = [
@@ -108,8 +112,8 @@ class SqueezeExcite(nn.Module):
         self.Conv_0 = nn.Conv2d(channels, squeeze, 1)
         self.Conv_1 = nn.Conv2d(squeeze, channels, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        se = x.float().mean(dim=(2, 3), keepdim=True).to(x.dtype)
+    def forward(self, x: torch.Tensor, space=None) -> torch.Tensor:
+        se = mean_hw(x, space, keepdim=True).to(x.dtype)
         se = conv2d(F.silu(conv2d(se, self.Conv_0, self.dtype)), self.Conv_1, self.dtype)
         return x * torch.sigmoid(se)
 
@@ -138,14 +142,15 @@ class MBConv(nn.Module):
             self.add_module(f"BatchNorm_{i}", BatchNorm(conv.out_channels, epsilon=bn_eps))
         # the squeeze-excitation sits after the depthwise conv, before the projection
         self.SqueezeExcite_0 = None if fused else SqueezeExcite(in_features, mid, dtype=dtype)
+        self.rows = conv_rows(next(c for c, _ in convs if c.kernel_size[0] > 1))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, space=None) -> torch.Tensor:
         y = x
         n = len(self.acts)
         for i, act in enumerate(self.acts):
             if self.SqueezeExcite_0 is not None and i == n - 1:
-                y = self.SqueezeExcite_0(y)
-            y = getattr(self, f"BatchNorm_{i}")(conv2d(y, getattr(self, f"Conv_{i}"), self.dtype))
+                y = self.SqueezeExcite_0(y, space)
+            y = getattr(self, f"BatchNorm_{i}")(conv2d(y, getattr(self, f"Conv_{i}"), self.dtype, space))
             if act:
                 y = F.silu(y)
         return y + x if self.residual else y
@@ -179,6 +184,7 @@ class EfficientNet(nn.Module):
         self.head_conv = nn.Conv2d(cin, head, 1, bias=False)
         self.head_bn = BatchNorm(head, epsilon=self.bn_eps)
         self.classifier = nn.Linear(head, num_classes)
+        self.row_ops = [conv_rows(self.stem)] + [getattr(self, n).rows for n in self.blocks]
         finish_classifier(self, seed, device)
 
     @classmethod
@@ -194,10 +200,12 @@ class EfficientNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         x = nchw(x, self.in_channels, self.dtype)
-        x = F.silu(self.stem_bn(conv2d(x, self.stem, self.dtype)))
-        for name in self.blocks:
-            x = getattr(self, name)(x)
-        feats = pooled(F.silu(self.head_bn(conv2d(x, self.head_conv, self.dtype))))
+        have, axes = sp.current(), row_plan(self.row_ops, x)
+        x = to_rows(x, have, axes[0])
+        x = F.silu(self.stem_bn(conv2d(x, self.stem, self.dtype, axes[0])))
+        for i, name in enumerate(self.blocks, 1):
+            x = getattr(self, name)(to_rows(x, axes[i - 1], axes[i]), axes[i])
+        feats = pooled(F.silu(self.head_bn(conv2d(x, self.head_conv, self.dtype, axes[-1]))), axes[-1])
         return feats, F.linear(feats, self.classifier.weight, self.classifier.bias)
 
 

@@ -63,8 +63,6 @@ class PreActResBlock(nn.Module):
 
 @register_model("segresnet")
 class SegResNet(nn.Module):
-    space_ported = True  # runs over the space axis (parallel/space.py)
-
     def __init__(
         self,
         in_channels: int = 2,

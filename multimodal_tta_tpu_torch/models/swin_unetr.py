@@ -264,7 +264,6 @@ class PatchMerging(nn.Module):
 @register_model("swin_unetr")
 class SwinUNETR(nn.Module):
     input_sized = True  # ExperimentManager passes training.data.transforms.image_size
-    space_ported = True  # runs over the space axis (parallel/space.py)
 
     def __init__(
         self,

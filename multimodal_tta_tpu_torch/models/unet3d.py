@@ -74,8 +74,6 @@ def finish_model(model: nn.Module, seed: Optional[int], device: DeviceLike,
 
 @register_model("unet")
 class UNet3D(nn.Module):
-    space_ported = True  # runs over the space axis (parallel/space.py)
-
     def __init__(
         self,
         in_channels: int = 2,

@@ -55,8 +55,6 @@ def depth_to_space_3d(x: torch.Tensor, r: int = 2) -> torch.Tensor:
 
 @register_model("unet_ws")
 class UNet3DWS(nn.Module):
-    space_ported = True  # runs over the space axis (parallel/space.py)
-
     def __init__(
         self,
         in_channels: int = 2,

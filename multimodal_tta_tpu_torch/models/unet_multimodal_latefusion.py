@@ -33,8 +33,6 @@ register_model("unet_multimodal_mid")(MultimodalUNetMidFusion)
 @register_model("unet_multimodal_late")
 @register_model("unet_multimodal_latefusion")
 class MultimodalUNetLateFusion(nn.Module):
-    space_ported = True  # runs over the space axis (parallel/space.py)
-
     def __init__(
         self,
         num_modalities: int = 4,

@@ -120,8 +120,6 @@ class DecoderStage(nn.Module):
 @register_model("unet_multimodal_deepfusion")
 @register_model("unet_multimodal_midfusion")
 class MultimodalUNetMidFusion(nn.Module):
-    space_ported = True  # runs over the space axis (parallel/space.py)
-
     def __init__(
         self,
         num_modalities: int = 4,

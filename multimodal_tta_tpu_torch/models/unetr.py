@@ -70,7 +70,6 @@ def image_size_of(overrides: dict, name: str) -> tuple:
 @register_model("unetr")
 class UNETR(nn.Module):
     input_sized = True  # ExperimentManager passes training.data.transforms.image_size
-    space_ported = True  # runs over the space axis (parallel/space.py)
 
     def __init__(
         self,

@@ -41,9 +41,11 @@ queries against the keys and values gathered over the group
 gradient), and the softmax runs over the whole key axis; the MLP, the
 LayerNorms and the residuals are per token and stay local. Any other axis
 name, an axis without a mesh and an indivisible count run whole, the
-numbers the reference's no-op gives.
+numbers the reference's no-op gives; a name that no ambient mesh carries
+(outside every ``space.sharded`` block, or not an axis of its mesh) logs
+the reference's warning once per name.
 
-``ViT`` on a space mesh (``space_ported``): ``Mesh.local`` cuts the image's
+``ViT`` on a space mesh: ``Mesh.local`` cuts the image's
 rows, which the forward gathers before the patch embed; the tokens split by
 the rule above (whole without the sequence axis), and the CLS features come
 out whole on every rank of the group (a loss of them is alike on every
@@ -63,6 +65,7 @@ from ..parallel import space as sp
 from ..parallel.tensor import check_tp_axis, copy_to, narrow_param, reduce_from
 from ..registry import register_model
 from ..utils.config import get_config
+from ..utils.logger import get_logger
 from .layers import LayerNorm, check_dropout, linear
 from .moe import EXPERT_AXIS, MoEMlp
 from .resnet import _VariantFactory, finish_classifier
@@ -71,9 +74,21 @@ from .resnet import _VariantFactory, finish_classifier
 SEQ_AXIS = "space"  # the mesh axis a token axis splits over (``seq_shard_axis``)
 
 
+_seq_shard_warned: set = set()
+
+
 def sequence_axis(seq_shard_axis: Optional[str], n_tokens: int) -> Optional[sp.SpaceAxis]:
     """The ambient space axis that a token axis of ``n_tokens`` splits over
-    under ``seq_shard_axis`` (None: the tokens run whole)."""
+    under ``seq_shard_axis`` (None: the tokens run whole). A
+    ``seq_shard_axis`` that no ambient mesh carries (``space.mesh_axes``)
+    logs the reference's warning, once per axis name."""
+    if seq_shard_axis and seq_shard_axis not in sp.mesh_axes() and seq_shard_axis not in _seq_shard_warned:
+        _seq_shard_warned.add(seq_shard_axis)
+        get_logger().warning(
+            f"[vit] seq_shard_axis={seq_shard_axis!r} is set but no ambient mesh "
+            f"carries that axis — sequence parallelism disabled for this "
+            f"trace (run under `with mesh:` / jax.set_mesh)"
+        )
     ax = sp.current()
     if seq_shard_axis != SEQ_AXIS or ax is None or not sp.tokens_split(n_tokens, ax.size):
         return None
@@ -219,8 +234,6 @@ class ViT(nn.Module):
     """x: [B, H, W, C] -> (CLS features [B, hidden], logits [B, num_classes]).
     ``patch``, ``hidden``, ``depth``, ``heads`` and ``mlp_dim`` override the
     variant's topology, as in the reference."""
-
-    space_ported = True  # runs over the space axis (its rows gathered; the sequence axis)
 
     def __init__(self, variant: str = "vit_b_16", num_classes: int = 1000, image_size: int = 224,
                  dropout: float = 0.0, dtype: torch.dtype = torch.float32, seq_shard_axis: Optional[str] = None,

@@ -53,6 +53,18 @@ a model, expert or stage group hold the same rows:
 group (over a space axis too: the data x space group), ``gather_rows``
 over the data group.
 
+A tensor whole over a model or expert axis (every param that
+``parallel/tensor.py:sharded_params`` does not list, and a sharded one over
+the other of the two axes) is one value on every rank of that axis's
+group in the reference, by construction. Here each rank computes its own
+gradient of it, and kernels that sum in a free order (cuDNN's default
+algorithms) round the ranks' gradients apart. So ``sum_flat``, given each
+tensor's axis (``shards``: a step's gradients), averages
+each such gradient over the group after its sum over data x space, in one
+flat ``all_reduce`` a group (``_replica_mean``): every rank then steps the
+same gradient, and the ranks' whole params, optimizer state included, stay
+bit for bit equal.
+
 A space axis beside a model, expert or stage axis: the space group is the
 ranks that share ``(d, m, e, t)``, and the gradients and a batch's
 statistics sum over the data x space group, the ranks that share
@@ -144,6 +156,10 @@ class Mesh:
             for axis in (MODEL_AXIS, EXPERT_AXIS, STAGE_AXIS, DATA_AXIS):
                 if axis == DATA_AXIS or self.sizes[axis] > 1:
                     setattr(self, f"{axis}_group", self._new_groups(axis))
+            self._replicas = {(a,): getattr(self, f"{a}_group") for a in (MODEL_AXIS, EXPERT_AXIS)
+                              if self.sizes[a] > 1}
+            if len(self._replicas) == 2:
+                self._replicas[(MODEL_AXIS, EXPERT_AXIS)] = self._new_groups(MODEL_AXIS, EXPERT_AXIS)
             self.group = self.data_group  # the sums run over the data group
             if self.space > 1:  # ... and its space group: over data x space
                 self.space_group = self._new_groups(SPACE_AXIS)
@@ -270,13 +286,37 @@ class Mesh:
         (``t`` itself on one rank)."""
         return self.sum(t.detach().clone()) if self.sums else t
 
-    def sum_flat(self, tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    def sum_flat(self, tensors: Sequence[torch.Tensor],
+                 shards: Optional[Sequence[Optional[str]]] = None) -> List[torch.Tensor]:
         """``tensors`` (one dtype) summed over the ranks in one
-        ``all_reduce`` of a flat buffer (themselves on one rank)."""
-        if not self.sums:
-            return list(tensors)
-        flat = self.sum(torch.cat([t.reshape(-1) for t in tensors]))
-        return [f.view_as(t) for f, t in zip(flat.split([t.numel() for t in tensors]), tensors)]
+        ``all_reduce`` of a flat buffer (themselves on one rank); with
+        ``shards`` (the axis each tensor is cut over, None for a whole one: a
+        step's gradients) then averaged over the model and expert axes each
+        is whole over (``_replica_mean``)."""
+        tensors = list(tensors)
+        if self.sums:
+            flat = self.sum(torch.cat([t.reshape(-1) for t in tensors]))
+            tensors = [f.view_as(t) for f, t in zip(flat.split([t.numel() for t in tensors]), tensors)]
+        return tensors if shards is None else self._replica_mean(tensors, shards)
+
+    def _replica_mean(self, tensors: Sequence[torch.Tensor], shards: Sequence[Optional[str]]) -> List[torch.Tensor]:
+        """Each tensor averaged over the model and expert axes (above 1)
+        that it is not cut over (``shards``, as in ``sum_flat``): one flat
+        ``all_reduce`` for each set of such axes, so that every rank of the
+        group holds the same bits (themselves without those axes)."""
+        tensors = list(tensors)
+        groups: Dict[tuple, List[int]] = {}
+        for i, cut in enumerate(shards):
+            axes = tuple(a for a in (MODEL_AXIS, EXPERT_AXIS) if self.sizes[a] > 1 and a != cut)
+            if axes:
+                groups.setdefault(axes, []).append(i)
+        for axes, idx in groups.items():
+            flat = torch.cat([tensors[i].reshape(-1) for i in idx])
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=self._replicas[axes])
+            flat.div_(float(np.prod([self.sizes[a] for a in axes])))
+            for i, f in zip(idx, flat.split([tensors[i].numel() for i in idx])):
+                tensors[i] = f.view_as(tensors[i])
+        return tensors
 
     def sum_with_grad(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` summed over the ranks, differentiable: the gradient of each

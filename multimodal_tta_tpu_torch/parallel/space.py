@@ -39,7 +39,20 @@ over ``space`` ranks computes what one process computes on whole volumes:
     ``gather_depth`` on the token dim gathers a split token axis;
   * ``roll_depth`` rolls the volume's depth cyclically over the group
     (``torch.roll`` of the whole depth; its backward rolls back): the
-    shifted windows of a Swin stage whose depth is split.
+    shifted windows of a Swin stage whose depth is split;
+  * the 2D classifiers (ResNet, DenseNet, EfficientNet) split an NHWC
+    image's height, its dim 1, which ``Mesh.local`` cuts as it cuts a
+    volume's depth. Their convs and pools pad explicitly and
+    symmetrically, so an op of kernel ``k``, stride ``s`` and pad ``p``
+    takes ``row_halos(k, s, p)`` = ``(p, max(k - s - p, 0))`` rows from its
+    neighbours (the stem's 7x7/2/3: (3, 2); a 3x3/2/1: (1, 0); a 1x1/2:
+    none) and computes its slab of the whole op's output rows; a max-pool's
+    halo holds -inf at the image's ends (``halo_exchange``'s ``fill``). A
+    level stays split while the op that reads it keeps to the height rule
+    (``rows_split``: a slab divisible by the stride, an output level that
+    ``splits``, halos no wider than the slab); the first op that breaks it
+    takes its input gathered (``row_axes`` plans the chain, ``relayout``
+    gathers), and every level after it is whole on every space rank.
 
 Every collective is an ``all_gather`` or an ``all_reduce`` over the space
 group, which gloo and NCCL both take for CUDA tensors (gloo's ``send`` does
@@ -56,7 +69,7 @@ whole inside a sharded block (a window whose depth does not split).
 from __future__ import annotations
 
 from contextlib import contextmanager
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -92,20 +105,37 @@ def axis_of(mesh) -> Optional[SpaceAxis]:
     return ax
 
 
+# the axis names of the meshes whose ``sharded`` blocks run now, innermost
+# last: what the reference's ambient mesh carries (``mesh_axes``)
+_MESHES: List[Tuple[str, ...]] = []
+
+
 @contextmanager
 def sharded(mesh):
     """The space axis of ``mesh`` is the ambient one inside the block (a
-    model's forward reads it with ``current``); without one the block runs
-    as it is."""
+    model's forward reads it with ``current``), and ``mesh``'s axes are the
+    ambient mesh's (``mesh_axes``); without a space axis the block runs as
+    it is."""
     ax = axis_of(mesh)
-    if ax is None:
-        yield None
-        return
-    _ACTIVE.append(ax)
+    names = tuple(getattr(mesh, "shape", ())) if mesh is not None else None
+    if names is not None:
+        _MESHES.append(names)
+    if ax is not None:
+        _ACTIVE.append(ax)
     try:
         yield ax
     finally:
-        _ACTIVE.remove(ax)
+        if ax is not None:
+            _ACTIVE.remove(ax)
+        if names is not None:
+            _MESHES.pop()
+
+
+def mesh_axes() -> Tuple[str, ...]:
+    """The axis names of the ambient mesh (the innermost ``sharded`` block's
+    mesh: data and space, and each of model, expert and stage above 1, as
+    the reference's mesh carries them); none outside every block."""
+    return _MESHES[-1] if _MESHES else ()
 
 
 @contextmanager
@@ -147,20 +177,38 @@ def level_axes(ax: Optional[SpaceAxis], depth: int, strides) -> List[Optional[Sp
     return out
 
 
-UNPORTED_ITEM = "12b-v-d"  # the ROADMAP item of what does not run over the space axis yet
+def row_halos(kernel: int, stride: int, pad: int) -> Tuple[int, int]:
+    """The rows ``(lo, hi)`` that an op of ``kernel``, ``stride`` and
+    symmetric ``pad`` over a split height takes from its left and right
+    neighbours, so that a slab of ``n`` rows (``n % stride == 0``) gives
+    its ``n // stride`` rows of the whole op's output."""
+    return int(pad), max(int(kernel) - int(stride) - int(pad), 0)
 
 
-def unported(what: str, item: str = UNPORTED_ITEM) -> NotImplementedError:
-    return NotImplementedError(f"[space] {what} over the space axis is not ported yet (ROADMAP.md, item {item})")
+def rows_split(n: int, ax: Optional[SpaceAxis], stride: int = 1, halo: int = 0) -> bool:
+    """Whether an op of ``stride`` whose halos are at most ``halo`` rows runs
+    on a split level whose slab holds ``n`` rows: the slab divides by the
+    stride, the output level splits (``splits``: each rank at least 2
+    rows) and the halos fit in a slab."""
+    return ax is not None and n % stride == 0 and splits(n // stride * ax.size, ax.size) and halo <= n
 
 
-def require_support(model, mesh) -> None:
-    """Raise unless ``model`` runs over the space axis of ``mesh``
-    (``space_ported``: every 3D segmenter and the ViT classifier; the CNN
-    classifiers over a split image height do not)."""
-    if axis_of(mesh) is not None and not getattr(model, "space_ported", False):
-        raise unported(f"the classifier {type(model).__name__} (its strided convs, max-pools and BatchNorm "
-                       "over a split image height)")
+def row_axes(ax: Optional[SpaceAxis], rows: int, ops) -> List[Optional[SpaceAxis]]:
+    """The axis each op of a chain over a split height runs on (``ax``, or
+    None: whole), for an input slab of ``rows`` rows and ``ops`` the
+    ``(stride, halo)`` of each op in order: an input level that does not
+    split, or the first op that breaks the height rule (``rows_split``),
+    runs whole on every space rank, and so does every op after it."""
+    if ax is not None and not splits(rows * ax.size, ax.size):
+        ax = None
+    out = []
+    for stride, halo in ops:
+        if ax is not None and not rows_split(rows, ax, stride, halo):
+            ax = None
+        out.append(ax)
+        if ax is not None:
+            rows //= stride
+    return out
 
 
 def tokens_split(n: int, size: int) -> bool:
@@ -174,10 +222,12 @@ def tokens_split(n: int, size: int) -> bool:
 
 def _cl(t: torch.Tensor, dim: int):
     """``t`` with ``dim`` moved to 1 in a contiguous view (an NCDHW tensor in
-    channels_last_3d memory is NDHWC underneath: a free permute), and the
-    permutation back."""
+    channels_last_3d memory is NDHWC underneath, an NCHW one in
+    channels_last NHWC: a free permute), and the permutation back."""
     if t.dim() == 5 and dim == 2 and t.is_contiguous(memory_format=torch.channels_last_3d):
         return t.permute(0, 2, 3, 4, 1), (0, 4, 1, 2, 3), 1
+    if t.dim() == 4 and dim == 2 and t.is_contiguous(memory_format=torch.channels_last):
+        return t.permute(0, 2, 3, 1), (0, 3, 1, 2), 1
     return t.contiguous(), None, dim
 
 
@@ -231,10 +281,11 @@ def relayout(t: torch.Tensor, have, want, ax: SpaceAxis, dim: int) -> torch.Tens
     return gather_depth(t, ax, dim) if want is None else slice_depth(t, ax, dim)
 
 
-def _exchange(x: torch.Tensor, dim: int, ax: SpaceAxis, first: int, last: int):
+def _exchange(x: torch.Tensor, dim: int, ax: SpaceAxis, first: int, last: int, fill: float = 0.0):
     """All-gather each rank's first ``first`` and last ``last`` planes of
     ``x`` on ``dim``; returns (the left neighbour's last ``last`` planes, the
-    right neighbour's first ``first`` planes), zeros past the volume's ends."""
+    right neighbour's first ``first`` planes), ``fill`` past the volume's
+    ends."""
     v, back, d = _cl(x, dim)
     n = v.shape[d]
     pieces = [v.narrow(d, 0, first), v.narrow(d, n - last, last)]
@@ -244,11 +295,11 @@ def _exchange(x: torch.Tensor, dim: int, ax: SpaceAxis, first: int, last: int):
     if ax.rank > 0:
         left = parts[ax.rank - 1].narrow(d, first, last)
     else:
-        left = buf.new_zeros(buf.narrow(d, first, last).shape)
+        left = buf.new_full(buf.narrow(d, first, last).shape, fill)
     if ax.rank < ax.size - 1:
         right = parts[ax.rank + 1].narrow(d, 0, first)
     else:
-        right = buf.new_zeros(buf.narrow(d, 0, first).shape)
+        right = buf.new_full(buf.narrow(d, 0, first).shape, fill)
     if back is not None:
         left, right = left.permute(*back), right.permute(*back)
     return left, right
@@ -256,11 +307,14 @@ def _exchange(x: torch.Tensor, dim: int, ax: SpaceAxis, first: int, last: int):
 
 class _Halo(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, lo, hi, dim, ax):
+    def forward(ctx, x, lo, hi, dim, ax, fill):
         ctx.lo, ctx.hi, ctx.dim, ctx.ax = lo, hi, dim, ax
-        left, right = _exchange(x, dim, ax, hi, lo)
-        fmt = torch.channels_last_3d if x.dim() == 5 and x.is_contiguous(memory_format=torch.channels_last_3d) \
-            else torch.contiguous_format
+        left, right = _exchange(x, dim, ax, hi, lo, fill)
+        fmt = torch.contiguous_format
+        if x.dim() == 5 and x.is_contiguous(memory_format=torch.channels_last_3d):
+            fmt = torch.channels_last_3d
+        elif x.dim() == 4 and x.is_contiguous(memory_format=torch.channels_last):
+            fmt = torch.channels_last
         return torch.cat([left, x, right], dim=dim).contiguous(memory_format=fmt)
 
     @staticmethod
@@ -282,20 +336,22 @@ class _Halo(torch.autograd.Function):
             mid.narrow(dim, 0, hi).add_(parts[ax.rank - 1].narrow(dim, 0, hi))
         if lo and ax.rank < ax.size - 1:
             mid.narrow(dim, n - lo, lo).add_(parts[ax.rank + 1].narrow(dim, hi, lo))
-        return mid, None, None, None, None
+        return mid, None, None, None, None, None
 
 
-def halo_exchange(x: torch.Tensor, lo: int, hi: int, ax: SpaceAxis, dim: int = 2) -> torch.Tensor:
+def halo_exchange(x: torch.Tensor, lo: int, hi: int, ax: SpaceAxis, dim: int = 2,
+                  fill: float = 0.0) -> torch.Tensor:
     """``x`` with ``lo`` planes of the left neighbour before it and ``hi``
-    planes of the right neighbour after it on ``dim`` (zeros at the
-    volume's two ends). Backward: each halo's gradient is added into the
-    planes of the rank that owns them."""
+    planes of the right neighbour after it on ``dim`` (``fill`` at the
+    volume's two ends: zeros, a conv's padding; -inf, a max-pool's).
+    Backward: each halo's gradient is added into the planes of the rank
+    that owns them."""
     n = x.shape[dim]
     if lo > n or hi > n:
         raise ValueError(f"[space] halos ({lo}, {hi}) wider than a slab of {n} planes")
     if lo == 0 and hi == 0:
         return x
-    return _Halo.apply(x, lo, hi, dim, ax)
+    return _Halo.apply(x, lo, hi, dim, ax, float(fill))
 
 
 class _SumWithGrad(torch.autograd.Function):
@@ -429,6 +485,6 @@ def space_prefix(t: torch.Tensor, ax: Optional[SpaceAxis]):
     return prefix, total
 
 
-__all__ = ["SpaceAxis", "axis_of", "sharded", "ambient", "current", "splits", "level_axes", "require_support",
-           "unported", "tokens_split", "all_gather_cat", "gather_depth", "slice_depth", "relayout",
+__all__ = ["SpaceAxis", "axis_of", "sharded", "ambient", "current", "mesh_axes", "splits", "level_axes",
+           "row_halos", "rows_split", "row_axes", "tokens_split", "all_gather_cat", "gather_depth", "slice_depth", "relayout",
            "halo_exchange", "flip_depth", "flip", "roll_depth", "space_sum", "space_size", "space_prefix"]

@@ -22,8 +22,10 @@ columns, and its bias is added once after the sum; the MLP's ``Dense_0``
 takes a block of hidden features (rows and bias), ``Dense_1`` the matching
 columns. One ``all_reduce`` a forward for each, one a backward. Everything
 else (LayerNorms, embeddings, MoE blocks, the head, UNETR's conv decoder)
-stays whole on every rank, and its gradients are the same on every rank of
-a model group.
+stays whole on every rank. Each rank computes its own gradient of those,
+which kernels that sum in a free order round apart, so the step averages
+them over the model group (``Mesh.sum_flat`` with ``shard_axes``) and the
+ranks' whole params stay one value, as in the reference.
 
 The model is built whole from its seed on every rank and ``shard_model``
 cuts each rank's share, so the ranks together hold the weights one process
@@ -37,7 +39,7 @@ and the reverse. Each module that holds a share records it in ``shards``
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -155,6 +157,13 @@ def sharded_params(model: nn.Module) -> Dict[str, Tuple[int, ShardAxis]]:
     return out
 
 
+def shard_axes(model: nn.Module, names) -> List[Optional[str]]:
+    """The axis each param of ``names`` is cut over (``sharded_params``),
+    None for a whole one: ``Mesh.sum_flat``'s ``shards``."""
+    cut = sharded_params(model)
+    return [cut[n][1].name if n in cut else None for n in names]
+
+
 def gather_share(t: torch.Tensor, dim: int, axis: ShardAxis) -> torch.Tensor:
     """Every share of a tensor over ``axis`` concatenated along ``dim``."""
     t = t.detach().contiguous()
@@ -242,6 +251,7 @@ __all__ = [
     "narrow_param",
     "optimizer_state",
     "reduce_from",
+    "shard_axes",
     "shard_model",
     "sharded_params",
     "whole_state_dict",

@@ -144,14 +144,14 @@ class SarAdapter(TentAdapter):
             if self.md_enabled and not (inline and i == self.steps - 1):
                 x = apply_modality_dropout(x, d["drop"])
             loss, mon, logits = self._loss(x, w, denom, update=False)
-            g = self.mesh.sum_flat(torch.autograd.grad(loss, params))
+            g = self.sum_grads(torch.autograd.grad(loss, params))
             scale = self.rho / (torch.sqrt(torch.stack([(t * t).sum() for t in g]).sum()) + 1e-12)
             with torch.no_grad():
                 theta = [p.detach().clone() for p in params]
                 for p, t in zip(params, g):
                     p.add_(scale * t)
             loss_sam, _, _ = self._loss(x, w, denom, update=True)
-            g_sam = self.mesh.sum_flat(torch.autograd.grad(loss_sam, params))
+            g_sam = self.sum_grads(torch.autograd.grad(loss_sam, params))
             with torch.no_grad():
                 for p, t, gs in zip(params, theta, g_sam):
                     p.copy_(t)

@@ -112,6 +112,7 @@ from ..ops.losses import entropy_loss, entropy_sums, pseudo_label_loss, pseudo_l
 from ..parallel import space as sp
 from ..parallel.mesh import Mesh
 from ..parallel.space import space_sum
+from ..parallel.tensor import shard_axes
 from ..registry import register_tta_method
 from ..utils.config import get_config
 from ..utils.logger import get_logger
@@ -380,7 +381,6 @@ class TentAdapter:
         """Select and unfreeze the adapted params, freeze the rest, keep the
         adapted params' source values, and start the carried state afresh."""
         reject_torch_batchnorm(model)
-        sp.require_support(model, self.mesh)
         for p in model.parameters():
             if p.device != self.device:
                 raise ValueError(f"[{self.method}] model is on {p.device}, adapter on {self.device}")
@@ -394,6 +394,7 @@ class TentAdapter:
                 self._names.append(name)
                 self._trainable.append(p)
         self._source = [p.detach().clone() for p in self._trainable]
+        self._shards = shard_axes(model, self._names)  # Mesh.sum_flat's: the axis each is cut over
         self._bn = has_batch_statistics(model)
         self._source_stats = running_statistics(model)
         self._opt = self._build_opt()
@@ -498,12 +499,21 @@ class TentAdapter:
 
     def _sum_grads(self) -> None:
         """The adapted tensors' gradients summed over the ranks in one
-        ``all_reduce`` of a flat buffer. Every rank has gradients for the
-        same tensors (one graph), and a tensor without one stays without, as
-        in one process."""
-        params = [p for p in self._trainable if p.grad is not None]
-        for p, g in zip(params, self.mesh.sum_flat([p.grad for p in params])):
-            p.grad = g
+        ``all_reduce`` of a flat buffer (``sum_grads``). Every rank has
+        gradients for the same tensors (one graph), and a tensor without one
+        stays without, as in one process."""
+        held = [i for i, p in enumerate(self._trainable) if p.grad is not None]
+        grads = self.sum_grads([self._trainable[i].grad for i in held], held)
+        for i, g in zip(held, grads):
+            self._trainable[i].grad = g
+
+    def sum_grads(self, grads, held=None) -> List[torch.Tensor]:
+        """Gradients of the adapted tensors (of those at ``held``, all by
+        default) summed over the ranks, and averaged over a model or expert
+        group where the tensor is whole (``Mesh.sum_flat``): every rank of
+        the group then steps the same bits."""
+        held = range(len(self._trainable)) if held is None else held
+        return self.mesh.sum_flat(list(grads), [self._shards[i] for i in held])
 
     def _begin(self, state: nn.Module, image: torch.Tensor, n_valid):
         """Common head of a batch: the state check, the episodic reset, and
@@ -711,7 +721,7 @@ class TentAdapter:
             logits = self._run(image)
             per = entropy_loss(logits, sigmoid=self.sigmoid_mode, focus=self.entropy_focus, per_sample=True,
                                space=self.space)
-            grads = self.mesh.sum_flat(torch.autograd.grad((per * w).sum() / denom, self._trainable))
+            grads = self.sum_grads(torch.autograd.grad((per * w).sum() / denom, self._trainable))
         sq = [g * g for g in grads]
         self._fisher_sum = sq if self._fisher_sum is None else [a + b for a, b in zip(self._fisher_sum, sq)]
         self._fisher_n += 1

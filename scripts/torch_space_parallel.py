@@ -2,7 +2,7 @@
 """chip_smoke.py's phase 23 alone: the space axis over ranks on one CUDA card.
 
     python3 scripts/torch_space_parallel.py [--kernels] [--no-cli] [--witnesses] [--models] [--adapters]
-                                            [--transformers] [--axes]
+                                            [--transformers] [--axes] [--classifiers]
 
 Builds the CUDA kernels and holds the four split-depth norm entries
 (``stats``, ``apply``, ``bwd_sums``, ``bwd_apply``) against their plain
@@ -52,7 +52,12 @@ launches exactly and every kernel call against its plain version.
 ranks on the card, UNETR with the sequence axis over ``space=2 x model=2``
 at BraTS size, the flagship with 4 bottleneck experts over
 ``space=2 x expert=2``, ViT-B/16 pipelined over ``space=2 x stage=2``
-against its own sequential run. Each prints its seconds.
+against its own sequential run. ``--classifiers`` runs the phase's CNN
+classifiers alone (``chip_smoke.space_classifiers_phase``): ResNet-50 in
+Tent's setting (64 x 224 x 224, 1000 classes) through every adapter and
+DenseNet-121, EfficientNet-B0 and EfficientNet-V2-S at 16 (a forward, a
+Tent step), the two ranks over a split image height against one process,
+then ResNet-50's bf16 Tent step timed. Each prints its seconds.
 
 ``--witnesses`` (instead of the phase) reads how sensitive phase 23's
 mid-fusion step is to the order of its sums, in one process: the gradients
@@ -194,6 +199,7 @@ def main() -> int:
     ap.add_argument("--adapters", action="store_true", help="the phase's adapters, flip TTA and sliding window alone")
     ap.add_argument("--transformers", action="store_true", help="the phase's UNETR, SwinUNETR and sequence axis alone")
     ap.add_argument("--axes", action="store_true", help="phase 27b alone: space beside the model, expert, stage axes")
+    ap.add_argument("--classifiers", action="store_true", help="the phase's ResNet, DenseNet, EfficientNet alone")
     args = ap.parse_args()
 
     import torch
@@ -240,8 +246,14 @@ def main() -> int:
         shutil.rmtree(root, ignore_errors=True)
         print(json.dumps({"space_adapters": sa, "card": card}, default=str))
         return 0
-    if args.transformers or args.axes:
+    if args.transformers or args.axes or args.classifiers:
         out = {"card": card}
+        if args.classifiers:
+            t1 = time.perf_counter()
+            sc = chip_smoke.space_classifiers_phase(dev, os.path.join(REPO, "build", "space_classifiers"))
+            chip_smoke.log_space_classifiers(sc, card)
+            out["space_classifiers"] = dict(sc, s=time.perf_counter() - t1)
+            print(f"[space_classifiers] the job took {out['space_classifiers']['s']:.1f} s; card {card}", flush=True)
         if args.transformers:
             t1 = time.perf_counter()
             st = chip_smoke.space_transformers_phase(dev, os.path.join(REPO, "build", "space_transformers"))

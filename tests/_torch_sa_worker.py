@@ -30,6 +30,7 @@ from multimodal_tta_tpu_torch.parallel import space as sp
 from multimodal_tta_tpu_torch.parallel.distributed import maybe_initialize_distributed, spawn_ranks
 from multimodal_tta_tpu_torch.parallel.mesh import make_mesh
 from multimodal_tta_tpu_torch.registry import get_tta_method
+from multimodal_tta_tpu_torch.tta.engine import classifier_logits_apply
 
 
 def _local(mesh):
@@ -42,20 +43,33 @@ def _gather(mesh):
 
 def adapter_case(mesh, *, cfg: dict, name: str, model_kw: dict, state: dict, batches: Sequence[np.ndarray],
                  n_valid: Sequence[int], draws: Optional[List[dict]] = None, device_transform: Optional[dict] = None,
-                 threshold: float = 0.3) -> Dict[str, Any]:
-    """``tta.method``'s adapter over global host ``batches`` in strict mode
-    (``make_adapt_predict_fn``, post): each batch's entropies, gathered
+                 threshold: float = 0.3, classifier: bool = False, predict_mode: str = "post") -> Dict[str, Any]:
+    """``tta.method``'s adapter over global host ``batches``
+    (``make_adapt_predict_fn``, strict by default): each batch's entropies, gathered
     predictions and adapted state, SAR's recovery resets and entropy EMA,
     CoTTA's teacher; ``draws`` (one per batch, the global batch's) replace
-    the adapter's own."""
+    the adapter's own. A ``classifier`` adapts its logits
+    (``classifier_logits_apply``), whole on every space rank: its
+    predictions gather their rows only, and its states keep the adapted
+    tensors and the running statistics (a backbone's frozen kernels would
+    fill the ranks' memory over many cases)."""
     config = ConfigNode(cfg)
     model = spw.port_model(name, model_kw, state)
+    gather = _gather(mesh)
+    if classifier:
+        model = classifier_logits_apply(model)
+        gather = (lambda t: t) if mesh is None else (lambda t: mesh.gather_rows(t.contiguous()))
     adapter = get_tta_method(config.tta.method)(config.tta, config=config, device_transform=device_transform,
                                                 device="cpu", mesh=mesh)
     if draws is not None:
         queue = list(draws)
         adapter.batch_draws = lambda shape, n, post=False: queue.pop(0)
-    fn = adapter.make_adapt_predict_fn(model, threshold=threshold, predict_mode="post")
+    fn = adapter.make_adapt_predict_fn(model, threshold=threshold, predict_mode=predict_mode)
+    snapshot = lambda: spw.numpy_state(model)  # noqa: E731
+    if classifier:
+        kept = set(adapter._names)
+        snapshot = lambda: {k: v for k, v in spw.numpy_state(model).items()  # noqa: E731
+                            if k in kept or k.endswith((".mean", ".var"))}
     resets = []
     copy_source = adapter._copy_source
 
@@ -68,14 +82,14 @@ def adapter_case(mesh, *, cfg: dict, name: str, model_kw: dict, state: dict, bat
     for x, n in zip(batches, n_valid):
         resets.append(0)
         _, pred = fn(model, torch.from_numpy(_local(mesh)(x)), n)
-        out["preds"].append(_gather(mesh)(pred).numpy())
+        out["preds"].append(gather(pred).numpy())
         out["ents"].append(adapter._last_ents.numpy())
-        out["states"].append(spw.numpy_state(model))
+        out["states"].append(snapshot())
         if hasattr(adapter, "_em"):
             out["em"].append(float(adapter._em))
         if hasattr(adapter, "_teacher"):
             out["teacher"].append([t.numpy().copy() for t in adapter._teacher])
-    out.update(state=spw.numpy_state(model), resets=resets, names=list(adapter._names))
+    out.update(state=snapshot(), resets=resets, names=list(adapter._names))
     return out
 
 

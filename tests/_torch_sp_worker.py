@@ -42,7 +42,8 @@ def numpy_state(model: torch.nn.Module) -> Dict[str, np.ndarray]:
 
 
 def port_model(name: str, model_kw: dict, state: Dict[str, torch.Tensor]) -> torch.nn.Module:
-    model = get_model(name)(**model_kw, device="cpu")
+    factory = get_model(name)
+    model = getattr(factory, "family", factory)(**model_kw, device="cpu")  # a classifier's: its family
     model.load_state_dict(state, strict=True)
     return model
 
@@ -153,9 +154,11 @@ def collectives_case(mesh, *, x: np.ndarray, w_halo: np.ndarray, w_gather: np.nd
 
 
 def errors_case(mesh, *, cfg: dict, model_kw: dict, state: dict, shape: Tuple[int, ...]) -> Dict[str, str]:
-    """What the space axis refuses (ROADMAP.md, item 12b-v-d: the CNN
-    classifiers over a split image height), by message; None for what runs
-    (the transformers, the sequence axis, a space axis beside another)."""
+    """What the space axis refuses, by message; None for what runs: the CNN
+    classifiers over a split image height (ROADMAP.md's item 12b-v-d,
+    closed), the transformers, the sequence axis, a space axis beside
+    another. A classifier's forward runs on this rank's rows of a
+    ``[2, 64, 64, 3]`` batch."""
     from multimodal_tta_tpu_torch.tta.engine import classifier_logits_apply
 
     out = {}
@@ -168,19 +171,27 @@ def errors_case(mesh, *, cfg: dict, model_kw: dict, state: dict, shape: Tuple[in
             out[key] = f"{type(e).__name__}: {e}"
 
     tiny = dict(in_channels=2, num_classes=1, image_size=list(shape[:3]), device="cpu")
-    for name, kw in (("resnet18", {}), ("densenet121", {}), ("efficientnet_b0", {})):
-        model = get_model(name).from_config(ConfigNode({"num_classes": 3}), device="cpu", seed=None, **kw)
-        message(name, lambda: sp.require_support(classifier_logits_apply(model), mesh))
-    message("unetr", lambda: sp.require_support(get_model("unetr")(
-        patch_size=4, hidden_size=16, mlp_dim=32, num_heads=2, num_layers=2, feature_size=4, **tiny), mesh))
-    message("swin_unetr", lambda: sp.require_support(get_model("swin_unetr")(
-        feature_size=12, depths=(1, 1), num_heads=(1, 2), window_size=2, **tiny), mesh))
-    message("sequence", lambda: sp.require_support(get_model("unetr")(
+    image = torch.from_numpy(mesh.local(np.random.RandomState(0).randn(2, 64, 64, 3).astype(np.float32)))
+    for name, kw in (("resnet18", {}), ("densenet121", dict(growth_rate=4, block_config=(1, 1), init_features=8)),
+                     ("efficientnet_b0", {})):
+        model = classifier_logits_apply(get_model(name).from_config(ConfigNode({"num_classes": 3}), device="cpu",
+                                                                    seed=None, **kw))
+
+        def forward(model=model):
+            with torch.no_grad(), sp.sharded(mesh):
+                model(image)
+
+        message(name, forward)
+    message("unetr", lambda: get_model("unetr")(
+        patch_size=4, hidden_size=16, mlp_dim=32, num_heads=2, num_layers=2, feature_size=4, **tiny))
+    message("swin_unetr", lambda: get_model("swin_unetr")(
+        feature_size=12, depths=(1, 1), num_heads=(1, 2), window_size=2, **tiny))
+    message("sequence", lambda: get_model("unetr")(
         patch_size=4, hidden_size=16, mlp_dim=32, num_heads=2, num_layers=2, feature_size=4, seq_shard_axis="space",
-        **tiny), mesh))
-    message("vit", lambda: sp.require_support(get_model("vit_b_16").from_config(ConfigNode(
+        **tiny))
+    message("vit", lambda: get_model("vit_b_16").from_config(ConfigNode(
         {"num_classes": 3, "image_size": 32}), device="cpu", seed=None, patch=16, hidden=16, depth=1, heads=2,
-        mlp_dim=32, seq_shard_axis="space"), mesh))
+        mlp_dim=32, seq_shard_axis="space"))
     for axis in ("model", "expert", "stage"):  # over the same four ranks, every rank alike
         message(f"beside_{axis}", lambda: make_mesh([torch.device("cpu")], data=1, space=2, **{axis: 2}))
     message("thin_slab", lambda: sp.level_axes(sp.axis_of(mesh), 1, (2, 2)))

@@ -11,7 +11,8 @@ does). A model is built whole from the case's state and cut to this rank's
 share over a model or expert axis (``shard_model``, ``shard_experts``). A
 rank's batches are its rows and depth slab (a classifier's: its image rows)
 of the global host batches (``Mesh.local``), and a per-voxel result is
-gathered back (``Mesh.gather``). After the cases the ranks may run
+gathered back (``Mesh.gather``). A case may name several meshes: the ranks
+run it on each, the one process once. After the cases the ranks may run
 chip_smoke.py's four-rank ``space_axes`` job at fixture size.
 """
 
@@ -34,28 +35,27 @@ from multimodal_tta_tpu_torch.conf import ConfigNode
 from multimodal_tta_tpu_torch.core.optim import EpochScheduler, build_optimizer
 from multimodal_tta_tpu_torch.core.train_state import TrainState
 from multimodal_tta_tpu_torch.core.trainers.seg_trainer import SegTrainer
-from multimodal_tta_tpu_torch.models.layers import capture_intermediates, pool_over_ranks
+from multimodal_tta_tpu_torch.models.layers import BatchNorm, capture_intermediates, pool_over_ranks, running_statistics
 from multimodal_tta_tpu_torch.models.vit import SelfAttention
 from multimodal_tta_tpu_torch.parallel import space as sp
 from multimodal_tta_tpu_torch.parallel.distributed import maybe_initialize_distributed, spawn_ranks
 from multimodal_tta_tpu_torch.parallel.expert import shard_experts
 from multimodal_tta_tpu_torch.parallel.mesh import make_mesh
 from multimodal_tta_tpu_torch.parallel.tensor import shard_model, sharded_params, whole_tensors
-from multimodal_tta_tpu_torch.registry import get_model
+from multimodal_tta_tpu_torch.registry import get_tta_method
 from multimodal_tta_tpu_torch.tta.engine import classifier_logits_apply
 from multimodal_tta_tpu_torch.tta.tent import TentAdapter
 
 WORLD = 4
 MESHES = {"d2s2": dict(data=2, space=2), "s4": dict(data=1, space=4), "s2m2": dict(data=1, space=2, model=2),
-          "s2e2": dict(data=1, space=2, expert=2), "s2t2": dict(data=1, space=2, stage=2)}
+          "s2e2": dict(data=1, space=2, expert=2), "s2t2": dict(data=1, space=2, stage=2),
+          "d2m2": dict(data=2, model=2), "d2e2": dict(data=2, expert=2)}
 
 
 def build(name: str, model_kw: dict, state: dict, mesh) -> torch.nn.Module:
     """The model whole from ``state``, cut to this rank's share over the
     mesh's model and expert axes."""
-    factory = get_model(name)
-    model = getattr(factory, "family", factory)(**model_kw, device="cpu")  # a classifier's: its family
-    model.load_state_dict(state, strict=True)
+    model = spw.port_model(name, model_kw, state)
     if mesh is not None:
         shard_model(model, mesh)
         shard_experts(model, mesh)
@@ -228,11 +228,120 @@ def attention_case(mesh, *, hidden: int, heads: int, state: dict, x: np.ndarray,
             "grads": {n: g.numpy().copy() for (n, _), g in zip(attn.named_parameters(), grads)}}
 
 
+def classifier_case(mesh, *, name: str, model_kw: dict, state: dict, x: np.ndarray, w: np.ndarray) -> Dict[str, Any]:
+    """A classifier's training-mode forward (batch statistics pooled over
+    the ranks) of the global images ``x``: its features and logits (whole on
+    every space rank, the rows gathered), the gradients of ``sum(logits *
+    w)`` (``1 / space`` of it on each space rank) summed over the ranks,
+    the running statistics after it, and the rows that each BatchNorm call
+    saw (``(module, rows)`` in call order: a slab's on a split level, the
+    whole height on a gathered one). The gradients, flat in ``grad_names``'
+    order, come back from the first rank alone."""
+    model = build(name, model_kw, state, mesh)
+    model.train()
+    pool_over_ranks(model, mesh)
+    rows = []
+    hooks = [m.register_forward_pre_hook(lambda mod, args, n=n: rows.append((n, int(args[0].shape[2]))))
+             for n, m in model.named_modules() if isinstance(m, BatchNorm)]
+    try:
+        with sp.sharded(mesh):
+            feats, logits = model(torch.from_numpy(_local(mesh, x)))
+    finally:
+        for h in hooks:
+            h.remove()
+    share = 1.0 if mesh is None else float(mesh.space)
+    ((logits * torch.from_numpy(w if mesh is None else w[mesh.rows(w.shape[0])])).sum() / share).backward()
+    params = [(n, p) for n, p in model.named_parameters() if p.grad is not None]
+    grads = [p.grad for _, p in params] if mesh is None else mesh.sum_flat([p.grad for _, p in params])
+    gather = (lambda t: t) if mesh is None else (lambda t: mesh.gather_rows(t.contiguous()))
+    stats = {k: v.numpy().copy() for k, v in running_statistics(model).items()}
+    lead = mesh is None or mesh.rank == 0  # the summed gradients are every rank's: one copy comes back
+    return {"out": [gather(t.detach()).numpy() for t in (feats, logits)], "stats": stats, "bn_rows": rows,
+            "grad_names": [n for n, _ in params],
+            "grads": torch.cat([g.reshape(-1).float() for g in grads]).numpy() if lead else None}
+
+
+def classifier_norm_case(mesh, *, cfg: dict, name: str, model_kw: dict, state: dict, batches: Sequence[np.ndarray],
+                         n_valid: Sequence[int]) -> Dict[str, Any]:
+    """The ``norm`` adapter on a classifier's logits over global host
+    ``batches``: the running statistics after each batch, and the adapted
+    model's inference-mode logits of the last batch (rows gathered); the
+    affines stay, as ``classifier_case``'s logits show."""
+    config = ConfigNode(cfg)
+    model = classifier_logits_apply(build(name, model_kw, state, mesh))
+    adapter = get_tta_method("norm")(config.tta, config=config, device="cpu", mesh=mesh)
+    fn = adapter.make_adapt_fn(model)
+    out: Dict[str, Any] = {"states": []}
+    for x, n in zip(batches, n_valid):
+        fn(model, torch.from_numpy(_local(mesh, x)), n)
+        out["states"].append({k: v.numpy().copy() for k, v in running_statistics(model).items()})
+    gather = (lambda t: t) if mesh is None else (lambda t: mesh.gather_rows(t.contiguous()))
+    with torch.no_grad(), sp.sharded(mesh):
+        out["logits"] = gather(model(torch.from_numpy(_local(mesh, batches[-1])))).numpy()
+    return out
+
+
+def ulp_case(mesh, *, kind: str, cfg: dict, name: str, model_kw: dict, state: dict, batches: Sequence,
+             device_transform: Optional[dict] = None) -> Dict[str, Any]:
+    """A step over a model or expert group (``kind``: "train", a
+    ``SegTrainer`` step on each batch; "tent", continual Tent) in which the
+    group's second rank of data rank 0 moves every whole gradient (and the
+    loss) by one ulp before the reduction: the whole gradients before and
+    after the first reduction, and the whole params after each step."""
+    axis = "model" if mesh.model > 1 else "expert"
+    bumped = mesh.data_rank == 0 and getattr(mesh, f"{axis}_rank") == 1
+    seen: Dict[str, list] = {}
+    reduce = mesh.sum_flat
+
+    def perturbed(tensors, shards=None):
+        tensors = list(tensors)
+        whole = [i for i in range(len(tensors)) if shards is None or shards[i] is None]
+        if bumped:
+            for i in whole:
+                tensors[i] = torch.nextafter(tensors[i], torch.full_like(tensors[i], float("inf")))
+        out = reduce(tensors, shards)
+        if not seen:
+            seen["pre"] = [tensors[i].detach().numpy().copy() for i in whole]
+            seen["post"] = [out[i].detach().numpy().copy() for i in whole]
+        return out
+
+    config = ConfigNode(cfg)
+    params = []
+    mesh.sum_flat = perturbed
+    try:
+        if kind == "train":
+            trainer = _trainer(mesh, cfg, name, model_kw, state, device_transform)
+            model = trainer.state.model
+            for batch in batches:
+                trainer.run_step(batch)
+                params.append(whole_only(model))
+        else:
+            model = build(name, model_kw, state, mesh)
+            adapter = TentAdapter(config.tta, config=config, device_transform=device_transform, device="cpu",
+                                  mesh=mesh)
+            fn = adapter.make_adapt_fn(model)
+            for x in batches:
+                fn(model, torch.from_numpy(_local(mesh, x)), x.shape[0])
+                params.append(whole_only(model))
+    finally:
+        del mesh.sum_flat
+    return dict(seen, params=params, bumped=bumped)
+
+
+def whole_only(model: torch.nn.Module) -> Dict[str, np.ndarray]:
+    """The params that no model or expert axis cuts (``sharded_params``)."""
+    cut = sharded_params(model)
+    return {n: p.detach().numpy().copy() for n, p in model.named_parameters() if n not in cut}
+
+
 CASES = {"forward": forward_case, "train": train_case, "route": route_case, "classifier_tent": classifier_tent_case,
          "attention": attention_case, "tent": spw.tent_case, "evaluate": spw.evaluate_case,
          "adapter": saw.adapter_case, "probs": saw.probs_case, "pipeline_vit": ppw.vit_case,
-         "moe_layer": smw.moe_case}
-MESH_ONLY = ("pipeline_vit",)  # its one-process reference runs in the test process
+         "moe_layer": smw.moe_case, "classifier": classifier_case, "classifier_norm": classifier_norm_case,
+         "ulp": ulp_case}
+# no one-process run: the pipeline's reference runs in the test process, the
+# ulp pins hold ranks to ranks
+MESH_ONLY = ("pipeline_vit", "ulp")
 
 
 def _rank_main(rank: int, procs: int, directory: str, axes_jobs: list) -> None:
@@ -251,8 +360,12 @@ def _rank_main(rank: int, procs: int, directory: str, axes_jobs: list) -> None:
     for name, on, payload in cases:
         if meshes is None and name in MESH_ONLY:
             results.append(None)
-            continue
-        results.append(CASES[name](None if meshes is None else meshes[on], **payload))
+        elif meshes is None:
+            results.append(CASES[name](None, **payload))
+        elif isinstance(on, str):
+            results.append(CASES[name](meshes[on], **payload))
+        else:  # one result a mesh
+            results.append({m: CASES[name](meshes[m], **payload) for m in on})
     torch.save(results, os.path.join(directory, f"rank{rank}.pt"))
     if meshes is not None:
         if axes_jobs:  # chip_smoke.py's four-rank jobs at fixture size, in the same ranks

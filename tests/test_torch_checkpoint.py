@@ -223,8 +223,8 @@ def test_manager_defaults_to_cuda_and_raises_what_is_not_ported(tmp_path):
         m = ExperimentManager(ConfigNode(dict(cfg, **patch)), device="cpu")
         m.setup_model()
         m.setup_optimizer()
-        if "checkpoint_format" in patch["training"]:  # orbax stays unported (item 12b)
-            with pytest.raises(NotImplementedError, match="ROADMAP.md, item 12b"):
+        if "checkpoint_format" in patch["training"]:  # orbax stays unported (item 13)
+            with pytest.raises(NotImplementedError, match="ROADMAP.md, item 13"):
                 m.setup_trainer()
             continue
         # training.profile and training.debug_nans raised before the
@@ -250,7 +250,8 @@ def test_manager_defaults_to_cuda_and_raises_what_is_not_ported(tmp_path):
 def test_foreign_and_missing_checkpoints(tmp_path):
     state = trained_state(ADAM, steps=1).state
     (tmp_path / "old.msgpack").write_bytes(b"\x80")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match=r"msgpack format, which the port does not read yet \(ROADMAP.md, "
+                                                  r"item 13\)"):
         load_checkpoint(str(tmp_path / "old"), state)
     with pytest.raises(FileNotFoundError):
         load_checkpoint(str(tmp_path / "absent"), state)

@@ -119,7 +119,7 @@ def test_load_params_only(tmp_path):
     with pytest.raises(ValueError, match="carries no ema_params"):
         load_params_only(str(tmp_path / "plain"), other, use_ema=True)
     (tmp_path / "old.msgpack").write_bytes(b"\x80")
-    with pytest.raises(NotImplementedError, match="item 12b"):
+    with pytest.raises(NotImplementedError, match="item 13"):
         load_params_only(str(tmp_path / "old"), other)
     with pytest.raises(FileNotFoundError):
         load_params_only(str(tmp_path / "absent"), other)

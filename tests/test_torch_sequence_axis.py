@@ -340,3 +340,48 @@ def test_key_value_gather_matches_jax_grad(runs):
         for k, v in gp.items():
             np.testing.assert_allclose(r["grads"][k], v, rtol=1e-4, atol=1e-5, err_msg=k)
             np.testing.assert_allclose(r["grads"][k], one["grads"][k], rtol=1e-5, atol=1e-6, err_msg=k)
+
+
+@pytest.mark.parametrize("model", ["vit", "unetr"])
+def test_an_inert_sequence_axis_warns_once(model, caplog):
+    """With ``seq_shard_axis="space"`` and no ambient mesh (one process,
+    outside every ``space.sharded`` block), ``sequence_axis`` logs the
+    reference's warning (``multimodal_tta_tpu/models/vit.py:_maybe_shard_seq``)
+    once per axis name: one record over two forwards of the ViT classifier
+    or of UNETR, none inside a block whose mesh carries the axis."""
+    import torch
+
+    from multimodal_tta_tpu_torch.models import vit as tvit
+    from multimodal_tta_tpu_torch.models.unetr import UNETR
+    from multimodal_tta_tpu_torch.utils.logger import get_logger
+
+    if model == "vit":
+        m = tvit.ViT(**dict(VIT, image_size=48, seq_shard_axis="space"), device="cpu", seed=0)
+        x = torch.from_numpy(VIT48_X)
+    else:
+        m = UNETR(**dict(TINY, seq_shard_axis="space"), image_size=(16, 16, 16), device="cpu", seed=0)
+        x = torch.from_numpy(UNETR_X)
+    logger = get_logger()
+    logger.addHandler(caplog.handler)
+    held = set(tvit._seq_shard_warned)
+    tvit._seq_shard_warned.clear()
+    try:
+        with torch.no_grad():
+            m(x)
+            m(x)
+        warned = [r for r in caplog.records if r.levelname == "WARNING"]
+        assert [r.getMessage() for r in warned] == [
+            "[vit] seq_shard_axis='space' is set but no ambient mesh carries that axis — sequence parallelism "
+            "disabled for this trace (run under `with mesh:` / jax.set_mesh)"]
+
+        class _Mesh:  # a one-rank mesh: the reference's always carries data and space
+            space, shape = 1, {"data": 1, "space": 1}
+
+        tvit._seq_shard_warned.clear()
+        with torch.no_grad(), sp.sharded(_Mesh()):
+            m(x)
+        assert len([r for r in caplog.records if r.levelname == "WARNING"]) == 1
+    finally:
+        logger.removeHandler(caplog.handler)
+        tvit._seq_shard_warned.clear()
+        tvit._seq_shard_warned.update(held)

@@ -409,23 +409,21 @@ def test_stream_over_the_space_axis(runs):
 
 
 def test_what_the_space_axis_refuses(runs):
-    """What the space axis still refuses names ROADMAP.md's item 12b-v-d:
-    the CNN classifiers (ResNet, DenseNet, EfficientNet) over a split image
-    height; a slab thinner than 2 planes is a ValueError. UNETR, SwinUNETR,
-    the sequence axis, the ViT classifier and a space axis beside a model,
-    expert or stage axis run (``tests/test_torch_space_transformers.py``,
+    """The space axis refuses a slab thinner than 2 planes (a ValueError);
+    everything else runs: the CNN classifiers (ResNet, DenseNet,
+    EfficientNet) over a split image height since ROADMAP.md's item 12b-v-d
+    (``tests/test_torch_space_classifiers.py``), UNETR, SwinUNETR, the
+    sequence axis, the ViT classifier and a space axis beside a model,
+    expert or stage axis (``tests/test_torch_space_transformers.py``,
     ``test_torch_sequence_axis.py``, ``test_torch_space_axes.py``), as do
     every conv segmenter, norm and training option
     (``tests/test_torch_space_models.py``) and every adapter, Tent's windows,
     the sliding window, flip TTA and the export
     (``tests/test_torch_space_adapters.py``)."""
     out = runs["errors"][1][0]
-    refused = {"resnet18": "ResNet", "densenet121": "DenseNet", "efficientnet_b0": "EfficientNet"}
-    runs_now = ("unetr", "swin_unetr", "sequence", "vit", "beside_model", "beside_expert", "beside_stage")
-    assert set(out) == set(refused) | set(runs_now) | {"thin_slab"}
-    for key, what in refused.items():
-        assert out[key] is not None and out[key].startswith("NotImplementedError"), (key, out[key])
-        assert what in out[key] and "item 12b-v-d" in out[key], (key, out[key])
+    runs_now = ("resnet18", "densenet121", "efficientnet_b0", "unetr", "swin_unetr", "sequence", "vit",
+                "beside_model", "beside_expert", "beside_stage")
+    assert set(out) == set(runs_now) | {"thin_slab"}
     assert all(out[key] is None for key in runs_now), out
     assert "ValueError" in out["thin_slab"] and "at least 2 planes" in out["thin_slab"]
 

@@ -398,7 +398,8 @@ def test_chip_smoke_model_axis_phase_at_fixture_size(tmp_path):
     4 layers, on [32,32,32]): four spawned gloo ranks on ``data=2 x
     model=2`` against one process within the phase's limits; each rank holds
     half the projections and all-reduces over the model group twice a block
-    forward and twice backward."""
+    forward and twice backward, and once a step the whole params' gradients
+    (their average: the ranks' params stay bit for bit equal)."""
     import chip_smoke
 
     out = chip_smoke.model_axis_phase("cpu", str(tmp_path / "tp"), shape=(32, 32, 32), threads=1,
@@ -410,5 +411,7 @@ def test_chip_smoke_model_axis_phase_at_fixture_size(tmp_path):
     assert out["launches"] == {"forward": 0, "backward": 0}
     for r in out["ranks"]:
         assert r["sharded"] == 4 * 10
-        # [2 rows, 8 tokens, 64] f32 per call: 4 blocks x (2 forward + 2 backward)
-        assert r["step_reduced"]["model"] == 4 * 4 * 2 * 8 * 64 * 4
+        # [2 rows, 8 tokens, 64] f32 per call: 4 blocks x (2 forward + 2 backward),
+        # then the step's average of the whole params' gradients and the loss
+        assert r["whole_grad_bytes"] > 4
+        assert r["step_reduced"]["model"] == 4 * 4 * 2 * 8 * 64 * 4 + r["whole_grad_bytes"]
