@@ -456,6 +456,32 @@ CLI_CENTERS = {"CHUS": 4, "CHUM": 26, "CHGJ": 26}
 CLI_STEPS_PER_EPOCH = 6
 
 
+def saved_state_dict(path: str) -> dict:
+    """The params and buffers of the msgpack checkpoint at the
+    extension-less ``path`` (the reference's format), as a state dict."""
+    from multimodal_tta_tpu_torch.core import flax_msgpack
+    from multimodal_tta_tpu_torch.models.convert import variables_from_flax
+
+    raw = flax_msgpack.load(path + ".msgpack")
+    return variables_from_flax({"params": raw["params"], "batch_stats": raw["batch_stats"]})
+
+
+def rewrite_check(state, ckpt: str, path: str) -> dict:
+    """``state``, restored from the msgpack checkpoint ``ckpt`` by the
+    caller, written again to ``path``: whether the two files are the same
+    bytes (read then write is the identity), the bytes and the seconds."""
+    from multimodal_tta_tpu_torch.core.checkpoint import save_checkpoint
+
+    t = time.perf_counter()
+    save_checkpoint(path, state)
+    save_s = time.perf_counter() - t
+    with open(ckpt + ".msgpack", "rb") as f:
+        a = f.read()
+    with open(path + ".msgpack", "rb") as f:
+        b = f.read()
+    return {"bytes": len(a), "identical": a == b, "save_s": save_s}
+
+
 def hecktor_volumes(n: int, seed: int, shape=SHAPE[:3]) -> list:
     """CT/PET-like volumes [*shape, 2] with an ellipsoid lesion each (its
     centre and radii scale with ``shape``)."""
@@ -599,8 +625,8 @@ def cli_phase(device, root: str, *, shape=CLI_SHAPE, centers=CLI_CENTERS, extra=
     loader and again with ``training.device_cache=true``, adapt with Tent from
     the best checkpoint (``cli.adapt``), export masks (``cli.predict``).
 
-    Checks what holds on any device: the run directories, logs and ``.pt``
-    checkpoints; finite losses; the device cache's batches bitwise the host
+    Checks what holds on any device: the run directories, logs and
+    ``.msgpack`` checkpoints (the stock configs' format); finite losses; the device cache's batches bitwise the host
     loader's (order and f16 / uint8 values); the ``tta_metrics.json`` schema
     and ranges; the model restored after adapt and predict; every case
     exported with its source's grid and mask == prob >= threshold; every
@@ -729,7 +755,7 @@ def cli_phase(device, root: str, *, shape=CLI_SHAPE, centers=CLI_CENTERS, extra=
             m, rec = managers[-1], recorders[-1]
             written = sorted(os.listdir(os.path.join(run_dir, "checkpoints")))
             want = sorted(f"{n}.{e}" for n in ("best_model", "checkpoint_epoch_0", "checkpoint_epoch_1")
-                          for e in ("json", "pt"))
+                          for e in ("json", "msgpack"))
             if written != want or not os.path.isfile(os.path.join(run_dir, "train.log")):
                 raise AssertionError(f"{name}: checkpoints {written}, run dir {sorted(os.listdir(run_dir))}")
             losses = [float(v) for v in rec.losses]
@@ -772,7 +798,7 @@ def cli_phase(device, root: str, *, shape=CLI_SHAPE, centers=CLI_CENTERS, extra=
         out.update(runs)
         best = os.path.join(root, "runs", "train", "checkpoints", "best_model")
         out.update(manifest=manifest, best=best)
-        source = torch.load(best + ".pt", map_location="cpu", weights_only=True)["model"]
+        source = saved_state_dict(best)
 
         def restored(m) -> bool:
             return all(torch.equal(v.cpu(), source[k]) for k, v in m.state.model.state_dict().items())
@@ -1481,7 +1507,7 @@ def brats_cli(device, root: str, *, shape=BRATS_CLI_SHAPE, sources=None, extra=(
                         "losses": losses, "val": [{k: v for k, v in ev.items() if "/" not in k}
                                                   for ev in history["eval_history"]]}
         best = os.path.join(run_dir, "checkpoints", "best_model")
-        if not os.path.isfile(best + ".pt") or not all(np.isfinite(losses)) or not _counted(counts, want):
+        if not os.path.isfile(best + ".msgpack") or not all(np.isfinite(losses)) or not _counted(counts, want):
             raise AssertionError(f"brats cli.train: {out['train']}, checkpoints "
                                  f"{sorted(os.listdir(os.path.dirname(best)))}")
 
@@ -1910,7 +1936,7 @@ def transformer_cli(device, name: str, manifest: str, root: str, *, extra=(), re
                         "losses": losses, "model": type(mt.model).__name__,
                         "val": [{k: v for k, v in ev.items() if "/" not in k} for ev in history["eval_history"]]}
         best = os.path.join(run_dir, "checkpoints", "best_model")
-        if not os.path.isfile(best + ".pt") or not all(np.isfinite(losses)) or not _counted(counts, want):
+        if not os.path.isfile(best + ".msgpack") or not all(np.isfinite(losses)) or not _counted(counts, want):
             raise AssertionError(f"{name} cli.train: {out['train']}")
 
         results, run_dir, wall, counts = run(adapt, "adapt", "tta=tent", "tta.steps=1", "tta.report_no_adapt=true",
@@ -2264,7 +2290,7 @@ def batchnorm_cli(device, manifest: str, root: str, *, extra=(), reset_counts=la
         want = {"forward": 0, "backward": 0, "minplus": val}
         losses = [h["loss"] for h in history["train_history"]]
         best = os.path.join(run_dir, "checkpoints", "best_model")
-        saved = torch.load(best + ".pt", map_location="cpu", weights_only=True)["model"]
+        saved = saved_state_dict(best)
         buffers = sorted(k for k in saved if k.rpartition(".")[2] in ("mean", "var"))
         out["train"] = {"wall_s": wall, "launches": counts, "want": want, "steps": steps, "val_batches": val,
                         "losses": losses, "checkpoint_buffers": len(buffers),
@@ -2986,7 +3012,7 @@ def training_options_phase(device, root: str, teacher: str, *, shape=SHAPE[:3], 
     spec = get_seg_transforms(ndim=3, split="train", normalize=True, geom_aug=False, intensity_aug=False,
                               image_size=list(shape), intensity_policy=HECKTOR_POLICY,
                               channel_names=["ct", "pt"], on_device=True).device_spec()
-    teacher_sd = torch.load(teacher + ".pt", map_location="cpu", weights_only=True)["model"]
+    teacher_sd = saved_state_dict(teacher)
 
     class StepRecorder(HookBase):
         def __init__(self):
@@ -4393,7 +4419,7 @@ def dp_torchrun_cli(manifest: str, root: str, timeout: float = 600.0, two_ranks:
         r = {"wall_s": wall, "ranks": ranks, "backend": backend}
         if call == "train":
             r["checkpoints"] = sorted(os.listdir(os.path.join(run_dir, "checkpoints")))
-            if "best_model.pt" not in r["checkpoints"]:
+            if "best_model.msgpack" not in r["checkpoints"]:
                 raise AssertionError(f"torchrun cli.train wrote {r['checkpoints']}")
         else:
             metrics = json.load(open(os.path.join(run_dir, "tta_metrics.json"), encoding="utf-8"))
@@ -4502,8 +4528,30 @@ def data_parallel_finish(prep: dict) -> dict:
             or max(r["optimizer_state_bytes"] for r in ranks) >= one["optimizer_state_bytes"]:
         raise AssertionError(f"phase 22 zero1: state bytes {[r['optimizer_state_bytes'] for r in ranks]} vs "
                              f"{one['optimizer_state_bytes']} in one process")
-    if not all("best_model.pt" in r["checkpoints"] for r in ranks[:1]):
+    if not all("best_model.msgpack" in r["checkpoints"] for r in ranks[:1]):
         raise AssertionError(f"phase 22: rank 0 wrote {ranks[0]['checkpoints']}")
+    # rank 0's zero1 checkpoint (the moments consolidated over both ranks)
+    # in one process, written again: the same bytes
+    from multimodal_tta_tpu_torch.conf import ConfigNode
+    from multimodal_tta_tpu_torch.core.checkpoint import load_checkpoint
+    from multimodal_tta_tpu_torch.core.experiment_manager import ExperimentManager
+    from multimodal_tta_tpu_torch.parallel.mesh import Mesh
+
+    cfg = dp_config(os.path.join(root, "rewrite"), "float32", 1)
+    cfg["model"]["channels"] = list(spec["channels"])
+    dev = torch.device(device)
+    m = ExperimentManager(ConfigNode(cfg), device=dev, mesh=Mesh(dev))
+    m.setup_model()
+    m.setup_optimizer()
+    ckpt = os.path.join(spec["ranks_root"], "rank0_f32", "checkpoints", "best_model")
+    t1 = time.perf_counter()
+    m.state, _ = load_checkpoint(ckpt, m.state)
+    out["zero1_rewrite"] = dict(rewrite_check(m.state, ckpt, os.path.join(root, "rewrite", "best_model")),
+                                load_s=time.perf_counter() - t1)
+    if not out["zero1_rewrite"]["identical"]:
+        raise AssertionError(f"phase 22: rank 0's zero1 checkpoint read and written again differs: "
+                             f"{out['zero1_rewrite']}")
+    del m
     out["phase_s"] = time.perf_counter() - t0
     shutil.rmtree(root, ignore_errors=True)
     return out
@@ -4556,6 +4604,10 @@ def log_data_parallel(dp: dict, card: str) -> None:
             f"{one['part_s']}); card {card}")
     if "torchrun" in dp:
         log(f"[data_parallel] torchrun --nproc_per_node=1: {dp['torchrun']}; card {card}")
+    zr = dp["zero1_rewrite"]
+    log(f"[data_parallel] rank 0's zero1 checkpoint (best_model.msgpack, {zr['bytes']} bytes) restored in one "
+        f"process in {zr['load_s']:.3f} s and written again in {zr['save_s']:.3f} s: identical bytes "
+        f"{zr['identical']}; card {card}")
     log(f"[data_parallel] phase 22 took {dp['phase_s']:.1f} s; launches over both ranks {dp['launches']}; "
         f"backend {dp['backend']}; card {card}")
 
@@ -5703,7 +5755,7 @@ def sp_torchrun_cli(manifest: str, root: str, timeout: float = 600.0) -> dict:
         r = {"wall_s": wall}
         if call == "train":
             r["checkpoints"] = sorted(os.listdir(os.path.join(run_dir, "checkpoints")))
-            if "best_model.pt" not in r["checkpoints"]:
+            if "best_model.msgpack" not in r["checkpoints"]:
                 raise AssertionError(f"torchrun cli.train wrote {r['checkpoints']}")
         elif call == "adapt":
             metrics = json.load(open(os.path.join(run_dir, "tta_metrics.json"), encoding="utf-8"))
@@ -9930,6 +9982,7 @@ def main() -> int:
     # ---- 11. training: the flagship through ExperimentManager --------------
     import shutil
 
+    from multimodal_tta_tpu_torch.core.checkpoint import load_checkpoint, save_checkpoint
     from multimodal_tta_tpu_torch.core.experiment_manager import ExperimentManager
     from multimodal_tta_tpu_torch.core.optim import build_optimizer
     from multimodal_tta_tpu_torch.core.train_state import TrainState
@@ -10090,11 +10143,11 @@ def main() -> int:
     ckpt_dir = os.path.join(run_root, "a", "checkpoints")
     written = sorted(os.listdir(ckpt_dir))
     want_files = sorted(f"{n}.{e}" for n in ("best_model", "checkpoint_epoch_0", "checkpoint_epoch_1")
-                        for e in ("json", "pt"))
+                        for e in ("json", "msgpack"))
     with open(os.path.join(ckpt_dir, "best_model.json")) as f:
         sidecar = json.load(f)
     log(f"[train] checkpoints written: {written}; best_model.json {sidecar}")
-    if written != want_files or sidecar.get("_format") != "torch" or "best_metrics" not in sidecar:
+    if written != want_files or sidecar.get("_format") != "msgpack" or "best_metrics" not in sidecar:
         raise AssertionError(f"checkpoint files {written}, sidecar {sidecar}")
 
     # a second manager resumes from best_model through training.resume, then
@@ -10102,6 +10155,13 @@ def main() -> int:
     run_b = make_manager(os.path.join(run_root, "b"), resume=os.path.join(ckpt_dir, "best_model"))
     got = restored(run_b.trainer, snaps["best_model"])
     resume_epoch = run_b.trainer.start_epoch
+    # the restored state written again: the same bytes as the file it came from
+    rewrite = rewrite_check(run_b.trainer.state, os.path.join(ckpt_dir, "best_model"),
+                            os.path.join(run_root, "b", "rewritten"))
+    log(f"[train] best_model.msgpack read by a fresh manager and written again: identical bytes "
+        f"{rewrite['identical']} ({rewrite['bytes']} bytes)")
+    if not rewrite["identical"]:
+        raise AssertionError("best_model.msgpack read and written again differs")
     start_1 = run_b.checkpoint_hook.load(os.path.join(ckpt_dir, "checkpoint_epoch_1"))
     got_1 = restored(run_b.trainer, snaps["checkpoint_epoch_1"])
     live = {k: v for k, v in restored(run_a.trainer, snaps["checkpoint_epoch_1"]).items()
@@ -10113,6 +10173,32 @@ def main() -> int:
         raise AssertionError("best_model did not restore bitwise or resumes at the wrong epoch")
     if not all(got_1.values()) or start_1 != 2 or not all(live.values()):
         raise AssertionError("checkpoint_epoch_1 did not restore bitwise")
+
+    # the flagship's Adam checkpoint in both formats: save and load timed
+    # (the file cache warm), each load restoring checkpoint_epoch_1 bitwise
+    ckpt_io = {}
+    for fmt, ext in (("msgpack", ".msgpack"), ("torch", ".pt")):
+        path = os.path.join(run_root, "io", "flagship")
+        sync()
+        t1 = time.perf_counter()
+        save_checkpoint(path, run_b.trainer.state, fmt=fmt)
+        sync()
+        save_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        run_b.trainer.state, _ = load_checkpoint(path, run_b.trainer.state)
+        sync()
+        load_s = time.perf_counter() - t1
+        size = os.path.getsize(path + ext)
+        ckpt_io[fmt] = {"bytes": size, "save_s": save_s, "load_s": load_s, "save_MBps": size / save_s / 1e6,
+                        "load_MBps": size / load_s / 1e6,
+                        "restored": all(restored(run_b.trainer, snaps["checkpoint_epoch_1"]).values())}
+        os.remove(path + ext)
+    log(f"[train] checkpoint I/O, the flagship's Adam state (params, mu, nu; the file cache warm): "
+        + "; ".join(f"{fmt} {r['bytes']} bytes, save {r['save_s']:.3f} s ({r['save_MBps']:.0f} MB/s), load "
+                    f"{r['load_s']:.3f} s ({r['load_MBps']:.0f} MB/s), restored bitwise {r['restored']}"
+                    for fmt, r in ckpt_io.items()) + f"; card {smi}")
+    if not all(r["restored"] for r in ckpt_io.values()):
+        raise AssertionError(f"a timed checkpoint did not restore bitwise: {ckpt_io}")
 
     # one more step on the same batch, without and after the restart, in
     # strict mode (deterministic cuDNN algorithms, use_deterministic_algorithms)
@@ -10220,7 +10306,7 @@ def main() -> int:
     teacher_root = os.path.join(REPO, "build", "chip_smoke_teacher")
     shutil.rmtree(teacher_root, ignore_errors=True)
     os.makedirs(teacher_root)
-    for ext in (".pt", ".json"):
+    for ext in (".msgpack", ".json"):
         shutil.copy(os.path.join(ckpt_dir, "best_model" + ext), os.path.join(teacher_root, "flagship" + ext))
     shutil.rmtree(run_root, ignore_errors=True)
 

@@ -4,7 +4,8 @@
         tta=tent tta.steps=2 training.resume=outputs/.../checkpoints/best_model \
         dataset.target_center=CHUS
 
-Loads a (trained) checkpoint, streams the test split, runs the configured
+Loads a (trained) checkpoint (``training.resume``: a ``.msgpack`` of the
+JAX package or the port, or a ``.pt``), streams the test split, runs the configured
 TTA method per batch (episodic or continual) through ``TTAEngine.evaluate``,
 and writes the seg_eval metric dict overall and per domain to
 ``<run_dir>/tta_metrics.json`` — with and without adaptation when

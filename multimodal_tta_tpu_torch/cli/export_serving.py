@@ -1,6 +1,7 @@
 """Serving-artifact export entry point (the port of ``scripts/export_serving.py``).
 
-Loads a trained checkpoint and writes the serving step as one artifact
+Loads a trained checkpoint (a ``.msgpack`` of the JAX package or the
+port, or a ``.pt``) and writes the serving step as one artifact
 file (``serving/export.py``): the deployment bundle for a runtime with no
 model code, config composer or checkpoint loader
 (``cli/serve_artifact.py``).

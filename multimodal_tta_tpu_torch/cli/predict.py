@@ -6,7 +6,8 @@ and write NIfTI masks.
         dataset.target_center=CHUS tta=tent tta.steps=4 tta.lr=0.05 \
         predict.save_prob=true
 
-Loads a checkpoint, streams a split, optionally TTA-adapts per batch, and
+Loads a checkpoint (a ``.msgpack`` of the JAX package or the port, or a
+``.pt``), streams a split, optionally TTA-adapts per batch, and
 writes every case's segmentation back into its source NIfTI grid, plus a
 ``predictions.csv`` provenance manifest. The model is left as the
 checkpoint gave it. Under torchrun (or ``training.devices=[0, 0]`` and

@@ -5,10 +5,10 @@ port of ``multimodal_tta_tpu/core/distill.py``).
 ``training.distill`` with the reference's checks, and ``build_teacher``
 builds the teacher through the model registry from
 ``training.distill.model`` at ``training.compute_dtype`` and loads its
-params (and buffers) from ``training.distill.checkpoint``, the port's
-``.pt`` checkpoint (``core/checkpoint.py:load_params_only``; the
-reference's ``.msgpack`` raises, ROADMAP.md). The teacher is in inference
-mode, frozen (``requires_grad_(False)``), holds no optimizer state and runs
+params (and buffers) from ``training.distill.checkpoint``: a ``.msgpack``
+checkpoint, the reference's format, written by the JAX package or the
+port, or the port's ``.pt`` (``core/checkpoint.py:load_params_only``). The
+teacher is in inference mode, frozen (``requires_grad_(False)``), holds no optimizer state and runs
 under ``torch.no_grad()`` in ``SegTrainer``'s step, on the student's
 normalized and augmented input. Over a space axis the teacher runs on the
 same depth slab inside the same ``space.sharded(mesh)``, over the axis

@@ -254,7 +254,7 @@ class ExperimentManager:
         ckpt_dir = os.path.join(run_dir, "checkpoints")
         model_save_freq = int(get_config(self.config, "training.model_save_freq", 1))
         model_save_start = int(get_config(self.config, "training.model_save_start", 50))
-        ckpt_format = str(get_config(self.config, "training.checkpoint_format", "torch"))
+        ckpt_format = str(get_config(self.config, "training.checkpoint_format", "msgpack"))
         self.checkpoint_hook = CheckpointHook(ckpt_dir, model_save_freq, model_save_start, fmt=ckpt_format)
         hooks.append(self.checkpoint_hook)
 

@@ -13,7 +13,6 @@ from typing import Dict, Optional
 
 import torch
 
-from ..utils.logger import get_logger
 from ..parallel.distributed import is_primary_host
 from .checkpoint import load_checkpoint, save_checkpoint
 from .trainer_base import HookBase
@@ -39,27 +38,22 @@ class CheckpointHook(HookBase):
     """Periodic + best-on-val checkpointing.
 
     State saved: epoch, TrainState (model, optimizer, step, EMA shadow),
-    scheduler state, best_metrics. ``fmt`` is ``"torch"``. ``"msgpack"``,
-    the reference's single-file format and the stock configs' choice
-    (``configs/training/default.yaml``), writes the port's single-file
-    ``.pt`` format instead, and says so once; the sharded orbax format is
-    not ported (ROADMAP.md)."""
+    scheduler state, best_metrics. ``fmt`` is ``"msgpack"``, the
+    reference's single-file format and the stock configs' choice
+    (``configs/training/default.yaml``: ``path.msgpack``, which the JAX
+    package reads too), or ``"torch"`` (``path.pt``); the sharded orbax
+    format is not ported (ROADMAP.md, item 13)."""
 
-    def __init__(self, save_dir: str, save_freq: int = 1, save_start: int = 10, fmt: str = "torch"):
+    def __init__(self, save_dir: str, save_freq: int = 1, save_start: int = 10, fmt: str = "msgpack"):
         self.save_dir = save_dir
         self.save_freq = int(save_freq)
         self.save_start = int(save_start)
         fmt = str(fmt).lower()
-        if fmt == "msgpack":
-            get_logger().info(
-                "[CheckpointHook] training.checkpoint_format=msgpack: the port writes its "
-                "single-file .pt format (path.pt + path.json) in its place")
-            fmt = "torch"
         if fmt in ("orbax", "sharded"):
             raise NotImplementedError(
                 f"[CheckpointHook] the {fmt} checkpoint format is not ported "
-                "(ROADMAP.md, item 13); use training.checkpoint_format=torch")
-        if fmt != "torch":
+                "(ROADMAP.md, item 13); use training.checkpoint_format=msgpack")
+        if fmt not in ("msgpack", "torch"):
             raise ValueError(f"[CheckpointHook] unknown checkpoint format: {fmt}")
         self.fmt = fmt
         os.makedirs(self.save_dir, exist_ok=True)
@@ -83,7 +77,7 @@ class CheckpointHook(HookBase):
         }
         if self.trainer.scheduler is not None:
             extra["scheduler"] = self.trainer.scheduler.state_dict()
-        save_checkpoint(path, self.trainer.state, extra)
+        save_checkpoint(path, self.trainer.state, extra, fmt=self.fmt)
         self.trainer.logger.info(f"Checkpoint saved to {path}")
 
     def load(self, path: str) -> int:

@@ -40,9 +40,10 @@ from torch import nn
 import numpy as np
 
 from ..conf.node import ConfigNode
-from ..models.convert import flax_layouts, flax_path
-from ..parallel.tensor import sharded_params
+from ..models.convert import flax_cut_dim, flax_layouts, flax_leaf_of, flax_path, from_flax, nest, transposed_kernels
+from ..parallel.tensor import sharded_params, update_rule
 from ..utils.config import get_config
+from .flax_msgpack import Fields
 
 
 def no_decay_mask(model: nn.Module, no_decay_keys, treat_1d: bool = True) -> Dict[str, bool]:
@@ -71,12 +72,14 @@ class MultiSteps:
     with ``use_grad_mean``): each ``step()`` folds the params' ``.grad`` into
     a running mean ``acc + (g - acc) / (n + 1)``; the k-th hands the mean to
     the inner optimizer, steps it and resets. ``step()`` returns whether the
-    params were updated."""
+    params were updated; ``gradient_step`` counts the updates, as optax's
+    ``MultiStepsState.gradient_step`` does."""
 
     def __init__(self, optimizer: torch.optim.Optimizer, every_k: int):
         self.optimizer = optimizer
         self.every_k = int(every_k)
         self.mini_step = 0
+        self.gradient_step = 0
         self.acc: Optional[List[torch.Tensor]] = None
 
     @property
@@ -105,31 +108,21 @@ class MultiSteps:
             p.grad = a.clone()
             a.zero_()
         self.optimizer.step()
+        self.gradient_step += 1
         return True
 
     def state_dict(self) -> Dict[str, Any]:
         return {"inner": self.optimizer.state_dict(), "mini_step": self.mini_step,
+                "gradient_step": self.gradient_step,
                 "acc": None if self.acc is None else [a.clone() for a in self.acc]}
 
     def load_state_dict(self, sd: Dict[str, Any]) -> None:
         self.optimizer.load_state_dict(sd["inner"])
         self.mini_step = int(sd["mini_step"])
+        self.gradient_step = int(sd.get("gradient_step", 0))  # a .pt written before it was counted: 0
         acc = sd.get("acc")
         self.acc = None if acc is None else [
             a.to(device=p.device, dtype=p.dtype).clone() for a, p in zip(acc, self._params())]
-
-
-def flax_cut_dim(perm: Tuple[int, ...], torch_shape, flax_shape, dim: int) -> int:
-    """The axis of a parameter's flax layout (``flax_layouts``: permuted by
-    ``perm``, then reshaped to ``flax_shape``) that holds its torch dim
-    ``dim``: the first flax axis of the group that dim reshapes into (a cut
-    of q/k/v's rows is a cut of their heads)."""
-    permuted = [torch_shape[i] for i in perm]
-    before = math.prod(permuted[:perm.index(dim)])
-    for k in range(len(flax_shape)):
-        if math.prod(flax_shape[:k]) == before:
-            return k
-    raise ValueError(f"[optim] no axis of the flax layout {tuple(flax_shape)} holds dim {dim} of {tuple(torch_shape)}")
 
 
 def factored_dims(shape, min_dim_size_to_factor: int) -> Optional[Tuple[int, int]]:
@@ -357,6 +350,218 @@ def set_learning_rate(optimizer: Optimizer, lr: float) -> Optimizer:
 
 def get_learning_rate(optimizer: Optimizer) -> float:
     return float(optimizer.param_groups[0]["lr"])
+
+
+# ---------------------------------------------------------------------------
+# The optax state of the reference's chain, for checkpoints in its msgpack
+# format (core/checkpoint.py). The tree is what
+# multimodal_tta_tpu/core/optim.py:build_optimizer builds for the same
+# ``training`` node, read off the optimizer that ``build_optimizer`` made
+# from it: inject_hyperparams' count and learning rate; the masked
+# add_decayed_weights, present when a group decays; the update rule's state
+# (SGD's trace, Adam's and AdamW's count/mu/nu, Adafactor's
+# count/v_row/v_col/v and its momentum's EMA); optax.MultiSteps around it
+# all under ``grad_accum``. A NamedTuple or tuple state is a ``Fields`` (its
+# fields in order), a tree over the params a plain dict in the params' flax
+# layout.
+
+
+class _Slot:
+    """A leaf of the optax tree: ``key`` names what it holds; ``per_param``:
+    a tree over the params (else a scalar)."""
+
+    def __init__(self, key: str, per_param: bool = False):
+        self.key, self.per_param = key, per_param
+
+
+def _chain(*parts) -> Fields:
+    return Fields((str(i), p) for i, p in enumerate(parts))
+
+
+def optax_tree(optimizer: Optimizer) -> Fields:
+    """The optax state's tree for ``optimizer``, its leaves ``_Slot``s."""
+    rule, S = update_rule(optimizer), _Slot
+    decay = any(float(g.get("weight_decay", 0.0)) > 0 for g in optimizer.param_groups)
+    masked = Fields(inner_state=Fields())  # add_decayed_weights under its mask
+    adam = Fields(count=S("count"), mu=S("exp_avg", True), nu=S("exp_avg_sq", True))
+    if isinstance(rule, torch.optim.AdamW):  # optax.adamw carries the decay itself
+        parts = [_chain(adam, masked if decay else Fields(), Fields())]
+        decay = False
+    elif isinstance(rule, torch.optim.Adam):
+        parts = [_chain(adam, Fields())]
+    elif isinstance(rule, torch.optim.SGD):
+        trace = Fields(trace=S("momentum_buffer", True)) if rule.param_groups[0]["momentum"] else Fields()
+        parts = [_chain(trace, Fields())]
+    elif isinstance(rule, Adafactor):
+        factored = [Fields(count=S("count"), v_row=S("v_row", True), v_col=S("v_col", True), v=S("v", True))]
+        factored += [Fields()] * ((rule.clipping_threshold is not None) + 1 + rule.multiply_by_parameter_scale)
+        if rule.momentum is not None:
+            factored.append(Fields(count=S("count"), ema=S("mu", True)))
+        parts = [_chain(*factored, Fields())]
+    else:
+        raise TypeError(f"[optim] no optax state for {type(rule).__name__}")
+    tree = Fields(count=S("updates"), hyperparams={"learning_rate": S("learning_rate")}, hyperparams_states={},
+                  inner_state=_chain(*([masked] if decay else []), *parts))
+    if isinstance(optimizer, MultiSteps):
+        tree = Fields(mini_step=S("mini_step"), gradient_step=S("gradient_step"), inner_opt_state=tree,
+                      acc_grads=S("acc", True), skip_state=Fields())
+    return tree
+
+
+def _param_names(model: nn.Module, optimizer: Optimizer) -> List[str]:
+    """The param names in the order of the optimizer's state-dict indices."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    return [names[id(p)] for g in optimizer.param_groups for p in g["params"]]
+
+
+def _stat_flips(dims, ndim: int, flip: bool) -> Dict[str, List[int]]:
+    """The axes of ``v_row``, ``v_col`` and ``v`` that flip between the
+    port and optax. The port reads a transposed conv's kernel in its flax
+    layout unflipped (``flax_layouts``), optax flipped in space (``flip``):
+    each statistic flips the spatial axes it keeps (``dims``: the factored
+    ``(d1, d0)`` or None)."""
+    spatial = list(range(ndim - 2)) if flip else []
+    if dims is None:
+        return {"v": spatial}
+    d1, d0 = dims
+    return {"v_row": [i - (i > d0) for i in spatial if i != d0], "v_col": [i - (i > d1) for i in spatial if i != d1]}
+
+
+def _adafactor_stats(rule, fshape, dtype, entry: dict, flip: bool) -> Dict[str, torch.Tensor]:
+    """``v_row``, ``v_col`` and ``v`` of one param (whole flax shape
+    ``fshape``) as optax keeps them: the statistics the port keeps (zeros
+    before the first step), and ``(1,)`` zeros where optax keeps a
+    placeholder."""
+    dims = factored_dims(fshape, rule.min_dim_size_to_factor)
+    if dims is None:
+        shapes = {"v": fshape}
+    else:
+        d1, d0 = dims
+        shapes = {"v_row": [s for i, s in enumerate(fshape) if i != d0],
+                  "v_col": [s for i, s in enumerate(fshape) if i != d1]}
+    flips = _stat_flips(dims, len(fshape), flip)
+    out = {}
+    for k in ("v_row", "v_col", "v"):
+        t = entry[k] if k in entry and k in shapes else torch.zeros(shapes.get(k, (1,)), dtype=dtype)
+        out[k] = t.flip(flips[k]) if flips.get(k) else t
+    return out
+
+
+def optax_state(optimizer: Optimizer, model: nn.Module, *, step: int, state_dict: Optional[dict] = None,
+                params: Optional[Dict[str, torch.Tensor]] = None) -> Fields:
+    """The reference's optax state (``optax_tree``) of ``optimizer`` over
+    ``model``: ``state_dict`` (default the optimizer's own) and ``params``
+    (default the model's) whole, as ``core/checkpoint.py`` gathers them over
+    a model axis or consolidates them under ZeRO-1. ``step`` is the train
+    state's (inject_hyperparams counts every update: under ``MultiSteps``
+    the applied ones). A param without state (no step taken yet) holds
+    optax's initial zeros."""
+    sd = optimizer.state_dict() if state_dict is None else state_dict
+    multi = isinstance(optimizer, MultiSteps)
+    inner_sd = sd["inner"] if multi else sd
+    names = _param_names(model, optimizer)
+    entries = {names[int(i)]: e for i, e in inner_sd["state"].items() if e}
+    acc = dict(zip(names, sd.get("acc") or [])) if multi else {}
+    whole = params if params is not None else {n: p.detach() for n, p in model.named_parameters()}
+    leaf, rule = flax_leaf_of(model), update_rule(optimizer)
+    counts = [int(e["step"]) for e in entries.values() if "step" in e]
+    updates = sd["gradient_step"] if multi else step
+    adafactor, flipped = {}, transposed_kernels(model)
+    if isinstance(rule, Adafactor):
+        for n, p in whole.items():
+            fshape = list(leaf(n, torch.empty(p.shape, device="meta")).shape)
+            adafactor[n] = _adafactor_stats(rule, fshape, p.dtype, entries.get(n, {}), n in flipped)
+    scalars = {"updates": np.asarray(updates, np.int32), "count": np.asarray(max(counts, default=0), np.int32),
+               "learning_rate": np.asarray(get_learning_rate(optimizer), np.float32),
+               "mini_step": np.asarray(sd.get("mini_step", 0), np.int32),
+               "gradient_step": np.asarray(sd.get("gradient_step", 0), np.int32)}
+
+    def per_param(key: str) -> dict:
+        out = {}
+        for n, p in whole.items():
+            if key in ("v_row", "v_col", "v"):  # kept in the flax layout
+                out[flax_path(n)] = adafactor[n][key]
+                continue
+            t = acc.get(n) if key == "acc" else entries.get(n, {}).get(key)
+            if t is None:
+                t = torch.zeros_like(p, dtype=torch.float32 if key == "mu" else p.dtype)
+            out[flax_path(n)] = leaf(n, t)
+        return nest(out, "/")
+
+    def fill(node):
+        if isinstance(node, _Slot):
+            return per_param(node.key) if node.per_param else scalars[node.key]
+        return type(node)((k, fill(v)) for k, v in node.items())
+
+    return fill(optax_tree(optimizer))
+
+
+def load_optax_state(optimizer: Optimizer, model: nn.Module, tree: dict, *,
+                     learning_rate: Optional[float] = None) -> dict:
+    """The optimizer state dict, whole (``parallel/tensor.py:optimizer_state``
+    cuts it), of the reference's optax state ``tree`` for ``optimizer``
+    over ``model``; raises when the tree is not what ``optax_tree`` gives
+    for it. The learning rate is the tree's float32 value, or
+    ``learning_rate`` where that rounds to it (the exact value a port run
+    kept). Before the first update the per-param state is left empty, as
+    a fresh torch optimizer's is."""
+    slots: Dict[str, Any] = {}
+
+    def match(want, got, path: str) -> None:
+        if isinstance(want, _Slot):
+            slots[want.key] = got
+            return
+        if not isinstance(got, dict) or set(got) != set(want):
+            have = sorted(got) if isinstance(got, dict) else type(got).__name__
+            raise ValueError(f"[checkpoint] the optimizer state at opt_state{path} holds {have}; "
+                             f"this run's {type(update_rule(optimizer)).__name__} keeps {sorted(want)}")
+        for k, v in want.items():
+            match(v, got[k], f"{path}/{k}")
+
+    match(optax_tree(optimizer), tree, "")
+    rule, multi = update_rule(optimizer), isinstance(optimizer, MultiSteps)
+    names = _param_names(model, optimizer)
+    lr = float(np.float32(slots["learning_rate"]))
+    if learning_rate is not None and np.float32(learning_rate) == np.float32(lr):
+        lr = float(learning_rate)
+    count = int(slots["count"]) if "count" in slots else 0
+    moments = {k: from_flax(v) for k, v in slots.items() if k in ("exp_avg", "exp_avg_sq", "momentum_buffer", "mu")}
+    step_dtype = torch.float64 if torch.get_default_dtype() == torch.float64 else torch.float32
+    leaf, flipped = flax_leaf_of(model), transposed_kernels(model)
+    params = dict(model.named_parameters())
+    state = {}
+    # before the first update optax holds its initial zeros, torch no state
+    for i, n in enumerate(names if int(slots["updates"]) else ()):
+        entry = {}  # in the order torch's own update rules fill it
+        if isinstance(rule, torch.optim.Adam):
+            entry["step"] = torch.tensor(float(count), dtype=step_dtype)
+        elif isinstance(rule, Adafactor):
+            entry["step"] = count
+            node = {k: slots[k] for k in ("v_row", "v_col", "v")}
+            for part in flax_path(n).split("/"):
+                node = {k: v[part] for k, v in node.items()}
+            p = params[n]
+            ndim = leaf(n, torch.empty(p.shape, device="meta")).dim()
+            flips = _stat_flips(rule._dims(p)[0], ndim, n in flipped)  # factored on the whole flax shape
+            if any(node[k].dim() != ndim - (k != "v") for k in flips):
+                raise ValueError(f"[checkpoint] the Adafactor statistics of {n} in the file are "
+                                 f"{ {k: tuple(v.shape) for k, v in node.items()} }; this run keeps {sorted(flips)} "
+                                 f"(min_dim_size_to_factor {rule.min_dim_size_to_factor})")
+            entry.update({k: node[k].flip(axes) if axes else node[k] for k, axes in flips.items()})
+        entry.update({k: v[n] for k, v in moments.items()})
+        if entry:
+            state[i] = entry
+    groups, start = [], 0
+    for g in optimizer.param_groups:
+        groups.append(dict({k: v for k, v in g.items() if k != "params"}, lr=lr,
+                           params=list(range(start, start + len(g["params"])))))
+        start += len(g["params"])
+    out = {"state": state, "param_groups": groups}
+    if multi:
+        acc = from_flax(slots["acc"])
+        out = {"inner": out, "mini_step": int(slots["mini_step"]), "gradient_step": int(slots["gradient_step"]),
+               "acc": [acc[n] for n in names]}
+    return out
 
 
 class EpochScheduler:

@@ -34,20 +34,26 @@ leaves) as the buffers of the same names. It imports no JAX.
     and UNet3D's ``ds_head{i}`` convs take the rules above
 
 ``flax_path(name)`` goes the other way for a name: the reference's
-'/'-joined param path of a torch parameter, and ``flax_layouts(model)``
-for a layout: how each parameter reads as the flax leaf it came from.
+'/'-joined param path of a torch parameter, ``flax_layouts(model)`` for a
+layout: how each parameter reads as the flax leaf it came from, and
+``to_flax(state_dict, model)`` for a whole state dict: the ``params`` tree
+(and a BatchNorm model's ``batch_stats``) in the reference's layout, each
+leaf in its own dtype, so that ``from_flax`` of it gives the state dict back
+bit for bit (``core/checkpoint.py`` writes the reference's msgpack
+checkpoints through it).
 """
 
 from __future__ import annotations
 
+import math
 import re
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-from ..parallel.tensor import local_tensors
+from ..parallel.tensor import local_tensors, sharded_params
 
 _TRANSPOSED = "up"  # module name of TransposedConvUp's nn.ConvTranspose
 _TRANSPOSED_2D = re.compile(r"dec\d+")  # vae_delta_mog's decoder nn.ConvTranspose (a 2D kernel)
@@ -84,7 +90,7 @@ def from_flax(params: Mapping[str, Any], model: Optional[nn.Module] = None) -> D
 def _from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     sd: Dict[str, torch.Tensor] = {}
     for path, leaf in _leaves(params):
-        a = np.asarray(leaf, dtype=np.float32)
+        a = leaf.float().numpy() if isinstance(leaf, torch.Tensor) else np.asarray(leaf, dtype=np.float32)
         mod, name = path[:-1], path[-1]
         if name == "bias" and a.ndim == 2:  # q/k/v DenseGeneral [heads, hd]
             a = a.reshape(-1)
@@ -148,6 +154,74 @@ def flax_layouts(model: nn.Module) -> Dict[str, Tuple[Tuple[int, ...], Tuple[int
     for name, p in model.named_parameters():
         out.setdefault(name, (tuple(range(p.dim())), tuple(p.shape)))
     return {name: out[name] for name, _ in model.named_parameters()}
+
+
+def flax_cut_dim(perm: Tuple[int, ...], torch_shape, flax_shape, dim: int) -> int:
+    """The axis of a parameter's flax layout (``flax_layouts``: permuted by
+    ``perm``, then reshaped to ``flax_shape``) that holds its torch dim
+    ``dim``: the first flax axis of the group that dim reshapes into (a cut
+    of q/k/v's rows is a cut of their heads)."""
+    permuted = [torch_shape[i] for i in perm]
+    before = math.prod(permuted[:perm.index(dim)])
+    for k in range(len(flax_shape)):
+        if math.prod(flax_shape[:k]) == before:
+            return k
+    raise ValueError(f"[convert] no axis of the flax layout {tuple(flax_shape)} holds dim {dim} of {tuple(torch_shape)}")
+
+
+def transposed_kernels(model: nn.Module) -> set:
+    """The names of ``model``'s transposed-conv kernels: their flax leaf is
+    their ``flax_layouts`` view flipped in space."""
+    return {f"{n}.weight" for n, m in model.named_modules() if isinstance(m, (nn.ConvTranspose2d, nn.ConvTranspose3d))}
+
+
+def flax_leaf_of(model: nn.Module) -> Callable[[str, torch.Tensor], torch.Tensor]:
+    """``leaf(name, t)``: the tensor ``t``, laid out as parameter ``name``
+    of ``model`` (or a moment of it), in the layout of its flax leaf
+    (``flax_layouts``; a transposed conv's kernel flipped back), in its own
+    dtype and contiguous. ``t`` is whole: a param cut over a model or expert
+    axis takes the whole size on its cut axis."""
+    layouts = flax_layouts(model)
+    shards = sharded_params(model)
+    params = dict(model.named_parameters())
+    transposed = transposed_kernels(model)
+
+    def leaf(name: str, t: torch.Tensor) -> torch.Tensor:
+        perm, shape = layouts[name]
+        if name in shards:
+            shape = list(shape)
+            shape[flax_cut_dim(perm, params[name].shape, layouts[name][1], shards[name][0])] = -1
+        out = t.permute(perm).reshape(shape)
+        if name in transposed:  # from_flax flips it on the way in
+            out = out.flip(tuple(range(t.dim() - 2)))
+        return out.contiguous()
+
+    return leaf
+
+
+def nest(flat: Mapping[str, Any], sep: str) -> Dict[str, Any]:
+    """``{"a.b.c": v}`` -> ``{"a": {"b": {"c": v}}}`` (split on ``sep``)."""
+    out: Dict[str, Any] = {}
+    for key, v in flat.items():
+        node = out
+        *mods, name = key.split(sep)
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[name] = v
+    return out
+
+
+def to_flax(state_dict: Mapping[str, torch.Tensor], model: nn.Module) -> Dict[str, Any]:
+    """``{"params": ..., "batch_stats": ...}``: the reference's variables of
+    a whole state dict of ``model`` (``tp.whole_state_dict``), the inverse of
+    ``variables_from_flax``: the params through ``flax_leaf_of``, the
+    buffers (a BatchNorm's ``mean`` / ``var``; ``{}`` without one) as they
+    are. Leaves are tensors in their own dtype, on their own device."""
+    leaf = flax_leaf_of(model)
+    names = {n for n, _ in model.named_parameters()}
+    params = {flax_path(n): leaf(n, t) for n, t in state_dict.items() if n in names}
+    stats = {n: t.contiguous() for n, t in state_dict.items() if n not in names}
+    return {"params": nest(params, "/"), "batch_stats": nest(stats, ".")}
 
 
 def variables_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:

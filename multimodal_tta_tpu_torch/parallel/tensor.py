@@ -205,7 +205,7 @@ def _param_index(model: nn.Module, optimizer) -> Dict[int, Tuple[str, torch.Tens
     return {i: (names[id(p)], p) for i, p in enumerate(params)}
 
 
-def _inner(optimizer):
+def update_rule(optimizer):
     """The update rule under ``MultiSteps`` and ZeRO-1's wrapper."""
     optimizer = getattr(optimizer, "optimizer", optimizer)
     return getattr(optimizer, "optim", optimizer)
@@ -217,12 +217,19 @@ def optimizer_state(model: nn.Module, optimizer, sd: Optional[dict], cut: bool) 
     cut to this rank's share (``cut=True``); the others, and the scalars, as
     they are. A moment is cut where its param is, unless the update rule
     says otherwise (``state_cut``: Adafactor's factored statistics in the
-    flax layout). Without a sharded param: ``sd``."""
+    flax layout). ``MultiSteps``' state dict (``inner``) takes its update
+    rule's this way and its accumulator (a tensor a param, in the param's
+    layout) as the params. Without a sharded param: ``sd``."""
     shards = sharded_params(model)
     if not shards or sd is None:
         return sd
     index = _param_index(model, optimizer)
-    state_cut = getattr(_inner(optimizer), "state_cut", None)
+    if "inner" in sd:
+        acc = sd.get("acc")
+        if acc is not None:
+            acc = [_share(a, *shards[index[i][0]], cut) if index[i][0] in shards else a for i, a in enumerate(acc)]
+        return dict(sd, inner=optimizer_state(model, optimizer.optimizer, sd["inner"], cut), acc=acc)
+    state_cut = getattr(update_rule(optimizer), "state_cut", None)
     state = {}
     for i, entry in sd["state"].items():
         name, p = index.get(int(i), (None, None))
@@ -234,9 +241,13 @@ def optimizer_state(model: nn.Module, optimizer, sd: Optional[dict], cut: bool) 
         for k, v in entry.items():
             d = state_cut(p, k) if state_cut is not None else dim
             if isinstance(v, torch.Tensor) and d is not None and v.dim() > d:
-                v = cut_share(v, d, axis).clone() if cut else gather_share(v, d, axis)
+                v = _share(v, d, axis, cut)
             state[i][k] = v
     return dict(sd, state=state)
+
+
+def _share(t: torch.Tensor, dim: int, axis: ShardAxis, cut: bool) -> torch.Tensor:
+    return cut_share(t, dim, axis).clone() if cut else gather_share(t, dim, axis)
 
 
 __all__ = [
@@ -254,6 +265,7 @@ __all__ = [
     "shard_axes",
     "shard_model",
     "sharded_params",
+    "update_rule",
     "whole_state_dict",
     "whole_tensors",
 ]

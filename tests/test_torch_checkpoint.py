@@ -4,7 +4,8 @@ a round trip is bitwise and leaves no ``.tmp`` behind; a run resumed from a
 checkpoint through ``training.resume`` equals an uninterrupted run bitwise;
 the EMA shadow toggled between save and load is handled as the reference
 does; ``resolve_serving_params`` against the reference's contract; the
-options and formats not ported raise."""
+options and the format not ported (orbax) raise. Both formats, the
+reference's msgpack (the default) and the port's ``.pt``, round-trip."""
 
 import inspect
 import os
@@ -20,6 +21,7 @@ from multimodal_tta_tpu.core.checkpoint import resolve_serving_params as jax_res
 from multimodal_tta_tpu.core.train_state import TrainState as JaxTrainState
 from multimodal_tta_tpu.models.unet3d import UNet3D as JaxUNet3D
 from multimodal_tta_tpu_torch.conf import ConfigNode
+from multimodal_tta_tpu_torch.core import flax_msgpack
 from multimodal_tta_tpu_torch.core import optim as toptim
 from multimodal_tta_tpu_torch.core.checkpoint import load_checkpoint, resolve_serving_params, save_checkpoint
 from multimodal_tta_tpu_torch.core.experiment_manager import ExperimentManager
@@ -30,7 +32,7 @@ from multimodal_tta_tpu_torch.data import HostLoader, get_seg_transforms
 from multimodal_tta_tpu_torch.models.convert import unet3d_from_flax
 from multimodal_tta_tpu_torch.models.unet3d import UNet3D
 
-from _torch_port import DEVICE_TRANSFORM, HECKTOR_POLICY, SMALL, SMALL_SHAPE, random_flax_params
+from _torch_port import DEVICE_TRANSFORM, HECKTOR_POLICY, SMALL, SMALL_SHAPE, flat_flax, random_flax_params
 
 torch.set_num_threads(1)
 
@@ -81,8 +83,9 @@ def assert_states_equal(a: TrainState, b: TrainState) -> None:
         assert all(torch.equal(a.ema_params[k], b.ema_params[k]) for k in a.ema_params)
 
 
+@pytest.mark.parametrize("fmt", ["msgpack", "torch"])
 @pytest.mark.parametrize("case", ["adam", "adam_ema", "sgd_accum3"])
-def test_round_trip_is_bitwise(tmp_path, case):
+def test_round_trip_is_bitwise(tmp_path, case, fmt):
     training = dict(ADAM)
     if case == "adam_ema":
         training["ema"] = {"enabled": True, "decay": 0.9}
@@ -92,15 +95,16 @@ def test_round_trip_is_bitwise(tmp_path, case):
     extra = {"epoch": 4, "best_metrics": {"loss": 0.25, "avg_dc": float("inf")},
              "scheduler": {"rop_best": float("inf"), "rop_bad": 0, "rop_lr": 1e-3}}
     path = str(tmp_path / "ckpt" / "best_model")
-    save_checkpoint(path, src, extra)
-    assert sorted(os.listdir(tmp_path / "ckpt")) == ["best_model.json", "best_model.pt"]  # no .tmp left
+    save_checkpoint(path, src, extra, fmt=fmt)
+    ext = {"msgpack": "msgpack", "torch": "pt"}[fmt]
+    assert sorted(os.listdir(tmp_path / "ckpt")) == ["best_model.json", f"best_model.{ext}"]  # no .tmp left
 
     template = trained_state(dict(training, ema={"enabled": False}), steps=1, seed=1).state
     template.ema_params = None
     got, meta = load_checkpoint(path, template)
     assert got.model is template.model and got.optimizer is template.optimizer
     assert_states_equal(got, src)
-    assert meta == dict(extra, _format="torch")
+    assert meta == dict(extra, _format=fmt)
 
 
 def test_ema_toggled_between_save_and_load(tmp_path):
@@ -192,7 +196,7 @@ def test_resume_equals_an_uninterrupted_run_bitwise(tmp_path):
     assert resumed_out["eval_history"] == full_out["eval_history"][1:]
     saved = sorted(os.listdir(tmp_path / "full" / "checkpoints"))
     assert saved == sorted(f"{n}.{e}" for n in ("best_model", "checkpoint_epoch_0", "checkpoint_epoch_1",
-                                                  "checkpoint_epoch_2") for e in ("json", "pt"))
+                                                  "checkpoint_epoch_2") for e in ("json", "msgpack"))
 
 
 def test_manager_defaults_to_cuda_and_raises_what_is_not_ported(tmp_path):
@@ -236,21 +240,26 @@ def test_manager_defaults_to_cuda_and_raises_what_is_not_ported(tmp_path):
                 str(tmp_path / "run" / "profile"), 10, 5)
         else:
             assert m.trainer.debug_nans
-    # the stock configs' msgpack (the reference's single-file format) writes
-    # the port's single-file .pt format
+    # the stock configs' msgpack, the reference's single-file format
     m = ExperimentManager(ConfigNode(dict(cfg, training=dict(cfg["training"], checkpoint_format="msgpack"))),
                           device="cpu")
     m.setup_model()
     m.setup_optimizer()
     m.setup_trainer()
     m.checkpoint_hook.save(0, is_best=False)
-    assert sorted(os.listdir(m.checkpoint_hook.save_dir)) == ["checkpoint_epoch_0.json", "checkpoint_epoch_0.pt"]
+    assert sorted(os.listdir(m.checkpoint_hook.save_dir)) == ["checkpoint_epoch_0.json",
+                                                              "checkpoint_epoch_0.msgpack"]
 
 
 def test_foreign_and_missing_checkpoints(tmp_path):
     state = trained_state(ADAM, steps=1).state
-    (tmp_path / "old.msgpack").write_bytes(b"\x80")
-    with pytest.raises(NotImplementedError, match=r"msgpack format, which the port does not read yet \(ROADMAP.md, "
+    # a .msgpack loads (tests/test_torch_flax_msgpack.py holds it against
+    # the JAX package); the sharded orbax format raises
+    save_checkpoint(str(tmp_path / "new"), state)
+    got, _ = load_checkpoint(str(tmp_path / "new"), trained_state(ADAM, steps=1, seed=1).state)
+    assert all(torch.equal(a, b) for a, b in zip(got.model.parameters(), state.model.parameters()))
+    os.makedirs(tmp_path / "old.orbax")
+    with pytest.raises(NotImplementedError, match=r"orbax format, which the port does not read \(ROADMAP.md, "
                                                   r"item 13\)"):
         load_checkpoint(str(tmp_path / "old"), state)
     with pytest.raises(FileNotFoundError):
@@ -270,8 +279,15 @@ def test_param_tensors_after_load_match_a_flax_tree(tmp_path):
     params = random_flax_params(JaxUNet3D(**SMALL, dtype=jnp.float32), (1,) + SMALL_SHAPE, seed=9)
     state = trained_state(ADAM, steps=0).state
     state.model.load_state_dict(unet3d_from_flax(jax.tree_util.tree_map(np.asarray, params)))
-    save_checkpoint(str(tmp_path / "w"), state)
+    save_checkpoint(str(tmp_path / "w"), state, fmt="torch")
     raw = torch.load(str(tmp_path / "w.pt"), weights_only=True)
     want = unet3d_from_flax(params)
     assert set(raw["model"]) == set(want) and all(torch.equal(raw["model"][k], want[k]) for k in want)
     assert raw["step"] == 0 and "ema_params" not in raw
+    # the msgpack format holds the flax tree itself
+    save_checkpoint(str(tmp_path / "w"), state)
+    raw = flax_msgpack.load(str(tmp_path / "w.msgpack"))
+    leaves = flat_flax(params)
+    assert flat_flax(raw["params"]).keys() == leaves.keys()
+    assert all(np.asarray(leaves[k]).tobytes() == v.numpy().tobytes() for k, v in flat_flax(raw["params"]).items())
+    assert int(raw["step"]) == 0 and "ema_params" not in raw

@@ -3,9 +3,12 @@ train, adapt, predict) on a HECKTOR21 fixture of (16,16,16) volumes, with a
 small f32 UNet3D (channels 2..32, one residual unit).
 
 ``train`` writes its run directory, the log, the composed config and the
-``.pt`` checkpoints (the stock configs' ``checkpoint_format: msgpack`` writes
-the port's format). ``adapt`` and ``predict`` run from a checkpoint that
-carries the JAX package's weights (``models/convert.py``), and are held
+checkpoints in the stock configs' ``checkpoint_format: msgpack``, the
+reference's format (the port's ``.pt`` before that format was ported; the
+test keeps its name). ``adapt``, ``predict`` and ``export_serving`` run
+from a checkpoint that the JAX package's ``save_checkpoint`` wrote (the
+Tent artifact's initial state holds its params bit for bit); ``adapt`` and
+``predict`` are held
 against what the JAX CLIs (adapt.py, predict.py) compute, called in process
 through the same package functions:
 
@@ -32,15 +35,14 @@ import torch
 import chip_smoke
 from multimodal_tta_tpu.conf import compose as jax_compose
 from multimodal_tta_tpu.core import ExperimentManager as JaxExperimentManager
+from multimodal_tta_tpu.core.checkpoint import save_checkpoint as jax_save_checkpoint
 from multimodal_tta_tpu.evaluation.export import PredictionExporter as JaxPredictionExporter
 from multimodal_tta_tpu.tta import TTAEngine as JaxTTAEngine
-from multimodal_tta_tpu_torch.cli import CONFIG_DIR, adapt, predict, train
-from multimodal_tta_tpu_torch.conf import compose
-from multimodal_tta_tpu_torch.core.checkpoint import save_checkpoint
-from multimodal_tta_tpu_torch.core.experiment_manager import ExperimentManager
+from multimodal_tta_tpu_torch.cli import CONFIG_DIR, adapt, export_serving, predict, train
 from multimodal_tta_tpu_torch.data import nifti
 from multimodal_tta_tpu_torch.data.synthetic import make_hecktor_fixture
 from multimodal_tta_tpu_torch.models.convert import unet3d_from_flax
+from multimodal_tta_tpu_torch.serving.export import load_artifact
 
 torch.set_num_threads(2)
 
@@ -93,18 +95,17 @@ def _run_dir(env, run_name):
 
 @pytest.fixture(scope="module")
 def jax_weights(env):
-    """The JAX manager's initial params for the CLI config, and a port
-    checkpoint (``.pt`` + sidecar) carrying them."""
+    """The JAX manager's initial params for the CLI config, and the
+    checkpoint the JAX package's ``save_checkpoint`` writes of its state
+    (``.msgpack`` + sidecar: the CLIs below restore it as a user's
+    JAX-trained checkpoint)."""
     argv = common(env, "weights") + ["hydra.job.chdir=false", f"hydra.run.dir={env['root']}/weights"]
     jax_m = JaxExperimentManager(jax_compose(CONFIG_DIR, "config", argv))
     jax_m.setup_model()
+    jax_m.setup_optimizer()
     params = jax_m.variables["params"]
-    m = ExperimentManager(compose(CONFIG_DIR, "config", argv), device="cpu")
-    m.setup_model()
-    m.setup_optimizer()
-    m.model.load_state_dict(unet3d_from_flax(jax.tree_util.tree_map(np.asarray, params)), strict=True)
     path = os.path.join(env["root"], "weights", "source")
-    save_checkpoint(path, m.state, {"epoch": 0})
+    jax_save_checkpoint(path, jax_m.state, {"epoch": 0})
     return {"params": params, "checkpoint": path}
 
 
@@ -134,9 +135,9 @@ def test_train_cli_writes_its_run_dir_and_pt_checkpoints(env):
         saved = f.read()
     assert "checkpoint_format: msgpack" in saved and f"manifest_csv: {env['manifest']}" in saved
     ckpts = sorted(os.listdir(os.path.join(run_dir, "checkpoints")))
-    assert ckpts == ["best_model.json", "best_model.pt", "checkpoint_epoch_0.json", "checkpoint_epoch_0.pt"]
+    assert ckpts == ["best_model.json", "best_model.msgpack", "checkpoint_epoch_0.json", "checkpoint_epoch_0.msgpack"]
     with open(os.path.join(run_dir, "checkpoints", "best_model.json"), encoding="utf-8") as f:
-        assert json.load(f)["_format"] == "torch"
+        assert json.load(f)["_format"] == "msgpack"
     assert len(history["train_history"]) == 1 and np.isfinite(history["train_history"][0]["loss"])
     ev = history["eval_history"][0]
     assert np.isfinite(ev["gtvt_dc"]) and "gtvt_hd95" in ev
@@ -231,6 +232,19 @@ def test_predict_cli_matches_the_reference(env, jax_weights, extra):
             assert math.isclose(float(g["mean_uncert_in_pred"]), float(w["mean_uncert_in_pred"]),
                                 rel_tol=0, abs_tol=PROB_ATOL)
     assert n_near <= 2
+
+
+def test_export_serving_restores_the_jax_checkpoint(env, jax_weights):
+    """``cli.export_serving`` from the checkpoint the JAX package wrote: the
+    Tent artifact's initial state holds its params bit for bit."""
+    path = os.path.join(env["root"], "jax_tent.mttap")
+    export_serving.main(common(env, "export") + ["tta=tent", f"training.resume={jax_weights['checkpoint']}",
+                                                 "+export.batch_size=2", f"+export.path={path}"], device="cpu")
+    art = load_artifact(path, "cpu")
+    names = [a["name"] for a in art.meta["args"][:art.n_state]]
+    got = {n.split(":", 1)[1]: t for n, t in zip(names, art.initial_state()) if n.startswith("param:")}
+    want = unet3d_from_flax(jax.tree_util.tree_map(np.asarray, jax_weights["params"]))
+    assert got and all(torch.equal(t, want[k]) for k, t in got.items())
 
 
 def test_cli_raises_what_is_not_there(env):

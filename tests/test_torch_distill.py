@@ -7,13 +7,17 @@ package.
     all and uncertain;
   - distilled ``SegTrainer`` steps (SGD) against the JAX ones, the JAX
     teacher read from its msgpack checkpoint and the port's from a ``.pt``
-    file of the same weights at the same extension-less path: the losses
+    file of the same weights at the same extension-less path (the sidecar
+    names the ``.pt``; tests/test_torch_flax_msgpack.py reads the teacher
+    from the JAX package's msgpack): the losses
     and params to ``tests/test_torch_seg_trainer.py``'s tolerances; the
     teacher frozen, in inference mode, bitwise unchanged, without optimizer
     state;
   - ``load_params_only`` with and without the EMA shadow; the misuse
     errors the reference raises.
 """
+
+import os
 
 import jax
 import jax.numpy as jnp
@@ -75,7 +79,7 @@ def _teacher_files(tmp_path, params) -> str:
                                                    tx=optax.sgd(0.1)))
     model = UNet3D(**TEACHER, device="cpu")
     model.load_state_dict(from_flax(params), strict=True)
-    save_checkpoint(path, TrainState(model=model, optimizer=torch.optim.SGD(model.parameters(), lr=0.1)))
+    save_checkpoint(path, TrainState(model=model, optimizer=torch.optim.SGD(model.parameters(), lr=0.1)), fmt="torch")
     return path
 
 
@@ -118,7 +122,12 @@ def test_load_params_only(tmp_path):
     assert all(torch.equal(p, ema[n]) for n, p in other.named_parameters())
     with pytest.raises(ValueError, match="carries no ema_params"):
         load_params_only(str(tmp_path / "plain"), other, use_ema=True)
-    (tmp_path / "old.msgpack").write_bytes(b"\x80")
+    # both files are msgpack (the default); a .pt loads as well, and only
+    # the sharded orbax format raises
+    save_checkpoint(str(tmp_path / "pt"), TrainState(model=model, optimizer=opt), fmt="torch")
+    load_params_only(str(tmp_path / "pt"), other)
+    assert all(torch.equal(a, b) for a, b in zip(other.state_dict().values(), model.state_dict().values()))
+    os.makedirs(tmp_path / "old.orbax")
     with pytest.raises(NotImplementedError, match="item 13"):
         load_params_only(str(tmp_path / "old"), other)
     with pytest.raises(FileNotFoundError):

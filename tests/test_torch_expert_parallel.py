@@ -45,6 +45,7 @@ from multimodal_tta_tpu.models.unet3d import UNet3D as JaxUNet3D
 from multimodal_tta_tpu.models.unetr import UNETR as JaxUNETR
 from multimodal_tta_tpu.parallel.mesh import expert_state_sharding, train_state_sharding
 from multimodal_tta_tpu.parallel.mesh import make_mesh as jax_make_mesh
+from multimodal_tta_tpu_torch.core import flax_msgpack
 from multimodal_tta_tpu_torch.parallel import mesh as pmesh
 
 from _torch_port import SGD, random_flax_params, trainer_config, tta_config
@@ -375,10 +376,11 @@ def test_checkpoint_moves_between_the_expert_axis_and_one_process(runs):
     np.testing.assert_allclose(resumed["loss"], ranks[0]["loss"][2:], rtol=1e-5)
     for k, v in resumed["params"][0].items():
         np.testing.assert_allclose(v, ranks[0]["params"][2][k], rtol=1e-5, atol=2e-6, err_msg=k)
-    raw = torch.load(payload["checkpoint"] + ".pt", weights_only=True)
-    assert raw["model"]["block1.moe.wi"].shape == (4, 16, 32)
-    assert all(v["momentum_buffer"].shape[0] == 4 for v in raw["optimizer"]["state"].values()
-               if v["momentum_buffer"].shape == (4, 16, 32))
+    raw = flax_msgpack.load(payload["checkpoint"] + ".msgpack")  # the reference's format, whole
+    assert raw["params"]["block1"]["moe"]["wi"].shape == (4, 16, 32)
+    sgd = raw["opt_state"]["inner_state"]
+    trace = sgd[max(sgd, key=int)]["0"]["trace"]  # after the masked decay, where the run decays
+    assert trace["block1"]["moe"]["wi"].shape == (4, 16, 32) and bool(trace["block1"]["moe"]["wi"].any())
     back = runs["resume_one"][1]
     one = _one(runs, "resume_one")
     _steps_close(back, one)

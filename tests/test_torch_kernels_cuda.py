@@ -419,7 +419,7 @@ def test_checkpoint_round_trip_on_the_card(tmp_path):
     src.ema_params = {n: p.detach() * 0.5 for n, p in src.model.named_parameters()}
     save_checkpoint(str(tmp_path / "c"), src, {"epoch": 3})
     got, meta = load_checkpoint(str(tmp_path / "c"), state(1))
-    assert meta == {"epoch": 3, "_format": "torch"} and got.step == 2
+    assert meta == {"epoch": 3, "_format": "msgpack"} and got.step == 2
     for (n, p), q in zip(got.model.named_parameters(), src.model.parameters()):
         assert p.is_cuda and torch.equal(p, q) and torch.equal(got.ema_params[n], src.ema_params[n])
     live = [v for st in src.optimizer.state.values() for v in st.values()]

@@ -39,6 +39,7 @@ from multimodal_tta_tpu.models.vit import ViT as JaxViT
 from multimodal_tta_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from multimodal_tta_tpu.parallel.mesh import shard_batch as jax_shard_batch
 from multimodal_tta_tpu.tta.tent import TentAdapter as JaxTentAdapter
+from multimodal_tta_tpu_torch.core import flax_msgpack
 from multimodal_tta_tpu_torch.conf import ConfigNode
 from multimodal_tta_tpu_torch.core.optim import build_optimizer
 from multimodal_tta_tpu_torch.models.convert import from_flax
@@ -74,6 +75,7 @@ def _batches(n: int, seed: int):
 
 
 TRAIN = dict(cfg=SGD_CFG, kw=UNETR_KW, params=UNETR_PARAMS, batches=_batches(2, 3))
+ACCUM_CFG = trainer_config(dict(SGD, grad_accum=2))
 MORE = _batches(1, 4)
 
 
@@ -96,6 +98,8 @@ def _payloads(tmp):
         "resume_one": ("train", dict(TRAIN, batches=[], resume=f"{tmp}/one", more=MORE)),
         "zero1": ("train", dict(TRAIN, cfg=trainer_config(dict(SGD, zero1=True)), checkpoint=f"{tmp}/tpz",
                                 more=MORE)),
+        # 3 steps of grad_accum 2: the checkpoint holds an accumulator mid-way
+        "accum": ("train", dict(TRAIN, cfg=ACCUM_CFG, batches=_batches(3, 6), checkpoint=f"{tmp}/tpa", more=MORE)),
         "tent": ("tent", TENT),
         "broadcast": ("broadcast", dict(kw=dict(TINY_VIT, in_channels=3))),
     }
@@ -282,14 +286,28 @@ def test_checkpoint_moves_between_the_model_axis_and_one_process(runs):
     np.testing.assert_allclose(resumed["loss"], ranks[0]["loss"][2:], rtol=1e-5)
     for k, v in resumed["params"][0].items():
         np.testing.assert_allclose(v, ranks[0]["params"][2][k], rtol=1e-5, atol=2e-6, err_msg=k)
-    raw = torch.load(payload["checkpoint"] + ".pt", weights_only=True)
-    assert raw["model"]["block0.Dense_0.weight"].shape == (64, 32)
+    raw = flax_msgpack.load(payload["checkpoint"] + ".msgpack")  # the reference's format, whole
+    assert raw["params"]["block0"]["Dense_0"]["kernel"].shape == (32, 64)
     back = runs["resume_one"][1]
     one = _one(runs, "resume_one")
     for r in back:
         np.testing.assert_allclose(r["loss"], one["loss"], rtol=1e-5)
         for k, v in one["params"][0].items():
             np.testing.assert_allclose(r["params"][0][k], v, rtol=1e-5, atol=2e-6, err_msg=k)
+
+
+def test_grad_accum_checkpoint_moves_between_the_model_axis_and_one_process(runs):
+    """``grad_accum`` over ``model=2``: rank 0 writes the whole tree with the
+    accumulator of a half-done step gathered, and one process resumes it:
+    the next steps as the ranks took them."""
+    payload, ranks = runs["accum"]
+    resumed = CASES["train"](None, **dict(payload, batches=[], checkpoint=None, resume=payload["checkpoint"]))
+    np.testing.assert_allclose(resumed["loss"], ranks[0]["loss"][3:], rtol=1e-5)
+    for k, v in resumed["params"][0].items():
+        np.testing.assert_allclose(v, ranks[0]["params"][3][k], rtol=1e-5, atol=2e-6, err_msg=k)
+    raw = flax_msgpack.load(payload["checkpoint"] + ".msgpack")
+    acc = raw["opt_state"]["acc_grads"]["block0"]["Dense_0"]["kernel"]
+    assert int(raw["opt_state"]["mini_step"]) == 1 and acc.shape == (32, 64) and bool(acc.any())
 
 
 def test_zero1_over_the_data_group_of_each_model_rank(runs):
