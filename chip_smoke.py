@@ -66,8 +66,13 @@ Phases, in order (any failure propagates and exits non-zero):
                checkpoints and sidecar written; a second
                manager resumes through ``training.resume`` with params,
                optimizer state, step, scheduler state and best metrics
-               restored bitwise at the right epoch; one step after the
-               restart against the same step without it (strict mode).
+               restored bitwise at the right epoch; the flagship's Adam
+               state saved and loaded in each format (msgpack, torch, orbax),
+               timed; the reference's orbax fixture read bitwise; the
+               resumed state saved by ``CheckpointHook(fmt="orbax")`` and
+               resumed by a third manager; one step after each restart
+               against the same step without it (strict mode), the orbax
+               one bitwise with its 18 + 18 norm launches.
  12. train-parity — one f32 training step at full width on a small input,
                kernel against plain norm: loss and parameter deltas.
  13. train-timing — median ms per warm training step at batch 8,
@@ -78,8 +83,9 @@ Phases, in order (any failure propagates and exits non-zero):
                full-width recipe, 2 epochs of 6 steps (enough to spend the
                input path's 2-batch lead), host loader, then again with
                ``training.device_cache=true`` (its batches bitwise the host
-               loader's); ``cli.adapt`` (Tent, no-adapt report, surface
-               metrics) from the best checkpoint; ``cli.predict`` (continual
+               loader's) and ``training.checkpoint_format=orbax``;
+               ``cli.adapt`` (Tent, no-adapt report, surface metrics) from
+               that run's best orbax checkpoint; ``cli.predict`` (continual
                Tent, probabilities) writing the 4 test cases: 18 + 18 norm
                launches per training step, one min-plus launch per evaluated
                batch, the launches of each call counted exactly, native NIfTI
@@ -457,13 +463,110 @@ CLI_STEPS_PER_EPOCH = 6
 
 
 def saved_state_dict(path: str) -> dict:
-    """The params and buffers of the msgpack checkpoint at the
-    extension-less ``path`` (the reference's format), as a state dict."""
-    from multimodal_tta_tpu_torch.core import flax_msgpack
+    """The params and buffers of the msgpack (or, without one, orbax)
+    checkpoint at the extension-less ``path`` (the reference's formats), as
+    a state dict."""
+    from multimodal_tta_tpu_torch.core import flax_msgpack, orbax_format
     from multimodal_tta_tpu_torch.models.convert import variables_from_flax
 
-    raw = flax_msgpack.load(path + ".msgpack")
+    if os.path.exists(path + ".msgpack"):
+        raw = flax_msgpack.load(path + ".msgpack")
+    else:
+        raw = orbax_format.load(path + ".orbax")
     return variables_from_flax({"params": raw["params"], "batch_stats": raw["batch_stats"]})
+
+
+def tree_bytes(path: str) -> int:
+    """The bytes of a file, or of every file under a directory."""
+    if os.path.isfile(path):
+        return os.path.getsize(path)
+    return sum(os.path.getsize(os.path.join(d, n)) for d, _, ns in os.walk(path) for n in ns)
+
+
+ORBAX_FIXTURE = os.path.join(REPO, "tests", "data", "orbax_reference")
+
+
+ORBAX_FIXTURE_PASSES = 20  # the fixture's frames are small: 20 passes make the decode time readable
+
+
+def orbax_fixture_check() -> dict:
+    """The reference's orbax checkpoint committed in ``tests/data``
+    (``scripts/make_orbax_fixture.py``: the JAX package's
+    ``save_checkpoint_sharded``, tensorstore's level-1 zstd frames) read by
+    ``core/orbax_format.py``: every leaf against ``expected.npz`` bitwise,
+    the decoder's counts of the frame modes it met, and the decode rate of
+    those frames (``ORBAX_FIXTURE_PASSES`` times over, one thread)."""
+    import numpy as np
+    import torch
+
+    from multimodal_tta_tpu_torch.core import ocdbt, orbax_format, zstd
+
+    zstd.reset_counters()
+    stats = {}
+    payload = orbax_format.load(os.path.join(ORBAX_FIXTURE, "ckpt.orbax"), stats=stats)
+    modes = {k: v for k, v in zstd.counters().items() if v}
+    want = np.load(os.path.join(ORBAX_FIXTURE, "expected.npz"))
+    got = {}
+    for keys, v in orbax_format.flatten(payload):
+        if not isinstance(v, str):
+            got[".".join(k for k, _ in keys)] = (v.view(torch.uint16) if v.dtype == torch.bfloat16 else v).numpy()
+    bitwise = sorted(got) == sorted(want.files) and all(
+        got[k].dtype == want[k].dtype and got[k].shape == want[k].shape and got[k].tobytes() == want[k].tobytes()
+        for k in want.files)
+    with ocdbt.Database(os.path.join(ORBAX_FIXTURE, "ckpt.orbax")) as db:
+        frames = [db.read(e) for e in db.entries() if not e.key.endswith(b".zarray")]
+    out = bytearray(max(v.nbytes for v in got.values()))  # room for the largest chunk
+    t0 = time.perf_counter()
+    decoded = 0
+    for _ in range(ORBAX_FIXTURE_PASSES):
+        for frame in frames:
+            decoded += zstd.decompress_into(frame, out)
+    decode_s = time.perf_counter() - t0
+    return {"leaves": len(want.files), "chunks": stats["chunks"], "bytes": stats["bytes"], "bitwise": bitwise,
+            "modes": modes, "passes": ORBAX_FIXTURE_PASSES, "decode_MBps": decoded / decode_s / 1e6}
+
+
+CKPT_FORMATS = (("msgpack", ".msgpack"), ("torch", ".pt"), ("orbax", ".orbax"))
+
+
+def checkpoint_io(src, dst, path: str, check) -> dict:
+    """``src`` (a train state) saved at the extension-less ``path`` in each
+    format and loaded into ``dst``, timed (the file cache warm: the file was
+    just written); ``check(state)`` says whether the state loaded equals
+    ``src``'s bitwise. For orbax the reader's chunk decoding (the native
+    zstd, ``orbax_format.THREADS`` threads) is timed apart. The files are
+    removed. Returns ``{format: {bytes, save_s, load_s, save_MBps,
+    load_MBps, restored[, chunks, decoded_bytes, decode_s, decode_MBps]}}``."""
+    import shutil
+
+    import torch
+
+    from multimodal_tta_tpu_torch.core import orbax_format
+    from multimodal_tta_tpu_torch.core.checkpoint import load_checkpoint, save_checkpoint
+
+    out = {}
+    for fmt, ext in CKPT_FORMATS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_checkpoint(path, src, fmt=fmt)
+        torch.cuda.synchronize()
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got, _ = load_checkpoint(path, dst)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        size = tree_bytes(path + ext)
+        out[fmt] = {"bytes": size, "save_s": save_s, "load_s": load_s, "save_MBps": size / save_s / 1e6,
+                    "load_MBps": size / load_s / 1e6, "restored": bool(check(got))}
+        if fmt == "orbax":
+            stats = {}
+            orbax_format.load(path + ext, stats=stats)
+            out[fmt].update(decoded_bytes=stats["bytes"], chunks=stats["chunks"], decode_s=stats["decode_s"],
+                            decode_MBps=stats["bytes"] / stats["decode_s"] / 1e6)
+            shutil.rmtree(path + ext)
+        else:
+            os.remove(path + ext)
+    return out
 
 
 def rewrite_check(state, ckpt: str, path: str) -> dict:
@@ -622,11 +725,14 @@ def cli_phase(device, root: str, *, shape=CLI_SHAPE, centers=CLI_CENTERS, extra=
               reset_counts=lambda: None, read_counts=lambda: {}) -> dict:
     """Phase 14: the port's command-line entry points end to end, as a user
     runs them: write a HECKTOR21 fixture, train (``cli.train``) with the host
-    loader and again with ``training.device_cache=true``, adapt with Tent from
-    the best checkpoint (``cli.adapt``), export masks (``cli.predict``).
+    loader and again with ``training.device_cache=true`` and
+    ``training.checkpoint_format=orbax``, adapt with Tent from the second
+    run's best (orbax) checkpoint (``cli.adapt``), export masks
+    (``cli.predict``) from the first run's.
 
     Checks what holds on any device: the run directories, logs and
-    ``.msgpack`` checkpoints (the stock configs' format); finite losses; the device cache's batches bitwise the host
+    ``.msgpack`` (the stock configs' format) and ``.orbax`` checkpoints;
+    finite losses; the device cache's batches bitwise the host
     loader's (order and f16 / uint8 values); the ``tta_metrics.json`` schema
     and ranges; the model restored after adapt and predict; every case
     exported with its source's grid and mask == prob >= threshold; every
@@ -750,12 +856,15 @@ def cli_phase(device, root: str, *, shape=CLI_SHAPE, centers=CLI_CENTERS, extra=
     ExperimentManager.setup_optimizer, ExperimentManager.setup_trainer = setup_optimizer, setup_trainer
     try:
         runs = {}
-        for name, args in (("train", ()), ("train_device_cache", ("training.device_cache=true",))):
+        # the second run writes the reference's orbax format, which cli.adapt reads below
+        for name, args, fmt in (("train", (), "msgpack"),
+                                ("train_device_cache", ("training.device_cache=true",
+                                                        "training.checkpoint_format=orbax"), "orbax")):
             history, run_dir, wall, counts = run(train, name, *args)
             m, rec = managers[-1], recorders[-1]
             written = sorted(os.listdir(os.path.join(run_dir, "checkpoints")))
             want = sorted(f"{n}.{e}" for n in ("best_model", "checkpoint_epoch_0", "checkpoint_epoch_1")
-                          for e in ("json", "msgpack"))
+                          for e in ("json", fmt))
             if written != want or not os.path.isfile(os.path.join(run_dir, "train.log")):
                 raise AssertionError(f"{name}: checkpoints {written}, run dir {sorted(os.listdir(run_dir))}")
             losses = [float(v) for v in rec.losses]
@@ -781,7 +890,7 @@ def cli_phase(device, root: str, *, shape=CLI_SHAPE, centers=CLI_CENTERS, extra=
                           # what an epoch costs a step, its first included: the input path's steady rate
                           "epoch_ms_per_step": [statistics.fmean(rec.ms[a:b]) for a, b in zip(starts, starts[1:])],
                           "epoch_s": rec.epoch_s, "input_alone_ms_per_batch": input_ms,
-                          "val_batches": 2 * len(m.val_loader), "train_volumes": n_train,
+                          "val_batches": 2 * len(m.val_loader), "train_volumes": n_train, "format": fmt,
                           "val_metrics": [{k: v for k, v in ev.items() if "/" not in k}
                                           for ev in history["eval_history"]]}
             if isinstance(m.train_loader, DeviceCachedLoader):
@@ -797,14 +906,17 @@ def cli_phase(device, root: str, *, shape=CLI_SHAPE, centers=CLI_CENTERS, extra=
         del host, cached, recorders[:]
         out.update(runs)
         best = os.path.join(root, "runs", "train", "checkpoints", "best_model")
+        best_orbax = os.path.join(root, "runs", "train_device_cache", "checkpoints", "best_model")
         out.update(manifest=manifest, best=best)
         source = saved_state_dict(best)
+        source_orbax = saved_state_dict(best_orbax)
 
-        def restored(m) -> bool:
-            return all(torch.equal(v.cpu(), source[k]) for k, v in m.state.model.state_dict().items())
+        def restored(m, want=source) -> bool:
+            return all(torch.equal(v.cpu(), want[k]) for k, v in m.state.model.state_dict().items())
 
+        # Tent from the orbax checkpoint cli.train wrote
         results, run_dir, wall, counts = run(adapt, "adapt", "tta=tent", "tta.steps=1", "tta.report_no_adapt=true",
-                                             f"training.resume={best}")
+                                             f"training.resume={best_orbax}")
         with open(os.path.join(run_dir, "tta_metrics.json"), encoding="utf-8") as f:
             written = json.load(f)
         if written != json.loads(json.dumps(results)) or set(written) != {"no_adapt", "adapted"}:
@@ -818,7 +930,8 @@ def cli_phase(device, root: str, *, shape=CLI_SHAPE, centers=CLI_CENTERS, extra=
                     raise AssertionError(f"{mode}: {k} = {v}")
         test_batches = len(managers[-1].test_loader)
         out["adapt"] = {"wall_s": wall, "launches": counts, "test_batches": test_batches,
-                        "model_restored": restored(managers[-1]),
+                        "model_restored": restored(managers[-1], source_orbax),
+                        "checkpoint": os.path.relpath(best_orbax, root) + ".orbax",
                         "metrics": {mode: {k: v for k, v in m.items() if "/" not in k or k.endswith("avg_dc")}
                                     for mode, m in written.items()}}
         if not out["adapt"]["model_restored"]:
@@ -4070,6 +4183,16 @@ def dp_run(device, root: str, mesh, spec: dict) -> dict:
         out["train_allreduce_bytes"] = 4 * (grads + 1) if mesh is not None else 0
         out["checkpoints"] = sorted(f for f in os.listdir(os.path.join(root, f"{tag}_f32", "checkpoints"))) \
             if os.path.isdir(os.path.join(root, f"{tag}_f32", "checkpoints")) else []
+        if mesh is not None:  # the trained state as orbax, each rank its own zero1 partition; then msgpack
+            from multimodal_tta_tpu_torch.core.checkpoint import save_checkpoint
+
+            ckpt = os.path.join(spec["ranks_root"], "zero1_orbax", "state")
+            t_save = time.perf_counter()
+            save_checkpoint(ckpt, m.trainer.state, fmt="orbax")
+            out["orbax"] = {"save_s": time.perf_counter() - t_save,
+                            "bytes": tree_bytes(os.path.join(ckpt + ".orbax", f"ocdbt.process_{rank}"))}
+            save_checkpoint(ckpt, m.trainer.state)
+            part("orbax_checkpoint")
         if rank == 0:
             out["params"] = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
             out["init"] = {n: t.cpu() for n, t in init.items()}
@@ -4552,9 +4675,41 @@ def data_parallel_finish(prep: dict) -> dict:
         raise AssertionError(f"phase 22: rank 0's zero1 checkpoint read and written again differs: "
                              f"{out['zero1_rewrite']}")
     del m
+    # the ranks' orbax file (each wrote its own partition's moments) read in
+    # one process: every leaf bitwise the leaf of rank 0's msgpack of that state
+    out["zero1_orbax"] = orbax_against_msgpack(os.path.join(spec["ranks_root"], "zero1_orbax", "state"))
+    out["zero1_orbax"]["rank_bytes"] = [r["orbax"]["bytes"] for r in ranks]
+    out["zero1_orbax"]["save_s"] = [r["orbax"]["save_s"] for r in ranks]
+    if not out["zero1_orbax"]["bitwise"] or min(out["zero1_orbax"]["rank_bytes"]) == 0:
+        raise AssertionError(f"phase 22: the ranks' zero1 orbax checkpoint: {out['zero1_orbax']}")
     out["phase_s"] = time.perf_counter() - t0
     shutil.rmtree(root, ignore_errors=True)
     return out
+
+
+def orbax_against_msgpack(path: str) -> dict:
+    """``path.orbax`` (written over ranks) read in one process against
+    ``path.msgpack`` of the same state: every leaf bitwise, the seconds of
+    the read, the bytes of each file."""
+    import torch
+
+    from multimodal_tta_tpu_torch.core import flax_msgpack, orbax_format
+
+    def leaves(payload) -> dict:
+        out = {}
+        for keys, v in orbax_format.flatten(payload):
+            out[".".join(k for k, _ in keys)] = v if isinstance(v, str) else torch.as_tensor(v)
+        return out
+
+    t0 = time.perf_counter()
+    got = leaves(orbax_format.load(path + ".orbax"))
+    read_s = time.perf_counter() - t0
+    want = leaves(flax_msgpack.load(path + ".msgpack"))
+    same = got.keys() == want.keys() and all(
+        got[k] == v if isinstance(v, str) else (got[k].dtype == v.dtype and got[k].shape == v.shape
+                                                and torch.equal(got[k], v)) for k, v in want.items())
+    return {"bitwise": same, "leaves": len(want), "read_s": read_s, "orbax_bytes": tree_bytes(path + ".orbax"),
+            "msgpack_bytes": os.path.getsize(path + ".msgpack")}
 
 
 def kernel_check_text(kc) -> str:
@@ -4608,6 +4763,11 @@ def log_data_parallel(dp: dict, card: str) -> None:
     log(f"[data_parallel] rank 0's zero1 checkpoint (best_model.msgpack, {zr['bytes']} bytes) restored in one "
         f"process in {zr['load_s']:.3f} s and written again in {zr['save_s']:.3f} s: identical bytes "
         f"{zr['identical']}; card {card}")
+    zo = dp["zero1_orbax"]
+    log(f"[data_parallel] the ranks' zero1 state as orbax ({zo['orbax_bytes']} bytes; each rank wrote its own "
+        f"partition: {zo['rank_bytes']} bytes in {[round(t, 3) for t in zo['save_s']]} s) read in one process in "
+        f"{zo['read_s']:.3f} s: {zo['leaves']} leaves bitwise rank 0's msgpack of that state ({zo['msgpack_bytes']} "
+        f"bytes): {zo['bitwise']}; card {card}")
     log(f"[data_parallel] phase 22 took {dp['phase_s']:.1f} s; launches over both ranks {dp['launches']}; "
         f"backend {dp['backend']}; card {card}")
 
@@ -7827,6 +7987,15 @@ def tp_run(device, root: str, mesh, spec: dict) -> dict:
                                                         for g in r["replicated_grads"].values())
                 r["launches"] = since(at)
                 r["params"] = {k: v.detach().cpu().clone() for k, v in whole_state_dict(m).items()}
+                if not deterministic and mesh is not None:  # orbax, each rank its cuts; then msgpack, gathered
+                    from multimodal_tta_tpu_torch.core.checkpoint import save_checkpoint
+
+                    ckpt = os.path.join(spec["ranks_root"], "tp_orbax", "state")
+                    t_save = time.perf_counter()
+                    save_checkpoint(ckpt, trainer.state, fmt="orbax")
+                    r["orbax"] = {"save_s": time.perf_counter() - t_save, "bytes": tree_bytes(
+                        os.path.join(ckpt + ".orbax", f"ocdbt.process_{mesh.rank}"))}
+                    save_checkpoint(ckpt, trainer.state)
                 if not deterministic:  # the same steps again, unchecked and timed
                     check.on, at = False, counts()
                     r["step_ms"] = [timed(lambda b=b: (trainer.run_step(b), trainer.flush_step_metrics()))
@@ -7972,6 +8141,13 @@ def model_axis_compare(device, prep: dict) -> dict:
             failed.append(f"{res['tag']}: launches {res['launches']}, derived {want}")
         if cuda and not res["check_ok"]:
             failed.append(f"{res['tag']} kernels vs plain: {res['check']}")
+    # the ranks' orbax file (each rank of the first model group wrote its
+    # cuts) read in one process against the gathered msgpack of that state
+    orbax = orbax_against_msgpack(os.path.join(prep["spec"]["ranks_root"], "tp_orbax", "state"))
+    orbax.update(rank_bytes=[res["orbax"]["bytes"] for res in ranks], save_s=[res["orbax"]["save_s"] for res in ranks])
+    if not orbax["bitwise"] or not orbax["rank_bytes"][1] or orbax["rank_bytes"][1] >= orbax["rank_bytes"][0]:
+        failed.append(f"the ranks' orbax checkpoint: {orbax}")
+    out["orbax"] = orbax
     if failed:
         raise AssertionError("phase 25: " + "; ".join(failed))
     out.update({"ranks_spread_max_abs": spread, "ranks_spread_rel_l2": spread_rel,
@@ -8014,6 +8190,12 @@ def log_model_axis(tp: dict, card: str) -> None:
             f"; peak {res['peak_gib']:.3f} GiB above the memory live at the start (one process "
             f"{tp['one']['peak_gib']:.3f}); card {card}")
     log(f"[model_axis]   one process: kernels vs plain {json.dumps(tp['one']['check'])}")
+    o = tp["orbax"]
+    log(f"[model_axis]   the trained state as orbax ({o['orbax_bytes']} bytes in all): bytes each rank wrote "
+        f"{o['rank_bytes']} (data=2 x model=2: the first model group's two ranks their cuts, rank 0 the whole "
+        f"leaves too; the second group's none) in {[round(t, 3) for t in o['save_s']]} s; read in one process in "
+        f"{o['read_s']:.3f} s: {o['leaves']} leaves bitwise the gathered msgpack ({o['msgpack_bytes']} bytes): "
+        f"{o['bitwise']}; card {card}")
     log(f"[model_axis] phase 25 took {tp['phase_s']:.1f} s; launches over the four ranks {tp['launches']}; card {card}")
 
 
@@ -9984,6 +10166,7 @@ def main() -> int:
 
     from multimodal_tta_tpu_torch.core.checkpoint import load_checkpoint, save_checkpoint
     from multimodal_tta_tpu_torch.core.experiment_manager import ExperimentManager
+    from multimodal_tta_tpu_torch.core.hooks import CheckpointHook
     from multimodal_tta_tpu_torch.core.optim import build_optimizer
     from multimodal_tta_tpu_torch.core.train_state import TrainState
     from multimodal_tta_tpu_torch.core.trainer_base import HookBase
@@ -10174,31 +10357,58 @@ def main() -> int:
     if not all(got_1.values()) or start_1 != 2 or not all(live.values()):
         raise AssertionError("checkpoint_epoch_1 did not restore bitwise")
 
-    # the flagship's Adam checkpoint in both formats: save and load timed
-    # (the file cache warm), each load restoring checkpoint_epoch_1 bitwise
-    ckpt_io = {}
-    for fmt, ext in (("msgpack", ".msgpack"), ("torch", ".pt")):
-        path = os.path.join(run_root, "io", "flagship")
-        sync()
-        t1 = time.perf_counter()
-        save_checkpoint(path, run_b.trainer.state, fmt=fmt)
-        sync()
-        save_s = time.perf_counter() - t1
-        t1 = time.perf_counter()
-        run_b.trainer.state, _ = load_checkpoint(path, run_b.trainer.state)
-        sync()
-        load_s = time.perf_counter() - t1
-        size = os.path.getsize(path + ext)
-        ckpt_io[fmt] = {"bytes": size, "save_s": save_s, "load_s": load_s, "save_MBps": size / save_s / 1e6,
-                        "load_MBps": size / load_s / 1e6,
-                        "restored": all(restored(run_b.trainer, snaps["checkpoint_epoch_1"]).values())}
-        os.remove(path + ext)
+    # the flagship's Adam checkpoint in every format: save and load timed
+    # (the file cache warm), each load restoring checkpoint_epoch_1 bitwise;
+    # the orbax reader's chunk decoding (the native zstd) timed apart
+    from multimodal_tta_tpu_torch.core import orbax_format, zstd
+
+    t1 = time.perf_counter()
+    zstd.lib()  # g++ builds the native zstd decoder (csrc/zstd_decode.cpp) into build/native/ once
+    zstd_build_s = time.perf_counter() - t1
+
+    def resumed(st) -> bool:
+        run_b.trainer.state = st
+        return all(restored(run_b.trainer, snaps["checkpoint_epoch_1"]).values())
+
+    ckpt_io = checkpoint_io(run_b.trainer.state, run_b.trainer.state, os.path.join(run_root, "io", "flagship"),
+                            resumed)
     log(f"[train] checkpoint I/O, the flagship's Adam state (params, mu, nu; the file cache warm): "
         + "; ".join(f"{fmt} {r['bytes']} bytes, save {r['save_s']:.3f} s ({r['save_MBps']:.0f} MB/s), load "
                     f"{r['load_s']:.3f} s ({r['load_MBps']:.0f} MB/s), restored bitwise {r['restored']}"
                     for fmt, r in ckpt_io.items()) + f"; card {smi}")
+    o = ckpt_io["orbax"]
+    log(f"[train] orbax: {o['chunks']} chunks, {o['decoded_bytes']} bytes decoded by the native zstd (raw and RLE "
+        f"blocks, the port's frames) in {o['decode_s']:.3f} s on a pool of {orbax_format.THREADS} threads "
+        f"({o['decode_MBps']:.0f} MB/s); {o['bytes'] / ckpt_io['msgpack']['bytes']:.4f}x msgpack's bytes; "
+        f"g++ build of the decoder {zstd_build_s:.2f} s; card {smi}")
     if not all(r["restored"] for r in ckpt_io.values()):
         raise AssertionError(f"a timed checkpoint did not restore bitwise: {ckpt_io}")
+
+    # the reference's own orbax file (tests/data/orbax_reference, written by
+    # the JAX package's save_checkpoint_sharded: tensorstore's level-1 frames)
+    fixture = orbax_fixture_check()
+    log(f"[train] the reference's orbax fixture ({fixture['leaves']} leaves, {fixture['chunks']} chunks, "
+        f"{fixture['bytes']} bytes) read bitwise equal to its expected.npz: {fixture['bitwise']}; frames by mode "
+        f"{fixture['modes']}; decode of its frames, {fixture['passes']} passes on one thread: "
+        f"{fixture['decode_MBps']:.1f} MB/s; card {smi}")
+    if not fixture["bitwise"] or not fixture["modes"].get("literals_huffman_4streams") \
+            or not fixture["modes"].get("sequences_fse"):
+        raise AssertionError(f"the orbax fixture: {fixture}")
+
+    # the resumed state saved by CheckpointHook as orbax; a fresh manager
+    # resumes from it through training.resume (its strict step below)
+    orbax_hook = CheckpointHook(os.path.join(run_root, "orbax"), fmt="orbax")
+    orbax_hook.trainer = run_b.trainer
+    orbax_hook.save(1, is_best=False)  # checkpoint_epoch_1.orbax: checkpoint_epoch_1's state
+    orbax_ckpt = os.path.join(run_root, "orbax", "checkpoint_epoch_1")
+    run_c = make_manager(os.path.join(run_root, "c"), resume=orbax_ckpt)
+    got_c = restored(run_c.trainer, snaps["checkpoint_epoch_1"])
+    start_c = run_c.trainer.start_epoch
+    log(f"[train] CheckpointHook(fmt=orbax) of the resumed state ({sorted(os.listdir(os.path.join(run_root, 'orbax')))},"
+        f" {tree_bytes(orbax_ckpt + '.orbax')} bytes) resumed by a fresh manager through training.resume: restored "
+        f"bitwise {got_c}, resumes at epoch {start_c}")
+    if not all(got_c.values()) or start_c != 2:
+        raise AssertionError("the orbax checkpoint did not restore bitwise")
 
     # one more step on the same batch, without and after the restart, in
     # strict mode (deterministic cuDNN algorithms, use_deterministic_algorithms)
@@ -10206,23 +10416,37 @@ def main() -> int:
                   "label": np.stack([s["label"] for s in train_set[:TRAIN_BATCH]])}
     set_random_seed(0, "strict")
     try:
-        step_loss = {}
-        for tag, run in (("uninterrupted", run_a), ("resumed", run_b)):
+        step_loss, step_launches = {}, {}
+
+        def step_counts():
+            return (fused_instance_norm.launches, fused_instance_norm.backward_launches, minplus.launches,
+                    instance_norm_backward_plain.cuda_calls)
+
+        for tag, run in (("uninterrupted", run_a), ("resumed", run_b), ("orbax_resumed", run_c)):
+            at = step_counts()
             run.trainer.run_step(step_batch)
             step_loss[tag] = run.trainer.flush_step_metrics()["loss"]
-        sync()
+            sync()
+            step_launches[tag] = tuple(b - a for a, b in zip(at, step_counts()))
+        orbax_step_launches = step_launches["orbax_resumed"]
     finally:
         set_random_seed(0, "practical")
     pa, pb = dict(run_a.model.named_parameters()), dict(run_b.model.named_parameters())
+    pc = dict(run_c.model.named_parameters())
     bitwise = all(torch.equal(pa[n], pb[n]) for n in pa)
+    bitwise_c = all(torch.equal(pa[n], pc[n]) for n in pa) and step_loss["orbax_resumed"] == step_loss["uninterrupted"]
     step_rel = max(float((pa[n] - pb[n]).abs().max()) / max(float(pa[n].abs().max()), 1e-30) for n in pa)
     loss_rel = abs(step_loss["resumed"] - step_loss["uninterrupted"]) / abs(step_loss["uninterrupted"])
     log(f"[train] one step after the restart vs without it (strict mode): loss {step_loss}, rel diff "
         f"{loss_rel:.3g} (limit {RESUME_STEP_REL}); params max rel diff {step_rel:.3g} (limit {RESUME_STEP_REL}); "
         f"bitwise equal={bitwise}")
+    log(f"[train] the step after the orbax resume (strict mode): loss and params bitwise the uninterrupted run's: "
+        f"{bitwise_c}; its launches (norm forward, backward, min-plus, plain backward) {orbax_step_launches}")
     if not (loss_rel <= RESUME_STEP_REL and step_rel <= RESUME_STEP_REL):
         raise AssertionError("the step after the restart differs from the step without it")
-    del run_b, pb
+    if not bitwise_c or orbax_step_launches != (18, 18, 0, 0):
+        raise AssertionError(f"the step after the orbax resume: bitwise {bitwise_c}, launches {orbax_step_launches}")
+    del run_b, pb, run_c, pc
 
     # ---- 12. training parity: kernel against plain norm, f32, full width ----
     r = np.random.RandomState(23)
@@ -10333,7 +10557,8 @@ def main() -> int:
         f"Python; decodes by path over the phase {cli['decodes']}")
     for run_name in ("train", "train_device_cache"):
         r = cli[run_name]
-        log(f"[cli] {run_name}: {r['train_volumes']} volumes, {r['steps']} steps in {r['wall_s']:.2f} s; ms per step "
+        log(f"[cli] {run_name} ({r['format']} checkpoints): {r['train_volumes']} volumes, {r['steps']} steps in "
+            f"{r['wall_s']:.2f} s; ms per step "
             f"(input path included) {[round(t, 2) for t in r['step_ms']]} -> median of the steps after an "
             f"epoch's first {r['median_step_ms']:.2f}, mean over each epoch's steps "
             f"{[round(t, 2) for t in r['epoch_ms_per_step']]}; wall per epoch (validation and checkpoints included) "
@@ -10353,7 +10578,8 @@ def main() -> int:
     for run_name, fwd_per_batch, bwd_per_batch, minplus_per_batch in (("adapt", 3, 1, 2), ("predict", 2, 1, 0)):
         r = cli[run_name]
         log(f"[cli] {run_name}: {r['wall_s']:.2f} s, {r['test_batches']} test batches, launches {r['launches']}, "
-            f"model restored {r['model_restored']}; " + (
+            f"model restored {r['model_restored']}; "
+            + (f"from {r['checkpoint']} (cli.train's orbax checkpoint); " if "checkpoint" in r else "") + (
                 f"metrics {r['metrics']}" if run_name == "adapt"
                 else f"{r['cases']} cases written, foreground voxels {r['voxels']}"))
         b = r["test_batches"]

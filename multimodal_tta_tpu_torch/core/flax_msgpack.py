@@ -59,6 +59,12 @@ class Fields(dict):
     ``"0"``, ``"1"``, ... (a plain dict is written with sorted keys)."""
 
 
+class TupleFields(Fields):
+    """A tuple's ``Fields``: written alike here; the orbax format
+    (``core/orbax_format.py``) records its keys as tuple indices and an
+    empty one as ``()``."""
+
+
 # ---------------------------------------------------------------------------
 # writing
 
@@ -350,4 +356,4 @@ def dump(tree, path: str) -> int:
         return packb(tree, f)
 
 
-__all__ = ["MAX_CHUNK_SIZE", "Fields", "dump", "load", "packb", "unpackb"]
+__all__ = ["MAX_CHUNK_SIZE", "Fields", "TupleFields", "dump", "load", "packb", "unpackb"]

@@ -41,21 +41,18 @@ class CheckpointHook(HookBase):
     scheduler state, best_metrics. ``fmt`` is ``"msgpack"``, the
     reference's single-file format and the stock configs' choice
     (``configs/training/default.yaml``: ``path.msgpack``, which the JAX
-    package reads too), or ``"torch"`` (``path.pt``); the sharded orbax
-    format is not ported (ROADMAP.md, item 13)."""
+    package reads too), ``"orbax"`` (alias ``"sharded"``, as in the
+    reference: ``path.orbax/``, the reference's multi-host format, each rank
+    writing its own chunks) or ``"torch"`` (``path.pt``)."""
 
     def __init__(self, save_dir: str, save_freq: int = 1, save_start: int = 10, fmt: str = "msgpack"):
         self.save_dir = save_dir
         self.save_freq = int(save_freq)
         self.save_start = int(save_start)
         fmt = str(fmt).lower()
-        if fmt in ("orbax", "sharded"):
-            raise NotImplementedError(
-                f"[CheckpointHook] the {fmt} checkpoint format is not ported "
-                "(ROADMAP.md, item 13); use training.checkpoint_format=msgpack")
-        if fmt not in ("msgpack", "torch"):
+        if fmt not in ("msgpack", "orbax", "sharded", "torch"):
             raise ValueError(f"[CheckpointHook] unknown checkpoint format: {fmt}")
-        self.fmt = fmt
+        self.fmt = "orbax" if fmt == "sharded" else fmt
         os.makedirs(self.save_dir, exist_ok=True)
 
     def after_train_epoch(self):
@@ -82,7 +79,7 @@ class CheckpointHook(HookBase):
 
     def load(self, path: str) -> int:
         """Restore trainer state; returns the epoch to resume from."""
-        if not any(os.path.exists(path + s) for s in ("", ".pt", ".msgpack", ".orbax")):
+        if not any(os.path.exists(path + s) for s in ("", ".pt", ".msgpack", ".orbax", ".orbax.old")):
             self.trainer.logger.warning(f"Checkpoint not found at {path}, starting from scratch.")
             return 0
         state, extra = load_checkpoint(path, self.trainer.state)

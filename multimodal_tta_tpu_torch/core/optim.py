@@ -43,7 +43,7 @@ from ..conf.node import ConfigNode
 from ..models.convert import flax_cut_dim, flax_layouts, flax_leaf_of, flax_path, from_flax, nest, transposed_kernels
 from ..parallel.tensor import sharded_params, update_rule
 from ..utils.config import get_config
-from .flax_msgpack import Fields
+from .flax_msgpack import Fields, TupleFields
 
 
 def no_decay_mask(model: nn.Module, no_decay_keys, treat_1d: bool = True) -> Dict[str, bool]:
@@ -374,8 +374,8 @@ class _Slot:
         self.key, self.per_param = key, per_param
 
 
-def _chain(*parts) -> Fields:
-    return Fields((str(i), p) for i, p in enumerate(parts))
+def _chain(*parts) -> TupleFields:
+    return TupleFields((str(i), p) for i, p in enumerate(parts))
 
 
 def optax_tree(optimizer: Optimizer) -> Fields:
@@ -404,7 +404,7 @@ def optax_tree(optimizer: Optimizer) -> Fields:
                   inner_state=_chain(*([masked] if decay else []), *parts))
     if isinstance(optimizer, MultiSteps):
         tree = Fields(mini_step=S("mini_step"), gradient_step=S("gradient_step"), inner_opt_state=tree,
-                      acc_grads=S("acc", True), skip_state=Fields())
+                      acc_grads=S("acc", True), skip_state=TupleFields())
     return tree
 
 

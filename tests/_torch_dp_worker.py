@@ -55,13 +55,20 @@ def port_model(model_kw: dict, state: Dict[str, torch.Tensor]) -> torch.nn.Modul
 
 def train_case(mesh, *, cfg: dict, model_kw: dict, state: dict, batches: Sequence[dict],
                device_transform: Optional[dict] = None, checkpoint: Optional[str] = None,
-               resume: Optional[str] = None, more: Sequence[dict] = ()) -> Dict[str, Any]:
+               resume: Optional[str] = None, more: Sequence[dict] = (), formats: Sequence[str] = ("msgpack",),
+               frozen: Sequence[str] = ()) -> Dict[str, Any]:
     """``run_step`` over ``batches`` (global host batches): the loss and the
     params after each step. With ``checkpoint`` the state is saved after
-    them (rank 0 writes), and the steps of ``more`` follow; with ``resume``
-    the run starts from that checkpoint."""
+    them (in each of ``formats``, the sidecar naming the last; rank 0
+    writes, or for orbax every rank its own chunks), and the steps of
+    ``more`` follow; with ``resume`` the run starts from that checkpoint.
+    The params named in ``frozen`` take no gradient and stay out of the
+    optimizer."""
     config = ConfigNode(cfg)
     model = port_model(model_kw, state)
+    for name, p in model.named_parameters():
+        if name in frozen:
+            p.requires_grad_(False)
     optimizer, lr = build_optimizer(config.training, model, mesh)
     trainer = SegTrainer(config, device_transform=device_transform, device="cpu", mesh=mesh)
     trainer.setup(TrainState(model=model, optimizer=optimizer), None, EpochScheduler(config.training, lr))
@@ -80,7 +87,8 @@ def train_case(mesh, *, cfg: dict, model_kw: dict, state: dict, batches: Sequenc
 
     steps(batches)
     if checkpoint:
-        save_checkpoint(checkpoint, trainer.state, {"epoch": 0})
+        for fmt in formats:
+            save_checkpoint(checkpoint, trainer.state, {"epoch": 0}, fmt=fmt)
         out["saved_state_bytes"] = _optimizer_state_bytes(trainer.state.optimizer)
     steps(more)
     return out

@@ -75,12 +75,14 @@ def forward_case(mesh, *, kind: str, kw: dict, params, x: np.ndarray) -> Dict[st
 
 
 def train_case(mesh, *, cfg: dict, kw: dict, params, batches: Sequence[dict], checkpoint: Optional[str] = None,
-               resume: Optional[str] = None, more: Sequence[dict] = ()) -> Dict[str, Any]:
+               resume: Optional[str] = None, more: Sequence[dict] = (), formats: Sequence[str] = ("msgpack",)
+               ) -> Dict[str, Any]:
     """UNETR's ``run_step`` over global host ``batches``: the loss and the
     whole params after each step, and the gradients of the whole
     (replicated) params after the first step; with ``checkpoint`` the state
-    is saved after them and the steps of ``more`` follow; with ``resume``
-    the run starts from that checkpoint."""
+    is saved after them (in each of ``formats``, the sidecar naming the
+    last) and the steps of ``more`` follow; with ``resume`` the run starts
+    from that checkpoint."""
     config = ConfigNode(cfg)
     model = build("unetr", kw, params, mesh)
     optimizer, lr = build_optimizer(config.training, model, mesh)
@@ -102,7 +104,8 @@ def train_case(mesh, *, cfg: dict, kw: dict, params, batches: Sequence[dict], ch
 
     steps(batches)
     if checkpoint:
-        save_checkpoint(checkpoint, trainer.state, {"epoch": 0})
+        for fmt in formats:
+            save_checkpoint(checkpoint, trainer.state, {"epoch": 0}, fmt=fmt)
     steps(more)
     return out
 

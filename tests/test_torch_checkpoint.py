@@ -4,8 +4,8 @@ a round trip is bitwise and leaves no ``.tmp`` behind; a run resumed from a
 checkpoint through ``training.resume`` equals an uninterrupted run bitwise;
 the EMA shadow toggled between save and load is handled as the reference
 does; ``resolve_serving_params`` against the reference's contract; the
-options and the format not ported (orbax) raise. Both formats, the
-reference's msgpack (the default) and the port's ``.pt``, round-trip."""
+options not ported raise. The formats, the reference's msgpack (the
+default) and orbax and the port's ``.pt``, round-trip."""
 
 import inspect
 import os
@@ -227,9 +227,12 @@ def test_manager_defaults_to_cuda_and_raises_what_is_not_ported(tmp_path):
         m = ExperimentManager(ConfigNode(dict(cfg, **patch)), device="cpu")
         m.setup_model()
         m.setup_optimizer()
-        if "checkpoint_format" in patch["training"]:  # orbax stays unported (item 13)
-            with pytest.raises(NotImplementedError, match="ROADMAP.md, item 13"):
-                m.setup_trainer()
+        if "checkpoint_format" in patch["training"]:  # the reference's orbax format (ported)
+            m.setup_trainer(str(tmp_path / "orbax_run"))
+            m.checkpoint_hook.save(0, is_best=False)
+            assert m.checkpoint_hook.fmt == "orbax"
+            assert sorted(os.listdir(m.checkpoint_hook.save_dir)) == ["checkpoint_epoch_0.json",
+                                                                      "checkpoint_epoch_0.orbax"]
             continue
         # training.profile and training.debug_nans raised before the
         # training-options slice (tests/test_torch_training_hooks.py runs them)
@@ -254,13 +257,13 @@ def test_manager_defaults_to_cuda_and_raises_what_is_not_ported(tmp_path):
 def test_foreign_and_missing_checkpoints(tmp_path):
     state = trained_state(ADAM, steps=1).state
     # a .msgpack loads (tests/test_torch_flax_msgpack.py holds it against
-    # the JAX package); the sharded orbax format raises
+    # the JAX package), and so does an orbax one (tests/test_torch_orbax.py);
+    # an .orbax directory that is no orbax checkpoint raises
     save_checkpoint(str(tmp_path / "new"), state)
     got, _ = load_checkpoint(str(tmp_path / "new"), trained_state(ADAM, steps=1, seed=1).state)
     assert all(torch.equal(a, b) for a, b in zip(got.model.parameters(), state.model.parameters()))
     os.makedirs(tmp_path / "old.orbax")
-    with pytest.raises(NotImplementedError, match=r"orbax format, which the port does not read \(ROADMAP.md, "
-                                                  r"item 13\)"):
+    with pytest.raises(FileNotFoundError, match=r"no _METADATA in .*old\.orbax: not a StandardCheckpointer"):
         load_checkpoint(str(tmp_path / "old"), state)
     with pytest.raises(FileNotFoundError):
         load_checkpoint(str(tmp_path / "absent"), state)

@@ -160,6 +160,9 @@ def _payloads(tmp):
         "zero1_from_one": ("train", dict(TRAIN, cfg=zero1_cfg, batches=[], resume=f"{tmp}/one", more=MORE)),
         "zero1_adafactor": ("train", dict(TRAIN, cfg=trainer_config(dict(ADAFACTOR, zero1=True)))),
         "zero1_accum": ("train", dict(TRAIN, cfg=trainer_config(dict(ADAM, zero1=True, grad_accum=2)))),
+        "zero1_orbax": ("train", dict(TRAIN, cfg=zero1_cfg, batches=TRAIN["batches"][:1],
+                                      checkpoint=f"{tmp}/zero1_orbax", formats=("msgpack", "orbax"),
+                                      frozen=("enc0.residual_proj.bias",))),
         "batchnorm": ("train", dict(cfg=trainer_config(SGD), model_kw=dict(MK, norm="BATCH"),
                                     state=_state(2, norm="BATCH"), batches=_batches([4, 5], 2))),
         "batchnorm_remat": ("train", dict(cfg=trainer_config(dict(SGD, remat=True)),
@@ -360,6 +363,32 @@ def test_zero1_equals_plain_data_parallel(runs):
     adam_state = 2 * 4 * sum(v.size for v in plain["params"][0].values())  # two f32 moments
     held = [r["saved_state_bytes"] for r in zero]
     assert all(0 < h < adam_state for h in held) and abs(sum(held) - adam_state) <= 8 * 64
+
+
+def test_zero1_orbax_each_rank_writes_its_partition(runs):
+    """A two-rank zero1 run with a frozen param (held by no optimizer)
+    saves as msgpack (consolidated to rank 0) and as orbax (each rank the
+    moments of its own partition, rank 0 the frozen param's): one process
+    reads the orbax tree bitwise equal to the msgpack one, and the two
+    ranks' databases hold disjoint, non-empty shares of the moments."""
+    from multimodal_tta_tpu_torch.core import flax_msgpack, ocdbt, orbax_format
+
+    def leaves(payload):
+        return {".".join(k for k, _ in keys): v for keys, v in orbax_format.flatten(payload)}
+
+    ckpt = runs["zero1_orbax"][0]["checkpoint"]
+    want, got = leaves(flax_msgpack.load(ckpt + ".msgpack")), leaves(orbax_format.load(ckpt + ".orbax"))
+    assert got.keys() == want.keys()
+    for k, v in want.items():
+        assert got[k] == v if isinstance(v, str) else torch.equal(got[k], torch.as_tensor(np.asarray(v))), k
+    moments = []
+    for rank in (0, 1):
+        with ocdbt.Database(f"{ckpt}.orbax/ocdbt.process_{rank}") as db:
+            moments.append({e.key.decode().rpartition("/")[0] for e in db.entries()
+                            if e.key.startswith(b"opt_state.") and not e.key.endswith(b".zarray")})
+    assert moments[0] and moments[1] and not moments[0] & moments[1]
+    frozen = [n for n in moments[0] | moments[1] if n.endswith(".enc0.residual_proj.bias")]
+    assert len(frozen) == 2 and all(n in moments[0] for n in frozen)  # mu and nu
 
 
 def test_zero1_checkpoint_resumes_in_one_process_and_back(runs):

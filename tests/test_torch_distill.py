@@ -122,13 +122,13 @@ def test_load_params_only(tmp_path):
     assert all(torch.equal(p, ema[n]) for n, p in other.named_parameters())
     with pytest.raises(ValueError, match="carries no ema_params"):
         load_params_only(str(tmp_path / "plain"), other, use_ema=True)
-    # both files are msgpack (the default); a .pt loads as well, and only
-    # the sharded orbax format raises
+    # both files are msgpack (the default); a .pt loads as well, and an
+    # orbax checkpoint alone raises the reference's ValueError
     save_checkpoint(str(tmp_path / "pt"), TrainState(model=model, optimizer=opt), fmt="torch")
     load_params_only(str(tmp_path / "pt"), other)
     assert all(torch.equal(a, b) for a, b in zip(other.state_dict().values(), model.state_dict().values()))
-    os.makedirs(tmp_path / "old.orbax")
-    with pytest.raises(NotImplementedError, match="item 13"):
+    save_checkpoint(str(tmp_path / "old"), TrainState(model=model, optimizer=opt), fmt="orbax")
+    with pytest.raises(ValueError, match="is orbax-format; params-only loading needs the msgpack format"):
         load_params_only(str(tmp_path / "old"), other)
     with pytest.raises(FileNotFoundError):
         load_params_only(str(tmp_path / "absent"), other)

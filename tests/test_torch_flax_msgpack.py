@@ -409,7 +409,7 @@ def test_params_only_and_the_teacher_from_msgpack(tmp_path):
 def test_sidecar_decides_between_msgpack_and_pt(tmp_path):
     """With ``path.msgpack`` and ``path.pt`` both there, the sidecar's
     ``_format`` decides, else the newer file, with the reference's
-    warning."""
+    warning; so it does with ``path.orbax`` beside them."""
     cfg = {"task": {"seed": 0}, "training": ADAM_WD}
     a = _port_trainer(cfg, UNet3D(**SMALL, device="cpu", seed=1)).state
     b = _port_trainer(cfg, UNet3D(**SMALL, device="cpu", seed=2)).state
@@ -436,7 +436,7 @@ def test_sidecar_decides_between_msgpack_and_pt(tmp_path):
     os.utime(path + ".pt", (1e9, 1e9))
     ok, msg = restored(b)
     assert ok and msg.endswith("restoring the msgpack payload (newer mtime)")
-    os.makedirs(path + ".orbax")
-    os.utime(path + ".orbax", (2e9, 2e9))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, item 13"):
-        load_checkpoint(path, a)
+    save_checkpoint(path, a, fmt="orbax")  # a third format, and the sidecar says orbax
+    ok, msg = restored(a)
+    assert ok and msg == (f"[checkpoint] both {path}.msgpack and {path}.pt and {path}.orbax exist; restoring the "
+                          "orbax payload (sidecar-declared)")

@@ -10,7 +10,8 @@ import.
   - no module of ``multimodal_tta_tpu_torch/``, no ``scripts/torch_*.py``,
     not ``chip_smoke.py`` and not the ranks' helper
     ``tests/_torch_dp_worker.py`` imports ``jax``, ``flax``, ``optax``,
-    ``msgpack``, ``orbax`` or the JAX package (parsed with ``ast``;
+    ``msgpack``, ``orbax``, ``tensorstore``, ``zstandard`` or the JAX
+    package (parsed with ``ast``;
     ``multimodal_tta_tpu_torch`` is not ``multimodal_tta_tpu``);
   - every CLI's ``main`` defaults to ``device="cuda"`` and raises without a
     card."""
@@ -28,7 +29,7 @@ import multimodal_tta_tpu.registry as jax_registry
 import multimodal_tta_tpu_torch.registry as port_registry
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "flax", "optax", "msgpack", "orbax", "multimodal_tta_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "msgpack", "orbax", "tensorstore", "zstandard", "multimodal_tta_tpu")
 SUBPACKAGES = ("conf", "core", "data", "evaluation", "models", "ops", "parallel", "serving", "tta", "utils")
 NOT_PORTED = {"utils/jax_setup.py": "JAX's platform environment"}  # module of the JAX package -> why
 

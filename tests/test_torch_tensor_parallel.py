@@ -39,7 +39,7 @@ from multimodal_tta_tpu.models.vit import ViT as JaxViT
 from multimodal_tta_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from multimodal_tta_tpu.parallel.mesh import shard_batch as jax_shard_batch
 from multimodal_tta_tpu.tta.tent import TentAdapter as JaxTentAdapter
-from multimodal_tta_tpu_torch.core import flax_msgpack
+from multimodal_tta_tpu_torch.core import flax_msgpack, ocdbt, orbax_format
 from multimodal_tta_tpu_torch.conf import ConfigNode
 from multimodal_tta_tpu_torch.core.optim import build_optimizer
 from multimodal_tta_tpu_torch.models.convert import from_flax
@@ -97,6 +97,7 @@ def _payloads(tmp):
         "train": ("train", dict(TRAIN, checkpoint=f"{tmp}/tp", more=MORE)),
         "resume_one": ("train", dict(TRAIN, batches=[], resume=f"{tmp}/one", more=MORE)),
         "zero1": ("train", dict(TRAIN, cfg=trainer_config(dict(SGD, zero1=True)), checkpoint=f"{tmp}/tpz",
+                                formats=("orbax", "msgpack"),
                                 more=MORE)),
         # 3 steps of grad_accum 2: the checkpoint holds an accumulator mid-way
         "accum": ("train", dict(TRAIN, cfg=ACCUM_CFG, batches=_batches(3, 6), checkpoint=f"{tmp}/tpa", more=MORE)),
@@ -314,8 +315,22 @@ def test_zero1_over_the_data_group_of_each_model_rank(runs):
     """ZeRO-1 partitions the momentum over the data group of each model rank:
     the same losses and params bit for bit as without it, and its checkpoint
     (consolidated per data group, the moments gathered over the model
-    group) resumes in one process as the plain run's does."""
+    group) resumes in one process as the plain run's does. Its orbax file
+    (ZeRO-1 beside a model axis: gathered, rank 0 writes it all) holds the
+    msgpack file's leaves bitwise."""
     payload, ranks = runs["zero1"]
+
+    def leaves(payload) -> dict:
+        return {".".join(k for k, _ in keys): v for keys, v in orbax_format.flatten(payload)}
+
+    got, want = (leaves(load(payload["checkpoint"] + ext)) for load, ext in (
+        (orbax_format.load, ".orbax"), (flax_msgpack.load, ".msgpack")))
+    assert got.keys() == want.keys() and all(
+        got[k] == v if isinstance(v, str) else torch.equal(torch.as_tensor(got[k]), torch.as_tensor(v))
+        for k, v in want.items())
+    for r in (1, 2, 3):
+        with ocdbt.Database(f"{payload['checkpoint']}.orbax/ocdbt.process_{r}") as db:
+            assert not list(db.entries())
     plain = runs["train"][1]
     for r, p in zip(ranks, plain):
         assert r["loss"] == p["loss"]
